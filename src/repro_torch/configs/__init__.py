@@ -1,0 +1,66 @@
+"""Config registry: ``get_config(arch_id)`` / ``get_smoke_config(arch_id)``.
+
+Every arch id of the JAX package resolves here (both spellings:
+``qwen2.5-3b`` / ``qwen25_3b``), but only the ported ones load; the others
+raise ``NotImplementedError`` naming the ROADMAP queue that ports them.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import ModelConfig, reduce_for_smoke
+
+# every arch id the JAX package knows -> its config module name
+_ARCH_MODULES: dict[str, str] = {
+    "mistral-large-123b": "mistral_large_123b",
+    "stablelm-3b": "stablelm_3b",
+    "phi3-mini-3.8b": "phi3_mini_3_8b",
+    "qwen2.5-3b": "qwen25_3b",
+    "rwkv6-7b": "rwkv6_7b",
+    "qwen2-vl-72b": "qwen2_vl_72b",
+    "phi3.5-moe-42b-a6.6b": "phi35_moe_42b",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b",
+    "hubert-xlarge": "hubert_xlarge",
+    "zamba2-7b": "zamba2_7b",
+}
+
+# the arch ids whose config module exists in this package
+PORTED: tuple[str, ...] = ("qwen2.5-3b",)
+
+
+def resolve_arch(arch: str) -> str:
+    """Canonical arch id from any accepted spelling (``qwen2.5-3b``,
+    ``qwen25_3b``, or any punctuation/case variant)."""
+    if arch in _ARCH_MODULES:
+        return arch
+
+    def norm(s: str) -> str:
+        return s.lower().replace("-", "").replace("_", "").replace(".", "")
+
+    n = norm(arch)
+    for key, mod in _ARCH_MODULES.items():
+        if n in (norm(key), norm(mod)):
+            return key
+    raise KeyError(f"unknown arch {arch!r}; known: {sorted(_ARCH_MODULES)}")
+
+
+def _module(arch: str):
+    key = resolve_arch(arch)
+    if key not in PORTED:
+        raise NotImplementedError(
+            f"arch {key!r} is not ported to repro_torch yet (ported: "
+            f"{list(PORTED)}); its family is in ROADMAP.md queue 1, "
+            f"'Other model families'")
+    return importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[key]}")
+
+
+def get_config(arch: str) -> ModelConfig:
+    return _module(arch).CONFIG
+
+
+def get_smoke_config(arch: str) -> ModelConfig:
+    return _module(arch).SMOKE
+
+
+__all__ = ["PORTED", "ModelConfig", "get_config",
+           "get_smoke_config", "reduce_for_smoke", "resolve_arch"]

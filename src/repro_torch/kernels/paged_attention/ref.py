@@ -1,0 +1,49 @@
+"""Plain PyTorch versions of the paged-attention kernels.
+
+They compute what the CUDA kernels compute, in the vectorized form of the
+JAX package's ``paged_attention_gather``: gather the slot's pages into a
+contiguous view, then one materialized masked softmax. Not bit-identical to
+the kernels' online softmax (sums run in another order), equal within fp32
+rounding. The CPU tests hold them to the JAX Pallas kernels, and
+``chip_smoke.py`` holds the CUDA kernels to them on the card.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def paged_attention_ref(q, k_pages, v_pages, tables, q_start) -> torch.Tensor:
+    """q (B, C, Hq, D); pools (N, P, Hkv, D); tables (B, nP) int;
+    q_start (B,) int. Query row c of slot b sees pool positions
+    ``<= q_start[b] + c`` of its own pages. Returns fp32 (B, C, Hq, D)."""
+    B, C, Hq, D = q.shape
+    _, P, Hkv, _ = k_pages.shape
+    nP = tables.shape[1]
+    G, S = Hq // Hkv, nP * P
+    idx = tables.long()
+    k = k_pages[idx].reshape(B, S, Hkv, D).float()  # (B, nP, P, Hkv, D) flat
+    v = v_pages[idx].reshape(B, S, Hkv, D).float()
+    qg = q.reshape(B, C, Hkv, G, D).float()
+    scores = torch.einsum("bchgd,bkhd->bhgck", qg, k) * (1.0 / D ** 0.5)
+    qpos = q_start.long()[:, None] + torch.arange(C, device=q.device)[None]
+    kvpos = torch.arange(S, device=q.device)
+    mask = kvpos[None, None] <= qpos[:, :, None]             # (B, C, S)
+    scores = torch.where(mask[:, None, None], scores,
+                         torch.full_like(scores, NEG_INF))
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp(scores - m)
+    l = p.sum(dim=-1, keepdim=True)
+    # NEG_INF is finite: a fully masked row (inactive slot) is a finite
+    # uniform average, as in the kernel
+    out = torch.einsum("bhgck,bkhd->bchgd", p / l.clamp_min(1e-30), v)
+    return out.reshape(B, C, Hq, D)
+
+
+def paged_reset_ref(k_pages, v_pages, row) -> None:
+    """Zero the pages named in ``row`` across every layer of the stacked
+    (L, N, P, H, D) pools, in place. Repeated ids are fine."""
+    idx = row.long()
+    k_pages[:, idx] = 0.0
+    v_pages[:, idx] = 0.0

@@ -1,0 +1,94 @@
+"""Core layer primitives: dense init, RMSNorm, RoPE, SwiGLU.
+
+Port of ``repro/models/layers.py``. Weights keep the JAX package's
+``x @ W`` layout, ``(d_in, d_out)``, so weights carried across need no
+transpose and the two packages compute the same products. Parameters are
+created without gradients: the ported path is inference only.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def _param(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int, device,
+               dtype=torch.float32, scale: float | None = None) -> torch.Tensor:
+    scale = (1.0 / d_in) ** 0.5 if scale is None else scale
+    w = torch.randn(d_in, d_out, generator=gen, device=device,
+                    dtype=torch.float32) * scale
+    return w.to(dtype)
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int, device,
+               dtype=torch.float32) -> torch.Tensor:
+    w = torch.randn(vocab, d, generator=gen, device=device,
+                    dtype=torch.float32) * (1.0 / d ** 0.5)
+    return w.to(dtype)
+
+
+def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6):
+    """RMSNorm in fp32, eps 1e-6 (``layers.py:24-29``); returns x's dtype."""
+    x32 = x.float()
+    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * scale.float()).to(x.dtype)
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, d: int, device, dtype=torch.float32):
+        super().__init__()
+        self.scale = _param(torch.ones(d, device=device, dtype=dtype))
+
+
+def rope_freqs(d_rot: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, d_rot, 2, dtype=torch.float32, device=device) / d_rot
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               rope_pct: float = 1.0) -> torch.Tensor:
+    """x (B, S, H, Dh); positions (B, S) int. Rotates INTERLEAVED pairs
+    ``(x[..., 0::2], x[..., 1::2])`` like the JAX package
+    (``layers.py:80-83``), not the rotate-half convention. M-RoPE is not
+    ported yet."""
+    dh = x.shape[-1]
+    d_rot = int(dh * rope_pct)
+    d_rot -= d_rot % 2
+    if d_rot == 0:
+        return x
+    x_rot, x_pass = x[..., :d_rot], x[..., d_rot:]
+    inv = rope_freqs(d_rot, theta, x.device)                   # (d_rot/2,)
+    ang = positions[..., None].float() * inv                   # (B, S, d_rot/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x_rot[..., 0::2], x_rot[..., 1::2]
+    r1 = x1 * cos - x2 * sin
+    r2 = x1 * sin + x2 * cos
+    rot = torch.stack([r1, r2], dim=-1).reshape(x_rot.shape)
+    return torch.cat([rot.to(x.dtype), x_pass], dim=-1)
+
+
+def swiglu_apply(p: "SwiGLU", x: torch.Tensor) -> torch.Tensor:
+    g = x @ p.w_gate.to(x.dtype)
+    u = x @ p.w_up.to(x.dtype)
+    return (F.silu(g) * u) @ p.w_down.to(x.dtype)
+
+
+class SwiGLU(nn.Module):
+    """Gate, up and down projections, each ``(d_in, d_out)``."""
+
+    def __init__(self, d: int, d_ff: int, device, dtype=torch.float32,
+                 gen: torch.Generator | None = None):
+        super().__init__()
+        if gen is None:  # shapes only: filled by a converter
+            mk = lambda i, o: torch.empty(i, o, device=device, dtype=dtype)
+        else:
+            mk = lambda i, o: dense_init(gen, i, o, device, dtype)
+        self.w_gate = _param(mk(d, d_ff))
+        self.w_up = _param(mk(d, d_ff))
+        self.w_down = _param(mk(d_ff, d))

@@ -1,0 +1,168 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+This file imports only torch and the port, so it runs on the GPU machine as
+it is (``python -m pytest -q tests/test_torch_cuda_kernels.py``); without a
+CUDA device every test skips. ``chip_smoke.py`` repeats the full-width
+checks on every run; these add the edges: more head dims, row tiles past
+one block, isolation against poisoned pages, argument checks, and the
+smoke-size serving slice on the card against the CPU.
+"""
+import copy
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.api import Session
+from repro_torch.kernels import dispatch
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention import ref as flash_ref
+from repro_torch.kernels.paged_attention import ops as paged_ops
+from repro_torch.kernels.paged_attention import ref as paged_ref
+from repro_torch.runtime.serving import zipf_requests
+
+# kernel vs plain version, fp32 on the card: sums in another order
+ATOL = RTOL = 1e-5
+# the smoke-size slice, card vs CPU: fp32 products in other orders
+SLICE_ATOL = SLICE_RTOL = 1e-4
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; run this file on the GPU machine")
+    return torch.device("cuda")
+
+
+def _paged(dev, B, C, Hq, Hkv, D, N, P, nP, q_start, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, C, Hq, D, device=dev, generator=g)
+    kp = torch.randn(N, P, Hkv, D, device=dev, generator=g)
+    vp = torch.randn(N, P, Hkv, D, device=dev, generator=g)
+    tables = torch.stack([torch.randperm(N, device=dev, generator=g)[:nP]
+                          for _ in range(B)]).to(torch.int32).contiguous()
+    qs = torch.tensor(q_start, dtype=torch.int32, device=dev)
+    return q, kp, vp, tables, qs
+
+
+@pytest.mark.parametrize("B,C,Hq,Hkv,D,N,P,nP,q_start", [
+    (4, 1, 16, 2, 128, 64, 16, 8, [0, 40, 127, -1]),     # full-width decode
+    (4, 16, 16, 2, 128, 64, 16, 8, [0, 40, 112, -1]),    # full-width chunk
+    (2, 32, 16, 2, 128, 32, 16, 4, [0, 20]),             # 256 rows: 2 tiles
+    (3, 4, 4, 2, 64, 12, 8, 3, [5, 0, 17]),
+    (2, 1, 4, 4, 32, 8, 16, 2, [9, 30]),
+    (3, 4, 4, 2, 16, 12, 8, 3, [-1, 3, 8]),              # smoke head dim
+])
+def test_paged_attention_kernel_matches_plain(cuda, B, C, Hq, Hkv, D, N, P,
+                                              nP, q_start):
+    args = _paged(cuda, B, C, Hq, Hkv, D, N, P, nP, q_start)
+    n = dispatch.KERNELS["paged_attention"].launches
+    got = paged_ops.paged_attention(*args)
+    want = paged_ref.paged_attention_ref(*args)
+    torch.cuda.synchronize()
+    assert dispatch.KERNELS["paged_attention"].launches == n + 1
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+
+
+def test_paged_attention_reads_only_the_slots_own_pages(cuda):
+    """Pages no table row names hold NaN: one read of them would poison the
+    output."""
+    q, kp, vp, tables, qs = _paged(cuda, 4, 16, 16, 2, 128, 64, 16, 4,
+                                   [0, 10, 48, -1])
+    want = paged_ops.paged_attention(q, kp, vp, tables, qs)
+    named = torch.zeros(64, dtype=torch.bool, device=cuda)
+    named[tables.long().flatten()] = True
+    kp[~named] = float("nan")
+    vp[~named] = float("nan")
+    got = paged_ops.paged_attention(q, kp, vp, tables, qs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_paged_reset_kernel_bit_equal_and_isolated(cuda):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    k = torch.randn(36, 40, 16, 2, 128, device=cuda, generator=g)
+    v = torch.randn(36, 40, 16, 2, 128, device=cuda, generator=g)
+    row = torch.tensor([7, 3, 7, 7, 19, 7], dtype=torch.int32, device=cuda)
+    k0, v0 = k.clone(), v.clone()
+    kr, vr = k.clone(), v.clone()
+    n = dispatch.KERNELS["paged_reset"].launches
+    paged_ops.paged_reset(k, v, row)
+    paged_ref.paged_reset_ref(kr, vr, row)
+    torch.cuda.synchronize()
+    assert dispatch.KERNELS["paged_reset"].launches == n + 1
+    assert torch.equal(k, kr) and torch.equal(v, vr)
+    keep = [i for i in range(40) if i not in (3, 7, 19)]
+    assert torch.equal(k[:, keep], k0[:, keep])
+    assert torch.equal(v[:, keep], v0[:, keep])
+    assert (k[:, [3, 7, 19]] == 0).all() and (v[:, [3, 7, 19]] == 0).all()
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,causal", [
+    (4, 32, 16, 2, 128, True),     # direct-mode prefill
+    (2, 100, 16, 2, 128, True),    # ragged last tiles
+    (1, 257, 8, 8, 64, True),
+    (2, 13, 4, 2, 16, True),       # smoke head dim
+    (2, 70, 4, 1, 32, False),
+])
+def test_flash_kernel_matches_plain(cuda, B, S, Hq, Hkv, D, causal):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q = torch.randn(B, S, Hq, D, device=cuda, generator=g)
+    k = torch.randn(B, S, Hkv, D, device=cuda, generator=g)
+    v = torch.randn(B, S, Hkv, D, device=cuda, generator=g)
+    n = dispatch.KERNELS["flash_attention"].launches
+    got = flash_ops.flash_attention(q, k, v, causal=causal)
+    want = flash_ref.attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert dispatch.KERNELS["flash_attention"].launches == n + 1
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    q, kp, vp, tables, qs = _paged(cuda, 2, 1, 4, 2, 128, 8, 16, 2, [0, 1])
+    with pytest.raises(ValueError, match="dtype"):
+        paged_ops.paged_attention(q.double(), kp, vp, tables, qs)
+    with pytest.raises(ValueError, match="contiguous"):
+        paged_ops.paged_attention(q[..., ::2], kp, vp, tables, qs)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_ops.flash_attention(*(torch.zeros(1, 4, 2, 48, device=cuda)
+                                    for _ in range(3)))
+    with pytest.raises(ValueError, match="all be on cuda or all on cpu"):
+        paged_ops.paged_attention(q, kp.cpu(), vp, tables, qs)
+
+
+def test_smoke_slice_on_card_matches_cpu_and_counts_launches(cuda):
+    """The smoke config served on the card (kernels) and on the CPU (plain
+    versions) from the same weights: same tokens, logits within tolerance,
+    continuous == wave, and each mode launched its kernels."""
+    gpu = Session.from_config("qwen2.5-3b")
+    cpu = Session.from_config("qwen2.5-3b", device="cpu")
+    p_gpu = gpu.init_params()
+    p_cpu = copy.deepcopy(p_gpu).to("cpu")
+    prompt = np.random.default_rng(0).integers(0, gpu.cfg.vocab_size, (3, 12))
+    dispatch.reset_launches()
+    a = gpu.serve(prompt=prompt, params=p_gpu, max_new_tokens=5)
+    assert dispatch.launch_counts()["flash_attention"] == gpu.cfg.n_layers
+    b = cpu.serve(prompt=prompt, params=p_cpu, max_new_tokens=5)
+    np.testing.assert_array_equal(a.tokens, b.tokens)
+    torch.testing.assert_close(a.logits.cpu(), b.logits, atol=SLICE_ATOL,
+                               rtol=SLICE_RTOL)
+    reqs = zipf_requests(6, gpu.cfg.vocab_size, min_len=3, max_len=20,
+                         max_new_low=2, max_new_high=6, seed=1)
+    out = {}
+    for kind in ("wave", "continuous"):
+        dispatch.reset_launches()
+        out[kind] = gpu.serve(scheduler=kind, requests=copy.deepcopy(reqs),
+                              params=p_gpu, max_batch=2, max_len=32,
+                              page_size=4, prefill_chunk=4).tokens
+        counts = dispatch.launch_counts()
+    assert counts["paged_reset"] == len(reqs)
+    assert counts["paged_attention"] % gpu.cfg.n_layers == 0
+    assert counts["paged_attention"] > 0
+    np.testing.assert_array_equal(out["wave"], out["continuous"])
+    cont_cpu = cpu.serve(scheduler="continuous", requests=copy.deepcopy(reqs),
+                         params=p_cpu, max_batch=2, max_len=32, page_size=4,
+                         prefill_chunk=4).tokens
+    np.testing.assert_array_equal(out["continuous"], cont_cpu)
+

@@ -1,0 +1,34 @@
+"""The port stands alone: importing every ``repro_torch`` module, and
+``chip_smoke.py``, leaves ``jax`` and every ``repro`` module out of
+``sys.modules``. Checked in a fresh interpreter, since this test process
+imports both packages."""
+import os
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+PROBE = r"""
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+leaked = sorted(m for m in sys.modules
+                if m == "jax" or m.startswith("jax.")
+                or m == "repro" or m.startswith("repro."))
+print(len(names), leaked)
+assert not leaked, leaked
+assert len(names) >= 25, names
+"""
+
+
+def test_port_imports_neither_jax_nor_repro():
+    env = {**os.environ, "PYTHONPATH": f"{ROOT / 'src'}:{ROOT}"}
+    res = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert res.stdout.strip().endswith("[]")
