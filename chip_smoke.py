@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU (written for an H100):
 builds the CUDA kernels from this checkout, holds each against its plain
-PyTorch version at the serving path's full-width shapes, serves qwen2.5-3b at
-its published width through ``repro_torch.api.Session`` (direct, wave and
-continuous modes) and checks the slice against the host CPU.
+PyTorch version at its path's full-width shapes, serves qwen2.5-3b at its
+published width through ``repro_torch.api.Session`` (direct, wave and
+continuous modes), trains it on the fused DP tier at full width and 12
+layers, and checks a serving slice and a training step against the host
+CPU.
 
     python3 chip_smoke.py
 
@@ -19,7 +21,21 @@ Phases (any failed check raises, and the script exits non-zero):
      must equal wave token for token, and every kernel's launch counter,
      zeroed just before each path, must show the path went through it;
   5. the same weights cut to 2 layers, run on the card with the kernels and
-     on the host CPU with the plain versions; the logits must agree.
+     on the host CPU with the plain versions; the logits must agree;
+  6. the DP kernels at the training path's shapes (4 silos, P =
+     1,547,255,808, the packed length of qwen2.5-3b at 12 layers): each
+     bit-equal to its plain version over all P columns (the plain version
+     run on windows of 2**22 columns), timed beside the plain version on a
+     window and, for the aggregate, cuBLAS's ``s @ g``;
+  7. qwen2.5-3b at full width, 12 of 36 layers, trained 3 steps through
+     ``Session.train`` with the quickstart privacy settings (4 silos, sigma
+     0.3, dynamic clipping, lambda 0.7) and AdamW lr 1e-3, batch 16 x 64:
+     finite loss, rising epsilon, each DP kernel launched once per step;
+     step and per-stage times and peak memory;
+  8. one training step of a narrow config (P of a few million) on the card
+     (kernels) and on the host CPU (plain versions) from the same weights:
+     loss, bound (below its cap, so the percentile protocol ran), noisy
+     gradient and parameters agree, and the carried noise key is bit-equal.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -30,6 +46,8 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import math
+import re
 import subprocess
 import sys
 import time
@@ -44,9 +62,41 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 
+# per-SM issue rates of Hopper in thread-operations per clock (H100
+# architecture white paper: 4 sub-partitions, each dispatching one warp
+# instruction a clock to 32 FP32 lanes, 16 INT32 lanes and 4 SFU lanes; the
+# integer multiply-add IMAD runs on the FP32 pipe's heavy half, 16 lanes),
+# 132 SMs, at the 1.98 GHz boost clock behind the 67 TFLOP/s above
+SM_OPS_PER_S = 132 * 1.98e9
+LANES = {"alu": 64, "imad": 64, "fp32+imad": 128, "mufu": 16, "issue": 128}
+# SASS opcodes of arithmetic by the pipe that runs them; OTHER_OPS issue on
+# a pipe not bounded here. Moves (MOV, IMAD.MOV), branches, barriers and
+# loads are not counted: they are how this build schedules the work, not
+# the work, so the bound from these counts stays a lower bound.
+ALU_OPS = {"IADD3", "LOP3", "SHF", "PRMT", "LEA", "ISETP", "IMNMX", "SEL",
+           "FSETP", "FSEL", "FMNMX", "PLOP3", "IABS", "BMSK", "SGXT"}
+IMAD_OPS = {"IMAD", "IMUL"}
+OTHER_OPS = {"VIADD", "I2FP", "I2F", "F2I", "F2F", "POPC", "FLO"}
+FP32_OPS = {"FFMA", "FMUL", "FADD"}
 # kernel vs plain version on the same inputs, fp32 on the card: the two sum
 # in different orders, so they agree to fp32 rounding (about 1e-6 here)
 KERNEL_ATOL = KERNEL_RTOL = 1e-5
+SERVING_KERNELS = ("flash_attention", "paged_attention", "paged_reset")
+# the DP kernels keep the plain versions' operations and order (no FMA, the
+# same libm log and sqrt): bit-equal, a max |difference| of 0 over the
+# whole buffer, the plain version run on DP_WINDOW columns at a time
+DP_WINDOW = 1 << 22
+# training step of the narrow config, card vs CPU: fp32 products in other
+# orders move the loss, norms and bound in the 6th digit and the noisy
+# gradient (noise std about 0.3) by about 1e-6
+TRAIN_RTOL = 1e-5
+NOISY_ATOL = 1e-5
+# AdamW's first step moves each weight by lr * g / (|g| + eps): equal to
+# ~1e-9 unless g is within rounding of 0 and flips sign between devices
+# (2 * lr); a handful of such elements is allowed in a few million
+PARAM_ATOL, PARAM_FLIPS = 1e-6, 8
+# clip_percentile_max of the narrow step: above its noisy median norm
+NARROW_CAP = 8.0
 # the 2-layer full-width slice, card (kernels, cuBLAS) vs host CPU (plain
 # versions, CPU BLAS): fp32 products over d_model 2048 and d_ff 11008 in
 # different orders
@@ -269,6 +319,156 @@ def slice_logits(model, params, PagePool, prompt, steps):
     return [o.float().cpu() for o in out]
 
 
+
+# ---------------------------------------------------------------- phase 6
+
+def max_err_by_window(out, plain, P: int) -> float:
+    """Max |out - plain(a, b)| over all P columns, the plain version run on
+    one window [a, b) of DP_WINDOW columns at a time."""
+    err = torch.zeros((), device=out.device)
+    for a in range(0, P, DP_WINDOW):
+        b = min(a + DP_WINDOW, P)
+        err = torch.maximum(err, (out[a:b] - plain(a, b)).abs().max())
+    return err.item()
+
+
+def check_clip_accumulate(dev, gen, n, P, ops, ref):
+    g = torch.randn(n, P, device=dev, generator=gen)
+    # clip factors as the path makes them, one silo dropped (factor 0)
+    scale = torch.tensor([0.731, 1.0, 0.0, 0.418][:n], device=dev)
+    out = ops.clip_accumulate(g, scale)
+    err = max_err_by_window(
+        out, lambda a, b: ref.clip_accumulate_ref(g[:, a:b], scale), P)
+    check(err == 0.0, f"clip_accumulate differs from its plain version by "
+                      f"{err}")
+    w = g[:, :DP_WINDOW]
+    bms, by = bound((n + 1) * P * 4, 2 * n * P)
+    res = {
+        "max_abs_err": err,
+        "checked_at": f"all {P} columns, windows of {DP_WINDOW}",
+        "ms": cuda_ms(lambda: ops.clip_accumulate(g, scale), reps=5,
+                      warmup=1),
+        "plain_ms": cuda_ms(lambda: ref.clip_accumulate_ref(w, scale)),
+        "plain_at": f"window of {DP_WINDOW} columns",
+        "library_ms": cuda_ms(lambda: scale @ g, reps=5, warmup=1),
+        "library_call": "scale @ g (cuBLAS)",
+        "bound_ms": bms, "bound_by": by,
+        "at": f"n={n} P={P} fp32",
+    }
+    return res, out, g
+
+
+def check_noise_batch(dev, n, P, g_sum, ops, ref, step_keys, PRNGKey,
+                      per_stream):
+    keys = step_keys(PRNGKey(1), 0)
+    prev = step_keys(PRNGKey(1), 1).key_xi
+    # per-silo noise scales and lambda gates as corrected_noise_packed makes
+    # them: silo 2 gated off (both 0), silo 1 with a lambda gate of 0
+    s = 0.0750
+    scales = torch.tensor([s, s, 0.0, s][:n], device=dev)
+    lams = torch.tensor([0.7, 0.0, 0.0, 0.7][:n], device=dev)
+    out = ops.noise_batch(g_sum, keys.key_xi, prev, scales, lams, s)
+    check(bool(torch.isfinite(out).all()), "noise_batch: non-finite")
+    err = max_err_by_window(out, lambda a, b: ref.noise_batch_ref(
+        g_sum[a:b], keys.key_xi, prev, scales, lams, s, base=a), P)
+    check(err == 0.0, f"noise_batch differs from its plain version by {err}")
+    del out
+    w = g_sum[:DP_WINDOW]
+    streams = 2 * n  # xi_t and xi_{t-1} of every silo (use_prev)
+    # bytes: g read and out written once; operations: each pipe's share of
+    # the compiled stream body over its lanes, and all of it over issue
+    parts = {"bytes": 2 * P * 4 / HBM_BYTES_PER_S * 1e3}
+    for pipe, lanes in LANES.items():
+        parts[pipe] = (streams * P * per_stream[pipe]
+                       / (lanes * SM_OPS_PER_S) * 1e3)
+    bms = max(parts.values())
+    return {
+        "max_abs_err": err,
+        "checked_at": f"all {P} columns, windows of {DP_WINDOW}",
+        "ms": cuda_ms(lambda: ops.noise_batch(g_sum, keys.key_xi, prev,
+                                              scales, lams, s),
+                      reps=3, warmup=1),
+        "plain_ms": cuda_ms(lambda: ref.noise_batch_ref(
+            w, keys.key_xi, prev, scales, lams, s), reps=5),
+        "plain_at": f"window of {DP_WINDOW} columns",
+        "library_ms": None,
+        "library_call": "none (no PyTorch call draws keyed threefry normals)",
+        "bound_ms": bms,
+        "bound_by": "bytes" if bms == parts["bytes"] else "operations",
+        "bound_detail": {"ms_by_limit": parts, "per_stream": per_stream},
+        "at": f"n={n} P={P} use_prev fp32",
+    }
+
+
+def sass_loops(sass: str, kernel: str) -> list:
+    """The innermost loops of ``kernel`` in ``cuobjdump -sass`` text: one
+    opcode list per loop body (from a backward branch's target through the
+    branch), innermost meaning that no other loop lies inside it."""
+    body, found = [], False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            found = kernel in line
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if found and m:
+            text = re.sub(r"^@!?U?P\w+\s+", "", m.group(2))
+            op = text.split()[0]
+            tgt = re.search(r"0x([0-9a-f]+)", text) \
+                if op.startswith("BRA") else None
+            body.append((int(m.group(1), 16), op, tgt and int(tgt.group(1), 16)))
+    check(bool(body), f"no SASS of {kernel}")
+    loops = [(t, a) for a, _, t in body if t is not None and t <= a]
+    check(bool(loops), f"no loop in the SASS of {kernel}")
+    inner = [(t, a) for t, a in loops
+             if not any((t, a) != (u, b) and t <= u and b <= a
+                        for u, b in loops)]
+    return [[op for a2, op, _ in body if t <= a2 <= a] for t, a in inner]
+
+
+def stream_ops(sass: str, kernel: str) -> dict:
+    """Arithmetic instructions one noise stream element costs in
+    ``kernel``, by pipe: the innermost loop that draws the most normals
+    (one ``MUFU.RSQ`` of ``sqrtf`` each), divided by that count. The
+    grid-stride loop's own per-element work (load, store, index) is left
+    out, which keeps the bound from these counts a lower bound."""
+    best = max(sass_loops(sass, kernel),
+               key=lambda ops: sum(o.startswith("MUFU.RSQ") for o in ops))
+    n = sum(o.startswith("MUFU.RSQ") for o in best)
+    check(n > 0, f"no loop of {kernel} draws a normal")
+    rot = sum(o.startswith(("SHF.L.W", "PRMT")) for o in best)
+    # each normal comes from one threefry2x32 of 20 rotations in that loop
+    check(rot >= 20 * n, f"{kernel}: {rot} rotations in a loop of {n} normals")
+    base = [o.split(".")[0] for o in best if ".MOV" not in o]
+    count = {c: sum(o in ops for o in base) for c, ops in (
+        ("alu", ALU_OPS), ("imad", IMAD_OPS), ("fp32", FP32_OPS),
+        ("mufu", {"MUFU"}), ("other", OTHER_OPS))}
+    per = {k: v / n for k, v in count.items()}
+    return {"normals_in_loop": n, "alu": per["alu"], "imad": per["imad"],
+            "fp32+imad": per["fp32"] + per["imad"], "mufu": per["mufu"],
+            "issue": sum(per.values())}
+
+
+# ---------------------------------------------------------------- phase 8
+
+def narrow_step(sess, params, batch, steps, step_keys, prng):
+    """One fused-grads pass and one train step of ``sess`` from ``params``
+    (moved into a fresh state): (noisy gradient, metrics, state)."""
+    state = sess.init_state(params=params)
+    root = prng.PRNGKey(sess.seed + 1)
+    keys = step_keys(root, 0)
+    dev = state.clip_bound.device
+    noisy, loss, norms, ns, bound = steps._fused_grads(
+        sess.model, sess.run_cfg.privacy, state.params, batch, 4, keys,
+        state.noise_state, state.clip_bound, keys.key_clip, state.layout,
+        steps.StageTimer(dev))
+    noisy = noisy.float().cpu()
+    step = steps.build_train_step(sess.model, sess.run_cfg)
+    state, metrics = step(state, batch, root, timer=steps.StageTimer(dev))
+    return noisy, {k: float(v) for k, v in metrics.items()}, \
+        {"norms": norms.cpu(), "loss": float(loss), "bound": float(bound),
+         "prev_key": ns.prev_key}, state
+
+
 # ------------------------------------------------------------------- main
 
 def main() -> int:
@@ -281,12 +481,21 @@ def main() -> int:
 
     from repro_torch.api import Session
     from repro_torch.configs import get_config
+    from repro_torch.configs.base import (OptimizerConfig, PrivacyConfig,
+                                          reduce_for_smoke)
+    from repro_torch.core import flatbuf, prng
+    from repro_torch.core.barrier import step_keys
+    from repro_torch.distributed import steps as steps_mod
     from repro_torch.kernels import _build, dispatch
+    from repro_torch.kernels.dp_clip import ops as clip_ops
+    from repro_torch.kernels.dp_clip import ref as clip_ref
+    from repro_torch.kernels.dp_fused import ops as noise_ops
+    from repro_torch.kernels.dp_fused import ref as noise_ref
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention import ref as flash_ref
     from repro_torch.kernels.paged_attention import ops as paged_ops
     from repro_torch.kernels.paged_attention import ref as paged_ref
-    from repro_torch.models.transformer import Transformer
+    from repro_torch.models.transformer import Transformer, param_tree
     from repro_torch.runtime.serving import PagePool, zipf_requests
 
     t_start = time.perf_counter()
@@ -424,8 +633,8 @@ def main() -> int:
     n_slice = dispatch.launch_counts()
     want = slice_logits(on["cpu"].model, p_cpu, PagePool, prompt, steps)
     check(dispatch.launch_counts() == n_slice, "the CPU run launched a kernel")
-    check(all(n > 0 for n in n_slice.values()),
-          f"the card's slice run skipped a kernel: {n_slice}")
+    check(all(n_slice[k] > 0 for k in SERVING_KERNELS),
+          f"the card's slice run skipped a serving kernel: {n_slice}")
     err = max((a - b).abs().max().item() for a, b in zip(got, want))
     scale = max(b.abs().max().item() for b in want)
     check(all(torch.allclose(a, b, atol=CROSS_ATOL, rtol=CROSS_RTOL)
@@ -436,10 +645,153 @@ def main() -> int:
     log(f"[slice] 2-layer full width, card vs CPU: max |logit diff| {err:.3g} "
         f"(|logit| up to {scale:.3g}; atol {CROSS_ATOL}, rtol {CROSS_RTOL})")
 
+    del p_gpu, p_cpu, on, sess
+    torch.cuda.empty_cache()
+
+    # 6. the DP kernels at the training path's shapes
+    cut12 = dataclasses.replace(cfg, n_layers=12)
+    layout = flatbuf.layout_of(param_tree(Transformer(cut12, "meta")))
+    N_SILOS, P = 4, layout.total
+    log(f"[dp] qwen2.5-3b at 12 layers: packed P = {P} "
+        f"({layout.n_params} parameters, {layout.n_leaves} leaves)")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    kern["clip_accumulate"], g_sum, stacked = check_clip_accumulate(
+        dev, gen, N_SILOS, P, clip_ops, clip_ref)
+    del stacked
+    torch.cuda.empty_cache()
+    sass = subprocess.run([str(Path(_build.nvcc()).with_name("cuobjdump")),
+                           "-sass", str(_build.library_path())],
+                          capture_output=True, text=True, timeout=120)
+    check(sass.returncode == 0, f"cuobjdump failed: {sass.stderr}")
+    per_stream = stream_ops(sass.stdout, "noise_batch_kernel")
+    log(f"[kernel] noise_batch SASS, instructions per stream element by "
+        f"pipe: {json.dumps(per_stream)}")
+    kern["noise_batch"] = check_noise_batch(dev, N_SILOS, P, g_sum, noise_ops,
+                                            noise_ref, step_keys, prng.PRNGKey,
+                                            per_stream)
+    del g_sum
+    torch.cuda.empty_cache()
+    for name in ("clip_accumulate", "noise_batch"):
+        r = kern[name]
+        lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        log(f"[kernel] {name}: max_abs_err {r['max_abs_err']} over all P "
+            f"columns | kernel "
+            f"{r['ms']:.4f} ms | plain {r['plain_ms']:.4f} ms "
+            f"({r['plain_at']}) | library {lib} | bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}) | {r['at']}")
+    log(f"[kernel] noise_batch bound parts (ms): "
+        f"{json.dumps(kern['noise_batch']['bound_detail'])}")
+
+    # 7. training at full width, 12 layers, through Session.train
+    priv = PrivacyConfig(enabled=True, sigma=0.3, clip_bound=1.0,
+                         dynamic_clip=True, noise_lambda=0.7, n_silos=N_SILOS)
+    opt = OptimizerConfig(name="adamw", lr=1e-3)
+    tsess = Session.from_config(cut12, privacy=priv, optimizer=opt, seed=0)
+    t0 = time.perf_counter()
+    state = tsess.init_state()
+    torch.cuda.synchronize()
+    check(state.layout.total == P, f"train layout {state.layout.total} != {P}")
+    log(f"[train] qwen2.5-3b full width, 12 layers: {P} packed fp32 "
+        f"parameters on the card in {time.perf_counter() - t0:.1f} s")
+    STEPS, BATCH, SEQ = 3, 16, 64
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launches()
+    res = tsess.train(steps=STEPS, batch_size=BATCH, seq_len=SEQ,
+                      state=state, log_every=1)
+    n_train = dispatch.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for m in res.metrics]
+    eps = [m["epsilon"] for m in res.metrics]
+    check(res.step == STEPS and len(res.metrics) == STEPS,
+          f"trained {res.step} steps, not {STEPS}")
+    check(all(math.isfinite(x) for x in losses), f"loss not finite: {losses}")
+    check(all(b > a for a, b in zip([0.0] + eps, eps)),
+          f"epsilon does not rise: {eps}")
+    check(n_train["clip_accumulate"] == STEPS and n_train["noise_batch"] == STEPS,
+          f"training launches {n_train}: each DP kernel once per step")
+    check(all(n_train[k] == 0 for k in SERVING_KERNELS),
+          f"training ran a serving kernel: {n_train}")
+    step_ms = [m["step_time_s"] * 1e3 for m in res.metrics]
+    stage_keys = ("silo_grads", "pack", "norms", "aggregate", "noise",
+                  "optimizer")
+    stages = {k: [st.get(k, 0.0) for st in res.trainer.stage_log]
+              for k in stage_keys}
+    report["train"] = {
+        "config": "qwen2.5-3b, n_layers 12 (d_model 2048, 16/2 heads, "
+                  "d_ff 11008, vocab 151936), fp32",
+        "P": P, "n_silos": N_SILOS, "batch": BATCH, "seq_len": SEQ,
+        "loss": losses, "clip_bound": [m["clip_bound"] for m in res.metrics],
+        "epsilon": eps, "step_ms": step_ms,
+        "step_ms_after_first": sum(step_ms[1:]) / (STEPS - 1),
+        "stage_ms": stages, "peak_mem_gb": peak / 1e9, "launches": n_train}
+    log(f"[train] {STEPS} steps, batch {BATCH} x {SEQ}, 4 silos: loss "
+        f"{[round(x, 4) for x in losses]} | epsilon {[round(e, 3) for e in eps]}"
+        f" | step ms {[round(t, 1) for t in step_ms]} (after the first: "
+        f"{report['train']['step_ms_after_first']:.1f}) | peak "
+        f"{peak / 1e9:.2f} GB | launches {n_train}")
+    log("[train] stage ms per step: " + " | ".join(
+        f"{k} {[round(t, 2) for t in v]}" for k, v in stages.items()))
+    del res, state, tsess
+    torch.cuda.empty_cache()
+
+    # 8. one training step of a narrow config, card (kernels) vs CPU (plain)
+    narrow = reduce_for_smoke(cfg, n_layers=2, d_model=256, n_heads=4,
+                              n_kv_heads=2, d_head=64, d_ff=512,
+                              vocab_size=4096)
+    # the cap raised, so the bound is the percentile protocol's noisy
+    # median (sort, linear quantile, threefry normal), not a clamped constant
+    priv_c = dataclasses.replace(priv, clip_percentile_max=NARROW_CAP)
+    sess_c = {d: Session.from_config(narrow, privacy=priv_c, optimizer=opt,
+                                     seed=3, device=d) for d in ("cuda", "cpu")}
+    p_cpu = sess_c["cpu"].init_params()
+    p_gpu = copy.deepcopy(p_cpu).to(dev)
+    batch = sess_c["cpu"].synthetic_batches(16, 32)()
+    out = {}
+    for d, p in (("cuda", p_gpu), ("cpu", p_cpu)):
+        dispatch.reset_launches()
+        out[d] = narrow_step(sess_c[d], p, {k: v.to(d) for k, v in batch.items()},
+                             steps_mod, step_keys, prng)
+        out[d] += (dispatch.launch_counts(),)
+    (n_g, m_g, x_g, s_g, c_g), (n_c, m_c, x_c, s_c, c_c) = out["cuda"], out["cpu"]
+    check(c_g["clip_accumulate"] == 2 and c_g["noise_batch"] == 2,
+          f"narrow card step launches {c_g}")
+    check(all(v == 0 for v in c_c.values()), f"the CPU step launched {c_c}")
+    check(x_g["prev_key"] == x_c["prev_key"]
+          and s_g.noise_state.prev_key == s_c.noise_state.prev_key,
+          "carried noise key differs between card and CPU")
+    check(max(m_g["clip_bound"], m_c["clip_bound"]) < NARROW_CAP,
+          f"narrow step bound at the cap: card {m_g['clip_bound']}, CPU "
+          f"{m_c['clip_bound']}")
+    for k in ("loss", "clip_bound", "grad_norm_mean"):
+        check(math.isclose(m_g[k], m_c[k], rel_tol=TRAIN_RTOL),
+              f"narrow step {k}: card {m_g[k]} vs CPU {m_c[k]}")
+    check(torch.allclose(x_g["norms"], x_c["norms"], rtol=TRAIN_RTOL, atol=0),
+          f"norms {x_g['norms']} vs {x_c['norms']}")
+    noisy_err = (n_g - n_c).abs().max().item()
+    check(noisy_err <= NOISY_ATOL, f"noisy gradient differs by {noisy_err}")
+    dp = (s_g.opt_state["master"].cpu() - s_c.opt_state["master"]).abs()
+    flips = int((dp > PARAM_ATOL).sum())
+    check(dp.max().item() <= 2 * opt.lr * 1.001 and flips <= PARAM_FLIPS,
+          f"params differ: max {dp.max().item()}, {flips} beyond {PARAM_ATOL}")
+    report["train_cross_device"] = {
+        "P": s_c.layout.total, "loss": [m_g["loss"], m_c["loss"]],
+        "clip_bound": [m_g["clip_bound"], m_c["clip_bound"]],
+        "noisy_max_abs_err": noisy_err,
+        "noisy_max_abs": n_c.abs().max().item(),
+        "param_max_abs_err": dp.max().item(), "param_beyond_atol": flips}
+    log(f"[train-slice] narrow config (P {s_c.layout.total}), card vs CPU: "
+        f"loss {m_g['loss']:.6f} / {m_c['loss']:.6f} | bound "
+        f"{m_g['clip_bound']:.6f} / {m_c['clip_bound']:.6f} | noisy grad max "
+        f"|diff| {noisy_err:.3g} (|g| up to {n_c.abs().max().item():.3g}) | "
+        f"params max |diff| {dp.max().item():.3g}, {flips} beyond "
+        f"{PARAM_ATOL} | prev_key equal")
+
     # the record
     launches = {"flash_attention": n_direct["flash_attention"],
                 "paged_attention": n_cont["paged_attention"],
-                "paged_reset": n_cont["paged_reset"]}
+                "paged_reset": n_cont["paged_reset"],
+                "clip_accumulate": n_train["clip_accumulate"],
+                "noise_batch": n_train["noise_batch"]}
     line = []
     for name, r in kern.items():
         k = dispatch.KERNELS[name]
@@ -449,6 +801,10 @@ def main() -> int:
                  "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
                  "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                  "library_ms": r["library_ms"], "at": r["at"]}
+        for extra in ("checked_at", "plain_at", "library_call",
+                      "bound_detail"):
+            if extra in r:
+                entry[extra] = r[extra]
         if "chunk16" in r:
             entry["chunk16"] = {x: r["chunk16"][x] for x in (
                 "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",

@@ -7,6 +7,8 @@ of the configs and helpers it needs. Every TPU kernel on a ported path is a
 hand-written CUDA kernel for ``sm_90a`` (``kernels/*/csrc``), built at first
 use; a CPU tensor takes the kernel's plain PyTorch version instead.
 
-Ported so far: confidential serving of the dense family (direct, wave and
-continuous modes). Training and the other families are still to port.
+Ported so far, for the dense family: confidential serving (direct, wave and
+continuous modes) and private collaborative training on the fused DP tier
+(``Session.train``). The barrier and wire tiers, the launchers other than
+serving, and the other families are still to port (``ROADMAP.md``).
 """

@@ -1,28 +1,56 @@
-"""Top-level session façade of the port: ``Session.from_config(...).serve(...)``.
+"""Top-level session façade of the port:
+``Session.from_config(...).train(...)`` and ``.serve(...)``.
 
     from repro_torch.api import Session
+    from repro_torch.configs.base import OptimizerConfig, PrivacyConfig
 
-    sess = Session.from_config("qwen2.5-3b", full=True)   # on cuda
-    gen = sess.serve(batch_size=4, prompt_len=32, max_new_tokens=16)
-    print(gen.tokens[:2, :8])
+    sess = Session.from_config(
+        "qwen2.5-3b",                                       # smoke size
+        privacy=PrivacyConfig(sigma=0.3, dynamic_clip=True,
+                              noise_lambda=0.7, n_silos=4),
+        optimizer=OptimizerConfig(name="adamw", lr=1e-3))   # on cuda
+    result = sess.train(steps=20, batch_size=16, seq_len=64)
+    print(result.final["loss"], result.final["epsilon"])
 
-Port of the serving half of ``repro/api.py``. Entry points run on ``cuda``
-unless the caller passes ``device="cpu"``; without a CUDA device and without
-``device="cpu"`` they raise, never falling back to the CPU. On the CPU every
-kernel runs its plain PyTorch version. Training is not ported yet.
+    gen = sess.serve(batch_size=4, prompt_len=32, max_new_tokens=16,
+                     params=result.state.params)
+
+Port of ``repro/api.py``: serving, and training on the fused DP tier.
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
+without a CUDA device and without ``device="cpu"`` they raise, never falling
+back to the CPU. On the CPU every kernel runs its plain PyTorch version.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Any, Optional, Union
+from typing import Any, Callable, Optional, Union
 
 import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_smoke_config, resolve_arch
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import (ModelConfig, OptimizerConfig,
+                                      PrivacyConfig, RunConfig)
+from repro_torch.core import prng
+from repro_torch.data.synthetic import synthetic_tokens
+from repro_torch.distributed import steps as steps_mod
 from repro_torch.models.registry import Model, build_model
+from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+
+@dataclass
+class TrainResult:
+    """What a training run hands back: final state + the metrics history."""
+
+    state: Any
+    step: int
+    metrics: list
+    trainer: Trainer
+
+    @property
+    def final(self) -> dict:
+        return self.metrics[-1] if self.metrics else {}
 
 
 @dataclass
@@ -56,19 +84,24 @@ def _sync(device: torch.device) -> None:
 
 @dataclass
 class Session:
-    """A configured model on a device, ready to serve."""
+    """A configured model on a device, ready to train or serve."""
 
     cfg: ModelConfig
+    run_cfg: RunConfig
     model: Model
     device: torch.device
     seed: int = 0
+    _last_trainer: Optional[Trainer] = None  # the most recent train() wiring
 
     @classmethod
     def from_config(cls, arch: Union[str, ModelConfig], *, full: bool = False,
+                    privacy: Optional[PrivacyConfig] = None,
+                    optimizer: Optional[OptimizerConfig] = None,
                     compute_dtype=torch.float32, seed: int = 0,
                     device=None) -> "Session":
         """Build a session from an arch id (or a ready ModelConfig).
-        ``full=False`` loads the reduced smoke config."""
+        ``full=False`` loads the reduced smoke config. Privacy is off unless
+        a PrivacyConfig is passed; the optimizer defaults to AdamW."""
         dev = resolve_device(device)
         if dev.type == "cuda":
             # the path is fp32 at full precision, as in the JAX package:
@@ -80,13 +113,102 @@ class Session:
             arch = resolve_arch(arch)
             cfg = get_config(arch) if full else get_smoke_config(arch)
         model = build_model(cfg, dev, compute_dtype=compute_dtype)
-        return cls(cfg=cfg, model=model, device=dev, seed=seed)
+        rc = RunConfig(model=cfg, privacy=privacy if privacy is not None
+                       else PrivacyConfig(enabled=False),
+                       optimizer=optimizer or OptimizerConfig(), seed=seed)
+        return cls(cfg=cfg, run_cfg=rc, model=model, device=dev, seed=seed)
 
     # ----------------------------------------------------------------- train
-    def train(self, **kw):
-        raise NotImplementedError(
-            "Session.train is not ported yet: DP training is the next slice "
-            "(ROADMAP.md queue 1, items 2-6)")
+    def init_state(self, params=None):
+        """A fresh TrainState: ``params`` (a ``Transformer``, e.g. carried
+        across from JAX) or random weights from the session's seed, moved
+        into the packed master buffer; the noise state from
+        ``fold_in(PRNGKey(seed), 0xD0)``, as in JAX."""
+        gen = None
+        if params is None:
+            gen = torch.Generator(device=self.device).manual_seed(self.seed)
+        return steps_mod.init_train_state(self.model, self.run_cfg,
+                                          prng.PRNGKey(self.seed),
+                                          params=params, gen=gen)
+
+    def trainer(self, *, total_steps: int = 50,
+                checkpoint_dir: Optional[str] = None, log_every: int = 10,
+                epsilon_budget: Optional[float] = None,
+                silo_epsilon_budget: Optional[float] = None,
+                silo_budgets: Optional[dict] = None,
+                step_deadline_s: Optional[float] = None,
+                next_batch: Optional[Callable[[], dict]] = None,
+                batch_size: int = 8, seq_len: int = 128,
+                elastic: bool = False,
+                silo_schedule: Optional[Callable[[int], Any]] = None
+                ) -> Trainer:
+        """A wired Trainer; ``next_batch`` defaults to a synthetic LM stream.
+        ``silo_schedule`` (step -> bool sequence) pins each step's
+        participation set."""
+        tcfg = TrainerConfig(total_steps=total_steps,
+                             checkpoint_dir=checkpoint_dir,
+                             log_every=log_every,
+                             epsilon_budget=epsilon_budget,
+                             silo_epsilon_budget=silo_epsilon_budget,
+                             silo_budgets=silo_budgets,
+                             step_deadline_s=step_deadline_s,
+                             elastic=elastic)
+        next_batch = next_batch or self.synthetic_batches(batch_size, seq_len)
+        return Trainer(self.model, self.run_cfg, tcfg, next_batch,
+                       silo_schedule=silo_schedule)
+
+    def train(self, *, steps: int = 50, batch_size: int = 8,
+              seq_len: int = 128,
+              next_batch: Optional[Callable[[], dict]] = None,
+              checkpoint_dir: Optional[str] = None, log_every: int = 10,
+              epsilon_budget: Optional[float] = None,
+              silo_epsilon_budget: Optional[float] = None,
+              silo_budgets: Optional[dict] = None,
+              step_deadline_s: Optional[float] = None,
+              elastic: bool = False,
+              silo_schedule: Optional[Callable[[int], Any]] = None,
+              state=None) -> TrainResult:
+        """Run training on the fused DP tier (or without privacy). The root
+        key of the step keys is ``PRNGKey(seed + 1)``, as in JAX."""
+        trainer = self.trainer(total_steps=steps, checkpoint_dir=checkpoint_dir,
+                               log_every=log_every,
+                               epsilon_budget=epsilon_budget,
+                               silo_epsilon_budget=silo_epsilon_budget,
+                               silo_budgets=silo_budgets,
+                               step_deadline_s=step_deadline_s,
+                               next_batch=next_batch, batch_size=batch_size,
+                               seq_len=seq_len, elastic=elastic,
+                               silo_schedule=silo_schedule)
+        state = state if state is not None else self.init_state()
+        # registered before fit, so privacy_report() surfaces the spend of a
+        # run that aborts mid-way
+        self._last_trainer = trainer
+        state, step = trainer.fit(state, prng.PRNGKey(self.seed + 1))
+        return TrainResult(state=state, step=step,
+                           metrics=trainer.metrics_log, trainer=trainer)
+
+    def privacy_report(self) -> Optional[dict]:
+        """The ledger's spend report of the most recent ``train`` run; None
+        before the first run or with privacy off."""
+        if self._last_trainer is None:
+            return None
+        return self._last_trainer.spend_report()
+
+    def synthetic_batches(self, batch_size: int, seq_len: int,
+                          pool: Optional[int] = None) -> Callable[[], dict]:
+        """The JAX package's synthetic LM stream (same numpy draws), as
+        int64 token tensors on the session's device."""
+        toks = synthetic_tokens(pool or max(64, batch_size * 4), seq_len,
+                                self.cfg.vocab_size)
+        rng = np.random.default_rng(self.seed)
+        dev = self.device
+
+        def next_batch():
+            idx = rng.integers(0, toks.shape[0], batch_size)
+            t = torch.as_tensor(toks[idx], dtype=torch.long).to(dev)
+            return {"tokens": t[:, :-1], "labels": t[:, 1:]}
+
+        return next_batch
 
     # ----------------------------------------------------------------- serve
     def init_params(self):

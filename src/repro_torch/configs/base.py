@@ -1,9 +1,9 @@
-"""Model config dataclass, the port's own copy of ``repro.configs.base``.
+"""Config dataclasses, the port's own copy of ``repro.configs.base``.
 
-Only what the ported (dense) family reads: ``ModelConfig`` and
-``reduce_for_smoke``. The fields of the MoE, SSM and hybrid families, and
-the shape, mesh, privacy and run configs, come with the slices that use
-them.
+Only what the ported paths read: ``ModelConfig`` and ``reduce_for_smoke``
+(the dense family), and the privacy, mesh, optimizer and run configs of the
+training path. The fields of the MoE, SSM and hybrid families and the shape
+configs come with the slices that use them.
 """
 from __future__ import annotations
 
@@ -61,3 +61,68 @@ def reduce_for_smoke(cfg: ModelConfig, **overrides) -> ModelConfig:
     )
     kw.update(overrides)
     return dataclasses.replace(cfg, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Privacy (the paper's knobs), mesh, optimizer, run
+
+
+@dataclass(frozen=True)
+class PrivacyConfig:
+    enabled: bool = True
+    sigma: float = 1.0  # noise multiplier (of C)
+    clip_bound: float = 1.0  # C; initial bound when dynamic
+    clip_mode: str = "per_silo"  # the fused tier clips per silo
+    dynamic_clip: bool = False
+    clip_percentile: float = 0.5  # r, paper section 4.3
+    clip_percentile_max: float = 4.0  # fixed upper bound on C
+    noise_lambda: float = 0.0  # lambda, section 4.4 noise correction ([0,1))
+    delta: float = 1e-5
+    mask_mode: str = "pairwise"  # admin | pairwise | none
+    mask_scale: float = 8.0  # B/(sigma C): spread of the zero-sum r-terms
+    mask_ring: bool = False
+    sync_path: str = "fused"  # fused | barrier (barrier not ported yet)
+    silo_mode: str = "vmap"  # vmap | scan (scan not ported yet)
+    n_silos: int = 0  # 0 = auto (vmap: mesh silo count; scan: 4 data owners)
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """The device mesh, as far as the silo count reads it. The port runs on
+    one card, so the default mesh is one data slot."""
+
+    shape: tuple = (1,)
+    axes: tuple = ("data",)
+
+    @property
+    def n_silos(self) -> int:
+        n = 1
+        for a, s in zip(self.axes, self.shape):
+            if a in ("pod", "data"):
+                n *= s
+        return n
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    name: str = "adamw"  # sgd | momentum | adamw
+    lr: float = 3e-4
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+    grad_accum: int = 1
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    """What the training path reads of the JAX package's ``RunConfig``."""
+
+    model: ModelConfig
+    mesh: MeshConfig = MeshConfig()
+    privacy: PrivacyConfig = PrivacyConfig()
+    optimizer: OptimizerConfig = OptimizerConfig()
+    seed: int = 0
+
+    def replace(self, **kw) -> "RunConfig":
+        return dataclasses.replace(self, **kw)

@@ -1,0 +1,199 @@
+"""The DP aggregation engine of the central (fused) tier. Port of the central
+path of ``repro/core/dp_pipeline.py``.
+
+The model updater only ever sees
+
+    sum_i clip(g_i) + sigma*C*(xi_t - lambda*xi_{t-1})
+
+and :meth:`DPPipeline.run_central` builds it from the stacked ``(n, P)``
+packed per-silo gradients in the JAX package's stage order:
+
+    norms -> dynamic_bound -> clip_scales -> masked_aggregate -> corrected_noise
+
+``masked_aggregate`` is the ``clip_accumulate`` kernel and
+``corrected_noise_packed`` the ``noise_batch`` kernel. The central tier
+elides the zero-sum masks (they cancel in the aggregate by construction), so
+mask modes ``pairwise`` and ``none`` run the same graph. Every stage takes
+``active``, the ``(n_silos,)`` bool participation set (a host array; None
+means all silos): dropped silos contribute no gradient and no noise share,
+each active silo's share has std ``sigma_c/sqrt(k)``, and the
+``lambda``-correction share of silo i applies iff it was active at t-1 and
+is active now.
+
+The port runs the JAX package's ``packed`` execution policy only. Not
+ported yet (they raise ``NotImplementedError``): the admin mask construction
+and the per-silo contribution of the barrier and wire tiers (``ROADMAP.md``
+queue 1, items 7 and 9), and the per-leaf noise family (item 9).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import PrivacyConfig
+from repro_torch.core import clipping
+from repro_torch.core.barrier import BarrierKeys, dynamic_bound_from_percentiles
+from repro_torch.core.flatbuf import PackedLayout
+from repro_torch.core.noise_correction import NoiseState
+from repro_torch.kernels.dp_clip import ops as clip_ops
+from repro_torch.kernels.dp_fused import ops as fused_ops
+
+
+NORM_CHUNK = 1 << 26  # elements per dot product of the norms
+
+
+def is_static_full(active) -> bool:
+    """True iff the participation set is all-active (``None`` or all True)."""
+    return active is None or bool(np.all(np.asarray(active)))
+
+
+class DPPipeline:
+    """The central tier's stage graph over a packed layout."""
+
+    def __init__(self, priv: PrivacyConfig, layout: PackedLayout,
+                 n_silos: int):
+        if priv.mask_mode == "admin":
+            raise NotImplementedError(
+                "mask_mode='admin' is not ported yet (ROADMAP.md queue 1, "
+                "item 9: remaining mask and noise families)")
+        if priv.mask_mode not in ("pairwise", "none"):
+            raise ValueError(f"DPPipeline supports mask_mode pairwise|admin|"
+                             f"none, got {priv.mask_mode!r}")
+        self.priv = priv
+        self.layout = layout
+        self.n_silos = int(n_silos)
+
+    # -- participation set --------------------------------------------------
+    def full_active(self) -> np.ndarray:
+        return np.ones(self.n_silos, bool)
+
+    def active_count(self, active) -> float:
+        """Number of contributing silos (>= 1), the aggregate's divisor."""
+        if is_static_full(active):
+            return float(self.n_silos)
+        return max(float(np.sum(np.asarray(active))), 1.0)
+
+    def prev_active(self, state: NoiseState) -> np.ndarray:
+        pa = state.prev_active
+        if pa is None or np.asarray(pa).shape != (self.n_silos,):
+            return self.full_active()  # legacy state: all silos contributed
+        return np.asarray(pa, bool)
+
+    def advance_state(self, keys: BarrierKeys, state: NoiseState,
+                      active) -> NoiseState:
+        """The state carried to step t+1: the key that generated xi_t and
+        the set it was drawn over (None, read as all silos, when ``active``
+        is None or the state is the legacy two-field one)."""
+        pa = None if state.prev_active is None or active is None \
+            else np.asarray(active, bool)
+        return NoiseState(prev_key=tuple(keys.key_xi), has_prev=True,
+                          prev_active=pa)
+
+    # -- per-stream noise scales --------------------------------------------
+    def _stream_scales(self, bound: torch.Tensor, active, state: NoiseState):
+        """(s_t, s_prev, prev_active): per-silo noise stds at steps t and
+        t-1, as fp32 0-dim tensors on the bound's device. k active streams at
+        sigma_c/sqrt(k) sum to std exactly sigma_c."""
+        sc = self.priv.sigma * bound.float()
+        f32 = dict(dtype=torch.float32, device=bound.device)
+        s = sc / torch.sqrt(torch.tensor(self.active_count(active), **f32))
+        pa = self.prev_active(state)
+        k_prev = max(float(np.sum(pa)), 1.0)
+        return s, sc / torch.sqrt(torch.tensor(k_prev, **f32)), pa
+
+    # -- stages ---------------------------------------------------------------
+    def norms(self, stacked: torch.Tensor) -> torch.Tensor:
+        """Per-silo global norms off a stacked (n, P) packed buffer (padding
+        is exactly zero): ``sqrt(sum(g * g))`` per row, as JAX computes it,
+        as ``dot(c, c)`` over chunks of ``NORM_CHUNK``, which reads each
+        chunk once and writes no squares (the chunks keep every call's
+        length under 2**31). The dot is within about 1e-7 relative of an
+        fp64 sum on the card (cuBLAS) and, at a few million elements, on
+        the CPU (MKL); torch's CPU ``vector_norm`` accumulates in sequence
+        and loses 1e-4 there."""
+        out = []
+        for row in stacked:
+            acc = None
+            for a in range(0, row.numel(), NORM_CHUNK):
+                c = row[a:a + NORM_CHUNK]
+                part = torch.dot(c, c)
+                acc = part if acc is None else acc + part
+            out.append(torch.sqrt(acc))
+        return torch.stack(out)
+
+    def dynamic_bound(self, norms, active, clip_key, fallback) -> torch.Tensor:
+        """The percentile protocol over the active silos' norms; ``fallback``
+        (the carried bound) when dynamic clipping is off."""
+        if not (self.priv.enabled and self.priv.dynamic_clip):
+            return torch.as_tensor(fallback, dtype=torch.float32,
+                                   device=norms.device)
+        mask = torch.as_tensor(self._active_or_full(active), device=norms.device)
+        pcts = clipping.local_percentiles(norms, mask=mask)
+        return dynamic_bound_from_percentiles(pcts[None], self.priv, clip_key)
+
+    def clip_scales(self, norms, bound, active) -> torch.Tensor:
+        """DP-SGD clip factors, zeroed for dropped silos."""
+        scales = clipping.clip_scale(norms, bound) if self.priv.enabled \
+            else torch.ones_like(norms, dtype=torch.float32)
+        if is_static_full(active):
+            return scales
+        return scales * self._gates(active, norms.device)
+
+    def masked_aggregate(self, stacked, scales) -> torch.Tensor:
+        """sum_i scales_i * g_i over the stacked buffer: one kernel launch."""
+        return clip_ops.clip_accumulate(stacked, scales)
+
+    def corrected_noise_packed(self, g_sum, keys: BarrierKeys,
+                               state: NoiseState, bound, active) -> torch.Tensor:
+        """Aggregate plus every silo's corrected-noise share, accumulated in
+        silo order by one ``noise_batch`` launch. The xi_{t-1} streams are
+        drawn whenever lambda > 0, even on the first step, where the gates
+        are 0."""
+        priv = self.priv
+        s, s_prev, pa = self._stream_scales(bound, active, state)
+        dev = g_sum.device
+        gates = self._gates(active, dev)
+        pa_gates = torch.as_tensor(pa.astype(np.float32), device=dev)
+        hp = 1.0 if state.has_prev else 0.0
+        noise_scales = s * gates
+        lam_gates = priv.noise_lambda * torch.tensor(hp, dtype=torch.float32,
+                                                     device=dev) \
+            * gates * pa_gates
+        return fused_ops.noise_batch(g_sum, keys.key_xi, state.prev_key,
+                                     noise_scales.contiguous(),
+                                     lam_gates.contiguous(), s_prev.item(),
+                                     use_prev=priv.noise_lambda > 0.0)
+
+    def silo_contribution(self, *args, **kw):
+        raise NotImplementedError(
+            "DPPipeline.silo_contribution (the barrier and wire tiers' "
+            "per-silo contribution on clip_mask) is not ported yet: "
+            "ROADMAP.md queue 1, item 7")
+
+    # -- composed run -----------------------------------------------------------
+    def run_central(self, g_stacked, norms, keys: BarrierKeys,
+                    state: NoiseState, bound, clip_key, active, timer):
+        """The whole stage graph over a stacked (n, P) packed buffer.
+        Returns ``(noisy (P,) fp32, new_state, bound)``; ``flatbuf.unpack``
+        gives the tree as views. ``timer`` (``distributed.steps.StageTimer``)
+        times the ``aggregate`` and ``noise`` stages."""
+        with timer.stage("aggregate"):
+            bound = self.dynamic_bound(norms, active, clip_key, bound)
+            scales = self.clip_scales(norms, bound, active)
+            g_sum = self.masked_aggregate(g_stacked, scales)
+        if not self.priv.enabled:
+            return g_sum, state, bound
+        with timer.stage("noise"):
+            noisy = self.corrected_noise_packed(g_sum, keys, state, bound,
+                                                active)
+        return noisy, self.advance_state(keys, state, active), bound
+
+    # -- helpers ------------------------------------------------------------------
+    def _active_or_full(self, active) -> np.ndarray:
+        return self.full_active() if active is None else \
+            np.asarray(active, bool)
+
+    def _gates(self, active, device) -> torch.Tensor:
+        return torch.as_tensor(self._active_or_full(active).astype(np.float32),
+                               device=device)
+

@@ -1,0 +1,152 @@
+"""Packed flat buffer: one fp32 buffer for a whole parameter tree.
+
+Port of ``repro/core/flatbuf.py``. The DP engine clips, aggregates and
+noises one ``(P,)`` buffer instead of one tensor per leaf, and the threefry
+counters of the noise streams are the buffer's indices, so the layout must
+be the JAX package's exactly:
+
+* leaves in ``jax.tree.flatten`` order, which sorts dict keys;
+* every leaf flattened and zero-padded to a multiple of ``LANE`` (128);
+* the total zero-padded to a multiple of ``ALIGN`` (1024).
+
+A tree here is a flat dict from the JAX path (``"layers.attn.wq"``) to a
+tensor, or to a list of same-shape tensors: the JAX package stacks every
+layer's weight into one ``(L, ...)`` leaf, the port keeps one tensor per
+layer, so a list stands for the stacked leaf. Layer ``l`` of a stacked leaf
+lands at ``offset + l * numel``, and the whole stacked leaf is padded once,
+as in JAX.
+
+``pack`` can write into a given row (one silo's row of the stacked
+``(n, P)`` buffer); ``unpack`` returns views into the buffer, not copies.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+LANE = 128      # leaf starts stay lane-aligned
+ALIGN = 1024    # the padded total divides every kernel's block
+
+
+def _round_up(n: int, m: int) -> int:
+    return ((n + m - 1) // m) * m
+
+
+def _sort_key(path: str) -> tuple:
+    return tuple(path.split("."))
+
+
+@dataclass(frozen=True)
+class PackedLayout:
+    """Static description of one tree flattened into a single fp32 buffer."""
+
+    paths: tuple    # leaf paths in JAX order
+    shapes: tuple   # JAX leaf shapes (a stacked leaf leads with its count)
+    stacks: tuple   # per leaf: tensors stacked into it (0 = one tensor)
+    sizes: tuple
+    padded: tuple
+    offsets: tuple
+    total: int      # padded buffer length (multiple of ALIGN)
+
+    @property
+    def n_leaves(self) -> int:
+        return len(self.shapes)
+
+    @property
+    def n_params(self) -> int:
+        return sum(self.sizes)
+
+
+def layout_of(tree: dict) -> PackedLayout:
+    if not tree:
+        raise ValueError("cannot build a PackedLayout for an empty tree")
+    paths, shapes, stacks = [], [], []
+    for path in sorted(tree, key=_sort_key):  # jax.tree.flatten's order
+        leaf = tree[path]
+        if isinstance(leaf, (list, tuple)):
+            shape = tuple(leaf[0].shape)
+            if any(tuple(t.shape) != shape for t in leaf):
+                raise ValueError(f"{path}: stacked tensors differ in shape")
+            shapes.append((len(leaf),) + shape)
+            stacks.append(len(leaf))
+        else:
+            shapes.append(tuple(leaf.shape))
+            stacks.append(0)
+        paths.append(path)
+    sizes = tuple(math.prod(s) if s else 1 for s in shapes)
+    padded = tuple(_round_up(max(s, 1), LANE) for s in sizes)
+    offsets, off = [], 0
+    for p in padded:
+        offsets.append(off)
+        off += p
+    return PackedLayout(tuple(paths), tuple(shapes), tuple(stacks), sizes,
+                        padded, tuple(offsets), _round_up(off, ALIGN))
+
+
+def flat_tensors(layout: PackedLayout, tree: dict) -> list:
+    """Every tensor of ``tree`` in buffer order (stacked leaves expanded)."""
+    out = []
+    for path, k in zip(layout.paths, layout.stacks):
+        leaf = tree[path]
+        out.extend(leaf if k else [leaf])
+    return out
+
+
+def pack_tensors(layout: PackedLayout, tensors,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Copy ``tensors`` (in :func:`flat_tensors` order) into one fp32
+    ``(total,)`` buffer, ``out`` when given (contiguous, fp32), with every
+    padding position exactly zero."""
+    tensors = list(tensors)
+    if out is None:
+        out = torch.empty(layout.total, dtype=torch.float32,
+                          device=tensors[0].device)
+    if out.shape != (layout.total,) or out.dtype != torch.float32 \
+            or not out.is_contiguous():
+        raise ValueError(f"pack target must be contiguous fp32 "
+                         f"({layout.total},), got {out.dtype} {tuple(out.shape)}")
+    it = iter(tensors)
+    for shape, k, size, pad, off in zip(layout.shapes, layout.stacks,
+                                        layout.sizes, layout.padded,
+                                        layout.offsets):
+        part = size // k if k else size
+        for j in range(k or 1):
+            t = next(it)
+            if t.numel() != part:
+                raise ValueError(f"tensor of {t.numel()} elements where the "
+                                 f"layout has {part} (leaf shape {shape})")
+            out[off + j * part:off + (j + 1) * part].copy_(t.reshape(-1))
+    if next(it, None) is not None:
+        raise ValueError("more tensors than the layout has leaves")
+    return zero_padding(layout, out)
+
+
+def zero_padding(layout: PackedLayout, buf: torch.Tensor) -> torch.Tensor:
+    """Set every padding position of ``buf`` (P,) to zero, in place (a noisy
+    aggregate carries noise there, which no leaf reads)."""
+    for size, pad, off in zip(layout.sizes, layout.padded, layout.offsets):
+        buf[off + size:off + pad].zero_()
+    buf[layout.offsets[-1] + layout.padded[-1]:].zero_()
+    return buf
+
+
+def pack(layout: PackedLayout, tree: dict,
+         out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    return pack_tensors(layout, flat_tensors(layout, tree), out)
+
+
+def unpack(layout: PackedLayout, buf: torch.Tensor) -> dict:
+    """The tree of ``buf``: views into it (lists of per-layer views for the
+    stacked leaves), shaped as the layout's leaves."""
+    if buf.shape != (layout.total,):
+        raise ValueError(f"buffer {tuple(buf.shape)}, layout ({layout.total},)")
+    tree = {}
+    for path, shape, k, size, off in zip(layout.paths, layout.shapes,
+                                         layout.stacks, layout.sizes,
+                                         layout.offsets):
+        piece = buf[off:off + size].view(shape)
+        tree[path] = list(piece.unbind(0)) if k else piece
+    return tree

@@ -1,0 +1,217 @@
+"""The CITADEL++ train step on the fused DP tier. Port of the fused path of
+``repro/distributed/steps.py``.
+
+``sync_path='fused'`` with ``silo_mode='vmap'``: every silo's gradient of
+the dense transformer is computed, packed into its row of one stacked
+``(n_silos, P)`` fp32 buffer (``core/flatbuf.py``), and
+``DPPipeline.run_central`` turns the stack into
+``sum_i clip(g_i) + sigma*C*(xi_t - lambda*xi_{t-1})`` through the
+``clip_accumulate`` and ``noise_batch`` kernels. The aggregate is divided by
+the silos that contributed and the optimizer updates the packed master
+buffer, of which the model's parameters are views.
+
+JAX vmaps the silos; the port loops over them, computing one silo's
+gradient with autograd, packing it into row i and freeing the gradient tree
+before silo i+1, so only one gradient tree lives at a time. The barrier
+tier and the silo-serial scan tier raise ``NotImplementedError``
+(``ROADMAP.md`` queue 1, items 7 and 9).
+"""
+from __future__ import annotations
+
+import contextlib
+import time
+from typing import Any, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import PrivacyConfig, RunConfig
+from repro_torch.core import barrier as barrier_mod
+from repro_torch.core import flatbuf, prng
+from repro_torch.core.dp_pipeline import DPPipeline
+from repro_torch.core.flatbuf import PackedLayout
+from repro_torch.core.noise_correction import NoiseState
+from repro_torch.core.noise_correction import init_state as init_noise_state
+from repro_torch.models import transformer
+from repro_torch.models.registry import Model
+from repro_torch.optim.optimizers import make_optimizer
+from repro_torch.optim.schedules import constant
+
+
+class TrainState(NamedTuple):
+    params: Any            # the model's weights: views of opt_state["master"]
+    opt_state: dict
+    noise_state: NoiseState
+    step: int
+    clip_bound: torch.Tensor  # current C_t, fp32 0-dim on the device
+    layout: PackedLayout   # the packed layout of params, grads and moments
+
+
+class StageTimer:
+    """Per-stage times of one step: CUDA events on the card (read after the
+    step's final sync, so timing adds no sync of its own), host clock on
+    the CPU. Stages that repeat (one per silo) accumulate."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = torch.device(device).type == "cuda"
+        self._spans: list = []
+
+    @contextlib.contextmanager
+    def stage(self, name: str):
+        if self.cuda:
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            yield
+            t1.record()
+            self._spans.append((name, t0, t1))
+        else:
+            t0 = time.perf_counter()
+            yield
+            self._spans.append((name, t0, time.perf_counter()))
+
+    def ms(self) -> dict:
+        """Stage name -> milliseconds (synchronizes on the card)."""
+        out: dict = {}
+        if self.cuda and self._spans:
+            self._spans[-1][2].synchronize()
+        for name, t0, t1 in self._spans:
+            dt = t0.elapsed_time(t1) if self.cuda else (t1 - t0) * 1e3
+            out[name] = out.get(name, 0.0) + dt
+        return out
+
+
+def effective_n_silos(run_cfg: RunConfig) -> int:
+    """The silo count a step aggregates over: an explicit ``priv.n_silos``
+    wins; the scan tier defaults to the paper's 4 data owners; the mesh's
+    silo extent is the fallback (one slot on one card)."""
+    priv = run_cfg.privacy
+    if priv.sync_path == "barrier" and priv.enabled:
+        return run_cfg.mesh.n_silos
+    if priv.n_silos:
+        return priv.n_silos
+    if priv.silo_mode == "scan":
+        return 4
+    return run_cfg.mesh.n_silos
+
+
+def init_train_state(model: Model, run_cfg: RunConfig, key: tuple,
+                     params=None, gen: Optional[torch.Generator] = None
+                     ) -> TrainState:
+    """``params`` (e.g. from ``models.convert.params_from_jax``) or random
+    weights from ``gen``; either way they are moved into the packed master
+    buffer. The noise state starts from ``fold_in(key, 0xD0)``, as in
+    JAX."""
+    if params is None:
+        params = model.init(gen)
+    layout, master = transformer.pack_params(params)
+    opt = make_optimizer(run_cfg.optimizer)
+    return TrainState(
+        params=params,
+        opt_state=opt.init(master),
+        noise_state=init_noise_state(prng.fold_in(key, 0xD0),
+                                     n_silos=effective_n_silos(run_cfg)),
+        step=0,
+        clip_bound=torch.tensor(run_cfg.privacy.clip_bound,
+                                dtype=torch.float32, device=master.device),
+        layout=layout)
+
+
+def _reshape_to_silos(batch: dict, n_silos: int) -> dict:
+    """Silo i takes rows ``[i * B / n, (i + 1) * B / n)``."""
+    out = {}
+    for k, v in batch.items():
+        if v.shape[0] % n_silos:
+            raise ValueError(f"batch {k} of {v.shape[0]} rows does not split "
+                             f"over {n_silos} silos")
+        out[k] = v.reshape((n_silos, v.shape[0] // n_silos) + tuple(v.shape[1:]))
+    return out
+
+
+def _fused_grads(model: Model, priv: PrivacyConfig, params, batch, n_silos,
+                 keys, noise_state, clip_bound, clip_key, layout,
+                 timer: StageTimer, active=None):
+    """Per-silo grads packed as one stacked (n_silos, P) buffer, then the
+    engine's ``run_central``, each stage timed by ``timer``. Returns
+    ``(noisy (P,), loss, norms, new noise state, bound)``."""
+    silo_batches = _reshape_to_silos(batch, n_silos)
+    pipe = DPPipeline(priv, layout, n_silos)
+    tensors = flatbuf.flat_tensors(layout, transformer.param_tree(params))
+    dev = tensors[0].device
+    stacked = torch.empty((n_silos, layout.total), dtype=torch.float32,
+                          device=dev)
+    losses = []
+    for i in range(n_silos):
+        b = {k: v[i] for k, v in silo_batches.items()}
+        with timer.stage("silo_grads"):
+            loss = model.loss(params, b)
+            grads = torch.autograd.grad(loss, tensors)
+        with timer.stage("pack"):
+            flatbuf.pack_tensors(layout, grads, out=stacked[i])
+        del grads
+        losses.append(loss.detach())
+    with torch.no_grad():
+        with timer.stage("norms"):
+            norms = pipe.norms(stacked)
+        noisy, new_ns, bound = pipe.run_central(
+            stacked, norms, keys, noise_state, clip_bound, clip_key, active,
+            timer)
+        del stacked
+        gates = torch.as_tensor(pipe._active_or_full(active), device=dev,
+                                dtype=torch.float32)
+        loss = torch.sum(torch.stack(losses) * gates) / torch.tensor(
+            pipe.active_count(active), device=dev)
+    return noisy, loss, norms, new_ns, bound
+
+
+def build_train_step(model: Model, run_cfg: RunConfig, lr_schedule=None):
+    """``train_step(state, batch, root_key, active=None, *, timer)`` ->
+    ``(new_state, metrics)``: ``active`` is the (n_silos,) bool
+    participation set of this step (None = every silo); dropped silos
+    contribute neither gradient, noise share nor divisor weight. ``timer``
+    (a :class:`StageTimer`) times the step's stages. The master buffer, and
+    with it ``state.params``, is updated in place."""
+    priv = run_cfg.privacy
+    if priv.enabled and priv.sync_path == "barrier":
+        raise NotImplementedError(
+            "sync_path='barrier' is not ported yet: the per-silo contribution "
+            "on clip_mask is the next slice (ROADMAP.md queue 1, item 7)")
+    if priv.silo_mode == "scan":
+        raise NotImplementedError(
+            "silo_mode='scan' is not ported yet (ROADMAP.md queue 1, item 9)")
+    opt = make_optimizer(run_cfg.optimizer)
+    lr_schedule = lr_schedule or constant(run_cfg.optimizer.lr)
+    n_silos = effective_n_silos(run_cfg)
+
+    def train_step(state: TrainState, batch: dict, root_key: tuple,
+                   active=None, *, timer: StageTimer):
+        keys = barrier_mod.step_keys(root_key, state.step)
+        if active is not None:
+            active = np.asarray(active, bool)
+            if active.shape != (n_silos,):
+                raise ValueError(
+                    f"participation set has shape {active.shape}, but this "
+                    f"step aggregates over {n_silos} silos")
+        noisy, loss, norms, new_ns, bound = _fused_grads(
+            model, priv, state.params, batch, n_silos, keys,
+            state.noise_state, state.clip_bound, keys.key_clip, state.layout,
+            timer, active=active)
+        dev = noisy.device
+        n_act = n_silos if active is None else int(active.sum())
+        n_contrib = torch.tensor(float(max(n_act, 1)), device=dev)
+        lr = lr_schedule(state.step)
+        with timer.stage("optimizer"), torch.no_grad():
+            # the aggregate over its contributors; the padding, which the
+            # noise reached, stays zero in the master buffer and moments
+            grad = flatbuf.zero_padding(state.layout, noisy.div_(n_contrib))
+            opt_state = opt.update(state.opt_state, grad, lr)
+        del noisy, grad
+        gates = torch.ones(n_silos, device=dev) if active is None else \
+            torch.as_tensor(active.astype(np.float32), device=dev)
+        metrics = {"loss": loss, "grad_norm_mean":
+                   torch.sum(norms * gates) / n_contrib,
+                   "clip_bound": bound, "lr": lr, "n_contributions": n_contrib}
+        return TrainState(state.params, opt_state, new_ns, state.step + 1,
+                          bound, state.layout), metrics
+
+    return train_step

@@ -1,9 +1,12 @@
-"""GQA attention with RoPE, a dense KV cache (direct serving) and a paged
-KV pool (continuous serving). Port of ``repro/models/attention.py``.
+"""GQA attention with RoPE: without a cache (training), over a dense KV
+cache (direct serving) and over a paged KV pool (continuous serving). Port
+of ``repro/models/attention.py``.
 
 Prefill over the dense cache runs the flash-attention kernel; every paged
-step runs the paged-attention kernel. Decode over the dense cache is
-``_sdpa_masked``, plain torch as in the JAX package (einsum + softmax).
+step runs the paged-attention kernel. Training attention is ``_sdpa`` and
+decode over the dense cache ``_sdpa_masked``: plain torch, as in the JAX
+package (einsum + softmax; the training path builds its model with
+``use_flash=False``, so no Pallas kernel lies on it).
 """
 from __future__ import annotations
 
@@ -63,6 +66,25 @@ def _project_qkv(p: Attention, x, cfg: ModelConfig, positions):
     return q, k, v
 
 
+def _sdpa(q, k, v, causal: bool, q_offset: int = 0):
+    """Reference GQA attention over a whole sequence (``attention.py:55-74``
+    of the JAX package): fp32 scores, finite NEG_INF mask, softmax."""
+    B, Sq, Hq, Dh = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    qg = q.reshape(B, Sq, Hkv, group, Dh)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).float()
+    scores = scores / (Dh ** 0.5)
+    if causal:
+        qpos = q_offset + torch.arange(Sq, device=q.device)
+        kpos = torch.arange(Sk, device=q.device)
+        mask = qpos[:, None] >= kpos[None, :]
+        scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    w = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", w, v)
+    return out.reshape(B, Sq, Hq, Dh)
+
+
 def _sdpa_masked(q, k, v, causal: bool, q_offset: int, valid_k):
     """Masked GQA attention over a whole cache: plain torch, as in the JAX
     package (no Pallas kernel there, so no CUDA kernel here)."""
@@ -83,17 +105,21 @@ def _sdpa_masked(q, k, v, causal: bool, q_offset: int, valid_k):
     return out.reshape(B, Sq, Hq, Dh)
 
 
-def attn_apply(p: Attention, x, cfg: ModelConfig, positions, cache: dict,
-               layer: int):
-    """One layer's attention over the dense cache ``{'k', 'v': (L, B,
-    S_max, Hkv, Dh), 'len': int}``; writes this layer's new K/V in place at
-    position ``cache['len']`` and returns the projected output.
+def attn_apply(p: Attention, x, cfg: ModelConfig, positions,
+               cache: Optional[dict] = None, layer: int = 0):
+    """One layer's attention; returns the projected output.
 
-    A multi-token call is the initial prefill (``len == 0`` by
-    construction): flash self-attention over the prompt. A one-token call
-    is decode: masked attention over the whole cache."""
+    Without a cache (training): ``_sdpa`` over the sequence. With the dense
+    cache ``{'k', 'v': (L, B, S_max, Hkv, Dh), 'len': int}``: writes this
+    layer's new K/V in place at position ``cache['len']``. A multi-token
+    call is the initial prefill (``len == 0`` by construction): flash
+    self-attention over the prompt. A one-token call is decode: masked
+    attention over the whole cache."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg, positions)
+    if cache is None:
+        out = _sdpa(q, k, v, cfg.causal).reshape(B, S, cfg.attn_inner)
+        return out @ p.wo.to(x.dtype)
     idx = cache["len"]
     ck, cv = cache["k"][layer], cache["v"][layer]
     ck[:, idx:idx + S] = k.to(ck.dtype)

@@ -1,8 +1,9 @@
-"""Carry weights across from the JAX package.
+"""Carry weights across from the JAX package, and back.
 
 ``params_from_jax`` takes the JAX dense-transformer parameter tree with its
 leaves as numpy arrays (``jax.tree.map(np.asarray, params)``) and fills the
-port's ``Transformer``. The JAX tree stacks every layer on a leading axis
+port's ``Transformer``; ``params_to_numpy`` gives the port's weights as that
+same tree. The JAX tree stacks every layer on a leading axis
 (its init vmaps over layer keys, ``transformer.py:65``); the port keeps one
 ``Block`` per layer, so layer ``i`` takes slice ``[i]`` of every stacked
 leaf. Matrices are ``(d_in, d_out)`` in both packages: no transpose.
@@ -13,7 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.transformer import Transformer
+from repro_torch.models.transformer import Transformer, param_tree
 
 
 def _copy(dst: torch.Tensor, src, name: str) -> None:
@@ -47,3 +48,18 @@ def params_from_jax(np_tree: dict, cfg: ModelConfig, device,
                 _copy(getattr(blk.ffn, n), L["ffn"][n][i],
                       f"layers.{i}.ffn.{n}")
     return model
+
+
+def params_to_numpy(model: Transformer) -> dict:
+    """The JAX package's nested parameter tree of ``model``'s weights, as
+    numpy copies (every ``layers.*`` leaf stacked on a leading axis)."""
+    tree: dict = {}
+    for path, leaf in param_tree(model).items():
+        *parents, name = path.split(".")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[name] = (np.stack([t.detach().cpu().numpy() for t in leaf])
+                      if isinstance(leaf, list)
+                      else leaf.detach().cpu().numpy().copy())
+    return tree

@@ -1,9 +1,11 @@
-"""Core layer primitives: dense init, RMSNorm, RoPE, SwiGLU.
+"""Core layer primitives: dense init, RMSNorm, RoPE, SwiGLU and the LM
+losses.
 
 Port of ``repro/models/layers.py``. Weights keep the JAX package's
 ``x @ W`` layout, ``(d_in, d_out)``, so weights carried across need no
 transpose and the two packages compute the same products. Parameters are
-created without gradients: the ported path is inference only.
+created without gradients, for serving; the training path makes them
+trainable (``transformer.pack_params``).
 """
 from __future__ import annotations
 
@@ -12,8 +14,8 @@ import torch.nn.functional as F
 from torch import nn
 
 
-def _param(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
+def _param(t: torch.Tensor, trainable: bool = False) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=trainable)
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, device,
@@ -92,3 +94,31 @@ class SwiGLU(nn.Module):
         self.w_gate = _param(mk(d, d_ff))
         self.w_up = _param(mk(d, d_ff))
         self.w_down = _param(mk(d_ff, d))
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy, fp32 logsumexp. logits (..., V), labels (...)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.mean(lse - ll)
+
+
+def chunked_lm_loss(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
+                    chunk: int = 512) -> torch.Tensor:
+    """Sequence-chunked LM cross-entropy, the sum over chunks divided by the
+    token count (``layers.py`` of the JAX package). ``S % chunk != 0`` falls
+    back to one chunk, as there. The label log-prob is a gather: the JAX
+    one-hot einsum adds exact zeros to the same product, so they agree."""
+    B, S, D = x.shape
+    if S % chunk != 0:
+        chunk = S
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(S // chunk):
+        xs = x[:, c * chunk:(c + 1) * chunk]
+        logits = (xs @ head.to(xs.dtype)).float()            # (B, c, V)
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1,
+                          labels[:, c * chunk:(c + 1) * chunk, None].long())
+        total = total + torch.sum(lse - ll[..., 0])
+    return total / (B * S)

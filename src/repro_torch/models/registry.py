@@ -2,6 +2,7 @@
 config, the device and the compute dtype. Port of ``repro/models/registry.py``
 for the dense family; other families raise.
 
+  loss(params, {'tokens', 'labels'})       -> mean next-token loss (scalar)
   prefill(params, tokens (B, S), cache)    -> logits (B, V); cache in place
   decode_step(params, tokens (B, 1), cache) -> logits (B, V); cache in place
   paged_step(params, tokens (B, C), pool, tables, q_start, n_valid,
@@ -23,6 +24,7 @@ class Model:
     cfg: ModelConfig
     device: torch.device
     init: Callable[..., Any]
+    loss: Callable[..., Any]
     init_cache: Callable[..., Any]
     prefill: Callable[..., Any]
     decode_step: Callable[..., Any]
@@ -49,6 +51,7 @@ def build_model(cfg: ModelConfig, device, param_dtype=torch.float32,
     return Model(
         cfg=cfg, device=device,
         init=lambda gen: transformer.init(gen, cfg, device, param_dtype),
+        loss=lambda p, batch: transformer.loss_fn(p, cfg, batch, cd),
         init_cache=lambda batch, max_len: transformer.init_cache(
             cfg, batch, max_len, device, cd),
         prefill=lambda p, toks, c: transformer.prefill(p, cfg, toks, c, cd),

@@ -1,12 +1,18 @@
-"""Decoder transformer stack, dense family: init, forward over a dense KV
-cache (prefill / decode) and the paged serving step. Port of
-``repro/models/transformer.py``.
+"""Decoder transformer stack, dense family: init, the training forward and
+loss, forward over a dense KV cache (prefill / decode) and the paged serving
+step. Port of ``repro/models/transformer.py``.
 
 The JAX package stacks every layer's weights on a leading axis and scans
 over it, returning new caches and pools. The port keeps one ``Block`` per
 layer in an ``nn.ModuleList``, loops over layers in Python, and writes the
 caches and the ``(L, N, P, Hkv, D)`` page pools IN PLACE (where the JAX
 scheduler donates its pools to the jitted step, ``scheduler.py:168``).
+
+``param_tree`` names every weight by its JAX path (``layers.attn.wq`` is
+the list of the layers' ``wq``), the tree ``core/flatbuf.py`` packs in the
+JAX package's leaf order; ``pack_params`` moves the weights into one packed
+fp32 buffer, the parameters becoming views of it (the optimizer's master
+copy in fp32).
 """
 from __future__ import annotations
 
@@ -16,8 +22,10 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import flatbuf
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import (RMSNorm, SwiGLU, _param, dense_init,
+from repro_torch.models.layers import (RMSNorm, SwiGLU, _param,
+                                       chunked_lm_loss, dense_init,
                                        embed_init, rmsnorm, swiglu_apply)
 
 
@@ -58,6 +66,50 @@ class Transformer(nn.Module):
         return self.embed.T if self.cfg.tie_embeddings else self.lm_head
 
 
+def param_slots(params: Transformer) -> dict:
+    """JAX path -> where its tensors live: ``(module, attribute)``, or a
+    list of them, one per layer, for a stacked ``layers.*`` leaf."""
+    cfg = params.cfg
+    slots = {"embed": (params, "embed"), "ln_f.scale": (params.ln_f, "scale")}
+    if not cfg.tie_embeddings:
+        slots["lm_head"] = (params, "lm_head")
+    names = [("attn", n) for n in ("wq", "wk", "wv", "wo")]
+    if cfg.qkv_bias:
+        names += [("attn", n) for n in ("bq", "bk", "bv")]
+    names += [("ffn", n) for n in ("w_gate", "w_up", "w_down")]
+    names += [("ln1", "scale"), ("ln2", "scale")]
+    for sub, n in names:
+        slots[f"layers.{sub}.{n}"] = [(getattr(blk, sub), n)
+                                      for blk in params.layers]
+    return slots
+
+
+def param_tree(params: Transformer) -> dict:
+    """The weights as a flat tree keyed by JAX path (``core/flatbuf.py``)."""
+    return {path: [getattr(m, a) for m, a in slot] if isinstance(slot, list)
+            else getattr(*slot) for path, slot in param_slots(params).items()}
+
+
+def pack_params(params: Transformer):
+    """Move every weight into one packed fp32 buffer, in place: each
+    parameter becomes a trainable view of the buffer. Returns
+    ``(layout, buffer)``."""
+    if any(p.dtype != torch.float32 for p in params.parameters()):
+        raise NotImplementedError("pack_params takes fp32 weights only")
+    tree = param_tree(params)
+    layout = flatbuf.layout_of(tree)
+    with torch.no_grad():
+        buf = flatbuf.pack(layout, tree)
+    del tree
+    views = flatbuf.unpack(layout, buf)
+    for path, slot in param_slots(params).items():
+        pairs = slot if isinstance(slot, list) else [slot]
+        parts = views[path] if isinstance(slot, list) else [views[path]]
+        for (m, a), v in zip(pairs, parts):
+            setattr(m, a, _param(v, trainable=True))
+    return layout, buf
+
+
 def init(gen: torch.Generator, cfg: ModelConfig, device,
          dtype=torch.float32) -> Transformer:
     """Random weights drawn from ``gen`` (a generator on ``device``). The
@@ -72,22 +124,36 @@ def _layer_apply(blk: Block, x, cfg: ModelConfig, positions, cache, layer):
     return x + swiglu_apply(blk.ffn, rmsnorm(blk.ln2.scale, x))
 
 
-def forward(params: Transformer, cfg: ModelConfig, tokens, cache: dict,
-            compute_dtype=torch.float32, logits_mode: str = "all"):
-    """Tokens (B, S) through the stack over the dense cache, which is
-    updated in place (``cache['len']`` advances by S). Returns logits
-    (B, S, V) for ``logits_mode="all"``, (B, 1, V) for ``"last"``."""
+def forward(params: Transformer, cfg: ModelConfig, tokens,
+            cache: Optional[dict] = None, compute_dtype=torch.float32,
+            logits_mode: str = "all"):
+    """Tokens (B, S) through the stack: without a cache (training), or over
+    the dense cache, which is updated in place (``cache['len']`` advances by
+    S). Returns logits (B, S, V) for ``logits_mode="all"``, (B, 1, V) for
+    ``"last"``, and the final-norm hidden states (B, S, D) for
+    ``"hidden"``."""
     x = params.embed.to(compute_dtype)[tokens]
     B, S, _ = x.shape
-    offset = cache["len"]
+    offset = 0 if cache is None else cache["len"]
     positions = (offset + torch.arange(S, device=x.device))[None].expand(B, S)
     for layer, blk in enumerate(params.layers):
         x = _layer_apply(blk, x, cfg, positions, cache, layer)
-    cache["len"] = offset + S
+    if cache is not None:
+        cache["len"] = offset + S
     x = rmsnorm(params.ln_f.scale, x)
+    if logits_mode == "hidden":
+        return x
     if logits_mode == "last":
         x = x[:, -1:]
     return x @ params.head().to(x.dtype)
+
+
+def loss_fn(params: Transformer, cfg: ModelConfig, batch: dict,
+            compute_dtype=torch.float32) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``{'tokens', 'labels': (B, S)}``."""
+    hidden = forward(params, cfg, batch["tokens"], None, compute_dtype,
+                     logits_mode="hidden")
+    return chunked_lm_loss(hidden, params.head(), batch["labels"])
 
 
 def prefill(params, cfg: ModelConfig, tokens, cache, compute_dtype=torch.float32):

@@ -4,8 +4,10 @@ This file imports only torch and the port, so it runs on the GPU machine as
 it is (``python -m pytest -q tests/test_torch_cuda_kernels.py``); without a
 CUDA device every test skips. ``chip_smoke.py`` repeats the full-width
 checks on every run; these add the edges: more head dims, row tiles past
-one block, isolation against poisoned pages, argument checks, and the
-smoke-size serving slice on the card against the CPU.
+one block, isolation against poisoned pages, argument checks, the DP
+kernels' bit-equality with their plain versions (and 64-bit offsets past
+2**31 elements), and the smoke-size serving and training slices on the card
+against the CPU.
 """
 import copy
 
@@ -14,7 +16,12 @@ import pytest
 import torch
 
 from repro_torch.api import Session
+from repro_torch.configs.base import OptimizerConfig, PrivacyConfig
 from repro_torch.kernels import dispatch
+from repro_torch.kernels.dp_clip import ops as clip_ops
+from repro_torch.kernels.dp_clip import ref as clip_ref
+from repro_torch.kernels.dp_fused import ops as noise_ops
+from repro_torch.kernels.dp_fused import ref as noise_ref
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.kernels.paged_attention import ops as paged_ops
@@ -166,3 +173,115 @@ def test_smoke_slice_on_card_matches_cpu_and_counts_launches(cuda):
                          prefill_chunk=4).tokens
     np.testing.assert_array_equal(out["continuous"], cont_cpu)
 
+
+
+# ---------------------------------------------------------------------------
+# the DP kernels: bit-equal to their plain versions (the same separate fp32
+# multiplies and adds, no FMA contraction, the same libm log and sqrt)
+
+KX, KP = (2705940334, 2639757084), (4086990474, 1067026239)
+
+
+@pytest.mark.parametrize("n,P", [(4, 1 << 20), (1, 7), (5, 4099), (3, 1024)])
+def test_clip_accumulate_kernel_bit_equal(cuda, n, P):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(n, P, device=cuda, generator=g)
+    s = torch.rand(n, device=cuda, generator=g)
+    s[0] = 0.0  # a dropped silo
+    c = dispatch.KERNELS["clip_accumulate"].launches
+    got = clip_ops.clip_accumulate(x, s)
+    want = clip_ref.clip_accumulate_ref(x, s)
+    torch.cuda.synchronize()
+    assert dispatch.KERNELS["clip_accumulate"].launches == c + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n,use_prev", [(1, True), (4, True), (4, False),
+                                        (5, True)])
+def test_noise_batch_kernel_bit_equal(cuda, n, use_prev):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    P = 3 * 1024 + 5
+    g_sum = torch.randn(P, device=cuda, generator=g)
+    scales = torch.rand(n, device=cuda, generator=g) * 0.3
+    lams = torch.full((n,), 0.7, device=cuda)
+    if n > 1:
+        scales[1] = 0.0          # a silo gated off
+        lams[1] = 0.0
+    lams[-1] = 0.0               # a lambda gate of 0
+    c = dispatch.KERNELS["noise_batch"].launches
+    got = noise_ops.noise_batch(g_sum, KX, KP, scales, lams, 0.075, use_prev)
+    want = noise_ref.noise_batch_ref(g_sum, KX, KP, scales, lams, 0.075,
+                                     use_prev)
+    torch.cuda.synchronize()
+    assert dispatch.KERNELS["noise_batch"].launches == c + 1
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, want)
+
+
+def test_dp_kernels_index_past_2_31(cuda):
+    """n * P > 2**31 for the aggregate and P > 2**31 for the noise: windows
+    at both ends and across 2**31 equal the plain versions (64-bit offsets;
+    the counter keeps JAX's uint32 index)."""
+    n, P = 4, (1 << 29) + 4096
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(n, P, device=cuda, generator=g)
+    s = torch.tensor([0.5, 1.0, 0.0, 0.25], device=cuda)
+    got = clip_ops.clip_accumulate(x, s)
+    W = 1 << 16
+    for a in (0, P - W):
+        assert torch.equal(got[a:a + W],
+                           clip_ref.clip_accumulate_ref(x[:, a:a + W], s))
+    del x, got
+    P = (1 << 31) + 4096
+    g_sum = torch.zeros(P, device=cuda)
+    one = torch.ones(1, device=cuda)
+    got = noise_ops.noise_batch(g_sum, KX, KP, one * 0.3, one * 0.7, 0.1)
+    for a in (0, (1 << 31) - W // 2, P - W):
+        want = noise_ref.noise_batch_ref(g_sum[a:a + W], KX, KP, one * 0.3,
+                                         one * 0.7, 0.1, base=a)
+        assert torch.equal(got[a:a + W], want)
+
+
+def test_dp_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros(4, 64, device=cuda)
+    s = torch.ones(4, device=cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        clip_ops.clip_accumulate(x.double(), s)
+    with pytest.raises(ValueError, match="scale"):
+        clip_ops.clip_accumulate(x, s[:3])
+    with pytest.raises(ValueError, match="all be on cuda or all on cpu"):
+        clip_ops.clip_accumulate(x, s.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        noise_ops.noise_batch(x[:, 0], KX, KP, s, s, 0.1)
+    with pytest.raises(ValueError, match="uint32"):
+        noise_ops.noise_batch(x[0], (-1, 0), KP, s, s, 0.1)
+
+
+def test_smoke_training_on_card_matches_cpu(cuda):
+    """Two quickstart steps of the smoke config on the card (kernels) and on
+    the CPU (plain versions) from the same weights."""
+    priv = PrivacyConfig(sigma=0.3, clip_bound=1.0, dynamic_clip=True,
+                         noise_lambda=0.7, n_silos=4)
+    opt = OptimizerConfig(name="adamw", lr=1e-3)
+    gpu = Session.from_config("qwen2.5-3b", privacy=priv, optimizer=opt)
+    cpu = Session.from_config("qwen2.5-3b", privacy=priv, optimizer=opt,
+                              device="cpu")
+    p_gpu = gpu.init_params()
+    p_cpu = copy.deepcopy(p_gpu).to("cpu")
+    dispatch.reset_launches()
+    a = gpu.train(steps=2, batch_size=8, seq_len=16, log_every=0,
+                  state=gpu.init_state(params=p_gpu))
+    counts = dispatch.launch_counts()
+    assert counts["clip_accumulate"] == 2 and counts["noise_batch"] == 2
+    b = cpu.train(steps=2, batch_size=8, seq_len=16, log_every=0,
+                  state=cpu.init_state(params=p_cpu))
+    for ma, mb in zip(a.metrics, b.metrics):
+        assert ma["epsilon"] == mb["epsilon"]
+        np.testing.assert_allclose(ma["loss"], mb["loss"], rtol=1e-5)
+        np.testing.assert_allclose(ma["clip_bound"], mb["clip_bound"],
+                                   rtol=1e-5)
+    assert a.state.noise_state.prev_key == b.state.noise_state.prev_key
+    diff = (a.state.opt_state["master"].cpu()
+            - b.state.opt_state["master"]).abs()
+    assert diff.max() <= 2 * 2 * 1e-3  # at most a sign flip of two steps
+    assert (diff > 1e-5).sum() <= 2

@@ -1,6 +1,6 @@
 """The port's layer primitives against the JAX package's on the same numpy
 inputs: RMSNorm (fp32, eps 1e-6), RoPE on interleaved pairs at non-zero
-positions, and SwiGLU."""
+positions, SwiGLU, the LM losses and training attention (``_sdpa``)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -63,3 +63,35 @@ def test_rope_freqs_match_jax():
     np.testing.assert_allclose(tl.rope_freqs(128, 1e6).numpy(),
                                np.asarray(jl.rope_freqs(128, 1e6)),
                                rtol=1e-6)
+
+
+@pytest.mark.parametrize("S", [12, 1024])  # one chunk; two chunks of 512
+def test_lm_losses_match_jax(rng, S):
+    x = rng.standard_normal((2, S, 16)).astype(np.float32)
+    head = rng.standard_normal((16, 40)).astype(np.float32)
+    labels = rng.integers(0, 40, (2, S))
+    want = float(jl.chunked_lm_loss(jnp.asarray(x), jnp.asarray(head),
+                                    jnp.asarray(labels)))
+    got = float(tl.chunked_lm_loss(torch.from_numpy(x), torch.from_numpy(head),
+                                   torch.from_numpy(labels)))
+    np.testing.assert_allclose(got, want, rtol=RTOL)
+    logits = x @ head
+    np.testing.assert_allclose(
+        float(tl.cross_entropy(torch.from_numpy(logits),
+                               torch.from_numpy(labels))),
+        float(jl.cross_entropy(jnp.asarray(logits), jnp.asarray(labels))),
+        rtol=RTOL)
+
+
+def test_training_attention_matches_jax(rng):
+    from repro.models import attention as ja
+    from repro_torch.models import attention as ta
+    q = rng.standard_normal((2, 7, 4, 16)).astype(np.float32)
+    k = rng.standard_normal((2, 7, 2, 16)).astype(np.float32)
+    v = rng.standard_normal((2, 7, 2, 16)).astype(np.float32)
+    for causal in (True, False):
+        want = np.asarray(ja._sdpa(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), causal, 0))
+        got = ta._sdpa(torch.from_numpy(q), torch.from_numpy(k),
+                       torch.from_numpy(v), causal).numpy()
+        np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)

@@ -222,8 +222,9 @@ def test_from_config_without_cuda_raises(monkeypatch):
 
 
 def test_unported_paths_raise(port):
+    # training is ported (test_torch_training.py); checkpointing is not yet
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.train(steps=1)
+        port.train(steps=1, checkpoint_dir="unused")
     with pytest.raises(NotImplementedError, match="rollback"):
         port.serve(scheduler="continuous", speculative=True, batch_size=1,
                    prompt_len=4, max_new_tokens=2)
