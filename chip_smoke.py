@@ -3,9 +3,9 @@
 builds the CUDA kernels from this checkout, holds each against its plain
 PyTorch version at its path's full-width shapes, serves qwen2.5-3b at its
 published width through ``repro_torch.api.Session`` (direct, wave and
-continuous modes), trains it on the fused DP tier at full width and 12
-layers, and checks a serving slice and a training step against the host
-CPU.
+continuous modes), trains it on the fused and on the barrier DP tier at
+full width and 12 layers, and checks a serving slice and a training step of
+each tier against the host CPU.
 
     python3 chip_smoke.py
 
@@ -22,11 +22,14 @@ Phases (any failed check raises, and the script exits non-zero):
      zeroed just before each path, must show the path went through it;
   5. the same weights cut to 2 layers, run on the card with the kernels and
      on the host CPU with the plain versions; the logits must agree;
-  6. the DP kernels at the training path's shapes (4 silos, P =
+  6. the DP kernels at the training paths' shapes (4 silos, P =
      1,547,255,808, the packed length of qwen2.5-3b at 12 layers): each
      bit-equal to its plain version over all P columns (the plain version
-     run on windows of 2**22 columns), timed beside the plain version on a
-     window and, for the aggregate, cuBLAS's ``s @ g``;
+     run on windows of 2**22 columns; ``clip_mask`` at the barrier tier's
+     flags and a partial ring, its other three flag combinations on one
+     window each), timed beside the plain version on a window and, for the
+     aggregate, cuBLAS's ``s @ g``; the stream kernels' bounds read off
+     their SASS;
   7. qwen2.5-3b at full width, 12 of 36 layers, trained 3 steps through
      ``Session.train`` with the quickstart privacy settings (4 silos, sigma
      0.3, dynamic clipping, lambda 0.7) and AdamW lr 1e-3, batch 16 x 64:
@@ -35,7 +38,21 @@ Phases (any failed check raises, and the script exits non-zero):
   8. one training step of a narrow config (P of a few million) on the card
      (kernels) and on the host CPU (plain versions) from the same weights:
      loss, bound (below its cap, so the percentile protocol ran), noisy
-     gradient and parameters agree, and the carried noise key is bit-equal.
+     gradient and parameters agree, and the carried noise key is bit-equal;
+  9. the barrier tier at the same width and depth: from one set of weights
+     and one batch, ``_fused_grads`` and ``_barrier_grads`` (no optimizer
+     state) give the same aggregate within the masks' fp32 residue, and one
+     silo's contribution minus its clipped gradient shows the mask (std
+     about B*sqrt(2)); then 3 steps through ``Session.train`` on a
+     ``(4,)`` data mesh: finite loss, rising epsilon, ``clip_mask`` 4 times a
+     step and the fused tier's kernels never; step and stage times, peak
+     memory;
+ 10. one barrier step of the narrow config on the card and on the host CPU
+     from the same weights, silo 1 dropped and the noise state primed with
+     silo 2 absent at t-1: loss, bound, every silo's contribution, the
+     aggregate and the carried key agree (the key bit-equal); then
+     ``python -m repro_torch.launch.train --sync-path barrier`` on the card
+     in a subprocess.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -47,11 +64,14 @@ import copy
 import dataclasses
 import json
 import math
+import os
 import re
 import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 import torch
 
@@ -97,6 +117,16 @@ NOISY_ATOL = 1e-5
 PARAM_ATOL, PARAM_FLIPS = 1e-6, 8
 # clip_percentile_max of the narrow step: above its noisy median norm
 NARROW_CAP = 8.0
+# barrier vs fused aggregate at P = 1.5e9: each contribution carries
+# +-b * r terms up to 10 B (|r_i - r_nxt| reaches 9.5 over 1.5e9 draws),
+# which cancel only in the sum, in another order than the fused tier's
+# noise; each contribution rounds at 10 B and each of the 3 adds at up to
+# 20 B: 8 ulps of 20 B bound the residue
+MASK_ATOL_PER_B = 8 * 2.0 ** -23 * 20
+# barrier step card vs CPU: every contribution scales b by the bound, which
+# the two devices agree on to TRAIN_RTOL, so contributions (up to 10 B) and
+# the aggregate are held to TRAIN_RTOL * 10 B plus the masks' residue
+BARRIER_ATOL_PER_B = TRAIN_RTOL * 10 + 8 * 2.0 ** -23 * 10
 # the 2-layer full-width slice, card (kernels, cuBLAS) vs host CPU (plain
 # versions, CPU BLAS): fp32 products over d_model 2048 and d_ff 11008 in
 # different orders
@@ -374,13 +404,7 @@ def check_noise_batch(dev, n, P, g_sum, ops, ref, step_keys, PRNGKey,
     check(err == 0.0, f"noise_batch differs from its plain version by {err}")
     del out
     w = g_sum[:DP_WINDOW]
-    streams = 2 * n  # xi_t and xi_{t-1} of every silo (use_prev)
-    # bytes: g read and out written once; operations: each pipe's share of
-    # the compiled stream body over its lanes, and all of it over issue
-    parts = {"bytes": 2 * P * 4 / HBM_BYTES_PER_S * 1e3}
-    for pipe, lanes in LANES.items():
-        parts[pipe] = (streams * P * per_stream[pipe]
-                       / (lanes * SM_OPS_PER_S) * 1e3)
+    parts = stream_bound(P, 2 * n, per_stream)  # xi_t, xi_{t-1} of each silo
     bms = max(parts.values())
     return {
         "max_abs_err": err,
@@ -397,6 +421,63 @@ def check_noise_batch(dev, n, P, g_sum, ops, ref, step_keys, PRNGKey,
         "bound_by": "bytes" if bms == parts["bytes"] else "operations",
         "bound_detail": {"ms_by_limit": parts, "per_stream": per_stream},
         "at": f"n={n} P={P} use_prev fp32",
+    }
+
+
+def stream_bound(P: int, streams: int, per_stream: dict) -> dict:
+    """Milliseconds by limit for ``streams`` keyed normals an element over P
+    elements: bytes (g read and the output written once) and each pipe's
+    share of the compiled stream body over its lanes, all of it over
+    issue."""
+    parts = {"bytes": 2 * P * 4 / HBM_BYTES_PER_S * 1e3}
+    for pipe, lanes in LANES.items():
+        parts[pipe] = (streams * P * per_stream[pipe]
+                       / (lanes * SM_OPS_PER_S) * 1e3)
+    return parts
+
+
+def check_clip_mask(dev, P, g, ops, ref, keys, prev, per_stream):
+    """Silo 1's contribution at the barrier tier's flags over a partial
+    ring (silo 2 dropped, so its next active silo is 3), the scalars as
+    ``silo_contribution`` makes them at sigma 0.3 and C 4 with 3 of 4 silos
+    active, bit-equal to the plain version over all P columns; the other
+    three flag combinations on the first window."""
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)
+    sc = f32(0.3) * f32(4.0)  # sigma * C
+    args = (f32(0.731), keys.key_r, keys.key_xi, prev, 1, 4, sc,
+            f32(8.0) * sc, f32(0.7))
+    kw = dict(nxt=3, noise_scale=sc / torch.sqrt(f32(3.0)),
+              prev_noise_scale=sc / torch.sqrt(f32(4.0)))
+    out = ops.clip_mask(g, *args, **kw)
+    check(bool(torch.isfinite(out).all()), "clip_mask: non-finite")
+    err = max_err_by_window(out, lambda a, b: ref.clip_mask_ref(
+        g[a:b], *args, base=a, **kw), P)
+    check(err == 0.0, f"clip_mask differs from its plain version by {err}")
+    del out
+    w = g[:DP_WINDOW]
+    flags = {}
+    for up, uv in ((True, False), (False, True), (False, False)):
+        e = (ops.clip_mask(w, *args, up, uv, **kw)
+             - ref.clip_mask_ref(w, *args, up, uv, **kw)).abs().max().item()
+        check(e == 0.0, f"clip_mask pairwise={up} prev={uv} differs by {e}")
+        flags[f"use_pairwise={up} use_prev={uv}"] = e
+    parts = stream_bound(P, 4, per_stream)  # r_i, r_nxt, xi_t, xi_{t-1}
+    bms = max(parts.values())
+    return {
+        "max_abs_err": err,
+        "checked_at": f"all {P} columns, windows of {DP_WINDOW}; other "
+                      f"flags on the first window: {flags}",
+        "ms": cuda_ms(lambda: ops.clip_mask(g, *args, **kw), reps=3,
+                      warmup=1),
+        "plain_ms": cuda_ms(lambda: ref.clip_mask_ref(w, *args, **kw),
+                            reps=5),
+        "plain_at": f"window of {DP_WINDOW} columns",
+        "library_ms": None,
+        "library_call": "none (no PyTorch call draws keyed threefry normals)",
+        "bound_ms": bms,
+        "bound_by": "bytes" if bms == parts["bytes"] else "operations",
+        "bound_detail": {"ms_by_limit": parts, "per_stream": per_stream},
+        "at": f"P={P} silo 1 nxt 3 use_pairwise use_prev fp32",
     }
 
 
@@ -469,6 +550,70 @@ def narrow_step(sess, params, batch, steps, step_keys, prng):
          "prev_key": ns.prev_key}, state
 
 
+# ---------------------------------------------------------- phases 9, 10
+
+def chunked_max_diff(a, b, chunk: int = 1 << 26) -> float:
+    """max |a - b| over two (P,) buffers, a chunk at a time (no P-sized
+    temporary)."""
+    err = torch.zeros((), device=a.device)
+    for i in range(0, a.shape[0], chunk):
+        err = torch.maximum(err, (a[i:i + chunk] - b[i:i + chunk]).abs().max())
+    return err.item()
+
+
+def mask_std(contrib, g, scale, chunk: int = 1 << 26) -> float:
+    """std of ``contrib - g * scale`` (a silo's contribution minus its
+    clipped gradient), accumulated in float64 a chunk at a time."""
+    s1 = s2 = 0.0
+    for i in range(0, g.shape[0], chunk):
+        d = (contrib[i:i + chunk] - g[i:i + chunk] * scale).double()
+        s1 += d.sum().item()
+        s2 += (d * d).sum().item()
+    n = g.shape[0]
+    return math.sqrt(s2 / n - (s1 / n) ** 2)
+
+
+def silo_grads_packed(model, params, batch, layout, i, n, flatbuf, param_tree):
+    """Silo i's rows of ``batch``: its gradient packed into a (P,) buffer,
+    and its gradient tree's norm (the barrier tier's ``norm_tree``)."""
+    from repro_torch.core import clipping
+    rows = batch["tokens"].shape[0] // n
+    b = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
+    tensors = flatbuf.flat_tensors(layout, param_tree(params))
+    grads = torch.autograd.grad(model.loss(params, b), tensors)
+    with torch.no_grad():
+        return flatbuf.pack_tensors(layout, grads), clipping.global_norm(grads)
+
+
+def barrier_step_parts(sess, params, batch, ns, active, steps, step_keys,
+                       prng, flatbuf, param_tree, pack_params, DPPipeline):
+    """One ``_barrier_grads`` call on ``sess``'s device from ``params``
+    (moved into a packed buffer), and every silo's contribution rebuilt
+    from its own gradient at the step's bound."""
+    layout, _ = pack_params(params)
+    priv, mesh = sess.run_cfg.privacy, sess.run_cfg.mesh
+    n = mesh.n_silos
+    keys = step_keys(prng.PRNGKey(sess.seed + 1), 0)
+    dev = sess.device
+    c0 = torch.tensor(priv.clip_bound, dtype=torch.float32, device=dev)
+    agg, loss, norms, new_ns, bound = steps._barrier_grads(
+        sess.model, priv, mesh, params, batch, keys, ns, c0, keys.key_clip,
+        layout, steps.StageTimer(dev), active=active)
+    agg = flatbuf.zero_padding(layout, agg).cpu()
+    pipe = DPPipeline(priv, layout, n)
+    contribs = []
+    for i in range(n):
+        g, norm = silo_grads_packed(sess.model, params, batch, layout, i, n,
+                                    flatbuf, param_tree)
+        with torch.no_grad():
+            contribs.append(pipe.silo_contribution(
+                g, i, pipe.clip_scale(norm, bound), active, keys, ns,
+                bound).cpu())
+    return {"agg": agg, "loss": float(loss), "bound": float(bound),
+            "norms": norms.cpu(), "prev_key": new_ns.prev_key,
+            "prev_active": new_ns.prev_active, "contribs": contribs}
+
+
 # ------------------------------------------------------------------- main
 
 def main() -> int:
@@ -481,10 +626,13 @@ def main() -> int:
 
     from repro_torch.api import Session
     from repro_torch.configs import get_config
-    from repro_torch.configs.base import (OptimizerConfig, PrivacyConfig,
-                                          reduce_for_smoke)
+    from repro_torch.configs.base import (MeshConfig, OptimizerConfig,
+                                          PrivacyConfig, reduce_for_smoke)
     from repro_torch.core import flatbuf, prng
     from repro_torch.core.barrier import step_keys
+    from repro_torch.core.dp_pipeline import DPPipeline
+    from repro_torch.core.noise_correction import NoiseState
+    from repro_torch.core.noise_correction import init_state as init_noise
     from repro_torch.distributed import steps as steps_mod
     from repro_torch.kernels import _build, dispatch
     from repro_torch.kernels.dp_clip import ops as clip_ops
@@ -495,7 +643,8 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import ref as flash_ref
     from repro_torch.kernels.paged_attention import ops as paged_ops
     from repro_torch.kernels.paged_attention import ref as paged_ref
-    from repro_torch.models.transformer import Transformer, param_tree
+    from repro_torch.models.transformer import (Transformer, pack_params,
+                                                param_tree)
     from repro_torch.runtime.serving import PagePool, zipf_requests
 
     t_start = time.perf_counter()
@@ -669,9 +818,15 @@ def main() -> int:
     kern["noise_batch"] = check_noise_batch(dev, N_SILOS, P, g_sum, noise_ops,
                                             noise_ref, step_keys, prng.PRNGKey,
                                             per_stream)
+    per_stream_cm = stream_ops(sass.stdout, "clip_mask_kernel")
+    log(f"[kernel] clip_mask SASS, instructions per stream element by pipe: "
+        f"{json.dumps(per_stream_cm)}")
+    kern["clip_mask"] = check_clip_mask(
+        dev, P, g_sum, noise_ops, noise_ref, step_keys(prng.PRNGKey(1), 0),
+        step_keys(prng.PRNGKey(1), 1).key_xi, per_stream_cm)
     del g_sum
     torch.cuda.empty_cache()
-    for name in ("clip_accumulate", "noise_batch"):
+    for name in ("clip_accumulate", "noise_batch", "clip_mask"):
         r = kern[name]
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         log(f"[kernel] {name}: max_abs_err {r['max_abs_err']} over all P "
@@ -679,8 +834,9 @@ def main() -> int:
             f"{r['ms']:.4f} ms | plain {r['plain_ms']:.4f} ms "
             f"({r['plain_at']}) | library {lib} | bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}) | {r['at']}")
-    log(f"[kernel] noise_batch bound parts (ms): "
-        f"{json.dumps(kern['noise_batch']['bound_detail'])}")
+    for name in ("noise_batch", "clip_mask"):
+        log(f"[kernel] {name} bound parts (ms): "
+            f"{json.dumps(kern[name]['bound_detail'])}")
 
     # 7. training at full width, 12 layers, through Session.train
     priv = PrivacyConfig(enabled=True, sigma=0.3, clip_bound=1.0,
@@ -786,12 +942,197 @@ def main() -> int:
         f"params max |diff| {dp.max().item():.3g}, {flips} beyond "
         f"{PARAM_ATOL} | prev_key equal")
 
+    # 9. the barrier tier at full width, 12 layers
+    mesh4 = MeshConfig((N_SILOS,), ("data",))
+    priv_b = dataclasses.replace(priv, sync_path="barrier")
+    bsess = Session.from_config(cut12, privacy=priv_b, optimizer=opt,
+                                mesh=mesh4, seed=0)
+    params = bsess.init_params()
+    layout9, _ = pack_params(params)
+    batch9 = bsess.synthetic_batches(BATCH, SEQ)()
+    keys9 = step_keys(prng.PRNGKey(1), 0)
+    ns9 = init_noise(prng.fold_in(prng.PRNGKey(0), 0xD0), N_SILOS)
+    c0 = torch.tensor(priv.clip_bound, dtype=torch.float32, device=dev)
+    grads_args = (batch9, keys9, ns9, c0, keys9.key_clip, layout9,
+                  steps_mod.StageTimer(dev))
+    f_agg, f_loss, _, _, f_bound = steps_mod._fused_grads(
+        bsess.model, priv, params, grads_args[0], N_SILOS, *grads_args[1:])
+    flatbuf.zero_padding(layout9, f_agg)
+    torch.cuda.reset_peak_memory_stats()
+    b_agg, b_loss, _, _, b_bound = steps_mod._barrier_grads(
+        bsess.model, priv_b, mesh4, params, *grads_args)
+    peak_grads = torch.cuda.max_memory_allocated()
+    flatbuf.zero_padding(layout9, b_agg)
+    B9 = priv.mask_scale * priv.sigma * float(b_bound)
+    agg_err = chunked_max_diff(b_agg, f_agg)
+    agg_tol = MASK_ATOL_PER_B * B9
+    check(agg_err <= agg_tol, f"barrier vs fused aggregate differ by "
+                              f"{agg_err} (tolerance {agg_tol}, B {B9})")
+    check(math.isclose(float(b_loss), float(f_loss), rel_tol=TRAIN_RTOL)
+          and math.isclose(float(b_bound), float(f_bound), rel_tol=TRAIN_RTOL),
+          f"barrier vs fused loss {float(b_loss)} / {float(f_loss)}, bound "
+          f"{float(b_bound)} / {float(f_bound)}")
+    agg_max = f_agg.abs().max().item()
+    del b_agg, f_agg
+    torch.cuda.empty_cache()
+    # silo 0's contribution minus its clipped gradient: the mask (and its
+    # noise share), std sqrt(2 B^2 + s^2) = B sqrt(2) (1 + 1/1024)
+    g0, norm0 = silo_grads_packed(bsess.model, params, batch9, layout9, 0,
+                                  N_SILOS, flatbuf, param_tree)
+    with torch.no_grad():
+        pipe9 = DPPipeline(priv_b, layout9, N_SILOS)
+        scale0 = pipe9.clip_scale(norm0, b_bound)
+        contrib0 = pipe9.silo_contribution(g0, 0, scale0, None, keys9, ns9,
+                                           b_bound)
+        std0 = mask_std(contrib0, g0, scale0)
+    check(abs(std0 / (B9 * math.sqrt(2)) - 1) < 0.01,
+          f"contribution minus clipped gradient has std {std0}, not about "
+          f"B*sqrt(2) = {B9 * math.sqrt(2)}")
+    report["barrier_vs_fused"] = {
+        "aggregate_max_abs_err": agg_err, "tolerance": agg_tol, "B": B9,
+        "aggregate_max_abs": agg_max, "loss": [float(b_loss), float(f_loss)],
+        "bound": [float(b_bound), float(f_bound)], "mask_std": std0,
+        "B_sqrt2": B9 * math.sqrt(2),
+        "peak_mem_gb_barrier_grads": peak_grads / 1e9}
+    log(f"[barrier] full width, 12 layers, first step: barrier vs fused "
+        f"aggregate max |diff| {agg_err:.3g} (|g| up to {agg_max:.3g}; "
+        f"tolerance {agg_tol:.3g} from B {B9:.4f}) | loss {float(b_loss):.6f}"
+        f" / {float(f_loss):.6f} | bound {float(b_bound):.6f} / "
+        f"{float(f_bound):.6f} | silo 0's contribution minus its clipped "
+        f"gradient: std {std0:.4f} (B*sqrt(2) = {B9 * math.sqrt(2):.4f}) | "
+        f"peak {peak_grads / 1e9:.2f} GB in _barrier_grads")
+    del g0, contrib0, params, bsess, pipe9
+    torch.cuda.empty_cache()
+
+    tsess = Session.from_config(cut12, privacy=priv_b, optimizer=opt,
+                                mesh=mesh4, seed=0)
+    state = tsess.init_state()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launches()
+    res = tsess.train(steps=STEPS, batch_size=BATCH, seq_len=SEQ,
+                      state=state, log_every=1)
+    n_barrier = dispatch.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for m in res.metrics]
+    eps = [m["epsilon"] for m in res.metrics]
+    check(res.step == STEPS and len(res.metrics) == STEPS,
+          f"barrier trained {res.step} steps, not {STEPS}")
+    check(all(math.isfinite(x) for x in losses), f"loss not finite: {losses}")
+    check(all(b > a for a, b in zip([0.0] + eps, eps)),
+          f"epsilon does not rise: {eps}")
+    check(n_barrier["clip_mask"] == N_SILOS * STEPS
+          and n_barrier["clip_accumulate"] == 0
+          and n_barrier["noise_batch"] == 0
+          and all(n_barrier[k] == 0 for k in SERVING_KERNELS),
+          f"barrier launches {n_barrier}: clip_mask {N_SILOS} a step, no "
+          f"other kernel")
+    step_ms = [m["step_time_s"] * 1e3 for m in res.metrics]
+    stage_keys = ("silo_grads", "norms", "pack", "contributions", "reduce",
+                  "optimizer")
+    stages = {k: [st.get(k, 0.0) for st in res.trainer.stage_log]
+              for k in stage_keys}
+    report["barrier"] = {
+        "config": report["train"]["config"], "mesh": [N_SILOS],
+        "P": P, "batch": BATCH, "seq_len": SEQ, "loss": losses,
+        "clip_bound": [m["clip_bound"] for m in res.metrics],
+        "epsilon": eps, "step_ms": step_ms,
+        "step_ms_after_first": sum(step_ms[1:]) / (STEPS - 1),
+        "stage_ms": stages, "peak_mem_gb": peak / 1e9,
+        "launches": n_barrier}
+    log(f"[barrier] {STEPS} steps, batch {BATCH} x {SEQ}, mesh (4,): loss "
+        f"{[round(x, 4) for x in losses]} | epsilon "
+        f"{[round(e, 3) for e in eps]} | step ms "
+        f"{[round(t, 1) for t in step_ms]} (after the first: "
+        f"{report['barrier']['step_ms_after_first']:.1f}) | peak "
+        f"{peak / 1e9:.2f} GB | launches {n_barrier}")
+    log("[barrier] stage ms per step: " + " | ".join(
+        f"{k} {[round(t, 2) for t in v]}" for k, v in stages.items()))
+    del res, state, tsess
+    torch.cuda.empty_cache()
+
+    # 10. one barrier step of the narrow config, card (kernels) vs CPU
+    priv_cb = dataclasses.replace(priv_c, sync_path="barrier")
+    sess_b = {d: Session.from_config(narrow, privacy=priv_cb, optimizer=opt,
+                                     mesh=mesh4, seed=3, device=d)
+              for d in ("cuda", "cpu")}
+    p_cpu = sess_b["cpu"].init_params()
+    p_gpu = copy.deepcopy(p_cpu).to(dev)
+    batch = sess_b["cpu"].synthetic_batches(16, 32)()
+    act10 = np.array([True, False, True, True])  # silo 0's next is 2
+    primed = NoiseState(step_keys(prng.PRNGKey(4), 0).key_xi, True,
+                        np.array([True, True, False, True]))
+    out = {}
+    for d, p in (("cuda", p_gpu), ("cpu", p_cpu)):
+        dispatch.reset_launches()
+        out[d] = barrier_step_parts(
+            sess_b[d], p, {k: v.to(d) for k, v in batch.items()}, primed,
+            act10, steps_mod, step_keys, prng, flatbuf, param_tree,
+            pack_params, DPPipeline)
+        out[d]["launches"] = dispatch.launch_counts()
+    xg, xc = out["cuda"], out["cpu"]
+    check(xg["launches"]["clip_mask"] == 2 * N_SILOS
+          and sum(xg["launches"].values()) == 2 * N_SILOS,
+          f"narrow barrier card launches {xg['launches']}")
+    check(all(v == 0 for v in xc["launches"].values()),
+          f"the CPU barrier step launched {xc['launches']}")
+    check(xg["prev_key"] == xc["prev_key"]
+          and np.array_equal(xg["prev_active"], xc["prev_active"]),
+          "carried noise state differs between card and CPU")
+    check(max(xg["bound"], xc["bound"]) < NARROW_CAP,
+          f"narrow barrier bound at the cap: {xg['bound']} / {xc['bound']}")
+    for k in ("loss", "bound"):
+        check(math.isclose(xg[k], xc[k], rel_tol=TRAIN_RTOL),
+              f"narrow barrier {k}: card {xg[k]} vs CPU {xc[k]}")
+    check(torch.allclose(xg["norms"], xc["norms"], rtol=TRAIN_RTOL, atol=0),
+          f"norms {xg['norms']} vs {xc['norms']}")
+    B10 = priv.mask_scale * priv.sigma * xc["bound"]
+    tol10 = BARRIER_ATOL_PER_B * B10
+    c_err = [(a - b).abs().max().item()
+             for a, b in zip(xg["contribs"], xc["contribs"])]
+    a_err = (xg["agg"] - xc["agg"]).abs().max().item()
+    check(max(c_err) <= tol10 and a_err <= tol10,
+          f"narrow barrier contributions differ by {c_err}, aggregate by "
+          f"{a_err} (tolerance {tol10})")
+    check(not xg["contribs"][1].any() and not xc["contribs"][1].any(),
+          "the dropped silo contributed")
+    report["barrier_cross_device"] = {
+        "P": xc["agg"].shape[0], "active": act10.tolist(),
+        "loss": [xg["loss"], xc["loss"]], "bound": [xg["bound"], xc["bound"]],
+        "contribution_max_abs_err": c_err, "aggregate_max_abs_err": a_err,
+        "tolerance": tol10,
+        "contribution_max_abs": max(c.abs().max().item()
+                                    for c in xc["contribs"])}
+    log(f"[barrier-slice] narrow config (P {xc['agg'].shape[0]}), active "
+        f"{act10.astype(int).tolist()}, primed state: loss {xg['loss']:.6f} /"
+        f" {xc['loss']:.6f} | bound {xg['bound']:.6f} / {xc['bound']:.6f} | "
+        f"contributions max |diff| {[f'{e:.3g}' for e in c_err]} (|c| up to "
+        f"{report['barrier_cross_device']['contribution_max_abs']:.3g}) | "
+        f"aggregate {a_err:.3g} (tolerance {tol10:.3g}) | prev_key equal")
+    del p_gpu, out, xg
+    torch.cuda.empty_cache()
+    cli = [sys.executable, "-m", "repro_torch.launch.train", "--sync-path",
+           "barrier", "--silos", "4", "--steps", "2", "--drop-silos", "1:2"]
+    t0 = time.perf_counter()
+    r = subprocess.run(cli, cwd=ROOT, capture_output=True, text=True,
+                       timeout=600, env={**os.environ,
+                                         "PYTHONPATH": str(ROOT / "src")})
+    check(r.returncode == 0
+          and "done at step 2 on cuda (barrier tier)" in r.stdout,
+          f"training CLI failed ({r.returncode}):\n{r.stdout}\n{r.stderr}")
+    done = next(x for x in r.stdout.splitlines() if x.startswith("done"))
+    report["cli"] = {"cmd": " ".join(cli[1:]), "s": time.perf_counter() - t0,
+                     "last": done}
+    log(f"[cli] {' '.join(cli[1:])}: exit 0 in {report['cli']['s']:.1f} s | "
+        f"{report['cli']['last']}")
+
     # the record
     launches = {"flash_attention": n_direct["flash_attention"],
                 "paged_attention": n_cont["paged_attention"],
                 "paged_reset": n_cont["paged_reset"],
                 "clip_accumulate": n_train["clip_accumulate"],
-                "noise_batch": n_train["noise_batch"]}
+                "noise_batch": n_train["noise_batch"],
+                "clip_mask": n_barrier["clip_mask"]}
     line = []
     for name, r in kern.items():
         k = dispatch.KERNELS[name]

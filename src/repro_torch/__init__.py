@@ -8,7 +8,8 @@ hand-written CUDA kernel for ``sm_90a`` (``kernels/*/csrc``), built at first
 use; a CPU tensor takes the kernel's plain PyTorch version instead.
 
 Ported so far, for the dense family: confidential serving (direct, wave and
-continuous modes) and private collaborative training on the fused DP tier
-(``Session.train``). The barrier and wire tiers, the launchers other than
-serving, and the other families are still to port (``ROADMAP.md``).
+continuous modes) and private collaborative training on the fused and
+barrier DP tiers (``Session.train``), with the serving and training
+launchers. The wire tier and the other families are still to port
+(``ROADMAP.md``).
 """

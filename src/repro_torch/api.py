@@ -15,7 +15,10 @@
     gen = sess.serve(batch_size=4, prompt_len=32, max_new_tokens=16,
                      params=result.state.params)
 
-Port of ``repro/api.py``: serving, and training on the fused DP tier.
+Port of ``repro/api.py``: serving, and training on the fused and barrier
+DP tiers (``PrivacyConfig(sync_path="barrier")`` with
+``mesh=MeshConfig((n,), ("data",))`` runs the paper's per-silo masked
+contributions over n silos, one after another on the card).
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a CUDA device and without ``device="cpu"`` they raise, never falling
 back to the CPU. On the CPU every kernel runs its plain PyTorch version.
@@ -30,8 +33,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_smoke_config, resolve_arch
-from repro_torch.configs.base import (ModelConfig, OptimizerConfig,
-                                      PrivacyConfig, RunConfig)
+from repro_torch.configs.base import (MeshConfig, ModelConfig,
+                                      OptimizerConfig, PrivacyConfig,
+                                      RunConfig)
 from repro_torch.core import prng
 from repro_torch.data.synthetic import synthetic_tokens
 from repro_torch.distributed import steps as steps_mod
@@ -97,11 +101,14 @@ class Session:
     def from_config(cls, arch: Union[str, ModelConfig], *, full: bool = False,
                     privacy: Optional[PrivacyConfig] = None,
                     optimizer: Optional[OptimizerConfig] = None,
+                    mesh: Optional[MeshConfig] = None,
                     compute_dtype=torch.float32, seed: int = 0,
                     device=None) -> "Session":
         """Build a session from an arch id (or a ready ModelConfig).
         ``full=False`` loads the reduced smoke config. Privacy is off unless
-        a PrivacyConfig is passed; the optimizer defaults to AdamW."""
+        a PrivacyConfig is passed; the optimizer defaults to AdamW; the mesh
+        to one data slot, the card (JAX defaults to its local devices). The
+        barrier tier runs one silo per data slot of ``mesh``."""
         dev = resolve_device(device)
         if dev.type == "cuda":
             # the path is fp32 at full precision, as in the JAX package:
@@ -115,7 +122,8 @@ class Session:
         model = build_model(cfg, dev, compute_dtype=compute_dtype)
         rc = RunConfig(model=cfg, privacy=privacy if privacy is not None
                        else PrivacyConfig(enabled=False),
-                       optimizer=optimizer or OptimizerConfig(), seed=seed)
+                       optimizer=optimizer or OptimizerConfig(),
+                       mesh=mesh or MeshConfig(), seed=seed)
         return cls(cfg=cfg, run_cfg=rc, model=model, device=dev, seed=seed)
 
     # ----------------------------------------------------------------- train
@@ -168,8 +176,9 @@ class Session:
               elastic: bool = False,
               silo_schedule: Optional[Callable[[int], Any]] = None,
               state=None) -> TrainResult:
-        """Run training on the fused DP tier (or without privacy). The root
-        key of the step keys is ``PRNGKey(seed + 1)``, as in JAX."""
+        """Run training on the fused or barrier DP tier (or without
+        privacy). The root key of the step keys is ``PRNGKey(seed + 1)``, as
+        in JAX."""
         trainer = self.trainer(total_steps=steps, checkpoint_dir=checkpoint_dir,
                                log_every=log_every,
                                epsilon_budget=epsilon_budget,

@@ -81,7 +81,7 @@ class PrivacyConfig:
     mask_mode: str = "pairwise"  # admin | pairwise | none
     mask_scale: float = 8.0  # B/(sigma C): spread of the zero-sum r-terms
     mask_ring: bool = False
-    sync_path: str = "fused"  # fused | barrier (barrier not ported yet)
+    sync_path: str = "fused"  # fused | barrier
     silo_mode: str = "vmap"  # vmap | scan (scan not ported yet)
     n_silos: int = 0  # 0 = auto (vmap: mesh silo count; scan: 4 data owners)
 
@@ -89,16 +89,22 @@ class PrivacyConfig:
 @dataclass(frozen=True)
 class MeshConfig:
     """The device mesh, as far as the silo count reads it. The port runs on
-    one card, so the default mesh is one data slot."""
+    one card, so the default mesh is one data slot; the barrier tier runs a
+    mesh's silos one after another on that card (``MeshConfig((4,),
+    ("data",))`` is four silos, as on a 4-device JAX mesh)."""
 
     shape: tuple = (1,)
     axes: tuple = ("data",)
 
     @property
+    def silo_axes(self) -> tuple:
+        return tuple(a for a in self.axes if a in ("pod", "data"))
+
+    @property
     def n_silos(self) -> int:
         n = 1
         for a, s in zip(self.axes, self.shape):
-            if a in ("pod", "data"):
+            if a in self.silo_axes:
                 n *= s
         return n
 

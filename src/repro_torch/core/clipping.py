@@ -1,6 +1,7 @@
 """Gradient clipping and the dynamic percentile-clipping protocol (paper
-section 4.3). Port of the part of ``repro/core/clipping.py`` the fused tier
-runs: per-silo clip factors and the admin's noisy percentile bound.
+section 4.3). Port of the part of ``repro/core/clipping.py`` the fused and
+barrier tiers run: global norms and clipping of gradient trees, per-silo
+clip factors and the admin's noisy percentile bound.
 """
 from __future__ import annotations
 
@@ -11,16 +12,68 @@ import torch
 from repro_torch.core import prng
 
 PERCENTILES = (0.1, 0.25, 0.5, 0.75, 0.9)
+NORM_CHUNK = 1 << 26      # elements per dot product of a sum of squares
+CPU_NORM_CHUNK = 1 << 18  # the same on the CPU (see sumsq)
 
 
-def global_norm(tree: dict) -> torch.Tensor:
-    """L2 norm over every tensor of a flat tree (stacked leaves included)."""
+def sumsq(t: torch.Tensor) -> torch.Tensor:
+    """``sum(t * t)`` in fp32 as ``dot(c, c)`` over chunks: each chunk is
+    read once and no tensor of squares is written (the chunks keep every
+    call's length under 2**31). cuBLAS's dot is within about 1e-7 relative
+    of an fp64 sum at any length; MKL's drifts with the chunk's length when
+    it runs on few threads (single-threaded, 2.2e-5 at 2**26 and 3e-8 at
+    2**18 over 12 M elements), so the CPU takes chunks of
+    ``CPU_NORM_CHUNK``. torch's CPU ``vector_norm`` accumulates in sequence
+    and loses 1e-4."""
+    flat = t.reshape(-1).float()
+    step = NORM_CHUNK if flat.is_cuda else CPU_NORM_CHUNK
+    acc = None
+    for a in range(0, flat.numel(), step):
+        c = flat[a:a + step]
+        part = torch.dot(c, c)
+        acc = part if acc is None else acc + part
+    return acc if acc is not None else flat.new_zeros(())
+
+
+def _leaves(tree):
+    """The tensors of a tree in JAX's leaf order: a dict's keys sorted by
+    path (``jax.tree.flatten``), a list or tuple in its order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree, key=lambda p: tuple(str(p).split("."))):
+            yield from _leaves(tree[k])
+    elif isinstance(tree, (list, tuple)):
+        for t in tree:
+            yield from _leaves(t)
+    else:
+        yield tree
+
+
+def global_norm(tree) -> torch.Tensor:
+    """L2 norm over every tensor of a tree (a flat or nested dict, a list
+    standing for a stacked leaf, or a list of tensors): the per-leaf sums of
+    squares (:func:`sumsq`) added in leaf order, as JAX sums them."""
     total = None
-    for leaf in tree.values():
-        for t in (leaf if isinstance(leaf, (list, tuple)) else [leaf]):
-            s = torch.sum(torch.square(t.float()))
-            total = s if total is None else total + s
+    for leaf in _leaves(tree):
+        s = sumsq(leaf)
+        total = s if total is None else total + s
     return torch.sqrt(total)
+
+
+def clip_tree(tree, clip_bound) -> tuple:
+    """Scale the whole tree to norm <= ``clip_bound``. Returns
+    ``(clipped tree, pre-clip norm)``: the tree with the same structure,
+    every tensor multiplied by the one clip factor."""
+    norm = global_norm(tree)
+    scale = clip_scale(norm, clip_bound)
+
+    def scaled(node):
+        if isinstance(node, dict):
+            return {k: scaled(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(scaled(v) for v in node)
+        return (node.float() * scale).to(node.dtype)
+
+    return scaled(tree), norm
 
 
 def clip_scale(norm: torch.Tensor, clip_bound) -> torch.Tensor:

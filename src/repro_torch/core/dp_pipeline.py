@@ -1,29 +1,37 @@
-"""The DP aggregation engine of the central (fused) tier. Port of the central
-path of ``repro/core/dp_pipeline.py``.
+"""The DP aggregation engine of the fused and barrier tiers. Port of
+``repro/core/dp_pipeline.py``.
 
 The model updater only ever sees
 
     sum_i clip(g_i) + sigma*C*(xi_t - lambda*xi_{t-1})
 
-and :meth:`DPPipeline.run_central` builds it from the stacked ``(n, P)``
-packed per-silo gradients in the JAX package's stage order:
+Two tiers build it. The fused tier's :meth:`DPPipeline.run_central` takes
+the stacked ``(n, P)`` packed per-silo gradients in the JAX package's stage
+order,
 
     norms -> dynamic_bound -> clip_scales -> masked_aggregate -> corrected_noise
 
-``masked_aggregate`` is the ``clip_accumulate`` kernel and
-``corrected_noise_packed`` the ``noise_batch`` kernel. The central tier
-elides the zero-sum masks (they cancel in the aggregate by construction), so
-mask modes ``pairwise`` and ``none`` run the same graph. Every stage takes
-``active``, the ``(n_silos,)`` bool participation set (a host array; None
-means all silos): dropped silos contribute no gradient and no noise share,
-each active silo's share has std ``sigma_c/sqrt(k)``, and the
-``lambda``-correction share of silo i applies iff it was active at t-1 and
-is active now.
+``masked_aggregate`` being the ``clip_accumulate`` kernel and
+``corrected_noise_packed`` the ``noise_batch`` kernel; it elides the
+zero-sum masks (they cancel in the aggregate by construction), so mask
+modes ``pairwise`` and ``none`` run the same graph there. The barrier tier
+is the paper's protocol: each silo emits :meth:`DPPipeline.silo_contribution`
+(its clipped gradient, a zero-sum pairwise mask over the ring of active
+silos, its noise share and its lambda-correction share, one ``clip_mask``
+kernel), and :func:`reduce_contributions` sums the contributions in silo
+order; only that sum is ever seen in the clear.
+
+Every stage takes ``active``, the ``(n_silos,)`` bool participation set (a
+host array; None means all silos): dropped silos contribute no gradient,
+no mask and no noise share, each active silo's share has std
+``sigma_c/sqrt(k)``, and the ``lambda``-correction share of silo i applies
+iff it was active at t-1 and is active now.
 
 The port runs the JAX package's ``packed`` execution policy only. Not
-ported yet (they raise ``NotImplementedError``): the admin mask construction
-and the per-silo contribution of the barrier and wire tiers (``ROADMAP.md``
-queue 1, items 7 and 9), and the per-leaf noise family (item 9).
+ported yet (they raise ``NotImplementedError``): the admin mask
+construction and the per-leaf noise family (``ROADMAP.md`` queue 1, item
+9), and the external xi/xp streams of the wire tier's speculative rounds
+(item 8).
 """
 from __future__ import annotations
 
@@ -31,15 +39,12 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import PrivacyConfig
-from repro_torch.core import clipping
+from repro_torch.core import clipping, flatbuf
 from repro_torch.core.barrier import BarrierKeys, dynamic_bound_from_percentiles
 from repro_torch.core.flatbuf import PackedLayout
 from repro_torch.core.noise_correction import NoiseState
 from repro_torch.kernels.dp_clip import ops as clip_ops
 from repro_torch.kernels.dp_fused import ops as fused_ops
-
-
-NORM_CHUNK = 1 << 26  # elements per dot product of the norms
 
 
 def is_static_full(active) -> bool:
@@ -73,6 +78,18 @@ class DPPipeline:
             return float(self.n_silos)
         return max(float(np.sum(np.asarray(active))), 1.0)
 
+    def next_active(self, silo: int, active) -> int:
+        """The next active silo after ``silo`` in the ring, the pairwise
+        mask's neighbour: skipping dropped silos keeps the r-terms
+        telescoping to zero over any participation set. With no other
+        active silo the ring closes on ``silo`` itself (its mask is 0)."""
+        act = self._active_or_full(active)
+        for off in range(1, self.n_silos + 1):
+            cand = (int(silo) + off) % self.n_silos
+            if act[cand]:
+                return cand
+        return (int(silo) + 1) % self.n_silos  # nobody active: JAX's argmax
+
     def prev_active(self, state: NoiseState) -> np.ndarray:
         pa = state.prev_active
         if pa is None or np.asarray(pa).shape != (self.n_silos,):
@@ -105,21 +122,13 @@ class DPPipeline:
     def norms(self, stacked: torch.Tensor) -> torch.Tensor:
         """Per-silo global norms off a stacked (n, P) packed buffer (padding
         is exactly zero): ``sqrt(sum(g * g))`` per row, as JAX computes it,
-        as ``dot(c, c)`` over chunks of ``NORM_CHUNK``, which reads each
-        chunk once and writes no squares (the chunks keep every call's
-        length under 2**31). The dot is within about 1e-7 relative of an
-        fp64 sum on the card (cuBLAS) and, at a few million elements, on
-        the CPU (MKL); torch's CPU ``vector_norm`` accumulates in sequence
-        and loses 1e-4 there."""
-        out = []
-        for row in stacked:
-            acc = None
-            for a in range(0, row.numel(), NORM_CHUNK):
-                c = row[a:a + NORM_CHUNK]
-                part = torch.dot(c, c)
-                acc = part if acc is None else acc + part
-            out.append(torch.sqrt(acc))
-        return torch.stack(out)
+        by ``clipping.sumsq`` (chunked dot products, no temporary)."""
+        return torch.stack([torch.sqrt(clipping.sumsq(row)) for row in stacked])
+
+    def norm_tree(self, tree) -> torch.Tensor:
+        """One silo's global norm off its gradient tree (the barrier tier's
+        norm: per-leaf sums added in leaf order, not the packed row's)."""
+        return clipping.global_norm(tree)
 
     def dynamic_bound(self, norms, active, clip_key, fallback) -> torch.Tensor:
         """The percentile protocol over the active silos' norms; ``fallback``
@@ -130,6 +139,9 @@ class DPPipeline:
         mask = torch.as_tensor(self._active_or_full(active), device=norms.device)
         pcts = clipping.local_percentiles(norms, mask=mask)
         return dynamic_bound_from_percentiles(pcts[None], self.priv, clip_key)
+
+    def clip_scale(self, norm, bound) -> torch.Tensor:
+        return clipping.clip_scale(norm, bound)
 
     def clip_scales(self, norms, bound, active) -> torch.Tensor:
         """DP-SGD clip factors, zeroed for dropped silos."""
@@ -164,11 +176,63 @@ class DPPipeline:
                                      lam_gates.contiguous(), s_prev.item(),
                                      use_prev=priv.noise_lambda > 0.0)
 
-    def silo_contribution(self, *args, **kw):
-        raise NotImplementedError(
-            "DPPipeline.silo_contribution (the barrier and wire tiers' "
-            "per-silo contribution on clip_mask) is not ported yet: "
-            "ROADMAP.md queue 1, item 7")
+    def silo_contribution(self, g, silo: int, scale, active, keys: BarrierKeys,
+                          state: NoiseState, bound, admin_row=None, xi=None,
+                          xp=None, out=None) -> torch.Tensor:
+        """One silo's wire contribution: its clipped gradient plus the
+        zero-sum mask ``b * (r_silo - r_nxt)`` over the active ring, its
+        ``sigma_c/sqrt(k)`` noise share and its lambda-correction share, one
+        ``clip_mask`` dispatch. Summing every silo's output in silo order
+        (:func:`reduce_contributions`) gives
+        ``sum_i clip(g_i) + sigma*C*(xi_t - lam*xi_{t-1})``.
+
+        ``g`` is the silo's gradient, a tree or its packed (P,) buffer;
+        ``scale`` its clip factor (a 0-dim tensor); ``out`` receives the
+        packed result (``g`` itself to work in place). A dropped silo's
+        contribution is zero: its scale, ``b``, ``s`` and ``lam`` are all
+        gated. Mask mode ``none`` returns the clipped gradient with no DP
+        terms at all, as the JAX package's barrier tier does (its fused
+        tier adds the noise under ``none``). The fp32 scalars are made on
+        the bound's device in the reference's order: ``sigma_c = sigma*C``,
+        ``b = mask_scale*sigma_c*gate``, ``s*gate``,
+        ``lam = lambda*hp*gate*pa_gate`` (the JAX package's gates are traced
+        inside its shard_map, so it always multiplies by them: by 1.0 or
+        0.0, exactly)."""
+        if admin_row is not None:
+            raise NotImplementedError(
+                "admin mask rows are not ported yet (ROADMAP.md queue 1, "
+                "item 9: remaining mask and noise families)")
+        if xi is not None or xp is not None:
+            raise NotImplementedError(
+                "external xi/xp streams (the wire tier's speculative rounds) "
+                "are not ported yet: ROADMAP.md queue 1, item 8")
+        priv = self.priv
+        silo = int(silo)
+        packed = g if isinstance(g, torch.Tensor) \
+            else flatbuf.pack(self.layout, g)
+        gate = float(self._active_or_full(active)[silo])
+        scaled = scale * gate
+        if priv.mask_mode == "none":
+            # confidentiality-only sync: clipped gradient, no DP terms
+            return torch.mul(packed, scaled, out=out)
+        dev = packed.device
+        bound = torch.as_tensor(bound, dtype=torch.float32, device=dev)
+        sigma_c = priv.sigma * bound
+        s, s_prev, pa = self._stream_scales(bound, active, state)
+        hp = torch.tensor(1.0 if state.has_prev else 0.0, dtype=torch.float32,
+                          device=dev)
+        lam_gate = priv.noise_lambda * hp * gate * float(pa[silo])
+        return fused_ops.clip_mask(
+            packed, scaled, keys.key_r, keys.key_xi, state.prev_key, silo,
+            self.n_silos, sigma_c, priv.mask_scale * sigma_c * gate, lam_gate,
+            use_pairwise=True, use_prev=priv.noise_lambda > 0.0,
+            nxt=self.next_active(silo, active), noise_scale=s * gate,
+            prev_noise_scale=s_prev, out=out)
+
+    def finalize(self, agg: torch.Tensor) -> dict:
+        """The aggregated packed contribution -> the fp32 gradient tree
+        (views into ``agg``)."""
+        return flatbuf.unpack(self.layout, agg)
 
     # -- composed run -----------------------------------------------------------
     def run_central(self, g_stacked, norms, keys: BarrierKeys,
@@ -197,3 +261,14 @@ class DPPipeline:
         return torch.as_tensor(self._active_or_full(active).astype(np.float32),
                                device=device)
 
+
+def reduce_contributions(updates) -> torch.Tensor:
+    """The model updater's aggregation: the sum of the packed per-silo
+    contributions in silo order, the fused tier's noise-accumulation order.
+    Accumulates in place into the first contribution, which becomes the
+    aggregate (the barrier tier reads no contribution again)."""
+    it = iter(updates)
+    total = next(it)
+    for u in it:
+        total.add_(u)
+    return total

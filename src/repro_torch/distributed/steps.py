@@ -1,4 +1,4 @@
-"""The CITADEL++ train step on the fused DP tier. Port of the fused path of
+"""The CITADEL++ train step on the fused and barrier DP tiers. Port of
 ``repro/distributed/steps.py``.
 
 ``sync_path='fused'`` with ``silo_mode='vmap'``: every silo's gradient of
@@ -6,15 +6,24 @@ the dense transformer is computed, packed into its row of one stacked
 ``(n_silos, P)`` fp32 buffer (``core/flatbuf.py``), and
 ``DPPipeline.run_central`` turns the stack into
 ``sum_i clip(g_i) + sigma*C*(xi_t - lambda*xi_{t-1})`` through the
-``clip_accumulate`` and ``noise_batch`` kernels. The aggregate is divided by
-the silos that contributed and the optimizer updates the packed master
-buffer, of which the model's parameters are views.
+``clip_accumulate`` and ``noise_batch`` kernels.
 
-JAX vmaps the silos; the port loops over them, computing one silo's
-gradient with autograd, packing it into row i and freeing the gradient tree
-before silo i+1, so only one gradient tree lives at a time. The barrier
-tier and the silo-serial scan tier raise ``NotImplementedError``
-(``ROADMAP.md`` queue 1, items 7 and 9).
+``sync_path='barrier'``: the paper's protocol. Each silo emits
+``DPPipeline.silo_contribution`` (clip, zero-sum mask over the active ring,
+its noise share and its correction share, one ``clip_mask`` kernel) and the
+sum of the contributions in silo order is the aggregate the model updater
+sees. The JAX package runs one silo per ``(pod, data)`` slot of a device
+mesh under ``shard_map``; the port runs the mesh's silos one after another
+on one card, so its mesh is virtual: ``MeshConfig((n,), ("data",))`` gives
+the result of the JAX package on an n-device mesh.
+
+Either way the aggregate is divided by the silos that contributed and the
+optimizer updates the packed master buffer, of which the model's
+parameters are views. JAX vmaps (or shard_maps) the silos; the port loops
+over them, computing one silo's gradient with autograd, packing it into row
+i and freeing the gradient tree before silo i+1, so only one gradient tree
+lives at a time. The silo-serial scan tier raises ``NotImplementedError``
+(``ROADMAP.md`` queue 1, item 9).
 """
 from __future__ import annotations
 
@@ -25,10 +34,10 @@ from typing import Any, NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.configs.base import PrivacyConfig, RunConfig
+from repro_torch.configs.base import MeshConfig, PrivacyConfig, RunConfig
 from repro_torch.core import barrier as barrier_mod
 from repro_torch.core import flatbuf, prng
-from repro_torch.core.dp_pipeline import DPPipeline
+from repro_torch.core.dp_pipeline import DPPipeline, reduce_contributions
 from repro_torch.core.flatbuf import PackedLayout
 from repro_torch.core.noise_correction import NoiseState
 from repro_torch.core.noise_correction import init_state as init_noise_state
@@ -128,6 +137,16 @@ def _reshape_to_silos(batch: dict, n_silos: int) -> dict:
     return out
 
 
+def _mean_loss(losses: list, pipe: DPPipeline, active) -> torch.Tensor:
+    """``sum_i loss_i * gate_i / active_count`` in silo order (JAX's psum
+    of the gated losses): dropped silos weigh nothing."""
+    dev = losses[0].device
+    gates = torch.as_tensor(pipe._active_or_full(active), device=dev,
+                            dtype=torch.float32)
+    return torch.sum(torch.stack(losses) * gates) / torch.tensor(
+        pipe.active_count(active), device=dev)
+
+
 def _fused_grads(model: Model, priv: PrivacyConfig, params, batch, n_silos,
                  keys, noise_state, clip_bound, clip_key, layout,
                  timer: StageTimer, active=None):
@@ -157,11 +176,52 @@ def _fused_grads(model: Model, priv: PrivacyConfig, params, batch, n_silos,
             stacked, norms, keys, noise_state, clip_bound, clip_key, active,
             timer)
         del stacked
-        gates = torch.as_tensor(pipe._active_or_full(active), device=dev,
-                                dtype=torch.float32)
-        loss = torch.sum(torch.stack(losses) * gates) / torch.tensor(
-            pipe.active_count(active), device=dev)
-    return noisy, loss, norms, new_ns, bound
+    return noisy, _mean_loss(losses, pipe, active), norms, new_ns, bound
+
+
+def _barrier_grads(model: Model, priv: PrivacyConfig, mesh_cfg: MeshConfig,
+                   params, batch, keys, noise_state, clip_bound, clip_key,
+                   layout, timer: StageTimer, active=None):
+    """The barrier tier, one silo of the mesh after another: each silo's
+    gradient and its norm off the gradient tree (``norm_tree``, as JAX),
+    packed into its row; with every norm known (JAX's ``all_gather``) the
+    dynamic bound, which every silo computes alike; each silo's
+    ``silo_contribution`` written over its own row; the rows summed in silo
+    order into row 0. Returns ``(aggregate (P,), loss, norms, new noise
+    state, bound)``, the aggregate a view of the stacked buffer."""
+    n_silos = mesh_cfg.n_silos
+    silo_batches = _reshape_to_silos(batch, n_silos)
+    pipe = DPPipeline(priv, layout, n_silos)
+    tensors = flatbuf.flat_tensors(layout, transformer.param_tree(params))
+    dev = tensors[0].device
+    stacked = torch.empty((n_silos, layout.total), dtype=torch.float32,
+                          device=dev)
+    losses, norms = [], []
+    for i in range(n_silos):
+        b = {k: v[i] for k, v in silo_batches.items()}
+        with timer.stage("silo_grads"):
+            loss = model.loss(params, b)
+            grads = torch.autograd.grad(loss, tensors)
+        with torch.no_grad():
+            with timer.stage("norms"):
+                norms.append(pipe.norm_tree(grads))
+            with timer.stage("pack"):
+                flatbuf.pack_tensors(layout, grads, out=stacked[i])
+        del grads
+        losses.append(loss.detach())
+    with torch.no_grad():
+        norms = torch.stack(norms)
+        with timer.stage("contributions"):
+            bound = pipe.dynamic_bound(norms, active, clip_key, clip_bound)
+            scales = pipe.clip_scale(norms, bound)
+            rows = stacked.unbind(0)
+            for i, row in enumerate(rows):
+                pipe.silo_contribution(row, i, scales[i], active, keys,
+                                       noise_state, bound, out=row)
+        with timer.stage("reduce"):
+            agg = reduce_contributions(rows)
+    return agg, _mean_loss(losses, pipe, active), norms, \
+        pipe.advance_state(keys, noise_state, active), bound
 
 
 def build_train_step(model: Model, run_cfg: RunConfig, lr_schedule=None):
@@ -170,13 +230,11 @@ def build_train_step(model: Model, run_cfg: RunConfig, lr_schedule=None):
     participation set of this step (None = every silo); dropped silos
     contribute neither gradient, noise share nor divisor weight. ``timer``
     (a :class:`StageTimer`) times the step's stages. The master buffer, and
-    with it ``state.params``, is updated in place."""
+    with it ``state.params``, is updated in place. ``sync_path='barrier'``
+    with privacy on runs :func:`_barrier_grads` over the mesh's silos."""
     priv = run_cfg.privacy
-    if priv.enabled and priv.sync_path == "barrier":
-        raise NotImplementedError(
-            "sync_path='barrier' is not ported yet: the per-silo contribution "
-            "on clip_mask is the next slice (ROADMAP.md queue 1, item 7)")
-    if priv.silo_mode == "scan":
+    barrier = priv.enabled and priv.sync_path == "barrier"
+    if priv.silo_mode == "scan" and not barrier:
         raise NotImplementedError(
             "silo_mode='scan' is not ported yet (ROADMAP.md queue 1, item 9)")
     opt = make_optimizer(run_cfg.optimizer)
@@ -186,19 +244,27 @@ def build_train_step(model: Model, run_cfg: RunConfig, lr_schedule=None):
     def train_step(state: TrainState, batch: dict, root_key: tuple,
                    active=None, *, timer: StageTimer):
         keys = barrier_mod.step_keys(root_key, state.step)
-        if active is not None:
-            active = np.asarray(active, bool)
-            if active.shape != (n_silos,):
-                raise ValueError(
-                    f"participation set has shape {active.shape}, but this "
-                    f"step aggregates over {n_silos} silos")
-        noisy, loss, norms, new_ns, bound = _fused_grads(
-            model, priv, state.params, batch, n_silos, keys,
-            state.noise_state, state.clip_bound, keys.key_clip, state.layout,
-            timer, active=active)
+        # as in JAX, None is every silo: the carried state records the set
+        active = np.ones(n_silos, bool) if active is None \
+            else np.asarray(active, bool)
+        if active.shape != (n_silos,):
+            raise ValueError(
+                f"participation set has shape {active.shape}, but this step "
+                f"aggregates over {n_silos} silos"
+                + (" (the barrier tier pins the count to the mesh's silo-axis "
+                   "extent, not priv.n_silos)" if barrier else ""))
+        if barrier:
+            noisy, loss, norms, new_ns, bound = _barrier_grads(
+                model, priv, run_cfg.mesh, state.params, batch, keys,
+                state.noise_state, state.clip_bound, keys.key_clip,
+                state.layout, timer, active=active)
+        else:
+            noisy, loss, norms, new_ns, bound = _fused_grads(
+                model, priv, state.params, batch, n_silos, keys,
+                state.noise_state, state.clip_bound, keys.key_clip,
+                state.layout, timer, active=active)
         dev = noisy.device
-        n_act = n_silos if active is None else int(active.sum())
-        n_contrib = torch.tensor(float(max(n_act, 1)), device=dev)
+        n_contrib = torch.tensor(float(max(int(active.sum()), 1)), device=dev)
         lr = lr_schedule(state.step)
         with timer.stage("optimizer"), torch.no_grad():
             # the aggregate over its contributors; the padding, which the
@@ -206,8 +272,7 @@ def build_train_step(model: Model, run_cfg: RunConfig, lr_schedule=None):
             grad = flatbuf.zero_padding(state.layout, noisy.div_(n_contrib))
             opt_state = opt.update(state.opt_state, grad, lr)
         del noisy, grad
-        gates = torch.ones(n_silos, device=dev) if active is None else \
-            torch.as_tensor(active.astype(np.float32), device=dev)
+        gates = torch.as_tensor(active.astype(np.float32), device=dev)
         metrics = {"loss": loss, "grad_norm_mean":
                    torch.sum(norms * gates) / n_contrib,
                    "clip_bound": bound, "lr": lr, "n_contributions": n_contrib}

@@ -1,10 +1,12 @@
-"""CUDA wrapper of the corrected-noise kernel.
+"""CUDA wrappers of the packed DP kernels: the corrected noise of the fused
+tier and one silo's contribution of the barrier tier.
 
-The kernel is in ``csrc/noise_batch.cu`` (its header says which TPU kernel
-it replaces, what bounds it on an H100, and how the design answers that).
-The wrapper checks what the kernel takes, allocates the output, launches on
-the current stream, raises on a CUDA error and counts the launch. CUDA
-tensors only; ``ops`` routes CPU tensors to ``ref``.
+The kernels are in ``csrc/noise_batch.cu`` and ``csrc/clip_mask.cu`` (each
+header says which TPU kernel it replaces, what bounds it on an H100, and
+how the design answers that). A wrapper checks what its kernel takes,
+allocates the output, launches on the current stream, raises on a CUDA
+error and counts the launch. CUDA tensors only; ``ops`` routes CPU tensors
+to ``ref``.
 """
 from __future__ import annotations
 
@@ -19,6 +21,10 @@ NOISE_BATCH = register(
     "noise_batch",
     "src/repro_torch/kernels/dp_fused/csrc/noise_batch.cu",
     "src/repro/kernels/dp_fused/dp_fused.py:255")
+CLIP_MASK = register(
+    "clip_mask",
+    "src/repro_torch/kernels/dp_fused/csrc/clip_mask.cu",
+    "src/repro/kernels/dp_fused/dp_fused.py:171")
 
 _P, _I, _L, _U, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                       ctypes.c_uint32, ctypes.c_float)
@@ -57,4 +63,43 @@ def noise_batch_cuda(g_sum, key_xi, prev_key, noise_scales, lam_gates,
                  torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "noise_batch")
     NOISE_BATCH.launches += 1
+    return out
+
+
+def clip_mask_cuda(g, scalars, key_r, key_xi, prev_key, silo: int, nxt: int,
+                   use_pairwise: bool = True, use_prev: bool = True,
+                   out=None) -> torch.Tensor:
+    """Launch the kernel: g (P,) fp32; scalars (5,) fp32 on the same card,
+    ``(scale, s, b, lam, s_prev)``; keys (k0, k1) ints; ``silo`` and ``nxt``
+    the stream ids -> (P,) fp32, written into ``out`` when given (``g``
+    itself included)."""
+    dev = g.device
+    require(dev.type == "cuda", "clip_mask_cuda takes CUDA tensors")
+    check_tensor("g", g, torch.float32, 1, dev)
+    check_tensor("scalars", scalars, torch.float32, 1, dev)
+    require(scalars.shape == (5,), f"scalars {tuple(scalars.shape)}, expected "
+                                   f"(5,): scale, s, b, lam, s_prev")
+    require(0 <= silo <= 0xFFFFFFFF and 0 <= nxt <= 0xFFFFFFFF,
+            f"stream ids must be uint32, got silo {silo}, nxt {nxt}")
+    kr, kx, kp = (_key("key_r", key_r), _key("key_xi", key_xi),
+                  _key("prev_key", prev_key))
+    P = g.shape[0]
+    if out is None:
+        out = torch.empty_like(g)
+    check_tensor("out", out, torch.float32, 1, dev)
+    require(out.shape == g.shape, f"out {tuple(out.shape)}, expected ({P},)")
+    a, b = g.data_ptr(), out.data_ptr()
+    require(a == b or b + 4 * P <= a or a + 4 * P <= b,
+            "out must be g itself or disjoint from it")
+    if P == 0:
+        return out
+    fn = _build.function("clip_mask_f32", [_P, _P, _L] + [_U] * 8
+                         + [_P, _I, _I, _P])
+    with torch.cuda.device(dev):
+        err = fn(g.data_ptr(), out.data_ptr(), P, kr[0], kr[1], kx[0], kx[1],
+                 kp[0], kp[1], int(silo), int(nxt), scalars.data_ptr(),
+                 int(bool(use_pairwise)), int(bool(use_prev)),
+                 torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "clip_mask")
+    CLIP_MASK.launches += 1
     return out

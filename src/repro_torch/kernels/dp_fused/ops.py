@@ -1,10 +1,13 @@
-"""Public corrected-noise API: the CUDA kernel for CUDA tensors, the plain
-version for CPU tensors (``kernels.dispatch.on_cuda``)."""
+"""Public API of the packed DP kernels: the CUDA kernel for CUDA tensors,
+the plain version for CPU tensors (``kernels.dispatch.on_cuda``)."""
 from __future__ import annotations
+
+import torch
 
 from repro_torch.kernels.dispatch import on_cuda
 from repro_torch.kernels.dp_fused import ref
-from repro_torch.kernels.dp_fused.dp_fused import noise_batch_cuda
+from repro_torch.kernels.dp_fused.dp_fused import (clip_mask_cuda,
+                                                   noise_batch_cuda)
 
 
 def noise_batch(g_sum, key_xi, prev_key, noise_scales, lam_gates,
@@ -18,3 +21,34 @@ def noise_batch(g_sum, key_xi, prev_key, noise_scales, lam_gates,
                                 lam_gates, prev_noise_scale, use_prev)
     return ref.noise_batch_ref(g_sum, key_xi, prev_key, noise_scales,
                                lam_gates, prev_noise_scale, use_prev)
+
+
+def clip_mask(g, scale, key_r, key_xi, prev_key, silo: int, n_silos: int,
+              sigma_c, b_scale, lam_gate, use_pairwise: bool = True,
+              use_prev: bool = True, *, nxt=None, noise_scale=None,
+              prev_noise_scale=None, xi=None, xp=None, out=None):
+    """One silo's contribution off its packed (P,) gradient, one dispatch:
+    ``g*scale + b*(r_i - r_nxt) + s*xi_t - lam_gate*s_prev*xi_prev``.
+    Defaults as ``clip_mask_pallas``: ``nxt = (silo + 1) % n_silos``,
+    ``s = sigma_c / sqrt(n_silos)``, ``s_prev = s``; the barrier tier passes
+    the active ring's neighbour and the per-stream stds of the active counts.
+    Scalars are floats or 0-dim tensors (kept on the card: no host sync).
+    ``out`` receives the result (``g`` itself to work in place)."""
+    if xi is not None or xp is not None:
+        raise NotImplementedError(
+            "external xi/xp streams (the wire tier's speculative rounds) are "
+            "not ported yet: ROADMAP.md queue 1, item 8")
+    dev = g.device
+    nxt, s, s_prev = ref.clip_mask_defaults(silo, n_silos, sigma_c, dev, nxt,
+                                            noise_scale, prev_noise_scale)
+    if not on_cuda(g):
+        res = ref.clip_mask_ref(g, scale, key_r, key_xi, prev_key, silo,
+                                n_silos, sigma_c, b_scale, lam_gate,
+                                use_pairwise, use_prev, nxt=nxt,
+                                noise_scale=s, prev_noise_scale=s_prev)
+        return res if out is None else out.copy_(res)
+    scalars = torch.stack([torch.as_tensor(x, dtype=torch.float32,
+                                           device=dev).reshape(())
+                           for x in (scale, s, b_scale, lam_gate, s_prev)])
+    return clip_mask_cuda(g, scalars, key_r, key_xi, prev_key, int(silo), nxt,
+                          use_pairwise, use_prev, out=out)

@@ -1,7 +1,7 @@
 """Host-side training loop. Port of the part of ``repro/runtime/trainer.py``
-the fused tier runs: the per-step participation set (a ``silo_schedule``
-or every silo), the privacy ledger charged with each step's bitmask, the
-global ``epsilon_budget`` stop, and the metrics log.
+the fused and barrier tiers run: the per-step participation set (a
+``silo_schedule`` or every silo), the privacy ledger charged with each
+step's bitmask, the global ``epsilon_budget`` stop, and the metrics log.
 
 Not ported yet, each raising ``NotImplementedError`` (``ROADMAP.md``
 queue 1, item 10): checkpoint/resume, elastic membership with straggler
@@ -48,8 +48,10 @@ class Trainer:
     next_batch: Callable[[], dict]
     silo_schedule: Optional[Callable[[int], Sequence[bool]]] = None
     metrics_log: list = field(default_factory=list)
-    # per step, the stage times in ms (silo_grads, pack, norms, aggregate,
-    # noise, optimizer): CUDA events on the card, the host clock on the CPU
+    # per step, the stage times in ms (fused tier: silo_grads, pack, norms,
+    # aggregate, noise, optimizer; barrier tier: silo_grads, norms, pack,
+    # contributions, reduce, optimizer): CUDA events on the card, the host
+    # clock on the CPU
     stage_log: list = field(default_factory=list)
 
     def __post_init__(self):

@@ -5,9 +5,10 @@ it is (``python -m pytest -q tests/test_torch_cuda_kernels.py``); without a
 CUDA device every test skips. ``chip_smoke.py`` repeats the full-width
 checks on every run; these add the edges: more head dims, row tiles past
 one block, isolation against poisoned pages, argument checks, the DP
-kernels' bit-equality with their plain versions (and 64-bit offsets past
-2**31 elements), and the smoke-size serving and training slices on the card
-against the CPU.
+kernels' bit-equality with their plain versions (``clip_mask`` in every
+flag combination and in place; 64-bit offsets past 2**31 elements), and the
+smoke-size serving slice and the fused and barrier training slices on the
+card against the CPU.
 """
 import copy
 
@@ -16,12 +17,13 @@ import pytest
 import torch
 
 from repro_torch.api import Session
-from repro_torch.configs.base import OptimizerConfig, PrivacyConfig
+from repro_torch.configs.base import MeshConfig, OptimizerConfig, PrivacyConfig
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.dp_clip import ops as clip_ops
 from repro_torch.kernels.dp_clip import ref as clip_ref
 from repro_torch.kernels.dp_fused import ops as noise_ops
 from repro_torch.kernels.dp_fused import ref as noise_ref
+from repro_torch.kernels.dp_fused.dp_fused import clip_mask_cuda
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.kernels.paged_attention import ops as paged_ops
@@ -180,6 +182,14 @@ def test_smoke_slice_on_card_matches_cpu_and_counts_launches(cuda):
 # multiplies and adds, no FMA contraction, the same libm log and sqrt)
 
 KX, KP = (2705940334, 2639757084), (4086990474, 1067026239)
+KR = (3704974950, 1863054868)
+
+
+def _clip_mask_args(dev):
+    """Silo 1's scalars over a ring with silo 2 dropped (next active 3)."""
+    f = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)
+    return ((f(0.731), KR, KX, KP, 1, 4, f(1.2), f(9.6), f(0.7)),
+            dict(nxt=3, noise_scale=f(0.6928), prev_noise_scale=f(0.6)))
 
 
 @pytest.mark.parametrize("n,P", [(4, 1 << 20), (1, 7), (5, 4099), (3, 1024)])
@@ -218,6 +228,27 @@ def test_noise_batch_kernel_bit_equal(cuda, n, use_prev):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("use_pairwise,use_prev", [(True, True),
+                                                   (True, False),
+                                                   (False, True),
+                                                   (False, False)])
+def test_clip_mask_kernel_bit_equal(cuda, use_pairwise, use_prev):
+    g = torch.randn(3 * 1024 + 5, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(6))
+    args, kw = _clip_mask_args(cuda)
+    c = dispatch.KERNELS["clip_mask"].launches
+    got = noise_ops.clip_mask(g, *args, use_pairwise, use_prev, **kw)
+    want = noise_ref.clip_mask_ref(g, *args, use_pairwise, use_prev, **kw)
+    torch.cuda.synchronize()
+    assert dispatch.KERNELS["clip_mask"].launches == c + 1
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, want)
+    inplace = g.clone()
+    assert noise_ops.clip_mask(inplace, *args, use_pairwise, use_prev,
+                               out=inplace, **kw) is inplace
+    assert torch.equal(inplace, want)
+
+
 def test_dp_kernels_index_past_2_31(cuda):
     """n * P > 2**31 for the aggregate and P > 2**31 for the noise: windows
     at both ends and across 2**31 equal the plain versions (64-bit offsets;
@@ -240,6 +271,14 @@ def test_dp_kernels_index_past_2_31(cuda):
         want = noise_ref.noise_batch_ref(g_sum[a:a + W], KX, KP, one * 0.3,
                                          one * 0.7, 0.1, base=a)
         assert torch.equal(got[a:a + W], want)
+    del got
+    args, kw = _clip_mask_args(cuda)
+    noise_ops.clip_mask(g_sum, *args, out=g_sum, **kw)  # in place
+    for a in (0, (1 << 31) - W // 2, P - W):
+        win = g_sum[a:a + W]
+        want = noise_ref.clip_mask_ref(torch.zeros_like(win), *args, base=a,
+                                       **kw)
+        assert torch.equal(win, want)
 
 
 def test_dp_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -255,6 +294,12 @@ def test_dp_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         noise_ops.noise_batch(x[:, 0], KX, KP, s, s, 0.1)
     with pytest.raises(ValueError, match="uint32"):
         noise_ops.noise_batch(x[0], (-1, 0), KP, s, s, 0.1)
+    buf = torch.zeros(128, device=cuda)
+    with pytest.raises(ValueError, match="scalars"):
+        clip_mask_cuda(buf[:64], s, KR, KX, KP, 0, 1)
+    with pytest.raises(ValueError, match="disjoint"):
+        clip_mask_cuda(buf[:64], torch.ones(5, device=cuda), KR, KX, KP, 0,
+                       1, out=buf[32:96])
 
 
 def test_smoke_training_on_card_matches_cpu(cuda):
@@ -285,3 +330,34 @@ def test_smoke_training_on_card_matches_cpu(cuda):
             - b.state.opt_state["master"]).abs()
     assert diff.max() <= 2 * 2 * 1e-3  # at most a sign flip of two steps
     assert (diff > 1e-5).sum() <= 2
+
+
+def test_smoke_barrier_training_on_card_matches_cpu(cuda):
+    """Two quickstart steps of the smoke config on the barrier tier, a
+    (4,) data mesh, silo 2 out at step 1, on the card (clip_mask) and on
+    the CPU (plain versions) from the same weights."""
+    priv = PrivacyConfig(sigma=0.3, clip_bound=1.0, dynamic_clip=True,
+                         noise_lambda=0.7, sync_path="barrier")
+    kw = dict(privacy=priv, optimizer=OptimizerConfig(name="adamw", lr=1e-3),
+              mesh=MeshConfig((4,), ("data",)))
+    gpu = Session.from_config("qwen2.5-3b", **kw)
+    cpu = Session.from_config("qwen2.5-3b", device="cpu", **kw)
+    p_gpu = gpu.init_params()
+    p_cpu = copy.deepcopy(p_gpu).to("cpu")
+    sched = lambda t: [True, True, t != 1, True]
+    dispatch.reset_launches()
+    a = gpu.train(steps=2, batch_size=8, seq_len=16, log_every=0,
+                  silo_schedule=sched, state=gpu.init_state(params=p_gpu))
+    counts = dispatch.launch_counts()
+    assert counts["clip_mask"] == 8 and sum(counts.values()) == 8
+    b = cpu.train(steps=2, batch_size=8, seq_len=16, log_every=0,
+                  silo_schedule=sched, state=cpu.init_state(params=p_cpu))
+    for ma, mb in zip(a.metrics, b.metrics):
+        assert ma["epsilon_per_silo"] == mb["epsilon_per_silo"]
+        np.testing.assert_allclose(ma["loss"], mb["loss"], rtol=1e-5)
+        np.testing.assert_allclose(ma["clip_bound"], mb["clip_bound"],
+                                   rtol=1e-5)
+    assert a.state.noise_state.prev_key == b.state.noise_state.prev_key
+    diff = (a.state.opt_state["master"].cpu()
+            - b.state.opt_state["master"]).abs()
+    assert diff.max() <= 2 * 2 * 1e-3  # at most a sign flip of two steps

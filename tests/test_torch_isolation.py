@@ -22,14 +22,16 @@ leaked = sorted(m for m in sys.modules
                 or m == "repro" or m.startswith("repro."))
 print(len(names), leaked)
 assert not leaked, leaked
-assert len(names) >= 58, names
-# the training slice's modules are among those imported
+assert len(names) >= 61, names
+# the training slices' modules are among those imported
 for name in ("core.prng", "core.flatbuf", "core.clipping", "core.barrier",
              "core.noise_correction", "core.dp_pipeline",
              "core.privacy.bounds", "core.privacy.ledger",
              "kernels.zsmask.threefry", "kernels.dp_clip.ops",
-             "kernels.dp_fused.ops", "optim.optimizers", "optim.schedules",
-             "distributed.steps", "data.synthetic", "runtime.trainer"):
+             "kernels.dp_fused.ops", "kernels.dp_fused.ref",
+             "kernels.dp_fused.dp_fused", "optim.optimizers",
+             "optim.schedules", "distributed.steps", "data.synthetic",
+             "runtime.trainer", "analysis.report", "launch.train"):
     assert "repro_torch." + name in names, name
 """
 

@@ -1,0 +1,95 @@
+"""The port's training CLI, ``python -m repro_torch.launch.train``, on the
+CPU (``--device cpu``, the kernels' plain versions): both DP tiers, the
+drop schedule, the spend report, the flags whose paths are not ported yet,
+and the refusal to fall back to the CPU without ``--device``."""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import dispatch
+from repro_torch.launch import train
+
+ROOT = Path(__file__).resolve().parents[1]
+SMALL = ["--device", "cpu", "--steps", "2", "--batch", "8", "--seq", "8"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Smoke-size work gains nothing from many intra-op threads, and the
+    suite runs several test files at once: one thread, restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("tier", ["fused", "barrier"])
+def test_cli_trains_both_tiers_on_cpu(tier, tmp_path, capsys):
+    report = tmp_path / "spend.json"
+    before = dispatch.launch_counts()
+    res = train.main(SMALL + ["--sync-path", tier, "--silos", "4", "--lam",
+                              "0.7", "--dynamic-clip", "--drop-silos", "1:2",
+                              "--spend-report", str(report)])
+    assert dispatch.launch_counts() == before  # CPU: plain versions only
+    assert res.step == 2 and np.isfinite(res.final["loss"])
+    assert [m["n_contributions"] for m in res.metrics] == [4.0, 3.0]
+    assert res.trainer.run_cfg.privacy.sync_path == tier
+    stages = set(res.trainer.stage_log[0])
+    assert ("contributions" in stages) == (tier == "barrier")
+    spend = json.loads(report.read_text())
+    assert [s["steps_sat_out"] for s in spend["silos"]] == [0, 0, 1, 0]
+    out = capsys.readouterr().out
+    assert f"({tier} tier)" in out and "| silo |" in out
+
+
+def test_cli_barrier_mesh_comes_from_silos():
+    res = train.main(SMALL + ["--sync-path", "barrier", "--silos", "2",
+                              "--batch", "4"])
+    mesh = res.trainer.run_cfg.mesh
+    assert (mesh.n_silos, mesh.silo_axes) == (2, ("data",))
+    assert res.trainer.n_silos == 2
+
+
+def test_drop_schedule_reads_step_silo_cooldown(capsys):
+    sched = train.drop_schedule("1:3:2,4:0,2:9", 4)
+    assert "silo 9 ignored" in capsys.readouterr().out
+    got = [sched(t).tolist() for t in range(5)]
+    assert got == [[1, 1, 1, 1], [1, 1, 1, 0], [1, 1, 1, 0], [1, 1, 1, 1],
+                   [0, 1, 1, 1]]
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--wire-rounds", "3"], "item 8"),
+    (["--quorum", "2"], "item 8"),
+    (["--chaos-seed", "1", "--journal", "j.json"], "item 8"),
+    (["--checkpoint-dir", "ckpt"], "item 10"),
+    (["--elastic"], "item 10"),
+    (["--silo-epsilon-budget", "1.0"], "item 10"),
+    (["--mask-mode", "admin"], "item 9"),
+])
+def test_unported_flags_raise(flags, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, {item}"):
+        train.main(SMALL + flags)
+
+
+def test_cli_without_device_needs_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--steps", "1"])
+
+
+def test_cli_runs_as_a_module():
+    """The command a user types, in a fresh interpreter."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                        "--device", "cpu", "--sync-path", "barrier",
+                        "--silos", "4", "--steps", "2"], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "done at step 2 on cpu (barrier tier)" in r.stdout

@@ -166,7 +166,7 @@ def test_train_raises_without_cuda_unless_asked_for_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("priv,train_kw", [
-    (dict(sync_path="barrier"), {}),
+    (dict(sync_path="barrier", mask_mode="admin"), {}),
     (dict(silo_mode="scan"), {}),
     (dict(mask_mode="admin"), {}),
     ({}, dict(checkpoint_dir="unused")),
