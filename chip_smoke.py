@@ -2,10 +2,11 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (written for an H100):
 builds the CUDA kernels from this checkout, holds each against its plain
 PyTorch version at its path's full-width shapes, serves qwen2.5-3b at its
-published width through ``repro_torch.api.Session`` (direct, wave and
-continuous modes), trains it on the fused and on the barrier DP tier at
-full width and 12 layers, and checks a serving slice and a training step of
-each tier against the host CPU.
+published width through ``repro_torch.api.Session`` (direct, wave,
+continuous and speculative continuous modes), trains it on the fused and on
+the barrier DP tier at full width and 12 layers, and checks a serving slice
+(plain and speculative) and a training step of each tier against the host
+CPU.
 
     python3 chip_smoke.py
 
@@ -17,11 +18,18 @@ Phases (any failed check raises, and the script exits non-zero):
      same function (a yardstick only: the port never calls it);
   4. qwen2.5-3b, all 36 layers, fp32, random weights from a seed: direct
      serve (batch 4, prompt 32, 16 new tokens), then 8 Zipf requests through
-     4 slots in wave and continuous mode (page 16, chunk 16); continuous
-     must equal wave token for token, and every kernel's launch counter,
-     zeroed just before each path, must show the path went through it;
+     4 slots in wave and continuous mode (page 16, chunk 16), and twice more
+     in continuous mode with speculative decoding at spec_k 4: a self-draft,
+     and a 4-layer early-exit draft over prefix sharing (rejected almost
+     every tick with random weights, so its rollbacks run); continuous must
+     equal wave, and each speculative run continuous, token for token, and
+     every kernel's launch counter, zeroed just before each path, must show
+     the path went through it;
   5. the same weights cut to 2 layers, run on the card with the kernels and
-     on the host CPU with the plain versions; the logits must agree;
+     on the host CPU with the plain versions: the logits must agree, and a
+     speculative serve with a 1-layer draft must give the same tokens,
+     proposals and acceptances; then ``python -m repro_torch.launch.serve
+     --scheduler continuous --speculative`` on the card in a subprocess;
   6. the DP kernels at the training paths' shapes (4 silos, P =
      1,547,255,808, the packed length of qwen2.5-3b at 12 layers): each
      bit-equal to its plain version over all P columns (the plain version
@@ -101,7 +109,8 @@ FP32_OPS = {"FFMA", "FMUL", "FADD"}
 # kernel vs plain version on the same inputs, fp32 on the card: the two sum
 # in different orders, so they agree to fp32 rounding (about 1e-6 here)
 KERNEL_ATOL = KERNEL_RTOL = 1e-5
-SERVING_KERNELS = ("flash_attention", "paged_attention", "paged_reset")
+SERVING_KERNELS = ("flash_attention", "paged_attention", "paged_reset",
+                   "paged_rollback")
 # the DP kernels keep the plain versions' operations and order (no FMA, the
 # same libm log and sqrt): bit-equal, a max |difference| of 0 over the
 # whole buffer, the plain version run on DP_WINDOW columns at a time
@@ -164,6 +173,16 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def graph_ms(fn, n: int = 50) -> float:
+    """Device time of one ``fn()`` without the host's share: ``n`` calls
+    captured into one CUDA graph, the graph replayed under ``cuda_ms``."""
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(n):
+            fn()
+    return cuda_ms(g.replay) / n
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -274,6 +293,74 @@ def check_paged_reset(cfg, dev, gen, L, N, P, width, fresh_n, ops, ref):
         "at": f"L={L} N={N} P={P} H={H} D={D} row width={width} "
               f"({fresh_n} distinct) fp32",
     }
+
+
+def bits(t):
+    """The fp32 tensor's bit patterns: +0.0 and -0.0 differ, NaN == NaN."""
+    return t.view(torch.int32)
+
+
+def rollback_case(k, v, row, start, end, P, ops, ref):
+    """One ``PagePool.rollback`` call on the pools in place, checked: both
+    whole pools bit-equal to the plain version run on a clone with the
+    kernel's arguments (the row sliced to the range's pages), the range
+    zeroed, every other lane untouched. Returns the kernel's arguments."""
+    k0, v0 = k.clone(), v.clone()
+    kr, vr = k.clone(), v.clone()
+    sp, ep = start // P, -(-end // P)
+    sub, lo, hi = row[sp:ep], start - sp * P, end - sp * P
+    ops.paged_rollback(k, v, row, start, end)
+    ref.paged_rollback_ref(kr, vr, sub, lo, hi)
+    torch.cuda.synchronize()
+    check(torch.equal(bits(k), bits(kr)) and torch.equal(bits(v), bits(vr)),
+          f"paged_rollback [{start}, {end}) differs from its plain version")
+    dead = torch.zeros(k.shape[1], P, dtype=torch.bool, device=k.device)
+    rows = row.tolist()
+    for p in range(start, end):
+        dead[rows[p // P], p % P] = True
+    check(all(bool((bits(t)[:, dead] == 0).all()) for t in (k, v)),
+          f"paged_rollback [{start}, {end}) left a dead lane non-zero")
+    check(torch.equal(bits(k)[:, ~dead], bits(k0)[:, ~dead])
+          and torch.equal(bits(v)[:, ~dead], bits(v0)[:, ~dead]),
+          f"paged_rollback [{start}, {end}) touched a lane outside its range")
+    return sub, lo, hi
+
+
+def check_paged_rollback(cfg, dev, gen, L, N, P, width, ranges, ops, ref):
+    """``PagePool.rollback`` at the serving pools' shape: a slot's row of
+    ``width`` distinct pages, one case per range; the first range is timed
+    and reported, the others under ``cases``."""
+    H, D = cfg.n_kv_heads, cfg.d_head
+    k = torch.randn(L, N, P, H, D, device=dev, generator=gen)
+    v = torch.randn(L, N, P, H, D, device=dev, generator=gen)
+    row = torch.randperm(N, device=dev, generator=gen)[:width].to(torch.int32)
+    out = {}
+    for start, end in ranges:
+        sub, lo, hi = rollback_case(k, v, row, start, end, P, ops, ref)
+        # the yardstick: index_fill_ of the dead token rows of both pools
+        pos = torch.arange(lo, hi, device=dev)
+        flat = sub.long()[pos // P] * P + pos % P
+        kf, vf = k.view(L, N * P, H, D), v.view(L, N * P, H, D)
+        nbytes = 2 * L * (hi - lo) * H * D * 4 + sub.numel() * 4
+        bms, by = bound(nbytes, 0)
+        out[(start, end)] = {
+            "max_abs_err": 0.0,
+            "ms": cuda_ms(lambda: ops.paged_rollback(k, v, row, start, end)),
+            # one launch moves 221 KB: the calls above time the host's
+            # enqueue; this is the card's share
+            "device_ms": graph_ms(lambda: ops.paged_rollback(k, v, row, start,
+                                                             end)),
+            "plain_ms": cuda_ms(lambda: ref.paged_rollback_ref(k, v, sub, lo,
+                                                               hi)),
+            "library_ms": cuda_ms(lambda: (kf.index_fill_(1, flat, 0.0),
+                                           vf.index_fill_(1, flat, 0.0))),
+            "bound_ms": bms, "bound_by": by,
+            "at": f"L={L} N={N} P={P} H={H} D={D}, a row of {width} pages, "
+                  f"positions [{start}, {end}) on {sub.numel()} pages fp32",
+        }
+    first, *rest = out.values()
+    first["cases"] = rest
+    return first
 
 
 def check_flash(cfg, dev, gen, B, S, ops, ref, F):
@@ -677,14 +764,27 @@ def main() -> int:
             paged_ops, paged_ref),
         "flash_attention": check_flash(cfg, dev, gen, 4, 32, flash_ops,
                                        flash_ref, F),
+        # a 3-token rejected tail across a page boundary (spec_k 4 rejects
+        # at most 3), then a range over three pages
+        "paged_rollback": check_paged_rollback(
+            cfg, dev, gen, cfg.n_layers, B_SLOTS * nP, PAGE, nP,
+            ((47, 50), (14, 40)), paged_ops, paged_ref),
     }
     kern["paged_attention"]["chunk16"] = check_paged_attention(
         cfg, dev, gen, B_SLOTS, nP, PAGE, CHUNK, paged_ops, paged_ref, F)
+    r = kern["paged_rollback"]
+    log(f"[kernel] paged_rollback on the card alone (50 launches in a CUDA "
+        f"graph): {r['device_ms']:.4f} ms a launch")
     for name, r in kern.items():
         log(f"[kernel] {name}: max_abs_err {r['max_abs_err']:.3g} | "
             f"kernel {r['ms']:.4f} ms | plain {r['plain_ms']:.4f} ms | "
             f"library {r['library_ms']:.4f} ms | bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}) | {r['at']}")
+    for r in kern["paged_rollback"]["cases"]:
+        log(f"[kernel] paged_rollback: bit-equal | kernel {r['ms']:.4f} ms "
+            f"(on the card {r['device_ms']:.4f}) | "
+            f"plain {r['plain_ms']:.4f} ms | library {r['library_ms']:.4f} ms "
+            f"| bound {r['bound_ms']:.6f} ms ({r['bound_by']}) | {r['at']}")
     c16 = kern["paged_attention"]["chunk16"]
     log(f"[kernel] paged_attention chunk: max_abs_err {c16['max_abs_err']:.3g} "
         f"| kernel {c16['ms']:.4f} ms | plain {c16['plain_ms']:.4f} ms | "
@@ -752,19 +852,58 @@ def main() -> int:
           f"continuous ran paged attention {n_cont['paged_attention']}x, not "
           f"a positive multiple of {L}")
     check(n_cont["flash_attention"] == 0, "continuous mode ran flash")
+    check(n_cont["paged_rollback"] == 0, "plain continuous mode rolled back")
+    # speculative: the self-draft, and a 4-layer early-exit draft over
+    # prefix sharing; each admission resets both pools, each rollback
+    # erases both
+    for kind, draft, share in (("speculative self-draft", None, False),
+                               ("speculative 4-layer draft", 4, True)):
+        dispatch.reset_launches()
+        res = sess.serve(scheduler="continuous", requests=copy.deepcopy(reqs),
+                         params=params, max_batch=B_SLOTS, max_len=MAX_LEN,
+                         page_size=PAGE, prefill_chunk=CHUNK,
+                         speculative=True, spec_k=4, draft_layers=draft,
+                         prefix_sharing=share)
+        n = dispatch.launch_counts()
+        runs[kind] = (res, n)
+        check(res.stats.drained, f"{kind}: the server did not drain")
+        check(bool((res.tokens == cont.tokens).all()),
+              f"{kind} tokens differ from continuous tokens")
+        check(res.stats.spec_proposed > 0, f"{kind}: no proposals")
+        spec_admissions = len(reqs) + res.stats.preemptions
+        check(n["paged_reset"] == 2 * spec_admissions,
+              f"{kind} ran reset {n['paged_reset']}x for {spec_admissions} "
+              f"admissions of two pools")
+        check(n["paged_attention"] > 0 and n["flash_attention"] == 0,
+              f"{kind} launches {n}")
+    n_spec = runs["speculative 4-layer draft"][1]
+    check(n_spec["paged_rollback"] > 0 and n_spec["paged_rollback"] % 2 == 0,
+          f"the early-exit run rolled back {n_spec['paged_rollback']}x, not a "
+          f"positive even count (both pools)")
     for kind, (res, n) in runs.items():
         tok_s = 1 / res.decode_s_per_token
-        report[kind] = {"useful_tokens": res.stats.useful_tokens,
+        st = res.stats
+        report[kind] = {"useful_tokens": st.useful_tokens,
                         "tok_per_s": tok_s,
-                        "p50_latency_steps": res.stats.p50_latency_steps,
-                        "p99_latency_steps": res.stats.p99_latency_steps,
-                        "utilization": res.stats.utilization,
+                        "p50_latency_steps": st.p50_latency_steps,
+                        "p99_latency_steps": st.p99_latency_steps,
+                        "utilization": st.utilization,
+                        "decode_steps": st.decode_steps,
                         "launches": n}
-        log(f"[serve] {kind}: 8 requests, 4 slots: {res.stats.useful_tokens} "
+        spec = ""
+        if kind.startswith("speculative"):
+            report[kind].update(spec_proposed=st.spec_proposed,
+                                spec_accepted=st.spec_accepted,
+                                acceptance=st.acceptance_rate)
+            spec = (f" | acceptance {st.acceptance_rate:.3f} "
+                    f"({st.spec_accepted}/{st.spec_proposed})")
+        log(f"[serve] {kind}: 8 requests, 4 slots: {st.useful_tokens} "
             f"tokens at {tok_s:.1f} tok/s | utilization "
-            f"{res.stats.utilization:.3f} | p99 {res.stats.p99_latency_steps} "
-            f"steps | launches {n}")
-    log("[serve] continuous == wave token for token")
+            f"{st.utilization:.3f} | p50 {st.p50_latency_steps} p99 "
+            f"{st.p99_latency_steps} steps | {st.decode_steps} decode steps"
+            f"{spec} | launches {n}")
+    log("[serve] continuous == wave and speculative == continuous token for "
+        "token")
 
     # 5. the slice at 2 layers: card (kernels) vs host CPU (plain versions)
     cut = dataclasses.replace(cfg, n_layers=2)
@@ -782,7 +921,8 @@ def main() -> int:
     n_slice = dispatch.launch_counts()
     want = slice_logits(on["cpu"].model, p_cpu, PagePool, prompt, steps)
     check(dispatch.launch_counts() == n_slice, "the CPU run launched a kernel")
-    check(all(n_slice[k] > 0 for k in SERVING_KERNELS),
+    check(all(n_slice[k] > 0 for k in ("flash_attention", "paged_attention",
+                                       "paged_reset")),
           f"the card's slice run skipped a serving kernel: {n_slice}")
     err = max((a - b).abs().max().item() for a, b in zip(got, want))
     scale = max(b.abs().max().item() for b in want)
@@ -793,6 +933,45 @@ def main() -> int:
                               "atol": CROSS_ATOL, "rtol": CROSS_RTOL}
     log(f"[slice] 2-layer full width, card vs CPU: max |logit diff| {err:.3g} "
         f"(|logit| up to {scale:.3g}; atol {CROSS_ATOL}, rtol {CROSS_RTOL})")
+    sreqs = zipf_requests(3, V, min_len=8, max_len=24, max_new_low=6,
+                          max_new_high=10, seed=2)
+    skw = dict(scheduler="continuous", max_batch=2, max_len=64,
+               page_size=PAGE, prefill_chunk=CHUNK, speculative=True,
+               spec_k=4, draft_layers=1)
+    dispatch.reset_launches()
+    sg = on["cuda"].serve(requests=copy.deepcopy(sreqs), params=p_gpu, **skw)
+    n_sg = dispatch.launch_counts()
+    sc = on["cpu"].serve(requests=copy.deepcopy(sreqs), params=p_cpu, **skw)
+    check(dispatch.launch_counts() == n_sg, "the CPU speculative run launched "
+                                            "a kernel")
+    check(n_sg["paged_attention"] > 0 and n_sg["paged_reset"] == 2 * len(sreqs),
+          f"the card's speculative slice launches {n_sg}")
+    check(bool((sg.tokens == sc.tokens).all()),
+          "speculative slice tokens differ between card and CPU")
+    spec_stats = [(r.stats.spec_proposed, r.stats.spec_accepted)
+                  for r in (sg, sc)]
+    check(spec_stats[0] == spec_stats[1],
+          f"speculative slice proposed/accepted card vs CPU: {spec_stats}")
+    report["spec_cross_device"] = {
+        "tokens": int((sg.tokens >= 0).sum()), "proposed": spec_stats[0][0],
+        "accepted": spec_stats[0][1], "launches": n_sg}
+    log(f"[slice] speculative, 1-layer draft, 3 requests, card vs CPU: "
+        f"{report['spec_cross_device']['tokens']} tokens equal | proposed / "
+        f"accepted {spec_stats[0]} on both | launches {n_sg}")
+    cli = [sys.executable, "-m", "repro_torch.launch.serve", "--scheduler",
+           "continuous", "--speculative", "--draft-layers", "1"]
+    t0 = time.perf_counter()
+    r = subprocess.run(cli, cwd=ROOT, capture_output=True, text=True,
+                       timeout=600, env={**os.environ,
+                                         "PYTHONPATH": str(ROOT / "src")})
+    check(r.returncode == 0 and "device=cuda" in r.stdout
+          and "acceptance" in r.stdout,
+          f"serving CLI failed ({r.returncode}):\n{r.stdout}\n{r.stderr}")
+    acc = next(x for x in r.stdout.splitlines() if "acceptance" in x)
+    report["cli_serve"] = {"cmd": " ".join(cli[1:]),
+                           "s": time.perf_counter() - t0, "last": acc}
+    log(f"[cli] {' '.join(cli[1:])}: exit 0 in {report['cli_serve']['s']:.1f}"
+        f" s | {acc}")
 
     del p_gpu, p_cpu, on, sess
     torch.cuda.empty_cache()
@@ -1130,6 +1309,7 @@ def main() -> int:
     launches = {"flash_attention": n_direct["flash_attention"],
                 "paged_attention": n_cont["paged_attention"],
                 "paged_reset": n_cont["paged_reset"],
+                "paged_rollback": n_spec["paged_rollback"],
                 "clip_accumulate": n_train["clip_accumulate"],
                 "noise_batch": n_train["noise_batch"],
                 "clip_mask": n_barrier["clip_mask"]}
@@ -1143,7 +1323,7 @@ def main() -> int:
                  "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                  "library_ms": r["library_ms"], "at": r["at"]}
         for extra in ("checked_at", "plain_at", "library_call",
-                      "bound_detail"):
+                      "bound_detail", "cases", "device_ms"):
             if extra in r:
                 entry[extra] = r[extra]
         if "chunk16" in r:

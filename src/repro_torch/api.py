@@ -230,7 +230,8 @@ class Session:
               scheduler: Optional[str] = None, requests=None,
               max_batch: int = 8, max_len: int = 512, page_size: int = 16,
               prefill_chunk: int = 16, prefix_sharing: bool = False,
-              speculative: bool = False,
+              speculative: bool = False, spec_k: int = 4,
+              draft_layers: Optional[int] = None,
               tenant_weights: Optional[dict] = None) -> ServeResult:
         """Greedy decoding, three ways.
 
@@ -241,6 +242,12 @@ class Session:
         slot-recycled KV cache. Scheduler modes take a ``requests`` list
         (``runtime.serving.Request``); without one, ``batch_size`` uniform
         requests of ``prompt_len`` are synthesized.
+
+        Continuous-only layers: ``prefix_sharing`` maps same-tenant shared
+        prompt pages read-only; ``speculative`` adds draft-propose/verify at
+        ``spec_k`` tokens per tick (``draft_layers``: an early-exit draft of
+        the target's first layers; None is the self-draft);
+        ``tenant_weights`` sets the deficit-round-robin admission shares.
 
         ``params`` brings weights from outside (e.g. carried across from
         JAX by ``models.convert.params_from_jax``); random otherwise."""
@@ -254,7 +261,8 @@ class Session:
                 prompt_len=prompt_len, max_new_tokens=max_new_tokens,
                 max_batch=max_batch, max_len=max_len, page_size=page_size,
                 prefill_chunk=prefill_chunk, prefix_sharing=prefix_sharing,
-                speculative=speculative, tenant_weights=tenant_weights)
+                speculative=speculative, spec_k=spec_k,
+                draft_layers=draft_layers, tenant_weights=tenant_weights)
         if prefix_sharing or speculative or tenant_weights:
             raise ValueError("prefix_sharing/speculative/tenant_weights "
                              "need scheduler='continuous'")
@@ -294,7 +302,8 @@ class Session:
                          max_new_tokens: int, max_batch: int, max_len: int,
                          page_size: int, prefill_chunk: int,
                          prefix_sharing: bool = False,
-                         speculative: bool = False,
+                         speculative: bool = False, spec_k: int = 4,
+                         draft_layers: Optional[int] = None,
                          tenant_weights: Optional[dict] = None) -> ServeResult:
         from repro_torch.runtime.serving import (ContinuousServer, Request,
                                                  WaveServer)
@@ -317,7 +326,8 @@ class Session:
                                    max_len=max_len, page_size=page_size,
                                    prefill_chunk=prefill_chunk,
                                    prefix_sharing=prefix_sharing,
-                                   speculative=speculative,
+                                   speculative=speculative, spec_k=spec_k,
+                                   draft_layers=draft_layers,
                                    tenant_weights=tenant_weights)
         else:
             raise ValueError(

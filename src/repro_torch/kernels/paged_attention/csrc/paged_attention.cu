@@ -1,8 +1,10 @@
-// Paged attention and page reset for confidential serving, fp32, sm_90a.
+// Paged attention, page reset and rollback for confidential serving, fp32,
+// sm_90a.
 //
 // Replaces the TPU kernels of src/repro/kernels/paged_attention/paged_attention.py:
 //   paged_attention_pallas (_paged_kernel, :98, pallas_call :142)
 //   paged_reset_pallas     (_reset_kernel, :158, pallas_call :223)
+//   paged_rollback_pallas  (_rollback_kernel, :163, pallas_call :198)
 //
 // paged_attention: one block per (slot b, kv head h). The block reads its own
 // block-table row tables[b, :] and walks all nP pages of it, staging the page's
@@ -31,6 +33,18 @@
 // P*H*D slab of K and of V at page row[j] of layer l, in place, with 16-byte
 // stores. A repeated id zeroes the same slab twice (idempotent); pages outside
 // the row are never written. Bound on this card: writing the named slabs once.
+//
+// paged_rollback: the TPU kernel walks (layer, page of the row) and writes
+// every page back, zeroing the lanes whose logical position j*P + t lies in
+// [start, end). Here only the dead positions are written: one block per
+// (dead position, layer l) zeroes that token's contiguous Hkv*D slab of K and
+// of V, with 16-byte stores. Positions outside [0, nP*P) name no page and are
+// skipped, as the TPU grid never visits them. The kernel writes +0.0, as the
+// TPU kernel's jnp.where does. Zeroing is idempotent, so a repeated page id
+// is harmless (the TPU kernel needs a duplicate-free row: a second visit
+// would write the page's old content back). Bound on this card: writing the
+// dead slabs once, 2 * L * (end - start) * Hkv*D * 4 bytes: 221 KB for a
+// 3-token tail of qwen2.5-3b, 0.07 us, so one launch is bound by its launch.
 #include "common.cuh"
 
 namespace {
@@ -191,6 +205,29 @@ __global__ void paged_reset_kernel(float* __restrict__ k_pages, float* __restric
   }
 }
 
+__global__ void paged_rollback_kernel(float* __restrict__ k_pages, float* __restrict__ v_pages,
+                                      const int* __restrict__ row, int N, int P, int tok,
+                                      int lo) {
+  const int pos = lo + blockIdx.x, layer = blockIdx.y;
+  const int page = row[pos / P];
+  if (page < 0 || page >= N) return;  // never write outside the pool
+  const size_t base = (((size_t)layer * N + page) * P + pos % P) * tok;
+  float* k = k_pages + base;
+  float* v = v_pages + base;
+  if (tok % 4 == 0) {  // pool and slab 16-byte aligned: vector stores
+    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int i = threadIdx.x; i < tok / 4; i += blockDim.x) {
+      reinterpret_cast<float4*>(k)[i] = z;
+      reinterpret_cast<float4*>(v)[i] = z;
+    }
+  } else {
+    for (int i = threadIdx.x; i < tok; i += blockDim.x) {
+      k[i] = 0.f;
+      v[i] = 0.f;
+    }
+  }
+}
+
 }  // namespace
 
 // q (B, C, Hq, D); k_pages, v_pages (N, P, Hkv, D); tables (B, nP) int32;
@@ -223,5 +260,19 @@ REPRO_API int paged_reset_f32(float* k_pages, float* v_pages, const int* row, in
                               long long slab, int nP, cudaStream_t stream) {
   dim3 grid(nP, L);
   paged_reset_kernel<<<grid, 256, 0, stream>>>(k_pages, v_pages, row, N, slab);
+  return cudaGetLastError();
+}
+
+// k_pages, v_pages (L, N, P, H, D) fp32 contiguous; row (nP,) int32. Zeroes
+// logical positions [start, end) of row (page j holds j*P .. j*P+P-1) across
+// all L layers, in place; tok = H*D.
+REPRO_API int paged_rollback_f32(float* k_pages, float* v_pages, const int* row, int L, int N,
+                                 int P, int tok, int nP, int start, int end,
+                                 cudaStream_t stream) {
+  const long long lo = start > 0 ? start : 0;
+  const long long hi = (long long)end < (long long)nP * P ? end : (long long)nP * P;
+  if (L <= 0 || hi <= lo) return cudaSuccess;
+  dim3 grid((unsigned)(hi - lo), L);
+  paged_rollback_kernel<<<grid, 64, 0, stream>>>(k_pages, v_pages, row, N, P, tok, (int)lo);
   return cudaGetLastError();
 }

@@ -4,13 +4,15 @@ version for CPU tensors (``kernels.dispatch.on_cuda``).
 * ``paged_attention`` — the block-table read path of every serving step.
 * ``paged_reset`` — zeroes a slot's fresh pages on admission, in place (the
   leak-freedom half of the isolation contract).
+* ``paged_rollback`` — zeroes a range of a slot's logical positions, in
+  place (the speculative rejected-tail eraser).
 """
 from __future__ import annotations
 
 from repro_torch.kernels.dispatch import on_cuda
 from repro_torch.kernels.paged_attention import ref
 from repro_torch.kernels.paged_attention.paged_attention import (
-    paged_attention_cuda, paged_reset_cuda)
+    paged_attention_cuda, paged_reset_cuda, paged_rollback_cuda)
 
 
 def paged_attention(q, k_pages, v_pages, tables, q_start):
@@ -31,3 +33,23 @@ def paged_reset(k_pages, v_pages, row) -> None:
         paged_reset_cuda(k_pages, v_pages, row)
     else:
         ref.paged_reset_ref(k_pages, v_pages, row)
+
+
+def paged_rollback(k_pages, v_pages, row, start: int, end: int) -> None:
+    """Zero logical token positions ``[start, end)`` (host ints) of
+    block-table row ``row`` (nP,) int32 across the stacked (L, N, P, H, D)
+    pools, in place; a no-op when ``end <= start``.
+
+    As in the JAX package, the kernel gets the row sliced to the pages that
+    overlap the range and the bounds made relative to the slice: a table
+    row pads with duplicate page ids, which the slice leaves out."""
+    start, end = int(start), int(end)
+    if end <= start:
+        return
+    P = k_pages.shape[2]
+    sp, ep = start // P, -(-end // P)
+    sub, lo, hi = row[sp:ep], start - sp * P, end - sp * P
+    if on_cuda(k_pages, v_pages, sub):
+        paged_rollback_cuda(k_pages, v_pages, sub, lo, hi)
+    else:
+        ref.paged_rollback_ref(k_pages, v_pages, sub, lo, hi)

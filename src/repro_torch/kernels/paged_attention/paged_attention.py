@@ -1,4 +1,4 @@
-"""CUDA wrappers of the paged-attention and page-reset kernels.
+"""CUDA wrappers of the paged-attention, page-reset and rollback kernels.
 
 The kernels are in ``csrc/paged_attention.cu`` (its header says which TPU
 kernels they replace, what bounds them on an H100, and how the design
@@ -30,6 +30,10 @@ PAGED_RESET = register(
     "paged_reset",
     "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
     "src/repro/kernels/paged_attention/paged_attention.py:213")
+PAGED_ROLLBACK = register(
+    "paged_rollback",
+    "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
+    "src/repro/kernels/paged_attention/paged_attention.py:184")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -90,3 +94,30 @@ def paged_reset_cuda(k_pages, v_pages, row) -> None:
                  P * H * D, nP, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "paged_reset")
     PAGED_RESET.launches += 1
+
+
+def paged_rollback_cuda(k_pages, v_pages, row, start: int, end: int) -> None:
+    """Launch the rollback kernel: zero logical positions ``[start, end)``
+    of ``row`` (page ``j`` holds ``j*P .. j*P+P-1``) across every layer of
+    the stacked (L, N, P, H, D) pools, in place. Positions outside
+    ``[0, nP*P)`` are skipped; an empty range launches nothing."""
+    dev = k_pages.device
+    require(dev.type == "cuda", "paged_rollback_cuda takes CUDA tensors")
+    for name, t, dt, nd in (("k_pages", k_pages, torch.float32, 5),
+                            ("v_pages", v_pages, torch.float32, 5),
+                            ("row", row, torch.int32, 1)):
+        check_tensor(name, t, dt, nd, dev)
+    require(v_pages.shape == k_pages.shape, "k_pages/v_pages shapes differ")
+    L, N, P, H, D = k_pages.shape
+    nP = row.shape[0]
+    start, end = int(start), int(end)
+    if L == 0 or min(end, nP * P) <= max(start, 0):
+        return
+    fn = _build.function("paged_rollback_f32",
+                         [_P] * 3 + [_I] * 7 + [_P])
+    with torch.cuda.device(dev):
+        err = fn(k_pages.data_ptr(), v_pages.data_ptr(), row.data_ptr(), L, N,
+                 P, H * D, nP, start, end,
+                 torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "paged_rollback")
+    PAGED_ROLLBACK.launches += 1

@@ -1,10 +1,12 @@
-"""Plain PyTorch versions of the paged-attention kernels.
+"""Plain PyTorch versions of the paged-attention, page-reset and rollback
+kernels.
 
-They compute what the CUDA kernels compute, in the vectorized form of the
-JAX package's ``paged_attention_gather``: gather the slot's pages into a
-contiguous view, then one materialized masked softmax. Not bit-identical to
-the kernels' online softmax (sums run in another order), equal within fp32
-rounding. The CPU tests hold them to the JAX Pallas kernels, and
+Attention is computed in the vectorized form of the JAX package's
+``paged_attention_gather``: gather the slot's pages into a contiguous view,
+then one materialized masked softmax. Not bit-identical to the kernel's
+online softmax (sums run in another order), equal within fp32 rounding.
+Reset and rollback only write zeros, so kernel and plain version are
+bit-equal. The CPU tests hold them to the JAX Pallas kernels, and
 ``chip_smoke.py`` holds the CUDA kernels to them on the card.
 """
 from __future__ import annotations
@@ -47,3 +49,23 @@ def paged_reset_ref(k_pages, v_pages, row) -> None:
     idx = row.long()
     k_pages[:, idx] = 0.0
     v_pages[:, idx] = 0.0
+
+
+def paged_rollback_ref(k_pages, v_pages, row, start: int, end: int) -> None:
+    """Zero logical token positions ``[start, end)`` of ``row`` (nP,) int
+    across every layer of the stacked (L, N, P, H, D) pools, in place.
+
+    Page ``j`` of the row holds positions ``j*P .. j*P+P-1``; positions
+    outside ``[0, nP*P)`` name no page and are skipped. The dead lanes get
+    ``+0.0``, as the TPU kernel's ``jnp.where`` writes them (JAX's
+    ``paged_rollback_ref`` multiplies by a 0/1 mask instead, which leaves
+    ``-0.0`` for a negative value and NaN for a NaN). A repeated page id
+    only zeroes the same lanes again."""
+    P = k_pages.shape[2]
+    lo, hi = max(int(start), 0), min(int(end), row.shape[0] * P)
+    if hi <= lo:
+        return
+    pos = torch.arange(lo, hi, device=row.device)
+    page, off = row.long()[pos // P], pos % P
+    k_pages[:, page, off] = 0.0
+    v_pages[:, page, off] = 0.0

@@ -4,7 +4,8 @@
 Thin CLI over :meth:`repro_torch.api.Session.serve`. ``--scheduler`` picks
 the mode: ``direct`` (one lockstep batch, wall-clock timings), ``wave``
 (length-bucketed static batching) or ``continuous`` (paged KV cache with
-in-kernel slot recycling). Runs on ``cuda`` unless ``--device cpu``.
+in-kernel slot recycling; ``--speculative`` adds draft-propose/verify
+decoding). Runs on ``cuda`` unless ``--device cpu``.
 """
 from __future__ import annotations
 
@@ -47,6 +48,15 @@ def main(argv=None):
     ap.add_argument("--prefix-sharing", action="store_true",
                     help="continuous only: map same-tenant shared prompt "
                          "pages read-only instead of re-prefilling them")
+    ap.add_argument("--speculative", action="store_true",
+                    help="continuous only: draft-propose/verify decoding "
+                         "over a parallel draft page pool")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="speculative tokens per tick (draft proposes k-1, "
+                         "one chunk-shaped verify scores all k)")
+    ap.add_argument("--draft-layers", type=int, default=None,
+                    help="early-exit draft depth (first N target layers); "
+                         "default: self-draft (all layers)")
     ap.add_argument("--tenant-weights", default=None, metavar="a=2,b=1",
                     help="continuous only: deficit-round-robin admission "
                          "weights per tenant (unlisted tenants weigh 1)")
@@ -70,6 +80,8 @@ def main(argv=None):
                      page_size=args.page_size,
                      prefill_chunk=args.prefill_chunk,
                      prefix_sharing=args.prefix_sharing,
+                     speculative=args.speculative, spec_k=args.spec_k,
+                     draft_layers=args.draft_layers,
                      tenant_weights=_tenant_weights(args.tenant_weights))
     s = res.stats
     print(f"arch={sess.cfg.name} device={sess.device} "
@@ -81,6 +93,10 @@ def main(argv=None):
           f"p99={s.p99_latency_steps:.0f}")
     if args.prefix_sharing:
         print(f"shared prompt tokens: {s.shared_prompt_tokens}")
+    if args.speculative:
+        print(f"speculative: proposed={s.spec_proposed} "
+              f"accepted={s.spec_accepted} "
+              f"(acceptance {s.acceptance_rate:.2f})")
     print("first sequences:", res.tokens[:2, :8].tolist())
     return res
 

@@ -16,7 +16,8 @@ copy in fp32).
 """
 from __future__ import annotations
 
-from typing import Optional
+from dataclasses import dataclass
+from typing import Callable, Optional
 
 import torch
 from torch import nn
@@ -64,6 +65,26 @@ class Transformer(nn.Module):
 
     def head(self) -> torch.Tensor:
         return self.embed.T if self.cfg.tie_embeddings else self.lm_head
+
+
+@dataclass(frozen=True)
+class EarlyExit:
+    """The weights of an early-exit draft: the first layers of a
+    ``Transformer`` with its embedding, final norm and head. Every tensor is
+    the target's own, so the draft costs no memory, and the target keeps
+    all its layers (assigning ``layers`` on a ``copy.copy`` of the module
+    would truncate the target through the shared ``_modules`` dict)."""
+
+    embed: torch.Tensor
+    layers: tuple
+    ln_f: RMSNorm
+    head: Callable[[], torch.Tensor]
+
+
+def early_exit(params: Transformer, n_layers: int) -> EarlyExit:
+    """The draft weights of ``params``' first ``n_layers`` layers."""
+    return EarlyExit(params.embed, tuple(params.layers)[:n_layers],
+                     params.ln_f, params.head)
 
 
 def param_slots(params: Transformer) -> dict:
@@ -187,11 +208,12 @@ def layer_apply_paged(blk: Block, x, cfg: ModelConfig, positions, k_pages,
     return x + swiglu_apply(blk.ffn, rmsnorm(blk.ln2.scale, x))
 
 
-def forward_paged(params: Transformer, cfg: ModelConfig, tokens, pages: dict,
+def forward_paged(params, cfg: ModelConfig, tokens, pages: dict,
                   tables, q_start, n_valid, compute_dtype=torch.float32,
                   logits_mode: str = "last"):
     """One serving step over the paged pool: C new tokens per slot (C > 1 is
-    a prefill chunk, C == 1 decode).
+    a prefill chunk, C == 1 decode). ``params`` is a ``Transformer`` or an
+    ``EarlyExit`` draft of one.
 
     tokens (B, C) int; tables (B, nP) int32; q_start (B,) int32 tokens
     already cached per slot; n_valid (B,) how many of the C are real (0 =

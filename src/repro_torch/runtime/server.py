@@ -51,12 +51,19 @@ class ServerStats:
     drained: bool = True
     # prefix sharing: prompt tokens whose prefill was skipped
     shared_prompt_tokens: int = 0
+    # speculative decoding: draft proposals made / accepted by the verifier
+    spec_proposed: int = 0
+    spec_accepted: int = 0
     # slots evicted under pool pressure for a higher-priority request
     preemptions: int = 0
 
     @property
     def utilization(self) -> float:
         return self.useful_tokens / max(self.slot_tokens, 1)
+
+    @property
+    def acceptance_rate(self) -> float:
+        return self.spec_accepted / max(self.spec_proposed, 1)
 
     def _pct(self, q: float) -> float:
         if not self.latencies:

@@ -1,6 +1,5 @@
 """Host-side page-pool bookkeeping for the continuous-batching scheduler.
-Port of ``repro/runtime/serving/paged_cache.py`` (without the speculative
-draft pool and ``rollback``, which come with speculative decoding).
+Port of ``repro/runtime/serving/paged_cache.py``.
 
 The device state is ONE shared pool per layer (``models.attention.
 init_paged_pool``); this class owns the free list, per-page refcounts, the
@@ -24,6 +23,11 @@ Prefix sharing keeps that contract intact:
 Copy-on-write holds by construction: sharing is page granular, a sharer's
 write cursor starts at the shared-page boundary, and every page past it is
 a fresh zeroed page.
+
+Speculative decoding adds a parallel *draft* pool (same page ids, tables,
+lengths and refcounts; only the K/V tensors differ, sized for the draft
+model): admission zeroing and the rejected-tail ``rollback`` run on both
+pools, so the draft cache keeps every isolation property of the target's.
 """
 from __future__ import annotations
 
@@ -46,11 +50,17 @@ class PagePool:
     sentinel page and the table stays rectangular."""
 
     def __init__(self, model, *, n_slots: int, n_pages: int, page_size: int,
-                 pages_per_slot: int, prefix_index: bool = False):
+                 pages_per_slot: int, draft_model=None,
+                 prefix_index: bool = False):
         self.device = model.device
         self.page_size = page_size
         self.n_pages = n_pages
         self.pages = model.init_paged_cache(n_pages, page_size)
+        # draft pool: same page ids, draft-sized K/V. Shared prefix pages are
+        # written in both pools by the original request's prefill, so a
+        # later sharer finds its draft cache warm too.
+        self.draft_pages = (None if draft_model is None else
+                            draft_model.init_paged_cache(n_pages, page_size))
         self.free: list[int] = list(range(n_pages - 1, -1, -1))
         self.refcount = np.zeros((n_pages,), np.int32)
         self.tables = np.zeros((n_slots, pages_per_slot), np.int32)
@@ -63,6 +73,17 @@ class PagePool:
         self._prefix_index: OrderedDict[tuple, int] = OrderedDict()
         # slot -> [pages hashed so far, running digest]
         self._reg: dict[int, list] = {}
+
+    def _pools(self) -> list[dict]:
+        return [self.pages] + ([] if self.draft_pages is None
+                               else [self.draft_pages])
+
+    def _reset_rows(self, row: np.ndarray) -> None:
+        """Zero ``row``'s pages in-kernel in the target pool and, when there
+        is one, the draft pool."""
+        row = torch.as_tensor(row, device=self.device)
+        for pool in self._pools():
+            paged_ops.paged_reset(pool["k_pages"], pool["v_pages"], row)
 
     def alloc(self, slot: int, n: int, shared: Sequence[int] = ()) -> bool:
         """Claim ``n`` pages for ``slot``: map the ``shared`` prefix pages
@@ -93,8 +114,7 @@ class PagePool:
         # duplicate ids.
         reset_row = np.full((width,), fresh[0], np.int32)
         reset_row[:fresh_n] = fresh
-        paged_ops.paged_reset(self.pages["k_pages"], self.pages["v_pages"],
-                              torch.as_tensor(reset_row, device=self.device))
+        self._reset_rows(reset_row)
         for p in shared:
             self.refcount[p] += 1
         self.refcount[fresh] = 1
@@ -179,6 +199,25 @@ class PagePool:
                 self._prefix_index[key] = page
                 self.refcount[page] += 1
             st[0] += 1
+
+    def rollback(self, slot: int, start: int, end: int) -> None:
+        """Zero logical token positions ``[start, end)`` of the slot's
+        sequence in-kernel, in both pools (the speculative rejected-tail
+        eraser). The range lies past the shared prefix (rejected speculation
+        starts at the verified length, past the prompt) and inside the
+        slot's own pages, so a shared page is never written."""
+        if end <= start:
+            return
+        if start < len(self._shared[slot]) * self.page_size:
+            raise ValueError(f"rollback [{start}, {end}) reaches slot "
+                             f"{slot}'s shared prefix pages")
+        if end > len(self._owned[slot]) * self.page_size:
+            raise ValueError(f"rollback [{start}, {end}) runs past slot "
+                             f"{slot}'s pages")
+        row = torch.as_tensor(self.tables[slot], device=self.device)
+        for pool in self._pools():
+            paged_ops.paged_rollback(pool["k_pages"], pool["v_pages"], row,
+                                     start, end)
 
     def slot_pages(self, slot: int) -> list[int]:
         """Physical page ids currently owned by ``slot`` (tests/probes)."""

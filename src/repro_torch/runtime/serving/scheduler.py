@@ -12,14 +12,23 @@ Admission is weighted deficit-round-robin over per-tenant FIFO subqueues,
 with an optional per-tenant slot cap, priority preemption under page-pool
 pressure (the victim restores by recompute, token-identical under greedy
 decode), and optional same-tenant prefix sharing (``paged_cache``).
-Speculative decoding needs the rollback kernel and is not ported yet.
+
+Speculative decoding (``speculative=True``): a draft model, the first
+``draft_layers`` layers of the target sharing its embedding, final norm and
+head, proposes ``spec_k - 1`` tokens per tick from a parallel draft pool
+(same page ids, same tables); the target verifies them in ONE chunk-shaped
+``paged_step`` (``logits_mode="all"``); the longest matching prefix is
+accepted greedily, and the rejected tail is erased in-kernel from both pools
+(``PagePool.rollback``) before the next tick.
 
 Token-for-token equality with the wave baseline (greedy argmax over the same
-model) is a test invariant.
+model), and of the speculative with the plain scheduler, are test
+invariants.
 """
 from __future__ import annotations
 
 import collections
+import dataclasses
 import warnings
 from dataclasses import dataclass
 from typing import Optional
@@ -27,6 +36,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.models.registry import build_model
+from repro_torch.models.transformer import early_exit
 from repro_torch.runtime.server import Request, ServerStats
 from repro_torch.runtime.serving.paged_cache import PagePool
 
@@ -52,9 +63,27 @@ def _bucket_pages(tokens_needed: int, page_size: int, cap: int) -> int:
     return min(b, cap)
 
 
+def _draft_of(model, params, draft_layers: Optional[int]):
+    """The draft (model, params): the first ``draft_layers`` layers of the
+    target with its embedding, final norm and head, as tensors of the
+    target's (``models.transformer.early_exit``). ``None`` or ``n_layers``
+    is the self-draft: the draft IS the target."""
+    cfg = model.cfg
+    Ld = cfg.n_layers if draft_layers is None else int(draft_layers)
+    if not 1 <= Ld <= cfg.n_layers:
+        raise ValueError(f"draft_layers={draft_layers} out of range for a "
+                         f"{cfg.n_layers}-layer target")
+    draft_model = build_model(dataclasses.replace(cfg, n_layers=Ld),
+                              model.device, compute_dtype=model.compute_dtype)
+    if Ld == cfg.n_layers:
+        return draft_model, params
+    return draft_model, early_exit(params, Ld)
+
+
 class ContinuousServer:
     """Same submit/run surface as ``WaveServer``; continuous batching over a
-    paged, slot-recycled KV cache."""
+    paged, slot-recycled KV cache, with optional same-tenant prefix sharing
+    and speculative decoding."""
 
     def __init__(self, model, params, *, max_batch: int = 8,
                  max_len: int = 512, page_size: int = 16,
@@ -62,11 +91,8 @@ class ContinuousServer:
                  trace_logits: bool = False,
                  max_slots_per_tenant: Optional[int] = None,
                  tenant_weights: Optional[dict] = None,
-                 prefix_sharing: bool = False, speculative: bool = False):
-        if speculative:
-            raise NotImplementedError(
-                "speculative decoding needs the paged_rollback kernel, which "
-                "is not ported yet (ROADMAP.md queue 1, serving item)")
+                 prefix_sharing: bool = False, speculative: bool = False,
+                 spec_k: int = 4, draft_layers: Optional[int] = None):
         self.model = model
         self.params = params
         self.device = model.device
@@ -74,10 +100,19 @@ class ContinuousServer:
         self.max_len = max_len
         self.prefill_chunk = prefill_chunk
         self.prefix_sharing = prefix_sharing
+        self.speculative = speculative
+        self.spec_k = spec_k
+        self.draft_model = self.draft_params = None
+        if speculative:
+            if spec_k < 2:
+                raise ValueError("spec_k must be >= 2 (k=1 is plain decode)")
+            self.draft_model, self.draft_params = _draft_of(model, params,
+                                                            draft_layers)
         per_slot = -(-max_len // page_size)
         self.pool = PagePool(model, n_slots=max_batch,
                              n_pages=n_pages or max_batch * per_slot,
                              page_size=page_size, pages_per_slot=per_slot,
+                             draft_model=self.draft_model,
                              prefix_index=prefix_sharing)
         self.slots: list[Optional[_Slot]] = [None] * max_batch
         # per-tenant admission cap: one tenant's burst cannot monopolize the
@@ -210,16 +245,23 @@ class ContinuousServer:
         return False
 
     # ------------------------------------------------------------------ step
-    def _paged_step(self, tokens: np.ndarray, n_valid: np.ndarray) -> np.ndarray:
-        """One ``paged_step`` of the model over every slot (pools updated in
-        place); returns the (n_slots, V) last-token logits on the host."""
+    def _paged_step(self, tokens: np.ndarray, n_valid: np.ndarray,
+                    draft: bool = False, q_start: Optional[np.ndarray] = None,
+                    logits_mode: str = "last") -> torch.Tensor:
+        """One ``paged_step`` over every slot, of the target or the draft
+        (its pool updated in place), from ``q_start`` (default: the slots'
+        lengths); returns the logits on the device."""
         dev = self.device
-        logits, _ = self.model.paged_step(
-            self.params, torch.as_tensor(tokens, dtype=torch.long, device=dev),
-            self.pool.pages, torch.as_tensor(self.pool.tables, device=dev),
-            torch.as_tensor(self.pool.lengths, device=dev),
-            torch.as_tensor(n_valid, device=dev))
-        return logits.float().cpu().numpy()
+        model, params, pages = ((self.draft_model, self.draft_params,
+                                 self.pool.draft_pages) if draft else
+                                (self.model, self.params, self.pool.pages))
+        q_start = self.pool.lengths if q_start is None else q_start
+        logits, _ = model.paged_step(
+            params, torch.as_tensor(tokens, dtype=torch.long, device=dev),
+            pages, torch.as_tensor(self.pool.tables, device=dev),
+            torch.as_tensor(q_start, device=dev),
+            torch.as_tensor(n_valid, device=dev), logits_mode=logits_mode)
+        return logits
 
     def _run_prefill_chunks(self) -> None:
         C = self.prefill_chunk
@@ -234,7 +276,12 @@ class ContinuousServer:
             chunk = s.prompt[s.pos:s.pos + C]
             tokens[i, :len(chunk)] = chunk
             n_valid[i] = len(chunk)
-        logits = self._paged_step(tokens, n_valid)
+        if self.speculative:
+            # the draft pool in lockstep: the same tokens into the draft pool,
+            # logits dropped (so a later sharer's draft cache is warm over
+            # shared prefix pages too)
+            self._paged_step(tokens, n_valid, draft=True)
+        logits = self._paged_step(tokens, n_valid).float().cpu().numpy()
         for i in idx:
             s = self.slots[i]
             s.pos += int(n_valid[i])
@@ -261,7 +308,7 @@ class ContinuousServer:
         for i in idx:
             tokens[i, 0] = self.slots[i].pending
             n_valid[i] = 1
-        logits = self._paged_step(tokens, n_valid)
+        logits = self._paged_step(tokens, n_valid).float().cpu().numpy()
         for i in idx:
             self.pool.lengths[i] += 1
             if self.trace_logits:
@@ -271,20 +318,112 @@ class ContinuousServer:
             if not self._append(i, tok):
                 self.slots[i].pending = tok
 
+    def _propose(self, t0: np.ndarray, k_eff: np.ndarray) -> np.ndarray:
+        """The draft's greedy proposals (n_slots, max(k_eff) - 1): one draft
+        decode step per column from positions ``lengths + j``, each step's
+        argmax fed to the next on the device, copied to the host once (the
+        JAX package scans the steps in one device call). Slot i writes
+        draft-pool positions ``lengths[i] .. lengths[i] + k_eff[i] - 2``;
+        its columns from ``k_eff[i] - 1`` on are junk."""
+        dev = self.device
+        steps = int(k_eff.max()) - 1
+        tables = torch.as_tensor(self.pool.tables, device=dev)
+        base = torch.as_tensor(self.pool.lengths, device=dev)
+        n_valid = torch.as_tensor(
+            (np.arange(steps)[:, None] < k_eff[None, :] - 1).astype(np.int32),
+            device=dev)
+        cur = torch.as_tensor(t0, dtype=torch.long, device=dev)
+        props = []
+        for j in range(steps):
+            logits, _ = self.draft_model.paged_step(
+                self.draft_params, cur[:, None], self.pool.draft_pages,
+                tables, base + j, n_valid[j])
+            cur = logits.argmax(-1)
+            props.append(cur)
+        if not props:
+            return np.zeros((self.n_slots, 0), np.int64)
+        return torch.stack(props, 1).cpu().numpy()
+
+    def _run_spec_decode(self) -> None:
+        """One speculative tick for every decode-ready slot: ``k_eff - 1``
+        draft proposals, one chunk-shaped verify, greedy accept, in-kernel
+        rollback of the rejected tail in both pools.
+
+        ``k_eff = min(spec_k, remaining budget)`` per slot: the bucketed
+        allocation covers prompt + max_new tokens, so speculating past the
+        budget would write K/V past the slot's pages. As in the JAX package,
+        a tick that accepts every proposal leaves the draft pool without
+        the K/V of position ``base + k_eff - 1`` (the draft never ran that
+        token), so the draft attends to a zero key there for the rest of the
+        request: fewer acceptances, the same tokens."""
+        k = self.spec_k
+        idx = [i for i, s in enumerate(self.slots)
+               if s is not None and s.pending is not None]
+        if not idx:
+            return
+        base = self.pool.lengths.copy()
+        t0 = np.zeros((self.n_slots,), np.int32)
+        k_eff = np.zeros((self.n_slots,), np.int32)
+        for i in idx:
+            req = self.slots[i].req
+            t0[i] = self.slots[i].pending
+            k_eff[i] = min(k, req.max_new_tokens - len(req.generated))
+        drafted = self._propose(t0, k_eff)
+        tokens = np.zeros((self.n_slots, k), np.int32)
+        props = {}
+        for i in idx:
+            props[i] = [int(t0[i])] + [int(t) for t in
+                                       drafted[i, :k_eff[i] - 1]]
+            tokens[i, :k_eff[i]] = props[i]
+        vlogits = self._paged_step(tokens, k_eff, q_start=base,
+                                   logits_mode="all")           # (B, k, V)
+        # row j scores the token after p[j]: g is what plain decode emits
+        greedy = vlogits.argmax(-1).cpu().numpy()
+        if self.trace_logits:
+            vlogits = vlogits.float().cpu().numpy()
+        for i in idx:
+            ke, p, g = int(k_eff[i]), props[i], greedy[i]
+            a = 0
+            while a < ke - 1 and p[a + 1] == g[a]:
+                a += 1
+            self.stats.spec_proposed += ke - 1
+            self.stats.spec_accepted += a
+            done = False
+            for j in range(a + 1):
+                if self.trace_logits:
+                    self.logit_trace.setdefault(
+                        self.slots[i].req.rid, []).append(vlogits[i, j].copy())
+                if self._append(i, int(g[j])):
+                    # _finish released the slot: no rollback, its fresh pages
+                    # are zeroed by the next admission as usual
+                    done = True
+                    break
+            if not done:
+                final = int(base[i]) + a + 1
+                self.pool.rollback(i, final, int(base[i]) + ke)
+                self.pool.lengths[i] = final
+                self.slots[i].pending = int(g[a])
+
     def step(self) -> None:
-        """One scheduler tick: admit into free slots, decode every ready
-        slot, advance every mid-prefill slot by one chunk (so a slot that
-        completes prefill starts decoding next tick). A tick that harvests
-        tokens is charged a full batch of slots, as in the wave loop."""
+        """One scheduler tick: admit into free slots, decode (or
+        speculatively decode) every ready slot, advance every mid-prefill
+        slot by one chunk (so a slot that completes prefill starts decoding
+        next tick). A tick that harvests tokens is charged a full batch of
+        slots, as in the wave loop, times ``spec_k`` in speculative mode,
+        where every slot had k chances."""
         self.clock += 1
         before = self.stats.useful_tokens
         with torch.inference_mode():
             self._admit()
-            self._run_decode()
+            if self.speculative:
+                self._run_spec_decode()
+            else:
+                self._run_decode()
             self._run_prefill_chunks()
         if self.stats.useful_tokens > before:
             self.stats.decode_steps += 1
-            self.stats.slot_tokens += self.n_slots
+            self.stats.slot_tokens += self.n_slots * (
+                self.spec_k if self.speculative else 1)
 
     def run_until_drained(self, max_steps: int = 100_000) -> ServerStats:
         while (self.queued or any(s is not None for s in self.slots)) \

@@ -4,11 +4,12 @@ This file imports only torch and the port, so it runs on the GPU machine as
 it is (``python -m pytest -q tests/test_torch_cuda_kernels.py``); without a
 CUDA device every test skips. ``chip_smoke.py`` repeats the full-width
 checks on every run; these add the edges: more head dims, row tiles past
-one block, isolation against poisoned pages, argument checks, the DP
+one block, isolation against poisoned pages, rollback ranges past the row
+and with scalar stores, argument checks, the DP
 kernels' bit-equality with their plain versions (``clip_mask`` in every
 flag combination and in place; 64-bit offsets past 2**31 elements), and the
-smoke-size serving slice and the fused and barrier training slices on the
-card against the CPU.
+smoke-size serving slice (plain and speculative) and the fused and barrier
+training slices on the card against the CPU.
 """
 import copy
 
@@ -28,6 +29,8 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.kernels.paged_attention import ref as paged_ref
+from repro_torch.kernels.paged_attention.paged_attention import \
+    paged_rollback_cuda
 from repro_torch.runtime.serving import zipf_requests
 
 # kernel vs plain version, fp32 on the card: sums in another order
@@ -108,6 +111,37 @@ def test_paged_reset_kernel_bit_equal_and_isolated(cuda):
     assert (k[:, [3, 7, 19]] == 0).all() and (v[:, [3, 7, 19]] == 0).all()
 
 
+@pytest.mark.parametrize("H,D,row,start,end", [
+    (2, 128, [7, 3, 19, 30], 14, 17),     # full width, across a page
+    (2, 128, [7, 3, 19, 30], 5, 60),      # four pages
+    (2, 128, [7, 3, 19, 30], 60, 70),     # runs past the row: cut there
+    (3, 5, [4, 4, 9], 2, 40),             # H*D = 15: scalar stores, repeats
+])
+def test_paged_rollback_kernel_bit_equal_and_isolated(cuda, H, D, row, start,
+                                                      end):
+    """Whole pools bit-equal to the plain version, +0.0 over NaN and
+    negative lanes, every lane outside the range untouched."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    k = -torch.rand(36, 40, 16, H, D, device=cuda, generator=g)
+    v = torch.randn(36, 40, 16, H, D, device=cuda, generator=g)
+    k[:, row[0]] = float("nan")
+    row = torch.tensor(row, dtype=torch.int32, device=cuda)
+    kr, vr = k.clone(), v.clone()
+    n = dispatch.KERNELS["paged_rollback"].launches
+    paged_rollback_cuda(k, v, row, start, end)
+    paged_ref.paged_rollback_ref(kr, vr, row, start, end)
+    torch.cuda.synchronize()
+    assert dispatch.KERNELS["paged_rollback"].launches == n + 1
+    for got, want in ((k, kr), (v, vr)):
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    dead = torch.zeros(40, 16, dtype=torch.bool, device=cuda)
+    for p in range(max(start, 0), min(end, row.numel() * 16)):
+        dead[int(row[p // 16]), p % 16] = True
+    assert (k.view(torch.int32)[:, dead] == 0).all()
+    assert (v.view(torch.int32)[:, dead] == 0).all()
+    assert torch.isnan(k[:, int(row[0])][:, ~dead[int(row[0])]]).all()
+
+
 @pytest.mark.parametrize("B,S,Hq,Hkv,D,causal", [
     (4, 32, 16, 2, 128, True),     # direct-mode prefill
     (2, 100, 16, 2, 128, True),    # ragged last tiles
@@ -139,6 +173,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
                                     for _ in range(3)))
     with pytest.raises(ValueError, match="all be on cuda or all on cpu"):
         paged_ops.paged_attention(q, kp.cpu(), vp, tables, qs)
+    pools = torch.zeros(2, 8, 16, 2, 128, device=cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        paged_rollback_cuda(pools, pools.clone(), tables[0].long(), 0, 3)
+    with pytest.raises(ValueError, match="5-d"):
+        paged_rollback_cuda(pools[0], pools[0].clone(), tables[0], 0, 3)
 
 
 def test_smoke_slice_on_card_matches_cpu_and_counts_launches(cuda):
@@ -174,6 +213,35 @@ def test_smoke_slice_on_card_matches_cpu_and_counts_launches(cuda):
                          params=p_cpu, max_batch=2, max_len=32, page_size=4,
                          prefill_chunk=4).tokens
     np.testing.assert_array_equal(out["continuous"], cont_cpu)
+
+
+def test_smoke_speculative_on_card_matches_cpu(cuda):
+    """Speculative serving with a 1-layer draft on the card (kernels) and
+    on the CPU (plain versions) from the same weights: the same tokens as
+    plain decoding, the same proposals and acceptances, and rollbacks on
+    the card, two launches (target and draft pool) each."""
+    gpu = Session.from_config("qwen2.5-3b")
+    cpu = Session.from_config("qwen2.5-3b", device="cpu")
+    p_gpu = gpu.init_params()
+    p_cpu = copy.deepcopy(p_gpu).to("cpu")
+    reqs = zipf_requests(6, gpu.cfg.vocab_size, min_len=3, max_len=20,
+                         max_new_low=2, max_new_high=8, seed=2)
+    kw = dict(scheduler="continuous", max_batch=2, max_len=32, page_size=4,
+              prefill_chunk=4)
+    plain = gpu.serve(requests=copy.deepcopy(reqs), params=p_gpu, **kw)
+    dispatch.reset_launches()
+    a = gpu.serve(requests=copy.deepcopy(reqs), params=p_gpu,
+                  speculative=True, draft_layers=1, **kw)
+    counts = dispatch.launch_counts()
+    b = cpu.serve(requests=copy.deepcopy(reqs), params=p_cpu,
+                  speculative=True, draft_layers=1, **kw)
+    np.testing.assert_array_equal(a.tokens, plain.tokens)
+    np.testing.assert_array_equal(a.tokens, b.tokens)
+    assert (a.stats.spec_proposed, a.stats.spec_accepted) == \
+        (b.stats.spec_proposed, b.stats.spec_accepted)
+    assert counts["paged_rollback"] > 0 and counts["paged_rollback"] % 2 == 0
+    assert counts["paged_reset"] == 2 * len(reqs)
+    assert counts["flash_attention"] == 0
 
 
 

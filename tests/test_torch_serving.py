@@ -225,9 +225,6 @@ def test_unported_paths_raise(port):
     # training is ported (test_torch_training.py); checkpointing is not yet
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port.train(steps=1, checkpoint_dir="unused")
-    with pytest.raises(NotImplementedError, match="rollback"):
-        port.serve(scheduler="continuous", speculative=True, batch_size=1,
-                   prompt_len=4, max_new_tokens=2)
 
 
 def test_cli_runs_every_mode_on_cpu(capsys):
