@@ -4,8 +4,10 @@ builds the CUDA kernels from this checkout, holds each against its plain
 PyTorch version at its path's full-width shapes, serves qwen2.5-3b at its
 published width through ``repro_torch.api.Session`` (direct, wave,
 continuous and speculative continuous modes), trains it on the fused and on
-the barrier DP tier at full width and 12 layers, and checks a serving slice
-(plain and speculative) and a training step of each tier against the host
+the barrier DP tier at full width and 12 layers (the barrier tier also
+under the per-leaf policy), clips its per-example gradients on both routes,
+and checks a serving slice (plain and speculative), a training step of
+each tier (packed and perleaf) and per-example clipping against the host
 CPU.
 
     python3 chip_smoke.py
@@ -35,14 +37,22 @@ Phases (any failed check raises, and the script exits non-zero):
      bit-equal to its plain version over all P columns (the plain version
      run on windows of 2**22 columns; ``clip_mask`` at the barrier tier's
      flags and a partial ring, its other three flag combinations on one
-     window each), timed beside the plain version on a window and, for the
-     aggregate, cuBLAS's ``s @ g``; the stream kernels' bounds read off
-     their SASS;
+     window each; ``zsmask`` over each of the 146 leaf tensors at its
+     counter offset), timed beside the plain version on a window and, for
+     the aggregate, cuBLAS's ``s @ g``; the stream kernels' bounds read off
+     their SASS; on the same (4, P) buffer, as 4 examples,
+     ``per_example_sumsq`` on every leaf's columns and ``clip_sum``, within
+     SUMSQ_RTOL of their plain versions, bit-identical across launches, the
+     clipped sum bit-equal to the plain fold at the kernel's norms;
   7. qwen2.5-3b at full width, 12 of 36 layers, trained 3 steps through
      ``Session.train`` with the quickstart privacy settings (4 silos, sigma
      0.3, dynamic clipping, lambda 0.7) and AdamW lr 1e-3, batch 16 x 64:
      finite loss, rising epsilon, each DP kernel launched once per step;
      step and per-stage times and peak memory;
+ 7b. ``per_example_clipped_grad`` at the same width and depth, 4 examples
+     of 64 tokens, on the packed route (``clip_sum`` once) and the perleaf
+     route (``per_example_sumsq`` and ``clip_accumulate`` once per leaf):
+     the two agree within ROUTES_RTOL; times and peak memory;
   8. one training step of a narrow config (P of a few million) on the card
      (kernels) and on the host CPU (plain versions) from the same weights:
      loss, bound (below its cap, so the percentile protocol ran), noisy
@@ -55,12 +65,21 @@ Phases (any failed check raises, and the script exits non-zero):
      ``(4,)`` data mesh: finite loss, rising epsilon, ``clip_mask`` 4 times a
      step and the fused tier's kernels never; step and stage times, peak
      memory;
+ 9b. the barrier tier under ``force_impl("perleaf", kernel="dp_noise_tree")``:
+     one primed step, whose aggregate minus sum_i clip(g_i) must have the
+     std of sigma_c (xi_t - lam xi_{t-1}) (the +-b r terms cancel), then 3
+     steps of ``Session.train``: ``zsmask`` 2 x 4 x 146 times a step and no
+     other kernel; step and stage times, peak memory;
  10. one barrier step of the narrow config on the card and on the host CPU
      from the same weights, silo 1 dropped and the noise state primed with
      silo 2 absent at t-1: loss, bound, every silo's contribution, the
      aggregate and the carried key agree (the key bit-equal); then
      ``python -m repro_torch.launch.train --sync-path barrier`` on the card
-     in a subprocess.
+     in a subprocess;
+10b. the narrow config's ``per_example_clipped_grad`` on both routes, one
+     fused step and one barrier step under the perleaf policy, card vs CPU
+     from the same weights; then the training CLI under
+     ``REPRO_KERNEL_IMPL=dp_noise_tree=perleaf``.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -111,6 +130,15 @@ FP32_OPS = {"FFMA", "FMUL", "FADD"}
 KERNEL_ATOL = KERNEL_RTOL = 1e-5
 SERVING_KERNELS = ("flash_attention", "paged_attention", "paged_reset",
                    "paged_rollback")
+# per_example_sumsq and clip_sum's norms (fp64 sums rounded once) against
+# the plain version's chunked fp32 dot products (cuBLAS, about 1e-7
+# relative at any length); clip_sum's sum against the plain version's, whose
+# clip factors move with its norms, to the same share of its largest value
+SUMSQ_RTOL = 1e-6
+# the two per-example routes (sums of squares over the whole row, or per
+# leaf and then added in fp32) and the per-example gradients recomputed for
+# each: fp32 rounding of the norms and the clip factors
+ROUTES_RTOL = 1e-5
 # the DP kernels keep the plain versions' operations and order (no FMA, the
 # same libm log and sqrt): bit-equal, a max |difference| of 0 over the
 # whole buffer, the plain version run on DP_WINDOW columns at a time
@@ -616,6 +644,166 @@ def stream_ops(sass: str, kernel: str) -> dict:
             "issue": sum(per.values())}
 
 
+def leaf_slices(layout) -> list:
+    """``(leaf index, offset in the leaf, offset in the buffer, numel)`` of
+    every tensor of a layout's tree: what the perleaf mask launches on."""
+    out = []
+    for i, (k, size, off) in enumerate(zip(layout.stacks, layout.sizes,
+                                           layout.offsets)):
+        m = size // k if k else size
+        out += [(i, j * m, off + j * m, m) for j in range(k or 1)]
+    return out
+
+
+def check_zsmask(dev, layout, g, zs_ops, zs_ref, fold_leaf, folds, keys,
+                 per_stream):
+    """One pass of silo 1 of 4's perleaf mask over every tensor of the
+    layout's tree (keys folded per leaf, counters at each tensor's offset in
+    its leaf), the scalars as the barrier tier makes them at sigma 0.3 and
+    C 4, bit-equal to the plain version over every element (windows of
+    DP_WINDOW)."""
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)
+    sc = f32(0.3) * f32(4.0)
+    b = f32(8.0) * sc
+    slices = leaf_slices(layout)
+    kr = [fold_leaf(keys.key_r, folds[0], i) for i in range(layout.n_leaves)]
+    kx = [fold_leaf(keys.key_xi, folds[1], i) for i in range(layout.n_leaves)]
+    out = torch.empty_like(g)
+
+    def one_pass():
+        for i, o, a, m in slices:
+            zs_ops.apply_zsmask(g[a:a + m], kr[i], kx[i], 1, 4, sc, b,
+                                offset=o, out=out[a:a + m])
+
+    one_pass()
+    err = torch.zeros((), device=dev)
+    for i, o, a, m in slices:
+        for w in range(0, m, DP_WINDOW):
+            e = min(w + DP_WINDOW, m)
+            plain = zs_ref.zsmask_ref(g[a + w:a + e], kr[i], kx[i], 1, 4, sc,
+                                      b, offset=o + w)
+            err = torch.maximum(err, (out[a + w:a + e] - plain).abs().max())
+    err = err.item()
+    check(err == 0.0, f"zsmask differs from its plain version by {err}")
+    check(bool(torch.isfinite(out[:layout.offsets[-1]]).all()),
+          "zsmask: non-finite")
+    n = layout.n_params
+    parts = stream_bound(n, 3, per_stream)  # r_i, r_nxt, xi
+    bms = max(parts.values())
+    w = g[:DP_WINDOW]
+    res = {
+        "max_abs_err": err,
+        "checked_at": f"all {n} elements of {len(slices)} leaf tensors, "
+                      f"windows of {DP_WINDOW}",
+        "ms": cuda_ms(one_pass, reps=3, warmup=1),
+        "plain_ms": cuda_ms(lambda: zs_ref.zsmask_ref(w, kr[0], kx[0], 1, 4,
+                                                      sc, b), reps=5),
+        "plain_at": f"window of {DP_WINDOW} elements",
+        "library_ms": None,
+        "library_call": "none (no PyTorch call draws keyed threefry normals)",
+        "bound_ms": bms,
+        "bound_by": "bytes" if bms == parts["bytes"] else "operations",
+        "bound_detail": {"ms_by_limit": parts, "per_stream": per_stream},
+        "at": f"one pass over the {len(slices)} leaf tensors ({n} "
+              f"elements), silo 1 of 4, fp32",
+    }
+    del out
+    return res
+
+
+def leaf_columns(stacked, layout) -> list:
+    """Each leaf's columns of a (B, P) buffer, rows P apart, as views."""
+    return [stacked[:, off:off + size]
+            for off, size in zip(layout.offsets, layout.sizes)]
+
+
+def max_rel(a, b) -> float:
+    return ((a - b).abs() / b.abs()).max().item()
+
+
+def check_sumsq(stacked, layout, clip_ops, clip_ref):
+    """``per_example_sumsq`` on every leaf's columns of the (4, P) buffer
+    in place, as the perleaf clip route runs it: within SUMSQ_RTOL of the
+    plain version and bit-identical across two launches."""
+    cols = leaf_columns(stacked, layout)
+    run = lambda: [clip_ops.sumsq(c) for c in cols]
+    out, again = run(), run()
+    check(all(torch.equal(a, b) for a, b in zip(out, again)),
+          "per_example_sumsq differs between two launches")
+    plain = [clip_ref.per_example_sumsq_ref(c) for c in cols]
+    err = max((a - b).abs().max().item() for a, b in zip(out, plain))
+    rel = max(max_rel(a, b) for a, b in zip(out, plain))
+    check(rel <= SUMSQ_RTOL, f"per_example_sumsq off its plain version by "
+                             f"{rel} relative")
+    B, n = stacked.shape[0], layout.n_params
+    bms, by = bound(B * n * 4 + len(cols) * B * 4, 2 * B * n)
+    return {
+        "max_abs_err": err, "max_rel_err": rel, "tolerance_rel": SUMSQ_RTOL,
+        "bit_identical_relaunch": True,
+        "checked_at": f"every leaf's columns, all {n} per row",
+        "ms": cuda_ms(run, reps=3, warmup=1),
+        "plain_ms": cuda_ms(lambda: [clip_ref.per_example_sumsq_ref(c)
+                                     for c in cols], reps=3, warmup=1),
+        "plain_at": "every leaf (chunked dot products)",
+        "library_ms": cuda_ms(lambda: [torch.linalg.vector_norm(c, dim=1)
+                                       for c in cols], reps=3, warmup=1),
+        "library_call": "torch.linalg.vector_norm(g, dim=1) per leaf",
+        "bound_ms": bms, "bound_by": by,
+        "at": f"B={B}, {len(cols)} leaves of qwen2.5-3b at 12 layers "
+              f"({n} columns), rows P apart, fp32",
+    }
+
+
+def check_clip_sum(dev, stacked, noise_ops, noise_ref, clip_ref, P):
+    """``clip_sum`` at C = 1 on the (4, P) buffer: norms within SUMSQ_RTOL
+    of the plain version's, the sum bit-equal to the plain fold at the
+    kernel's norms and within SUMSQ_RTOL of the largest value of the plain
+    version's (its own norms), bit-identical across two launches."""
+    c = torch.ones((), device=dev)
+    s, n = noise_ops.clip_sum_packed(stacked, c)
+    s2, n2 = noise_ops.clip_sum_packed(stacked, c)
+    check(torch.equal(n, n2) and torch.equal(s, s2),
+          "clip_sum differs between two launches")
+    del s2
+    ss = clip_ref.per_example_sumsq_ref(stacked)
+    n_plain, scale_plain = noise_ref.clip_sum_scales(ss, c)
+    rel = max_rel(n, n_plain)
+    check(rel <= SUMSQ_RTOL, f"clip_sum norms off by {rel} relative")
+    scale_k = torch.clamp(c / n, max=1.0)
+    same = max_err_by_window(s, lambda a, b: clip_ref.clip_accumulate_ref(
+        stacked[:, a:b], scale_k), P)
+    check(same == 0.0, f"clip_sum's sum differs from the plain fold at its "
+                       f"own norms by {same}")
+    err = max_err_by_window(s, lambda a, b: clip_ref.clip_accumulate_ref(
+        stacked[:, a:b], scale_plain), P)
+    top = s.abs().max().item()
+    check(err <= SUMSQ_RTOL * top, f"clip_sum differs from its plain version "
+                                   f"by {err} (largest value {top})")
+    del s
+    B = stacked.shape[0]
+    w = stacked[:, :DP_WINDOW]
+    bms, by = bound((B * P + P + B) * 4, 4 * B * P)
+    return {
+        "max_abs_err": err, "norms_max_rel_err": rel,
+        "sum_max_abs_err_at_kernel_norms": same, "largest_value": top,
+        "tolerance": f"norms {SUMSQ_RTOL} relative; sum {SUMSQ_RTOL} of the "
+                     f"largest value",
+        "bit_identical_relaunch": True,
+        "checked_at": f"all {P} columns, windows of {DP_WINDOW}",
+        "ms": cuda_ms(lambda: noise_ops.clip_sum_packed(stacked, c), reps=3,
+                      warmup=1),
+        "plain_ms": cuda_ms(lambda: noise_ref.clip_sum_ref(w, c), reps=5),
+        "plain_at": f"window of {DP_WINDOW} columns",
+        "library_ms": cuda_ms(lambda: torch.clamp(
+            c / torch.linalg.vector_norm(stacked, dim=1), max=1.0) @ stacked,
+            reps=3, warmup=1),
+        "library_call": "min(1, C / vector_norm(g, dim=1)) @ g (cuBLAS)",
+        "bound_ms": bms, "bound_by": by,
+        "two_pass_floor_ms": (2 * B * P + P) * 4 / HBM_BYTES_PER_S * 1e3,
+        "at": f"B={B} P={P} C=1 fp32",
+    }
+
+
 # ---------------------------------------------------------------- phase 8
 
 def narrow_step(sess, params, batch, steps, step_keys, prng):
@@ -692,10 +880,10 @@ def barrier_step_parts(sess, params, batch, ns, active, steps, step_keys,
     for i in range(n):
         g, norm = silo_grads_packed(sess.model, params, batch, layout, i, n,
                                     flatbuf, param_tree)
-        with torch.no_grad():
-            contribs.append(pipe.silo_contribution(
-                g, i, pipe.clip_scale(norm, bound), active, keys, ns,
-                bound).cpu())
+        with torch.no_grad():  # in place: a tree of views under perleaf
+            pipe.silo_contribution(g, i, pipe.clip_scale(norm, bound), active,
+                                   keys, ns, bound, out=g)
+            contribs.append(g.cpu())
     return {"agg": agg, "loss": float(loss), "bound": float(bound),
             "norms": norms.cpu(), "prev_key": new_ns.prev_key,
             "prev_active": new_ns.prev_active, "contribs": contribs}
@@ -715,7 +903,7 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.configs.base import (MeshConfig, OptimizerConfig,
                                           PrivacyConfig, reduce_for_smoke)
-    from repro_torch.core import flatbuf, prng
+    from repro_torch.core import clipping, flatbuf, masking, prng
     from repro_torch.core.barrier import step_keys
     from repro_torch.core.dp_pipeline import DPPipeline
     from repro_torch.core.noise_correction import NoiseState
@@ -730,6 +918,8 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import ref as flash_ref
     from repro_torch.kernels.paged_attention import ops as paged_ops
     from repro_torch.kernels.paged_attention import ref as paged_ref
+    from repro_torch.kernels.zsmask import ops as zs_ops
+    from repro_torch.kernels.zsmask import ref as zs_ref
     from repro_torch.models.transformer import (Transformer, pack_params,
                                                 param_tree)
     from repro_torch.runtime.serving import PagePool, zipf_requests
@@ -985,6 +1175,12 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(6)
     kern["clip_accumulate"], g_sum, stacked = check_clip_accumulate(
         dev, gen, N_SILOS, P, clip_ops, clip_ref)
+    # the per-example kernels on the same (4, P) buffer: B = 4 examples, one
+    # silo's share of the training cells' batch
+    kern["per_example_sumsq"] = check_sumsq(stacked, layout, clip_ops,
+                                            clip_ref)
+    kern["clip_sum"] = check_clip_sum(dev, stacked, noise_ops, noise_ref,
+                                      clip_ref, P)
     del stacked
     torch.cuda.empty_cache()
     sass = subprocess.run([str(Path(_build.nvcc()).with_name("cuobjdump")),
@@ -1003,9 +1199,17 @@ def main() -> int:
     kern["clip_mask"] = check_clip_mask(
         dev, P, g_sum, noise_ops, noise_ref, step_keys(prng.PRNGKey(1), 0),
         step_keys(prng.PRNGKey(1), 1).key_xi, per_stream_cm)
+    per_stream_zs = stream_ops(sass.stdout, "zsmask_kernel")
+    log(f"[kernel] zsmask SASS, instructions per stream element by pipe: "
+        f"{json.dumps(per_stream_zs)}")
+    kern["zsmask"] = check_zsmask(
+        dev, layout, g_sum, zs_ops, zs_ref, masking.fold_leaf,
+        (masking.R_FOLD, masking.XI_FOLD), step_keys(prng.PRNGKey(1), 0),
+        per_stream_zs)
     del g_sum
     torch.cuda.empty_cache()
-    for name in ("clip_accumulate", "noise_batch", "clip_mask"):
+    for name in ("clip_accumulate", "noise_batch", "clip_mask", "zsmask",
+                 "per_example_sumsq", "clip_sum"):
         r = kern[name]
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         log(f"[kernel] {name}: max_abs_err {r['max_abs_err']} over all P "
@@ -1013,7 +1217,13 @@ def main() -> int:
             f"{r['ms']:.4f} ms | plain {r['plain_ms']:.4f} ms "
             f"({r['plain_at']}) | library {lib} | bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}) | {r['at']}")
-    for name in ("noise_batch", "clip_mask"):
+    for name in ("per_example_sumsq", "clip_sum"):
+        r = kern[name]
+        log(f"[kernel] {name}: " + json.dumps({k: r[k] for k in r if k in (
+            "max_rel_err", "norms_max_rel_err",
+            "sum_max_abs_err_at_kernel_norms", "largest_value",
+            "two_pass_floor_ms")}))
+    for name in ("noise_batch", "clip_mask", "zsmask"):
         log(f"[kernel] {name} bound parts (ms): "
             f"{json.dumps(kern[name]['bound_detail'])}")
 
@@ -1069,6 +1279,74 @@ def main() -> int:
     del res, state, tsess
     torch.cuda.empty_cache()
 
+    # 7b. per-example clipping at full width, 12 layers, both routes
+    pe = Session.from_config(cut12, seed=0)
+    params = pe.init_params()
+    layout7 = flatbuf.layout_of(param_tree(params))
+    pe_batch = pe.synthetic_batches(4, SEQ)()
+    routes = {}
+    for impl in ("packed", "perleaf", "packed", "perleaf"):  # cold, warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        dispatch.reset_launches()
+        t0 = time.perf_counter()
+        summed, norms, loss = clipping.per_example_clipped_grad(
+            pe.model.loss, params, pe_batch, 1.0, impl=impl)
+        torch.cuda.synchronize()
+        cold = routes.get(impl, {}).get("s")
+        routes[impl] = {
+            "s": time.perf_counter() - t0, "cold_s": cold,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "peak_above_start_gb":
+                (torch.cuda.max_memory_allocated() - start) / 1e9,
+            "launches": {k: v for k, v in dispatch.launch_counts().items()
+                         if v},
+            "loss": float(loss), "norms": norms, "sum": summed}
+    n_pe = {"clip_sum": routes["packed"]["launches"].get("clip_sum", 0),
+            "per_example_sumsq":
+                routes["perleaf"]["launches"].get("per_example_sumsq", 0)}
+    L7 = layout7.n_leaves
+    check(routes["packed"]["launches"] == {"clip_sum": 1},
+          f"packed route launches {routes['packed']['launches']}")
+    check(routes["perleaf"]["launches"] == {"per_example_sumsq": L7,
+                                            "clip_accumulate": L7},
+          f"perleaf route launches {routes['perleaf']['launches']}")
+    na, nb = routes["packed"]["norms"], routes["perleaf"]["norms"]
+    pe_rel = max_rel(na, nb)
+    pe_err = max((a - b).abs().max().item() for a, b in zip(
+        flatbuf.flat_tensors(layout7, routes["packed"]["sum"]),
+        flatbuf.flat_tensors(layout7, routes["perleaf"]["sum"])))
+    pe_top = max(t.abs().max().item() for t in flatbuf.flat_tensors(
+        layout7, routes["packed"]["sum"]))
+    check(pe_rel <= ROUTES_RTOL and pe_err <= ROUTES_RTOL * pe_top
+          and math.isclose(routes["packed"]["loss"], routes["perleaf"]["loss"],
+                           rel_tol=ROUTES_RTOL),
+          f"per-example routes disagree: norms {pe_rel} relative, sums "
+          f"{pe_err} (largest {pe_top})")
+    report["per_example"] = {
+        "config": report["train"]["config"], "P": layout7.total,
+        "examples": 4, "seq_len": SEQ, "clip_bound": 1.0,
+        "norms": na.tolist(), "norms_max_rel_err": pe_rel,
+        "sum_max_abs_err": pe_err, "sum_largest": pe_top,
+        **{impl: {k: r[k] for k in ("s", "cold_s", "peak_mem_gb",
+                                    "peak_above_start_gb", "launches",
+                                    "loss")}
+           for impl, r in routes.items()}}
+    log(f"[per-example] qwen2.5-3b full width, 12 layers, 4 examples x {SEQ}"
+        f" (second call of each; the first: packed "
+        f"{routes['packed']['cold_s'] * 1e3:.1f} ms, perleaf "
+        f"{routes['perleaf']['cold_s'] * 1e3:.1f} ms): "
+        f"packed {routes['packed']['s'] * 1e3:.1f} ms, peak "
+        f"{routes['packed']['peak_mem_gb']:.2f} GB, launches "
+        f"{routes['packed']['launches']} | perleaf "
+        f"{routes['perleaf']['s'] * 1e3:.1f} ms, peak "
+        f"{routes['perleaf']['peak_mem_gb']:.2f} GB, launches "
+        f"{routes['perleaf']['launches']} | norms {[round(x, 3) for x in na.tolist()]}"
+        f" agree to {pe_rel:.3g} | sums to {pe_err:.3g} (largest {pe_top:.3g})")
+    del routes, params, pe, summed, norms, na, nb
+    torch.cuda.empty_cache()
+
     # 8. one training step of a narrow config, card (kernels) vs CPU (plain)
     narrow = reduce_for_smoke(cfg, n_layers=2, d_model=256, n_heads=4,
                               n_kv_heads=2, d_head=64, d_ff=512,
@@ -1080,7 +1358,7 @@ def main() -> int:
                                      seed=3, device=d) for d in ("cuda", "cpu")}
     p_cpu = sess_c["cpu"].init_params()
     p_gpu = copy.deepcopy(p_cpu).to(dev)
-    batch = sess_c["cpu"].synthetic_batches(16, 32)()
+    batch = batch8 = sess_c["cpu"].synthetic_batches(16, 32)()
     out = {}
     for d, p in (("cuda", p_gpu), ("cpu", p_cpu)):
         dispatch.reset_launches()
@@ -1230,6 +1508,92 @@ def main() -> int:
     del res, state, tsess
     torch.cuda.empty_cache()
 
+    # 9b. the barrier tier under the per-leaf policy, same width and depth
+    n_slices = len(leaf_slices(layout))
+    perleaf = dispatch.force_impl("perleaf", kernel="dp_noise_tree")
+    with perleaf:
+        bsess = Session.from_config(cut12, privacy=priv_b, optimizer=opt,
+                                    mesh=mesh4, seed=0)
+        params = bsess.init_params()
+        layout9, _ = pack_params(params)
+        batch9 = bsess.synthetic_batches(BATCH, SEQ)()
+        primed = NoiseState(step_keys(prng.PRNGKey(4), 0).key_xi, True,
+                            np.ones(N_SILOS, bool))
+        torch.cuda.reset_peak_memory_stats()
+        dispatch.reset_launches()
+        agg, _, _, _, bound9 = steps_mod._barrier_grads(
+            bsess.model, priv_b, mesh4, params, batch9, keys9, primed, c0,
+            keys9.key_clip, layout9, steps_mod.StageTimer(dev))
+        n_one = dispatch.launch_counts()
+        peak_one = torch.cuda.max_memory_allocated()
+        agg = flatbuf.zero_padding(layout9, agg.clone())  # frees the rows
+        check(n_one["zsmask"] == 2 * N_SILOS * n_slices
+              and sum(n_one.values()) == n_one["zsmask"],
+              f"perleaf barrier step launches {n_one}: zsmask 2 x {N_SILOS} "
+              f"x {n_slices}, no other kernel")
+        clipped = torch.zeros_like(agg)
+        for i in range(N_SILOS):
+            g, norm = silo_grads_packed(bsess.model, params, batch9, layout9,
+                                        i, N_SILOS, flatbuf, param_tree)
+            with torch.no_grad():
+                clipped.add_(g * clipping.clip_scale(norm, bound9))
+            del g
+        # the aggregate minus sum_i clip(g_i): sigma_c (xi_t - lam xi_{t-1})
+        # if the +-b r terms cancel (else std about 8 sigma_c)
+        std9 = mask_std(agg, clipped, 1.0)
+        want9 = priv.sigma * float(bound9) * math.sqrt(
+            1 + priv.noise_lambda ** 2)
+        check(abs(std9 / want9 - 1) < 0.01,
+              f"perleaf aggregate minus the clipped sum has std {std9}, not "
+              f"sigma_c sqrt(1 + lam^2) = {want9}")
+        del agg, clipped, params, bsess
+        torch.cuda.empty_cache()
+        tsess = Session.from_config(cut12, privacy=priv_b, optimizer=opt,
+                                    mesh=mesh4, seed=0)
+        state = tsess.init_state()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dispatch.reset_launches()
+        res = tsess.train(steps=STEPS, batch_size=BATCH, seq_len=SEQ,
+                          state=state, log_every=1)
+        n_perleaf = dispatch.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for m in res.metrics]
+    eps = [m["epsilon"] for m in res.metrics]
+    check(res.step == STEPS and all(math.isfinite(x) for x in losses),
+          f"perleaf barrier: {res.step} steps, loss {losses}")
+    check(all(b > a for a, b in zip([0.0] + eps, eps)),
+          f"epsilon does not rise: {eps}")
+    check(n_perleaf["zsmask"] == STEPS * 2 * N_SILOS * n_slices
+          and sum(n_perleaf.values()) == n_perleaf["zsmask"],
+          f"perleaf barrier launches {n_perleaf}: zsmask {STEPS} x 2 x "
+          f"{N_SILOS} x {n_slices}, no other kernel")
+    step_ms = [m["step_time_s"] * 1e3 for m in res.metrics]
+    stages = {k: [st.get(k, 0.0) for st in res.trainer.stage_log]
+              for k in stage_keys}
+    report["barrier_perleaf"] = {
+        "config": report["train"]["config"], "mesh": [N_SILOS],
+        "policy": "perleaf (force_impl dp_noise_tree)", "P": P,
+        "leaf_tensors": n_slices, "batch": BATCH, "seq_len": SEQ,
+        "loss": losses, "clip_bound": [m["clip_bound"] for m in res.metrics],
+        "epsilon": eps, "step_ms": step_ms,
+        "step_ms_after_first": sum(step_ms[1:]) / (STEPS - 1),
+        "stage_ms": stages, "peak_mem_gb": peak / 1e9,
+        "launches": n_perleaf, "one_step_launches": n_one,
+        "one_step_peak_mem_gb": peak_one / 1e9,
+        "noise_std": std9, "noise_std_expected": want9}
+    log(f"[barrier-perleaf] one primed step: aggregate minus sum clip(g_i) "
+        f"std {std9:.5f} (sigma_c sqrt(1 + lam^2) = {want9:.5f}) | "
+        f"{STEPS} steps: loss {[round(x, 4) for x in losses]} | epsilon "
+        f"{[round(e, 3) for e in eps]} | step ms "
+        f"{[round(t, 1) for t in step_ms]} (after the first: "
+        f"{report['barrier_perleaf']['step_ms_after_first']:.1f}) | peak "
+        f"{peak / 1e9:.2f} GB | launches {n_perleaf}")
+    log("[barrier-perleaf] stage ms per step: " + " | ".join(
+        f"{k} {[round(t, 2) for t in v]}" for k, v in stages.items()))
+    del res, state, tsess
+    torch.cuda.empty_cache()
+
     # 10. one barrier step of the narrow config, card (kernels) vs CPU
     priv_cb = dataclasses.replace(priv_c, sync_path="barrier")
     sess_b = {d: Session.from_config(narrow, privacy=priv_cb, optimizer=opt,
@@ -1237,7 +1601,7 @@ def main() -> int:
               for d in ("cuda", "cpu")}
     p_cpu = sess_b["cpu"].init_params()
     p_gpu = copy.deepcopy(p_cpu).to(dev)
-    batch = sess_b["cpu"].synthetic_batches(16, 32)()
+    batch = batch10 = sess_b["cpu"].synthetic_batches(16, 32)()
     act10 = np.array([True, False, True, True])  # silo 0's next is 2
     primed = NoiseState(step_keys(prng.PRNGKey(4), 0).key_xi, True,
                         np.array([True, True, False, True]))
@@ -1290,6 +1654,110 @@ def main() -> int:
         f"aggregate {a_err:.3g} (tolerance {tol10:.3g}) | prev_key equal")
     del p_gpu, out, xg
     torch.cuda.empty_cache()
+
+    # 10b. the narrow config's per-example clipping (both routes) and one
+    # fused and one barrier step under the per-leaf policy, card vs CPU
+    sess_p = {d: Session.from_config(narrow, seed=3, device=d)
+              for d in ("cuda", "cpu")}
+    p_cpu = sess_p["cpu"].init_params()
+    p_gpu = copy.deepcopy(p_cpu).to(dev)
+    batch = sess_p["cpu"].synthetic_batches(4, 32)()
+    narrow_layout = flatbuf.layout_of(param_tree(p_cpu))
+    cross = {}
+    for impl in ("packed", "perleaf"):
+        dispatch.reset_launches()
+        a = clipping.per_example_clipped_grad(
+            sess_p["cuda"].model.loss, p_gpu,
+            {k: v.to(dev) for k, v in batch.items()}, 1.0, impl=impl)
+        card_launches = {k: v for k, v in dispatch.launch_counts().items()
+                         if v}
+        b = clipping.per_example_clipped_grad(
+            sess_p["cpu"].model.loss, p_cpu, batch, 1.0, impl=impl)
+        sa = flatbuf.pack(narrow_layout, a[0]).cpu()
+        sb = flatbuf.pack(narrow_layout, b[0])
+        err, top = (sa - sb).abs().max().item(), sb.abs().max().item()
+        rel = max_rel(a[1].cpu(), b[1])
+        check(rel <= TRAIN_RTOL and err <= TRAIN_RTOL * top
+              and math.isclose(float(a[2]), float(b[2]), rel_tol=TRAIN_RTOL),
+              f"narrow per-example {impl}: norms {rel}, sums {err} (largest "
+              f"{top}), loss {float(a[2])} / {float(b[2])}")
+        cross[impl] = {"norms_max_rel_err": rel, "sum_max_abs_err": err,
+                       "sum_largest": top, "card_launches": card_launches}
+    check(cross["packed"]["card_launches"] == {"clip_sum": 1}
+          and cross["perleaf"]["card_launches"] == {
+              "per_example_sumsq": narrow_layout.n_leaves,
+              "clip_accumulate": narrow_layout.n_leaves},
+          f"narrow per-example launches {cross}")
+    with dispatch.force_impl("perleaf", kernel="dp_noise_tree"):
+        out = {}
+        for d in ("cuda", "cpu"):
+            p = sess_c["cpu"].init_params()
+            dispatch.reset_launches()
+            out[d] = narrow_step(sess_c[d], p.to(d), {
+                k: v.to(d) for k, v in batch8.items()}, steps_mod, step_keys,
+                prng) + (dispatch.launch_counts(),)
+        (n_g, m_g, x_g, s_g, c_g), (n_c, m_c, x_c, s_c, c_c) = \
+            out["cuda"], out["cpu"]
+        check(c_g["clip_accumulate"] == 2 and sum(c_g.values()) == 2
+              and not any(c_c.values()),
+              f"narrow perleaf fused launches: card {c_g}, CPU {c_c}")
+        check(x_g["prev_key"] == x_c["prev_key"]
+              and s_g.noise_state.prev_key == s_c.noise_state.prev_key,
+              "perleaf fused: carried noise key differs between card and CPU")
+        for k in ("loss", "clip_bound", "grad_norm_mean"):
+            check(math.isclose(m_g[k], m_c[k], rel_tol=TRAIN_RTOL),
+                  f"narrow perleaf fused {k}: card {m_g[k]} vs CPU {m_c[k]}")
+        f_err = (n_g - n_c).abs().max().item()
+        check(f_err <= NOISY_ATOL,
+              f"narrow perleaf fused noisy gradient differs by {f_err}")
+        primed_full = NoiseState(step_keys(prng.PRNGKey(4), 0).key_xi, True,
+                                 np.ones(N_SILOS, bool))
+        out = {}
+        for d in ("cuda", "cpu"):
+            p = sess_b["cpu"].init_params()
+            dispatch.reset_launches()
+            out[d] = barrier_step_parts(
+                sess_b[d], p.to(d), {k: v.to(d) for k, v in batch10.items()},
+                primed_full, None, steps_mod, step_keys, prng, flatbuf,
+                param_tree, pack_params, DPPipeline)
+            out[d]["launches"] = dispatch.launch_counts()
+    xg, xc = out["cuda"], out["cpu"]
+    narrow_slices = len(leaf_slices(narrow_layout))
+    check(xg["launches"]["zsmask"] == 2 * 2 * N_SILOS * narrow_slices
+          and sum(xg["launches"].values()) == xg["launches"]["zsmask"]
+          and not any(xc["launches"].values()),
+          f"narrow perleaf barrier launches: card {xg['launches']}, CPU "
+          f"{xc['launches']}")
+    check(xg["prev_key"] == xc["prev_key"],
+          "perleaf barrier: carried noise key differs between card and CPU")
+    for k in ("loss", "bound"):
+        check(math.isclose(xg[k], xc[k], rel_tol=TRAIN_RTOL),
+              f"narrow perleaf barrier {k}: card {xg[k]} vs CPU {xc[k]}")
+    tol = BARRIER_ATOL_PER_B * priv.mask_scale * priv.sigma * xc["bound"]
+    pc_err = [(a - b).abs().max().item()
+              for a, b in zip(xg["contribs"], xc["contribs"])]
+    pa_err = (xg["agg"] - xc["agg"]).abs().max().item()
+    check(max(pc_err) <= tol and pa_err <= tol,
+          f"narrow perleaf barrier contributions differ by {pc_err}, "
+          f"aggregate by {pa_err} (tolerance {tol})")
+    report["perleaf_cross_device"] = {
+        "per_example": cross, "fused_noisy_max_abs_err": f_err,
+        "fused_loss": [m_g["loss"], m_c["loss"]],
+        "barrier_contribution_max_abs_err": pc_err,
+        "barrier_aggregate_max_abs_err": pa_err, "barrier_tolerance": tol,
+        "barrier_launches": xg["launches"]["zsmask"]}
+    log(f"[perleaf-slice] narrow config, card vs CPU: per-example norms "
+        f"{cross['packed']['norms_max_rel_err']:.3g} / "
+        f"{cross['perleaf']['norms_max_rel_err']:.3g} relative (packed / "
+        f"perleaf), sums {cross['packed']['sum_max_abs_err']:.3g} / "
+        f"{cross['perleaf']['sum_max_abs_err']:.3g} | perleaf fused step: "
+        f"noisy grad {f_err:.3g}, loss {m_g['loss']:.6f} / {m_c['loss']:.6f}"
+        f" | perleaf barrier step: contributions {max(pc_err):.3g}, "
+        f"aggregate {pa_err:.3g} (tolerance {tol:.3g}), {xg['launches']['zsmask']}"
+        f" zsmask launches | keys equal")
+    del p_gpu, out, xg, xc, sess_p
+    torch.cuda.empty_cache()
+
     cli = [sys.executable, "-m", "repro_torch.launch.train", "--sync-path",
            "barrier", "--silos", "4", "--steps", "2", "--drop-silos", "1:2"]
     t0 = time.perf_counter()
@@ -1304,6 +1772,23 @@ def main() -> int:
                      "last": done}
     log(f"[cli] {' '.join(cli[1:])}: exit 0 in {report['cli']['s']:.1f} s | "
         f"{report['cli']['last']}")
+    cli = [sys.executable, "-m", "repro_torch.launch.train", "--sync-path",
+           "barrier", "--silos", "4", "--steps", "2"]
+    t0 = time.perf_counter()
+    r = subprocess.run(cli, cwd=ROOT, capture_output=True, text=True,
+                       timeout=600, env={
+                           **os.environ, "PYTHONPATH": str(ROOT / "src"),
+                           "REPRO_KERNEL_IMPL": "dp_noise_tree=perleaf"})
+    check(r.returncode == 0
+          and "done at step 2 on cuda (barrier tier)" in r.stdout,
+          f"perleaf training CLI failed ({r.returncode}):\n{r.stdout}\n"
+          f"{r.stderr}")
+    done = next(x for x in r.stdout.splitlines() if x.startswith("done"))
+    report["cli_perleaf"] = {
+        "cmd": "REPRO_KERNEL_IMPL=dp_noise_tree=perleaf " + " ".join(cli[1:]),
+        "s": time.perf_counter() - t0, "last": done}
+    log(f"[cli] {report['cli_perleaf']['cmd']}: exit 0 in "
+        f"{report['cli_perleaf']['s']:.1f} s | {done}")
 
     # the record
     launches = {"flash_attention": n_direct["flash_attention"],
@@ -1312,7 +1797,10 @@ def main() -> int:
                 "paged_rollback": n_spec["paged_rollback"],
                 "clip_accumulate": n_train["clip_accumulate"],
                 "noise_batch": n_train["noise_batch"],
-                "clip_mask": n_barrier["clip_mask"]}
+                "clip_mask": n_barrier["clip_mask"],
+                "zsmask": n_perleaf["zsmask"],
+                "per_example_sumsq": n_pe["per_example_sumsq"],
+                "clip_sum": n_pe["clip_sum"]}
     line = []
     for name, r in kern.items():
         k = dispatch.KERNELS[name]
@@ -1323,7 +1811,9 @@ def main() -> int:
                  "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                  "library_ms": r["library_ms"], "at": r["at"]}
         for extra in ("checked_at", "plain_at", "library_call",
-                      "bound_detail", "cases", "device_ms"):
+                      "bound_detail", "cases", "device_ms", "max_rel_err",
+                      "norms_max_rel_err", "tolerance", "tolerance_rel",
+                      "two_pass_floor_ms"):
             if extra in r:
                 entry[extra] = r[extra]
         if "chunk16" in r:

@@ -1,38 +1,34 @@
-"""Gradient clipping and the dynamic percentile-clipping protocol (paper
-section 4.3). Port of the part of ``repro/core/clipping.py`` the fused and
-barrier tiers run: global norms and clipping of gradient trees, per-silo
-clip factors and the admin's noisy percentile bound.
+"""Gradient clipping (paper section 4.3): per-example, per-microbatch and
+per-silo granularities and the dynamic percentile-clipping protocol. Port
+of ``repro/core/clipping.py``.
+
+Per-example clipping (DP-SGD) computes each example's gradient as a batch
+of one (JAX vmaps ``x[None]``; the port loops, ``torch.autograd.grad`` per
+example), writes it into its row of a ``(B, P)`` packed buffer
+(``core/flatbuf.py``), and clips and sums the rows through
+``kernels/dp_clip/ops.clip_and_sum_tree``: the ``packed`` route is one
+``clip_sum`` launch, the ``perleaf`` route one ``per_example_sumsq`` and one
+``clip_accumulate`` launch per leaf. Each keeps the JAX package's clip
+factor (``dp_fused/ref.clip_sum_ref`` and ``dp_clip/ref.clip_scales``:
+``min(1, C / sqrt(max(ss, 1e-30)))``), which is not :func:`clip_scale`'s
+``max(norm, 1e-12)``; the per-leaf route's norms are ``sqrt(ss)``.
 """
 from __future__ import annotations
 
-from typing import Optional
+from contextlib import contextmanager
+from typing import Callable, Optional
 
 import torch
 
-from repro_torch.core import prng
+from repro_torch.core import flatbuf, prng
+from repro_torch.kernels.dp_clip import ops as clip_ops
+from repro_torch.kernels.dp_clip import ref as clip_ref
+from repro_torch.models import transformer
 
 PERCENTILES = (0.1, 0.25, 0.5, 0.75, 0.9)
-NORM_CHUNK = 1 << 26      # elements per dot product of a sum of squares
-CPU_NORM_CHUNK = 1 << 18  # the same on the CPU (see sumsq)
 
-
-def sumsq(t: torch.Tensor) -> torch.Tensor:
-    """``sum(t * t)`` in fp32 as ``dot(c, c)`` over chunks: each chunk is
-    read once and no tensor of squares is written (the chunks keep every
-    call's length under 2**31). cuBLAS's dot is within about 1e-7 relative
-    of an fp64 sum at any length; MKL's drifts with the chunk's length when
-    it runs on few threads (single-threaded, 2.2e-5 at 2**26 and 3e-8 at
-    2**18 over 12 M elements), so the CPU takes chunks of
-    ``CPU_NORM_CHUNK``. torch's CPU ``vector_norm`` accumulates in sequence
-    and loses 1e-4."""
-    flat = t.reshape(-1).float()
-    step = NORM_CHUNK if flat.is_cuda else CPU_NORM_CHUNK
-    acc = None
-    for a in range(0, flat.numel(), step):
-        c = flat[a:a + step]
-        part = torch.dot(c, c)
-        acc = part if acc is None else acc + part
-    return acc if acc is not None else flat.new_zeros(())
+# ``sum(t * t)`` in fp32, chunked dot products (kernels/dp_clip/ref.py)
+sumsq = clip_ref.sumsq_ref
 
 
 def _leaves(tree):
@@ -82,6 +78,97 @@ def clip_scale(norm: torch.Tensor, clip_bound) -> torch.Tensor:
     return torch.clamp(clip_bound / torch.clamp(norm, min=1e-12), max=1.0)
 
 
+def _param_tree(params) -> dict:
+    """The flat tree of ``params``: itself when it is one, the model's
+    weights (``models.transformer.param_tree``) otherwise."""
+    return params if isinstance(params, dict) \
+        else transformer.param_tree(params)
+
+
+@contextmanager
+def trainable(tensors):
+    """Gradients of the weights ``tensors`` inside the block (weights made
+    outside a train state do not require them), the flags restored
+    after."""
+    flags = [t.requires_grad for t in tensors]
+    for t in tensors:
+        t.requires_grad_(True)
+    try:
+        with torch.enable_grad():
+            yield
+    finally:
+        for t, f in zip(tensors, flags):
+            t.requires_grad_(f)
+
+
+def per_example_grads(loss_fn: Callable, params, batch: dict):
+    """Every example's gradient, each example run as a batch of one:
+    ``(layout, (B, P) buffer, losses (B,))``, row b example b's gradient
+    packed with the layout of ``params``' tree."""
+    tree = _param_tree(params)
+    layout = flatbuf.layout_of(tree)
+    tensors = flatbuf.flat_tensors(layout, tree)
+    B = next(iter(batch.values())).shape[0]
+    buf = torch.empty((B, layout.total), dtype=torch.float32,
+                      device=tensors[0].device)
+    losses = []
+    with trainable(tensors):
+        for b in range(B):
+            loss = loss_fn(params, {k: v[b:b + 1] for k, v in batch.items()})
+            grads = torch.autograd.grad(loss, tensors)
+            with torch.no_grad():
+                flatbuf.pack_tensors(layout, grads, out=buf[b])
+            del grads
+            losses.append(loss.detach())
+    return layout, buf, torch.stack(losses)
+
+
+def per_example_clipped_grad(loss_fn: Callable, params, batch: dict,
+                             clip_bound, impl: str = "auto"):
+    """DP-SGD per-example clipping: per-example grads, then the fused
+    clip-and-sum (``dp_clip_tree``; ``auto`` is ``packed`` on the card,
+    ``perleaf`` on the CPU). Returns ``(clipped sum tree fp32, pre-clip
+    norms (B,), mean loss)``. ``batch`` leaves lead with the example
+    axis."""
+    layout, buf, losses = per_example_grads(loss_fn, params, batch)
+    with torch.no_grad():
+        summed, norms = clip_ops.clip_and_sum_tree(buf, clip_bound, impl,
+                                                   layout=layout)
+    return summed, norms, losses.mean()
+
+
+def per_microbatch_clipped_grad(loss_fn: Callable, params, batch: dict,
+                                clip_bound, n_micro: int):
+    """Group-level clipping: the batch split into ``n_micro`` groups, each
+    group's mean gradient clipped as a whole (:func:`clip_tree`), the
+    clipped groups summed in order. Returns ``(summed tree fp32, norms
+    (n_micro,), mean loss)``."""
+    tree = _param_tree(params)
+    layout = flatbuf.layout_of(tree)
+    tensors = flatbuf.flat_tensors(layout, tree)
+    B = next(iter(batch.values())).shape[0]
+    if B % n_micro:
+        raise ValueError(f"batch of {B} does not split into {n_micro} groups")
+    m = B // n_micro
+    buf = torch.empty((n_micro, layout.total), dtype=torch.float32,
+                      device=tensors[0].device)
+    losses, norms = [], []
+    with trainable(tensors):
+        for i in range(n_micro):
+            loss = loss_fn(params, {k: v[i * m:(i + 1) * m]
+                                    for k, v in batch.items()})
+            grads = torch.autograd.grad(loss, tensors)
+            with torch.no_grad():
+                norms.append(global_norm(grads))
+                flatbuf.pack_tensors(layout, grads, out=buf[i])
+            del grads
+            losses.append(loss.detach())
+    with torch.no_grad():
+        norms = torch.stack(norms)
+        summed = clip_ops.clipped_sum(buf, clip_scale(norms, clip_bound))
+    return flatbuf.unpack(layout, summed), norms, torch.stack(losses).mean()
+
+
 def _linear_quantile(xs: torch.Tensor, qs: torch.Tensor, count) -> torch.Tensor:
     """Linear-interpolation quantiles of the first ``count`` entries of the
     sorted ``xs``, in ``jnp.quantile``'s arithmetic."""
@@ -122,7 +209,7 @@ def select_clip_bound(all_percentiles: torch.Tensor, r: float, key,
     q = torch.tensor([r], dtype=torch.float32, device=pooled.device)
     c = _linear_quantile(pooled, q, n)[0]
     if dp_noise_scale > 0.0:
-        z = torch.tensor(prng.normal(key), dtype=torch.float32)
+        z = prng.normal(key)
         c = c + (torch.tensor(dp_noise_scale, dtype=torch.float32) * z
                  ).to(c.device)
     return torch.clamp(c, 1e-6, upper_bound)

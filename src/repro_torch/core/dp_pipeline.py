@@ -27,24 +27,36 @@ no mask and no noise share, each active silo's share has std
 ``sigma_c/sqrt(k)``, and the ``lambda``-correction share of silo i applies
 iff it was active at t-1 and is active now.
 
-The port runs the JAX package's ``packed`` execution policy only. Not
-ported yet (they raise ``NotImplementedError``): the admin mask
-construction and the per-leaf noise family (``ROADMAP.md`` queue 1, item
-9), and the external xi/xp streams of the wire tier's speculative rounds
-(item 8).
+The execution policy (:func:`resolve_policy`: ``packed`` | ``perleaf``) is
+resolved once per pipeline through ``kernels.dispatch.resolve_tree`` on
+``dp_noise_tree``, so ``force_impl("perleaf", kernel="dp_noise_tree")`` or
+``REPRO_KERNEL_IMPL=dp_noise_tree=perleaf`` select it; one policy governs
+both the mask and the noise construction, as in JAX. Under ``perleaf`` the
+barrier tier's contribution is a tree masked leaf by leaf by the ``zsmask``
+kernel (``core/masking.py``; the full static ring only: a partial set
+raises), and the fused tier's noise is ``noise_correction.corrected_noise``
+(per-leaf ``jax.random`` normals, plain torch threefry: no TPU kernel
+behind it). Not ported yet (they raise ``NotImplementedError``): the admin
+mask construction (``ROADMAP.md`` queue 1, item 9) and the external xi/xp
+streams of the wire tier's speculative rounds (item 8).
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import PrivacyConfig
-from repro_torch.core import clipping, flatbuf
+from repro_torch.core import clipping, flatbuf, masking, noise_correction
 from repro_torch.core.barrier import BarrierKeys, dynamic_bound_from_percentiles
 from repro_torch.core.flatbuf import PackedLayout
 from repro_torch.core.noise_correction import NoiseState
+from repro_torch.kernels.dispatch import resolve_tree
 from repro_torch.kernels.dp_clip import ops as clip_ops
 from repro_torch.kernels.dp_fused import ops as fused_ops
+
+NOISE_TREE = "dp_noise_tree"
 
 
 def is_static_full(active) -> bool:
@@ -52,11 +64,29 @@ def is_static_full(active) -> bool:
     return active is None or bool(np.all(np.asarray(active)))
 
 
+@dataclass(frozen=True)
+class ExecutionPolicy:
+    """``packed``: every stage on the flat buffer through the packed
+    kernels; ``perleaf``: the per-leaf mask (``zsmask``) and noise
+    (``jax.random``) families. The tensor-level kernels follow the tensors'
+    device either way."""
+
+    mode: str  # 'packed' | 'perleaf'
+
+
+def resolve_policy(request: str = "packed") -> ExecutionPolicy:
+    """The execution policy, once per pipeline: ``force_impl`` and
+    ``REPRO_KERNEL_IMPL`` on ``dp_noise_tree`` override ``request``; the
+    legacy names map onto the two modes (pallas -> packed, jnp ->
+    perleaf); ``auto`` is packed, the card's choice."""
+    return ExecutionPolicy(resolve_tree(NOISE_TREE, request, cuda=True))
+
+
 class DPPipeline:
-    """The central tier's stage graph over a packed layout."""
+    """The DP stage graph of both tiers over a packed layout."""
 
     def __init__(self, priv: PrivacyConfig, layout: PackedLayout,
-                 n_silos: int):
+                 n_silos: int, policy: str = "packed"):
         if priv.mask_mode == "admin":
             raise NotImplementedError(
                 "mask_mode='admin' is not ported yet (ROADMAP.md queue 1, "
@@ -67,6 +97,7 @@ class DPPipeline:
         self.priv = priv
         self.layout = layout
         self.n_silos = int(n_silos)
+        self.policy = resolve_policy(policy)
 
     # -- participation set --------------------------------------------------
     def full_active(self) -> np.ndarray:
@@ -188,7 +219,9 @@ class DPPipeline:
 
         ``g`` is the silo's gradient, a tree or its packed (P,) buffer;
         ``scale`` its clip factor (a 0-dim tensor); ``out`` receives the
-        packed result (``g`` itself to work in place). A dropped silo's
+        packed result (``g`` itself to work in place). Under the perleaf
+        policy the result is a tree (views of that buffer), masked leaf by
+        leaf (:meth:`_contribution_perleaf`). A dropped silo's
         contribution is zero: its scale, ``b``, ``s`` and ``lam`` are all
         gated. Mask mode ``none`` returns the clipped gradient with no DP
         terms at all, as the JAX package's barrier tier does (its fused
@@ -215,6 +248,9 @@ class DPPipeline:
         if priv.mask_mode == "none":
             # confidentiality-only sync: clipped gradient, no DP terms
             return torch.mul(packed, scaled, out=out)
+        if self.policy.mode == "perleaf":
+            return self._contribution_perleaf(packed, silo, scale, active,
+                                              keys, state, bound, out)
         dev = packed.device
         bound = torch.as_tensor(bound, dtype=torch.float32, device=dev)
         sigma_c = priv.sigma * bound
@@ -229,10 +265,80 @@ class DPPipeline:
             nxt=self.next_active(silo, active), noise_scale=s * gate,
             prev_noise_scale=s_prev, out=out)
 
-    def finalize(self, agg: torch.Tensor) -> dict:
-        """The aggregated packed contribution -> the fp32 gradient tree
-        (views into ``agg``)."""
-        return flatbuf.unpack(self.layout, agg)
+    def _contribution_perleaf(self, packed, silo: int, scale, active,
+                              keys: BarrierKeys, state: NoiseState, bound,
+                              out=None) -> dict:
+        """The perleaf branch of :meth:`silo_contribution`, as JAX builds
+        it: the clipped gradient ``g * scale``; per leaf i (per tensor of a
+        stacked leaf, at its counter offset) the ``zsmask`` of the full
+        static ring over it, ``b = mask_scale * sigma_c``; and, with
+        lambda > 0, the mask-only pass over zeros on ``prev_key`` with
+        ``b = 0`` (the xi_{t-1} share, r streams drawn and zeroed),
+        subtracted times ``lam = lambda * hp * pa_gate``. Each leaf is
+        masked in place; the second pass goes through one leaf-sized
+        scratch. A partial participation set raises: the per-leaf ring
+        would leave uncancelled ``+-b * r`` terms in the aggregate."""
+        if not is_static_full(active):
+            raise ValueError(
+                "the per-leaf mask family only builds the full static ring; "
+                "dropping silos needs the packed policy (lift the "
+                "dp_noise_tree=perleaf override for elastic runs)")
+        priv = self.priv
+        buf = torch.mul(packed, scale, out=out)
+        dev = buf.device
+        bound = torch.as_tensor(bound, dtype=torch.float32, device=dev)
+        sigma_c = priv.sigma * bound
+        b = priv.mask_scale * sigma_c
+        hp = torch.tensor(1.0 if state.has_prev else 0.0, dtype=torch.float32,
+                          device=dev)
+        lam_gate = priv.noise_lambda * hp * float(self.prev_active(state)[silo])
+        use_prev = priv.noise_lambda > 0.0
+        tree = flatbuf.unpack(self.layout, buf)
+        if use_prev:
+            most = max(t.numel() for t in flatbuf.flat_tensors(self.layout,
+                                                                tree))
+            zeros = torch.zeros(most, dtype=torch.float32, device=dev)
+            scratch = torch.empty(most, dtype=torch.float32, device=dev)
+        for i, offset, t in flatbuf.leaf_slices(self.layout, tree):
+            flat = t.view(-1)
+            masking.mask_leaf(flat, keys.key_r, keys.key_xi, i, offset, silo,
+                              self.n_silos, sigma_c, b, out=flat)
+            if use_prev:
+                n = flat.numel()
+                prev = masking.mask_leaf(zeros[:n], keys.key_r,
+                                         state.prev_key, i, offset, silo,
+                                         self.n_silos, sigma_c, 0.0,
+                                         out=scratch[:n])
+                flat.sub_(lam_gate * prev)
+        return tree
+
+    def finalize(self, agg) -> dict:
+        """The aggregated contribution -> the fp32 gradient tree: views into
+        a packed ``agg``; a tree (the perleaf policy's) as it is."""
+        if isinstance(agg, torch.Tensor):
+            return flatbuf.unpack(self.layout, agg)
+        return agg
+
+    def corrected_noise_tree(self, g_sum_tree: dict, keys: BarrierKeys,
+                             state: NoiseState, bound, active) -> dict:
+        """Tree-level corrected noise for the central tiers. Packed: through
+        :meth:`corrected_noise_packed` (a new tree, views of one buffer).
+        Perleaf: ``noise_correction.corrected_noise``, one stream at full
+        ``sigma_c`` (its std does not depend on the active count), added in
+        place into ``g_sum_tree``'s fp32 tensors, which are returned."""
+        if self.policy.mode == "packed":
+            packed = flatbuf.pack(self.layout, g_sum_tree)
+            return flatbuf.unpack(self.layout, self.corrected_noise_packed(
+                packed, keys, state, bound, active))
+        first = flatbuf.flat_tensors(self.layout, g_sum_tree)[0]
+        sigma_c = self.priv.sigma * torch.as_tensor(
+            bound, dtype=torch.float32, device=first.device)
+        noise, _ = noise_correction.corrected_noise(
+            g_sum_tree, keys.key_xi, state, sigma_c, self.priv.noise_lambda)
+        for g, n in zip(flatbuf.flat_tensors(self.layout, g_sum_tree),
+                        flatbuf.flat_tensors(self.layout, noise)):
+            g.add_(n)
+        return g_sum_tree
 
     # -- composed run -----------------------------------------------------------
     def run_central(self, g_stacked, norms, keys: BarrierKeys,
@@ -264,7 +370,9 @@ class DPPipeline:
 
 def reduce_contributions(updates) -> torch.Tensor:
     """The model updater's aggregation: the sum of the packed per-silo
-    contributions in silo order, the fused tier's noise-accumulation order.
+    contributions in silo order, the fused tier's noise-accumulation order
+    (under the perleaf policy, the buffers the contribution trees view:
+    summing them sums the trees leaf for leaf).
     Accumulates in place into the first contribution, which becomes the
     aggregate (the barrier tier reads no contribution again)."""
     it = iter(updates)

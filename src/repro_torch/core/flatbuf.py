@@ -18,6 +18,14 @@ as in JAX.
 
 ``pack`` can write into a given row (one silo's row of the stacked
 ``(n, P)`` buffer); ``unpack`` returns views into the buffer, not copies.
+
+Per-example gradients (JAX's ``layout_of(tree, batch_dims=1)``) are the
+``(B, P)`` buffer whose row b is example b's gradient packed with the
+layout of one example: :func:`pack_rows` builds it from a tree of
+``(B, ...)`` leaves, and the per-example clipping writes each example's
+gradient straight into its row. The per-leaf engine works leaf by leaf:
+:func:`leaf_slices` walks the tensors of a tree with their JAX leaf index
+and their element offset inside the (stacked) leaf.
 """
 from __future__ import annotations
 
@@ -136,6 +144,43 @@ def zero_padding(layout: PackedLayout, buf: torch.Tensor) -> torch.Tensor:
 def pack(layout: PackedLayout, tree: dict,
          out: Optional[torch.Tensor] = None) -> torch.Tensor:
     return pack_tensors(layout, flat_tensors(layout, tree), out)
+
+
+def pack_rows(layout: PackedLayout, tree: dict) -> torch.Tensor:
+    """A tree of ``(B, ...)`` per-example leaves (a stacked leaf a list of
+    them) -> the ``(B, P)`` buffer, row b packed from example b; ``layout``
+    is one example's. Equal to JAX's ``pack(layout_of(tree, batch_dims=1),
+    tree)``."""
+    tensors = flat_tensors(layout, tree)
+    B = tensors[0].shape[0]
+    out = torch.empty((B, layout.total), dtype=torch.float32,
+                      device=tensors[0].device)
+    for b in range(B):
+        pack_tensors(layout, [t[b] for t in tensors], out=out[b])
+    return out
+
+
+def leaf_slices(layout: PackedLayout, tree: dict):
+    """``(i, offset, tensor)`` for every tensor of ``tree`` in buffer order:
+    ``i`` its leaf's index in JAX's order, ``offset`` the element at which
+    it starts inside that leaf (``l * numel`` for layer l of a stacked
+    leaf, 0 otherwise)."""
+    for i, (path, k, size) in enumerate(zip(layout.paths, layout.stacks,
+                                            layout.sizes)):
+        leaf = tree[path]
+        for j, t in enumerate(leaf if k else [leaf]):
+            yield i, j * (size // k if k else size), t
+
+
+def map_leaf_slices(layout: PackedLayout, tree: dict, fn) -> dict:
+    """The tree of ``fn(i, offset, tensor)`` over :func:`leaf_slices`, in
+    ``tree``'s structure."""
+    out: dict = {}
+    it = leaf_slices(layout, tree)
+    for path, k in zip(layout.paths, layout.stacks):
+        parts = [fn(*next(it)) for _ in range(k or 1)]
+        out[path] = parts if k else parts[0]
+    return out
 
 
 def unpack(layout: PackedLayout, buf: torch.Tensor) -> dict:

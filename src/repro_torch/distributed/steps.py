@@ -24,6 +24,12 @@ over them, computing one silo's gradient with autograd, packing it into row
 i and freeing the gradient tree before silo i+1, so only one gradient tree
 lives at a time. The silo-serial scan tier raises ``NotImplementedError``
 (``ROADMAP.md`` queue 1, item 9).
+
+Under the perleaf execution policy (``force_impl("perleaf",
+kernel="dp_noise_tree")`` or ``REPRO_KERNEL_IMPL=dp_noise_tree=perleaf``)
+the fused tier adds the per-leaf ``jax.random`` noise to the aggregate, and
+the barrier tier masks each contribution leaf by leaf (``zsmask``) over the
+full ring of the mesh, as JAX's steps do.
 """
 from __future__ import annotations
 
@@ -37,7 +43,8 @@ import torch
 from repro_torch.configs.base import MeshConfig, PrivacyConfig, RunConfig
 from repro_torch.core import barrier as barrier_mod
 from repro_torch.core import flatbuf, prng
-from repro_torch.core.dp_pipeline import DPPipeline, reduce_contributions
+from repro_torch.core.dp_pipeline import (DPPipeline, reduce_contributions,
+                                          resolve_policy)
 from repro_torch.core.flatbuf import PackedLayout
 from repro_torch.core.noise_correction import NoiseState
 from repro_torch.core.noise_correction import init_state as init_noise_state
@@ -172,9 +179,21 @@ def _fused_grads(model: Model, priv: PrivacyConfig, params, batch, n_silos,
     with torch.no_grad():
         with timer.stage("norms"):
             norms = pipe.norms(stacked)
-        noisy, new_ns, bound = pipe.run_central(
-            stacked, norms, keys, noise_state, clip_bound, clip_key, active,
-            timer)
+        if priv.enabled and pipe.policy.mode == "perleaf":
+            # the per-leaf noise family: aggregate packed, then the noise
+            # stage on the aggregate's tree (in place)
+            with timer.stage("aggregate"):
+                bound = pipe.dynamic_bound(norms, active, clip_key, clip_bound)
+                noisy = pipe.masked_aggregate(
+                    stacked, pipe.clip_scales(norms, bound, active))
+            with timer.stage("noise"):
+                pipe.corrected_noise_tree(flatbuf.unpack(layout, noisy), keys,
+                                          noise_state, bound, active)
+            new_ns = pipe.advance_state(keys, noise_state, active)
+        else:
+            noisy, new_ns, bound = pipe.run_central(
+                stacked, norms, keys, noise_state, clip_bound, clip_key,
+                active, timer)
         del stacked
     return noisy, _mean_loss(losses, pipe, active), norms, new_ns, bound
 
@@ -192,6 +211,10 @@ def _barrier_grads(model: Model, priv: PrivacyConfig, mesh_cfg: MeshConfig,
     n_silos = mesh_cfg.n_silos
     silo_batches = _reshape_to_silos(batch, n_silos)
     pipe = DPPipeline(priv, layout, n_silos)
+    if pipe.policy.mode == "perleaf":
+        # the per-leaf mask family only builds the full static ring: the
+        # step aggregates every silo whatever set it was given (as JAX's)
+        active = pipe.full_active()
     tensors = flatbuf.flat_tensors(layout, transformer.param_tree(params))
     dev = tensors[0].device
     stacked = torch.empty((n_silos, layout.total), dtype=torch.float32,
@@ -224,19 +247,29 @@ def _barrier_grads(model: Model, priv: PrivacyConfig, mesh_cfg: MeshConfig,
         pipe.advance_state(keys, noise_state, active), bound
 
 
-def build_train_step(model: Model, run_cfg: RunConfig, lr_schedule=None):
+def build_train_step(model: Model, run_cfg: RunConfig, lr_schedule=None,
+                     elastic: bool = False):
     """``train_step(state, batch, root_key, active=None, *, timer)`` ->
     ``(new_state, metrics)``: ``active`` is the (n_silos,) bool
     participation set of this step (None = every silo); dropped silos
     contribute neither gradient, noise share nor divisor weight. ``timer``
     (a :class:`StageTimer`) times the step's stages. The master buffer, and
     with it ``state.params``, is updated in place. ``sync_path='barrier'``
-    with privacy on runs :func:`_barrier_grads` over the mesh's silos."""
+    with privacy on runs :func:`_barrier_grads` over the mesh's silos.
+    ``elastic=True`` says the caller will pass partial sets: refused on the
+    barrier tier under the perleaf policy, whose mask family only builds
+    the full ring (a direct call with a partial set there aggregates every
+    silo and still divides by the set's count, as JAX's step does)."""
     priv = run_cfg.privacy
     barrier = priv.enabled and priv.sync_path == "barrier"
     if priv.silo_mode == "scan" and not barrier:
         raise NotImplementedError(
             "silo_mode='scan' is not ported yet (ROADMAP.md queue 1, item 9)")
+    if elastic and barrier and resolve_policy("packed").mode == "perleaf":
+        raise ValueError(
+            "elastic membership on the barrier tier needs the packed mask "
+            "engine (the per-leaf family only builds the full static ring); "
+            "lift the dp_noise_tree=perleaf override")
     opt = make_optimizer(run_cfg.optimizer)
     lr_schedule = lr_schedule or constant(run_cfg.optimizer.lr)
     n_silos = effective_n_silos(run_cfg)

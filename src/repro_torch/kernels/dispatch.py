@@ -13,10 +13,37 @@ the tensors' device, nothing else:
 Each kernel is a :class:`Kernel` record holding its launch counter: the
 CUDA wrapper adds one where it launches, and nowhere else, so a run can show
 that its path went through the kernel.
+
+Above the tensors, the JAX package's three tree-level kernels choose an
+execution policy for a whole gradient tree: ``packed`` (one flat buffer,
+one kernel) or ``perleaf`` (one kernel per leaf, another stream family).
+:func:`resolve_tree` makes that choice as ``repro.kernels.dispatch`` does,
+in precedence order:
+
+1. :func:`force_impl`, a context manager, optionally scoped to one
+   tree-level kernel; nested blocks, innermost wins; thread-local;
+2. ``REPRO_KERNEL_IMPL``: a bare name (``perleaf``) for the three tree-level
+   kernels, or a ``kernel=impl,...`` list
+   (``REPRO_KERNEL_IMPL=dp_noise_tree=perleaf``);
+3. the call's ``impl``; ``auto`` is ``packed`` for CUDA tensors and
+   ``perleaf`` for CPU ones, as JAX's ``prefers_packed`` picks packed on the
+   TPU only.
+
+The legacy names map as in ``repro.core.dp_pipeline.resolve_policy``:
+``pallas`` is packed, ``jnp`` is perleaf. A bare name that is none of these
+is ignored, as JAX ignores a global override a kernel lacks. An override
+scoped to a tensor-level kernel (``zsmask``, ``dp_clip_sumsq``, ...) raises
+``ValueError``: here the tensors' device picks a tensor-level route, and on
+the card such an override could only select a plain version and hide the
+kernel.
 """
 from __future__ import annotations
 
+import os
+import threading
+from contextlib import contextmanager
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -79,3 +106,108 @@ def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
     require(t.dtype == dtype, f"{name}: dtype {t.dtype}, expected {dtype}")
     require(t.dim() == ndim, f"{name}: {t.dim()}-d, expected {ndim}-d")
     require(t.is_contiguous(), f"{name}: must be contiguous")
+
+
+def check_key(name: str, key) -> tuple:
+    """A raw threefry key ``(k0, k1)``: two uint32 words, as ints."""
+    k0, k1 = (int(k) for k in key)
+    require(0 <= k0 <= 0xFFFFFFFF and 0 <= k1 <= 0xFFFFFFFF,
+            f"{name}: key words must be uint32, got {key}")
+    return k0, k1
+
+
+def check_rows(name: str, t: torch.Tensor, device: torch.device) -> int:
+    """An fp32 (n, D) argument whose rows are contiguous but may be spaced
+    apart (a column range of a wider buffer). Returns the row stride."""
+    require(t.device == device, f"{name}: on {t.device}, expected {device}")
+    require(t.dtype == torch.float32, f"{name}: dtype {t.dtype}, expected "
+                                      f"torch.float32")
+    require(t.dim() == 2, f"{name}: {t.dim()}-d, expected 2-d")
+    n, D = t.shape
+    require(D <= 1 or t.stride(1) == 1, f"{name}: rows must be contiguous")
+    ld = t.stride(0) if n > 1 else D
+    require(ld >= D, f"{name}: rows overlap (row stride {ld} < {D})")
+    return ld
+
+
+# ---------------------------------------------------------------------------
+# tree-level execution policy
+
+ENV_VAR = "REPRO_KERNEL_IMPL"
+TREE_KERNELS = ("dp_noise_tree", "zsmask_tree", "dp_clip_tree")
+TREE_IMPLS = {"packed": "packed", "perleaf": "perleaf", "pallas": "packed",
+              "jnp": "perleaf"}
+_local = threading.local()
+
+
+def _check_scope(kernel: str) -> None:
+    if kernel not in TREE_KERNELS:
+        raise ValueError(
+            f"an override scoped to {kernel!r} is not taken: only the "
+            f"tree-level kernels {TREE_KERNELS} choose an implementation; a "
+            f"tensor-level kernel runs its CUDA kernel on CUDA tensors and "
+            f"its plain version on CPU tensors")
+
+
+@contextmanager
+def force_impl(impl: str, kernel: Optional[str] = None):
+    """Force ``impl`` for the tree-level ``kernel`` (for all three when
+    None) inside the ``with`` block. Nested blocks: innermost wins."""
+    if kernel is not None:
+        _check_scope(kernel)
+    stack = getattr(_local, "stack", None)
+    if stack is None:
+        stack = _local.stack = []
+    stack.append((kernel, impl))
+    try:
+        yield
+    finally:
+        stack.pop()
+
+
+def _forced(kernel: str) -> Optional[tuple]:
+    """(impl, is_global) from the innermost applicable ``force_impl``."""
+    for scope, impl in reversed(getattr(_local, "stack", None) or []):
+        if scope is None or scope == kernel:
+            return impl, scope is None
+    return None
+
+
+def _env_impl(kernel: str) -> Optional[tuple]:
+    """(impl, is_global) from ``REPRO_KERNEL_IMPL``."""
+    raw = os.environ.get(ENV_VAR, "").strip()
+    if not raw:
+        return None
+    if "=" not in raw:
+        return raw, True
+    found = None
+    for part in raw.split(","):
+        k, _, v = part.partition("=")
+        k, v = k.strip(), v.strip()
+        if not k:
+            continue
+        _check_scope(k)
+        if k == kernel and v and found is None:  # the first, as JAX reads
+            found = (v, False)
+    return found
+
+
+def resolve_tree(kernel: str, impl: str = "auto",
+                 cuda: Optional[bool] = None) -> str:
+    """``'packed'`` or ``'perleaf'`` for the tree-level ``kernel``, after
+    the overrides; ``cuda`` says where the tree lies, for ``auto``."""
+    _check_scope(kernel)
+    requested = impl
+    override = _forced(kernel) or _env_impl(kernel)
+    if override is not None:
+        name, is_global = override
+        if not (is_global and name not in TREE_IMPLS):
+            requested = name
+    if requested == "auto":
+        if cuda is None:
+            raise ValueError(f"{kernel}: 'auto' needs the tree's device")
+        return "packed" if cuda else "perleaf"
+    if requested not in TREE_IMPLS:
+        raise ValueError(f"unknown impl {requested!r} for kernel {kernel!r}; "
+                         f"available: {sorted(TREE_IMPLS)} or 'auto'")
+    return TREE_IMPLS[requested]

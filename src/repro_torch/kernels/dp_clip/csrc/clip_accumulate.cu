@@ -5,7 +5,10 @@
 //   clip_accumulate (_clip_accum_kernel, :46, pallas_call :77)
 // On the training path g is the stacked (n_silos, P) packed gradient buffer
 // and scale the per-silo clip factors (zeroed for dropped silos), so the sum
-// is sum_i clip(g_i) (core/dp_pipeline.py masked_aggregate).
+// is sum_i clip(g_i) (core/dp_pipeline.py masked_aggregate). On the
+// per-leaf clip path g is one leaf's columns of the (B, P) per-example
+// buffer, rows ld = P apart, read in place; clip_sum.cu runs it as its
+// last phase.
 //
 // Design: each thread owns 4 consecutive columns at a time (one 16-byte load
 // per row when P % 4 == 0 and the buffers are 16-byte aligned; scalar
@@ -29,7 +32,7 @@ constexpr int CA_THREADS = 256;
 
 __global__ void __launch_bounds__(CA_THREADS)
 clip_accumulate_kernel(const float* __restrict__ g, const float* __restrict__ scale,
-                       float* __restrict__ out, int n, long long P, int vec) {
+                       float* __restrict__ out, int n, long long P, long long ld, int vec) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long nvec = vec ? P / 4 : 0;
@@ -37,7 +40,7 @@ clip_accumulate_kernel(const float* __restrict__ g, const float* __restrict__ sc
     float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int i = 0; i < n; ++i) {
       const float s = __ldg(scale + i);
-      const float4 x = __ldg(reinterpret_cast<const float4*>(g + (long long)i * P) + v);
+      const float4 x = __ldg(reinterpret_cast<const float4*>(g + (long long)i * ld) + v);
       acc.x = __fadd_rn(acc.x, __fmul_rn(x.x, s));
       acc.y = __fadd_rn(acc.y, __fmul_rn(x.y, s));
       acc.z = __fadd_rn(acc.z, __fmul_rn(x.z, s));
@@ -48,17 +51,18 @@ clip_accumulate_kernel(const float* __restrict__ g, const float* __restrict__ sc
   for (long long p = nvec * 4 + tid; p < P; p += stride) {
     float acc = 0.f;
     for (int i = 0; i < n; ++i)
-      acc = __fadd_rn(acc, __fmul_rn(__ldg(g + (long long)i * P + p), __ldg(scale + i)));
+      acc = __fadd_rn(acc, __fmul_rn(__ldg(g + (long long)i * ld + p), __ldg(scale + i)));
     out[p] = acc;
   }
 }
 
 }  // namespace
 
-// g (n, P) and scale (n,), fp32 contiguous; out (P,) fp32. vec != 0 when
-// P % 4 == 0 and g, out are 16-byte aligned.
+// g (n, P) fp32 with rows ld floats apart (ld = P: contiguous); scale
+// (n,) fp32; out (P,) fp32. vec != 0 when P and ld are multiples of 4 and
+// g, out are 16-byte aligned.
 REPRO_API int clip_accumulate_f32(const float* g, const float* scale, float* out, int n,
-                                  long long P, int vec, cudaStream_t stream) {
+                                  long long P, long long ld, int vec, cudaStream_t stream) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -68,6 +72,7 @@ REPRO_API int clip_accumulate_f32(const float* g, const float* scale, float* out
   const long long cap = (long long)sms * 16;  // enough blocks in flight to saturate HBM
   if (blocks > cap) blocks = cap;
   if (blocks < 1) blocks = 1;
-  clip_accumulate_kernel<<<(unsigned)blocks, CA_THREADS, 0, stream>>>(g, scale, out, n, P, vec);
+  clip_accumulate_kernel<<<(unsigned)blocks, CA_THREADS, 0, stream>>>(g, scale, out, n, P, ld,
+                                                                    vec);
   return cudaGetLastError();
 }

@@ -1,7 +1,9 @@
 """CUDA wrappers of the packed DP kernels: the corrected noise of the fused
-tier and one silo's contribution of the barrier tier.
+tier, one silo's contribution of the barrier tier, and the per-example clip
+and sum.
 
-The kernels are in ``csrc/noise_batch.cu`` and ``csrc/clip_mask.cu`` (each
+The kernels are in ``csrc/noise_batch.cu``, ``csrc/clip_mask.cu`` and
+``csrc/clip_sum.cu`` (each
 header says which TPU kernel it replaces, what bounds it on an H100, and
 how the design answers that). A wrapper checks what its kernel takes,
 allocates the output, launches on the current stream, raises on a CUDA
@@ -15,7 +17,9 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.dispatch import check_tensor, register, require
+from repro_torch.kernels.dispatch import (check_key, check_tensor, register,
+                                          require)
+from repro_torch.kernels.dp_clip.dp_clip import MAX_ROWS, row_blocks, vec_ok
 
 NOISE_BATCH = register(
     "noise_batch",
@@ -25,16 +29,13 @@ CLIP_MASK = register(
     "clip_mask",
     "src/repro_torch/kernels/dp_fused/csrc/clip_mask.cu",
     "src/repro/kernels/dp_fused/dp_fused.py:171")
+CLIP_SUM = register(
+    "clip_sum",
+    "src/repro_torch/kernels/dp_fused/csrc/clip_sum.cu",
+    "src/repro/kernels/dp_fused/dp_fused.py:100")
 
 _P, _I, _L, _U, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                       ctypes.c_uint32, ctypes.c_float)
-
-
-def _key(name: str, key) -> tuple:
-    k0, k1 = (int(k) for k in key)
-    require(0 <= k0 <= 0xFFFFFFFF and 0 <= k1 <= 0xFFFFFFFF,
-            f"{name}: key words must be uint32, got {key}")
-    return k0, k1
 
 
 def noise_batch_cuda(g_sum, key_xi, prev_key, noise_scales, lam_gates,
@@ -49,7 +50,7 @@ def noise_batch_cuda(g_sum, key_xi, prev_key, noise_scales, lam_gates,
     n = noise_scales.shape[0]
     require(lam_gates.shape == (n,), f"lam_gates {tuple(lam_gates.shape)}, "
                                      f"expected ({n},)")
-    kx, kp = _key("key_xi", key_xi), _key("prev_key", prev_key)
+    kx, kp = check_key("key_xi", key_xi), check_key("prev_key", prev_key)
     P = g_sum.shape[0]
     out = torch.empty_like(g_sum)
     if P == 0:
@@ -81,8 +82,8 @@ def clip_mask_cuda(g, scalars, key_r, key_xi, prev_key, silo: int, nxt: int,
                                    f"(5,): scale, s, b, lam, s_prev")
     require(0 <= silo <= 0xFFFFFFFF and 0 <= nxt <= 0xFFFFFFFF,
             f"stream ids must be uint32, got silo {silo}, nxt {nxt}")
-    kr, kx, kp = (_key("key_r", key_r), _key("key_xi", key_xi),
-                  _key("prev_key", prev_key))
+    kr, kx, kp = (check_key("key_r", key_r), check_key("key_xi", key_xi),
+                  check_key("prev_key", prev_key))
     P = g.shape[0]
     if out is None:
         out = torch.empty_like(g)
@@ -103,3 +104,30 @@ def clip_mask_cuda(g, scalars, key_r, key_xi, prev_key, silo: int, nxt: int,
     _build.check(err, "clip_mask")
     CLIP_MASK.launches += 1
     return out
+
+
+def clip_sum_cuda(g, clip_bound) -> tuple:
+    """Launch the kernel: g (B, P) fp32 contiguous, clip_bound a (1,) fp32
+    tensor on the same card -> (clipped sum (P,), pre-clip norms (B,))."""
+    dev = g.device
+    require(dev.type == "cuda", "clip_sum_cuda takes CUDA tensors")
+    check_tensor("g", g, torch.float32, 2, dev)
+    check_tensor("clip_bound", clip_bound, torch.float32, 1, dev)
+    require(clip_bound.shape == (1,), f"clip_bound {tuple(clip_bound.shape)}, "
+                                      f"expected (1,)")
+    B, P = g.shape
+    require(1 <= B <= MAX_ROWS, f"clip_sum takes 1 to {MAX_ROWS} rows, got {B}")
+    out = torch.empty(P, dtype=torch.float32, device=dev)
+    norms = torch.empty(B, dtype=torch.float32, device=dev)
+    scale = torch.empty(B, dtype=torch.float32, device=dev)
+    nblk = row_blocks(B, P, dev)
+    partial = torch.empty(B * nblk, dtype=torch.float64, device=dev)
+    fn = _build.function("clip_sum_f32", [_P] * 6 + [_I, _L, _I, _I, _P])
+    with torch.cuda.device(dev):
+        err = fn(g.data_ptr(), out.data_ptr(), norms.data_ptr(),
+                 scale.data_ptr(), partial.data_ptr(), clip_bound.data_ptr(),
+                 B, P, vec_ok(P, P, g, out), nblk,
+                 torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "clip_sum")
+    CLIP_SUM.launches += 1
+    return out, norms

@@ -1,12 +1,15 @@
 """Public API of the packed DP kernels: the CUDA kernel for CUDA tensors,
-the plain version for CPU tensors (``kernels.dispatch.on_cuda``)."""
+the plain version for CPU tensors (``kernels.dispatch.on_cuda``), and the
+pack -> kernel -> unpack tree helpers of ``repro/kernels/dp_fused/ops.py``."""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import flatbuf
 from repro_torch.kernels.dispatch import on_cuda
 from repro_torch.kernels.dp_fused import ref
 from repro_torch.kernels.dp_fused.dp_fused import (clip_mask_cuda,
+                                                   clip_sum_cuda,
                                                    noise_batch_cuda)
 
 
@@ -52,3 +55,35 @@ def clip_mask(g, scale, key_r, key_xi, prev_key, silo: int, n_silos: int,
                            for x in (scale, s, b_scale, lam_gate, s_prev)])
     return clip_mask_cuda(g, scalars, key_r, key_xi, prev_key, int(silo), nxt,
                           use_pairwise, use_prev, out=out)
+
+
+def clip_sum_packed(g, clip_bound):
+    """g: (B, P) packed per-example grads -> (clipped sum (P,), pre-clip
+    norms (B,)), one dispatch. ``clip_bound`` a float or a 0-dim tensor
+    (a tensor on the card is read there: no host sync)."""
+    if not on_cuda(g):
+        return ref.clip_sum_ref(g, clip_bound)
+    c = torch.as_tensor(clip_bound, dtype=torch.float32,
+                        device=g.device).reshape(1)
+    return clip_sum_cuda(g, c)
+
+
+def packed_clip_and_sum(buf, clip_bound, layout):
+    """Per-example clip over the (B, P) per-example buffer (one example's
+    ``layout``) in one dispatch. Returns ``(clipped-sum tree fp32, views
+    into one buffer; per-example norms)``."""
+    summed, norms = clip_sum_packed(buf, clip_bound)
+    return flatbuf.unpack(layout, summed), norms
+
+
+def packed_mask_tree(grads, key_r, key_xi, silo: int, n_silos: int, sigma_c,
+                     b_scale):
+    """Pairwise zero-sum mask over a whole tree in one ``clip_mask``
+    dispatch (scale 1, no correction term). Returns the masked tree, views
+    into one fp32 buffer."""
+    layout = flatbuf.layout_of(grads)
+    packed = flatbuf.pack(layout, grads)
+    masked = clip_mask(packed, 1.0, key_r, key_xi, key_xi, silo, n_silos,
+                       sigma_c, b_scale, 0.0, use_pairwise=True,
+                       use_prev=False, out=packed)
+    return flatbuf.unpack(layout, masked)

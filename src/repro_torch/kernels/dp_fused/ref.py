@@ -7,7 +7,11 @@ the aggregate in silo order, each built as the JAX package builds it,
 silo's contribution in the reference's order, ``g * scale``, then
 ``+ b * (r_i - r_nxt)``, then ``+ s * xi``, then ``- lam * (s_prev * xp)``.
 Both take each multiply and add as a separate op, so on the card they are
-bit-equal to their CUDA kernels. ``base`` offsets the counters, so a window
+bit-equal to their CUDA kernels. ``clip_sum_ref`` is the per-example clip
+and sum of the packed (B, P) buffer: the rows' sums of squares (chunked
+dot products), ``norms = sqrt(max(ss, 1e-30))``, ``scale = min(1, C /
+norms)``, then ``clip_accumulate_ref``'s left fold: given the same norms it
+is bit-equal to its CUDA kernel. ``base`` offsets the counters, so a window
 ``[base, base + len(g))`` of a long buffer can be checked on its own. On
 the CPU they are held to the JAX package's oracles and Pallas kernels in
 interpret mode (equal bits up to libm's ``log``).
@@ -16,6 +20,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.dp_clip.ref import (clip_accumulate_ref,
+                                             per_example_sumsq_ref)
 from repro_torch.kernels.zsmask.threefry import normal_stream
 
 
@@ -42,6 +48,22 @@ def noise_batch_ref(g_sum, key_xi, prev_key, noise_scales, lam_gates,
             share = share - lam_gates[i] * (s_prev * xp)
         out = out + share
     return out
+
+
+def clip_sum_scales(sumsq, clip_bound) -> tuple:
+    """``(norms, scale)`` of ``clip_sum_ref`` from the rows' sums of
+    squares: ``sqrt(max(ss, 1e-30))`` and ``min(1, C / norms)``, the
+    division on the device."""
+    norms = torch.sqrt(torch.clamp(sumsq, min=1e-30))
+    c = _f32(clip_bound, norms.device).reshape(())
+    return norms, torch.clamp(c / norms, max=1.0)
+
+
+def clip_sum_ref(g, clip_bound) -> tuple:
+    """g: (B, P) packed per-example grads. Returns ``(clipped sum (P,) fp32,
+    per-example pre-clip norms (B,) fp32)``."""
+    norms, scale = clip_sum_scales(per_example_sumsq_ref(g), clip_bound)
+    return clip_accumulate_ref(g, scale), norms
 
 
 def _f32(x, device) -> torch.Tensor:

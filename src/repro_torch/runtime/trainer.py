@@ -55,6 +55,13 @@ class Trainer:
     stage_log: list = field(default_factory=list)
 
     def __post_init__(self):
+        # partial participation sets (a schedule, elastic membership,
+        # budgets): refused up front by the barrier tier's perleaf policy
+        partial_sets = (self.tcfg.elastic or self.silo_schedule is not None
+                        or self.tcfg.silo_epsilon_budget is not None
+                        or bool(self.tcfg.silo_budgets))
+        self.train_step = steps_mod.build_train_step(
+            self.model, self.run_cfg, elastic=partial_sets)
         if self.tcfg.checkpoint_dir:
             _not_ported("checkpointing (checkpoint_dir)")
         if self.tcfg.elastic:
@@ -67,7 +74,6 @@ class Trainer:
         self.n_silos = steps_mod.effective_n_silos(self.run_cfg)
         self.accountant = PrivacyLedger.from_privacy_config(
             priv, self.n_silos) if priv.enabled else None
-        self.train_step = steps_mod.build_train_step(self.model, self.run_cfg)
 
     def _active_for(self, step: int):
         """This step's participation set; None = statically all-active."""

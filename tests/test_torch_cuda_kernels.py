@@ -7,9 +7,14 @@ checks on every run; these add the edges: more head dims, row tiles past
 one block, isolation against poisoned pages, rollback ranges past the row
 and with scalar stores, argument checks, the DP
 kernels' bit-equality with their plain versions (``clip_mask`` in every
-flag combination and in place; 64-bit offsets past 2**31 elements), and the
-smoke-size serving slice (plain and speculative) and the fused and barrier
-training slices on the card against the CPU.
+flag combination and in place, ``zsmask`` at counter offsets past 2**31 and
+wrapping; 64-bit offsets past 2**31 elements), the per-example kernels
+(``per_example_sumsq`` and ``clip_sum``: within their stated tolerance of
+the plain versions, bit-identical across launches, the clipped sum
+bit-equal to the plain fold at the kernel's norms), and the smoke-size
+serving slice (plain and speculative), the fused and barrier training
+slices (packed and perleaf) and per-example clipping on the card against
+the CPU.
 """
 import copy
 
@@ -24,17 +29,23 @@ from repro_torch.kernels.dp_clip import ops as clip_ops
 from repro_torch.kernels.dp_clip import ref as clip_ref
 from repro_torch.kernels.dp_fused import ops as noise_ops
 from repro_torch.kernels.dp_fused import ref as noise_ref
-from repro_torch.kernels.dp_fused.dp_fused import clip_mask_cuda
+from repro_torch.kernels.dp_fused.dp_fused import clip_mask_cuda, clip_sum_cuda
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.kernels.paged_attention import ref as paged_ref
 from repro_torch.kernels.paged_attention.paged_attention import \
     paged_rollback_cuda
+from repro_torch.kernels.zsmask import ops as zs_ops
+from repro_torch.kernels.zsmask import ref as zs_ref
+from repro_torch.kernels.zsmask.zsmask import zsmask_cuda
 from repro_torch.runtime.serving import zipf_requests
 
 # kernel vs plain version, fp32 on the card: sums in another order
 ATOL = RTOL = 1e-5
+# per_example_sumsq / clip_sum norms (fp64 sums) against the plain
+# version's chunked fp32 dot products (about 1e-7 relative)
+SUMSQ_RTOL = 1e-6
 # the smoke-size slice, card vs CPU: fp32 products in other orders
 SLICE_ATOL = SLICE_RTOL = 1e-4
 
@@ -422,6 +433,182 @@ def test_smoke_barrier_training_on_card_matches_cpu(cuda):
                   silo_schedule=sched, state=cpu.init_state(params=p_cpu))
     for ma, mb in zip(a.metrics, b.metrics):
         assert ma["epsilon_per_silo"] == mb["epsilon_per_silo"]
+        np.testing.assert_allclose(ma["loss"], mb["loss"], rtol=1e-5)
+        np.testing.assert_allclose(ma["clip_bound"], mb["clip_bound"],
+                                   rtol=1e-5)
+    assert a.state.noise_state.prev_key == b.state.noise_state.prev_key
+    diff = (a.state.opt_state["master"].cpu()
+            - b.state.opt_state["master"]).abs()
+    assert diff.max() <= 2 * 2 * 1e-3  # at most a sign flip of two steps
+
+
+# ---------------------------------------------------------------------------
+# the per-example and per-leaf kernels
+
+
+@pytest.mark.parametrize("offset", [0, 12288, (1 << 31) + 5, (1 << 32) - 1000])
+def test_zsmask_kernel_bit_equal(cuda, offset):
+    """Counter offsets of a stacked leaf's layers, past 2**31 and wrapping
+    inside the flat; in place; and the mask-only pass (b = 0, r drawn)."""
+    g = torch.randn(3 * 1024 + 5, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(7))
+    args = (KR, KX, 1, 4, 1.2, 9.6)
+    c = dispatch.KERNELS["zsmask"].launches
+    got = zs_ops.apply_zsmask(g, *args, offset=offset)
+    want = zs_ref.zsmask_ref(g, *args, offset=offset)
+    torch.cuda.synchronize()
+    assert dispatch.KERNELS["zsmask"].launches == c + 1
+    assert torch.isfinite(got).all() and torch.equal(got, want)
+    inplace = g.clone()
+    assert zs_ops.apply_zsmask(inplace, *args, offset=offset,
+                               out=inplace) is inplace
+    assert torch.equal(inplace, want)
+    zeros = torch.zeros_like(g)
+    assert torch.equal(zs_ops.apply_zsmask(zeros, KR, KP, 1, 4, 1.2, 0.0,
+                                           offset=offset),
+                       zs_ref.zsmask_ref(zeros, KR, KP, 1, 4, 1.2, 0.0,
+                                         offset=offset))
+
+
+@pytest.mark.parametrize("B,D,ld", [(4, 1 << 20, 1 << 20), (4, 4099, 5000),
+                                    (1, 7, 7), (5, 300000, 400004),
+                                    (3, 2048, 2048)])
+def test_per_example_sumsq_kernel(cuda, B, D, ld):
+    """Rows contiguous or ld apart (one leaf's columns of the per-example
+    buffer), odd lengths; two launches give the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    buf = torch.randn(B, ld, device=cuda, generator=g)
+    buf *= torch.logspace(-2, 2, B, device=cuda)[:, None]
+    x = buf[:, :D]
+    c = dispatch.KERNELS["per_example_sumsq"].launches
+    got = clip_ops.sumsq(x)
+    again = clip_ops.sumsq(x)
+    torch.cuda.synchronize()
+    assert dispatch.KERNELS["per_example_sumsq"].launches == c + 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, clip_ref.per_example_sumsq_ref(x),
+                               rtol=SUMSQ_RTOL, atol=0)
+    torch.testing.assert_close(got, (x.double() ** 2).sum(1).float(),
+                               rtol=2.0 ** -23, atol=0)
+
+
+@pytest.mark.parametrize("B,P,clip_bound", [(4, 1 << 20, 1.0),
+                                            (4, 1 << 20, 600.0),
+                                            (3, 4099, 5.0), (1, 1024, 1e9)])
+def test_clip_sum_kernel(cuda, B, P, clip_bound):
+    """Norms within SUMSQ_RTOL of the plain version's and bit-identical
+    across launches; the sum bit-equal to the plain fold at the kernel's
+    norms; the whole within tolerance of ``clip_sum_ref``."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.randn(B, P, device=cuda, generator=g)
+    x *= torch.logspace(-1, 1, B, device=cuda)[:, None]
+    c = dispatch.KERNELS["clip_sum"].launches
+    s, n = noise_ops.clip_sum_packed(x, clip_bound)
+    s2, n2 = noise_ops.clip_sum_packed(x, torch.tensor(clip_bound,
+                                                       device=cuda))
+    torch.cuda.synchronize()
+    assert dispatch.KERNELS["clip_sum"].launches == c + 2
+    assert torch.equal(s, s2) and torch.equal(n, n2)
+    want_s, want_n = noise_ref.clip_sum_ref(x, clip_bound)
+    torch.testing.assert_close(n, want_n, rtol=SUMSQ_RTOL, atol=0)
+    scale = torch.clamp(torch.tensor(clip_bound, device=cuda) / n, max=1.0)
+    assert torch.equal(s, clip_ref.clip_accumulate_ref(x, scale))
+    torch.testing.assert_close(s, want_s, rtol=0,
+                               atol=SUMSQ_RTOL * want_s.abs().max().item())
+
+
+def test_per_example_kernels_index_past_2_31(cuda):
+    """B * P > 2**31 (8.6 GB): the norms of the full rows and windows of
+    the sum at both ends, 64-bit offsets."""
+    B, P = 4, (1 << 29) + 4096
+    x = torch.randn(B, P, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(10))
+    n_sq = clip_ops.sumsq(x)
+    torch.testing.assert_close(n_sq, clip_ref.per_example_sumsq_ref(x),
+                               rtol=SUMSQ_RTOL, atol=0)
+    s, n = noise_ops.clip_sum_packed(x, 1.0)
+    torch.testing.assert_close(n * n, n_sq, rtol=4 * 2.0 ** -23, atol=0)
+    scale = torch.clamp(1.0 / n, max=1.0)
+    W = 1 << 16
+    for a in (0, P - W):
+        assert torch.equal(s[a:a + W],
+                           clip_ref.clip_accumulate_ref(x[:, a:a + W], scale))
+
+
+def test_per_example_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros(4, 64, device=cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        clip_ops.sumsq(x.double())
+    with pytest.raises(ValueError, match="rows must be contiguous"):
+        clip_ops.sumsq(x.t())
+    with pytest.raises(ValueError, match="clip_bound"):
+        clip_sum_cuda(x, torch.ones(2, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        clip_sum_cuda(x[:, :32], torch.ones(1, device=cuda))
+    buf = torch.zeros(128, device=cuda)
+    with pytest.raises(ValueError, match="scalars"):
+        zsmask_cuda(buf, torch.ones(3, device=cuda), KR, KX, 0, 1)
+    with pytest.raises(ValueError, match="uint32"):
+        zsmask_cuda(buf, torch.ones(2, device=cuda), KR, KX, 0, 1,
+                    offset=1 << 32)
+    with pytest.raises(ValueError, match="disjoint"):
+        zsmask_cuda(buf[:64], torch.ones(2, device=cuda), KR, KX, 0, 1,
+                    out=buf[32:96])
+
+
+@pytest.mark.parametrize("impl,launches", [
+    ("packed", {"clip_sum": 1}),
+    ("perleaf", {"per_example_sumsq": 15, "clip_accumulate": 15})])
+def test_smoke_per_example_clipping_on_card_matches_cpu(cuda, impl, launches):
+    """``per_example_clipped_grad`` on the smoke config, 4 examples, card
+    (kernels) vs CPU (plain versions), from the same weights."""
+    from repro_torch.core import clipping, flatbuf
+    gpu = Session.from_config("qwen2.5-3b")
+    cpu = Session.from_config("qwen2.5-3b", device="cpu")
+    p_gpu = gpu.init_params()
+    p_cpu = copy.deepcopy(p_gpu).to("cpu")
+    batch = cpu.synthetic_batches(4, 16)()
+    dispatch.reset_launches()
+    a = clipping.per_example_clipped_grad(
+        gpu.model.loss, p_gpu, {k: v.to(cuda) for k, v in batch.items()},
+        1.0, impl=impl)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in dispatch.launch_counts().items() if v}
+    assert counts == launches
+    b = clipping.per_example_clipped_grad(cpu.model.loss, p_cpu, batch, 1.0,
+                                          impl=impl)
+    torch.testing.assert_close(a[1].cpu(), b[1], rtol=1e-5, atol=0)
+    np.testing.assert_allclose(float(a[2]), float(b[2]), rtol=1e-5)
+    layout = flatbuf.layout_of(b[0])
+    torch.testing.assert_close(flatbuf.pack(layout, a[0]).cpu(),
+                               flatbuf.pack(layout, b[0]), rtol=0, atol=1e-6)
+
+
+def test_smoke_perleaf_barrier_training_on_card_matches_cpu(cuda):
+    """Two quickstart steps of the smoke config on the barrier tier under
+    the perleaf policy, on the card (zsmask: 2 passes per leaf tensor, 4
+    silos, 2 steps) and on the CPU from the same weights."""
+    from repro_torch.kernels.dispatch import force_impl
+    priv = PrivacyConfig(sigma=0.3, clip_bound=1.0, dynamic_clip=True,
+                         noise_lambda=0.7, sync_path="barrier")
+    kw = dict(privacy=priv, optimizer=OptimizerConfig(name="adamw", lr=1e-3),
+              mesh=MeshConfig((4,), ("data",)))
+    gpu = Session.from_config("qwen2.5-3b", **kw)
+    cpu = Session.from_config("qwen2.5-3b", device="cpu", **kw)
+    p_gpu = gpu.init_params()
+    p_cpu = copy.deepcopy(p_gpu).to("cpu")
+    with force_impl("perleaf", kernel="dp_noise_tree"):
+        dispatch.reset_launches()
+        a = gpu.train(steps=2, batch_size=8, seq_len=16, log_every=0,
+                      state=gpu.init_state(params=p_gpu))
+        counts = dispatch.launch_counts()
+        b = cpu.train(steps=2, batch_size=8, seq_len=16, log_every=0,
+                      state=cpu.init_state(params=p_cpu))
+    slices = 3 + 12 * 2  # embed, lm_head, ln_f; 12 stacked leaves x 2 layers
+    assert counts["zsmask"] == 2 * 4 * 2 * slices
+    assert sum(counts.values()) == counts["zsmask"]
+    for ma, mb in zip(a.metrics, b.metrics):
+        assert ma["epsilon"] == mb["epsilon"]
         np.testing.assert_allclose(ma["loss"], mb["loss"], rtol=1e-5)
         np.testing.assert_allclose(ma["clip_bound"], mb["clip_bound"],
                                    rtol=1e-5)

@@ -22,7 +22,7 @@ leaked = sorted(m for m in sys.modules
                 or m == "repro" or m.startswith("repro."))
 print(len(names), leaked)
 assert not leaked, leaked
-assert len(names) >= 61, names
+assert len(names) >= 65, names
 # the training slices' modules are among those imported
 for name in ("core.prng", "core.flatbuf", "core.clipping", "core.barrier",
              "core.noise_correction", "core.dp_pipeline",
@@ -31,7 +31,11 @@ for name in ("core.prng", "core.flatbuf", "core.clipping", "core.barrier",
              "kernels.dp_fused.ops", "kernels.dp_fused.ref",
              "kernels.dp_fused.dp_fused", "optim.optimizers",
              "optim.schedules", "distributed.steps", "data.synthetic",
-             "runtime.trainer", "analysis.report", "launch.train"):
+             "runtime.trainer", "analysis.report", "launch.train",
+             # the per-example and per-leaf slice
+             "core.masking", "kernels.dispatch", "kernels.zsmask.ref",
+             "kernels.zsmask.zsmask", "kernels.zsmask.ops",
+             "kernels.dp_clip.dp_clip", "kernels.dp_clip.ref"):
     assert "repro_torch." + name in names, name
 """
 
