@@ -6,9 +6,10 @@ published width through ``repro_torch.api.Session`` (direct, wave,
 continuous and speculative continuous modes), trains it on the fused and on
 the barrier DP tier at full width and 12 layers (the barrier tier also
 under the per-leaf policy), clips its per-example gradients on both routes,
-and checks a serving slice (plain and speculative), a training step of
-each tier (packed and perleaf) and per-example clipping against the host
-CPU.
+serves rwkv6-7b and zamba2-7b at published width and full depth (direct
+and wave), and checks a serving slice of each family (plain and
+speculative for the dense one), a training step of each tier (packed and
+perleaf) and per-example clipping against the host CPU.
 
     python3 chip_smoke.py
 
@@ -79,7 +80,24 @@ Phases (any failed check raises, and the script exits non-zero):
 10b. the narrow config's ``per_example_clipped_grad`` on both routes, one
      fused step and one barrier step under the perleaf policy, card vs CPU
      from the same weights; then the training CLI under
-     ``REPRO_KERNEL_IMPL=dp_noise_tree=perleaf``.
+     ``REPRO_KERNEL_IMPL=dp_noise_tree=perleaf``;
+ 11. the scans of the ssm and hybrid families at their main path's shapes:
+     ``wkv`` at (4, 32, 64, 64) and ``ssd`` at (4, 32, 112, 64), N 64, each
+     with an incoming state, against their plain chunked versions within
+     the JAX package's own bounds (also at a ragged length, and ``wkv``
+     under strong decay), and flash attention at zamba2's d_head 112;
+12-13. rwkv6-7b (32 layers) and zamba2-7b (81 layers) at published width,
+     fp32, random weights from a seed: direct serve (batch 4, prompt 32, 16
+     new; rwkv6 prefills recurrently there and launches no ``wkv``), a
+     timed whole-prompt prefill (4 x 32), and the 8 Zipf requests through
+     4 wave slots: ``wkv`` 32 and ``ssd`` 81 launches a prefill (flash 13),
+     counts zeroed just before each run; continuous batching must refuse;
+ 14. narrow configs of both families at the kernels' widths (N = 64, P =
+     64, d_head 112), card vs CPU from the same weights: logits after a
+     prefill and 3 decode steps within CROSS_ATOL / CROSS_RTOL, and equal
+     wave tokens;
+ 15. ``python -m repro_torch.launch.serve --arch rwkv6-7b|zamba2-7b
+     --scheduler wave`` on the card in a subprocess.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -166,8 +184,13 @@ MASK_ATOL_PER_B = 8 * 2.0 ** -23 * 20
 BARRIER_ATOL_PER_B = TRAIN_RTOL * 10 + 8 * 2.0 ** -23 * 10
 # the 2-layer full-width slice, card (kernels, cuBLAS) vs host CPU (plain
 # versions, CPU BLAS): fp32 products over d_model 2048 and d_ff 11008 in
-# different orders
+# different orders; the same bound holds the narrow SSM and hybrid slices
 CROSS_ATOL, CROSS_RTOL = 2e-3, 1e-3
+# the scans against their plain chunked versions: the JAX package's own
+# bounds for its kernels against the recurrence (tests/test_kernels.py:
+# 66-96, 164-180); the per-token recurrence rounds differently from the
+# chunked exp(L_t - L_s) form
+WKV_ATOL, WKV_STRONG_ATOL, SSD_ATOL = 2e-5, 1e-4, 5e-5
 
 
 def check(cond: bool, what: str) -> None:
@@ -415,6 +438,258 @@ def check_flash(cfg, dev, gen, B, S, ops, ref, F):
         "bound_ms": bms, "bound_by": by,
         "at": f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} causal fp32",
     }
+
+
+# --------------------------------------------------------------- phase 11
+
+def wkv_inputs(dev, gen, B, S, H, N, w=None):
+    """The JAX package's test distribution at the path's shapes: r, k, v ~
+    0.5 N(0, 1), decay in (0.45, 0.95) (or a constant ``w``), u ~ 0.3
+    N(0, 1), an incoming state ~ 0.1 N(0, 1)."""
+    n = lambda *s: torch.randn(*s, device=dev, generator=gen)
+    r, k, v = n(B, S, H, N) * 0.5, n(B, S, H, N) * 0.5, n(B, S, H, N) * 0.5
+    w = torch.sigmoid(n(B, S, H, N)) * 0.5 + 0.45 if w is None \
+        else torch.full((B, S, H, N), w, device=dev)
+    return r, k, v, w, n(H, N) * 0.3, n(B, H, N, N) * 0.1
+
+
+def check_wkv(dev, gen, B, S, H, N, ops, ref):
+    """``wkv`` against its plain chunked version: at the main path's shape
+    (timed), at a ragged length (the plain version runs the recurrence) and
+    under strong decay (w = 0.05), within the JAX package's own bounds."""
+    cases = {}
+    for name, S_, w, tol in (("main", S, None, WKV_ATOL),
+                             ("ragged", 23, None, WKV_ATOL),
+                             ("strong decay", S, 0.05, WKV_STRONG_ATOL)):
+        xs = wkv_inputs(dev, gen, B, S_, H, N, w)
+        o, st = ops.wkv_chunked(*xs)
+        po, pst = ref.wkv_chunked_ref(*xs)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(o).all() and torch.isfinite(st).all()),
+              f"wkv {name}: non-finite")
+        err = max((o - po).abs().max().item(), (st - pst).abs().max().item())
+        check(err <= tol, f"wkv {name} (S={S_}) differs from its plain "
+                          f"version by {err} (tolerance {tol})")
+        cases[name] = {"S": S_, "max_abs_err": err, "tolerance": tol}
+        if name == "main":
+            main = xs
+    r, u, s0 = main[0], main[4], main[5]
+    # r, k, v, w in and o out; u; the state in and out
+    nbytes = (5 * r.numel() + u.numel() + 2 * s0.numel()) * 4
+    bms, by = bound(nbytes, 4 * B * S * H * N * N)
+    return {
+        "max_abs_err": cases["main"]["max_abs_err"], "cases": cases,
+        "tolerance": f"{WKV_ATOL} ({WKV_STRONG_ATOL} under strong decay)",
+        "ms": cuda_ms(lambda: ops.wkv_chunked(*main)),
+        "device_ms": graph_ms(lambda: ops.wkv_chunked(*main)),
+        "plain_ms": cuda_ms(lambda: ref.wkv_chunked_ref(*main)),
+        "library_ms": None,
+        "library_call": "none (no single PyTorch call computes the scan)",
+        "bound_ms": bms, "bound_by": by,
+        "at": f"B={B} S={S} H={H} N={N} fp32, with an incoming state",
+    }
+
+
+def ssd_inputs(dev, gen, B, S, nh, P, N):
+    """The JAX package's test distribution at the path's shapes."""
+    n = lambda *s: torch.randn(*s, device=dev, generator=gen)
+    return (n(B, S, nh, P) * 0.5,
+            torch.nn.functional.softplus(n(B, S, nh)),
+            -n(B, S, nh).abs() * 0.5, n(B, S, N) * 0.5, n(B, S, N) * 0.5,
+            n(B, nh, P, N) * 0.1)
+
+
+def check_ssd(dev, gen, B, S, nh, P, N, ops, ref):
+    """``ssd`` against its plain chunked version at the main path's shape
+    (timed) and at a ragged length, within the JAX package's bound."""
+    cases = {}
+    for name, S_ in (("main", S), ("ragged", 23)):
+        xs = ssd_inputs(dev, gen, B, S_, nh, P, N)
+        y, h = ops.ssd_chunked(*xs)
+        py, ph = ref.ssd_chunked_ref(*xs)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(y).all() and torch.isfinite(h).all()),
+              f"ssd {name}: non-finite")
+        err = max((y - py).abs().max().item(), (h - ph).abs().max().item())
+        check(err <= SSD_ATOL, f"ssd {name} (S={S_}) differs from its plain "
+                               f"version by {err} (tolerance {SSD_ATOL})")
+        cases[name] = {"S": S_, "max_abs_err": err, "tolerance": SSD_ATOL}
+        if name == "main":
+            main = xs
+    x, dt, _, Bc, _, h0 = main
+    # x, dt, la, B, C, h0 in; y and h out
+    nbytes = (2 * x.numel() + 2 * dt.numel() + 2 * Bc.numel()
+              + 2 * h0.numel()) * 4
+    bms, by = bound(nbytes, 5 * B * S * nh * P * N)
+    return {
+        "max_abs_err": cases["main"]["max_abs_err"], "cases": cases,
+        "tolerance": SSD_ATOL,
+        "ms": cuda_ms(lambda: ops.ssd_chunked(*main)),
+        "device_ms": graph_ms(lambda: ops.ssd_chunked(*main)),
+        "plain_ms": cuda_ms(lambda: ref.ssd_chunked_ref(*main)),
+        "library_ms": None,
+        "library_call": "none (no single PyTorch call computes the scan)",
+        "bound_ms": bms, "bound_by": by,
+        "at": f"B={B} S={S} nh={nh} P={P} N={N} fp32, with an incoming "
+              f"state",
+    }
+
+
+def timed(fn):
+    """(result, host seconds) of ``fn()``, the card synchronised."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def serve_family(Session, arch, kernels, per_prefill, reqs, log_name):
+    """One full-width family through ``Session.serve``: direct (batch 4,
+    prompt 32, 16 new) and wave (``reqs`` through 4 slots), the launch
+    counts zeroed just before each and read just after, plus one timed
+    whole-prompt prefill (batch 4 x 32: the wave scheduler's scan path).
+    ``per_prefill`` is each kernel's launches a whole-prompt prefill;
+    ``kernels`` the direct mode's launches (the ssm family prefills
+    recurrently there, so none). Continuous batching must raise."""
+    from repro_torch.kernels import dispatch
+
+    sess = Session.from_config(arch, full=True, seed=0)
+    cfg, V = sess.cfg, sess.cfg.vocab_size
+    params, init_s = timed(sess.init_params)
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"[{log_name}] {arch} full width ({cfg.n_layers} layers): "
+        f"{n_params / 1e9:.3f} B fp32 params ({n_params * 4 / 1e9:.2f} GB) "
+        f"on the card in {init_s:.1f} s")
+    sess.serve(batch_size=4, prompt_len=8, max_new_tokens=2, params=params)
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launches()
+    direct = sess.serve(batch_size=4, prompt_len=32, max_new_tokens=16,
+                        params=params)
+    n_direct = dispatch.launch_counts()
+    check(direct.tokens.shape == (4, 16)
+          and bool(((direct.tokens >= 0) & (direct.tokens < V)).all()),
+          f"{arch} direct tokens")
+    check(tuple(direct.logits.shape) == (4, V)
+          and bool(torch.isfinite(direct.logits).all()),
+          f"{arch} direct logits")
+    check(n_direct == {k: kernels.get(k, 0) for k in n_direct},
+          f"{arch} direct launches {n_direct}, expected {kernels}")
+    prompt = torch.randint(0, V, (4, 32), generator=torch.Generator(
+        ).manual_seed(5)).to(sess.device)
+    cache = sess.model.init_cache(4, 48)
+    dispatch.reset_launches()
+    with torch.inference_mode():
+        logits, scan_s = timed(lambda: sess.model.prefill(params, prompt,
+                                                          cache))
+    n_scan = dispatch.launch_counts()
+    check(n_scan == {k: per_prefill.get(k, 0) for k in n_scan},
+          f"{arch} whole-prompt prefill launches {n_scan}, expected "
+          f"{per_prefill}")
+    check(bool(torch.isfinite(logits).all()), f"{arch} prefill logits")
+    del cache, logits
+    dispatch.reset_launches()
+    wave = sess.serve(scheduler="wave", requests=copy.deepcopy(reqs),
+                      params=params, max_batch=4, max_len=512)
+    n_wave = dispatch.launch_counts()
+    check(wave.stats.drained and len(wave.stats.latencies) == len(reqs),
+          f"{arch} wave did not drain")
+    want = {k: v * wave.stats.waves for k, v in per_prefill.items()}
+    check(n_wave == {k: want.get(k, 0) for k in n_wave},
+          f"{arch} wave launches {n_wave} for {wave.stats.waves} waves, "
+          f"expected {want}")
+    peak = torch.cuda.max_memory_allocated()
+    try:
+        sess.serve(scheduler="continuous", batch_size=2, prompt_len=4,
+                   max_new_tokens=2, params=params)
+        raised = ""
+    except ValueError as e:
+        raised = str(e)
+    check("no paged serving path" in raised,
+          f"{arch}: continuous batching did not refuse ({raised!r})")
+    st = wave.stats
+    out = {
+        "config": f"{arch} published width, {cfg.n_layers} layers, fp32",
+        "n_params": n_params, "init_s": init_s,
+        "direct": {"prefill_ms": direct.prefill_s * 1e3,
+                   "decode_ms_per_token": direct.decode_s_per_token * 1e3,
+                   "decode_tok_per_s": 4 / direct.decode_s_per_token,
+                   "launches": n_direct},
+        "scan_prefill": {"ms": scan_s * 1e3, "batch": 4, "prompt": 32,
+                         "launches": n_scan},
+        "wave": {"useful_tokens": st.useful_tokens,
+                 "tok_per_s": 1 / wave.decode_s_per_token,
+                 "waves": st.waves, "utilization": st.utilization,
+                 "p50_latency_steps": st.p50_latency_steps,
+                 "p99_latency_steps": st.p99_latency_steps,
+                 "decode_steps": st.decode_steps, "launches": n_wave},
+        "peak_mem_gb": peak / 1e9}
+    log(f"[{log_name}] direct batch 4, prompt 32, 16 new: prefill "
+        f"{direct.prefill_s * 1e3:.2f} ms | decode "
+        f"{direct.decode_s_per_token * 1e3:.2f} ms/token step | "
+        f"{4 / direct.decode_s_per_token:.1f} tok/s | launches "
+        f"{ {k: v for k, v in n_direct.items() if v} }")
+    log(f"[{log_name}] whole-prompt prefill, batch 4 x 32: {scan_s * 1e3:.2f}"
+        f" ms | launches { {k: v for k, v in n_scan.items() if v} }")
+    log(f"[{log_name}] wave: {len(reqs)} requests, 4 slots, {st.waves} "
+        f"waves: {st.useful_tokens} tokens at {1 / wave.decode_s_per_token:.1f}"
+        f" tok/s | utilization {st.utilization:.3f} | p50 "
+        f"{st.p50_latency_steps} p99 {st.p99_latency_steps} steps | launches "
+        f"{ {k: v for k, v in n_wave.items() if v} } | peak "
+        f"{peak / 1e9:.2f} GB | continuous refused")
+    return out
+
+
+def family_cross_device(Session, cfg, reqs, log_name):
+    """A narrow config of one family (the kernels' widths) on the card and
+    on the host CPU from the same weights: the logits after a whole-prompt
+    prefill and after 3 decode steps agree within CROSS_ATOL / CROSS_RTOL,
+    and a wave serve gives the same greedy tokens."""
+    from repro_torch.kernels import dispatch
+
+    on = {d: Session.from_config(cfg, device=d, seed=7)
+          for d in ("cuda", "cpu")}
+    p_cpu = on["cpu"].init_params()
+    p_gpu = copy.deepcopy(p_cpu).to(on["cuda"].device)
+    g = torch.Generator().manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 24), generator=g)
+    steps = [torch.randint(0, cfg.vocab_size, (2, 1), generator=g)
+             for _ in range(3)]
+    logits, launches = {}, {}
+    for d, p in (("cuda", p_gpu), ("cpu", p_cpu)):
+        m = on[d].model
+        dispatch.reset_launches()
+        with torch.inference_mode():
+            cache = m.init_cache(2, 32)
+            out = [m.prefill(p, prompt.to(m.device), cache)]
+            out += [m.decode_step(p, t.to(m.device), cache) for t in steps]
+        launches[d] = {k: v for k, v in dispatch.launch_counts().items() if v}
+        logits[d] = [o.float().cpu() for o in out]
+    err = max((a - b).abs().max().item()
+              for a, b in zip(logits["cuda"], logits["cpu"]))
+    top = max(b.abs().max().item() for b in logits["cpu"])
+    check(all(torch.allclose(a, b, atol=CROSS_ATOL, rtol=CROSS_RTOL)
+              for a, b in zip(logits["cuda"], logits["cpu"])),
+          f"{cfg.name} card vs CPU logits differ by {err} (|logit| up to "
+          f"{top})")
+    check(not launches["cpu"] and launches["cuda"],
+          f"{cfg.name} launches: card {launches['cuda']}, CPU "
+          f"{launches['cpu']}")
+    toks = {}
+    for d, p in (("cuda", p_gpu), ("cpu", p_cpu)):
+        res = on[d].serve(scheduler="wave", requests=copy.deepcopy(reqs),
+                          params=p, max_batch=2, max_len=64)
+        toks[d] = res.tokens
+    check(bool((toks["cuda"] == toks["cpu"]).all()),
+          f"{cfg.name} wave tokens differ between card and CPU")
+    log(f"[{log_name}] {cfg.name} ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}), card vs CPU: prefill + 3 decode steps max |logit "
+        f"diff| {err:.3g} (|logit| up to {top:.3g}; atol {CROSS_ATOL}, rtol "
+        f"{CROSS_RTOL}) | card launches {launches['cuda']} | wave tokens "
+        f"equal ({int((toks['cpu'] >= 0).sum())})")
+    return {"max_abs_err": err, "max_abs_logit": top, "atol": CROSS_ATOL,
+            "rtol": CROSS_RTOL, "card_launches": launches["cuda"],
+            "wave_tokens_equal": int((toks["cpu"] >= 0).sum())}
 
 
 # ---------------------------------------------------------------- phase 5
@@ -918,8 +1193,13 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import ref as flash_ref
     from repro_torch.kernels.paged_attention import ops as paged_ops
     from repro_torch.kernels.paged_attention import ref as paged_ref
+    from repro_torch.kernels.mamba2 import ops as ssd_ops
+    from repro_torch.kernels.mamba2 import ref as ssd_ref
+    from repro_torch.kernels.rwkv6 import ops as wkv_ops
+    from repro_torch.kernels.rwkv6 import ref as wkv_ref
     from repro_torch.kernels.zsmask import ops as zs_ops
     from repro_torch.kernels.zsmask import ref as zs_ref
+    from repro_torch.models.mamba2 import dims as mamba2_dims
     from repro_torch.models.transformer import (Transformer, pack_params,
                                                 param_tree)
     from repro_torch.runtime.serving import PagePool, zipf_requests
@@ -1789,6 +2069,78 @@ def main() -> int:
         "s": time.perf_counter() - t0, "last": done}
     log(f"[cli] {report['cli_perleaf']['cmd']}: exit 0 in "
         f"{report['cli_perleaf']['s']:.1f} s | {done}")
+    del sess_b, sess_c, p_cpu, batch, batch8, batch10
+    torch.cuda.empty_cache()
+
+    # 11. the scans and flash at d_head 112, at the SSM/hybrid paths' shapes
+    rcfg, zcfg = get_config("rwkv6-7b"), get_config("zamba2-7b")
+    _, z_nh, z_P, z_N, _ = mamba2_dims(zcfg)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    kern["wkv"] = check_wkv(dev, gen, 4, 32, rcfg.n_heads,
+                            rcfg.rwkv_head_size, wkv_ops, wkv_ref)
+    kern["ssd"] = check_ssd(dev, gen, 4, 32, z_nh, z_P, z_N, ssd_ops,
+                            ssd_ref)
+    d112 = check_flash(zcfg, dev, gen, 4, 32, flash_ops, flash_ref, F)
+    kern["flash_attention"]["d112"] = d112
+    for name in ("wkv", "ssd"):
+        r = kern[name]
+        log(f"[kernel] {name}: max_abs_err {r['max_abs_err']:.3g} "
+            f"(cases {json.dumps(r['cases'])}) | kernel {r['ms']:.4f} ms "
+            f"(on the card {r['device_ms']:.4f}) | plain {r['plain_ms']:.4f} "
+            f"ms | library none | bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}) | {r['at']}")
+    log(f"[kernel] flash_attention d_head 112: max_abs_err "
+        f"{d112['max_abs_err']:.3g} | kernel {d112['ms']:.4f} ms | plain "
+        f"{d112['plain_ms']:.4f} ms | library {d112['library_ms']:.4f} ms | "
+        f"bound {d112['bound_ms']:.4f} ms ({d112['bound_by']}) | "
+        f"{d112['at']}")
+
+    # 12-13. rwkv6-7b and zamba2-7b at full width and depth
+    ssm_reqs = zipf_requests(8, 32000, min_len=8, max_len=48, max_new_low=8,
+                             max_new_high=24, seed=0)
+    g_z = zcfg.n_layers // zcfg.attn_every
+    report["rwkv6"] = serve_family(
+        Session, "rwkv6-7b", {}, {"wkv": rcfg.n_layers}, ssm_reqs, "rwkv6")
+    torch.cuda.empty_cache()
+    report["zamba2"] = serve_family(
+        Session, "zamba2-7b",
+        {"ssd": zcfg.n_layers, "flash_attention": g_z},
+        {"ssd": zcfg.n_layers, "flash_attention": g_z}, ssm_reqs, "zamba2")
+    torch.cuda.empty_cache()
+
+    # 14. narrow configs at the kernels' widths, card vs CPU
+    narrow_r = reduce_for_smoke(rcfg, n_layers=2, d_model=256, n_heads=4,
+                                n_kv_heads=4, d_head=64, rwkv_head_size=64,
+                                d_ff=512, vocab_size=4096)
+    narrow_z = reduce_for_smoke(zcfg, n_layers=4, d_model=256, n_heads=2,
+                                n_kv_heads=2, d_head=112, d_ff=512,
+                                vocab_size=4096, ssm_state=64,
+                                mamba_headdim=64, attn_every=2)
+    x_reqs = zipf_requests(4, 4096, min_len=8, max_len=24, max_new_low=4,
+                           max_new_high=8, seed=3)
+    report["ssm_cross_device"] = {
+        "rwkv6": family_cross_device(Session, narrow_r, x_reqs, "ssm-slice"),
+        "zamba2": family_cross_device(Session, narrow_z, x_reqs,
+                                      "ssm-slice")}
+
+    # 15. the serving CLI on the card, wave mode, both families
+    for arch in ("rwkv6-7b", "zamba2-7b"):
+        cli = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+               arch, "--scheduler", "wave"]
+        t0 = time.perf_counter()
+        r = subprocess.run(cli, cwd=ROOT, capture_output=True, text=True,
+                           timeout=600, env={**os.environ,
+                                             "PYTHONPATH": str(ROOT / "src")})
+        check(r.returncode == 0 and "device=cuda" in r.stdout
+              and "utilization" in r.stdout,
+              f"serving CLI {arch} failed ({r.returncode}):\n{r.stdout}\n"
+              f"{r.stderr}")
+        util = next(x for x in r.stdout.splitlines() if "utilization" in x)
+        report[f"cli_serve_{arch}"] = {"cmd": " ".join(cli[1:]),
+                                       "s": time.perf_counter() - t0,
+                                       "last": util}
+        log(f"[cli] {' '.join(cli[1:])}: exit 0 in "
+            f"{time.perf_counter() - t0:.1f} s | {util}")
 
     # the record
     launches = {"flash_attention": n_direct["flash_attention"],
@@ -1800,7 +2152,9 @@ def main() -> int:
                 "clip_mask": n_barrier["clip_mask"],
                 "zsmask": n_perleaf["zsmask"],
                 "per_example_sumsq": n_pe["per_example_sumsq"],
-                "clip_sum": n_pe["clip_sum"]}
+                "clip_sum": n_pe["clip_sum"],
+                "wkv": report["rwkv6"]["wave"]["launches"]["wkv"],
+                "ssd": report["zamba2"]["direct"]["launches"]["ssd"]}
     line = []
     for name, r in kern.items():
         k = dispatch.KERNELS[name]
@@ -1816,10 +2170,11 @@ def main() -> int:
                       "two_pass_floor_ms"):
             if extra in r:
                 entry[extra] = r[extra]
-        if "chunk16" in r:
-            entry["chunk16"] = {x: r["chunk16"][x] for x in (
-                "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
-                "bound_by", "at")}
+        for sub in ("chunk16", "d112"):
+            if sub in r:
+                entry[sub] = {x: r[sub][x] for x in (
+                    "max_abs_err", "ms", "plain_ms", "library_ms",
+                    "bound_ms", "bound_by", "at")}
         line.append(entry)
     report["total_s"] = time.perf_counter() - t_start
     log(f"[report] {json.dumps(report)}")

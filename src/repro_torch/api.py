@@ -15,10 +15,11 @@
     gen = sess.serve(batch_size=4, prompt_len=32, max_new_tokens=16,
                      params=result.state.params)
 
-Port of ``repro/api.py``: serving, and training on the fused and barrier
-DP tiers (``PrivacyConfig(sync_path="barrier")`` with
-``mesh=MeshConfig((n,), ("data",))`` runs the paper's per-silo masked
-contributions over n silos, one after another on the card).
+Port of ``repro/api.py``: serving (the dense, ssm and hybrid families), and
+training the dense family on the fused and barrier DP tiers
+(``PrivacyConfig(sync_path="barrier")`` with ``mesh=MeshConfig((n,),
+("data",))`` runs the paper's per-silo masked contributions over n silos,
+one after another on the card).
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a CUDA device and without ``device="cpu"`` they raise, never falling
 back to the CPU. On the CPU every kernel runs its plain PyTorch version.
@@ -39,7 +40,7 @@ from repro_torch.configs.base import (MeshConfig, ModelConfig,
 from repro_torch.core import prng
 from repro_torch.data.synthetic import synthetic_tokens
 from repro_torch.distributed import steps as steps_mod
-from repro_torch.models.registry import Model, build_model
+from repro_torch.models.registry import Model, build_model, training_unported
 from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
 
@@ -132,6 +133,7 @@ class Session:
         across from JAX) or random weights from the session's seed, moved
         into the packed master buffer; the noise state from
         ``fold_in(PRNGKey(seed), 0xD0)``, as in JAX."""
+        training_unported(self.cfg)
         gen = None
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(self.seed)
@@ -153,6 +155,7 @@ class Session:
         """A wired Trainer; ``next_batch`` defaults to a synthetic LM stream.
         ``silo_schedule`` (step -> bool sequence) pins each step's
         participation set."""
+        training_unported(self.cfg)
         tcfg = TrainerConfig(total_steps=total_steps,
                              checkpoint_dir=checkpoint_dir,
                              log_every=log_every,
@@ -250,7 +253,11 @@ class Session:
         ``tenant_weights`` sets the deficit-round-robin admission shares.
 
         ``params`` brings weights from outside (e.g. carried across from
-        JAX by ``models.convert.params_from_jax``); random otherwise."""
+        JAX by ``models.convert.params_from_jax``); random otherwise. In
+        direct mode the ssm family prefills recurrently (decode over the
+        prompt, as the JAX package does), so only the wave scheduler's
+        prefill runs its WKV scan; the hybrid family prefills the whole
+        prompt at once in both modes."""
         cfg = self.cfg
         if not cfg.causal:
             raise ValueError(f"{cfg.name} is encoder-only: no decode step")
@@ -280,7 +287,12 @@ class Session:
                                           prompt_len + max_new_tokens)
             _sync(dev)
             t0 = time.perf_counter()
-            logits = self.model.prefill(params, prompt, cache)
+            if cfg.family == "ssm":  # recurrent prefill: decode the prompt
+                for t in range(prompt_len):
+                    logits = self.model.decode_step(params,
+                                                    prompt[:, t:t + 1], cache)
+            else:
+                logits = self.model.prefill(params, prompt, cache)
             _sync(dev)
             prefill_s = time.perf_counter() - t0
 

@@ -25,7 +25,7 @@ _ARCH_MODULES: dict[str, str] = {
 }
 
 # the arch ids whose config module exists in this package
-PORTED: tuple[str, ...] = ("qwen2.5-3b",)
+PORTED: tuple[str, ...] = ("qwen2.5-3b", "rwkv6-7b", "zamba2-7b")
 
 
 def resolve_arch(arch: str) -> str:

@@ -1,9 +1,9 @@
 """Config dataclasses, the port's own copy of ``repro.configs.base``.
 
 Only what the ported paths read: ``ModelConfig`` and ``reduce_for_smoke``
-(the dense family), and the privacy, mesh, optimizer and run configs of the
-training path. The fields of the MoE, SSM and hybrid families and the shape
-configs come with the slices that use them.
+(the dense, SSM and hybrid families), and the privacy, mesh, optimizer and
+run configs of the training path. The fields of the MoE family and the
+shape configs come with the slices that use them.
 """
 from __future__ import annotations
 
@@ -33,6 +33,15 @@ class ModelConfig:
     # MoE (not ported yet; is_moe() reads it)
     n_experts: int = 0
     top_k: int = 0
+    # SSM / RWKV / Mamba2
+    ssm_state: int = 0
+    rwkv_head_size: int = 64
+    mamba_expand: int = 2
+    mamba_conv: int = 4
+    mamba_headdim: int = 64
+    # hybrid (zamba2): one *shared* attention block applied every
+    # `attn_every` mamba layers
+    attn_every: int = 0
     citation: str = ""
 
     @property
@@ -59,6 +68,10 @@ def reduce_for_smoke(cfg: ModelConfig, **overrides) -> ModelConfig:
         d_ff=128,
         vocab_size=256,
     )
+    if cfg.family in ("ssm", "hybrid"):
+        kw.update(ssm_state=16, rwkv_head_size=16, mamba_headdim=16)
+    if cfg.family == "hybrid":
+        kw.update(attn_every=2)
     kw.update(overrides)
     return dataclasses.replace(cfg, **kw)
 

@@ -89,8 +89,11 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
                      f"got {sorted(kinds)}")
 
 
-# head dims the attention kernels are instantiated for (csrc/*.cu)
+# head dims the paged attention kernels are instantiated for
+# (paged_attention/csrc/paged_attention.cu); the flash kernel also takes
+# zamba2's 112 (flash_attention/csrc/flash_attention.cu)
 HEAD_DIMS = (16, 32, 64, 128)
+FLASH_HEAD_DIMS = (16, 32, 64, 112, 128)
 
 
 def require(cond: bool, what: str) -> None:

@@ -33,7 +33,7 @@ __global__ void __launch_bounds__(FA_THREADS)
 flash_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                            const float* __restrict__ v, float* __restrict__ out, int Sq, int Sk,
                            int Hq, int Hkv, int causal, float sm_scale) {
-  constexpr int DL = (D + 31) / 32;  // output dims per lane (D < 32: lanes >= D idle)
+  constexpr int DL = (D + 31) / 32;  // output dims per lane (lanes past D idle)
   constexpr int QS = D + 1;  // padded row stride: conflict-free column reads
   const int q0 = blockIdx.x * FA_BQ, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
@@ -160,6 +160,8 @@ REPRO_API int flash_attention_fwd_f32(const float* q, const float* k, const floa
       return launch_flash<32>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, sm_scale, stream);
     case 64:
       return launch_flash<64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, sm_scale, stream);
+    case 112:  // zamba2-7b's shared block (103 KB of shared memory)
+      return launch_flash<112>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, sm_scale, stream);
     case 128:
       return launch_flash<128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, sm_scale, stream);
     default:

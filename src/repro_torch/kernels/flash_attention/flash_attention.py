@@ -16,8 +16,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.dispatch import (HEAD_DIMS, check_tensor, register,
-                                          require)
+from repro_torch.kernels.dispatch import (FLASH_HEAD_DIMS, check_tensor,
+                                          register, require)
 
 FLASH_ATTENTION = register(
     "flash_attention",
@@ -37,7 +37,7 @@ def flash_attention_cuda(q, k, v, causal: bool = True) -> torch.Tensor:
     Bk, Sk, Hkv, Dk = k.shape
     require(v.shape == k.shape, "k/v shapes differ")
     require(Bk == B and Dk == D, f"q {tuple(q.shape)} vs k {tuple(k.shape)}")
-    require(D in HEAD_DIMS, f"head dim {D} not in {HEAD_DIMS}")
+    require(D in FLASH_HEAD_DIMS, f"head dim {D} not in {FLASH_HEAD_DIMS}")
     require(Hq % Hkv == 0, f"Hq={Hq} not a multiple of Hkv={Hkv}")
     require(Sk > 0, "empty key sequence")
     out = torch.empty_like(q)

@@ -1,0 +1,64 @@
+"""Plain PyTorch versions of the Mamba-2 SSD scan (scalar decay per head):
+the sequential recurrence (``ssd_sequential``, the ground truth) and the
+masked chunked form (``ssd_chunked_ref``), ported from
+``repro/kernels/mamba2/ref.py`` (``ssd_sequential``, ``ssd_chunked_jnp``).
+
+Per token, per head (P x N state h):
+    h   <- e^{la_t} h + (dt_t x_t) B_t^T
+    y_t  = h C_t
+``D * x`` is added outside the scan, as in the JAX package.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def ssd_sequential(xh, dt, la, Bc, Cc, h0):
+    """xh (B, S, nh, P); dt, la (= A * dt) (B, S, nh); Bc, Cc (B, S, N);
+    h0 (B, nh, P, N). Returns (y (B, S, nh, P), h (B, nh, P, N))."""
+    h, ys = h0, []
+    for t in range(xh.shape[1]):
+        a = torch.exp(la[:, t])                                   # (B, nh)
+        upd = torch.einsum("bhp,bn->bhpn", xh[:, t] * dt[:, t][..., None],
+                           Bc[:, t])
+        h = a[..., None, None] * h + upd
+        ys.append(torch.einsum("bhpn,bn->bhp", h, Cc[:, t]))
+    return torch.stack(ys, 1), h
+
+
+def ssd_chunked_ref(xh, dt, la, Bc, Cc, h0, chunk: int = 64):
+    """Chunked SSD (arXiv:2405.21060 block decomposition): the masked
+    (C, C) decay tile Gamma per head, then the inter-chunk state scan.
+    ``S % chunk != 0`` runs the sequential recurrence, as in the JAX
+    package."""
+    B, S, nh, P = xh.shape
+    N = Bc.shape[-1]
+    C = min(chunk, S)
+    if S % C != 0:
+        return ssd_sequential(xh, dt, la, Bc, Cc, h0)
+    nc = S // C
+
+    def resh(t):  # (B, S, ...) -> (nc, B, C, ...)
+        return t.reshape((B, nc, C) + t.shape[2:]).transpose(0, 1)
+
+    xc, dtc, lac, Bcc, Ccc = resh(xh), resh(dt), resh(la), resh(Bc), resh(Cc)
+    tri = torch.tril(torch.ones(C, C, dtype=torch.bool,
+                                device=xh.device))[None, :, :, None]
+    h, ys = h0, []
+    for c in range(nc):
+        x_, dt_, la_, B_, C_ = xc[c], dtc[c], lac[c], Bcc[c], Ccc[c]
+        L = torch.cumsum(la_, dim=1)                              # (B, C, nh)
+        yin = torch.einsum("bcn,bhpn,bch->bchp", C_, h, torch.exp(L))
+        ratio = L[:, :, None, :] - L[:, None, :, :]
+        G = torch.exp(torch.where(tri, ratio,
+                                  torch.full_like(ratio, -torch.inf)))
+        scores = torch.einsum("btn,bsn,btsh->btsh", C_, B_, G)
+        xdt = x_ * dt_[..., None]
+        yintra = torch.einsum("btsh,bshp->bthp", scores, xdt)
+        Lend = L[:, -1:, :]
+        w_s = torch.exp(Lend - L)
+        h = torch.exp(Lend[:, 0, :, None, None]) * h + \
+            torch.einsum("bchp,bcn,bch->bhpn", xdt, B_, w_s)
+        ys.append(yin + yintra)
+    y = torch.stack(ys, 0).transpose(0, 1).reshape(B, S, nh, P)
+    return y, h

@@ -1,14 +1,16 @@
 """Where a serving step's time goes on the card: ``torch.profiler`` over the
-port's direct and continuous serving at qwen2.5-3b's published width.
+port's serving at an arch's published width (qwen2.5-3b by default).
 
-    python -m repro_torch.launch.profile_serve [--out FILE.json]
+    python -m repro_torch.launch.profile_serve [--arch ID] [--out FILE.json]
 
 The workloads are chip_smoke.py's: direct serve (batch 4, prompt 32, here 4
-new tokens) and 8 Zipf requests through 4 continuous slots, all 36 layers,
-fp32, random weights. For each mode it prints the wall time, the summed
-device time of every kernel (and the busy share it makes of the wall time),
-and the kernels and operators that take the most device time; ``--out``
-also writes the table as JSON. Needs a CUDA device.
+new tokens) and 8 Zipf requests through 4 slots, in continuous mode for the
+dense family and in wave mode for the ssm and hybrid families (which have
+no paged path), every layer, fp32, random weights. For each mode it prints
+the wall time, the summed device time of every kernel (and the busy share
+it makes of the wall time), and the kernels and operators that take the
+most device time; ``--out`` also writes the table as JSON. Needs a CUDA
+device.
 """
 from __future__ import annotations
 
@@ -55,25 +57,29 @@ def _window(fn, top: int) -> dict:
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2.5-3b")
     ap.add_argument("--out", default=None, help="also write the table here")
     args = ap.parse_args(argv)
 
-    cfg = get_config("qwen2.5-3b")
+    cfg = get_config(args.arch)
     sess = Session.from_config(cfg, seed=0)
     params = sess.init_params()
     reqs = zipf_requests(8, cfg.vocab_size, min_len=8, max_len=48,
                          max_new_low=8, max_new_high=24, seed=0)
-    direct = lambda: sess.serve(batch_size=4, prompt_len=32, max_new_tokens=4,
-                                params=params)
-    cont = lambda: sess.serve(scheduler="continuous",
-                              requests=copy.deepcopy(reqs), params=params,
-                              max_batch=4, page_size=16, prefill_chunk=16)
-    direct()  # warm-up: cuBLAS handles, the kernel build, allocator
-    cont()
-    report = {"card": torch.cuda.get_device_name(0), "n_layers": cfg.n_layers,
-              "direct": _window(direct, TOP),
-              "continuous": _window(cont, TOP)}
-    for mode in ("direct", "continuous"):
+    sched = "continuous" if sess.model.paged_step is not None else "wave"
+    runs = {
+        "direct": lambda: sess.serve(batch_size=4, prompt_len=32,
+                                     max_new_tokens=4, params=params),
+        sched: lambda: sess.serve(scheduler=sched,
+                                  requests=copy.deepcopy(reqs),
+                                  params=params, max_batch=4, page_size=16,
+                                  prefill_chunk=16)}
+    for fn in runs.values():  # warm-up: cuBLAS handles, the build, allocator
+        fn()
+    report = {"card": torch.cuda.get_device_name(0), "arch": cfg.name,
+              "n_layers": cfg.n_layers,
+              **{mode: _window(fn, TOP) for mode, fn in runs.items()}}
+    for mode in runs:
         w = report[mode]
         print(f"[{mode}] wall {w['wall_ms']:.2f} ms | device busy "
               f"{w['device_busy_ms']:.2f} ms ({w['busy_share']:.1%})")

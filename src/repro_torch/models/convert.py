@@ -1,12 +1,15 @@
 """Carry weights across from the JAX package, and back.
 
-``params_from_jax`` takes the JAX dense-transformer parameter tree with its
-leaves as numpy arrays (``jax.tree.map(np.asarray, params)``) and fills the
-port's ``Transformer``; ``params_to_numpy`` gives the port's weights as that
-same tree. The JAX tree stacks every layer on a leading axis
-(its init vmaps over layer keys, ``transformer.py:65``); the port keeps one
-``Block`` per layer, so layer ``i`` takes slice ``[i]`` of every stacked
-leaf. Matrices are ``(d_in, d_out)`` in both packages: no transpose.
+``params_from_jax`` takes a JAX parameter tree with its leaves as numpy
+arrays (``jax.tree.map(np.asarray, params)``) and fills the port's module
+of the config's family: ``Transformer`` (dense), ``RWKVStack`` (ssm) or
+``Hybrid`` (hybrid). Every port parameter is named by its JAX path
+(``layers.3.attn.wq`` is ``tree['layers']['attn']['wq'][3]``): the JAX tree
+stacks every layer on a leading axis (its inits vmap over layer keys), the
+port keeps one module per layer in a ``ModuleList`` (``layers``,
+``mamba_layers``), so layer ``i`` takes slice ``[i]`` of every stacked
+leaf. ``params_to_numpy`` gives a ``Transformer``'s weights as the JAX
+tree. Matrices are ``(d_in, d_out)`` in both packages: no transpose.
 """
 from __future__ import annotations
 
@@ -14,7 +17,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.hybrid import Hybrid
+from repro_torch.models.rwkv_stack import RWKVStack
 from repro_torch.models.transformer import Transformer, param_tree
+
+FAMILIES = {"dense": Transformer, "ssm": RWKVStack, "hybrid": Hybrid}
 
 
 def _copy(dst: torch.Tensor, src, name: str) -> None:
@@ -25,29 +32,43 @@ def _copy(dst: torch.Tensor, src, name: str) -> None:
     dst.copy_(torch.from_numpy(np.array(src, copy=True)))
 
 
+def _jax_leaf(np_tree: dict, name: str):
+    """The JAX leaf of a port parameter name; a stacked leaf's slice for a
+    ``ModuleList`` entry (a numeric path part)."""
+    node, index = np_tree, None
+    for part in name.split("."):
+        if part.isdigit():
+            index = int(part)
+        else:
+            node = node[part]
+    return node if index is None else node[index]
+
+
 def params_from_jax(np_tree: dict, cfg: ModelConfig, device,
-                    dtype=torch.float32) -> Transformer:
-    """The port's ``Transformer`` holding the JAX tree's weights."""
-    model = Transformer(cfg, device, dtype)
+                    dtype=torch.float32):
+    """The port's module of ``cfg.family`` holding the JAX tree's weights."""
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet; see ROADMAP.md queue "
+            f"1, 'Other model families'")
+    model = FAMILIES[cfg.family](cfg, device, dtype)
     with torch.no_grad():
-        _copy(model.embed, np_tree["embed"], "embed")
-        _copy(model.ln_f.scale, np_tree["ln_f"]["scale"], "ln_f.scale")
-        if not cfg.tie_embeddings:
-            _copy(model.lm_head, np_tree["lm_head"], "lm_head")
-        L = np_tree["layers"]
-        for i, blk in enumerate(model.layers):
-            _copy(blk.ln1.scale, L["ln1"]["scale"][i], f"layers.{i}.ln1")
-            _copy(blk.ln2.scale, L["ln2"]["scale"][i], f"layers.{i}.ln2")
-            names = ["wq", "wk", "wv", "wo"]
-            if cfg.qkv_bias:
-                names += ["bq", "bk", "bv"]
-            for n in names:
-                _copy(getattr(blk.attn, n), L["attn"][n][i],
-                      f"layers.{i}.attn.{n}")
-            for n in ("w_gate", "w_up", "w_down"):
-                _copy(getattr(blk.ffn, n), L["ffn"][n][i],
-                      f"layers.{i}.ffn.{n}")
+        for name, p in model.named_parameters():
+            _copy(p, _jax_leaf(np_tree, name), name)
+    n_jax = sum(_numels(np_tree))
+    n_port = sum(p.numel() for p in model.parameters())
+    if n_jax != n_port:
+        raise ValueError(f"the JAX tree holds {n_jax} weights, the port's "
+                         f"{type(model).__name__} {n_port}")
     return model
+
+
+def _numels(node):
+    if isinstance(node, dict):
+        for v in node.values():
+            yield from _numels(v)
+    else:
+        yield int(np.size(node))
 
 
 def params_to_numpy(model: Transformer) -> dict:

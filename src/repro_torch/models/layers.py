@@ -1,5 +1,5 @@
-"""Core layer primitives: dense init, RMSNorm, RoPE, SwiGLU and the LM
-losses.
+"""Core layer primitives: dense init, RMSNorm, LayerNorm, RoPE, SwiGLU and
+the LM losses.
 
 Port of ``repro/models/layers.py``. Weights keep the JAX package's
 ``x @ W`` layout, ``(d_in, d_out)``, so weights carried across need no
@@ -45,6 +45,26 @@ class RMSNorm(nn.Module):
     def __init__(self, d: int, device, dtype=torch.float32):
         super().__init__()
         self.scale = _param(torch.ones(d, device=device, dtype=dtype))
+
+
+class LayerNorm(nn.Module):
+    """Scale (ones) and bias (zeros): ``layernorm_init`` of the JAX
+    package."""
+
+    def __init__(self, d: int, device, dtype=torch.float32):
+        super().__init__()
+        self.scale = _param(torch.ones(d, device=device, dtype=dtype))
+        self.bias = _param(torch.zeros(d, device=device, dtype=dtype))
+
+
+def layernorm(p: LayerNorm, x: torch.Tensor, eps: float = 1e-5):
+    """LayerNorm in fp32, eps 1e-5, population variance (``layers.py:36-42``
+    of the JAX package); returns x's dtype."""
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, correction=0)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * p.scale.float() + p.bias.float()).to(x.dtype)
 
 
 def rope_freqs(d_rot: int, theta: float, device=None) -> torch.Tensor:

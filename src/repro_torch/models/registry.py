@@ -1,22 +1,28 @@
 """``build_model(cfg)`` returns a ``Model`` whose functions close over the
 config, the device and the compute dtype. Port of ``repro/models/registry.py``
-for the dense family; other families raise.
+for the dense, ssm (RWKV-6) and hybrid (zamba2) families; others raise.
 
   loss(params, {'tokens', 'labels'})       -> mean next-token loss (scalar)
   prefill(params, tokens (B, S), cache)    -> logits (B, V); cache in place
   decode_step(params, tokens (B, 1), cache) -> logits (B, V); cache in place
   paged_step(params, tokens (B, C), pool, tables, q_start, n_valid,
              logits_mode="last") -> (logits, pool); pool in place
+
+The ssm and hybrid families serve over a recurrent state (their ``cache``):
+``prefill`` is ``decode_step`` over the whole prompt, as in the JAX
+package, which runs the WKV or SSD scan. They have no paged path
+(``init_paged_cache`` and ``paged_step`` are None, so continuous batching
+refuses them) and no training route yet (``loss`` raises).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import hybrid, rwkv_stack, transformer
 
 
 @dataclass(frozen=True)
@@ -28,19 +34,48 @@ class Model:
     init_cache: Callable[..., Any]
     prefill: Callable[..., Any]
     decode_step: Callable[..., Any]
-    init_paged_cache: Callable[..., Any]
-    paged_step: Callable[..., Any]
+    init_paged_cache: Optional[Callable[..., Any]] = None
+    paged_step: Optional[Callable[..., Any]] = None
     compute_dtype: torch.dtype = torch.float32
+
+
+# the scan each recurrent family's training would differentiate
+SCANS = {"ssm": "WKV", "hybrid": "SSD"}
+
+
+def training_unported(cfg: ModelConfig) -> None:
+    """Raise for a family whose training route is not ported yet."""
+    if cfg.family in SCANS:
+        raise NotImplementedError(
+            f"training the {cfg.family} family ({cfg.name}) is not ported to "
+            f"repro_torch yet: the {SCANS[cfg.family]} scan has no backward "
+            f"in the JAX package (ROADMAP.md queue 1, item 12); it serves")
 
 
 def build_model(cfg: ModelConfig, device, param_dtype=torch.float32,
                 compute_dtype=torch.float32) -> Model:
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense only); see "
-            f"ROADMAP.md queue 1, 'Other model families'")
     device = torch.device(device)
     cd = compute_dtype
+    if cfg.family in ("ssm", "hybrid"):
+        mod = rwkv_stack if cfg.family == "ssm" else hybrid
+
+        def loss(p, batch):
+            training_unported(cfg)
+
+        def init_cache(batch, max_len):
+            if cfg.family == "ssm":
+                return rwkv_stack.init_state(cfg, batch, device, param_dtype)
+            return hybrid.init_state(cfg, batch, max_len, device, cd)
+
+        step = lambda p, toks, c: mod.decode_step(p, cfg, toks, c, cd)
+        return Model(cfg=cfg, device=device,
+                     init=lambda gen: mod.init(gen, cfg, device, param_dtype),
+                     loss=loss, init_cache=init_cache, prefill=step,
+                     decode_step=step, compute_dtype=cd)
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (dense, ssm and "
+            f"hybrid only); see ROADMAP.md queue 1, 'Other model families'")
 
     def paged_step(p, tokens, pool, tables, q_start, n_valid,
                    logits_mode="last"):

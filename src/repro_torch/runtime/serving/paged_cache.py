@@ -52,6 +52,10 @@ class PagePool:
     def __init__(self, model, *, n_slots: int, n_pages: int, page_size: int,
                  pages_per_slot: int, draft_model=None,
                  prefix_index: bool = False):
+        if model.init_paged_cache is None:
+            raise ValueError(
+                f"{model.cfg.name} ({model.cfg.family}) has no paged serving "
+                f"path; continuous batching needs a transformer-family model")
         self.device = model.device
         self.page_size = page_size
         self.n_pages = n_pages

@@ -311,8 +311,13 @@ def runs(tmp_path_factory):
             inp[name + "_prev_active"] = np.asarray(primed["prev_active"])
     d = tmp_path_factory.mktemp("barrier")
     np.savez(d / "in.npz", **inp)
+    # one thread per process (torch, MKL, XLA's Eigen pool): the suite runs
+    # several files at once, and wall-clock tests share the cores
     env = {**os.environ, "JAX_PLATFORMS": "cpu",
-           "XLA_FLAGS": "--xla_force_host_platform_device_count=4",
+           "XLA_FLAGS": "--xla_force_host_platform_device_count=4 "
+                        "--xla_cpu_multi_thread_eigen=false "
+                        "intra_op_parallelism_threads=1",
+           "OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1",
            "PYTHONPATH": str(ROOT / "src")}
     r = subprocess.run([sys.executable, "-c", JAX_SCRIPT, str(d / "in.npz"),
                         str(d / "out.npz")], capture_output=True, text=True,

@@ -11,8 +11,10 @@ flag combination and in place, ``zsmask`` at counter offsets past 2**31 and
 wrapping; 64-bit offsets past 2**31 elements), the per-example kernels
 (``per_example_sumsq`` and ``clip_sum``: within their stated tolerance of
 the plain versions, bit-identical across launches, the clipped sum
-bit-equal to the plain fold at the kernel's norms), and the smoke-size
-serving slice (plain and speculative), the fused and barrier training
+bit-equal to the plain fold at the kernel's norms), the two scans (``wkv``
+and ``ssd`` at every instantiated width, ragged lengths, strong decay) and
+flash attention at d_head 112, and the smoke-size serving slice (plain and
+speculative; the ssm and hybrid families), the fused and barrier training
 slices (packed and perleaf) and per-example clipping on the card against
 the CPU.
 """
@@ -32,10 +34,16 @@ from repro_torch.kernels.dp_fused import ref as noise_ref
 from repro_torch.kernels.dp_fused.dp_fused import clip_mask_cuda, clip_sum_cuda
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention import ref as flash_ref
+from repro_torch.kernels.mamba2 import ops as ssd_ops
+from repro_torch.kernels.mamba2 import ref as ssd_ref
+from repro_torch.kernels.mamba2.mamba2 import ssd_cuda
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.kernels.paged_attention import ref as paged_ref
 from repro_torch.kernels.paged_attention.paged_attention import \
     paged_rollback_cuda
+from repro_torch.kernels.rwkv6 import ops as wkv_ops
+from repro_torch.kernels.rwkv6 import ref as wkv_ref
+from repro_torch.kernels.rwkv6.rwkv6 import wkv_cuda
 from repro_torch.kernels.zsmask import ops as zs_ops
 from repro_torch.kernels.zsmask import ref as zs_ref
 from repro_torch.kernels.zsmask.zsmask import zsmask_cuda
@@ -48,6 +56,9 @@ ATOL = RTOL = 1e-5
 SUMSQ_RTOL = 1e-6
 # the smoke-size slice, card vs CPU: fp32 products in other orders
 SLICE_ATOL = SLICE_RTOL = 1e-4
+# the scans against their plain chunked versions: the JAX package's bounds
+# for its kernels against the recurrence (tests/test_kernels.py)
+WKV_ATOL, WKV_STRONG_ATOL, SSD_ATOL = 2e-5, 1e-4, 5e-5
 
 
 @pytest.fixture
@@ -159,6 +170,8 @@ def test_paged_rollback_kernel_bit_equal_and_isolated(cuda, H, D, row, start,
     (1, 257, 8, 8, 64, True),
     (2, 13, 4, 2, 16, True),       # smoke head dim
     (2, 70, 4, 1, 32, False),
+    (4, 32, 32, 32, 112, True),    # zamba2-7b's shared block
+    (1, 77, 4, 2, 112, True),
 ])
 def test_flash_kernel_matches_plain(cuda, B, S, Hq, Hkv, D, causal):
     g = torch.Generator(device=cuda).manual_seed(2)
@@ -616,3 +629,100 @@ def test_smoke_perleaf_barrier_training_on_card_matches_cpu(cuda):
     diff = (a.state.opt_state["master"].cpu()
             - b.state.opt_state["master"]).abs()
     assert diff.max() <= 2 * 2 * 1e-3  # at most a sign flip of two steps
+
+
+def _wkv_inputs(dev, B, S, H, N, w=None, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = lambda *s: torch.randn(*s, device=dev, generator=g)
+    r, k, v = n(B, S, H, N) * 0.5, n(B, S, H, N) * 0.5, n(B, S, H, N) * 0.5
+    w = torch.sigmoid(n(B, S, H, N)) * 0.5 + 0.45 if w is None \
+        else torch.full((B, S, H, N), w, device=dev)
+    return r, k, v, w, n(H, N) * 0.3, n(B, H, N, N) * 0.1
+
+
+@pytest.mark.parametrize("B,S,H,N,w,atol", [
+    (4, 32, 64, 64, None, WKV_ATOL),   # rwkv6-7b's prefill
+    (2, 23, 4, 64, None, WKV_ATOL),    # ragged: the plain version recurs
+    (3, 1, 2, 32, None, WKV_ATOL),
+    (2, 70, 3, 16, None, WKV_ATOL),    # past one staged pass of tokens
+    (1, 64, 2, 64, 0.05, WKV_STRONG_ATOL),
+])
+def test_wkv_kernel_matches_plain(cuda, B, S, H, N, w, atol):
+    xs = _wkv_inputs(cuda, B, S, H, N, w)
+    n = dispatch.KERNELS["wkv"].launches
+    o, st = wkv_ops.wkv_chunked(*xs)
+    po, pst = wkv_ref.wkv_chunked_ref(*xs)
+    torch.cuda.synchronize()
+    assert dispatch.KERNELS["wkv"].launches == n + 1
+    torch.testing.assert_close(o, po, atol=atol, rtol=0)
+    torch.testing.assert_close(st, pst, atol=atol, rtol=0)
+
+
+def _ssd_inputs(dev, B, S, nh, P, N, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = lambda *s: torch.randn(*s, device=dev, generator=g)
+    return (n(B, S, nh, P) * 0.5, torch.nn.functional.softplus(n(B, S, nh)),
+            -n(B, S, nh).abs() * 0.5, n(B, S, N) * 0.5, n(B, S, N) * 0.5,
+            n(B, nh, P, N) * 0.1)
+
+
+@pytest.mark.parametrize("B,S,nh,P,N", [
+    (4, 32, 112, 64, 64),   # zamba2-7b's prefill
+    (2, 23, 8, 64, 64),     # ragged: the plain version recurs
+    (2, 70, 8, 16, 16),     # the smoke width, past one staged pass
+    (1, 5, 3, 16, 16),
+])
+def test_ssd_kernel_matches_plain(cuda, B, S, nh, P, N):
+    xs = _ssd_inputs(cuda, B, S, nh, P, N)
+    n = dispatch.KERNELS["ssd"].launches
+    y, h = ssd_ops.ssd_chunked(*xs)
+    py, ph = ssd_ref.ssd_chunked_ref(*xs)
+    torch.cuda.synchronize()
+    assert dispatch.KERNELS["ssd"].launches == n + 1
+    torch.testing.assert_close(y, py, atol=SSD_ATOL, rtol=0)
+    torch.testing.assert_close(h, ph, atol=SSD_ATOL, rtol=0)
+
+
+def test_scan_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    xs = _wkv_inputs(cuda, 1, 4, 2, 8)
+    with pytest.raises(ValueError, match="head size 8"):
+        wkv_cuda(*xs)
+    xs = _wkv_inputs(cuda, 1, 4, 2, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        wkv_cuda(xs[0].transpose(1, 2).contiguous().transpose(1, 2),
+                 *xs[1:])
+    ys = _ssd_inputs(cuda, 1, 4, 2, 16, 64)
+    with pytest.raises(ValueError, match=r"\(P, N\) = \(16, 64\)"):
+        ssd_cuda(*ys)
+    ys = _ssd_inputs(cuda, 1, 4, 2, 16, 16)
+    with pytest.raises(ValueError, match="dtype"):
+        ssd_cuda(ys[0].double(), *ys[1:])
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-7b"])
+def test_smoke_ssm_serving_on_card_matches_cpu(cuda, arch):
+    """The ssm and hybrid smoke configs served on the card (kernels) and on
+    the CPU (plain versions) from the same weights: direct and wave give
+    the same tokens, logits within tolerance, and the wave prefill ran the
+    family's scan once a layer a wave."""
+    gpu = Session.from_config(arch)
+    cpu = Session.from_config(arch, device="cpu")
+    p_gpu = gpu.init_params()
+    p_cpu = copy.deepcopy(p_gpu).to("cpu")
+    prompt = np.random.default_rng(0).integers(0, gpu.cfg.vocab_size, (3, 12))
+    a = gpu.serve(prompt=prompt, params=p_gpu, max_new_tokens=5)
+    b = cpu.serve(prompt=prompt, params=p_cpu, max_new_tokens=5)
+    np.testing.assert_array_equal(a.tokens, b.tokens)
+    torch.testing.assert_close(a.logits.cpu(), b.logits, atol=SLICE_ATOL,
+                               rtol=SLICE_RTOL)
+    reqs = zipf_requests(6, gpu.cfg.vocab_size, min_len=3, max_len=20,
+                         max_new_low=2, max_new_high=6, seed=1)
+    dispatch.reset_launches()
+    wa = gpu.serve(scheduler="wave", requests=copy.deepcopy(reqs),
+                   params=p_gpu, max_batch=2, max_len=32)
+    counts = dispatch.launch_counts()
+    wb = cpu.serve(scheduler="wave", requests=copy.deepcopy(reqs),
+                   params=p_cpu, max_batch=2, max_len=32)
+    np.testing.assert_array_equal(wa.tokens, wb.tokens)
+    scan = "wkv" if arch == "rwkv6-7b" else "ssd"
+    assert counts[scan] == gpu.cfg.n_layers * wa.stats.waves

@@ -21,6 +21,17 @@ from repro_torch.kernels import dispatch
 from repro_torch.kernels.dp_clip import ops as clip_ops
 from repro_torch.kernels.dp_fused import ops as noise_ops
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Smoke-size work gains nothing from many intra-op threads, and the
+    suite runs several test files at once: one thread, restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CLIP_ATOL = 2e-6
 NOISE_ATOL = 3e-6
 KX, KP = (2705940334, 2639757084), (4086990474, 1067026239)

@@ -15,6 +15,17 @@ from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.flash_attention.flash_attention import \
     FLASH_ATTENTION
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Smoke-size work gains nothing from many intra-op threads, and the
+    suite runs several test files at once: one thread, restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # fp32 on both sides, sums in different orders (materialized softmax vs the
 # Pallas online softmax; measured max |diff| over these cases: 5.4e-7)
 ATOL = RTOL = 1e-5

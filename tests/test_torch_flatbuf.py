@@ -6,6 +6,7 @@ by ``pack_params``."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro.configs import get_smoke_config as jax_smoke_config
@@ -15,6 +16,17 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.core import flatbuf
 from repro_torch.models import transformer
 from repro_torch.models.convert import params_from_jax, params_to_numpy
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Smoke-size work gains nothing from many intra-op threads, and the
+    suite runs several test files at once: one thread, restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 ARCH = "qwen2.5-3b"
 

@@ -22,7 +22,7 @@ leaked = sorted(m for m in sys.modules
                 or m == "repro" or m.startswith("repro."))
 print(len(names), leaked)
 assert not leaked, leaked
-assert len(names) >= 65, names
+assert len(names) >= 79, names
 # the training slices' modules are among those imported
 for name in ("core.prng", "core.flatbuf", "core.clipping", "core.barrier",
              "core.noise_correction", "core.dp_pipeline",
@@ -35,13 +35,19 @@ for name in ("core.prng", "core.flatbuf", "core.clipping", "core.barrier",
              # the per-example and per-leaf slice
              "core.masking", "kernels.dispatch", "kernels.zsmask.ref",
              "kernels.zsmask.zsmask", "kernels.zsmask.ops",
-             "kernels.dp_clip.dp_clip", "kernels.dp_clip.ref"):
+             "kernels.dp_clip.dp_clip", "kernels.dp_clip.ref",
+             # the ssm and hybrid serving slice
+             "configs.rwkv6_7b", "configs.zamba2_7b", "kernels.rwkv6.ref",
+             "kernels.rwkv6.rwkv6", "kernels.rwkv6.ops", "kernels.mamba2.ref",
+             "kernels.mamba2.mamba2", "kernels.mamba2.ops", "models.rwkv6",
+             "models.rwkv_stack", "models.mamba2", "models.hybrid"):
     assert "repro_torch." + name in names, name
 """
 
 
 def test_port_imports_neither_jax_nor_repro():
-    env = {**os.environ, "PYTHONPATH": f"{ROOT / 'src'}:{ROOT}"}
+    env = {**os.environ, "PYTHONPATH": f"{ROOT / 'src'}:{ROOT}",
+           "OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
     res = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr

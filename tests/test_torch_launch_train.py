@@ -86,7 +86,10 @@ def test_cli_without_device_needs_cuda(monkeypatch):
 
 def test_cli_runs_as_a_module():
     """The command a user types, in a fresh interpreter."""
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    # one thread (torch, MKL): the suite runs several files at once, and
+    # wall-clock tests share the cores
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
     r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
                         "--device", "cpu", "--sync-path", "barrier",
                         "--silos", "4", "--steps", "2"], cwd=ROOT, env=env,

@@ -9,6 +9,17 @@ import torch
 from repro.models import layers as jl
 from repro_torch.models import layers as tl
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Smoke-size work gains nothing from many intra-op threads, and the
+    suite runs several test files at once: one thread, restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # fp32 on both sides; transcendental and reduction order differ (measured
 # max |diff|: rmsnorm 9.5e-7 on inputs of scale 3, rope 2.4e-7, swiglu
 # 1.2e-7)

@@ -20,6 +20,17 @@ from repro_torch.configs.base import OptimizerConfig
 from repro_torch.optim import optimizers as topt
 from repro_torch.optim import schedules as tsched
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Smoke-size work gains nothing from many intra-op threads, and the
+    suite runs several test files at once: one thread, restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ATOL = 1e-6
 
 

@@ -16,6 +16,17 @@ from repro_torch.kernels.paged_attention import ops, ref
 from repro_torch.kernels.paged_attention.paged_attention import (
     PAGED_ATTENTION, PAGED_RESET, paged_attention_cuda)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Smoke-size work gains nothing from many intra-op threads, and the
+    suite runs several test files at once: one thread, restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # fp32 on both sides; the plain version's materialized softmax and the
 # Pallas online softmax sum in different orders (measured max |diff| over
 # the five cases: 4.8e-7), so the bound is fp32 rounding with headroom

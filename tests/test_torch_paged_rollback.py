@@ -16,6 +16,17 @@ from repro_torch.kernels.paged_attention import ops
 from repro_torch.kernels.paged_attention.paged_attention import (
     PAGED_ROLLBACK, paged_rollback_cuda)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Smoke-size work gains nothing from many intra-op threads, and the
+    suite runs several test files at once: one thread, restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 L, N, P, H, D = 2, 8, 4, 2, 8
 ROW = np.array([5, 2, 7, 0], np.int32)  # a slot's four distinct pages
 

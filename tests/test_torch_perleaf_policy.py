@@ -354,8 +354,13 @@ def barrier_run(weights, tmp_path_factory):
     d = tmp_path_factory.mktemp("perleaf")
     np.savez(d / "in.npz", prev_key=np.asarray(PREV_KEY, np.uint32),
              **_flat_weights(weights), **batch)
+    # one thread per process (torch, MKL, XLA's Eigen pool): the suite runs
+    # several files at once, and wall-clock tests share the cores
     env = {**os.environ, "JAX_PLATFORMS": "cpu",
-           "XLA_FLAGS": "--xla_force_host_platform_device_count=4",
+           "XLA_FLAGS": "--xla_force_host_platform_device_count=4 "
+                        "--xla_cpu_multi_thread_eigen=false "
+                        "intra_op_parallelism_threads=1",
+           "OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1",
            "PYTHONPATH": str(ROOT / "src")}
     r = subprocess.run([sys.executable, "-c", JAX_SCRIPT, str(d / "in.npz"),
                         str(d / "out.npz")], capture_output=True, text=True,

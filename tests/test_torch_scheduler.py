@@ -8,6 +8,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_smoke_config as jax_smoke_config
 from repro.models.registry import build_model as jax_build_model
@@ -20,6 +21,17 @@ from repro_torch.models.convert import params_from_jax
 from repro_torch.models.registry import build_model
 from repro_torch.runtime.serving import (ContinuousServer, Request,
                                          shared_prefix_requests)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Smoke-size work gains nothing from many intra-op threads, and the
+    suite runs several test files at once: one thread, restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 ARCH = "qwen2.5-3b"
 

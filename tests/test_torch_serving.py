@@ -26,6 +26,17 @@ from repro_torch.models.registry import build_model
 from repro_torch.runtime.serving import (ContinuousServer, PagePool, Request,
                                          zipf_requests)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Smoke-size work gains nothing from many intra-op threads, and the
+    suite runs several test files at once: one thread, restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # fp32 in both packages at smoke width; logits (magnitude up to about 4)
 # differ only by summation order (measured max |diff|: direct 2.5e-6,
 # continuous trace 4.1e-6)
@@ -66,7 +77,7 @@ def test_smoke_config_matches_jax():
 def test_unported_arch_raises_clearly():
     assert resolve_arch("Qwen2.5_3B") == ARCH
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_smoke_config("rwkv6-7b")
+        get_smoke_config("phi3.5-moe-42b-a6.6b")
     with pytest.raises(KeyError, match="unknown arch"):
         get_smoke_config("no-such-model")
 

@@ -20,6 +20,17 @@ from repro.kernels.zsmask import threefry as jtf
 from repro_torch.core import barrier, prng
 from repro_torch.kernels.zsmask import threefry as ttf
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Smoke-size work gains nothing from many intra-op threads, and the
+    suite runs several test files at once: one thread, restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 NORMAL_ULP = 4       # normal_pair: measured max 2 ulp (log's last bit)
 ERFINV_ATOL = 2e-6   # jax.random.normal vs torch.erfinv: measured 4.8e-7
 

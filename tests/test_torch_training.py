@@ -40,6 +40,17 @@ from repro_torch.kernels import dispatch
 from repro_torch.models import transformer
 from repro_torch.models.convert import params_from_jax, params_to_numpy
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Smoke-size work gains nothing from many intra-op threads, and the
+    suite runs several test files at once: one thread, restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARCH = "qwen2.5-3b"
 QUICKSTART = dict(enabled=True, sigma=0.3, clip_bound=1.0, dynamic_clip=True,
                   noise_lambda=0.7, n_silos=4)
