@@ -18,7 +18,14 @@ Phases (any failed check raises, and the script exits non-zero):
   2. the kernel build (nvcc, sm_90a) into ``build/``, with its time;
   3. each kernel against its plain version on the card at the main path's
      shapes, timed beside the plain version and one PyTorch call for the
-     same function (a yardstick only: the port never calls it);
+     same function (a yardstick only: the port never calls it); paged
+     attention at C 1 (decode), 4 (a speculative verify) and 16 (a prefill
+     chunk) from q_starts {0, S/3, S - C, -1}, with the wrapper's split
+     plan logged (read from its plan(), not measured); every attention row
+     and its SDPA yardstick timed both as calls (``ms``, host-clocked:
+     back-to-back calls between CUDA events, so the longer of the host's
+     enqueue and the card's work) and on the card alone (``device_ms``: 50
+     calls in one CUDA graph);
   4. qwen2.5-3b, all 36 layers, fp32, random weights from a seed: direct
      serve (batch 4, prompt 32, 16 new tokens), then 8 Zipf requests through
      4 slots in wave and continuous mode (page 16, chunk 16), and twice more
@@ -277,6 +284,13 @@ def paged_work(q, tables, q_start, P, Hkv):
 
 
 def check_paged_attention(cfg, dev, gen, B, nP, P, C, ops, ref, F):
+    """Paged attention at C new tokens a slot (1: decode, 4: a speculative
+    verify at spec_k 4, 16: a prefill chunk) from q_starts {0, S/3, S - C,
+    -1} (the slots' lengths): held to the plain version, timed as calls
+    (``ms``, host-clocked: the wrapper's enqueue when it is the longer) and
+    on the card alone (``device_ms``), beside SDPA timed both ways."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.paged_attention.paged_attention import plan
     S = nP * P
     # one inactive slot (q_start -1) and one full slot (ends at S - 1)
     q_start = [0, S // 3, S - C, -1][:B]
@@ -297,16 +311,42 @@ def check_paged_attention(cfg, dev, gen, B, nP, P, C, ops, ref, F):
     mask = (torch.arange(S, device=dev)[None, None] <= qpos[:, :, None])[:, None]
     nbytes, flops = paged_work(q, tables.cpu(), qs.cpu(), P, Hkv)
     bms, by = bound(nbytes, flops)
+    GC = Hq // Hkv * C
+    rows, splits = plan(B, Hkv, GC, nP, P, _build.sm_count(dev))
+    blocks = B * Hkv * -(-GC // rows) * splits
+    call = lambda: ops.paged_attention(q, kp, vp, tables, qs)  # noqa: E731
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kg, vg, attn_mask=mask, enable_gqa=True)
     return {
         "max_abs_err": err,
-        "ms": cuda_ms(lambda: ops.paged_attention(q, kp, vp, tables, qs)),
+        "ms": cuda_ms(call),
+        "device_ms": graph_ms(call),
         "plain_ms": cuda_ms(lambda: ref.paged_attention_ref(q, kp, vp, tables,
                                                             qs)),
-        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kg, vg, attn_mask=mask, enable_gqa=True)),
+        "library_ms": cuda_ms(sdpa),
+        "library_device_ms": graph_ms(sdpa),
         "bound_ms": bms, "bound_by": by,
-        "at": f"B={B} C={C} Hq={Hq} Hkv={Hkv} D={D} P={P} nP={nP} fp32",
+        # the wrapper's own plan for this call, read from plan(), not
+        # measured: the log line carries it, the kernels line does not
+        "plan": {"splits": splits, "row_tile": rows, "blocks": blocks},
+        "at": f"B={B} C={C} Hq={Hq} Hkv={Hkv} D={D} P={P} nP={nP} "
+              f"q_start={q_start} fp32",
     }
+
+
+def log_attention(name, r) -> None:
+    """One attention row: the kernel and SDPA, each timed as calls
+    (host-clocked: back-to-back calls between CUDA events, so the longer of
+    the host's enqueue and the card's work) and on the card alone (50
+    calls in one CUDA graph); compare like with like."""
+    pl = r.get("plan")
+    grid = (f" | the wrapper's plan: {pl['splits']} splits, {pl['blocks']} "
+            f"blocks of {pl['row_tile']} rows" if pl else "")
+    log(f"[kernel] {name}: max_abs_err {r['max_abs_err']:.3g} | kernel "
+        f"{r['ms']:.4f} ms (on the card {r['device_ms']:.4f}) | SDPA "
+        f"{r['library_ms']:.4f} ms (on the card "
+        f"{r['library_device_ms']:.4f}) | plain {r['plain_ms']:.4f} ms | "
+        f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}){grid} | {r['at']}")
 
 
 def check_paged_reset(cfg, dev, gen, L, N, P, width, fresh_n, ops, ref):
@@ -429,12 +469,16 @@ def check_flash(cfg, dev, gen, B, S, ops, ref, F):
     pairs = S * (S + 1) // 2
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * 4
     bms, by = bound(nbytes, 4 * D * Hq * B * pairs)
+    call = lambda: ops.flash_attention(q, k, v, causal=True)  # noqa: E731
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=True, enable_gqa=True)
     return {
         "max_abs_err": err,
-        "ms": cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True)),
+        "ms": cuda_ms(call),
+        "device_ms": graph_ms(call),
         "plain_ms": cuda_ms(lambda: ref.attention_ref(q, k, v, causal=True)),
-        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)),
+        "library_ms": cuda_ms(sdpa),
+        "library_device_ms": graph_ms(sdpa),
         "bound_ms": bms, "bound_by": by,
         "at": f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} causal fp32",
     }
@@ -1240,12 +1284,18 @@ def main() -> int:
             cfg, dev, gen, cfg.n_layers, B_SLOTS * nP, PAGE, nP,
             ((47, 50), (14, 40)), paged_ops, paged_ref),
     }
+    # a speculative verify (spec_k 4) and a prefill chunk; decode is C 1
+    kern["paged_attention"]["verify4"] = check_paged_attention(
+        cfg, dev, gen, B_SLOTS, nP, PAGE, 4, paged_ops, paged_ref, F)
     kern["paged_attention"]["chunk16"] = check_paged_attention(
         cfg, dev, gen, B_SLOTS, nP, PAGE, CHUNK, paged_ops, paged_ref, F)
     r = kern["paged_rollback"]
     log(f"[kernel] paged_rollback on the card alone (50 launches in a CUDA "
         f"graph): {r['device_ms']:.4f} ms a launch")
     for name, r in kern.items():
+        if name in ("paged_attention", "flash_attention"):
+            log_attention(name, r)
+            continue
         log(f"[kernel] {name}: max_abs_err {r['max_abs_err']:.3g} | "
             f"kernel {r['ms']:.4f} ms | plain {r['plain_ms']:.4f} ms | "
             f"library {r['library_ms']:.4f} ms | bound {r['bound_ms']:.4f} ms "
@@ -1255,11 +1305,8 @@ def main() -> int:
             f"(on the card {r['device_ms']:.4f}) | "
             f"plain {r['plain_ms']:.4f} ms | library {r['library_ms']:.4f} ms "
             f"| bound {r['bound_ms']:.6f} ms ({r['bound_by']}) | {r['at']}")
-    c16 = kern["paged_attention"]["chunk16"]
-    log(f"[kernel] paged_attention chunk: max_abs_err {c16['max_abs_err']:.3g} "
-        f"| kernel {c16['ms']:.4f} ms | plain {c16['plain_ms']:.4f} ms | "
-        f"library {c16['library_ms']:.4f} ms | bound {c16['bound_ms']:.4f} ms "
-        f"({c16['bound_by']}) | {c16['at']}")
+    for sub in ("verify4", "chunk16"):
+        log_attention(f"paged_attention {sub}", kern["paged_attention"][sub])
 
     # 4. full-width qwen2.5-3b through the user's entry points
     L, V = cfg.n_layers, cfg.vocab_size
@@ -2089,11 +2136,7 @@ def main() -> int:
             f"(on the card {r['device_ms']:.4f}) | plain {r['plain_ms']:.4f} "
             f"ms | library none | bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}) | {r['at']}")
-    log(f"[kernel] flash_attention d_head 112: max_abs_err "
-        f"{d112['max_abs_err']:.3g} | kernel {d112['ms']:.4f} ms | plain "
-        f"{d112['plain_ms']:.4f} ms | library {d112['library_ms']:.4f} ms | "
-        f"bound {d112['bound_ms']:.4f} ms ({d112['bound_by']}) | "
-        f"{d112['at']}")
+    log_attention("flash_attention d_head 112", d112)
 
     # 12-13. rwkv6-7b and zamba2-7b at full width and depth
     ssm_reqs = zipf_requests(8, 32000, min_len=8, max_len=48, max_new_low=8,
@@ -2167,14 +2210,15 @@ def main() -> int:
         for extra in ("checked_at", "plain_at", "library_call",
                       "bound_detail", "cases", "device_ms", "max_rel_err",
                       "norms_max_rel_err", "tolerance", "tolerance_rel",
-                      "two_pass_floor_ms"):
+                      "two_pass_floor_ms", "library_device_ms"):
             if extra in r:
                 entry[extra] = r[extra]
-        for sub in ("chunk16", "d112"):
+        for sub in ("verify4", "chunk16", "d112"):
             if sub in r:
                 entry[sub] = {x: r[sub][x] for x in (
-                    "max_abs_err", "ms", "plain_ms", "library_ms",
-                    "bound_ms", "bound_by", "at")}
+                    "max_abs_err", "ms", "device_ms", "plain_ms",
+                    "library_ms", "library_device_ms", "bound_ms",
+                    "bound_by", "at") if x in r[sub]}
         line.append(entry)
     report["total_s"] = time.perf_counter() - t_start
     log(f"[report] {json.dumps(report)}")

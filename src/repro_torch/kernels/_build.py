@@ -2,11 +2,11 @@
 
 Every ``kernels/**/csrc/*.cu`` file is compiled by ``nvcc`` for
 ``sm_90a`` (one process per source, all started together), linked into one
-``.so`` with a plain C interface, and loaded with ``ctypes``. Pointers pass
-as ``c_void_p`` (``tensor.data_ptr()``), the stream as
-``torch.cuda.current_stream().cuda_stream``, and every C entry point returns
-its ``cudaError_t`` (0 on success), which :func:`check` turns into an
-exception.
+``.so`` with a plain C interface, and loaded with ``ctypes``. Each wrapper
+binds its entry points as :class:`Entry` objects. Pointers pass as
+``c_void_p`` (``tensor.data_ptr()``), the current stream's raw handle last,
+and every C entry point returns its ``cudaError_t`` (0 on success), which
+:func:`check` turns into an exception.
 
 The build happens at the first kernel launch, never at import (the CPU tests
 import every module on a machine with no ``nvcc``), into ``build/`` at the
@@ -24,6 +24,8 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 KERNELS_DIR = Path(__file__).resolve().parent
 REPO_ROOT = KERNELS_DIR.parents[2]
 BUILD_DIR = REPO_ROOT / "build"
@@ -33,7 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
-_fns: dict[str, object] = {}
+_sms: dict[int, int] = {}
 
 
 def sources() -> list[Path]:
@@ -123,21 +125,44 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
-def function(name: str, argtypes: list):
-    """The C entry point ``name`` with its argument types declared (every
-    entry point returns ``int``, the ``cudaError_t``)."""
-    fn = _fns.get(name)
-    if fn is None:
-        fn = getattr(library(), name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _fns[name] = fn
-    return fn
-
-
 def check(err: int, what: str) -> None:
     """Raise if a launch returned a CUDA error (a refused launch never runs,
     and ``torch.cuda.synchronize()`` would not report it)."""
     if err != 0:
         msg = library().repro_cuda_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+class Entry:
+    """A C entry point bound once, at its first launch (the library builds
+    then), with its argument types declared (every entry point returns
+    ``int``, the ``cudaError_t``), and launched on the current stream of
+    the tensors' card; the device is switched only when it is not the
+    current one."""
+
+    __slots__ = ("name", "argtypes", "fn")
+
+    def __init__(self, name: str, argtypes: list):
+        self.name, self.argtypes, self.fn = name, argtypes, None
+
+    def launch(self, dev: torch.device, *args) -> int:
+        """``fn(*args, stream)``; returns the ``cudaError_t``."""
+        fn = self.fn
+        if fn is None:
+            fn = getattr(library(), self.name)
+            fn.argtypes, fn.restype = self.argtypes, ctypes.c_int
+            self.fn = fn
+        stream = torch._C._cuda_getCurrentRawStream
+        if dev.index == torch.cuda.current_device():
+            return fn(*args, stream(dev.index))
+        with torch.cuda.device(dev):
+            return fn(*args, stream(dev.index))
+
+
+def sm_count(dev: torch.device) -> int:
+    """The card's streaming multiprocessors (read once a device)."""
+    n = _sms.get(dev.index)
+    if n is None:
+        n = _sms[dev.index] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return n

@@ -80,9 +80,12 @@ def launch_counts() -> dict[str, int]:
 def on_cuda(*tensors: torch.Tensor) -> bool:
     """True when every tensor is on a CUDA device, False when every tensor
     is on the CPU; raises on a mix or on any other device."""
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cuda"}:
+    n = 0
+    for t in tensors:  # the serving step's hot path: no set, no device objects
+        n += t.is_cuda
+    if n == len(tensors):
         return True
+    kinds = {t.device.type for t in tensors}
     if kinds == {"cpu"}:
         return False
     raise ValueError(f"kernel inputs must all be on cuda or all on cpu, "
@@ -104,11 +107,17 @@ def require(cond: bool, what: str) -> None:
 
 def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
                  device: torch.device) -> None:
-    """Device, dtype, rank and contiguity of one kernel argument."""
-    require(t.device == device, f"{name}: on {t.device}, expected {device}")
-    require(t.dtype == dtype, f"{name}: dtype {t.dtype}, expected {dtype}")
-    require(t.dim() == ndim, f"{name}: {t.dim()}-d, expected {ndim}-d")
-    require(t.is_contiguous(), f"{name}: must be contiguous")
+    """Device, dtype, rank and contiguity of one kernel argument (the
+    message is built only when the check fails: this runs on every
+    launch)."""
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name}: {t.dim()}-d, expected {ndim}-d")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
 
 
 def check_key(name: str, key) -> tuple:

@@ -30,6 +30,10 @@ PER_EXAMPLE_SUMSQ = register(
     "src/repro/kernels/dp_clip/dp_clip.py:42")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_CLIP_ACCUMULATE = _build.Entry("clip_accumulate_f32",
+                                [_P, _P, _P, _I, _L, _L, _I, _P])
+_SUMSQ = _build.Entry("per_example_sumsq_f32",
+                      [_P, _P, _P, _I, _L, _L, _I, _I, _P])
 RS_THREADS = 256  # csrc/rowsq.cuh
 MAX_ROWS = 65535  # the grid's y extent
 
@@ -62,11 +66,9 @@ def clip_accumulate_cuda(g: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     out = torch.empty(P, dtype=torch.float32, device=dev)
     if P == 0:
         return out
-    fn = _build.function("clip_accumulate_f32", [_P, _P, _P, _I, _L, _L, _I, _P])
-    with torch.cuda.device(dev):
-        err = fn(g.data_ptr(), scale.data_ptr(), out.data_ptr(), n, P, ld,
-                 vec_ok(ld, P, g, out),
-                 torch.cuda.current_stream(dev).cuda_stream)
+    err = _CLIP_ACCUMULATE.launch(dev, g.data_ptr(), scale.data_ptr(),
+                                  out.data_ptr(), n, P, ld,
+                                  vec_ok(ld, P, g, out))
     _build.check(err, "clip_accumulate")
     CLIP_ACCUMULATE.launches += 1
     return out
@@ -84,12 +86,8 @@ def per_example_sumsq_cuda(g: torch.Tensor) -> torch.Tensor:
     out = torch.empty(B, dtype=torch.float32, device=dev)
     nblk = row_blocks(B, D, dev)
     partial = torch.empty(B * nblk, dtype=torch.float64, device=dev)
-    fn = _build.function("per_example_sumsq_f32",
-                         [_P, _P, _P, _I, _L, _L, _I, _I, _P])
-    with torch.cuda.device(dev):
-        err = fn(g.data_ptr(), out.data_ptr(), partial.data_ptr(), B, D, ld,
-                 vec_ok(ld, D, g), nblk,
-                 torch.cuda.current_stream(dev).cuda_stream)
+    err = _SUMSQ.launch(dev, g.data_ptr(), out.data_ptr(), partial.data_ptr(),
+                        B, D, ld, vec_ok(ld, D, g), nblk)
     _build.check(err, "per_example_sumsq")
     PER_EXAMPLE_SUMSQ.launches += 1
     return out

@@ -36,6 +36,11 @@ CLIP_SUM = register(
 
 _P, _I, _L, _U, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                       ctypes.c_uint32, ctypes.c_float)
+_NOISE_BATCH = _build.Entry("noise_batch_f32",
+                           [_P, _P, _L, _U, _U, _U, _U, _P, _P, _I, _F, _I, _P])
+_CLIP_MASK = _build.Entry("clip_mask_f32",
+                          [_P, _P, _L] + [_U] * 8 + [_P, _I, _I, _P])
+_CLIP_SUM = _build.Entry("clip_sum_f32", [_P] * 6 + [_I, _L, _I, _I, _P])
 
 
 def noise_batch_cuda(g_sum, key_xi, prev_key, noise_scales, lam_gates,
@@ -55,13 +60,10 @@ def noise_batch_cuda(g_sum, key_xi, prev_key, noise_scales, lam_gates,
     out = torch.empty_like(g_sum)
     if P == 0:
         return out
-    fn = _build.function("noise_batch_f32",
-                         [_P, _P, _L, _U, _U, _U, _U, _P, _P, _I, _F, _I, _P])
-    with torch.cuda.device(dev):
-        err = fn(g_sum.data_ptr(), out.data_ptr(), P, kx[0], kx[1], kp[0],
-                 kp[1], noise_scales.data_ptr(), lam_gates.data_ptr(), n,
-                 float(prev_noise_scale), int(bool(use_prev)),
-                 torch.cuda.current_stream(dev).cuda_stream)
+    err = _NOISE_BATCH.launch(dev, g_sum.data_ptr(), out.data_ptr(), P,
+                              kx[0], kx[1], kp[0], kp[1],
+                              noise_scales.data_ptr(), lam_gates.data_ptr(),
+                              n, float(prev_noise_scale), int(bool(use_prev)))
     _build.check(err, "noise_batch")
     NOISE_BATCH.launches += 1
     return out
@@ -94,13 +96,10 @@ def clip_mask_cuda(g, scalars, key_r, key_xi, prev_key, silo: int, nxt: int,
             "out must be g itself or disjoint from it")
     if P == 0:
         return out
-    fn = _build.function("clip_mask_f32", [_P, _P, _L] + [_U] * 8
-                         + [_P, _I, _I, _P])
-    with torch.cuda.device(dev):
-        err = fn(g.data_ptr(), out.data_ptr(), P, kr[0], kr[1], kx[0], kx[1],
-                 kp[0], kp[1], int(silo), int(nxt), scalars.data_ptr(),
-                 int(bool(use_pairwise)), int(bool(use_prev)),
-                 torch.cuda.current_stream(dev).cuda_stream)
+    err = _CLIP_MASK.launch(dev, g.data_ptr(), out.data_ptr(), P, kr[0],
+                            kr[1], kx[0], kx[1], kp[0], kp[1], int(silo),
+                            int(nxt), scalars.data_ptr(),
+                            int(bool(use_pairwise)), int(bool(use_prev)))
     _build.check(err, "clip_mask")
     CLIP_MASK.launches += 1
     return out
@@ -122,12 +121,10 @@ def clip_sum_cuda(g, clip_bound) -> tuple:
     scale = torch.empty(B, dtype=torch.float32, device=dev)
     nblk = row_blocks(B, P, dev)
     partial = torch.empty(B * nblk, dtype=torch.float64, device=dev)
-    fn = _build.function("clip_sum_f32", [_P] * 6 + [_I, _L, _I, _I, _P])
-    with torch.cuda.device(dev):
-        err = fn(g.data_ptr(), out.data_ptr(), norms.data_ptr(),
-                 scale.data_ptr(), partial.data_ptr(), clip_bound.data_ptr(),
-                 B, P, vec_ok(P, P, g, out), nblk,
-                 torch.cuda.current_stream(dev).cuda_stream)
+    err = _CLIP_SUM.launch(dev, g.data_ptr(), out.data_ptr(), norms.data_ptr(),
+                           scale.data_ptr(), partial.data_ptr(),
+                           clip_bound.data_ptr(), B, P, vec_ok(P, P, g, out),
+                           nblk)
     _build.check(err, "clip_sum")
     CLIP_SUM.launches += 1
     return out, norms

@@ -4,166 +4,115 @@
 // src/repro/kernels/flash_attention/flash_attention.py, the direct-mode
 // prefill of the serving path (src/repro/models/attention.py:89-93).
 //
-// One block per (query tile of 64 rows, query head h, batch b); the KV head is
-// h / (Hq / Hkv). The block stages its Q tile once and loops over 64-column
-// K/V tiles in shared memory up to the causal limit (tiles wholly above the
-// diagonal contribute exactly nothing, since every row already holds column
-// 0, so they are skipped). Each warp owns 8 query rows and keeps their running
-// max m, sum l and output accumulator acc in fp32 registers (a lane owns
-// ceil(D/32) output dims); scores are fp32 with the same finite NEG_INF = -1e30 for the
-// causal mask and for the ragged edge: the last Q and K/V tiles are masked,
-// not assumed to divide the sequence. The last step divides by max(l, 1e-30).
-//   Bound on this card: at the prefill lengths of the serving path the work is
-//   2*2*D flops per visible (query, key) pair against 4 bytes per element of
-//   q, k, v and out, which is above the fp32 ridge for S >~ 64, so the bound
-//   is the fp32 rate. This first version does the products on CUDA cores
-//   (no wgmma / TF32, since the path holds fp32 at full precision).
-#include "common.cuh"
+// One block per (query tile, query head h, batch b); the KV head is
+// h / (Hq / Hkv). The query tile follows Sq: 32 rows up to Sq 32 (the
+// serving prefills: qwen2.5-3b and zamba2-7b at prompt 32), 64 beyond. The
+// block stages its Q tile once and walks 32-column K/V tiles up to the
+// causal limit (tiles wholly above the diagonal add exactly nothing, since
+// every row already holds column 0), each through the online-softmax step
+// shared with paged attention (csrc/attn_tile.cuh): register-blocked score
+// micro-tiles read with 16-byte shared loads, the row max and sum by
+// shuffles, and a P.V update in which a row's D outputs are D/4 lanes x 4
+// contiguous dims (28 lanes at d_head 112). The loops stop at the tile's
+// real column count; the ragged last tiles are masked, not assumed to
+// divide the sequence. NEG_INF is the same finite -1e30; the last step
+// divides by max(l, 1e-30). Tiles are staged with 16-byte cp.async, single
+// buffered: 49 KB of shared memory at d_head 112 with a 32-row tile (68 KB
+// with 64 rows), so 4 (3) blocks fit an SM.
+//   Bound on this card: at the serving prefills (S 32) the work is 2*2*D
+//   flops per visible (query, key) pair against 4 bytes per element of q,
+//   k, v and out: bound by bytes (0.0007 ms for qwen2.5-3b, 0.0022 for
+//   zamba2-7b), and one wave of 64 or 128 blocks. At S 32 the cost is
+//   work spent on padding and idle lanes, so the tiles follow the sequence
+//   (32 x 32, not 64 x 64, which would do 4x the products) and d_head 112
+//   maps onto 28 lanes. The products stay fp32 on CUDA cores (no wgmma /
+//   TF32: the path holds fp32 at full precision).
+#include "attn_tile.cuh"
 
 namespace {
 
-constexpr int FA_BQ = 64;
-constexpr int FA_BK = 64;
-constexpr int FA_WARPS = 8;
-constexpr int FA_THREADS = FA_WARPS * 32;
-constexpr int FA_ROWS_PER_WARP = FA_BQ / FA_WARPS;
+template <int D, int ROWS>
+using FlashTile = AttnTile<D, ROWS, 1>;
 
-template <int D>
-__global__ void __launch_bounds__(FA_THREADS)
+template <int D, int ROWS>
+__global__ void __launch_bounds__(ATTN_THREADS)
 flash_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                            const float* __restrict__ v, float* __restrict__ out, int Sq, int Sk,
                            int Hq, int Hkv, int causal, float sm_scale) {
-  constexpr int DL = (D + 31) / 32;  // output dims per lane (lanes past D idle)
-  constexpr int QS = D + 1;  // padded row stride: conflict-free column reads
-  const int q0 = blockIdx.x * FA_BQ, h = blockIdx.y, b = blockIdx.z;
+  extern __shared__ float4 attn_smem[];
+  FlashTile<D, ROWS> tile(reinterpret_cast<float*>(attn_smem));
+  const int q0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
-  const int rows = min(Sq - q0, FA_BQ);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rows = min(Sq - q0, ROWS);
 
-  extern __shared__ float smem[];
-  float* q_s = smem;              // BQ x QS
-  float* k_s = q_s + FA_BQ * QS;  // BK x QS
-  float* v_s = k_s + FA_BK * QS;  // BK x D
-  float* s_s = v_s + FA_BK * D;   // BQ x BK: scores, then probabilities
+  int ntiles = (Sk + ATTN_COLS - 1) / ATTN_COLS;
+  if (causal) ntiles = min(ntiles, (q0 + rows - 1) / ATTN_COLS + 1);
 
-  for (int idx = threadIdx.x; idx < rows * D; idx += FA_THREADS) {
-    const int r = idx / D, d = idx % D;
-    q_s[r * QS + d] = q[(((size_t)b * Sq + q0 + r) * Hq + h) * D + d];
-  }
+  FlashTile<D, ROWS>::stage(tile.q_s, FlashTile<D, ROWS>::KS, q, rows, ROWS, [&](int r) {
+    return (((long long)b * Sq + q0 + r) * Hq + h) * D;
+  });
+  tile.run(
+      ntiles,
+      [&](int t, int buf) {
+        const int k0 = t * ATTN_COLS;
+        tile.stage_kv(buf, k, v, min(Sk - k0, ATTN_COLS), [&](int c) {
+          return (((long long)b * Sk + k0 + c) * Hkv + hk) * D;
+        });
+      },
+      [&](int t) { return min(Sk - t * ATTN_COLS, ATTN_COLS); },
+      [&](int t, int r, int c, float dot) {
+        return !causal || q0 + r >= t * ATTN_COLS + c ? dot * sm_scale : REPRO_NEG_INF;
+      });
 
-  float m[FA_ROWS_PER_WARP], l[FA_ROWS_PER_WARP], acc[FA_ROWS_PER_WARP][DL];
-#pragma unroll
-  for (int i = 0; i < FA_ROWS_PER_WARP; ++i) {
-    m[i] = REPRO_NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DL; ++kk) acc[i][kk] = 0.f;
-  }
-
-  int n_k = (Sk + FA_BK - 1) / FA_BK;
-  if (causal) n_k = min(n_k, (q0 + rows - 1) / FA_BK + 1);
-
-  for (int kt = 0; kt < n_k; ++kt) {
-    const int k0 = kt * FA_BK;
-    const int cols = min(Sk - k0, FA_BK);
-    __syncthreads();  // the previous tile is consumed
-    for (int idx = threadIdx.x; idx < FA_BK * D; idx += FA_THREADS) {
-      const int t = idx / D, d = idx % D;
-      const size_t src = (((size_t)b * Sk + k0 + t) * Hkv + hk) * D + d;
-      k_s[t * QS + d] = t < cols ? k[src] : 0.f;
-      v_s[t * D + d] = t < cols ? v[src] : 0.f;
-    }
-    __syncthreads();
-
-    for (int e = threadIdx.x; e < rows * FA_BK; e += FA_THREADS) {
-      const int r = e / FA_BK, col = e % FA_BK;
-      const float* qr = q_s + r * QS;
-      const float* kr = k_s + col * QS;
-      float dot = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) dot = fmaf(qr[d], kr[d], dot);
-      const bool visible = col < cols && (!causal || q0 + r >= k0 + col);
-      s_s[r * FA_BK + col] = visible ? dot * sm_scale : REPRO_NEG_INF;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < FA_ROWS_PER_WARP; ++i) {
-      const int r = warp + FA_WARPS * i;
-      if (r < rows) {  // warp-uniform
-        float* sr = s_s + r * FA_BK;
-        float mx = REPRO_NEG_INF;
-        for (int col = lane; col < FA_BK; col += 32) mx = fmaxf(mx, sr[col]);
-        const float m_new = fmaxf(m[i], warp_max(mx));
-        float ps = 0.f;
-        for (int col = lane; col < FA_BK; col += 32) {
-          const float p = expf(sr[col] - m_new);
-          sr[col] = p;
-          ps += p;
-        }
-        const float alpha = expf(m[i] - m_new);
-        l[i] = alpha * l[i] + warp_sum(ps);
-        m[i] = m_new;
-        __syncwarp();
-#pragma unroll
-        for (int kk = 0; kk < DL; ++kk) {
-          const int d = lane + 32 * kk;
-          if (d < D) {
-            float a = acc[i][kk] * alpha;
-#pragma unroll 8
-            for (int col = 0; col < FA_BK; ++col) a = fmaf(sr[col], v_s[col * D + d], a);
-            acc[i][kk] = a;
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < FA_ROWS_PER_WARP; ++i) {
-    const int r = warp + FA_WARPS * i;
-    if (r < rows) {
-      float* o = out + (((size_t)b * Sq + q0 + r) * Hq + h) * D;
-      const float inv = 1.f / fmaxf(l[i], 1e-30f);
-#pragma unroll
-      for (int kk = 0; kk < DL; ++kk)
-        if (lane + 32 * kk < D) o[lane + 32 * kk] = acc[i][kk] * inv;
-    }
-  }
+  tile.each_acc([&](int r, int d, float4 a, float l) {
+    if (r >= rows) return;
+    float* o = out + (((size_t)b * Sq + q0 + r) * Hq + h) * D + d;
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+    *reinterpret_cast<float4*>(o) = make_float4(a.x * inv, a.y * inv, a.z * inv, a.w * inv);
+  });
 }
 
-template <int D>
+template <int D, int ROWS>
 cudaError_t launch_flash(const float* q, const float* k, const float* v, float* out, int B,
                          int Sq, int Sk, int Hq, int Hkv, int causal, float sm_scale,
                          cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * ((size_t)(FA_BQ + FA_BK) * (D + 1) + (size_t)FA_BK * D + FA_BQ * FA_BK);
-  auto kern = flash_attention_fwd_kernel<D>;
-  cudaError_t e =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static unsigned long long smem_set = 0;
+  auto kern = flash_attention_fwd_kernel<D, ROWS>;
+  const size_t smem = FlashTile<D, ROWS>::BYTES;
+  cudaError_t e = set_smem_once(kern, smem, smem_set);
   if (e != cudaSuccess) return e;
-  dim3 grid((Sq + FA_BQ - 1) / FA_BQ, Hq, B);
-  kern<<<grid, FA_THREADS, smem, stream>>>(q, k, v, out, Sq, Sk, Hq, Hkv, causal, sm_scale);
+  dim3 grid((Sq + ROWS - 1) / ROWS, Hq, B);
+  kern<<<grid, ATTN_THREADS, smem, stream>>>(q, k, v, out, Sq, Sk, Hq, Hkv, causal, sm_scale);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_flash_rows(const float* q, const float* k, const float* v, float* out, int B,
+                              int Sq, int Sk, int Hq, int Hkv, int causal, float sm_scale,
+                              cudaStream_t stream) {
+  if (Sq <= 32)
+    return launch_flash<D, 32>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, sm_scale, stream);
+  return launch_flash<D, 64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, sm_scale, stream);
 }
 
 }  // namespace
 
-// q (B, Sq, Hq, D); k, v (B, Sk, Hkv, D); out (B, Sq, Hq, D). fp32, contiguous.
+// q (B, Sq, Hq, D); k, v (B, Sk, Hkv, D); out (B, Sq, Hq, D). fp32, contiguous,
+// 16-byte aligned.
 REPRO_API int flash_attention_fwd_f32(const float* q, const float* k, const float* v,
                                       float* out, int B, int Sq, int Sk, int Hq, int Hkv,
                                       int D, int causal, float sm_scale, cudaStream_t stream) {
   switch (D) {
     case 16:
-      return launch_flash<16>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, sm_scale, stream);
+      return launch_flash_rows<16>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, sm_scale, stream);
     case 32:
-      return launch_flash<32>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, sm_scale, stream);
+      return launch_flash_rows<32>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, sm_scale, stream);
     case 64:
-      return launch_flash<64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, sm_scale, stream);
-    case 112:  // zamba2-7b's shared block (103 KB of shared memory)
-      return launch_flash<112>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, sm_scale, stream);
+      return launch_flash_rows<64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, sm_scale, stream);
+    case 112:  // zamba2-7b's shared block
+      return launch_flash_rows<112>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, sm_scale, stream);
     case 128:
-      return launch_flash<128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, sm_scale, stream);
+      return launch_flash_rows<128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, sm_scale, stream);
     default:
       return cudaErrorInvalidValue;
   }

@@ -27,6 +27,7 @@ SSD = register("ssd", "src/repro_torch/kernels/mamba2/csrc/ssd.cu",
 SHAPES = ((16, 16), (64, 64))
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_SSD = _build.Entry("ssd_f32", [_P] * 8 + [_I] * 5 + [_P])
 
 
 def ssd_cuda(xh, dt, la, Bc, Cc, h0):
@@ -55,11 +56,9 @@ def ssd_cuda(xh, dt, la, Bc, Cc, h0):
     h = torch.empty_like(h0)
     if B == 0:
         return y, h
-    fn = _build.function("ssd_f32", [_P] * 8 + [_I] * 5 + [_P])
-    with torch.cuda.device(dev):
-        err = fn(xh.data_ptr(), dt.data_ptr(), la.data_ptr(), Bc.data_ptr(),
-                 Cc.data_ptr(), h0.data_ptr(), y.data_ptr(), h.data_ptr(),
-                 B, S, nh, P, N, torch.cuda.current_stream(dev).cuda_stream)
+    err = _SSD.launch(dev, xh.data_ptr(), dt.data_ptr(), la.data_ptr(),
+                      Bc.data_ptr(), Cc.data_ptr(), h0.data_ptr(),
+                      y.data_ptr(), h.data_ptr(), B, S, nh, P, N)
     _build.check(err, "ssd")
     SSD.launches += 1
     return y, h

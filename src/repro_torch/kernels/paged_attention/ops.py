@@ -40,16 +40,19 @@ def paged_rollback(k_pages, v_pages, row, start: int, end: int) -> None:
     block-table row ``row`` (nP,) int32 across the stacked (L, N, P, H, D)
     pools, in place; a no-op when ``end <= start``.
 
-    As in the JAX package, the kernel gets the row sliced to the pages that
-    overlap the range and the bounds made relative to the slice: a table
-    row pads with duplicate page ids, which the slice leaves out."""
+    The CUDA kernel writes only the dead positions, so it takes the whole
+    row. As in the JAX package, the plain version gets the row sliced to
+    the pages that overlap the range and the bounds made relative to the
+    slice (a table row pads with duplicate page ids, which the TPU kernel,
+    rewriting whole pages, must not visit twice); both zero the same
+    lanes."""
     start, end = int(start), int(end)
     if end <= start:
         return
+    if on_cuda(k_pages, v_pages, row):
+        paged_rollback_cuda(k_pages, v_pages, row, start, end)
+        return
     P = k_pages.shape[2]
     sp, ep = start // P, -(-end // P)
-    sub, lo, hi = row[sp:ep], start - sp * P, end - sp * P
-    if on_cuda(k_pages, v_pages, sub):
-        paged_rollback_cuda(k_pages, v_pages, sub, lo, hi)
-    else:
-        ref.paged_rollback_ref(k_pages, v_pages, sub, lo, hi)
+    ref.paged_rollback_ref(k_pages, v_pages, row[sp:ep], start - sp * P,
+                           end - sp * P)

@@ -43,6 +43,70 @@ def paged_attention_ref(q, k_pages, v_pages, tables, q_start) -> torch.Tensor:
     return out.reshape(B, C, Hq, D)
 
 
+def paged_attention_split_ref(q, k_pages, v_pages, tables, q_start,
+                              splits: int) -> torch.Tensor:
+    """The CUDA kernel's own algorithm in plain torch, for the tests: the
+    slot's nP pages in ``splits`` runs of ``pps = ceil(nP / splits)`` (a
+    trailing run may be empty), each an online softmax page by page into a
+    partial (m, l, acc) that starts at (NEG_INF, 0, 0); the runs merged in
+    ascending order; ``acc / max(l, 1e-30)``. A page whose id is outside
+    ``[0, N)`` is skipped, never read. When ``q_start[b] >= 0`` and page 0
+    is named, every row sees position 0, and pages wholly past
+    ``q_start[b] + C - 1`` are not walked; otherwise every named page is, so
+    a fully masked row stays the uniform average over the named pages.
+    Same arguments and result as :func:`paged_attention_ref`."""
+    B, C, Hq, D = q.shape
+    N, P, Hkv, _ = k_pages.shape
+    nP = tables.shape[1]
+    G = Hq // Hkv
+    GC = G * C
+    pps = -(-nP // splits)
+    scale = 1.0 / D ** 0.5
+    # fold: row r of kv head h is query head h*G + r // C at token r % C
+    qf = q.float().reshape(B, C, Hkv, G, D).permute(0, 2, 3, 1, 4).reshape(
+        B, Hkv, GC, D)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    crow = torch.arange(GC, device=q.device) % C
+    out = torch.empty(B, Hkv, GC, D, **f32)
+    ids = tables.tolist()
+    for b in range(B):
+        qs = int(q_start[b])
+        named = [0 <= p < N for p in ids[b]]
+        last = nP
+        if qs >= 0 and named[0]:
+            last = min(nP, (qs + C - 1) // P + 1)
+        parts = []
+        for s in range(splits):
+            m = torch.full((Hkv, GC, 1), NEG_INF, **f32)
+            l = torch.zeros(Hkv, GC, 1, **f32)
+            acc = torch.zeros(Hkv, GC, D, **f32)
+            for j in range(s * pps, min(nP, (s + 1) * pps, last)):
+                if not named[j]:
+                    continue
+                k = k_pages[ids[b][j]].float().transpose(0, 1)   # (Hkv, P, D)
+                v = v_pages[ids[b][j]].float().transpose(0, 1)
+                sc = torch.einsum("hrd,hpd->hrp", qf[b], k) * scale
+                pos = j * P + torch.arange(P, device=q.device)
+                mask = pos[None] <= qs + crow[:, None]
+                sc = torch.where(mask, sc, torch.full_like(sc, NEG_INF))
+                m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+                p = torch.exp(sc - m_new)
+                alpha = torch.exp(m - m_new)
+                l = alpha * l + p.sum(-1, keepdim=True)
+                acc = acc * alpha + torch.einsum("hrp,hpd->hrd", p, v)
+                m = m_new
+            parts.append((m, l, acc))
+        mx = torch.stack([m for m, _, _ in parts]).amax(0)
+        lt, at = torch.zeros_like(mx), torch.zeros(Hkv, GC, D, **f32)
+        for m, l, acc in parts:  # ascending, as the combine kernel
+            w = torch.exp(m - mx)
+            lt = lt + l * w
+            at = at + acc * w
+        out[b] = at / lt.clamp_min(1e-30)
+    return out.reshape(B, Hkv, G, C, D).permute(0, 3, 1, 2, 4).reshape(
+        B, C, Hq, D)
+
+
 def paged_reset_ref(k_pages, v_pages, row) -> None:
     """Zero the pages named in ``row`` across every layer of the stacked
     (L, N, P, H, D) pools, in place. Repeated ids are fine."""

@@ -25,6 +25,7 @@ WKV = register("wkv", "src/repro_torch/kernels/rwkv6/csrc/wkv.cu",
 HEAD_SIZES = (16, 32, 64)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_WKV = _build.Entry("wkv_f32", [_P] * 8 + [_I] * 4 + [_P])
 
 
 def wkv_cuda(r, k, v, w, u, state0):
@@ -47,12 +48,9 @@ def wkv_cuda(r, k, v, w, u, state0):
     state = torch.empty_like(state0)
     if B == 0:
         return o, state
-    fn = _build.function("wkv_f32", [_P] * 8 + [_I] * 4 + [_P])
-    with torch.cuda.device(dev):
-        err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-                 u.data_ptr(), state0.data_ptr(), o.data_ptr(),
-                 state.data_ptr(), B, S, H, N,
-                 torch.cuda.current_stream(dev).cuda_stream)
+    err = _WKV.launch(dev, r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      w.data_ptr(), u.data_ptr(), state0.data_ptr(),
+                      o.data_ptr(), state.data_ptr(), B, S, H, N)
     _build.check(err, "wkv")
     WKV.launches += 1
     return o, state

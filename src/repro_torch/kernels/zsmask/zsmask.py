@@ -22,6 +22,7 @@ ZSMASK = register(
     "src/repro/kernels/zsmask/zsmask.py:51")
 
 _P, _L, _U = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint32
+_ZSMASK = _build.Entry("zsmask_f32", [_P, _P, _L] + [_U] * 7 + [_P, _P])
 
 
 def zsmask_cuda(g, scalars, key_r, key_xi, silo: int, nxt: int,
@@ -50,11 +51,9 @@ def zsmask_cuda(g, scalars, key_r, key_xi, silo: int, nxt: int,
             "out must be g itself or disjoint from it")
     if D == 0:
         return out
-    fn = _build.function("zsmask_f32", [_P, _P, _L] + [_U] * 7 + [_P, _P])
-    with torch.cuda.device(dev):
-        err = fn(g.data_ptr(), out.data_ptr(), D, kr[0], kr[1], kx[0], kx[1],
-                 int(silo), int(nxt), int(offset), scalars.data_ptr(),
-                 torch.cuda.current_stream(dev).cuda_stream)
+    err = _ZSMASK.launch(dev, g.data_ptr(), out.data_ptr(), D, kr[0], kr[1],
+                         kx[0], kx[1], int(silo), int(nxt), int(offset),
+                         scalars.data_ptr())
     _build.check(err, "zsmask")
     ZSMASK.launches += 1
     return out

@@ -41,6 +41,8 @@ from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.kernels.paged_attention import ref as paged_ref
 from repro_torch.kernels.paged_attention.paged_attention import \
     paged_rollback_cuda
+from repro_torch.kernels.paged_attention.paged_attention import \
+    plan as paged_plan
 from repro_torch.kernels.rwkv6 import ops as wkv_ops
 from repro_torch.kernels.rwkv6 import ref as wkv_ref
 from repro_torch.kernels.rwkv6.rwkv6 import wkv_cuda
@@ -86,6 +88,14 @@ def _paged(dev, B, C, Hq, Hkv, D, N, P, nP, q_start, seed=0):
     (3, 4, 4, 2, 64, 12, 8, 3, [5, 0, 17]),
     (2, 1, 4, 4, 32, 8, 16, 2, [9, 30]),
     (3, 4, 4, 2, 16, 12, 8, 3, [-1, 3, 8]),              # smoke head dim
+    # the smoke's q_starts {0, S/3, S - C, -1} at C 1, 4 (a verify) and 16,
+    # odd page counts (splits of unequal runs)
+    (4, 1, 16, 2, 128, 160, 16, 32, [0, 170, 511, -1]),
+    (4, 4, 16, 2, 128, 160, 16, 32, [0, 170, 508, -1]),
+    (4, 16, 16, 2, 128, 160, 16, 32, [0, 170, 496, -1]),
+    (4, 4, 16, 2, 128, 64, 16, 7, [0, 37, 108, -1]),
+    (4, 16, 16, 2, 128, 64, 16, 9, [0, 48, 128, -1]),
+    (4, 4, 8, 2, 64, 40, 4, 13, [0, 17, 48, -1]),
 ])
 def test_paged_attention_kernel_matches_plain(cuda, B, C, Hq, Hkv, D, N, P,
                                               nP, q_start):
@@ -99,11 +109,16 @@ def test_paged_attention_kernel_matches_plain(cuda, B, C, Hq, Hkv, D, N, P,
     torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
 
 
-def test_paged_attention_reads_only_the_slots_own_pages(cuda):
+@pytest.mark.parametrize("C,nP,q_start", [
+    (16, 4, [0, 10, 48, -1]),     # 4 splits of one page
+    (1, 12, [0, 70, 191, -1]),    # 12 splits, most past the causal limit
+    (4, 12, [3, 40, 188, -1]),    # a verify's 32 rows
+])
+def test_paged_attention_reads_only_the_slots_own_pages(cuda, C, nP, q_start):
     """Pages no table row names hold NaN: one read of them would poison the
-    output."""
-    q, kp, vp, tables, qs = _paged(cuda, 4, 16, 16, 2, 128, 64, 16, 4,
-                                   [0, 10, 48, -1])
+    output, also from a split that the causal limit leaves empty."""
+    q, kp, vp, tables, qs = _paged(cuda, 4, C, 16, 2, 128, 64, 16, nP,
+                                   q_start)
     want = paged_ops.paged_attention(q, kp, vp, tables, qs)
     named = torch.zeros(64, dtype=torch.bool, device=cuda)
     named[tables.long().flatten()] = True
@@ -112,6 +127,46 @@ def test_paged_attention_reads_only_the_slots_own_pages(cuda):
     got = paged_ops.paged_attention(q, kp, vp, tables, qs)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("C,nP,q_start", [
+    (1, 32, [0, 170, 511, -1]),
+    (4, 32, [0, 170, 508, -1]),
+    (16, 32, [0, 170, 496, -1]),
+    (16, 9, [0, 48, 128, -1]),
+])
+def test_paged_attention_kernel_matches_its_split_algorithm(cuda, C, nP,
+                                                            q_start):
+    """The kernel against ``paged_attention_split_ref`` at the split count
+    the wrapper plans for this card: the same runs, the causal skip and the
+    ascending combine."""
+    args = _paged(cuda, 4, C, 16, 2, 128, 160, 16, nP, q_start)
+    _, splits = paged_plan(4, 2, 8 * C, nP, 16,
+                           torch.cuda.get_device_properties(cuda)
+                           .multi_processor_count)
+    assert splits > 1
+    got = paged_ops.paged_attention(*args)
+    want = paged_ref.paged_attention_split_ref(*args, splits)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+
+
+def test_paged_attention_skips_an_unnamed_page(cuda):
+    """An id outside [0, N) names no page: the kernel skips it, never reads
+    it, as the split algorithm does, in a visible page, past the causal
+    limit and in an inactive slot."""
+    q, kp, vp, tables, qs = _paged(cuda, 3, 4, 16, 2, 128, 64, 16, 8,
+                                   [40, 5, -1])
+    tables[0, 1] = 64         # visible to every row of slot 0
+    tables[1, 5] = -3         # past slot 1's causal limit
+    tables[2, 2] = 1 << 20    # an inactive slot walks every named page
+    got = paged_ops.paged_attention(q, kp, vp, tables, qs)
+    _, splits = paged_plan(3, 2, 32, 8, 16, torch.cuda.get_device_properties(
+        cuda).multi_processor_count)
+    want = paged_ref.paged_attention_split_ref(q, kp, vp, tables, qs, splits)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
 
 
 def test_paged_reset_kernel_bit_equal_and_isolated(cuda):
@@ -172,6 +227,13 @@ def test_paged_rollback_kernel_bit_equal_and_isolated(cuda, H, D, row, start,
     (2, 70, 4, 1, 32, False),
     (4, 32, 32, 32, 112, True),    # zamba2-7b's shared block
     (1, 77, 4, 2, 112, True),
+    (4, 32, 32, 32, 112, False),
+    (2, 33, 8, 8, 112, True),      # one row past the 32-row tile
+    (2, 33, 8, 8, 112, False),
+    (2, 100, 8, 4, 112, True),
+    (2, 100, 8, 4, 112, False),
+    (4, 32, 16, 2, 128, False),
+    (2, 33, 16, 2, 128, True),
 ])
 def test_flash_kernel_matches_plain(cuda, B, S, Hq, Hkv, D, causal):
     g = torch.Generator(device=cuda).manual_seed(2)
