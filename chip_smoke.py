@@ -12,6 +12,14 @@ speculative for the dense one), a training step of each tier (packed and
 perleaf) and per-example clipping against the host CPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --scans [--src DIR]   # phase 11's scans alone
+
+``--scans`` runs only the card line, the build and phase 11's scans (their
+checks and times, no launch configuration), from the ``repro_torch`` under
+DIR (default: this checkout's ``src``), and prints their JSON record as its
+last line. It is the standing tool for a change to a scan kernel: two trees
+(an unpacked parent and this one) are timed in one call by running it once
+for each, since it uses only the wrappers every tree has.
 
 Phases (any failed check raises, and the script exits non-zero):
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
@@ -91,8 +99,13 @@ Phases (any failed check raises, and the script exits non-zero):
  11. the scans of the ssm and hybrid families at their main path's shapes:
      ``wkv`` at (4, 32, 64, 64) and ``ssd`` at (4, 32, 112, 64), N 64, each
      with an incoming state, against their plain chunked versions within
-     the JAX package's own bounds (also at a ragged length, and ``wkv``
-     under strong decay), and flash attention at zamba2's d_head 112;
+     the JAX package's own bounds (also at S 512, at a ragged length past
+     two staged passes, and ``wkv`` under strong decay), timed at the main
+     shape and at S 512, each with its bound; each kernel's launch
+     configuration (blocks, threads, tokens a pass, shared bytes, blocks an
+     SM) logged as the built library reports it (not a measurement: it is
+     not in the ``kernels`` line); and flash attention at zamba2's d_head
+     112;
 12-13. rwkv6-7b (32 layers) and zamba2-7b (81 layers) at published width,
      fp32, random weights from a seed: direct serve (batch 4, prompt 32, 16
      new; rwkv6 prefills recurrently there and launches no ``wkv``), a
@@ -497,13 +510,24 @@ def wkv_inputs(dev, gen, B, S, H, N, w=None):
     return r, k, v, w, n(H, N) * 0.3, n(B, H, N, N) * 0.1
 
 
+def scan_timing(kernel, plain, nbytes: float, flops: float, at: str) -> dict:
+    """A scan's call and card times at one shape, beside its plain
+    version's and its bound."""
+    bms, by = bound(nbytes, flops)
+    return {"ms": cuda_ms(kernel), "device_ms": graph_ms(kernel),
+            "plain_ms": cuda_ms(plain), "bound_ms": bms, "bound_by": by,
+            "at": at}
+
+
 def check_wkv(dev, gen, B, S, H, N, ops, ref):
     """``wkv`` against its plain chunked version: at the main path's shape
-    (timed), at a ragged length (the plain version runs the recurrence) and
-    under strong decay (w = 0.05), within the JAX package's own bounds."""
-    cases = {}
+    and at S 512 (both timed), at a ragged length past two staged passes
+    (the plain version runs the recurrence) and under strong decay (w =
+    0.05), within the JAX package's own bounds."""
+    cases, timed_at = {}, {}
     for name, S_, w, tol in (("main", S, None, WKV_ATOL),
-                             ("ragged", 23, None, WKV_ATOL),
+                             ("s512", 512, None, WKV_ATOL),
+                             ("ragged", 37, None, WKV_ATOL),
                              ("strong decay", S, 0.05, WKV_STRONG_ATOL)):
         xs = wkv_inputs(dev, gen, B, S_, H, N, w)
         o, st = ops.wkv_chunked(*xs)
@@ -515,22 +539,24 @@ def check_wkv(dev, gen, B, S, H, N, ops, ref):
         check(err <= tol, f"wkv {name} (S={S_}) differs from its plain "
                           f"version by {err} (tolerance {tol})")
         cases[name] = {"S": S_, "max_abs_err": err, "tolerance": tol}
-        if name == "main":
-            main = xs
-    r, u, s0 = main[0], main[4], main[5]
-    # r, k, v, w in and o out; u; the state in and out
-    nbytes = (5 * r.numel() + u.numel() + 2 * s0.numel()) * 4
-    bms, by = bound(nbytes, 4 * B * S * H * N * N)
+        if name in ("main", "s512"):
+            timed_at[name] = xs
+    out = {}
+    for name, xs in timed_at.items():
+        r, u, s0 = xs[0], xs[4], xs[5]
+        S_ = r.shape[1]
+        # r, k, v, w in and o out; u; the state in and out
+        nbytes = (5 * r.numel() + u.numel() + 2 * s0.numel()) * 4
+        out[name] = scan_timing(
+            lambda: ops.wkv_chunked(*xs), lambda: ref.wkv_chunked_ref(*xs),
+            nbytes, 4 * B * S_ * H * N * N,
+            f"B={B} S={S_} H={H} N={N} fp32, with an incoming state")
+        out[name]["max_abs_err"] = cases[name]["max_abs_err"]
     return {
-        "max_abs_err": cases["main"]["max_abs_err"], "cases": cases,
+        **out["main"], "s512": out["s512"], "cases": cases,
         "tolerance": f"{WKV_ATOL} ({WKV_STRONG_ATOL} under strong decay)",
-        "ms": cuda_ms(lambda: ops.wkv_chunked(*main)),
-        "device_ms": graph_ms(lambda: ops.wkv_chunked(*main)),
-        "plain_ms": cuda_ms(lambda: ref.wkv_chunked_ref(*main)),
         "library_ms": None,
         "library_call": "none (no single PyTorch call computes the scan)",
-        "bound_ms": bms, "bound_by": by,
-        "at": f"B={B} S={S} H={H} N={N} fp32, with an incoming state",
     }
 
 
@@ -545,9 +571,10 @@ def ssd_inputs(dev, gen, B, S, nh, P, N):
 
 def check_ssd(dev, gen, B, S, nh, P, N, ops, ref):
     """``ssd`` against its plain chunked version at the main path's shape
-    (timed) and at a ragged length, within the JAX package's bound."""
-    cases = {}
-    for name, S_ in (("main", S), ("ragged", 23)):
+    and at S 512 (both timed) and at a ragged length past two staged
+    passes, within the JAX package's bound."""
+    cases, timed_at = {}, {}
+    for name, S_ in (("main", S), ("s512", 512), ("ragged", 37)):
         xs = ssd_inputs(dev, gen, B, S_, nh, P, N)
         y, h = ops.ssd_chunked(*xs)
         py, ph = ref.ssd_chunked_ref(*xs)
@@ -558,25 +585,98 @@ def check_ssd(dev, gen, B, S, nh, P, N, ops, ref):
         check(err <= SSD_ATOL, f"ssd {name} (S={S_}) differs from its plain "
                                f"version by {err} (tolerance {SSD_ATOL})")
         cases[name] = {"S": S_, "max_abs_err": err, "tolerance": SSD_ATOL}
-        if name == "main":
-            main = xs
-    x, dt, _, Bc, _, h0 = main
-    # x, dt, la, B, C, h0 in; y and h out
-    nbytes = (2 * x.numel() + 2 * dt.numel() + 2 * Bc.numel()
-              + 2 * h0.numel()) * 4
-    bms, by = bound(nbytes, 5 * B * S * nh * P * N)
+        if name in ("main", "s512"):
+            timed_at[name] = xs
+    out = {}
+    for name, xs in timed_at.items():
+        x, dt, _, Bc, _, h0 = xs
+        S_ = x.shape[1]
+        # x, dt, la, B, C, h0 in; y and h out
+        nbytes = (2 * x.numel() + 2 * dt.numel() + 2 * Bc.numel()
+                  + 2 * h0.numel()) * 4
+        out[name] = scan_timing(
+            lambda: ops.ssd_chunked(*xs), lambda: ref.ssd_chunked_ref(*xs),
+            nbytes, 5 * B * S_ * nh * P * N,
+            f"B={B} S={S_} nh={nh} P={P} N={N} fp32, with an incoming state")
+        out[name]["max_abs_err"] = cases[name]["max_abs_err"]
     return {
-        "max_abs_err": cases["main"]["max_abs_err"], "cases": cases,
-        "tolerance": SSD_ATOL,
-        "ms": cuda_ms(lambda: ops.ssd_chunked(*main)),
-        "device_ms": graph_ms(lambda: ops.ssd_chunked(*main)),
-        "plain_ms": cuda_ms(lambda: ref.ssd_chunked_ref(*main)),
-        "library_ms": None,
+        **out["main"], "s512": out["s512"], "cases": cases,
+        "tolerance": SSD_ATOL, "library_ms": None,
         "library_call": "none (no single PyTorch call computes the scan)",
-        "bound_ms": bms, "bound_by": by,
-        "at": f"B={B} S={S} nh={nh} P={P} N={N} fp32, with an incoming "
-              f"state",
     }
+
+
+def log_scan(name: str, r: dict) -> None:
+    """One line for the main shape, one for S 512."""
+    log(f"[kernel] {name}: max_abs_err {r['max_abs_err']:.3g} "
+        f"(cases {json.dumps(r['cases'])}) | kernel {r['ms']:.4f} ms "
+        f"(on the card {r['device_ms']:.4f}) | plain {r['plain_ms']:.4f} "
+        f"ms | library none | bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']}) | {r['at']}")
+    x = r["s512"]
+    log(f"[kernel] {name} S 512: max_abs_err {x['max_abs_err']:.3g} | kernel "
+        f"{x['ms']:.4f} ms (on the card {x['device_ms']:.4f}) | plain "
+        f"{x['plain_ms']:.4f} ms | bound {x['bound_ms']:.4f} ms "
+        f"({x['bound_by']}) | {x['at']}")
+
+
+def check_scans(dev, seed: int) -> dict:
+    """Phase 11's scans, from the ``repro_torch`` first on ``sys.path``:
+    ``wkv`` at rwkv6-7b's and ``ssd`` at zamba2-7b's whole-prompt prefill
+    (batch 4, prompt 32) and at S 512, each logged."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.mamba2 import ops as ssd_ops
+    from repro_torch.kernels.mamba2 import ref as ssd_ref
+    from repro_torch.kernels.rwkv6 import ops as wkv_ops
+    from repro_torch.kernels.rwkv6 import ref as wkv_ref
+    from repro_torch.models.mamba2 import dims as mamba2_dims
+
+    rcfg = get_config("rwkv6-7b")
+    _, nh, P, N, _ = mamba2_dims(get_config("zamba2-7b"))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {"wkv": check_wkv(dev, gen, 4, 32, rcfg.n_heads,
+                            rcfg.rwkv_head_size, wkv_ops, wkv_ref),
+           "ssd": check_ssd(dev, gen, 4, 32, nh, P, N, ssd_ops, ssd_ref)}
+    for name, r in out.items():
+        log_scan(name, r)
+    return out
+
+
+def log_scan_launches(rcfg, zcfg) -> None:
+    """Each scan's launch configuration at the main path's shapes, as this
+    checkout's built library reports it: a configuration, not a
+    measurement, so it stays out of the ``kernels`` line."""
+    from repro_torch.kernels.mamba2.mamba2 import kernel_config as ssd_config
+    from repro_torch.kernels.rwkv6.rwkv6 import kernel_config as wkv_config
+    from repro_torch.models.mamba2 import dims as mamba2_dims
+
+    _, nh, P, N, _ = mamba2_dims(zcfg)
+    for name, blocks, cfg in (
+            ("wkv", 4 * rcfg.n_heads, wkv_config(rcfg.rwkv_head_size)),
+            ("ssd", 4 * nh, ssd_config(P, N))):
+        log(f"[kernel] {name} launch (the library's configuration, not "
+            f"measured): {json.dumps({'blocks': blocks, **cfg})}")
+
+
+def scans_only(src: Path) -> int:
+    """``--scans``: the card, the build and phase 11's scans alone, from the
+    ``repro_torch`` under ``src`` (another tree's, to time two trees in one
+    call); the last line is their JSON record."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the GPU",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(src))
+    from repro_torch.kernels import _build
+
+    card = card_line()
+    log(card)
+    build_s = _build.build()
+    log(f"[build] {_build.library_path()} in {build_s:.1f} s")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    scans = check_scans(torch.device("cuda"), 11)
+    log(json.dumps({"src": str(src), "card": card, "scans": scans}))
+    return 0
 
 
 def timed(fn):
@@ -1237,13 +1337,8 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import ref as flash_ref
     from repro_torch.kernels.paged_attention import ops as paged_ops
     from repro_torch.kernels.paged_attention import ref as paged_ref
-    from repro_torch.kernels.mamba2 import ops as ssd_ops
-    from repro_torch.kernels.mamba2 import ref as ssd_ref
-    from repro_torch.kernels.rwkv6 import ops as wkv_ops
-    from repro_torch.kernels.rwkv6 import ref as wkv_ref
     from repro_torch.kernels.zsmask import ops as zs_ops
     from repro_torch.kernels.zsmask import ref as zs_ref
-    from repro_torch.models.mamba2 import dims as mamba2_dims
     from repro_torch.models.transformer import (Transformer, pack_params,
                                                 param_tree)
     from repro_torch.runtime.serving import PagePool, zipf_requests
@@ -2121,21 +2216,11 @@ def main() -> int:
 
     # 11. the scans and flash at d_head 112, at the SSM/hybrid paths' shapes
     rcfg, zcfg = get_config("rwkv6-7b"), get_config("zamba2-7b")
-    _, z_nh, z_P, z_N, _ = mamba2_dims(zcfg)
     gen = torch.Generator(device=dev).manual_seed(11)
-    kern["wkv"] = check_wkv(dev, gen, 4, 32, rcfg.n_heads,
-                            rcfg.rwkv_head_size, wkv_ops, wkv_ref)
-    kern["ssd"] = check_ssd(dev, gen, 4, 32, z_nh, z_P, z_N, ssd_ops,
-                            ssd_ref)
+    kern.update(check_scans(dev, 11))
+    log_scan_launches(rcfg, zcfg)
     d112 = check_flash(zcfg, dev, gen, 4, 32, flash_ops, flash_ref, F)
     kern["flash_attention"]["d112"] = d112
-    for name in ("wkv", "ssd"):
-        r = kern[name]
-        log(f"[kernel] {name}: max_abs_err {r['max_abs_err']:.3g} "
-            f"(cases {json.dumps(r['cases'])}) | kernel {r['ms']:.4f} ms "
-            f"(on the card {r['device_ms']:.4f}) | plain {r['plain_ms']:.4f} "
-            f"ms | library none | bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}) | {r['at']}")
     log_attention("flash_attention d_head 112", d112)
 
     # 12-13. rwkv6-7b and zamba2-7b at full width and depth
@@ -2213,7 +2298,7 @@ def main() -> int:
                       "two_pass_floor_ms", "library_device_ms"):
             if extra in r:
                 entry[extra] = r[extra]
-        for sub in ("verify4", "chunk16", "d112"):
+        for sub in ("verify4", "chunk16", "d112", "s512"):
             if sub in r:
                 entry[sub] = {x: r[sub][x] for x in (
                     "max_abs_err", "ms", "device_ms", "plain_ms",
@@ -2232,4 +2317,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if "--scans" in sys.argv[1:]:
+        args = sys.argv[1:]
+        src = Path(args[args.index("--src") + 1]).resolve() \
+            if "--src" in args else ROOT / "src"
+        sys.exit(scans_only(src))
     sys.exit(main())

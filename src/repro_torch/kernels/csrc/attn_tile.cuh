@@ -27,20 +27,6 @@
 constexpr int ATTN_THREADS = 256;
 constexpr int ATTN_COLS = 32;  // key/value tokens a tile
 
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 __device__ __forceinline__ void fma4(float4& a, float p, const float4& v) {
   a.x = fmaf(p, v.x, a.x);
   a.y = fmaf(p, v.y, a.y);
@@ -277,16 +263,3 @@ struct AttnTile {
     __syncthreads();
   }
 };
-
-// cudaFuncSetAttribute once per kernel and device, not once per launch.
-template <class K>
-cudaError_t set_smem_once(K kern, size_t bytes, unsigned long long& done) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  const unsigned long long bit = 1ull << (dev & 63);
-  if (done & bit) return cudaSuccess;
-  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e == cudaSuccess) done |= bit;
-  return e;
-}

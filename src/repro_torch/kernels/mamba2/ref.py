@@ -62,3 +62,33 @@ def ssd_chunked_ref(xh, dt, la, Bc, Cc, h0, chunk: int = 64):
         ys.append(yin + yintra)
     y = torch.stack(ys, 0).transpose(0, 1).reshape(B, S, nh, P)
     return y, h
+
+
+def ssd_split_ref(xh, dt, la, Bc, Cc, h0, groups: int):
+    """The CUDA kernel's order (``csrc/ssd.cu``) in plain torch: the
+    recurrence token by token, each state row's N values dealt to
+    ``groups`` threads in chunks of 4 (n goes to group (n // 4) % groups);
+    y_t[p] is the sum of the groups' partials in group order, each partial
+    adding h[p, n] C_t[n] over its n in ascending order. (The kernel fuses
+    each product into its add, so the two round differently: they agree to
+    fp32 rounding.)"""
+    B, S, nh, P = xh.shape
+    N = Bc.shape[-1]
+    if groups < 1 or N % (4 * groups):
+        raise ValueError(f"groups {groups}: 4 * groups must divide N = {N}")
+    members = [[n for n in range(N) if (n // 4) % groups == g]
+               for g in range(groups)]
+    h, ys = h0, []
+    for t in range(S):
+        a = torch.exp(la[:, t])[..., None, None]                 # (B, nh, 1, 1)
+        xdt = (xh[:, t] * dt[:, t][..., None])[..., None]         # (B, nh, P, 1)
+        h = a * h + xdt * Bc[:, t][:, None, None, :]
+        prod = h * Cc[:, t][:, None, None, :]                     # (B, nh, P, N)
+        y = None
+        for ns in members:
+            part = prod[..., ns[0]]
+            for n in ns[1:]:
+                part = part + prod[..., n]
+            y = part if y is None else y + part
+        ys.append(y)
+    return torch.stack(ys, 1), h

@@ -69,3 +69,31 @@ def wkv_chunked_ref(r, k, v, w, u, state0, chunk: int = 32):
         outs.append(o_inter + o_intra)
     o = torch.stack(outs, 0).permute(1, 0, 3, 2, 4).reshape(B, S, H, N)
     return o, S0
+
+
+def wkv_split_ref(r, k, v, w, u, state0, groups: int):
+    """The CUDA kernel's order (``csrc/wkv.cu``) in plain torch: the
+    recurrence token by token, each state column's N values split into
+    ``groups`` runs of N / groups consecutive n; o_t[j] is the sum of the
+    runs' partials in run order, each partial adding
+    r_n (S[n, j] + u_n k_n v_j) over its run in ascending n, S read before
+    it is updated. (The kernel fuses each product into its add, so the two
+    round differently: they agree to fp32 rounding.)"""
+    B, S, H, N = r.shape
+    if groups < 1 or N % groups:
+        raise ValueError(f"groups {groups} must divide N = {N}")
+    M = N // groups
+    S_, outs = state0, []
+    for t in range(S):
+        rt, kt, vt, wt = r[:, t], k[:, t], v[:, t], w[:, t]     # (B, H, N)
+        kv = kt[..., :, None] * vt[..., None, :]                # (B, H, n, j)
+        term = rt[..., :, None] * (u[None, :, :, None] * kv + S_)
+        o = None
+        for g in range(groups):
+            part = term[..., g * M, :]
+            for n in range(g * M + 1, (g + 1) * M):
+                part = part + term[..., n, :]
+            o = part if o is None else o + part
+        S_ = wt[..., None] * S_ + kv
+        outs.append(o)
+    return torch.stack(outs, 1), S_

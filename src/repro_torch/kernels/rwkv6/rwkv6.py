@@ -8,6 +8,13 @@ tensors only; ``ops`` routes CPU tensors to ``ref``.
 
 r, k, v, w (B, S, H, N); u (H, N); state0 (B, H, N, N), fp32, contiguous,
 N in ``HEAD_SIZES``, any S >= 1 -> (o (B, S, H, N), state (B, H, N, N)).
+The kernel copies r, k, v, w and state0 16 bytes at a time: their data
+must be 16-byte aligned.
+
+The kernel sums each o_t[j] over ``GROUPS[N]`` threads of a state column;
+``ref.wkv_split_ref`` is that order in plain torch. :func:`kernel_config`
+reads the launch configuration from the built library (the card tests
+hold its groups to ``GROUPS``).
 """
 from __future__ import annotations
 
@@ -21,11 +28,28 @@ from repro_torch.kernels.dispatch import check_tensor, register, require
 WKV = register("wkv", "src/repro_torch/kernels/rwkv6/csrc/wkv.cu",
                "src/repro/kernels/rwkv6/rwkv6.py:70")
 
-# head sizes the kernel is instantiated for (csrc/wkv.cu)
-HEAD_SIZES = (16, 32, 64)
+# head sizes the kernel is instantiated for, each with the threads that
+# share a state column's n (csrc/wkv.cu, WkvShape::G)
+GROUPS = {16: 4, 32: 4, 64: 8}
+HEAD_SIZES = tuple(GROUPS)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _WKV = _build.Entry("wkv_f32", [_P] * 8 + [_I] * 4 + [_P])
+_CONFIG = ("cols", "groups", "tokens", "threads", "smem_bytes",
+           "blocks_per_sm")
+
+
+def kernel_config(N: int) -> dict:
+    """The launch configuration the built library reports at head size N
+    (on the card; builds the library at first use): state columns a
+    thread, threads a column, tokens staged a pass, threads and shared
+    bytes a block, and the blocks an SM the card's occupancy calculator
+    allows."""
+    fn = _build.library().wkv_config
+    fn.argtypes, fn.restype = [_I, _P], _I
+    cfg = (ctypes.c_int * len(_CONFIG))()
+    _build.check(fn(N, cfg), "wkv_config")
+    return dict(zip(_CONFIG, cfg))
 
 
 def wkv_cuda(r, k, v, w, u, state0):
@@ -37,19 +61,26 @@ def wkv_cuda(r, k, v, w, u, state0):
     check_tensor("u", u, torch.float32, 2, dev)
     check_tensor("state0", state0, torch.float32, 4, dev)
     B, S, H, N = r.shape
-    require(k.shape == v.shape == w.shape == r.shape,
-            f"r/k/v/w shapes differ: {[tuple(t.shape) for t in (r, k, v, w)]}")
-    require(N in HEAD_SIZES, f"head size {N} not in {HEAD_SIZES}")
+    if not k.shape == v.shape == w.shape == r.shape:
+        raise ValueError(f"r/k/v/w shapes differ: "
+                         f"{[tuple(t.shape) for t in (r, k, v, w)]}")
+    if N not in HEAD_SIZES:
+        raise ValueError(f"head size {N} not in {HEAD_SIZES}")
     require(S >= 1, "empty sequence")
-    require(u.shape == (H, N), f"u {tuple(u.shape)}, expected ({H}, {N})")
-    require(state0.shape == (B, H, N, N),
-            f"state0 {tuple(state0.shape)}, expected ({B}, {H}, {N}, {N})")
+    if u.shape != (H, N):
+        raise ValueError(f"u {tuple(u.shape)}, expected ({H}, {N})")
+    if state0.shape != (B, H, N, N):
+        raise ValueError(f"state0 {tuple(state0.shape)}, expected "
+                         f"({B}, {H}, {N}, {N})")
+    ptrs = (r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr())
+    for name, ptr in (*zip("rkvw", ptrs), ("state0", state0.data_ptr())):
+        if ptr % 16:
+            raise ValueError(f"{name}: data must be 16-byte aligned")
     o = torch.empty_like(r)
     state = torch.empty_like(state0)
     if B == 0:
         return o, state
-    err = _WKV.launch(dev, r.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      w.data_ptr(), u.data_ptr(), state0.data_ptr(),
+    err = _WKV.launch(dev, *ptrs, u.data_ptr(), state0.data_ptr(),
                       o.data_ptr(), state.data_ptr(), B, S, H, N)
     _build.check(err, "wkv")
     WKV.launches += 1

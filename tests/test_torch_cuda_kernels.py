@@ -12,7 +12,10 @@ wrapping; 64-bit offsets past 2**31 elements), the per-example kernels
 (``per_example_sumsq`` and ``clip_sum``: within their stated tolerance of
 the plain versions, bit-identical across launches, the clipped sum
 bit-equal to the plain fold at the kernel's norms), the two scans (``wkv``
-and ``ssd`` at every instantiated width, ragged lengths, strong decay) and
+and ``ssd`` at every instantiated width, S 1, ragged lengths past two
+staged passes, S 512, strong decay; each against its split algorithm and
+its launch configuration's groups against the wrapper's and one wave at
+the main shapes; misaligned data refused) and
 flash attention at d_head 112, and the smoke-size serving slice (plain and
 speculative; the ssm and hybrid families), the fused and barrier training
 slices (packed and perleaf) and per-example clipping on the card against
@@ -36,6 +39,9 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.kernels.mamba2 import ops as ssd_ops
 from repro_torch.kernels.mamba2 import ref as ssd_ref
+from repro_torch.kernels.mamba2.mamba2 import SHAPES as SSD_SHAPES
+from repro_torch.kernels.mamba2.mamba2 import GROUPS as SSD_GROUPS
+from repro_torch.kernels.mamba2.mamba2 import kernel_config as ssd_config
 from repro_torch.kernels.mamba2.mamba2 import ssd_cuda
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.kernels.paged_attention import ref as paged_ref
@@ -45,6 +51,9 @@ from repro_torch.kernels.paged_attention.paged_attention import \
     plan as paged_plan
 from repro_torch.kernels.rwkv6 import ops as wkv_ops
 from repro_torch.kernels.rwkv6 import ref as wkv_ref
+from repro_torch.kernels.rwkv6.rwkv6 import HEAD_SIZES as WKV_HEAD_SIZES
+from repro_torch.kernels.rwkv6.rwkv6 import GROUPS as WKV_GROUPS
+from repro_torch.kernels.rwkv6.rwkv6 import kernel_config as wkv_config
 from repro_torch.kernels.rwkv6.rwkv6 import wkv_cuda
 from repro_torch.kernels.zsmask import ops as zs_ops
 from repro_torch.kernels.zsmask import ref as zs_ref
@@ -702,11 +711,18 @@ def _wkv_inputs(dev, B, S, H, N, w=None, seed=0):
     return r, k, v, w, n(H, N) * 0.3, n(B, H, N, N) * 0.1
 
 
+# the kernel stages 16 tokens a pass (csrc/wkv.cu, WKV_T): 37 and 70 end in a
+# ragged pass past two whole ones, 512 walks 32 passes
 @pytest.mark.parametrize("B,S,H,N,w,atol", [
     (4, 32, 64, 64, None, WKV_ATOL),   # rwkv6-7b's prefill
+    (4, 512, 64, 64, None, WKV_ATOL),  # a long prompt at the same width
     (2, 23, 4, 64, None, WKV_ATOL),    # ragged: the plain version recurs
+    (2, 37, 4, 64, None, WKV_ATOL),
+    (2, 1, 4, 64, None, WKV_ATOL),
     (3, 1, 2, 32, None, WKV_ATOL),
-    (2, 70, 3, 16, None, WKV_ATOL),    # past one staged pass of tokens
+    (2, 37, 3, 32, None, WKV_ATOL),
+    (2, 70, 3, 16, None, WKV_ATOL),
+    (1, 1, 3, 16, None, WKV_ATOL),
     (1, 64, 2, 64, 0.05, WKV_STRONG_ATOL),
 ])
 def test_wkv_kernel_matches_plain(cuda, B, S, H, N, w, atol):
@@ -728,11 +744,17 @@ def _ssd_inputs(dev, B, S, nh, P, N, seed=0):
             n(B, nh, P, N) * 0.1)
 
 
+# the kernel stages 8 tokens a pass (csrc/ssd.cu, SSD_T): 23, 37 and 70 end in a
+# ragged pass past two whole ones, 512 walks 64 passes
 @pytest.mark.parametrize("B,S,nh,P,N", [
     (4, 32, 112, 64, 64),   # zamba2-7b's prefill
+    (4, 512, 112, 64, 64),  # a long prompt at the same width
     (2, 23, 8, 64, 64),     # ragged: the plain version recurs
-    (2, 70, 8, 16, 16),     # the smoke width, past one staged pass
+    (2, 37, 8, 64, 64),
+    (2, 1, 8, 64, 64),
+    (2, 70, 8, 16, 16),     # the smoke width
     (1, 5, 3, 16, 16),
+    (1, 1, 3, 16, 16),
 ])
 def test_ssd_kernel_matches_plain(cuda, B, S, nh, P, N):
     xs = _ssd_inputs(cuda, B, S, nh, P, N)
@@ -759,6 +781,84 @@ def test_scan_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     ys = _ssd_inputs(cuda, 1, 4, 2, 16, 16)
     with pytest.raises(ValueError, match="dtype"):
         ssd_cuda(ys[0].double(), *ys[1:])
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` whose data starts 4 bytes past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 1, device=t.device, dtype=t.dtype)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def test_scan_wrappers_refuse_misaligned_data(cuda):
+    """The kernels stage their inputs with 16-byte copies: a contiguous
+    view whose data is not 16-byte aligned raises, never launches."""
+    xs = _wkv_inputs(cuda, 1, 4, 2, 16)
+    n = dispatch.KERNELS["wkv"].launches
+    for i, name in ((0, "r"), (1, "k"), (2, "v"), (3, "w"), (5, "state0")):
+        args = list(xs)
+        args[i] = _misaligned(args[i])
+        with pytest.raises(ValueError, match=f"{name}: data must be 16-byte"):
+            wkv_cuda(*args)
+    ys = _ssd_inputs(cuda, 1, 4, 2, 16, 16)
+    for i, name in ((0, "xh"), (3, "Bc"), (4, "Cc"), (5, "h0")):
+        args = list(ys)
+        args[i] = _misaligned(args[i])
+        with pytest.raises(ValueError, match=f"{name}: data must be 16-byte"):
+            ssd_cuda(*args)
+    assert dispatch.KERNELS["wkv"].launches == n
+
+
+@pytest.mark.parametrize("P,N", SSD_SHAPES)
+def test_ssd_kernel_config_matches_groups(cuda, P, N):
+    """The built library sums over the wrapper's ``GROUPS`` (the order the
+    split tests check on the CPU), and the card holds a block of it: at
+    zamba2-7b's width, the 4 x 112 blocks of its prefill in one wave."""
+    cfg = ssd_config(P, N)
+    assert cfg["groups"] == SSD_GROUPS[(P, N)]
+    assert cfg["blocks_per_sm"] >= 1
+    if (P, N) == (64, 64):
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        assert cfg["blocks_per_sm"] * sms >= 4 * 112
+
+
+@pytest.mark.parametrize("N", WKV_HEAD_SIZES)
+def test_wkv_kernel_config_matches_groups(cuda, N):
+    """As for ``ssd``: at rwkv6-7b's head size, the 4 x 64 blocks of its
+    prefill in one wave."""
+    cfg = wkv_config(N)
+    assert cfg["groups"] == WKV_GROUPS[N]
+    assert cfg["blocks_per_sm"] >= 1
+    if N == 64:
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        assert cfg["blocks_per_sm"] * sms >= 4 * 64
+
+
+@pytest.mark.parametrize("B,S,nh,P,N", [
+    (2, 37, 4, 64, 64), (2, 37, 3, 16, 16), (1, 1, 2, 64, 64)])
+def test_ssd_kernel_matches_its_split_algorithm(cuda, B, S, nh, P, N):
+    """The kernel against ``ssd_split_ref`` at its groups: the same
+    partials in the same order, apart from the kernel's fused multiply-adds
+    (fp32 rounding)."""
+    xs = _ssd_inputs(cuda, B, S, nh, P, N, seed=4)
+    y, h = ssd_cuda(*xs)
+    py, ph = ssd_ref.ssd_split_ref(*xs, SSD_GROUPS[(P, N)])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, py, atol=ATOL, rtol=0)
+    torch.testing.assert_close(h, ph, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("B,S,H,N", [
+    (2, 37, 4, 64), (2, 37, 3, 32), (2, 37, 3, 16), (1, 1, 2, 64)])
+def test_wkv_kernel_matches_its_split_algorithm(cuda, B, S, H, N):
+    xs = _wkv_inputs(cuda, B, S, H, N, seed=4)
+    o, st = wkv_cuda(*xs)
+    po, pst = wkv_ref.wkv_split_ref(*xs, WKV_GROUPS[N])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o, po, atol=ATOL, rtol=0)
+    torch.testing.assert_close(st, pst, atol=ATOL, rtol=0)
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-7b"])
