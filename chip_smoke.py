@@ -13,13 +13,16 @@ perleaf) and per-example clipping against the host CPU.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --scans [--src DIR]   # phase 11's scans alone
+    python3 chip_smoke.py --pool [--src DIR]    # phase 3's page pool alone
 
 ``--scans`` runs only the card line, the build and phase 11's scans (their
 checks and times, no launch configuration), from the ``repro_torch`` under
 DIR (default: this checkout's ``src``), and prints their JSON record as its
 last line. It is the standing tool for a change to a scan kernel: two trees
 (an unpacked parent and this one) are timed in one call by running it once
-for each, since it uses only the wrappers every tree has.
+for each, since it uses only the wrappers every tree has. ``--pool`` does
+the same for phase 3's page-pool events, on trees that have
+``PagePool.rollback_many`` and ``ops.pool_zero``.
 
 Phases (any failed check raises, and the script exits non-zero):
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
@@ -33,7 +36,14 @@ Phases (any failed check raises, and the script exits non-zero):
      and its SDPA yardstick timed both as calls (``ms``, host-clocked:
      back-to-back calls between CUDA events, so the longer of the host's
      enqueue and the card's work) and on the card alone (``device_ms``: 50
-     calls in one CUDA graph);
+     calls in one CUDA graph); the page pools' zeroing kernel bit-equal to
+     its plain version over both whole pools (36 + 4 layers), then each
+     event as ``PagePool`` runs it, one launch each: an admission's reset
+     (4 fresh pages; target alone, and with the draft), a speculative
+     tick's rollback (4 tails of 3 tokens, both pools) and two single
+     ranges, beside ``index_fill_`` and the launch floor (an empty kernel
+     of the library in the same 50-launch graph); for the single ranges,
+     where a call's host time goes (the wrapper's Python, its C entry);
   4. qwen2.5-3b, all 36 layers, fp32, random weights from a seed: direct
      serve (batch 4, prompt 32, 16 new tokens), then 8 Zipf requests through
      4 slots in wave and continuous mode (page 16, chunk 16), and twice more
@@ -42,7 +52,9 @@ Phases (any failed check raises, and the script exits non-zero):
      every tick with random weights, so its rollbacks run); continuous must
      equal wave, and each speculative run continuous, token for token, and
      every kernel's launch counter, zeroed just before each path, must show
-     the path went through it;
+     the path went through it: ``paged_reset`` once an admission and
+     ``paged_rollback`` once a tick that rolled back (a spy on
+     ``PagePool.rollback_many`` counts those ticks);
   5. the same weights cut to 2 layers, run on the card with the kernels and
      on the host CPU with the plain versions: the logits must agree, and a
      speculative serve with a 1-layer draft must give the same tokens,
@@ -125,6 +137,7 @@ non-zero before printing any result.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -134,6 +147,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -362,109 +376,259 @@ def log_attention(name, r) -> None:
         f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}){grid} | {r['at']}")
 
 
-def check_paged_reset(cfg, dev, gen, L, N, P, width, fresh_n, ops, ref):
-    H, D = cfg.n_kv_heads, cfg.d_head
-    k = torch.randn(L, N, P, H, D, device=dev, generator=gen)
-    v = torch.randn(L, N, P, H, D, device=dev, generator=gen)
-    fresh = torch.randperm(N, device=dev, generator=gen)[:fresh_n]
-    # PagePool.alloc's row: the fresh pages, padded with fresh[0]
-    row = torch.full((width,), int(fresh[0]), dtype=torch.int32, device=dev)
-    row[:fresh_n] = fresh.to(torch.int32)
-    k0, v0 = k.clone(), v.clone()
-    kr, vr = k.clone(), v.clone()
-    ops.paged_reset(k, v, row)
-    ref.paged_reset_ref(kr, vr, row)
-    torch.cuda.synchronize()
-    check(torch.equal(k, kr) and torch.equal(v, vr),
-          "paged_reset differs from its plain version")
-    named = torch.zeros(N, dtype=torch.bool, device=dev)
-    named[row.long()] = True
-    check(bool((k[:, named] == 0).all()) and bool((v[:, named] == 0).all()),
-          "paged_reset left a named page non-zero")
-    check(torch.equal(k[:, ~named], k0[:, ~named])
-          and torch.equal(v[:, ~named], v0[:, ~named]),
-          "paged_reset touched a page outside its row")
-    rl = row.long()
-    nbytes = fresh_n * L * P * H * D * 4 * 2 + width * 4
-    bms, by = bound(nbytes, 0)
-    return {
-        "max_abs_err": 0.0,
-        "ms": cuda_ms(lambda: ops.paged_reset(k, v, row)),
-        "plain_ms": cuda_ms(lambda: ref.paged_reset_ref(k, v, row)),
-        "library_ms": cuda_ms(lambda: (k.index_fill_(1, rl, 0.0),
-                                       v.index_fill_(1, rl, 0.0))),
-        "bound_ms": bms, "bound_by": by,
-        "at": f"L={L} N={N} P={P} H={H} D={D} row width={width} "
-              f"({fresh_n} distinct) fp32",
-    }
-
-
 def bits(t):
     """The fp32 tensor's bit patterns: +0.0 and -0.0 differ, NaN == NaN."""
     return t.view(torch.int32)
 
 
-def rollback_case(k, v, row, start, end, P, ops, ref):
-    """One ``PagePool.rollback`` call on the pools in place, checked: both
-    whole pools bit-equal to the plain version run on a clone with the
-    kernel's arguments (the row sliced to the range's pages), the range
-    zeroed, every other lane untouched. Returns the kernel's arguments."""
-    k0, v0 = k.clone(), v.clone()
-    kr, vr = k.clone(), v.clone()
-    sp, ep = start // P, -(-end // P)
-    sub, lo, hi = row[sp:ep], start - sp * P, end - sp * P
-    ops.paged_rollback(k, v, row, start, end)
-    ref.paged_rollback_ref(kr, vr, sub, lo, hi)
+# the page pools at the serving shape (Session.serve's defaults): 4 slots of
+# 32 pages of 16 tokens, 128 pages; an admission's 4 fresh pages; one
+# speculative tick's 4 rejected tails of 3 tokens (spec_k 4 rejects at most
+# 3), each across a page boundary; the draft an early exit of 4 layers
+POOL_SLOTS, POOL_PAGE, POOL_WIDTH, POOL_FRESH, POOL_DRAFT = 4, 16, 32, 4, 4
+TICK_TAILS = ((0, 47, 50), (1, 15, 18), (2, 95, 98), (3, 63, 66))
+SINGLE_RANGES = ((47, 50), (14, 40))
+
+
+def stub_model(cfg, dev, gen, layers: int):
+    """What ``PagePool`` reads of a model: a stacked pool of ``layers``
+    layers at ``cfg``'s kv heads and head dim on ``dev``, filled with
+    negative values and NaNs (a zeroed lane must be +0.0)."""
+    def init_paged_cache(n_pages, page_size):
+        shape = (layers, n_pages, page_size, cfg.n_kv_heads, cfg.d_head)
+        pool = {}
+        for name in ("k_pages", "v_pages"):
+            t = -torch.rand(shape, device=dev, generator=gen)
+            t[:, ::7, :, 0, :3] = float("nan")
+            pool[name] = t
+        return pool
+
+    return types.SimpleNamespace(cfg=cfg, init_paged_cache=init_paged_cache)
+
+
+def launch_floor() -> dict:
+    """An empty kernel of the port's library launched through the same
+    ctypes path, as a call (``cuda_ms``) and on the card (``graph_ms``, 50
+    launches in a CUDA graph)."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    entry = _build.Entry("repro_empty_launch", [ctypes.c_void_p])
+    dev = torch.device("cuda", torch.cuda.current_device())
+
+    def launch():
+        _build.check(entry.launch(dev), "empty kernel")
+
+    return {"ms": cuda_ms(launch), "device_ms": graph_ms(launch)}
+
+
+def zero_event(kv, call, dead, width, at, card=None) -> dict:
+    """One zeroing event: ``call()`` run once and held to an independent
+    reference (slabs ``dead`` of every (L, limit, width) view of the pools
+    ``kv`` +0.0, every other lane's bits as they were), then timed as a call
+    (``cuda_ms``: the host included) and on the card (``graph_ms`` of
+    ``card``, by default ``call``), beside ``index_fill_`` of the same slabs
+    (one call a tensor)."""
+    views = [t.view(t.shape[0], -1, width) for pair in kv for t in pair]
+    before = [bits(t).clone() for t in views]
+    call()
     torch.cuda.synchronize()
-    check(torch.equal(bits(k), bits(kr)) and torch.equal(bits(v), bits(vr)),
-          f"paged_rollback [{start}, {end}) differs from its plain version")
-    dead = torch.zeros(k.shape[1], P, dtype=torch.bool, device=k.device)
-    rows = row.tolist()
-    for p in range(start, end):
-        dead[rows[p // P], p % P] = True
-    check(all(bool((bits(t)[:, dead] == 0).all()) for t in (k, v)),
-          f"paged_rollback [{start}, {end}) left a dead lane non-zero")
-    check(torch.equal(bits(k)[:, ~dead], bits(k0)[:, ~dead])
-          and torch.equal(bits(v)[:, ~dead], bits(v0)[:, ~dead]),
-          f"paged_rollback [{start}, {end}) touched a lane outside its range")
-    return sub, lo, hi
+    ix = torch.as_tensor(dead, dtype=torch.long, device=views[0].device)
+    for t, t0 in zip(views, before):
+        keep = torch.ones(t.shape[1], dtype=torch.bool, device=t.device)
+        keep[ix] = False
+        check(bool((bits(t)[:, ix] == 0).all()), f"{at}: a listed lane is "
+                                                  f"not +0.0")
+        check(torch.equal(bits(t)[:, keep], t0[:, keep]),
+              f"{at}: a lane outside the list was written")
+    del before
+
+    def fill():
+        for t in views:
+            t.index_fill_(1, ix, 0.0)
+
+    nbytes = 4 * len(dead) * width * sum(t.shape[0] for t in views)
+    return {"ms": cuda_ms(call), "device_ms": graph_ms(card or call),
+            "library_ms": cuda_ms(fill), "library_device_ms": graph_ms(fill),
+            "bound_ms": bound(nbytes, 0)[0], "at": at}
 
 
-def check_paged_rollback(cfg, dev, gen, L, N, P, width, ranges, ops, ref):
-    """``PagePool.rollback`` at the serving pools' shape: a slot's row of
-    ``width`` distinct pages, one case per range; the first range is timed
-    and reported, the others under ``cases``."""
-    H, D = cfg.n_kv_heads, cfg.d_head
-    k = torch.randn(L, N, P, H, D, device=dev, generator=gen)
-    v = torch.randn(L, N, P, H, D, device=dev, generator=gen)
-    row = torch.randperm(N, device=dev, generator=gen)[:width].to(torch.int32)
-    out = {}
-    for start, end in ranges:
-        sub, lo, hi = rollback_case(k, v, row, start, end, P, ops, ref)
-        # the yardstick: index_fill_ of the dead token rows of both pools
-        pos = torch.arange(lo, hi, device=dev)
-        flat = sub.long()[pos // P] * P + pos % P
-        kf, vf = k.view(L, N * P, H, D), v.view(L, N * P, H, D)
-        nbytes = 2 * L * (hi - lo) * H * D * 4 + sub.numel() * 4
-        bms, by = bound(nbytes, 0)
-        out[(start, end)] = {
-            "max_abs_err": 0.0,
-            "ms": cuda_ms(lambda: ops.paged_rollback(k, v, row, start, end)),
-            # one launch moves 221 KB: the calls above time the host's
-            # enqueue; this is the card's share
-            "device_ms": graph_ms(lambda: ops.paged_rollback(k, v, row, start,
-                                                             end)),
-            "plain_ms": cuda_ms(lambda: ref.paged_rollback_ref(k, v, sub, lo,
-                                                               hi)),
-            "library_ms": cuda_ms(lambda: (kf.index_fill_(1, flat, 0.0),
-                                           vf.index_fill_(1, flat, 0.0))),
-            "bound_ms": bms, "bound_by": by,
-            "at": f"L={L} N={N} P={P} H={H} D={D}, a row of {width} pages, "
-                  f"positions [{start}, {end}) on {sub.numel()} pages fp32",
-        }
-    first, *rest = out.values()
-    first["cases"] = rest
-    return first
+def host_split(target, dead) -> dict:
+    """Where a single range's call spends its host time, host-clocked
+    (``time.perf_counter``, ms a call, the least of 5 runs of 200 calls,
+    the card synchronised before and after each run): the whole
+    ``ops.pool_zero``; its CUDA wrapper with the C entry stubbed (the
+    checks, the set and sort of the indices, their int32 array); and the C
+    entry alone with its arguments built beforehand (ctypes' conversion,
+    the copy into the parameter block, the launch). The stub's calls are
+    taken off the launch counter again."""
+    import array
+
+    from repro_torch.kernels.paged_attention import ops
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+
+    (k, v), = target
+    L, N, P, H, D = k.shape
+    ids = array.array("i", sorted(set(dead)))
+    args = (k.data_ptr(), v.data_ptr(), L, 0, 0, 0, N * P * H * D, N * P,
+            H * D, ids.buffer_info()[0], len(ids))
+
+    def per_call(fn, n=200):
+        best = math.inf
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        return best / n * 1e3
+
+    out = {"indices": len(ids),
+           "call_ms": per_call(lambda: ops.pool_zero(target, dead, "token")),
+           "entry_ms": per_call(lambda: pa._ZERO.launch(k.device, *args))}
+    real, counted = pa._ZERO, pa.PAGED_ROLLBACK.launches
+    pa._ZERO = types.SimpleNamespace(launch=lambda *a: 1)
+    try:
+        out["wrapper_ms"] = per_call(
+            lambda: pa.pool_zero_cuda(target, dead, "token"))
+    finally:
+        pa._ZERO, pa.PAGED_ROLLBACK.launches = real, counted
+    return out
+
+
+def pool_events(cfg, dev, seed: int) -> dict:
+    """The page pools' zeroing events as ``PagePool`` runs them: an
+    admission's reset (4 fresh pages; the target pool alone, then with a
+    4-layer draft), one speculative tick's rollback (``TICK_TAILS``, both
+    pools) and the single ranges ``SINGLE_RANGES`` of the target pool (a
+    tick in which one slot rolled back), each by ``zero_event`` beside its
+    plain version; the single ranges also by ``host_split``."""
+    from repro_torch.kernels.paged_attention import ops, ref
+    from repro_torch.runtime.serving import PagePool
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    P, H, D = POOL_PAGE, cfg.n_kv_heads, cfg.d_head
+    N = POOL_SLOTS * POOL_WIDTH
+    shape = f"N={N} P={P} H={H} D={D} fp32"
+    out = {"floor": launch_floor()}
+
+    def make(draft):
+        pool = PagePool(stub_model(cfg, dev, gen, cfg.n_layers),
+                        n_slots=POOL_SLOTS, n_pages=N, page_size=P,
+                        pages_per_slot=POOL_WIDTH,
+                        draft_model=stub_model(cfg, dev, gen, POOL_DRAFT)
+                        if draft else None)
+        for s in range(POOL_SLOTS):
+            check(pool.alloc(s, POOL_WIDTH), "PagePool.alloc refused")
+        kv = [(p["k_pages"], p["v_pages"]) for p in (pool.pages,
+                                                     pool.draft_pages)
+              if p is not None]
+        return pool, kv
+
+    def event(kv, call, dead, slab, width, at):
+        r = zero_event(kv, call, dead, width, at)
+        r["plain_ms"] = cuda_ms(lambda: ref.pool_zero_ref(kv, dead, slab))
+        return r
+
+    for name, draft in (("reset", False), ("reset_draft", True)):
+        pool, kv = make(draft)
+        fresh = pool.slot_pages(1)[:POOL_FRESH]
+        layers = sum(k.shape[0] for k, _ in kv)
+        out[name] = event(
+            kv, lambda: ops.pool_zero(kv, fresh, "page"), fresh, "page",
+            P * H * D, f"{POOL_FRESH} fresh pages, {layers} layers "
+            f"({'target + draft' if draft else 'target'}), {shape}")
+
+    pool, kv = make(True)
+    tokens = sum((ops.token_indices(pool.tables[s], P, a, b)
+                  for s, a, b in TICK_TAILS), [])
+    out["tick"] = event(
+        kv, lambda: pool.rollback_many(TICK_TAILS), tokens, "token", H * D,
+        f"{len(TICK_TAILS)} tails of 3 tokens across a page boundary, "
+        f"{cfg.n_layers + POOL_DRAFT} layers (target + draft), {shape}")
+
+    target = kv[:1]
+    for a, b in SINGLE_RANGES:
+        dead = ops.token_indices(pool.tables[0], P, a, b)
+        r = event(target, lambda: ops.pool_zero(target, dead, "token"), dead,
+                  "token", H * D, f"positions [{a}, {b}) of a row of "
+                  f"{POOL_WIDTH} pages, {cfg.n_layers} layers (target), "
+                  f"{shape}")
+        out[f"range_{a}_{b}"] = {**r, "host": host_split(target, dead)}
+    return out
+
+
+def log_pool_events(ev: dict) -> None:
+    f = ev["floor"]
+    log(f"[kernel] launch floor (an empty kernel of the library, 1 block "
+        f"of 32 threads): {f['device_ms']:.4f} ms on the card (50 launches "
+        f"in a CUDA graph) | {f['ms']:.4f} ms a call")
+    for name in ("reset", "reset_draft", "tick",
+                 *(f"range_{a}_{b}" for a, b in SINGLE_RANGES)):
+        r = ev[name]
+        log(f"[kernel] page pool {name}: call {r['ms']:.4f} ms | card "
+            f"{r['device_ms']:.4f} ms | index_fill_ {r['library_ms']:.4f} ms "
+            f"(card {r['library_device_ms']:.4f}) | plain "
+            f"{r['plain_ms']:.4f} ms | bound {r['bound_ms']:.6f} ms (bytes) "
+            f"| {r['at']}")
+        if "host" in r:
+            h = r["host"]
+            log(f"[kernel] page pool {name} host, {h['indices']} indices "
+                f"(perf_counter, ms a call): ops.pool_zero {h['call_ms']:.5f}"
+                f" | wrapper, C entry stubbed {h['wrapper_ms']:.5f} | C entry "
+                f"alone {h['entry_ms']:.5f}")
+
+
+@contextlib.contextmanager
+def rollback_ticks(PagePool):
+    """Counts, in the one-element list it yields, the
+    ``PagePool.rollback_many`` calls (one a speculative tick) that had a
+    tail to erase: each must be one ``paged_rollback`` launch."""
+    ticks = [0]
+    real = PagePool.rollback_many
+
+    def spy(self, ranges):
+        ranges = list(ranges)
+        ticks[0] += any(end > start for _, start, end in ranges)
+        return real(self, ranges)
+
+    PagePool.rollback_many = spy
+    try:
+        yield ticks
+    finally:
+        PagePool.rollback_many = real
+
+
+def check_pool_zero(cfg, dev, gen, ops, ref) -> None:
+    """The zeroing kernel against its plain version at the serving pools'
+    shape (36 + 4 layers, 128 pages), bit for bit over both whole pools
+    (+0.0 over NaN and negative lanes): a padded reset row (its first page
+    repeated), the tick's tokens, and a list past one launch's capacity
+    with repeats and indices outside the pool (600 distinct: three
+    launches of 256, csrc/pool_zero.cu)."""
+    P, H, D = POOL_PAGE, cfg.n_kv_heads, cfg.d_head
+    N = POOL_SLOTS * POOL_WIDTH
+    kv = []
+    for L in (cfg.n_layers, POOL_DRAFT):
+        k = -torch.rand(L, N, P, H, D, device=dev, generator=gen)
+        v = torch.randn(L, N, P, H, D, device=dev, generator=gen)
+        k[:, ::5, :, 1] = float("nan")
+        kv.append((k, v))
+    pages = torch.randperm(N, device=dev, generator=gen)[:POOL_FRESH].tolist()
+    toks = torch.randperm(N * P, device=dev, generator=gen).tolist()
+    cases = (("page", pages + [pages[0]] * (POOL_WIDTH - POOL_FRESH)),
+             ("token", toks[:12]),
+             ("token", toks[:600] + toks[:9] + [-1, N * P]))
+    for slab, idx in cases:
+        want = [(k.clone(), v.clone()) for k, v in kv]
+        ops.pool_zero(kv, idx, slab)
+        ref.pool_zero_ref(want, idx, slab)
+        torch.cuda.synchronize()
+        check(all(torch.equal(bits(a), bits(b)) for (k, v), (kw, vw) in
+                  zip(kv, want) for a, b in ((k, kw), (v, vw))),
+              f"pool_zero ({slab}, {len(idx)} indices) differs from its "
+              f"plain version")
 
 
 def check_flash(cfg, dev, gen, B, S, ops, ref, F):
@@ -658,15 +822,17 @@ def log_scan_launches(rcfg, zcfg) -> None:
             f"measured): {json.dumps({'blocks': blocks, **cfg})}")
 
 
-def scans_only(src: Path) -> int:
-    """``--scans``: the card, the build and phase 11's scans alone, from the
-    ``repro_torch`` under ``src`` (another tree's, to time two trees in one
-    call); the last line is their JSON record."""
+def one_phase(phase: str, src: Path) -> int:
+    """``--scans`` / ``--pool``: the card, the build and phase 11's scans
+    or phase 3's page-pool events alone, from the ``repro_torch`` under
+    ``src`` (another tree's, to time two trees in one call); the last line
+    is their JSON record."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(src))
+    from repro_torch.configs import get_config
     from repro_torch.kernels import _build
 
     card = card_line()
@@ -674,8 +840,13 @@ def scans_only(src: Path) -> int:
     build_s = _build.build()
     log(f"[build] {_build.library_path()} in {build_s:.1f} s")
     torch.backends.cuda.matmul.allow_tf32 = False
-    scans = check_scans(torch.device("cuda"), 11)
-    log(json.dumps({"src": str(src), "card": card, "scans": scans}))
+    dev = torch.device("cuda")
+    if phase == "scans":
+        record = check_scans(dev, 11)
+    else:
+        record = pool_events(get_config("qwen2.5-3b"), dev, 0)
+        log_pool_events(record)
+    log(json.dumps({"src": str(src), "card": card, phase: record}))
     return 0
 
 
@@ -1368,38 +1539,35 @@ def main() -> int:
     kern = {
         "paged_attention": check_paged_attention(
             cfg, dev, gen, B_SLOTS, nP, PAGE, 1, paged_ops, paged_ref, F),
-        "paged_reset": check_paged_reset(
-            cfg, dev, gen, cfg.n_layers, B_SLOTS * nP, PAGE, nP, 4,
-            paged_ops, paged_ref),
         "flash_attention": check_flash(cfg, dev, gen, 4, 32, flash_ops,
                                        flash_ref, F),
-        # a 3-token rejected tail across a page boundary (spec_k 4 rejects
-        # at most 3), then a range over three pages
-        "paged_rollback": check_paged_rollback(
-            cfg, dev, gen, cfg.n_layers, B_SLOTS * nP, PAGE, nP,
-            ((47, 50), (14, 40)), paged_ops, paged_ref),
     }
     # a speculative verify (spec_k 4) and a prefill chunk; decode is C 1
     kern["paged_attention"]["verify4"] = check_paged_attention(
         cfg, dev, gen, B_SLOTS, nP, PAGE, 4, paged_ops, paged_ref, F)
     kern["paged_attention"]["chunk16"] = check_paged_attention(
         cfg, dev, gen, B_SLOTS, nP, PAGE, CHUNK, paged_ops, paged_ref, F)
-    r = kern["paged_rollback"]
-    log(f"[kernel] paged_rollback on the card alone (50 launches in a CUDA "
-        f"graph): {r['device_ms']:.4f} ms a launch")
-    for name, r in kern.items():
-        if name in ("paged_attention", "flash_attention"):
-            log_attention(name, r)
-            continue
-        log(f"[kernel] {name}: max_abs_err {r['max_abs_err']:.3g} | "
-            f"kernel {r['ms']:.4f} ms | plain {r['plain_ms']:.4f} ms | "
-            f"library {r['library_ms']:.4f} ms | bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}) | {r['at']}")
-    for r in kern["paged_rollback"]["cases"]:
-        log(f"[kernel] paged_rollback: bit-equal | kernel {r['ms']:.4f} ms "
-            f"(on the card {r['device_ms']:.4f}) | "
-            f"plain {r['plain_ms']:.4f} ms | library {r['library_ms']:.4f} ms "
-            f"| bound {r['bound_ms']:.6f} ms ({r['bound_by']}) | {r['at']}")
+    # the page pools' zeroing: bit-equal to its plain version, then each
+    # event as PagePool runs it (rows 3 and 4 of the kernel table)
+    check_pool_zero(cfg, dev, gen, paged_ops, paged_ref)
+    events = pool_events(cfg, dev, 0)
+
+    def pool_row(r) -> dict:
+        r = {k: x for k, x in r.items() if k != "host"}
+        return {**r, "max_abs_err": 0.0, "bound_by": "bytes",
+                "launch_floor_ms": events["floor"]["device_ms"],
+                "library_call": "index_fill_, one call a tensor"}
+
+    kern["paged_reset"] = {**pool_row(events["reset"]),
+                           "cases": [pool_row(events["reset_draft"])]}
+    kern["paged_rollback"] = {
+        **pool_row(events["tick"]),
+        "cases": [pool_row(events[f"range_{a}_{b}"])
+                  for a, b in SINGLE_RANGES]}
+    report["pool_events"] = events
+    for name in ("paged_attention", "flash_attention"):
+        log_attention(name, kern[name])
+    log_pool_events(events)
     for sub in ("verify4", "chunk16"):
         log_attention(f"paged_attention {sub}", kern["paged_attention"][sub])
 
@@ -1466,36 +1634,42 @@ def main() -> int:
     check(n_cont["flash_attention"] == 0, "continuous mode ran flash")
     check(n_cont["paged_rollback"] == 0, "plain continuous mode rolled back")
     # speculative: the self-draft, and a 4-layer early-exit draft over
-    # prefix sharing; each admission resets both pools, each rollback
-    # erases both
+    # prefix sharing; one launch resets both pools at an admission, one
+    # erases every rejected tail of a tick in both
+    rolled = {}
     for kind, draft, share in (("speculative self-draft", None, False),
                                ("speculative 4-layer draft", 4, True)):
-        dispatch.reset_launches()
-        res = sess.serve(scheduler="continuous", requests=copy.deepcopy(reqs),
-                         params=params, max_batch=B_SLOTS, max_len=MAX_LEN,
-                         page_size=PAGE, prefill_chunk=CHUNK,
-                         speculative=True, spec_k=4, draft_layers=draft,
-                         prefix_sharing=share)
-        n = dispatch.launch_counts()
+        with rollback_ticks(PagePool) as ticks:
+            dispatch.reset_launches()
+            res = sess.serve(scheduler="continuous",
+                             requests=copy.deepcopy(reqs), params=params,
+                             max_batch=B_SLOTS, max_len=MAX_LEN,
+                             page_size=PAGE, prefill_chunk=CHUNK,
+                             speculative=True, spec_k=4, draft_layers=draft,
+                             prefix_sharing=share)
+            n = dispatch.launch_counts()
         runs[kind] = (res, n)
+        rolled[kind] = ticks[0]
         check(res.stats.drained, f"{kind}: the server did not drain")
         check(bool((res.tokens == cont.tokens).all()),
               f"{kind} tokens differ from continuous tokens")
         check(res.stats.spec_proposed > 0, f"{kind}: no proposals")
         spec_admissions = len(reqs) + res.stats.preemptions
-        check(n["paged_reset"] == 2 * spec_admissions,
+        check(n["paged_reset"] == spec_admissions,
               f"{kind} ran reset {n['paged_reset']}x for {spec_admissions} "
-              f"admissions of two pools")
+              f"admissions (one launch covers both pools)")
+        check(n["paged_rollback"] == rolled[kind],
+              f"{kind} ran rollback {n['paged_rollback']}x for "
+              f"{rolled[kind]} ticks that rolled back")
         check(n["paged_attention"] > 0 and n["flash_attention"] == 0,
               f"{kind} launches {n}")
     n_spec = runs["speculative 4-layer draft"][1]
-    check(n_spec["paged_rollback"] > 0 and n_spec["paged_rollback"] % 2 == 0,
-          f"the early-exit run rolled back {n_spec['paged_rollback']}x, not a "
-          f"positive even count (both pools)")
+    check(n_spec["paged_rollback"] > 0, "the early-exit run never rolled back")
     for kind, (res, n) in runs.items():
         tok_s = 1 / res.decode_s_per_token
         st = res.stats
         report[kind] = {"useful_tokens": st.useful_tokens,
+                        "ticks_rolled_back": rolled.get(kind, 0),
                         "tok_per_s": tok_s,
                         "p50_latency_steps": st.p50_latency_steps,
                         "p99_latency_steps": st.p99_latency_steps,
@@ -1556,7 +1730,8 @@ def main() -> int:
     sc = on["cpu"].serve(requests=copy.deepcopy(sreqs), params=p_cpu, **skw)
     check(dispatch.launch_counts() == n_sg, "the CPU speculative run launched "
                                             "a kernel")
-    check(n_sg["paged_attention"] > 0 and n_sg["paged_reset"] == 2 * len(sreqs),
+    check(n_sg["paged_attention"] > 0
+          and n_sg["paged_reset"] == len(sreqs) + sg.stats.preemptions,
           f"the card's speculative slice launches {n_sg}")
     check(bool((sg.tokens == sc.tokens).all()),
           "speculative slice tokens differ between card and CPU")
@@ -2294,6 +2469,7 @@ def main() -> int:
                  "library_ms": r["library_ms"], "at": r["at"]}
         for extra in ("checked_at", "plain_at", "library_call",
                       "bound_detail", "cases", "device_ms", "max_rel_err",
+                      "launch_floor_ms",
                       "norms_max_rel_err", "tolerance", "tolerance_rel",
                       "two_pass_floor_ms", "library_device_ms"):
             if extra in r:
@@ -2317,9 +2493,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if "--scans" in sys.argv[1:]:
-        args = sys.argv[1:]
-        src = Path(args[args.index("--src") + 1]).resolve() \
-            if "--src" in args else ROOT / "src"
-        sys.exit(scans_only(src))
+    args = sys.argv[1:]
+    src = Path(args[args.index("--src") + 1]).resolve() \
+        if "--src" in args else ROOT / "src"
+    for phase in ("scans", "pool"):
+        if f"--{phase}" in args:
+            sys.exit(one_phase(phase, src))
     sys.exit(main())

@@ -136,9 +136,9 @@ def check(err: int, what: str) -> None:
 class Entry:
     """A C entry point bound once, at its first launch (the library builds
     then), with its argument types declared (every entry point returns
-    ``int``, the ``cudaError_t``), and launched on the current stream of
-    the tensors' card; the device is switched only when it is not the
-    current one."""
+    ``int``: the ``cudaError_t``, or what its comment in the source says),
+    and launched on the current stream of the tensors' card; the device is
+    switched only when it is not the current one."""
 
     __slots__ = ("name", "argtypes", "fn")
 
@@ -146,7 +146,7 @@ class Entry:
         self.name, self.argtypes, self.fn = name, argtypes, None
 
     def launch(self, dev: torch.device, *args) -> int:
-        """``fn(*args, stream)``; returns the ``cudaError_t``."""
+        """``fn(*args, stream)``; returns what the entry point returns."""
         fn = self.fn
         if fn is None:
             fn = getattr(library(), self.name)

@@ -1,10 +1,9 @@
-// Paged attention, page reset and rollback for confidential serving, fp32,
-// sm_90a.
+// Paged attention for confidential serving, fp32, sm_90a.
 //
-// Replaces the TPU kernels of src/repro/kernels/paged_attention/paged_attention.py:
+// Replaces the TPU kernel of src/repro/kernels/paged_attention/paged_attention.py:
 //   paged_attention_pallas (_paged_kernel, :98, pallas_call :142)
-//   paged_reset_pallas     (_reset_kernel, :158, pallas_call :223)
-//   paged_rollback_pallas  (_rollback_kernel, :163, pallas_call :198)
+// The page reset and rollback (paged_reset_pallas, paged_rollback_pallas)
+// are one batched kernel in pool_zero.cu.
 //
 // paged_attention: the GQA group is folded onto rows, as in the TPU kernel's
 // _fold: folded row r of kv head h is query head h*G + r / C at chunk token
@@ -48,24 +47,6 @@
 //   verify, 256 for a chunk, one 32-token tile each), the causal skip
 //   drops the pages no row sees, and the products are register-blocked.
 //
-// paged_reset: one block per (row entry j, layer l) zeroes the contiguous
-// P*H*D slab of K and of V at page row[j] of layer l, in place, with 16-byte
-// stores. A repeated id zeroes the same slab twice (idempotent); pages outside
-// the row are never written. Bound on this card: writing the named slabs once.
-//
-// paged_rollback: the TPU kernel walks (layer, page of the row) and writes
-// every page back, zeroing the lanes whose logical position j*P + t lies in
-// [start, end). Here only the dead positions are written: one block per
-// (dead position, layer l) zeroes that token's contiguous Hkv*D slab of K and
-// of V, with 16-byte stores. Positions outside [0, nP*P) name no page and are
-// skipped, as the TPU grid never visits them. The kernel writes +0.0, as the
-// TPU kernel's jnp.where does. Zeroing is idempotent, so a repeated page id
-// is harmless (the TPU kernel needs a duplicate-free row: a second visit
-// would write the page's old content back), and the whole table row can be
-// passed: only the range's pages are touched. Bound on this card: writing
-// the dead slabs once, 2 * L * (end - start) * Hkv*D * 4 bytes: 221 KB for
-// a 3-token tail of qwen2.5-3b, 0.07 us, so one launch is bound by its
-// launch.
 #include "attn_tile.cuh"
 
 namespace {
@@ -234,51 +215,6 @@ cudaError_t launch_paged_rows(int rows, const float* q, const float* k_pages,
   }
 }
 
-__global__ void paged_reset_kernel(float* __restrict__ k_pages, float* __restrict__ v_pages,
-                                   const int* __restrict__ row, int N, long long slab) {
-  const int j = blockIdx.x, layer = blockIdx.y;
-  const int page = row[j];
-  if (page < 0 || page >= N) return;  // never write outside the pool
-  const size_t base = ((size_t)layer * N + page) * slab;
-  float* k = k_pages + base;
-  float* v = v_pages + base;
-  if (slab % 4 == 0) {  // pool and slab 16-byte aligned: vector stores
-    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (long long i = threadIdx.x; i < slab / 4; i += blockDim.x) {
-      reinterpret_cast<float4*>(k)[i] = z;
-      reinterpret_cast<float4*>(v)[i] = z;
-    }
-  } else {
-    for (long long i = threadIdx.x; i < slab; i += blockDim.x) {
-      k[i] = 0.f;
-      v[i] = 0.f;
-    }
-  }
-}
-
-__global__ void paged_rollback_kernel(float* __restrict__ k_pages, float* __restrict__ v_pages,
-                                      const int* __restrict__ row, int N, int P, int tok,
-                                      int lo) {
-  const int pos = lo + blockIdx.x, layer = blockIdx.y;
-  const int page = row[pos / P];
-  if (page < 0 || page >= N) return;  // never write outside the pool
-  const size_t base = (((size_t)layer * N + page) * P + pos % P) * tok;
-  float* k = k_pages + base;
-  float* v = v_pages + base;
-  if (tok % 4 == 0) {  // pool and slab 16-byte aligned: vector stores
-    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int i = threadIdx.x; i < tok / 4; i += blockDim.x) {
-      reinterpret_cast<float4*>(k)[i] = z;
-      reinterpret_cast<float4*>(v)[i] = z;
-    }
-  } else {
-    for (int i = threadIdx.x; i < tok; i += blockDim.x) {
-      k[i] = 0.f;
-      v[i] = 0.f;
-    }
-  }
-}
-
 }  // namespace
 
 // q (B, C, Hq, D); k_pages, v_pages (N, P, Hkv, D); tables (B, nP) int32;
@@ -307,27 +243,4 @@ REPRO_API int paged_attention_f32(const float* q, const float* k_pages, const fl
     default:
       return cudaErrorInvalidValue;
   }
-}
-
-// k_pages, v_pages (L, N, P, H, D) fp32 contiguous, zeroed in place at the
-// pages named in row (nP,) int32 across all L layers.
-REPRO_API int paged_reset_f32(float* k_pages, float* v_pages, const int* row, int L, int N,
-                              long long slab, int nP, cudaStream_t stream) {
-  dim3 grid(nP, L);
-  paged_reset_kernel<<<grid, 256, 0, stream>>>(k_pages, v_pages, row, N, slab);
-  return cudaGetLastError();
-}
-
-// k_pages, v_pages (L, N, P, H, D) fp32 contiguous; row (nP,) int32. Zeroes
-// logical positions [start, end) of row (page j holds j*P .. j*P+P-1) across
-// all L layers, in place; tok = H*D.
-REPRO_API int paged_rollback_f32(float* k_pages, float* v_pages, const int* row, int L, int N,
-                                 int P, int tok, int nP, int start, int end,
-                                 cudaStream_t stream) {
-  const long long lo = start > 0 ? start : 0;
-  const long long hi = (long long)end < (long long)nP * P ? end : (long long)nP * P;
-  if (L <= 0 || hi <= lo) return cudaSuccess;
-  dim3 grid((unsigned)(hi - lo), L);
-  paged_rollback_kernel<<<grid, 64, 0, stream>>>(k_pages, v_pages, row, N, P, tok, (int)lo);
-  return cudaGetLastError();
 }

@@ -1,24 +1,27 @@
-"""CUDA wrappers of the paged-attention, page-reset and rollback kernels.
+"""CUDA wrappers of the paged-attention kernel and of the page pools'
+batched zeroing kernel (the page reset and the rollback).
 
-The kernels are in ``csrc/paged_attention.cu`` (its header says which TPU
-kernels they replace, what bounds them on an H100, and how the design
-answers that). These wrappers check what the kernels take, allocate the
-output (and the attention's split scratch), launch on the current stream,
-raise on a CUDA error and count the launch. They take CUDA tensors only;
-``ops`` routes CPU tensors to ``ref``. A wrapper's host time is most of a
-call at the serving shapes, so each keeps it short: the C entry points are
-bound once, the device is switched only when it is not already current, and
-the stream is read once; every check that raises stays, and builds its
-message only when it fails.
+The kernels are in ``csrc/paged_attention.cu`` and ``csrc/pool_zero.cu``
+(each header says which TPU kernels it replaces, what bounds it on an H100,
+and how the design answers that). These wrappers check what the kernels
+take, allocate the output (and the attention's split scratch), launch on the
+current stream, raise on a CUDA error and count the launches. They take
+CUDA tensors only; ``ops`` routes CPU tensors to ``ref``. A wrapper's host
+time is most of a call at the serving shapes, so each keeps it short: the C
+entry points are bound once, the device is switched only when it is not
+already current, and the stream is read once; every check that raises
+stays, and builds its message only when it fails.
 
 Layouts (as in the JAX package):
   q                (B, C, Hq, D)   C new tokens per slot
   k_pages/v_pages  (N, P, Hkv, D)  one layer's pool: N pages of P tokens
   tables           (B, nP) int32   the slots' physical page ids
   q_start          (B,) int32      tokens already cached per slot
+  a stacked pool   (L, N, P, H, D) every layer's K or V pages, for zeroing
 """
 from __future__ import annotations
 
+import array
 import ctypes
 import functools
 
@@ -34,19 +37,23 @@ PAGED_ATTENTION = register(
     "src/repro/kernels/paged_attention/paged_attention.py:128")
 PAGED_RESET = register(
     "paged_reset",
-    "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
+    "src/repro_torch/kernels/paged_attention/csrc/pool_zero.cu",
     "src/repro/kernels/paged_attention/paged_attention.py:213")
 PAGED_ROLLBACK = register(
     "paged_rollback",
-    "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
+    "src/repro_torch/kernels/paged_attention/csrc/pool_zero.cu",
     "src/repro/kernels/paged_attention/paged_attention.py:184")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+    ctypes.c_longlong
 _ATTENTION = _build.Entry("paged_attention_f32",
                           [_P] * 7 + [_I] * 10 + [_F, _P])
-_RESET = _build.Entry("paged_reset_f32",
-                      [_P] * 3 + [_I] * 2 + [ctypes.c_longlong, _I, _P])
-_ROLLBACK = _build.Entry("paged_rollback_f32", [_P] * 3 + [_I] * 7 + [_P])
+_ZERO = _build.Entry("pool_zero_f32",
+                     [_P, _P, _I, _P, _P, _I, _LL, _LL, _LL, _P, _I, _P])
+
+# what a slab is: a page (reset; the TPU kernel paged_reset_pallas) or a
+# token (rollback; paged_rollback_pallas), and the counter of each
+SLABS = {"page": PAGED_RESET, "token": PAGED_ROLLBACK}
 
 # the kernel's row tiles (csrc/paged_attention.cu): the folded G*C rows in
 # tiles of 8, 16, 32 or 64
@@ -120,45 +127,60 @@ def paged_attention_cuda(q, k_pages, v_pages, tables, q_start) -> torch.Tensor:
     return out
 
 
-def _check_pools(what, k_pages, v_pages, row) -> torch.device:
-    """The pools' and the row's checks of the reset and rollback kernels;
-    returns their device."""
+def _check_pools(k_pages, v_pages) -> torch.device:
+    """A stacked pool's checks (CUDA, fp32, 5-d, contiguous, K and V
+    alike); returns its device."""
     dev = k_pages.device
     if dev.type != "cuda":
-        raise ValueError(f"{what} takes CUDA tensors")
+        raise ValueError("pool_zero_cuda takes CUDA tensors")
     check_tensor("k_pages", k_pages, torch.float32, 5, dev)
     check_tensor("v_pages", v_pages, torch.float32, 5, dev)
-    check_tensor("row", row, torch.int32, 1, dev)
     require(v_pages.shape == k_pages.shape, "k_pages/v_pages shapes differ")
     return dev
 
 
-def paged_reset_cuda(k_pages, v_pages, row) -> None:
-    """Launch the page-reset kernel: zero the pages named in ``row`` across
-    every layer of the stacked (L, N, P, H, D) pools, in place."""
-    dev = _check_pools("paged_reset_cuda", k_pages, v_pages, row)
-    L, N, P, H, D = k_pages.shape
-    nP = row.shape[0]
-    if L == 0 or nP == 0:
+def pool_zero_cuda(pools, idx, slab: str) -> None:
+    """Launch the zeroing kernel: the distinct slabs among ``idx`` (host
+    ints) in every layer of one or two stacked pools ``pools``, a sequence
+    of ``(k_pages, v_pages)`` pairs of (L, N, P, H, D) sharing N, P, H and
+    D, in place. ``slab`` is ``"page"`` (page ids, below N) or ``"token"``
+    (pool token indices ``page*P + t``, below N*P); an index outside that
+    range is skipped. The C entry launches once for each chunk of indices
+    its parameter block holds and returns how many launches it made, which
+    are counted on the slab's kernel (``SLABS``); the indices travel in the
+    launch's parameters, so nothing is copied to the card."""
+    if not 1 <= len(pools) <= 2:
+        raise ValueError(f"pool_zero takes one or two pools, got {len(pools)}")
+    counter = SLABS.get(slab)
+    if counter is None:
+        raise ValueError(f"slab {slab!r}: expected one of {sorted(SLABS)}")
+    (k_a, v_a), *rest = pools
+    dev = _check_pools(k_a, v_a)
+    L_a, N, P, H, D = k_a.shape
+    kb = vb = L_b = 0
+    if rest:
+        (k_b, v_b), = rest
+        _check_pools(k_b, v_b)
+        if k_b.device != dev:
+            raise ValueError(f"pools on {dev} and {k_b.device}")
+        if k_b.shape[1:] != k_a.shape[1:]:
+            raise ValueError(f"pools differ in (N, P, H, D): "
+                             f"{tuple(k_a.shape[1:])} and "
+                             f"{tuple(k_b.shape[1:])}")
+        kb, vb, L_b = k_b.data_ptr(), v_b.data_ptr(), k_b.shape[0]
+    width, limit = (P * H * D, N) if slab == "page" else (H * D, N * P)
+    # distinct and sorted (an event's few ints: a set, not numpy), and
+    # int32-safe: one outside [0, limit) becomes -1 or limit, which the
+    # kernel skips
+    ids = sorted(set(map(int, idx)))
+    if ids and (ids[0] < 0 or ids[-1] >= limit):
+        ids = [-1 if i < 0 else min(i, limit) for i in ids]
+    if not ids:
         return
-    err = _RESET.launch(dev, k_pages.data_ptr(), v_pages.data_ptr(),
-                        row.data_ptr(), L, N, P * H * D, nP)
-    _build.check(err, "paged_reset")
-    PAGED_RESET.launches += 1
-
-
-def paged_rollback_cuda(k_pages, v_pages, row, start: int, end: int) -> None:
-    """Launch the rollback kernel: zero logical positions ``[start, end)``
-    of ``row`` (page ``j`` holds ``j*P .. j*P+P-1``) across every layer of
-    the stacked (L, N, P, H, D) pools, in place. Positions outside
-    ``[0, nP*P)`` are skipped; an empty range launches nothing."""
-    dev = _check_pools("paged_rollback_cuda", k_pages, v_pages, row)
-    L, N, P, H, D = k_pages.shape
-    nP = row.shape[0]
-    start, end = int(start), int(end)
-    if L == 0 or min(end, nP * P) <= max(start, 0):
-        return
-    err = _ROLLBACK.launch(dev, k_pages.data_ptr(), v_pages.data_ptr(),
-                           row.data_ptr(), L, N, P, H * D, nP, start, end)
-    _build.check(err, "paged_rollback")
-    PAGED_ROLLBACK.launches += 1
+    ids = array.array("i", ids)  # the C entry reads them in place
+    made = _ZERO.launch(dev, k_a.data_ptr(), v_a.data_ptr(), L_a, kb, vb,
+                        L_b, N * P * H * D, limit, width,
+                        ids.buffer_info()[0], len(ids))
+    if made < 0:
+        _build.check(-made, "pool_zero")
+    counter.launches += made

@@ -6,7 +6,8 @@ Attention is computed in the vectorized form of the JAX package's
 then one materialized masked softmax. Not bit-identical to the kernel's
 online softmax (sums run in another order), equal within fp32 rounding.
 Reset and rollback only write zeros, so kernel and plain version are
-bit-equal. The CPU tests hold them to the JAX Pallas kernels, and
+bit-equal; the card runs both as one batched kernel, whose plain version is
+``pool_zero_ref``. The CPU tests hold them to the JAX Pallas kernels, and
 ``chip_smoke.py`` holds the CUDA kernels to them on the card.
 """
 from __future__ import annotations
@@ -133,3 +134,27 @@ def paged_rollback_ref(k_pages, v_pages, row, start: int, end: int) -> None:
     page, off = row.long()[pos // P], pos % P
     k_pages[:, page, off] = 0.0
     v_pages[:, page, off] = 0.0
+
+
+def pool_zero_ref(pools, idx, slab: str) -> None:
+    """The batched reset (``slab`` ``"page"``: page ids) and rollback
+    (``"token"``: pool token indices ``page*P + t``): zero the slabs
+    ``idx`` (host ints) in every layer of each ``(k_pages, v_pages)`` pair
+    of ``pools`` (one or two stacked (L, N, P, H, D) pools sharing N, P, H
+    and D), in place. Indices outside the pool (``[0, N)`` or
+    ``[0, N*P)``) are skipped, as the kernel's guard skips them; repeats
+    zero the same slab again. Writes +0.0."""
+    if not 1 <= len(pools) <= 2:
+        raise ValueError(f"pool_zero takes one or two pools, got {len(pools)}")
+    if slab not in ("page", "token"):
+        raise ValueError(f"slab {slab!r}: expected 'page' or 'token'")
+    shapes = {tuple(t.shape[1:]) for kv in pools for t in kv}
+    if len(shapes) != 1:
+        raise ValueError(f"pools differ in (N, P, H, D): {sorted(shapes)}")
+    N, P, H, D = shapes.pop()
+    limit, width = (N, P * H * D) if slab == "page" else (N * P, H * D)
+    ix = torch.as_tensor(idx, dtype=torch.long).reshape(-1)
+    ix = ix[(ix >= 0) & (ix < limit)]
+    for k, v in pools:
+        for t in (k, v):
+            t.view(t.shape[0], limit, width)[:, ix.to(t.device)] = 0.0

@@ -26,8 +26,14 @@ a fresh zeroed page.
 
 Speculative decoding adds a parallel *draft* pool (same page ids, tables,
 lengths and refcounts; only the K/V tensors differ, sized for the draft
-model): admission zeroing and the rejected-tail ``rollback`` run on both
-pools, so the draft cache keeps every isolation property of the target's.
+model): admission zeroing and the rejected-tail rollback run on both pools,
+so the draft cache keeps every isolation property of the target's.
+
+Each event is one kernel launch for both pools (``paged_ops.pool_zero``):
+an admission zeroes its distinct fresh pages, and a speculative tick erases
+every slot's rejected tail at once (``rollback_many``). The tables stay in
+numpy; the host resolves an event to page ids or pool token indices, which
+travel in the launch's parameters, so no event copies anything to the card.
 """
 from __future__ import annotations
 
@@ -36,7 +42,6 @@ from collections import OrderedDict
 from typing import Optional, Sequence
 
 import numpy as np
-import torch
 
 from repro_torch.kernels.paged_attention import ops as paged_ops
 
@@ -45,9 +50,9 @@ class PagePool:
     """Refcounted free-list allocator over a device page pool + per-slot
     block tables, with an optional same-tenant prefix index.
 
-    ``tables`` rows are padded with the slot's own first page (the reset
-    kernel takes duplicate ids), so a short request never holds a reserved
-    sentinel page and the table stays rectangular."""
+    ``tables`` rows are padded with the slot's own first page, so a short
+    request never holds a reserved sentinel page and the table stays
+    rectangular (attention masks the padding; zeroing never sees it)."""
 
     def __init__(self, model, *, n_slots: int, n_pages: int, page_size: int,
                  pages_per_slot: int, draft_model=None,
@@ -56,7 +61,6 @@ class PagePool:
             raise ValueError(
                 f"{model.cfg.name} ({model.cfg.family}) has no paged serving "
                 f"path; continuous batching needs a transformer-family model")
-        self.device = model.device
         self.page_size = page_size
         self.n_pages = n_pages
         self.pages = model.init_paged_cache(n_pages, page_size)
@@ -77,17 +81,9 @@ class PagePool:
         self._prefix_index: OrderedDict[tuple, int] = OrderedDict()
         # slot -> [pages hashed so far, running digest]
         self._reg: dict[int, list] = {}
-
-    def _pools(self) -> list[dict]:
-        return [self.pages] + ([] if self.draft_pages is None
-                               else [self.draft_pages])
-
-    def _reset_rows(self, row: np.ndarray) -> None:
-        """Zero ``row``'s pages in-kernel in the target pool and, when there
-        is one, the draft pool."""
-        row = torch.as_tensor(row, device=self.device)
-        for pool in self._pools():
-            paged_ops.paged_reset(pool["k_pages"], pool["v_pages"], row)
+        # the (k, v) pools every zeroing event covers: target, then draft
+        self._kv = [(p["k_pages"], p["v_pages"]) for p in
+                    (self.pages, self.draft_pages) if p is not None]
 
     def alloc(self, slot: int, n: int, shared: Sequence[int] = ()) -> bool:
         """Claim ``n`` pages for ``slot``: map the ``shared`` prefix pages
@@ -113,12 +109,9 @@ class PagePool:
         row = np.full((width,), pages[0], np.int32)
         row[:n] = pages
         # zero BEFORE publishing the table row, and only the FRESH pages
-        # (shared pages carry the prefix K/V the sharer is here for). The
-        # reset row is full width, padded with fresh[0]: the kernel takes
-        # duplicate ids.
-        reset_row = np.full((width,), fresh[0], np.int32)
-        reset_row[:fresh_n] = fresh
-        self._reset_rows(reset_row)
+        # (shared pages carry the prefix K/V the sharer is here for): one
+        # launch for both pools, no padding
+        paged_ops.pool_zero(self._kv, fresh, "page")
         for p in shared:
             self.refcount[p] += 1
         self.refcount[fresh] = 1
@@ -204,24 +197,33 @@ class PagePool:
                 self.refcount[page] += 1
             st[0] += 1
 
+    def rollback_many(self, ranges) -> None:
+        """Zero each ``(slot, start, end)`` range of logical token positions
+        in-kernel, in both pools, in ONE launch (the speculative tick's
+        rejected tails). A range lies past its slot's shared prefix
+        (rejected speculation starts at the verified length, past the
+        prompt) and inside the slot's own pages, so a shared page is never
+        written; every range is checked before anything is erased. Empty
+        ranges (``end <= start``) are skipped."""
+        P = self.page_size
+        tokens = []
+        for slot, start, end in ranges:
+            if end <= start:
+                continue
+            if start < len(self._shared[slot]) * P:
+                raise ValueError(f"rollback [{start}, {end}) reaches slot "
+                                 f"{slot}'s shared prefix pages")
+            if end > len(self._owned[slot]) * P:
+                raise ValueError(f"rollback [{start}, {end}) runs past slot "
+                                 f"{slot}'s pages")
+            tokens += paged_ops.token_indices(self.tables[slot], P, start,
+                                              end)
+        if tokens:
+            paged_ops.pool_zero(self._kv, tokens, "token")
+
     def rollback(self, slot: int, start: int, end: int) -> None:
-        """Zero logical token positions ``[start, end)`` of the slot's
-        sequence in-kernel, in both pools (the speculative rejected-tail
-        eraser). The range lies past the shared prefix (rejected speculation
-        starts at the verified length, past the prompt) and inside the
-        slot's own pages, so a shared page is never written."""
-        if end <= start:
-            return
-        if start < len(self._shared[slot]) * self.page_size:
-            raise ValueError(f"rollback [{start}, {end}) reaches slot "
-                             f"{slot}'s shared prefix pages")
-        if end > len(self._owned[slot]) * self.page_size:
-            raise ValueError(f"rollback [{start}, {end}) runs past slot "
-                             f"{slot}'s pages")
-        row = torch.as_tensor(self.tables[slot], device=self.device)
-        for pool in self._pools():
-            paged_ops.paged_rollback(pool["k_pages"], pool["v_pages"], row,
-                                     start, end)
+        """``rollback_many`` of one range."""
+        self.rollback_many(((slot, start, end),))
 
     def slot_pages(self, slot: int) -> list[int]:
         """Physical page ids currently owned by ``slot`` (tests/probes)."""

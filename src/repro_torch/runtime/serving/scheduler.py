@@ -18,8 +18,8 @@ Speculative decoding (``speculative=True``): a draft model, the first
 head, proposes ``spec_k - 1`` tokens per tick from a parallel draft pool
 (same page ids, same tables); the target verifies them in ONE chunk-shaped
 ``paged_step`` (``logits_mode="all"``); the longest matching prefix is
-accepted greedily, and the rejected tail is erased in-kernel from both pools
-(``PagePool.rollback``) before the next tick.
+accepted greedily, and every slot's rejected tail is erased in-kernel from
+both pools by one launch (``PagePool.rollback_many``) before the next tick.
 
 Token-for-token equality with the wave baseline (greedy argmax over the same
 model), and of the speculative with the plain scheduler, are test
@@ -347,7 +347,7 @@ class ContinuousServer:
     def _run_spec_decode(self) -> None:
         """One speculative tick for every decode-ready slot: ``k_eff - 1``
         draft proposals, one chunk-shaped verify, greedy accept, in-kernel
-        rollback of the rejected tail in both pools.
+        rollback of every slot's rejected tail in both pools (one launch).
 
         ``k_eff = min(spec_k, remaining budget)`` per slot: the bucketed
         allocation covers prompt + max_new tokens, so speculating past the
@@ -381,28 +381,37 @@ class ContinuousServer:
         greedy = vlogits.argmax(-1).cpu().numpy()
         if self.trace_logits:
             vlogits = vlogits.float().cpu().numpy()
-        for i in idx:
-            ke, p, g = int(k_eff[i]), props[i], greedy[i]
-            a = 0
-            while a < ke - 1 and p[a + 1] == g[a]:
-                a += 1
-            self.stats.spec_proposed += ke - 1
-            self.stats.spec_accepted += a
-            done = False
-            for j in range(a + 1):
-                if self.trace_logits:
-                    self.logit_trace.setdefault(
-                        self.slots[i].req.rid, []).append(vlogits[i, j].copy())
-                if self._append(i, int(g[j])):
-                    # _finish released the slot: no rollback, its fresh pages
-                    # are zeroed by the next admission as usual
-                    done = True
-                    break
-            if not done:
-                final = int(base[i]) + a + 1
-                self.pool.rollback(i, final, int(base[i]) + ke)
-                self.pool.lengths[i] = final
-                self.slots[i].pending = int(g[a])
+        tails = [tail for i in idx if (tail := self._accept(
+            i, int(base[i]), int(k_eff[i]), props[i], greedy[i],
+            vlogits)) is not None]
+        # every rejected tail of the tick in one launch for both pools, after
+        # the loop: _append and _finish change host state only, and nothing
+        # reads the pools before the next tick's paged steps
+        self.pool.rollback_many(tails)
+
+    def _accept(self, i: int, base: int, ke: int, p: list, g,
+                vlogits) -> Optional[tuple]:
+        """Greedy acceptance of slot ``i``'s proposals ``p`` against the
+        verify's argmaxes ``g``: append the accepted tokens and the
+        correction, then the slot's rejected tail ``(i, start, end)`` to
+        erase, or None when the request finished (``_finish`` released the
+        slot: no rollback, its fresh pages are zeroed by the next admission
+        as usual)."""
+        a = 0
+        while a < ke - 1 and p[a + 1] == g[a]:
+            a += 1
+        self.stats.spec_proposed += ke - 1
+        self.stats.spec_accepted += a
+        for j in range(a + 1):
+            if self.trace_logits:
+                self.logit_trace.setdefault(
+                    self.slots[i].req.rid, []).append(vlogits[i, j].copy())
+            if self._append(i, int(g[j])):
+                return None
+        final = base + a + 1
+        self.pool.lengths[i] = final
+        self.slots[i].pending = int(g[a])
+        return i, final, base + ke
 
     def step(self) -> None:
         """One scheduler tick: admit into free slots, decode (or

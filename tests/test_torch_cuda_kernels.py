@@ -5,7 +5,9 @@ it is (``python -m pytest -q tests/test_torch_cuda_kernels.py``); without a
 CUDA device every test skips. ``chip_smoke.py`` repeats the full-width
 checks on every run; these add the edges: more head dims, row tiles past
 one block, isolation against poisoned pages, rollback ranges past the row
-and with scalar stores, argument checks, the DP
+and with scalar stores, the page pools' batched zeroing (one and two pools,
+pages and tokens, past one launch's index capacity, indices outside the
+pool, one launch an event from ``PagePool``), argument checks, the DP
 kernels' bit-equality with their plain versions (``clip_mask`` in every
 flag combination and in place, ``zsmask`` at counter offsets past 2**31 and
 wrapping; 64-bit offsets past 2**31 elements), the per-example kernels
@@ -46,7 +48,7 @@ from repro_torch.kernels.mamba2.mamba2 import ssd_cuda
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.kernels.paged_attention import ref as paged_ref
 from repro_torch.kernels.paged_attention.paged_attention import \
-    paged_rollback_cuda
+    pool_zero_cuda
 from repro_torch.kernels.paged_attention.paged_attention import \
     plan as paged_plan
 from repro_torch.kernels.rwkv6 import ops as wkv_ops
@@ -58,7 +60,8 @@ from repro_torch.kernels.rwkv6.rwkv6 import wkv_cuda
 from repro_torch.kernels.zsmask import ops as zs_ops
 from repro_torch.kernels.zsmask import ref as zs_ref
 from repro_torch.kernels.zsmask.zsmask import zsmask_cuda
-from repro_torch.runtime.serving import zipf_requests
+from repro_torch.runtime.serving import PagePool, zipf_requests
+from repro_torch.runtime.serving.scheduler import _draft_of
 
 # kernel vs plain version, fp32 on the card: sums in another order
 ATOL = RTOL = 1e-5
@@ -214,7 +217,7 @@ def test_paged_rollback_kernel_bit_equal_and_isolated(cuda, H, D, row, start,
     row = torch.tensor(row, dtype=torch.int32, device=cuda)
     kr, vr = k.clone(), v.clone()
     n = dispatch.KERNELS["paged_rollback"].launches
-    paged_rollback_cuda(k, v, row, start, end)
+    paged_ops.paged_rollback(k, v, row, start, end)
     paged_ref.paged_rollback_ref(kr, vr, row, start, end)
     torch.cuda.synchronize()
     assert dispatch.KERNELS["paged_rollback"].launches == n + 1
@@ -226,6 +229,132 @@ def test_paged_rollback_kernel_bit_equal_and_isolated(cuda, H, D, row, start,
     assert (k.view(torch.int32)[:, dead] == 0).all()
     assert (v.view(torch.int32)[:, dead] == 0).all()
     assert torch.isnan(k[:, int(row[0])][:, ~dead[int(row[0])]]).all()
+
+
+def _pool_pair(dev, gen, L, N, P, H, D):
+    """A stacked (k, v) pool with negative values and NaNs: a zeroed lane
+    must be +0.0 to be bit-equal."""
+    k = -torch.rand(L, N, P, H, D, device=dev, generator=gen)
+    v = torch.randn(L, N, P, H, D, device=dev, generator=gen)
+    k[:, 1, :, 0] = float("nan")
+    return k, v
+
+
+def _bits_equal(a, b) -> bool:
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("slab", ["page", "token"])
+@pytest.mark.parametrize("layers,H,D", [
+    ((36,), 2, 128),      # the target pool alone (plain continuous mode)
+    ((36, 4), 2, 128),    # target and a 4-layer draft: one launch for both
+    ((3, 1), 3, 5),       # H*D = 15: scalar stores
+])
+def test_pool_zero_kernel_bit_equal_and_isolated(cuda, slab, layers, H, D):
+    """Both pools bit-equal to the plain version (+0.0 over NaN and
+    negative lanes), every slab outside the list untouched, repeats and
+    indices outside the pool dropped, one launch."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    N, P = 40, 16
+    pools = [_pool_pair(cuda, g, L, N, P, H, D) for L in layers]
+    limit = N if slab == "page" else N * P
+    idx = [1, 7, 3, 7, 19, 1, -1, limit, limit + 5]  # repeats, outside
+    if slab == "token":
+        idx += [30 * P + 15, 31 * P, 31 * P + 1]
+    want = [(k.clone(), v.clone()) for k, v in pools]
+    orig = [(k.clone(), v.clone()) for k, v in pools]
+    n = dispatch.KERNELS["paged_" + ("reset" if slab == "page"
+                                     else "rollback")].launches
+    pool_zero_cuda(pools, np.array(idx), slab)
+    paged_ref.pool_zero_ref(want, idx, slab)
+    torch.cuda.synchronize()
+    assert dispatch.KERNELS["paged_" + ("reset" if slab == "page"
+                                        else "rollback")].launches == n + 1
+    named = torch.zeros(limit, dtype=torch.bool, device=cuda)
+    named[[i for i in idx if 0 <= i < limit]] = True
+    for (k, v), (kw, vw), (k0, v0) in zip(pools, want, orig):
+        for got, w, o in ((k, kw, k0), (v, vw, v0)):
+            assert _bits_equal(got, w)
+            flat = got.view(got.shape[0], limit, -1).view(torch.int32)
+            assert (flat[:, named] == 0).all()
+            assert torch.equal(flat[:, ~named],
+                               o.view(o.shape[0], limit, -1)
+                               .view(torch.int32)[:, ~named])
+
+
+def test_pool_zero_launches_once_a_chunk_past_capacity(cuda):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    N, P = 64, 16
+    pools = [_pool_pair(cuda, g, L, N, P, 2, 128) for L in (4, 2)]
+    want = [(k.clone(), v.clone()) for k, v in pools]
+    idx = torch.randperm(N * P, generator=torch.Generator().manual_seed(0))
+    idx = idx[:600].numpy()  # 256 a launch (csrc/pool_zero.cu): three
+    n = dispatch.KERNELS["paged_rollback"].launches
+    pool_zero_cuda(pools, idx, "token")
+    paged_ref.pool_zero_ref(want, idx, "token")
+    torch.cuda.synchronize()
+    assert dispatch.KERNELS["paged_rollback"].launches == n + 3
+    for (k, v), (kw, vw) in zip(pools, want):
+        assert _bits_equal(k, kw) and _bits_equal(v, vw)
+    # an empty list launches nothing
+    pool_zero_cuda(pools, [], "page")
+    assert dispatch.KERNELS["paged_rollback"].launches == n + 3
+
+
+def test_pool_zero_refuses_what_the_kernel_does_not_take(cuda):
+    k = torch.zeros(2, 8, 16, 2, 128, device=cuda)
+    for other in (torch.zeros(1, 9, 16, 2, 128, device=cuda),
+                  torch.zeros(1, 8, 16, 2, 64, device=cuda)):
+        with pytest.raises(ValueError, match="differ"):
+            pool_zero_cuda([(k, k.clone()), (other, other.clone())], [1],
+                           "page")
+    with pytest.raises(ValueError, match="CUDA"):
+        pool_zero_cuda([(k.cpu(), k.cpu())], [1], "page")
+    with pytest.raises(ValueError, match="all be on cuda or all on cpu"):
+        paged_ops.pool_zero([(k, k.clone()), (k.cpu(), k.cpu())], [1],
+                            "token")
+    with pytest.raises(ValueError, match="dtype"):
+        pool_zero_cuda([(k.double(), k.double())], [1], "page")
+    with pytest.raises(ValueError, match="contiguous"):
+        pool_zero_cuda([(k[..., ::2], k[..., ::2])], [1], "page")
+    with pytest.raises(ValueError, match="one or two"):
+        pool_zero_cuda([(k, k.clone())] * 3, [1], "page")
+
+
+def test_page_pool_launches_once_an_event(cuda):
+    """An admission zeroes its fresh pages in both pools with one launch,
+    and a tick's tails with one; the pools as the plain version leaves
+    them."""
+    sess = Session.from_config("qwen2.5-3b")
+    params = sess.init_params()
+    draft_model, _ = _draft_of(sess.model, params, 1)
+    pool = PagePool(sess.model, n_slots=3, n_pages=12, page_size=4,
+                    pages_per_slot=4, draft_model=draft_model)
+    for p in (pool.pages, pool.draft_pages):
+        for t in p.values():
+            t.fill_(-1.5)
+    dispatch.reset_launches()
+    for slot in range(3):
+        assert pool.alloc(slot, 4)
+    assert dispatch.launch_counts()["paged_reset"] == 3
+    for p in (pool.pages, pool.draft_pages):
+        for t in p.values():
+            t.fill_(-1.5)
+    kv = [(p["k_pages"], p["v_pages"]) for p in (pool.pages,
+                                                  pool.draft_pages)]
+    want = [(k.clone(), v.clone()) for k, v in kv]
+    ranges = [(0, 6, 9), (1, 3, 3), (2, 13, 16), (1, 11, 14)]
+    pool.rollback_many(ranges)
+    tokens = sum((paged_ops.token_indices(pool.tables[s], 4, a, b)
+                  for s, a, b in ranges), [])
+    paged_ref.pool_zero_ref(want, tokens, "token")
+    torch.cuda.synchronize()
+    counts = dispatch.launch_counts()
+    assert counts["paged_rollback"] == 1 and counts["paged_reset"] == 3
+    for (k, v), (kw, vw) in zip(kv, want):
+        assert _bits_equal(k, kw) and _bits_equal(v, vw)
+    L, _, _, H, D = kv[0][0].shape
+    assert int((kv[0][0] == 0).sum()) == 9 * L * H * D  # 9 distinct tokens
 
 
 @pytest.mark.parametrize("B,S,Hq,Hkv,D,causal", [
@@ -270,9 +399,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         paged_ops.paged_attention(q, kp.cpu(), vp, tables, qs)
     pools = torch.zeros(2, 8, 16, 2, 128, device=cuda)
     with pytest.raises(ValueError, match="dtype"):
-        paged_rollback_cuda(pools, pools.clone(), tables[0].long(), 0, 3)
+        paged_ops.paged_rollback(pools.double(), pools.double(), tables[0],
+                                 0, 3)
     with pytest.raises(ValueError, match="5-d"):
-        paged_rollback_cuda(pools[0], pools[0].clone(), tables[0], 0, 3)
+        paged_ops.paged_rollback(pools[0], pools[0].clone(), tables[0], 0, 3)
 
 
 def test_smoke_slice_on_card_matches_cpu_and_counts_launches(cuda):
@@ -310,11 +440,27 @@ def test_smoke_slice_on_card_matches_cpu_and_counts_launches(cuda):
     np.testing.assert_array_equal(out["continuous"], cont_cpu)
 
 
-def test_smoke_speculative_on_card_matches_cpu(cuda):
+def _spy_rollback_ticks(monkeypatch) -> list:
+    """Counts, in a one-element list, the ``PagePool.rollback_many`` calls
+    (one a speculative tick) that had a tail to erase."""
+    ticks = [0]
+    real = PagePool.rollback_many
+
+    def spy(self, ranges):
+        ranges = list(ranges)
+        ticks[0] += any(end > start for _, start, end in ranges)
+        real(self, ranges)
+
+    monkeypatch.setattr(PagePool, "rollback_many", spy)
+    return ticks
+
+
+def test_smoke_speculative_on_card_matches_cpu(cuda, monkeypatch):
     """Speculative serving with a 1-layer draft on the card (kernels) and
     on the CPU (plain versions) from the same weights: the same tokens as
-    plain decoding, the same proposals and acceptances, and rollbacks on
-    the card, two launches (target and draft pool) each."""
+    plain decoding, the same proposals and acceptances, and on the card one
+    reset launch an admission and one rollback launch a tick that rolled
+    back, each covering the target and the draft pool."""
     gpu = Session.from_config("qwen2.5-3b")
     cpu = Session.from_config("qwen2.5-3b", device="cpu")
     p_gpu = gpu.init_params()
@@ -324,18 +470,21 @@ def test_smoke_speculative_on_card_matches_cpu(cuda):
     kw = dict(scheduler="continuous", max_batch=2, max_len=32, page_size=4,
               prefill_chunk=4)
     plain = gpu.serve(requests=copy.deepcopy(reqs), params=p_gpu, **kw)
+    ticks = _spy_rollback_ticks(monkeypatch)
     dispatch.reset_launches()
     a = gpu.serve(requests=copy.deepcopy(reqs), params=p_gpu,
                   speculative=True, draft_layers=1, **kw)
-    counts = dispatch.launch_counts()
+    counts, rolled = dispatch.launch_counts(), ticks[0]
     b = cpu.serve(requests=copy.deepcopy(reqs), params=p_cpu,
                   speculative=True, draft_layers=1, **kw)
     np.testing.assert_array_equal(a.tokens, plain.tokens)
     np.testing.assert_array_equal(a.tokens, b.tokens)
     assert (a.stats.spec_proposed, a.stats.spec_accepted) == \
         (b.stats.spec_proposed, b.stats.spec_accepted)
-    assert counts["paged_rollback"] > 0 and counts["paged_rollback"] % 2 == 0
-    assert counts["paged_reset"] == 2 * len(reqs)
+    # one launch for both pools: a reset an admission, a rollback a tick
+    # that rolled back
+    assert counts["paged_rollback"] == rolled > 0
+    assert counts["paged_reset"] == len(reqs) + a.stats.preemptions
     assert counts["flash_attention"] == 0
 
 

@@ -14,7 +14,7 @@ from repro.kernels.paged_attention import ops as jax_ops
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.paged_attention import ops
 from repro_torch.kernels.paged_attention.paged_attention import (
-    PAGED_ROLLBACK, paged_rollback_cuda)
+    PAGED_ROLLBACK, pool_zero_cuda)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -147,5 +147,5 @@ def test_cpu_tensors_count_no_launch():
 def test_cuda_wrapper_refuses_cpu_tensors():
     k, v = _pools()
     with pytest.raises(ValueError, match="CUDA"):
-        paged_rollback_cuda(torch.from_numpy(k), torch.from_numpy(v),
-                            torch.from_numpy(ROW), 2, 5)
+        pool_zero_cuda([(torch.from_numpy(k), torch.from_numpy(v))],
+                       ops.token_indices(ROW, P, 2, 5), "token")

@@ -97,16 +97,19 @@ def test_speculative_matches_jax_tick_for_tick(weights, plain_tokens,
     reqs = shared_prefix_requests(8, model.cfg.vocab_size, **REQS)
     srv = ContinuousServer(model, params, **kw)
     rollbacks = []
-    orig = srv.pool.rollback
+    orig = srv.pool.rollback_many
 
-    def spy(slot, start, end):
-        """No rolled-back position lies on a page the slot shares."""
-        pages = set(srv.pool.tables[slot][start // 4:-(-end // 4)].tolist())
-        assert not pages & set(srv.pool.slot_shared_pages(slot))
-        rollbacks.append(end - start)
-        orig(slot, start, end)
+    def spy(ranges):
+        """One call a tick; no rolled-back position lies on a page its slot
+        shares."""
+        for slot, start, end in ranges:
+            pages = set(srv.pool.tables[slot][start // 4:-(-end // 4)]
+                        .tolist())
+            assert not pages & set(srv.pool.slot_shared_pages(slot))
+            rollbacks.append(end - start)
+        orig(ranges)
 
-    srv.pool.rollback = spy
+    srv.pool.rollback_many = spy
     for r in reqs:
         srv.submit(r)
     while srv.queued or any(s is not None for s in srv.slots):
