@@ -7,13 +7,16 @@ continuous and speculative continuous modes), trains it on the fused and on
 the barrier DP tier at full width and 12 layers (the barrier tier also
 under the per-leaf policy), clips its per-example gradients on both routes,
 serves rwkv6-7b and zamba2-7b at published width and full depth (direct
-and wave), and checks a serving slice of each family (plain and
-speculative for the dense one), a training step of each tier (packed and
-perleaf) and per-example clipping against the host CPU.
+and wave), runs the wire tier's protocol rounds on MNIST-MLP3 at its
+published width (serial and pipelined), and checks a serving slice of each
+family (plain and speculative for the dense one), a training step of each
+tier (packed and perleaf), per-example clipping and the wire tier's rounds
+against the host CPU.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --scans [--src DIR]   # phase 11's scans alone
     python3 chip_smoke.py --pool [--src DIR]    # phase 3's page pool alone
+    python3 chip_smoke.py --wire [--src DIR]    # phase 16's wire tier alone
 
 ``--scans`` runs only the card line, the build and phase 11's scans (their
 checks and times, no launch configuration), from the ``repro_torch`` under
@@ -22,7 +25,9 @@ last line. It is the standing tool for a change to a scan kernel: two trees
 (an unpacked parent and this one) are timed in one call by running it once
 for each, since it uses only the wrappers every tree has. ``--pool`` does
 the same for phase 3's page-pool events, on trees that have
-``PagePool.rollback_many`` and ``ops.pool_zero``.
+``PagePool.rollback_many`` and ``ops.pool_zero``; ``--wire`` for phase 16
+(with ``clip_mask``'s SASS read for its bound), on trees that have
+``repro_torch.core.tee``.
 
 Phases (any failed check raises, and the script exits non-zero):
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
@@ -129,7 +134,24 @@ Phases (any failed check raises, and the script exits non-zero):
      prefill and 3 decode steps within CROSS_ATOL / CROSS_RTOL, and equal
      wave tokens;
  15. ``python -m repro_torch.launch.serve --arch rwkv6-7b|zamba2-7b
-     --scheduler wave`` on the card in a subprocess.
+     --scheduler wave`` on the card in a subprocess;
+ 16. the wire tier: ``clip_mask`` at MNIST-MLP3's packed length (P =
+     235,520) bit-equal to its plain version (both ``use_prev`` settings, a
+     partial ring), timed as a call and on the card beside the launch floor
+     and its SASS bound; MNIST-MLP3 at its published width over 4 silos of
+     synthetic MNIST (4096 examples, sigma 0.5, C 1) through
+     ``CollaborativeSession``: 10 serial and 10 pipelined rounds from two
+     sessions with the same seeds, bit-equal (params, losses, bytes on the
+     wire), ``clip_mask`` zeroed before each run and launched once per silo
+     per round, the loss falling, the median round and each party's share
+     of it (admin plane, broadcast, each handler's round trip, its compute
+     on the card between CUDA events and its seal, the updater's ingest and
+     close; read by wrapping the components' methods on their instances);
+     then 3 rounds at lambda 0.7 with silo 1 out in round 1 and resynced in
+     round 2, on the card and on the host CPU from the same weights (losses
+     WIRE_LOSS_RTOL, params WIRE_PARAM_ATOL, epsilon and participation
+     equal); then ``python -m repro_torch.launch.train --wire-rounds 4`` on
+     the card in a subprocess.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -661,6 +683,304 @@ def check_flash(cfg, dev, gen, B, S, ops, ref, F):
     }
 
 
+# --------------------------------------------------------------- phase 16
+
+# the wire tier's runs: MNIST-MLP3 at its published width, 4 silos of
+# synthetic MNIST (4096 examples), sigma 0.5, C 1 (B = 4); lr 0.1, where 10
+# rounds take the loss down (the example's 0.5 raises it over its first 10
+# rounds at this noise: the mean update's noise is sigma C / 4 an element)
+WIRE_SILOS, WIRE_ROUNDS, WIRE_LR = 4, 10, 0.1
+# 3 rounds card vs CPU: each round's mean update carries the masks' fp32
+# residue (contributions reach 10 B; 8 ulps of 10 B a sum), moved by lr
+WIRE_PARAM_ATOL = 3 * WIRE_LR * 8 * 2.0 ** -23 * 10 * 4.0
+# the losses move with the params by that much over 784 inputs
+WIRE_LOSS_RTOL = 1e-4
+
+
+def wire_update(p, update, lr):
+    """The model owner's update: the numpy mean update onto the params'
+    device, then one SGD step."""
+    return {k: v - lr * torch.as_tensor(update[k], device=v.device)
+            for k, v in p.items()}
+
+
+def instrument_wire(sess) -> dict:
+    """Per-party times of a session's rounds, read by wrapping methods on
+    its component instances (the path's code is untouched): the host ms of
+    the admin plane (keys, verdicts, set; the advance; the batch tag), the
+    broadcast's encode, each handler's round trip (the times the session
+    feeds ``SiloTelemetry``) and seal, the updater's ingest (open, decode,
+    accumulate) and close; and each handler's compute on the card (its
+    forward/backward and ``clip_mask``, between CUDA events). ``grad_fn``
+    wraps the model owner's gradient code to record the first event."""
+    t = {k: [] for k in ("admin_plane", "advance", "batch_tag", "broadcast",
+                         "handler_round_trip", "seal", "ingest", "close")}
+    events, starts = [], []
+
+    def host(name, fn):
+        def wrapped(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                t[name].append((time.perf_counter() - t0) * 1e3)
+        return wrapped
+
+    sess._admin_plane = host("admin_plane", sess._admin_plane)
+    sess._params_broadcast = host("broadcast", sess._params_broadcast)
+    sess._batch_tag = host("batch_tag", sess._batch_tag)
+    sess.admin.advance = host("advance", sess.admin.advance)
+    sess.updater.ingest = host("ingest", sess.updater.ingest)
+    sess.updater.close_round = host("close", sess.updater.close_round)
+    observe = sess.telemetry.observe
+
+    def telemetry(silo, seconds):
+        t["handler_round_trip"].append(seconds * 1e3)
+        observe(silo, seconds)
+
+    sess.telemetry.observe = telemetry
+    for h in sess.handlers:
+        h.channel.send = host("seal", h.channel.send)
+
+        def contrib(*a, _fn=h._masked_contrib, **k):
+            out = _fn(*a, **k)
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            events.append((starts.pop(), end))
+            return out
+
+        h._masked_contrib = contrib
+
+    def grad_fn(inner):
+        def timed_grad(params, data):
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            starts.append(start)
+            return inner(params, data)
+        return timed_grad
+
+    def read(rounds: int) -> dict:
+        torch.cuda.synchronize()
+        t["handler_compute_card"] = [a.elapsed_time(b) for a, b in events]
+        return {k: {"per_round_ms": sum(v) / rounds,
+                    "median_call_ms": float(np.median(v)) if v else None,
+                    "calls": len(v)} for k, v in t.items()}
+
+    return {"grad_fn": grad_fn, "read": read}
+
+
+def check_clip_mask_wire(dev, P, ops, ref, keys, prev, per_stream) -> dict:
+    """``clip_mask`` at the wire tier's shape, silo 1 of 4 over a partial
+    ring (silo 2 out: nxt 3, 3 streams at t, 4 at t-1) at the phase's
+    sigma 0.5 and C 1, both ``use_prev`` settings bit-equal to the plain
+    version; timed as a call and on the card (50 launches in a CUDA graph,
+    every scalar a device tensor), beside the launch floor and the bound of
+    its 4 streams from the SASS issue count."""
+    gen = torch.Generator(device=dev).manual_seed(16)
+    g = torch.randn(P, generator=gen, device=dev) * 0.01
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)
+    sc = f32(0.5) * f32(1.0)
+    args = (f32(0.731), keys.key_r, keys.key_xi, prev, 1, 4, sc,
+            f32(8.0) * sc, f32(0.7))
+    kw = dict(nxt=3, noise_scale=sc / torch.sqrt(f32(3.0)),
+              prev_noise_scale=sc / torch.sqrt(f32(4.0)))
+    errs = {}
+    for use_prev in (True, False):
+        out = ops.clip_mask(g, *args, True, use_prev, **kw)
+        plain = ref.clip_mask_ref(g, *args, True, use_prev, **kw)
+        errs[f"use_prev={use_prev}"] = (out - plain).abs().max().item()
+        check(errs[f"use_prev={use_prev}"] == 0.0,
+              f"clip_mask at the wire shape differs: {errs}")
+    call = lambda: ops.clip_mask(g, *args, **kw)
+    parts = stream_bound(P, 4, per_stream)
+    bms = max(parts.values())
+    floor = launch_floor()
+    return {
+        "max_abs_err": 0.0, "checked": errs,
+        "ms": cuda_ms(call), "device_ms": graph_ms(call),
+        "plain_ms": cuda_ms(lambda: ref.clip_mask_ref(g, *args, **kw)),
+        "library_ms": None, "launch_floor_ms": floor["device_ms"],
+        "launch_floor_call_ms": floor["ms"],
+        "bound_ms": bms,
+        "bound_by": "bytes" if bms == parts["bytes"] else "operations",
+        "bound_detail": {"ms_by_limit": parts},
+        "at": f"P={P} (MNIST-MLP3) silo 1 nxt 3 use_pairwise use_prev fp32",
+    }
+
+
+def wire_phase(dev, per_stream: dict, src: Path = ROOT / "src") -> tuple:
+    """Phase 16, the wire tier on the card: MNIST-MLP3 at its published
+    width over 4 silos, ``clip_mask`` at its shape against the plain
+    version, 10 serial and 10 pipelined rounds (bit-equal, clip_mask once
+    per silo per round, the loss falling, each round's time split by
+    party), 3 rounds card vs CPU with a drop and a full resync, and the
+    ``--wire-rounds`` CLI (from ``src``). Returns ``(record, clip_mask's
+    wire row)``."""
+    from repro_torch.api import CollaborativeSession
+    from repro_torch.configs.base import PrivacyConfig
+    from repro_torch.configs.paper_models import MNIST_MLP3
+    from repro_torch.core import flatbuf, prng
+    from repro_torch.core.barrier import step_keys
+    from repro_torch.core.tee import wire
+    from repro_torch.data.synthetic import synthetic_mnist
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.dp_fused import ops as noise_ops
+    from repro_torch.kernels.dp_fused import ref as noise_ref
+    from repro_torch.models.small import build_small_model, value_and_grad
+
+    t16 = time.perf_counter()
+    sm = build_small_model(MNIST_MLP3)
+    silos = [{"x": s.x, "y": s.y} for s in synthetic_mnist(
+        n_train=4096, n_test=16)[0].split(WIRE_SILOS)]
+    wpriv = PrivacyConfig(enabled=True, sigma=0.5, clip_bound=1.0)
+    init = sm.init(torch.Generator(device=dev).manual_seed(1))
+    P_WIRE = flatbuf.layout_of(init).total
+    grad_fn = value_and_grad(sm.loss)
+    row = check_clip_mask_wire(
+        dev, P_WIRE, noise_ops, noise_ref, step_keys(prng.PRNGKey(0), 0),
+        step_keys(prng.PRNGKey(0), 1).key_xi, per_stream)
+    log(f"[kernel] clip_mask wire: max_abs_err {row['checked']} | kernel "
+        f"{row['ms']:.4f} ms (on the card {row['device_ms']:.4f}) | launch "
+        f"floor {row['launch_floor_call_ms']:.4f} ms (on the card "
+        f"{row['launch_floor_ms']:.4f}) | plain {row['plain_ms']:.4f} ms | "
+        f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
+        f"{json.dumps(row['bound_detail']['ms_by_limit'])}) | {row['at']}")
+    runs = {}
+    for mode in ("serial", "pipelined"):
+        sess = CollaborativeSession.from_silos(silos, wpriv,
+                                               params_template=init)
+        parts = instrument_wire(sess)
+        stamps = []
+
+        def upd(p, update, lr, _stamps=stamps):
+            out = wire_update(p, update, lr)
+            torch.cuda.synchronize()
+            _stamps.append(time.perf_counter())
+            return out
+
+        params = {k: v.clone() for k, v in init.items()}
+        dispatch.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, losses = sess.run(params, parts["grad_fn"](grad_fn), upd,
+                                  WIRE_LR, WIRE_ROUNDS,
+                                  pipelined=mode == "pipelined")
+        counts = dispatch.launch_counts()
+        check(counts["clip_mask"] == WIRE_SILOS * WIRE_ROUNDS
+              and sum(counts.values()) == counts["clip_mask"],
+              f"wire {mode}: launches {counts}, not clip_mask once per "
+              f"silo per round")
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"wire {mode}: loss {losses[0]} -> {losses[-1]}")
+        rounds_ms = np.diff([t0] + stamps) * 1e3
+        runs[mode] = {"sess": sess, "losses": losses,
+                      "packed": wire.pack_np(flatbuf.layout_of(params),
+                                             params),
+                      "round_ms": rounds_ms.tolist(),
+                      "median_round_ms": float(np.median(rounds_ms)),
+                      "parts": parts["read"](WIRE_ROUNDS),
+                      "clip_mask_launches": counts["clip_mask"]}
+    a, b = runs["serial"], runs["pipelined"]
+    check(np.array_equal(a["packed"].view(np.uint32),
+                         b["packed"].view(np.uint32))
+          and a["losses"] == b["losses"]
+          and a["sess"].wire_stats == b["sess"].wire_stats,
+          "pipelined wire rounds are not bit-equal to serial on the card")
+    report = {mode: {k: v for k, v in r.items()
+                             if k not in ("sess", "packed")}
+                      for mode, r in runs.items()}
+    report["wire_stats"] = a["sess"].wire_stats
+    report["P"] = P_WIRE
+    for mode, r in runs.items():
+        log(f"[wire] {mode}: {WIRE_ROUNDS} rounds, median "
+            f"{r['median_round_ms']:.3f} ms a round (rounds "
+            f"{json.dumps([round(x, 3) for x in r['round_ms']])}) | loss "
+            f"{r['losses'][0]:.4f} -> {r['losses'][-1]:.4f} | clip_mask "
+            f"{r['clip_mask_launches']}")
+        log(f"[wire] {mode} split, ms a round (median call ms, calls): "
+            + ", ".join(f"{k} {v['per_round_ms']:.3f} "
+                        f"({v['median_call_ms'] or 0:.4f}, {v['calls']})"
+                        for k, v in r["parts"].items()))
+    log(f"[wire] pipelined == serial bit for bit; bytes on the wire "
+        f"{json.dumps(a['sess'].wire_stats)}")
+    # the card's busy share of 3 serial rounds (torch.profiler; a first
+    # round outside the window warms the new session)
+    from repro_torch.launch.profile_serve import _window
+    sess = CollaborativeSession.from_silos(silos, wpriv, params_template=init)
+    params, _ = sess.step(0, {k: v.clone() for k, v in init.items()},
+                          grad_fn, wire_update, WIRE_LR)
+    prof = _window(lambda: sess.run(params, grad_fn, wire_update, WIRE_LR, 3,
+                                    pipelined=False), 8)
+    report["profile_3_serial_rounds"] = prof
+    log(f"[wire] 3 serial rounds under torch.profiler: wall "
+        f"{prof['wall_ms']:.2f} ms | card busy {prof['device_busy_ms']:.3f} "
+        f"ms ({prof['busy_share']:.2%}) | by device time: "
+        + "; ".join(f"{r['name'][:48]} x{r['count']} {r['device_ms']:.3f}"
+                    for r in prof["top"]))
+
+    # 3 rounds at lambda 0.7, silo 1 out in round 1 and back (a full
+    # resync) in round 2, on the card and on the host CPU, same weights
+    lam_priv = dataclasses.replace(wpriv, noise_lambda=0.7)
+
+    def three(device):
+        sess = CollaborativeSession.from_silos(silos, lam_priv, device=device)
+        params = {k: v.to(device) for k, v in init.items()}
+        dispatch.reset_launches()
+        losses = []
+        for t in range(3):
+            if t == 1:
+                check(sess.drop_silo(1), "wire: drop refused")
+            if t == 2:
+                check(sess.rejoin_silo(1), "wire: rejoin refused")
+            params, loss = sess.step(t, params, grad_fn, wire_update,
+                                     WIRE_LR)
+            losses.append(loss)
+        return (sess, wire.pack_np(flatbuf.layout_of(params), params),
+                losses, dispatch.launch_counts())
+
+    gs, gp, gl, gcounts = three(dev)
+    cs, cp, cl, ccounts = three("cpu")
+    check(gcounts["clip_mask"] == 4 + 3 + 4
+          and sum(ccounts.values()) == 0, f"wire card vs CPU launches "
+          f"{gcounts['clip_mask']} (card), {sum(ccounts.values())} (CPU)")
+    check(gs.wire_stats["resync_bytes"] > 0, "wire: no full resync")
+    loss_rel = float(np.max(np.abs(np.subtract(gl, cl)) / np.abs(cl)))
+    param_err = float(np.abs(gp - cp).max())
+    check(loss_rel <= WIRE_LOSS_RTOL and param_err <= WIRE_PARAM_ATOL
+          and gs.epsilon() == cs.epsilon()
+          and gs.accountant.history == cs.accountant.history,
+          f"wire card vs CPU: loss {loss_rel} params {param_err} eps "
+          f"{gs.epsilon()} / {cs.epsilon()} history "
+          f"{gs.accountant.history} / {cs.accountant.history}")
+    report["card_vs_cpu"] = {
+        "loss_max_rel": loss_rel, "loss_rtol": WIRE_LOSS_RTOL,
+        "param_max_abs": param_err, "param_atol": WIRE_PARAM_ATOL,
+        "epsilon": gs.epsilon(), "history": gs.accountant.history}
+    log(f"[wire] card vs CPU, 3 rounds (lambda 0.7, silo 1 out in round 1, "
+        f"resynced in round 2): loss {loss_rel:.2e} rel (<= "
+        f"{WIRE_LOSS_RTOL}), params {param_err:.2e} (<= "
+        f"{WIRE_PARAM_ATOL:.2e}), eps {gs.epsilon():.4f} equal, "
+        f"participation {gs.accountant.contributions}")
+    cli = [sys.executable, "-m", "repro_torch.launch.train", "--wire-rounds",
+           "4"]
+    t0 = time.perf_counter()
+    r = subprocess.run(cli, cwd=ROOT, capture_output=True, text=True,
+                       timeout=300, env={**os.environ, "PYTHONPATH": str(src)})
+    check(r.returncode == 0 and "wire tier: 4 rounds closed on cuda"
+          in r.stdout, f"wire CLI failed ({r.returncode}):\n{r.stdout}\n"
+          f"{r.stderr}")
+    done = next(x for x in r.stdout.splitlines() if x.startswith("wire"))
+    report["cli"] = {"cmd": " ".join(cli[1:]),
+                     "s": time.perf_counter() - t0, "last": done}
+    log(f"[cli] {' '.join(cli[1:])}: exit 0 in {report['cli']['s']:.1f} s "
+        f"| {done}")
+    row["launches"] = runs["serial"]["clip_mask_launches"]
+    report["phase_s"] = time.perf_counter() - t16
+    log(f"[wire] phase 16 in {report['phase_s']:.1f} s")
+    return report, row
+
+
+
 # --------------------------------------------------------------- phase 11
 
 def wkv_inputs(dev, gen, B, S, H, N, w=None):
@@ -823,10 +1143,10 @@ def log_scan_launches(rcfg, zcfg) -> None:
 
 
 def one_phase(phase: str, src: Path) -> int:
-    """``--scans`` / ``--pool``: the card, the build and phase 11's scans
-    or phase 3's page-pool events alone, from the ``repro_torch`` under
-    ``src`` (another tree's, to time two trees in one call); the last line
-    is their JSON record."""
+    """``--scans`` / ``--pool`` / ``--wire``: the card, the build and phase
+    11's scans, phase 3's page-pool events or phase 16's wire tier alone,
+    from the ``repro_torch`` under ``src`` (another tree's, to time two
+    trees in one call); the last line is their JSON record."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
               file=sys.stderr)
@@ -843,9 +1163,13 @@ def one_phase(phase: str, src: Path) -> int:
     dev = torch.device("cuda")
     if phase == "scans":
         record = check_scans(dev, 11)
-    else:
+    elif phase == "pool":
         record = pool_events(get_config("qwen2.5-3b"), dev, 0)
         log_pool_events(record)
+    else:
+        record, row = wire_phase(
+            dev, stream_ops(library_sass(), "clip_mask_kernel"), src)
+        record["clip_mask_wire"] = row
     log(json.dumps({"src": str(src), "card": card, phase: record}))
     return 0
 
@@ -1209,6 +1533,16 @@ def sass_loops(sass: str, kernel: str) -> list:
              if not any((t, a) != (u, b) and t <= u and b <= a
                         for u, b in loops)]
     return [[op for a2, op, _ in body if t <= a2 <= a] for t, a in inner]
+
+
+def library_sass() -> str:
+    """``cuobjdump -sass`` of the built kernel library (next to ``nvcc``)."""
+    from repro_torch.kernels import _build
+    res = subprocess.run([str(Path(_build.nvcc()).with_name("cuobjdump")),
+                          "-sass", str(_build.library_path())],
+                         capture_output=True, text=True, timeout=120)
+    check(res.returncode == 0, f"cuobjdump failed: {res.stderr}")
+    return res.stdout
 
 
 def stream_ops(sass: str, kernel: str) -> dict:
@@ -1780,23 +2114,20 @@ def main() -> int:
                                       clip_ref, P)
     del stacked
     torch.cuda.empty_cache()
-    sass = subprocess.run([str(Path(_build.nvcc()).with_name("cuobjdump")),
-                           "-sass", str(_build.library_path())],
-                          capture_output=True, text=True, timeout=120)
-    check(sass.returncode == 0, f"cuobjdump failed: {sass.stderr}")
-    per_stream = stream_ops(sass.stdout, "noise_batch_kernel")
+    sass = library_sass()
+    per_stream = stream_ops(sass, "noise_batch_kernel")
     log(f"[kernel] noise_batch SASS, instructions per stream element by "
         f"pipe: {json.dumps(per_stream)}")
     kern["noise_batch"] = check_noise_batch(dev, N_SILOS, P, g_sum, noise_ops,
                                             noise_ref, step_keys, prng.PRNGKey,
                                             per_stream)
-    per_stream_cm = stream_ops(sass.stdout, "clip_mask_kernel")
+    per_stream_cm = stream_ops(sass, "clip_mask_kernel")
     log(f"[kernel] clip_mask SASS, instructions per stream element by pipe: "
         f"{json.dumps(per_stream_cm)}")
     kern["clip_mask"] = check_clip_mask(
         dev, P, g_sum, noise_ops, noise_ref, step_keys(prng.PRNGKey(1), 0),
         step_keys(prng.PRNGKey(1), 1).key_xi, per_stream_cm)
-    per_stream_zs = stream_ops(sass.stdout, "zsmask_kernel")
+    per_stream_zs = stream_ops(sass, "zsmask_kernel")
     log(f"[kernel] zsmask SASS, instructions per stream element by pipe: "
         f"{json.dumps(per_stream_zs)}")
     kern["zsmask"] = check_zsmask(
@@ -2445,6 +2776,9 @@ def main() -> int:
         log(f"[cli] {' '.join(cli[1:])}: exit 0 in "
             f"{time.perf_counter() - t0:.1f} s | {util}")
 
+    # 16. the wire tier on the card
+    report["wire"], kern["clip_mask"]["wire"] = wire_phase(dev, per_stream_cm)
+
     # the record
     launches = {"flash_attention": n_direct["flash_attention"],
                 "paged_attention": n_cont["paged_attention"],
@@ -2474,12 +2808,14 @@ def main() -> int:
                       "two_pass_floor_ms", "library_device_ms"):
             if extra in r:
                 entry[extra] = r[extra]
-        for sub in ("verify4", "chunk16", "d112", "s512"):
+        for sub in ("verify4", "chunk16", "d112", "s512", "wire"):
             if sub in r:
                 entry[sub] = {x: r[sub][x] for x in (
                     "max_abs_err", "ms", "device_ms", "plain_ms",
                     "library_ms", "library_device_ms", "bound_ms",
-                    "bound_by", "at") if x in r[sub]}
+                    "bound_by", "launch_floor_ms", "at") if x in r[sub]}
+        if "wire" in r:
+            entry["wire"]["launches"] = r["wire"]["launches"]
         line.append(entry)
     report["total_s"] = time.perf_counter() - t_start
     log(f"[report] {json.dumps(report)}")
@@ -2496,7 +2832,7 @@ if __name__ == "__main__":
     args = sys.argv[1:]
     src = Path(args[args.index("--src") + 1]).resolve() \
         if "--src" in args else ROOT / "src"
-    for phase in ("scans", "pool"):
+    for phase in ("scans", "pool", "wire"):
         if f"--{phase}" in args:
             sys.exit(one_phase(phase, src))
     sys.exit(main())

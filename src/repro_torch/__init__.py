@@ -7,9 +7,11 @@ of the configs and helpers it needs. Every TPU kernel on a ported path is a
 hand-written CUDA kernel for ``sm_90a`` (``kernels/*/csrc``), built at first
 use; a CPU tensor takes the kernel's plain PyTorch version instead.
 
-Ported so far, for the dense family: confidential serving (direct, wave and
-continuous modes) and private collaborative training on the fused and
-barrier DP tiers (``Session.train``), with the serving and training
-launchers. The wire tier and the other families are still to port
+Ported so far: confidential serving of the dense, ssm and hybrid families,
+private collaborative training of the dense family on the fused and barrier
+DP tiers (``Session.train``), the wire tier's serial and pipelined protocol
+rounds on the paper's MNIST-MLP3 (``CollaborativeSession``), and the
+serving and training launchers. The wire tier's speculative and
+fault-tolerant rounds and the other families are still to port
 (``ROADMAP.md``).
 """

@@ -15,17 +15,20 @@
     gen = sess.serve(batch_size=4, prompt_len=32, max_new_tokens=16,
                      params=result.state.params)
 
-Port of ``repro/api.py``: serving (the dense, ssm and hybrid families), and
+Port of ``repro/api.py``: serving (the dense, ssm and hybrid families),
 training the dense family on the fused and barrier DP tiers
 (``PrivacyConfig(sync_path="barrier")`` with ``mesh=MeshConfig((n,),
 ("data",))`` runs the paper's per-silo masked contributions over n silos,
-one after another on the card).
+one after another on the card), and the wire tier's protocol rounds,
+serial and pipelined (:class:`CollaborativeSession`, on the paper's small
+models).
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a CUDA device and without ``device="cpu"`` they raise, never falling
 back to the CPU. On the CPU every kernel runs its plain PyTorch version.
 """
 from __future__ import annotations
 
+import threading
 import time
 from dataclasses import dataclass
 from typing import Any, Callable, Optional, Union
@@ -358,3 +361,396 @@ class Session:
                            decode_s_per_token=wall / max(stats.useful_tokens, 1),
                            stats=stats, requests=requests)
 
+
+
+def _not_8b(what: str):
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet (ROADMAP.md queue 1, item "
+        f"8b: speculative wire rounds and faults)")
+
+
+@dataclass
+class CollaborativeSession:
+    """Protocol-tier façade (paper Fig. 1): a management service, KDS and
+    attested components wired for one collaborative-training session. Port
+    of ``repro.api.CollaborativeSession``, serial and pipelined rounds.
+
+    ``from_silos`` does the setup: deploy the service, attest each dataset
+    owner's data handler against the launch policy, release per-owner
+    channel keys through the KDS and connect the model updater. Each round
+    (:meth:`step`, or :meth:`run` for several) the admin distributes the
+    keys, the participation set and the budget verdicts; each active handler
+    computes its clipped, masked contribution on the session's device (one
+    ``clip_mask`` launch on a card) and seals it; the updater decrypts and
+    sums the contributions on the host (it only ever sees masked ones),
+    divides by the contributors and runs the model owner's ``update_fn``;
+    the ledger records the round's participation.
+
+    The model owner's code: ``grad_fn(params, data) -> (loss, grads)`` on
+    flat dicts of tensors on the device (``models.small.value_and_grad``),
+    and ``update_fn(params, mean_update, lr) -> params`` where
+    ``mean_update`` is a numpy tree the function moves onto the params'
+    device. Membership is elastic: ``drop_silo`` / ``rejoin_silo`` change
+    who contributes from the next round on; an exhausted budget excludes a
+    silo until ``rejoin_silo(..., override=True)``.
+
+    Not ported yet, raising ``NotImplementedError`` (``ROADMAP.md`` queue
+    1, item 8b): speculative rounds, the fault-tolerant rounds
+    (``round_timeout_s``, ``quorum``, ``chaos``, ``journal``), ``resume``
+    and ``rejoin_silo_async``; ``mask_mode='admin'`` raises item 9.
+    """
+
+    service: Any
+    privacy: PrivacyConfig
+    handlers: list
+    updater: Any
+    admin: Any
+    accountant: Any  # the session's PrivacyLedger (admin-owned)
+    n_silos: int
+    device: torch.device
+    clip_bound: float = 1.0
+    membership: Any = None
+    telemetry: Any = None  # per-party round-trip attribution
+    codec: str = "packed"  # packed flat buffers | legacy pickle
+    batch_mac: bool = False  # a Merkle batch tag per round
+    # the delta broadcast: the last broadcast's packed buffer and layout,
+    # and the epoch (handlers resync on a gap)
+    _bcast_buf: Any = None
+    _bcast_layout: Any = None
+    _bcast_epoch: int = 0
+    wire_stats: Any = None  # bytes on the wire
+
+    def __post_init__(self):
+        if self.wire_stats is None:
+            self.wire_stats = {"rounds": 0, "broadcast_bytes": 0,
+                               "resync_bytes": 0, "update_bytes": 0}
+        self._stats_lock = threading.Lock()
+
+    @classmethod
+    def from_silos(cls, silo_data: list, privacy: PrivacyConfig, *,
+                   session_id: str = "session", root_seed: int = 0,
+                   silo_epsilon_budget: Optional[float] = None,
+                   silo_budgets: Optional[dict] = None,
+                   codec: str = "packed", params_template=None,
+                   shard_workers: Optional[int] = None,
+                   device=None) -> "CollaborativeSession":
+        """``silo_data``: one batch dict per dataset owner (numpy arrays or
+        tensors), moved onto the session's device, where it stays.
+        ``device``: ``cuda`` unless the caller names another; without a card
+        and without ``device='cpu'`` this raises.
+
+        ``silo_epsilon_budget`` / ``silo_budgets`` arm per-owner budgets
+        (the ledger config joins the attestation measurement). ``codec``:
+        ``'packed'`` (raw buffers, XOR-delta broadcast, the fast channel) or
+        ``'pickle'`` (pickle+npz blobs, the per-block channel).
+        ``params_template`` pins the packed layout's fingerprint into every
+        component's measurement. The packed codec authenticates each
+        round's updates through the admin's Merkle batch tag (the pickle
+        codec by each message's HMAC). ``shard_workers``: the updater's
+        accumulation threads (default 4 from 32 silos up, serial below)."""
+        from repro_torch.core import flatbuf, prng
+        from repro_torch.core.privacy import PrivacyLedger
+        from repro_torch.core.tee import wire
+        from repro_torch.core.tee.channels import (VER_FAST, VER_LEGACY,
+                                                   SecureChannel, derive_key)
+        from repro_torch.core.tee.components import (Admin, DataHandler,
+                                                     ManagementService,
+                                                     ModelUpdater)
+        from repro_torch.runtime.elastic import SiloMembership
+        from repro_torch.runtime.straggler import SiloTelemetry
+
+        dev = resolve_device(device)
+        if dev.type == "cuda":
+            # fp32 at full precision, as in the JAX package: no TF32
+            torch.backends.cuda.matmul.allow_tf32 = False
+        n = len(silo_data)
+        ledger = PrivacyLedger.from_privacy_config(
+            privacy, n, epsilon_budget=silo_epsilon_budget,
+            budgets=silo_budgets)
+        svc = ManagementService()
+        wire_config = {"codec": wire.WIRE_CODEC_ID if codec == "packed"
+                       else "pickle-npz-v0"}
+        if params_template is not None and codec == "packed":
+            wire_config["layout"] = wire.layout_fingerprint(
+                flatbuf.layout_of(params_template)).hex()
+        svc.create_session(session_id, n, privacy,
+                           ledger_config=ledger.config_dict(),
+                           wire_config=wire_config)
+        chan_ver = VER_FAST if codec == "packed" else VER_LEGACY
+        handlers = []
+        for i, data in enumerate(silo_data):
+            local = {k: torch.as_tensor(v).to(dev) for k, v in data.items()}
+            h = DataHandler(f"handler-{i}", svc, silo_idx=i, data=local,
+                            codec=codec, device=dev)
+            h.attest(svc.policy)
+            svc.kds.upload_key(f"dk-{i}", derive_key(b"session-root",
+                                                     f"dk-{i}"),
+                               f"owner-{i}", svc.expected_measurement(),
+                               svc.policy.hash())
+            key = svc.kds.request_key(f"dk-{i}", h.report)
+            h.channel = SecureChannel(key, h.name, version=chan_ver)
+            handlers.append(h)
+        updater = ModelUpdater("updater", svc)
+        updater.attest(svc.policy)
+        updater.shard_workers = shard_workers if shard_workers is not None \
+            else (4 if n >= 32 else 0)
+        updater.received_cap = max(256, 2 * n)
+        for h in handlers:
+            updater.channels[h.name] = SecureChannel(
+                svc.kds._records[f"dk-{h.silo_idx}"].key, h.name,
+                version=chan_ver)
+        admin = Admin("admin", svc, root_key=prng.PRNGKey(root_seed),
+                      n_silos=n, ledger=ledger)
+        admin.attest(svc.policy)  # signs spend reports with this identity
+        # the admin<->updater aggregation key for the batch tags, released
+        # only against both components' measurements
+        svc.kds.upload_key("dk-agg", derive_key(b"session-root", "dk-agg"),
+                           "model-owner", svc.expected_measurement(),
+                           svc.policy.hash())
+        admin.agg_key = svc.kds.request_key("dk-agg", admin.report)
+        updater.agg_key = svc.kds.request_key("dk-agg", updater.report)
+        for h in handlers:
+            h.admin = admin  # verdicts from the attested admin only
+        return cls(service=svc, privacy=privacy, handlers=handlers,
+                   updater=updater, admin=admin, accountant=ledger,
+                   n_silos=n, device=dev, clip_bound=privacy.clip_bound,
+                   membership=SiloMembership(n),
+                   telemetry=SiloTelemetry(n), codec=codec,
+                   batch_mac=codec == "packed")
+
+    def drop_silo(self, silo: int, step: Optional[int] = None,
+                  cooldown: Optional[int] = None) -> bool:
+        """Remove a dataset owner from the next rounds (False when the
+        quorum would break)."""
+        step = self._next_round if step is None else step
+        return self.membership.drop(silo, step, cooldown)
+
+    def drop_slowest(self, step: Optional[int] = None,
+                     cooldown: Optional[int] = None) -> Optional[int]:
+        """Drop the silo whose handler round trips have been slowest."""
+        step = self._next_round if step is None else step
+        return self.membership.drop_one(step, cooldown,
+                                        telemetry=self.telemetry)
+
+    def rejoin_silo(self, silo: int, step: Optional[int] = None,
+                    override: bool = False) -> bool:
+        """Membership only: the handler resyncs with a full blob inside its
+        first round back. A budget-excluded owner needs ``override``."""
+        return self.membership.rejoin(
+            silo, step=self._next_round if step is None else step,
+            override=override)
+
+    def rejoin_silo_async(self, silo: int, override: bool = False) -> bool:
+        raise _not_8b("rejoin_silo_async")
+
+    def resume(self, journal):
+        raise _not_8b("resume (the round journal)")
+
+    @property
+    def _next_round(self) -> int:
+        return self.accountant.steps
+
+    # ------------------------------------------------------------- wire plane
+    def _admin_plane(self, step_idx: int) -> dict:
+        """Round t's admin fan-out: step keys, budget verdicts, budget-driven
+        exclusions, the participation set and the correction state."""
+        keys = self.admin.keys_for_step(step_idx)
+        verdicts = self.admin.verdicts()
+        for silo in self.accountant.take_exclusions():
+            self.membership.exclude(silo, step=step_idx, reason="budget")
+        active = self.membership.active_at(step_idx) & verdicts
+        return {"step": step_idx, "keys": keys, "verdicts": verdicts,
+                "active": active, "noise_state": self.admin.state_for_step()}
+
+    def _params_broadcast(self, params):
+        """This round's params, encoded once. Packed: the XOR delta against
+        the previous broadcast (a full message first or on a layout change),
+        one broadcast for every handler; pickle: a full blob per handler.
+        Returns (blob, is_broadcast)."""
+        from repro_torch.core import flatbuf
+        from repro_torch.core.tee import wire
+
+        if self.codec != "packed" or not wire.packable(params):
+            return wire.encode_tree(params, codec="pickle"), False
+        layout = flatbuf.layout_of(params)
+        new_buf = wire.pack_np(layout, params)
+        self._bcast_epoch += 1
+        if self._bcast_buf is None or self._bcast_layout != layout:
+            blob = wire.encode_full(layout, new_buf, epoch=self._bcast_epoch)
+        else:
+            blob = wire.encode_delta(layout, self._bcast_buf, new_buf,
+                                     epoch=self._bcast_epoch)
+        self._bcast_buf, self._bcast_layout = new_buf, layout
+        return blob, True
+
+    def _resync_blob(self) -> bytes:
+        """Full packed params at the current epoch, for a handler whose
+        delta chain broke."""
+        from repro_torch.core.tee import wire
+        return wire.encode_full(self._bcast_layout, self._bcast_buf,
+                                epoch=self._bcast_epoch)
+
+    def _compute_one(self, h, blob: bytes, plan: dict,
+                     grad_fn: Callable) -> bytes:
+        """One handler's round trip, with the full-resync retry on
+        ``StaleParamsError``, timed into the straggler telemetry."""
+        from repro_torch.core.tee import wire
+
+        def call(b):
+            return h.compute_update(b, grad_fn, self.privacy, plan["keys"],
+                                    self.n_silos, clip_bound=self.clip_bound,
+                                    active=plan["active"],
+                                    noise_state=plan["noise_state"],
+                                    verdicts=plan["verdicts"])
+
+        t0 = time.perf_counter()
+        try:
+            u = call(blob)
+        except wire.StaleParamsError:
+            with self._stats_lock:
+                full = self._resync_blob()
+                self.wire_stats["resync_bytes"] += len(full)
+            u = call(full)
+        with self._stats_lock:
+            self.telemetry.observe(h.silo_idx, time.perf_counter() - t0)
+            self.wire_stats["update_bytes"] += len(u)
+        return u
+
+    def _collect_updates(self, params, plan: dict, grad_fn: Callable,
+                         sink: Optional[Callable] = None) -> dict:
+        """Distribute the params and collect the active handlers' sealed
+        updates in silo order; ``sink(name, blob)`` streams each one out as
+        it is produced (the pipelined runner's ingestion thread)."""
+        blob, is_bcast = self._params_broadcast(params)
+        active = plan["active"]
+        self.wire_stats["broadcast_bytes"] += len(blob) if is_bcast \
+            else len(blob) * int(np.sum(active))
+        if self.privacy.mask_mode == "admin" and bool(np.any(active)):
+            self.admin.closing_mask_row()  # raises: item 9
+        updates = {}
+        for h in self.handlers:
+            if not active[h.silo_idx]:
+                continue
+            u = self._compute_one(h, blob, plan, grad_fn)
+            if sink is not None:
+                sink(h.name, u)
+            updates[h.name] = u
+        if not updates:
+            raise RuntimeError(
+                "no silo may contribute this round (budgets exhausted or "
+                "membership empty); DP forbids further training")
+        return updates
+
+    def _batch_tag(self, round_id: int, updates: dict) -> Optional[dict]:
+        """The round's Merkle batch tag over the sealed updates' leaves (None
+        with batch-MAC off: per-message HMAC)."""
+        if not self.batch_mac:
+            return None
+        by_name = {h.name: h for h in self.handlers}
+        return self.admin.batch_tag(
+            [(name, by_name[name].last_leaf) for name in updates], round_id)
+
+    def step(self, step_idx: int, params, grad_fn: Callable,
+             update_fn: Callable, lr: float):
+        """One round: the admin plane, the active silos' contributions, the
+        updater's aggregate over the actual contributors, the admin's
+        advance (the ledger records the round). Returns (params, loss)."""
+        plan = self._admin_plane(step_idx)
+        updates = self._collect_updates(params, plan, grad_fn)
+        params, loss = self.updater.aggregate(
+            updates, params, update_fn, lr=lr,
+            batch=self._batch_tag(step_idx, updates))
+        self.admin.advance(plan["keys"], plan["active"])
+        self.wire_stats["rounds"] += 1
+        return params, loss
+
+    def run(self, params, grad_fn: Callable, update_fn: Callable, lr: float,
+            n_rounds: int, pipelined: bool = True, speculative: bool = False,
+            round_timeout_s: Optional[float] = None,
+            quorum: Optional[int] = None, chaos: Any = None,
+            journal: Any = None):
+        """``n_rounds`` rounds from the next one. ``pipelined=True`` streams
+        each sealed update into the updater's ingestion thread as it is
+        produced (one worker: the silo order of the sum is kept), and
+        overlaps the admin plane (round t's ledger write, round t+1's keys,
+        verdicts and state) with the updater's close of round t. The model
+        owner's ``update_fn`` and every device operation stay on the calling
+        thread. Bit-identical to a loop of :meth:`step`. Returns (params,
+        [per-round mean losses]).
+
+        ``speculative``, ``round_timeout_s``, ``quorum``, ``chaos`` and
+        ``journal`` raise (item 8b)."""
+        if speculative:
+            raise _not_8b("run(speculative=True)")
+        faults = {"round_timeout_s": round_timeout_s, "quorum": quorum,
+                  "chaos": chaos, "journal": journal}
+        given = [k for k, v in faults.items() if v is not None]
+        if given:
+            raise _not_8b(f"run({', '.join(given)}=...): fault-tolerant "
+                          f"rounds")
+        losses = []
+        start = self._next_round
+        if not pipelined:
+            for t in range(start, start + n_rounds):
+                params, loss = self.step(t, params, grad_fn, update_fn, lr)
+                losses.append(loss)
+            return params, losses
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(max_workers=1,
+                                thread_name_prefix="updater") as ex:
+            plan = self._admin_plane(start)
+            for t in range(start, start + n_rounds):
+                # batch-MAC: updates stream in before the admin has every
+                # leaf, so the tag is issued after the last ingest and
+                # checked when the round closes
+                expected = [h.name for h in self.handlers
+                            if plan["active"][h.silo_idx]]
+                rs = self.updater.begin_round(params, expected=expected,
+                                              batch_mode=self.batch_mac)
+                ingests = []
+
+                def sink(name, blob):
+                    # fail fast on an ingest that already died
+                    for ing in ingests:
+                        if ing.done() and ing.exception() is not None:
+                            raise RuntimeError(
+                                f"updater ingestion thread failed mid-round "
+                                f"(before {name}'s update was submitted)"
+                            ) from ing.exception()
+                    ingests.append(
+                        ex.submit(self.updater.ingest, rs, name, blob))
+
+                updates = self._collect_updates(params, plan, grad_fn,
+                                                sink=sink)
+                for ing in ingests:
+                    ing.result()  # decode/auth errors before the advance
+                fut = ex.submit(self.updater.close_round, rs,
+                                self._batch_tag(t, updates))
+                # overlapped with the close: the masked updates left the
+                # handlers, so the privacy loss is incurred
+                self.admin.advance(plan["keys"], plan["active"])
+                self.wire_stats["rounds"] += 1
+                next_plan = self._admin_plane(t + 1) \
+                    if t + 1 < start + n_rounds else None
+                mean_update, loss = fut.result()
+                params = update_fn(params, mean_update, lr)
+                losses.append(loss)
+                plan = next_plan
+        return params, losses
+
+    def epsilon(self, silo: Optional[int] = None) -> float:
+        """Spent epsilon: global, or one silo's over its own history."""
+        return self.accountant.epsilon(silo)
+
+    def privacy_report(self) -> dict:
+        """The admin-plane spend report (per-silo spend, budgets, verdicts
+        and round-trip EMAs), HMAC-signed with a key derived from the
+        admin's attestation identity (verify with
+        ``analysis.report.verify_spend_report``)."""
+        return self.admin.sign_spend_report(
+            round_trip_s=self.telemetry.snapshot())
+
+    @property
+    def expected_measurement(self) -> str:
+        return self.service.expected_measurement()

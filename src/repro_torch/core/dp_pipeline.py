@@ -38,7 +38,7 @@ raises), and the fused tier's noise is ``noise_correction.corrected_noise``
 (per-leaf ``jax.random`` normals, plain torch threefry: no TPU kernel
 behind it). Not ported yet (they raise ``NotImplementedError``): the admin
 mask construction (``ROADMAP.md`` queue 1, item 9) and the external xi/xp
-streams of the wire tier's speculative rounds (item 8).
+streams of the wire tier's speculative rounds (item 8b).
 """
 from __future__ import annotations
 
@@ -238,7 +238,7 @@ class DPPipeline:
         if xi is not None or xp is not None:
             raise NotImplementedError(
                 "external xi/xp streams (the wire tier's speculative rounds) "
-                "are not ported yet: ROADMAP.md queue 1, item 8")
+                "are not ported yet: ROADMAP.md queue 1, item 8b")
         priv = self.priv
         silo = int(silo)
         packed = g if isinstance(g, torch.Tensor) \

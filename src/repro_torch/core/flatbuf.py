@@ -84,14 +84,21 @@ def layout_of(tree: dict) -> PackedLayout:
             shapes.append(tuple(leaf.shape))
             stacks.append(0)
         paths.append(path)
+    return build_layout(paths, shapes, stacks)
+
+
+def build_layout(paths, shapes, stacks) -> PackedLayout:
+    """The layout of leaves ``paths`` (in JAX order) with ``shapes`` and
+    ``stacks`` (see :class:`PackedLayout`): offsets, padding and total."""
+    shapes = tuple(tuple(int(d) for d in s) for s in shapes)
     sizes = tuple(math.prod(s) if s else 1 for s in shapes)
     padded = tuple(_round_up(max(s, 1), LANE) for s in sizes)
     offsets, off = [], 0
     for p in padded:
         offsets.append(off)
         off += p
-    return PackedLayout(tuple(paths), tuple(shapes), tuple(stacks), sizes,
-                        padded, tuple(offsets), _round_up(off, ALIGN))
+    return PackedLayout(tuple(paths), shapes, tuple(int(k) for k in stacks),
+                        sizes, padded, tuple(offsets), _round_up(off, ALIGN))
 
 
 def flat_tensors(layout: PackedLayout, tree: dict) -> list:

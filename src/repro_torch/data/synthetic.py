@@ -1,9 +1,59 @@
-"""Synthetic LM token data (the container has no real corpus). The port's
-copy of ``synthetic_tokens`` from ``repro/data/synthetic.py``: the same
-numpy draws, so the same seed gives the JAX package's tokens."""
+"""Synthetic datasets (the container has no real corpus and no real
+MNIST). The port's copy of ``repro/data/synthetic.py``'s ``ArrayDataset``,
+``synthetic_images``, ``synthetic_mnist`` and ``synthetic_tokens``: the
+same numpy draws, so the same seed gives the JAX package's arrays bit for
+bit.
+
+The classification data are learnable mixtures of prototypes (each class
+a few prototype patterns plus Gaussian pixel noise); the LM data a token
+stream from a mixture of Markov chains.
+"""
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
+
+
+@dataclass
+class ArrayDataset:
+    x: np.ndarray
+    y: np.ndarray
+
+    def __len__(self):
+        return len(self.x)
+
+    def split(self, n_parts: int) -> list["ArrayDataset"]:
+        """Partition across dataset owners (silos)."""
+        xs = np.array_split(self.x, n_parts)
+        ys = np.array_split(self.y, n_parts)
+        return [ArrayDataset(a, b) for a, b in zip(xs, ys)]
+
+
+def synthetic_images(n: int, hw: int, channels: int, n_classes: int,
+                     seed: int = 0, noise: float = 0.35,
+                     prototypes_per_class: int = 3) -> ArrayDataset:
+    rng = np.random.default_rng(seed)
+    protos = rng.normal(0.0, 1.0, (n_classes, prototypes_per_class, hw, hw,
+                                   channels))
+    y = rng.integers(0, n_classes, n)
+    pick = rng.integers(0, prototypes_per_class, n)
+    x = protos[y, pick] + rng.normal(0.0, noise, (n, hw, hw, channels))
+    return ArrayDataset(x.astype(np.float32), y.astype(np.int32))
+
+
+def synthetic_mnist(n_train: int = 8192, n_test: int = 2048, seed: int = 0):
+    """``(train, test)``: the test set is drawn from the train set's
+    prototypes (same seed), as in the JAX package."""
+    tr = synthetic_images(n_train, 28, 1, 10, seed)
+    rng = np.random.default_rng(seed)
+    protos = rng.normal(0.0, 1.0, (10, 3, 28, 28, 1))
+    rng2 = np.random.default_rng(seed + 1000)
+    y = rng2.integers(0, 10, n_test)
+    pick = rng2.integers(0, 3, n_test)
+    te = ArrayDataset((protos[y, pick] + rng2.normal(
+        0, 0.35, (n_test, 28, 28, 1))).astype(np.float32), y.astype(np.int32))
+    return tr, te
 
 
 def synthetic_tokens(n_seqs: int, seq_len: int, vocab: int, seed: int = 0,

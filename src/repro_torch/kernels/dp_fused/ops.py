@@ -40,7 +40,7 @@ def clip_mask(g, scale, key_r, key_xi, prev_key, silo: int, n_silos: int,
     if xi is not None or xp is not None:
         raise NotImplementedError(
             "external xi/xp streams (the wire tier's speculative rounds) are "
-            "not ported yet: ROADMAP.md queue 1, item 8")
+            "not ported yet: ROADMAP.md queue 1, item 8b")
     dev = g.device
     nxt, s, s_prev = ref.clip_mask_defaults(silo, n_silos, sigma_c, dev, nxt,
                                             noise_scale, prev_noise_scale)

@@ -13,9 +13,14 @@ silos one after another on its one card, a virtual mesh of that many data
 slots (``MeshConfig((silos,), ("data",))``), which gives the JAX result on
 a mesh of that many devices.
 
+``--wire-rounds N`` runs N pipelined rounds of the wire tier's component
+protocol instead (:class:`repro_torch.api.CollaborativeSession` on
+MNIST-MLP3 at its published width, ``--silos`` dataset owners, synthetic
+MNIST), as the JAX CLI does.
+
 Not ported yet, each raising ``NotImplementedError`` with its
-``ROADMAP.md`` item: ``--wire-rounds`` and the wire options
-(``--round-timeout``, ``--quorum``, ``--chaos-seed``, ``--journal``),
+``ROADMAP.md`` item: the fault-tolerant wire options (``--round-timeout``,
+``--quorum``, ``--chaos-seed``, ``--journal``: item 8b),
 ``--checkpoint-dir``, ``--elastic``, ``--silo-epsilon-budget`` and
 ``--mask-mode admin``.
 """
@@ -25,14 +30,14 @@ import argparse
 import json
 
 import numpy as np
+import torch
 
 from repro_torch.analysis.report import privacy_spend_table
 from repro_torch.api import Session
 from repro_torch.configs.base import MeshConfig, OptimizerConfig, PrivacyConfig
 from repro_torch.distributed.steps import effective_n_silos
 
-WIRE_FLAGS = ("wire_rounds", "round_timeout", "quorum", "chaos_seed",
-              "journal")
+FAULT_FLAGS = ("round_timeout", "quorum", "chaos_seed", "journal")
 
 
 def drop_schedule(spec: str, n_silos: int):
@@ -58,6 +63,46 @@ def drop_schedule(spec: str, n_silos: int):
         return active
 
     return schedule
+
+
+def run_wire(args):
+    """The wire tier: ``args.wire_rounds`` pipelined component-protocol
+    rounds of MNIST-MLP3 (published width) over ``args.silos`` owners of
+    synthetic MNIST (1024 examples), the JAX CLI's setup. Returns the
+    session and the per-round losses."""
+    from repro_torch.api import CollaborativeSession, resolve_device
+    from repro_torch.configs.paper_models import MNIST_MLP3
+    from repro_torch.data.synthetic import synthetic_mnist
+    from repro_torch.models.small import build_small_model, value_and_grad
+
+    n = args.silos
+    train, _ = synthetic_mnist(n_train=1024, n_test=256)
+    priv = PrivacyConfig(enabled=not args.no_privacy, sigma=args.sigma,
+                         clip_bound=1.0)
+    sm = build_small_model(MNIST_MLP3)
+    dev = resolve_device(args.device)
+    params = sm.init(torch.Generator(device=dev).manual_seed(1))
+    sess = CollaborativeSession.from_silos(
+        [{"x": s.x, "y": s.y} for s in train.split(n)], priv, device=dev,
+        params_template=params)
+
+    def update_fn(p, update, lr):
+        return {k: v - lr * torch.as_tensor(update[k], device=v.device)
+                for k, v in p.items()}
+
+    params, losses = sess.run(params, value_and_grad(sm.loss), update_fn,
+                              args.lr, args.wire_rounds)
+    stats = sess.wire_stats
+    print(f"wire tier: {len(losses)} rounds closed on {sess.device}, "
+          f"final loss={losses[-1]:.4f}"
+          + (f" eps={sess.epsilon():.3f}" if priv.enabled else "")
+          + f" | bytes: broadcast {stats['broadcast_bytes']}, updates "
+          f"{stats['update_bytes']}, resync {stats['resync_bytes']}")
+    if args.spend_report:
+        with open(args.spend_report, "w") as f:
+            json.dump(sess.privacy_report(), f, indent=1)
+        print(f"spend report written to {args.spend_report}")
+    return sess, losses
 
 
 def main(argv=None):
@@ -108,19 +153,24 @@ def main(argv=None):
                     help="deterministic dropout: comma-separated "
                          "step:silo[:cooldown] triples, e.g. '10:3:5,20:2' "
                          "(silo 3 out for steps 10-14, silo 2 out from 20 on)")
-    for flag in ("--wire-rounds", "--round-timeout", "--quorum",
-                 "--chaos-seed", "--journal"):
+    ap.add_argument("--wire-rounds", type=int, default=None, metavar="N",
+                    help="run N pipelined rounds of the wire tier's "
+                         "component protocol (CollaborativeSession on "
+                         "MNIST-MLP3) instead of the trainer")
+    for flag in ("--round-timeout", "--quorum", "--chaos-seed", "--journal"):
         ap.add_argument(flag, default=None,
-                        help="wire tier: not ported yet (ROADMAP.md queue 1, "
-                             "item 8)")
+                        help="fault-tolerant wire rounds: not ported yet "
+                             "(ROADMAP.md queue 1, item 8b)")
     args = ap.parse_args(argv)
 
-    wire = [f"--{a.replace('_', '-')}" for a in WIRE_FLAGS
-            if getattr(args, a) is not None]
-    if wire:
+    faults = [f"--{a.replace('_', '-')}" for a in FAULT_FLAGS
+              if getattr(args, a) is not None]
+    if faults:
         raise NotImplementedError(
-            f"{', '.join(wire)}: the wire tier is not ported to repro_torch "
-            f"yet (ROADMAP.md queue 1, item 8)")
+            f"{', '.join(faults)}: the fault-tolerant wire rounds are not "
+            f"ported to repro_torch yet (ROADMAP.md queue 1, item 8b)")
+    if args.wire_rounds is not None:
+        return run_wire(args)
 
     mesh = MeshConfig((args.silos,), ("data",)) \
         if args.sync_path == "barrier" else None

@@ -10,6 +10,9 @@ port keeps one module per layer in a ``ModuleList`` (``layers``,
 ``mamba_layers``), so layer ``i`` takes slice ``[i]`` of every stacked
 leaf. ``params_to_numpy`` gives a ``Transformer``'s weights as the JAX
 tree. Matrices are ``(d_in, d_out)`` in both packages: no transpose.
+``small_params_from_jax`` takes the paper's small models' nested tree
+(MNIST-MLP3's ``{'l0': {'w', 'b'}, ...}``) to the port's flat dict of
+tensors keyed by the dotted JAX paths (``models/small.py``).
 """
 from __future__ import annotations
 
@@ -84,3 +87,22 @@ def params_to_numpy(model: Transformer) -> dict:
                       if isinstance(leaf, list)
                       else leaf.detach().cpu().numpy().copy())
     return tree
+
+
+def small_params_from_jax(np_tree: dict, device,
+                          dtype=torch.float32) -> dict:
+    """A small model's nested JAX tree (numpy leaves) -> the port's flat
+    ``{"l0.w": tensor, ...}`` dict on ``device``, every leaf copied."""
+    out = {}
+
+    def walk(node, prefix):
+        for k in sorted(node):
+            path = f"{prefix}{k}"
+            if isinstance(node[k], dict):
+                walk(node[k], path + ".")
+            else:
+                out[path] = torch.tensor(np.asarray(node[k]), dtype=dtype,
+                                         device=device)
+
+    walk(np_tree, "")
+    return out

@@ -21,7 +21,8 @@ the main shapes; misaligned data refused) and
 flash attention at d_head 112, and the smoke-size serving slice (plain and
 speculative; the ssm and hybrid families), the fused and barrier training
 slices (packed and perleaf) and per-example clipping on the card against
-the CPU.
+the CPU, and the wire tier's rounds (``clip_mask`` once per active silo per
+round, pipelined == serial on the card, card against CPU).
 """
 import copy
 
@@ -1037,3 +1038,68 @@ def test_smoke_ssm_serving_on_card_matches_cpu(cuda, arch):
     np.testing.assert_array_equal(wa.tokens, wb.tokens)
     scan = "wkv" if arch == "rwkv6-7b" else "ssd"
     assert counts[scan] == gpu.cfg.n_layers * wa.stats.waves
+
+
+# ---------------------------------------------------------------------------
+# the wire tier
+
+
+# wire rounds card vs CPU at sigma 0.5, C 1 (B = 4) and lr 0.5: each
+# round's mean update carries the masks' fp32 residue (contributions reach
+# 10 B; 8 ulps of 10 B a sum), moved by lr: over 3 rounds
+WIRE_PARAM_ATOL = 3 * 0.5 * 8 * 2.0 ** -23 * 10 * 4.0
+# the losses move with the params by that much over 784 inputs
+WIRE_LOSS_RTOL = 1e-4
+
+
+def test_wire_rounds_on_card_match_cpu_and_count_clip_mask(cuda):
+    """MNIST-MLP3 (published width) over 4 silos, lambda 0.7, silo 1 out in
+    round 1 and back (a full resync) in round 2: the card's session
+    launches ``clip_mask`` once per active silo per round, pipelined rounds
+    are bit-equal to serial ones on the card, and the card agrees with the
+    CPU's plain versions from the same weights."""
+    from repro_torch.api import CollaborativeSession
+    from repro_torch.configs.paper_models import MNIST_MLP3
+    from repro_torch.core import flatbuf
+    from repro_torch.core.tee import wire
+    from repro_torch.data.synthetic import synthetic_mnist
+    from repro_torch.models.small import build_small_model, value_and_grad
+
+    sm = build_small_model(MNIST_MLP3)
+    silos = [{"x": s.x, "y": s.y}
+             for s in synthetic_mnist(n_train=256, n_test=16)[0].split(4)]
+    priv = PrivacyConfig(sigma=0.5, clip_bound=1.0, noise_lambda=0.7)
+    init = sm.init(torch.Generator().manual_seed(1))
+
+    def update_fn(p, update, lr):
+        return {k: v - lr * torch.as_tensor(update[k], device=v.device)
+                for k, v in p.items()}
+
+    def rounds(dev, pipelined):
+        sess = CollaborativeSession.from_silos(silos, priv, device=dev)
+        params = {k: v.to(dev) for k, v in init.items()}
+        dispatch.reset_launches()
+        losses = []
+        for t in range(3):
+            if t == 1:
+                sess.drop_silo(1)
+            if t == 2:
+                sess.rejoin_silo(1)
+            params, loss = sess.run(params, value_and_grad(sm.loss),
+                                    update_fn, 0.5, 1, pipelined=pipelined)
+            losses += loss
+        packed = wire.pack_np(flatbuf.layout_of(params), params)
+        return sess, packed, losses, dispatch.launch_counts()
+
+    gs, gp, gl, counts = rounds(cuda, False)
+    assert counts["clip_mask"] == 4 + 3 + 4 and sum(counts.values()) == 11
+    assert gs.accountant.contributions == [4, 3, 4]
+    assert gs.wire_stats["resync_bytes"] > 0
+    ps, pp, pl, _ = rounds(cuda, True)
+    np.testing.assert_array_equal(pp.view(np.uint32), gp.view(np.uint32))
+    assert pl == gl and ps.wire_stats == gs.wire_stats
+    cs, cp, cl, _ = rounds("cpu", False)
+    np.testing.assert_allclose(gl, cl, rtol=WIRE_LOSS_RTOL)
+    np.testing.assert_allclose(gp, cp, rtol=0, atol=WIRE_PARAM_ATOL)
+    assert gs.epsilon() == cs.epsilon()
+    assert gs.accountant.history == cs.accountant.history

@@ -1,7 +1,7 @@
-"""The port stands alone: importing every ``repro_torch`` module, and
-``chip_smoke.py``, leaves ``jax`` and every ``repro`` module out of
-``sys.modules``. Checked in a fresh interpreter, since this test process
-imports both packages."""
+"""The port stands alone: importing every ``repro_torch`` module,
+``chip_smoke.py`` and ``examples/collaborative_mnist_torch.py`` leaves
+``jax`` and every ``repro`` module out of ``sys.modules``. Checked in a
+fresh interpreter, since this test process imports both packages."""
 import os
 import pathlib
 import subprocess
@@ -10,19 +10,22 @@ import sys
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 PROBE = r"""
-import importlib, pkgutil, sys
+import importlib, importlib.util, pkgutil, sys
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+spec = importlib.util.spec_from_file_location(
+    "collaborative_mnist_torch", "examples/collaborative_mnist_torch.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.")
                 or m == "repro" or m.startswith("repro."))
 print(len(names), leaked)
 assert not leaked, leaked
-assert len(names) >= 79, names
+assert len(names) >= 91, names
 # the training slices' modules are among those imported
 for name in ("core.prng", "core.flatbuf", "core.clipping", "core.barrier",
              "core.noise_correction", "core.dp_pipeline",
@@ -40,7 +43,12 @@ for name in ("core.prng", "core.flatbuf", "core.clipping", "core.barrier",
              "configs.rwkv6_7b", "configs.zamba2_7b", "kernels.rwkv6.ref",
              "kernels.rwkv6.rwkv6", "kernels.rwkv6.ops", "kernels.mamba2.ref",
              "kernels.mamba2.mamba2", "kernels.mamba2.ops", "models.rwkv6",
-             "models.rwkv_stack", "models.mamba2", "models.hybrid"):
+             "models.rwkv_stack", "models.mamba2", "models.hybrid",
+             # the wire tier
+             "configs.paper_models", "models.small", "core.tee",
+             "core.tee.attestation", "core.tee.kds", "core.tee.sandbox",
+             "core.tee.channels", "core.tee.merkle", "core.tee.wire",
+             "core.tee.components", "runtime.elastic", "runtime.straggler"):
     assert "repro_torch." + name in names, name
 """
 

@@ -1,7 +1,8 @@
 """The port's training CLI, ``python -m repro_torch.launch.train``, on the
 CPU (``--device cpu``, the kernels' plain versions): both DP tiers, the
-drop schedule, the spend report, the flags whose paths are not ported yet,
-and the refusal to fall back to the CPU without ``--device``."""
+drop schedule, the spend report, the wire tier's rounds (``--wire-rounds``),
+the flags whose paths are not ported yet, and the refusal to fall back to
+the CPU without ``--device``."""
 import json
 import os
 import subprocess
@@ -65,9 +66,9 @@ def test_drop_schedule_reads_step_silo_cooldown(capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--wire-rounds", "3"], "item 8"),
-    (["--quorum", "2"], "item 8"),
-    (["--chaos-seed", "1", "--journal", "j.json"], "item 8"),
+    (["--wire-rounds", "3", "--round-timeout", "1"], "item 8b"),
+    (["--quorum", "2"], "item 8b"),
+    (["--chaos-seed", "1", "--journal", "j.json"], "item 8b"),
     (["--checkpoint-dir", "ckpt"], "item 10"),
     (["--elastic"], "item 10"),
     (["--silo-epsilon-budget", "1.0"], "item 10"),
@@ -76,6 +77,23 @@ def test_drop_schedule_reads_step_silo_cooldown(capsys):
 def test_unported_flags_raise(flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, {item}"):
         train.main(SMALL + flags)
+
+
+def test_cli_runs_wire_rounds_on_cpu(tmp_path, capsys):
+    """``--wire-rounds``: pipelined rounds of the wire tier's protocol on
+    MNIST-MLP3, the plain ``clip_mask`` on the CPU, the signed spend report
+    written."""
+    report = tmp_path / "spend.json"
+    before = dispatch.launch_counts()
+    sess, losses = train.main(["--device", "cpu", "--wire-rounds", "2",
+                               "--spend-report", str(report)])
+    assert dispatch.launch_counts() == before
+    assert len(losses) == 2 and np.isfinite(losses).all()
+    assert sess.accountant.contributions == [4, 4]
+    assert sess.handlers[0].device == torch.device("cpu")
+    spend = json.loads(report.read_text())
+    assert spend["steps"] == 2 and "signature" in spend
+    assert "wire tier: 2 rounds closed on cpu" in capsys.readouterr().out
 
 
 def test_cli_without_device_needs_cuda(monkeypatch):
