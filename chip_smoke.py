@@ -138,20 +138,34 @@ Phases (any failed check raises, and the script exits non-zero):
  16. the wire tier: ``clip_mask`` at MNIST-MLP3's packed length (P =
      235,520) bit-equal to its plain version (both ``use_prev`` settings, a
      partial ring), timed as a call and on the card beside the launch floor
-     and its SASS bound; MNIST-MLP3 at its published width over 4 silos of
-     synthetic MNIST (4096 examples, sigma 0.5, C 1) through
-     ``CollaborativeSession``: 10 serial and 10 pipelined rounds from two
-     sessions with the same seeds, bit-equal (params, losses, bytes on the
-     wire), ``clip_mask`` zeroed before each run and launched once per silo
-     per round, the loss falling, the median round and each party's share
-     of it (admin plane, broadcast, each handler's round trip, its compute
-     on the card between CUDA events and its seal, the updater's ingest and
+     and its SASS bound; the speculative rounds' two port kernels there:
+     ``noise_stream`` bit-equal to its plain version (at P and a ragged P),
+     the external-stream ``clip_mask`` given its buffers bit-equal to its
+     plain version and to ``clip_mask``'s in-kernel draw, both timed
+     likewise; MNIST-MLP3 at its published width over 4 silos of synthetic
+     MNIST (4096 examples, sigma 0.5, C 1, lambda 0.7) through
+     ``CollaborativeSession``: 10 serial, 10 pipelined and 10 speculative
+     rounds from three sessions with the same seeds, bit-equal (params,
+     losses, bytes on the wire), the launch counts zeroed before each run
+     (``clip_mask`` once per silo per round; speculative: the variant once
+     per silo per round, ``noise_stream`` 11 times a silo, 18 cache hits a
+     silo), the loss falling, the median round and each party's share of
+     it (admin plane, broadcast, each handler's round trip, its compute on
+     the card between CUDA events and its seal, the updater's ingest and
      close; read by wrapping the components' methods on their instances);
-     then 3 rounds at lambda 0.7 with silo 1 out in round 1 and resynced in
-     round 2, on the card and on the host CPU from the same weights (losses
+     then 3 rounds with silo 1 out in round 1 and resynced in round 2, on
+     the card and on the host CPU from the same weights (losses
      WIRE_LOSS_RTOL, params WIRE_PARAM_ATOL, epsilon and participation
-     equal); then ``python -m repro_torch.launch.train --wire-rounds 4`` on
-     the card in a subprocess.
+     equal); ``python -m repro_torch.launch.train --wire-rounds 4`` on the
+     card in a subprocess; then the fault-tolerant rounds: 5 fault-free
+     tolerant rounds of 6 silos (worker threads, a CUDA stream a handler)
+     bit-equal to the serial loop, whose warm median round sets the
+     deadline (4x); a chaos run (seed 6: an updater crash, a hang, a dropped
+     and a corrupted blob, KDS denials; 6 silos, quorum 4, 12 rounds) bit-equal
+     to its elastic oracle; a journal resumed after a driver restart
+     bit-equal to an uninterrupted run; and the CLI's chaos rounds with a
+     journal (``--wire-rounds 6 --chaos-seed 1 --round-timeout <deadline>
+     --journal``).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -688,8 +702,18 @@ def check_flash(cfg, dev, gen, B, S, ops, ref, F):
 # the wire tier's runs: MNIST-MLP3 at its published width, 4 silos of
 # synthetic MNIST (4096 examples), sigma 0.5, C 1 (B = 4); lr 0.1, where 10
 # rounds take the loss down (the example's 0.5 raises it over its first 10
-# rounds at this noise: the mean update's noise is sigma C / 4 an element)
-WIRE_SILOS, WIRE_ROUNDS, WIRE_LR = 4, 10, 0.1
+# rounds at this noise: the mean update's noise is sigma C / 4 an element);
+# lambda 0.7 in the serial, pipelined and speculative runs, so that a
+# speculative round reads both of its streams from memory (xi_{t-1} the
+# round before's cached xi)
+WIRE_SILOS, WIRE_ROUNDS, WIRE_LR, WIRE_LAM = 4, 10, 0.1, 0.7
+# the fault-tolerant runs: 6 silos, quorum 4 (tests/test_faults.py:123);
+# the chaos plan's seed 6 schedules an updater crash, a dropped blob, a
+# hang (silo 4 in round 7, which finishes late beside round 8) with a
+# corrupted blob, and KDS denials; the journal's resume plan (seed 7, 4
+# silos, no hang) crashes a silo before the restart and corrupts a blob
+# after it; the CLI's (seed 1) corrupts a blob and crashes the updater
+CHAOS_SILOS, CHAOS_QUORUM, CHAOS_ROUNDS, CHAOS_SEED = 6, 4, 12, 6
 # 3 rounds card vs CPU: each round's mean update carries the masks' fp32
 # residue (contributions reach 10 B; 8 ulps of 10 B a sum), moved by lr
 WIRE_PARAM_ATOL = 3 * WIRE_LR * 8 * 2.0 ** -23 * 10 * 4.0
@@ -808,14 +832,258 @@ def check_clip_mask_wire(dev, P, ops, ref, keys, prev, per_stream) -> dict:
     }
 
 
+def check_stream_kernels(dev, P, ops, ref, keys, prev, per_stream) -> dict:
+    """The speculative rounds' two port kernels at the wire tier's shape.
+    ``noise_stream`` bit-equal to its plain version at P and at a ragged
+    length; the external-stream ``clip_mask``, given ``noise_stream``'s
+    buffers, bit-equal to its plain version and to ``clip_mask``'s
+    in-kernel draw (silo 1 of 4 over the partial ring of
+    ``check_clip_mask_wire``, both ``use_prev`` settings). Each timed as a
+    call and on the card beside the launch floor and its bound: one normal
+    an element and the output written for ``noise_stream``, two normals
+    (r_i, r_nxt) and g, xi, xp read and the output written for the
+    variant, at ``clip_mask``'s SASS cost a normal (the same device
+    function)."""
+    gen = torch.Generator(device=dev).manual_seed(16)
+    g = torch.randn(P, generator=gen, device=dev) * 0.01
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)
+    sc = f32(0.5) * f32(1.0)
+    args = (f32(0.731), keys.key_r, keys.key_xi, prev, 1, 4, sc,
+            f32(8.0) * sc, f32(0.7))
+    kw = dict(nxt=3, noise_scale=sc / torch.sqrt(f32(3.0)),
+              prev_noise_scale=sc / torch.sqrt(f32(4.0)))
+    ns_err = {}
+    for n in (P, P - 333):
+        out = ops.noise_stream(keys.key_xi, 1, torch.empty(n, device=dev))
+        ns_err[f"P={n}"] = (out - ref.noise_stream_ref(
+            keys.key_xi, 1, n, dev)).abs().max().item()
+    check(all(e == 0.0 for e in ns_err.values()),
+          f"noise_stream differs from its plain version: {ns_err}")
+    xi = ops.noise_stream(keys.key_xi, 1, torch.empty(P, device=dev))
+    xp = ops.noise_stream(prev, 1, torch.empty(P, device=dev))
+    ext_err = {}
+    for use_prev in (True, False):
+        out = ops.clip_mask(g, *args, True, use_prev, xi=xi, xp=xp, **kw)
+        plain = ref.clip_mask_ref(g, *args, True, use_prev, xi=xi, xp=xp,
+                                  **kw)
+        drawn = ops.clip_mask(g, *args, True, use_prev, **kw)
+        ext_err[f"use_prev={use_prev}"] = {
+            "plain": (out - plain).abs().max().item(),
+            "in_kernel_draw": (out - drawn).abs().max().item()}
+    check(all(e == 0.0 for d in ext_err.values() for e in d.values()),
+          f"clip_mask with external streams differs: {ext_err}")
+    floor = launch_floor()
+    out = torch.empty(P, device=dev)
+    rows = {}
+    for name, call, plain, streams, words, errs in (
+            ("noise_stream",
+             lambda: ops.noise_stream(keys.key_xi, 1, out),
+             lambda: ref.noise_stream_ref(keys.key_xi, 1, P, dev), 1, 1,
+             ns_err),
+            ("clip_mask_ext",
+             lambda: ops.clip_mask(g, *args, xi=xi, xp=xp, **kw),
+             lambda: ref.clip_mask_ref(g, *args, xi=xi, xp=xp, **kw), 2, 4,
+             ext_err)):
+        parts = stream_bound(P, streams, per_stream, words)
+        bms = max(parts.values())
+        rows[name] = {
+            "max_abs_err": 0.0, "checked": errs,
+            "ms": cuda_ms(call), "device_ms": graph_ms(call),
+            "plain_ms": cuda_ms(plain), "library_ms": None,
+            "library_call": "none (no PyTorch call draws keyed threefry "
+                            "normals)",
+            "launch_floor_ms": floor["device_ms"],
+            "launch_floor_call_ms": floor["ms"], "bound_ms": bms,
+            "bound_by": "bytes" if bms == parts["bytes"] else "operations",
+            "bound_detail": {"ms_by_limit": parts, "streams": streams,
+                             "fp32_words_an_element": words},
+            "at": f"P={P} (MNIST-MLP3) silo 1 fp32"
+                  + (" nxt 3 use_pairwise use_prev" if words > 1 else "")}
+        r = rows[name]
+        log(f"[kernel] {name} wire: max_abs_err {json.dumps(errs)} | kernel "
+            f"{r['ms']:.4f} ms (on the card {r['device_ms']:.4f}) | launch "
+            f"floor {floor['ms']:.4f} ms (on the card "
+            f"{floor['device_ms']:.4f}) | plain {r['plain_ms']:.4f} ms | "
+            f"bound {bms:.4f} ms ({r['bound_by']}: {json.dumps(parts)}) | "
+            f"{r['at']}")
+    return rows
+
+
+def oracle_replay(make, journal, grad_fn, lr) -> tuple:
+    """A fresh session (``make()``: (session, params)) scheduling each
+    journaled round's realized set as an elastic membership change, then
+    the serial ``step`` loop: the fault-free run a quorum-closed run must
+    equal bit for bit. Returns (session, params, losses)."""
+    sess, params = make()
+    losses = []
+    for rec in journal.rounds:
+        t, want = rec["round"], np.asarray(rec["active"], bool)
+        cur = sess.membership.active_at(t)
+        for silo in range(sess.n_silos):
+            if cur[silo] and not want[silo]:
+                check(sess.drop_silo(silo, step=t), "oracle: drop refused")
+            elif not cur[silo] and want[silo]:
+                sess.rejoin_silo(silo, step=t)
+        params, loss = sess.step(t, params, grad_fn, wire_update, lr)
+        losses.append(loss)
+    return sess, params, losses
+
+
+def tolerant_phase(dev, init, wpriv, grad_fn, src: Path) -> dict:
+    """Phase 16's fault-tolerant rounds on the card: a fault-free tolerant
+    run of 6 silos (each handler on a worker thread and its own CUDA
+    stream) bit-equal to the serial loop, its warm rounds setting the
+    deadline; a seeded chaos run (6 silos, quorum 4, 12 rounds, the plan's
+    hangs twice the deadline) that closes every round and equals the
+    elastic oracle bit for bit; a journal resumed after a driver restart
+    (no deadline) equal to a run that never stopped; and the CLI's chaos
+    rounds with a journal."""
+    import tempfile
+
+    from repro_torch.api import CollaborativeSession
+    from repro_torch.core import flatbuf
+    from repro_torch.core.tee import wire
+    from repro_torch.core.tee.faults import (FaultInjector, FaultPlan,
+                                             RoundJournal)
+    from repro_torch.data.synthetic import synthetic_mnist
+
+    def make(n):
+        silos = [{"x": s.x, "y": s.y} for s in synthetic_mnist(
+            n_train=4096, n_test=16)[0].split(n)]
+
+        def new():
+            sess = CollaborativeSession.from_silos(silos, wpriv, device=dev)
+            return sess, {k: v.clone() for k, v in init.items()}
+        return new
+
+    def bits(params):
+        return wire.pack_np(flatbuf.layout_of(params), params).view(np.uint32)
+
+    out = {}
+    six = make(CHAOS_SILOS)
+    rounds = 5
+    sa, pa = six()
+    pa, la = sa.run(pa, grad_fn, wire_update, WIRE_LR, rounds,
+                    pipelined=False)
+    sb, pb = six()
+    stamps = []
+
+    def upd(p, update, lr):
+        q = wire_update(p, update, lr)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        return q
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pb, lb = sb.run(pb, grad_fn, upd, WIRE_LR, rounds, round_timeout_s=60.0,
+                    quorum=CHAOS_SILOS)
+    round_ms = np.diff([t0] + stamps) * 1e3
+    check(np.array_equal(bits(pa), bits(pb)) and la == lb
+          and sa.wire_stats == sb.wire_stats,
+          "fault-free tolerant rounds are not bit-equal to serial on the card")
+    warm_ms = float(np.median(round_ms[1:]))
+    deadline = max(0.05, 4 * warm_ms / 1e3)
+    out["fault_free"] = {"rounds": rounds, "round_ms": round_ms.tolist(),
+                         "warm_median_ms": warm_ms, "deadline_s": deadline}
+    log(f"[wire] fault-free tolerant == serial bit for bit (6 silos, "
+        f"{rounds} rounds; rounds {json.dumps([round(x, 3) for x in round_ms])}"
+        f" ms): deadline 4 x the warm median {warm_ms:.3f} ms = "
+        f"{deadline:.4f} s")
+
+    sess, params = six()
+    inj = FaultInjector(FaultPlan.from_seed(
+        CHAOS_SEED, CHAOS_SILOS, CHAOS_ROUNDS, quorum=CHAOS_QUORUM,
+        hang_s=2 * deadline))
+    journal = RoundJournal()
+    t0 = time.perf_counter()
+    params, losses = sess.run(params, grad_fn, wire_update, WIRE_LR,
+                              CHAOS_ROUNDS, round_timeout_s=deadline,
+                              quorum=CHAOS_QUORUM, chaos=inj,
+                              journal=journal)
+    chaos_s = time.perf_counter() - t0
+    check(journal.rounds_done == CHAOS_ROUNDS and bool(inj.fired),
+          f"chaos: {journal.rounds_done} rounds closed, fired {inj.fired}")
+    osess, oparams, olosses = oracle_replay(six, journal, grad_fn, WIRE_LR)
+    check(np.array_equal(bits(params), bits(oparams)) and losses == olosses
+          and sess.accountant.contributions == osess.accountant.contributions,
+          "chaos run is not bit-equal to its elastic oracle on the card")
+    st = dict(sess.fault_stats)
+    st["integrity_failures"] = [f"{f['round']}:{f['silo']}"
+                                for f in st["integrity_failures"]]
+    out["chaos"] = {"seed": CHAOS_SEED, "silos": CHAOS_SILOS,
+                    "quorum": CHAOS_QUORUM, "rounds": CHAOS_ROUNDS,
+                    "deadline_s": deadline, "plan": inj.plan.counts(),
+                    "fired": inj.fired, "fault_stats": st, "s": chaos_s,
+                    "contributions": sess.accountant.contributions,
+                    "loss": [losses[0], losses[-1]]}
+    log(f"[wire] chaos (seed {CHAOS_SEED}, {CHAOS_SILOS} silos, quorum "
+        f"{CHAOS_QUORUM}, {CHAOS_ROUNDS} rounds, deadline {deadline:.4f} s) "
+        f"in {chaos_s:.2f} s == elastic oracle bit for bit | plan "
+        f"{json.dumps(inj.plan.counts())} | fired {json.dumps(inj.fired)} | "
+        f"fault stats {json.dumps(st)} | contributions "
+        f"{sess.accountant.contributions}")
+
+    four = make(4)
+    plan = FaultPlan.from_seed(7, 4, 4, quorum=2, hang_rate=0.0)
+    ref_sess, ref_params = four()
+    ref_journal = RoundJournal()
+    ref_params, ref_losses = ref_sess.run(
+        ref_params, grad_fn, wire_update, WIRE_LR, 4, quorum=2,
+        chaos=FaultInjector(plan), journal=ref_journal)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "rounds.journal")
+        s1, p1 = four()
+        inj = FaultInjector(plan)
+        _, l1 = s1.run(p1, grad_fn, wire_update, WIRE_LR, 2, quorum=2,
+                       chaos=inj, journal=RoundJournal(path=path))
+        s2, _ = four()
+        j2 = RoundJournal.load(path)
+        p2 = s2.resume(j2)
+        p2, l2 = s2.run(p2, grad_fn, wire_update, WIRE_LR, 2, quorum=2,
+                        chaos=inj, journal=j2)
+        check(j2.rounds == ref_journal.rounds
+              and np.array_equal(bits(p2), bits(ref_params))
+              and l1 + l2 == ref_losses and bool(inj.fired),
+              "journal resume is not bit-equal to an uninterrupted run")
+        out["resume"] = {"rounds": 4, "cut": 2, "fired": inj.fired,
+                         "sets": [r["active"] for r in j2.rounds]}
+        log(f"[wire] journal resume after 2 of 4 rounds == uninterrupted bit "
+            f"for bit | fired {json.dumps(inj.fired)} | sets "
+            f"{json.dumps(out['resume']['sets'])}")
+
+        cli = [sys.executable, "-m", "repro_torch.launch.train",
+               "--wire-rounds", "6", "--chaos-seed", "1", "--round-timeout",
+               f"{deadline:.4f}", "--journal",
+               os.path.join(tmp, "cli.journal")]
+        t0 = time.perf_counter()
+        r = subprocess.run(cli, cwd=ROOT, capture_output=True, text=True,
+                           timeout=300,
+                           env={**os.environ, "PYTHONPATH": str(src)})
+        check(r.returncode == 0 and "wire tier: 6 rounds closed on cuda"
+              in r.stdout and "fault stats:" in r.stdout,
+              f"wire chaos CLI failed ({r.returncode}):\n{r.stdout}\n"
+              f"{r.stderr}")
+        lines = [x for x in r.stdout.splitlines()
+                 if x.startswith(("wire", "fault", "chaos"))]
+        out["cli"] = {"cmd": " ".join(cli[1:-1] + ["<tmp>/cli.journal"]),
+                      "s": time.perf_counter() - t0, "last": lines}
+        log(f"[cli] {out['cli']['cmd']}: exit 0 in {out['cli']['s']:.1f} s | "
+            + " | ".join(lines))
+    return out
+
+
 def wire_phase(dev, per_stream: dict, src: Path = ROOT / "src") -> tuple:
     """Phase 16, the wire tier on the card: MNIST-MLP3 at its published
-    width over 4 silos, ``clip_mask`` at its shape against the plain
-    version, 10 serial and 10 pipelined rounds (bit-equal, clip_mask once
-    per silo per round, the loss falling, each round's time split by
-    party), 3 rounds card vs CPU with a drop and a full resync, and the
-    ``--wire-rounds`` CLI (from ``src``). Returns ``(record, clip_mask's
-    wire row)``."""
+    width over 4 silos, ``clip_mask``, ``noise_stream`` and the
+    external-stream ``clip_mask`` at its shape against their plain
+    versions, 10 serial, 10 pipelined and 10 speculative rounds (bit-equal;
+    ``clip_mask`` once per silo per round, or in speculative rounds the
+    variant once and ``noise_stream`` on each miss and prefetch; the loss
+    falling; each round's time split by party), 3 rounds card vs CPU with a
+    drop and a full resync, the ``--wire-rounds`` CLI (from ``src``), and
+    the fault-tolerant rounds (:func:`tolerant_phase`). Returns ``(record,
+    clip_mask's wire row, the two port kernels' rows)``."""
     from repro_torch.api import CollaborativeSession
     from repro_torch.configs.base import PrivacyConfig
     from repro_torch.configs.paper_models import MNIST_MLP3
@@ -832,11 +1100,15 @@ def wire_phase(dev, per_stream: dict, src: Path = ROOT / "src") -> tuple:
     sm = build_small_model(MNIST_MLP3)
     silos = [{"x": s.x, "y": s.y} for s in synthetic_mnist(
         n_train=4096, n_test=16)[0].split(WIRE_SILOS)]
-    wpriv = PrivacyConfig(enabled=True, sigma=0.5, clip_bound=1.0)
+    wpriv = PrivacyConfig(enabled=True, sigma=0.5, clip_bound=1.0,
+                          noise_lambda=WIRE_LAM)
     init = sm.init(torch.Generator(device=dev).manual_seed(1))
     P_WIRE = flatbuf.layout_of(init).total
     grad_fn = value_and_grad(sm.loss)
     row = check_clip_mask_wire(
+        dev, P_WIRE, noise_ops, noise_ref, step_keys(prng.PRNGKey(0), 0),
+        step_keys(prng.PRNGKey(0), 1).key_xi, per_stream)
+    stream_rows = check_stream_kernels(
         dev, P_WIRE, noise_ops, noise_ref, step_keys(prng.PRNGKey(0), 0),
         step_keys(prng.PRNGKey(0), 1).key_xi, per_stream)
     log(f"[kernel] clip_mask wire: max_abs_err {row['checked']} | kernel "
@@ -846,7 +1118,7 @@ def wire_phase(dev, per_stream: dict, src: Path = ROOT / "src") -> tuple:
         f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
         f"{json.dumps(row['bound_detail']['ms_by_limit'])}) | {row['at']}")
     runs = {}
-    for mode in ("serial", "pipelined"):
+    for mode in ("serial", "pipelined", "speculative"):
         sess = CollaborativeSession.from_silos(silos, wpriv,
                                                params_template=init)
         parts = instrument_wire(sess)
@@ -864,12 +1136,21 @@ def wire_phase(dev, per_stream: dict, src: Path = ROOT / "src") -> tuple:
         t0 = time.perf_counter()
         params, losses = sess.run(params, parts["grad_fn"](grad_fn), upd,
                                   WIRE_LR, WIRE_ROUNDS,
-                                  pipelined=mode == "pipelined")
+                                  pipelined=mode != "serial",
+                                  speculative=mode == "speculative")
         counts = dispatch.launch_counts()
-        check(counts["clip_mask"] == WIRE_SILOS * WIRE_ROUNDS
-              and sum(counts.values()) == counts["clip_mask"],
-              f"wire {mode}: launches {counts}, not clip_mask once per "
-              f"silo per round")
+        hits = [h._spec_hits for h in sess.handlers]
+        if mode == "speculative":
+            # per handler: round 0 draws xi and xi_{t-1}, every later
+            # round's xi is prefetched, and both of its streams hit
+            want = {"clip_mask_ext": WIRE_SILOS * WIRE_ROUNDS,
+                    "noise_stream": WIRE_SILOS * (WIRE_ROUNDS + 1)}
+            check(hits == [2 * (WIRE_ROUNDS - 1)] * WIRE_SILOS,
+                  f"wire speculative: cache hits {hits}")
+        else:
+            want = {"clip_mask": WIRE_SILOS * WIRE_ROUNDS}
+        check({k: v for k, v in counts.items() if v} == want,
+              f"wire {mode}: launches {counts}, expected {want}")
         check(all(np.isfinite(losses)) and losses[-1] < losses[0],
               f"wire {mode}: loss {losses[0]} -> {losses[-1]}")
         rounds_ms = np.diff([t0] + stamps) * 1e3
@@ -879,13 +1160,16 @@ def wire_phase(dev, per_stream: dict, src: Path = ROOT / "src") -> tuple:
                       "round_ms": rounds_ms.tolist(),
                       "median_round_ms": float(np.median(rounds_ms)),
                       "parts": parts["read"](WIRE_ROUNDS),
-                      "clip_mask_launches": counts["clip_mask"]}
-    a, b = runs["serial"], runs["pipelined"]
-    check(np.array_equal(a["packed"].view(np.uint32),
-                         b["packed"].view(np.uint32))
-          and a["losses"] == b["losses"]
-          and a["sess"].wire_stats == b["sess"].wire_stats,
-          "pipelined wire rounds are not bit-equal to serial on the card")
+                      "launches": {k: v for k, v in counts.items() if v},
+                      "spec_hits": hits}
+    a = runs["serial"]
+    for mode in ("pipelined", "speculative"):
+        b = runs[mode]
+        check(np.array_equal(a["packed"].view(np.uint32),
+                             b["packed"].view(np.uint32))
+              and a["losses"] == b["losses"]
+              and a["sess"].wire_stats == b["sess"].wire_stats,
+              f"{mode} wire rounds are not bit-equal to serial on the card")
     report = {mode: {k: v for k, v in r.items()
                              if k not in ("sess", "packed")}
                       for mode, r in runs.items()}
@@ -895,14 +1179,14 @@ def wire_phase(dev, per_stream: dict, src: Path = ROOT / "src") -> tuple:
         log(f"[wire] {mode}: {WIRE_ROUNDS} rounds, median "
             f"{r['median_round_ms']:.3f} ms a round (rounds "
             f"{json.dumps([round(x, 3) for x in r['round_ms']])}) | loss "
-            f"{r['losses'][0]:.4f} -> {r['losses'][-1]:.4f} | clip_mask "
-            f"{r['clip_mask_launches']}")
+            f"{r['losses'][0]:.4f} -> {r['losses'][-1]:.4f} | launches "
+            f"{json.dumps(r['launches'])} | cache hits {r['spec_hits']}")
         log(f"[wire] {mode} split, ms a round (median call ms, calls): "
             + ", ".join(f"{k} {v['per_round_ms']:.3f} "
                         f"({v['median_call_ms'] or 0:.4f}, {v['calls']})"
                         for k, v in r["parts"].items()))
-    log(f"[wire] pipelined == serial bit for bit; bytes on the wire "
-        f"{json.dumps(a['sess'].wire_stats)}")
+    log(f"[wire] pipelined == serial == speculative bit for bit; bytes on "
+        f"the wire {json.dumps(a['sess'].wire_stats)}")
     # the card's busy share of 3 serial rounds (torch.profiler; a first
     # round outside the window warms the new session)
     from repro_torch.launch.profile_serve import _window
@@ -920,10 +1204,8 @@ def wire_phase(dev, per_stream: dict, src: Path = ROOT / "src") -> tuple:
 
     # 3 rounds at lambda 0.7, silo 1 out in round 1 and back (a full
     # resync) in round 2, on the card and on the host CPU, same weights
-    lam_priv = dataclasses.replace(wpriv, noise_lambda=0.7)
-
     def three(device):
-        sess = CollaborativeSession.from_silos(silos, lam_priv, device=device)
+        sess = CollaborativeSession.from_silos(silos, wpriv, device=device)
         params = {k: v.to(device) for k, v in init.items()}
         dispatch.reset_launches()
         losses = []
@@ -974,10 +1256,13 @@ def wire_phase(dev, per_stream: dict, src: Path = ROOT / "src") -> tuple:
                      "s": time.perf_counter() - t0, "last": done}
     log(f"[cli] {' '.join(cli[1:])}: exit 0 in {report['cli']['s']:.1f} s "
         f"| {done}")
-    row["launches"] = runs["serial"]["clip_mask_launches"]
+    row["launches"] = runs["serial"]["launches"]["clip_mask"]
+    for name in stream_rows:
+        stream_rows[name]["launches"] = runs["speculative"]["launches"][name]
+    report["tolerant"] = tolerant_phase(dev, init, wpriv, grad_fn, src)
     report["phase_s"] = time.perf_counter() - t16
     log(f"[wire] phase 16 in {report['phase_s']:.1f} s")
-    return report, row
+    return report, row, stream_rows
 
 
 
@@ -1167,9 +1452,10 @@ def one_phase(phase: str, src: Path) -> int:
         record = pool_events(get_config("qwen2.5-3b"), dev, 0)
         log_pool_events(record)
     else:
-        record, row = wire_phase(
-            dev, stream_ops(library_sass(), "clip_mask_kernel"), src)
+        record, row, stream_rows = wire_phase(
+            dev, stream_ops(library_sass(), ROW8_SASS), src)
         record["clip_mask_wire"] = row
+        record["stream_kernels"] = stream_rows
     log(json.dumps({"src": str(src), "card": card, phase: record}))
     return 0
 
@@ -1453,12 +1739,13 @@ def check_noise_batch(dev, n, P, g_sum, ops, ref, step_keys, PRNGKey,
     }
 
 
-def stream_bound(P: int, streams: int, per_stream: dict) -> dict:
+def stream_bound(P: int, streams: int, per_stream: dict,
+                 words: int = 2) -> dict:
     """Milliseconds by limit for ``streams`` keyed normals an element over P
-    elements: bytes (g read and the output written once) and each pipe's
-    share of the compiled stream body over its lanes, all of it over
-    issue."""
-    parts = {"bytes": 2 * P * 4 / HBM_BYTES_PER_S * 1e3}
+    elements: bytes (``words`` fp32 words an element, each read or written
+    once: g in and the output out by default) and each pipe's share of the
+    compiled stream body over its lanes, all of it over issue."""
+    parts = {"bytes": words * P * 4 / HBM_BYTES_PER_S * 1e3}
     for pipe, lanes in LANES.items():
         parts[pipe] = (streams * P * per_stream[pipe]
                        / (lanes * SM_OPS_PER_S) * 1e3)
@@ -1510,14 +1797,21 @@ def check_clip_mask(dev, P, g, ops, ref, keys, prev, per_stream):
     }
 
 
+# row 8's kernel in the SASS: clip_mask_kernel<false> (mangled ILb0E), or
+# the untemplated clip_mask_kernel of a tree from before the external-stream
+# variant; never clip_mask_kernel<true>
+ROW8_SASS = r"clip_mask_kernel(ILb0E)?E"
+
+
 def sass_loops(sass: str, kernel: str) -> list:
-    """The innermost loops of ``kernel`` in ``cuobjdump -sass`` text: one
-    opcode list per loop body (from a backward branch's target through the
-    branch), innermost meaning that no other loop lies inside it."""
+    """The innermost loops of ``kernel`` (a regular expression searched in
+    the mangled name) in ``cuobjdump -sass`` text: one opcode list per loop
+    body (from a backward branch's target through the branch), innermost
+    meaning that no other loop lies inside it."""
     body, found = [], False
     for line in sass.splitlines():
         if "Function :" in line:
-            found = kernel in line
+            found = re.search(kernel, line) is not None
             continue
         m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
         if found and m:
@@ -2121,7 +2415,7 @@ def main() -> int:
     kern["noise_batch"] = check_noise_batch(dev, N_SILOS, P, g_sum, noise_ops,
                                             noise_ref, step_keys, prng.PRNGKey,
                                             per_stream)
-    per_stream_cm = stream_ops(sass, "clip_mask_kernel")
+    per_stream_cm = stream_ops(sass, ROW8_SASS)
     log(f"[kernel] clip_mask SASS, instructions per stream element by pipe: "
         f"{json.dumps(per_stream_cm)}")
     kern["clip_mask"] = check_clip_mask(
@@ -2777,7 +3071,9 @@ def main() -> int:
             f"{time.perf_counter() - t0:.1f} s | {util}")
 
     # 16. the wire tier on the card
-    report["wire"], kern["clip_mask"]["wire"] = wire_phase(dev, per_stream_cm)
+    report["wire"], kern["clip_mask"]["wire"], stream_rows = wire_phase(
+        dev, per_stream_cm)
+    kern.update(stream_rows)
 
     # the record
     launches = {"flash_attention": n_direct["flash_attention"],
@@ -2791,7 +3087,11 @@ def main() -> int:
                 "per_example_sumsq": n_pe["per_example_sumsq"],
                 "clip_sum": n_pe["clip_sum"],
                 "wkv": report["rwkv6"]["wave"]["launches"]["wkv"],
-                "ssd": report["zamba2"]["direct"]["launches"]["ssd"]}
+                "ssd": report["zamba2"]["direct"]["launches"]["ssd"],
+                **{k: r["launches"] for k, r in stream_rows.items()}}
+    check(set(kern) == set(dispatch.KERNELS) == set(launches),
+          f"the kernels line covers {sorted(kern)}, the registry "
+          f"{sorted(dispatch.KERNELS)}")
     line = []
     for name, r in kern.items():
         k = dispatch.KERNELS[name]
@@ -2803,7 +3103,7 @@ def main() -> int:
                  "library_ms": r["library_ms"], "at": r["at"]}
         for extra in ("checked_at", "plain_at", "library_call",
                       "bound_detail", "cases", "device_ms", "max_rel_err",
-                      "launch_floor_ms",
+                      "launch_floor_ms", "checked",
                       "norms_max_rel_err", "tolerance", "tolerance_rel",
                       "two_pass_floor_ms", "library_device_ms"):
             if extra in r:

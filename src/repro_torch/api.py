@@ -20,8 +20,8 @@ training the dense family on the fused and barrier DP tiers
 (``PrivacyConfig(sync_path="barrier")`` with ``mesh=MeshConfig((n,),
 ("data",))`` runs the paper's per-silo masked contributions over n silos,
 one after another on the card), and the wire tier's protocol rounds,
-serial and pipelined (:class:`CollaborativeSession`, on the paper's small
-models).
+serial, pipelined, speculative and fault-tolerant
+(:class:`CollaborativeSession`, on the paper's small models).
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a CUDA device and without ``device="cpu"`` they raise, never falling
 back to the CPU. On the CPU every kernel runs its plain PyTorch version.
@@ -363,12 +363,6 @@ class Session:
 
 
 
-def _not_8b(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md queue 1, item "
-        f"8b: speculative wire rounds and faults)")
-
-
 @dataclass
 class CollaborativeSession:
     """Protocol-tier façade (paper Fig. 1): a management service, KDS and
@@ -392,12 +386,15 @@ class CollaborativeSession:
     ``mean_update`` is a numpy tree the function moves onto the params'
     device. Membership is elastic: ``drop_silo`` / ``rejoin_silo`` change
     who contributes from the next round on; an exhausted budget excludes a
-    silo until ``rejoin_silo(..., override=True)``.
+    silo until ``rejoin_silo(..., override=True)``; ``rejoin_silo_async``
+    re-admits a dropped silo with a fresh attestation, key release and warm
+    resync.
 
-    Not ported yet, raising ``NotImplementedError`` (``ROADMAP.md`` queue
-    1, item 8b): speculative rounds, the fault-tolerant rounds
-    (``round_timeout_s``, ``quorum``, ``chaos``, ``journal``), ``resume``
-    and ``rejoin_silo_async``; ``mask_mode='admin'`` raises item 9.
+    :meth:`run` drives several rounds: serial, pipelined, speculative (the
+    handlers' noise streams cached and prefetched on the card) or
+    fault-tolerant (deadline and quorum closure, seeded chaos, a round
+    journal that :meth:`resume` continues from; ``docs/failure_model.md``).
+    ``mask_mode='admin'`` raises (``ROADMAP.md`` queue 1, item 9).
     """
 
     service: Any
@@ -419,11 +416,25 @@ class CollaborativeSession:
     _bcast_layout: Any = None
     _bcast_epoch: int = 0
     wire_stats: Any = None  # bytes on the wire
+    # the fault-tolerance plane (docs/failure_model.md): an optional
+    # FaultInjector driving seeded chaos, and the session's fault counters
+    chaos: Any = None
+    fault_stats: Any = None
 
     def __post_init__(self):
         if self.wire_stats is None:
             self.wire_stats = {"rounds": 0, "broadcast_bytes": 0,
                                "resync_bytes": 0, "update_bytes": 0}
+        if self.fault_stats is None:
+            self.fault_stats = {"transient_retries": 0, "kds_retries": 0,
+                                "integrity_failures": [],
+                                "rounds_replayed": 0, "quorum_closures": 0,
+                                "deadline_hits": 0, "updater_recoveries": 0}
+        # silos dropped by deadline/quorum closure (silo -> the round it
+        # went down), for rejoin; silo -> a worker still running past its
+        # round's deadline
+        self._downed: dict = {}
+        self._inflight: dict = {}
         self._stats_lock = threading.Lock()
 
     @classmethod
@@ -432,7 +443,9 @@ class CollaborativeSession:
                    silo_epsilon_budget: Optional[float] = None,
                    silo_budgets: Optional[dict] = None,
                    codec: str = "packed", params_template=None,
+                   batch_mac: Optional[bool] = None,
                    shard_workers: Optional[int] = None,
+                   received_cap: Optional[int] = None,
                    device=None) -> "CollaborativeSession":
         """``silo_data``: one batch dict per dataset owner (numpy arrays or
         tensors), moved onto the session's device, where it stays.
@@ -444,10 +457,13 @@ class CollaborativeSession:
         ``'packed'`` (raw buffers, XOR-delta broadcast, the fast channel) or
         ``'pickle'`` (pickle+npz blobs, the per-block channel).
         ``params_template`` pins the packed layout's fingerprint into every
-        component's measurement. The packed codec authenticates each
-        round's updates through the admin's Merkle batch tag (the pickle
-        codec by each message's HMAC). ``shard_workers``: the updater's
-        accumulation threads (default 4 from 32 silos up, serial below)."""
+        component's measurement. ``batch_mac`` (default: on for the
+        packed codec) authenticates each round's updates through the
+        admin's Merkle batch tag, off by each message's HMAC.
+        ``shard_workers``: the updater's accumulation threads (default 4
+        from 32 silos up, serial below). ``received_cap``: the updater's
+        audit trail of updates (default ``max(256, 2n)``; entries aged out
+        are counted in ``truncated_entries``)."""
         from repro_torch.core import flatbuf, prng
         from repro_torch.core.privacy import PrivacyLedger
         from repro_torch.core.tee import wire
@@ -494,7 +510,8 @@ class CollaborativeSession:
         updater.attest(svc.policy)
         updater.shard_workers = shard_workers if shard_workers is not None \
             else (4 if n >= 32 else 0)
-        updater.received_cap = max(256, 2 * n)
+        updater.received_cap = received_cap if received_cap is not None \
+            else max(256, 2 * n)
         for h in handlers:
             updater.channels[h.name] = SecureChannel(
                 svc.kds._records[f"dk-{h.silo_idx}"].key, h.name,
@@ -516,7 +533,8 @@ class CollaborativeSession:
                    n_silos=n, device=dev, clip_bound=privacy.clip_bound,
                    membership=SiloMembership(n),
                    telemetry=SiloTelemetry(n), codec=codec,
-                   batch_mac=codec == "packed")
+                   batch_mac=batch_mac if batch_mac is not None
+                   else codec == "packed")
 
     def drop_silo(self, silo: int, step: Optional[int] = None,
                   cooldown: Optional[int] = None) -> bool:
@@ -541,10 +559,75 @@ class CollaborativeSession:
             override=override)
 
     def rejoin_silo_async(self, silo: int, override: bool = False) -> bool:
-        raise _not_8b("rejoin_silo_async")
+        """Mid-round rejoin: the dropped owner's handler re-attests, gets
+        its channel key re-released through the KDS and is warm-resynced to
+        the current params epoch now, while a round in flight runs on
+        without it; it contributes from the next round on (where
+        :meth:`rejoin_silo` leaves the resync to its first round back).
+
+        A transient KDS denial (``faults.KdsTransientDenial``) is retried
+        with deterministic-jitter backoff; an attestation
+        ``PermissionError`` is an integrity failure and propagates. The
+        membership flips last, after attestation and key release, so a
+        failure leaves it untouched; a budget-excluded owner is refused
+        before any attestation or KDS traffic unless ``override``."""
+        from repro_torch.core.tee.channels import (VER_FAST, VER_LEGACY,
+                                                   SecureChannel)
+        from repro_torch.core.tee.faults import Backoff, KdsTransientDenial
+
+        if silo in self.membership.excluded and not override:
+            # records the refusal, changes nothing
+            return self.membership.rejoin(silo, step=self._next_round,
+                                          override=False)
+        h = self.handlers[silo]
+        # a handler whose measurement drifted while it was out gets no key
+        h.attest(self.service.policy)
+        backoff = Backoff(seed=silo)
+        while True:
+            try:
+                key = self.service.kds.request_key(f"dk-{silo}", h.report)
+                break
+            except KdsTransientDenial:
+                with self._stats_lock:
+                    self.fault_stats["kds_retries"] += 1
+                if not backoff.sleep():
+                    raise
+        if not self.membership.rejoin(silo, step=self._next_round,
+                                      override=override):
+            return False
+        ver = VER_FAST if self.codec == "packed" else VER_LEGACY
+        # both channel ends anew: the replay counters restart in step
+        h.channel = SecureChannel(key, h.name, version=ver)
+        self.updater.channels[h.name] = SecureChannel(key, h.name, version=ver)
+        if self._bcast_buf is not None:
+            # warm resync at the current epoch: the next delta chains
+            blob = self._resync_blob()
+            self.wire_stats["resync_bytes"] += len(blob)
+            h._sync_params(blob)
+        return True
 
     def resume(self, journal):
-        raise _not_8b("resume (the round journal)")
+        """Continue from a ``faults.RoundJournal`` after a driver restart:
+        replay each committed round's participation set through the admin
+        (the correction state and the ledger land where the crashed driver
+        left them), re-drop the journaled downed silos, and return the
+        journaled params as tensors on the session's device (None for an
+        empty journal). The next :meth:`run` starts at the next round with
+        a full broadcast, bit-identical from there on to a driver that never
+        stopped: every stream is keyed by the round index."""
+        from repro_torch.core.tee import wire
+        from repro_torch.core.tee.components import _on_device
+
+        for rec in journal.rounds:
+            keys = self.admin.keys_for_step(rec["round"])
+            self.admin.advance(keys, np.asarray(rec["active"], bool))
+        nxt = journal.rounds[-1]["round"] + 1 if journal.rounds else 0
+        for silo, rnd in journal.downed.items():
+            if self.membership.drop(int(silo), step=nxt):
+                self._downed[int(silo)] = int(rnd)
+        if journal.params_blob is None:
+            return None
+        return _on_device(wire.decode_tree(journal.params_blob), self.device)
 
     @property
     def _next_round(self) -> int:
@@ -668,26 +751,60 @@ class CollaborativeSession:
             n_rounds: int, pipelined: bool = True, speculative: bool = False,
             round_timeout_s: Optional[float] = None,
             quorum: Optional[int] = None, chaos: Any = None,
-            journal: Any = None):
-        """``n_rounds`` rounds from the next one. ``pipelined=True`` streams
-        each sealed update into the updater's ingestion thread as it is
-        produced (one worker: the silo order of the sum is kept), and
-        overlaps the admin plane (round t's ledger write, round t+1's keys,
-        verdicts and state) with the updater's close of round t. The model
-        owner's ``update_fn`` and every device operation stay on the calling
-        thread. Bit-identical to a loop of :meth:`step`. Returns (params,
+            journal: Any = None, rejoin_after: Optional[int] = 2):
+        """``n_rounds`` rounds from the next one. Returns (params,
         [per-round mean losses]).
 
-        ``speculative``, ``round_timeout_s``, ``quorum``, ``chaos`` and
-        ``journal`` raise (item 8b)."""
-        if speculative:
-            raise _not_8b("run(speculative=True)")
-        faults = {"round_timeout_s": round_timeout_s, "quorum": quorum,
-                  "chaos": chaos, "journal": journal}
-        given = [k for k, v in faults.items() if v is not None]
-        if given:
-            raise _not_8b(f"run({', '.join(given)}=...): fault-tolerant "
-                          f"rounds")
+        ``pipelined=True`` streams each sealed update into the updater's
+        ingestion thread as it is produced (one worker: the silo order of
+        the sum is kept), and overlaps the admin plane (round t's ledger
+        write, round t+1's keys, verdicts and state) with the updater's
+        close of round t. The model owner's ``update_fn`` runs on the
+        calling thread. Bit-identical to a loop of :meth:`step`.
+
+        ``speculative=True`` (implies pipelined) also lets each handler
+        reuse round t's xi stream as round t+1's xi_{t-1} (the admin's
+        ``advance`` carries exactly that key forward) and draws round t+1's
+        xi on the card while round t closes on the updater's thread. Every
+        cached stream is tagged with its raw key and used only on an exact
+        match; a miss draws it anew, so rekeys, resyncs and membership
+        changes fall back to a fresh draw. Bit-identical to :meth:`step`.
+
+        Fault-tolerant rounds (any of ``round_timeout_s``, ``quorum``,
+        ``chaos``, ``journal``; ``docs/failure_model.md``): the active
+        handlers run at once on worker threads, each on its own CUDA
+        stream; a round closes once a quorum of updates has landed and the
+        deadline has passed. Non-responders are dropped through the elastic
+        membership and the round is replayed over the realized set, so it
+        is bit-identical to a scheduled elastic round with that set.
+        Transient faults (a dropped blob, a KDS denial, stale params) are
+        retried with deterministic-jitter backoff; integrity failures (a bad
+        MAC or Merkle leaf) never are: the silo is attributed and dropped.
+        ``chaos``: a ``faults.FaultInjector``; ``journal``: a
+        ``faults.RoundJournal`` (each committed round is journaled; an
+        updater crash between ingest and close discards the partial round
+        and replays it; :meth:`resume` continues from it after a driver
+        restart). ``rejoin_after``: rounds a dropped silo sits out before
+        :meth:`rejoin_silo_async` re-admits it (None: never)."""
+        if round_timeout_s is not None or chaos is not None \
+                or journal is not None or quorum is not None:
+            if chaos is not None:
+                self.chaos = chaos
+            return self._run_tolerant(params, grad_fn, update_fn, lr,
+                                      n_rounds, round_timeout_s, quorum,
+                                      journal, rejoin_after)
+        flags = [h.speculative for h in self.handlers]
+        for h in self.handlers:
+            h.speculative = speculative or h.speculative
+        try:
+            return self._run(params, grad_fn, update_fn, lr, n_rounds,
+                             pipelined or speculative, speculative)
+        finally:
+            for h, f in zip(self.handlers, flags):
+                h.speculative = f
+
+    def _run(self, params, grad_fn: Callable, update_fn: Callable, lr: float,
+             n_rounds: int, pipelined: bool, speculative: bool):
         losses = []
         start = self._next_round
         if not pipelined:
@@ -733,11 +850,237 @@ class CollaborativeSession:
                 self.wire_stats["rounds"] += 1
                 next_plan = self._admin_plane(t + 1) \
                     if t + 1 < start + n_rounds else None
+                if speculative and next_plan is not None:
+                    # round t+1's xi drawn while round t closes; a wrong
+                    # guess is a harmless miss
+                    for h in self.handlers:
+                        if next_plan["active"][h.silo_idx]:
+                            h.prefetch_round(next_plan["keys"])
                 mean_update, loss = fut.result()
                 params = update_fn(params, mean_update, lr)
                 losses.append(loss)
                 plan = next_plan
         return params, losses
+
+    # ------------------------------------------------ fault-tolerant rounds
+    def _run_tolerant(self, params, grad_fn: Callable, update_fn: Callable,
+                      lr: float, n_rounds: int,
+                      round_timeout_s: Optional[float],
+                      quorum: Optional[int], journal, rejoin_after):
+        from concurrent.futures import ThreadPoolExecutor
+
+        from repro_torch.core.tee import wire
+        from repro_torch.core.tee.faults import RoundJournal
+
+        journal = journal if journal is not None else RoundJournal()
+        if self.chaos is not None:
+            self.service.kds.fault_hook = self.chaos.kds_fault
+        losses = []
+        start = self._next_round
+        old_min = self.membership.min_active
+        if quorum is not None:
+            # the membership floor and the closure quorum are one number
+            self.membership.min_active = max(quorum, 1)
+        ex = ThreadPoolExecutor(max_workers=max(self.n_silos, 1),
+                                thread_name_prefix="collect")
+        try:
+            for t in range(start, start + n_rounds):
+                self._rejoin_downed(t, rejoin_after)
+                params, loss, active = self._step_tolerant(
+                    t, params, grad_fn, update_fn, lr, round_timeout_s,
+                    quorum, ex)
+                losses.append(loss)
+                journal.commit(t, active, wire.encode_tree(params),
+                               downed=self._downed)
+        finally:
+            self.membership.min_active = old_min
+            if self.chaos is not None:
+                self.service.kds.fault_hook = None
+            # waits for hung workers (bounded by the injected hangs); their
+            # late results are discarded
+            ex.shutdown(wait=True)
+            self._inflight.clear()
+        return params, losses
+
+    def _rejoin_downed(self, t: int, rejoin_after: Optional[int]) -> None:
+        """Re-admit the silos that deadline or quorum closure dropped, once
+        they have sat out ``rejoin_after`` rounds, through
+        :meth:`rejoin_silo_async`. A silo whose hung worker still runs is
+        left until it resolves (its handler must not be touched
+        concurrently)."""
+        if rejoin_after is None:
+            return
+        for silo in sorted(self._downed):
+            if t - self._downed[silo] < rejoin_after:
+                continue
+            fut = self._inflight.get(silo)
+            if fut is not None and not fut.done():
+                continue
+            self._inflight.pop(silo, None)
+            if self.chaos is not None:
+                self.chaos.arm_kds(t)
+            if self.rejoin_silo_async(silo):
+                del self._downed[silo]
+
+    def _step_tolerant(self, t: int, params, grad_fn: Callable,
+                       update_fn: Callable, lr: float,
+                       round_timeout_s: Optional[float],
+                       quorum: Optional[int], ex):
+        """One deadline/quorum round, replayed until it commits. Each
+        attempt resolves the plan over the current membership and collects
+        under the deadline; it commits when every expected silo responded
+        and every update authenticated, else it shrinks the membership
+        (non-responders dropped and penalized, integrity offenders
+        attributed and dropped, never retried) and replays. Injected faults
+        are one-shot, so replays converge; the attempt bound only guards a
+        wedged deployment. Returns (params, loss, the realized set)."""
+        from repro_torch.core.tee import wire
+        from repro_torch.core.tee.faults import UpdaterCrashError
+
+        for _attempt in range(2 * self.n_silos + 4):
+            plan = self._admin_plane(t)
+            active = plan["active"]
+            n_active = int(np.sum(active))
+            if n_active == 0:
+                raise RuntimeError(
+                    "no silo may contribute this round (budgets exhausted "
+                    "or membership empty); DP forbids further training")
+            q = n_active if quorum is None else min(quorum, n_active)
+            responders, nonresponders = self._collect_tolerant(
+                params, plan, grad_fn, round_timeout_s, q, t, ex)
+            if nonresponders:
+                with self._stats_lock:
+                    self.fault_stats["quorum_closures"] += 1
+                    self.fault_stats["rounds_replayed"] += 1
+                for silo in nonresponders:
+                    if self.membership.drop(silo, step=t):
+                        self._downed[silo] = t
+                    if round_timeout_s:
+                        self.telemetry.penalize(silo, round_timeout_s)
+                continue  # replay over the realized set
+            # the tag over the leaves each worker digested when it sealed
+            # (not last_leaf, which a late hung worker could overwrite), so
+            # corruption in transit is a leaf mismatch at ingest, attributed
+            names = [h.name for h in self.handlers if active[h.silo_idx]]
+            batch = self.admin.batch_tag(
+                [(n, responders[n][1]) for n in names], t) \
+                if self.batch_mac else None
+            rs = self.updater.begin_round(params, expected=names,
+                                          batch=batch)
+            bad = []
+            for name in names:
+                try:
+                    self.updater.ingest(rs, name, responders[name][0])
+                except (wire.WireFormatError, ValueError) as e:
+                    bad.append((name, e))
+            if bad:
+                # integrity: fail closed, never retry these updates
+                with self._stats_lock:
+                    for name, e in bad:
+                        self.fault_stats["integrity_failures"].append(
+                            {"round": t, "silo": name, "error": str(e)})
+                    self.fault_stats["rounds_replayed"] += 1
+                by_name = {h.name: h.silo_idx for h in self.handlers}
+                for name, _ in bad:
+                    if self.membership.drop(by_name[name], step=t):
+                        self._downed[by_name[name]] = t
+                continue
+            if self.chaos is not None:
+                self.updater.fault_hook = \
+                    lambda _t=t: self.chaos.updater_fault(_t)
+            try:
+                new_params, loss = self.updater.finish_round(
+                    rs, update_fn, lr, batch)
+            except UpdaterCrashError:
+                # a crash between ingest and close: nothing committed or
+                # journaled; the round replays bit-exactly (round-keyed
+                # streams)
+                with self._stats_lock:
+                    self.fault_stats["updater_recoveries"] += 1
+                    self.fault_stats["rounds_replayed"] += 1
+                continue
+            finally:
+                self.updater.fault_hook = None
+            self.admin.advance(plan["keys"], plan["active"])
+            with self._stats_lock:
+                self.wire_stats["rounds"] += 1
+            return new_params, loss, np.asarray(plan["active"], bool)
+        raise RuntimeError(
+            f"round {t} failed to close after {2 * self.n_silos + 4} "
+            f"attempts (persistent faults beyond the chaos model)")
+
+    def _collect_tolerant(self, params, plan: dict, grad_fn: Callable,
+                          round_timeout_s: Optional[float], q: int, t: int,
+                          ex):
+        """Every expected handler at once on a worker thread; after
+        ``round_timeout_s`` the round closes if at least ``q`` responders
+        have landed, else it waits on until they have or every worker has
+        resolved (below the quorum would break the DP participation floor).
+        Returns ``(responders, nonresponders)``: handler name -> (delivered
+        sealed blob, its leaf digest when sealed), and the silos that
+        crashed or still hang (their workers run on, their results
+        discarded)."""
+        import hashlib
+        from concurrent.futures import wait
+
+        from repro_torch.core.tee.faults import Backoff, SiloCrashError
+
+        blob, is_bcast = self._params_broadcast(params)
+        active = plan["active"]
+        with self._stats_lock:
+            self.wire_stats["broadcast_bytes"] += len(blob) if is_bcast \
+                else len(blob) * int(np.sum(active))
+        if self.privacy.mask_mode == "admin" and bool(np.any(active)):
+            self.admin.closing_mask_row()  # raises: item 9
+        handlers = [h for h in self.handlers if active[h.silo_idx]]
+        chaos = self.chaos
+
+        def worker(h):
+            if chaos is not None:
+                h.fault_hook = lambda silo, _t=t: chaos.handler_fault(_t,
+                                                                      silo)
+            try:
+                u = self._compute_one(h, blob, plan, grad_fn)
+            finally:
+                h.fault_hook = None
+            leaf = hashlib.sha256(u).digest()
+            delivered = u
+            if chaos is not None:
+                delivered = chaos.transit_fault(t, h.silo_idx, u)
+                if delivered is None:
+                    # a transient drop: the sender re-delivers the same
+                    # sealed blob after backoff (a first delivery, not a
+                    # replay, to the channel's counter)
+                    with self._stats_lock:
+                        self.fault_stats["transient_retries"] += 1
+                    Backoff(seed=t * 1009 + h.silo_idx).sleep()
+                    delivered = u
+            return h.name, delivered, leaf
+
+        futs = {ex.submit(worker, h): h for h in handlers}
+        done, pending = wait(set(futs), timeout=round_timeout_s)
+        if pending:
+            with self._stats_lock:
+                self.fault_stats["deadline_hits"] += 1
+        while pending and \
+                sum(1 for f in done if f.exception() is None) < q:
+            d2, pending = wait(pending, timeout=0.02)
+            done |= d2
+        responders, nonresponders = {}, []
+        for f in done:
+            exc = f.exception()
+            if exc is None:
+                name, delivered, leaf = f.result()
+                responders[name] = (delivered, leaf)
+            elif isinstance(exc, SiloCrashError):
+                nonresponders.append(futs[f].silo_idx)
+            else:
+                raise exc
+        for f in pending:  # hung past the deadline with the quorum met
+            silo = futs[f].silo_idx
+            nonresponders.append(silo)
+            self._inflight[silo] = f
+        return responders, nonresponders
 
     def epsilon(self, silo: Optional[int] = None) -> float:
         """Spent epsilon: global, or one silo's over its own history."""

@@ -36,9 +36,12 @@ barrier tier's contribution is a tree masked leaf by leaf by the ``zsmask``
 kernel (``core/masking.py``; the full static ring only: a partial set
 raises), and the fused tier's noise is ``noise_correction.corrected_noise``
 (per-leaf ``jax.random`` normals, plain torch threefry: no TPU kernel
-behind it). Not ported yet (they raise ``NotImplementedError``): the admin
-mask construction (``ROADMAP.md`` queue 1, item 9) and the external xi/xp
-streams of the wire tier's speculative rounds (item 8b).
+behind it). The wire tier's speculative rounds pass a silo's xi_t and
+xi_{t-1} into ``silo_contribution`` as (P,) streams drawn by
+:meth:`DPPipeline.noise_stream` (the ``noise_stream`` kernel on the card),
+which the external-stream ``clip_mask`` reads from memory. Not ported yet
+(it raises ``NotImplementedError``): the admin mask construction
+(``ROADMAP.md`` queue 1, item 9).
 """
 from __future__ import annotations
 
@@ -207,6 +210,15 @@ class DPPipeline:
                                      lam_gates.contiguous(), s_prev.item(),
                                      use_prev=priv.noise_lambda > 0.0)
 
+    def noise_stream(self, key, silo: int, device) -> torch.Tensor:
+        """Silo ``silo``'s (P,) standard-normal stream under the raw key
+        ``key`` on ``device``: the values ``clip_mask`` draws in the kernel
+        for xi (the step's key) or xi_{t-1} (the carried ``prev_key``), the
+        ``noise_stream`` kernel on a card."""
+        out = torch.empty(self.layout.total, dtype=torch.float32,
+                          device=device)
+        return fused_ops.noise_stream(key, silo, out)
+
     def silo_contribution(self, g, silo: int, scale, active, keys: BarrierKeys,
                           state: NoiseState, bound, admin_row=None, xi=None,
                           xp=None, out=None) -> torch.Tensor:
@@ -218,7 +230,9 @@ class DPPipeline:
         ``sum_i clip(g_i) + sigma*C*(xi_t - lam*xi_{t-1})``.
 
         ``g`` is the silo's gradient, a tree or its packed (P,) buffer;
-        ``scale`` its clip factor (a 0-dim tensor); ``out`` receives the
+        ``scale`` its clip factor (a 0-dim tensor); ``xi`` / ``xp`` its
+        xi_t and xi_{t-1} streams from :meth:`noise_stream` (packed
+        pairwise only; None draws them in the kernel); ``out`` receives the
         packed result (``g`` itself to work in place). Under the perleaf
         policy the result is a tree (views of that buffer), masked leaf by
         leaf (:meth:`_contribution_perleaf`). A dropped silo's
@@ -235,11 +249,12 @@ class DPPipeline:
             raise NotImplementedError(
                 "admin mask rows are not ported yet (ROADMAP.md queue 1, "
                 "item 9: remaining mask and noise families)")
-        if xi is not None or xp is not None:
-            raise NotImplementedError(
-                "external xi/xp streams (the wire tier's speculative rounds) "
-                "are not ported yet: ROADMAP.md queue 1, item 8b")
         priv = self.priv
+        if (xi is not None or xp is not None) and (
+                priv.mask_mode != "pairwise" or self.policy.mode != "packed"):
+            raise ValueError(
+                "external xi/xp streams only apply to the packed pairwise "
+                "construction (admin/none/perleaf draw their own)")
         silo = int(silo)
         packed = g if isinstance(g, torch.Tensor) \
             else flatbuf.pack(self.layout, g)
@@ -263,7 +278,7 @@ class DPPipeline:
             self.n_silos, sigma_c, priv.mask_scale * sigma_c * gate, lam_gate,
             use_pairwise=True, use_prev=priv.noise_lambda > 0.0,
             nxt=self.next_active(silo, active), noise_scale=s * gate,
-            prev_noise_scale=s_prev, out=out)
+            prev_noise_scale=s_prev, xi=xi, xp=xp, out=out)
 
     def _contribution_perleaf(self, packed, silo: int, scale, active,
                               keys: BarrierKeys, state: NoiseState, bound,

@@ -19,18 +19,29 @@ Workflow (paper Fig. 1):
 
 Where the work runs: each handler's forward/backward (the model owner's
 ``grad_fn``) and its contribution (``DPPipeline.silo_contribution``, one
-``clip_mask`` launch on a CUDA device) run on the handler's device, and the
-``(P,)`` contribution leaves it once, to be sealed. Everything else is
-numpy on the host, as in the JAX package: the codec, the channels, the
-Merkle tag, and the updater's decrypt, decode, accumulate and divide. The
-sharded accumulator's threads touch numpy only.
+``clip_mask`` launch on a CUDA device) run on the handler's device, on the
+handler's own CUDA stream (the fault-tolerant rounds run the handlers on
+worker threads, and a hung handler finishes late, beside the next round),
+and the ``(P,)`` contribution leaves it once, to be sealed: that host copy
+synchronises the handler's stream, so only numpy leaves a handler.
+Everything else is numpy on the host, as in the JAX package: the codec,
+the channels, the Merkle tag, and the updater's decrypt, decode, accumulate
+and divide. The sharded accumulator's threads touch numpy only.
+
+Speculative rounds: a handler keeps a key-tagged cache of at most two of
+its xi streams, device tensors drawn by the ``noise_stream`` kernel (round
+t's xi is round t+1's xi_{t-1}; the driver prefetches round t+1's xi while
+round t closes), and its contribution reads them from memory (the
+external-stream ``clip_mask``). A tag is the raw key's bytes, so a resync,
+rejoin or skipped round misses and draws anew; serial rounds draw the
+streams inside ``clip_mask``, bit for bit the same values.
 
 Not ported yet: the admin mask construction (``Admin.closing_mask_row``,
-``ROADMAP.md`` queue 1, item 9) and the speculative rounds' stream cache
-and prefetch (``DataHandler.prefetch_round``, item 8b).
+``ROADMAP.md`` queue 1, item 9).
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import hmac
 import queue
@@ -201,6 +212,11 @@ def _on_device(tree: dict, device) -> dict:
             for k, v in tree.items()}
 
 
+def _tag(key) -> bytes:
+    """A stream's cache tag: its raw key's 8 bytes."""
+    return np.asarray(_raw(key), np.uint32).tobytes()
+
+
 @dataclass
 class DataHandler(Component):
     """One per dataset owner: runs the model owner's sandboxed code on the
@@ -215,6 +231,10 @@ class DataHandler(Component):
     admin: Optional["Admin"] = None
     codec: str = "packed"
     device: torch.device = torch.device("cpu")
+    # the chaos harness's hook (core/tee/faults.py), called with the silo
+    # index at compute_update entry: an injected crash raises there, a hang
+    # sleeps. None outside chaos runs; not part of the measured code
+    fault_hook: Optional[Callable] = None
 
     def __post_init__(self):
         super().__post_init__()
@@ -229,6 +249,13 @@ class DataHandler(Component):
         # digest of the last sealed update: this handler's leaf of the
         # round's Merkle batch tag
         self.last_leaf: Optional[bytes] = None
+        # speculative rounds: at most two of this silo's xi streams, tagged
+        # by their raw key's bytes (module docstring)
+        self.speculative: bool = False
+        self._stream_cache: dict = {}
+        self._spec_hits: int = 0
+        self._spec_pipe: Optional[DPPipeline] = None
+        self._cuda_stream: Optional[torch.cuda.Stream] = None
 
     def _check_pin(self, fp: bytes) -> None:
         if self._pinned_fp is not None and fp != self._pinned_fp:
@@ -270,17 +297,59 @@ class DataHandler(Component):
         raise wire.WireFormatError(
             f"{self.name}: unexpected wire kind {msg.kind} in params sync")
 
+    def _remember_stream(self, tag: bytes, stream: torch.Tensor) -> None:
+        """Insert with a cap of two entries: at any round the only reusable
+        streams are xi(t), next round's xi_{t-1}, and a prefetched
+        xi(t+1)."""
+        cache = self._stream_cache
+        cache[tag] = stream
+        while len(cache) > 2:
+            cache.pop(next(iter(cache)))
+
+    def _round_streams(self, pipe: DPPipeline, keys: BarrierKeys,
+                       state: NoiseState, use_prev: bool) -> tuple:
+        """This round's xi and xi_{t-1} streams from the cache, or drawn by
+        :meth:`DPPipeline.noise_stream` on a miss (a wrong or stale tag, or
+        another length); every hit is counted in ``_spec_hits``."""
+        xi_tag = _tag(keys.key_xi)
+        xi = self._stream_cache.get(xi_tag)
+        if xi is None or xi.shape[0] != pipe.layout.total:
+            xi = pipe.noise_stream(keys.key_xi, self.silo_idx, self.device)
+        else:
+            self._spec_hits += 1
+        self._remember_stream(xi_tag, xi)
+        xp = None
+        if use_prev:
+            xp = self._stream_cache.get(_tag(state.prev_key))
+            if xp is None or xp.shape[0] != pipe.layout.total:
+                xp = pipe.noise_stream(state.prev_key, self.silo_idx,
+                                       self.device)
+            else:
+                self._spec_hits += 1
+        return xi, xp
+
     def prefetch_round(self, keys: BarrierKeys) -> None:
-        raise _not_ported("DataHandler.prefetch_round", "item 8b",
-                          "speculative wire rounds")
+        """Draw round t+1's xi while round t closes (the driver calls this
+        between handing the close to the updater's thread and collecting
+        it). A membership change leaves xi valid (a stream depends on its
+        key and silo only), and a resync or reschedule that lands another
+        key misses the cache."""
+        if not self.speculative or self._spec_pipe is None:
+            return
+        tag = _tag(keys.key_xi)
+        if tag not in self._stream_cache:
+            self._remember_stream(tag, self._spec_pipe.noise_stream(
+                keys.key_xi, self.silo_idx, self.device))
 
     def _masked_contrib(self, pipe: DPPipeline, grads: dict, active,
                         keys: BarrierKeys, state: NoiseState, clip_bound):
         """norm -> clip scale -> ``silo_contribution`` on the gradients'
         device. On the packed pairwise path the contribution is one
-        ``clip_mask`` launch, its xi and xi_prev streams drawn in the
-        kernel: the values JAX's ``DPPipeline.noise_stream`` draws for the
-        same (key, silo), which its handler passes in as arguments."""
+        ``clip_mask`` launch. Serial rounds draw its xi and xi_{t-1}
+        streams in the kernel: the values JAX's ``DPPipeline.noise_stream``
+        draws for the same (key, silo), which its handler passes in as
+        arguments. Speculative rounds pass them in, from the cache or
+        :meth:`_round_streams`' draw (the external-stream kernel)."""
         dev = next(iter(flatbuf.flat_tensors(pipe.layout, grads))).device
         with torch.no_grad():
             # a 0-dim tensor: C / norm is then a true division, as JAX's
@@ -288,8 +357,30 @@ class DataHandler(Component):
                                device=dev)
             norm = pipe.norm_tree(grads)
             scale = pipe.clip_scale(norm, bound)
+            xi = xp = None
+            if self.speculative and pipe.priv.mask_mode == "pairwise" \
+                    and pipe.policy.mode == "packed":
+                xi, xp = self._round_streams(pipe, keys, state,
+                                             pipe.priv.noise_lambda > 0.0)
+                for x in (xi, xp):
+                    if x is not None and x.is_cuda:
+                        # drawn on another stream (a prefetch): not freed
+                        # for reuse before this stream has read it
+                        x.record_stream(torch.cuda.current_stream(dev))
             return pipe.silo_contribution(grads, self.silo_idx, scale,
-                                          active, keys, state, bound), norm
+                                          active, keys, state, bound,
+                                          xi=xi, xp=xp), norm
+
+    def _stream(self):
+        """The handler's own CUDA stream as a context, made once and made
+        to wait for the calling thread's current stream (the data and any
+        prefetched stream were enqueued there); nothing on the CPU."""
+        if self.device.type != "cuda":
+            return contextlib.nullcontext()
+        if self._cuda_stream is None:
+            self._cuda_stream = torch.cuda.Stream(device=self.device)
+        self._cuda_stream.wait_stream(torch.cuda.current_stream(self.device))
+        return torch.cuda.stream(self._cuda_stream)
 
     def compute_update(self, params_blob: bytes, grad_fn: Callable,
                        priv: PrivacyConfig, keys: BarrierKeys, n_silos: int,
@@ -299,7 +390,11 @@ class DataHandler(Component):
         """This silo's sealed update for the round. ``active`` is the
         round's participation set, ``noise_state`` the admin's step-(t-1)
         key and set. With a wired ``admin`` the handler asks it for its own
-        budget verdict and ignores ``verdicts``."""
+        budget verdict and ignores ``verdicts``. The device work runs on
+        the handler's own CUDA stream, which the contribution's host copy
+        synchronises."""
+        if self.fault_hook is not None:
+            self.fault_hook(self.silo_idx)
         if self.admin is not None:
             allowed = self.admin.verdict_for(self.silo_idx)
         else:
@@ -309,26 +404,32 @@ class DataHandler(Component):
             raise PermissionError(
                 f"silo {self.silo_idx}: owner's privacy budget is exhausted "
                 f"(ledger verdict); refusing to compute an update")
-        params = _on_device(self._sync_params(params_blob), self.device)
-        # untrusted model-owner code inside the sandbox (R1/R2)
-        loss, grads = self.sandbox.run(grad_fn, params, self.data)
-        pipe = DPPipeline(priv, flatbuf.layout_of(grads), n_silos)
-        active = pipe.full_active() if active is None \
-            else np.asarray(active, bool)
-        state = noise_state if noise_state is not None \
-            else init_state((0, 0), n_silos=n_silos)
-        contrib, norm = self._masked_contrib(pipe, grads, active, keys,
-                                             state, clip_bound)
-        if self.codec == "packed":
-            packed = contrib if isinstance(contrib, torch.Tensor) \
-                else flatbuf.pack(pipe.layout, contrib)  # perleaf: a tree
-            # the contribution leaves the device once
-            payload = wire.encode_update(pipe.layout, packed.cpu().numpy(),
-                                         float(loss), float(norm))
-        else:
-            payload = wire.encode_tree({"update": pipe.finalize(contrib),
-                                        "loss": loss, "norm": norm},
-                                       codec="pickle")
+        params_np = self._sync_params(params_blob)
+        with self._stream():
+            params = _on_device(params_np, self.device)
+            # untrusted model-owner code inside the sandbox (R1/R2)
+            loss, grads = self.sandbox.run(grad_fn, params, self.data)
+            pipe = DPPipeline(priv, flatbuf.layout_of(grads), n_silos)
+            if priv.mask_mode == "pairwise" and pipe.policy.mode == "packed":
+                # prefetch_round draws next round's stream over this layout
+                self._spec_pipe = pipe
+            active = pipe.full_active() if active is None \
+                else np.asarray(active, bool)
+            state = noise_state if noise_state is not None \
+                else init_state((0, 0), n_silos=n_silos)
+            contrib, norm = self._masked_contrib(pipe, grads, active, keys,
+                                                 state, clip_bound)
+            if self.codec == "packed":
+                packed = contrib if isinstance(contrib, torch.Tensor) \
+                    else flatbuf.pack(pipe.layout, contrib)  # perleaf: a tree
+                # the contribution leaves the device once
+                payload = wire.encode_update(pipe.layout,
+                                             packed.cpu().numpy(),
+                                             float(loss), float(norm))
+            else:
+                payload = wire.encode_tree(
+                    {"update": pipe.finalize(contrib), "loss": loss,
+                     "norm": norm}, codec="pickle")
         blob = self.channel.send(payload)
         # the leaf reported for the round's Merkle batch tag: a digest of
         # the whole channel blob, counter prefix included
@@ -353,6 +454,9 @@ class ModelUpdater(Component):
     # audit trail of the newest updates; aged-out entries are counted
     received_cap: int = 256
     truncated_entries: int = 0
+    # the chaos harness's hook, called at finish_round entry: between the
+    # last ingest and the commit, the crash window the round journal covers
+    fault_hook: Optional[Callable] = None
 
     def verify_batch_tag(self, batch: dict) -> None:
         if self.agg_key is None:
@@ -502,6 +606,8 @@ class ModelUpdater(Component):
         """Close the round and run the model-updating code, which moves the
         numpy mean update onto the params' device. Returns (new params,
         mean loss)."""
+        if self.fault_hook is not None:
+            self.fault_hook()
         mean_update, loss = self.close_round(round_state, batch)
         return update_fn(round_state["params"], mean_update, lr), loss
 

@@ -1,9 +1,8 @@
 """Key Distribution Service (paper section 3.2, steps 2-3 and 6-7). Port
 of ``repro/core/tee/kds.py``: stores asset keys uploaded by the owners and
 releases one only to a component whose attestation report verifies and
-whose measurement and policy match the owner's expected values. (The
-chaos hook of the fault-tolerant rounds comes with them, ``ROADMAP.md``
-queue 1, item 8b.)
+whose measurement and policy match the owner's expected values.
+``fault_hook`` is the chaos harness's injection site (``faults.py``).
 """
 from __future__ import annotations
 
@@ -27,6 +26,11 @@ class KeyDistributionService:
         self.attestation = attestation
         self._records: dict[str, KeyRecord] = {}
         self.audit_log: list = []
+        # the chaos harness's hook, called at request_key entry: a transient
+        # release hiccup raises KdsTransientDenial there, which callers retry
+        # with backoff (the attestation PermissionError below is an
+        # integrity failure, never retried). None outside chaos runs.
+        self.fault_hook = None
 
     def upload_key(self, asset_id: str, key: bytes, owner: str,
                    expected_measurement: str, expected_policy: str) -> None:
@@ -34,6 +38,8 @@ class KeyDistributionService:
                                             expected_policy)
 
     def request_key(self, asset_id: str, report: AttestationReport) -> bytes:
+        if self.fault_hook is not None:
+            self.fault_hook(asset_id, report)
         rec = self._records.get(asset_id)
         if rec is None:
             raise KeyError(f"unknown asset {asset_id!r}")

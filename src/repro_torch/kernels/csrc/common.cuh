@@ -57,3 +57,17 @@ cudaError_t set_smem_once(K kern, size_t bytes, unsigned long long& done) {
   if (e == cudaSuccess) done |= bit;
   return e;
 }
+
+// Blocks for a grid-stride loop over n items at `threads` a block: one thread
+// an item, capped at `per_sm` blocks an SM of the current device.
+inline cudaError_t grid_stride_blocks(long long n, int threads, int per_sm, unsigned& blocks) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  long long b = (n + threads - 1) / threads;
+  const long long cap = (long long)sms * per_sm;
+  if (b > cap) b = cap;
+  blocks = (unsigned)(b < 1 ? 1 : b);
+  return cudaSuccess;
+}

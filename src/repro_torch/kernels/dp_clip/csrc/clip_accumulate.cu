@@ -63,16 +63,10 @@ clip_accumulate_kernel(const float* __restrict__ g, const float* __restrict__ sc
 // g, out are 16-byte aligned.
 REPRO_API int clip_accumulate_f32(const float* g, const float* scale, float* out, int n,
                                   long long P, long long ld, int vec, cudaStream_t stream) {
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  unsigned blocks = 0;
+  // 16 blocks an SM: enough in flight to saturate HBM
+  const cudaError_t err = grid_stride_blocks(vec ? (P + 3) / 4 : P, CA_THREADS, 16, blocks);
   if (err != cudaSuccess) return err;
-  const long long work = vec ? (P + 3) / 4 : P;
-  long long blocks = (work + CA_THREADS - 1) / CA_THREADS;
-  const long long cap = (long long)sms * 16;  // enough blocks in flight to saturate HBM
-  if (blocks > cap) blocks = cap;
-  if (blocks < 1) blocks = 1;
-  clip_accumulate_kernel<<<(unsigned)blocks, CA_THREADS, 0, stream>>>(g, scale, out, n, P, ld,
-                                                                    vec);
+  clip_accumulate_kernel<<<blocks, CA_THREADS, 0, stream>>>(g, scale, out, n, P, ld, vec);
   return cudaGetLastError();
 }

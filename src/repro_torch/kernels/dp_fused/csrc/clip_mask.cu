@@ -29,6 +29,18 @@
 // normals an element (about 137 arithmetic instructions each in
 // noise_batch's SASS, 66 of them on the INT32 pipe) against 8 bytes of
 // memory traffic an element.
+//
+// clip_mask_kernel<true> (clip_mask_ext_f32), the same function with xi_t
+// and xi_{t-1} read from (P,) fp32 buffers (no TPU kernel behind it: the JAX
+// package sends external streams to its jnp reference,
+// src/repro/kernels/dp_fused/ops.py:61-71). It
+// serves the wire tier's speculative rounds, whose handlers keep a silo's
+// xi_t from round t as its xi_{t-1} at t+1 and prefetch xi_{t+1}, both drawn
+// by noise_stream.cu. The r streams are drawn as above; a null xi or xp
+// pointer draws that stream in the kernel instead. Both instantiations run
+// one body, so given noise_stream's buffers the external-stream kernel
+// equals clip_mask_kernel<false> bit for bit. Bound: two streams an
+// element (r_i, r_nxt) against 16 bytes (g, xi, xp read, out written).
 #include "common.cuh"
 #include "threefry.cuh"
 
@@ -38,11 +50,15 @@ namespace {
 
 constexpr int CM_THREADS = 256;
 
+// EXT = false: row 8, every stream drawn in the kernel (xi, xp unused).
+// EXT = true: the external-stream kernel, xi_t and xi_{t-1} read from xi and
+// xp where those are not null. One body, so both keep one operation order.
+template <bool EXT>
 __global__ void __launch_bounds__(CM_THREADS)
-clip_mask_kernel(const float* g, float* out, long long P, uint32_t kr0, uint32_t kr1,
-                 uint32_t kx0, uint32_t kx1, uint32_t kp0, uint32_t kp1, uint32_t silo,
-                 uint32_t nxt, const float* __restrict__ scalars, int use_pairwise,
-                 int use_prev) {
+clip_mask_kernel(const float* g, const float* __restrict__ xi, const float* __restrict__ xp,
+                 float* out, long long P, uint32_t kr0, uint32_t kr1, uint32_t kx0,
+                 uint32_t kx1, uint32_t kp0, uint32_t kp1, uint32_t silo, uint32_t nxt,
+                 const float* __restrict__ scalars, int use_pairwise, int use_prev) {
   using namespace repro_threefry;
   const float scale = scalars[0], s = scalars[1], b = scalars[2], lam = scalars[3],
               s_prev = scalars[4];
@@ -57,13 +73,30 @@ clip_mask_kernel(const float* g, float* out, long long P, uint32_t kr0, uint32_t
       const float r_nxt = normal_z0(kr0, kr1, kr2, c0, nxt);
       acc = __fadd_rn(acc, __fmul_rn(b, __fsub_rn(r_i, r_nxt)));
     }
-    acc = __fadd_rn(acc, __fmul_rn(s, normal_z0(kx0, kx1, kx2, c0, silo)));
+    const float x = EXT && xi != nullptr ? xi[p] : normal_z0(kx0, kx1, kx2, c0, silo);
+    acc = __fadd_rn(acc, __fmul_rn(s, x));
     if (use_prev) {
-      const float xp = normal_z0(kp0, kp1, kp2, c0, silo);
-      acc = __fsub_rn(acc, __fmul_rn(lam, __fmul_rn(s_prev, xp)));
+      const float v = EXT && xp != nullptr ? xp[p] : normal_z0(kp0, kp1, kp2, c0, silo);
+      acc = __fsub_rn(acc, __fmul_rn(lam, __fmul_rn(s_prev, v)));
     }
     out[p] = acc;
   }
+}
+
+template <bool EXT>
+int launch_clip_mask(const float* g, const float* xi, const float* xp, float* out,
+                     long long P, uint32_t kr0, uint32_t kr1, uint32_t kx0, uint32_t kx1,
+                     uint32_t kp0, uint32_t kp1, uint32_t silo, uint32_t nxt,
+                     const float* scalars, int use_pairwise, int use_prev,
+                     cudaStream_t stream) {
+  unsigned blocks = 0;
+  // 8 blocks an SM: 2048 threads resident
+  const cudaError_t err = grid_stride_blocks(P, CM_THREADS, 8, blocks);
+  if (err != cudaSuccess) return err;
+  clip_mask_kernel<EXT><<<blocks, CM_THREADS, 0, stream>>>(
+      g, xi, xp, out, P, kr0, kr1, kx0, kx1, kp0, kp1, silo, nxt, scalars, use_pairwise,
+      use_prev);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -74,15 +107,17 @@ REPRO_API int clip_mask_f32(const float* g, float* out, long long P, uint32_t kr
                             uint32_t kr1, uint32_t kx0, uint32_t kx1, uint32_t kp0,
                             uint32_t kp1, uint32_t silo, uint32_t nxt, const float* scalars,
                             int use_pairwise, int use_prev, cudaStream_t stream) {
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  long long blocks = (P + CM_THREADS - 1) / CM_THREADS;
-  const long long cap = (long long)sms * 8;  // 2048 threads per SM resident
-  if (blocks > cap) blocks = cap;
-  if (blocks < 1) blocks = 1;
-  clip_mask_kernel<<<(unsigned)blocks, CM_THREADS, 0, stream>>>(
-      g, out, P, kr0, kr1, kx0, kx1, kp0, kp1, silo, nxt, scalars, use_pairwise, use_prev);
-  return cudaGetLastError();
+  return launch_clip_mask<false>(g, nullptr, nullptr, out, P, kr0, kr1, kx0, kx1, kp0, kp1,
+                                 silo, nxt, scalars, use_pairwise, use_prev, stream);
+}
+
+// clip_mask_f32 with xi, xp (P,) fp32 buffers on the device, each disjoint
+// from out or null (then drawn in the kernel from kx / kp).
+REPRO_API int clip_mask_ext_f32(const float* g, const float* xi, const float* xp, float* out,
+                                long long P, uint32_t kr0, uint32_t kr1, uint32_t kx0,
+                                uint32_t kx1, uint32_t kp0, uint32_t kp1, uint32_t silo,
+                                uint32_t nxt, const float* scalars, int use_pairwise,
+                                int use_prev, cudaStream_t stream) {
+  return launch_clip_mask<true>(g, xi, xp, out, P, kr0, kr1, kx0, kx1, kp0, kp1, silo, nxt,
+                                scalars, use_pairwise, use_prev, stream);
 }

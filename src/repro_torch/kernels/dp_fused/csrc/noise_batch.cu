@@ -65,15 +65,11 @@ REPRO_API int noise_batch_f32(const float* g, float* out, long long P, uint32_t 
                               uint32_t kx1, uint32_t kp0, uint32_t kp1, const float* scales,
                               const float* lams, int n, float s_prev, int use_prev,
                               cudaStream_t stream) {
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  unsigned blocks = 0;
+  // 8 blocks an SM: 2048 threads resident
+  const cudaError_t err = grid_stride_blocks(P, NB_THREADS, 8, blocks);
   if (err != cudaSuccess) return err;
-  long long blocks = (P + NB_THREADS - 1) / NB_THREADS;
-  const long long cap = (long long)sms * 8;  // 2048 threads per SM resident
-  if (blocks > cap) blocks = cap;
-  if (blocks < 1) blocks = 1;
-  noise_batch_kernel<<<(unsigned)blocks, NB_THREADS, 0, stream>>>(
+  noise_batch_kernel<<<blocks, NB_THREADS, 0, stream>>>(
       g, out, P, kx0, kx1, kp0, kp1, scales, lams, n, s_prev, use_prev);
   return cudaGetLastError();
 }

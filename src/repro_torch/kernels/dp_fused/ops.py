@@ -1,16 +1,23 @@
 """Public API of the packed DP kernels: the CUDA kernel for CUDA tensors,
 the plain version for CPU tensors (``kernels.dispatch.on_cuda``), and the
-pack -> kernel -> unpack tree helpers of ``repro/kernels/dp_fused/ops.py``."""
+pack -> kernel -> unpack tree helpers of ``repro/kernels/dp_fused/ops.py``.
+``clip_mask`` with external ``xi`` / ``xp`` streams goes to the
+external-stream kernel on the card (JAX sends such calls to its jnp
+reference; the port has no fallback), and ``noise_stream`` draws one
+silo's stream for them."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import flatbuf
-from repro_torch.kernels.dispatch import on_cuda
+from repro_torch.kernels.dispatch import check_tensor, on_cuda
 from repro_torch.kernels.dp_fused import ref
-from repro_torch.kernels.dp_fused.dp_fused import (clip_mask_cuda,
+from repro_torch.kernels.dp_fused.dp_fused import (check_stream,
+                                                   clip_mask_cuda,
+                                                   clip_mask_ext_cuda,
                                                    clip_sum_cuda,
-                                                   noise_batch_cuda)
+                                                   noise_batch_cuda,
+                                                   noise_stream_cuda)
 
 
 def noise_batch(g_sum, key_xi, prev_key, noise_scales, lam_gates,
@@ -36,25 +43,43 @@ def clip_mask(g, scale, key_r, key_xi, prev_key, silo: int, n_silos: int,
     ``s = sigma_c / sqrt(n_silos)``, ``s_prev = s``; the barrier tier passes
     the active ring's neighbour and the per-stream stds of the active counts.
     Scalars are floats or 0-dim tensors (kept on the card: no host sync).
+    ``xi`` / ``xp``: the silo's xi_t and xi_{t-1} streams, (P,) fp32 on
+    ``g``'s device (``noise_stream``), in place of the in-kernel draws.
     ``out`` receives the result (``g`` itself to work in place)."""
-    if xi is not None or xp is not None:
-        raise NotImplementedError(
-            "external xi/xp streams (the wire tier's speculative rounds) are "
-            "not ported yet: ROADMAP.md queue 1, item 8b")
     dev = g.device
     nxt, s, s_prev = ref.clip_mask_defaults(silo, n_silos, sigma_c, dev, nxt,
                                             noise_scale, prev_noise_scale)
     if not on_cuda(g):
+        for name, x in (("xi", xi), ("xp", xp)):
+            if x is not None:
+                check_stream(name, x, g)
         res = ref.clip_mask_ref(g, scale, key_r, key_xi, prev_key, silo,
                                 n_silos, sigma_c, b_scale, lam_gate,
                                 use_pairwise, use_prev, nxt=nxt,
-                                noise_scale=s, prev_noise_scale=s_prev)
+                                noise_scale=s, prev_noise_scale=s_prev,
+                                xi=xi, xp=xp)
         return res if out is None else out.copy_(res)
     scalars = torch.stack([torch.as_tensor(x, dtype=torch.float32,
                                            device=dev).reshape(())
                            for x in (scale, s, b_scale, lam_gate, s_prev)])
+    if xi is not None or xp is not None:
+        return clip_mask_ext_cuda(g, xi, xp, scalars, key_r, key_xi,
+                                  prev_key, int(silo), nxt, use_pairwise,
+                                  use_prev, out=out)
     return clip_mask_cuda(g, scalars, key_r, key_xi, prev_key, int(silo), nxt,
                           use_pairwise, use_prev, out=out)
+
+
+def noise_stream(key, silo: int, out):
+    """Silo ``silo``'s standard-normal stream under the raw key ``(k0,
+    k1)``, over the counters ``0 .. P-1``, into ``out`` ((P,) fp32): the
+    xi stream ``clip_mask`` draws in the kernel for the same key and
+    silo."""
+    if on_cuda(out):
+        return noise_stream_cuda(key, int(silo), out)
+    check_tensor("out", out, torch.float32, 1, out.device)
+    return out.copy_(ref.noise_stream_ref(key, silo, out.shape[0],
+                                          out.device))
 
 
 def clip_sum_packed(g, clip_bound):

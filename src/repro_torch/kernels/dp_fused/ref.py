@@ -5,7 +5,8 @@ the plain threefry (``kernels/zsmask/threefry.py``) and folds the shares onto
 the aggregate in silo order, each built as the JAX package builds it,
 ``(0 + s_i * xi_i) - lam_i * (s_prev * xp_i)``. ``clip_mask_ref`` builds one
 silo's contribution in the reference's order, ``g * scale``, then
-``+ b * (r_i - r_nxt)``, then ``+ s * xi``, then ``- lam * (s_prev * xp)``.
+``+ b * (r_i - r_nxt)``, then ``+ s * xi``, then ``- lam * (s_prev * xp)``,
+xi and xp drawn or given (``noise_stream_ref``, one silo's stream).
 Both take each multiply and add as a separate op, so on the card they are
 bit-equal to their CUDA kernels. ``clip_sum_ref`` is the per-example clip
 and sum of the packed (B, P) buffer: the rows' sums of squares (chunked
@@ -48,6 +49,14 @@ def noise_batch_ref(g_sum, key_xi, prev_key, noise_scales, lam_gates,
             share = share - lam_gates[i] * (s_prev * xp)
         out = out + share
     return out
+
+
+def noise_stream_ref(key, silo: int, P: int, device, base: int = 0):
+    """Silo ``silo``'s standard-normal stream under the raw key ``(k0, k1)``
+    over the counters ``base .. base + P - 1``: (P,) fp32."""
+    idx = (torch.arange(P, dtype=torch.int64, device=device) + base) \
+        & 0xFFFFFFFF
+    return normal_stream(key[0], key[1], idx, silo)
 
 
 def clip_sum_scales(sumsq, clip_bound) -> tuple:
@@ -94,11 +103,8 @@ def clip_mask_ref(g, scale, key_r, key_xi, prev_key, silo, n_silos, sigma_c,
     ``g*scale + b*(r_i - r_nxt) + s*xi_t - lam_gate*s_prev*xi_prev``, each
     stream the first normal of ``threefry2x32(key, (index, stream id))``,
     the stream id being ``silo`` for r_i, xi and xi_prev and ``nxt`` for
-    r_nxt. Scalars are floats or 0-dim tensors, used as fp32."""
-    if xi is not None or xp is not None:
-        raise NotImplementedError(
-            "external xi/xp streams (the wire tier's speculative rounds) are "
-            "not ported yet: ROADMAP.md queue 1, item 8b")
+    r_nxt; ``xi`` / ``xp`` given as (P,) fp32 tensors take the place of
+    those draws. Scalars are floats or 0-dim tensors, used as fp32."""
     dev = g.device
     nxt, s, s_prev = clip_mask_defaults(silo, n_silos, sigma_c, dev, nxt,
                                         noise_scale, prev_noise_scale)
@@ -109,8 +115,11 @@ def clip_mask_ref(g, scale, key_r, key_xi, prev_key, silo, n_silos, sigma_c,
         r_i = normal_stream(key_r[0], key_r[1], idx, silo)
         r_nxt = normal_stream(key_r[0], key_r[1], idx, nxt)
         out = out + _f32(b_scale, dev) * (r_i - r_nxt)
-    out = out + s * normal_stream(key_xi[0], key_xi[1], idx, silo)
+    if xi is None:
+        xi = normal_stream(key_xi[0], key_xi[1], idx, silo)
+    out = out + s * xi
     if use_prev:
-        xp = normal_stream(prev_key[0], prev_key[1], idx, silo)
+        if xp is None:
+            xp = normal_stream(prev_key[0], prev_key[1], idx, silo)
         out = out - _f32(lam_gate, dev) * (s_prev * xp)
     return out

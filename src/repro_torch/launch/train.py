@@ -13,16 +13,19 @@ silos one after another on its one card, a virtual mesh of that many data
 slots (``MeshConfig((silos,), ("data",))``), which gives the JAX result on
 a mesh of that many devices.
 
-``--wire-rounds N`` runs N pipelined rounds of the wire tier's component
-protocol instead (:class:`repro_torch.api.CollaborativeSession` on
-MNIST-MLP3 at its published width, ``--silos`` dataset owners, synthetic
-MNIST), as the JAX CLI does.
+``--wire-rounds N`` runs N rounds of the wire tier's component protocol
+instead (:class:`repro_torch.api.CollaborativeSession` on MNIST-MLP3 at its
+published width, ``--silos`` dataset owners, synthetic MNIST), as the JAX
+CLI does: pipelined, or fault-tolerant with ``--round-timeout`` (a round's
+deadline), ``--quorum`` (the responders a round needs, also the
+membership floor), ``--chaos-seed`` (a seeded ``FaultPlan``) and
+``--journal`` (a round journal, resumed from when the file exists). Under
+``--round-timeout`` the plan's hangs are scaled to outlast the deadline
+(``hang_s`` at least twice it; JAX keeps 0.5 s whatever the deadline).
 
 Not ported yet, each raising ``NotImplementedError`` with its
-``ROADMAP.md`` item: the fault-tolerant wire options (``--round-timeout``,
-``--quorum``, ``--chaos-seed``, ``--journal``: item 8b),
-``--checkpoint-dir``, ``--elastic``, ``--silo-epsilon-budget`` and
-``--mask-mode admin``.
+``ROADMAP.md`` item: ``--checkpoint-dir``, ``--elastic``,
+``--silo-epsilon-budget`` and ``--mask-mode admin``.
 """
 from __future__ import annotations
 
@@ -38,6 +41,7 @@ from repro_torch.configs.base import MeshConfig, OptimizerConfig, PrivacyConfig
 from repro_torch.distributed.steps import effective_n_silos
 
 FAULT_FLAGS = ("round_timeout", "quorum", "chaos_seed", "journal")
+HANG_S = 0.5  # FaultPlan.from_seed's default hang
 
 
 def drop_schedule(spec: str, n_silos: int):
@@ -66,12 +70,17 @@ def drop_schedule(spec: str, n_silos: int):
 
 
 def run_wire(args):
-    """The wire tier: ``args.wire_rounds`` pipelined component-protocol
-    rounds of MNIST-MLP3 (published width) over ``args.silos`` owners of
-    synthetic MNIST (1024 examples), the JAX CLI's setup. Returns the
-    session and the per-round losses."""
+    """The wire tier: ``args.wire_rounds`` component-protocol rounds of
+    MNIST-MLP3 (published width) over ``args.silos`` owners of synthetic
+    MNIST (1024 examples), the JAX CLI's setup: pipelined, or
+    fault-tolerant under the fault flags. Returns the session and the
+    per-round losses."""
+    import os
+
     from repro_torch.api import CollaborativeSession, resolve_device
     from repro_torch.configs.paper_models import MNIST_MLP3
+    from repro_torch.core.tee.faults import (FaultInjector, FaultPlan,
+                                             RoundJournal)
     from repro_torch.data.synthetic import synthetic_mnist
     from repro_torch.models.small import build_small_model, value_and_grad
 
@@ -90,14 +99,39 @@ def run_wire(args):
         return {k: v - lr * torch.as_tensor(update[k], device=v.device)
                 for k, v in p.items()}
 
+    chaos = None
+    if args.chaos_seed is not None:
+        quorum = args.quorum or max(2, (2 * n) // 3)
+        hang_s = HANG_S if args.round_timeout is None \
+            else max(HANG_S, 2 * args.round_timeout)
+        plan = FaultPlan.from_seed(args.chaos_seed, n, args.wire_rounds,
+                                   quorum=quorum, hang_s=hang_s)
+        print(f"chaos plan seed={plan.seed} hang_s={hang_s}: {plan.counts()}")
+        chaos = FaultInjector(plan)
+    journal = None
+    if args.journal:
+        if os.path.exists(args.journal):
+            journal = RoundJournal.load(args.journal)
+            params = sess.resume(journal)
+            print(f"resumed from {args.journal}: {journal.rounds_done} "
+                  f"rounds already committed")
+        else:
+            journal = RoundJournal(path=args.journal)
+
     params, losses = sess.run(params, value_and_grad(sm.loss), update_fn,
-                              args.lr, args.wire_rounds)
+                              args.lr, args.wire_rounds,
+                              round_timeout_s=args.round_timeout,
+                              quorum=args.quorum, chaos=chaos,
+                              journal=journal)
     stats = sess.wire_stats
     print(f"wire tier: {len(losses)} rounds closed on {sess.device}, "
           f"final loss={losses[-1]:.4f}"
           + (f" eps={sess.epsilon():.3f}" if priv.enabled else "")
           + f" | bytes: broadcast {stats['broadcast_bytes']}, updates "
           f"{stats['update_bytes']}, resync {stats['resync_bytes']}")
+    print("fault stats: " + ", ".join(
+        f"{k}={len(v) if isinstance(v, list) else v}"
+        for k, v in sorted(sess.fault_stats.items())))
     if args.spend_report:
         with open(args.spend_report, "w") as f:
             json.dump(sess.privacy_report(), f, indent=1)
@@ -154,23 +188,34 @@ def main(argv=None):
                          "step:silo[:cooldown] triples, e.g. '10:3:5,20:2' "
                          "(silo 3 out for steps 10-14, silo 2 out from 20 on)")
     ap.add_argument("--wire-rounds", type=int, default=None, metavar="N",
-                    help="run N pipelined rounds of the wire tier's "
-                         "component protocol (CollaborativeSession on "
-                         "MNIST-MLP3) instead of the trainer")
-    for flag in ("--round-timeout", "--quorum", "--chaos-seed", "--journal"):
-        ap.add_argument(flag, default=None,
-                        help="fault-tolerant wire rounds: not ported yet "
-                             "(ROADMAP.md queue 1, item 8b)")
+                    help="run N rounds of the wire tier's component "
+                         "protocol (CollaborativeSession on MNIST-MLP3) "
+                         "instead of the trainer; combine with "
+                         "--round-timeout/--quorum/--chaos-seed/--journal "
+                         "for fault-tolerant rounds")
+    ap.add_argument("--round-timeout", type=float, default=None,
+                    metavar="S",
+                    help="wire tier: per-round deadline in seconds; the "
+                         "round closes at the deadline once a quorum of "
+                         "updates has landed, non-responders are dropped "
+                         "and the round replays over the realized set")
+    ap.add_argument("--quorum", type=int, default=None,
+                    help="wire tier: minimum responders to close a round "
+                         "(also the membership drop floor)")
+    ap.add_argument("--chaos-seed", type=int, default=None,
+                    help="wire tier: inject a seeded FaultPlan (crashes, "
+                         "hangs, drops, corruption, KDS denials, updater "
+                         "crashes)")
+    ap.add_argument("--journal", default=None, metavar="PATH",
+                    help="wire tier: crash-consistent round journal; if the "
+                         "file exists the run resumes from it")
     args = ap.parse_args(argv)
 
-    faults = [f"--{a.replace('_', '-')}" for a in FAULT_FLAGS
-              if getattr(args, a) is not None]
-    if faults:
-        raise NotImplementedError(
-            f"{', '.join(faults)}: the fault-tolerant wire rounds are not "
-            f"ported to repro_torch yet (ROADMAP.md queue 1, item 8b)")
     if args.wire_rounds is not None:
         return run_wire(args)
+    if any(getattr(args, a) is not None for a in FAULT_FLAGS):
+        raise SystemExit("--round-timeout/--quorum/--chaos-seed/--journal "
+                         "are wire-tier options: add --wire-rounds N")
 
     mesh = MeshConfig((args.silos,), ("data",)) \
         if args.sync_path == "barrier" else None

@@ -99,8 +99,18 @@ def test_clip_mask_writes_in_place():
 
 
 def test_external_streams_raise():
-    g = torch.zeros(1024)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 8"):
-        ops.clip_mask(g, 1.0, KR, KX, KP, 0, 4, 1.2, 9.6, 0.7, xi=g)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ref.clip_mask_ref(g, 1.0, KR, KX, KP, 0, 4, 1.2, 9.6, 0.7, xp=g)
+    """External xi / xp streams (the wire tier's speculative rounds) are
+    taken: ``noise_stream``'s draws give the in-kernel draw's result bit
+    for bit. A stream of another length or dtype raises, never quietly
+    drawn in its place."""
+    g = torch.randn(1024, generator=torch.Generator().manual_seed(2))
+    args = (g, 1.0, KR, KX, KP, 0, 4, 1.2, 9.6, 0.7)
+    xi = ops.noise_stream(KX, 0, torch.empty(1024))
+    xp = ops.noise_stream(KP, 0, torch.empty(1024))
+    want = ops.clip_mask(*args)
+    assert torch.equal(ops.clip_mask(*args, xi=xi, xp=xp), want)
+    assert torch.equal(ref.clip_mask_ref(*args, xp=xp), want)
+    with pytest.raises(ValueError, match="expected"):
+        ops.clip_mask(*args, xi=xi[:512])
+    with pytest.raises(ValueError, match="dtype"):
+        ops.clip_mask(*args, xp=xp.double())

@@ -22,7 +22,10 @@ flash attention at d_head 112, and the smoke-size serving slice (plain and
 speculative; the ssm and hybrid families), the fused and barrier training
 slices (packed and perleaf) and per-example clipping on the card against
 the CPU, and the wire tier's rounds (``clip_mask`` once per active silo per
-round, pipelined == serial on the card, card against CPU).
+round, pipelined == serial on the card, card against CPU; the speculative
+rounds' ``noise_stream`` and external-stream ``clip_mask`` bit-equal to
+their plain versions and to ``clip_mask``'s in-kernel draw, speculative and
+fault-free tolerant rounds == serial on the card).
 """
 import copy
 
@@ -1103,3 +1106,111 @@ def test_wire_rounds_on_card_match_cpu_and_count_clip_mask(cuda):
     np.testing.assert_allclose(gp, cp, rtol=0, atol=WIRE_PARAM_ATOL)
     assert gs.epsilon() == cs.epsilon()
     assert gs.accountant.history == cs.accountant.history
+
+
+@pytest.mark.parametrize("P", [7, 3 * 1024 + 5, 235520])
+def test_noise_stream_kernel_bit_equal(cuda, P):
+    c = dispatch.KERNELS["noise_stream"].launches
+    got = noise_ops.noise_stream(KX, 3, torch.empty(P, device=cuda))
+    want = noise_ref.noise_stream_ref(KX, 3, P, cuda)
+    torch.cuda.synchronize()
+    assert dispatch.KERNELS["noise_stream"].launches == c + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("use_pairwise,use_prev", [(True, True),
+                                                   (True, False),
+                                                   (False, True),
+                                                   (False, False)])
+def test_clip_mask_ext_kernel_bit_equal(cuda, use_pairwise, use_prev):
+    """Given ``noise_stream``'s buffers, the external-stream kernel equals
+    its plain version and ``clip_mask``'s in-kernel draw bit for bit (one
+    stream given and the other drawn too, and in place)."""
+    P = 3 * 1024 + 5
+    g = torch.randn(P, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(6))
+    args, kw = _clip_mask_args(cuda)
+    xi = noise_ops.noise_stream(KX, 1, torch.empty_like(g))
+    xp = noise_ops.noise_stream(KP, 1, torch.empty_like(g))
+    drawn = noise_ops.clip_mask(g, *args, use_pairwise, use_prev, **kw)
+    c = dispatch.KERNELS["clip_mask_ext"].launches
+    got = noise_ops.clip_mask(g, *args, use_pairwise, use_prev, xi=xi, xp=xp,
+                              **kw)
+    want = noise_ref.clip_mask_ref(g, *args, use_pairwise, use_prev, xi=xi,
+                                   xp=xp, **kw)
+    torch.cuda.synchronize()
+    assert dispatch.KERNELS["clip_mask_ext"].launches == c + 1
+    assert torch.equal(got, want) and torch.equal(got, drawn)
+    for one in ({"xi": xi}, {"xp": xp}):
+        assert torch.equal(noise_ops.clip_mask(g, *args, use_pairwise,
+                                               use_prev, **one, **kw), drawn)
+    inplace = g.clone()
+    assert noise_ops.clip_mask(inplace, *args, use_pairwise, use_prev, xi=xi,
+                               xp=xp, out=inplace, **kw) is inplace
+    assert torch.equal(inplace, drawn)
+
+
+def test_stream_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    """A CUDA gradient with CPU streams, or streams of another length or
+    dtype, raise in the argument checks: never a quiet draw instead."""
+    g = torch.zeros(1024, device=cuda)
+    args, kw = _clip_mask_args(cuda)
+    xi = noise_ops.noise_stream(KX, 1, torch.empty_like(g))
+    for bad, match in ((xi.cpu(), "on cpu"), (xi[:512], "expected"),
+                       (xi.double(), "dtype")):
+        with pytest.raises(ValueError, match=match):
+            noise_ops.clip_mask(g, *args, xi=bad, **kw)
+        with pytest.raises(ValueError, match=match):
+            noise_ops.clip_mask(g, *args, xp=bad, **kw)
+    with pytest.raises(ValueError, match="disjoint"):
+        noise_ops.clip_mask(g, *args, xi=xi, out=xi, **kw)
+    with pytest.raises(ValueError, match="dtype"):
+        noise_ops.noise_stream(KX, 1, torch.empty(8, dtype=torch.float64,
+                                                  device=cuda))
+
+
+def test_speculative_and_tolerant_wire_rounds_on_card_match_serial(cuda):
+    """MNIST-MLP3 over 4 silos at lambda 0.7: 3 speculative rounds
+    (``noise_stream`` on each miss and prefetch, the external-stream
+    ``clip_mask`` once per silo per round, no in-kernel ``clip_mask``) and
+    3 fault-free tolerant rounds (the handlers on worker threads, each on
+    its own CUDA stream) are bit-equal to the serial ``step`` loop."""
+    from repro_torch.api import CollaborativeSession
+    from repro_torch.configs.paper_models import MNIST_MLP3
+    from repro_torch.core import flatbuf
+    from repro_torch.core.tee import wire
+    from repro_torch.data.synthetic import synthetic_mnist
+    from repro_torch.models.small import build_small_model, value_and_grad
+
+    sm = build_small_model(MNIST_MLP3)
+    silos = [{"x": s.x, "y": s.y}
+             for s in synthetic_mnist(n_train=256, n_test=16)[0].split(4)]
+    priv = PrivacyConfig(sigma=0.5, clip_bound=1.0, noise_lambda=0.7)
+    init = sm.init(torch.Generator().manual_seed(1))
+
+    def update_fn(p, update, lr):
+        return {k: v - lr * torch.as_tensor(update[k], device=v.device)
+                for k, v in p.items()}
+
+    def rounds(**kw):
+        sess = CollaborativeSession.from_silos(silos, priv, device=cuda)
+        params = {k: v.to(cuda) for k, v in init.items()}
+        dispatch.reset_launches()
+        params, losses = sess.run(params, value_and_grad(sm.loss), update_fn,
+                                  0.5, 3, **kw)
+        packed = wire.pack_np(flatbuf.layout_of(params), params)
+        return sess, packed, losses, dispatch.launch_counts()
+
+    ss, sp, sl, sc = rounds(pipelined=False)
+    assert sc["clip_mask"] == 12 and sc["noise_stream"] == 0
+    gs, gp, gl, gc = rounds(speculative=True)
+    assert gc["clip_mask_ext"] == 12 and gc["clip_mask"] == 0
+    # round 0's xi and xi_{t-1} drawn, then each round's xi prefetched
+    assert gc["noise_stream"] == 4 * 2 + 4 * 2
+    assert [h._spec_hits for h in gs.handlers] == [4] * 4
+    np.testing.assert_array_equal(gp.view(np.uint32), sp.view(np.uint32))
+    assert gl == sl and gs.wire_stats == ss.wire_stats
+    ts, tp, tl, tc = rounds(round_timeout_s=60.0, quorum=4)
+    assert tc["clip_mask"] == 12
+    np.testing.assert_array_equal(tp.view(np.uint32), sp.view(np.uint32))
+    assert tl == sl and ts.wire_stats == ss.wire_stats

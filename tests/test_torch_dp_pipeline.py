@@ -164,7 +164,14 @@ def test_unported_constructions_raise():
     g = torch.zeros(tl.total)
     args = (g, 0, torch.tensor(1.0), None, BarrierKeys(*KEYS),
             NoiseState(PREV_KEY, False, None), torch.tensor(1.0))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 8"):
-        pipe.silo_contribution(*args, xi=g)
+    # external streams (item 8b, ported): only the packed pairwise
+    # construction takes them
+    none = DPPipeline(dataclasses.replace(PrivacyConfig(), n_silos=4,
+                                          mask_mode="none"), tl, 4)
+    with pytest.raises(ValueError, match="packed pairwise"):
+        none.silo_contribution(*args, xi=g)
+    xi = pipe.noise_stream(KEYS[1], 0, "cpu")
+    assert torch.equal(pipe.silo_contribution(*args, xi=xi),
+                       pipe.silo_contribution(*args))
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 9"):
         pipe.silo_contribution(*args, admin_row=g)

@@ -25,7 +25,7 @@ leaked = sorted(m for m in sys.modules
                 or m == "repro" or m.startswith("repro."))
 print(len(names), leaked)
 assert not leaked, leaked
-assert len(names) >= 91, names
+assert len(names) >= 92, names
 # the training slices' modules are among those imported
 for name in ("core.prng", "core.flatbuf", "core.clipping", "core.barrier",
              "core.noise_correction", "core.dp_pipeline",
@@ -48,7 +48,9 @@ for name in ("core.prng", "core.flatbuf", "core.clipping", "core.barrier",
              "configs.paper_models", "models.small", "core.tee",
              "core.tee.attestation", "core.tee.kds", "core.tee.sandbox",
              "core.tee.channels", "core.tee.merkle", "core.tee.wire",
-             "core.tee.components", "runtime.elastic", "runtime.straggler"):
+             "core.tee.components", "runtime.elastic", "runtime.straggler",
+             # the wire tier's speculative and fault-tolerant rounds
+             "core.tee.faults"):
     assert "repro_torch." + name in names, name
 """
 

@@ -1,8 +1,9 @@
 """The port's training CLI, ``python -m repro_torch.launch.train``, on the
 CPU (``--device cpu``, the kernels' plain versions): both DP tiers, the
-drop schedule, the spend report, the wire tier's rounds (``--wire-rounds``),
-the flags whose paths are not ported yet, and the refusal to fall back to
-the CPU without ``--device``."""
+drop schedule, the spend report, the wire tier's rounds (``--wire-rounds``;
+fault-tolerant with ``--chaos-seed``, ``--round-timeout``, ``--quorum`` and
+``--journal``), the flags whose paths are not ported yet, and the refusal
+to fall back to the CPU without ``--device``."""
 import json
 import os
 import subprocess
@@ -66,9 +67,6 @@ def test_drop_schedule_reads_step_silo_cooldown(capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--wire-rounds", "3", "--round-timeout", "1"], "item 8b"),
-    (["--quorum", "2"], "item 8b"),
-    (["--chaos-seed", "1", "--journal", "j.json"], "item 8b"),
     (["--checkpoint-dir", "ckpt"], "item 10"),
     (["--elastic"], "item 10"),
     (["--silo-epsilon-budget", "1.0"], "item 10"),
@@ -94,6 +92,60 @@ def test_cli_runs_wire_rounds_on_cpu(tmp_path, capsys):
     spend = json.loads(report.read_text())
     assert spend["steps"] == 2 and "signature" in spend
     assert "wire tier: 2 rounds closed on cpu" in capsys.readouterr().out
+
+
+def test_cli_chaos_rounds_write_a_journal_that_resumes(tmp_path, capsys):
+    """``--chaos-seed`` with ``--round-timeout`` and ``--journal``: the
+    tolerant rounds run (seed 5's plan crashes silo 1 in round 1; no hang)
+    and journal each commit; a second call with the same journal resumes
+    after the committed rounds, silo 1 still down."""
+    path = tmp_path / "rounds.journal"
+    flags = ["--device", "cpu", "--wire-rounds", "2", "--chaos-seed", "5",
+             "--round-timeout", "30", "--journal", str(path)]
+    sess, losses = train.main(flags)
+    out = capsys.readouterr().out
+    assert "chaos plan seed=5 hang_s=60.0" in out
+    assert "quorum_closures=1" in out
+    assert len(losses) == 2 and np.isfinite(losses).all()
+    from repro_torch.core.tee.faults import RoundJournal
+    journal = RoundJournal.load(str(path))
+    assert [r["active"] for r in journal.rounds] == \
+        [[True] * 4, [True, False, True, True]]
+    assert journal.downed == {1: 1} and sess.accountant.contributions == [4, 3]
+    sess2, losses2 = train.main(flags[:3] + ["1"] + flags[4:])
+    assert "resumed from" in capsys.readouterr().out
+    assert sess2.accountant.steps == 3 and len(losses2) == 1
+    assert sess2.accountant.contributions == [4, 3, 3]
+    assert [r["round"] for r in RoundJournal.load(str(path)).rounds] == \
+        [0, 1, 2]
+
+
+def test_cli_quorum_sets_the_membership_floor(monkeypatch):
+    """``--quorum`` takes the tolerant rounds and is the membership's drop
+    floor while they run (restored after)."""
+    from repro_torch.api import CollaborativeSession
+
+    floors = []
+    step = CollaborativeSession._step_tolerant
+
+    def spy(self, *a, **k):
+        floors.append(self.membership.min_active)
+        return step(self, *a, **k)
+
+    monkeypatch.setattr(CollaborativeSession, "_step_tolerant", spy)
+    sess, losses = train.main(["--device", "cpu", "--wire-rounds", "1",
+                               "--quorum", "3"])
+    assert floors == [3] and len(losses) == 1
+    assert sess.membership.min_active == 1
+
+
+@pytest.mark.parametrize("flags", [["--quorum", "2"],
+                                   ["--round-timeout", "1"],
+                                   ["--chaos-seed", "1", "--journal", "j"]])
+def test_fault_flags_without_wire_rounds_raise(flags):
+    """As in JAX: the fault flags are wire-tier options."""
+    with pytest.raises(SystemExit, match="add --wire-rounds N"):
+        train.main(SMALL + flags)
 
 
 def test_cli_without_device_needs_cuda(monkeypatch):

@@ -4,9 +4,10 @@ fixture of ``tests/test_wire.py``: MNIST-MLP3 at its published width
 (P = 235,520), 4 silos of synthetic MNIST, 128 examples, sigma 0.05, C 1.
 
 * The codec round-trips and its delta broadcast's epoch and pin checks.
-* The noise streams: the port draws xi and xi_prev inside ``clip_mask``
-  (its plain version here), where JAX's handler draws them with
-  ``DPPipeline.noise_stream`` and passes them in. The threefry bits are
+* The noise streams: the port's serial handler draws xi and xi_prev
+  inside ``clip_mask`` (its plain version here), where JAX's handler draws
+  them with ``DPPipeline.noise_stream`` and passes them in (the port's
+  speculative rounds do too: ``tests/test_torch_speculative_wire.py``). The threefry bits are
   equal; the normals agree within ``STREAM_ATOL`` (libm's ``log`` and XLA's
   fusion are not bit-portable; ``tests/test_torch_threefry.py``).
 * A handler's contribution against JAX's ``_masked_contrib`` on the same
@@ -508,18 +509,6 @@ def test_grad_fn_writing_into_params_cannot_corrupt_the_delta_base(jax_init):
 
 
 def test_no_quiet_cpu_and_unported_features_raise(jax_init, monkeypatch):
-    sess, params, grad_fn, update_fn = port_session(jax_init)
-    for kw in ({"speculative": True}, {"round_timeout_s": 1.0},
-               {"quorum": 3}, {"chaos": object()}, {"journal": object()}):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md queue 1, item 8b"):
-            sess.run(params, grad_fn, update_fn, LR, 1, **kw)
-    for call in (lambda: sess.resume(None),
-                 lambda: sess.rejoin_silo_async(1),
-                 lambda: sess.handlers[0].prefetch_round(None)):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md queue 1, item 8b"):
-            call()
     adm, params, grad_fn, update_fn = port_session(jax_init,
                                                    mask_mode="admin")
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 9"):
