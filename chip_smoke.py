@@ -8,7 +8,9 @@ the barrier DP tier at full width and 12 layers (the barrier tier also
 under the per-leaf policy), clips its per-example gradients on both routes,
 serves rwkv6-7b and zamba2-7b at published width and full depth (direct
 and wave), runs the wire tier's protocol rounds on MNIST-MLP3 at its
-published width (serial and pipelined), and checks a serving slice of each
+published width (serial and pipelined), trains rwkv6-7b and zamba2-7b at
+published width and cut depth on the fused and barrier tiers (the scans'
+backward kernels), and checks a serving slice of each
 family (plain and speculative for the dense one), a training step of each
 tier (packed and perleaf), per-example clipping and the wire tier's rounds
 against the host CPU.
@@ -17,6 +19,7 @@ against the host CPU.
     python3 chip_smoke.py --scans [--src DIR]   # phase 11's scans alone
     python3 chip_smoke.py --pool [--src DIR]    # phase 3's page pool alone
     python3 chip_smoke.py --wire [--src DIR]    # phase 16's wire tier alone
+    python3 chip_smoke.py --bwd [--src DIR]     # phase 17's backward kernels
 
 ``--scans`` runs only the card line, the build and phase 11's scans (their
 checks and times, no launch configuration), from the ``repro_torch`` under
@@ -27,7 +30,8 @@ for each, since it uses only the wrappers every tree has. ``--pool`` does
 the same for phase 3's page-pool events, on trees that have
 ``PagePool.rollback_many`` and ``ops.pool_zero``; ``--wire`` for phase 16
 (with ``clip_mask``'s SASS read for its bound), on trees that have
-``repro_torch.core.tee``.
+``repro_torch.core.tee``; ``--bwd`` for phase 17(a), the scans' backward
+kernels, on trees that have ``wkv_bwd_cuda`` and ``ssd_bwd_cuda``.
 
 Phases (any failed check raises, and the script exits non-zero):
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
@@ -165,7 +169,24 @@ Phases (any failed check raises, and the script exits non-zero):
      to its elastic oracle; a journal resumed after a driver restart
      bit-equal to an uninterrupted run; and the CLI's chaos rounds with a
      journal (``--wire-rounds 6 --chaos-seed 1 --round-timeout <deadline>
-     --journal``).
+     --journal``);
+ 17. training the ssm and hybrid families: (a) the scans' backward kernels
+     ``wkv_bwd`` and ``ssd_bwd`` against their plain reverse scans at the
+     training shapes (one silo's share of 16 x 64: (4, 64, 64, 64) and
+     (4, 64, 112, 64, 64)), at S 61, S 512 and under strong decay, with an
+     incoming state and a final-state cotangent, each gradient within
+     BWD_REL of its largest |value|, two launches bit-identical, timed as
+     a call and on the card beside the plain version and the bound; (b)
+     rwkv6-7b at 4 of 32 layers and zamba2-7b at 12 of 81, published
+     width, 3 steps each through ``Session.train`` on the fused tier (the
+     quickstart's settings, 4 silos, batch 16 x 64): finite losses, the
+     weights moved, epsilon the ledger's (phase 7's), ``wkv`` and
+     ``wkv_bwd`` 16 a step, ``ssd`` and ``ssd_bwd`` 48 a step, each DP
+     kernel once; step and stage times, peak memory; (c) one barrier step
+     of each on a ``(4,)`` mesh (``clip_mask`` 4 times); (d) the narrow
+     configs of phase 14, 2 fused steps and 1 barrier step with a drop,
+     card vs CPU; (e) ``python -m repro_torch.launch.train --arch
+     rwkv6-7b|zamba2-7b --steps 1`` on the card in a subprocess.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -1279,13 +1300,15 @@ def wkv_inputs(dev, gen, B, S, H, N, w=None):
     return r, k, v, w, n(H, N) * 0.3, n(B, H, N, N) * 0.1
 
 
-def scan_timing(kernel, plain, nbytes: float, flops: float, at: str) -> dict:
-    """A scan's call and card times at one shape, beside its plain
-    version's and its bound."""
+def scan_timing(kernel, plain, nbytes: float, flops: float, at: str,
+                graph_n: int = 50, plain_reps: int = 20) -> dict:
+    """A scan's call and card times at one shape (``graph_n`` calls in the
+    CUDA graph), beside its plain version's (``plain_reps`` calls) and its
+    bound."""
     bms, by = bound(nbytes, flops)
-    return {"ms": cuda_ms(kernel), "device_ms": graph_ms(kernel),
-            "plain_ms": cuda_ms(plain), "bound_ms": bms, "bound_by": by,
-            "at": at}
+    return {"ms": cuda_ms(kernel), "device_ms": graph_ms(kernel, graph_n),
+            "plain_ms": cuda_ms(plain, reps=plain_reps),
+            "bound_ms": bms, "bound_by": by, "at": at}
 
 
 def check_wkv(dev, gen, B, S, H, N, ops, ref):
@@ -1428,8 +1451,9 @@ def log_scan_launches(rcfg, zcfg) -> None:
 
 
 def one_phase(phase: str, src: Path) -> int:
-    """``--scans`` / ``--pool`` / ``--wire``: the card, the build and phase
-    11's scans, phase 3's page-pool events or phase 16's wire tier alone,
+    """``--scans`` / ``--pool`` / ``--wire`` / ``--bwd``: the card, the build
+    and phase 11's scans, phase 3's page-pool events, phase 16's wire tier
+    or phase 17's backward kernels alone,
     from the ``repro_torch`` under ``src`` (another tree's, to time two
     trees in one call); the last line is their JSON record."""
     if not torch.cuda.is_available():
@@ -1451,6 +1475,8 @@ def one_phase(phase: str, src: Path) -> int:
     elif phase == "pool":
         record = pool_events(get_config("qwen2.5-3b"), dev, 0)
         log_pool_events(record)
+    elif phase == "bwd":
+        record = check_scan_backward(dev, 17)
     else:
         record, row, stream_rows = wire_phase(
             dev, stream_ops(library_sass(), ROW8_SASS), src)
@@ -1615,6 +1641,279 @@ def family_cross_device(Session, cfg, reqs, log_name):
     return {"max_abs_err": err, "max_abs_logit": top, "atol": CROSS_ATOL,
             "rtol": CROSS_RTOL, "card_launches": launches["cuda"],
             "wave_tokens_equal": int((toks["cpu"] >= 0).sum())}
+
+
+# --------------------------------------------------------------- phase 17
+# the scans' backward at the training shapes: one silo's share of a 16 x 64
+# batch over 4 silos; (B, S, H, N) of rwkv6-7b, (B, S, nh, P, N) of zamba2-7b
+WKV_TRAIN = (4, 64, 64, 64)
+SSD_TRAIN = (4, 64, 112, 64, 64)
+# each backward kernel's gradients against its plain reverse scan: within
+# this share of the gradient's largest |value| (at least 1), the forward
+# scans' bounds; fp32 sums in other orders, and the kernel's fused
+# multiply-adds
+BWD_REL, BWD_STRONG_REL = 2e-5, 1e-4
+WKV_GRADS = ("dr", "dk", "dv", "dw", "du", "dstate0")
+SSD_GRADS = ("dxh", "ddt", "dla", "dBc", "dCc", "dh0")
+# the training cells' depth cut to fit one card's 80 GB with 7 fp32 copies
+# of P (PERF.md section 4): rwkv6-7b 4 of 32 layers (P about 1.42 B),
+# zamba2-7b 12 of 81 (P about 1.37 B, two calls of the shared block)
+SSM_TRAIN_LAYERS = {"rwkv6-7b": 4, "zamba2-7b": 12}
+# the narrow training slices, card vs CPU after 2 fused steps and after 1
+# barrier step: AdamW moves each weight by about lr a step whatever |g|,
+# so a weight differs only where g sits within rounding of 0 and flips
+# sign (up to 2 lr a step); the share of such weights allowed
+SSM_FLIP_SHARE = 1e-4
+
+
+def bwd_case(fn, plain, xs, cot, names, rel) -> dict:
+    """One backward kernel call against its plain version: each gradient's
+    max |difference| and tolerance, and two launches bit-identical."""
+    got, again = fn(*xs, *cot), fn(*xs, *cot)
+    want = plain(*xs, *cot)
+    torch.cuda.synchronize()
+    errs, tols = {}, {}
+    for name, a, b in zip(names, got, want):
+        check(bool(torch.isfinite(a).all()), f"{name}: non-finite")
+        errs[name] = (a - b).abs().max().item()
+        tols[name] = rel * max(1.0, b.abs().max().item())
+        check(errs[name] <= tols[name],
+              f"{name} differs from its plain version by {errs[name]} "
+              f"(tolerance {tols[name]})")
+    identical = all(torch.equal(a, b) for a, b in zip(got, again))
+    check(identical, f"two launches of {fn.__name__} differ")
+    return {"max_abs_err": max(errs.values()), "errs": errs, "tols": tols,
+            "bit_identical": identical}
+
+
+def check_wkv_bwd(dev, gen, fn, ref) -> dict:
+    """``wkv_bwd`` against ``ref.wkv_backward_ref`` at rwkv6-7b's training
+    shape, at S 61 (a ragged last chunk), S 512 and under strong decay (w
+    near 0.02), each with an incoming state ~ 0.1 N(0, 1) and dstate ~ 0.1
+    N(0, 1) (do ~ N(0, 1)); timed at the main shape and S 512."""
+    B, S, H, N = WKV_TRAIN
+    cases, out = {}, {}
+    for name, S_, w, rel in (("main", S, None, BWD_REL),
+                             ("s61", 61, None, BWD_REL),
+                             ("s512", 512, None, BWD_REL),
+                             ("strong decay", S, 0.02, BWD_STRONG_REL)):
+        xs = wkv_inputs(dev, gen, B, S_, H, N, w)
+        cot = (torch.randn(B, S_, H, N, device=dev, generator=gen),
+               torch.randn(B, H, N, N, device=dev, generator=gen) * 0.1)
+        cases[name] = {"S": S_, **bwd_case(fn, ref.wkv_backward_ref, xs, cot,
+                                            WKV_GRADS, rel)}
+        if name in ("main", "s512"):
+            r, u, s0 = xs[0], xs[4], xs[5]
+            # r, k, v, w, do in, dr, dk, dv, dw out; u in, du out; the
+            # state and dstate in, dstate0 out
+            nbytes = (9 * r.numel() + 2 * u.numel() + 3 * s0.numel()) * 4
+            out[name] = scan_timing(
+                lambda: fn(*xs, *cot),
+                lambda: ref.wkv_backward_ref(*xs, *cot), nbytes,
+                12 * B * S_ * H * N * N,
+                f"B={B} S={S_} H={H} N={N} fp32, with a state and dstate",
+                graph_n=20, plain_reps=3)
+            out[name]["max_abs_err"] = cases[name]["max_abs_err"]
+        del xs, cot
+    return {**out["main"], "s512": out["s512"], "cases": cases,
+            "tolerance": f"{BWD_REL} of each gradient's largest |value| "
+                         f"({BWD_STRONG_REL} under strong decay)",
+            "library_ms": None,
+            "library_call": "none (no single PyTorch call computes the "
+                            "scan's backward)"}
+
+
+def check_ssd_bwd(dev, gen, fn, ref) -> dict:
+    """``ssd_bwd`` against ``ref.ssd_backward_ref`` at zamba2-7b's training
+    shape, at S 61, S 512 and under strong decay (la near -16, a_t about
+    1e-7), each with an incoming state and dh ~ 0.1 N(0, 1) (dy ~ N(0, 1));
+    timed at the main shape and S 512."""
+    B, S, nh, P, N = SSD_TRAIN
+    cases, out = {}, {}
+    for name, S_, strong, rel in (("main", S, False, BWD_REL),
+                                  ("s61", 61, False, BWD_REL),
+                                  ("s512", 512, False, BWD_REL),
+                                  ("strong decay", S, True, BWD_STRONG_REL)):
+        xs = list(ssd_inputs(dev, gen, B, S_, nh, P, N))
+        if strong:
+            xs[2] = xs[2] - 16.0
+        cot = (torch.randn(B, S_, nh, P, device=dev, generator=gen),
+               torch.randn(B, nh, P, N, device=dev, generator=gen) * 0.1)
+        cases[name] = {"S": S_, **bwd_case(fn, ref.ssd_backward_ref, xs, cot,
+                                            SSD_GRADS, rel)}
+        if name in ("main", "s512"):
+            x, dt, Bc, h0 = xs[0], xs[1], xs[3], xs[5]
+            # x, dy in, dx out; dt, la in, ddt, dla out; B, C in, dB, dC
+            # out; h0, dh in, dh0 out
+            nbytes = (3 * x.numel() + 4 * dt.numel() + 4 * Bc.numel()
+                      + 3 * h0.numel()) * 4
+            out[name] = scan_timing(
+                lambda: fn(*xs, *cot),
+                lambda: ref.ssd_backward_ref(*xs, *cot), nbytes,
+                13 * B * S_ * nh * P * N,
+                f"B={B} S={S_} nh={nh} P={P} N={N} fp32, with a state and dh",
+                graph_n=20, plain_reps=3)
+            out[name]["max_abs_err"] = cases[name]["max_abs_err"]
+        del xs, cot
+    return {**out["main"], "s512": out["s512"], "cases": cases,
+            "tolerance": f"{BWD_REL} of each gradient's largest |value| "
+                         f"({BWD_STRONG_REL} under strong decay)",
+            "library_ms": None,
+            "library_call": "none (no single PyTorch call computes the "
+                            "scan's backward)"}
+
+
+def log_bwd(name: str, r: dict) -> None:
+    cases = {k: {x: c[x] for x in ("S", "max_abs_err", "bit_identical")}
+             for k, c in r["cases"].items()}
+    log(f"[kernel] {name}: max_abs_err {r['max_abs_err']:.3g} (cases "
+        f"{json.dumps(cases)}) | kernel {r['ms']:.4f} ms (on the card "
+        f"{r['device_ms']:.4f}) | plain {r['plain_ms']:.4f} ms | library "
+        f"none | bound "
+        f"{r['bound_ms']:.4f} ms ({r['bound_by']}) | {r['at']}")
+    x = r["s512"]
+    log(f"[kernel] {name} S 512: max_abs_err {x['max_abs_err']:.3g} | kernel "
+        f"{x['ms']:.4f} ms (on the card {x['device_ms']:.4f}) | plain "
+        f"{x['plain_ms']:.4f} ms | bound {x['bound_ms']:.4f} ms "
+        f"({x['bound_by']}) | {x['at']}")
+
+
+def check_scan_backward(dev, seed: int) -> dict:
+    """Phase 17(a): both backward kernels, from the ``repro_torch`` first
+    on ``sys.path``, each logged."""
+    from repro_torch.kernels.mamba2 import ref as ssd_ref
+    from repro_torch.kernels.mamba2.mamba2 import ssd_bwd_cuda
+    from repro_torch.kernels.rwkv6 import ref as wkv_ref
+    from repro_torch.kernels.rwkv6.rwkv6 import wkv_bwd_cuda
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {"wkv_bwd": check_wkv_bwd(dev, gen, wkv_bwd_cuda, wkv_ref),
+           "ssd_bwd": check_ssd_bwd(dev, gen, ssd_bwd_cuda, ssd_ref)}
+    torch.cuda.empty_cache()
+    for name, r in out.items():
+        log_bwd(name, r)
+    return out
+
+
+def ssm_train_cell(Session, cfg, priv, opt, mesh, scan: str, steps: int,
+                   n_scans: int, dp_kernels: dict, log_name: str) -> dict:
+    """One training cell through ``Session.train``: ``steps`` steps at
+    batch 16 x 64 from random weights (seed 0), the launch counts zeroed
+    just before and read just after: ``scan`` and its backward
+    ``n_scans`` times a step, the DP kernels ``dp_kernels`` times a step,
+    nothing else. Losses finite, the weights moved; step and stage times
+    and peak memory."""
+    from repro_torch.kernels import dispatch
+
+    sess = Session.from_config(cfg, privacy=priv, optimizer=opt, mesh=mesh,
+                               seed=0)
+    state, init_s = timed(sess.init_state)
+    P = state.layout.total
+    master = state.opt_state["master"]
+    probe = torch.arange(0, P, max(1, P // (1 << 20)), device=master.device)
+    before = master[probe].clone()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launches()
+    res = sess.train(steps=steps, batch_size=16, seq_len=64, state=state,
+                     log_every=1)
+    n = dispatch.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    moved = (master[probe] - before).abs().max().item()
+    losses = [m["loss"] for m in res.metrics]
+    want = {scan: n_scans * steps, scan + "_bwd": n_scans * steps,
+            **{k: v * steps for k, v in dp_kernels.items()}}
+    check(res.step == steps and all(math.isfinite(x) for x in losses),
+          f"{cfg.name}: {res.step} steps, losses {losses}")
+    check(moved > 0, f"{cfg.name}: the weights did not move")
+    check({k: v for k, v in n.items() if v} == want,
+          f"{cfg.name} training launches {n}, expected {want}")
+    step_ms = [m["step_time_s"] * 1e3 for m in res.metrics]
+    stages = {k: [st.get(k, 0.0) for st in res.trainer.stage_log]
+              for k in res.trainer.stage_log[0]}
+    out = {"config": f"{cfg.name}, n_layers {cfg.n_layers} (d_model "
+                     f"{cfg.d_model}, vocab {cfg.vocab_size}), fp32",
+           "P": P, "n_params": state.layout.n_params, "init_s": init_s,
+           "steps": steps, "batch": 16, "seq_len": 64, "loss": losses,
+           "clip_bound": [m["clip_bound"] for m in res.metrics],
+           "epsilon": [m["epsilon"] for m in res.metrics],
+           "step_ms": step_ms, "stage_ms": stages,
+           "peak_mem_gb": peak / 1e9, "launches": n,
+           "weights_moved_max": moved}
+    log(f"[{log_name}] {cfg.name} at {cfg.n_layers} layers, P {P} "
+        f"({state.layout.n_params} parameters, in {init_s:.1f} s), {steps} "
+        f"steps of 16 x 64 over 4 silos: loss "
+        f"{[round(x, 4) for x in losses]} | epsilon "
+        f"{[round(e, 3) for e in out['epsilon']]} | step ms "
+        f"{[round(t, 1) for t in step_ms]} | peak {peak / 1e9:.2f} GB | "
+        f"launches {want}")
+    log(f"[{log_name}] stage ms per step: " + " | ".join(
+        f"{k} {[round(t, 2) for t in v]}" for k, v in stages.items()))
+    del res, state, sess, master, before
+    torch.cuda.empty_cache()
+    return out
+
+
+def ssm_train_cross_device(Session, cfg, priv, priv_b, opt, mesh, scan: str,
+                           log_name: str) -> dict:
+    """A narrow config of one family on the card (kernels) and on the host
+    CPU (plain versions) from the same weights: 2 fused steps, then 1
+    barrier step with silo 2 out. Losses and bounds within TRAIN_RTOL,
+    epsilon and the carried key equal, the weights within 2 lr a step of
+    each other and beyond PARAM_ATOL on at most SSM_FLIP_SHARE of them."""
+    from repro_torch.kernels import dispatch
+
+    out = {}
+    for tier, p_cfg, m_cfg, steps, sched in (
+            ("fused", priv, None, 2, None),
+            ("barrier", priv_b, mesh, 1, lambda t: [True, True, False, True])):
+        on = {d: Session.from_config(cfg, privacy=p_cfg, optimizer=opt,
+                                     mesh=m_cfg, seed=5, device=d)
+              for d in ("cuda", "cpu")}
+        p_cpu = on["cpu"].init_params()
+        p_gpu = copy.deepcopy(p_cpu).to("cuda")
+        res, launches = {}, {}
+        for d, p in (("cuda", p_gpu), ("cpu", p_cpu)):
+            dispatch.reset_launches()
+            res[d] = on[d].train(steps=steps, batch_size=8, seq_len=32,
+                                 log_every=0, silo_schedule=sched,
+                                 state=on[d].init_state(params=p))
+            launches[d] = {k: v for k, v in dispatch.launch_counts().items()
+                           if v}
+        a, b = res["cuda"], res["cpu"]
+        check(not launches["cpu"] and launches["cuda"].get(scan + "_bwd")
+              == launches["cuda"].get(scan) == 4 * cfg.n_layers * steps,
+              f"{cfg.name} {tier} launches: card {launches['cuda']}, CPU "
+              f"{launches['cpu']}")
+        for ma, mb in zip(a.metrics, b.metrics):
+            check(ma["epsilon"] == mb["epsilon"],
+                  f"{cfg.name} {tier}: epsilon {ma['epsilon']} vs "
+                  f"{mb['epsilon']}")
+            for k in ("loss", "clip_bound"):
+                check(math.isclose(ma[k], mb[k], rel_tol=TRAIN_RTOL),
+                      f"{cfg.name} {tier} {k}: card {ma[k]} vs CPU {mb[k]}")
+        check(a.state.noise_state.prev_key == b.state.noise_state.prev_key,
+              f"{cfg.name} {tier}: the carried noise key differs")
+        dp = (a.state.opt_state["master"].cpu()
+              - b.state.opt_state["master"]).abs()
+        flips = int((dp > PARAM_ATOL).sum())
+        P = dp.numel()
+        check(dp.max().item() <= 2 * opt.lr * steps * 1.001
+              and flips <= SSM_FLIP_SHARE * P,
+              f"{cfg.name} {tier}: params differ by up to {dp.max().item()}"
+              f", {flips} of {P} beyond {PARAM_ATOL}")
+        out[tier] = {"P": P, "steps": steps,
+                     "loss": [[m["loss"] for m in x.metrics] for x in (a, b)],
+                     "param_max_abs_err": dp.max().item(),
+                     "param_beyond_atol": flips,
+                     "card_launches": launches["cuda"]}
+        log(f"[{log_name}] {cfg.name} ({cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}, P {P}) {tier}, {steps} step(s), card vs CPU: "
+            f"loss {out[tier]['loss'][0]} / {out[tier]['loss'][1]} | params "
+            f"max |diff| {dp.max().item():.3g}, {flips} beyond {PARAM_ATOL} "
+            f"| card launches {launches['cuda']} | keys and epsilon equal")
+        del on, p_cpu, p_gpu, res, a, b, dp
+        torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------- phase 5
@@ -2138,8 +2437,8 @@ def main() -> int:
     from repro_torch.kernels.paged_attention import ref as paged_ref
     from repro_torch.kernels.zsmask import ops as zs_ops
     from repro_torch.kernels.zsmask import ref as zs_ref
-    from repro_torch.models.transformer import (Transformer, pack_params,
-                                                param_tree)
+    from repro_torch.models.packing import pack_params, param_tree
+    from repro_torch.models.transformer import Transformer
     from repro_torch.runtime.serving import PagePool, zipf_requests
 
     t_start = time.perf_counter()
@@ -3075,6 +3374,52 @@ def main() -> int:
         dev, per_stream_cm)
     kern.update(stream_rows)
 
+    # 17. training the ssm and hybrid families
+    t17 = time.perf_counter()
+    kern.update(check_scan_backward(dev, 17))
+    report["ssm_train"] = {}
+    for arch, scan in (("rwkv6-7b", "wkv"), ("zamba2-7b", "ssd")):
+        cut = dataclasses.replace(get_config(arch),
+                                  n_layers=SSM_TRAIN_LAYERS[arch])
+        n_scans = N_SILOS * cut.n_layers
+        cell = ssm_train_cell(Session, cut, priv, opt, None, scan, STEPS,
+                              n_scans, {"clip_accumulate": 1,
+                                        "noise_batch": 1}, "ssm-train")
+        # the same privacy settings, steps and silos as phase 7: the same
+        # ledger, whatever the model
+        check(cell["epsilon"] == report["train"]["epsilon"],
+              f"{arch} epsilon {cell['epsilon']} is not the ledger's "
+              f"{report['train']['epsilon']}")
+        barrier = ssm_train_cell(Session, cut, priv_b, opt, mesh4, scan, 1,
+                                 n_scans, {"clip_mask": N_SILOS},
+                                 "ssm-barrier")
+        report["ssm_train"][arch] = {"fused": cell, "barrier": barrier}
+    narrow_cfgs = {"rwkv6-7b": (narrow_r, "wkv"), "zamba2-7b": (narrow_z,
+                                                               "ssd")}
+    for arch, (ncfg, scan) in narrow_cfgs.items():
+        report["ssm_train"][arch]["cross_device"] = ssm_train_cross_device(
+            Session, ncfg, priv_c, priv_cb, opt, mesh4, scan,
+            "ssm-train-slice")
+    for arch in ("rwkv6-7b", "zamba2-7b"):
+        cli = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+               arch, "--steps", "1"]
+        t0 = time.perf_counter()
+        r = subprocess.run(cli, cwd=ROOT, capture_output=True, text=True,
+                           timeout=600, env={**os.environ,
+                                             "PYTHONPATH": str(ROOT / "src")})
+        check(r.returncode == 0
+              and "done at step 1 on cuda (fused tier)" in r.stdout,
+              f"training CLI {arch} failed ({r.returncode}):\n{r.stdout}\n"
+              f"{r.stderr}")
+        done = next(x for x in r.stdout.splitlines() if x.startswith("done"))
+        report[f"cli_train_{arch}"] = {"cmd": " ".join(cli[1:]),
+                                       "s": time.perf_counter() - t0,
+                                       "last": done}
+        log(f"[cli] {' '.join(cli[1:])}: exit 0 in "
+            f"{time.perf_counter() - t0:.1f} s | {done}")
+    report["phase17_s"] = time.perf_counter() - t17
+    log(f"[ssm-train] phase 17 in {report['phase17_s']:.1f} s")
+
     # the record
     launches = {"flash_attention": n_direct["flash_attention"],
                 "paged_attention": n_cont["paged_attention"],
@@ -3088,6 +3433,10 @@ def main() -> int:
                 "clip_sum": n_pe["clip_sum"],
                 "wkv": report["rwkv6"]["wave"]["launches"]["wkv"],
                 "ssd": report["zamba2"]["direct"]["launches"]["ssd"],
+                "wkv_bwd": report["ssm_train"]["rwkv6-7b"]["fused"][
+                    "launches"]["wkv_bwd"],
+                "ssd_bwd": report["ssm_train"]["zamba2-7b"]["fused"][
+                    "launches"]["ssd_bwd"],
                 **{k: r["launches"] for k, r in stream_rows.items()}}
     check(set(kern) == set(dispatch.KERNELS) == set(launches),
           f"the kernels line covers {sorted(kern)}, the registry "
@@ -3132,7 +3481,7 @@ if __name__ == "__main__":
     args = sys.argv[1:]
     src = Path(args[args.index("--src") + 1]).resolve() \
         if "--src" in args else ROOT / "src"
-    for phase in ("scans", "pool", "wire"):
+    for phase in ("scans", "pool", "wire", "bwd"):
         if f"--{phase}" in args:
             sys.exit(one_phase(phase, src))
     sys.exit(main())

@@ -15,8 +15,8 @@
     gen = sess.serve(batch_size=4, prompt_len=32, max_new_tokens=16,
                      params=result.state.params)
 
-Port of ``repro/api.py``: serving (the dense, ssm and hybrid families),
-training the dense family on the fused and barrier DP tiers
+Port of ``repro/api.py``: serving and training the dense, ssm (rwkv6-7b)
+and hybrid (zamba2-7b) families, training on the fused and barrier DP tiers
 (``PrivacyConfig(sync_path="barrier")`` with ``mesh=MeshConfig((n,),
 ("data",))`` runs the paper's per-silo masked contributions over n silos,
 one after another on the card), and the wire tier's protocol rounds,
@@ -43,7 +43,7 @@ from repro_torch.configs.base import (MeshConfig, ModelConfig,
 from repro_torch.core import prng
 from repro_torch.data.synthetic import synthetic_tokens
 from repro_torch.distributed import steps as steps_mod
-from repro_torch.models.registry import Model, build_model, training_unported
+from repro_torch.models.registry import Model, build_model
 from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
 
@@ -132,11 +132,11 @@ class Session:
 
     # ----------------------------------------------------------------- train
     def init_state(self, params=None):
-        """A fresh TrainState: ``params`` (a ``Transformer``, e.g. carried
-        across from JAX) or random weights from the session's seed, moved
-        into the packed master buffer; the noise state from
+        """A fresh TrainState: ``params`` (the family's module, a
+        ``Transformer``, ``RWKVStack`` or ``Hybrid``, e.g. carried across
+        from JAX) or random weights from the session's seed, moved into the
+        packed master buffer; the noise state from
         ``fold_in(PRNGKey(seed), 0xD0)``, as in JAX."""
-        training_unported(self.cfg)
         gen = None
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(self.seed)
@@ -158,7 +158,6 @@ class Session:
         """A wired Trainer; ``next_batch`` defaults to a synthetic LM stream.
         ``silo_schedule`` (step -> bool sequence) pins each step's
         participation set."""
-        training_unported(self.cfg)
         tcfg = TrainerConfig(total_steps=total_steps,
                              checkpoint_dir=checkpoint_dir,
                              log_every=log_every,

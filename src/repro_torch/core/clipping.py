@@ -23,7 +23,7 @@ import torch
 from repro_torch.core import flatbuf, prng
 from repro_torch.kernels.dp_clip import ops as clip_ops
 from repro_torch.kernels.dp_clip import ref as clip_ref
-from repro_torch.models import transformer
+from repro_torch.models import packing
 
 PERCENTILES = (0.1, 0.25, 0.5, 0.75, 0.9)
 
@@ -80,9 +80,8 @@ def clip_scale(norm: torch.Tensor, clip_bound) -> torch.Tensor:
 
 def _param_tree(params) -> dict:
     """The flat tree of ``params``: itself when it is one, the model's
-    weights (``models.transformer.param_tree``) otherwise."""
-    return params if isinstance(params, dict) \
-        else transformer.param_tree(params)
+    weights (``models.packing.param_tree``, any family) otherwise."""
+    return params if isinstance(params, dict) else packing.param_tree(params)
 
 
 @contextmanager

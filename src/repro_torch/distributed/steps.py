@@ -2,8 +2,8 @@
 ``repro/distributed/steps.py``.
 
 ``sync_path='fused'`` with ``silo_mode='vmap'``: every silo's gradient of
-the dense transformer is computed, packed into its row of one stacked
-``(n_silos, P)`` fp32 buffer (``core/flatbuf.py``), and
+the model (the dense, ssm or hybrid family) is computed, packed into its
+row of one stacked ``(n_silos, P)`` fp32 buffer (``core/flatbuf.py``), and
 ``DPPipeline.run_central`` turns the stack into
 ``sum_i clip(g_i) + sigma*C*(xi_t - lambda*xi_{t-1})`` through the
 ``clip_accumulate`` and ``noise_batch`` kernels.
@@ -48,7 +48,7 @@ from repro_torch.core.dp_pipeline import (DPPipeline, reduce_contributions,
 from repro_torch.core.flatbuf import PackedLayout
 from repro_torch.core.noise_correction import NoiseState
 from repro_torch.core.noise_correction import init_state as init_noise_state
-from repro_torch.models import transformer
+from repro_torch.models import packing
 from repro_torch.models.registry import Model
 from repro_torch.optim.optimizers import make_optimizer
 from repro_torch.optim.schedules import constant
@@ -120,7 +120,7 @@ def init_train_state(model: Model, run_cfg: RunConfig, key: tuple,
     JAX."""
     if params is None:
         params = model.init(gen)
-    layout, master = transformer.pack_params(params)
+    layout, master = packing.pack_params(params)
     opt = make_optimizer(run_cfg.optimizer)
     return TrainState(
         params=params,
@@ -162,7 +162,7 @@ def _fused_grads(model: Model, priv: PrivacyConfig, params, batch, n_silos,
     ``(noisy (P,), loss, norms, new noise state, bound)``."""
     silo_batches = _reshape_to_silos(batch, n_silos)
     pipe = DPPipeline(priv, layout, n_silos)
-    tensors = flatbuf.flat_tensors(layout, transformer.param_tree(params))
+    tensors = flatbuf.flat_tensors(layout, packing.param_tree(params))
     dev = tensors[0].device
     stacked = torch.empty((n_silos, layout.total), dtype=torch.float32,
                           device=dev)
@@ -215,7 +215,7 @@ def _barrier_grads(model: Model, priv: PrivacyConfig, mesh_cfg: MeshConfig,
         # the per-leaf mask family only builds the full static ring: the
         # step aggregates every silo whatever set it was given (as JAX's)
         active = pipe.full_active()
-    tensors = flatbuf.flat_tensors(layout, transformer.param_tree(params))
+    tensors = flatbuf.flat_tensors(layout, packing.param_tree(params))
     dev = tensors[0].device
     stacked = torch.empty((n_silos, layout.total), dtype=torch.float32,
                           device=dev)

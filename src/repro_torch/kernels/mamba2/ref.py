@@ -92,3 +92,42 @@ def ssd_split_ref(xh, dt, la, Bc, Cc, h0, groups: int):
             y = part if y is None else y + part
         ys.append(y)
     return torch.stack(ys, 1), h
+
+
+def ssd_backward_ref(xh, dt, la, Bc, Cc, h0, dy, dh=None):
+    """The gradients of ``ssd_chunked_ref``'s ``(y, h)`` given ``dy``
+    (B, S, nh, P) and ``dh`` (B, nh, P, N; None is zero): a reverse scan,
+    token by token, the plain version of ``csrc/ssd_bwd.cu``. Returns
+    ``(dxh, ddt, dla, dBc, dCc, dh0)``.
+
+    With a_t = e^{la_t}, h_t the state after token t (y_t = h_t C_t) and
+    H_t = dL/dh_t = dy_t C_t^T + a_{t+1} H_{t+1} (plus dh at the last
+    token), per (b, head):
+        dxh_t[p] = dt_t sum_n H_t[p, n] B_t[n]
+        ddt_t = sum_{p, n} H_t[p, n] x_t[p] B_t[n]
+        dla_t = a_t sum_{p, n} H_t[p, n] h_{t-1}[p, n]
+        dB_t[n] = sum_heads sum_p H_t[p, n] dt_t x_t[p]
+        dC_t[n] = sum_heads sum_p h_t[p, n] dy_t[p],   dh0 = a_1 H_1.
+    The states come from running the recurrence forward from ``h0``, never
+    from inverting it (a division by a_t, which reaches 1e-7)."""
+    B, S, nh, P = xh.shape
+    a = torch.exp(la)                                           # (B, S, nh)
+    xdt = xh * dt[..., None]
+    states, h = [h0], h0
+    for t in range(S):
+        h = a[:, t][..., None, None] * h + \
+            xdt[:, t][..., :, None] * Bc[:, t][:, None, None, :]
+        states.append(h)
+    Hn = torch.zeros_like(h0) if dh is None else dh   # a_{t+1} H_{t+1}
+    dxh, dBc, dCc = (torch.empty_like(t) for t in (xh, Bc, Cc))
+    ddt, dla = torch.empty_like(dt), torch.empty_like(la)
+    for t in range(S - 1, -1, -1):
+        Ht = Hn + dy[:, t][..., :, None] * Cc[:, t][:, None, None, :]
+        hb = torch.einsum("bhpn,bn->bhp", Ht, Bc[:, t])
+        dxh[:, t] = dt[:, t][..., None] * hb
+        ddt[:, t] = (hb * xh[:, t]).sum(-1)
+        dla[:, t] = a[:, t] * (Ht * states[t]).sum((-2, -1))
+        dBc[:, t] = torch.einsum("bhpn,bhp->bn", Ht, xdt[:, t])
+        dCc[:, t] = torch.einsum("bhpn,bhp->bn", states[t + 1], dy[:, t])
+        Hn = a[:, t][..., None, None] * Ht
+    return dxh, ddt, dla, dBc, dCc, Hn

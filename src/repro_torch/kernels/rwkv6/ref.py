@@ -97,3 +97,42 @@ def wkv_split_ref(r, k, v, w, u, state0, groups: int):
         S_ = wt[..., None] * S_ + kv
         outs.append(o)
     return torch.stack(outs, 1), S_
+
+
+def wkv_backward_ref(r, k, v, w, u, state0, do, dstate=None):
+    """The gradients of ``wkv_chunked_ref``'s ``(o, state)`` given ``do``
+    (B, S, H, N) and ``dstate`` (B, H, N, N; None is zero): a reverse scan,
+    token by token, the plain version of ``csrc/wkv_bwd.cu``. Returns
+    ``(dr, dk, dv, dw, du, dstate0)``.
+
+    With S_{t-1} the state before token t, G_t = dL/dS_t (G_S = dstate)
+    and vd_t = v_t . do_t, each per (b, h):
+        G_{t-1}[n, j] = w_t[n] G_t[n, j] + r_t[n] do_t[j]
+        dr_t[n] = sum_j S_{t-1}[n, j] do_t[j] + u[n] k_t[n] vd_t
+        dk_t[n] = sum_j G_t[n, j] v_t[j] + u[n] r_t[n] vd_t
+        dv_t[j] = sum_n G_t[n, j] k_t[n] + (sum_n r_t[n] u[n] k_t[n]) do_t[j]
+        dw_t[n] = sum_j G_t[n, j] S_{t-1}[n, j]
+        du[h, n] = sum_{b, t} r_t[n] k_t[n] vd_t,   dstate0 = G_0.
+    The states S_{t-1} come from running the recurrence forward from
+    ``state0``, never from inverting it (a division by w_t)."""
+    B, S, H, N = r.shape
+    states, S_ = [], state0
+    for t in range(S):
+        states.append(S_)
+        S_ = w[:, t][..., None] * S_ + \
+            k[:, t][..., :, None] * v[:, t][..., None, :]
+    G = torch.zeros_like(state0) if dstate is None else dstate
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    du = torch.zeros_like(u)
+    for t in range(S - 1, -1, -1):
+        rt, kt, vt, wt, dot = r[:, t], k[:, t], v[:, t], w[:, t], do[:, t]
+        Sp = states[t]
+        vd = (vt * dot).sum(-1, keepdim=True)                   # (B, H, 1)
+        dr[:, t] = torch.einsum("bhnj,bhj->bhn", Sp, dot) + u * kt * vd
+        dk[:, t] = torch.einsum("bhnj,bhj->bhn", G, vt) + u * rt * vd
+        dv[:, t] = torch.einsum("bhnj,bhn->bhj", G, kt) + \
+            (rt * u * kt).sum(-1, keepdim=True) * dot
+        dw[:, t] = (G * Sp).sum(-1)
+        du = du + (rt * kt * vd).sum(0)
+        G = wt[..., None] * G + rt[..., :, None] * dot[..., None, :]
+    return dr, dk, dv, dw, du, G

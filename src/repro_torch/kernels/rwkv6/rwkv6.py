@@ -15,6 +15,12 @@ The kernel sums each o_t[j] over ``GROUPS[N]`` threads of a state column;
 ``ref.wkv_split_ref`` is that order in plain torch. :func:`kernel_config`
 reads the launch configuration from the built library (the card tests
 hold its groups to ``GROUPS``).
+
+:func:`wkv_bwd_cuda` launches the backward, ``csrc/wkv_bwd.cu`` (the
+reverse scan ``ops.WKV`` runs in training): the same inputs plus ``do``
+and ``dstate`` (None is zero) -> ``(dr, dk, dv, dw, du, dstate0)``, at the
+same head sizes and any S >= 1. It sums ``du`` over b in a second launch,
+in ascending b, so two calls agree bit for bit.
 """
 from __future__ import annotations
 
@@ -27,14 +33,24 @@ from repro_torch.kernels.dispatch import check_tensor, register, require
 
 WKV = register("wkv", "src/repro_torch/kernels/rwkv6/csrc/wkv.cu",
                "src/repro/kernels/rwkv6/rwkv6.py:70")
+# the backward of the same TPU kernel's forward (JAX has none: it
+# differentiates its jnp chunked forms)
+WKV_BWD = register("wkv_bwd", "src/repro_torch/kernels/rwkv6/csrc/wkv_bwd.cu",
+                   "src/repro/kernels/rwkv6/rwkv6.py:70")
 
 # head sizes the kernel is instantiated for, each with the threads that
 # share a state column's n (csrc/wkv.cu, WkvShape::G)
 GROUPS = {16: 4, 32: 4, 64: 8}
 HEAD_SIZES = tuple(GROUPS)
+# tokens between the backward's checkpoints (csrc/wkv_bwd.cu, WKVB_T: the C
+# entry refuses a smaller scratch): its scratch holds B * H * ceil(S /
+# _BWD_T) states
+_BWD_T = 4
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _WKV = _build.Entry("wkv_f32", [_P] * 8 + [_I] * 4 + [_P])
+_WKV_BWD = _build.Entry("wkv_bwd_f32", [_P] * 9 + [ctypes.c_longlong]
+                        + [_P] * 7 + [_I] * 4 + [_P])
 _CONFIG = ("cols", "groups", "tokens", "threads", "smem_bytes",
            "blocks_per_sm")
 
@@ -52,10 +68,10 @@ def kernel_config(N: int) -> dict:
     return dict(zip(_CONFIG, cfg))
 
 
-def wkv_cuda(r, k, v, w, u, state0):
-    """Launch the WKV scan; returns (o, final state)."""
-    dev = r.device
-    require(dev.type == "cuda", "wkv_cuda takes CUDA tensors")
+def _check_inputs(r, k, v, w, u, state0, dev, what: str):
+    """What both kernels take; returns (B, S, H, N)."""
+    if dev.type != "cuda":
+        raise ValueError(f"{what} takes CUDA tensors")
     for name, t in (("r", r), ("k", k), ("v", v), ("w", w)):
         check_tensor(name, t, torch.float32, 4, dev)
     check_tensor("u", u, torch.float32, 2, dev)
@@ -72,10 +88,17 @@ def wkv_cuda(r, k, v, w, u, state0):
     if state0.shape != (B, H, N, N):
         raise ValueError(f"state0 {tuple(state0.shape)}, expected "
                          f"({B}, {H}, {N}, {N})")
-    ptrs = (r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr())
-    for name, ptr in (*zip("rkvw", ptrs), ("state0", state0.data_ptr())):
-        if ptr % 16:
+    for name, t in (*zip("rkvw", (r, k, v, w)), ("state0", state0)):
+        if t.data_ptr() % 16:
             raise ValueError(f"{name}: data must be 16-byte aligned")
+    return B, S, H, N
+
+
+def wkv_cuda(r, k, v, w, u, state0):
+    """Launch the WKV scan; returns (o, final state)."""
+    dev = r.device
+    B, S, H, N = _check_inputs(r, k, v, w, u, state0, dev, "wkv_cuda")
+    ptrs = (r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr())
     o = torch.empty_like(r)
     state = torch.empty_like(state0)
     if B == 0:
@@ -85,3 +108,40 @@ def wkv_cuda(r, k, v, w, u, state0):
     _build.check(err, "wkv")
     WKV.launches += 1
     return o, state
+
+
+def wkv_bwd_cuda(r, k, v, w, u, state0, do, dstate=None):
+    """Launch the WKV scan's backward; returns ``(dr, dk, dv, dw, du,
+    dstate0)``, the gradients of ``wkv_cuda``'s ``(o, state)`` given ``do``
+    (B, S, H, N) and ``dstate`` (B, H, N, N; None is zero)."""
+    dev = r.device
+    B, S, H, N = _check_inputs(r, k, v, w, u, state0, dev, "wkv_bwd_cuda")
+    check_tensor("do", do, torch.float32, 4, dev)
+    if do.shape != r.shape:
+        raise ValueError(f"do {tuple(do.shape)}, expected {tuple(r.shape)}")
+    if dstate is not None:
+        check_tensor("dstate", dstate, torch.float32, 4, dev)
+        if dstate.shape != state0.shape:
+            raise ValueError(f"dstate {tuple(dstate.shape)}, expected "
+                             f"{tuple(state0.shape)}")
+    for name, t in (("do", do), ("dstate", dstate)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name}: data must be 16-byte aligned")
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    du = torch.zeros_like(u)
+    ds0 = torch.empty_like(state0)
+    if B == 0:
+        return dr, dk, dv, dw, du, ds0
+    ckpt = torch.empty(B * H * -(-S // _BWD_T) * N * N, device=dev,
+                       dtype=torch.float32)
+    du_part = torch.empty(B, H, N, device=dev, dtype=torch.float32)
+    err = _WKV_BWD.launch(
+        dev, r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+        u.data_ptr(), state0.data_ptr(), do.data_ptr(),
+        None if dstate is None else dstate.data_ptr(), ckpt.data_ptr(),
+        ckpt.numel(), du_part.data_ptr(), dr.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), dw.data_ptr(), du.data_ptr(), ds0.data_ptr(), B, S, H,
+        N)
+    _build.check(err, "wkv_bwd")
+    WKV_BWD.launches += 1
+    return dr, dk, dv, dw, du, ds0

@@ -8,8 +8,9 @@ of the config's family: ``Transformer`` (dense), ``RWKVStack`` (ssm) or
 stacks every layer on a leading axis (its inits vmap over layer keys), the
 port keeps one module per layer in a ``ModuleList`` (``layers``,
 ``mamba_layers``), so layer ``i`` takes slice ``[i]`` of every stacked
-leaf. ``params_to_numpy`` gives a ``Transformer``'s weights as the JAX
-tree. Matrices are ``(d_in, d_out)`` in both packages: no transpose.
+leaf. ``params_to_numpy`` gives any family's weights as the JAX tree
+(``models/packing.param_tree``). Matrices are ``(d_in, d_out)`` in both
+packages: no transpose.
 ``small_params_from_jax`` takes the paper's small models' nested tree
 (MNIST-MLP3's ``{'l0': {'w', 'b'}, ...}``) to the port's flat dict of
 tensors keyed by the dotted JAX paths (``models/small.py``).
@@ -22,7 +23,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.hybrid import Hybrid
 from repro_torch.models.rwkv_stack import RWKVStack
-from repro_torch.models.transformer import Transformer, param_tree
+from repro_torch.models.packing import param_tree
+from repro_torch.models.transformer import Transformer
 
 FAMILIES = {"dense": Transformer, "ssm": RWKVStack, "hybrid": Hybrid}
 
@@ -74,7 +76,7 @@ def _numels(node):
         yield int(np.size(node))
 
 
-def params_to_numpy(model: Transformer) -> dict:
+def params_to_numpy(model) -> dict:
     """The JAX package's nested parameter tree of ``model``'s weights, as
     numpy copies (every ``layers.*`` leaf stacked on a leading axis)."""
     tree: dict = {}

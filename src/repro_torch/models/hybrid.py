@@ -10,6 +10,16 @@ activations are not). The serving state ``{'h': (L, B, nh, P, N), 'conv':
 entries}`` is updated in place. A multi-token step (the prefill) runs the
 SSD scan in every Mamba-2 layer and flash attention in every shared block;
 it needs an empty cache, as the JAX package assumes.
+
+``loss_fn`` trains the family: the forward without a state, then the
+chunked LM loss, as the JAX package's (``use_flash=False``: the shared
+block attends through the plain ``attention._sdpa``, as JAX trains it, with
+no Pallas kernel). Each Mamba-2 layer's SSD scan goes through
+``kernels/mamba2/ops.SSD`` (the ``ssd`` kernel forward, the ``ssd_bwd``
+reverse scan backward on the card). The shared block's weights take
+gradient from every call. The JAX tree stacks every ``mamba_layers.*``
+leaf and keeps one ``shared.*``; ``models/packing.py`` reads it off the
+modules.
 """
 from __future__ import annotations
 
@@ -21,7 +31,8 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2
-from repro_torch.models.layers import (RMSNorm, SwiGLU, _param, dense_init,
+from repro_torch.models.layers import (RMSNorm, SwiGLU, _param,
+                                       chunked_lm_loss, dense_init,
                                        embed_init, rmsnorm, swiglu_apply)
 
 
@@ -126,6 +137,15 @@ def forward(params: Hybrid, cfg: ModelConfig, tokens,
     if logits_mode == "last":
         x = x[:, -1:]
     return x @ params.lm_head.to(x.dtype)
+
+
+def loss_fn(params: Hybrid, cfg: ModelConfig, batch: dict,
+            compute_dtype=torch.float32) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``{'tokens', 'labels': (B, S)}``
+    (``repro/models/hybrid.py:149-152``)."""
+    hidden = forward(params, cfg, batch["tokens"], None, compute_dtype,
+                     logits_mode="hidden")
+    return chunked_lm_loss(hidden, params.lm_head, batch["labels"])
 
 
 def decode_step(params: Hybrid, cfg: ModelConfig, tokens, state,

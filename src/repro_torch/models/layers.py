@@ -5,7 +5,7 @@ Port of ``repro/models/layers.py``. Weights keep the JAX package's
 ``x @ W`` layout, ``(d_in, d_out)``, so weights carried across need no
 transpose and the two packages compute the same products. Parameters are
 created without gradients, for serving; the training path makes them
-trainable (``transformer.pack_params``).
+trainable (``packing.pack_params``).
 """
 from __future__ import annotations
 

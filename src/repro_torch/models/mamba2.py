@@ -7,9 +7,10 @@ Per head (head dim P, state N), scalar decay per head:
 with a_t = exp(A * dt_t), A < 0 learned per head, dt via softplus. A
 multi-token step runs the SSD scan (``kernels/mamba2/ops.ssd_chunked``: the
 CUDA kernel on the card); a one-token decode step runs the recurrence in
-plain torch, as the JAX package does. With a state (``{'h': (B, nh, P, N),
-'conv': (B, K-1, conv_dim)}``, one layer's views of the stack's state), the
-state is updated in place.
+plain torch, as the JAX package does. Training differentiates the scan
+through ``ops.SSD`` (on the card its backward is the ``ssd_bwd`` kernel).
+With a state (``{'h': (B, nh, P, N), 'conv': (B, K-1, conv_dim)}``, one
+layer's views of the stack's state), the state is updated in place.
 """
 from __future__ import annotations
 

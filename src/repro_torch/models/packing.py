@@ -1,0 +1,66 @@
+"""The training layout of any family's weights: the JAX parameter tree and
+the packed fp32 master buffer.
+
+The JAX package stacks every layer of a ``ModuleList`` (``layers`` of the
+dense and ssm families, ``mamba_layers`` of the hybrid) on a leading axis
+and names each leaf by its path without the layer index
+(``layers.attn.wq``, ``mamba_layers.mamba.A_log``); a module used once
+(``embed``, ``ln_f``, the hybrid's ``shared`` block) keeps its own path.
+The port's parameter names are those paths with the layer index inserted
+(``layers.3.attn.wq``), so :func:`param_slots` reads the tree off
+``named_parameters``, for every family alike.
+
+``param_tree`` is the flat tree ``core/flatbuf.py`` packs in the JAX
+package's leaf order; ``pack_params`` moves the weights into one packed
+fp32 buffer, the parameters becoming views of it (the optimizer's master
+copy in fp32).
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.core import flatbuf
+from repro_torch.models.layers import _param
+
+
+def param_slots(params: nn.Module) -> dict:
+    """JAX path -> where its tensors live: ``(module, attribute)``, or a
+    list of them, one per layer in layer order, for a stacked leaf."""
+    slots: dict = {}
+    for name, _ in params.named_parameters():
+        *mods, attr = name.split(".")
+        module = params.get_submodule(".".join(mods)) if mods else params
+        if any(m.isdigit() for m in mods):
+            path = ".".join([m for m in mods if not m.isdigit()] + [attr])
+            slots.setdefault(path, []).append((module, attr))
+        else:
+            slots[name] = (module, attr)
+    return slots
+
+
+def param_tree(params: nn.Module) -> dict:
+    """The weights as a flat tree keyed by JAX path (``core/flatbuf.py``)."""
+    return {path: [getattr(m, a) for m, a in slot] if isinstance(slot, list)
+            else getattr(*slot) for path, slot in param_slots(params).items()}
+
+
+def pack_params(params: nn.Module):
+    """Move every weight into one packed fp32 buffer, in place: each
+    parameter becomes a trainable view of the buffer. Returns
+    ``(layout, buffer)``."""
+    if any(p.dtype != torch.float32 for p in params.parameters()):
+        raise NotImplementedError("pack_params takes fp32 weights only")
+    slots = param_slots(params)
+    tree = param_tree(params)
+    layout = flatbuf.layout_of(tree)
+    with torch.no_grad():
+        buf = flatbuf.pack(layout, tree)
+    del tree
+    views = flatbuf.unpack(layout, buf)
+    for path, slot in slots.items():
+        pairs = slot if isinstance(slot, list) else [slot]
+        parts = views[path] if isinstance(slot, list) else [views[path]]
+        for (m, a), v in zip(pairs, parts):
+            setattr(m, a, _param(v, trainable=True))
+    return layout, buf

@@ -12,7 +12,10 @@ The ssm and hybrid families serve over a recurrent state (their ``cache``):
 ``prefill`` is ``decode_step`` over the whole prompt, as in the JAX
 package, which runs the WKV or SSD scan. They have no paged path
 (``init_paged_cache`` and ``paged_step`` are None, so continuous batching
-refuses them) and no training route yet (``loss`` raises).
+refuses them). They train as the dense family does: ``loss`` runs the
+scan through its ``autograd.Function`` (``kernels/rwkv6/ops.WKV``,
+``kernels/mamba2/ops.SSD``), whose backward is a hand-written reverse scan
+on the card.
 """
 from __future__ import annotations
 
@@ -39,28 +42,12 @@ class Model:
     compute_dtype: torch.dtype = torch.float32
 
 
-# the scan each recurrent family's training would differentiate
-SCANS = {"ssm": "WKV", "hybrid": "SSD"}
-
-
-def training_unported(cfg: ModelConfig) -> None:
-    """Raise for a family whose training route is not ported yet."""
-    if cfg.family in SCANS:
-        raise NotImplementedError(
-            f"training the {cfg.family} family ({cfg.name}) is not ported to "
-            f"repro_torch yet: the {SCANS[cfg.family]} scan has no backward "
-            f"in the JAX package (ROADMAP.md queue 1, item 12); it serves")
-
-
 def build_model(cfg: ModelConfig, device, param_dtype=torch.float32,
                 compute_dtype=torch.float32) -> Model:
     device = torch.device(device)
     cd = compute_dtype
     if cfg.family in ("ssm", "hybrid"):
         mod = rwkv_stack if cfg.family == "ssm" else hybrid
-
-        def loss(p, batch):
-            training_unported(cfg)
 
         def init_cache(batch, max_len):
             if cfg.family == "ssm":
@@ -70,7 +57,8 @@ def build_model(cfg: ModelConfig, device, param_dtype=torch.float32,
         step = lambda p, toks, c: mod.decode_step(p, cfg, toks, c, cd)
         return Model(cfg=cfg, device=device,
                      init=lambda gen: mod.init(gen, cfg, device, param_dtype),
-                     loss=loss, init_cache=init_cache, prefill=step,
+                     loss=lambda p, batch: mod.loss_fn(p, cfg, batch, cd),
+                     init_cache=init_cache, prefill=step,
                      decode_step=step, compute_dtype=cd)
     if cfg.family != "dense":
         raise NotImplementedError(

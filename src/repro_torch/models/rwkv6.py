@@ -7,9 +7,11 @@ Recurrence per head (head size N):
 
 A multi-token step runs the WKV scan (``kernels/rwkv6/ops.wkv_chunked``:
 the CUDA kernel on the card); a one-token decode step runs the recurrence
-in plain torch, as the JAX package does. With a state, the state's tensors
-(``S``, ``x_prev``, ``x_prev_cm``: one layer's views of the stack's state)
-are updated in place. [arXiv:2404.05892]
+in plain torch, as the JAX package does. Training differentiates the scan
+through ``ops.WKV`` (on the card its backward is the ``wkv_bwd`` kernel).
+With a state, the state's tensors (``S``, ``x_prev``, ``x_prev_cm``: one
+layer's views of the stack's state) are updated in place.
+[arXiv:2404.05892]
 """
 from __future__ import annotations
 

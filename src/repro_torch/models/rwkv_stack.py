@@ -6,8 +6,14 @@ The JAX package stacks the blocks' weights and scans over them; the port
 keeps one ``RWKVBlock`` per layer in an ``nn.ModuleList`` and loops in
 Python. The serving state ``{'S': (L, B, H, N, N), 'x_prev', 'x_prev_cm':
 (L, B, D), 'len': int}`` is updated in place, layer ``l`` through its
-``[l]`` views. A multi-token step (the wave scheduler's prefill) runs the
-WKV scan; a one-token step the plain recurrence.
+``[l]`` views. A multi-token step (the wave scheduler's prefill, and
+training) runs the WKV scan; a one-token step the plain recurrence.
+
+``loss_fn`` trains the family: the forward without a state, then the
+chunked LM loss, as the JAX package's. Its WKV scan goes through
+``kernels/rwkv6/ops.WKV`` (the ``wkv`` kernel forward, the ``wkv_bwd``
+reverse scan backward on the card). The JAX tree stacks every
+``layers.*`` leaf; ``models/packing.py`` reads it off the modules.
 """
 from __future__ import annotations
 
@@ -18,8 +24,8 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import rwkv6
-from repro_torch.models.layers import (LayerNorm, _param, dense_init,
-                                       embed_init, layernorm)
+from repro_torch.models.layers import (LayerNorm, _param, chunked_lm_loss,
+                                       dense_init, embed_init, layernorm)
 
 
 class RWKVBlock(nn.Module):
@@ -93,6 +99,15 @@ def forward(params: RWKVStack, cfg: ModelConfig, tokens,
     if logits_mode == "last":
         x = x[:, -1:]
     return x @ params.lm_head.to(x.dtype)
+
+
+def loss_fn(params: RWKVStack, cfg: ModelConfig, batch: dict,
+            compute_dtype=torch.float32) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``{'tokens', 'labels': (B, S)}``
+    (``repro/models/rwkv_stack.py:96-99``)."""
+    hidden = forward(params, cfg, batch["tokens"], None, compute_dtype,
+                     logits_mode="hidden")
+    return chunked_lm_loss(hidden, params.lm_head, batch["labels"])
 
 
 def decode_step(params: RWKVStack, cfg: ModelConfig, tokens, state,

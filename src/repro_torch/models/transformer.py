@@ -8,11 +8,9 @@ layer in an ``nn.ModuleList``, loops over layers in Python, and writes the
 caches and the ``(L, N, P, Hkv, D)`` page pools IN PLACE (where the JAX
 scheduler donates its pools to the jitted step, ``scheduler.py:168``).
 
-``param_tree`` names every weight by its JAX path (``layers.attn.wq`` is
-the list of the layers' ``wq``), the tree ``core/flatbuf.py`` packs in the
-JAX package's leaf order; ``pack_params`` moves the weights into one packed
-fp32 buffer, the parameters becoming views of it (the optimizer's master
-copy in fp32).
+``models/packing.py`` names every weight by its JAX path
+(``layers.attn.wq`` is the list of the layers' ``wq``) and moves the weights
+into one packed fp32 buffer, for this family as for the others.
 """
 from __future__ import annotations
 
@@ -23,7 +21,6 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core import flatbuf
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (RMSNorm, SwiGLU, _param,
                                        chunked_lm_loss, dense_init,
@@ -85,50 +82,6 @@ def early_exit(params: Transformer, n_layers: int) -> EarlyExit:
     """The draft weights of ``params``' first ``n_layers`` layers."""
     return EarlyExit(params.embed, tuple(params.layers)[:n_layers],
                      params.ln_f, params.head)
-
-
-def param_slots(params: Transformer) -> dict:
-    """JAX path -> where its tensors live: ``(module, attribute)``, or a
-    list of them, one per layer, for a stacked ``layers.*`` leaf."""
-    cfg = params.cfg
-    slots = {"embed": (params, "embed"), "ln_f.scale": (params.ln_f, "scale")}
-    if not cfg.tie_embeddings:
-        slots["lm_head"] = (params, "lm_head")
-    names = [("attn", n) for n in ("wq", "wk", "wv", "wo")]
-    if cfg.qkv_bias:
-        names += [("attn", n) for n in ("bq", "bk", "bv")]
-    names += [("ffn", n) for n in ("w_gate", "w_up", "w_down")]
-    names += [("ln1", "scale"), ("ln2", "scale")]
-    for sub, n in names:
-        slots[f"layers.{sub}.{n}"] = [(getattr(blk, sub), n)
-                                      for blk in params.layers]
-    return slots
-
-
-def param_tree(params: Transformer) -> dict:
-    """The weights as a flat tree keyed by JAX path (``core/flatbuf.py``)."""
-    return {path: [getattr(m, a) for m, a in slot] if isinstance(slot, list)
-            else getattr(*slot) for path, slot in param_slots(params).items()}
-
-
-def pack_params(params: Transformer):
-    """Move every weight into one packed fp32 buffer, in place: each
-    parameter becomes a trainable view of the buffer. Returns
-    ``(layout, buffer)``."""
-    if any(p.dtype != torch.float32 for p in params.parameters()):
-        raise NotImplementedError("pack_params takes fp32 weights only")
-    tree = param_tree(params)
-    layout = flatbuf.layout_of(tree)
-    with torch.no_grad():
-        buf = flatbuf.pack(layout, tree)
-    del tree
-    views = flatbuf.unpack(layout, buf)
-    for path, slot in param_slots(params).items():
-        pairs = slot if isinstance(slot, list) else [slot]
-        parts = views[path] if isinstance(slot, list) else [views[path]]
-        for (m, a), v in zip(pairs, parts):
-            setattr(m, a, _param(v, trainable=True))
-    return layout, buf
 
 
 def init(gen: torch.Generator, cfg: ModelConfig, device,

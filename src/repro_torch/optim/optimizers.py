@@ -3,7 +3,7 @@
 
 The JAX package maps each update over the parameter tree and keeps an fp32
 master copy. Here the parameters are views of one packed fp32 buffer
-(``models.transformer.pack_params``), which is the master copy itself (the
+(``models.packing.pack_params``), which is the master copy itself (the
 JAX ``mst.astype(p.dtype)`` is the identity in fp32), and the moments are
 packed buffers of the same layout. An update runs in place over the buffers
 in chunks, so its temporaries stay a few hundred MB at any P, with the JAX

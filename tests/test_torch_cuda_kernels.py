@@ -25,9 +25,15 @@ the CPU, and the wire tier's rounds (``clip_mask`` once per active silo per
 round, pipelined == serial on the card, card against CPU; the speculative
 rounds' ``noise_stream`` and external-stream ``clip_mask`` bit-equal to
 their plain versions and to ``clip_mask``'s in-kernel draw, speculative and
-fault-free tolerant rounds == serial on the card).
+fault-free tolerant rounds == serial on the card), and the scans'
+backward (``wkv_bwd`` and ``ssd_bwd`` against their plain reverse scans at
+the training shapes, ragged lengths, S 1 and strong decay, bit-identical
+across launches; the ``autograd.Function`` of each scan launching both
+kernels; the smoke ssm and hybrid training, fused and barrier, on the card
+against the CPU).
 """
 import copy
+import dataclasses
 
 import numpy as np
 import pytest
@@ -48,7 +54,7 @@ from repro_torch.kernels.mamba2 import ref as ssd_ref
 from repro_torch.kernels.mamba2.mamba2 import SHAPES as SSD_SHAPES
 from repro_torch.kernels.mamba2.mamba2 import GROUPS as SSD_GROUPS
 from repro_torch.kernels.mamba2.mamba2 import kernel_config as ssd_config
-from repro_torch.kernels.mamba2.mamba2 import ssd_cuda
+from repro_torch.kernels.mamba2.mamba2 import ssd_bwd_cuda, ssd_cuda
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.kernels.paged_attention import ref as paged_ref
 from repro_torch.kernels.paged_attention.paged_attention import \
@@ -60,7 +66,7 @@ from repro_torch.kernels.rwkv6 import ref as wkv_ref
 from repro_torch.kernels.rwkv6.rwkv6 import HEAD_SIZES as WKV_HEAD_SIZES
 from repro_torch.kernels.rwkv6.rwkv6 import GROUPS as WKV_GROUPS
 from repro_torch.kernels.rwkv6.rwkv6 import kernel_config as wkv_config
-from repro_torch.kernels.rwkv6.rwkv6 import wkv_cuda
+from repro_torch.kernels.rwkv6.rwkv6 import wkv_bwd_cuda, wkv_cuda
 from repro_torch.kernels.zsmask import ops as zs_ops
 from repro_torch.kernels.zsmask import ref as zs_ref
 from repro_torch.kernels.zsmask.zsmask import zsmask_cuda
@@ -1214,3 +1220,144 @@ def test_speculative_and_tolerant_wire_rounds_on_card_match_serial(cuda):
     assert tc["clip_mask"] == 12
     np.testing.assert_array_equal(tp.view(np.uint32), sp.view(np.uint32))
     assert tl == sl and ts.wire_stats == ss.wire_stats
+
+
+# ---------------------------------------------------------------------------
+# the scans' backward (training the ssm and hybrid families)
+
+# the backward kernels against their plain versions: each gradient within
+# this share of its largest |value| (at least 1), fp32 sums in other orders
+BWD_REL, BWD_STRONG_REL = 2e-5, 1e-4
+
+
+def _bwd_close(got, want, rel):
+    for a, b in zip(got, want):
+        tol = rel * max(1.0, b.abs().max().item())
+        assert (a - b).abs().max().item() <= tol
+
+
+# the backward checkpoints every 4 tokens (csrc/wkv_bwd.cu, WKVB_T): 37 and
+# 61 end in a ragged chunk
+@pytest.mark.parametrize("B,S,H,N,w,rel", [
+    (4, 64, 64, 64, None, BWD_REL),   # rwkv6-7b's training shape
+    (2, 61, 4, 64, None, BWD_REL),
+    (2, 1, 4, 64, None, BWD_REL),
+    (2, 37, 3, 32, None, BWD_REL),
+    (3, 70, 3, 16, None, BWD_REL),    # the smoke width
+    (2, 64, 2, 64, 0.02, BWD_STRONG_REL),
+])
+def test_wkv_bwd_kernel_matches_plain(cuda, B, S, H, N, w, rel):
+    xs = _wkv_inputs(cuda, B, S, H, N, w)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    do = torch.randn(B, S, H, N, device=cuda, generator=g)
+    ds = torch.randn(B, H, N, N, device=cuda, generator=g) * 0.1
+    n = dispatch.KERNELS["wkv_bwd"].launches
+    got = wkv_bwd_cuda(*xs, do, ds)
+    again = wkv_bwd_cuda(*xs, do, ds)
+    assert dispatch.KERNELS["wkv_bwd"].launches == n + 2
+    _bwd_close(got, wkv_ref.wkv_backward_ref(*xs, do, ds), rel)
+    for a, b in zip(got, again):  # no float atomics: bit-identical
+        assert torch.equal(a, b)
+    zero = wkv_bwd_cuda(*xs, do, None)
+    for a, b in zip(zero, wkv_bwd_cuda(*xs, do, torch.zeros_like(ds))):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("B,S,nh,P,N,strong", [
+    (4, 64, 112, 64, 64, False),  # zamba2-7b's training shape
+    (2, 61, 8, 64, 64, False),
+    (2, 1, 8, 64, 64, False),
+    (2, 70, 8, 16, 16, False),    # the smoke width
+    (2, 64, 8, 64, 64, True),     # la near -16: a_t about 1e-7
+])
+def test_ssd_bwd_kernel_matches_plain(cuda, B, S, nh, P, N, strong):
+    xs = list(_ssd_inputs(cuda, B, S, nh, P, N))
+    if strong:
+        xs[2] = xs[2] - 16.0
+    g = torch.Generator(device=cuda).manual_seed(1)
+    dy = torch.randn(B, S, nh, P, device=cuda, generator=g)
+    dh = torch.randn(B, nh, P, N, device=cuda, generator=g) * 0.1
+    n = dispatch.KERNELS["ssd_bwd"].launches
+    got = ssd_bwd_cuda(*xs, dy, dh)
+    again = ssd_bwd_cuda(*xs, dy, dh)
+    assert dispatch.KERNELS["ssd_bwd"].launches == n + 2
+    _bwd_close(got, ssd_ref.ssd_backward_ref(*xs, dy, dh),
+               BWD_STRONG_REL if strong else BWD_REL)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+def test_scan_functions_take_the_kernels_on_the_card(cuda):
+    """A CUDA tensor that requires grad goes through WKV / SSD: the forward
+    kernel once and the backward kernel once, never autograd of the plain
+    version; under no_grad the direct call, the forward kernel alone."""
+    xs = [t.requires_grad_() for t in _wkv_inputs(cuda, 2, 20, 3, 16)]
+    dispatch.reset_launches()
+    o, st = wkv_ops.wkv_chunked(*xs)
+    (o.square().sum() + st.sum()).backward()
+    assert dispatch.launch_counts()["wkv"] == 1
+    assert dispatch.launch_counts()["wkv_bwd"] == 1
+    assert all(t.grad is not None for t in xs)
+    xs = [t.requires_grad_() for t in _ssd_inputs(cuda, 2, 20, 3, 16, 16)]
+    y, h = ssd_ops.ssd_chunked(*xs)
+    (y.square().sum() + h.sum()).backward()
+    with torch.no_grad():
+        ssd_ops.ssd_chunked(*xs)
+    counts = dispatch.launch_counts()
+    assert counts["ssd"] == 2 and counts["ssd_bwd"] == 1
+    assert sum(counts.values()) == 5
+
+
+def test_scan_backward_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    xs = _wkv_inputs(cuda, 1, 4, 2, 16)
+    do = torch.zeros_like(xs[0])
+    with pytest.raises(ValueError, match="do"):
+        wkv_bwd_cuda(*xs, do[:, :3])
+    with pytest.raises(ValueError, match="dstate"):
+        wkv_bwd_cuda(*xs, do, xs[5][..., :8])
+    with pytest.raises(ValueError, match="head size 8"):
+        wkv_bwd_cuda(*_wkv_inputs(cuda, 1, 4, 2, 8), do[..., :8])
+    ys = _ssd_inputs(cuda, 1, 4, 2, 16, 16)
+    with pytest.raises(ValueError, match="dy"):
+        ssd_bwd_cuda(*ys, torch.zeros(1, 4, 2, 8, device=cuda))
+    with pytest.raises(ValueError, match="16-byte"):
+        ssd_bwd_cuda(*ys, torch.zeros(1 * 4 * 2 * 16 + 1,
+                                      device=cuda)[1:].view(1, 4, 2, 16))
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-7b"])
+def test_smoke_ssm_training_on_card_matches_cpu(cuda, arch):
+    """Two fused steps and one barrier step (silo 2 out) of the family's
+    smoke config on the card (the scans' kernels forward and backward) and
+    on the CPU (plain versions) from the same weights."""
+    priv = PrivacyConfig(sigma=0.3, clip_bound=1.0, dynamic_clip=True,
+                         noise_lambda=0.7, n_silos=4)
+    opt = OptimizerConfig(name="adamw", lr=1e-3)
+    scan = "wkv" if arch == "rwkv6-7b" else "ssd"
+    layers = 2  # the smoke configs' depth: one scan a layer a silo
+    for tier, kw, steps, sched in (
+            ("fused", dict(privacy=priv), 2, None),
+            ("barrier", dict(privacy=dataclasses.replace(
+                priv, sync_path="barrier", n_silos=0),
+                mesh=MeshConfig((4,), ("data",))), 1,
+             lambda t: [True, True, False, True])):
+        gpu = Session.from_config(arch, optimizer=opt, **kw)
+        cpu = Session.from_config(arch, optimizer=opt, device="cpu", **kw)
+        p_gpu = gpu.init_params()
+        p_cpu = copy.deepcopy(p_gpu).to("cpu")
+        dispatch.reset_launches()
+        a = gpu.train(steps=steps, batch_size=8, seq_len=16, log_every=0,
+                      silo_schedule=sched, state=gpu.init_state(params=p_gpu))
+        counts = dispatch.launch_counts()
+        assert counts[scan] == counts[scan + "_bwd"] == steps * 4 * layers
+        b = cpu.train(steps=steps, batch_size=8, seq_len=16, log_every=0,
+                      silo_schedule=sched, state=cpu.init_state(params=p_cpu))
+        for ma, mb in zip(a.metrics, b.metrics):
+            assert ma["epsilon"] == mb["epsilon"]
+            np.testing.assert_allclose(ma["loss"], mb["loss"], rtol=1e-5)
+            np.testing.assert_allclose(ma["clip_bound"], mb["clip_bound"],
+                                       rtol=1e-5)
+        assert a.state.noise_state.prev_key == b.state.noise_state.prev_key
+        diff = (a.state.opt_state["master"].cpu()
+                - b.state.opt_state["master"]).abs()
+        assert diff.max() <= 2 * steps * 1e-3  # at most sign flips

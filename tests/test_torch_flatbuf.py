@@ -14,7 +14,7 @@ from repro.core import flatbuf as jflat
 from repro.models.registry import build_model as jax_build_model
 from repro_torch.configs import get_smoke_config
 from repro_torch.core import flatbuf
-from repro_torch.models import transformer
+from repro_torch.models import packing, transformer
 from repro_torch.models.convert import params_from_jax, params_to_numpy
 
 
@@ -47,7 +47,7 @@ def test_layout_equals_jax():
     assert jax.tree.map(lambda a: a.shape, shapes) == \
         jax.tree.map(lambda a: a.shape, jparams)
     jl = jflat.layout_of(jparams)
-    tl = flatbuf.layout_of(transformer.param_tree(tparams))
+    tl = flatbuf.layout_of(packing.param_tree(tparams))
     assert (tl.total, tl.n_leaves) == (jl.total, jl.n_leaves) == (107520, 15)
     assert tl.offsets == jl.offsets and tl.sizes == jl.sizes
     assert tl.shapes == jl.shapes
@@ -62,12 +62,12 @@ def test_layout_equals_jax():
 
 def test_pack_bit_equal_and_unpack_views():
     jparams, tparams = _trees()
-    layout = flatbuf.layout_of(transformer.param_tree(tparams))
-    buf = flatbuf.pack(layout, transformer.param_tree(tparams))
+    layout = flatbuf.layout_of(packing.param_tree(tparams))
+    buf = flatbuf.pack(layout, packing.param_tree(tparams))
     want = np.asarray(jflat.pack(jflat.layout_of(jparams), jparams))
     np.testing.assert_array_equal(buf.numpy(), want)
     tree = flatbuf.unpack(layout, buf)
-    for path, leaf in transformer.param_tree(tparams).items():
+    for path, leaf in packing.param_tree(tparams).items():
         got = tree[path]
         for a, b in zip(got if isinstance(got, list) else [got],
                         leaf if isinstance(leaf, list) else [leaf]):
@@ -83,7 +83,7 @@ def test_pack_bit_equal_and_unpack_views():
 def test_pack_params_makes_the_weights_views_of_one_buffer():
     jparams, tparams = _trees()
     want = np.asarray(jflat.pack(jflat.layout_of(jparams), jparams))
-    layout, buf = transformer.pack_params(tparams)
+    layout, buf = packing.pack_params(tparams)
     np.testing.assert_array_equal(buf.numpy(), want)
     wq1 = tparams.layers[1].attn.wq
     assert wq1.requires_grad

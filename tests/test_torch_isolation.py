@@ -25,7 +25,7 @@ leaked = sorted(m for m in sys.modules
                 or m == "repro" or m.startswith("repro."))
 print(len(names), leaked)
 assert not leaked, leaked
-assert len(names) >= 92, names
+assert len(names) >= 93, names
 # the training slices' modules are among those imported
 for name in ("core.prng", "core.flatbuf", "core.clipping", "core.barrier",
              "core.noise_correction", "core.dp_pipeline",
@@ -50,7 +50,10 @@ for name in ("core.prng", "core.flatbuf", "core.clipping", "core.barrier",
              "core.tee.channels", "core.tee.merkle", "core.tee.wire",
              "core.tee.components", "runtime.elastic", "runtime.straggler",
              # the wire tier's speculative and fault-tolerant rounds
-             "core.tee.faults"):
+             "core.tee.faults",
+             # training the ssm and hybrid families (the scans' backward
+             # in kernels.rwkv6.* and kernels.mamba2.*)
+             "models.packing", "models.registry", "models.convert"):
     assert "repro_torch." + name in names, name
 """
 

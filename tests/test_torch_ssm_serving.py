@@ -15,9 +15,8 @@ carried across by ``params_from_jax``.
   inert, so the two agree.
 - Prefill and decode over a prompt against the parallel forward, as
   ``tests/test_models_smoke.py:65-95`` does for JAX (2e-3).
-- Continuous batching raises JAX's ``ValueError`` (neither family pages),
-  and training raises ``NotImplementedError`` naming ROADMAP.md queue 1,
-  item 12.
+- Continuous batching raises JAX's ``ValueError`` (neither family pages).
+  Training both families is ``tests/test_torch_ssm_training.py``'s.
 """
 import copy
 
@@ -35,7 +34,6 @@ from repro_torch import api
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.kernels import dispatch
 from repro_torch.launch import serve as serve_cli
-from repro_torch.launch import train as train_cli
 from repro_torch.models import hybrid, rwkv_stack
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.registry import build_model
@@ -175,18 +173,6 @@ def test_continuous_batching_raises_as_jax_does(weights, arch):
             prompt_len=4, max_new_tokens=2)
     assert str(terr.value) == str(jerr.value)
     assert "no paged serving path" in str(terr.value)
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_training_raises_naming_the_roadmap_item(arch):
-    sess = api.Session.from_config(arch, device="cpu")
-    for call in (lambda: sess.train(steps=1, batch_size=2, seq_len=8),
-                 sess.init_state,
-                 lambda: train_cli.main(["--arch", arch, "--device", "cpu",
-                                         "--steps", "1"])):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md queue 1, item 12"):
-            call()
 
 
 def test_serve_cli_runs_both_families_on_cpu(capsys):

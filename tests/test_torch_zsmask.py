@@ -28,7 +28,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.core import flatbuf, masking
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.zsmask import ops, ref
-from repro_torch.models import transformer
+from repro_torch.models import packing, transformer
 from repro_torch.models.convert import params_to_numpy
 
 ATOL_PER_B = 4 * 2.0 ** -23 * 10
@@ -98,7 +98,7 @@ def _smoke_trees():
                              get_smoke_config("qwen2.5-3b"), "cpu")
     jtree = jax.tree.map(jnp.asarray, params_to_numpy(model))
     ttree = {k: [t.detach() for t in v] if isinstance(v, list) else v.detach()
-             for k, v in transformer.param_tree(model).items()}
+             for k, v in packing.param_tree(model).items()}
     return jtree, ttree
 
 
