@@ -176,7 +176,12 @@ Phases (any failed check raises, and the script exits non-zero):
      (4, 64, 112, 64, 64)), at S 61, S 512 and under strong decay, with an
      incoming state and a final-state cotangent, each gradient within
      BWD_REL of its largest |value|, two launches bit-identical, timed as
-     a call and on the card beside the plain version and the bound; (b)
+     a call and on the card beside the plain version and the bound, each
+     kernel's launch configuration logged as the built library reports it
+     (threads, blocks an SM, shared bytes) with the checkpoint scratch a
+     call allocates at each timed shape (``--bwd --src`` on the parent's
+     tree times the parent's kernels the same way, without the
+     configuration its library does not report); (b)
      rwkv6-7b at 4 of 32 layers and zamba2-7b at 12 of 81, published
      width, 3 steps each through ``Session.train`` on the fused tier (the
      quickstart's settings, 4 silos, batch 16 x 64): finite losses, the
@@ -1778,9 +1783,31 @@ def log_bwd(name: str, r: dict) -> None:
         f"({x['bound_by']}) | {x['at']}")
 
 
+def bwd_configs() -> dict:
+    """Each backward kernel's launch configuration at the training shapes,
+    as the built library of the ``repro_torch`` first on ``sys.path``
+    reports it, and the checkpoint scratch a call allocates at the main
+    shape and at S 512: a configuration, not a measurement. Empty for an
+    older tree, whose library does not report it."""
+    from repro_torch.kernels.mamba2 import mamba2
+    from repro_torch.kernels.rwkv6 import rwkv6
+    if not hasattr(rwkv6, "bwd_config"):
+        return {}
+    B, S, H, N = WKV_TRAIN
+    Bs, Ss, nh, P, Ns = SSD_TRAIN
+    out = {"wkv_bwd": {"blocks": B * H, **rwkv6.bwd_config(N)},
+           "ssd_bwd": {"blocks": Bs * nh, **mamba2.bwd_config(P, Ns)}}
+    for S_ in (S, 512):
+        out["wkv_bwd"][f"scratch_bytes_s{S_}"] = \
+            4 * rwkv6.bwd_scratch_floats(B, S_, H, N)
+        out["ssd_bwd"][f"scratch_bytes_s{S_}"] = \
+            4 * mamba2.bwd_scratch_floats(Bs, S_, nh, P, Ns)
+    return out
+
+
 def check_scan_backward(dev, seed: int) -> dict:
     """Phase 17(a): both backward kernels, from the ``repro_torch`` first
-    on ``sys.path``, each logged."""
+    on ``sys.path``, each logged with its launch configuration."""
     from repro_torch.kernels.mamba2 import ref as ssd_ref
     from repro_torch.kernels.mamba2.mamba2 import ssd_bwd_cuda
     from repro_torch.kernels.rwkv6 import ref as wkv_ref
@@ -1790,8 +1817,13 @@ def check_scan_backward(dev, seed: int) -> dict:
     out = {"wkv_bwd": check_wkv_bwd(dev, gen, wkv_bwd_cuda, wkv_ref),
            "ssd_bwd": check_ssd_bwd(dev, gen, ssd_bwd_cuda, ssd_ref)}
     torch.cuda.empty_cache()
+    configs = bwd_configs()
     for name, r in out.items():
         log_bwd(name, r)
+        if name in configs:
+            r["config"] = configs[name]
+            log(f"[kernel] {name} launch (the library's configuration, not "
+                f"measured): {json.dumps(configs[name])}")
     return out
 
 

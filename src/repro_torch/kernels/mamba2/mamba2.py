@@ -20,7 +20,10 @@ library (the card tests hold its groups to ``GROUPS``).
 reverse scan ``ops.SSD`` runs in training): the same inputs plus ``dy``
 and ``dh`` (None is zero) -> ``(dxh, ddt, dla, dBc, dCc, dh0)``, at the
 same (P, N) and any S >= 1. It sums ``dBc`` and ``dCc`` over the heads in a
-second launch, in ascending head, so two calls agree bit for bit.
+second launch, in ascending head, so two calls agree bit for bit;
+``ref.ssd_backward_split_ref`` is its order of sums in plain torch.
+:func:`bwd_config` reads its launch configuration,
+:func:`bwd_scratch_floats` the checkpoint scratch a call allocates.
 """
 from __future__ import annotations
 
@@ -43,10 +46,10 @@ SSD_BWD = register("ssd_bwd", "src/repro_torch/kernels/mamba2/csrc/ssd_bwd.cu",
 # row's n (csrc/ssd.cu, SsdShape::G)
 GROUPS = {(16, 16): 4, (64, 64): 8}
 SHAPES = tuple(GROUPS)
-# tokens between the backward's checkpoints (csrc/ssd_bwd.cu, SSDB_T: the C
-# entry refuses a smaller scratch): its scratch holds B * nh * ceil(S /
-# _BWD_T) states
-_BWD_T = 4
+# tokens a pass of the backward (csrc/ssd_bwd.cu, SSDB_T): its scratch holds
+# the state before each pass but the first and the last (the C entry
+# refuses a smaller one)
+_BWD_T = 16
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SSD = _build.Entry("ssd_f32", [_P] * 8 + [_I] * 5 + [_P])
@@ -54,6 +57,8 @@ _SSD_BWD = _build.Entry("ssd_bwd_f32", [_P] * 9 + [ctypes.c_longlong]
                         + [_P] * 8 + [_I] * 5 + [_P])
 _CONFIG = ("rows", "groups", "tokens", "threads", "smem_bytes",
            "blocks_per_sm")
+_BWD_CONFIG = ("rows", "warps", "tokens", "sub_tokens", "threads",
+               "smem_bytes", "blocks_per_sm")
 
 
 def kernel_config(P: int, N: int) -> dict:
@@ -66,6 +71,24 @@ def kernel_config(P: int, N: int) -> dict:
     cfg = (ctypes.c_int * len(_CONFIG))()
     _build.check(fn(P, N, cfg), "ssd_config")
     return dict(zip(_CONFIG, cfg))
+
+
+def bwd_config(P: int, N: int) -> dict:
+    """The backward's launch configuration at (P, N), as the built library
+    reports it (on the card): state rows a thread, warps a block (four
+    column groups each), tokens a pass (between global checkpoints) and a
+    sub-chunk (between shared-memory ones), threads and shared bytes a
+    block, and the blocks an SM the card's occupancy calculator allows."""
+    fn = _build.library().ssd_bwd_config
+    fn.argtypes, fn.restype = [_I, _I, _P], _I
+    cfg = (ctypes.c_int * len(_BWD_CONFIG))()
+    _build.check(fn(P, N, cfg), "ssd_bwd_config")
+    return dict(zip(_BWD_CONFIG, cfg))
+
+
+def bwd_scratch_floats(B: int, S: int, nh: int, P: int, N: int) -> int:
+    """The floats of checkpoint scratch ``ssd_bwd_cuda`` allocates."""
+    return B * nh * max(-(-S // _BWD_T) - 2, 0) * P * N
 
 
 def _check_inputs(xh, dt, la, Bc, Cc, h0, dev, what: str):
@@ -136,7 +159,7 @@ def ssd_bwd_cuda(xh, dt, la, Bc, Cc, h0, dy, dh=None):
     ddt, dla = torch.empty_like(dt), torch.empty_like(la)
     if B == 0:
         return dxh, ddt, dla, dBc, dCc, dh0
-    ckpt = torch.empty(B * nh * -(-S // _BWD_T) * P * N, device=dev,
+    ckpt = torch.empty(bwd_scratch_floats(B, S, nh, P, N), device=dev,
                        dtype=torch.float32)
     dB_part = torch.empty(B, S, nh, N, device=dev, dtype=torch.float32)
     dC_part = torch.empty_like(dB_part)

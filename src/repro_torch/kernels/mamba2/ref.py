@@ -12,6 +12,9 @@ from __future__ import annotations
 
 import torch
 
+# the orders of scan_tile.cuh's reverse walk, shared with the WKV backward
+from repro_torch.kernels.rwkv6.ref import in_order, xor_tree
+
 
 def ssd_sequential(xh, dt, la, Bc, Cc, h0):
     """xh (B, S, nh, P); dt, la (= A * dt) (B, S, nh); Bc, Cc (B, S, N);
@@ -130,4 +133,79 @@ def ssd_backward_ref(xh, dt, la, Bc, Cc, h0, dy, dh=None):
         dBc[:, t] = torch.einsum("bhpn,bhp->bn", Ht, xdt[:, t])
         dCc[:, t] = torch.einsum("bhpn,bhp->bn", states[t + 1], dy[:, t])
         Hn = a[:, t][..., None, None] * Ht
+    return dxh, ddt, dla, dBc, dCc, Hn
+
+
+def ssd_backward_split_ref(xh, dt, la, Bc, Cc, h0, dy, dh=None):
+    """The CUDA kernel's order of sums (``csrc/ssd_bwd.cu``) in plain torch:
+    the same reverse scan as ``ssd_backward_ref``, each sum taken as the
+    kernel takes it. (The kernel fuses each product into its add, so the two
+    round differently: they agree to fp32 rounding.)
+
+    A thread holds rows ``M g .. M g + M - 1`` (M = P / 8, 8 row groups
+    g) of 4 columns; a warp holds every row of four neighbouring column
+    groups, its lanes ``4 g + c``. hb = H_t B_t adds a thread's 4 columns in
+    order, the warp's four column groups by ``xor_tree``, then the N / 16
+    warps in order (dx = dt hb). dB's and dC's sums over p add a thread's
+    rows in order, then the 8 row groups by ``xor_tree``; dC is taken from the state
+    before the token, a_t (h_{t-1}^T dy_t) + B_t dt_t (x_t . dy_t), the dot
+    as lane l's p = l, l + 32, ... in order, then the 32 lanes by
+    ``xor_tree``. ddt (x . hb of a thread's rows, in order) and dla (a
+    thread's H h_{t-1} products in row then column order) add the warp's 32
+    lanes by ``xor_tree``, then the warps in order. dB and dC add the heads
+    in ascending order."""
+    B, S, nh, P = xh.shape
+    N = Bc.shape[-1]
+    if P % 16 or N % 16:
+        raise ValueError(f"(P, N) = ({P}, {N}): the kernel takes P % 16 == 0 "
+                         f"and N % 16 == 0")
+    M, W = P // 8, N // 16
+    a = torch.exp(la)
+    xdt = xh * dt[..., None]
+    states, h = [h0], h0
+    for t in range(S):
+        h = a[:, t][..., None, None] * h + \
+            xdt[:, t][..., :, None] * Bc[:, t][:, None, None, :]
+        states.append(h)
+    Hn = torch.zeros_like(h0) if dh is None else dh
+    dxh, dBc, dCc = (torch.empty_like(t) for t in (xh, Bc, Cc))
+    ddt, dla = torch.empty_like(dt), torch.empty_like(la)
+    lanes = -(-P // 32) * 32
+
+    def tiles(z):  # (B, nh, P, N) -> (B, nh, W, 8 g, 4 c, M rows, 4 cols)
+        return z.reshape(B, nh, 8, M, W, 4, 4).permute(0, 1, 4, 2, 5, 3, 6)
+
+    for t in range(S - 1, -1, -1):
+        at, dtt = a[:, t][..., None], dt[:, t][..., None]          # (B, nh, 1)
+        Ht = Hn + dy[:, t][..., :, None] * Cc[:, t][:, None, None, :]
+        hp = states[t]
+        # hb: the thread's 4 columns, its warp's 4 column groups, the warps
+        hbt = in_order((Ht * Bc[:, t][:, None, None, :])
+                       .reshape(B, nh, P, W, 4, 4))            # (B,nh,P,W,4)
+        dxh[:, t] = dtt * in_order(xor_tree(hbt))
+        # ddt, dla: a thread's own sum, the warp's 32 lanes, the warps
+        xhb = xh[:, t][..., :, None, None] * hbt               # (B,nh,P,W,4)
+        xhb = in_order(xhb.reshape(B, nh, 8, M, W, 4).permute(0, 1, 4, 2, 5, 3))
+        ddt[:, t] = in_order(xor_tree(xhb.reshape(B, nh, W, 32)))
+        hh = tiles(Ht * hp).reshape(B, nh, W, 8, 4, 4 * M)
+        dla[:, t] = at[..., 0] * in_order(
+            xor_tree(in_order(hh).reshape(B, nh, W, 32)))
+        # dB, dC of a head: the thread's rows, the 8 row groups
+        xdt_t = xdt[:, t][..., :, None]
+        dB_h = xor_tree(in_order(tiles(Ht * xdt_t).transpose(-1, -2))
+                        .transpose(-2, -3).transpose(-1, -2)
+                        .reshape(B, nh, W, 4, 4, 8))
+        dC_h = xor_tree(in_order(tiles(hp * dy[:, t][..., :, None])
+                                 .transpose(-1, -2))
+                        .transpose(-2, -3).transpose(-1, -2)
+                        .reshape(B, nh, W, 4, 4, 8))
+        xd = torch.zeros(B, nh, lanes, dtype=xh.dtype, device=xh.device)
+        xd[..., :P] = xh[:, t] * dy[:, t]
+        xdy = dt[:, t] * xor_tree(in_order(xd.reshape(B, nh, lanes // 32, 32)
+                                           .transpose(-1, -2)))
+        dC_h = at * dC_h.reshape(B, nh, N) + \
+            Bc[:, t][:, None, :] * xdy[..., None]
+        dBc[:, t] = in_order(dB_h.reshape(B, nh, N).transpose(1, 2))
+        dCc[:, t] = in_order(dC_h.transpose(1, 2))
+        Hn = at[..., None] * Ht
     return dxh, ddt, dla, dBc, dCc, Hn

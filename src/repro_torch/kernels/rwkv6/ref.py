@@ -136,3 +136,73 @@ def wkv_backward_ref(r, k, v, w, u, state0, do, dstate=None):
         du = du + (rt * kt * vd).sum(0)
         G = wt[..., None] * G + rt[..., :, None] * dot[..., None, :]
     return dr, dk, dv, dw, du, G
+
+
+def xor_tree(x):
+    """Sum the last axis (a power of two long) as the backward kernels' lane
+    halving does (``csrc/scan_tile.cuh``, ``lane_halve``): pairs across the
+    top bit first, ((x_0 + x_h) + ...)."""
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return x[..., 0]
+
+
+def in_order(x):
+    """Sum the last axis from first to last: one thread's chain."""
+    s = x[..., 0]
+    for i in range(1, x.shape[-1]):
+        s = s + x[..., i]
+    return s
+
+
+def wkv_backward_split_ref(r, k, v, w, u, state0, do, dstate=None):
+    """The CUDA kernel's order of sums (``csrc/wkv_bwd.cu``) in plain torch:
+    the same reverse scan as ``wkv_backward_ref``, each sum taken as the
+    kernel takes it. (The kernel fuses each product into its add, so the two
+    round differently: they agree to fp32 rounding.)
+
+    A thread holds M = N / 16 neighbouring rows of 8 columns; the CG = N /
+    8 lanes of a row group share its rows, and a warp holds 16 rows. A sum
+    over j (dr's, dk's, dw's and v . do) adds a thread's 8 columns in
+    order, then the lanes' partials by ``xor_tree``. dv's sum over n adds a
+    thread's M rows in order, the warp's row groups by ``xor_tree``, then
+    the N / 16 warps in order; c_t = sum_n r u k is lane
+    l's n = l, l + 32, ... in order, then the 32 lanes by ``xor_tree``. du
+    adds t descending, then b ascending."""
+    B, S, H, N = r.shape
+    if N % 16:
+        raise ValueError(f"head size {N}: the kernel takes multiples of 16")
+    M, CG = N // 16, N // 8
+    RL = 32 // CG
+    states, S_ = [], state0
+    for t in range(S):
+        states.append(S_)
+        S_ = w[:, t][..., None] * S_ + \
+            k[:, t][..., :, None] * v[:, t][..., None, :]
+    G = torch.zeros_like(state0) if dstate is None else dstate
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    du_b = torch.zeros(B, H, N, dtype=r.dtype, device=r.device)
+    lanes = -(-N // 32) * 32
+
+    def over_j(prod):  # (B, H, N, N) [n, j] -> (B, H, N)
+        return xor_tree(in_order(prod.reshape(B, H, N, CG, 8)))
+
+    for t in range(S - 1, -1, -1):
+        rt, kt, vt, wt, dot = r[:, t], k[:, t], v[:, t], w[:, t], do[:, t]
+        Sp = states[t]
+        vd = xor_tree(in_order((vt * dot).reshape(B, H, CG, 8)))[..., None]
+        dr[:, t] = over_j(Sp * dot[..., None, :]) + u * kt * vd
+        dk[:, t] = over_j(G * vt[..., None, :]) + u * rt * vd
+        dw[:, t] = over_j(G * Sp)
+        gk = (G * kt[..., :, None]).reshape(B, H, N // 16, RL, M, N)
+        dvG = in_order(xor_tree(in_order(gk.transpose(-1, -2))
+                                .transpose(-1, -2)).transpose(-1, -2))
+        ruk = torch.zeros(B, H, lanes, dtype=r.dtype, device=r.device)
+        ruk[..., :N] = rt * u * kt
+        c = xor_tree(in_order(ruk.reshape(B, H, lanes // 32, 32)
+                              .transpose(-1, -2)))
+        dv[:, t] = dvG + c[..., None] * dot
+        du_b = du_b + rt * kt * vd
+        G = wt[..., None] * G + rt[..., :, None] * dot[..., None, :]
+    return dr, dk, dv, dw, in_order(du_b.permute(1, 2, 0)), G

@@ -20,7 +20,10 @@ hold its groups to ``GROUPS``).
 reverse scan ``ops.WKV`` runs in training): the same inputs plus ``do``
 and ``dstate`` (None is zero) -> ``(dr, dk, dv, dw, du, dstate0)``, at the
 same head sizes and any S >= 1. It sums ``du`` over b in a second launch,
-in ascending b, so two calls agree bit for bit.
+in ascending b, so two calls agree bit for bit; ``ref.wkv_backward_split_ref``
+is its order of sums in plain torch. :func:`bwd_config` reads its launch
+configuration, :func:`bwd_scratch_floats` the checkpoint scratch a call
+allocates.
 """
 from __future__ import annotations
 
@@ -42,10 +45,10 @@ WKV_BWD = register("wkv_bwd", "src/repro_torch/kernels/rwkv6/csrc/wkv_bwd.cu",
 # share a state column's n (csrc/wkv.cu, WkvShape::G)
 GROUPS = {16: 4, 32: 4, 64: 8}
 HEAD_SIZES = tuple(GROUPS)
-# tokens between the backward's checkpoints (csrc/wkv_bwd.cu, WKVB_T: the C
-# entry refuses a smaller scratch): its scratch holds B * H * ceil(S /
-# _BWD_T) states
-_BWD_T = 4
+# tokens a pass of the backward (csrc/wkv_bwd.cu, WKVB_T): its scratch holds
+# the state before each pass but the first and the last (the C entry
+# refuses a smaller one)
+_BWD_T = 16
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _WKV = _build.Entry("wkv_f32", [_P] * 8 + [_I] * 4 + [_P])
@@ -53,6 +56,8 @@ _WKV_BWD = _build.Entry("wkv_bwd_f32", [_P] * 9 + [ctypes.c_longlong]
                         + [_P] * 7 + [_I] * 4 + [_P])
 _CONFIG = ("cols", "groups", "tokens", "threads", "smem_bytes",
            "blocks_per_sm")
+_BWD_CONFIG = ("rows", "lanes_a_row", "tokens", "sub_tokens", "threads",
+               "smem_bytes", "blocks_per_sm")
 
 
 def kernel_config(N: int) -> dict:
@@ -66,6 +71,24 @@ def kernel_config(N: int) -> dict:
     cfg = (ctypes.c_int * len(_CONFIG))()
     _build.check(fn(N, cfg), "wkv_config")
     return dict(zip(_CONFIG, cfg))
+
+
+def bwd_config(N: int) -> dict:
+    """The backward's launch configuration at head size N, as the built
+    library reports it (on the card): state rows a thread, lanes that share
+    a row, tokens a pass (between global checkpoints) and a sub-chunk
+    (between shared-memory ones), threads and shared bytes a block, and the
+    blocks an SM the card's occupancy calculator allows."""
+    fn = _build.library().wkv_bwd_config
+    fn.argtypes, fn.restype = [_I, _P], _I
+    cfg = (ctypes.c_int * len(_BWD_CONFIG))()
+    _build.check(fn(N, cfg), "wkv_bwd_config")
+    return dict(zip(_BWD_CONFIG, cfg))
+
+
+def bwd_scratch_floats(B: int, S: int, H: int, N: int) -> int:
+    """The floats of checkpoint scratch ``wkv_bwd_cuda`` allocates."""
+    return B * H * max(-(-S // _BWD_T) - 2, 0) * N * N
 
 
 def _check_inputs(r, k, v, w, u, state0, dev, what: str):
@@ -132,7 +155,7 @@ def wkv_bwd_cuda(r, k, v, w, u, state0, do, dstate=None):
     ds0 = torch.empty_like(state0)
     if B == 0:
         return dr, dk, dv, dw, du, ds0
-    ckpt = torch.empty(B * H * -(-S // _BWD_T) * N * N, device=dev,
+    ckpt = torch.empty(bwd_scratch_floats(B, S, H, N), device=dev,
                        dtype=torch.float32)
     du_part = torch.empty(B, H, N, device=dev, dtype=torch.float32)
     err = _WKV_BWD.launch(

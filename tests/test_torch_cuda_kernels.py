@@ -27,8 +27,10 @@ rounds' ``noise_stream`` and external-stream ``clip_mask`` bit-equal to
 their plain versions and to ``clip_mask``'s in-kernel draw, speculative and
 fault-free tolerant rounds == serial on the card), and the scans'
 backward (``wkv_bwd`` and ``ssd_bwd`` against their plain reverse scans at
-the training shapes, ragged lengths, S 1 and strong decay, bit-identical
-across launches; the ``autograd.Function`` of each scan launching both
+the training shapes, ragged lengths, S 1 and strong decay, and across their
+16-token passes at every width, bit-identical across launches, no state
+cotangent bit-equal to a zero one; their launch configurations and
+checkpoint scratch; the ``autograd.Function`` of each scan launching both
 kernels; the smoke ssm and hybrid training, fused and barrier, on the card
 against the CPU).
 """
@@ -54,6 +56,9 @@ from repro_torch.kernels.mamba2 import ref as ssd_ref
 from repro_torch.kernels.mamba2.mamba2 import SHAPES as SSD_SHAPES
 from repro_torch.kernels.mamba2.mamba2 import GROUPS as SSD_GROUPS
 from repro_torch.kernels.mamba2.mamba2 import kernel_config as ssd_config
+from repro_torch.kernels.mamba2.mamba2 import bwd_config as ssd_bwd_config
+from repro_torch.kernels.mamba2.mamba2 import \
+    bwd_scratch_floats as ssd_bwd_scratch
 from repro_torch.kernels.mamba2.mamba2 import ssd_bwd_cuda, ssd_cuda
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.kernels.paged_attention import ref as paged_ref
@@ -66,6 +71,9 @@ from repro_torch.kernels.rwkv6 import ref as wkv_ref
 from repro_torch.kernels.rwkv6.rwkv6 import HEAD_SIZES as WKV_HEAD_SIZES
 from repro_torch.kernels.rwkv6.rwkv6 import GROUPS as WKV_GROUPS
 from repro_torch.kernels.rwkv6.rwkv6 import kernel_config as wkv_config
+from repro_torch.kernels.rwkv6.rwkv6 import bwd_config as wkv_bwd_config
+from repro_torch.kernels.rwkv6.rwkv6 import \
+    bwd_scratch_floats as wkv_bwd_scratch
 from repro_torch.kernels.rwkv6.rwkv6 import wkv_bwd_cuda, wkv_cuda
 from repro_torch.kernels.zsmask import ops as zs_ops
 from repro_torch.kernels.zsmask import ref as zs_ref
@@ -1236,8 +1244,9 @@ def _bwd_close(got, want, rel):
         assert (a - b).abs().max().item() <= tol
 
 
-# the backward checkpoints every 4 tokens (csrc/wkv_bwd.cu, WKVB_T): 37 and
-# 61 end in a ragged chunk
+# the backward walks 16-token passes between global checkpoints and
+# 4-token sub-chunks between shared-memory ones (csrc/wkv_bwd.cu, WKVB_T,
+# WKVB_Q): 37 and 61 end in a ragged pass and sub-chunk
 @pytest.mark.parametrize("B,S,H,N,w,rel", [
     (4, 64, 64, 64, None, BWD_REL),   # rwkv6-7b's training shape
     (2, 61, 4, 64, None, BWD_REL),
@@ -1285,6 +1294,68 @@ def test_ssd_bwd_kernel_matches_plain(cuda, B, S, nh, P, N, strong):
                BWD_STRONG_REL if strong else BWD_REL)
     for a, b in zip(got, again):
         assert torch.equal(a, b)
+
+
+# lengths across the backward's pass structure (T = 16 tokens a pass, Q = 4
+# a sub-chunk): one token, a pass less one, a pass and one, two passes and
+# three (the first global checkpoint), three passes and five (two), 512
+BWD_LENGTHS = (1, 15, 17, 35, 53, 512)
+
+
+@pytest.mark.parametrize("S", BWD_LENGTHS)
+@pytest.mark.parametrize("N", WKV_HEAD_SIZES)
+def test_wkv_bwd_across_its_passes(cuda, N, S):
+    """Against the plain reverse scan, two launches bit-identical, no
+    dstate bit-equal to a zero one, at every head size."""
+    xs = _wkv_inputs(cuda, 2, S, 3, N, seed=S)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    do = torch.randn(2, S, 3, N, device=cuda, generator=g)
+    ds = torch.randn(2, 3, N, N, device=cuda, generator=g) * 0.1
+    got = wkv_bwd_cuda(*xs, do, ds)
+    _bwd_close(got, wkv_ref.wkv_backward_ref(*xs, do, ds), BWD_REL)
+    for a, b in zip(got, wkv_bwd_cuda(*xs, do, ds)):
+        assert torch.equal(a, b)
+    for a, b in zip(wkv_bwd_cuda(*xs, do, None),
+                    wkv_bwd_cuda(*xs, do, torch.zeros_like(ds))):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("S", BWD_LENGTHS)
+@pytest.mark.parametrize("P,N", SSD_SHAPES)
+def test_ssd_bwd_across_its_passes(cuda, P, N, S):
+    xs = _ssd_inputs(cuda, 2, S, 3, P, N, seed=S)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    dy = torch.randn(2, S, 3, P, device=cuda, generator=g)
+    dh = torch.randn(2, 3, P, N, device=cuda, generator=g) * 0.1
+    got = ssd_bwd_cuda(*xs, dy, dh)
+    _bwd_close(got, ssd_ref.ssd_backward_ref(*xs, dy, dh), BWD_REL)
+    for a, b in zip(got, ssd_bwd_cuda(*xs, dy, dh)):
+        assert torch.equal(a, b)
+    for a, b in zip(ssd_bwd_cuda(*xs, dy, None),
+                    ssd_bwd_cuda(*xs, dy, torch.zeros_like(dh))):
+        assert torch.equal(a, b)
+
+
+def test_bwd_launch_configs_and_scratch(cuda):
+    """The backward kernels' configurations as the built library reports
+    them: 16-token passes of 4-token sub-chunks, at least one block an SM,
+    and at the training shapes every (b, head) resident at once for
+    rwkv6-7b's 256 blocks; the checkpoint scratch is the state before each
+    pass but the first and the last, none up to two passes."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for N in WKV_HEAD_SIZES:
+        cfg = wkv_bwd_config(N)
+        assert (cfg["tokens"], cfg["sub_tokens"]) == (16, 4)
+        assert cfg["blocks_per_sm"] >= 1
+    assert wkv_bwd_config(64)["blocks_per_sm"] * sms >= 4 * 64
+    for P, N in SSD_SHAPES:
+        cfg = ssd_bwd_config(P, N)
+        assert (cfg["tokens"], cfg["sub_tokens"]) == (16, 4)
+        assert cfg["blocks_per_sm"] >= 1
+    assert wkv_bwd_scratch(4, 64, 64, 64) == 4 * 64 * 2 * 64 * 64
+    assert wkv_bwd_scratch(2, 32, 3, 16) == 0
+    assert ssd_bwd_scratch(4, 64, 112, 64, 64) == 4 * 112 * 2 * 64 * 64
+    assert ssd_bwd_scratch(2, 33, 3, 16, 16) == 2 * 3 * 16 * 16
 
 
 def test_scan_functions_take_the_kernels_on_the_card(cuda):

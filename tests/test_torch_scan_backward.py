@@ -24,6 +24,13 @@ decay, the forward kernels' bounds) of the largest |value| of that
 gradient in the reference (at least 1), fp32 sums in other orders
 (measured below 3e-6 relative). ``gradcheck`` holds both Functions to
 finite differences in float64 at a tiny shape.
+
+The CUDA kernels' own order of sums, ``ref.wkv_backward_split_ref`` and
+``ref.ssd_backward_split_ref`` (a thread's columns or rows in order, a
+warp's lanes by an xor tree, the warps in order), is held to the plain
+reverse scans and to ``jax.vjp`` of JAX's unclamped forms at every width
+the kernels are built for (N 16, 32, 64; (P, N) (16, 16), (64, 64)), with
+the same tolerance.
 """
 import jax
 import jax.numpy as jnp
@@ -195,3 +202,60 @@ def test_serving_keeps_the_direct_call():
     with torch.inference_mode():
         y, h = ssd_ops.ssd_chunked(*ts)
     assert not y.requires_grad and not h.requires_grad
+
+
+# the split references at every width the kernels are built for: S 1, a
+# ragged length, past two of the kernels' 16-token passes, strong decay
+SPLIT_CASES = [("S1", 2, 1, 2, 32, False), ("ragged", 2, 37, 2, 32, False),
+               ("three_passes", 1, 48, 2, 16, False),
+               ("strong_decay", 1, 40, 2, 8, True)]
+
+
+@pytest.mark.parametrize("N", [16, 32, 64])
+@pytest.mark.parametrize("name,B,S,H,chunk,strong", SPLIT_CASES)
+def test_wkv_split_ref_matches_plain_and_jax(name, B, S, H, chunk, strong, N):
+    *inp, do, dst = wkv_inputs(B, S, H, N, strong, seed=N)
+    tol = STRONG_ATOL_REL if strong else ATOL_REL
+    ts = [torch.tensor(a) for a in (*inp, do, dst)]
+    got = [g.numpy() for g in wkv_ref.wkv_backward_split_ref(*ts)]
+    _close(got, [g.numpy() for g in wkv_ref.wkv_backward_ref(*ts)],
+           WKV_NAMES, tol, f"{name} N {N} plain")
+    _close(got, _jax_grads(jwkv.wkv_chunked, inp, (do, dst), chunk=chunk,
+                           impl="masked"), WKV_NAMES, tol, f"{name} N {N} jax")
+
+
+@pytest.mark.parametrize("P,N", [(16, 16), (64, 64)])
+@pytest.mark.parametrize("name,B,S,nh,chunk,strong", SPLIT_CASES)
+def test_ssd_split_ref_matches_plain_and_jax(name, B, S, nh, chunk, strong,
+                                             P, N):
+    *inp, dy, dh = ssd_inputs(B, S, nh, P, N, strong, seed=P)
+    tol = STRONG_ATOL_REL if strong else ATOL_REL
+    ts = [torch.tensor(a) for a in (*inp, dy, dh)]
+    got = [g.numpy() for g in ssd_ref.ssd_backward_split_ref(*ts)]
+    _close(got, [g.numpy() for g in ssd_ref.ssd_backward_ref(*ts)],
+           SSD_NAMES, tol, f"{name} ({P}, {N}) plain")
+    _close(got, _jax_grads(jssd.ssd_chunked, inp, (dy, dh), chunk=chunk,
+                           impl="jnp"), SSD_NAMES, tol, f"{name} ({P}, {N}) jax")
+
+
+def test_split_refs_take_none_as_zero_and_refuse_other_widths():
+    """No incoming-state cotangent is a zero one, bit for bit; a width the
+    kernels' lane layout cannot hold is refused."""
+    *inp, do, _ = wkv_inputs(1, 5, 2, 16, False)
+    ts = [torch.tensor(a) for a in (*inp, do)]
+    for a, b in zip(wkv_ref.wkv_backward_split_ref(*ts),
+                    wkv_ref.wkv_backward_split_ref(
+                        *ts, torch.zeros(1, 2, 16, 16))):
+        assert torch.equal(a, b)
+    *inp, dy, _ = ssd_inputs(1, 5, 2, 16, 16, False)
+    ts = [torch.tensor(a) for a in (*inp, dy)]
+    for a, b in zip(ssd_ref.ssd_backward_split_ref(*ts),
+                    ssd_ref.ssd_backward_split_ref(
+                        *ts, torch.zeros(1, 2, 16, 16))):
+        assert torch.equal(a, b)
+    *inp, do, _ = wkv_inputs(1, 3, 1, 8, False)
+    with pytest.raises(ValueError):
+        wkv_ref.wkv_backward_split_ref(*map(torch.tensor, (*inp, do)))
+    *inp, dy, _ = ssd_inputs(1, 3, 1, 16, 8, False)
+    with pytest.raises(ValueError):
+        ssd_ref.ssd_backward_split_ref(*map(torch.tensor, (*inp, dy)))
