@@ -20,6 +20,7 @@ against the host CPU.
     python3 chip_smoke.py --pool [--src DIR]    # phase 3's page pool alone
     python3 chip_smoke.py --wire [--src DIR]    # phase 16's wire tier alone
     python3 chip_smoke.py --bwd [--src DIR]     # phase 17's backward kernels
+    python3 chip_smoke.py --streams [--src DIR] # rows 8, 13, 14 alone
 
 ``--scans`` runs only the card line, the build and phase 11's scans (their
 checks and times, no launch configuration), from the ``repro_torch`` under
@@ -31,7 +32,11 @@ the same for phase 3's page-pool events, on trees that have
 ``PagePool.rollback_many`` and ``ops.pool_zero``; ``--wire`` for phase 16
 (with ``clip_mask``'s SASS read for its bound), on trees that have
 ``repro_torch.core.tee``; ``--bwd`` for phase 17(a), the scans' backward
-kernels, on trees that have ``wkv_bwd_cuda`` and ``ssd_bwd_cuda``.
+kernels, on trees that have ``wkv_bwd_cuda`` and ``ssd_bwd_cuda``;
+``--streams`` for the wire tier's stream kernels (``clip_mask`` at the
+training and the wire shape, ``noise_stream`` and the external-stream
+``clip_mask`` at the wire shape, as phases 6 and 16 check and time them,
+against the pinned bound), on trees that have ``ops.noise_stream``.
 
 Phases (any failed check raises, and the script exits non-zero):
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
@@ -239,6 +244,16 @@ ALU_OPS = {"IADD3", "LOP3", "SHF", "PRMT", "LEA", "ISETP", "IMNMX", "SEL",
 IMAD_OPS = {"IMAD", "IMUL"}
 OTHER_OPS = {"VIADD", "I2FP", "I2F", "F2I", "F2F", "POPC", "FLO"}
 FP32_OPS = {"FFMA", "FMUL", "FADD"}
+# The yardstick of rows 8, 13 and 14 (clip_mask_kernel<false>,
+# noise_stream_kernel, clip_mask_kernel<true>): arithmetic instructions a
+# normal by pipe in clip_mask's loop as the one-element-a-thread layout
+# compiled it (four normals a loop, before csrc/stream_grid.cuh), pinned,
+# so that a redesigned body and its parent are held to one bound; the live
+# count of the running build is logged beside it as a report only.
+# noise_batch and zsmask, whose kernels keep their loops, read their own
+# live counts.
+CLIP_MASK_OPS = {"normals_in_loop": 4, "alu": 62.75, "imad": 15.25,
+                 "fp32+imad": 59.75, "mufu": 1.0, "issue": 128.75}
 # kernel vs plain version on the same inputs, fp32 on the card: the two sum
 # in different orders, so they agree to fp32 rounding (about 1e-6 here)
 KERNEL_ATOL = KERNEL_RTOL = 1e-5
@@ -322,14 +337,14 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def graph_ms(fn, n: int = 50) -> float:
+def graph_ms(fn, n: int = 50, reps: int = 20) -> float:
     """Device time of one ``fn()`` without the host's share: ``n`` calls
     captured into one CUDA graph, the graph replayed under ``cuda_ms``."""
     g = torch.cuda.CUDAGraph()
     with torch.cuda.graph(g):
         for _ in range(n):
             fn()
-    return cuda_ms(g.replay) / n
+    return cuda_ms(g.replay, reps=reps) / n
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -515,6 +530,20 @@ def zero_event(kv, call, dead, width, at, card=None) -> dict:
             "bound_ms": bound(nbytes, 0)[0], "at": at}
 
 
+def host_ms(fn, n: int = 200) -> float:
+    """Host milliseconds a call of ``fn()``: the least of 5 runs of ``n``
+    calls, the card synchronised before and after each run."""
+    best = math.inf
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return best / n * 1e3
+
+
 def host_split(target, dead) -> dict:
     """Where a single range's call spends its host time, host-clocked
     (``time.perf_counter``, ms a call, the least of 5 runs of 200 calls,
@@ -535,24 +564,13 @@ def host_split(target, dead) -> dict:
     args = (k.data_ptr(), v.data_ptr(), L, 0, 0, 0, N * P * H * D, N * P,
             H * D, ids.buffer_info()[0], len(ids))
 
-    def per_call(fn, n=200):
-        best = math.inf
-        for _ in range(5):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-            best = min(best, time.perf_counter() - t0)
-        return best / n * 1e3
-
     out = {"indices": len(ids),
-           "call_ms": per_call(lambda: ops.pool_zero(target, dead, "token")),
-           "entry_ms": per_call(lambda: pa._ZERO.launch(k.device, *args))}
+           "call_ms": host_ms(lambda: ops.pool_zero(target, dead, "token")),
+           "entry_ms": host_ms(lambda: pa._ZERO.launch(k.device, *args))}
     real, counted = pa._ZERO, pa.PAGED_ROLLBACK.launches
     pa._ZERO = types.SimpleNamespace(launch=lambda *a: 1)
     try:
-        out["wrapper_ms"] = per_call(
+        out["wrapper_ms"] = host_ms(
             lambda: pa.pool_zero_cuda(target, dead, "token"))
     finally:
         pa._ZERO, pa.PAGED_ROLLBACK.launches = real, counted
@@ -858,6 +876,46 @@ def check_clip_mask_wire(dev, P, ops, ref, keys, prev, per_stream) -> dict:
     }
 
 
+def ext_host_split(dev, ops, g, xi, xp, args, kw) -> dict:
+    """Where one call of row 14 (``ops.clip_mask`` with external streams,
+    as the speculative handler makes it) spends its host time, host-clocked
+    (:func:`host_ms`): the whole call; its defaults (``nxt`` and the two
+    stream scales, ``ref.clip_mask_defaults``); its five scalars'
+    ``torch.as_tensor`` and their ``torch.stack`` (a device launch); the
+    CUDA wrapper with the scalars built and the C entry stubbed (its
+    checks); the C entry alone with its arguments built beforehand. The
+    stub's calls are taken off the launch counter again."""
+    from repro_torch.kernels.dispatch import check_key
+    from repro_torch.kernels.dp_fused import dp_fused as dp
+    from repro_torch.kernels.dp_fused import ref
+
+    scale, kr, kx, kp, silo, n, sc, b, lam = args
+    kr, kx, kp = (check_key("key", k) for k in (kr, kx, kp))
+    out = torch.empty_like(g)
+    defaults = lambda: ref.clip_mask_defaults(
+        silo, n, sc, dev, kw["nxt"], kw["noise_scale"], kw["prev_noise_scale"])
+    nxt, s, s_prev = defaults()
+    stack = lambda: torch.stack([
+        torch.as_tensor(x, dtype=torch.float32, device=dev).reshape(())
+        for x in (scale, s, b, lam, s_prev)])
+    scalars = stack()
+    entry = (g.data_ptr(), xi.data_ptr(), xp.data_ptr(), out.data_ptr(),
+             g.shape[0], *kr, *kx, *kp, silo, nxt, scalars.data_ptr(), 1, 1)
+    launch = lambda: dp._CLIP_MASK_EXT.launch(g.device, *entry)
+    res = {"call_ms": host_ms(lambda: ops.clip_mask(g, *args, xi=xi, xp=xp,
+                                                    **kw)),
+           "defaults_ms": host_ms(defaults), "scalars_ms": host_ms(stack),
+           "entry_ms": host_ms(launch)}
+    real, counted = dp._CLIP_MASK_EXT, dp.CLIP_MASK_EXT.launches
+    dp._CLIP_MASK_EXT = types.SimpleNamespace(launch=lambda *a: 0)
+    try:
+        res["wrapper_ms"] = host_ms(lambda: dp.clip_mask_ext_cuda(
+            g, xi, xp, scalars, kr, kx, kp, silo, nxt, out=out))
+    finally:
+        dp._CLIP_MASK_EXT, dp.CLIP_MASK_EXT.launches = real, counted
+    return res
+
+
 def check_stream_kernels(dev, P, ops, ref, keys, prev, per_stream) -> dict:
     """The speculative rounds' two port kernels at the wire tier's shape.
     ``noise_stream`` bit-equal to its plain version at P and at a ragged
@@ -926,6 +984,10 @@ def check_stream_kernels(dev, P, ops, ref, keys, prev, per_stream) -> dict:
             "at": f"P={P} (MNIST-MLP3) silo 1 fp32"
                   + (" nxt 3 use_pairwise use_prev" if words > 1 else "")}
         r = rows[name]
+        if name == "clip_mask_ext":
+            r["host_split"] = ext_host_split(dev, ops, g, xi, xp, args, kw)
+            log(f"[kernel] clip_mask_ext wire, host ms a call: "
+                f"{json.dumps(r['host_split'])}")
         log(f"[kernel] {name} wire: max_abs_err {json.dumps(errs)} | kernel "
             f"{r['ms']:.4f} ms (on the card {r['device_ms']:.4f}) | launch "
             f"floor {floor['ms']:.4f} ms (on the card "
@@ -1455,10 +1517,65 @@ def log_scan_launches(rcfg, zcfg) -> None:
             f"measured): {json.dumps({'blocks': blocks, **cfg})}")
 
 
+def streams_phase(dev, src: Path) -> dict:
+    """``--streams``: the wire tier's stream kernels alone, rows 8, 13 and
+    14 as phases 6 and 16 check and time them (row 8 at the training shape,
+    qwen2.5-3b at 12 layers, and at the wire shape; ``noise_stream`` and
+    the external-stream ``clip_mask`` at the wire shape), each held to the
+    pinned bound, with the live SASS count of the build as a report. Uses
+    only wrappers every tree with ``ops.noise_stream`` has, so two trees
+    are timed in one call."""
+    import dataclasses as dc
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import flatbuf, prng
+    from repro_torch.core.barrier import step_keys
+    from repro_torch.kernels.dp_fused import ops as noise_ops
+    from repro_torch.kernels.dp_fused import ref as noise_ref
+    from repro_torch.models.packing import param_tree
+    from repro_torch.models.transformer import Transformer
+
+    live = stream_ops(library_sass(), ROW8_SASS)
+    log(f"[kernel] clip_mask SASS, live (a report; the bound uses "
+        f"{json.dumps(CLIP_MASK_OPS)}): {json.dumps(live)}")
+    configs = stream_configs()
+    log(f"[kernel] stream kernels' launch configuration: "
+        f"{json.dumps(configs) if configs else 'not reported by this tree'}")
+    cut12 = dc.replace(get_config("qwen2.5-3b"), n_layers=12)
+    P = flatbuf.layout_of(param_tree(Transformer(cut12, "meta"))).total
+    g = torch.randn(P, generator=torch.Generator(device=dev).manual_seed(6),
+                    device=dev)
+    train = check_clip_mask(dev, P, g, noise_ops, noise_ref,
+                            step_keys(prng.PRNGKey(1), 0),
+                            step_keys(prng.PRNGKey(1), 1).key_xi,
+                            CLIP_MASK_OPS)
+    del g
+    torch.cuda.empty_cache()
+    log(f"[kernel] clip_mask train: max_abs_err {train['max_abs_err']} | "
+        f"kernel {train['ms']:.4f} ms (on the card {train['device_ms']:.4f})"
+        f" | plain {train['plain_ms']:.4f} ms ({train['plain_at']}) | bound "
+        f"{train['bound_ms']:.4f} ms ({train['bound_by']}) | {train['at']}")
+    P_WIRE = 235_520  # MNIST-MLP3's packed length, as phase 16 derives it
+    keys = step_keys(prng.PRNGKey(0), 0)
+    prev = step_keys(prng.PRNGKey(0), 1).key_xi
+    wire = check_clip_mask_wire(dev, P_WIRE, noise_ops, noise_ref, keys, prev,
+                                CLIP_MASK_OPS)
+    log(f"[kernel] clip_mask wire: max_abs_err {wire['checked']} | kernel "
+        f"{wire['ms']:.4f} ms (on the card {wire['device_ms']:.4f}) | plain "
+        f"{wire['plain_ms']:.4f} ms | bound {wire['bound_ms']:.4f} ms "
+        f"({wire['bound_by']}) | {wire['at']}")
+    rows = check_stream_kernels(dev, P_WIRE, noise_ops, noise_ref, keys, prev,
+                                CLIP_MASK_OPS)
+    return {"clip_mask": train, "clip_mask_wire": wire, **rows,
+            "live_sass": live, "pinned_sass": CLIP_MASK_OPS,
+            "configs": configs}
+
+
 def one_phase(phase: str, src: Path) -> int:
-    """``--scans`` / ``--pool`` / ``--wire`` / ``--bwd``: the card, the build
-    and phase 11's scans, phase 3's page-pool events, phase 16's wire tier
-    or phase 17's backward kernels alone,
+    """``--scans`` / ``--pool`` / ``--wire`` / ``--bwd`` / ``--streams``: the
+    card, the build and phase 11's scans, phase 3's page-pool events, phase
+    16's wire tier, phase 17's backward kernels or the wire tier's stream
+    kernels (:func:`streams_phase`) alone,
     from the ``repro_torch`` under ``src`` (another tree's, to time two
     trees in one call); the last line is their JSON record."""
     if not torch.cuda.is_available():
@@ -1482,11 +1599,15 @@ def one_phase(phase: str, src: Path) -> int:
         log_pool_events(record)
     elif phase == "bwd":
         record = check_scan_backward(dev, 17)
+    elif phase == "streams":
+        record = streams_phase(dev, src)
     else:
-        record, row, stream_rows = wire_phase(
-            dev, stream_ops(library_sass(), ROW8_SASS), src)
+        log(f"[kernel] clip_mask SASS, live (a report; the bound uses "
+            f"{json.dumps(CLIP_MASK_OPS)}): "
+            f"{json.dumps(stream_ops(library_sass(), ROW8_SASS))}")
+        record, row, rows = wire_phase(dev, CLIP_MASK_OPS, src)
         record["clip_mask_wire"] = row
-        record["stream_kernels"] = stream_rows
+        record["stream_kernels"] = rows
     log(json.dumps({"src": str(src), "card": card, phase: record}))
     return 0
 
@@ -2088,7 +2209,8 @@ def check_clip_mask(dev, P, g, ops, ref, keys, prev, per_stream):
     ring (silo 2 dropped, so its next active silo is 3), the scalars as
     ``silo_contribution`` makes them at sigma 0.3 and C 4 with 3 of 4 silos
     active, bit-equal to the plain version over all P columns; the other
-    three flag combinations on the first window."""
+    three flag combinations on the first window; timed as a call and on
+    the card (2 launches in a CUDA graph, replayed 3 times)."""
     f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)
     sc = f32(0.3) * f32(4.0)  # sigma * C
     args = (f32(0.731), keys.key_r, keys.key_xi, prev, 1, 4, sc,
@@ -2110,12 +2232,15 @@ def check_clip_mask(dev, P, g, ops, ref, keys, prev, per_stream):
         flags[f"use_pairwise={up} use_prev={uv}"] = e
     parts = stream_bound(P, 4, per_stream)  # r_i, r_nxt, xi_t, xi_{t-1}
     bms = max(parts.values())
+    o = torch.empty_like(g)
     return {
         "max_abs_err": err,
         "checked_at": f"all {P} columns, windows of {DP_WINDOW}; other "
                       f"flags on the first window: {flags}",
         "ms": cuda_ms(lambda: ops.clip_mask(g, *args, **kw), reps=3,
                       warmup=1),
+        "device_ms": graph_ms(lambda: ops.clip_mask(g, *args, out=o, **kw),
+                              n=2, reps=3),
         "plain_ms": cuda_ms(lambda: ref.clip_mask_ref(w, *args, **kw),
                             reps=5),
         "plain_at": f"window of {DP_WINDOW} columns",
@@ -2138,7 +2263,8 @@ def sass_loops(sass: str, kernel: str) -> list:
     """The innermost loops of ``kernel`` (a regular expression searched in
     the mangled name) in ``cuobjdump -sass`` text: one opcode list per loop
     body (from a backward branch's target through the branch), innermost
-    meaning that no other loop lies inside it."""
+    meaning that no other loop lies inside it; none when the kernel has no
+    backward branch."""
     body, found = [], False
     for line in sass.splitlines():
         if "Function :" in line:
@@ -2153,7 +2279,6 @@ def sass_loops(sass: str, kernel: str) -> list:
             body.append((int(m.group(1), 16), op, tgt and int(tgt.group(1), 16)))
     check(bool(body), f"no SASS of {kernel}")
     loops = [(t, a) for a, _, t in body if t is not None and t <= a]
-    check(bool(loops), f"no loop in the SASS of {kernel}")
     inner = [(t, a) for t, a in loops
              if not any((t, a) != (u, b) and t <= u and b <= a
                         for u, b in loops)]
@@ -2173,24 +2298,57 @@ def library_sass() -> str:
 def stream_ops(sass: str, kernel: str) -> dict:
     """Arithmetic instructions one noise stream element costs in
     ``kernel``, by pipe: the innermost loop that draws the most normals
-    (one ``MUFU.RSQ`` of ``sqrtf`` each), divided by that count. The
-    grid-stride loop's own per-element work (load, store, index) is left
-    out, which keeps the bound from these counts a lower bound."""
-    best = max(sass_loops(sass, kernel),
-               key=lambda ops: sum(o.startswith("MUFU.RSQ") for o in ops))
-    n = sum(o.startswith("MUFU.RSQ") for o in best)
-    check(n > 0, f"no loop of {kernel} draws a normal")
+    (one ``MUFU.RSQ`` of ``sqrtf`` each), divided by that count, whatever
+    the loop holds (one element, or several unrolled). The grid-stride
+    loop's own per-element work (load, store, index) is left out, which
+    keeps the bound from these counts a lower bound. ``rotations`` is the
+    loop's rotations a normal: 20 where each threefry2x32 rotates inside
+    the loop, fewer where the compiler moved a rotation out of it (a
+    first-round rotation of a counter that is the same for every element).
+    Where no loop draws a normal the result says so (``"loop": None`` and
+    why) and has no counts."""
+    loops = sass_loops(sass, kernel)
+    rsq = lambda ops: sum(o.startswith("MUFU.RSQ") for o in ops)
+    best = max(loops, key=rsq, default=[])
+    n = rsq(best)
+    if n == 0:
+        return {"loop": None, "why": f"no loop of {kernel} draws a normal "
+                                     f"({len(loops)} innermost loops)"}
     rot = sum(o.startswith(("SHF.L.W", "PRMT")) for o in best)
-    # each normal comes from one threefry2x32 of 20 rotations in that loop
-    check(rot >= 20 * n, f"{kernel}: {rot} rotations in a loop of {n} normals")
     base = [o.split(".")[0] for o in best if ".MOV" not in o]
     count = {c: sum(o in ops for o in base) for c, ops in (
         ("alu", ALU_OPS), ("imad", IMAD_OPS), ("fp32", FP32_OPS),
         ("mufu", {"MUFU"}), ("other", OTHER_OPS))}
     per = {k: v / n for k, v in count.items()}
-    return {"normals_in_loop": n, "alu": per["alu"], "imad": per["imad"],
-            "fp32+imad": per["fp32"] + per["imad"], "mufu": per["mufu"],
-            "issue": sum(per.values())}
+    return {"normals_in_loop": n, "rotations": rot / n, "alu": per["alu"],
+            "imad": per["imad"], "fp32+imad": per["fp32"] + per["imad"],
+            "mufu": per["mufu"], "issue": sum(per.values())}
+
+
+def stream_configs() -> dict:
+    """The wire stream kernels' launch configurations as the tree's built
+    library reports them (threads, elements a thread, blocks an SM,
+    registers, local bytes), or {} for a tree whose library reports none
+    (one from before ``csrc/stream_grid.cuh``)."""
+    try:
+        from repro_torch.kernels.dp_fused.dp_fused import stream_config
+    except ImportError:
+        return {}
+    return {k: stream_config(k)
+            for k in ("clip_mask", "clip_mask_ext", "noise_stream")}
+
+
+def live_stream_ops(sass: str, kernel: str) -> dict:
+    """:func:`stream_ops` for a kernel bounded by its own live counts
+    (``noise_batch``, ``zsmask``): fails where there are none, or where the
+    loop does not hold every normal's 20 rotations (its count would then
+    miss work the bound must see)."""
+    r = stream_ops(sass, kernel)
+    check(r.get("loop", True) is not None,
+          f"no per-normal count of {kernel}: {r.get('why')}")
+    check(r["rotations"] >= 20, f"no per-normal count of {kernel}: "
+                                f"{r['rotations']} rotations a normal")
+    return r
 
 
 def leaf_slices(layout) -> list:
@@ -2740,19 +2898,25 @@ def main() -> int:
     del stacked
     torch.cuda.empty_cache()
     sass = library_sass()
-    per_stream = stream_ops(sass, "noise_batch_kernel")
+    per_stream = live_stream_ops(sass, "noise_batch_kernel")
     log(f"[kernel] noise_batch SASS, instructions per stream element by "
         f"pipe: {json.dumps(per_stream)}")
     kern["noise_batch"] = check_noise_batch(dev, N_SILOS, P, g_sum, noise_ops,
                                             noise_ref, step_keys, prng.PRNGKey,
                                             per_stream)
-    per_stream_cm = stream_ops(sass, ROW8_SASS)
-    log(f"[kernel] clip_mask SASS, instructions per stream element by pipe: "
-        f"{json.dumps(per_stream_cm)}")
+    live_cm = stream_ops(sass, ROW8_SASS)
+    log(f"[kernel] clip_mask SASS, instructions per stream element by pipe "
+        f"(a report; the bound uses the pinned counts "
+        f"{json.dumps(CLIP_MASK_OPS)}): {json.dumps(live_cm)}")
     kern["clip_mask"] = check_clip_mask(
         dev, P, g_sum, noise_ops, noise_ref, step_keys(prng.PRNGKey(1), 0),
-        step_keys(prng.PRNGKey(1), 1).key_xi, per_stream_cm)
-    per_stream_zs = stream_ops(sass, "zsmask_kernel")
+        step_keys(prng.PRNGKey(1), 1).key_xi, CLIP_MASK_OPS)
+    kern["clip_mask"]["bound_detail"]["live_sass"] = live_cm
+    configs = stream_configs()
+    log(f"[kernel] stream kernels' launch configuration: "
+        f"{json.dumps(configs)}")
+    kern["clip_mask"]["config"] = configs["clip_mask"]
+    per_stream_zs = live_stream_ops(sass, "zsmask_kernel")
     log(f"[kernel] zsmask SASS, instructions per stream element by pipe: "
         f"{json.dumps(per_stream_zs)}")
     kern["zsmask"] = check_zsmask(
@@ -3403,7 +3567,9 @@ def main() -> int:
 
     # 16. the wire tier on the card
     report["wire"], kern["clip_mask"]["wire"], stream_rows = wire_phase(
-        dev, per_stream_cm)
+        dev, CLIP_MASK_OPS)
+    for name in stream_rows:
+        stream_rows[name]["config"] = configs[name]
     kern.update(stream_rows)
 
     # 17. training the ssm and hybrid families
@@ -3486,7 +3652,7 @@ def main() -> int:
                       "bound_detail", "cases", "device_ms", "max_rel_err",
                       "launch_floor_ms", "checked",
                       "norms_max_rel_err", "tolerance", "tolerance_rel",
-                      "two_pass_floor_ms", "library_device_ms"):
+                      "two_pass_floor_ms", "library_device_ms", "config"):
             if extra in r:
                 entry[extra] = r[extra]
         for sub in ("verify4", "chunk16", "d112", "s512", "wire"):
@@ -3513,7 +3679,7 @@ if __name__ == "__main__":
     args = sys.argv[1:]
     src = Path(args[args.index("--src") + 1]).resolve() \
         if "--src" in args else ROOT / "src"
-    for phase in ("scans", "pool", "wire", "bwd"):
+    for phase in ("scans", "pool", "wire", "bwd", "streams"):
         if f"--{phase}" in args:
             sys.exit(one_phase(phase, src))
     sys.exit(main())

@@ -98,4 +98,79 @@ __device__ __forceinline__ float normal_z0(uint32_t k0, uint32_t k1, uint32_t k2
   return __fmul_rn(rad, cos_turn(uniform01(c1)));
 }
 
+// threefry2x32 of chains [b, e), in place: chain n's counters (x0[n], x1[n])
+// under its key (k0[n], k1[n], k2[n]), the chains advanced round by round.
+__device__ __forceinline__ void threefry_chains(const uint32_t* k0, const uint32_t* k1,
+                                                const uint32_t* k2, uint32_t* x0, uint32_t* x1,
+                                                int b, int e) {
+  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
+#pragma unroll
+  for (int n = b; n < e; ++n) {
+    x0[n] += k0[n];
+    x1[n] += k1[n];
+  }
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int n = b; n < e; ++n) {
+        x0[n] += x1[n];
+        x1[n] = rotl32(x1[n], rot[i % 2][j]);
+        x1[n] ^= x0[n];
+      }
+    }
+#pragma unroll
+    for (int n = b; n < e; ++n) {
+      const uint32_t ks[3] = {k0[n], k1[n], k2[n]};
+      x0[n] += ks[(i + 1) % 3];
+      x1[n] += ks[(i + 2) % 3] + (uint32_t)(i + 1);
+    }
+  }
+}
+
+// N normals at once, normal_z0 of each chain n: key (k0[n], k1[n], k2[n]),
+// counters (c0[n], c1[n]). The chains go through in stages of S: stage s's
+// threefry rounds (integer work, most of it on the INT32 pipe, which issues
+// at half rate) sit in one basic block with stage s-1's log and cosine
+// (float work on the FP32 pipe), so the two pipes overlap inside a warp;
+// then stage s-1's square roots (each a branch to its slow path, which
+// ends a basic block). Integer rounds in any order give the same bits, and
+// each normal keeps normal_z0's float operations in its order: bit-equal to
+// N calls of normal_z0.
+template <int N, int S>
+__device__ __forceinline__ void normals_z0(const uint32_t (&k0)[N], const uint32_t (&k1)[N],
+                                           const uint32_t (&k2)[N], const uint32_t (&c0)[N],
+                                           const uint32_t (&c1)[N], float (&z)[N]) {
+  static_assert(N % S == 0, "stages of S chains");
+  uint32_t x0[N], x1[N];
+  float m[N], c[N];
+#pragma unroll
+  for (int n = 0; n < N; ++n) x0[n] = c0[n], x1[n] = c1[n];
+#pragma unroll
+  for (int st = 0; st <= N / S; ++st) {
+    if (st < N / S) threefry_chains(k0, k1, k2, x0, x1, st * S, st * S + S);
+    if (st > 0) {
+#pragma unroll
+      for (int n = (st - 1) * S; n < st * S; ++n) {
+        m[n] = __fmul_rn(-2.0f, logf(uniform01(x0[n])));
+        c[n] = cos_turn(uniform01(x1[n]));
+      }
+#pragma unroll
+      for (int n = (st - 1) * S; n < st * S; ++n) z[n] = __fmul_rn(sqrtf(m[n]), c[n]);
+    }
+  }
+}
+
+// N normals of one key (k0, k1, k2) at counters (c0[n], c1[n]).
+template <int N, int S>
+__device__ __forceinline__ void normals_z0(uint32_t k0, uint32_t k1, uint32_t k2,
+                                           const uint32_t (&c0)[N], const uint32_t (&c1)[N],
+                                           float (&z)[N]) {
+  uint32_t a[N], b[N], c[N];
+#pragma unroll
+  for (int n = 0; n < N; ++n) a[n] = k0, b[n] = k1, c[n] = k2;
+  normals_z0<N, S>(a, b, c, c0, c1, z);
+}
+
 }  // namespace repro_threefry

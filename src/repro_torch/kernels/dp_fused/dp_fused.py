@@ -57,6 +57,32 @@ _CLIP_MASK_EXT = _build.Entry("clip_mask_ext_f32",
 _CLIP_SUM = _build.Entry("clip_sum_f32", [_P] * 6 + [_I, _L, _I, _I, _P])
 
 
+STREAM_CONFIG = ("threads", "width", "blocks_per_sm", "registers",
+                 "local_bytes")
+
+
+def stream_config(kernel: str) -> dict:
+    """The launch configuration the built library reports for a wire
+    stream kernel, ``"clip_mask"``, ``"clip_mask_ext"`` or
+    ``"noise_stream"``, on the current card (builds the library at first
+    use): threads a block, elements a thread at a time, the blocks an SM
+    the occupancy calculator allows (its grid is that many an SM, cut to
+    the work), registers and local bytes a thread."""
+    lib = _build.library()
+    cfg = (ctypes.c_int * len(STREAM_CONFIG))()
+    if kernel == "noise_stream":
+        fn, args = lib.noise_stream_config, (cfg,)
+        fn.argtypes = [_P]
+    else:
+        if kernel not in ("clip_mask", "clip_mask_ext"):
+            raise ValueError(f"no stream kernel {kernel!r}")
+        fn, args = lib.clip_mask_config, (int(kernel == "clip_mask_ext"), cfg)
+        fn.argtypes = [_I, _P]
+    fn.restype = _I
+    _build.check(fn(*args), f"{kernel} config")
+    return dict(zip(STREAM_CONFIG, cfg))
+
+
 def noise_batch_cuda(g_sum, key_xi, prev_key, noise_scales, lam_gates,
                      prev_noise_scale, use_prev: bool = True) -> torch.Tensor:
     """Launch the kernel: g_sum (P,) fp32, noise_scales / lam_gates (n,)

@@ -48,7 +48,10 @@ from repro_torch.kernels.dp_clip import ops as clip_ops
 from repro_torch.kernels.dp_clip import ref as clip_ref
 from repro_torch.kernels.dp_fused import ops as noise_ops
 from repro_torch.kernels.dp_fused import ref as noise_ref
-from repro_torch.kernels.dp_fused.dp_fused import clip_mask_cuda, clip_sum_cuda
+from repro_torch.kernels.dp_fused.dp_fused import (clip_mask_cuda,
+                                                   clip_mask_ext_cuda,
+                                                   clip_sum_cuda,
+                                                   stream_config)
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.kernels.mamba2 import ops as ssd_ops
@@ -1122,46 +1125,99 @@ def test_wire_rounds_on_card_match_cpu_and_count_clip_mask(cuda):
     assert gs.accountant.history == cs.accountant.history
 
 
-@pytest.mark.parametrize("P", [7, 3 * 1024 + 5, 235520])
-def test_noise_stream_kernel_bit_equal(cuda, P):
+# P on the edges of the stream kernels' layout (csrc/stream_grid.cuh),
+# resolved on the card: one group of elements short of and past one whole
+# resident grid (its blocks an SM x SMs x threads x elements a thread, as
+# the built library reports them), past one resident wave of the old
+# layout (8 blocks of 256 threads an SM, one element a thread), the wire
+# shape (MNIST-MLP3) and a ragged length under it
+STREAM_P = ("1", "7", "255", "3077", "grid-W", "grid+W", "235187", "235520",
+            "oldwave+1")
+# (g's offset, out's offset) into their buffers: out misaligned alone sends
+# every load element by element; both misaligned alike keeps 16-byte
+# accesses between a scalar head and tail
+STREAM_VIEWS = {"aligned": (0, 0), "g[1:] out[1:]": (1, 1), "out[1:]": (0, 1)}
+
+
+def _stream_p(name: str, kernel: str, dev) -> int:
+    if name.isdigit():
+        return int(name)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if name == "oldwave+1":
+        return sms * 8 * 256 + 1
+    cfg = stream_config(kernel)
+    grid = sms * cfg["blocks_per_sm"] * cfg["threads"] * cfg["width"]
+    return grid - cfg["width"] if name == "grid-W" else grid + cfg["width"]
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("P", STREAM_P)
+def test_noise_stream_kernel_bit_equal(cuda, P, offset):
+    """At every edge of the layout and into a misaligned view (out[1:]:
+    a scalar head and tail around 16-byte stores), one launch, nothing
+    written outside the view."""
+    P = _stream_p(P, "noise_stream", cuda)
+    buf = torch.full((P + offset,), float("nan"), device=cuda)
     c = dispatch.KERNELS["noise_stream"].launches
-    got = noise_ops.noise_stream(KX, 3, torch.empty(P, device=cuda))
+    got = noise_ops.noise_stream(KX, 3, buf[offset:])
     want = noise_ref.noise_stream_ref(KX, 3, P, cuda)
     torch.cuda.synchronize()
     assert dispatch.KERNELS["noise_stream"].launches == c + 1
+    assert got.data_ptr() == buf[offset:].data_ptr()
     assert torch.equal(got, want)
+    assert torch.isnan(buf[:offset]).all()
 
 
+@pytest.mark.parametrize("views", list(STREAM_VIEWS))
+@pytest.mark.parametrize("P", STREAM_P)
 @pytest.mark.parametrize("use_pairwise,use_prev", [(True, True),
                                                    (True, False),
                                                    (False, True),
                                                    (False, False)])
-def test_clip_mask_ext_kernel_bit_equal(cuda, use_pairwise, use_prev):
+def test_clip_mask_ext_kernel_bit_equal(cuda, use_pairwise, use_prev, P,
+                                        views):
     """Given ``noise_stream``'s buffers, the external-stream kernel equals
-    its plain version and ``clip_mask``'s in-kernel draw bit for bit (one
-    stream given and the other drawn too, and in place)."""
-    P = 3 * 1024 + 5
-    g = torch.randn(P, device=cuda,
-                    generator=torch.Generator(device=cuda).manual_seed(6))
+    its plain version and ``clip_mask``'s in-kernel draw bit for bit, at
+    every edge of the layout and in misaligned views: every combination of
+    a given and a null stream (both null through the C entry itself), in
+    place too, one launch a call, nothing written outside the view."""
+    P = _stream_p(P, "clip_mask_ext", cuda)
+    go, oo = STREAM_VIEWS[views]
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    g = torch.randn(P + go, device=cuda, generator=gen)[go:]
     args, kw = _clip_mask_args(cuda)
-    xi = noise_ops.noise_stream(KX, 1, torch.empty_like(g))
-    xp = noise_ops.noise_stream(KP, 1, torch.empty_like(g))
-    drawn = noise_ops.clip_mask(g, *args, use_pairwise, use_prev, **kw)
-    c = dispatch.KERNELS["clip_mask_ext"].launches
-    got = noise_ops.clip_mask(g, *args, use_pairwise, use_prev, xi=xi, xp=xp,
-                              **kw)
+    xi = noise_ops.noise_stream(KX, 1, torch.empty(P + go, device=cuda)[go:])
+    xp = noise_ops.noise_stream(KP, 1, torch.empty(P + go, device=cuda)[go:])
     want = noise_ref.clip_mask_ref(g, *args, use_pairwise, use_prev, xi=xi,
                                    xp=xp, **kw)
-    torch.cuda.synchronize()
-    assert dispatch.KERNELS["clip_mask_ext"].launches == c + 1
-    assert torch.equal(got, want) and torch.equal(got, drawn)
-    for one in ({"xi": xi}, {"xp": xp}):
-        assert torch.equal(noise_ops.clip_mask(g, *args, use_pairwise,
-                                               use_prev, **one, **kw), drawn)
+    flags = (use_pairwise, use_prev)
+
+    def one_launch(kernel, call):
+        buf = torch.full((P + oo,), float("nan"), device=cuda)
+        c = dispatch.KERNELS[kernel].launches
+        got = call(buf[oo:])
+        torch.cuda.synchronize()
+        assert dispatch.KERNELS[kernel].launches == c + 1, kernel
+        assert got.data_ptr() == buf[oo:].data_ptr()
+        assert torch.isnan(buf[:oo]).all()
+        return got
+
+    drawn = one_launch("clip_mask", lambda o: noise_ops.clip_mask(
+        g, *args, *flags, out=o, **kw))
+    assert torch.equal(drawn, want)
+    for given in ({"xi": xi, "xp": xp}, {"xi": xi}, {"xp": xp}):
+        got = one_launch("clip_mask_ext", lambda o: noise_ops.clip_mask(
+            g, *args, *flags, out=o, **given, **kw))
+        assert torch.equal(got, want), list(given)
+    scalars = torch.stack([args[0], kw["noise_scale"], args[7], args[8],
+                           kw["prev_noise_scale"]])
+    got = one_launch("clip_mask_ext", lambda o: clip_mask_ext_cuda(
+        g, None, None, scalars, KR, KX, KP, 1, kw["nxt"], *flags, out=o))
+    assert torch.equal(got, want)
     inplace = g.clone()
-    assert noise_ops.clip_mask(inplace, *args, use_pairwise, use_prev, xi=xi,
-                               xp=xp, out=inplace, **kw) is inplace
-    assert torch.equal(inplace, drawn)
+    assert noise_ops.clip_mask(inplace, *args, *flags, xi=xi, xp=xp,
+                               out=inplace, **kw) is inplace
+    assert torch.equal(inplace, want)
 
 
 def test_stream_wrappers_refuse_what_the_kernels_do_not_take(cuda):

@@ -151,36 +151,49 @@ def _serial(sess, params, grad_fn, update_fn, rounds):
 # the streams and one handler's contribution
 
 
+# MNIST-MLP3's length and ragged ones: the edges of the stream kernels'
+# groups of 4 elements (csrc/stream_grid.cuh) and a length under the wire
+# shape
+@pytest.mark.parametrize("n", [P_MLP3, 1, 7, 255, 235_187])
 @pytest.mark.parametrize("key,silo", [((0, 7), 0),
                                       ((3704974950, 1863054868), 3)])
-def test_noise_stream_matches_jax_and_the_in_kernel_draw(key, silo):
+def test_noise_stream_matches_jax_and_the_in_kernel_draw(key, silo, n):
     """``DPPipeline.noise_stream`` against JAX's (threefry bits equal,
     normals within STREAM_ATOL) and, bit for bit, against the xi stream
-    the plain ``clip_mask`` draws (a zero gradient, the xi term alone)."""
-    jlayout = jflatbuf.layout_of({"w": jnp.zeros(P_MLP3)})
+    the plain ``clip_mask`` draws (a zero gradient, the xi term alone), for
+    a leaf of n parameters (a stream over the layout's padded total); and
+    ``ops.noise_stream`` at the ragged length n itself against the first n
+    of JAX's (a stream's element p depends on p alone)."""
+    jlayout = jflatbuf.layout_of({"w": jnp.zeros(n)})
     jstream = np.asarray(JPipeline(JPrivacyConfig(), jlayout, 4).noise_stream(
         jnp.asarray(key, jnp.uint32), silo))
-    layout = flatbuf.layout_of({"w": torch.zeros(P_MLP3)})
+    layout = flatbuf.layout_of({"w": torch.zeros(n)})
+    T = layout.total
+    assert T == jlayout.total and T >= n
     stream = DPPipeline(PrivacyConfig(), layout, 4).noise_stream(key, silo,
                                                                  "cpu")
-    assert stream.dtype == torch.float32 and stream.shape == (P_MLP3,)
-    drawn = fused_ops.clip_mask(torch.zeros(P_MLP3), 0.0, key, key, key,
+    assert stream.dtype == torch.float32 and stream.shape == (T,)
+    drawn = fused_ops.clip_mask(torch.zeros(T), 0.0, key, key, key,
                                 silo, 4, 1.0, 0.0, 0.0, use_pairwise=False,
                                 use_prev=False, noise_scale=1.0)
     assert torch.equal(stream, drawn)
+    ragged = fused_ops.noise_stream(key, silo, torch.empty(n))
+    assert torch.equal(ragged, stream[:n])
+    assert np.abs(ragged.numpy() - jstream[:n]).max() <= STREAM_ATOL
     import repro.kernels.zsmask.threefry as jtf
-    idx = torch.arange(P_MLP3, dtype=torch.int64)
+    idx = torch.arange(T, dtype=torch.int64)
     b0, b1 = ttf.threefry2x32(key[0], key[1], idx,
-                              torch.full((P_MLP3,), silo, dtype=torch.int64))
+                              torch.full((T,), silo, dtype=torch.int64))
     jb0, jb1 = jtf.threefry2x32(key[0], key[1],
-                                jnp.arange(P_MLP3, dtype=jnp.uint32),
-                                jnp.full(P_MLP3, silo, jnp.uint32))
+                                jnp.arange(T, dtype=jnp.uint32),
+                                jnp.full(T, silo, jnp.uint32))
     np.testing.assert_array_equal(b0.numpy(), np.asarray(jb0, np.int64))
     np.testing.assert_array_equal(b1.numpy(), np.asarray(jb1, np.int64))
     assert np.abs(stream.numpy() - jstream).max() <= STREAM_ATOL
     # a window of the stream at its counter offset
-    tail = fused_ref.noise_stream_ref(key, silo, 1000, "cpu", base=P_MLP3 - 1000)
-    assert torch.equal(tail, stream[-1000:])
+    w = min(n, 1000)
+    tail = fused_ref.noise_stream_ref(key, silo, w, "cpu", base=n - w)
+    assert torch.equal(tail, stream[n - w:n])
 
 
 @pytest.mark.parametrize("use_pairwise,use_prev", [(True, True),
