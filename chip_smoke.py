@@ -21,6 +21,7 @@ against the host CPU.
     python3 chip_smoke.py --wire [--src DIR]    # phase 16's wire tier alone
     python3 chip_smoke.py --bwd [--src DIR]     # phase 17's backward kernels
     python3 chip_smoke.py --streams [--src DIR] # rows 8, 13, 14 alone
+    python3 chip_smoke.py --slice15             # phase 18 alone
 
 ``--scans`` runs only the card line, the build and phase 11's scans (their
 checks and times, no launch configuration), from the ``repro_torch`` under
@@ -196,7 +197,29 @@ Phases (any failed check raises, and the script exits non-zero):
      of each on a ``(4,)`` mesh (``clip_mask`` 4 times); (d) the narrow
      configs of phase 14, 2 fused steps and 1 barrier step with a drop,
      card vs CPU; (e) ``python -m repro_torch.launch.train --arch
-     rwkv6-7b|zamba2-7b --steps 1`` on the card in a subprocess.
+     rwkv6-7b|zamba2-7b --steps 1`` on the card in a subprocess;
+ 18. the other dense archs, the admin masks and the scan tier: (a) flash
+     attention at stablelm-3b's and phi3-mini-3.8b's prefill shapes (B 4,
+     S 32, 32 heads, d_head 80 and 96) and paged attention at C 1, 4 and
+     16 with Hkv 32, each against its plain version, timed as phase 3's
+     rows; (b) both archs at published width and depth, random weights
+     from a seed: direct serve (batch 4, prompt 32, 16 new), 8 Zipf
+     requests through 4 wave and 4 continuous slots (pages 16, chunk 16),
+     continuous == wave token for token, launches counted (flash once a
+     layer a prefill, paged_reset once an admission), tok/s, decode ms a
+     step, peak memory; narrow configs of stablelm-3b, phi3-mini-3.8b and
+     mistral-large-123b at their d_heads, card vs CPU (logits within
+     CROSS_ATOL / CROSS_RTOL, wave and continuous tokens equal); (c) admin
+     masks on qwen2.5-3b at 12 layers, phase 7's settings: one primed step
+     of the fused and the barrier tier from one set of weights (aggregates
+     within MASK_ATOL_PER_B units of B), 2 fused steps (clip_accumulate
+     once a step) and 1 barrier step (no kernel) through
+     ``Session.train``, then 10 serial and 10 pipelined admin rounds of
+     MNIST-MLP3 bit-equal and 3 rounds with a drop card vs CPU (WIRE_*
+     tolerances); (d) the silo-serial scan tier on qwen2.5-3b at the
+     largest of 36, 30, ... layers that fits (2 steps, step and stage
+     times, peak memory), and a narrow scan step against the vmap step
+     under the per-leaf policy, card vs CPU (NOISY_ATOL).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -1572,10 +1595,11 @@ def streams_phase(dev, src: Path) -> dict:
 
 
 def one_phase(phase: str, src: Path) -> int:
-    """``--scans`` / ``--pool`` / ``--wire`` / ``--bwd`` / ``--streams``: the
-    card, the build and phase 11's scans, phase 3's page-pool events, phase
-    16's wire tier, phase 17's backward kernels or the wire tier's stream
-    kernels (:func:`streams_phase`) alone,
+    """``--scans`` / ``--pool`` / ``--wire`` / ``--bwd`` / ``--streams`` /
+    ``--slice15``: the card, the build and phase 11's scans, phase 3's
+    page-pool events, phase 16's wire tier, phase 17's backward kernels,
+    the wire tier's stream kernels (:func:`streams_phase`) or phase 18
+    (:func:`slice15_phase`) alone,
     from the ``repro_torch`` under ``src`` (another tree's, to time two
     trees in one call); the last line is their JSON record."""
     if not torch.cuda.is_available():
@@ -1601,6 +1625,9 @@ def one_phase(phase: str, src: Path) -> int:
         record = check_scan_backward(dev, 17)
     elif phase == "streams":
         record = streams_phase(dev, src)
+    elif phase == "slice15":
+        record, rows = slice15_phase(dev)
+        record["rows"] = rows
     else:
         log(f"[kernel] clip_mask SASS, live (a report; the bound uses "
             f"{json.dumps(CLIP_MASK_OPS)}): "
@@ -1948,14 +1975,13 @@ def check_scan_backward(dev, seed: int) -> dict:
     return out
 
 
-def ssm_train_cell(Session, cfg, priv, opt, mesh, scan: str, steps: int,
-                   n_scans: int, dp_kernels: dict, log_name: str) -> dict:
+def train_cell(Session, cfg, priv, opt, mesh, steps: int, want: dict,
+               log_name: str) -> dict:
     """One training cell through ``Session.train``: ``steps`` steps at
     batch 16 x 64 from random weights (seed 0), the launch counts zeroed
-    just before and read just after: ``scan`` and its backward
-    ``n_scans`` times a step, the DP kernels ``dp_kernels`` times a step,
-    nothing else. Losses finite, the weights moved; step and stage times
-    and peak memory."""
+    just before and read just after and equal to ``want`` a step, nothing
+    else. Losses finite, epsilon rising, the weights moved; step and stage
+    times and peak memory."""
     from repro_torch.kernels import dispatch
 
     sess = Session.from_config(cfg, privacy=priv, optimizer=opt, mesh=mesh,
@@ -1969,17 +1995,18 @@ def ssm_train_cell(Session, cfg, priv, opt, mesh, scan: str, steps: int,
     dispatch.reset_launches()
     res = sess.train(steps=steps, batch_size=16, seq_len=64, state=state,
                      log_every=1)
-    n = dispatch.launch_counts()
+    n = {k: v for k, v in dispatch.launch_counts().items() if v}
     peak = torch.cuda.max_memory_allocated()
     moved = (master[probe] - before).abs().max().item()
     losses = [m["loss"] for m in res.metrics]
-    want = {scan: n_scans * steps, scan + "_bwd": n_scans * steps,
-            **{k: v * steps for k, v in dp_kernels.items()}}
+    eps = [m["epsilon"] for m in res.metrics]
+    want = {k: v * steps for k, v in want.items()}
     check(res.step == steps and all(math.isfinite(x) for x in losses),
-          f"{cfg.name}: {res.step} steps, losses {losses}")
-    check(moved > 0, f"{cfg.name}: the weights did not move")
-    check({k: v for k, v in n.items() if v} == want,
-          f"{cfg.name} training launches {n}, expected {want}")
+          f"{log_name} {cfg.name}: {res.step} steps, losses {losses}")
+    check(all(b > a for a, b in zip([0.0] + eps, eps)),
+          f"{log_name} {cfg.name}: epsilon does not rise: {eps}")
+    check(moved > 0, f"{log_name} {cfg.name}: the weights did not move")
+    check(n == want, f"{log_name} {cfg.name} launches {n}, expected {want}")
     step_ms = [m["step_time_s"] * 1e3 for m in res.metrics]
     stages = {k: [st.get(k, 0.0) for st in res.trainer.stage_log]
               for k in res.trainer.stage_log[0]}
@@ -1988,17 +2015,16 @@ def ssm_train_cell(Session, cfg, priv, opt, mesh, scan: str, steps: int,
            "P": P, "n_params": state.layout.n_params, "init_s": init_s,
            "steps": steps, "batch": 16, "seq_len": 64, "loss": losses,
            "clip_bound": [m["clip_bound"] for m in res.metrics],
-           "epsilon": [m["epsilon"] for m in res.metrics],
-           "step_ms": step_ms, "stage_ms": stages,
+           "epsilon": eps, "step_ms": step_ms, "stage_ms": stages,
            "peak_mem_gb": peak / 1e9, "launches": n,
            "weights_moved_max": moved}
     log(f"[{log_name}] {cfg.name} at {cfg.n_layers} layers, P {P} "
         f"({state.layout.n_params} parameters, in {init_s:.1f} s), {steps} "
         f"steps of 16 x 64 over 4 silos: loss "
         f"{[round(x, 4) for x in losses]} | epsilon "
-        f"{[round(e, 3) for e in out['epsilon']]} | step ms "
+        f"{[round(e, 3) for e in eps]} | step ms "
         f"{[round(t, 1) for t in step_ms]} | peak {peak / 1e9:.2f} GB | "
-        f"launches {want}")
+        f"launches {n}")
     log(f"[{log_name}] stage ms per step: " + " | ".join(
         f"{k} {[round(t, 2) for t in v]}" for k, v in stages.items()))
     del res, state, sess, master, before
@@ -2597,6 +2623,477 @@ def barrier_step_parts(sess, params, batch, ns, active, steps, step_keys,
 
 
 # ------------------------------------------------------------------- main
+
+# --------------------------------------------------------------- phase 18
+# the other dense archs (stablelm-3b at d_head 80, phi3-mini-3.8b at 96:
+# MHA, 32 kv heads), the admin masks on every tier and the silo-serial scan
+# tier
+
+DENSE_ARCHS = ("stablelm-3b", "phi3-mini-3.8b")
+# the scan tier's depths, tried from the published one down in steps of 6
+# until one fits the card (the depth run is reported, never as full depth)
+SCAN_DEPTHS = (36, 30, 24, 18, 12)
+
+
+def check_new_widths(dev, seed: int) -> dict:
+    """Phase 18(a): flash attention at both archs' prefill shapes (B 4,
+    S 32, 32 heads) and paged attention at decode (C 1), a verify (C 4)
+    and a chunk (C 16) at Hkv 32, each against its plain version and timed
+    as phase 3 times its rows (calls and on the card, beside SDPA and the
+    bound). Returns ``{kernel: {sub-row name: row}}``."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+    from repro_torch.kernels.paged_attention import ops as paged_ops
+    from repro_torch.kernels.paged_attention import ref as paged_ref
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rows: dict = {"flash_attention": {}, "paged_attention": {}}
+    for arch in DENSE_ARCHS:
+        cfg = get_config(arch)
+        d = f"d{cfg.d_head}"
+        r = check_flash(cfg, dev, gen, 4, 32, flash_ops, flash_ref, F)
+        rows["flash_attention"][d] = r
+        log_attention(f"flash_attention d_head {cfg.d_head} ({arch})", r)
+        for C, sub in ((1, d), (4, f"{d}_verify4"), (16, f"{d}_chunk16")):
+            r = check_paged_attention(cfg, dev, gen, 4, 32, 16, C, paged_ops,
+                                      paged_ref, F)
+            rows["paged_attention"][sub] = r
+            log_attention(f"paged_attention {sub} ({arch})", r)
+    return rows
+
+
+def serve_dense(Session, arch: str, log_name: str) -> dict:
+    """Phase 18(b): one dense arch at published width and depth through
+    ``Session.serve``: direct (batch 4, prompt 32, 16 new) and 8 Zipf
+    requests through 4 wave and 4 continuous slots (pages 16, chunk 16),
+    the launch counts zeroed just before each and read just after (flash
+    once a layer a prefill; the continuous run's paged attention a
+    positive multiple of the depth, ``paged_reset`` once an admission, no
+    flash); continuous equals wave token for token."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.runtime.serving import zipf_requests
+
+    sess = Session.from_config(arch, full=True, seed=0)
+    cfg = sess.cfg
+    L, V = cfg.n_layers, cfg.vocab_size
+    params, init_s = timed(sess.init_params)
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"[{log_name}] {arch} full width ({L} layers, d_head {cfg.d_head}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads): {n_params / 1e9:.3f} B fp32 "
+        f"params ({n_params * 4 / 1e9:.2f} GB) on the card in {init_s:.1f} s")
+    sess.serve(batch_size=4, prompt_len=32, max_new_tokens=2, params=params)
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launches()
+    direct = sess.serve(batch_size=4, prompt_len=32, max_new_tokens=16,
+                        params=params)
+    n_direct = {k: v for k, v in dispatch.launch_counts().items() if v}
+    check(direct.tokens.shape == (4, 16)
+          and bool(((direct.tokens >= 0) & (direct.tokens < V)).all())
+          and tuple(direct.logits.shape) == (4, V)
+          and bool(torch.isfinite(direct.logits).all()),
+          f"{arch} direct tokens or logits")
+    check(n_direct == {"flash_attention": L},
+          f"{arch} direct launches {n_direct}, expected flash {L}x")
+    reqs = zipf_requests(8, V, min_len=8, max_len=48, max_new_low=8,
+                         max_new_high=24, seed=0)
+    runs = {}
+    for kind in ("wave", "continuous"):
+        dispatch.reset_launches()
+        res = sess.serve(scheduler=kind, requests=copy.deepcopy(reqs),
+                         params=params, max_batch=4, max_len=512,
+                         page_size=16, prefill_chunk=16)
+        runs[kind] = (res, {k: v for k, v in dispatch.launch_counts().items()
+                            if v})
+    (wave, n_wave), (cont, n_cont) = runs["wave"], runs["continuous"]
+    peak = torch.cuda.max_memory_allocated()
+    check(wave.stats.drained and cont.stats.drained,
+          f"{arch}: a server did not drain")
+    check(bool((cont.tokens == wave.tokens).all()),
+          f"{arch}: continuous tokens differ from wave tokens")
+    check(n_wave == {"flash_attention": L * wave.stats.waves},
+          f"{arch} wave launches {n_wave} for {wave.stats.waves} waves")
+    admissions = len(reqs) + cont.stats.preemptions
+    check(set(n_cont) == {"paged_attention", "paged_reset"}
+          and n_cont["paged_reset"] == admissions
+          and n_cont["paged_attention"] % L == 0,
+          f"{arch} continuous launches {n_cont}: paged_reset {admissions}, "
+          f"paged_attention a multiple of {L}, nothing else")
+    out = {"config": f"{arch} published width and depth ({L} layers, "
+                     f"d_head {cfg.d_head}, Hkv {cfg.n_kv_heads}), fp32",
+           "n_params": n_params, "init_s": init_s,
+           "direct": {"prefill_ms": direct.prefill_s * 1e3,
+                      "decode_ms_per_token": direct.decode_s_per_token * 1e3,
+                      "decode_tok_per_s": 4 / direct.decode_s_per_token,
+                      "launches": n_direct},
+           "peak_mem_gb": peak / 1e9}
+    for kind, (res, n) in runs.items():
+        st = res.stats
+        out[kind] = {"useful_tokens": st.useful_tokens,
+                     "tok_per_s": 1 / res.decode_s_per_token,
+                     "decode_ms_per_step": res.decode_s_per_token * 1e3
+                     * st.useful_tokens / max(st.decode_steps, 1),
+                     "decode_steps": st.decode_steps,
+                     "utilization": st.utilization,
+                     "p50_latency_steps": st.p50_latency_steps,
+                     "p99_latency_steps": st.p99_latency_steps,
+                     "launches": n}
+    log(f"[{log_name}] direct batch 4, prompt 32, 16 new: prefill "
+        f"{direct.prefill_s * 1e3:.2f} ms | decode "
+        f"{direct.decode_s_per_token * 1e3:.2f} ms/token step | "
+        f"{4 / direct.decode_s_per_token:.1f} tok/s | launches {n_direct}")
+    for kind in ("wave", "continuous"):
+        r = out[kind]
+        log(f"[{log_name}] {kind}: 8 requests, 4 slots: {r['useful_tokens']} "
+            f"tokens at {r['tok_per_s']:.1f} tok/s | decode "
+            f"{r['decode_ms_per_step']:.2f} ms a step | utilization "
+            f"{r['utilization']:.3f} | p50 {r['p50_latency_steps']} p99 "
+            f"{r['p99_latency_steps']} steps | launches {r['launches']}")
+    log(f"[{log_name}] continuous == wave token for token | peak "
+        f"{peak / 1e9:.2f} GB")
+    del params, sess
+    torch.cuda.empty_cache()
+    return out
+
+
+def dense_cross_device(Session, cfg, reqs, log_name: str) -> dict:
+    """A narrow config of a dense arch at its kernels' width, card vs CPU
+    from the same weights: :func:`family_cross_device` (prefill and 3
+    decode steps, wave tokens), then continuous tokens equal (the paged
+    kernels on the card)."""
+    from repro_torch.kernels import dispatch
+
+    out = family_cross_device(Session, cfg, reqs, log_name)
+    on = {d: Session.from_config(cfg, device=d, seed=7)
+          for d in ("cuda", "cpu")}
+    p_cpu = on["cpu"].init_params()
+    p_gpu = copy.deepcopy(p_cpu).to(on["cuda"].device)
+    toks, launches = {}, {}
+    for d, p in (("cuda", p_gpu), ("cpu", p_cpu)):
+        dispatch.reset_launches()
+        res = on[d].serve(scheduler="continuous",
+                          requests=copy.deepcopy(reqs), params=p,
+                          max_batch=2, max_len=64, page_size=16,
+                          prefill_chunk=16)
+        launches[d] = {k: v for k, v in dispatch.launch_counts().items()
+                       if v}
+        toks[d] = res.tokens
+    check(bool((toks["cuda"] == toks["cpu"]).all()),
+          f"{cfg.name} continuous tokens differ between card and CPU")
+    check(not launches["cpu"] and set(launches["cuda"]) == {
+        "paged_attention", "paged_reset"},
+          f"{cfg.name} continuous launches: card {launches['cuda']}, CPU "
+          f"{launches['cpu']}")
+    log(f"[{log_name}] {cfg.name} continuous, card vs CPU: tokens equal | "
+        f"card launches {launches['cuda']}")
+    out["continuous_card_launches"] = launches["cuda"]
+    return out
+
+
+def admin_phase(dev) -> dict:
+    """Phase 18(c): admin masks on qwen2.5-3b at full width and 12 layers,
+    phase 7's settings. One primed step from one set of weights: the fused
+    tier's aggregate (``clip_accumulate``, then the admin's xi_t - lam
+    xi_{t-1} in plain torch threefry) against the barrier tier's summed
+    contributions (each silo's ``g * scale + row``, no kernel) within the
+    masks' residue (MASK_ATOL_PER_B units of B); then 2 fused steps and 1
+    barrier step through ``Session.train`` with their launches; then the
+    wire tier on MNIST-MLP3: 10 serial and 10 pipelined admin rounds,
+    bit-equal, no kernel launched (the contributions are plain torch, as
+    JAX's are jnp), and 3 rounds with a drop, card vs CPU."""
+    from repro_torch.api import CollaborativeSession, Session
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import (MeshConfig, OptimizerConfig,
+                                          PrivacyConfig)
+    from repro_torch.configs.paper_models import MNIST_MLP3
+    from repro_torch.core import flatbuf, prng
+    from repro_torch.core.barrier import step_keys
+    from repro_torch.core.noise_correction import NoiseState
+    from repro_torch.core.tee import wire
+    from repro_torch.data.synthetic import synthetic_mnist
+    from repro_torch.distributed import steps as steps_mod
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.packing import pack_params
+    from repro_torch.models.small import build_small_model, value_and_grad
+
+    t0 = time.perf_counter()
+    cut12 = dataclasses.replace(get_config("qwen2.5-3b"), n_layers=12)
+    priv = PrivacyConfig(enabled=True, sigma=0.3, clip_bound=1.0,
+                         dynamic_clip=True, noise_lambda=0.7, n_silos=4,
+                         mask_mode="admin")
+    priv_b = dataclasses.replace(priv, sync_path="barrier")
+    opt = OptimizerConfig(name="adamw", lr=1e-3)
+    mesh4 = MeshConfig((4,), ("data",))
+    report: dict = {}
+
+    bsess = Session.from_config(cut12, privacy=priv_b, optimizer=opt,
+                                mesh=mesh4, seed=0)
+    params = bsess.init_params()
+    layout, _ = pack_params(params)
+    batch = bsess.synthetic_batches(16, 64)()
+    keys = step_keys(prng.PRNGKey(1), 0)
+    primed = NoiseState(step_keys(prng.PRNGKey(4), 0).key_xi, True,
+                        np.ones(4, bool))
+    c0 = torch.tensor(1.0, dtype=torch.float32, device=dev)
+    args = (batch, keys, primed, c0, keys.key_clip, layout)
+    dispatch.reset_launches()
+    f_timer = steps_mod.StageTimer(dev)
+    f_agg, f_loss, _, _, f_bound = steps_mod._fused_grads(
+        bsess.model, priv, params, batch, 4, *args[1:], f_timer)
+    n_f = {k: v for k, v in dispatch.launch_counts().items() if v}
+    flatbuf.zero_padding(layout, f_agg)
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launches()
+    b_timer = steps_mod.StageTimer(dev)
+    b_agg, b_loss, _, _, b_bound = steps_mod._barrier_grads(
+        bsess.model, priv_b, mesh4, params, *args, b_timer)
+    n_b = {k: v for k, v in dispatch.launch_counts().items() if v}
+    peak_b = torch.cuda.max_memory_allocated()
+    flatbuf.zero_padding(layout, b_agg)
+    B = priv.mask_scale * priv.sigma * float(b_bound)
+    err = chunked_max_diff(b_agg, f_agg)
+    check(n_f == {"clip_accumulate": 1} and not n_b,
+          f"admin one-step launches: fused {n_f}, barrier {n_b}")
+    check(err <= MASK_ATOL_PER_B * B, f"admin barrier vs fused aggregate "
+          f"differ by {err} (tolerance {MASK_ATOL_PER_B * B}, B {B})")
+    check(math.isclose(float(b_loss), float(f_loss), rel_tol=TRAIN_RTOL)
+          and math.isclose(float(b_bound), float(f_bound),
+                           rel_tol=TRAIN_RTOL),
+          f"admin barrier vs fused loss {float(b_loss)} / {float(f_loss)}")
+    f_ms, b_ms = f_timer.ms(), b_timer.ms()
+    report["barrier_vs_fused"] = {
+        "aggregate_max_abs_err": err, "tolerance": MASK_ATOL_PER_B * B,
+        "B": B, "aggregate_max_abs": f_agg.abs().max().item(),
+        "fused_stage_ms": f_ms, "barrier_stage_ms": b_ms,
+        "peak_mem_gb_barrier_grads": peak_b / 1e9}
+    log(f"[admin] qwen2.5-3b full width, 12 layers, P {layout.total}, one "
+        f"primed step: barrier vs fused aggregate max |diff| {err:.3g} "
+        f"(tolerance {MASK_ATOL_PER_B * B:.3g} from B {B:.4f}) | fused "
+        f"stages {json.dumps({k: round(v, 1) for k, v in f_ms.items()})} | "
+        f"barrier stages "
+        f"{json.dumps({k: round(v, 1) for k, v in b_ms.items()})} | peak "
+        f"{peak_b / 1e9:.2f} GB in _barrier_grads | launches fused {n_f}, "
+        f"barrier {n_b}")
+    del f_agg, b_agg, params, bsess
+    torch.cuda.empty_cache()
+    report["fused"] = train_cell(Session, cut12, priv, opt, None, 2,
+                                 {"clip_accumulate": 1}, "admin-fused")
+    report["barrier"] = train_cell(Session, cut12, priv_b, opt, mesh4, 1, {},
+                                   "admin-barrier")
+
+    # the wire tier under admin masks (phase 16's setup)
+    sm = build_small_model(MNIST_MLP3)
+    silos = [{"x": s.x, "y": s.y} for s in synthetic_mnist(
+        n_train=4096, n_test=16)[0].split(WIRE_SILOS)]
+    wpriv = PrivacyConfig(enabled=True, sigma=0.5, clip_bound=1.0,
+                          noise_lambda=WIRE_LAM, mask_mode="admin")
+    init = sm.init(torch.Generator(device=dev).manual_seed(1))
+    grad_fn = value_and_grad(sm.loss)
+    runs = {}
+    for mode in ("serial", "pipelined"):
+        sess = CollaborativeSession.from_silos(silos, wpriv,
+                                               params_template=init)
+        params = {k: v.clone() for k, v in init.items()}
+        dispatch.reset_launches()
+        (params, losses), s = timed(lambda: sess.run(
+            params, grad_fn, wire_update, WIRE_LR, WIRE_ROUNDS,
+            pipelined=mode == "pipelined"))
+        n = {k: v for k, v in dispatch.launch_counts().items() if v}
+        check(not n, f"admin wire {mode} launched {n}")
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"admin wire {mode}: loss {losses[0]} -> {losses[-1]}")
+        runs[mode] = (sess, losses, wire.pack_np(flatbuf.layout_of(params),
+                                                 params), s)
+    (sa, la, pa, s_a), (sb, lb, pb, s_b) = runs["serial"], runs["pipelined"]
+    check(np.array_equal(pa.view(np.uint32), pb.view(np.uint32))
+          and la == lb and sa.wire_stats == sb.wire_stats,
+          "admin wire: pipelined rounds are not bit-equal to serial")
+
+    def three(device):
+        sess = CollaborativeSession.from_silos(silos, wpriv, device=device)
+        params = {k: v.to(device) for k, v in init.items()}
+        losses = []
+        for t in range(3):
+            if t == 1:
+                check(sess.drop_silo(1), "admin wire: drop refused")
+            if t == 2:
+                check(sess.rejoin_silo(1), "admin wire: rejoin refused")
+            params, loss = sess.step(t, params, grad_fn, wire_update,
+                                     WIRE_LR)
+            losses.append(loss)
+        return sess, wire.pack_np(flatbuf.layout_of(params), params), losses
+
+    gs, gp, gl = three(dev)
+    cs, cp, cl = three("cpu")
+    loss_rel = float(np.max(np.abs(np.subtract(gl, cl)) / np.abs(cl)))
+    param_err = float(np.abs(gp - cp).max())
+    check(loss_rel <= WIRE_LOSS_RTOL and param_err <= WIRE_PARAM_ATOL
+          and gs.epsilon() == cs.epsilon()
+          and gs.accountant.history == cs.accountant.history,
+          f"admin wire card vs CPU: loss {loss_rel} params {param_err}")
+    report["wire"] = {
+        "rounds": WIRE_ROUNDS, "serial_s": s_a, "pipelined_s": s_b,
+        "loss": la, "wire_stats": sa.wire_stats,
+        "card_vs_cpu": {"loss_max_rel": loss_rel, "param_max_abs": param_err,
+                        "contributions": gs.accountant.contributions}}
+    log(f"[admin-wire] MNIST-MLP3, 4 silos: {WIRE_ROUNDS} serial rounds in "
+        f"{s_a * 1e3:.1f} ms, {WIRE_ROUNDS} pipelined in {s_b * 1e3:.1f} ms, "
+        f"bit-equal, no kernel launched | loss {la[0]:.4f} -> {la[-1]:.4f} | "
+        f"3 rounds with a drop, card vs CPU: loss {loss_rel:.2e} rel, params "
+        f"{param_err:.2e}, participation {gs.accountant.contributions}")
+    report["phase_s"] = time.perf_counter() - t0
+    return report
+
+
+def scan_phase(dev) -> dict:
+    """Phase 18(d): the silo-serial scan tier on qwen2.5-3b at full width,
+    at the largest of SCAN_DEPTHS that fits the card (36, its published
+    depth, first): 2 steps through ``Session.train`` (phase 7's privacy
+    settings, the per-leaf noise added window by window), step and stage
+    times and peak memory, no kernel of the port launched (the scan tier's
+    stages are plain torch, as JAX's are jnp); then a narrow scan step
+    against the vmap fused step under the per-leaf policy at the same keys
+    (static clipping, so both clip at one bound), card vs CPU."""
+    import gc
+
+    from repro_torch.api import Session
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import (OptimizerConfig, PrivacyConfig,
+                                          reduce_for_smoke)
+    from repro_torch.core import flatbuf, prng
+    from repro_torch.core.barrier import step_keys
+    from repro_torch.core.noise_correction import NoiseState
+    from repro_torch.distributed import steps as steps_mod
+    from repro_torch.kernels import dispatch
+
+    t0 = time.perf_counter()
+    cfg = get_config("qwen2.5-3b")
+    priv = PrivacyConfig(enabled=True, sigma=0.3, clip_bound=1.0,
+                         dynamic_clip=True, noise_lambda=0.7, n_silos=4,
+                         silo_mode="scan")
+    opt = OptimizerConfig(name="adamw", lr=1e-3)
+    report: dict = {"tried": []}
+    for depth in SCAN_DEPTHS:
+        cut = dataclasses.replace(cfg, n_layers=depth)
+        try:
+            cell = train_cell(Session, cut, priv, opt, None, 2, {},
+                              "scan-tier")
+        except torch.cuda.OutOfMemoryError as e:
+            report["tried"].append({"n_layers": depth, "error": str(e)[:200]})
+            log(f"[scan-tier] {depth} layers do not fit the card: "
+                f"{str(e)[:160]}")
+            gc.collect()
+            torch.cuda.empty_cache()
+            continue
+        report.update(n_layers=depth, full_depth=depth == cfg.n_layers,
+                      **cell)
+        break
+    check("n_layers" in report, f"the scan tier fits at none of "
+                                f"{SCAN_DEPTHS} layers")
+    report["card_memory_gb"] = \
+        torch.cuda.get_device_properties(dev).total_memory / 1e9
+    log(f"[scan-tier] qwen2.5-3b at {report['n_layers']} of {cfg.n_layers} "
+        f"layers (P {report['P']}): peak {report['peak_mem_gb']:.2f} GB of "
+        f"the card's {report['card_memory_gb']:.2f} GB")
+
+    narrow = reduce_for_smoke(cfg, n_layers=2, d_model=256, n_heads=4,
+                              n_kv_heads=2, d_head=64, d_ff=512,
+                              vocab_size=4096)
+    npriv = dataclasses.replace(priv, dynamic_clip=False)
+    keys = step_keys(prng.PRNGKey(1), 0)
+    primed = NoiseState(step_keys(prng.PRNGKey(4), 0).key_xi, True,
+                        np.ones(4, bool))
+    weights = Session.from_config(narrow, seed=3, device="cpu").init_params()
+    out = {}
+    for d in ("cuda", "cpu"):
+        sess = Session.from_config(narrow, privacy=npriv, optimizer=opt,
+                                   seed=3, device=d)
+        on = sess.device
+        state = sess.init_state(params=copy.deepcopy(weights).to(on))
+        batch = {k: v.to(on) for k, v in
+                 sess.synthetic_batches(16, 32)().items()}
+        args = (sess.model, npriv, state.params, batch, 4, keys, primed,
+                state.clip_bound, keys.key_clip, state.layout)
+        dispatch.reset_launches()
+        scan, s_loss = steps_mod._fused_grads_scan(
+            *args, steps_mod.StageTimer(on))[:2]
+        n_scan = {k: v for k, v in dispatch.launch_counts().items() if v}
+        with dispatch.force_impl("perleaf", kernel="dp_noise_tree"):
+            dispatch.reset_launches()
+            vmap, v_loss = steps_mod._fused_grads(
+                *args, steps_mod.StageTimer(on))[:2]
+            n_vmap = {k: v for k, v in dispatch.launch_counts().items() if v}
+        out[d] = (flatbuf.zero_padding(state.layout, scan).cpu(),
+                  flatbuf.zero_padding(state.layout, vmap).cpu(),
+                  float(s_loss), float(v_loss), n_scan, n_vmap)
+    (sg, vg, lsg, lvg, nsg, nvg), (sc, vc, lsc, lvc, nsc, nvc) = \
+        out["cuda"], out["cpu"]
+    check(not nsg and nvg == {"clip_accumulate": 1} and not nsc and not nvc,
+          f"narrow scan/vmap launches: card {nsg} / {nvg}, CPU {nsc} / {nvc}")
+    errs = {"scan_card_vs_cpu": (sg - sc).abs().max().item(),
+            "vmap_card_vs_cpu": (vg - vc).abs().max().item(),
+            "scan_vs_vmap_card": (sg - vg).abs().max().item(),
+            "scan_vs_vmap_cpu": (sc - vc).abs().max().item()}
+    check(max(errs.values()) <= NOISY_ATOL
+          and math.isclose(lsg, lsc, rel_tol=TRAIN_RTOL)
+          and math.isclose(lsg, lvg, rel_tol=TRAIN_RTOL),
+          f"narrow scan step: {errs}, loss {lsg} / {lsc} / {lvg}")
+    report["narrow"] = {"P": sc.shape[0], "max_abs_err": errs,
+                        "tolerance": NOISY_ATOL,
+                        "noisy_max_abs": sc.abs().max().item(),
+                        "loss": [lsg, lsc, lvg, lvc]}
+    log(f"[scan-slice] narrow config (P {sc.shape[0]}), one primed step: "
+        f"scan vs vmap (perleaf policy) and card vs CPU, max |diff| "
+        f"{json.dumps({k: float(f'{v:.3g}') for k, v in errs.items()})} "
+        f"(<= {NOISY_ATOL}) | loss {lsg:.6f} / {lsc:.6f}")
+    report["phase_s"] = time.perf_counter() - t0
+    return report
+
+
+def slice15_phase(dev) -> tuple:
+    """Phase 18: (a) the attention kernels at d_head 80 and 96, (b) both
+    archs served at published width and depth and the narrow configs of the
+    three newly ported dense archs card vs CPU, (c) the admin masks on
+    every tier, (d) the scan tier. Returns ``(record, the attention
+    kernels' new sub-rows)``."""
+    from repro_torch.api import Session
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import reduce_for_smoke
+    from repro_torch.runtime.serving import zipf_requests
+
+    t18 = time.perf_counter()
+    rows = check_new_widths(dev, 18)
+    report: dict = {"serve": {}, "narrow": {}}
+    for arch in DENSE_ARCHS:
+        report["serve"][arch] = serve_dense(Session, arch, "dense-serve")
+        d = f"d{get_config(arch).d_head}"
+        for kernel, sub in (("flash_attention", "direct"),
+                            ("paged_attention", "continuous")):
+            rows[kernel][d]["launches"] = \
+                report["serve"][arch][sub]["launches"].get(kernel, 0)
+    x_reqs = zipf_requests(4, 4096, min_len=8, max_len=24, max_new_low=4,
+                           max_new_high=8, seed=3)
+    widths = {"stablelm-3b": dict(d_model=320, n_heads=4, n_kv_heads=4,
+                                  d_head=80),
+              "phi3-mini-3.8b": dict(d_model=384, n_heads=4, n_kv_heads=4,
+                                     d_head=96),
+              "mistral-large-123b": dict(d_model=512, n_heads=4,
+                                         n_kv_heads=2, d_head=128)}
+    for arch, w in widths.items():
+        ncfg = reduce_for_smoke(get_config(arch), n_layers=2, d_ff=512,
+                                vocab_size=4096, **w)
+        report["narrow"][arch] = dense_cross_device(Session, ncfg, x_reqs,
+                                                    "dense-slice")
+    report["admin"] = admin_phase(dev)
+    report["scan"] = scan_phase(dev)
+    report["phase_s"] = time.perf_counter() - t18
+    log(f"[slice] phase 18 in {report['phase_s']:.1f} s (admin "
+        f"{report['admin']['phase_s']:.1f} s, scan "
+        f"{report['scan']['phase_s']:.1f} s)")
+    return report, rows
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3580,17 +4077,16 @@ def main() -> int:
         cut = dataclasses.replace(get_config(arch),
                                   n_layers=SSM_TRAIN_LAYERS[arch])
         n_scans = N_SILOS * cut.n_layers
-        cell = ssm_train_cell(Session, cut, priv, opt, None, scan, STEPS,
-                              n_scans, {"clip_accumulate": 1,
-                                        "noise_batch": 1}, "ssm-train")
+        scans = {scan: n_scans, scan + "_bwd": n_scans}
+        cell = train_cell(Session, cut, priv, opt, None, STEPS, {
+            **scans, "clip_accumulate": 1, "noise_batch": 1}, "ssm-train")
         # the same privacy settings, steps and silos as phase 7: the same
         # ledger, whatever the model
         check(cell["epsilon"] == report["train"]["epsilon"],
               f"{arch} epsilon {cell['epsilon']} is not the ledger's "
               f"{report['train']['epsilon']}")
-        barrier = ssm_train_cell(Session, cut, priv_b, opt, mesh4, scan, 1,
-                                 n_scans, {"clip_mask": N_SILOS},
-                                 "ssm-barrier")
+        barrier = train_cell(Session, cut, priv_b, opt, mesh4, 1, {
+            **scans, "clip_mask": N_SILOS}, "ssm-barrier")
         report["ssm_train"][arch] = {"fused": cell, "barrier": barrier}
     narrow_cfgs = {"rwkv6-7b": (narrow_r, "wkv"), "zamba2-7b": (narrow_z,
                                                                "ssd")}
@@ -3617,6 +4113,11 @@ def main() -> int:
             f"{time.perf_counter() - t0:.1f} s | {done}")
     report["phase17_s"] = time.perf_counter() - t17
     log(f"[ssm-train] phase 17 in {report['phase17_s']:.1f} s")
+
+    # 18. the other dense archs, the admin masks, the scan tier
+    report["slice15"], rows18 = slice15_phase(dev)
+    for name, subs in rows18.items():
+        kern[name].update(subs)
 
     # the record
     launches = {"flash_attention": n_direct["flash_attention"],
@@ -3655,12 +4156,15 @@ def main() -> int:
                       "two_pass_floor_ms", "library_device_ms", "config"):
             if extra in r:
                 entry[extra] = r[extra]
-        for sub in ("verify4", "chunk16", "d112", "s512", "wire"):
+        for sub in ("verify4", "chunk16", "d112", "s512", "wire", "d80",
+                    "d80_verify4", "d80_chunk16", "d96", "d96_verify4",
+                    "d96_chunk16"):
             if sub in r:
                 entry[sub] = {x: r[sub][x] for x in (
                     "max_abs_err", "ms", "device_ms", "plain_ms",
                     "library_ms", "library_device_ms", "bound_ms",
-                    "bound_by", "launch_floor_ms", "at") if x in r[sub]}
+                    "bound_by", "launch_floor_ms", "launches", "at")
+                    if x in r[sub]}
         if "wire" in r:
             entry["wire"]["launches"] = r["wire"]["launches"]
         line.append(entry)
@@ -3679,7 +4183,7 @@ if __name__ == "__main__":
     args = sys.argv[1:]
     src = Path(args[args.index("--src") + 1]).resolve() \
         if "--src" in args else ROOT / "src"
-    for phase in ("scans", "pool", "wire", "bwd", "streams"):
+    for phase in ("scans", "pool", "wire", "bwd", "streams", "slice15"):
         if f"--{phase}" in args:
             sys.exit(one_phase(phase, src))
     sys.exit(main())

@@ -393,7 +393,9 @@ class CollaborativeSession:
     handlers' noise streams cached and prefetched on the card) or
     fault-tolerant (deadline and quorum closure, seeded chaos, a round
     journal that :meth:`resume` continues from; ``docs/failure_model.md``).
-    ``mask_mode='admin'`` raises (``ROADMAP.md`` queue 1, item 9).
+    Under ``mask_mode='admin'`` the admin draws each round's closing mask
+    row once, on the session's device, and ships it to the closing handler;
+    every other handler draws its own row.
     """
 
     service: Any
@@ -672,8 +674,8 @@ class CollaborativeSession:
         return wire.encode_full(self._bcast_layout, self._bcast_buf,
                                 epoch=self._bcast_epoch)
 
-    def _compute_one(self, h, blob: bytes, plan: dict,
-                     grad_fn: Callable) -> bytes:
+    def _compute_one(self, h, blob: bytes, plan: dict, grad_fn: Callable,
+                     admin_row=None) -> bytes:
         """One handler's round trip, with the full-resync retry on
         ``StaleParamsError``, timed into the straggler telemetry."""
         from repro_torch.core.tee import wire
@@ -683,7 +685,8 @@ class CollaborativeSession:
                                     self.n_silos, clip_bound=self.clip_bound,
                                     active=plan["active"],
                                     noise_state=plan["noise_state"],
-                                    verdicts=plan["verdicts"])
+                                    verdicts=plan["verdicts"],
+                                    admin_row=admin_row)
 
         t0 = time.perf_counter()
         try:
@@ -698,6 +701,18 @@ class CollaborativeSession:
             self.wire_stats["update_bytes"] += len(u)
         return u
 
+    def _admin_row(self, params, plan: dict):
+        """Admin masks: the round's ``(closing, row)``, drawn once by the
+        admin over the round's participation set (None otherwise, or when
+        nobody contributes)."""
+        active = plan["active"]
+        if not (self.privacy.enabled and self.privacy.mask_mode == "admin"
+                and bool(np.any(active))):
+            return None
+        return self.admin.closing_mask_row(
+            self.privacy, params, plan["keys"], active, plan["noise_state"],
+            self.clip_bound)
+
     def _collect_updates(self, params, plan: dict, grad_fn: Callable,
                          sink: Optional[Callable] = None) -> dict:
         """Distribute the params and collect the active handlers' sealed
@@ -707,13 +722,12 @@ class CollaborativeSession:
         active = plan["active"]
         self.wire_stats["broadcast_bytes"] += len(blob) if is_bcast \
             else len(blob) * int(np.sum(active))
-        if self.privacy.mask_mode == "admin" and bool(np.any(active)):
-            self.admin.closing_mask_row()  # raises: item 9
+        admin_row = self._admin_row(params, plan)
         updates = {}
         for h in self.handlers:
             if not active[h.silo_idx]:
                 continue
-            u = self._compute_one(h, blob, plan, grad_fn)
+            u = self._compute_one(h, blob, plan, grad_fn, admin_row)
             if sink is not None:
                 sink(h.name, u)
             updates[h.name] = u
@@ -1029,8 +1043,7 @@ class CollaborativeSession:
         with self._stats_lock:
             self.wire_stats["broadcast_bytes"] += len(blob) if is_bcast \
                 else len(blob) * int(np.sum(active))
-        if self.privacy.mask_mode == "admin" and bool(np.any(active)):
-            self.admin.closing_mask_row()  # raises: item 9
+        admin_row = self._admin_row(params, plan)
         handlers = [h for h in self.handlers if active[h.silo_idx]]
         chaos = self.chaos
 
@@ -1039,7 +1052,7 @@ class CollaborativeSession:
                 h.fault_hook = lambda silo, _t=t: chaos.handler_fault(_t,
                                                                       silo)
             try:
-                u = self._compute_one(h, blob, plan, grad_fn)
+                u = self._compute_one(h, blob, plan, grad_fn, admin_row)
             finally:
                 h.fault_hook = None
             leaf = hashlib.sha256(u).digest()

@@ -25,7 +25,9 @@ _ARCH_MODULES: dict[str, str] = {
 }
 
 # the arch ids whose config module exists in this package
-PORTED: tuple[str, ...] = ("qwen2.5-3b", "rwkv6-7b", "zamba2-7b")
+PORTED: tuple[str, ...] = ("mistral-large-123b", "stablelm-3b",
+                           "phi3-mini-3.8b", "qwen2.5-3b", "rwkv6-7b",
+                           "zamba2-7b")
 
 
 def resolve_arch(arch: str) -> str:

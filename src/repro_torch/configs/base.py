@@ -93,9 +93,9 @@ class PrivacyConfig:
     delta: float = 1e-5
     mask_mode: str = "pairwise"  # admin | pairwise | none
     mask_scale: float = 8.0  # B/(sigma C): spread of the zero-sum r-terms
-    mask_ring: bool = False
+    mask_ring: bool = False  # read by neither package's step
     sync_path: str = "fused"  # fused | barrier
-    silo_mode: str = "vmap"  # vmap | scan (scan not ported yet)
+    silo_mode: str = "vmap"  # vmap | scan (silo-serial, one accumulator)
     n_silos: int = 0  # 0 = auto (vmap: mesh silo count; scan: 4 data owners)
 
 

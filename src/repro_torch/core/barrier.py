@@ -102,15 +102,21 @@ def _noise_perleaf(g_sum: dict, priv: PrivacyConfig, keys: BarrierKeys,
     first = flatbuf.flat_tensors(flatbuf.layout_of(g_sum), g_sum)[0]
     sigma_c = priv.sigma * torch.as_tensor(clip_bound, dtype=torch.float32,
                                            device=first.device)
-    noise, new_state = noise_correction.corrected_noise(
-        g_sum, keys.key_xi, noise_state, sigma_c, priv.noise_lambda)
 
-    def add(g, n):
-        return (g.float() + n).to(g.dtype)
+    def f32(g):
+        return g.to(torch.float32, copy=True)
 
-    noisy = {k: [add(g, n) for g, n in zip(v, noise[k])]
-             if isinstance(v, list) else add(v, noise[k])
+    noisy = {k: [f32(g) for g in v] if isinstance(v, list) else f32(v)
              for k, v in g_sum.items()}
+    noisy, new_state = noise_correction.corrected_noise(
+        noisy, keys.key_xi, noise_state, sigma_c, priv.noise_lambda)
+
+    def back(n, g):
+        return n.to(g.dtype)
+
+    noisy = {k: [back(n, g) for n, g in zip(v, g_sum[k])]
+             if isinstance(v, list) else back(v, g_sum[k])
+             for k, v in noisy.items()}
     return noisy, new_state
 
 

@@ -39,9 +39,19 @@ raises), and the fused tier's noise is ``noise_correction.corrected_noise``
 behind it). The wire tier's speculative rounds pass a silo's xi_t and
 xi_{t-1} into ``silo_contribution`` as (P,) streams drawn by
 :meth:`DPPipeline.noise_stream` (the ``noise_stream`` kernel on the card),
-which the external-stream ``clip_mask`` reads from memory. Not ported yet
-(it raises ``NotImplementedError``): the admin mask construction
-(``ROADMAP.md`` queue 1, item 9).
+which the external-stream ``clip_mask`` reads from memory.
+
+Mask mode ``admin`` is the paper-faithful construction (``core/masking.py``):
+the admin draws every mask row, dropped silos get zero rows, the last active
+silo's row closes the sum to ``xi_t - lam * xi_{t-1}`` (the correction
+rides in that row: the admin owns every stream, so there are no per-silo
+shares). The fused tier's ``run_central`` aggregates with
+``clip_accumulate`` and adds the exact xi the mask set telescopes to
+(:meth:`DPPipeline.admin_noise_tree`, plain torch threefry, as JAX's is
+jnp: no TPU kernel behind it); the barrier and wire tiers' contribution is
+``g * scale + row * gate``, each silo drawing its own row (the port's silos
+are concrete) or taking the closing row the admin drew once
+(:meth:`DPPipeline.admin_closing_row`).
 """
 from __future__ import annotations
 
@@ -90,11 +100,7 @@ class DPPipeline:
 
     def __init__(self, priv: PrivacyConfig, layout: PackedLayout,
                  n_silos: int, policy: str = "packed"):
-        if priv.mask_mode == "admin":
-            raise NotImplementedError(
-                "mask_mode='admin' is not ported yet (ROADMAP.md queue 1, "
-                "item 9: remaining mask and noise families)")
-        if priv.mask_mode not in ("pairwise", "none"):
+        if priv.mask_mode not in ("pairwise", "admin", "none"):
             raise ValueError(f"DPPipeline supports mask_mode pairwise|admin|"
                              f"none, got {priv.mask_mode!r}")
         self.priv = priv
@@ -151,6 +157,92 @@ class DPPipeline:
         pa = self.prev_active(state)
         k_prev = max(float(np.sum(pa)), 1.0)
         return s, sc / torch.sqrt(torch.tensor(k_prev, **f32)), pa
+
+    # -- admin mask construction (the paper-faithful O(n P) baseline) --------
+    def _sigma_c(self, bound, device) -> torch.Tensor:
+        return self.priv.sigma * torch.as_tensor(bound, dtype=torch.float32,
+                                                 device=device)
+
+    def _admin_correction(self, state: NoiseState, sigma_c):
+        """The admin-owned ``lam * xi_{t-1}`` (``admin_xi`` of the carried
+        key, drawn window by window where it is subtracted), or None when
+        the correction is off. ``lam`` is 0 before the first step, as
+        JAX's ``lambda * has_prev``."""
+        if not self.priv.noise_lambda > 0.0:
+            return None
+        lam = torch.full((), self.priv.noise_lambda * (
+            1.0 if state.has_prev else 0.0), dtype=torch.float32,
+            device=sigma_c.device)
+        return masking.XiCorrection(tuple(state.prev_key), sigma_c, lam)
+
+    def _admin_mask_set(self, template, active, keys: BarrierKeys,
+                        state: NoiseState, bound) -> dict:
+        """The stacked ``(n_silos, ...)`` mask trees of one step: zero rows
+        for dropped silos, the active rows telescoping to
+        ``xi_t - lam * xi_{t-1}``. ``template`` gives the shapes only."""
+        dev = flatbuf.flat_tensors(self.layout, template)[0].device
+        sigma_c = self._sigma_c(bound, dev)
+        return masking.admin_masks(
+            keys.key_xi, template, self.n_silos, sigma_c,
+            self.priv.mask_scale * sigma_c, active=active,
+            correction=self._admin_correction(state, sigma_c))
+
+    def admin_noise_tree(self, g_sum_tree: dict, keys: BarrierKeys,
+                         state: NoiseState, bound) -> dict:
+        """The central tiers' aggregate noise under admin masks: the exact
+        ``xi_t - lam * xi_{t-1}`` the distributed mask set telescopes to,
+        added into ``g_sum_tree``'s fp32 tensors in place (returned)."""
+        dev = flatbuf.flat_tensors(self.layout, g_sum_tree)[0].device
+        sigma_c = self._sigma_c(bound, dev)
+        return masking.add_admin_noise(
+            g_sum_tree, keys.key_xi, sigma_c,
+            self._admin_correction(state, sigma_c))
+
+    def admin_closing_row(self, template, active, keys: BarrierKeys,
+                          state: NoiseState, bound, out=None) -> tuple:
+        """The closing silo's mask row, the one O(k P) row of the set,
+        drawn once by the admin and shipped to that silo alone, so every
+        handler's work stays O(P). Returns ``(closing, row)``, the row a
+        packed (P,) fp32 buffer on the template's device (``out`` when
+        given): the same ``admin_mask_row`` call a handler would make, so
+        a handler using it is bit-identical to one drawing it."""
+        act, closing = masking._closing(self.n_silos, active)
+        first = flatbuf.flat_tensors(self.layout, template)[0]
+        sigma_c = self._sigma_c(bound, first.device)
+        if out is None:
+            out = torch.empty(self.layout.total, dtype=torch.float32,
+                              device=first.device)
+        masking.admin_mask_row(
+            keys.key_xi, template, self.n_silos, closing, sigma_c,
+            self.priv.mask_scale * sigma_c, active=act,
+            correction=self._admin_correction(state, sigma_c), out=out)
+        return closing, out
+
+    def _contribution_admin(self, packed, silo: int, scaled, active,
+                            keys: BarrierKeys, state: NoiseState, bound,
+                            admin_row=None, out=None) -> torch.Tensor:
+        """The admin branch of :meth:`silo_contribution`, for a concrete
+        silo: ``g * scale * gate + row * gate`` over the packed buffer,
+        the row this silo's own (its ``admin_mask_row``; the correction
+        only in the closing row) or, for the closing silo, the admin's
+        ``admin_row``."""
+        act, closing = masking._closing(self.n_silos, active)
+        gate = float(act[silo])
+        dev = packed.device
+        if admin_row is not None and silo == closing:
+            row = admin_row
+        else:
+            sigma_c = self._sigma_c(bound, dev)
+            corr = self._admin_correction(state, sigma_c) \
+                if silo == closing else None
+            row = torch.empty(self.layout.total, dtype=torch.float32,
+                              device=dev)
+            masking.admin_mask_row(
+                keys.key_xi, flatbuf.unpack(self.layout, packed),
+                self.n_silos, silo, sigma_c, self.priv.mask_scale * sigma_c,
+                active=act, correction=corr, out=row)
+        res = torch.mul(packed, scaled, out=out)
+        return res.add_(row if gate == 1.0 else row * gate)  # x * 1 == x
 
     # -- stages ---------------------------------------------------------------
     def norms(self, stacked: torch.Tensor) -> torch.Tensor:
@@ -230,7 +322,11 @@ class DPPipeline:
         ``sum_i clip(g_i) + sigma*C*(xi_t - lam*xi_{t-1})``.
 
         ``g`` is the silo's gradient, a tree or its packed (P,) buffer;
-        ``scale`` its clip factor (a 0-dim tensor); ``xi`` / ``xp`` its
+        ``scale`` its clip factor (a 0-dim tensor); ``admin_row`` (mask
+        mode ``admin``) the closing row the admin distributed, a packed
+        (P,) buffer, read only by the closing silo (:meth:`_contribution_admin`:
+        under ``admin`` the contribution is ``g * scale + row``, the row
+        the admin's, whatever the policy); ``xi`` / ``xp`` its
         xi_t and xi_{t-1} streams from :meth:`noise_stream` (packed
         pairwise only; None draws them in the kernel); ``out`` receives the
         packed result (``g`` itself to work in place). Under the perleaf
@@ -245,10 +341,6 @@ class DPPipeline:
         ``lam = lambda*hp*gate*pa_gate`` (the JAX package's gates are traced
         inside its shard_map, so it always multiplies by them: by 1.0 or
         0.0, exactly)."""
-        if admin_row is not None:
-            raise NotImplementedError(
-                "admin mask rows are not ported yet (ROADMAP.md queue 1, "
-                "item 9: remaining mask and noise families)")
         priv = self.priv
         if (xi is not None or xp is not None) and (
                 priv.mask_mode != "pairwise" or self.policy.mode != "packed"):
@@ -263,6 +355,10 @@ class DPPipeline:
         if priv.mask_mode == "none":
             # confidentiality-only sync: clipped gradient, no DP terms
             return torch.mul(packed, scaled, out=out)
+        if priv.mask_mode == "admin":
+            return self._contribution_admin(packed, silo, scaled, active,
+                                            keys, state, bound, admin_row,
+                                            out)
         if self.policy.mode == "perleaf":
             return self._contribution_perleaf(packed, silo, scale, active,
                                               keys, state, bound, out)
@@ -336,11 +432,14 @@ class DPPipeline:
 
     def corrected_noise_tree(self, g_sum_tree: dict, keys: BarrierKeys,
                              state: NoiseState, bound, active) -> dict:
-        """Tree-level corrected noise for the central tiers. Packed: through
+        """Tree-level corrected noise for the central tiers. Admin masks:
+        :meth:`admin_noise_tree`, in place. Packed: through
         :meth:`corrected_noise_packed` (a new tree, views of one buffer).
         Perleaf: ``noise_correction.corrected_noise``, one stream at full
         ``sigma_c`` (its std does not depend on the active count), added in
         place into ``g_sum_tree``'s fp32 tensors, which are returned."""
+        if self.priv.mask_mode == "admin":
+            return self.admin_noise_tree(g_sum_tree, keys, state, bound)
         if self.policy.mode == "packed":
             packed = flatbuf.pack(self.layout, g_sum_tree)
             return flatbuf.unpack(self.layout, self.corrected_noise_packed(
@@ -348,12 +447,9 @@ class DPPipeline:
         first = flatbuf.flat_tensors(self.layout, g_sum_tree)[0]
         sigma_c = self.priv.sigma * torch.as_tensor(
             bound, dtype=torch.float32, device=first.device)
-        noise, _ = noise_correction.corrected_noise(
-            g_sum_tree, keys.key_xi, state, sigma_c, self.priv.noise_lambda)
-        for g, n in zip(flatbuf.flat_tensors(self.layout, g_sum_tree),
-                        flatbuf.flat_tensors(self.layout, noise)):
-            g.add_(n)
-        return g_sum_tree
+        return noise_correction.corrected_noise(
+            g_sum_tree, keys.key_xi, state, sigma_c,
+            self.priv.noise_lambda)[0]
 
     # -- composed run -----------------------------------------------------------
     def run_central(self, g_stacked, norms, keys: BarrierKeys,
@@ -369,8 +465,13 @@ class DPPipeline:
         if not self.priv.enabled:
             return g_sum, state, bound
         with timer.stage("noise"):
-            noisy = self.corrected_noise_packed(g_sum, keys, state, bound,
-                                                active)
+            if self.priv.mask_mode == "admin":
+                self.admin_noise_tree(flatbuf.unpack(self.layout, g_sum),
+                                      keys, state, bound)
+                noisy = g_sum
+            else:
+                noisy = self.corrected_noise_packed(g_sum, keys, state,
+                                                    bound, active)
         return noisy, self.advance_state(keys, state, active), bound
 
     # -- helpers ------------------------------------------------------------------

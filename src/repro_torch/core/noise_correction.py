@@ -7,7 +7,8 @@ key that generated ``xi_{t-1}`` (not the O(P) tensor): the packed kernels
 regenerate ``xi_{t-1}`` from it on the fly, and the per-leaf family
 (:func:`corrected_noise`) redraws it with ``jax.random.normal``
 (``core/prng.py``), one ``split`` of the key per leaf, a stacked leaf's
-counters running across its tensors.
+counters running across its tensors, and adds the noise into the aggregate
+in place, window by window.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import flatbuf, prng
+from repro_torch.kernels.zsmask.ref import _on
 
 
 class NoiseState(NamedTuple):
@@ -34,38 +36,47 @@ def init_state(key: tuple, n_silos: int = 0) -> NoiseState:
                       prev_active=prev_active)
 
 
-def _noise_like(key: tuple, tree: dict, scale) -> dict:
-    """``normal(split(key, n_leaves)[i], leaf.shape) * scale`` for every
-    leaf i of ``tree`` (fp32, on each tensor's device)."""
+# elements of one stream drawn at a time: a leaf of any size (the 311 M of
+# qwen2.5-3b's embedding) adds its noise through a few hundred MB of
+# temporaries, never a leaf- or tree-sized copy
+WINDOW = prng.WINDOW
+
+
+def corrected_noise(tree: dict, key_t: tuple, state: NoiseState, sigma_c,
+                    lam: float) -> tuple:
+    """Add ``xi_t - lam * xi_{t-1}`` into ``tree``'s fp32 tensors in place
+    and return ``(tree, new state)``; both streams have std ``sigma_c``
+    (= sigma * C). Leaf i draws ``normal(split(key, n_leaves)[i])`` over
+    its whole (stacked) shape, as JAX's ``corrected_noise`` does, here
+    ``WINDOW`` counters at a time: each window of xi_t and xi_{t-1} is
+    drawn, combined and added before the next, the values JAX's noise tree
+    holds at those positions (JAX returns the tree; adding it into zeros
+    gives it). The gate is ``lam`` once the state has a previous step, else
+    0; with ``lam == 0`` only xi_t is drawn."""
     layout = flatbuf.layout_of(tree)
-    keys = prng.split(key, layout.n_leaves)
-
-    def one(i, offset, t):
-        z = prng.normal(keys[i], tuple(t.shape), offset, t.device)
-        return z * torch.as_tensor(scale, dtype=torch.float32, device=t.device)
-
-    return flatbuf.map_leaf_slices(layout, tree, one)
-
-
-def corrected_noise(tree_template: dict, key_t: tuple, state: NoiseState,
-                    sigma_c, lam: float) -> tuple:
-    """``(noise tree = xi_t - lam * xi_{t-1}, new state)``; both streams
-    have std ``sigma_c`` (= sigma * C). The gate is ``lam`` once the state
-    has a previous step, else 0; with ``lam == 0`` only xi_t is drawn."""
-    xi_t = _noise_like(key_t, tree_template, sigma_c)
-    new_state = NoiseState(prev_key=tuple(key_t), has_prev=True)
-    if lam == 0.0:
-        return xi_t, new_state
-    xi_prev = _noise_like(state.prev_key, tree_template, sigma_c)
-    gate = lam if state.has_prev else 0.0
-
-    def sub(a, b):
-        return a - torch.tensor(gate, dtype=torch.float32, device=a.device) * b
-
-    noise = {k: [sub(a, b) for a, b in zip(v, xi_prev[k])]
-             if isinstance(v, list) else sub(v, xi_prev[k])
-             for k, v in xi_t.items()}
-    return noise, new_state
+    keys_t = prng.split(key_t, layout.n_leaves)
+    keys_p = prng.split(state.prev_key, layout.n_leaves) if lam != 0.0 \
+        else None
+    scalars: dict = {}
+    for i, offset, t in flatbuf.leaf_slices(layout, tree):
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError("corrected_noise adds into contiguous fp32 "
+                             "tensors")
+        dev = t.device
+        if dev not in scalars:  # fills, not host copies (no stream wait)
+            scalars[dev] = (_on(sigma_c, dev), torch.full(
+                (), lam if state.has_prev else 0.0, dtype=torch.float32,
+                device=dev))
+        sc, gate = scalars[dev]
+        flat = t.view(-1)
+        for a in range(0, flat.numel(), WINDOW):
+            b = min(a + WINDOW, flat.numel())
+            z = prng.normal(keys_t[i], (b - a,), offset + a, dev).mul_(sc)
+            if keys_p is not None:
+                zp = prng.normal(keys_p[i], (b - a,), offset + a, dev)
+                z.sub_(zp.mul_(sc).mul_(gate))
+            flat[a:b].add_(z)
+    return tree, NoiseState(prev_key=tuple(key_t), has_prev=True)
 
 
 def effective_sigma(sigma_tilde: float, lam: float) -> float:

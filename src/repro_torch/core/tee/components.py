@@ -36,8 +36,11 @@ external-stream ``clip_mask``). A tag is the raw key's bytes, so a resync,
 rejoin or skipped round misses and draws anew; serial rounds draw the
 streams inside ``clip_mask``, bit for bit the same values.
 
-Not ported yet: the admin mask construction (``Admin.closing_mask_row``,
-``ROADMAP.md`` queue 1, item 9).
+Admin masks (``mask_mode='admin'``, the paper-faithful construction): each
+handler draws its own O(P) mask row; the admin draws the one O(k P)
+closing row once a round (:meth:`Admin.closing_mask_row`) and ships it to
+the closing handler alone, which uses it instead of drawing it, bit for
+bit the same.
 """
 from __future__ import annotations
 
@@ -93,12 +96,6 @@ def _bind_configs(code: str, ledger_config: dict, wire_config: dict) -> str:
         return code
     cfg = {"ledger": ledger_config, "wire": wire_config}
     return hashlib.sha256((code + measure_config(cfg)).encode()).hexdigest()
-
-
-def _not_ported(what: str, item: str, why: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md queue 1, "
-        f"{item}: {why})")
 
 
 # ---------------------------------------------------------------------------
@@ -342,14 +339,17 @@ class DataHandler(Component):
                 keys.key_xi, self.silo_idx, self.device))
 
     def _masked_contrib(self, pipe: DPPipeline, grads: dict, active,
-                        keys: BarrierKeys, state: NoiseState, clip_bound):
+                        keys: BarrierKeys, state: NoiseState, clip_bound,
+                        admin_row=None):
         """norm -> clip scale -> ``silo_contribution`` on the gradients'
         device. On the packed pairwise path the contribution is one
         ``clip_mask`` launch. Serial rounds draw its xi and xi_{t-1}
         streams in the kernel: the values JAX's ``DPPipeline.noise_stream``
         draws for the same (key, silo), which its handler passes in as
         arguments. Speculative rounds pass them in, from the cache or
-        :meth:`_round_streams`' draw (the external-stream kernel)."""
+        :meth:`_round_streams`' draw (the external-stream kernel).
+        ``admin_row``: under admin masks, the closing row the admin drew
+        (this handler's row only when it closes the round)."""
         dev = next(iter(flatbuf.flat_tensors(pipe.layout, grads))).device
         with torch.no_grad():
             # a 0-dim tensor: C / norm is then a true division, as JAX's
@@ -369,7 +369,8 @@ class DataHandler(Component):
                         x.record_stream(torch.cuda.current_stream(dev))
             return pipe.silo_contribution(grads, self.silo_idx, scale,
                                           active, keys, state, bound,
-                                          xi=xi, xp=xp), norm
+                                          admin_row=admin_row, xi=xi,
+                                          xp=xp), norm
 
     def _stream(self):
         """The handler's own CUDA stream as a context, made once and made
@@ -386,11 +387,13 @@ class DataHandler(Component):
                        priv: PrivacyConfig, keys: BarrierKeys, n_silos: int,
                        clip_bound: float, active=None,
                        noise_state: Optional[NoiseState] = None,
-                       verdicts=None) -> bytes:
+                       verdicts=None, admin_row=None) -> bytes:
         """This silo's sealed update for the round. ``active`` is the
         round's participation set, ``noise_state`` the admin's step-(t-1)
         key and set. With a wired ``admin`` the handler asks it for its own
-        budget verdict and ignores ``verdicts``. The device work runs on
+        budget verdict and ignores ``verdicts``. ``admin_row``: under admin
+        masks, the admin's ``(closing, row)`` of the round; only the closing
+        silo reads the row. The device work runs on
         the handler's own CUDA stream, which the contribution's host copy
         synchronises."""
         if self.fault_hook is not None:
@@ -417,8 +420,11 @@ class DataHandler(Component):
                 else np.asarray(active, bool)
             state = noise_state if noise_state is not None \
                 else init_state((0, 0), n_silos=n_silos)
+            row = admin_row[1] if admin_row is not None \
+                and self.silo_idx == admin_row[0] else None
             contrib, norm = self._masked_contrib(pipe, grads, active, keys,
-                                                 state, clip_bound)
+                                                 state, clip_bound,
+                                                 admin_row=row)
             if self.codec == "packed":
                 packed = contrib if isinstance(contrib, torch.Tensor) \
                     else flatbuf.pack(pipe.layout, contrib)  # perleaf: a tree
@@ -669,9 +675,19 @@ class Admin(Component):
                 "paths": {name: tree.path(i)
                           for i, name in enumerate(names)}}
 
-    def closing_mask_row(self, *args, **kwargs):
-        raise _not_ported("mask_mode='admin' (Admin.closing_mask_row)",
-                          "item 9", "remaining mask and noise families")
+    def closing_mask_row(self, priv: PrivacyConfig, template, keys, active,
+                         state, clip_bound) -> tuple:
+        """The admin-mode closing row, drawn once a round on the admin (on
+        the template's device) and shipped to the one closing handler: an
+        O(P) fan-out instead of that handler drawing every other silo's row
+        to close the sum. Returns ``(closing index, packed (P,) row)``."""
+        pipe = DPPipeline(priv, flatbuf.layout_of(template), self.n_silos)
+        first = flatbuf.flat_tensors(pipe.layout, template)[0]
+        bound = torch.full((), float(clip_bound), dtype=torch.float32,
+                           device=first.device)
+        with torch.no_grad():
+            return pipe.admin_closing_row(template, active, keys, state,
+                                          bound)
 
     def state_for_step(self) -> NoiseState:
         if self.noise_state is None:

@@ -22,8 +22,16 @@ optimizer updates the packed master buffer, of which the model's
 parameters are views. JAX vmaps (or shard_maps) the silos; the port loops
 over them, computing one silo's gradient with autograd, packing it into row
 i and freeing the gradient tree before silo i+1, so only one gradient tree
-lives at a time. The silo-serial scan tier raises ``NotImplementedError``
-(``ROADMAP.md`` queue 1, item 9).
+lives at a time.
+
+``silo_mode='scan'`` (the JAX package's silo-serial tier for large models):
+no stacked buffer; each silo's gradient is clipped with the carried bound
+C_t (dynamic clipping is stale by one step, as in JAX), gated and added into
+one fp32 ``(P,)`` accumulator, and freed before the next silo runs; the
+engine's ``corrected_noise_tree`` then adds the noise into the accumulator
+in place (the per-leaf policy by default, drawn window by window). Five
+P-sized fp32 buffers live at once (master, two moments, the accumulator,
+one silo's gradient) against the vmap tier's seven.
 
 Under the perleaf execution policy (``force_impl("perleaf",
 kernel="dp_noise_tree")`` or ``REPRO_KERNEL_IMPL=dp_noise_tree=perleaf``)
@@ -198,6 +206,61 @@ def _fused_grads(model: Model, priv: PrivacyConfig, params, batch, n_silos,
     return noisy, _mean_loss(losses, pipe, active), norms, new_ns, bound
 
 
+def _fused_grads_scan(model: Model, priv: PrivacyConfig, params, batch,
+                      n_silos, keys, noise_state, clip_bound, clip_key,
+                      layout, timer: StageTimer, active=None):
+    """The silo-serial tier, JAX's ``_fused_grads_scan``: silo after silo,
+    its gradient (``value_and_grad``), its norm off the gradient tree
+    (``norm_tree``), its clip factor at the carried bound times its gate,
+    ``acc + scale * g`` into the fp32 accumulator, the gradient freed;
+    then the dynamic bound from every norm (used from the next step on) and
+    ``corrected_noise_tree`` on the accumulator at the carried bound
+    (per-leaf policy unless ``force_impl`` picks another). Returns
+    ``(noisy (P,), loss, norms, new noise state, new bound)``, the
+    accumulator being the noisy aggregate."""
+    silo_batches = _reshape_to_silos(batch, n_silos)
+    pipe = DPPipeline(priv, layout, n_silos, policy="perleaf")
+    gates = [float(x) for x in pipe._active_or_full(active)]
+    tensors = flatbuf.flat_tensors(layout, packing.param_tree(params))
+    dev = tensors[0].device
+    acc = torch.zeros(layout.total, dtype=torch.float32, device=dev)
+    acc_tensors = flatbuf.flat_tensors(layout, flatbuf.unpack(layout, acc))
+    loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
+    norms = []
+    for i in range(n_silos):
+        b = {k: v[i] for k, v in silo_batches.items()}
+        with timer.stage("silo_grads"):
+            loss = model.loss(params, b)
+            grads = torch.autograd.grad(loss, tensors)
+        with torch.no_grad():
+            with timer.stage("norms"):
+                norm = pipe.norm_tree(grads)
+            with timer.stage("accumulate"):
+                scale = pipe.clip_scale(norm, clip_bound) if priv.enabled \
+                    else torch.ones((), dtype=torch.float32, device=dev)
+                scale = scale * gates[i]
+                for a, g in zip(acc_tensors, grads):
+                    a.add_(g.mul_(scale))  # JAX's a + scale * g
+            loss_sum = loss_sum + loss.detach() * gates[i]
+        del grads, loss
+        norms.append(norm)
+    with torch.no_grad():
+        norms = torch.stack(norms)
+        new_bound = pipe.dynamic_bound(norms, active, clip_key, clip_bound)
+        if not priv.enabled:
+            return acc, loss_sum / pipe.active_count(active), norms, \
+                noise_state, new_bound
+        with timer.stage("noise"):
+            if pipe.policy.mode == "packed" and priv.mask_mode != "admin":
+                acc = pipe.corrected_noise_packed(acc, keys, noise_state,
+                                                  clip_bound, active)
+            else:
+                pipe.corrected_noise_tree(flatbuf.unpack(layout, acc), keys,
+                                          noise_state, clip_bound, active)
+    return acc, loss_sum / pipe.active_count(active), norms, \
+        pipe.advance_state(keys, noise_state, active), new_bound
+
+
 def _barrier_grads(model: Model, priv: PrivacyConfig, mesh_cfg: MeshConfig,
                    params, batch, keys, noise_state, clip_bound, clip_key,
                    layout, timer: StageTimer, active=None):
@@ -255,16 +318,14 @@ def build_train_step(model: Model, run_cfg: RunConfig, lr_schedule=None,
     contribute neither gradient, noise share nor divisor weight. ``timer``
     (a :class:`StageTimer`) times the step's stages. The master buffer, and
     with it ``state.params``, is updated in place. ``sync_path='barrier'``
-    with privacy on runs :func:`_barrier_grads` over the mesh's silos.
+    with privacy on runs :func:`_barrier_grads` over the mesh's silos;
+    otherwise ``silo_mode='scan'`` runs :func:`_fused_grads_scan`.
     ``elastic=True`` says the caller will pass partial sets: refused on the
     barrier tier under the perleaf policy, whose mask family only builds
     the full ring (a direct call with a partial set there aggregates every
     silo and still divides by the set's count, as JAX's step does)."""
     priv = run_cfg.privacy
     barrier = priv.enabled and priv.sync_path == "barrier"
-    if priv.silo_mode == "scan" and not barrier:
-        raise NotImplementedError(
-            "silo_mode='scan' is not ported yet (ROADMAP.md queue 1, item 9)")
     if elastic and barrier and resolve_policy("packed").mode == "perleaf":
         raise ValueError(
             "elastic membership on the barrier tier needs the packed mask "
@@ -289,6 +350,11 @@ def build_train_step(model: Model, run_cfg: RunConfig, lr_schedule=None,
         if barrier:
             noisy, loss, norms, new_ns, bound = _barrier_grads(
                 model, priv, run_cfg.mesh, state.params, batch, keys,
+                state.noise_state, state.clip_bound, keys.key_clip,
+                state.layout, timer, active=active)
+        elif priv.silo_mode == "scan":
+            noisy, loss, norms, new_ns, bound = _fused_grads_scan(
+                model, priv, state.params, batch, n_silos, keys,
                 state.noise_state, state.clip_bound, keys.key_clip,
                 state.layout, timer, active=active)
         else:

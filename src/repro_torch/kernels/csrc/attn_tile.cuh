@@ -14,8 +14,9 @@
 //   softmax the TC lanes that share a row reduce its max and its sum with
 //           shuffles; they keep m and l in registers (each a copy) and write
 //           p over the scores and alpha = exp(m - m_new) for the P.V step.
-//   P.V     a row's D outputs are D/4 lanes x 4 contiguous dims (28 lanes at
-//           d_head 112, 32 at 128; 2, 4 or 8 rows a warp below 128); each
+//   P.V     a row's D outputs are D/4 lanes x 4 contiguous dims (20 lanes at
+//           d_head 80, 24 at 96, 28 at 112, 32 at 128: one row a warp; 2, 4
+//           or 8 rows a warp at 64, 32, 16); each
 //           lane owns RA rows, so one float4 of V feeds RA rows and a float4
 //           of p four columns.
 // Shared strides are padded to 16 bytes past a multiple of 128, so the

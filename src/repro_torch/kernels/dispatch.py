@@ -93,10 +93,12 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
 
 
 # head dims the paged attention kernels are instantiated for
-# (paged_attention/csrc/paged_attention.cu); the flash kernel also takes
-# zamba2's 112 (flash_attention/csrc/flash_attention.cu)
-HEAD_DIMS = (16, 32, 64, 128)
-FLASH_HEAD_DIMS = (16, 32, 64, 112, 128)
+# (paged_attention/csrc/paged_attention.cu): the smoke configs' 16, 32 and
+# 64, stablelm-3b's 80, phi3-mini-3.8b's 96, qwen2.5-3b's and
+# mistral-large-123b's 128; the flash kernel also takes zamba2's 112
+# (flash_attention/csrc/flash_attention.cu)
+HEAD_DIMS = (16, 32, 64, 80, 96, 128)
+FLASH_HEAD_DIMS = (16, 32, 64, 80, 96, 112, 128)
 
 
 def require(cond: bool, what: str) -> None:

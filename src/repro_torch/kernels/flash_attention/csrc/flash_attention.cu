@@ -13,7 +13,8 @@
 // shared with paged attention (csrc/attn_tile.cuh): register-blocked score
 // micro-tiles read with 16-byte shared loads, the row max and sum by
 // shuffles, and a P.V update in which a row's D outputs are D/4 lanes x 4
-// contiguous dims (28 lanes at d_head 112). The loops stop at the tile's
+// contiguous dims (20 lanes at d_head 80, 24 at 96, 28 at 112: the rest of
+// each warp idles in that step). The loops stop at the tile's
 // real column count; the ragged last tiles are masked, not assumed to
 // divide the sequence. NEG_INF is the same finite -1e30; the last step
 // divides by max(l, 1e-30). Tiles are staged with 16-byte cp.async, single
@@ -109,6 +110,10 @@ REPRO_API int flash_attention_fwd_f32(const float* q, const float* k, const floa
       return launch_flash_rows<32>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, sm_scale, stream);
     case 64:
       return launch_flash_rows<64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, sm_scale, stream);
+    case 80:  // stablelm-3b
+      return launch_flash_rows<80>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, sm_scale, stream);
+    case 96:  // phi3-mini-3.8b
+      return launch_flash_rows<96>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, sm_scale, stream);
     case 112:  // zamba2-7b's shared block
       return launch_flash_rows<112>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, sm_scale, stream);
     case 128:

@@ -46,6 +46,12 @@
 //   page runs split across blocks (at B 4: 128 blocks for decode and a
 //   verify, 256 for a chunk, one 32-token tile each), the causal skip
 //   drops the pages no row sees, and the products are register-blocked.
+//   Head dims 16, 32, 64, 80, 96 and 128. At 80 and 96 (stablelm-3b,
+//   phi3-mini-3.8b) a row's P.V outputs are 20 or 24 lanes, so one row a
+//   warp and 12 or 8 lanes idle in that step; their q/k strides (84, 100
+//   floats) still put 8 consecutive rows' float4 reads in distinct banks.
+//   Both archs are MHA (G 1): a decode step's one folded row sits in a row
+//   tile of 8, so 7 of its rows are padding (correct, wasteful: PERF.md).
 //
 #include "attn_tile.cuh"
 
@@ -236,6 +242,12 @@ REPRO_API int paged_attention_f32(const float* q, const float* k_pages, const fl
                                    Hq, Hkv, N, P, nP, splits, sm_scale, stream);
     case 64:
       return launch_paged_rows<64>(rows, q, k_pages, v_pages, tables, q_start, out, part, B, C,
+                                   Hq, Hkv, N, P, nP, splits, sm_scale, stream);
+    case 80:  // stablelm-3b
+      return launch_paged_rows<80>(rows, q, k_pages, v_pages, tables, q_start, out, part, B, C,
+                                   Hq, Hkv, N, P, nP, splits, sm_scale, stream);
+    case 96:  // phi3-mini-3.8b
+      return launch_paged_rows<96>(rows, q, k_pages, v_pages, tables, q_start, out, part, B, C,
                                    Hq, Hkv, N, P, nP, splits, sm_scale, stream);
     case 128:
       return launch_paged_rows<128>(rows, q, k_pages, v_pages, tables, q_start, out, part, B, C,

@@ -5,7 +5,13 @@ Thin CLI over :meth:`repro_torch.api.Session.train`, with the JAX package's
 flags (``repro/launch/train.py``) plus ``--device``. Runs the smoke config
 on ``cuda`` unless ``--device cpu``; ``--full`` takes the published config.
 ``--sync-path`` picks the DP tier: ``fused`` (the central aggregate) or
-``barrier`` (the paper's per-silo masked contributions).
+``barrier`` (the paper's per-silo masked contributions); ``--silo-mode
+scan`` runs the fused tier silo after silo into one accumulator (the port's
+flag: JAX's CLI leaves ``silo_mode`` at vmap); ``--mask-mode admin`` the
+paper's admin-drawn masks on either tier. ``--arch`` takes every ported
+arch (``stablelm-3b`` and ``phi3-mini-3.8b`` too; ``--full`` is the
+published config, which at full depth needs more than one card's memory
+for the dense ones on the vmap tier).
 
 One flag reads differently from JAX's: with ``--sync-path barrier`` the
 JAX CLI runs one silo per local device, while the port runs ``--silos``
@@ -19,13 +25,14 @@ published width, ``--silos`` dataset owners, synthetic MNIST), as the JAX
 CLI does: pipelined, or fault-tolerant with ``--round-timeout`` (a round's
 deadline), ``--quorum`` (the responders a round needs, also the
 membership floor), ``--chaos-seed`` (a seeded ``FaultPlan``) and
-``--journal`` (a round journal, resumed from when the file exists). Under
+``--journal`` (a round journal, resumed from when the file exists), and
+``--mask-mode`` (which JAX's wire CLI leaves at pairwise). Under
 ``--round-timeout`` the plan's hangs are scaled to outlast the deadline
 (``hang_s`` at least twice it; JAX keeps 0.5 s whatever the deadline).
 
 Not ported yet, each raising ``NotImplementedError`` with its
-``ROADMAP.md`` item: ``--checkpoint-dir``, ``--elastic``,
-``--silo-epsilon-budget`` and ``--mask-mode admin``.
+``ROADMAP.md`` item: ``--checkpoint-dir``, ``--elastic`` and
+``--silo-epsilon-budget``.
 """
 from __future__ import annotations
 
@@ -87,7 +94,7 @@ def run_wire(args):
     n = args.silos
     train, _ = synthetic_mnist(n_train=1024, n_test=256)
     priv = PrivacyConfig(enabled=not args.no_privacy, sigma=args.sigma,
-                         clip_bound=1.0)
+                         clip_bound=1.0, mask_mode=args.mask_mode)
     sm = build_small_model(MNIST_MLP3)
     dev = resolve_device(args.device)
     params = sm.init(torch.Generator(device=dev).manual_seed(1))
@@ -168,8 +175,12 @@ def main(argv=None):
     ap.add_argument("--mask-mode", default="pairwise",
                     choices=("pairwise", "admin", "none"),
                     help="zero-sum mask construction: key-derived pairwise "
-                         "(default) or none (confidentiality-only); admin "
-                         "is not ported yet")
+                         "(default), admin-drawn (the paper's O(n*P) mask "
+                         "set) or none (confidentiality-only)")
+    ap.add_argument("--silo-mode", default="vmap", choices=("vmap", "scan"),
+                    help="fused tier: every silo's gradient stacked (vmap) "
+                         "or silo after silo into one accumulator (scan: "
+                         "two fewer P-sized buffers)")
     ap.add_argument("--checkpoint-dir", default=None,
                     help="not ported yet (ROADMAP.md queue 1, item 10)")
     ap.add_argument("--epsilon-budget", type=float, default=None,
@@ -225,7 +236,8 @@ def main(argv=None):
                               clip_bound=1.0, dynamic_clip=args.dynamic_clip,
                               noise_lambda=args.lam, n_silos=args.silos,
                               sync_path=args.sync_path,
-                              mask_mode=args.mask_mode),
+                              mask_mode=args.mask_mode,
+                              silo_mode=args.silo_mode),
         optimizer=OptimizerConfig(name="adamw", lr=args.lr))
     schedule = drop_schedule(args.drop_silos,
                              effective_n_silos(sess.run_cfg)) \
@@ -237,8 +249,9 @@ def main(argv=None):
                         silo_epsilon_budget=args.silo_epsilon_budget,
                         elastic=args.elastic, silo_schedule=schedule)
     final = result.final
-    print(f"done at step {result.step} on {sess.device} "
-          f"({args.sync_path} tier): "
+    tier = args.sync_path if args.sync_path == "barrier" \
+        or args.silo_mode == "vmap" else "fused scan"
+    print(f"done at step {result.step} on {sess.device} ({tier} tier): "
           f"loss={final.get('loss', float('nan')):.4f}"
           + (f" eps={final['epsilon']:.3f}" if "epsilon" in final else "")
           + (f" contributions={final['n_contributions']:.0f}"

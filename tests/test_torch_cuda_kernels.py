@@ -129,6 +129,16 @@ def _paged(dev, B, C, Hq, Hkv, D, N, P, nP, q_start, seed=0):
     (4, 4, 16, 2, 128, 64, 16, 7, [0, 37, 108, -1]),
     (4, 16, 16, 2, 128, 64, 16, 9, [0, 48, 128, -1]),
     (4, 4, 8, 2, 64, 40, 4, 13, [0, 17, 48, -1]),
+    # stablelm-3b (d_head 80) and phi3-mini-3.8b (96): MHA, 32 kv heads, a
+    # row's P.V outputs on 20 or 24 lanes; the serving shapes and odd pages
+    (4, 1, 32, 32, 80, 160, 16, 32, [0, 170, 511, -1]),
+    (4, 4, 32, 32, 80, 160, 16, 32, [0, 170, 508, -1]),
+    (4, 16, 32, 32, 80, 160, 16, 32, [0, 170, 496, -1]),
+    (4, 1, 32, 32, 96, 160, 16, 32, [0, 170, 511, -1]),
+    (4, 4, 32, 32, 96, 160, 16, 32, [0, 170, 508, -1]),
+    (4, 16, 32, 32, 96, 160, 16, 32, [0, 170, 496, -1]),
+    (3, 4, 8, 4, 80, 40, 8, 9, [5, 60, -1]),
+    (3, 16, 8, 8, 96, 40, 8, 9, [0, 33, 56]),
 ])
 def test_paged_attention_kernel_matches_plain(cuda, B, C, Hq, Hkv, D, N, P,
                                               nP, q_start):
@@ -393,6 +403,10 @@ def test_page_pool_launches_once_an_event(cuda):
     (2, 100, 8, 4, 112, False),
     (4, 32, 16, 2, 128, False),
     (2, 33, 16, 2, 128, True),
+    (4, 32, 32, 32, 80, True),     # stablelm-3b's prefill
+    (4, 32, 32, 32, 96, True),     # phi3-mini-3.8b's prefill
+    (2, 77, 8, 4, 80, True),
+    (2, 100, 8, 8, 96, False),
 ])
 def test_flash_kernel_matches_plain(cuda, B, S, Hq, Hkv, D, causal):
     g = torch.Generator(device=cuda).manual_seed(2)

@@ -157,9 +157,15 @@ def test_global_norm_matches_float64():
 
 
 def test_unported_constructions_raise():
+    """The constructions a pipeline refuses: an unknown mask mode, and
+    external streams outside the packed pairwise construction. The admin
+    construction builds, and the admin's closing row given to the closing
+    silo is the row that silo would draw."""
     _, tl = _layouts()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DPPipeline(PrivacyConfig(mask_mode="admin"), tl, 4)
+    with pytest.raises(ValueError, match="pairwise|admin|none"):
+        DPPipeline(PrivacyConfig(mask_mode="ring"), tl, 4)
+    admin = DPPipeline(dataclasses.replace(PrivacyConfig(), n_silos=4,
+                                           mask_mode="admin"), tl, 4)
     pipe = DPPipeline(dataclasses.replace(PrivacyConfig(), n_silos=4), tl, 4)
     g = torch.zeros(tl.total)
     args = (g, 0, torch.tensor(1.0), None, BarrierKeys(*KEYS),
@@ -173,5 +179,14 @@ def test_unported_constructions_raise():
     xi = pipe.noise_stream(KEYS[1], 0, "cpu")
     assert torch.equal(pipe.silo_contribution(*args, xi=xi),
                        pipe.silo_contribution(*args))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 9"):
-        pipe.silo_contribution(*args, admin_row=g)
+    ns = args[5]
+    closing, row = admin.admin_closing_row(
+        flatbuf.unpack(tl, g), None, BarrierKeys(*KEYS), ns,
+        torch.tensor(1.0))
+    assert closing == 3
+    targs = (torch.rand(tl.total, generator=torch.Generator().manual_seed(0)),
+             3) + args[2:]
+    assert torch.equal(admin.silo_contribution(*targs, admin_row=row),
+                       admin.silo_contribution(*targs))
+    with pytest.raises(ValueError, match="packed pairwise"):
+        admin.silo_contribution(*targs, xi=g)

@@ -2,8 +2,9 @@
 CPU (``--device cpu``, the kernels' plain versions): both DP tiers, the
 drop schedule, the spend report, the wire tier's rounds (``--wire-rounds``;
 fault-tolerant with ``--chaos-seed``, ``--round-timeout``, ``--quorum`` and
-``--journal``), the flags whose paths are not ported yet, and the refusal
-to fall back to the CPU without ``--device``."""
+``--journal``), the flags whose paths are not ported yet, ``--mask-mode
+admin`` and ``--silo-mode scan``, and the refusal to fall back to the CPU
+without ``--device``."""
 import json
 import os
 import subprocess
@@ -73,8 +74,21 @@ def test_drop_schedule_reads_step_silo_cooldown(capsys):
     (["--mask-mode", "admin"], "item 9"),
 ])
 def test_unported_flags_raise(flags, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, {item}"):
-        train.main(SMALL + flags)
+    """The flags of ROADMAP item 10 raise, naming the item. ``--mask-mode
+    admin`` (item 9) trains on both tiers and the silo-serial scan tier,
+    and reaches the wire tier's rounds."""
+    if item != "item 9":
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP.md queue 1, {item}"):
+            train.main(SMALL + flags)
+        return
+    for extra in ([], ["--sync-path", "barrier"], ["--silo-mode", "scan"]):
+        res = train.main(SMALL + flags + ["--lam", "0.7"] + extra)
+        assert res.trainer.run_cfg.privacy.mask_mode == "admin"
+        assert res.step == 2 and np.isfinite(res.final["loss"])
+    sess, losses = train.main(["--device", "cpu", "--wire-rounds", "2"]
+                              + flags)
+    assert sess.privacy.mask_mode == "admin" and len(losses) == 2
 
 
 def test_cli_runs_wire_rounds_on_cpu(tmp_path, capsys):

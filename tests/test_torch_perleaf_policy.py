@@ -174,8 +174,13 @@ def test_corrected_noise_matches_jax(has_prev, lam):
         jtree, jnp.asarray(key_t, jnp.uint32),
         jnoise.NoiseState(jnp.asarray(prev, jnp.uint32), jnp.asarray(has_prev)),
         jnp.float32(1.2), lam)
+    # the port adds the noise into the tree it is given: into zeros, the
+    # noise itself (JAX returns the noise tree)
+    zeros = {k: [torch.zeros_like(t) for t in v] if isinstance(v, list)
+             else torch.zeros_like(v) for k, v in ttree.items()}
     tn, tst = noise_correction.corrected_noise(
-        ttree, key_t, NoiseState(prev, has_prev), torch.tensor(1.2), lam)
+        zeros, key_t, NoiseState(prev, has_prev), torch.tensor(1.2), lam)
+    assert tn is zeros
     layout = flatbuf.layout_of(ttree)
     np.testing.assert_allclose(
         flatbuf.pack(layout, tn).numpy(),

@@ -32,7 +32,8 @@ from repro.distributed import steps as jsteps
 from repro.optim.optimizers import make_optimizer as jax_make_optimizer
 from repro_torch.api import Session
 from repro_torch.configs import get_smoke_config
-from repro_torch.configs.base import OptimizerConfig, PrivacyConfig
+from repro_torch.configs.base import (MeshConfig, OptimizerConfig,
+                                      PrivacyConfig)
 from repro_torch.core import flatbuf, prng
 from repro_torch.core.barrier import step_keys
 from repro_torch.distributed import steps as tsteps
@@ -186,9 +187,22 @@ def test_train_raises_without_cuda_unless_asked_for_cpu(monkeypatch):
     ({}, dict(step_deadline_s=1.0)),
 ])
 def test_unported_training_paths_raise(priv, train_kw):
+    """The trainer options of ROADMAP item 10 raise, naming the item. The
+    first three cases (admin masks on both tiers, the silo-serial scan
+    tier: item 9) train a step through ``Session.train``, launching no
+    kernel on the CPU, to a finite loss."""
     sess = Session.from_config(ARCH, device="cpu", privacy=PrivacyConfig(
-        **{**QUICKSTART, **priv}))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        **{**QUICKSTART, **priv}),
+        mesh=MeshConfig((4,), ("data",)) if priv.get("sync_path") else None)
+    if priv:
+        before = dispatch.launch_counts()
+        res = sess.train(steps=1, batch_size=4, seq_len=8, **train_kw)
+        assert res.step == 1 and np.isfinite(res.final["loss"])
+        assert res.final["n_contributions"] == 4
+        assert dispatch.launch_counts() == before
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, "
+                                                  "item 10"):
         sess.train(steps=1, batch_size=4, seq_len=8, **train_kw)
 
 

@@ -509,10 +509,18 @@ def test_grad_fn_writing_into_params_cannot_corrupt_the_delta_base(jax_init):
 
 
 def test_no_quiet_cpu_and_unported_features_raise(jax_init, monkeypatch):
+    """No quiet fall back to the CPU. Admin masks run a round: the admin
+    draws the closing row once, and the handlers' update matches a
+    session whose handlers draw it themselves."""
     adm, params, grad_fn, update_fn = port_session(jax_init,
                                                    mask_mode="admin")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 9"):
-        adm.step(0, params, grad_fn, update_fn, lr=LR)
+    own, _, _, _ = port_session(jax_init, mask_mode="admin")
+    own.admin.closing_mask_row = lambda *a, **kw: None  # handlers draw it
+    pa, la = adm.step(0, params, grad_fn, update_fn, lr=LR)
+    pb, lb = own.step(0, params, grad_fn, update_fn, lr=LR)
+    assert la == lb and np.isfinite(la)
+    np.testing.assert_array_equal(_bits(_port_packed(pa)),
+                                  _bits(_port_packed(pb)))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         CollaborativeSession.from_silos(_silos(), PrivacyConfig(sigma=SIGMA))
