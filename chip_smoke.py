@@ -22,6 +22,7 @@ against the host CPU.
     python3 chip_smoke.py --bwd [--src DIR]     # phase 17's backward kernels
     python3 chip_smoke.py --streams [--src DIR] # rows 8, 13, 14 alone
     python3 chip_smoke.py --slice15             # phase 18 alone
+    python3 chip_smoke.py --persist             # phase 19 alone
 
 ``--scans`` runs only the card line, the build and phase 11's scans (their
 checks and times, no launch configuration), from the ``repro_torch`` under
@@ -219,7 +220,27 @@ Phases (any failed check raises, and the script exits non-zero):
      tolerances); (d) the silo-serial scan tier on qwen2.5-3b at the
      largest of 36, 30, ... layers that fits (2 steps, step and stage
      times, peak memory), and a narrow scan step against the vmap step
-     under the per-leaf policy, card vs CPU (NOISY_ATOL).
+     under the per-leaf policy, card vs CPU (NOISY_ATOL);
+ 19. the Trainer's ledger wiring and persistence at qwen2.5-3b's published
+     width and 2 of 36 layers (P = 776,485,888; an AdamW checkpoint in
+     JAX's layout is 12.4 GB, written to a temporary directory outside the
+     repo whose free space is read first; phase 7's privacy settings, a
+     ``FederatedBatcher`` over synthetic token rows as ``batch_state``):
+     (a) 2 fused steps, a checkpoint, a fresh Trainer and 2 more steps
+     bit-equal to 4 steps without a break (master, m, v, clip bound, noise
+     state, ledger, losses), the buffers never rebound, the padding zero,
+     the checkpoint's bytes and its save (device to host, write, hash) and
+     restore (read, hash, host to device) seconds, reckoned for 12 and 36
+     layers; (b) the barrier tier with a budget silo 3 spends in step 1:
+     ``clip_mask`` 3 times in step 2, silo 3's epsilon still, the budget
+     enforced after a resume without budget flags; (c) an escalation under
+     a step deadline drops the latency hook's slow silo for a 2-step
+     cooldown and it rejoins, and barrier == fused over the 3-silo ring
+     (MASK_ATOL_PER_B); (d) SIGTERM from inside ``next_batch``, resumed ==
+     uninterrupted bit for bit; (e) the training CLI's ``--checkpoint-dir``
+     (then a resume), ``--elastic`` and ``--silo-epsilon-budget``; (f) a
+     narrow checkpoint written on the card restored on the CPU, the next
+     step's loss within TRAIN_RTOL.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -1594,12 +1615,415 @@ def streams_phase(dev, src: Path) -> dict:
             "configs": configs}
 
 
+# --------------------------------------------------------------- phase 19
+# qwen2.5-3b at published width cut to 2 of 36 layers for the disk: an
+# AdamW checkpoint in JAX's layout holds params, master, m and v (16 bytes a
+# parameter: 12.4 GB here, 24.8 GB at phase 7's 12 layers, 54.4 GB at 36)
+PERSIST_LAYERS = 2
+PERSIST_P = 776_485_888  # its packed length
+# the budget silo 3 spends in step 1 (sigma 0.3 gives eps ~ 15 a step)
+PERSIST_BUDGET = 1e-3
+
+
+def padding_max(layout, buf) -> float:
+    """Largest |value| at the packed padding of ``buf``."""
+    worst = 0.0
+    for size, pad, off in zip(layout.sizes, layout.padded, layout.offsets):
+        if pad > size:
+            worst = max(worst, buf[off + size:off + pad].abs().max().item())
+    tail = buf[layout.offsets[-1] + layout.padded[-1]:]
+    return max(worst, tail.abs().max().item() if tail.numel() else 0.0)
+
+
+def persist_phase(dev) -> dict:
+    """Phase 19: the Trainer's checkpoint/resume, per-silo budgets, elastic
+    membership, the deadline and SIGTERM preemption on the card, at
+    qwen2.5-3b's published width and 2 layers (4 silos, batch 16 x 64,
+    sigma 0.3, dynamic clipping, lambda 0.7, AdamW 1e-3, a FederatedBatcher
+    over synthetic token rows as ``batch_state``): (a) fused tier, 2 steps,
+    a checkpoint, a fresh Trainer and 2 more steps bit-equal to 4 steps
+    without a break (master, m, v, clip bound, noise state, the ledger's
+    state dict, the losses), the buffers never rebound and the padding
+    zero; the checkpoint's bytes and its save and restore split; (b) the
+    barrier tier with a budget silo 3 spends in step 1: ``clip_mask`` 3
+    times in step 2, silo 3's epsilon still, and the checkpoint's budgets
+    enforced on a resume without budget flags; (c) elastic: an escalation
+    driven as JAX's test drives it drops silo 2 (the latency hook's slow
+    silo) for a 2-step cooldown, then it rejoins, under a step deadline;
+    barrier == fused over the 3-silo ring; (d) SIGTERM from inside
+    ``next_batch``: the checkpoint written, the resumed run == (a)'s
+    uninterrupted one; (e) the training CLI's --checkpoint-dir (then a
+    resume), --elastic and --silo-epsilon-budget; (f) a narrow checkpoint
+    written on the card restored on the CPU, its next step's loss within
+    TRAIN_RTOL of the card's. Checkpoints go to a temporary directory
+    outside the repo, whose free space is read first."""
+    import shutil
+    import signal
+    import tempfile
+
+    from repro_torch.api import Session
+    from repro_torch.checkpoint import checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import (MeshConfig, OptimizerConfig,
+                                          PrivacyConfig, reduce_for_smoke)
+    from repro_torch.core import flatbuf, prng
+    from repro_torch.core.barrier import step_keys
+    from repro_torch.core.noise_correction import NoiseState
+    from repro_torch.data.pipeline import FederatedBatcher
+    from repro_torch.data.synthetic import ArrayDataset, synthetic_tokens
+    from repro_torch.distributed import steps as steps_mod
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.packing import pack_params
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    t19 = time.perf_counter()
+    cut = dataclasses.replace(get_config("qwen2.5-3b"),
+                              n_layers=PERSIST_LAYERS)
+    narrow = reduce_for_smoke(get_config("qwen2.5-3b"), n_layers=2,
+                              d_model=256, n_heads=4, n_kv_heads=2,
+                              d_head=64, d_ff=512, vocab_size=4096)
+    priv = PrivacyConfig(enabled=True, sigma=0.3, clip_bound=1.0,
+                         dynamic_clip=True, noise_lambda=0.7, n_silos=4)
+    priv_b = dataclasses.replace(priv, sync_path="barrier")
+    opt = OptimizerConfig(name="adamw", lr=1e-3)
+    mesh4 = MeshConfig((4,), ("data",))
+
+    def rows(vocab: int):
+        t = synthetic_tokens(64, 64, vocab, seed=19)
+        return ArrayDataset(t[:, :-1], t[:, 1:]).split(4)
+
+    rows_cut, rows_narrow = rows(cut.vocab_size), rows(narrow.vocab_size)
+    totals: dict = {}
+    report: dict = {}
+
+    def run(p, mesh, steps, ckpt=None, cfg=cut, data=rows_cut, device=None,
+            sigterm_at=None, hook=None, prime=None, **tk):
+        """One Trainer over a fresh session and state: each next_batch
+        snapshots the launch counts (zeroed before the fit), and
+        ``sigterm_at`` sends SIGTERM from inside that call."""
+        sess = Session.from_config(cfg, privacy=p, optimizer=opt, mesh=mesh,
+                                   seed=0, device=device)
+        fb = FederatedBatcher(data, per_silo_batch=4)
+        counts = []
+
+        def next_batch():
+            if len(counts) == sigterm_at:
+                os.kill(os.getpid(), signal.SIGTERM)
+            counts.append(dispatch.launch_counts())
+            b = fb.next()
+            return {"tokens": torch.as_tensor(b["x"], dtype=torch.long).to(
+                sess.device), "labels": torch.as_tensor(
+                b["y"], dtype=torch.long).to(sess.device)}
+
+        tr = Trainer(sess.model, sess.run_cfg, TrainerConfig(
+            total_steps=steps, checkpoint_dir=None if ckpt is None
+            else str(ckpt), keep_checkpoints=1, log_every=0, **tk),
+            next_batch, batch_state=fb, silo_latency_hook=hook)
+        if prime is not None:
+            prime(tr)
+        state = sess.init_state()
+        ptrs = {k: v.data_ptr() for k, v in state.opt_state.items()
+                if isinstance(v, torch.Tensor)}
+        old = tr.install_preemption_handler()
+        dispatch.reset_launches()
+        try:
+            state, step = tr.fit(state, prng.PRNGKey(1))
+        finally:
+            signal.signal(signal.SIGTERM, old)
+        counts.append(dispatch.launch_counts())
+        for k, v in counts[-1].items():
+            if v:
+                totals[k] = totals.get(k, 0) + v
+        mst = state.opt_state["master"]
+        base = mst.untyped_storage().data_ptr()
+        kept = all(state.opt_state[k].data_ptr() == ptr
+                   for k, ptr in ptrs.items()) and all(
+            q.untyped_storage().data_ptr() == base
+            for q in state.params.parameters())
+        return types.SimpleNamespace(tr=tr, state=state, step=step,
+                                     counts=counts, kept=kept, sess=sess)
+
+    def delta(r, i, name):
+        """``name``'s launches in the run's step i (counts snapshot at each
+        next_batch, and once after the fit)."""
+        return r.counts[i + 1].get(name, 0) - r.counts[i].get(name, 0)
+
+    def same(x, y) -> dict:
+        a, b = x.state, y.state
+        out = {k: torch.equal(a.opt_state[k], b.opt_state[k])
+               for k in ("master", "m", "v")}
+        out["count"] = a.opt_state["count"] == b.opt_state["count"]
+        out["clip_bound"] = torch.equal(a.clip_bound, b.clip_bound)
+        na, nb = a.noise_state, b.noise_state
+        out["noise_state"] = (na.prev_key == nb.prev_key
+                              and na.has_prev == nb.has_prev
+                              and np.array_equal(na.prev_active,
+                                                 nb.prev_active))
+        out["ledger"] = json.dumps(x.tr.accountant.state_dict(),
+                                   sort_keys=True) == json.dumps(
+            y.tr.accountant.state_dict(), sort_keys=True)
+        out["losses"] = [m["loss"] for m in x.tr.metrics_log] == \
+            [m["loss"] for m in y.tr.metrics_log]
+        return out
+
+    def hold_resumed(ref, resumed, what: str) -> dict:
+        eq = same(ref, resumed)
+        if not all(eq.values()):
+            # first show whether two uninterrupted runs differ the same way
+            again = run(priv, None, ref.step)
+            check(False, f"{what}: resumed vs uninterrupted {eq}; two "
+                         f"uninterrupted runs {same(ref, again)}")
+        return eq
+
+    root = Path(tempfile.mkdtemp(prefix="persist_"))
+    try:
+        # (a) fused tier: resume == uninterrupted
+        t0 = time.perf_counter()
+        U = run(priv, None, 4)
+        layout = U.state.layout
+        check(layout.total == PERSIST_P,
+              f"phase 19 packed length {layout.total} != {PERSIST_P}")
+        per_layer = sum(s // k for s, k in zip(layout.sizes, layout.stacks)
+                        if k)
+        need = 2 * 16 * layout.n_params + (1 << 30)
+        free = shutil.disk_usage(root).free
+        report["disk"] = {"dir": str(root), "free_bytes": free,
+                          "need_bytes": need}
+        log(f"[persist] {root}: {free / 1e9:.1f} GB free, two checkpoints "
+            f"need {need / 1e9:.1f} GB")
+        check(free >= need,
+              f"phase 19: {free / 1e9:.1f} GB free under {root}, but two "
+              f"AdamW checkpoints of P = {layout.n_params} need "
+              f"{need / 1e9:.1f} GB (set TMPDIR to a larger disk)")
+        I1 = run(priv, None, 2, ckpt=root / "a")
+        save = I1.tr.checkpoint_log[-1]
+        del I1
+        torch.cuda.empty_cache()
+        I2 = run(priv, None, 4, ckpt=root / "a")
+        check(I2.tr.restored_step == 2, f"(a) resumed at "
+                                        f"{I2.tr.restored_step}, not 2")
+        restore = I2.tr.checkpoint_log[0]
+        eq_a = hold_resumed(U, I2, "(a)")
+        pad = max(padding_max(layout, I2.state.opt_state[k])
+                  for k in ("master", "m", "v"))
+        check(I2.kept and pad == 0.0,
+              f"(a) after the restore: buffers kept {I2.kept}, padding "
+              f"max {pad}")
+        n_layers = {n: layout.n_params + (n - PERSIST_LAYERS) * per_layer
+                    for n in (PERSIST_LAYERS, 12, 36)}
+        report["a"] = {"equal": eq_a, "buffers_kept": I2.kept,
+                       "padding_max": pad, "save": save, "restore": restore,
+                       "n_params": n_layers,
+                       "reckoned": {n: {"bytes": save["bytes"] * p
+                                        / layout.n_params,
+                                        "save_s": save["s"] * p
+                                        / layout.n_params,
+                                        "restore_s": restore["s"] * p
+                                        / layout.n_params}
+                                    for n, p in n_layers.items()},
+                       "s": time.perf_counter() - t0}
+        log(f"[persist] (a) fused: 2 steps + checkpoint + fresh Trainer + "
+            f"2 steps == 4 steps bit for bit {eq_a} | buffers kept, "
+            f"padding 0 | checkpoint {save['bytes'] / 1e9:.3f} GB: save "
+            f"{save['s']:.2f} s (d2h {save['d2h_s']:.2f}, write "
+            f"{save['write_s']:.2f}, hash {save['hash_s']:.2f}), restore "
+            f"{restore['s']:.2f} s (read {restore['read_s']:.2f}, hash "
+            f"{restore['hash_s']:.2f}, h2d {restore['h2d_s']:.2f}) | "
+            f"reckoned at 12 / 36 layers: "
+            + " / ".join(f"{r['bytes'] / 1e9:.1f} GB save {r['save_s']:.1f} "
+                         f"s restore {r['restore_s']:.1f} s"
+                         for n, r in report["a"]["reckoned"].items()
+                         if n != PERSIST_LAYERS)
+            + f" | {report['a']['s']:.1f} s")
+        del I2
+        shutil.rmtree(root / "a")
+        torch.cuda.empty_cache()
+
+        # (b) the barrier tier with a budget silo 3 spends in step 1
+        t0 = time.perf_counter()
+        B1 = run(priv_b, mesh4, 2, ckpt=root / "b",
+                 silo_budgets={3: PERSIST_BUDGET})
+        m = B1.tr.metrics_log
+        eps3 = [e["epsilon_per_silo"][3] for e in m]
+        eps0 = [e["epsilon_per_silo"][0] for e in m]
+        step2 = delta(B1, 1, "clip_mask")
+        check([e["n_contributions"] for e in m] == [4.0, 3.0]
+              and delta(B1, 0, "clip_mask") == 4 and step2 == 3
+              and eps3[1] == eps3[0] and eps0[1] > eps0[0]
+              and B1.tr.membership.excluded == (3,),
+              f"(b) contributions {[e['n_contributions'] for e in m]}, "
+              f"clip_mask {B1.counts}, silo 3 eps {eps3}, excluded "
+              f"{B1.tr.membership.excluded}")
+        del B1
+        torch.cuda.empty_cache()
+        B2 = run(priv_b, mesh4, 3, ckpt=root / "b")  # no budget flags
+        check(B2.tr.restored_step == 2
+              and B2.tr.accountant.budget_for(3) == PERSIST_BUDGET
+              and B2.tr.membership.excluded == (3,)
+              and B2.tr.metrics_log[-1]["n_contributions"] == 3.0
+              and delta(B2, 0, "clip_mask") == 3,
+              f"(b) resumed without budget flags: step "
+              f"{B2.tr.restored_step}, budget "
+              f"{B2.tr.accountant.budget_for(3)}, excluded "
+              f"{B2.tr.membership.excluded}, launches {B2.counts}")
+        report["b"] = {"contributions": [e["n_contributions"] for e in
+                                         B2.tr.metrics_log],
+                       "silo3_eps": eps3, "clip_mask_step2": step2,
+                       "s": time.perf_counter() - t0}
+        log(f"[persist] (b) barrier, budget {PERSIST_BUDGET} for silo 3: "
+            f"contributions {report['b']['contributions']}, clip_mask 4 / 3 "
+            f"/ 3 a step, silo 3 eps {eps3[0]:.4f} -> {eps3[1]:.4f}, kept "
+            f"out after a resume without budget flags | "
+            f"{report['b']['s']:.1f} s")
+        del B2
+        shutil.rmtree(root / "b")
+        torch.cuda.empty_cache()
+
+        # (c) elastic: an escalation drops silo 2 for 2 steps
+        t0 = time.perf_counter()
+        slow = [0.1, 0.1, 0.7, 0.1]
+
+        def escalate(tr):
+            tr.telemetry.observe_all(slow)  # the hook's first feed
+            for _ in range(tr.straggler.escalate_after):
+                tr.straggler.observe(1e9)
+
+        E = run(priv_b, mesh4, 3, elastic=True, elastic_cooldown=2,
+                step_deadline_s=600.0, hook=lambda step: slow,
+                prime=escalate)
+        ev = [(e["action"], e["silo"], e["step"])
+              for e in E.tr.membership.events]
+        contrib = [e["n_contributions"] for e in E.tr.metrics_log]
+        check(ev == [("drop", 2, 0), ("rejoin", 2, 2)]
+              and contrib == [3.0, 3.0, 4.0]
+              and [delta(E, i, "clip_mask") for i in range(3)] == [3, 3, 4],
+              f"(c) membership {ev}, contributions {contrib}, launches "
+              f"{E.counts}")
+        del E
+        torch.cuda.empty_cache()
+        bsess = Session.from_config(cut, privacy=priv_b, optimizer=opt,
+                                    mesh=mesh4, seed=0)
+        params = bsess.init_params()
+        lay, _ = pack_params(params)
+        fb = FederatedBatcher(rows_cut, per_silo_batch=4)
+        b = fb.next()
+        batch = {"tokens": torch.as_tensor(b["x"], dtype=torch.long).to(dev),
+                 "labels": torch.as_tensor(b["y"], dtype=torch.long).to(dev)}
+        keys = step_keys(prng.PRNGKey(1), 0)
+        primed = NoiseState(step_keys(prng.PRNGKey(4), 0).key_xi, True,
+                            np.ones(4, bool))
+        c0 = torch.tensor(1.0, dtype=torch.float32, device=dev)
+        active = np.array([True, True, False, True])
+        args = (keys, primed, c0, keys.key_clip, lay)
+        f_agg, f_loss, _, _, f_bound = steps_mod._fused_grads(
+            bsess.model, priv, params, batch, 4, *args,
+            steps_mod.StageTimer(dev), active=active)
+        flatbuf.zero_padding(lay, f_agg)
+        b_agg, b_loss, _, _, b_bound = steps_mod._barrier_grads(
+            bsess.model, priv_b, mesh4, params, batch, *args,
+            steps_mod.StageTimer(dev), active=active)
+        flatbuf.zero_padding(lay, b_agg)
+        B = priv.mask_scale * priv.sigma * float(b_bound)
+        err = chunked_max_diff(b_agg, f_agg)
+        check(err <= MASK_ATOL_PER_B * B
+              and math.isclose(float(b_loss), float(f_loss),
+                               rel_tol=TRAIN_RTOL),
+              f"(c) barrier vs fused over silos 0, 1, 3: aggregate differs "
+              f"by {err} (tolerance {MASK_ATOL_PER_B * B}), loss "
+              f"{float(b_loss)} / {float(f_loss)}")
+        report["c"] = {"events": ev, "contributions": contrib,
+                       "aggregate_max_abs_err": err,
+                       "tolerance": MASK_ATOL_PER_B * B,
+                       "s": time.perf_counter() - t0}
+        log(f"[persist] (c) elastic: escalation drops silo 2 at step 0, "
+            f"rejoins at 2 {ev}, contributions {contrib} | barrier vs fused "
+            f"over silos 0, 1, 3 (primed noise state, silo 2 in at t-1): "
+            f"max |diff| {err:.3g} (<= {MASK_ATOL_PER_B * B:.3g}) | "
+            f"{report['c']['s']:.1f} s")
+        del bsess, params, f_agg, b_agg, batch
+        torch.cuda.empty_cache()
+
+        # (d) SIGTERM from inside next_batch
+        t0 = time.perf_counter()
+        D1 = run(priv, None, 4, ckpt=root / "d", sigterm_at=2)
+        check(D1.step == 3
+              and checkpointer.latest_step(root / "d") == 3,
+              f"(d) SIGTERM: returned at {D1.step}, latest checkpoint "
+              f"{checkpointer.latest_step(root / 'd')}")
+        del D1
+        torch.cuda.empty_cache()
+        D2 = run(priv, None, 4, ckpt=root / "d")
+        check(D2.tr.restored_step == 3, f"(d) resumed at "
+                                        f"{D2.tr.restored_step}")
+        eq_d = hold_resumed(U, D2, "(d)")
+        report["d"] = {"equal": eq_d, "s": time.perf_counter() - t0}
+        log(f"[persist] (d) SIGTERM in step 2's next_batch: saved at step 3,"
+            f" resumed == uninterrupted bit for bit {eq_d} | "
+            f"{report['d']['s']:.1f} s")
+        del D2, U
+        shutil.rmtree(root / "d")
+        torch.cuda.empty_cache()
+
+        # (e) the training CLI
+        t0 = time.perf_counter()
+        env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+        base = [sys.executable, "-m", "repro_torch.launch.train"]
+        ck = ["--checkpoint-dir", str(root / "e")]
+        report["e"] = []
+        for flags, want in ((ck + ["--steps", "2"], ["done at step 2"]),
+                            (ck + ["--steps", "3"],
+                             [f"resumed from {root / 'e'} at step 2",
+                              "done at step 3"]),
+                            (["--elastic", "--silo-epsilon-budget", "1000",
+                              "--steps", "2"], ["done at step 2"])):
+            t1 = time.perf_counter()
+            r = subprocess.run(base + flags, cwd=ROOT, capture_output=True,
+                               text=True, timeout=600, env=env)
+            check(r.returncode == 0 and all(w in r.stdout for w in want),
+                  f"training CLI {flags} failed ({r.returncode}):\n"
+                  f"{r.stdout}\n{r.stderr}")
+            done = next(x for x in r.stdout.splitlines()
+                        if x.startswith("done"))
+            report["e"].append({"flags": " ".join(flags),
+                                "s": time.perf_counter() - t1, "last": done})
+            log(f"[persist] (e) {' '.join(flags)}: exit 0 in "
+                f"{time.perf_counter() - t1:.1f} s | {done}")
+
+        # (f) a checkpoint written on the card, restored on the CPU
+        t0 = time.perf_counter()
+        run(priv, None, 2, ckpt=root / "f", cfg=narrow, data=rows_narrow)
+        shutil.copytree(root / "f", root / "f_cpu")
+        Fg = run(priv, None, 3, ckpt=root / "f", cfg=narrow,
+                 data=rows_narrow)
+        Fc = run(priv, None, 3, ckpt=root / "f_cpu", cfg=narrow,
+                 data=rows_narrow, device="cpu")
+        lg, lc = Fg.tr.metrics_log[-1]["loss"], Fc.tr.metrics_log[-1]["loss"]
+        check(Fg.tr.restored_step == Fc.tr.restored_step == 2
+              and not any(Fc.counts[-1].values())
+              and math.isclose(lg, lc, rel_tol=TRAIN_RTOL),
+              f"(f) card checkpoint on the CPU: resumed at "
+              f"{Fg.tr.restored_step} / {Fc.tr.restored_step}, step-2 loss "
+              f"{lg} / {lc}, CPU launches {Fc.counts[-1]}")
+        report["f"] = {"loss": [lg, lc], "s": time.perf_counter() - t0}
+        log(f"[persist] (f) narrow checkpoint from the card restored on the "
+            f"CPU: step-2 loss {lg:.6f} (card) / {lc:.6f} (CPU), within "
+            f"{TRAIN_RTOL} | {report['f']['s']:.1f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    report["launches"] = totals
+    report["phase_s"] = time.perf_counter() - t19
+    log(f"[persist] phase 19 in {report['phase_s']:.1f} s, launches "
+        f"{json.dumps(totals)}")
+    return report
+
+
 def one_phase(phase: str, src: Path) -> int:
     """``--scans`` / ``--pool`` / ``--wire`` / ``--bwd`` / ``--streams`` /
-    ``--slice15``: the card, the build and phase 11's scans, phase 3's
-    page-pool events, phase 16's wire tier, phase 17's backward kernels,
-    the wire tier's stream kernels (:func:`streams_phase`) or phase 18
-    (:func:`slice15_phase`) alone,
+    ``--slice15`` / ``--persist``: the card, the build and phase 11's
+    scans, phase 3's page-pool events, phase 16's wire tier, phase 17's
+    backward kernels, the wire tier's stream kernels
+    (:func:`streams_phase`), phase 18 (:func:`slice15_phase`) or phase 19
+    (:func:`persist_phase`) alone,
     from the ``repro_torch`` under ``src`` (another tree's, to time two
     trees in one call); the last line is their JSON record."""
     if not torch.cuda.is_available():
@@ -1628,6 +2052,8 @@ def one_phase(phase: str, src: Path) -> int:
     elif phase == "slice15":
         record, rows = slice15_phase(dev)
         record["rows"] = rows
+    elif phase == "persist":
+        record = persist_phase(dev)
     else:
         log(f"[kernel] clip_mask SASS, live (a report; the bound uses "
             f"{json.dumps(CLIP_MASK_OPS)}): "
@@ -3828,8 +4254,11 @@ def main() -> int:
             pack_params, DPPipeline)
         out[d]["launches"] = dispatch.launch_counts()
     xg, xc = out["cuda"], out["cpu"]
-    check(xg["launches"]["clip_mask"] == 2 * N_SILOS
-          and sum(xg["launches"].values()) == 2 * N_SILOS,
+    # the step launches for its 3 active silos (the dropped one's row is
+    # zeroed), the rebuild for all 4
+    n10 = int(act10.sum()) + N_SILOS
+    check(xg["launches"]["clip_mask"] == n10
+          and sum(xg["launches"].values()) == n10,
           f"narrow barrier card launches {xg['launches']}")
     check(all(v == 0 for v in xc["launches"].values()),
           f"the CPU barrier step launched {xc['launches']}")
@@ -4119,6 +4548,9 @@ def main() -> int:
     for name, subs in rows18.items():
         kern[name].update(subs)
 
+    # 19. ledger wiring and persistence in the Trainer
+    report["persist"] = persist_phase(dev)
+
     # the record
     launches = {"flash_attention": n_direct["flash_attention"],
                 "paged_attention": n_cont["paged_attention"],
@@ -4183,7 +4615,8 @@ if __name__ == "__main__":
     args = sys.argv[1:]
     src = Path(args[args.index("--src") + 1]).resolve() \
         if "--src" in args else ROOT / "src"
-    for phase in ("scans", "pool", "wire", "bwd", "streams", "slice15"):
+    for phase in ("scans", "pool", "wire", "bwd", "streams", "slice15",
+                  "persist"):
         if f"--{phase}" in args:
             sys.exit(one_phase(phase, src))
     sys.exit(main())

@@ -1,11 +1,14 @@
-"""Privacy spend reporting: the port's copy of ``privacy_spend_table`` and
-``verify_spend_report`` from ``repro/analysis/report.py``, for the spend
-reports of the port's ledger (the trainer's, and the wire tier's signed
-ones with their round-trip column).
+"""Privacy spend reporting: the port's copy of ``privacy_spend_table``,
+``privacy_spend_summary`` and ``verify_spend_report`` from
+``repro/analysis/report.py``, for the spend reports of the port's ledger
+(the trainer's, and the wire tier's signed ones with their round-trip
+column).
 """
 from __future__ import annotations
 
 import hmac
+import json
+from pathlib import Path
 
 
 def _eps(x) -> str:
@@ -90,3 +93,9 @@ def privacy_spend_table(report: dict, attestation=None) -> str:
             f"(measurement {signer.get('code_measurement', '')[:12]}…); "
             f"verify with verify_spend_report(report, attestation_service)")
     return "\n".join(lines)
+
+
+def privacy_spend_summary(path) -> str:
+    """Render a spend-report JSON file (as ``launch/train.py
+    --spend-report`` writes it)."""
+    return privacy_spend_table(json.loads(Path(path).read_text()))

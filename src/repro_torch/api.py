@@ -145,7 +145,8 @@ class Session:
                                           params=params, gen=gen)
 
     def trainer(self, *, total_steps: int = 50,
-                checkpoint_dir: Optional[str] = None, log_every: int = 10,
+                checkpoint_dir: Optional[str] = None,
+                checkpoint_every: int = 25, log_every: int = 10,
                 epsilon_budget: Optional[float] = None,
                 silo_epsilon_budget: Optional[float] = None,
                 silo_budgets: Optional[dict] = None,
@@ -153,38 +154,54 @@ class Session:
                 next_batch: Optional[Callable[[], dict]] = None,
                 batch_size: int = 8, seq_len: int = 128,
                 elastic: bool = False,
-                silo_schedule: Optional[Callable[[int], Any]] = None
+                silo_schedule: Optional[Callable[[int], Any]] = None,
+                silo_latency_hook: Optional[Callable[[int], Any]] = None
                 ) -> Trainer:
         """A wired Trainer; ``next_batch`` defaults to a synthetic LM stream.
-        ``silo_schedule`` (step -> bool sequence) pins each step's
-        participation set."""
+
+        ``checkpoint_dir`` checkpoints every ``checkpoint_every`` steps and
+        at the end, and resumes from the latest checkpoint there (the state,
+        the ledger, the metrics history). ``elastic=True`` lets straggler
+        escalations drop a silo for a cooldown; ``silo_schedule`` (step ->
+        bool sequence) pins each step's participation set.
+        ``silo_epsilon_budget`` (uniform) / ``silo_budgets`` (per-silo
+        overrides) arm the ledger's enforcement: an exhausted silo leaves
+        the set with no rejoin until an operator override.
+        ``step_deadline_s`` is the straggler deadline, and
+        ``silo_latency_hook`` feeds per-silo latencies to the straggler
+        attribution."""
         tcfg = TrainerConfig(total_steps=total_steps,
+                             checkpoint_every=checkpoint_every,
                              checkpoint_dir=checkpoint_dir,
                              log_every=log_every,
                              epsilon_budget=epsilon_budget,
                              silo_epsilon_budget=silo_epsilon_budget,
                              silo_budgets=silo_budgets,
                              step_deadline_s=step_deadline_s,
-                             elastic=elastic)
+                             elastic=elastic or silo_schedule is not None)
         next_batch = next_batch or self.synthetic_batches(batch_size, seq_len)
         return Trainer(self.model, self.run_cfg, tcfg, next_batch,
-                       silo_schedule=silo_schedule)
+                       silo_schedule=silo_schedule,
+                       silo_latency_hook=silo_latency_hook)
 
     def train(self, *, steps: int = 50, batch_size: int = 8,
               seq_len: int = 128,
               next_batch: Optional[Callable[[], dict]] = None,
-              checkpoint_dir: Optional[str] = None, log_every: int = 10,
+              checkpoint_dir: Optional[str] = None,
+              checkpoint_every: int = 25, log_every: int = 10,
               epsilon_budget: Optional[float] = None,
               silo_epsilon_budget: Optional[float] = None,
               silo_budgets: Optional[dict] = None,
               step_deadline_s: Optional[float] = None,
               elastic: bool = False,
               silo_schedule: Optional[Callable[[int], Any]] = None,
+              silo_latency_hook: Optional[Callable[[int], Any]] = None,
               state=None) -> TrainResult:
-        """Run training on the fused or barrier DP tier (or without
-        privacy). The root key of the step keys is ``PRNGKey(seed + 1)``, as
-        in JAX."""
+        """Run (or resume, from ``checkpoint_dir``) training on the fused or
+        barrier DP tier (or without privacy). The root key of the step keys
+        is ``PRNGKey(seed + 1)``, as in JAX."""
         trainer = self.trainer(total_steps=steps, checkpoint_dir=checkpoint_dir,
+                               checkpoint_every=checkpoint_every,
                                log_every=log_every,
                                epsilon_budget=epsilon_budget,
                                silo_epsilon_budget=silo_epsilon_budget,
@@ -192,7 +209,8 @@ class Session:
                                step_deadline_s=step_deadline_s,
                                next_batch=next_batch, batch_size=batch_size,
                                seq_len=seq_len, elastic=elastic,
-                               silo_schedule=silo_schedule)
+                               silo_schedule=silo_schedule,
+                               silo_latency_hook=silo_latency_hook)
         state = state if state is not None else self.init_state()
         # registered before fit, so privacy_report() surfaces the spend of a
         # run that aborts mid-way

@@ -268,8 +268,9 @@ def _barrier_grads(model: Model, priv: PrivacyConfig, mesh_cfg: MeshConfig,
     gradient and its norm off the gradient tree (``norm_tree``, as JAX),
     packed into its row; with every norm known (JAX's ``all_gather``) the
     dynamic bound, which every silo computes alike; each silo's
-    ``silo_contribution`` written over its own row; the rows summed in silo
-    order into row 0. Returns ``(aggregate (P,), loss, norms, new noise
+    ``silo_contribution`` written over its own row (a dropped silo's row
+    zeroed instead, with no launch: every term of its contribution is gated
+    to zero); the rows summed in silo order into row 0. Returns ``(aggregate (P,), loss, norms, new noise
     state, bound)``, the aggregate a view of the stacked buffer."""
     n_silos = mesh_cfg.n_silos
     silo_batches = _reshape_to_silos(batch, n_silos)
@@ -302,6 +303,9 @@ def _barrier_grads(model: Model, priv: PrivacyConfig, mesh_cfg: MeshConfig,
             scales = pipe.clip_scale(norms, bound)
             rows = stacked.unbind(0)
             for i, row in enumerate(rows):
+                if active is not None and not active[i]:
+                    row.zero_()
+                    continue
                 pipe.silo_contribution(row, i, scales[i], active, keys,
                                        noise_state, bound, out=row)
         with timer.stage("reduce"):

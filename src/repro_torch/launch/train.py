@@ -30,9 +30,12 @@ membership floor), ``--chaos-seed`` (a seeded ``FaultPlan``) and
 ``--round-timeout`` the plan's hangs are scaled to outlast the deadline
 (``hang_s`` at least twice it; JAX keeps 0.5 s whatever the deadline).
 
-Not ported yet, each raising ``NotImplementedError`` with its
-``ROADMAP.md`` item: ``--checkpoint-dir``, ``--elastic`` and
-``--silo-epsilon-budget``.
+``--checkpoint-dir D`` checkpoints every 25 steps and at the end, and a
+second run with the same directory resumes from its latest checkpoint
+(the step count goes on and epsilon composes); ``--silo-epsilon-budget``
+arms the ledger's per-silo budgets (an exhausted silo sits out from the
+next step on); ``--elastic`` lets straggler escalations drop a silo for a
+cooldown.
 """
 from __future__ import annotations
 
@@ -182,18 +185,21 @@ def main(argv=None):
                          "or silo after silo into one accumulator (scan: "
                          "two fewer P-sized buffers)")
     ap.add_argument("--checkpoint-dir", default=None,
-                    help="not ported yet (ROADMAP.md queue 1, item 10)")
+                    help="checkpoint here every 25 steps and at the end; "
+                         "resume from the latest checkpoint there")
     ap.add_argument("--epsilon-budget", type=float, default=None,
                     help="global budget: stop once the session epsilon "
                          "reaches this")
     ap.add_argument("--silo-epsilon-budget", type=float, default=None,
-                    help="not ported yet (ROADMAP.md queue 1, item 10)")
+                    help="per-silo budget: a silo whose own epsilon reaches "
+                         "this is excluded from later steps")
     ap.add_argument("--spend-report", default=None, metavar="PATH",
                     help="write the ledger's per-silo spend report JSON here "
                          "at exit")
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--elastic", action="store_true",
-                    help="not ported yet (ROADMAP.md queue 1, item 10)")
+                    help="elastic silo membership: straggler escalations "
+                         "drop the slowest silo for a cooldown")
     ap.add_argument("--drop-silos", default=None,
                     help="deterministic dropout: comma-separated "
                          "step:silo[:cooldown] triples, e.g. '10:3:5,20:2' "
@@ -245,9 +251,13 @@ def main(argv=None):
 
     result = sess.train(steps=args.steps, batch_size=args.batch,
                         seq_len=args.seq, checkpoint_dir=args.checkpoint_dir,
-                        log_every=10, epsilon_budget=args.epsilon_budget,
+                        checkpoint_every=25, log_every=10,
+                        epsilon_budget=args.epsilon_budget,
                         silo_epsilon_budget=args.silo_epsilon_budget,
                         elastic=args.elastic, silo_schedule=schedule)
+    if result.trainer.restored_step is not None:
+        print(f"resumed from {args.checkpoint_dir} at step "
+              f"{result.trainer.restored_step}")
     final = result.final
     tier = args.sync_path if args.sync_path == "barrier" \
         or args.silo_mode == "vmap" else "fused scan"

@@ -696,7 +696,8 @@ def test_smoke_barrier_training_on_card_matches_cpu(cuda):
     a = gpu.train(steps=2, batch_size=8, seq_len=16, log_every=0,
                   silo_schedule=sched, state=gpu.init_state(params=p_gpu))
     counts = dispatch.launch_counts()
-    assert counts["clip_mask"] == 8 and sum(counts.values()) == 8
+    # 4 + 3: the dropped silo's row is zeroed, with no launch
+    assert counts["clip_mask"] == 7 and sum(counts.values()) == 7
     b = cpu.train(steps=2, batch_size=8, seq_len=16, log_every=0,
                   silo_schedule=sched, state=cpu.init_state(params=p_cpu))
     for ma, mb in zip(a.metrics, b.metrics):

@@ -25,7 +25,7 @@ leaked = sorted(m for m in sys.modules
                 or m == "repro" or m.startswith("repro."))
 print(len(names), leaked)
 assert not leaked, leaked
-assert len(names) >= 96, names
+assert len(names) >= 100, names
 # the training slices' modules are among those imported
 for name in ("core.prng", "core.flatbuf", "core.clipping", "core.barrier",
              "core.noise_correction", "core.dp_pipeline",
@@ -56,7 +56,10 @@ for name in ("core.prng", "core.flatbuf", "core.clipping", "core.barrier",
              "models.packing", "models.registry", "models.convert",
              # the other dense archs
              "configs.stablelm_3b", "configs.phi3_mini_3_8b",
-             "configs.mistral_large_123b"):
+             "configs.mistral_large_123b",
+             # ledger wiring and persistence
+             "core.accountant", "data.pipeline", "checkpoint",
+             "checkpoint.checkpointer"):
     assert "repro_torch." + name in names, name
 """
 

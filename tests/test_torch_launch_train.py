@@ -2,8 +2,8 @@
 CPU (``--device cpu``, the kernels' plain versions): both DP tiers, the
 drop schedule, the spend report, the wire tier's rounds (``--wire-rounds``;
 fault-tolerant with ``--chaos-seed``, ``--round-timeout``, ``--quorum`` and
-``--journal``), the flags whose paths are not ported yet, ``--mask-mode
-admin`` and ``--silo-mode scan``, and the refusal to fall back to the CPU
+``--journal``), ``--checkpoint-dir``, ``--elastic`` and
+``--silo-epsilon-budget``, ``--mask-mode admin`` and ``--silo-mode scan``, and the refusal to fall back to the CPU
 without ``--device``."""
 import json
 import os
@@ -73,14 +73,28 @@ def test_drop_schedule_reads_step_silo_cooldown(capsys):
     (["--silo-epsilon-budget", "1.0"], "item 10"),
     (["--mask-mode", "admin"], "item 9"),
 ])
-def test_unported_flags_raise(flags, item):
-    """The flags of ROADMAP item 10 raise, naming the item. ``--mask-mode
-    admin`` (item 9) trains on both tiers and the silo-serial scan tier,
-    and reaches the wire tier's rounds."""
+def test_unported_flags_raise(flags, item, tmp_path, capsys):
+    """The flags that once raised train on the CPU: ``--checkpoint-dir``
+    (then a resume at the checkpoint's step), ``--elastic`` and
+    ``--silo-epsilon-budget`` (ROADMAP item 10; a budget of 1.0 is spent
+    in the first step, which stops the run); ``--mask-mode admin`` (item
+    9) on both tiers and the silo-serial scan tier, and on the wire tier's
+    rounds."""
     if item != "item 9":
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP.md queue 1, {item}"):
-            train.main(SMALL + flags)
+        if flags[0] == "--checkpoint-dir":
+            flags = [flags[0], str(tmp_path / flags[1])]
+        res = train.main(SMALL + flags)
+        assert np.isfinite(res.final["loss"])
+        if flags[0] == "--silo-epsilon-budget":
+            assert res.step == 1
+            assert res.trainer.accountant.exhausted() == [0, 1, 2, 3]
+            return
+        assert res.step == 2
+        if flags[0] == "--checkpoint-dir":
+            res = train.main(SMALL + flags + ["--steps", "3"])
+            assert res.step == 3 and res.trainer.restored_step == 2
+            assert f"resumed from {flags[1]} at step 2" in \
+                capsys.readouterr().out
         return
     for extra in ([], ["--sync-path", "barrier"], ["--silo-mode", "scan"]):
         res = train.main(SMALL + flags + ["--lam", "0.7"] + extra)

@@ -232,10 +232,14 @@ def test_from_config_without_cuda_raises(monkeypatch):
         serve_cli.main(["--tokens", "2"])
 
 
-def test_unported_paths_raise(port):
-    # training is ported (test_torch_training.py); checkpointing is not yet
+def test_unported_paths_raise(port, tmp_path):
+    # training and checkpointing are ported (test_torch_training.py,
+    # test_torch_trainer.py); the MoE families are not yet
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.train(steps=1, checkpoint_dir="unused")
+        api.Session.from_config("qwen3-moe-235b-a22b", device="cpu")
+    res = port.train(steps=1, batch_size=4, seq_len=8, log_every=0,
+                     checkpoint_dir=str(tmp_path / "ckpt"))
+    assert res.step == 1 and (tmp_path / "ckpt" / "step_00000001").is_dir()
 
 
 def test_cli_runs_every_mode_on_cpu(capsys):

@@ -186,24 +186,29 @@ def test_train_raises_without_cuda_unless_asked_for_cpu(monkeypatch):
     ({}, dict(silo_epsilon_budget=1.0)),
     ({}, dict(step_deadline_s=1.0)),
 ])
-def test_unported_training_paths_raise(priv, train_kw):
-    """The trainer options of ROADMAP item 10 raise, naming the item. The
-    first three cases (admin masks on both tiers, the silo-serial scan
-    tier: item 9) train a step through ``Session.train``, launching no
-    kernel on the CPU, to a finite loss."""
+def test_unported_training_paths_raise(priv, train_kw, tmp_path):
+    """Each trainer option that once raised trains a step through
+    ``Session.train``, launching no kernel on the CPU, to a finite loss:
+    admin masks on both tiers and the silo-serial scan tier (ROADMAP item
+    9), and ``checkpoint_dir`` (then a resume), ``elastic``,
+    ``silo_epsilon_budget`` and ``step_deadline_s`` (item 10)."""
+    if "checkpoint_dir" in train_kw:
+        train_kw = {**train_kw,
+                    "checkpoint_dir": str(tmp_path / train_kw["checkpoint_dir"])}
     sess = Session.from_config(ARCH, device="cpu", privacy=PrivacyConfig(
         **{**QUICKSTART, **priv}),
         mesh=MeshConfig((4,), ("data",)) if priv.get("sync_path") else None)
-    if priv:
-        before = dispatch.launch_counts()
-        res = sess.train(steps=1, batch_size=4, seq_len=8, **train_kw)
-        assert res.step == 1 and np.isfinite(res.final["loss"])
-        assert res.final["n_contributions"] == 4
-        assert dispatch.launch_counts() == before
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, "
-                                                  "item 10"):
-        sess.train(steps=1, batch_size=4, seq_len=8, **train_kw)
+    before = dispatch.launch_counts()
+    res = sess.train(steps=1, batch_size=4, seq_len=8, **train_kw)
+    assert res.step == 1 and np.isfinite(res.final["loss"])
+    assert res.final["n_contributions"] == 4
+    assert dispatch.launch_counts() == before
+    if "silo_epsilon_budget" in train_kw:
+        assert res.trainer.accountant.exhausted() == [0, 1, 2, 3]
+    if "checkpoint_dir" in train_kw:
+        again = sess.train(steps=2, batch_size=4, seq_len=8, **train_kw)
+        assert again.trainer.restored_step == 1 and again.step == 2
+        assert [m["step"] for m in again.metrics] == [0, 1]
 
 
 def test_privacy_off_trains_without_a_ledger():
