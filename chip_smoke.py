@@ -23,6 +23,8 @@ against the host CPU.
     python3 chip_smoke.py --streams [--src DIR] # rows 8, 13, 14 alone
     python3 chip_smoke.py --slice15             # phase 18 alone
     python3 chip_smoke.py --persist             # phase 19 alone
+    python3 chip_smoke.py --cifar               # phase 20 alone
+    python3 chip_smoke.py --prng [--src DIR]    # WRN28's per-leaf noise
 
 ``--scans`` runs only the card line, the build and phase 11's scans (their
 checks and times, no launch configuration), from the ``repro_torch`` under
@@ -39,6 +41,9 @@ kernels, on trees that have ``wkv_bwd_cuda`` and ``ssd_bwd_cuda``;
 training and the wire shape, ``noise_stream`` and the external-stream
 ``clip_mask`` at the wire shape, as phases 6 and 16 check and time them,
 against the pinned bound), on trees that have ``ops.noise_stream``.
+``--prng`` times the scan tier's per-leaf noise stage on WRN28's layout
+and prints the hash of what it drew (no kernel is built): a parent and a
+change in one call, trees from PR 25 on.
 
 Phases (any failed check raises, and the script exits non-zero):
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
@@ -240,7 +245,27 @@ Phases (any failed check raises, and the script exits non-zero):
      uninterrupted bit for bit; (e) the training CLI's ``--checkpoint-dir``
      (then a resume), ``--elastic`` and ``--silo-epsilon-budget``; (f) a
      narrow checkpoint written on the card restored on the CPU, the next
-     step's loss within TRAIN_RTOL.
+     step's loss within TRAIN_RTOL;
+ 20. the paper's CIFAR models (CIFAR10-CNN6, P = 308,224; CIFAR10-WRN28-4,
+     P = 5,851,136) at their published configs, random weights from a
+     seed, 4 silos, sigma 0.5, C 1, dynamic clipping, lambda 0.7,
+     momentum at lr 0.1, CNN6 at batch 256 and WRN28 at 64, their
+     convolutions in fp32 on deterministic cuDNN algorithms: rows 5-10 at
+     both P (``clip_accumulate``, ``noise_batch``, ``clip_mask``, one
+     ``zsmask`` pass) and per-example clipping's (16, P) of WRN28
+     (``per_example_sumsq``, ``clip_sum``) against their plain versions,
+     timed as a call and on the card; (a) 3 steps of each model through
+     the Trainer on the fused tier, the barrier tier, the barrier tier
+     under perleaf and the scan tier, with each tier's launches, step and
+     stage ms and peak memory, and barrier == fused on one step's inputs
+     (MASK_ATOL_PER_B); (b) CNN6 falling over 20 fused steps of 32; (c)
+     per-example clipping of 16 WRN28 examples on both routes; (d) 5
+     serial, pipelined and speculative wire rounds of each model bit-equal,
+     their round split and the card's busy share; (e) CNN6's Trainer, 2
+     steps + checkpoint + 2 == 4 steps bit for bit; (f) one fused step of
+     CNN6 and of a narrow WRN card vs CPU (TRAIN_RTOL, CIFAR_CARD_TOL),
+     and TF32 convolutions shown to miss that gate; the scan tier's noise
+     stage on WRN28's layout (``--prng``).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -2017,13 +2042,765 @@ def persist_phase(dev) -> dict:
     return report
 
 
+# --------------------------------------------------------------- phase 20
+# the paper's CIFAR models at their published configs, with
+# barrier_overhead.py's barrier settings and sota_comparison.py's optimizer:
+# 4 silos, sigma 0.5, C 1, dynamic clipping, lambda 0.7, momentum at lr 0.1,
+# seed 0; CNN6 at batch 256 (64 a silo), WRN28 at 64 (16 a silo)
+CIFAR_BATCH = {"cifar10-cnn6": 256, "cifar10-wrn28": 64}
+# their packed lengths (307,498 and 5,849,050 parameters; 14 and 80 leaves)
+CIFAR_P = {"cifar10-cnn6": 308_224, "cifar10-wrn28": 5_851_136}
+CIFAR_STEPS, CIFAR_WIRE_ROUNDS, CIFAR_LR = 3, 5, 0.1
+# per-example clipping of WRN28: 16 examples, one silo's share
+CIFAR_PE = 16
+# card vs CPU, one fused step (sigma 0): every silo's norm (relative) and
+# the clipped aggregate (its relative L2 difference). The narrow WRN, fp32
+# sums in other orders: measured 7e-8 and 9e-7. CNN6 at batch 256 adds
+# max-pool windows whose two largest values sit within rounding of each
+# other: the card and the CPU send such a window's gradient to different
+# elements, and one such term in a weight gradient summed over 65,536
+# positions moves it by about 1/256 (measured 5.3e-5 and 5.6e-4, the same
+# every run: the inputs are seeded and both devices deterministic). TF32
+# convolutions, 10 mantissa bits in every product, measured 4.5e-4 and
+# 1.7e-2 (CNN6), 9.2e-4 and 3.8e-3 (WRN): past both gates
+CIFAR_CARD_TOL = {
+    "cifar10-cnn6": {"norms_rel": 2e-4, "aggregate_l2_rel": 2e-3},
+    "wrn10x1": {"norms_rel": 1e-5, "aggregate_l2_rel": 1e-5},
+}
+
+
+def wrn_shapes(depth: int = 28, widen: int = 4) -> dict:
+    """WRN's leaf paths and shapes (``repro/models/small.py:93-138``),
+    computed here so that a tree without the CIFAR models can be timed on
+    WRN28's layout (``--prng``)."""
+    n = (depth - 4) // 6
+    widths = [16, 16 * widen, 32 * widen, 64 * widen]
+    out, cin = {"stem": (3, 3, 3, 16)}, 16
+    for g in range(3):
+        for b in range(n):
+            c = widths[g + 1]
+            p = f"g{g}b{b}"
+            out.update({f"{p}.gn1.s": (cin,), f"{p}.gn1.b": (cin,),
+                        f"{p}.conv1": (3, 3, cin, c), f"{p}.gn2.s": (c,),
+                        f"{p}.gn2.b": (c,), f"{p}.conv2": (3, 3, c, c)})
+            if cin != c:
+                out[f"{p}.proj"] = (1, 1, cin, c)
+            cin = c
+    out.update({"gn_f.s": (cin,), "gn_f.b": (cin,), "fc.w": (cin, 10),
+                "fc.b": (10,)})
+    return out
+
+
+def prng_phase(dev) -> dict:
+    """``--prng``: the scan tier's noise stage on WRN28's layout (80 leaves,
+    5,849,050 parameters), as ``_fused_grads_scan`` runs it: the per-leaf
+    policy's ``corrected_noise_tree`` (xi_t and lambda xi_{t-1} of 4 silos,
+    one silo out at t-1) added into a zero accumulator, timed with CUDA
+    events over 5 calls after one warm call, and the result's sha256: two
+    trees' draws are bit-equal when their hashes are. Any tree from PR 25
+    on (no CIFAR model needed)."""
+    import hashlib
+
+    from repro_torch.configs.base import PrivacyConfig
+    from repro_torch.core import flatbuf, prng
+    from repro_torch.core.barrier import step_keys
+    from repro_torch.core.dp_pipeline import DPPipeline
+    from repro_torch.core.noise_correction import NoiseState
+
+    shapes = wrn_shapes()
+    paths = sorted(shapes, key=lambda p: tuple(p.split(".")))
+    layout = flatbuf.build_layout(paths, [shapes[p] for p in paths],
+                                  [0] * len(paths))
+    check(layout.total == CIFAR_P["cifar10-wrn28"],
+          f"WRN28 layout {layout.total}")
+    priv = PrivacyConfig(enabled=True, sigma=0.5, clip_bound=1.0,
+                         dynamic_clip=True, noise_lambda=0.7, n_silos=4,
+                         silo_mode="scan")
+    pipe = DPPipeline(priv, layout, 4, policy="perleaf")
+    keys = step_keys(prng.PRNGKey(1), 1)
+    ns = NoiseState(step_keys(prng.PRNGKey(1), 0).key_xi, True,
+                    np.array([True, True, False, True]))
+    bound = torch.full((), 1.7, dtype=torch.float32, device=dev)
+    acc = torch.zeros(layout.total, dtype=torch.float32, device=dev)
+
+    def once():
+        acc.zero_()
+        pipe.corrected_noise_tree(flatbuf.unpack(layout, acc), keys, ns,
+                                  bound, None)
+
+    once()
+    torch.cuda.synchronize()
+    digest = hashlib.sha256(acc.cpu().numpy().tobytes()).hexdigest()
+    ms = []
+    for _ in range(5):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        once()
+        t1.record()
+        t1.synchronize()
+        ms.append(t0.elapsed_time(t1))
+    rec = {"at": f"WRN28 layout, {layout.n_leaves} leaves, P "
+                 f"{layout.total}, 2 streams x 4 silos, one out at t-1",
+           "noise_ms": ms, "median_ms": float(np.median(ms)),
+           "sha256": digest}
+    log(f"[prng] scan-tier noise stage on WRN28: median "
+        f"{rec['median_ms']:.2f} ms ({', '.join(f'{x:.2f}' for x in ms)}) "
+        f"| sha256 {digest[:16]}")
+    return rec
+
+
+def cifar_setup(cfg, dev):
+    """``(SmallModel, Model)``: the small model as the training path takes
+    it, ``Model(cfg=None, ...)`` as the JAX package's tests build it."""
+    from repro_torch.models.registry import Model
+    from repro_torch.models.small import build_small_model
+    sm = build_small_model(cfg)
+    return sm, Model(cfg=None, device=dev, init=sm.init, loss=sm.loss,
+                     init_cache=None, prefill=None, decode_step=None)
+
+
+@contextlib.contextmanager
+def conv_route(route: str):
+    """The small models' convolutions for a block: ``exact`` as the port
+    runs them (fp32, deterministic cuDNN algorithms), ``plain`` as
+    ``F.conv2d`` under cuDNN's default algorithms without TF32, ``tf32``
+    as ``F.conv2d`` under cuDNN's defaults (TF32 on). The last two are
+    yardsticks: what determinism costs, and what the card-vs-CPU gate
+    must catch."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import small
+    if route == "exact":
+        yield
+        return
+    exact = small._conv2d
+    small._conv2d = lambda x, w, st, pd: F.conv2d(x, w, stride=st, padding=pd)
+    try:
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=False,
+                                        allow_tf32=route == "tf32"):
+            yield
+    finally:
+        small._conv2d = exact
+
+
+def cifar_kernel_rows(dev, sass) -> dict:
+    """Rows 5-10 at the CIFAR shapes: ``clip_accumulate``, ``noise_batch``,
+    ``clip_mask`` and one ``zsmask`` pass at each model's P (4 silos), and
+    ``per_example_sumsq`` (every leaf) and ``clip_sum`` at WRN28's (16, P);
+    each held to its plain version as phase 6 holds it, timed as a call and
+    on the card (a CUDA graph of 20 calls)."""
+    from repro_torch.configs.paper_models import CIFAR10_CNN6, CIFAR10_WRN28
+    from repro_torch.core import flatbuf, masking, prng
+    from repro_torch.core.barrier import step_keys
+    from repro_torch.kernels.dp_clip import ops as clip_ops
+    from repro_torch.kernels.dp_clip import ref as clip_ref
+    from repro_torch.kernels.dp_fused import ops as noise_ops
+    from repro_torch.kernels.dp_fused import ref as noise_ref
+    from repro_torch.kernels.zsmask import ops as zs_ops
+    from repro_torch.kernels.zsmask import ref as zs_ref
+
+    rows: dict = {k: {} for k in ("clip_accumulate", "noise_batch",
+                                  "clip_mask", "zsmask", "per_example_sumsq",
+                                  "clip_sum")}
+    per_nb = live_stream_ops(sass, "noise_batch_kernel")
+    per_zs = live_stream_ops(sass, "zsmask_kernel")
+    keys, prev = step_keys(prng.PRNGKey(1), 0), \
+        step_keys(prng.PRNGKey(1), 1).key_xi
+    f32 = lambda x: torch.full((), x, dtype=torch.float32, device=dev)
+    for cfg, sub in ((CIFAR10_CNN6, "cnn6"), (CIFAR10_WRN28, "wrn28")):
+        sm, _ = cifar_setup(cfg, dev)
+        layout = flatbuf.layout_of(sm.init(torch.Generator().manual_seed(0)))
+        P = layout.total
+        check(P == CIFAR_P[cfg.name], f"{cfg.name}: P {P}")
+        gen = torch.Generator(device=dev).manual_seed(20)
+        r, g_sum, stacked = check_clip_accumulate(dev, gen, 4, P, clip_ops,
+                                                  clip_ref)
+        scale = torch.tensor([0.731, 1.0, 0.0, 0.418], device=dev)
+        r["device_ms"] = graph_ms(lambda: clip_ops.clip_accumulate(
+            stacked, scale), n=20, reps=5)
+        rows["clip_accumulate"][sub] = r
+        del stacked
+        r = check_noise_batch(dev, 4, P, g_sum, noise_ops, noise_ref,
+                              step_keys, prng.PRNGKey, per_nb)
+        sc = torch.tensor([0.075, 0.075, 0.0, 0.075], device=dev)
+        lam = torch.tensor([0.7, 0.0, 0.0, 0.7], device=dev)
+        r["device_ms"] = graph_ms(lambda: noise_ops.noise_batch(
+            g_sum, keys.key_xi, prev, sc, lam, 0.075), n=20, reps=5)
+        rows["noise_batch"][sub] = r
+        rows["clip_mask"][sub] = check_clip_mask(dev, P, g_sum, noise_ops,
+                                                 noise_ref, keys, prev,
+                                                 CLIP_MASK_OPS)
+        r = check_zsmask(dev, layout, g_sum, zs_ops, zs_ref,
+                         masking.fold_leaf, (masking.R_FOLD,
+                                             masking.XI_FOLD), keys, per_zs)
+        slices = leaf_slices(layout)
+        kr = [masking.fold_leaf(keys.key_r, masking.R_FOLD, i)
+              for i in range(layout.n_leaves)]
+        kx = [masking.fold_leaf(keys.key_xi, masking.XI_FOLD, i)
+              for i in range(layout.n_leaves)]
+        out = torch.empty_like(g_sum)
+        sc4, b4 = f32(0.3) * f32(4.0), f32(8.0) * f32(0.3) * f32(4.0)
+
+        def one_pass():
+            for i, o, a, m in slices:
+                zs_ops.apply_zsmask(g_sum[a:a + m], kr[i], kx[i], 1, 4, sc4,
+                                    b4, offset=o, out=out[a:a + m])
+
+        r["device_ms"] = graph_ms(one_pass, n=4, reps=5)
+        rows["zsmask"][sub] = r
+        del g_sum, out
+        if sub == "wrn28":
+            # per-example clipping's (16, P) buffer: 16 examples of WRN28
+            pe = torch.randn(CIFAR_PE, P, device=dev, generator=gen)
+            r = check_sumsq(pe, layout, clip_ops, clip_ref)
+            cols = leaf_columns(pe, layout)
+            r["device_ms"] = graph_ms(lambda: [clip_ops.sumsq(c)
+                                               for c in cols], n=2, reps=5)
+            r["at"] = (f"B={CIFAR_PE}, the {len(cols)} leaves of WRN28 "
+                       f"({layout.n_params} columns), rows P apart, fp32")
+            rows["per_example_sumsq"]["pe16"] = r
+            r = check_clip_sum(dev, pe, noise_ops, noise_ref, clip_ref, P)
+            c = torch.ones((), device=dev)
+            r["device_ms"] = graph_ms(lambda: noise_ops.clip_sum_packed(
+                pe, c), n=10, reps=5)
+            rows["clip_sum"]["pe16"] = r
+            del pe
+        torch.cuda.empty_cache()
+    for name, subs in rows.items():
+        for sub, r in subs.items():
+            lib = "n/a" if r["library_ms"] is None \
+                else f"{r['library_ms']:.4f} ms"
+            log(f"[cifar-kernel] {name} {sub}: max_abs_err "
+                f"{r['max_abs_err']} | call {r['ms']:.4f} ms | card "
+                f"{r['device_ms']:.4f} ms | plain {r['plain_ms']:.4f} ms | "
+                f"library {lib} | bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}) | {r['at']}")
+    return rows
+
+
+def cifar_batcher(cfg, dev, seed: int = 20):
+    """A ``FederatedBatcher`` over synthetic CIFAR-10 (4 silos of 256), the
+    model's batch a step; ``next_batch`` moves it to the card."""
+    from repro_torch.data.pipeline import FederatedBatcher
+    from repro_torch.data.synthetic import synthetic_cifar10
+    train, _ = synthetic_cifar10(n_train=1024, n_test=16, seed=seed)
+    fb = FederatedBatcher(train.split(4),
+                          per_silo_batch=CIFAR_BATCH[cfg.name] // 4)
+
+    def next_batch():
+        b = fb.next()
+        return {"x": torch.as_tensor(b["x"]).to(dev),
+                "y": torch.as_tensor(b["y"]).to(dev)}
+    return fb, next_batch
+
+
+def cifar_trainer(cfg, dev, priv, mesh_n, steps, ckpt=None, perleaf=False,
+                  route="exact"):
+    """One Trainer on ``cfg`` from random weights (seed 0), its launches
+    zeroed just before the fit, the convolutions on ``route``
+    (:func:`conv_route`): ``(trainer, state, step, launches)``."""
+    from repro_torch.configs.base import (MeshConfig, OptimizerConfig,
+                                          RunConfig)
+    from repro_torch.core import prng
+    from repro_torch.distributed import steps as steps_mod
+    from repro_torch.kernels import dispatch
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    sm, model = cifar_setup(cfg, dev)
+    rc = RunConfig(model=None, mesh=MeshConfig((mesh_n,), ("data",)),
+                   privacy=priv, optimizer=OptimizerConfig(name="momentum",
+                                                           lr=CIFAR_LR))
+    fb, next_batch = cifar_batcher(cfg, dev)
+    tr = Trainer(model, rc, TrainerConfig(
+        total_steps=steps, log_every=0, checkpoint_dir=None if ckpt is None
+        else str(ckpt), checkpoint_every=2, keep_checkpoints=1),
+        next_batch, batch_state=fb)
+    state = steps_mod.init_train_state(
+        model, rc, prng.PRNGKey(0),
+        gen=torch.Generator(device=dev).manual_seed(0))
+    ctx = dispatch.force_impl("perleaf", kernel="dp_noise_tree") if perleaf \
+        else contextlib.nullcontext()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launches()
+    with ctx, conv_route(route):
+        state, step = tr.fit(state, prng.PRNGKey(1))
+    n = {k: v for k, v in dispatch.launch_counts().items() if v}
+    return tr, state, step, n
+
+
+def cifar_tiers(dev) -> dict:
+    """(a) 3 steps of each model on each tier through the Trainer: fused,
+    barrier on a (4,) mesh, barrier under the perleaf policy, and the scan
+    tier; the launches of rows 5, 8, 9 and 10 per step as each tier makes
+    them, losses finite, epsilon rising; step ms after the first, the
+    stage split, peak memory. Then the masks cancel: one step's
+    ``_barrier_grads`` == ``_fused_grads`` from one set of weights and one
+    batch within MASK_ATOL_PER_B units of B."""
+    from repro_torch.configs.base import MeshConfig, PrivacyConfig
+    from repro_torch.configs.paper_models import CIFAR10_CNN6, CIFAR10_WRN28
+    from repro_torch.core import flatbuf, prng
+    from repro_torch.core.barrier import step_keys
+    from repro_torch.core.noise_correction import init_state as init_noise
+    from repro_torch.distributed import steps as steps_mod
+    from repro_torch.models.packing import pack_params
+
+    priv = PrivacyConfig(enabled=True, sigma=0.5, clip_bound=1.0,
+                         dynamic_clip=True, noise_lambda=0.7, n_silos=4)
+    out: dict = {}
+    for cfg in (CIFAR10_CNN6, CIFAR10_WRN28):
+        n_leaves = 14 if cfg is CIFAR10_CNN6 else 80
+        tiers = {
+            "fused": (priv, 1, False,
+                      {"clip_accumulate": 1, "noise_batch": 1}),
+            "barrier": (dataclasses.replace(priv, sync_path="barrier"), 4,
+                        False, {"clip_mask": 4}),
+            "perleaf": (dataclasses.replace(priv, sync_path="barrier"), 4,
+                        True, {"zsmask": 2 * 4 * n_leaves}),
+            "scan": (dataclasses.replace(priv, silo_mode="scan"), 1, False,
+                     {}),
+        }
+        rec: dict = {}
+        for tier, (p, mesh_n, perleaf, want) in tiers.items():
+            tr, state, step, n = cifar_trainer(cfg, dev, p, mesh_n,
+                                               CIFAR_STEPS, perleaf=perleaf)
+            peak = torch.cuda.max_memory_allocated()
+            want = {k: v * CIFAR_STEPS for k, v in want.items()}
+            losses = [m["loss"] for m in tr.metrics_log]
+            eps = [m["epsilon"] for m in tr.metrics_log]
+            check(step == CIFAR_STEPS and all(map(math.isfinite, losses)),
+                  f"cifar {cfg.name} {tier}: {step} steps, loss {losses}")
+            check(all(b > a for a, b in zip([0.0] + eps, eps)),
+                  f"cifar {cfg.name} {tier}: epsilon {eps}")
+            check(n == want, f"cifar {cfg.name} {tier}: launches {n}, "
+                             f"expected {want}")
+            step_ms = [m["step_time_s"] * 1e3 for m in tr.metrics_log]
+            stages = {k: [st.get(k, 0.0) for st in tr.stage_log]
+                      for k in tr.stage_log[0]}
+            rec[tier] = {"loss": losses, "epsilon": eps, "step_ms": step_ms,
+                         "step_ms_after_first": step_ms[1:],
+                         "stage_ms": stages, "peak_mem_gb": peak / 1e9,
+                         "launches": n,
+                         "clip_bound": [m["clip_bound"]
+                                        for m in tr.metrics_log]}
+            log(f"[cifar] {cfg.name} {tier}: {CIFAR_STEPS} steps of "
+                f"{CIFAR_BATCH[cfg.name]} over 4 silos | loss "
+                f"{[round(x, 4) for x in losses]} | step ms after the first "
+                f"{[round(t, 2) for t in step_ms[1:]]} | peak "
+                f"{peak / 1e9:.3f} GB | launches {n}")
+            log(f"[cifar] {cfg.name} {tier} stage ms: " + " | ".join(
+                f"{k} {[round(t, 3) for t in v]}" for k, v in stages.items()))
+            if tier == "fused":
+                fused_master = state.opt_state["master"].clone()
+            del tr, state
+        # what deterministic convolutions cost: the fused cell again, warm,
+        # on cuDNN's default fp32 algorithms (twice: are they run-to-run
+        # identical?) and on the port's, which must repeat the first fused
+        # run bit for bit
+        cost, masters = {}, {}
+        for i, route in enumerate(("plain", "exact", "plain")):
+            tr, state, _, _ = cifar_trainer(cfg, dev, priv, 1, CIFAR_STEPS,
+                                            route=route)
+            masters[i] = state.opt_state["master"].clone()
+            cost.setdefault(route, {
+                "step_ms_after_first": [m["step_time_s"] * 1e3
+                                        for m in tr.metrics_log][1:],
+                "silo_grads_ms": [st["silo_grads"] for st in tr.stage_log]})
+            del tr, state
+        cost["plain"]["bit_equal_across_runs"] = torch.equal(masters[0],
+                                                             masters[2])
+        check(torch.equal(masters[1], fused_master),
+              f"cifar {cfg.name}: two fused runs on deterministic "
+              f"convolutions differ")
+        rec["deterministic_convs_cost"] = cost
+        log(f"[cifar] {cfg.name} fused, warm: step ms after the first / "
+            f"silo_grads ms, cuDNN's default fp32 algorithms "
+            f"{[round(t, 2) for t in cost['plain']['step_ms_after_first']]}"
+            f" / {[round(t, 2) for t in cost['plain']['silo_grads_ms']]} "
+            f"(two runs bit-equal: {cost['plain']['bit_equal_across_runs']})"
+            f", deterministic "
+            f"{[round(t, 2) for t in cost['exact']['step_ms_after_first']]}"
+            f" / {[round(t, 2) for t in cost['exact']['silo_grads_ms']]} "
+            f"(bit-equal to the first fused run)")
+        del masters, fused_master
+        # the masks cancel: barrier == fused on one step's inputs
+        sm, model = cifar_setup(cfg, dev)
+        params = sm.init(torch.Generator(device=dev).manual_seed(0))
+        layout, _ = pack_params(params)
+        _, next_batch = cifar_batcher(cfg, dev)
+        batch = next_batch()
+        keys = step_keys(prng.PRNGKey(1), 0)
+        ns = init_noise(prng.fold_in(prng.PRNGKey(0), 0xD0), 4)
+        c0 = torch.full((), 1.0, dtype=torch.float32, device=dev)
+        args = (batch, keys, ns, c0, keys.key_clip, layout,
+                steps_mod.StageTimer(dev))
+        f_agg, f_loss, _, _, f_bound = steps_mod._fused_grads(
+            model, priv, params, batch, 4, *args[1:])
+        b_agg, b_loss, _, _, b_bound = steps_mod._barrier_grads(
+            model, dataclasses.replace(priv, sync_path="barrier"),
+            MeshConfig((4,), ("data",)), params, *args)
+        flatbuf.zero_padding(layout, f_agg)
+        flatbuf.zero_padding(layout, b_agg)
+        B = priv.mask_scale * priv.sigma * float(b_bound)
+        err = (b_agg - f_agg).abs().max().item()
+        tol = MASK_ATOL_PER_B * B
+        check(err <= tol and math.isclose(float(b_loss), float(f_loss),
+                                          rel_tol=TRAIN_RTOL)
+              and math.isclose(float(b_bound), float(f_bound),
+                               rel_tol=TRAIN_RTOL),
+              f"cifar {cfg.name} barrier vs fused: aggregate {err} (tol "
+              f"{tol}), loss {float(b_loss)} / {float(f_loss)}, bound "
+              f"{float(b_bound)} / {float(f_bound)}")
+        rec["barrier_vs_fused"] = {"aggregate_max_abs_err": err,
+                                   "tolerance": tol, "B": B,
+                                   "bound": float(b_bound)}
+        log(f"[cifar] {cfg.name} barrier vs fused, one step: aggregate max "
+            f"|diff| {err:.3g} (tolerance {tol:.3g}, B {B:.4f}) | loss and "
+            f"bound within {TRAIN_RTOL}")
+        out[cfg.name] = rec
+        del params, f_agg, b_agg
+        torch.cuda.empty_cache()
+    return out
+
+
+def cifar_convergence(dev) -> dict:
+    """(b) CNN6 falls over 20 fused steps on synthetic_cifar10(256, 128),
+    as JAX's ``test_cnn6_trains_under_barrier`` (batch 32, sigma 0.02,
+    momentum lr 0.1)."""
+    from repro_torch.configs.base import (MeshConfig, OptimizerConfig,
+                                          PrivacyConfig, RunConfig)
+    from repro_torch.configs.paper_models import CIFAR10_CNN6
+    from repro_torch.core import prng
+    from repro_torch.data.synthetic import synthetic_cifar10
+    from repro_torch.distributed import steps as steps_mod
+
+    sm, model = cifar_setup(CIFAR10_CNN6, dev)
+    rc = RunConfig(model=None, mesh=MeshConfig((1,), ("data",)),
+                   privacy=PrivacyConfig(enabled=True, sigma=0.02,
+                                         clip_bound=1.0, n_silos=4),
+                   optimizer=OptimizerConfig(name="momentum", lr=CIFAR_LR))
+    train, _ = synthetic_cifar10(n_train=256, n_test=128)
+    state = steps_mod.init_train_state(
+        model, rc, prng.PRNGKey(0),
+        gen=torch.Generator(device=dev).manual_seed(0))
+    step = steps_mod.build_train_step(model, rc)
+    losses = []
+    for i in range(20):
+        idx = np.random.default_rng(i).integers(0, 256, 32)
+        b = {"x": torch.as_tensor(train.x[idx]).to(dev),
+             "y": torch.as_tensor(train.y[idx]).to(dev)}
+        state, m = step(state, b, prng.PRNGKey(5),
+                        timer=steps_mod.StageTimer(dev))
+        losses.append(float(m["loss"]))
+    check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+          f"cifar CNN6 does not train: {losses[0]} -> {losses[-1]}")
+    log(f"[cifar] CNN6, 20 fused steps of 32 (sigma 0.02): loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+    return {"loss": losses}
+
+
+def cifar_per_example(dev) -> dict:
+    """(c) per-example clipping of WRN28 over 16 examples (a batch of one
+    a forward), packed (``clip_sum`` once) and perleaf
+    (``per_example_sumsq`` and ``clip_accumulate`` once a leaf): the two
+    routes within ROUTES_RTOL; times and peak memory."""
+    from repro_torch.configs.paper_models import CIFAR10_WRN28
+    from repro_torch.core import clipping, flatbuf
+    from repro_torch.kernels import dispatch
+
+    sm, _ = cifar_setup(CIFAR10_WRN28, dev)
+    params = sm.init(torch.Generator(device=dev).manual_seed(0))
+    _, next_batch = cifar_batcher(CIFAR10_WRN28, dev)
+    batch = {k: v[:CIFAR_PE] for k, v in next_batch().items()}
+    res, rec = {}, {}
+    for impl, want in (("packed", {"clip_sum": 1}),
+                       ("perleaf", {"per_example_sumsq": 80,
+                                    "clip_accumulate": 80})):
+        dispatch.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        (s, norms, loss), sec = timed(lambda: clipping.per_example_clipped_grad(
+            sm.loss, params, batch, 1.0, impl=impl))
+        n = {k: v for k, v in dispatch.launch_counts().items() if v}
+        check(n == want, f"cifar per-example {impl}: launches {n}")
+        res[impl] = (flatbuf.pack(flatbuf.layout_of(s), s), norms)
+        rec[impl] = {"s": sec, "launches": n, "loss": float(loss),
+                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    (a, na), (b, nb) = res["packed"], res["perleaf"]
+    rel = max_rel(na, nb)
+    err = (a - b).abs().max().item()
+    top = b.abs().max().item()
+    check(rel <= ROUTES_RTOL and err <= ROUTES_RTOL * top,
+          f"cifar per-example routes differ: norms {rel}, sum {err} of {top}")
+    rec["routes"] = {"norms_max_rel": rel, "sum_max_abs": err,
+                     "largest": top}
+    log(f"[cifar] WRN28 per-example clipping of {CIFAR_PE} examples: packed "
+        f"{rec['packed']['s'] * 1e3:.1f} ms, perleaf "
+        f"{rec['perleaf']['s'] * 1e3:.1f} ms; routes agree (norms {rel:.2e} "
+        f"rel, sum {err:.2e} of {top:.3g}) | peak "
+        f"{rec['packed']['peak_mem_gb']:.2f} / "
+        f"{rec['perleaf']['peak_mem_gb']:.2f} GB")
+    return rec
+
+
+def cifar_wire(dev) -> dict:
+    """(d) 5 rounds each of serial, pipelined and speculative
+    ``CollaborativeSession`` rounds of CNN6 and WRN28 (4 silos of 64 and of
+    16 examples, sigma 0.5, C 1, lambda 0.7, lr 0.1) from the same weights:
+    bit-equal; ``clip_mask`` once a silo a round (speculative:
+    ``clip_mask_ext`` once, ``noise_stream`` on each miss and prefetch);
+    the median round, each party's share and the card's busy share of 2
+    serial rounds (``torch.profiler``)."""
+    from repro_torch.api import CollaborativeSession
+    from repro_torch.configs.base import PrivacyConfig
+    from repro_torch.configs.paper_models import CIFAR10_CNN6, CIFAR10_WRN28
+    from repro_torch.core import flatbuf
+    from repro_torch.core.tee import wire
+    from repro_torch.data.synthetic import synthetic_cifar10
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.profile_serve import _window
+    from repro_torch.models.small import value_and_grad
+
+    wpriv = PrivacyConfig(enabled=True, sigma=0.5, clip_bound=1.0,
+                          noise_lambda=WIRE_LAM)
+    R = CIFAR_WIRE_ROUNDS
+    out: dict = {}
+    for cfg in (CIFAR10_CNN6, CIFAR10_WRN28):
+        sm, _ = cifar_setup(cfg, dev)
+        per = CIFAR_BATCH[cfg.name] // 4
+        silos = [{"x": s.x, "y": s.y} for s in synthetic_cifar10(
+            n_train=4 * per, n_test=16, seed=21)[0].split(4)]
+        init = sm.init(torch.Generator(device=dev).manual_seed(1))
+        grad_fn = value_and_grad(sm.loss)
+        runs = {}
+        for mode in ("serial", "pipelined", "speculative"):
+            sess = CollaborativeSession.from_silos(silos, wpriv,
+                                                   params_template=init)
+            parts = instrument_wire(sess)
+            stamps = []
+
+            def upd(p, update, lr, _stamps=stamps):
+                res = wire_update(p, update, lr)
+                torch.cuda.synchronize()
+                _stamps.append(time.perf_counter())
+                return res
+
+            params = {k: v.clone() for k, v in init.items()}
+            dispatch.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, losses = sess.run(params, parts["grad_fn"](grad_fn), upd,
+                                      CIFAR_LR, R,
+                                      pipelined=mode != "serial",
+                                      speculative=mode == "speculative")
+            counts = {k: v for k, v in dispatch.launch_counts().items() if v}
+            want = {"clip_mask_ext": 4 * R, "noise_stream": 4 * (R + 1)} \
+                if mode == "speculative" else {"clip_mask": 4 * R}
+            check(counts == want, f"cifar wire {cfg.name} {mode}: launches "
+                                  f"{counts}, expected {want}")
+            check(all(map(math.isfinite, losses)),
+                  f"cifar wire {cfg.name} {mode}: losses {losses}")
+            rounds_ms = np.diff([t0] + stamps) * 1e3
+            runs[mode] = {"sess": sess, "losses": losses,
+                          "packed": wire.pack_np(flatbuf.layout_of(params),
+                                                 params),
+                          "round_ms": rounds_ms.tolist(),
+                          "median_round_ms": float(np.median(rounds_ms)),
+                          "parts": parts["read"](R), "launches": counts}
+        a = runs["serial"]
+        for mode in ("pipelined", "speculative"):
+            b = runs[mode]
+            check(np.array_equal(a["packed"].view(np.uint32),
+                                 b["packed"].view(np.uint32))
+                  and a["losses"] == b["losses"]
+                  and a["sess"].wire_stats == b["sess"].wire_stats,
+                  f"cifar wire {cfg.name}: {mode} is not bit-equal to "
+                  f"serial on the card")
+        rec = {mode: {k: v for k, v in r.items()
+                      if k not in ("sess", "packed")}
+               for mode, r in runs.items()}
+        rec["wire_stats"] = a["sess"].wire_stats
+        sess = CollaborativeSession.from_silos(silos, wpriv,
+                                               params_template=init)
+        params, _ = sess.step(0, {k: v.clone() for k, v in init.items()},
+                              grad_fn, wire_update, CIFAR_LR)
+        prof = _window(lambda: sess.run(params, grad_fn, wire_update,
+                                        CIFAR_LR, 2, pipelined=False), 6)
+        rec["profile_2_serial_rounds"] = prof
+        for mode, r in runs.items():
+            log(f"[cifar-wire] {cfg.name} {mode}: {R} rounds, median "
+                f"{r['median_round_ms']:.2f} ms (rounds "
+                f"{[round(x, 2) for x in r['round_ms']]}) | launches "
+                f"{json.dumps(r['launches'])}")
+            log(f"[cifar-wire] {cfg.name} {mode} split, ms a round: "
+                + ", ".join(f"{k} {v['per_round_ms']:.3f}"
+                            for k, v in r["parts"].items()))
+        log(f"[cifar-wire] {cfg.name}: pipelined == speculative == serial "
+            f"bit for bit | bytes {json.dumps(rec['wire_stats'])} | 2 "
+            f"serial rounds under torch.profiler: wall "
+            f"{prof['wall_ms']:.1f} ms, card busy {prof['device_busy_ms']:.2f}"
+            f" ms ({prof['busy_share']:.2%})")
+        out[cfg.name] = rec
+        del runs, sess
+        torch.cuda.empty_cache()
+    return out
+
+
+def cifar_resume(dev) -> dict:
+    """(e) CNN6 in the Trainer: 2 steps, a checkpoint, a fresh Trainer and 2
+    more steps == 4 steps without a break, bit for bit on the card (master,
+    momentum, clip bound, noise key, losses, ledger)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs.base import PrivacyConfig
+    from repro_torch.configs.paper_models import CIFAR10_CNN6
+
+    priv = PrivacyConfig(enabled=True, sigma=0.5, clip_bound=1.0,
+                         dynamic_clip=True, noise_lambda=0.7, n_silos=4)
+    root = Path(tempfile.mkdtemp(prefix="cifar_"))
+    try:
+        full = cifar_trainer(CIFAR10_CNN6, dev, priv, 1, 4)
+        cifar_trainer(CIFAR10_CNN6, dev, priv, 1, 2, ckpt=root)
+        resumed = cifar_trainer(CIFAR10_CNN6, dev, priv, 1, 4, ckpt=root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    (ta, sa, _, _), (tb, sb, _, _) = full, resumed
+    eq = {k: torch.equal(sa.opt_state[k], sb.opt_state[k])
+          for k in ("master", "mu")}
+    eq["clip_bound"] = torch.equal(sa.clip_bound, sb.clip_bound)
+    eq["noise_key"] = sa.noise_state.prev_key == sb.noise_state.prev_key
+    eq["losses"] = [m["loss"] for m in ta.metrics_log] == \
+        [m["loss"] for m in tb.metrics_log]
+    eq["ledger"] = json.dumps(ta.accountant.state_dict()) == \
+        json.dumps(tb.accountant.state_dict())
+    check(tb.restored_step == 2 and all(eq.values()),
+          f"cifar Trainer: resumed (from {tb.restored_step}) vs "
+          f"uninterrupted {eq}")
+    log(f"[cifar] CNN6 Trainer: 2 steps + checkpoint + 2 == 4 steps bit for "
+        f"bit ({', '.join(eq)}) | losses "
+        f"{[round(m['loss'], 4) for m in ta.metrics_log]}")
+    return {"equal": eq, "losses": [m["loss"] for m in ta.metrics_log]}
+
+
+def cifar_cross_device(dev) -> dict:
+    """(f) one fused step of CNN6 and of a narrow WRN
+    (``WRNConfig(depth=10, widen=1)``) on the card and on the host CPU from
+    the same weights and batch (sigma 0, so the aggregate is the clipped
+    sum): loss and bound within TRAIN_RTOL, every silo's norm and the
+    aggregate's relative L2 difference within the model's CIFAR_CARD_TOL;
+    the card once more with TF32 convolutions (:func:`conv_route`), which
+    must miss those bounds: the gate sees TF32. Logged beside: the card on
+    cuDNN's default fp32 algorithms."""
+    from repro_torch.configs.base import PrivacyConfig
+    from repro_torch.configs.paper_models import CIFAR10_CNN6, WRNConfig
+    from repro_torch.core import flatbuf, prng
+    from repro_torch.core.barrier import step_keys
+    from repro_torch.core.noise_correction import init_state as init_noise
+    from repro_torch.data.synthetic import synthetic_cifar10
+    from repro_torch.distributed import steps as steps_mod
+    from repro_torch.models.packing import pack_params
+
+    priv = PrivacyConfig(enabled=True, sigma=0.0, clip_bound=1.0,
+                         dynamic_clip=True, noise_lambda=0.7, n_silos=4,
+                         clip_percentile_max=64.0)
+
+    def diff(x, y) -> dict:
+        return {"loss_rel": abs(x[1] - y[1]) / abs(y[1]),
+                "bound_rel": abs(x[3] - y[3]) / abs(y[3]),
+                "norms_max_rel": max_rel(x[2], y[2]),
+                "aggregate_l2_rel": ((x[0] - y[0]).double().norm()
+                                     / y[0].double().norm()).item(),
+                "aggregate_max_abs": (x[0] - y[0]).abs().max().item(),
+                "aggregate_largest": y[0].abs().max().item()}
+
+    out: dict = {}
+    for cfg, B in ((CIFAR10_CNN6, 256),
+                   (WRNConfig(name="wrn10x1", depth=10, widen=1), 64)):
+        sm, model = cifar_setup(cfg, dev)
+        w = sm.init(torch.Generator().manual_seed(3))
+        data = synthetic_cifar10(n_train=B, n_test=16, seed=22)[0]
+
+        def step(d, route="exact"):
+            params = {k: v.clone().to(d) for k, v in w.items()}
+            layout, _ = pack_params(params)
+            batch = {"x": torch.as_tensor(data.x).to(d),
+                     "y": torch.as_tensor(data.y).to(d)}
+            keys = step_keys(prng.PRNGKey(1), 0)
+            ns = init_noise(prng.fold_in(prng.PRNGKey(0), 0xD0), 4)
+            c0 = torch.full((), 1.0, dtype=torch.float32, device=d)
+            with conv_route(route):
+                agg, loss, norms, _, bound = steps_mod._fused_grads(
+                    model, priv, params, batch, 4, keys, ns, c0,
+                    keys.key_clip, layout, steps_mod.StageTimer(d))
+            return (flatbuf.zero_padding(layout, agg).cpu(), float(loss),
+                    norms.cpu(), float(bound))
+
+        cpu = step("cpu")
+        rec = {"batch": B, "card_vs_cpu": diff(step("cuda"), cpu),
+               "tf32_card_vs_cpu": diff(step("cuda", "tf32"), cpu),
+               "plain_card_vs_cpu": diff(step("cuda", "plain"), cpu),
+               "tolerance": {"loss_bound_rel": TRAIN_RTOL,
+                             **CIFAR_CARD_TOL[cfg.name]}}
+        out[cfg.name] = rec
+        for k in ("card_vs_cpu", "tf32_card_vs_cpu", "plain_card_vs_cpu"):
+            log(f"[cifar] {cfg.name} one fused step (batch {B}), {k}: "
+                + ", ".join(f"{m} {v:.3g}" for m, v in rec[k].items()))
+    for name, rec in out.items():
+        d, t, tol = rec["card_vs_cpu"], rec["tf32_card_vs_cpu"], \
+            CIFAR_CARD_TOL[name]
+        check(d["loss_rel"] <= TRAIN_RTOL and d["bound_rel"] <= TRAIN_RTOL
+              and d["norms_max_rel"] <= tol["norms_rel"]
+              and d["aggregate_l2_rel"] <= tol["aggregate_l2_rel"],
+              f"cifar card vs CPU {name}: {d} (tolerance {tol})")
+        check(t["norms_max_rel"] > tol["norms_rel"]
+              or t["aggregate_l2_rel"] > tol["aggregate_l2_rel"],
+              f"cifar {name}: TF32 convolutions stay within the gate {t}")
+        log(f"[cifar] {name} card vs CPU within {tol}; TF32 misses it")
+    return out
+
+
+def cifar_phase(dev, sass=None) -> tuple:
+    """Phase 20: the paper's CIFAR models on the card. Returns ``(record,
+    the DP kernels' sub-rows at the CIFAR shapes, launches on the main
+    path)``."""
+    t20 = time.perf_counter()
+    rec: dict = {"card_vs_cpu": cifar_cross_device(dev)}
+    rec["prng_scan_noise_wrn28"] = prng_phase(dev)
+    rows = cifar_kernel_rows(dev, sass if sass is not None
+                             else library_sass())
+    rec["tiers"] = cifar_tiers(dev)
+    rec["convergence"] = cifar_convergence(dev)
+    rec["per_example"] = cifar_per_example(dev)
+    rec["wire"] = cifar_wire(dev)
+    rec["resume"] = cifar_resume(dev)
+    tiers = rec["tiers"]
+    for name, tier, sub in (("clip_accumulate", "fused", None),
+                            ("noise_batch", "fused", None),
+                            ("clip_mask", "barrier", None),
+                            ("zsmask", "perleaf", None)):
+        for model, short in (("cifar10-cnn6", "cnn6"),
+                             ("cifar10-wrn28", "wrn28")):
+            rows[name][short]["launches"] = \
+                tiers[model][tier]["launches"][name]
+    for name in ("per_example_sumsq", "clip_sum"):
+        impl = "packed" if name == "clip_sum" else "perleaf"
+        rows[name]["pe16"]["launches"] = \
+            rec["per_example"][impl]["launches"][name]
+    rec["phase_s"] = time.perf_counter() - t20
+    log(f"[cifar] phase 20 in {rec['phase_s']:.1f} s")
+    return rec, rows
+
+
 def one_phase(phase: str, src: Path) -> int:
     """``--scans`` / ``--pool`` / ``--wire`` / ``--bwd`` / ``--streams`` /
-    ``--slice15`` / ``--persist``: the card, the build and phase 11's
-    scans, phase 3's page-pool events, phase 16's wire tier, phase 17's
-    backward kernels, the wire tier's stream kernels
-    (:func:`streams_phase`), phase 18 (:func:`slice15_phase`) or phase 19
-    (:func:`persist_phase`) alone,
+    ``--slice15`` / ``--persist`` / ``--cifar`` / ``--prng``: the card, the
+    build and phase 11's scans, phase 3's page-pool events, phase 16's
+    wire tier, phase 17's backward kernels, the wire tier's stream kernels
+    (:func:`streams_phase`), phase 18 (:func:`slice15_phase`), phase 19
+    (:func:`persist_phase`), phase 20 (:func:`cifar_phase`) or the scan
+    tier's noise stage on WRN28 (:func:`prng_phase`, with no build) alone,
     from the ``repro_torch`` under ``src`` (another tree's, to time two
     trees in one call); the last line is their JSON record."""
     if not torch.cuda.is_available():
@@ -2036,9 +2813,11 @@ def one_phase(phase: str, src: Path) -> int:
 
     card = card_line()
     log(card)
-    build_s = _build.build()
-    log(f"[build] {_build.library_path()} in {build_s:.1f} s")
+    if phase != "prng":  # the per-leaf draw launches no kernel
+        build_s = _build.build()
+        log(f"[build] {_build.library_path()} in {build_s:.1f} s")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     if phase == "scans":
         record = check_scans(dev, 11)
@@ -2054,6 +2833,11 @@ def one_phase(phase: str, src: Path) -> int:
         record["rows"] = rows
     elif phase == "persist":
         record = persist_phase(dev)
+    elif phase == "cifar":
+        record, rows = cifar_phase(dev)
+        record["rows"] = rows
+    elif phase == "prng":
+        record = prng_phase(dev)
     else:
         log(f"[kernel] clip_mask SASS, live (a report; the bound uses "
             f"{json.dumps(CLIP_MASK_OPS)}): "
@@ -3564,7 +4348,9 @@ def main() -> int:
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     report["card"] = card
     dev = torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False  # fp32 at full precision
+    # fp32 at full precision: no TF32 in matrix products or convolutions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     # 2. build
     report["build_s"] = _build.build()
@@ -4551,6 +5337,12 @@ def main() -> int:
     # 19. ledger wiring and persistence in the Trainer
     report["persist"] = persist_phase(dev)
 
+    # 20. the paper's CIFAR models through the train step, the Trainer and
+    # the wire tier
+    report["cifar"], rows20 = cifar_phase(dev, sass)
+    for name, subs in rows20.items():
+        kern[name].update(subs)
+
     # the record
     launches = {"flash_attention": n_direct["flash_attention"],
                 "paged_attention": n_cont["paged_attention"],
@@ -4590,7 +5382,7 @@ def main() -> int:
                 entry[extra] = r[extra]
         for sub in ("verify4", "chunk16", "d112", "s512", "wire", "d80",
                     "d80_verify4", "d80_chunk16", "d96", "d96_verify4",
-                    "d96_chunk16"):
+                    "d96_chunk16", "cnn6", "wrn28", "pe16"):
             if sub in r:
                 entry[sub] = {x: r[sub][x] for x in (
                     "max_abs_err", "ms", "device_ms", "plain_ms",
@@ -4616,7 +5408,7 @@ if __name__ == "__main__":
     src = Path(args[args.index("--src") + 1]).resolve() \
         if "--src" in args else ROOT / "src"
     for phase in ("scans", "pool", "wire", "bwd", "streams", "slice15",
-                  "persist"):
+                  "persist", "cifar", "prng"):
         if f"--{phase}" in args:
             sys.exit(one_phase(phase, src))
     sys.exit(main())

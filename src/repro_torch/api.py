@@ -116,8 +116,9 @@ class Session:
         dev = resolve_device(device)
         if dev.type == "cuda":
             # the path is fp32 at full precision, as in the JAX package:
-            # no TF32 in the fp32 matrix products
+            # no TF32 in the fp32 matrix products and convolutions
             torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
         if isinstance(arch, ModelConfig):
             cfg = arch
         else:
@@ -498,6 +499,7 @@ class CollaborativeSession:
         if dev.type == "cuda":
             # fp32 at full precision, as in the JAX package: no TF32
             torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
         n = len(silo_data)
         ledger = PrivacyLedger.from_privacy_config(
             privacy, n, epsilon_budget=silo_epsilon_budget,

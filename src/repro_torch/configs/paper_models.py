@@ -1,13 +1,11 @@
 """The paper's own evaluation models (section 8, Appendix B): the port's
 copy of ``repro/configs/paper_models.py``.
 
-- MNIST-MLP3: 3-layer MLP on 28x28 grayscale, 10 classes (ported:
-  ``models/small.py``).
+- MNIST-MLP3: 3-layer MLP on 28x28 grayscale, 10 classes.
 - CIFAR10-CNN6: 6-layer CNN on 32x32x3, 10 classes.
 - CIFAR10-WRN28: 28-layer WideResNet (widen factor 4 by default).
 
-The CNN6 and WRN28 configs are here for completeness; their models are
-not ported yet (``ROADMAP.md`` queue 1, item 12).
+Their models are in ``models/small.py``.
 """
 from dataclasses import dataclass
 

@@ -24,6 +24,7 @@ from repro_torch.core import clipping, flatbuf, noise_correction, prng
 from repro_torch.core.noise_correction import NoiseState
 from repro_torch.kernels.dispatch import on_cuda, resolve_tree
 from repro_torch.kernels.dp_fused import ops as fused_ops
+from repro_torch.models import packing
 
 
 class BarrierKeys(NamedTuple):
@@ -50,7 +51,7 @@ def silo_grad(loss_fn, params, batch_local: dict, priv: PrivacyConfig,
     if priv.enabled and priv.clip_mode == "per_microbatch":
         return clipping.per_microbatch_clipped_grad(
             loss_fn, params, batch_local, clip_bound, n_micro=4)
-    tree = clipping._param_tree(params)
+    tree = packing.param_tree(params)
     layout = flatbuf.layout_of(tree)
     tensors = flatbuf.flat_tensors(layout, tree)
     with clipping.trainable(tensors):

@@ -78,12 +78,6 @@ def clip_scale(norm: torch.Tensor, clip_bound) -> torch.Tensor:
     return torch.clamp(clip_bound / torch.clamp(norm, min=1e-12), max=1.0)
 
 
-def _param_tree(params) -> dict:
-    """The flat tree of ``params``: itself when it is one, the model's
-    weights (``models.packing.param_tree``, any family) otherwise."""
-    return params if isinstance(params, dict) else packing.param_tree(params)
-
-
 @contextmanager
 def trainable(tensors):
     """Gradients of the weights ``tensors`` inside the block (weights made
@@ -104,7 +98,7 @@ def per_example_grads(loss_fn: Callable, params, batch: dict):
     """Every example's gradient, each example run as a batch of one:
     ``(layout, (B, P) buffer, losses (B,))``, row b example b's gradient
     packed with the layout of ``params``' tree."""
-    tree = _param_tree(params)
+    tree = packing.param_tree(params)
     layout = flatbuf.layout_of(tree)
     tensors = flatbuf.flat_tensors(layout, tree)
     B = next(iter(batch.values())).shape[0]
@@ -142,7 +136,7 @@ def per_microbatch_clipped_grad(loss_fn: Callable, params, batch: dict,
     group's mean gradient clipped as a whole (:func:`clip_tree`), the
     clipped groups summed in order. Returns ``(summed tree fp32, norms
     (n_micro,), mean loss)``."""
-    tree = _param_tree(params)
+    tree = packing.param_tree(params)
     layout = flatbuf.layout_of(tree)
     tensors = flatbuf.flat_tensors(layout, tree)
     B = next(iter(batch.values())).shape[0]

@@ -25,6 +25,7 @@ within 3 ulp (measured over 2**21 draws: 97% equal).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -86,10 +87,19 @@ def _unit(b: torch.Tensor) -> torch.Tensor:
 def uniform(key: tuple, shape=(), minval=0.0, maxval=1.0, offset: int = 0,
             device=None) -> torch.Tensor:
     """``jax.random.uniform(key, shape, float32, minval, maxval)``."""
-    lo = torch.tensor(minval, dtype=torch.float32, device=device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=device)
+    # fills, not host copies: a copy would wait for the stream every window
+    lo = torch.full((), minval, dtype=torch.float32, device=device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=device)
     u = _unit(bits(key, shape, offset, device))
     return torch.maximum(lo, u * (hi - lo) + lo)
+
+
+@functools.lru_cache(maxsize=None)
+def _erfinv_tables(device: torch.device) -> tuple:
+    """The two coefficient tables as fp32 tensors on ``device``, copied
+    there once per device, not once per window."""
+    return (torch.tensor(_ERFINV_LT5, dtype=torch.float32, device=device),
+            torch.tensor(_ERFINV_GE5, dtype=torch.float32, device=device))
 
 
 def erfinv(x: torch.Tensor) -> torch.Tensor:
@@ -98,8 +108,7 @@ def erfinv(x: torch.Tensor) -> torch.Tensor:
     w = -torch.log1p(x * -x)
     lt = w < 5.0
     w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0).double()
-    lo = torch.tensor(_ERFINV_LT5, dtype=torch.float32, device=x.device)
-    hi = torch.tensor(_ERFINV_GE5, dtype=torch.float32, device=x.device)
+    lo, hi = _erfinv_tables(x.device)
     p = torch.where(lt, lo[0], hi[0])
     for i in range(1, len(_ERFINV_LT5)):
         c = torch.where(lt, lo[i], hi[i])

@@ -1,6 +1,7 @@
 """Synthetic datasets (the container has no real corpus and no real
-MNIST). The port's copy of ``repro/data/synthetic.py``'s ``ArrayDataset``,
-``synthetic_images``, ``synthetic_mnist`` and ``synthetic_tokens``: the
+MNIST or CIFAR-10). The port's copy of ``repro/data/synthetic.py``'s
+``ArrayDataset``, ``synthetic_images``, ``synthetic_mnist``,
+``synthetic_cifar10`` and ``synthetic_tokens``: the
 same numpy draws, so the same seed gives the JAX package's arrays bit for
 bit.
 
@@ -54,6 +55,24 @@ def synthetic_mnist(n_train: int = 8192, n_test: int = 2048, seed: int = 0):
     te = ArrayDataset((protos[y, pick] + rng2.normal(
         0, 0.35, (n_test, 28, 28, 1))).astype(np.float32), y.astype(np.int32))
     return tr, te
+
+
+def synthetic_cifar10(n_train: int = 8192, n_test: int = 2048,
+                      seed: int = 7):
+    """``(train, test)`` NHWC ``(n, 32, 32, 3)`` float32 images of 10
+    classes, both drawn from the prototypes of ``seed``, train from
+    ``seed + 1`` and test from ``seed + 2``, as in the JAX package."""
+    rng = np.random.default_rng(seed)
+    protos = rng.normal(0.0, 1.0, (10, 3, 32, 32, 3))
+
+    def make(n, s):
+        r = np.random.default_rng(s)
+        y = r.integers(0, 10, n)
+        pick = r.integers(0, 3, n)
+        x = protos[y, pick] + r.normal(0, 0.35, (n, 32, 32, 3))
+        return ArrayDataset(x.astype(np.float32), y.astype(np.int32))
+
+    return make(n_train, seed + 1), make(n_test, seed + 2)
 
 
 def synthetic_tokens(n_seqs: int, seq_len: int, vocab: int, seed: int = 0,

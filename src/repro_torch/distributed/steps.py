@@ -42,6 +42,7 @@ full ring of the mesh, as JAX's steps do.
 from __future__ import annotations
 
 import contextlib
+import functools
 import time
 from typing import Any, NamedTuple, Optional
 
@@ -152,14 +153,22 @@ def _reshape_to_silos(batch: dict, n_silos: int) -> dict:
     return out
 
 
+@functools.lru_cache(maxsize=64)
+def _gates(active: tuple, device: torch.device) -> torch.Tensor:
+    """The fp32 0/1 gates of a participation set on ``device``, copied
+    there once per set and device: a copy every step would wait for the
+    stream."""
+    return torch.tensor(active, dtype=torch.float32, device=device)
+
+
 def _mean_loss(losses: list, pipe: DPPipeline, active) -> torch.Tensor:
     """``sum_i loss_i * gate_i / active_count`` in silo order (JAX's psum
     of the gated losses): dropped silos weigh nothing."""
     dev = losses[0].device
-    gates = torch.as_tensor(pipe._active_or_full(active), device=dev,
-                            dtype=torch.float32)
-    return torch.sum(torch.stack(losses) * gates) / torch.tensor(
-        pipe.active_count(active), device=dev)
+    gates = _gates(tuple(bool(a) for a in pipe._active_or_full(active)), dev)
+    return torch.sum(torch.stack(losses) * gates) / torch.full(
+        (), float(pipe.active_count(active)), dtype=torch.float32,
+        device=dev)
 
 
 def _fused_grads(model: Model, priv: PrivacyConfig, params, batch, n_silos,
@@ -367,7 +376,8 @@ def build_train_step(model: Model, run_cfg: RunConfig, lr_schedule=None,
                 state.noise_state, state.clip_bound, keys.key_clip,
                 state.layout, timer, active=active)
         dev = noisy.device
-        n_contrib = torch.tensor(float(max(int(active.sum()), 1)), device=dev)
+        n_contrib = torch.full((), float(max(int(active.sum()), 1)),
+                               dtype=torch.float32, device=dev)
         lr = lr_schedule(state.step)
         with timer.stage("optimizer"), torch.no_grad():
             # the aggregate over its contributors; the padding, which the
@@ -375,7 +385,7 @@ def build_train_step(model: Model, run_cfg: RunConfig, lr_schedule=None,
             grad = flatbuf.zero_padding(state.layout, noisy.div_(n_contrib))
             opt_state = opt.update(state.opt_state, grad, lr)
         del noisy, grad
-        gates = torch.as_tensor(active.astype(np.float32), device=dev)
+        gates = _gates(tuple(bool(a) for a in active), dev)
         metrics = {"loss": loss, "grad_norm_mean":
                    torch.sum(norms * gates) / n_contrib,
                    "clip_bound": bound, "lr": lr, "n_contributions": n_contrib}

@@ -14,6 +14,11 @@ The port's parameter names are those paths with the layer index inserted
 package's leaf order; ``pack_params`` moves the weights into one packed
 fp32 buffer, the parameters becoming views of it (the optimizer's master
 copy in fp32).
+
+A small model (``models/small.py``) has no module: its weights are a flat
+dict keyed by JAX path already. Both functions take such a dict too; it is
+its own tree, and ``pack_params`` rebinds its values to views of the buffer
+in place, so the caller's dict is the train state's ``params``.
 """
 from __future__ import annotations
 
@@ -39,26 +44,34 @@ def param_slots(params: nn.Module) -> dict:
     return slots
 
 
-def param_tree(params: nn.Module) -> dict:
-    """The weights as a flat tree keyed by JAX path (``core/flatbuf.py``)."""
+def param_tree(params) -> dict:
+    """The weights as a flat tree keyed by JAX path (``core/flatbuf.py``):
+    a small model's flat dict is that tree itself."""
+    if isinstance(params, dict):
+        return params
     return {path: [getattr(m, a) for m, a in slot] if isinstance(slot, list)
             else getattr(*slot) for path, slot in param_slots(params).items()}
 
 
-def pack_params(params: nn.Module):
-    """Move every weight into one packed fp32 buffer, in place: each
-    parameter becomes a trainable view of the buffer. Returns
-    ``(layout, buffer)``."""
-    if any(p.dtype != torch.float32 for p in params.parameters()):
+def pack_params(params):
+    """Move every weight of a module or a small model's flat dict into one
+    packed fp32 buffer, in place: each parameter becomes a trainable view of
+    the buffer. Returns ``(layout, buffer)``."""
+    weights = params.values() if isinstance(params, dict) \
+        else params.parameters()
+    if any(p.dtype != torch.float32 for p in weights):
         raise NotImplementedError("pack_params takes fp32 weights only")
-    slots = param_slots(params)
     tree = param_tree(params)
     layout = flatbuf.layout_of(tree)
     with torch.no_grad():
         buf = flatbuf.pack(layout, tree)
     del tree
     views = flatbuf.unpack(layout, buf)
-    for path, slot in slots.items():
+    if isinstance(params, dict):
+        params.update({path: _param(views[path], trainable=True)
+                       for path in layout.paths})
+        return layout, buf
+    for path, slot in param_slots(params).items():
         pairs = slot if isinstance(slot, list) else [slot]
         parts = views[path] if isinstance(slot, list) else [views[path]]
         for (m, a), v in zip(pairs, parts):

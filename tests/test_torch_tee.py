@@ -338,13 +338,27 @@ def test_mlp3_loss_and_grads_match_jax_from_carried_weights():
 
 
 def test_small_cnn_and_wrn_raise_item_12():
+    """The CIFAR models are ported: ``build_small_model`` builds both at
+    their published configs with JAX's leaf paths and shapes and its
+    parameter counts, 307,498 (CNN6, 14 leaves) and 5,849,050 (WRN28-4, 80
+    leaves)."""
+    from repro.configs.paper_models import CIFAR10_CNN6 as JCNN6
+    from repro.configs.paper_models import CIFAR10_WRN28 as JWRN28
+    from repro.models.small import build_small_model as jbuild
     from repro_torch.configs.paper_models import CIFAR10_CNN6, CIFAR10_WRN28
+    from repro_torch.core import flatbuf
     from repro_torch.models.small import build_small_model
 
-    for cfg in (CIFAR10_CNN6, CIFAR10_WRN28):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md queue 1, item 12"):
-            build_small_model(cfg)
+    for cfg, jcfg, n, leaves in ((CIFAR10_CNN6, JCNN6, 307_498, 14),
+                                 (CIFAR10_WRN28, JWRN28, 5_849_050, 80)):
+        tree = build_small_model(cfg).init(torch.Generator().manual_seed(0))
+        jtree = jax.eval_shape(jbuild(jcfg).init, jax.random.PRNGKey(0))
+        want = {".".join(str(k.key) for k in path): tuple(leaf.shape)
+                for path, leaf in jax.tree_util.tree_leaves_with_path(jtree)}
+        assert {k: tuple(v.shape) for k, v in tree.items()} == want
+        assert sum(v.numel() for v in tree.values()) == n
+        assert flatbuf.layout_of(tree).n_leaves == leaves
+        assert all(v.dtype == torch.float32 for v in tree.values())
 
 
 def test_spend_report_signed_by_port_verifies_in_both_packages():
