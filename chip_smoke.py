@@ -25,6 +25,7 @@ against the host CPU.
     python3 chip_smoke.py --persist             # phase 19 alone
     python3 chip_smoke.py --cifar               # phase 20 alone
     python3 chip_smoke.py --prng [--src DIR]    # WRN28's per-leaf noise
+    python3 chip_smoke.py --normal              # phase 21 alone
 
 ``--scans`` runs only the card line, the build and phase 11's scans (their
 checks and times, no launch configuration), from the ``repro_torch`` under
@@ -42,8 +43,10 @@ training and the wire shape, ``noise_stream`` and the external-stream
 ``clip_mask`` at the wire shape, as phases 6 and 16 check and time them,
 against the pinned bound), on trees that have ``ops.noise_stream``.
 ``--prng`` times the scan tier's per-leaf noise stage on WRN28's layout
-and prints the hash of what it drew (no kernel is built): a parent and a
-change in one call, trees from PR 25 on.
+and prints the hash of what it drew (no kernel is built for a tree
+without the normal kernels): a parent and a change in one call, trees
+that have the scan tier. ``--normal`` runs that noise stage with its
+launches, then phase 21.
 
 Phases (any failed check raises, and the script exits non-zero):
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
@@ -219,13 +222,15 @@ Phases (any failed check raises, and the script exits non-zero):
      masks on qwen2.5-3b at 12 layers, phase 7's settings: one primed step
      of the fused and the barrier tier from one set of weights (aggregates
      within MASK_ATOL_PER_B units of B), 2 fused steps (clip_accumulate
-     once a step) and 1 barrier step (no kernel) through
+     once a step, ``normal_combine`` once a window) and 1 barrier step
+     (``normal`` 6 times a window, ``normal_combine`` once) through
      ``Session.train``, then 10 serial and 10 pipelined admin rounds of
      MNIST-MLP3 bit-equal and 3 rounds with a drop card vs CPU (WIRE_*
      tolerances); (d) the silo-serial scan tier on qwen2.5-3b at the
      largest of 36, 30, ... layers that fits (2 steps, step and stage
-     times, peak memory), and a narrow scan step against the vmap step
-     under the per-leaf policy, card vs CPU (NOISY_ATOL);
+     times, peak memory, ``normal_combine`` once a leaf tensor a step),
+     and a narrow scan step against the vmap step under the per-leaf
+     policy, card vs CPU (NOISY_ATOL);
  19. the Trainer's ledger wiring and persistence at qwen2.5-3b's published
      width and 2 of 36 layers (P = 776,485,888; an AdamW checkpoint in
      JAX's layout is 12.4 GB, written to a temporary directory outside the
@@ -265,7 +270,18 @@ Phases (any failed check raises, and the script exits non-zero):
      steps + checkpoint + 2 == 4 steps bit for bit; (f) one fused step of
      CNN6 and of a narrow WRN card vs CPU (TRAIN_RTOL, CIFAR_CARD_TOL),
      and TF32 convolutions shown to miss that gate; the scan tier's noise
-     stage on WRN28's layout (``--prng``).
+     stage on WRN28's layout (``--prng``: ``normal_combine`` once a leaf);
+ 21. the per-leaf normal draw (``kernels/prng/csrc/normal.cu``):
+     ``normal`` and ``normal_combine`` (two keys at
+     gate 0.7 added and gate 0 written, one key added) bit-equal to their
+     plain versions at 1, 7, 2**22, 2**22 + 3 and 311,164,928 elements
+     (qwen2.5-3b's embedding leaf, one launch) and at 3,000,000 counters
+     across 2**32; each kernel's SASS counts a normal (pinned,
+     NORMAL_OPS) for its bound, its launch configuration, its call and
+     card ms beside the plain version's; the launches of both on phase
+     18's admin and scan cells and phase 20's scan tiers, where no plain
+     draw ran on the card (a spy on the plain draw; ``--normal`` alone:
+     WRN28's noise stage).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -2096,9 +2112,11 @@ def prng_phase(dev) -> dict:
     5,849,050 parameters), as ``_fused_grads_scan`` runs it: the per-leaf
     policy's ``corrected_noise_tree`` (xi_t and lambda xi_{t-1} of 4 silos,
     one silo out at t-1) added into a zero accumulator, timed with CUDA
-    events over 5 calls after one warm call, and the result's sha256: two
-    trees' draws are bit-equal when their hashes are. Any tree from PR 25
-    on (no CIFAR model needed)."""
+    events over 5 calls after one warm call, the kernels the warm call
+    launched (``normal_combine`` once a leaf on a tree with the normal
+    kernels, none before), and the result's sha256: two trees' draws are
+    bit-equal when their hashes are. Any tree with the scan tier and the
+    per-leaf policy (no CIFAR model needed)."""
     import hashlib
 
     from repro_torch.configs.base import PrivacyConfig
@@ -2128,7 +2146,10 @@ def prng_phase(dev) -> dict:
         pipe.corrected_noise_tree(flatbuf.unpack(layout, acc), keys, ns,
                                   bound, None)
 
+    from repro_torch.kernels import dispatch
+    dispatch.reset_launches()
     once()
+    launches = {k: v for k, v in dispatch.launch_counts().items() if v}
     torch.cuda.synchronize()
     digest = hashlib.sha256(acc.cpu().numpy().tobytes()).hexdigest()
     ms = []
@@ -2143,11 +2164,24 @@ def prng_phase(dev) -> dict:
     rec = {"at": f"WRN28 layout, {layout.n_leaves} leaves, P "
                  f"{layout.total}, 2 streams x 4 silos, one out at t-1",
            "noise_ms": ms, "median_ms": float(np.median(ms)),
-           "sha256": digest}
+           "sha256": digest, "launches": launches}
     log(f"[prng] scan-tier noise stage on WRN28: median "
         f"{rec['median_ms']:.2f} ms ({', '.join(f'{x:.2f}' for x in ms)}) "
-        f"| sha256 {digest[:16]}")
+        f"| sha256 {digest[:16]} | launches a stage {json.dumps(launches)}")
     return rec
+
+
+def wrn_noise_stage(dev) -> dict:
+    """:func:`prng_phase` on this tree: ``normal_combine`` once a leaf (80)
+    and no other kernel, no plain draw on the card."""
+    spy: dict = {}
+    with plain_draw_spy(spy):
+        rec = prng_phase(dev)
+    check(spy["plain_draws_on_card"] == 0
+          and rec["launches"] == {"normal_combine": 80},
+          f"WRN28's noise stage: launches {rec['launches']}, "
+          f"{spy['plain_draws_on_card']} plain draws on the card")
+    return {**rec, **spy}
 
 
 def cifar_setup(cfg, dev):
@@ -2299,8 +2333,9 @@ def cifar_batcher(cfg, dev, seed: int = 20):
 def cifar_trainer(cfg, dev, priv, mesh_n, steps, ckpt=None, perleaf=False,
                   route="exact"):
     """One Trainer on ``cfg`` from random weights (seed 0), its launches
-    zeroed just before the fit, the convolutions on ``route``
-    (:func:`conv_route`): ``(trainer, state, step, launches)``."""
+    zeroed just before the fit and no plain per-leaf draw on the card in
+    it, the convolutions on ``route`` (:func:`conv_route`): ``(trainer,
+    state, step, launches)``."""
     from repro_torch.configs.base import (MeshConfig, OptimizerConfig,
                                           RunConfig)
     from repro_torch.core import prng
@@ -2324,18 +2359,21 @@ def cifar_trainer(cfg, dev, priv, mesh_n, steps, ckpt=None, perleaf=False,
         else contextlib.nullcontext()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    spy: dict = {}
     dispatch.reset_launches()
-    with ctx, conv_route(route):
+    with ctx, conv_route(route), plain_draw_spy(spy):
         state, step = tr.fit(state, prng.PRNGKey(1))
     n = {k: v for k, v in dispatch.launch_counts().items() if v}
+    check(spy["plain_draws_on_card"] == 0, f"{cfg.name}: "
+          f"{spy['plain_draws_on_card']} plain draws on the card")
     return tr, state, step, n
 
 
 def cifar_tiers(dev) -> dict:
     """(a) 3 steps of each model on each tier through the Trainer: fused,
     barrier on a (4,) mesh, barrier under the perleaf policy, and the scan
-    tier; the launches of rows 5, 8, 9 and 10 per step as each tier makes
-    them, losses finite, epsilon rising; step ms after the first, the
+    tier; the launches of rows 5, 8, 9, 10 and 18 per step as each tier
+    makes them, losses finite, epsilon rising; step ms after the first, the
     stage split, peak memory. Then the masks cancel: one step's
     ``_barrier_grads`` == ``_fused_grads`` from one set of weights and one
     batch within MASK_ATOL_PER_B units of B."""
@@ -2360,7 +2398,7 @@ def cifar_tiers(dev) -> dict:
             "perleaf": (dataclasses.replace(priv, sync_path="barrier"), 4,
                         True, {"zsmask": 2 * 4 * n_leaves}),
             "scan": (dataclasses.replace(priv, silo_mode="scan"), 1, False,
-                     {}),
+                     {"normal_combine": n_leaves}),
         }
         rec: dict = {}
         for tier, (p, mesh_n, perleaf, want) in tiers.items():
@@ -2767,7 +2805,7 @@ def cifar_phase(dev, sass=None) -> tuple:
     path)``."""
     t20 = time.perf_counter()
     rec: dict = {"card_vs_cpu": cifar_cross_device(dev)}
-    rec["prng_scan_noise_wrn28"] = prng_phase(dev)
+    rec["prng_scan_noise_wrn28"] = wrn_noise_stage(dev)
     rows = cifar_kernel_rows(dev, sass if sass is not None
                              else library_sass())
     rec["tiers"] = cifar_tiers(dev)
@@ -2793,16 +2831,252 @@ def cifar_phase(dev, sass=None) -> tuple:
     return rec, rows
 
 
+# --------------------------------------------------------------- phase 21
+# the per-leaf normal draw (kernels/prng/csrc/normal.cu) at the sizes the
+# main paths give it: one element, a few, an admin window of 2**22 and one
+# past it, and qwen2.5-3b's embedding leaf (151,936 x 2,048) in one launch;
+# then counters that cross 2**32, which no leaf of today's configs reaches
+NORMAL_SIZES = (1, 7, 1 << 22, (1 << 22) + 3, 311_164_928)
+NORMAL_PAST_2_32 = ((1 << 32) - 1_000_003, 3_000_000)  # offset, n
+NORMAL_KEYS = ((2705940334, 2639757084), (4086990474, 1067026239))
+FP64_OPS = {"DMUL", "DADD", "DFMA"}
+# per-SM rates of Hopper (CUDA C++ programming guide, arithmetic
+# instruction throughput, compute capability 9.0): 64 float64 adds,
+# multiplies and multiply-adds a clock, and 16 conversions to or from a
+# 64-bit type
+NORMAL_LANES = {**LANES, "fp64": 64, "conv64": 16}
+# the SASS of normal_kernel<0> (normal) and normal_kernel<2> (two keys:
+# corrected_noise's window) in the anonymous namespace of normal.cu
+NORMAL_SASS = {"normal": r"normal_kernelILi0E", "normal_combine":
+               r"normal_kernelILi2E"}
+# arithmetic instructions a normal by pipe in each kernel's loop as this
+# design compiled it for the H100 (four elements a thread, one float64
+# multiply-add an erf_inv step), pinned so that a redesign is held to one
+# bound; the live count of the running build is logged beside it as a
+# report only
+NORMAL_OPS = {
+    "normal": {"normals_in_loop": 4.0, "alu": 84.0, "imad": 23.75,
+               "fp32+imad": 53.75, "mufu": 1.0, "fp64": 8.0,
+               "conv64": 17.0, "issue": 168.75},
+    "normal_combine": {"normals_in_loop": 8.0, "alu": 83.875, "imad": 23.5,
+                       "fp32+imad": 56.0, "mufu": 1.0, "fp64": 8.0,
+                       "conv64": 17.0, "issue": 172.875}}
+
+
+def normal_ops(sass: str, kernel: str) -> dict:
+    """Arithmetic instructions one normal costs in ``kernel`` (a regular
+    expression of its mangled name), by pipe: the innermost loop with the
+    most float64 operations, over its normals (erf_inv's eight steps, one
+    ``DFMA`` each). ``conv64`` counts the float32 <-> float64 conversions
+    (``F2F`` with an ``F64`` side), ``fp64`` the float64 adds, multiplies
+    and multiply-adds; moves, branches and memory are left out, as in
+    :func:`stream_ops`, so the bound from these counts is a lower bound."""
+    loops = sass_loops(sass, kernel)
+    fp64 = lambda ops: sum(o.split(".")[0] in FP64_OPS for o in ops)
+    best = max(loops, key=fp64, default=[])
+    n = fp64(best) / 8
+    check(n >= 1, f"no loop of {kernel} draws a normal")
+    count = dict.fromkeys(("alu", "imad", "fp32", "mufu", "fp64", "conv64",
+                           "other"), 0)
+    for o in best:
+        if ".MOV" in o:
+            continue
+        base = o.split(".")[0]
+        if base == "F2F" and "F64" in o:
+            count["conv64"] += 1
+        else:
+            for c, ops in (("alu", ALU_OPS), ("imad", IMAD_OPS),
+                           ("fp32", FP32_OPS), ("mufu", {"MUFU"}),
+                           ("fp64", FP64_OPS), ("other", OTHER_OPS)):
+                if base in ops:
+                    count[c] += 1
+    per = {k: v / n for k, v in count.items()}
+    return {"normals_in_loop": n, "alu": per["alu"], "imad": per["imad"],
+            "fp32+imad": per["fp32"] + per["imad"], "mufu": per["mufu"],
+            "fp64": per["fp64"], "conv64": per["conv64"],
+            "issue": sum(per.values())}
+
+
+def normal_bound(n: int, streams: int, words: int, per_normal: dict) -> dict:
+    """Milliseconds by limit for ``streams`` normals an element over n
+    elements: bytes (``words`` fp32 words an element, each read or written
+    once) and each pipe's count a normal over its lanes."""
+    parts = {"bytes": words * n * 4 / HBM_BYTES_PER_S * 1e3}
+    for pipe, lanes in NORMAL_LANES.items():
+        parts[pipe] = streams * n * per_normal[pipe] / (lanes * SM_OPS_PER_S) \
+            * 1e3
+    return parts
+
+
+@contextlib.contextmanager
+def plain_draw_spy(counts: dict):
+    """Counts into ``counts["plain_draws_on_card"]`` the plain per-leaf
+    draws (``kernels/prng/ref.py``'s ``_draw``, under every plain
+    ``normal`` and ``normal_combine``) made on a CUDA device inside the
+    block: a main path must make none (a CUDA tensor goes to its
+    kernel)."""
+    from repro_torch.kernels.prng import ref
+    real = ref._draw
+    counts.setdefault("plain_draws_on_card", 0)
+
+    def spy(key, n, offset, device):
+        if torch.device(device).type == "cuda":
+            counts["plain_draws_on_card"] += 1
+        return real(key, n, offset, device)
+
+    ref._draw = spy
+    try:
+        yield counts
+    finally:
+        ref._draw = real
+
+
+def compare_normal(dev, n: int, offset: int, ops, ref) -> dict:
+    """Both entries against their plain versions on the card at ``n``
+    elements from counter ``offset``: ``normal``, and ``normal_combine``
+    with two keys at gate 0.7 (accumulating) and 0 (written) and with one
+    key (accumulating). Returns each case's count of unequal elements and
+    largest difference; all must be 0."""
+    (ka, kb), f = NORMAL_KEYS, lambda x: torch.full((), x, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    out = {}
+    a = ops.normal(ka, offset, torch.empty(n, device=dev))
+    b = ref.normal_ref(ka, n, offset, dev)
+    out["normal"] = (int((a != b).sum()), (a - b).abs().max().item())
+    del a, b
+    for name, key_b, g, acc in (("gate 0.7, added", kb, 0.7, True),
+                                ("gate 0, written", kb, 0.0, False),
+                                ("one key, added", None, 0.0, True)):
+        base = torch.empty(n, device=dev).uniform_(-1.0, 1.0, generator=gen)
+        a = ops.normal_combine(base.clone(), ka, key_b, offset, f(1.3),
+                               f(1.1), f(g), acc)
+        b = ref.normal_combine_ref(base, ka, key_b, offset, f(1.3), f(1.1),
+                                   f(g), acc)
+        out[f"normal_combine {name}"] = (int((a != b).sum()),
+                                         (a - b).abs().max().item())
+        del a, b, base
+    torch.cuda.empty_cache()
+    check(not any(c for c, _ in out.values()),
+          f"the normal kernels differ from their plain versions at n {n}, "
+          f"offset {offset}: {out}")
+    return out
+
+
+def normal_phase(dev, sass: str) -> tuple:
+    """Phase 21: the per-leaf normal draw. (a) Both entries bit-equal to
+    their plain versions at every size of NORMAL_SIZES and past 2**32
+    (NORMAL_PAST_2_32), for both gates; the plain version's ``log1p`` is
+    torch's CUDA one, the kernel's CUDA's ``log1pf``, so this also holds
+    the two to each other; (b) each entry's SASS counts a normal (pinned,
+    NORMAL_OPS; the live ones logged), its launch configuration, its call
+    and card ms beside the plain version's and its bound. Returns ``(record, the two rows of
+    the kernels line without their launches)``."""
+    from repro_torch.kernels.prng import ops, ref
+
+    t0 = time.perf_counter()
+    ka, kb = NORMAL_KEYS
+    f = lambda x: torch.full((), x, dtype=torch.float32, device=dev)
+    n22 = 1 << 22
+    checked = {}
+    cases = [(n, 0) for n in NORMAL_SIZES] + [NORMAL_PAST_2_32[::-1]]
+    for n, off in cases:
+        checked[f"n {n} offset {off}"] = compare_normal(dev, n, off, ops,
+                                                        ref)
+    log(f"[normal] both entries bit-equal to their plain versions at "
+        f"{', '.join(checked)} (normal; normal_combine with two keys at "
+        f"gate 0.7 and 0, and with one key)")
+    live = {k: normal_ops(sass, r) for k, r in NORMAL_SASS.items()}
+    pinned = NORMAL_OPS
+    configs = {k: ops.config(k) for k in NORMAL_SASS}
+    for k in live:
+        log(f"[normal] {k} SASS a normal, live (a report; the bound uses "
+            f"{json.dumps(pinned[k])}): {json.dumps(live[k])} | launch "
+            f"configuration {json.dumps(configs[k])}")
+
+    leaf = NORMAL_SIZES[-1]
+    rows = {}
+    o22 = torch.empty(n22, device=dev)
+    parts = normal_bound(n22, 1, 1, pinned["normal"])
+    bms = max(parts.values())
+    rows["normal"] = {
+        "max_abs_err": 0.0, "checked": checked,
+        "ms": cuda_ms(lambda: ops.normal(ka, 0, o22)),
+        "device_ms": graph_ms(lambda: ops.normal(ka, 0, o22)),
+        "plain_ms": cuda_ms(lambda: ref.normal_ref(ka, n22, 0, dev), reps=5),
+        "library_ms": None,
+        "library_call": "none (torch.randn is Philox, another function)",
+        "bound_ms": bms,
+        "bound_by": "bytes" if bms == parts["bytes"] else "operations",
+        "bound_detail": {"ms_by_limit": parts, "per_normal": pinned["normal"],
+                         "live": live["normal"]},
+        "config": configs["normal"],
+        "at": f"n={n22} (an admin row's window), one key, fp32"}
+    del o22
+    big = torch.zeros(leaf, device=dev)
+    rows["normal"]["leaf311m"] = {
+        "ms": cuda_ms(lambda: ops.normal(ka, 0, big), reps=5, warmup=1),
+        "device_ms": graph_ms(lambda: ops.normal(ka, 0, big), n=5, reps=5),
+        "bound_ms": max(normal_bound(leaf, 1, 1, pinned["normal"]).values()),
+        "at": f"n={leaf} (qwen2.5-3b's embedding leaf), one launch"}
+    big.zero_()
+    sc, sp, g = f(1.3), f(1.3), f(0.7)
+
+    def comb(out):
+        return lambda: ops.normal_combine(out, ka, kb, 0, sc, sp, g, True)
+
+    parts = normal_bound(leaf, 2, 2, pinned["normal_combine"])
+    bms = max(parts.values())
+    rows["normal_combine"] = {
+        "max_abs_err": 0.0, "checked": checked,
+        "ms": cuda_ms(comb(big), reps=5, warmup=1),
+        "device_ms": graph_ms(comb(big), n=5, reps=5),
+        "plain_ms": cuda_ms(lambda: ref.normal_combine_ref(
+            big, ka, kb, 0, sc, sp, g, True), reps=2, warmup=1),
+        "library_ms": None,
+        "library_call": "none (torch.randn is Philox, another function)",
+        "bound_ms": bms,
+        "bound_by": "bytes" if bms == parts["bytes"] else "operations",
+        "bound_detail": {"ms_by_limit": parts,
+                         "per_normal": pinned["normal_combine"],
+                         "live": live["normal_combine"]},
+        "config": configs["normal_combine"],
+        "at": f"n={leaf} (qwen2.5-3b's embedding leaf), xi_t and lam "
+              f"xi_(t-1) added in place, fp32"}
+    del big
+    w = torch.zeros(n22, device=dev)
+    rows["normal_combine"]["w22"] = {
+        "ms": cuda_ms(comb(w)), "device_ms": graph_ms(comb(w)),
+        "plain_ms": cuda_ms(lambda: ref.normal_combine_ref(
+            w, ka, kb, 0, sc, sp, g, True), reps=5),
+        "bound_ms": max(normal_bound(n22, 2, 2,
+                                     pinned["normal_combine"]).values()),
+        "at": f"n={n22}, two keys, added"}
+    del w
+    torch.cuda.empty_cache()
+    for k, r in rows.items():
+        sub = r.get("leaf311m") or r.get("w22")
+        log(f"[kernel] {k}: call {r['ms']:.4f} ms, card {r['device_ms']:.4f} "
+            f"ms (plain {r['plain_ms']:.2f} ms; bound {r['bound_ms']:.4f} ms "
+            f"by {r['bound_by']}) at {r['at']} | {json.dumps(sub)}")
+    rec = {"checked": checked, "sass_live": live,
+           "sass_pinned": pinned, "configs": configs,
+           "phase_s": time.perf_counter() - t0}
+    return rec, rows
+
+
 def one_phase(phase: str, src: Path) -> int:
     """``--scans`` / ``--pool`` / ``--wire`` / ``--bwd`` / ``--streams`` /
-    ``--slice15`` / ``--persist`` / ``--cifar`` / ``--prng``: the card, the
-    build and phase 11's scans, phase 3's page-pool events, phase 16's
-    wire tier, phase 17's backward kernels, the wire tier's stream kernels
-    (:func:`streams_phase`), phase 18 (:func:`slice15_phase`), phase 19
-    (:func:`persist_phase`), phase 20 (:func:`cifar_phase`) or the scan
-    tier's noise stage on WRN28 (:func:`prng_phase`, with no build) alone,
-    from the ``repro_torch`` under ``src`` (another tree's, to time two
-    trees in one call); the last line is their JSON record."""
+    ``--slice15`` / ``--persist`` / ``--cifar`` / ``--prng`` /
+    ``--normal``: the card, the build and phase 11's scans, phase 3's
+    page-pool events, phase 16's wire tier, phase 17's backward kernels,
+    the wire tier's stream kernels (:func:`streams_phase`), phase 18
+    (:func:`slice15_phase`), phase 19 (:func:`persist_phase`), phase 20
+    (:func:`cifar_phase`), the scan tier's noise stage on WRN28
+    (:func:`prng_phase`; no build for a tree without the normal kernels)
+    or phase 21 (:func:`normal_phase`, after WRN28's noise stage with its
+    launches) alone, from the ``repro_torch`` under ``src`` (another
+    tree's, to time two trees in one call); the last line is their JSON
+    record."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
               file=sys.stderr)
@@ -2813,7 +3087,8 @@ def one_phase(phase: str, src: Path) -> int:
 
     card = card_line()
     log(card)
-    if phase != "prng":  # the per-leaf draw launches no kernel
+    # a tree from before the normal kernels draws --prng in plain torch
+    if phase != "prng" or (src / "repro_torch/kernels/prng").is_dir():
         build_s = _build.build()
         log(f"[build] {_build.library_path()} in {build_s:.1f} s")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2838,6 +3113,10 @@ def one_phase(phase: str, src: Path) -> int:
         record["rows"] = rows
     elif phase == "prng":
         record = prng_phase(dev)
+    elif phase == "normal":
+        wrn = wrn_noise_stage(dev)
+        record, rows = normal_phase(dev, library_sass())
+        record.update(rows=rows, prng_scan_noise_wrn28=wrn)
     else:
         log(f"[kernel] clip_mask SASS, live (a report; the bound uses "
             f"{json.dumps(CLIP_MASK_OPS)}): "
@@ -3189,9 +3468,10 @@ def train_cell(Session, cfg, priv, opt, mesh, steps: int, want: dict,
                log_name: str) -> dict:
     """One training cell through ``Session.train``: ``steps`` steps at
     batch 16 x 64 from random weights (seed 0), the launch counts zeroed
-    just before and read just after and equal to ``want`` a step, nothing
-    else. Losses finite, epsilon rising, the weights moved; step and stage
-    times and peak memory."""
+    just before and read just after and equal to ``want`` a step (a count
+    given as a function takes the cell's layout), nothing else, and no
+    plain per-leaf draw on the card. Losses finite, epsilon rising, the
+    weights moved; step and stage times and peak memory."""
     from repro_torch.kernels import dispatch
 
     sess = Session.from_config(cfg, privacy=priv, optimizer=opt, mesh=mesh,
@@ -3202,15 +3482,20 @@ def train_cell(Session, cfg, priv, opt, mesh, steps: int, want: dict,
     probe = torch.arange(0, P, max(1, P // (1 << 20)), device=master.device)
     before = master[probe].clone()
     torch.cuda.reset_peak_memory_stats()
+    spy: dict = {}
     dispatch.reset_launches()
-    res = sess.train(steps=steps, batch_size=16, seq_len=64, state=state,
-                     log_every=1)
+    with plain_draw_spy(spy):
+        res = sess.train(steps=steps, batch_size=16, seq_len=64,
+                         state=state, log_every=1)
     n = {k: v for k, v in dispatch.launch_counts().items() if v}
     peak = torch.cuda.max_memory_allocated()
     moved = (master[probe] - before).abs().max().item()
     losses = [m["loss"] for m in res.metrics]
     eps = [m["epsilon"] for m in res.metrics]
-    want = {k: v * steps for k, v in want.items()}
+    want = {k: (v(state.layout) if callable(v) else v) * steps
+            for k, v in want.items()}
+    check(spy["plain_draws_on_card"] == 0, f"{log_name} {cfg.name}: "
+          f"{spy['plain_draws_on_card']} plain draws on the card")
     check(res.step == steps and all(math.isfinite(x) for x in losses),
           f"{log_name} {cfg.name}: {res.step} steps, losses {losses}")
     check(all(b > a for a, b in zip([0.0] + eps, eps)),
@@ -3596,6 +3881,13 @@ def leaf_slices(layout) -> list:
         m = size // k if k else size
         out += [(i, j * m, off + j * m, m) for j in range(k or 1)]
     return out
+
+
+def draw_windows(layout) -> int:
+    """The admin masks' windows over a layout's tensors: one draw of each
+    stream a window (``core/masking.WINDOW`` elements)."""
+    from repro_torch.core import masking
+    return sum(-(-n // masking.WINDOW) for *_, n in leaf_slices(layout))
 
 
 def check_zsmask(dev, layout, g, zs_ops, zs_ref, fold_leaf, folds, keys,
@@ -4006,13 +4298,15 @@ def admin_phase(dev) -> dict:
     """Phase 18(c): admin masks on qwen2.5-3b at full width and 12 layers,
     phase 7's settings. One primed step from one set of weights: the fused
     tier's aggregate (``clip_accumulate``, then the admin's xi_t - lam
-    xi_{t-1} in plain torch threefry) against the barrier tier's summed
-    contributions (each silo's ``g * scale + row``, no kernel) within the
+    xi_{t-1}, one ``normal_combine`` a window) against the barrier tier's
+    summed contributions (each silo's ``g * scale + row``, the rows'
+    draws ``normal`` and ``normal_combine`` launches a window) within the
     masks' residue (MASK_ATOL_PER_B units of B); then 2 fused steps and 1
     barrier step through ``Session.train`` with their launches; then the
     wire tier on MNIST-MLP3: 10 serial and 10 pipelined admin rounds,
-    bit-equal, no kernel launched (the contributions are plain torch, as
-    JAX's are jnp), and 3 rounds with a drop, card vs CPU."""
+    bit-equal, only the normal kernels launched (the rest of the
+    contributions is plain torch, as JAX's is jnp), and 3 rounds with a
+    drop, card vs CPU."""
     from repro_torch.api import CollaborativeSession, Session
     from repro_torch.configs import get_config
     from repro_torch.configs.base import (MeshConfig, OptimizerConfig,
@@ -4064,8 +4358,14 @@ def admin_phase(dev) -> dict:
     flatbuf.zero_padding(layout, b_agg)
     B = priv.mask_scale * priv.sigma * float(b_bound)
     err = chunked_max_diff(b_agg, f_agg)
-    check(n_f == {"clip_accumulate": 1} and not n_b,
-          f"admin one-step launches: fused {n_f}, barrier {n_b}")
+    # a window: the fused noise one normal_combine (xi with its
+    # correction); the barrier rows one normal_combine (the closing row's
+    # xi) and 6 normal (3 silos' u, and the 3 the closing row subtracts)
+    wins = draw_windows(layout)
+    check(n_f == {"clip_accumulate": 1, "normal_combine": wins}
+          and n_b == {"normal": 6 * wins, "normal_combine": wins},
+          f"admin one-step launches: fused {n_f}, barrier {n_b} ({wins} "
+          f"windows)")
     check(err <= MASK_ATOL_PER_B * B, f"admin barrier vs fused aggregate "
           f"differ by {err} (tolerance {MASK_ATOL_PER_B * B}, B {B})")
     check(math.isclose(float(b_loss), float(f_loss), rel_tol=TRAIN_RTOL)
@@ -4088,10 +4388,12 @@ def admin_phase(dev) -> dict:
         f"barrier {n_b}")
     del f_agg, b_agg, params, bsess
     torch.cuda.empty_cache()
-    report["fused"] = train_cell(Session, cut12, priv, opt, None, 2,
-                                 {"clip_accumulate": 1}, "admin-fused")
-    report["barrier"] = train_cell(Session, cut12, priv_b, opt, mesh4, 1, {},
-                                   "admin-barrier")
+    report["fused"] = train_cell(Session, cut12, priv, opt, None, 2, {
+        "clip_accumulate": 1, "normal_combine": draw_windows},
+        "admin-fused")
+    report["barrier"] = train_cell(Session, cut12, priv_b, opt, mesh4, 1, {
+        "normal": lambda lay: 6 * draw_windows(lay),
+        "normal_combine": draw_windows}, "admin-barrier")
 
     # the wire tier under admin masks (phase 16's setup)
     sm = build_small_model(MNIST_MLP3)
@@ -4101,7 +4403,7 @@ def admin_phase(dev) -> dict:
                           noise_lambda=WIRE_LAM, mask_mode="admin")
     init = sm.init(torch.Generator(device=dev).manual_seed(1))
     grad_fn = value_and_grad(sm.loss)
-    runs = {}
+    runs, runs_n = {}, {}
     for mode in ("serial", "pipelined"):
         sess = CollaborativeSession.from_silos(silos, wpriv,
                                                params_template=init)
@@ -4111,7 +4413,9 @@ def admin_phase(dev) -> dict:
             params, grad_fn, wire_update, WIRE_LR, WIRE_ROUNDS,
             pipelined=mode == "pipelined"))
         n = {k: v for k, v in dispatch.launch_counts().items() if v}
-        check(not n, f"admin wire {mode} launched {n}")
+        check(set(n) == {"normal", "normal_combine"},
+              f"admin wire {mode} launched {n}")
+        runs_n[mode] = n
         check(all(np.isfinite(losses)) and losses[-1] < losses[0],
               f"admin wire {mode}: loss {losses[0]} -> {losses[-1]}")
         runs[mode] = (sess, losses, wire.pack_np(flatbuf.layout_of(params),
@@ -4145,12 +4449,13 @@ def admin_phase(dev) -> dict:
           f"admin wire card vs CPU: loss {loss_rel} params {param_err}")
     report["wire"] = {
         "rounds": WIRE_ROUNDS, "serial_s": s_a, "pipelined_s": s_b,
-        "loss": la, "wire_stats": sa.wire_stats,
+        "loss": la, "wire_stats": sa.wire_stats, "launches": runs_n,
         "card_vs_cpu": {"loss_max_rel": loss_rel, "param_max_abs": param_err,
                         "contributions": gs.accountant.contributions}}
     log(f"[admin-wire] MNIST-MLP3, 4 silos: {WIRE_ROUNDS} serial rounds in "
         f"{s_a * 1e3:.1f} ms, {WIRE_ROUNDS} pipelined in {s_b * 1e3:.1f} ms, "
-        f"bit-equal, no kernel launched | loss {la[0]:.4f} -> {la[-1]:.4f} | "
+        f"bit-equal, launches {json.dumps(runs_n)} | loss {la[0]:.4f} -> "
+        f"{la[-1]:.4f} | "
         f"3 rounds with a drop, card vs CPU: loss {loss_rel:.2e} rel, params "
         f"{param_err:.2e}, participation {gs.accountant.contributions}")
     report["phase_s"] = time.perf_counter() - t0
@@ -4161,11 +4466,11 @@ def scan_phase(dev) -> dict:
     """Phase 18(d): the silo-serial scan tier on qwen2.5-3b at full width,
     at the largest of SCAN_DEPTHS that fits the card (36, its published
     depth, first): 2 steps through ``Session.train`` (phase 7's privacy
-    settings, the per-leaf noise added window by window), step and stage
-    times and peak memory, no kernel of the port launched (the scan tier's
-    stages are plain torch, as JAX's are jnp); then a narrow scan step
-    against the vmap fused step under the per-leaf policy at the same keys
-    (static clipping, so both clip at one bound), card vs CPU."""
+    settings), step and stage times and peak memory, the per-leaf noise one
+    ``normal_combine`` a leaf tensor and no other kernel (the scan tier's
+    other stages are plain torch, as JAX's are jnp); then a narrow scan
+    step against the vmap fused step under the per-leaf policy at the same
+    keys (static clipping, so both clip at one bound), card vs CPU."""
     import gc
 
     from repro_torch.api import Session
@@ -4188,8 +4493,9 @@ def scan_phase(dev) -> dict:
     for depth in SCAN_DEPTHS:
         cut = dataclasses.replace(cfg, n_layers=depth)
         try:
-            cell = train_cell(Session, cut, priv, opt, None, 2, {},
-                              "scan-tier")
+            cell = train_cell(Session, cut, priv, opt, None, 2, {
+                "normal_combine": lambda lay: len(leaf_slices(lay))},
+                "scan-tier")
         except torch.cuda.OutOfMemoryError as e:
             report["tried"].append({"n_layers": depth, "error": str(e)[:200]})
             log(f"[scan-tier] {depth} layers do not fit the card: "
@@ -4240,8 +4546,12 @@ def scan_phase(dev) -> dict:
                   float(s_loss), float(v_loss), n_scan, n_vmap)
     (sg, vg, lsg, lvg, nsg, nvg), (sc, vc, lsc, lvc, nsc, nvc) = \
         out["cuda"], out["cpu"]
-    check(not nsg and nvg == {"clip_accumulate": 1} and not nsc and not nvc,
-          f"narrow scan/vmap launches: card {nsg} / {nvg}, CPU {nsc} / {nvc}")
+    n_t = len(leaf_slices(state.layout))  # the CPU session's: the same
+    check(nsg == {"normal_combine": n_t}
+          and nvg == {"clip_accumulate": 1, "normal_combine": n_t}
+          and not nsc and not nvc,
+          f"narrow scan/vmap launches: card {nsg} / {nvg}, CPU {nsc} / {nvc} "
+          f"({n_t} leaf tensors)")
     errs = {"scan_card_vs_cpu": (sg - sc).abs().max().item(),
             "vmap_card_vs_cpu": (vg - vc).abs().max().item(),
             "scan_vs_vmap_card": (sg - vg).abs().max().item(),
@@ -5127,7 +5437,9 @@ def main() -> int:
                 prng) + (dispatch.launch_counts(),)
         (n_g, m_g, x_g, s_g, c_g), (n_c, m_c, x_c, s_c, c_c) = \
             out["cuda"], out["cpu"]
-        check(c_g["clip_accumulate"] == 2 and sum(c_g.values()) == 2
+        n_t = 2 * len(leaf_slices(narrow_layout))  # noise: one a tensor
+        check({k: v for k, v in c_g.items() if v} == {
+            "clip_accumulate": 2, "normal_combine": n_t}
               and not any(c_c.values()),
               f"narrow perleaf fused launches: card {c_g}, CPU {c_c}")
         check(x_g["prev_key"] == x_c["prev_key"]
@@ -5330,7 +5642,9 @@ def main() -> int:
     log(f"[ssm-train] phase 17 in {report['phase17_s']:.1f} s")
 
     # 18. the other dense archs, the admin masks, the scan tier
-    report["slice15"], rows18 = slice15_phase(dev)
+    spy18: dict = {}
+    with plain_draw_spy(spy18):
+        report["slice15"], rows18 = slice15_phase(dev)
     for name, subs in rows18.items():
         kern[name].update(subs)
 
@@ -5339,9 +5653,35 @@ def main() -> int:
 
     # 20. the paper's CIFAR models through the train step, the Trainer and
     # the wire tier
-    report["cifar"], rows20 = cifar_phase(dev, sass)
+    spy20: dict = {}
+    with plain_draw_spy(spy20):
+        report["cifar"], rows20 = cifar_phase(dev, sass)
     for name, subs in rows20.items():
         kern[name].update(subs)
+
+    # 21. the per-leaf normal draw: both entries against their plain
+    # versions and timed, and their launches on phases 18 and 20's paths,
+    # where no plain draw ran on the card
+    report["normal"], rows21 = normal_phase(dev, sass)
+    kern.update(rows21)
+    admin, scan = report["slice15"]["admin"], report["slice15"]["scan"]
+    cifar_scan = {m: report["cifar"]["tiers"][m]["scan"]["launches"]
+                  for m in ("cifar10-cnn6", "cifar10-wrn28")}
+    paths = {"admin_fused_12": admin["fused"]["launches"],
+             "admin_barrier_12": admin["barrier"]["launches"],
+             "admin_wire": admin["wire"]["launches"],
+             f"scan_{scan['n_layers']}": scan["launches"],
+             **{f"scan_{m}": n for m, n in cifar_scan.items()},
+             "wrn28_noise_stage": report["cifar"]["prng_scan_noise_wrn28"][
+                 "launches"],
+             "plain_draws_on_card": {"phase 18": spy18["plain_draws_on_card"],
+                                     "phase 20": spy20["plain_draws_on_card"]}}
+    check(not any(paths["plain_draws_on_card"].values()),
+          f"plain draws on the card: {paths['plain_draws_on_card']}")
+    report["normal"]["paths"] = paths
+    log(f"[normal] launches on the main paths (a step, or a run): "
+        f"{json.dumps(paths)}")
+    log(f"[normal] phase 21 in {report['normal']['phase_s']:.1f} s")
 
     # the record
     launches = {"flash_attention": n_direct["flash_attention"],
@@ -5360,7 +5700,9 @@ def main() -> int:
                     "launches"]["wkv_bwd"],
                 "ssd_bwd": report["ssm_train"]["zamba2-7b"]["fused"][
                     "launches"]["ssd_bwd"],
-                **{k: r["launches"] for k, r in stream_rows.items()}}
+                **{k: r["launches"] for k, r in stream_rows.items()},
+                "normal": admin["barrier"]["launches"]["normal"],
+                "normal_combine": scan["launches"]["normal_combine"]}
     check(set(kern) == set(dispatch.KERNELS) == set(launches),
           f"the kernels line covers {sorted(kern)}, the registry "
           f"{sorted(dispatch.KERNELS)}")
@@ -5382,7 +5724,8 @@ def main() -> int:
                 entry[extra] = r[extra]
         for sub in ("verify4", "chunk16", "d112", "s512", "wire", "d80",
                     "d80_verify4", "d80_chunk16", "d96", "d96_verify4",
-                    "d96_chunk16", "cnn6", "wrn28", "pe16"):
+                    "d96_chunk16", "cnn6", "wrn28", "pe16", "w22",
+                    "leaf311m"):
             if sub in r:
                 entry[sub] = {x: r[sub][x] for x in (
                     "max_abs_err", "ms", "device_ms", "plain_ms",
@@ -5408,7 +5751,7 @@ if __name__ == "__main__":
     src = Path(args[args.index("--src") + 1]).resolve() \
         if "--src" in args else ROOT / "src"
     for phase in ("scans", "pool", "wire", "bwd", "streams", "slice15",
-                  "persist", "cifar", "prng"):
+                  "persist", "cifar", "prng", "normal"):
         if f"--{phase}" in args:
             sys.exit(one_phase(phase, src))
     sys.exit(main())

@@ -26,7 +26,12 @@ closing row subtracts the other rows in index order, so one silo's row
 the stacked set (:func:`admin_masks`, O(n P)) element for element. Every
 stream is drawn ``WINDOW`` elements at a time, so no leaf-sized temporary
 lives beside the rows; the lambda-correction can ride along as an
-:class:`XiCorrection`, drawn window by window, instead of a tree.
+:class:`XiCorrection`, drawn window by window, instead of a tree. On the
+card each draw is one launch (``kernels/prng``): a row's ``u`` a
+``normal`` times ``b``, the xi with its correction (or with none) one
+``normal_combine`` written, or added, straight into its destination; a
+correction given as a tree, the closing row's subtractions and the
+stacked set's gating stay plain torch over the kernel-drawn normals.
 
 The integer-ring masks (:func:`ring_mask_tree`, :func:`to_ring`,
 :func:`from_ring`): int32 pairwise masks drawn with ``jax.random.bits``,
@@ -43,6 +48,7 @@ import torch
 from repro_torch.core import flatbuf, prng
 from repro_torch.kernels.dispatch import on_cuda, resolve_tree
 from repro_torch.kernels.dp_fused import ops as fused_ops
+from repro_torch.kernels.prng import ops as prng_ops
 from repro_torch.kernels.zsmask import ops as zs_ops
 from repro_torch.kernels.zsmask.ref import _on
 from repro_torch.kernels.zsmask.threefry import M32
@@ -112,9 +118,10 @@ def pairwise_mask_only(shapes_tree, key_r, key_xi, silo: int, n_silos: int,
 # ---------------------------------------------------------------------------
 # Admin-generated masks (the paper-faithful wire protocol)
 
-# elements of one stream drawn at a time (the plain threefry's int64
-# temporaries, about 20 words an element, stay a few hundred MB)
-WINDOW = prng.WINDOW
+# elements of one stream drawn at a time: the rows' temporaries (a window
+# each of the n rows' u and of the closing row) stay tens of MB, and the
+# plain draws' int64 temporaries on the CPU a few hundred
+WINDOW = 1 << 22
 
 
 class XiCorrection(NamedTuple):
@@ -171,15 +178,22 @@ class _Streams:
         """Row j's draw times ``b_scale``."""
         return self.normal(self.row_key(i, j), offset, a, b).mul_(self.b)
 
-    def xi(self, i, k, offset, a, b) -> torch.Tensor:
-        """``xi * sigma_c`` minus the correction (tensor k's window)."""
-        x = self.normal(self.kxis[i], offset, a, b).mul_(self.sc)
+    def xi(self, out, i, k, offset, a, b, accumulate=False) -> torch.Tensor:
+        """``xi * sigma_c`` minus the correction (tensor k's window),
+        written into ``out`` (added to it when ``accumulate``): one
+        ``normal_combine``, ``xi * sc - (xi_c * csc) * clam`` in JAX's
+        order, unless the correction is a tree, subtracted after."""
         if isinstance(self.corr, XiCorrection):
-            c = self.normal(self.ckeys[i], offset, a, b).mul_(self.csc)
-            x.sub_(c.mul_(self.clam))
-        elif self.corr is not None:
-            x.sub_(self.ctensors[k].reshape(-1)[a:b].float())
-        return x
+            return prng_ops.normal_combine(
+                out, self.kxis[i], self.ckeys[i], offset + a, self.sc,
+                self.csc, self.clam, accumulate)
+        if self.corr is None:
+            return prng_ops.normal_combine(out, self.kxis[i], None,
+                                           offset + a, self.sc,
+                                           accumulate=accumulate)
+        x = self.normal(self.kxis[i], offset, a, b).mul_(self.sc)
+        x.sub_(self.ctensors[k].reshape(-1)[a:b].float())
+        return out.add_(x) if accumulate else out.copy_(x)
 
 
 def _closing(n_silos: int, active) -> tuple:
@@ -213,7 +227,8 @@ def admin_masks(key, template: dict, n_silos: int, sigma_c, b_scale,
         for a, b in _windows(t.numel()):
             u = [st.u(i, j, offset, a, b).mul_(gates[j])
                  for j in range(n_silos)]
-            close = st.xi(i, k, offset, a, b)
+            close = st.xi(torch.empty(b - a, dtype=torch.float32,
+                                      device=t.device), i, k, offset, a, b)
             for j in range(n_silos):  # in index order, as admin_mask_row
                 close = close - u[j] * (1.0 - onehot[j])
             for j in range(n_silos):
@@ -256,11 +271,10 @@ def admin_mask_row(key, template: dict, n_silos: int, silo: int, sigma_c,
                 flat[a:b] = st.u(i, silo, offset, a, b).mul_(
                     float(act[silo]))
                 continue
-            x = st.xi(i, k, offset, a, b)
+            x = st.xi(flat[a:b], i, k, offset, a, b)
             for j in range(n_silos):
                 if act[j] and j != closing:
                     x.sub_(st.u(i, j, offset, a, b))
-            flat[a:b] = x
     return rows
 
 
@@ -274,7 +288,7 @@ def admin_xi(key, template: dict, sigma_c) -> dict:
     def one(i, offset, t, k):
         out = torch.empty(t.numel(), dtype=torch.float32, device=t.device)
         for a, b in _windows(t.numel()):
-            out[a:b] = st.xi(i, k, offset, a, b)
+            st.xi(out[a:b], i, k, offset, a, b)
         return out.reshape(t.shape)
 
     return _map_slices(layout, template, one)
@@ -293,7 +307,7 @@ def add_admin_noise(tree: dict, key, sigma_c, correction=None) -> dict:
                              "tensors")
         flat = t.view(-1)
         for a, b in _windows(t.numel()):
-            flat[a:b].add_(st.xi(i, k, offset, a, b))
+            st.xi(flat[a:b], i, k, offset, a, b, accumulate=True)
     return tree
 
 

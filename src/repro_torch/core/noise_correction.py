@@ -8,7 +8,8 @@ regenerate ``xi_{t-1}`` from it on the fly, and the per-leaf family
 (:func:`corrected_noise`) redraws it with ``jax.random.normal``
 (``core/prng.py``), one ``split`` of the key per leaf, a stacked leaf's
 counters running across its tensors, and adds the noise into the aggregate
-in place, window by window.
+in place: one ``normal_combine`` launch per leaf tensor on the card
+(``kernels/prng``), its plain version a window at a time on the CPU.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import flatbuf, prng
+from repro_torch.kernels.prng import ops as prng_ops
 from repro_torch.kernels.zsmask.ref import _on
 
 
@@ -36,23 +38,18 @@ def init_state(key: tuple, n_silos: int = 0) -> NoiseState:
                       prev_active=prev_active)
 
 
-# elements of one stream drawn at a time: a leaf of any size (the 311 M of
-# qwen2.5-3b's embedding) adds its noise through a few hundred MB of
-# temporaries, never a leaf- or tree-sized copy
-WINDOW = prng.WINDOW
-
-
 def corrected_noise(tree: dict, key_t: tuple, state: NoiseState, sigma_c,
                     lam: float) -> tuple:
     """Add ``xi_t - lam * xi_{t-1}`` into ``tree``'s fp32 tensors in place
     and return ``(tree, new state)``; both streams have std ``sigma_c``
     (= sigma * C). Leaf i draws ``normal(split(key, n_leaves)[i])`` over
-    its whole (stacked) shape, as JAX's ``corrected_noise`` does, here
-    ``WINDOW`` counters at a time: each window of xi_t and xi_{t-1} is
-    drawn, combined and added before the next, the values JAX's noise tree
-    holds at those positions (JAX returns the tree; adding it into zeros
-    gives it). The gate is ``lam`` once the state has a previous step, else
-    0; with ``lam == 0`` only xi_t is drawn."""
+    its whole (stacked) shape, as JAX's ``corrected_noise`` does: each
+    tensor of it, at its counter offset, gets ``xi_t * sigma_c - (xi_{t-1}
+    * sigma_c) * gate`` added in one ``normal_combine`` (no noise tree,
+    no temporary on the card), the values JAX's noise tree holds at those
+    positions (JAX returns the tree; adding it into zeros gives it). The
+    gate is ``lam`` once the state has a previous step, else 0; with
+    ``lam == 0`` only xi_t is drawn."""
     layout = flatbuf.layout_of(tree)
     keys_t = prng.split(key_t, layout.n_leaves)
     keys_p = prng.split(state.prev_key, layout.n_leaves) if lam != 0.0 \
@@ -68,14 +65,9 @@ def corrected_noise(tree: dict, key_t: tuple, state: NoiseState, sigma_c,
                 (), lam if state.has_prev else 0.0, dtype=torch.float32,
                 device=dev))
         sc, gate = scalars[dev]
-        flat = t.view(-1)
-        for a in range(0, flat.numel(), WINDOW):
-            b = min(a + WINDOW, flat.numel())
-            z = prng.normal(keys_t[i], (b - a,), offset + a, dev).mul_(sc)
-            if keys_p is not None:
-                zp = prng.normal(keys_p[i], (b - a,), offset + a, dev)
-                z.sub_(zp.mul_(sc).mul_(gate))
-            flat[a:b].add_(z)
+        prng_ops.normal_combine(t, keys_t[i], None if keys_p is None
+                                else keys_p[i], offset, sc, sc, gate,
+                                accumulate=True)
     return tree, NoiseState(prev_key=tuple(key_t), has_prev=True)
 
 

@@ -32,7 +32,10 @@ the training shapes, ragged lengths, S 1 and strong decay, and across their
 cotangent bit-equal to a zero one; their launch configurations and
 checkpoint scratch; the ``autograd.Function`` of each scan launching both
 kernels; the smoke ssm and hybrid training, fused and barrier, on the card
-against the CPU).
+against the CPU), and the per-leaf normal draw (``normal`` and
+``normal_combine`` bit-equal to their plain versions at ragged sizes and at
+counters past 2**32, ``corrected_noise`` one launch a leaf tensor and within NOISY_ATOL of the
+CPU, whose ``log1p`` is libm's).
 """
 import copy
 import dataclasses
@@ -1503,3 +1506,65 @@ def test_smoke_ssm_training_on_card_matches_cpu(cuda, arch):
         diff = (a.state.opt_state["master"].cpu()
                 - b.state.opt_state["master"]).abs()
         assert diff.max() <= 2 * steps * 1e-3  # at most sign flips
+
+
+# ---------------------------------------------------------------------------
+# the per-leaf normal draw (kernels/prng)
+
+NORMAL_KEYS = ((2705940334, 2639757084), (4086990474, 1067026239))
+
+
+@pytest.mark.parametrize("n,offset", [(1, 0), (7, 3), ((1 << 22) + 3, 0),
+                                      (5000, (1 << 32) - 1000)])
+def test_normal_kernels_bit_equal_plain(cuda, n, offset):
+    from repro_torch.kernels.prng import ops as prng_ops
+    from repro_torch.kernels.prng import ref as prng_ref
+    key, prev = NORMAL_KEYS
+    z = prng_ops.normal(key, offset, torch.empty(n, device=cuda))
+    assert torch.equal(z, prng_ref.normal_ref(key, n, offset, cuda))
+    f = lambda x: torch.full((), x, device=cuda)
+    for key_b, g in ((prev, 0.7), (prev, 0.0), (None, 0.0)):
+        for acc in (False, True):
+            base = torch.linspace(-1, 1, n, device=cuda)
+            got = prng_ops.normal_combine(base.clone(), key, key_b, offset,
+                                          f(1.3), f(1.1), f(g), acc)
+            want = prng_ref.normal_combine_ref(base.clone(), key, key_b,
+                                               offset, f(1.3), f(1.1), f(g),
+                                               acc)
+            assert torch.equal(got, want), (key_b, g, acc)
+
+
+def test_corrected_noise_launches_once_a_leaf_tensor(cuda):
+    from repro_torch.core import flatbuf
+    from repro_torch.core.noise_correction import NoiseState, corrected_noise
+    rng = np.random.default_rng(4)
+    tree = {"a": rng.standard_normal(1000), "b": rng.standard_normal((3, 77)),
+            "e": [rng.standard_normal((5, 60)) for _ in range(3)]}
+    cpu = {k: [torch.from_numpy(x.astype(np.float32)) for x in v]
+           if isinstance(v, list) else torch.from_numpy(v.astype(np.float32))
+           for k, v in tree.items()}
+    gpu = {k: [x.to(cuda) for x in v] if isinstance(v, list) else v.to(cuda)
+           for k, v in cpu.items()}
+    key, prev = NORMAL_KEYS
+    dispatch.reset_launches()
+    corrected_noise(gpu, key, NoiseState(prev, True),
+                    torch.full((), 1.2, device=cuda), 0.7)
+    assert dispatch.launch_counts()["normal_combine"] == 5
+    corrected_noise(cpu, key, NoiseState(prev, True), torch.tensor(1.2), 0.7)
+    layout = flatbuf.layout_of(cpu)
+    # card vs CPU: log1p of CUDA's math library and of libm (a few ulp of
+    # normals of std 1.2)
+    diff = flatbuf.pack(layout, gpu).cpu() - flatbuf.pack(layout, cpu)
+    assert diff.abs().max() <= 4e-6
+
+
+def test_normal_wrappers_refuse_what_the_kernel_does_not_take(cuda):
+    from repro_torch.kernels.prng import ops as prng_ops
+    key = NORMAL_KEYS[0]
+    with pytest.raises(ValueError, match="key words must be uint32"):
+        prng_ops.normal((1 << 32, 0), 0, torch.empty(4, device=cuda))
+    with pytest.raises(ValueError, match="expected cuda"):
+        prng_ops.normal_combine(torch.empty(4, device=cuda), key, None, 0,
+                                torch.tensor(1.0))
+    with pytest.raises(ValueError, match="contiguous fp32"):
+        prng_ops.normal(key, 0, torch.empty(4, 6, device=cuda).t())

@@ -15,7 +15,8 @@ qwen2.5-3b smoke config with weights carried across by
   (``tests/test_dp_pipeline.py:103``): the three aggregates within 2e-4 of
   each other and of the clipped sum plus the engine's noise streams (the
   bound of that test; measured far below).
-* The windowed noise: drawn ``WINDOW`` counters at a time and added in
+* The windowed noise: drawn ``WINDOW`` counters at a time (the plain
+  ``normal_combine``'s windows, ``kernels/prng/ref.py``) and added in
   place, bit-equal to the whole-leaf draw of ``xi_t - lam xi_{t-1}``.
 * 3 steps through ``Session.train`` on the scan tier against JAX's
   (``tests/test_torch_training.py``'s tolerances).
@@ -43,6 +44,7 @@ from repro_torch.core.dp_pipeline import DPPipeline, reduce_contributions
 from repro_torch.core.noise_correction import NoiseState
 from repro_torch.distributed import steps as tsteps
 from repro_torch.kernels import dispatch
+from repro_torch.kernels.prng import ref as prng_ref
 from repro_torch.models import transformer
 from repro_torch.models.convert import params_from_jax, params_to_numpy
 from repro_torch.models.packing import param_tree
@@ -177,7 +179,7 @@ def test_windowed_noise_equals_whole_leaf_draw(has_prev, lam, monkeypatch):
         if lam:
             z = z - gate * (prng.normal(kp[i], shape).reshape(-1) * sc)
         want[off:off + n] += z
-    monkeypatch.setattr(noise_correction, "WINDOW", 64)
+    monkeypatch.setattr(prng_ref, "WINDOW", 64)
     got, st = noise_correction.corrected_noise(
         tree, (3, 4), NoiseState(PREV, has_prev), sc, lam)
     assert got is tree and st.prev_key == (3, 4) and st.has_prev

@@ -73,6 +73,7 @@ from repro_torch.data.synthetic import (ArrayDataset, synthetic_cifar10,
                                         synthetic_mnist)
 from repro_torch.distributed import steps as tsteps
 from repro_torch.kernels import dispatch
+from repro_torch.kernels.prng import ref as prng_ref
 from repro_torch.models import small
 from repro_torch.models.convert import small_params_from_jax
 from repro_torch.models.registry import Model
@@ -780,8 +781,9 @@ def test_wire_pipelined_and_speculative_equal_serial(cnn6):
 
 
 def test_prng_draws_make_no_host_copy_per_window(monkeypatch):
-    """``core/prng.py`` builds its device constants without a host copy a
-    window (``torch.full``, and erfinv's tables once a device): a draw over
+    """``core/prng.py``'s plain draw (``kernels/prng/ref.py``) builds its
+    device constants without a host copy a window (``torch.full``, and
+    erfinv's tables once a device): a draw over
     three windows (of 1024) calls no ``torch.tensor`` once the tables are
     made, and draws what it drew before (``tests/test_torch_threefry.py``
     holds it to ``jax.random.normal``)."""
@@ -792,9 +794,9 @@ def test_prng_draws_make_no_host_copy_per_window(monkeypatch):
         calls.append(k.get("device"))
         return real(*a, **k)
 
-    monkeypatch.setattr(prng, "WINDOW", 1 << 10)
-    z0 = prng.normal((7, 9), (2 * prng.WINDOW + 5,))
+    monkeypatch.setattr(prng_ref, "WINDOW", 1 << 10)
+    z0 = prng.normal((7, 9), (2 * prng_ref.WINDOW + 5,))
     monkeypatch.setattr(torch, "tensor", spy)
-    z1 = prng.normal((7, 9), (2 * prng.WINDOW + 5,))
+    z1 = prng.normal((7, 9), (2 * prng_ref.WINDOW + 5,))
     assert calls == []
     assert torch.equal(z0, z1)

@@ -5,8 +5,11 @@ pinned
 (``CLIP_MASK_OPS``), so a redesigned kernel and its parent are held to one
 bound; ``stream_ops`` reads a live build's counts off ``cuobjdump -sass``
 text whatever its loop holds (one element, or several unrolled), and says
-"no loop" rather than raising where no loop draws a normal. The canned
-texts here have the shape ``cuobjdump -sass`` prints."""
+"no loop" rather than raising where no loop draws a normal. The per-leaf
+normal draw's bounds (rows 17-18) come the same way from its pinned counts
+(``NORMAL_OPS``), which ``normal_ops`` reads off a build with its float64
+steps and conversions on pipes of their own. The canned texts here have
+the shape ``cuobjdump -sass`` prints."""
 import importlib.util
 import pathlib
 
@@ -58,10 +61,11 @@ PER_NORMAL = {"alu": 61.0, "imad": 6.0, "fp32+imad": 6.0 + 15.0,
               "mufu": 2.0, "issue": 61.0 + 6.0 + 15.0 + 2.0 + 2.0}
 
 
-def canned_sass(kernel: str, normals: int, loop: bool) -> str:
+def canned_sass(kernel: str, normals: int, loop: bool, body=NORMAL) -> str:
     """``cuobjdump -sass`` text of one kernel: a prologue, ``normals``
-    copies of NORMAL, then (``loop``) a backward branch to the first, and
-    the exit; another kernel's loop before it, which must not be read."""
+    copies of ``body`` (one normal's arithmetic), then (``loop``) a
+    backward branch to the first, and the exit; another kernel's loop
+    before it, which must not be read."""
     lines, addr = [], 0
 
     def emit(text):
@@ -79,7 +83,7 @@ def canned_sass(kernel: str, normals: int, loop: bool) -> str:
     emit("S2R R0, SR_CTAID.X")
     top = addr
     for _ in range(normals):
-        for op in NORMAL:
+        for op in body:
             emit(op if " " in op else f"{op} R4, R5, R6")
     if loop:
         emit(f"@!P0 BRA 0x{top:x}")
@@ -140,3 +144,57 @@ def test_stream_ops_reads_only_its_kernel():
     assert r["normals_in_loop"] == 1 and r["mufu"] == 2.0
     with pytest.raises(RuntimeError, match="no SASS"):
         chip_smoke.stream_ops(canned_sass(KERNEL, 1, True), "zsmask_kernel")
+
+
+# one jax.random.normal's arithmetic in a canned loop: a threefry2x32, the
+# mantissa uniform, log1pf, then erf_inv's eight steps, each a widening, a
+# float64 multiply-add and a narrowing; what normal_ops counts a normal by
+# pipe
+ERF_NORMAL = (["IADD3", "SHF.L.W.U32.HI", "LOP3.LUT"] * 20 + ["IMAD.IADD"] * 4
+              + ["FADD", "FMUL", "FMNMX", "MUFU.LG2", "FFMA"]
+              + ["F2F.F64.F32", "DFMA", "F2F.F32.F64"] * 8
+              + ["FSETP.GEU.AND", "FSEL", "FMUL", "IMAD.MOV.U32 R3, RZ"])
+ERF_PER_NORMAL = {"alu": 63.0, "imad": 4.0, "fp32+imad": 8.0, "mufu": 1.0,
+                  "fp64": 8.0, "conv64": 16.0, "issue": 96.0}
+NORMAL_KERNEL = ("_ZN41_GLOBAL__N__d8991193_9_normal_cu_d788736d13normal_kernel"
+                 "ILi0EEEvPfx12StreamLayoutyjjjjPKfS4_S4_i")
+
+
+@pytest.mark.parametrize("normals", [1, 4])
+def test_normal_ops_counts_a_normal_whatever_the_loop_holds(normals):
+    r = chip_smoke.normal_ops(canned_sass(NORMAL_KERNEL, normals, True,
+                                          ERF_NORMAL),
+                              chip_smoke.NORMAL_SASS["normal"])
+    assert r["normals_in_loop"] == normals
+    for k, v in ERF_PER_NORMAL.items():
+        assert r[k] == pytest.approx(v), (k, r)
+    # the two-key kernel's name is another instantiation: not in this text
+    with pytest.raises(RuntimeError, match="no SASS"):
+        chip_smoke.normal_ops(canned_sass(NORMAL_KERNEL, 1, True, ERF_NORMAL),
+                              chip_smoke.NORMAL_SASS["normal_combine"])
+
+
+def test_normal_ops_refuses_a_loop_with_no_draw():
+    text = canned_sass(NORMAL_KERNEL, 2, True, ERF_NORMAL).replace(
+        "DFMA", "FFMA")
+    with pytest.raises(RuntimeError, match="draws a normal"):
+        chip_smoke.normal_ops(text, chip_smoke.NORMAL_SASS["normal"])
+
+
+@pytest.mark.parametrize("kernel,n,streams,words,want", [
+    ("normal", 1 << 22, 1, 1, 0.0212),
+    ("normal", 311_164_928, 1, 1, 1.5696),
+    ("normal_combine", 311_164_928, 2, 2, 3.2159),
+    ("normal_combine", 1 << 22, 2, 2, 0.0433)])
+def test_pinned_normal_counts_give_the_kernel_table_bounds(kernel, n,
+                                                           streams, words,
+                                                           want):
+    """PERF.md's bounds of rows 17 and 18 from the pinned counts:
+    instruction issue bounds each, above the bytes, the integer pipe and
+    the conversions."""
+    parts = chip_smoke.normal_bound(n, streams, words,
+                                    chip_smoke.NORMAL_OPS[kernel])
+    assert round(max(parts.values()), 4) == want, parts
+    assert max(parts, key=parts.get) == "issue", parts
+    assert parts["alu"] > parts["conv64"] > parts["bytes"], parts
+
