@@ -26,6 +26,7 @@ against the host CPU.
     python3 chip_smoke.py --cifar               # phase 20 alone
     python3 chip_smoke.py --prng [--src DIR]    # WRN28's per-leaf noise
     python3 chip_smoke.py --normal              # phase 21 alone
+    python3 chip_smoke.py --tree                # phase 22 alone
 
 ``--scans`` runs only the card line, the build and phase 11's scans (their
 checks and times, no launch configuration), from the ``repro_torch`` under
@@ -46,7 +47,7 @@ against the pinned bound), on trees that have ``ops.noise_stream``.
 and prints the hash of what it drew (no kernel is built for a tree
 without the normal kernels): a parent and a change in one call, trees
 that have the scan tier. ``--normal`` runs that noise stage with its
-launches, then phase 21.
+launches, then phase 21; ``--tree`` runs phase 22.
 
 Phases (any failed check raises, and the script exits non-zero):
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
@@ -103,7 +104,7 @@ Phases (any failed check raises, and the script exits non-zero):
      step and per-stage times and peak memory;
  7b. ``per_example_clipped_grad`` at the same width and depth, 4 examples
      of 64 tokens, on the packed route (``clip_sum`` once) and the perleaf
-     route (``per_example_sumsq`` and ``clip_accumulate`` once per leaf):
+     route (``per_example_sumsq_tree`` and ``clip_accumulate`` once):
      the two agree within ROUTES_RTOL; times and peak memory;
   8. one training step of a narrow config (P of a few million) on the card
      (kernels) and on the host CPU (plain versions) from the same weights:
@@ -120,8 +121,9 @@ Phases (any failed check raises, and the script exits non-zero):
  9b. the barrier tier under ``force_impl("perleaf", kernel="dp_noise_tree")``:
      one primed step, whose aggregate minus sum_i clip(g_i) must have the
      std of sigma_c (xi_t - lam xi_{t-1}) (the +-b r terms cancel), then 3
-     steps of ``Session.train``: ``zsmask`` 2 x 4 x 146 times a step and no
-     other kernel; step and stage times, peak memory;
+     steps of ``Session.train``: ``zsmask_buffer`` once a silo, 4 times a
+     step, each its lambda-corrected instantiation, and no other kernel;
+     step and stage times, peak memory;
  10. one barrier step of the narrow config on the card and on the host CPU
      from the same weights, silo 1 dropped and the noise state primed with
      silo 2 absent at t-1: loss, bound, every silo's contribution, the
@@ -281,7 +283,24 @@ Phases (any failed check raises, and the script exits non-zero):
      card ms beside the plain version's; the launches of both on phase
      18's admin and scan cells and phase 20's scan tiers, where no plain
      draw ran on the card (a spy on the plain draw; ``--normal`` alone:
-     WRN28's noise stage).
+     WRN28's noise stage);
+ 22. the per-leaf wrappers at one launch a tree: ``zsmask_buffer`` (both
+     instantiations: the mask alone, and the lambda correction's pass
+     fused in) over every tensor of CNN6 (14), WRN28 (80) and qwen2.5-3b
+     at 12 layers (147), bit-equal to the per-leaf route's launches (a
+     ``zsmask`` a tensor, a second over zeros on prev_key, a multiply and
+     a subtraction) and to its plain version over every element, the
+     padding untouched, two launches bit-identical;
+     ``per_example_sumsq_tree`` on WRN28's (16, P) and qwen2.5-3b's (4, P)
+     buffers, bit-equal to a ``per_example_sumsq`` launch a leaf for every
+     (row, leaf) and for the leaf-order totals, within SUMSQ_RTOL of its
+     plain version, and the per-leaf clip route's one ``clip_accumulate``
+     bit-equal to a launch a leaf; each timed as a call and on the card
+     beside the per-leaf launches (and the norms beside ``vector_norm`` a
+     leaf and over the whole buffer) and its bound (the mask's from
+     ZSMASK_OPS, pinned); then the per-leaf kernels' launches on the APIs
+     that keep them (``pairwise_mask_tree(impl="perleaf")``, bit-equal to
+     the tree kernel, and ``sumsq`` a leaf).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -339,6 +358,13 @@ FP32_OPS = {"FFMA", "FMUL", "FADD"}
 # live counts.
 CLIP_MASK_OPS = {"normals_in_loop": 4, "alu": 62.75, "imad": 15.25,
                  "fp32+imad": 59.75, "mufu": 1.0, "issue": 128.75}
+# The yardstick of the buffer mask (zsmask_buffer, both instantiations):
+# zsmask_kernel's arithmetic a normal by pipe, the per-leaf kernel it
+# replaces, as its build compiled it, pinned, so that the tree and the
+# per-leaf launches are held to one bound
+ZSMASK_OPS = {"normals_in_loop": 3, "rotations": 20.0,
+              "alu": 63.666666666666664, "imad": 15.333333333333334,
+              "fp32+imad": 59.0, "mufu": 1.0, "issue": 129.0}
 # kernel vs plain version on the same inputs, fp32 on the card: the two sum
 # in different orders, so they agree to fp32 rounding (about 1e-6 here)
 KERNEL_ATOL = KERNEL_RTOL = 1e-5
@@ -2372,7 +2398,8 @@ def cifar_trainer(cfg, dev, priv, mesh_n, steps, ckpt=None, perleaf=False,
 def cifar_tiers(dev) -> dict:
     """(a) 3 steps of each model on each tier through the Trainer: fused,
     barrier on a (4,) mesh, barrier under the perleaf policy, and the scan
-    tier; the launches of rows 5, 8, 9, 10 and 18 per step as each tier
+    tier; the launches of rows 5, 8, 9, 10 (its tree kernel) and 18 per
+    step as each tier
     makes them, losses finite, epsilon rising; step ms after the first, the
     stage split, peak memory. Then the masks cancel: one step's
     ``_barrier_grads`` == ``_fused_grads`` from one set of weights and one
@@ -2383,6 +2410,7 @@ def cifar_tiers(dev) -> dict:
     from repro_torch.core.barrier import step_keys
     from repro_torch.core.noise_correction import init_state as init_noise
     from repro_torch.distributed import steps as steps_mod
+    from repro_torch.kernels import dispatch
     from repro_torch.models.packing import pack_params
 
     priv = PrivacyConfig(enabled=True, sigma=0.5, clip_bound=1.0,
@@ -2396,7 +2424,7 @@ def cifar_tiers(dev) -> dict:
             "barrier": (dataclasses.replace(priv, sync_path="barrier"), 4,
                         False, {"clip_mask": 4}),
             "perleaf": (dataclasses.replace(priv, sync_path="barrier"), 4,
-                        True, {"zsmask": 2 * 4 * n_leaves}),
+                        True, {"zsmask_buffer": 4}),
             "scan": (dataclasses.replace(priv, silo_mode="scan"), 1, False,
                      {"normal_combine": n_leaves}),
         }
@@ -2404,6 +2432,7 @@ def cifar_tiers(dev) -> dict:
         for tier, (p, mesh_n, perleaf, want) in tiers.items():
             tr, state, step, n = cifar_trainer(cfg, dev, p, mesh_n,
                                                CIFAR_STEPS, perleaf=perleaf)
+            variants = dispatch.variant_counts()  # of the same run
             peak = torch.cuda.max_memory_allocated()
             want = {k: v * CIFAR_STEPS for k, v in want.items()}
             losses = [m["loss"] for m in tr.metrics_log]
@@ -2414,6 +2443,11 @@ def cifar_tiers(dev) -> dict:
                   f"cifar {cfg.name} {tier}: epsilon {eps}")
             check(n == want, f"cifar {cfg.name} {tier}: launches {n}, "
                              f"expected {want}")
+            if perleaf:  # lambda 0.7: the corrected instantiation only
+                check(variants["zsmask_buffer"] == {
+                    "plain": 0, "prev": want["zsmask_buffer"]},
+                      f"cifar {cfg.name} perleaf: zsmask_buffer "
+                      f"instantiations {variants['zsmask_buffer']}")
             step_ms = [m["step_time_s"] * 1e3 for m in tr.metrics_log]
             stages = {k: [st.get(k, 0.0) for st in tr.stage_log]
                       for k in tr.stage_log[0]}
@@ -2421,6 +2455,7 @@ def cifar_tiers(dev) -> dict:
                          "step_ms_after_first": step_ms[1:],
                          "stage_ms": stages, "peak_mem_gb": peak / 1e9,
                          "launches": n,
+                         "launches_by_instantiation": variants,
                          "clip_bound": [m["clip_bound"]
                                         for m in tr.metrics_log]}
             log(f"[cifar] {cfg.name} {tier}: {CIFAR_STEPS} steps of "
@@ -2542,8 +2577,8 @@ def cifar_convergence(dev) -> dict:
 def cifar_per_example(dev) -> dict:
     """(c) per-example clipping of WRN28 over 16 examples (a batch of one
     a forward), packed (``clip_sum`` once) and perleaf
-    (``per_example_sumsq`` and ``clip_accumulate`` once a leaf): the two
-    routes within ROUTES_RTOL; times and peak memory."""
+    (``per_example_sumsq_tree`` and ``clip_accumulate`` once each): the
+    two routes within ROUTES_RTOL; times and peak memory."""
     from repro_torch.configs.paper_models import CIFAR10_WRN28
     from repro_torch.core import clipping, flatbuf
     from repro_torch.kernels import dispatch
@@ -2554,8 +2589,8 @@ def cifar_per_example(dev) -> dict:
     batch = {k: v[:CIFAR_PE] for k, v in next_batch().items()}
     res, rec = {}, {}
     for impl, want in (("packed", {"clip_sum": 1}),
-                       ("perleaf", {"per_example_sumsq": 80,
-                                    "clip_accumulate": 80})):
+                       ("perleaf", {"per_example_sumsq_tree": 1,
+                                    "clip_accumulate": 1})):
         dispatch.reset_launches()
         torch.cuda.reset_peak_memory_stats()
         (s, norms, loss), sec = timed(lambda: clipping.per_example_clipped_grad(
@@ -2814,6 +2849,9 @@ def cifar_phase(dev, sass=None) -> tuple:
     rec["wire"] = cifar_wire(dev)
     rec["resume"] = cifar_resume(dev)
     tiers = rec["tiers"]
+    # the per-leaf kernels (zsmask, per_example_sumsq) launch on none of
+    # these paths: the perleaf tier and route run the tree kernels (phase
+    # 22's rows)
     for name, tier, sub in (("clip_accumulate", "fused", None),
                             ("noise_batch", "fused", None),
                             ("clip_mask", "barrier", None),
@@ -2821,11 +2859,11 @@ def cifar_phase(dev, sass=None) -> tuple:
         for model, short in (("cifar10-cnn6", "cnn6"),
                              ("cifar10-wrn28", "wrn28")):
             rows[name][short]["launches"] = \
-                tiers[model][tier]["launches"][name]
+                tiers[model][tier]["launches"].get(name, 0)
     for name in ("per_example_sumsq", "clip_sum"):
         impl = "packed" if name == "clip_sum" else "perleaf"
         rows[name]["pe16"]["launches"] = \
-            rec["per_example"][impl]["launches"][name]
+            rec["per_example"][impl]["launches"].get(name, 0)
     rec["phase_s"] = time.perf_counter() - t20
     log(f"[cifar] phase 20 in {rec['phase_s']:.1f} s")
     return rec, rows
@@ -3064,17 +3102,392 @@ def normal_phase(dev, sass: str) -> tuple:
     return rec, rows
 
 
+# --------------------------------------------------------------- phase 22
+# the per-leaf wrappers at one launch a tree (kernels/zsmask/csrc/zsmask.cu,
+# zsmask_buffer_kernel; kernels/dp_clip/csrc/sumsq.cu, rowsq_tree_*): the
+# layouts of CNN6 (14 leaf tensors), WRN28 (80) and qwen2.5-3b at 12 layers
+# (147), silo 1 of 4 at sigma 0.3 and C 4 with lambda 0.7 for the mask;
+# WRN28's (16, P) per-example buffer and qwen2.5-3b's (4, P) for the norms
+TREE_PAD = 3.25  # every padding position's value: no tree kernel touches it
+# zsmask_buffer_kernel<false> and <true> in the SASS
+TREE_SASS = {False: r"zsmask_buffer_kernelILb0E",
+             True: r"zsmask_buffer_kernelILb1E"}
+
+
+def tree_layouts() -> dict:
+    """name -> (layout, per-example rows or None, timing reps) of phase
+    22's cells."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.paper_models import CIFAR10_CNN6, CIFAR10_WRN28
+    from repro_torch.core import flatbuf
+    from repro_torch.models.packing import param_tree
+    from repro_torch.models.transformer import Transformer
+    out = {}
+    for cfg, name in ((CIFAR10_CNN6, "cnn6"), (CIFAR10_WRN28, "wrn28")):
+        sm, _ = cifar_setup(cfg, torch.device("cpu"))
+        out[name] = flatbuf.layout_of(sm.init(torch.Generator().manual_seed(0)))
+    cut12 = dataclasses.replace(get_config("qwen2.5-3b"), n_layers=12)
+    out["qwen12"] = flatbuf.layout_of(param_tree(Transformer(cut12, "meta")))
+    return out
+
+
+def padding_of(layout, dev) -> torch.Tensor:
+    """A (P,) bool tensor on ``dev``: True where no tensor of the layout
+    lies."""
+    from repro_torch.core import flatbuf
+    pad = torch.ones(layout.total, dtype=torch.bool)
+    for off, numel, *_ in flatbuf.leaf_table(layout):
+        pad[off:off + numel] = False
+    return pad.to(dev)
+
+
+def perleaf_mask_route(buf, layout, keys, prev_key, sigma_c, b, lam):
+    """The per-leaf route the tree kernel replaces, in place over the
+    packed buffer: a ``zsmask`` per tensor (``masking.mask_leaf``), then
+    with ``prev_key`` a second over zeros on it with ``b = 0`` into
+    scratch and ``lam * prev`` subtracted (what ``_contribution_perleaf``
+    launched before the tree kernel)."""
+    from repro_torch.core import flatbuf, masking
+    tree = flatbuf.unpack(layout, buf)
+    most = max(n for _, n, *_ in flatbuf.leaf_table(layout))
+    if prev_key is not None:
+        zeros = torch.zeros(most, device=buf.device)
+        scratch = torch.empty(most, device=buf.device)
+    for i, offset, t in flatbuf.leaf_slices(layout, tree):
+        flat = t.view(-1)
+        masking.mask_leaf(flat, keys.key_r, keys.key_xi, i, offset, 1, 4,
+                          sigma_c, b, out=flat)
+        if prev_key is not None:
+            n = flat.numel()
+            prev = masking.mask_leaf(zeros[:n], keys.key_r, prev_key, i,
+                                     offset, 1, 4, sigma_c, 0.0,
+                                     out=scratch[:n])
+            flat.sub_(lam * prev)
+    return buf
+
+
+def check_zsmask_buffer(dev, name, layout, per_normal, keys, prev) -> dict:
+    """``zsmask_buffer`` over every tensor of ``layout`` (both
+    instantiations): bit-equal to the per-leaf route's launches and to its
+    plain version over every element, the padding untouched, two launches
+    bit-identical; one launch against the route's; call and card ms of
+    both beside the bound (the pinned per-normal counts, 3 normals an
+    element, 4 with the correction). Returns ``{use_prev: row}``."""
+    from repro_torch.core import flatbuf, masking
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.zsmask import ref as zs_ref
+    f32 = lambda x: torch.full((), x, dtype=torch.float32, device=dev)
+    sigma_c = f32(0.3) * f32(4.0)
+    b = f32(8.0) * sigma_c
+    lam = 0.7 * f32(1.0) * 1.0
+    P, n = layout.total, layout.n_params
+    table = flatbuf.leaf_table(layout)
+    big = name == "qwen12"
+    g = torch.randn(P, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(22))
+    pad = padding_of(layout, dev)
+    g[pad] = TREE_PAD
+    rows = {}
+    for use_prev in (False, True):
+        pk = prev if use_prev else None
+        tree_call = lambda buf: masking.mask_buffer(
+            buf, layout, keys.key_r, keys.key_xi, 1, 4, sigma_c, b, pk, lam)
+        leaf_call = lambda buf: perleaf_mask_route(buf, layout, keys, pk,
+                                                   sigma_c, b, lam)
+        dispatch.reset_launches()
+        want = leaf_call(g.clone())
+        torch.cuda.synchronize()
+        n_leaf = {k: v for k, v in dispatch.launch_counts().items() if v}
+        dispatch.reset_launches()
+        got = tree_call(g.clone())
+        torch.cuda.synchronize()
+        n_tree = {k: v for k, v in dispatch.launch_counts().items() if v}
+        n_var = dispatch.variant_counts()["zsmask_buffer"]
+        check(n_tree == {"zsmask_buffer": 1}
+              and n_var == {"plain": int(not use_prev), "prev": int(use_prev)}
+              and n_leaf == {"zsmask": len(table) * (2 if use_prev else 1)},
+              f"zsmask_buffer {name}: launches {n_tree} ({n_var}), per-leaf "
+              f"{n_leaf}")
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+              f"zsmask_buffer {name} prev {use_prev} differs from the "
+              f"per-leaf launches")
+        del want
+        again = tree_call(g.clone())
+        check(torch.equal(got.view(torch.int32), again.view(torch.int32)),
+              f"zsmask_buffer {name}: two launches differ")
+        del again
+        check(bool((got[pad] == TREE_PAD).all()),
+              f"zsmask_buffer {name}: padding touched")
+        plain = zs_ref.zsmask_buffer_ref(
+            g.clone(), table, keys.key_r, keys.key_xi, 1, 4, sigma_c, b, pk,
+            lam)
+        err = max_err_by_window(got, lambda a, z: plain[a:z], P)
+        check(err == 0.0 and torch.equal(got.view(torch.int32),
+                                          plain.view(torch.int32)),
+              f"zsmask_buffer {name} differs from its plain version by {err}")
+        check(bool(torch.isfinite(got).all()),
+              f"zsmask_buffer {name}: non-finite")
+        del got, plain
+        work = g.clone()
+        w = min(DP_WINDOW, P)
+        reps = (3, 1) if big else (20, 3)
+        gn = 2 if big else 20
+        parts = stream_bound(n, 4 if use_prev else 3, per_normal)
+        bms = max(parts.values())
+        leaf_ms = cuda_ms(lambda: leaf_call(work), reps=reps[0],
+                          warmup=reps[1])
+        rows[use_prev] = {
+            "max_abs_err": err, "bit_equal_per_leaf": True,
+            "bit_identical_relaunch": True, "padding_untouched": True,
+            "checked_at": f"all {n} elements of {len(table)} tensors and "
+                          f"the padding",
+            "launches_tree_vs_per_leaf": [1, n_leaf["zsmask"]],
+            "ms": cuda_ms(lambda: tree_call(work), reps=reps[0],
+                          warmup=reps[1]),
+            "device_ms": graph_ms(lambda: tree_call(work), n=gn, reps=5),
+            "per_leaf_ms": leaf_ms,
+            "per_leaf_device_ms": graph_ms(lambda: leaf_call(work),
+                                           n=1 if big else 4, reps=3),
+            "plain_ms": cuda_ms(lambda: zs_ref.zsmask_buffer_ref(
+                work[:w], ((0, w, 0, 0, 0),), keys.key_r, keys.key_xi, 1, 4,
+                sigma_c, b, pk, lam), reps=5),
+            "plain_at": f"window of {w} elements",
+            "library_ms": None,
+            "library_call": "none (no PyTorch call draws keyed threefry "
+                            "normals)",
+            "bound_ms": bms,
+            "bound_by": "bytes" if bms == parts["bytes"] else "operations",
+            "bound_detail": {"ms_by_limit": parts, "per_stream": per_normal},
+            "at": f"{name}: one silo's pass over the {len(table)} tensors "
+                  f"({n} elements), "
+                  + ("the correction fused in (4 normals an element)"
+                     if use_prev else "no correction (3 normals)")}
+        del work
+    del g
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_sumsq_tree(dev, name, layout, B) -> dict:
+    """``per_example_sumsq_tree`` on a (B, P) buffer of ``layout``: its
+    per-leaf sums bit-equal to a ``per_example_sumsq`` launch a leaf, its
+    totals to their sum in leaf order, within SUMSQ_RTOL of the plain
+    version, two launches bit-identical; the per-leaf clip route's one
+    ``clip_accumulate`` over the buffer bit-equal to a launch a leaf; call
+    and card ms beside the per-leaf launches, the per-leaf
+    ``vector_norm`` loop and one ``vector_norm`` over the buffer (both
+    host-clocked calls), and the bound."""
+    from repro_torch.core import flatbuf
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.dp_clip import ops as clip_ops
+    from repro_torch.kernels.dp_clip import ref as clip_ref
+    P, n, L = layout.total, layout.n_params, layout.n_leaves
+    pe = torch.randn(B, P, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(23))
+    pe *= torch.logspace(-1, 1, B, device=dev)[:, None]
+    cols = leaf_columns(pe, layout)
+    dispatch.reset_launches()
+    per = [clip_ops.sumsq(c) for c in cols]
+    n_leaf = dispatch.launch_counts()["per_example_sumsq"]
+    dispatch.reset_launches()
+    total, leaves = clip_ops.sumsq_tree(pe, layout, per_leaf=True)
+    again = clip_ops.sumsq_tree(pe, layout)
+    n_tree = {k: v for k, v in dispatch.launch_counts().items() if v}
+    check(n_tree == {"per_example_sumsq_tree": 2} and n_leaf == L,
+          f"per_example_sumsq_tree {name}: launches {n_tree}, per-leaf "
+          f"{n_leaf}")
+    check(torch.equal(leaves, torch.stack(per))
+          and torch.equal(total, sum(per)) and torch.equal(total, again),
+          f"per_example_sumsq_tree {name} differs from the per-leaf "
+          f"launches or between two launches")
+    plain = clip_ref.per_example_sumsq_tree_ref(pe, layout.offsets,
+                                                layout.sizes)
+    rel = max_rel(total, plain)
+    check(rel <= SUMSQ_RTOL, f"per_example_sumsq_tree {name} off its plain "
+                             f"version by {rel} relative")
+    err = (total - plain).abs().max().item()
+    # the clip route: one clip_accumulate over the buffer
+    scale = clip_ref.clip_scales(total, 1.0)
+    want = torch.empty(P, device=dev)
+    for off, size, c in zip(layout.offsets, layout.sizes, cols):
+        want[off:off + size] = clip_ops.clip_accumulate(c, scale)
+    flatbuf.zero_padding(layout, want)
+    dispatch.reset_launches()
+    tree, norms = clip_ops.clip_and_sum_tree(pe, 1.0, "perleaf",
+                                             layout=layout)
+    n_route = {k: v for k, v in dispatch.launch_counts().items() if v}
+    check(n_route == {"per_example_sumsq_tree": 1, "clip_accumulate": 1}
+          and torch.equal(flatbuf.pack(layout, tree), want)
+          and torch.equal(norms, torch.sqrt(total)),
+          f"per-leaf clip route {name}: launches {n_route}, or its sum "
+          f"differs from a clip_accumulate a leaf")
+    del tree, want
+    bms, by = bound(B * n * 4 + B * 4, 2 * B * n)
+    reps = (3, 1) if name == "qwen12" else (20, 3)
+    gn = 2 if name == "qwen12" else 20
+    call = lambda: clip_ops.sumsq_tree(pe, layout)
+    route = lambda: clip_ops.clip_and_sum_tree(pe, 1.0, "perleaf",
+                                               layout=layout)
+    summed = torch.empty(P, device=dev)
+    row = {
+        "max_abs_err": err, "max_rel_err": rel, "tolerance_rel": SUMSQ_RTOL,
+        "bit_equal_per_leaf": True, "bit_identical_relaunch": True,
+        "checked_at": f"every (row, leaf) of {L} leaves and the {B} totals",
+        "launches_tree_vs_per_leaf": [1, n_leaf],
+        "ms": cuda_ms(call, reps=reps[0], warmup=reps[1]),
+        "device_ms": graph_ms(call, n=gn, reps=5),
+        "per_leaf_ms": cuda_ms(lambda: [clip_ops.sumsq(c) for c in cols],
+                               reps=reps[0], warmup=reps[1]),
+        "per_leaf_device_ms": graph_ms(lambda: [clip_ops.sumsq(c)
+                                                for c in cols], n=2, reps=5),
+        "plain_ms": cuda_ms(lambda: clip_ref.per_example_sumsq_tree_ref(
+            pe, layout.offsets, layout.sizes), reps=3, warmup=1),
+        "plain_at": "every leaf (chunked dot products)",
+        "library_ms": cuda_ms(lambda: torch.linalg.vector_norm(pe, dim=1),
+                              reps=reps[0], warmup=reps[1]),
+        "library_call": "torch.linalg.vector_norm(pe, dim=1), the whole "
+                        "buffer (call)",
+        "library_per_leaf_ms": cuda_ms(
+            lambda: [torch.linalg.vector_norm(c, dim=1) for c in cols],
+            reps=reps[0], warmup=reps[1]),
+        "route_ms": cuda_ms(route, reps=reps[0], warmup=reps[1]),
+        "route_device_ms": graph_ms(route, n=gn, reps=5),
+        # the route's parts, each a call timed alone
+        "route_parts_ms": {
+            "sumsq_tree": cuda_ms(call, reps=reps[0], warmup=reps[1]),
+            "clip_scales": cuda_ms(lambda: clip_ref.clip_scales(total, 1.0),
+                                   reps=reps[0], warmup=reps[1]),
+            "clip_accumulate": cuda_ms(lambda: clip_ops.clip_accumulate(
+                pe, scale, out=summed), reps=reps[0], warmup=reps[1]),
+            "zero_padding": cuda_ms(lambda: flatbuf.zero_padding(
+                layout, summed), reps=reps[0], warmup=reps[1]),
+            "unpack": cuda_ms(lambda: flatbuf.unpack(layout, summed),
+                              reps=reps[0], warmup=reps[1]),
+            "sqrt": cuda_ms(lambda: torch.sqrt(total), reps=reps[0],
+                            warmup=reps[1])},
+        "bound_ms": bms, "bound_by": by,
+        "at": f"{name}: B={B}, {L} leaves ({n} columns), fp32"}
+    del pe, cols
+    torch.cuda.empty_cache()
+    return row
+
+
+def tree_phase(dev, sass: str) -> tuple:
+    """Phase 22: the tree kernels on every cell of :func:`tree_layouts`
+    (:func:`check_zsmask_buffer`, :func:`check_sumsq_tree`), their SASS
+    counts a normal (live, logged; the bound uses ZSMASK_OPS, pinned) and
+    launch configurations; then the per-leaf kernels on the APIs that keep
+    them: ``pairwise_mask_tree(impl="perleaf")`` over qwen2.5-3b's tree at
+    12 layers (a ``zsmask`` a tensor, bit-equal to the tree kernel's
+    pass) and ``sumsq`` a leaf of its (4, P) buffer. Returns ``(record,
+    the two rows of the kernels line, launches of the per-leaf kernels on
+    those APIs)``."""
+    from repro_torch.core import flatbuf, masking, prng
+    from repro_torch.core.barrier import step_keys
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.dp_clip import ops as clip_ops
+    from repro_torch.kernels.zsmask.zsmask import buffer_config
+
+    t0 = time.perf_counter()
+    keys = step_keys(prng.PRNGKey(1), 0)
+    prev = step_keys(prng.PRNGKey(1), 1).key_xi
+    live = {p: stream_ops(sass, r) for p, r in TREE_SASS.items()}
+    live["zsmask"] = live_stream_ops(sass, "zsmask_kernel")
+    pinned = ZSMASK_OPS
+    configs = {p: buffer_config(p) for p in (False, True)}
+    log(f"[tree] SASS a normal, live (a report; the bound uses zsmask's, "
+        f"pinned: {json.dumps(pinned)}): "
+        f"{json.dumps({str(k): v for k, v in live.items()})} | zsmask_buffer "
+        f"launch configuration "
+        f"{json.dumps({str(k): v for k, v in configs.items()})}")
+    layouts = tree_layouts()
+    zs, sq = {}, {}
+    for name, layout in layouts.items():
+        zs[name] = check_zsmask_buffer(dev, name, layout, pinned, keys, prev)
+        for use_prev, r in zs[name].items():
+            log(f"[tree] zsmask_buffer {name} prev {int(use_prev)}: bit-equal "
+                f"to {r['launches_tree_vs_per_leaf'][1]} per-leaf launches "
+                f"and the plain version | call {r['ms']:.4f} ms, card "
+                f"{r['device_ms']:.4f} ms | per-leaf call "
+                f"{r['per_leaf_ms']:.4f}, card {r['per_leaf_device_ms']:.4f}"
+                f" ms | bound {r['bound_ms']:.4f} ms ({r['bound_by']}) | "
+                f"{r['at']}")
+    for name, B in (("wrn28", CIFAR_PE), ("qwen12", 4)):
+        sq[name] = r = check_sumsq_tree(dev, name, layouts[name], B)
+        log(f"[tree] per_example_sumsq_tree {name}: bit-equal to "
+            f"{r['launches_tree_vs_per_leaf'][1]} per-leaf launches, "
+            f"{r['max_rel_err']:.3g} rel of the plain version | call "
+            f"{r['ms']:.4f} ms, card {r['device_ms']:.4f} ms | per-leaf call "
+            f"{r['per_leaf_ms']:.4f}, card {r['per_leaf_device_ms']:.4f} ms |"
+            f" vector_norm per leaf {r['library_per_leaf_ms']:.4f} ms, whole "
+            f"buffer {r['library_ms']:.4f} ms | clip route call "
+            f"{r['route_ms']:.4f} ms, card {r['route_device_ms']:.4f} ms, "
+            f"its parts' calls (ms) {json.dumps(r['route_parts_ms'])} | "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) | {r['at']}")
+    # the per-leaf kernels where they stay: the tree-level pairwise mask's
+    # perleaf route and the tensor-level sumsq, counts zeroed just before
+    layout = layouts["qwen12"]
+    f32 = lambda x: torch.full((), x, dtype=torch.float32, device=dev)
+    sigma_c = f32(0.3) * f32(4.0)
+    b = f32(8.0) * sigma_c
+    g = torch.randn(layout.total, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(24))
+    flatbuf.zero_padding(layout, g)
+    dispatch.reset_launches()
+    masked = masking.pairwise_mask_tree(flatbuf.unpack(layout, g),
+                                        keys.key_r, keys.key_xi, 1, 4,
+                                        sigma_c, b, impl="perleaf")
+    torch.cuda.synchronize()
+    n_zs = dispatch.launch_counts()["zsmask"]
+    masked = flatbuf.pack(layout, masked)
+    masking.mask_buffer(g, layout, keys.key_r, keys.key_xi, 1, 4, sigma_c, b)
+    check(n_zs == len(flatbuf.leaf_table(layout))
+          and torch.equal(masked.view(torch.int32), g.view(torch.int32)),
+          f"pairwise_mask_tree perleaf: {n_zs} zsmask launches, or it "
+          f"differs from zsmask_buffer")
+    del masked, g
+    pe = torch.randn(4, layout.total, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(25))
+    dispatch.reset_launches()
+    for c in leaf_columns(pe, layout):
+        clip_ops.sumsq(c)
+    torch.cuda.synchronize()
+    n_sq = dispatch.launch_counts()["per_example_sumsq"]
+    del pe
+    torch.cuda.empty_cache()
+    per_leaf = {"zsmask": n_zs, "per_example_sumsq": n_sq}
+    log(f"[tree] the per-leaf kernels on the APIs that keep them: "
+        f"pairwise_mask_tree(impl='perleaf') over qwen2.5-3b's 147 tensors "
+        f"{n_zs} zsmask (bit-equal to one zsmask_buffer), sumsq a leaf of its "
+        f"(4, P) buffer {n_sq} per_example_sumsq")
+    main_zs = zs["qwen12"][True]
+    main_zs.update({"prev0": zs["qwen12"][False]})
+    for name in ("cnn6", "wrn28"):
+        main_zs[name] = zs[name][True]
+        main_zs[f"{name}_prev0"] = zs[name][False]
+    main_sq = dict(sq["qwen12"])
+    main_sq["pe16"] = sq["wrn28"]
+    rec = {"sass_live": {str(k): v for k, v in live.items()},
+           "sass_pinned": pinned,
+           "configs": {str(k): v for k, v in configs.items()},
+           "per_leaf_launches_on_their_apis": per_leaf,
+           "phase_s": time.perf_counter() - t0}
+    log(f"[tree] phase 22 in {rec['phase_s']:.1f} s")
+    return rec, {"zsmask_buffer": main_zs,
+                 "per_example_sumsq_tree": main_sq}, per_leaf
+
+
 def one_phase(phase: str, src: Path) -> int:
     """``--scans`` / ``--pool`` / ``--wire`` / ``--bwd`` / ``--streams`` /
     ``--slice15`` / ``--persist`` / ``--cifar`` / ``--prng`` /
-    ``--normal``: the card, the build and phase 11's scans, phase 3's
-    page-pool events, phase 16's wire tier, phase 17's backward kernels,
-    the wire tier's stream kernels (:func:`streams_phase`), phase 18
-    (:func:`slice15_phase`), phase 19 (:func:`persist_phase`), phase 20
+    ``--normal`` / ``--tree``: the card, the build and phase 11's scans,
+    phase 3's page-pool events, phase 16's wire tier, phase 17's backward
+    kernels, the wire tier's stream kernels (:func:`streams_phase`), phase
+    18 (:func:`slice15_phase`), phase 19 (:func:`persist_phase`), phase 20
     (:func:`cifar_phase`), the scan tier's noise stage on WRN28
-    (:func:`prng_phase`; no build for a tree without the normal kernels)
-    or phase 21 (:func:`normal_phase`, after WRN28's noise stage with its
-    launches) alone, from the ``repro_torch`` under ``src`` (another
+    (:func:`prng_phase`; no build for a tree without the normal kernels),
+    phase 21 (:func:`normal_phase`, after WRN28's noise stage with its
+    launches) or phase 22 (:func:`tree_phase`) alone, from the ``repro_torch`` under ``src`` (another
     tree's, to time two trees in one call); the last line is their JSON
     record."""
     if not torch.cuda.is_available():
@@ -3117,6 +3530,9 @@ def one_phase(phase: str, src: Path) -> int:
         wrn = wrn_noise_stage(dev)
         record, rows = normal_phase(dev, library_sass())
         record.update(rows=rows, prng_scan_noise_wrn28=wrn)
+    elif phase == "tree":
+        record, rows, per_leaf = tree_phase(dev, library_sass())
+        record["rows"] = rows
     else:
         log(f"[kernel] clip_mask SASS, live (a report; the bound uses "
             f"{json.dumps(CLIP_MASK_OPS)}): "
@@ -5040,13 +5456,12 @@ def main() -> int:
                          if v},
             "loss": float(loss), "norms": norms, "sum": summed}
     n_pe = {"clip_sum": routes["packed"]["launches"].get("clip_sum", 0),
-            "per_example_sumsq":
-                routes["perleaf"]["launches"].get("per_example_sumsq", 0)}
-    L7 = layout7.n_leaves
+            **{k: routes["perleaf"]["launches"].get(k, 0) for k in (
+                "per_example_sumsq_tree", "per_example_sumsq")}}
     check(routes["packed"]["launches"] == {"clip_sum": 1},
           f"packed route launches {routes['packed']['launches']}")
-    check(routes["perleaf"]["launches"] == {"per_example_sumsq": L7,
-                                            "clip_accumulate": L7},
+    check(routes["perleaf"]["launches"] == {"per_example_sumsq_tree": 1,
+                                            "clip_accumulate": 1},
           f"perleaf route launches {routes['perleaf']['launches']}")
     na, nb = routes["packed"]["norms"], routes["perleaf"]["norms"]
     pe_rel = max_rel(na, nb)
@@ -5261,12 +5676,15 @@ def main() -> int:
             bsess.model, priv_b, mesh4, params, batch9, keys9, primed, c0,
             keys9.key_clip, layout9, steps_mod.StageTimer(dev))
         n_one = dispatch.launch_counts()
+        v_one = dispatch.variant_counts()["zsmask_buffer"]
         peak_one = torch.cuda.max_memory_allocated()
         agg = flatbuf.zero_padding(layout9, agg.clone())  # frees the rows
-        check(n_one["zsmask"] == 2 * N_SILOS * n_slices
-              and sum(n_one.values()) == n_one["zsmask"],
-              f"perleaf barrier step launches {n_one}: zsmask 2 x {N_SILOS} "
-              f"x {n_slices}, no other kernel")
+        check(n_one["zsmask_buffer"] == N_SILOS
+              and sum(n_one.values()) == n_one["zsmask_buffer"]
+              and v_one == {"plain": 0, "prev": N_SILOS},
+              f"perleaf barrier step launches {n_one} ({v_one}): "
+              f"zsmask_buffer {N_SILOS} (one a silo, lambda-corrected), no "
+              f"other kernel")
         clipped = torch.zeros_like(agg)
         for i in range(N_SILOS):
             g, norm = silo_grads_packed(bsess.model, params, batch9, layout9,
@@ -5293,6 +5711,7 @@ def main() -> int:
         res = tsess.train(steps=STEPS, batch_size=BATCH, seq_len=SEQ,
                           state=state, log_every=1)
         n_perleaf = dispatch.launch_counts()
+        v_perleaf = dispatch.variant_counts()["zsmask_buffer"]
     peak = torch.cuda.max_memory_allocated()
     losses = [m["loss"] for m in res.metrics]
     eps = [m["epsilon"] for m in res.metrics]
@@ -5300,10 +5719,12 @@ def main() -> int:
           f"perleaf barrier: {res.step} steps, loss {losses}")
     check(all(b > a for a, b in zip([0.0] + eps, eps)),
           f"epsilon does not rise: {eps}")
-    check(n_perleaf["zsmask"] == STEPS * 2 * N_SILOS * n_slices
-          and sum(n_perleaf.values()) == n_perleaf["zsmask"],
-          f"perleaf barrier launches {n_perleaf}: zsmask {STEPS} x 2 x "
-          f"{N_SILOS} x {n_slices}, no other kernel")
+    check(n_perleaf["zsmask_buffer"] == STEPS * N_SILOS
+          and sum(n_perleaf.values()) == n_perleaf["zsmask_buffer"]
+          and v_perleaf == {"plain": 0, "prev": STEPS * N_SILOS},
+          f"perleaf barrier launches {n_perleaf} ({v_perleaf}): "
+          f"zsmask_buffer {STEPS} x {N_SILOS}, lambda-corrected, no other "
+          f"kernel")
     step_ms = [m["step_time_s"] * 1e3 for m in res.metrics]
     stages = {k: [st.get(k, 0.0) for st in res.trainer.stage_log]
               for k in stage_keys}
@@ -5316,6 +5737,7 @@ def main() -> int:
         "step_ms_after_first": sum(step_ms[1:]) / (STEPS - 1),
         "stage_ms": stages, "peak_mem_gb": peak / 1e9,
         "launches": n_perleaf, "one_step_launches": n_one,
+        "launches_by_instantiation": v_perleaf,
         "one_step_peak_mem_gb": peak_one / 1e9,
         "noise_std": std9, "noise_std_expected": want9}
     log(f"[barrier-perleaf] one primed step: aggregate minus sum clip(g_i) "
@@ -5424,8 +5846,7 @@ def main() -> int:
                        "sum_largest": top, "card_launches": card_launches}
     check(cross["packed"]["card_launches"] == {"clip_sum": 1}
           and cross["perleaf"]["card_launches"] == {
-              "per_example_sumsq": narrow_layout.n_leaves,
-              "clip_accumulate": narrow_layout.n_leaves},
+              "per_example_sumsq_tree": 1, "clip_accumulate": 1},
           f"narrow per-example launches {cross}")
     with dispatch.force_impl("perleaf", kernel="dp_noise_tree"):
         out = {}
@@ -5462,10 +5883,13 @@ def main() -> int:
                 primed_full, None, steps_mod, step_keys, prng, flatbuf,
                 param_tree, pack_params, DPPipeline)
             out[d]["launches"] = dispatch.launch_counts()
+            out[d]["variants"] = dispatch.variant_counts()["zsmask_buffer"]
     xg, xc = out["cuda"], out["cpu"]
-    narrow_slices = len(leaf_slices(narrow_layout))
-    check(xg["launches"]["zsmask"] == 2 * 2 * N_SILOS * narrow_slices
-          and sum(xg["launches"].values()) == xg["launches"]["zsmask"]
+    # the step's contributions and their rebuild: one zsmask_buffer a silo
+    # each, lambda-corrected
+    check(xg["launches"]["zsmask_buffer"] == 2 * N_SILOS
+          and sum(xg["launches"].values()) == xg["launches"]["zsmask_buffer"]
+          and xg["variants"] == {"plain": 0, "prev": 2 * N_SILOS}
           and not any(xc["launches"].values()),
           f"narrow perleaf barrier launches: card {xg['launches']}, CPU "
           f"{xc['launches']}")
@@ -5486,7 +5910,7 @@ def main() -> int:
         "fused_loss": [m_g["loss"], m_c["loss"]],
         "barrier_contribution_max_abs_err": pc_err,
         "barrier_aggregate_max_abs_err": pa_err, "barrier_tolerance": tol,
-        "barrier_launches": xg["launches"]["zsmask"]}
+        "barrier_launches": xg["launches"]["zsmask_buffer"]}
     log(f"[perleaf-slice] narrow config, card vs CPU: per-example norms "
         f"{cross['packed']['norms_max_rel_err']:.3g} / "
         f"{cross['perleaf']['norms_max_rel_err']:.3g} relative (packed / "
@@ -5494,8 +5918,9 @@ def main() -> int:
         f"{cross['perleaf']['sum_max_abs_err']:.3g} | perleaf fused step: "
         f"noisy grad {f_err:.3g}, loss {m_g['loss']:.6f} / {m_c['loss']:.6f}"
         f" | perleaf barrier step: contributions {max(pc_err):.3g}, "
-        f"aggregate {pa_err:.3g} (tolerance {tol:.3g}), {xg['launches']['zsmask']}"
-        f" zsmask launches | keys equal")
+        f"aggregate {pa_err:.3g} (tolerance {tol:.3g}), "
+        f"{xg['launches']['zsmask_buffer']} zsmask_buffer launches | keys "
+        f"equal")
     del p_gpu, out, xg, xc, sess_p
     torch.cuda.empty_cache()
 
@@ -5683,6 +6108,28 @@ def main() -> int:
         f"{json.dumps(paths)}")
     log(f"[normal] phase 21 in {report['normal']['phase_s']:.1f} s")
 
+    # 22. the per-leaf wrappers at one launch a tree: both tree kernels
+    # against the per-leaf launches and their plain versions, timed; the
+    # per-leaf kernels' launches on the APIs that keep them
+    report["tree"], rows22, per_leaf22 = tree_phase(dev, sass)
+    kern.update(rows22)
+    tiers20 = report["cifar"]["tiers"]
+    # each instantiation's launches on the perleaf paths: the main row and
+    # "prev0" phase 9b's, the CIFAR sub-rows phase 20's (lambda 0.7 on
+    # both, so the uncorrected instantiation runs on neither)
+    v9 = report["barrier_perleaf"]["launches_by_instantiation"]
+    kern["zsmask_buffer"]["launches_by_instantiation"] = v9
+    kern["zsmask_buffer"]["prev0"]["launches"] = v9["plain"]
+    for model, short in (("cifar10-cnn6", "cnn6"), ("cifar10-wrn28",
+                                                    "wrn28")):
+        v20 = tiers20[model]["perleaf"]["launches_by_instantiation"][
+            "zsmask_buffer"]
+        kern["zsmask_buffer"][short]["launches"] = v20["prev"]
+        kern["zsmask_buffer"][f"{short}_prev0"]["launches"] = v20["plain"]
+    kern["per_example_sumsq_tree"]["pe16"]["launches"] = \
+        report["cifar"]["per_example"]["perleaf"]["launches"][
+            "per_example_sumsq_tree"]
+
     # the record
     launches = {"flash_attention": n_direct["flash_attention"],
                 "paged_attention": n_cont["paged_attention"],
@@ -5693,6 +6140,8 @@ def main() -> int:
                 "clip_mask": n_barrier["clip_mask"],
                 "zsmask": n_perleaf["zsmask"],
                 "per_example_sumsq": n_pe["per_example_sumsq"],
+                "zsmask_buffer": n_perleaf["zsmask_buffer"],
+                "per_example_sumsq_tree": n_pe["per_example_sumsq_tree"],
                 "clip_sum": n_pe["clip_sum"],
                 "wkv": report["rwkv6"]["wave"]["launches"]["wkv"],
                 "ssd": report["zamba2"]["direct"]["launches"]["ssd"],
@@ -5706,6 +6155,15 @@ def main() -> int:
     check(set(kern) == set(dispatch.KERNELS) == set(launches),
           f"the kernels line covers {sorted(kern)}, the registry "
           f"{sorted(dispatch.KERNELS)}")
+    # the per-leaf kernels are on no main path: "launches" is what the
+    # perleaf paths they served launched (phase 9b's steps, phase 7b's
+    # per-example route: none); the APIs that keep them launch them in
+    # phase 22 only, counted apart
+    api_launches_on = {
+        "zsmask": "pairwise_mask_tree(impl='perleaf') over qwen2.5-3b's "
+                  "147 tensors (phase 22, not a main path)",
+        "per_example_sumsq": "ops.sumsq a leaf of qwen2.5-3b's (4, P) "
+                             "buffer (phase 22, not a main path)"}
     line = []
     for name, r in kern.items():
         k = dispatch.KERNELS[name]
@@ -5715,22 +6173,32 @@ def main() -> int:
                  "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
                  "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                  "library_ms": r["library_ms"], "at": r["at"]}
+        if name in api_launches_on:
+            entry["api_launches"] = per_leaf22[name]
+            entry["api_launches_on"] = api_launches_on[name]
         for extra in ("checked_at", "plain_at", "library_call",
                       "bound_detail", "cases", "device_ms", "max_rel_err",
                       "launch_floor_ms", "checked",
                       "norms_max_rel_err", "tolerance", "tolerance_rel",
-                      "two_pass_floor_ms", "library_device_ms", "config"):
+                      "two_pass_floor_ms", "library_device_ms", "config",
+                      "per_leaf_ms", "per_leaf_device_ms",
+                      "library_per_leaf_ms", "route_ms", "route_device_ms",
+                      "route_parts_ms", "launches_tree_vs_per_leaf",
+                      "launches_by_instantiation"):
             if extra in r:
                 entry[extra] = r[extra]
         for sub in ("verify4", "chunk16", "d112", "s512", "wire", "d80",
                     "d80_verify4", "d80_chunk16", "d96", "d96_verify4",
                     "d96_chunk16", "cnn6", "wrn28", "pe16", "w22",
-                    "leaf311m"):
+                    "leaf311m", "prev0", "cnn6_prev0", "wrn28_prev0"):
             if sub in r:
                 entry[sub] = {x: r[sub][x] for x in (
                     "max_abs_err", "ms", "device_ms", "plain_ms",
                     "library_ms", "library_device_ms", "bound_ms",
-                    "bound_by", "launch_floor_ms", "launches", "at")
+                    "bound_by", "launch_floor_ms", "launches", "at",
+                    "per_leaf_ms", "per_leaf_device_ms",
+                    "library_per_leaf_ms", "route_ms", "route_device_ms",
+                    "route_parts_ms", "launches_tree_vs_per_leaf")
                     if x in r[sub]}
         if "wire" in r:
             entry["wire"]["launches"] = r["wire"]["launches"]
@@ -5751,7 +6219,7 @@ if __name__ == "__main__":
     src = Path(args[args.index("--src") + 1]).resolve() \
         if "--src" in args else ROOT / "src"
     for phase in ("scans", "pool", "wire", "bwd", "streams", "slice15",
-                  "persist", "cifar", "prng", "normal"):
+                  "persist", "cifar", "prng", "normal", "tree"):
         if f"--{phase}" in args:
             sys.exit(one_phase(phase, src))
     sys.exit(main())

@@ -7,8 +7,9 @@ of one (JAX vmaps ``x[None]``; the port loops, ``torch.autograd.grad`` per
 example), writes it into its row of a ``(B, P)`` packed buffer
 (``core/flatbuf.py``), and clips and sums the rows through
 ``kernels/dp_clip/ops.clip_and_sum_tree``: the ``packed`` route is one
-``clip_sum`` launch, the ``perleaf`` route one ``per_example_sumsq`` and one
-``clip_accumulate`` launch per leaf. Each keeps the JAX package's clip
+``clip_sum`` launch, the ``perleaf`` route one ``per_example_sumsq_tree``
+(every leaf's sums of squares, added in leaf order) and one
+``clip_accumulate`` over the whole buffer. Each keeps the JAX package's clip
 factor (``dp_fused/ref.clip_sum_ref`` and ``dp_clip/ref.clip_scales``:
 ``min(1, C / sqrt(max(ss, 1e-30)))``), which is not :func:`clip_scale`'s
 ``max(norm, 1e-12)``; the per-leaf route's norms are ``sqrt(ss)``.

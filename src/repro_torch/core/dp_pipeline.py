@@ -366,8 +366,8 @@ class DPPipeline:
         bound = torch.as_tensor(bound, dtype=torch.float32, device=dev)
         sigma_c = priv.sigma * bound
         s, s_prev, pa = self._stream_scales(bound, active, state)
-        hp = torch.tensor(1.0 if state.has_prev else 0.0, dtype=torch.float32,
-                          device=dev)
+        hp = torch.full((), 1.0 if state.has_prev else 0.0,
+                        dtype=torch.float32, device=dev)
         lam_gate = priv.noise_lambda * hp * gate * float(pa[silo])
         return fused_ops.clip_mask(
             packed, scaled, keys.key_r, keys.key_xi, state.prev_key, silo,
@@ -385,10 +385,11 @@ class DPPipeline:
         static ring over it, ``b = mask_scale * sigma_c``; and, with
         lambda > 0, the mask-only pass over zeros on ``prev_key`` with
         ``b = 0`` (the xi_{t-1} share, r streams drawn and zeroed),
-        subtracted times ``lam = lambda * hp * pa_gate``. Each leaf is
-        masked in place; the second pass goes through one leaf-sized
-        scratch. A partial participation set raises: the per-leaf ring
-        would leave uncancelled ``+-b * r`` terms in the aggregate."""
+        subtracted times ``lam = lambda * hp * pa_gate``. All of it in
+        place over the packed buffer, one ``zsmask_buffer`` dispatch
+        (:func:`masking.mask_buffer`), then the tree as views. A partial
+        participation set raises: the per-leaf ring would leave
+        uncancelled ``+-b * r`` terms in the aggregate."""
         if not is_static_full(active):
             raise ValueError(
                 "the per-leaf mask family only builds the full static ring; "
@@ -399,29 +400,14 @@ class DPPipeline:
         dev = buf.device
         bound = torch.as_tensor(bound, dtype=torch.float32, device=dev)
         sigma_c = priv.sigma * bound
-        b = priv.mask_scale * sigma_c
-        hp = torch.tensor(1.0 if state.has_prev else 0.0, dtype=torch.float32,
-                          device=dev)
+        hp = torch.full((), 1.0 if state.has_prev else 0.0,
+                        dtype=torch.float32, device=dev)
         lam_gate = priv.noise_lambda * hp * float(self.prev_active(state)[silo])
-        use_prev = priv.noise_lambda > 0.0
-        tree = flatbuf.unpack(self.layout, buf)
-        if use_prev:
-            most = max(t.numel() for t in flatbuf.flat_tensors(self.layout,
-                                                                tree))
-            zeros = torch.zeros(most, dtype=torch.float32, device=dev)
-            scratch = torch.empty(most, dtype=torch.float32, device=dev)
-        for i, offset, t in flatbuf.leaf_slices(self.layout, tree):
-            flat = t.view(-1)
-            masking.mask_leaf(flat, keys.key_r, keys.key_xi, i, offset, silo,
-                              self.n_silos, sigma_c, b, out=flat)
-            if use_prev:
-                n = flat.numel()
-                prev = masking.mask_leaf(zeros[:n], keys.key_r,
-                                         state.prev_key, i, offset, silo,
-                                         self.n_silos, sigma_c, 0.0,
-                                         out=scratch[:n])
-                flat.sub_(lam_gate * prev)
-        return tree
+        masking.mask_buffer(buf, self.layout, keys.key_r, keys.key_xi, silo,
+                            self.n_silos, sigma_c, priv.mask_scale * sigma_c,
+                            state.prev_key if priv.noise_lambda > 0.0
+                            else None, lam_gate)
+        return flatbuf.unpack(self.layout, buf)
 
     def finalize(self, agg) -> dict:
         """The aggregated contribution -> the fp32 gradient tree: views into

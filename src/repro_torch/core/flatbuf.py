@@ -29,6 +29,7 @@ and their element offset inside the (stacked) leaf.
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Optional
@@ -139,13 +140,26 @@ def pack_tensors(layout: PackedLayout, tensors,
     return zero_padding(layout, out)
 
 
+@functools.lru_cache(maxsize=64)
+def padding_index(layout: PackedLayout, device: torch.device) -> torch.Tensor:
+    """Every padding position of the layout's (P,) buffer, ascending, as an
+    int64 tensor on ``device``: built and copied once per layout and
+    device."""
+    ends = [(off + size, off + pad) for size, pad, off
+            in zip(layout.sizes, layout.padded, layout.offsets)]
+    ends.append((layout.offsets[-1] + layout.padded[-1], layout.total))
+    idx = torch.cat([torch.arange(a, z, dtype=torch.int64) for a, z in ends])
+    return idx.to(device)
+
+
 def zero_padding(layout: PackedLayout, buf: torch.Tensor) -> torch.Tensor:
     """Set every padding position of ``buf`` (P,) to zero, in place (a noisy
-    aggregate carries noise there, which no leaf reads)."""
-    for size, pad, off in zip(layout.sizes, layout.padded, layout.offsets):
-        buf[off + size:off + pad].zero_()
-    buf[layout.offsets[-1] + layout.padded[-1]:].zero_()
-    return buf
+    aggregate carries noise there, which no leaf reads): one fill over
+    :func:`padding_index`, not a launch a leaf."""
+    if buf.shape != (layout.total,):
+        raise ValueError(f"buf {tuple(buf.shape)}, the layout's packed "
+                         f"buffer is ({layout.total},)")
+    return buf.index_fill_(0, padding_index(layout, buf.device), 0.0)
 
 
 def pack(layout: PackedLayout, tree: dict,
@@ -177,6 +191,22 @@ def leaf_slices(layout: PackedLayout, tree: dict):
         leaf = tree[path]
         for j, t in enumerate(leaf if k else [leaf]):
             yield i, j * (size // k if k else size), t
+
+
+def leaf_table(layout: PackedLayout) -> tuple:
+    """One row per tensor of the layout's tree, in :func:`leaf_slices`
+    order: ``(buffer offset, numel, leaf index i, counter offset inside the
+    leaf mod 2**32, start in the prefix of all tensors' elements)``. What
+    the one-launch perleaf mask (``kernels/zsmask``'s ``zsmask_buffer``)
+    walks, its device copy cached there; padding is in no row."""
+    rows, start = [], 0
+    for i, (k, size, off) in enumerate(zip(layout.stacks, layout.sizes,
+                                           layout.offsets)):
+        m = size // k if k else size
+        for j in range(k or 1):
+            rows.append((off + j * m, m, i, (j * m) & 0xFFFFFFFF, start))
+            start += m
+    return tuple(rows)
 
 
 def map_leaf_slices(layout: PackedLayout, tree: dict, fn) -> dict:

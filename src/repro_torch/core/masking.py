@@ -14,6 +14,9 @@ families, so every silo of a session must resolve to the same one:
   leaf, at its counter offset), the leaf index i folded into both words of
   each key: ``k + 0x9E3779B9 * (i + 1)`` for ``key_r`` and
   ``k + 0x85EBCA6B * (i + 1)`` for ``key_xi``, uint32, in JAX's leaf order.
+  Over a packed buffer (the barrier tier's contribution) the same family
+  is one ``zsmask_buffer`` launch for every tensor (:func:`mask_buffer`),
+  the lambda-correction's pass fused in.
 
 The admin construction (the paper-faithful wire protocol): the admin draws
 ``u_1 .. u_{n-1}`` of spread ``b`` and closes the set with
@@ -50,11 +53,10 @@ from repro_torch.kernels.dispatch import on_cuda, resolve_tree
 from repro_torch.kernels.dp_fused import ops as fused_ops
 from repro_torch.kernels.prng import ops as prng_ops
 from repro_torch.kernels.zsmask import ops as zs_ops
-from repro_torch.kernels.zsmask.ref import _on
+from repro_torch.kernels.zsmask.ref import R_FOLD, XI_FOLD, _on, fold_key
 from repro_torch.kernels.zsmask.threefry import M32
 
 TREE = "zsmask_tree"
-R_FOLD, XI_FOLD = 0x9E3779B9, 0x85EBCA6B
 
 
 def _raw(key) -> tuple:
@@ -65,9 +67,7 @@ def _raw(key) -> tuple:
 
 def fold_leaf(key, mult: int, i: int) -> tuple:
     """Leaf i's key: ``key + mult * (i + 1)`` on both uint32 words."""
-    d = (mult * (i + 1)) & M32
-    k0, k1 = _raw(key)
-    return (k0 + d) & M32, (k1 + d) & M32
+    return fold_key(_raw(key), mult, i)
 
 
 def mask_leaf(g, key_r, key_xi, i: int, offset: int, silo: int, n_silos: int,
@@ -77,6 +77,19 @@ def mask_leaf(g, key_r, key_xi, i: int, offset: int, silo: int, n_silos: int,
     return zs_ops.apply_zsmask(g, fold_leaf(key_r, R_FOLD, i),
                                fold_leaf(key_xi, XI_FOLD, i), silo, n_silos,
                                sigma_c, b_scale, offset=offset, out=out)
+
+
+def mask_buffer(buf, layout, key_r, key_xi, silo: int, n_silos: int, sigma_c,
+                b_scale, prev_key=None, lam=None):
+    """The per-leaf family over every tensor of ``buf``, the packed (P,)
+    fp32 buffer of ``layout``, in place: :func:`mask_leaf` of each tensor,
+    and with ``prev_key`` the correction's pass (:func:`mask_leaf` over
+    zeros on ``prev_key`` with ``b = 0``) times ``lam`` subtracted, in one
+    ``zsmask_buffer`` dispatch. Returns ``buf``."""
+    return zs_ops.zsmask_buffer(buf, layout, _raw(key_r), _raw(key_xi), silo,
+                                n_silos, sigma_c, b_scale,
+                                None if prev_key is None else _raw(prev_key),
+                                lam)
 
 
 def _mask_tree_perleaf(grads, key_r, key_xi, silo, n_silos, sigma_c, b_scale):

@@ -4,8 +4,10 @@
 // (clip_sum's first phase).
 //
 // Pass 1, rowsq_partial: a (nblk, B) grid; block (j, b) sums its share of
-// row b, thread t of block j taking the elements (float4s when vec) at
-// j * RS_THREADS + t + k * nblk * RS_THREADS, and writes one partial sum.
+// row b (rowsq_block: thread t of block j taking the elements, float4s
+// when vec, at j * RS_THREADS + t + k * nblk * RS_THREADS) and writes one
+// partial sum. sumsq.cu's tree kernel runs rowsq_block over every leaf's
+// blocks in one grid.
 // Pass 2 (rowsq_total, in each caller's last kernel): one warp per row adds
 // the row's nblk partials. Every sum is in fp64, where the square of an
 // fp32 value is exact: the result is the fp32 rounding of an almost exact
@@ -35,13 +37,13 @@ __device__ __forceinline__ double sq(float x) {
   return d * d;
 }
 
-__global__ void __launch_bounds__(RS_THREADS)
-rowsq_partial(const float* __restrict__ g, long long D, long long ld, int vec,
-              double* __restrict__ partial) {
-  const int b = blockIdx.y;
-  const float* row = g + (long long)b * ld;
-  const long long stride = (long long)gridDim.x * RS_THREADS;
-  const long long tid = (long long)blockIdx.x * RS_THREADS + threadIdx.x;
+// Block j of nblk's partial sum of squares of one row of D elements: thread
+// t takes the elements (float4s when vec) at j * RS_THREADS + t + k * nblk *
+// RS_THREADS. Call with RS_THREADS threads; the sum is thread 0's.
+__device__ __forceinline__ double rowsq_block(const float* __restrict__ row, long long D,
+                                              int vec, int j, int nblk) {
+  const long long stride = (long long)nblk * RS_THREADS;
+  const long long tid = (long long)j * RS_THREADS + threadIdx.x;
   const long long nvec = vec ? D / 4 : 0;
   double acc = 0.0;
   for (long long v = tid; v < nvec; v += stride) {
@@ -54,10 +56,16 @@ rowsq_partial(const float* __restrict__ g, long long D, long long ld, int vec,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (lane == 0) warps[warp] = acc;
   __syncthreads();
-  if (warp == 0) {
-    acc = warp_sum_d(lane < RS_THREADS / 32 ? warps[lane] : 0.0);
-    if (lane == 0) partial[(long long)b * gridDim.x + blockIdx.x] = acc;
-  }
+  if (warp == 0) acc = warp_sum_d(lane < RS_THREADS / 32 ? warps[lane] : 0.0);
+  return acc;
+}
+
+__global__ void __launch_bounds__(RS_THREADS)
+rowsq_partial(const float* __restrict__ g, long long D, long long ld, int vec,
+              double* __restrict__ partial) {
+  const int b = blockIdx.y;
+  const double acc = rowsq_block(g + (long long)b * ld, D, vec, blockIdx.x, gridDim.x);
+  if (threadIdx.x == 0) partial[(long long)b * gridDim.x + blockIdx.x] = acc;
 }
 
 // The sum of row b's nblk partials, in a fixed order; call with one warp.

@@ -12,7 +12,9 @@ the tensors' device, nothing else:
 
 Each kernel is a :class:`Kernel` record holding its launch counter: the
 CUDA wrapper adds one where it launches, and nowhere else, so a run can show
-that its path went through the kernel.
+that its path went through the kernel. A kernel built in more than one
+instantiation also counts each apart (``variants``), so a run can show
+which of them its path launched.
 
 Above the tensors, the JAX package's three tree-level kernels choose an
 execution policy for a whole gradient tree: ``packed`` (one flat buffer,
@@ -32,17 +34,19 @@ in precedence order:
 The legacy names map as in ``repro.core.dp_pipeline.resolve_policy``:
 ``pallas`` is packed, ``jnp`` is perleaf. A bare name that is none of these
 is ignored, as JAX ignores a global override a kernel lacks. An override
-scoped to a tensor-level kernel (``zsmask``, ``dp_clip_sumsq``, ...) raises
-``ValueError``: here the tensors' device picks a tensor-level route, and on
-the card such an override could only select a plain version and hide the
-kernel.
+scoped to a tensor-level kernel (``zsmask``, ``zsmask_buffer``,
+``dp_clip_sumsq``, ...) raises ``ValueError``: here the tensors' device
+picks a tensor-level route, and on the card such an override could only
+select a plain version and hide the kernel. A tree-level scope names a
+policy, not a CUDA kernel: ``zsmask_tree`` chooses ``pairwise_mask_tree``'s
+route, and no kernel has its name.
 """
 from __future__ import annotations
 
 import os
 import threading
 from contextlib import contextmanager
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 import torch
@@ -56,25 +60,42 @@ class Kernel:
     source: str    # the .cu file, relative to the repository root
     replaces: str  # the TPU kernel it ports, file:line in src/repro
     launches: int = 0
+    # launches of each instantiation, where there is more than one
+    variants: dict[str, int] = field(default_factory=dict)
+
+    def count(self, variant: str) -> None:
+        """One launch of instantiation ``variant``."""
+        self.launches += 1
+        self.variants[variant] += 1
 
 
 KERNELS: dict[str, Kernel] = {}
 
 
-def register(name: str, source: str, replaces: str) -> Kernel:
+def register(name: str, source: str, replaces: str,
+             variants: tuple = ()) -> Kernel:
     if name in KERNELS:
         raise ValueError(f"kernel {name!r} registered twice")
-    KERNELS[name] = Kernel(name, source, replaces)
+    KERNELS[name] = Kernel(name, source, replaces,
+                           variants=dict.fromkeys(variants, 0))
     return KERNELS[name]
 
 
 def reset_launches() -> None:
     for k in KERNELS.values():
         k.launches = 0
+        k.variants.update(dict.fromkeys(k.variants, 0))
 
 
 def launch_counts() -> dict[str, int]:
     return {name: k.launches for name, k in KERNELS.items()}
+
+
+def variant_counts() -> dict[str, dict[str, int]]:
+    """Launches of each instantiation of the kernels built in more than
+    one."""
+    return {name: dict(k.variants) for name, k in KERNELS.items()
+            if k.variants}
 
 
 def on_cuda(*tensors: torch.Tensor) -> bool:

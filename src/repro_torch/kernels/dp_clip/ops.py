@@ -11,20 +11,22 @@ import torch
 from repro_torch.core import flatbuf
 from repro_torch.kernels.dispatch import on_cuda, resolve_tree
 from repro_torch.kernels.dp_clip import ref
-from repro_torch.kernels.dp_clip.dp_clip import (clip_accumulate_cuda,
-                                                 per_example_sumsq_cuda)
+from repro_torch.kernels.dp_clip.dp_clip import (
+    clip_accumulate_cuda, per_example_sumsq_cuda, per_example_sumsq_tree_cuda)
 from repro_torch.kernels.dp_fused import ops as fused_ops
 
 TREE = "dp_clip_tree"
 
 
-def clip_accumulate(g, scale):
+def clip_accumulate(g, scale, out=None):
     """sum_i g[i] * scale[i] over a stacked (n, P) buffer -> (P,) fp32: the
     fused tier's masked aggregate (n = silos, P = the packed length) and
-    the per-leaf clipped sum (n = examples, P = one leaf's columns)."""
+    the per-leaf route's clipped sum (n = examples, every column of the
+    per-example buffer), written into ``out`` when given."""
     if on_cuda(g, scale):
-        return clip_accumulate_cuda(g, scale)
-    return ref.clip_accumulate_ref(g, scale)
+        return clip_accumulate_cuda(g, scale, out=out)
+    res = ref.clip_accumulate_ref(g, scale)
+    return res if out is None else out.copy_(res)
 
 
 clipped_sum = clip_accumulate  # the JAX package's name for it
@@ -37,18 +39,28 @@ def sumsq(g):
     return ref.per_example_sumsq_ref(g)
 
 
+def sumsq_tree(buf, layout, per_leaf: bool = False):
+    """Per-example squared norms of a (B, P) buffer of ``layout``: each
+    leaf's columns' sums of squares (:func:`sumsq`), added in leaf order ->
+    (B,) fp32; with ``per_leaf`` also the (L, B) per-leaf sums. One
+    dispatch (two device launches on the card)."""
+    if on_cuda(buf):
+        return per_example_sumsq_tree_cuda(buf, layout, per_leaf)
+    return ref.per_example_sumsq_tree_ref(buf, layout.offsets, layout.sizes,
+                                          per_leaf)
+
+
 def _clip_and_sum_perleaf(buf, clip_bound, layout):
-    """Per-leaf route: 2 launches per leaf. Each leaf's columns of the
-    (B, P) buffer are read in place; the per-leaf sums of squares add up,
-    in leaf order, to each example's squared norm, then each leaf is scaled
-    and summed over the examples."""
-    cols = [buf[:, off:off + size]
-            for off, size in zip(layout.offsets, layout.sizes)]
-    total = sum(sumsq(c) for c in cols)
+    """Per-leaf route: the per-leaf sums of squares of the (B, P) buffer,
+    read in place and added in leaf order to each example's squared norm
+    (:func:`sumsq_tree`), then every column scaled and summed over the
+    examples (:func:`clip_accumulate`, each column folded on its own: the
+    leaves' columns as a launch a leaf would give them), the padding
+    zeroed. Two dispatches."""
+    total = sumsq_tree(buf, layout)
     scale = ref.clip_scales(total, clip_bound)
-    summed = torch.empty(layout.total, dtype=torch.float32, device=buf.device)
-    for off, size, c in zip(layout.offsets, layout.sizes, cols):
-        summed[off:off + size] = clipped_sum(c, scale)
+    summed = clip_accumulate(buf, scale, out=torch.empty(
+        layout.total, dtype=torch.float32, device=buf.device))
     flatbuf.zero_padding(layout, summed)
     return flatbuf.unpack(layout, summed), torch.sqrt(total)
 

@@ -5,7 +5,8 @@
 row, as the CUDA kernel folds: on the card the two are bit-equal.
 ``per_example_sumsq_ref`` takes each row's sum of squares as chunked fp32
 dot products (:func:`sumsq_ref`); the CUDA kernel sums in fp64, and the two
-agree to about 1e-7 relative. ``clip_scales`` is the JAX package's clip
+agree to about 1e-7 relative. ``per_example_sumsq_tree_ref`` is its sum
+over a layout's leaves in leaf order, the tree kernel's plain version. ``clip_scales`` is the JAX package's clip
 factor of the per-leaf route. The JAX package's oracles
 (``repro/kernels/dp_clip/ref.py``) sum the same terms with ``jnp.sum``; the
 CPU tests hold these to them within fp32 rounding.
@@ -42,6 +43,17 @@ def per_example_sumsq_ref(g: torch.Tensor) -> torch.Tensor:
     return torch.stack([sumsq_ref(row) for row in g])
 
 
+def per_example_sumsq_tree_ref(g: torch.Tensor, offsets, sizes,
+                               per_leaf: bool = False):
+    """g: (B, P) -> (B,) fp32, the leaves' columns ``g[:, off:off + size]``
+    each through :func:`per_example_sumsq_ref` and added in leaf order;
+    with ``per_leaf`` also the (L, B) per-leaf sums."""
+    leaves = [per_example_sumsq_ref(g[:, off:off + size])
+              for off, size in zip(offsets, sizes)]
+    total = sum(leaves)
+    return (total, torch.stack(leaves)) if per_leaf else total
+
+
 def clip_accumulate_ref(g: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """sum_i g[i] * scale[i]; g (n, P), scale (n,) -> (P,) fp32."""
     acc = torch.zeros(g.shape[1], dtype=torch.float32, device=g.device)
@@ -52,7 +64,12 @@ def clip_accumulate_ref(g: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 def clip_scales(sumsq_total: torch.Tensor, clip_bound) -> torch.Tensor:
     """DP-SGD clip factor per example, ``min(1, C / sqrt(max(ss, 1e-30)))``,
-    the division on the device."""
+    the division on the device (a number bound is filled in there, not
+    copied from the host, which would wait for the stream)."""
     norms = torch.sqrt(torch.clamp(sumsq_total, min=1e-30))
-    c = torch.as_tensor(clip_bound, dtype=torch.float32, device=norms.device)
+    if isinstance(clip_bound, torch.Tensor):
+        c = clip_bound.to(dtype=torch.float32, device=norms.device)
+    else:
+        c = torch.full((), float(clip_bound), dtype=torch.float32,
+                       device=norms.device)
     return torch.clamp(c / norms, max=1.0)

@@ -26,7 +26,36 @@
 //   Bound on this card: instruction issue, not bytes. Three threefry
 // normals an element (about 129 arithmetic instructions each in
 // clip_mask's SASS) against 8 bytes of memory traffic an element.
+//
+// zsmask_buffer_kernel (zsmask_buffer_f32): the same mask over every tensor of
+// a packed buffer in one launch, the per-leaf policy's whole contribution
+// of one silo (core/dp_pipeline.py, _contribution_perleaf), replacing one
+// zsmask launch per leaf tensor (and, with the lambda correction, a second
+// zsmask over zeros, a multiply and a subtraction per leaf tensor). A
+// device table holds one entry per tensor in the buffer's order (its
+// buffer offset, numel, leaf index i, counter offset inside the leaf and
+// start in the prefix of all tensors' elements; core/flatbuf.leaf_table),
+// built once per layout; padding is never touched. Each block folds leaf
+// i's keys itself, as core/masking.fold_leaf does: k + 0x9E3779B9 * (i + 1)
+// on both words of key_r, 0x85EBCA6B for key_xi and prev_key, in uint32.
+// PREV = true (lambda > 0) goes on with the correction's pass in the
+// reference's order, prev = 0 + (0 * (r_i - r_nxt) + s * xp), xp drawn on
+// the folded prev_key, then out = out - lam * prev: the per-leaf route's
+// ops, but r_i and r_nxt drawn once, 4 normals an element instead of 6.
+// The multiply by zero stays: the bits must match where a normal is not
+// finite. Work split: the stream kernels' (csrc/stream_grid.cuh), every
+// block resident, each an equal contiguous share of the concatenated
+// elements, one element a thread at a time (a share crosses few tensor
+// boundaries); the block finds its first tensor by a search over the
+// prefix, held in shared memory, and walks the tensors its share covers.
+// Each element's normals go through normals_z0 of threefry.cuh, one chain
+// a stage: bit-equal to the per-leaf kernel's normal_z0 calls. The scalars
+// are device words, read by every thread with no host sync: sigma_c, b and
+// lam as the caller holds them, s = sigma_c / sqrt(n) divided here in
+// fp32 (correctly rounded, as the per-leaf route's torch ops on the card).
+//   Bound: issue, as zsmask_kernel: 3 normals an element (4 with PREV).
 #include "common.cuh"
+#include "stream_grid.cuh"
 #include "threefry.cuh"
 
 #include <cstdint>
@@ -53,6 +82,91 @@ zsmask_kernel(const float* g, float* out, long long D, uint32_t kr0, uint32_t kr
   }
 }
 
+constexpr int ZT_THREADS = 128;
+// the table's columns (core/flatbuf.leaf_table): buffer offset, numel, leaf
+// index, counter offset inside the leaf (uint32), start in the prefix
+constexpr int ZT_COLS = 5;
+constexpr uint32_t R_FOLD = 0x9E3779B9u, XI_FOLD = 0x85EBCA6Bu;
+
+ResidentCache zb_resident[2];
+
+template <bool PREV>
+__global__ void __launch_bounds__(ZT_THREADS)
+zsmask_buffer_kernel(float* buf, const long long* __restrict__ table, int E,
+                     long long total, long long share, int rem, uint32_t kr0, uint32_t kr1,
+                     uint32_t kx0, uint32_t kx1, uint32_t kp0, uint32_t kp1, uint32_t silo,
+                     uint32_t nxt, uint32_t n_silos, const float* __restrict__ sigma_c,
+                     const float* __restrict__ b_scale, const float* __restrict__ lam_gate) {
+  using namespace repro_threefry;
+  constexpr int N = PREV ? 4 : 3;
+  extern __shared__ long long start[];  // E + 1: the prefix, total last
+  for (int e = threadIdx.x; e < E; e += ZT_THREADS) start[e] = table[(long long)e * ZT_COLS + 4];
+  if (threadIdx.x == 0) start[E] = total;
+  __syncthreads();
+  const float s = __fdiv_rn(*sigma_c, __fsqrt_rn((float)n_silos)), b = *b_scale;
+  const float lam = PREV ? *lam_gate : 0.0f;
+  const int blk = blockIdx.x;
+  const long long lo = (long long)blk * share + (blk < rem ? blk : rem);
+  const long long hi = lo + share + (blk < rem ? 1 : 0);
+  // the last tensor that starts at or before lo
+  int a = 0, z = E;
+  while (z - a > 1) {
+    const int m = (a + z) >> 1;
+    if (start[m] <= lo) a = m; else z = m;
+  }
+  for (int e = a; e < E && start[e] < hi; ++e) {
+    const long long* row = table + (long long)e * ZT_COLS;
+    const long long off = row[0], e0 = start[e];
+    const uint32_t leaf = (uint32_t)row[2], ctr = (uint32_t)row[3];
+    const uint32_t dr = R_FOLD * (leaf + 1u), dx = XI_FOLD * (leaf + 1u);
+    uint32_t k0[N], k1[N], k2[N], c1[N];
+    k0[0] = k0[1] = kr0 + dr, k1[0] = k1[1] = kr1 + dr;
+    k0[2] = kx0 + dx, k1[2] = kx1 + dx;
+    if constexpr (PREV) k0[N - 1] = kp0 + dx, k1[N - 1] = kp1 + dx;
+#pragma unroll
+    for (int n = 0; n < N; ++n) k2[n] = key_parity(k0[n], k1[n]);
+    c1[0] = silo, c1[1] = nxt, c1[2] = silo;
+    if constexpr (PREV) c1[N - 1] = silo;
+    const long long p1 = start[e + 1] < hi ? start[e + 1] : hi;
+    for (long long p = (e0 > lo ? e0 : lo) + threadIdx.x; p < p1; p += ZT_THREADS) {
+      const long long q = p - e0;
+      uint32_t c0[N];
+#pragma unroll
+      for (int n = 0; n < N; ++n) c0[n] = (uint32_t)q + ctr;
+      float zv[N];
+      normals_z0<N, 1>(k0, k1, k2, c0, c1, zv);
+      const float d = __fsub_rn(zv[0], zv[1]);
+      const float mask = __fadd_rn(__fmul_rn(b, d), __fmul_rn(s, zv[2]));
+      float o = __fadd_rn(buf[off + q], mask);
+      if constexpr (PREV) {
+        const float prev = __fadd_rn(0.0f, __fadd_rn(__fmul_rn(0.0f, d), __fmul_rn(s, zv[N - 1])));
+        o = __fsub_rn(o, __fmul_rn(lam, prev));
+      }
+      buf[off + q] = o;
+    }
+  }
+}
+
+template <bool PREV>
+int launch_zsmask_buffer(float* buf, const long long* table, int E, long long total,
+                         uint32_t kr0, uint32_t kr1, uint32_t kx0, uint32_t kx1, uint32_t kp0,
+                         uint32_t kp1, uint32_t silo, uint32_t nxt, uint32_t n_silos,
+                         const float* sigma_c, const float* b_scale, const float* lam_gate,
+                         cudaStream_t stream) {
+  int resident = 0;
+  cudaError_t err = resident_blocks(zsmask_buffer_kernel<PREV>, ZT_THREADS, zb_resident[PREV],
+                                    resident);
+  if (err != cudaSuccess) return err;
+  long long blocks = (total + ZT_THREADS - 1) / ZT_THREADS;
+  if (blocks > resident) blocks = resident;
+  if (blocks < 1) blocks = 1;
+  const size_t smem = (size_t)(E + 1) * sizeof(long long);
+  zsmask_buffer_kernel<PREV><<<(unsigned)blocks, ZT_THREADS, smem, stream>>>(
+      buf, table, E, total, total / blocks, (int)(total % blocks), kr0, kr1, kx0, kx1, kp0,
+      kp1, silo, nxt, n_silos, sigma_c, b_scale, lam_gate);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // g, out (D,) fp32, equal or disjoint; scalars (2,) fp32 on the device:
@@ -72,4 +186,33 @@ REPRO_API int zsmask_f32(const float* g, float* out, long long D, uint32_t kr0,
   zsmask_kernel<<<(unsigned)blocks, ZS_THREADS, 0, stream>>>(
       g, out, D, kr0, kr1, kx0, kx1, silo, nxt, offset, scalars);
   return cudaGetLastError();
+}
+
+// buf the packed fp32 buffer, masked in place; table (E, 5) int64 on the
+// device (core/flatbuf.leaf_table; its prefix takes (E + 1) * 8 bytes of
+// shared memory, within the 48 KB default: E < 6144), total its
+// tensors' elements; raw keys (unfolded); n_silos the ring's size;
+// sigma_c, b_scale and lam_gate one fp32 word each on the device (lam_gate
+// read only with use_prev, when prev_key is drawn and the correction
+// applied).
+REPRO_API int zsmask_buffer_f32(float* buf, const long long* table, int E, long long total,
+                                uint32_t kr0, uint32_t kr1, uint32_t kx0, uint32_t kx1,
+                                uint32_t kp0, uint32_t kp1, uint32_t silo, uint32_t nxt,
+                                uint32_t n_silos, const float* sigma_c, const float* b_scale,
+                                const float* lam_gate, int use_prev, cudaStream_t stream) {
+  if (total == 0) return cudaSuccess;
+  return use_prev
+             ? launch_zsmask_buffer<true>(buf, table, E, total, kr0, kr1, kx0, kx1, kp0, kp1,
+                                          silo, nxt, n_silos, sigma_c, b_scale, lam_gate, stream)
+             : launch_zsmask_buffer<false>(buf, table, E, total, kr0, kr1, kx0, kx1, kp0, kp1,
+                                           silo, nxt, n_silos, sigma_c, b_scale, lam_gate,
+                                           stream);
+}
+
+// The launch configuration of zsmask_buffer_kernel<use_prev != 0> on the
+// current device (threads, elements a thread at a time, blocks an SM,
+// registers, local bytes).
+REPRO_API int zsmask_buffer_config(int use_prev, int* cfg) {
+  return use_prev ? stream_config(zsmask_buffer_kernel<true>, ZT_THREADS, 1, cfg)
+                  : stream_config(zsmask_buffer_kernel<false>, ZT_THREADS, 1, cfg);
 }

@@ -1,10 +1,13 @@
 """Public per-leaf zero-sum mask API: the CUDA kernel for CUDA tensors, the
-plain version for CPU tensors (``kernels.dispatch.on_cuda``)."""
+plain version for CPU tensors (``kernels.dispatch.on_cuda``): one tensor
+(:func:`apply_zsmask`) or every tensor of a packed buffer in one launch
+(:func:`zsmask_buffer`)."""
 from __future__ import annotations
 
+from repro_torch.core import flatbuf
 from repro_torch.kernels.dispatch import on_cuda
 from repro_torch.kernels.zsmask import ref
-from repro_torch.kernels.zsmask.zsmask import zsmask_cuda
+from repro_torch.kernels.zsmask.zsmask import zsmask_buffer_cuda, zsmask_cuda
 
 
 def apply_zsmask(g, key_r, key_xi, silo: int, n_silos: int, sigma_c,
@@ -20,3 +23,25 @@ def apply_zsmask(g, key_r, key_xi, silo: int, n_silos: int, sigma_c,
     return zsmask_cuda(g, ref.scalars(sigma_c, b_scale, n_silos, g.device),
                        key_r, key_xi, int(silo), (int(silo) + 1) % n_silos,
                        int(offset) & 0xFFFFFFFF, out=out)
+
+
+def zsmask_buffer(buf, layout, key_r, key_xi, silo: int, n_silos: int,
+                  sigma_c, b_scale, prev_key=None, lam=None):
+    """The per-leaf mask of silo ``silo`` over every tensor of ``buf``, the
+    packed (P,) fp32 buffer of ``layout``, in place, one dispatch: leaf i's
+    keys folded from the raw step keys, each tensor at its counter offset
+    in its leaf, the padding untouched. With ``prev_key`` (lambda > 0) the
+    correction's pass is fused in: ``- lam * (s * xi_{t-1})`` with its r
+    terms zeroed, as the per-leaf route's second pass. The scalars are
+    floats or 0-dim tensors; on the card, tensors there are read in place
+    (no launch to gather them). Returns ``buf``."""
+    if not on_cuda(buf):
+        return ref.zsmask_buffer_ref(buf, flatbuf.leaf_table(layout), key_r,
+                                     key_xi, silo, n_silos, sigma_c, b_scale,
+                                     prev_key, lam)
+    dev = buf.device
+    return zsmask_buffer_cuda(
+        buf, layout, ref._on(sigma_c, dev), ref._on(b_scale, dev), key_r,
+        key_xi, int(silo), (int(silo) + 1) % n_silos, n_silos, prev_key,
+        None if prev_key is None else ref._on(0.0 if lam is None else lam,
+                                              dev))

@@ -13,6 +13,15 @@ uint32 counters (they wrap as JAX's do), so one tensor of a stacked leaf is
 masked as that slice of the whole leaf. Each multiply and add is a separate
 op in the reference's order: on the card this is bit-equal to the CUDA
 kernel; on the CPU it is held to the JAX oracle and Pallas kernel.
+
+:func:`zsmask_buffer_ref` is the plain version of the one-launch buffer
+kernel (``zsmask_buffer``): the same mask over every tensor of a packed buffer,
+walking the tensors' table (``core/flatbuf.leaf_table``) with leaf i's
+keys folded in (``k + mult * (i + 1)`` on both uint32 words), and with a
+``prev_key`` the lambda-correction's pass over zeros fused in: ``out - lam
+* (0 + (0 * (r_i - r_nxt) + s * xp))``, r_i and r_nxt drawn once. Bit-equal
+to the per-leaf route it replaces (a ``zsmask`` per tensor, a second over
+zeros on ``prev_key`` with ``b = 0``, ``lam * prev`` and a subtraction).
 """
 from __future__ import annotations
 
@@ -20,11 +29,16 @@ import torch
 
 from repro_torch.kernels.zsmask.threefry import M32, normal_stream
 
+# the per-leaf fold of the keys: key_r, and key_xi and prev_key
+R_FOLD, XI_FOLD = 0x9E3779B9, 0x85EBCA6B
+# elements of one tensor drawn at a time by the buffer's plain version
+WINDOW = 1 << 22
+
 
 def _on(x, device) -> torch.Tensor:
     """An fp32 0-dim tensor on ``device``: a tensor moved, a number filled
     in (a fill kernel, not a copy from the host, which would wait for the
-    stream: the perleaf mask makes these once per leaf tensor)."""
+    stream: a loop of launches must not idle the card between them)."""
     if isinstance(x, torch.Tensor):
         return x.to(dtype=torch.float32, device=device).reshape(())
     return torch.full((), float(x), dtype=torch.float32, device=device)
@@ -50,3 +64,41 @@ def zsmask_ref(g, key_r, key_xi, silo: int, n_silos: int, sigma_c, b_scale,
     r_nxt = normal_stream(key_r[0], key_r[1], idx, nxt)
     xi = normal_stream(key_xi[0], key_xi[1], idx, silo)
     return g.float() + (b * (r_i - r_nxt) + s * xi)
+
+
+def fold_key(key, mult: int, i: int) -> tuple:
+    """Leaf i's key: ``key + mult * (i + 1)`` on both uint32 words."""
+    d = (mult * (i + 1)) & M32
+    return (int(key[0]) + d) & M32, (int(key[1]) + d) & M32
+
+
+def zsmask_buffer_ref(buf, table, key_r, key_xi, silo: int, n_silos: int,
+                      sigma_c, b_scale, prev_key=None,
+                      lam=None) -> torch.Tensor:
+    """``buf``: the packed fp32 buffer, masked in place and returned;
+    ``table``: its tensors (``core/flatbuf.leaf_table``); keys raw
+    ``(k0, k1)``, folded here per leaf; scalars floats or 0-dim tensors.
+    With ``prev_key`` the correction's pass is fused in, times ``lam``."""
+    s, b = scalars(sigma_c, b_scale, n_silos, buf.device).unbind(0)
+    lam = _on(0.0 if lam is None else lam, buf.device)
+    zero = torch.zeros((), dtype=torch.float32, device=buf.device)
+    silo = int(silo)
+    nxt = (silo + 1) % n_silos
+    for off, numel, i, ctr, _ in table:
+        kr = fold_key(key_r, R_FOLD, i)
+        kx = fold_key(key_xi, XI_FOLD, i)
+        for a in range(0, numel, WINDOW):
+            z = min(a + WINDOW, numel)
+            idx = (torch.arange(a, z, dtype=torch.int64, device=buf.device)
+                   + ctr) & M32
+            d = (normal_stream(kr[0], kr[1], idx, silo)
+                 - normal_stream(kr[0], kr[1], idx, nxt))
+            seg = buf[off + a:off + z]
+            out = seg + (b * d + s * normal_stream(kx[0], kx[1], idx, silo))
+            if prev_key is not None:
+                kp = fold_key(prev_key, XI_FOLD, i)
+                xp = normal_stream(kp[0], kp[1], idx, silo)
+                prev = torch.zeros_like(d) + (zero * d + s * xp)
+                out.sub_(lam * prev)
+            seg.copy_(out)
+    return buf

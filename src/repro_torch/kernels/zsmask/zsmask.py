@@ -1,17 +1,24 @@
-"""CUDA wrapper of the per-leaf zero-sum mask kernel.
+"""CUDA wrappers of the per-leaf zero-sum mask kernels: one tensor
+(``zsmask``) and every tensor of a packed buffer in one launch
+(``zsmask_buffer``, counted by instantiation: ``plain``, and ``prev`` with
+the lambda correction fused in).
 
-The kernel is in ``csrc/zsmask.cu`` (its header says which TPU kernel it
-replaces, what bounds it on an H100, and how the design answers that). The
-wrapper checks what the kernel takes, allocates the output, launches on the
-current stream, raises on a CUDA error and counts the launch. CUDA tensors
-only; ``ops`` routes CPU tensors to ``ref``.
+The kernels are in ``csrc/zsmask.cu`` (its header says which TPU kernel they
+replace, what bounds them on an H100, and how the design answers that). A
+wrapper checks what its kernel takes, allocates the output, launches on the
+current stream, raises on a CUDA error and counts the launch. The buffer
+kernel's table of tensors (``core/flatbuf.leaf_table``) is copied to each
+card once per layout (:func:`buffer_table`). CUDA tensors only; ``ops``
+routes CPU tensors to ``ref``.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
+from repro_torch.core import flatbuf
 from repro_torch.kernels import _build
 from repro_torch.kernels.dispatch import (check_key, check_tensor, register,
                                           require)
@@ -21,8 +28,20 @@ ZSMASK = register(
     "src/repro_torch/kernels/zsmask/csrc/zsmask.cu",
     "src/repro/kernels/zsmask/zsmask.py:51")
 
-_P, _L, _U = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint32
+ZSMASK_BUFFER = register(
+    "zsmask_buffer",
+    "src/repro_torch/kernels/zsmask/csrc/zsmask.cu",
+    "src/repro/kernels/zsmask/zsmask.py:51", variants=("plain", "prev"))
+
+_P, _L, _U, _I = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint32,
+                  ctypes.c_int)
 _ZSMASK = _build.Entry("zsmask_f32", [_P, _P, _L] + [_U] * 7 + [_P, _P])
+_ZSMASK_BUFFER = _build.Entry("zsmask_buffer_f32",
+                              [_P, _P, _I, _L] + [_U] * 9 + [_P] * 3
+                              + [_I, _P])
+MAX_TENSORS = 6143  # the table's prefix in 48 KB of shared memory
+BUFFER_CONFIG = ("threads", "width", "blocks_per_sm", "registers",
+                 "local_bytes")
 
 
 def zsmask_cuda(g, scalars, key_r, key_xi, silo: int, nxt: int,
@@ -57,3 +76,68 @@ def zsmask_cuda(g, scalars, key_r, key_xi, silo: int, nxt: int,
     _build.check(err, "zsmask")
     ZSMASK.launches += 1
     return out
+
+
+@functools.lru_cache(maxsize=32)
+def buffer_table(layout, device: torch.device) -> tuple:
+    """``(table, E, total)``: the layout's tensor table as an (E, 5) int64
+    tensor on ``device`` (built and copied once per layout and card), its
+    rows and its tensors' elements."""
+    rows = flatbuf.leaf_table(layout)
+    require(len(rows) <= MAX_TENSORS, f"zsmask_buffer takes at most "
+                                      f"{MAX_TENSORS} tensors, the layout "
+                                      f"has {len(rows)}")
+    return (torch.tensor(rows, dtype=torch.int64).to(device), len(rows),
+            rows[-1][4] + rows[-1][1])
+
+
+def _word(name, x, dev) -> torch.Tensor:
+    check_tensor(name, x, torch.float32, 0, dev)
+    return x
+
+
+def zsmask_buffer_cuda(buf, layout, sigma_c, b_scale, key_r, key_xi,
+                       silo: int, nxt: int, n_silos: int, prev_key=None,
+                       lam=None) -> torch.Tensor:
+    """Launch the buffer kernel: ``buf`` the packed (P,) fp32 buffer of
+    ``layout``, masked in place and returned; ``sigma_c``, ``b_scale`` and
+    ``lam`` 0-dim fp32 tensors on the same card, read there (``s =
+    sigma_c / sqrt(n_silos)`` is divided in the kernel); raw keys (k0, k1)
+    ints, folded per leaf in the kernel; ``silo`` and ``nxt`` the stream
+    ids; ``prev_key`` given: the lambda correction's pass fused in, times
+    ``lam``."""
+    dev = buf.device
+    require(dev.type == "cuda", "zsmask_buffer_cuda takes CUDA tensors")
+    check_tensor("buf", buf, torch.float32, 1, dev)
+    if buf.shape[0] != layout.total:
+        raise ValueError(f"buf ({buf.shape[0]},), the layout's packed "
+                         f"buffer is ({layout.total},)")
+    sig, bs = _word("sigma_c", sigma_c, dev), _word("b_scale", b_scale, dev)
+    use_prev = prev_key is not None
+    lw = _word("lam", lam, dev) if use_prev else sig  # unread without prev
+    require(0 <= silo <= 0xFFFFFFFF and 0 <= nxt <= 0xFFFFFFFF
+            and 1 <= n_silos <= 0xFFFFFFFF, "stream ids and the ring's size "
+                                             "must be uint32")
+    kr, kx = check_key("key_r", key_r), check_key("key_xi", key_xi)
+    kp = check_key("prev_key", prev_key) if use_prev else (0, 0)
+    table, E, total = buffer_table(layout, dev)
+    err = _ZSMASK_BUFFER.launch(
+        dev, buf.data_ptr(), table.data_ptr(), E, total, kr[0], kr[1], kx[0],
+        kx[1], kp[0], kp[1], int(silo), int(nxt), int(n_silos),
+        sig.data_ptr(), bs.data_ptr(), lw.data_ptr(), int(use_prev))
+    _build.check(err, "zsmask_buffer")
+    ZSMASK_BUFFER.count("prev" if use_prev else "plain")
+    return buf
+
+
+def buffer_config(use_prev: bool) -> dict:
+    """The buffer kernel's launch configuration on the current card, as
+    the built library reports it (builds it at first use): threads a
+    block, elements a thread at a time, blocks an SM, registers and local
+    bytes a thread."""
+    lib = _build.library()
+    cfg = (ctypes.c_int * len(BUFFER_CONFIG))()
+    fn = lib.zsmask_buffer_config
+    fn.argtypes, fn.restype = [_I, _P], _I
+    _build.check(fn(int(use_prev), cfg), "zsmask_buffer config")
+    return dict(zip(BUFFER_CONFIG, cfg))

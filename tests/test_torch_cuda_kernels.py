@@ -20,8 +20,11 @@ its launch configuration's groups against the wrapper's and one wave at
 the main shapes; misaligned data refused) and
 flash attention at d_head 112, and the smoke-size serving slice (plain and
 speculative; the ssm and hybrid families), the fused and barrier training
-slices (packed and perleaf) and per-example clipping on the card against
-the CPU, and the wire tier's rounds (``clip_mask`` once per active silo per
+slices (packed and perleaf: the perleaf mask one ``zsmask_buffer`` launch
+a silo, its lambda-corrected instantiation, the per-leaf clip route
+``per_example_sumsq_tree`` and ``clip_accumulate`` once each) and
+per-example clipping on the card
+against the CPU, and the wire tier's rounds (``clip_mask`` once per active silo per
 round, pipelined == serial on the card, card against CPU; the speculative
 rounds' ``noise_stream`` and external-stream ``clip_mask`` bit-equal to
 their plain versions and to ``clip_mask``'s in-kernel draw, speculative and
@@ -830,7 +833,7 @@ def test_per_example_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 
 @pytest.mark.parametrize("impl,launches", [
     ("packed", {"clip_sum": 1}),
-    ("perleaf", {"per_example_sumsq": 15, "clip_accumulate": 15})])
+    ("perleaf", {"per_example_sumsq_tree": 1, "clip_accumulate": 1})])
 def test_smoke_per_example_clipping_on_card_matches_cpu(cuda, impl, launches):
     """``per_example_clipped_grad`` on the smoke config, 4 examples, card
     (kernels) vs CPU (plain versions), from the same weights."""
@@ -858,8 +861,9 @@ def test_smoke_per_example_clipping_on_card_matches_cpu(cuda, impl, launches):
 
 def test_smoke_perleaf_barrier_training_on_card_matches_cpu(cuda):
     """Two quickstart steps of the smoke config on the barrier tier under
-    the perleaf policy, on the card (zsmask: 2 passes per leaf tensor, 4
-    silos, 2 steps) and on the CPU from the same weights."""
+    the perleaf policy, on the card (zsmask_buffer: one launch a silo, 4
+    silos, 2 steps, each the lambda-corrected instantiation) and on the CPU
+    from the same weights."""
     from repro_torch.kernels.dispatch import force_impl
     priv = PrivacyConfig(sigma=0.3, clip_bound=1.0, dynamic_clip=True,
                          noise_lambda=0.7, sync_path="barrier")
@@ -874,11 +878,12 @@ def test_smoke_perleaf_barrier_training_on_card_matches_cpu(cuda):
         a = gpu.train(steps=2, batch_size=8, seq_len=16, log_every=0,
                       state=gpu.init_state(params=p_gpu))
         counts = dispatch.launch_counts()
+        variants = dispatch.variant_counts()["zsmask_buffer"]
         b = cpu.train(steps=2, batch_size=8, seq_len=16, log_every=0,
                       state=cpu.init_state(params=p_cpu))
-    slices = 3 + 12 * 2  # embed, lm_head, ln_f; 12 stacked leaves x 2 layers
-    assert counts["zsmask"] == 2 * 4 * 2 * slices
-    assert sum(counts.values()) == counts["zsmask"]
+    assert counts["zsmask_buffer"] == 4 * 2
+    assert sum(counts.values()) == counts["zsmask_buffer"]
+    assert variants == {"plain": 0, "prev": 4 * 2}
     for ma, mb in zip(a.metrics, b.metrics):
         assert ma["epsilon"] == mb["epsilon"]
         np.testing.assert_allclose(ma["loss"], mb["loss"], rtol=1e-5)

@@ -8,8 +8,9 @@ text whatever its loop holds (one element, or several unrolled), and says
 "no loop" rather than raising where no loop draws a normal. The per-leaf
 normal draw's bounds (rows 17-18) come the same way from its pinned counts
 (``NORMAL_OPS``), which ``normal_ops`` reads off a build with its float64
-steps and conversions on pipes of their own. The canned texts here have
-the shape ``cuobjdump -sass`` prints."""
+steps and conversions on pipes of their own; the buffer mask's (row 10's
+``zsmask_buffer``) from zsmask's pinned counts (``ZSMASK_OPS``). The canned
+texts here have the shape ``cuobjdump -sass`` prints."""
 import importlib.util
 import pathlib
 
@@ -23,7 +24,7 @@ chip_smoke = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(chip_smoke)
 
 P_WIRE = 235_520          # MNIST-MLP3's packed length
-P_TRAIN = 1_547_255_808   # qwen2.5-3b at 12 layers
+P_TRAIN = 1_547_255_808   # qwen2.5-3b at 12 layers (its n_params too)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -198,3 +199,21 @@ def test_pinned_normal_counts_give_the_kernel_table_bounds(kernel, n,
     assert max(parts, key=parts.get) == "issue", parts
     assert parts["alu"] > parts["conv64"] > parts["bytes"], parts
 
+
+@pytest.mark.parametrize("cell,n,streams,want", [
+    ("CNN6", 307_498, 3, 0.0036),
+    ("CNN6, the correction fused in", 307_498, 4, 0.0047),
+    ("WRN28", 5_849_050, 3, 0.0677),
+    ("WRN28, the correction fused in", 5_849_050, 4, 0.0902),
+    ("qwen2.5-3b at 12 layers", P_TRAIN, 3, 17.8988),
+    ("qwen2.5-3b at 12 layers, the correction fused in", P_TRAIN, 4,
+     23.8651)])
+def test_pinned_zsmask_counts_give_the_tree_bounds(cell, n, streams, want):
+    """PERF.md's bounds of row 10's tree sub-rows (``zsmask_buffer``) from
+    zsmask's pinned counts (``ZSMASK_OPS``): 3 normals an element, 4 with
+    the lambda correction fused in; instruction issue bounds each, above
+    the bytes (the buffer read and written once)."""
+    parts = chip_smoke.stream_bound(n, streams, chip_smoke.ZSMASK_OPS)
+    assert round(max(parts.values()), 4) == want, (cell, parts)
+    assert max(parts, key=parts.get) == "issue", (cell, parts)
+    assert chip_smoke.ZSMASK_OPS["issue"] == 129.0
