@@ -27,6 +27,7 @@ against the host CPU.
     python3 chip_smoke.py --prng [--src DIR]    # WRN28's per-leaf noise
     python3 chip_smoke.py --normal              # phase 21 alone
     python3 chip_smoke.py --tree                # phase 22 alone
+    python3 chip_smoke.py --bf16                # phase 23 alone
 
 ``--scans`` runs only the card line, the build and phase 11's scans (their
 checks and times, no launch configuration), from the ``repro_torch`` under
@@ -47,7 +48,7 @@ against the pinned bound), on trees that have ``ops.noise_stream``.
 and prints the hash of what it drew (no kernel is built for a tree
 without the normal kernels): a parent and a change in one call, trees
 that have the scan tier. ``--normal`` runs that noise stage with its
-launches, then phase 21; ``--tree`` runs phase 22.
+launches, then phase 21; ``--tree`` runs phase 22; ``--bf16`` phase 23.
 
 Phases (any failed check raises, and the script exits non-zero):
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
@@ -300,7 +301,32 @@ Phases (any failed check raises, and the script exits non-zero):
      leaf and over the whole buffer) and its bound (the mask's from
      ZSMASK_OPS, pinned); then the per-leaf kernels' launches on the APIs
      that keep them (``pairwise_mask_tree(impl="perleaf")``, bit-equal to
-     the tree kernel, and ``sumsq`` a leaf).
+     the tree kernel, and ``sumsq`` a leaf);
+ 23. bf16 serving: (a) the bf16 instantiations of flash attention at
+     d_head 128, 112, 80 and 96 (B 4, S 32), each element within one bf16
+     ulp of the plain version past the fp32 gate and bit-equal to the fp32
+     kernel on the widened inputs, rounded (the share not bit-equal to the
+     plain version and the largest gap in ulps reported); of paged attention
+     at C 1, 4 and 16 for qwen2.5-3b and at Hkv 32 (d_head 80, 96), within
+     KERNEL_ATOL of the plain version and bit-equal to the fp32 kernel on
+     the widened inputs; the zeroing kernel on bf16 pools bit-equal to its
+     plain version (36 + 4 layers), and an admission's reset and a tick's
+     rollback as ``PagePool`` runs them; each timed as phase 3's rows,
+     beside SDPA in bf16, the bound from bf16 bytes; (b) qwen2.5-3b at 36
+     layers in bf16 (fp32 weights) through ``Session.serve``: direct, wave,
+     continuous and speculative (a 4-layer draft over prefix sharing), only
+     the bf16 instantiations launched, peak memory of each (phase 4 records
+     fp32's); continuous held to wave and speculative to continuous token
+     for token, a split allowed only at a near-tie (BF16_TIE; the position
+     and the margin printed); ``api.serve`` direct equal to the session's;
+     ``run_soak`` in bf16 and the soak CLI (``--soak 4``, fp32: the CLI has
+     no dtype flag) into temporary files; bf16 weights through
+     ``build_model(param_dtype=bf16)``, direct and continuous; (c)
+     zamba2-7b (direct, wave), stablelm-3b and phi3-mini-3.8b (continuous)
+     and rwkv6-7b (direct, and a whole-prompt prefill: the scans run fp32)
+     in bf16 at published width and depth; (d) a narrow qwen2.5-3b in bf16,
+     card vs CPU within BF16_ATOL; no plain attention or page-pool call on
+     the card through (b)-(d).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -331,6 +357,10 @@ ROOT = Path(__file__).resolve().parent
 # the fp32 rate outside the tensor cores (the path holds fp32 without TF32)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+# the dense bf16 rate of the tensor cores: a bf16 row's least time for its
+# products (the kernels compute them in fp32 on the CUDA cores; a faster
+# design could use these)
+BF16_FLOP_PER_S = 989e12
 
 # per-SM issue rates of Hopper in thread-operations per clock (H100
 # architecture white paper: 4 sub-partitions, each dispatching one warp
@@ -368,6 +398,7 @@ ZSMASK_OPS = {"normals_in_loop": 3, "rotations": 20.0,
 # kernel vs plain version on the same inputs, fp32 on the card: the two sum
 # in different orders, so they agree to fp32 rounding (about 1e-6 here)
 KERNEL_ATOL = KERNEL_RTOL = 1e-5
+DTYPE_NAMES = {torch.float32: "fp32", torch.bfloat16: "bf16"}
 SERVING_KERNELS = ("flash_attention", "paged_attention", "paged_reset",
                    "paged_rollback")
 # per_example_sumsq and clip_sum's norms (fp64 sums rounded once) against
@@ -458,9 +489,10 @@ def graph_ms(fn, n: int = 50, reps: int = 20) -> float:
     return cuda_ms(g.replay, reps=reps) / n
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float,
+          flop_rate: float = FP32_FLOP_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -482,8 +514,9 @@ def paged_case(cfg, dev, gen, B, C, nP, P, q_start):
 
 def paged_work(q, tables, q_start, P, Hkv):
     """(bytes, flops) the call needs for these inputs: q read and the
-    output written once, the K/V of every page holding a visible position
-    read once, and 2 products of D per visible (query head, key) pair."""
+    output written once (fp32), the K/V of every page holding a visible
+    position read once (in q's type), and 2 products of D per visible
+    (query head, key) pair."""
     B, C, Hq, D = q.shape
     S = tables.shape[1] * P
     pages, flops = set(), 0
@@ -493,30 +526,46 @@ def paged_work(q, tables, q_start, P, Hkv):
         pages.update(tables[b, :-(-last // P)].tolist())
         for c in range(C):
             flops += 4 * D * Hq * min(max(qs + c + 1, 0), S)
-    nbytes = (2 * q.numel() * 4 + len(pages) * P * Hkv * D * 4 * 2
+    e = q.element_size()
+    nbytes = (q.numel() * (e + 4) + len(pages) * P * Hkv * D * e * 2
               + tables.numel() * 4 + B * 4)
     return nbytes, flops
 
 
-def check_paged_attention(cfg, dev, gen, B, nP, P, C, ops, ref, F):
+def check_paged_attention(cfg, dev, gen, B, nP, P, C, ops, ref, F,
+                          dtype=torch.float32):
     """Paged attention at C new tokens a slot (1: decode, 4: a speculative
     verify at spec_k 4, 16: a prefill chunk) from q_starts {0, S/3, S - C,
-    -1} (the slots' lengths): held to the plain version, timed as calls
-    (``ms``, host-clocked: the wrapper's enqueue when it is the longer) and
-    on the card alone (``device_ms``), beside SDPA timed both ways."""
+    -1} (the slots' lengths), q and the pools in ``dtype`` (the output
+    fp32): held to the plain version, timed as calls (``ms``, host-clocked:
+    the wrapper's enqueue when it is the longer) and on the card alone
+    (``device_ms``), beside SDPA in ``dtype`` timed both ways. A bf16 call
+    is also held bit for bit to the fp32 kernel on the widened inputs."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.paged_attention.paged_attention import plan
     S = nP * P
     # one inactive slot (q_start -1) and one full slot (ends at S - 1)
     q_start = [0, S // 3, S - C, -1][:B]
     q, kp, vp, tables, qs = paged_case(cfg, dev, gen, B, C, nP, P, q_start)
+    q, kp, vp = (t.to(dtype) for t in (q, kp, vp))
     got = ops.paged_attention(q, kp, vp, tables, qs)
     want = ref.paged_attention_ref(q, kp, vp, tables, qs)
     torch.cuda.synchronize()
-    check(bool(torch.isfinite(got).all()), "paged_attention: non-finite")
+    check(bool(torch.isfinite(got).all()) and got.dtype == torch.float32,
+          "paged_attention: non-finite or not fp32")
     err = (got - want).abs().max().item()
     check(torch.allclose(got, want, atol=KERNEL_ATOL, rtol=KERNEL_RTOL),
-          f"paged_attention C={C} disagrees with its plain version ({err})")
+          f"paged_attention C={C} {DTYPE_NAMES[dtype]} disagrees with its "
+          f"plain version ({err})")
+    extra = {}
+    if dtype != torch.float32:
+        wide = ops.paged_attention(q.float(), kp.float(), vp.float(), tables,
+                                   qs)
+        torch.cuda.synchronize()
+        check(torch.equal(got, wide), f"paged_attention C={C} "
+              f"{DTYPE_NAMES[dtype]} differs from the fp32 kernel on the "
+              f"widened inputs")
+        extra["bit_equal_to_fp32_kernel"] = True
     # yardstick: SDPA over the gathered K/V with the same causal+length mask
     Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     kg = kp[tables.long()].reshape(B, S, Hkv, D).transpose(1, 2).contiguous()
@@ -525,7 +574,8 @@ def check_paged_attention(cfg, dev, gen, B, nP, P, C, ops, ref, F):
     qpos = qs.long()[:, None] + torch.arange(C, device=dev)[None]
     mask = (torch.arange(S, device=dev)[None, None] <= qpos[:, :, None])[:, None]
     nbytes, flops = paged_work(q, tables.cpu(), qs.cpu(), P, Hkv)
-    bms, by = bound(nbytes, flops)
+    bms, by = bound(nbytes, flops, FP32_FLOP_PER_S if dtype == torch.float32
+                    else BF16_FLOP_PER_S)
     GC = Hq // Hkv * C
     rows, splits = plan(B, Hkv, GC, nP, P, _build.sm_count(dev))
     blocks = B * Hkv * -(-GC // rows) * splits
@@ -545,7 +595,8 @@ def check_paged_attention(cfg, dev, gen, B, nP, P, C, ops, ref, F):
         # measured: the log line carries it, the kernels line does not
         "plan": {"splits": splits, "row_tile": rows, "blocks": blocks},
         "at": f"B={B} C={C} Hq={Hq} Hkv={Hkv} D={D} P={P} nP={nP} "
-              f"q_start={q_start} fp32",
+              f"q_start={q_start} {DTYPE_NAMES[dtype]}",
+        **extra,
     }
 
 
@@ -565,8 +616,9 @@ def log_attention(name, r) -> None:
 
 
 def bits(t):
-    """The fp32 tensor's bit patterns: +0.0 and -0.0 differ, NaN == NaN."""
-    return t.view(torch.int32)
+    """The fp32 or bf16 tensor's bit patterns: +0.0 and -0.0 differ, NaN ==
+    NaN."""
+    return t.view(torch.int32 if t.element_size() == 4 else torch.int16)
 
 
 # the page pools at the serving shape (Session.serve's defaults): 4 slots of
@@ -578,15 +630,15 @@ TICK_TAILS = ((0, 47, 50), (1, 15, 18), (2, 95, 98), (3, 63, 66))
 SINGLE_RANGES = ((47, 50), (14, 40))
 
 
-def stub_model(cfg, dev, gen, layers: int):
+def stub_model(cfg, dev, gen, layers: int, dtype=torch.float32):
     """What ``PagePool`` reads of a model: a stacked pool of ``layers``
-    layers at ``cfg``'s kv heads and head dim on ``dev``, filled with
-    negative values and NaNs (a zeroed lane must be +0.0)."""
+    layers at ``cfg``'s kv heads and head dim on ``dev`` in ``dtype``,
+    filled with negative values and NaNs (a zeroed lane must be +0.0)."""
     def init_paged_cache(n_pages, page_size):
         shape = (layers, n_pages, page_size, cfg.n_kv_heads, cfg.d_head)
         pool = {}
         for name in ("k_pages", "v_pages"):
-            t = -torch.rand(shape, device=dev, generator=gen)
+            t = -torch.rand(shape, device=dev, generator=gen).to(dtype)
             t[:, ::7, :, 0, :3] = float("nan")
             pool[name] = t
         return pool
@@ -635,7 +687,8 @@ def zero_event(kv, call, dead, width, at, card=None) -> dict:
         for t in views:
             t.index_fill_(1, ix, 0.0)
 
-    nbytes = 4 * len(dead) * width * sum(t.shape[0] for t in views)
+    nbytes = views[0].element_size() * len(dead) * width * sum(
+        t.shape[0] for t in views)
     return {"ms": cuda_ms(call), "device_ms": graph_ms(card or call),
             "library_ms": cuda_ms(fill), "library_device_ms": graph_ms(fill),
             "bound_ms": bound(nbytes, 0)[0], "at": at}
@@ -675,40 +728,50 @@ def host_split(target, dead) -> dict:
     args = (k.data_ptr(), v.data_ptr(), L, 0, 0, 0, N * P * H * D, N * P,
             H * D, ids.buffer_info()[0], len(ids))
 
+    # one C entry a dtype since the bf16 pools (a tree before them: one)
+    real = pa._ZERO
+    entry = real["f32"] if isinstance(real, dict) else real
     out = {"indices": len(ids),
            "call_ms": host_ms(lambda: ops.pool_zero(target, dead, "token")),
-           "entry_ms": host_ms(lambda: pa._ZERO.launch(k.device, *args))}
-    real, counted = pa._ZERO, pa.PAGED_ROLLBACK.launches
-    pa._ZERO = types.SimpleNamespace(launch=lambda *a: 1)
+           "entry_ms": host_ms(lambda: entry.launch(k.device, *args))}
+    counted = pa.PAGED_ROLLBACK.launches
+    variants = dict(getattr(pa.PAGED_ROLLBACK, "variants", {}))
+    stub = types.SimpleNamespace(launch=lambda *a: 1)
+    pa._ZERO = dict.fromkeys(real, stub) if isinstance(real, dict) else stub
     try:
         out["wrapper_ms"] = host_ms(
             lambda: pa.pool_zero_cuda(target, dead, "token"))
     finally:
         pa._ZERO, pa.PAGED_ROLLBACK.launches = real, counted
+        if variants:
+            pa.PAGED_ROLLBACK.variants.update(variants)
     return out
 
 
-def pool_events(cfg, dev, seed: int) -> dict:
-    """The page pools' zeroing events as ``PagePool`` runs them: an
-    admission's reset (4 fresh pages; the target pool alone, then with a
-    4-layer draft), one speculative tick's rollback (``TICK_TAILS``, both
-    pools) and the single ranges ``SINGLE_RANGES`` of the target pool (a
-    tick in which one slot rolled back), each by ``zero_event`` beside its
-    plain version; the single ranges also by ``host_split``."""
+def pool_events(cfg, dev, seed: int, dtype=torch.float32,
+                ranges: bool = True) -> dict:
+    """The page pools' zeroing events as ``PagePool`` runs them, on pools
+    of ``dtype``: an admission's reset (4 fresh pages; the target pool
+    alone, then with a 4-layer draft), one speculative tick's rollback
+    (``TICK_TAILS``, both pools) and, with ``ranges``, the single ranges
+    ``SINGLE_RANGES`` of the target pool (a tick in which one slot rolled
+    back), each by ``zero_event`` beside its plain version; the single
+    ranges also by ``host_split``."""
     from repro_torch.kernels.paged_attention import ops, ref
     from repro_torch.runtime.serving import PagePool
 
     gen = torch.Generator(device=dev).manual_seed(seed)
     P, H, D = POOL_PAGE, cfg.n_kv_heads, cfg.d_head
     N = POOL_SLOTS * POOL_WIDTH
-    shape = f"N={N} P={P} H={H} D={D} fp32"
+    shape = f"N={N} P={P} H={H} D={D} {DTYPE_NAMES[dtype]}"
     out = {"floor": launch_floor()}
 
     def make(draft):
-        pool = PagePool(stub_model(cfg, dev, gen, cfg.n_layers),
+        pool = PagePool(stub_model(cfg, dev, gen, cfg.n_layers, dtype),
                         n_slots=POOL_SLOTS, n_pages=N, page_size=P,
                         pages_per_slot=POOL_WIDTH,
-                        draft_model=stub_model(cfg, dev, gen, POOL_DRAFT)
+                        draft_model=stub_model(cfg, dev, gen, POOL_DRAFT,
+                                               dtype)
                         if draft else None)
         for s in range(POOL_SLOTS):
             check(pool.alloc(s, POOL_WIDTH), "PagePool.alloc refused")
@@ -740,7 +803,7 @@ def pool_events(cfg, dev, seed: int) -> dict:
         f"{cfg.n_layers + POOL_DRAFT} layers (target + draft), {shape}")
 
     target = kv[:1]
-    for a, b in SINGLE_RANGES:
+    for a, b in SINGLE_RANGES if ranges else ():
         dead = ops.token_indices(pool.tables[0], P, a, b)
         r = event(target, lambda: ops.pool_zero(target, dead, "token"), dead,
                   "token", H * D, f"positions [{a}, {b}) of a row of "
@@ -757,6 +820,8 @@ def log_pool_events(ev: dict) -> None:
         f"in a CUDA graph) | {f['ms']:.4f} ms a call")
     for name in ("reset", "reset_draft", "tick",
                  *(f"range_{a}_{b}" for a, b in SINGLE_RANGES)):
+        if name not in ev:  # pool_events(ranges=False)
+            continue
         r = ev[name]
         log(f"[kernel] page pool {name}: call {r['ms']:.4f} ms | card "
             f"{r['device_ms']:.4f} ms | index_fill_ {r['library_ms']:.4f} ms "
@@ -791,19 +856,19 @@ def rollback_ticks(PagePool):
         PagePool.rollback_many = real
 
 
-def check_pool_zero(cfg, dev, gen, ops, ref) -> None:
+def check_pool_zero(cfg, dev, gen, ops, ref, dtype=torch.float32) -> None:
     """The zeroing kernel against its plain version at the serving pools'
-    shape (36 + 4 layers, 128 pages), bit for bit over both whole pools
-    (+0.0 over NaN and negative lanes): a padded reset row (its first page
-    repeated), the tick's tokens, and a list past one launch's capacity
-    with repeats and indices outside the pool (600 distinct: three
+    shape (36 + 4 layers, 128 pages) in ``dtype``, bit for bit over both
+    whole pools (+0.0 over NaN and negative lanes): a padded reset row (its
+    first page repeated), the tick's tokens, and a list past one launch's
+    capacity with repeats and indices outside the pool (600 distinct: three
     launches of 256, csrc/pool_zero.cu)."""
     P, H, D = POOL_PAGE, cfg.n_kv_heads, cfg.d_head
     N = POOL_SLOTS * POOL_WIDTH
     kv = []
     for L in (cfg.n_layers, POOL_DRAFT):
-        k = -torch.rand(L, N, P, H, D, device=dev, generator=gen)
-        v = torch.randn(L, N, P, H, D, device=dev, generator=gen)
+        k = -torch.rand(L, N, P, H, D, device=dev, generator=gen).to(dtype)
+        v = torch.randn(L, N, P, H, D, device=dev, generator=gen).to(dtype)
         k[:, ::5, :, 1] = float("nan")
         kv.append((k, v))
     pages = torch.randperm(N, device=dev, generator=gen)[:POOL_FRESH].tolist()
@@ -818,8 +883,8 @@ def check_pool_zero(cfg, dev, gen, ops, ref) -> None:
         torch.cuda.synchronize()
         check(all(torch.equal(bits(a), bits(b)) for (k, v), (kw, vw) in
                   zip(kv, want) for a, b in ((k, kw), (v, vw))),
-              f"pool_zero ({slab}, {len(idx)} indices) differs from its "
-              f"plain version")
+              f"pool_zero ({slab}, {len(idx)} indices, "
+              f"{DTYPE_NAMES[dtype]}) differs from its plain version")
 
 
 def check_flash(cfg, dev, gen, B, S, ops, ref, F):
@@ -849,6 +914,65 @@ def check_flash(cfg, dev, gen, B, S, ops, ref, F):
         "library_device_ms": graph_ms(sdpa),
         "bound_ms": bms, "bound_by": by,
         "at": f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} causal fp32",
+    }
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 unit in the last place at |x| (8 significant bits)."""
+    _, e = torch.frexp(x.float().abs().clamp_min(2.0 ** -126))
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+def check_flash_bf16(cfg, dev, gen, B, S, ops, ref, F):
+    """bf16 flash attention (q, k, v and out bf16, fp32 inside) at ``cfg``'s
+    heads: every element within one bf16 ulp of the plain version past the
+    fp32 gate (the two fp32 results agree within KERNEL_ATOL / RTOL and each
+    rounds once; the ulp at the larger magnitude), and bit-equal to the fp32
+    kernel on the widened inputs, rounded once (the same fp32 math). Reports
+    the share of elements not bit-equal to the plain version and the
+    largest gap in ulps; timed as :func:`check_flash`, beside SDPA in bf16,
+    the bound from bf16 bytes."""
+    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    bf = torch.bfloat16
+    q = torch.randn(B, S, Hq, D, device=dev, generator=gen).to(bf)
+    k = torch.randn(B, S, Hkv, D, device=dev, generator=gen).to(bf)
+    v = torch.randn(B, S, Hkv, D, device=dev, generator=gen).to(bf)
+    got = ops.flash_attention(q, k, v, causal=True)
+    want = ref.attention_ref(q, k, v, causal=True)
+    wide = ops.flash_attention(q.float(), k.float(), v.float(), causal=True)
+    torch.cuda.synchronize()
+    check(got.dtype == want.dtype == bf, "flash bf16: output not bf16")
+    diff = (got.float() - want.float()).abs()
+    ulp = bf16_ulp(torch.maximum(got.float().abs(), want.float().abs()))
+    gate = KERNEL_ATOL + KERNEL_RTOL * want.float().abs() + ulp
+    err = diff.max().item()
+    check(bool((diff <= gate).all()),
+          f"flash_attention bf16 d_head {D}: past one ulp of its plain "
+          f"version ({err})")
+    check(torch.equal(bits(got), bits(wide.to(bf))),
+          f"flash_attention bf16 d_head {D} differs from the fp32 kernel on "
+          f"the widened inputs, rounded")
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    pairs = S * (S + 1) // 2
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
+    bms, by = bound(nbytes, 4 * D * Hq * B * pairs, BF16_FLOP_PER_S)
+    call = lambda: ops.flash_attention(q, k, v, causal=True)  # noqa: E731
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    return {
+        "max_abs_err": err,
+        "not_bit_equal_share": (bits(got) != bits(want)).float().mean()
+        .item(),
+        "max_ulps": (diff / ulp).max().item(),
+        "past_one_ulp": int((diff > ulp).sum()),
+        "bit_equal_to_fp32_kernel": True,
+        "ms": cuda_ms(call),
+        "device_ms": graph_ms(call),
+        "plain_ms": cuda_ms(lambda: ref.attention_ref(q, k, v, causal=True)),
+        "library_ms": cuda_ms(sdpa),
+        "library_device_ms": graph_ms(sdpa),
+        "bound_ms": bms, "bound_by": by,
+        "at": f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} causal bf16",
     }
 
 
@@ -3487,7 +3611,7 @@ def one_phase(phase: str, src: Path) -> int:
     (:func:`cifar_phase`), the scan tier's noise stage on WRN28
     (:func:`prng_phase`; no build for a tree without the normal kernels),
     phase 21 (:func:`normal_phase`, after WRN28's noise stage with its
-    launches) or phase 22 (:func:`tree_phase`) alone, from the ``repro_torch`` under ``src`` (another
+    launches), phase 22 (:func:`tree_phase`) or phase 23 (:func:`bf16_phase`) alone, from the ``repro_torch`` under ``src`` (another
     tree's, to time two trees in one call); the last line is their JSON
     record."""
     if not torch.cuda.is_available():
@@ -3532,6 +3656,9 @@ def one_phase(phase: str, src: Path) -> int:
         record.update(rows=rows, prng_scan_noise_wrn28=wrn)
     elif phase == "tree":
         record, rows, per_leaf = tree_phase(dev, library_sass())
+        record["rows"] = rows
+    elif phase == "bf16":
+        record, rows = bf16_phase(dev)
         record["rows"] = rows
     else:
         log(f"[kernel] clip_mask SASS, live (a report; the bound uses "
@@ -5031,6 +5158,580 @@ def slice15_phase(dev) -> tuple:
     return report, rows
 
 
+# --------------------------------------------------------------- phase 23
+# bf16 serving. Logits of two bf16 runs that round at other places (the
+# card's cuBLAS and kernels against the CPU's products and plain versions;
+# one serving mode against another on the card, whose attention and batch
+# shapes differ) are held to BF16_ATOL, the bound of the port against the
+# JAX package in bf16 on the CPU (tests/test_torch_bf16_serving.py: 0.042
+# measured at |logit| 3.6, bound 0.1). Two runs' greedy tokens may part
+# only at a near-tie: where the reference run's top-2 margin is within
+# BF16_TIE; the position and the margin there are printed, and past it
+# the two continue from different prefixes and are not compared.
+BF16_ATOL = 0.1
+BF16_TIE = 2 * BF16_ATOL
+# the kernels line's bf16 sub-rows (phase 23(a))
+BF16_SUBROWS = ("bf16", "bf16_target", "bf16_verify4", "bf16_chunk16",
+                "bf16_d112", "bf16_d80", "bf16_d80_verify4",
+                "bf16_d80_chunk16", "bf16_d96", "bf16_d96_verify4",
+                "bf16_d96_chunk16")
+# the other families in bf16 at published width and depth, and the modes
+# each serves in
+BF16_FAMILIES = {"zamba2-7b": ("direct", "wave"),
+                 "stablelm-3b": ("continuous",),
+                 "phi3-mini-3.8b": ("continuous",),
+                 "rwkv6-7b": ("direct",)}
+
+
+@contextlib.contextmanager
+def plain_attention_spy(counts: dict):
+    """Counts, under ``counts["plain_calls_on_card"]``, the calls of the
+    attention and page-pool kernels' plain versions that got a CUDA
+    tensor: a bf16 (or fp32) CUDA tensor must reach its kernel or raise."""
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+    from repro_torch.kernels.paged_attention import ref as paged_ref
+
+    counts["plain_calls_on_card"] = 0
+
+    def on_card(x) -> bool:
+        if isinstance(x, torch.Tensor):
+            return x.is_cuda
+        if isinstance(x, (list, tuple)):
+            return any(on_card(y) for y in x)
+        return False
+
+    real = {}
+    for mod, names in ((flash_ref, ("attention_ref",)),
+                       (paged_ref, ("paged_attention_ref", "paged_reset_ref",
+                                    "paged_rollback_ref", "pool_zero_ref"))):
+        for name in names:
+            fn = getattr(mod, name)
+            real[mod, name] = fn
+
+            def spy(*a, _fn=fn, **k):
+                counts["plain_calls_on_card"] += on_card(a)
+                return _fn(*a, **k)
+
+            setattr(mod, name, spy)
+    try:
+        yield counts
+    finally:
+        for (mod, name), fn in real.items():
+            setattr(mod, name, fn)
+
+
+def bf16_kernel_rows(dev) -> dict:
+    """Phase 23(a): bf16 flash attention at d_head 128 (qwen2.5-3b), 112
+    (zamba2-7b), 80 and 96 (stablelm-3b, phi3-mini-3.8b), B 4, S 32; bf16
+    paged attention at C 1, 4 and 16 for qwen2.5-3b and at Hkv 32 (d_head
+    80, 96); the zeroing kernel on bf16 target and draft pools bit-equal to
+    its plain version, then an admission's reset and a tick's rollback as
+    ``PagePool`` runs them. Returns ``{kernel: {sub-row: row}}``."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+    from repro_torch.kernels.paged_attention import ops as paged_ops
+    from repro_torch.kernels.paged_attention import ref as paged_ref
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(23)
+    rows: dict = {k: {} for k in SERVING_KERNELS}
+    qwen = get_config("qwen2.5-3b")
+    for arch in ("qwen2.5-3b", "zamba2-7b", *DENSE_ARCHS):
+        cfg = get_config(arch)
+        sub = "bf16" if arch == "qwen2.5-3b" else f"bf16_d{cfg.d_head}"
+        r = check_flash_bf16(cfg, dev, gen, 4, 32, flash_ops, flash_ref, F)
+        rows["flash_attention"][sub] = r
+        log_attention(f"flash_attention {sub} ({arch})", r)
+        log(f"[kernel] flash_attention {sub}: {r['not_bit_equal_share']:.3g}"
+            f" of the elements not bit-equal to the plain version, at most "
+            f"{r['max_ulps']:.3g} ulps apart ({r['past_one_ulp']} past one "
+            f"ulp); bit-equal to the fp32 kernel on the widened inputs")
+    for arch in ("qwen2.5-3b", *DENSE_ARCHS):
+        cfg = get_config(arch)
+        d = "bf16" if arch == "qwen2.5-3b" else f"bf16_d{cfg.d_head}"
+        for C, sub in ((1, d), (4, f"{d}_verify4"), (16, f"{d}_chunk16")):
+            r = check_paged_attention(cfg, dev, gen, 4, 32, 16, C, paged_ops,
+                                      paged_ref, F, dtype=bf)
+            rows["paged_attention"][sub] = r
+            log_attention(f"paged_attention {sub} ({arch})", r)
+    check_pool_zero(qwen, dev, gen, paged_ops, paged_ref, dtype=bf)
+    events = pool_events(qwen, dev, 23, dtype=bf, ranges=False)
+    log_pool_events(events)
+    for kernel, name in (("paged_reset", "reset_draft"),
+                         ("paged_rollback", "tick")):
+        r = {k: x for k, x in events[name].items() if k != "host"}
+        rows[kernel]["bf16"] = {
+            **r, "max_abs_err": 0.0, "bound_by": "bytes",
+            "launch_floor_ms": events["floor"]["device_ms"],
+            "library_call": "index_fill_, one call a tensor"}
+    rows["paged_reset"]["bf16_target"] = {
+        **{k: x for k, x in events["reset"].items() if k != "host"},
+        "max_abs_err": 0.0, "bound_by": "bytes"}
+    log("[kernel] pool_zero bf16: bit-equal to its plain version over both "
+        "whole pools (36 + 4 layers)")
+    return rows
+
+
+def first_splits(ref_reqs, reqs) -> list:
+    """(rid, position) of each request's first token that differs."""
+    out = []
+    for a, b in zip(ref_reqs, reqs):
+        j = next((i for i, (x, y) in enumerate(zip(a.generated, b.generated))
+                  if x != y), None)
+        if j is not None:
+            out.append((a.rid, j))
+        else:
+            check(a.generated == b.generated, f"rid {a.rid}: lengths differ")
+    return out
+
+
+def traced_run(model, params, reqs, kind: str, kw: dict) -> dict:
+    """``reqs`` served again in mode ``kind`` with every step's logits kept:
+    the continuous scheduler's ``trace_logits``, and for a wave the model's
+    prefill and decode calls recorded row by row (keyed by the prompt).
+    Returns ``{rid: [logits (V,) a token]}``."""
+    from repro_torch.runtime.server import WaveServer
+    from repro_torch.runtime.serving import ContinuousServer
+
+    if kind == "wave":
+        rows: dict = {}
+        wave: list = []
+
+        def add(logits):
+            for row, x in zip(wave, logits.float().cpu().numpy()):
+                row.append(x)
+
+        def prefill(p, tokens, cache):
+            logits = model.prefill(p, tokens, cache)
+            wave[:] = [rows.setdefault(t.tobytes(), []) for t in
+                       tokens.cpu().numpy().astype(np.int32)]
+            add(logits)
+            return logits
+
+        def decode(p, tokens, cache):
+            logits = model.decode_step(p, tokens, cache)
+            add(logits)
+            return logits
+
+        srv = WaveServer(dataclasses.replace(model, prefill=prefill,
+                                             decode_step=decode), params,
+                         max_batch=kw["max_batch"], max_len=kw["max_len"])
+        for r in reqs:
+            srv.submit(r)
+        srv.run_until_drained()
+        return {r.rid: rows[np.asarray(r.prompt, np.int32).tobytes()]
+                for r in reqs}
+    srv = ContinuousServer(model, params, trace_logits=True, **kw)
+    for r in reqs:
+        srv.submit(r)
+    srv.run_until_drained()
+    return dict(srv.logit_trace)
+
+
+def hold_modes(model, params, reqs, runs: dict, ref: str, other: str,
+               kw: dict, name: str) -> dict:
+    """Mode ``other`` held to mode ``ref`` token for token. Where they part,
+    both are served again with their logits traced (the same tokens as
+    the untraced runs, checked), and each request's logits are held to
+    BF16_ATOL up to its first split, where the reference's top-2 margin
+    must be within BF16_TIE; the position and the margin are printed."""
+    ra, rb = runs[ref][0], runs[other][0]
+    splits = first_splits(ra.requests, rb.requests)
+    out = {"equal": not splits, "splits": []}
+    if not splits:
+        log(f"[bf16] {name}: {other} == {ref} token for token")
+        return out
+    traces, again = {}, {}
+    for kind in (ref, other):
+        rs = copy.deepcopy(reqs)
+        mode = "wave" if kind == "wave" else "continuous"
+        traces[kind] = traced_run(model, params, rs, mode,
+                                  {**kw, **(runs[kind][2] or {})})
+        again[kind] = rs
+    for kind, res in ((ref, ra), (other, rb)):
+        check([r.generated for r in again[kind]]
+              == [r.generated for r in res.requests],
+              f"{name}: the traced {kind} run gave other tokens")
+    worst = 0.0
+    for rid, j in splits:
+        ta, tb = traces[ref][rid], traces[other][rid]
+        for i in range(j + 1):
+            worst = max(worst, float(np.abs(ta[i] - tb[i]).max()))
+        top = np.sort(ta[j])[-2:]
+        margin = float(top[1] - top[0])
+        log(f"[bf16] {name}: rid {rid} parts at token {j}: {ref}'s top-2 "
+            f"margin there {margin:.4g} (tie bound {BF16_TIE})")
+        check(margin <= BF16_TIE,
+              f"{name}: rid {rid} parts at token {j} where {ref}'s margin "
+              f"is {margin} > {BF16_TIE}")
+        out["splits"].append({"rid": rid, "token": j, "margin": margin})
+    check(worst <= BF16_ATOL, f"{name}: logits {worst} apart before a split")
+    out["max_abs_logit_diff_to_split"] = worst
+    return out
+
+
+def serve_qwen_bf16(dev) -> dict:
+    """Phase 23(b): qwen2.5-3b at 36 layers in bf16 (fp32 weights cast in
+    the forward pass) through ``Session.serve``: direct, wave, continuous
+    and speculative (spec_k 4, a 4-layer draft over prefix sharing), the
+    variant counts zeroed just before each and read just after, peak
+    memory of each; the mode invariants (continuous == wave, speculative
+    == continuous, up to near-ties); ``api.serve`` direct equal to the
+    session's; the soak through ``run_soak`` and through the CLI
+    (``--soak`` writes to a temporary ``--out``); bf16 weights through
+    ``build_model(param_dtype=bf16)`` in a ``Session``, direct and
+    continuous."""
+    import tempfile
+
+    from repro_torch import api
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.serve import run_soak
+    from repro_torch.models.registry import build_model
+    from repro_torch.runtime.serving import PagePool, zipf_requests
+
+    bf = torch.bfloat16
+    sess = api.Session.from_config("qwen2.5-3b", full=True, compute_dtype=bf,
+                                   seed=0)
+    cfg, L, V = sess.cfg, sess.cfg.n_layers, sess.cfg.vocab_size
+    params = sess.init_params()
+    sess.serve(batch_size=4, prompt_len=32, max_new_tokens=2, params=params)
+    reqs = zipf_requests(8, V, min_len=8, max_len=48, max_new_low=8,
+                         max_new_high=24, seed=0)
+    kw = dict(max_batch=4, max_len=512, page_size=16, prefill_chunk=16)
+    spec = dict(speculative=True, spec_k=4, draft_layers=4,
+                prefix_sharing=True)
+    out: dict = {"config": f"qwen2.5-3b published width, {L} layers, bf16 "
+                           f"compute, fp32 weights"}
+    runs = {}
+    for kind, opts in (("direct", None), ("wave", {}), ("continuous", {}),
+                       ("speculative", spec)):
+        torch.cuda.reset_peak_memory_stats()
+        with rollback_ticks(PagePool) as ticks:
+            dispatch.reset_launches()
+            if opts is None:
+                res = sess.serve(batch_size=4, prompt_len=32,
+                                 max_new_tokens=16, params=params)
+            else:
+                res = sess.serve(scheduler="wave" if kind == "wave"
+                                 else "continuous",
+                                 requests=copy.deepcopy(reqs), params=params,
+                                 **kw, **opts)
+            var = dispatch.variant_counts()
+            n = {k: v for k, v in dispatch.launch_counts().items() if v}
+        peak = torch.cuda.max_memory_allocated()
+        runs[kind] = (res, var, opts)
+        check(all(v.get("f32", 0) == 0 for v in var.values()),
+              f"bf16 {kind} launched an fp32 instantiation: {var}")
+        if opts is None:
+            check(res.tokens.shape == (4, 16) and res.logits.dtype == bf
+                  and bool(torch.isfinite(res.logits).all()),
+                  "bf16 direct tokens or logits")
+            check(n == {"flash_attention": L}
+                  and var["flash_attention"]["bf16"] == L,
+                  f"bf16 direct launches {n}")
+            rec = {"prefill_ms": res.prefill_s * 1e3,
+                   "decode_ms_per_token": res.decode_s_per_token * 1e3,
+                   "decode_tok_per_s": 4 / res.decode_s_per_token}
+        else:
+            st = res.stats
+            check(st.drained, f"bf16 {kind} did not drain")
+            admissions = len(reqs) + st.preemptions
+            if kind == "wave":
+                check(n == {"flash_attention": L * st.waves},
+                      f"bf16 wave launches {n} for {st.waves} waves")
+            else:
+                check(var["paged_reset"]["bf16"] == admissions
+                      and var["paged_attention"]["bf16"] > 0
+                      and "flash_attention" not in n,
+                      f"bf16 {kind} launches {n} for {admissions} "
+                      f"admissions")
+            if kind == "speculative":
+                check(var["paged_rollback"]["bf16"] == ticks[0] > 0,
+                      f"bf16 speculative rolled back "
+                      f"{var['paged_rollback']['bf16']}x for {ticks[0]} "
+                      f"ticks with a tail")
+            rec = {"useful_tokens": st.useful_tokens,
+                   "tok_per_s": 1 / res.decode_s_per_token,
+                   "decode_ms_per_step": res.decode_s_per_token * 1e3
+                   * st.useful_tokens / max(st.decode_steps, 1),
+                   "decode_steps": st.decode_steps,
+                   "utilization": st.utilization,
+                   "p50_latency_steps": st.p50_latency_steps,
+                   "p99_latency_steps": st.p99_latency_steps}
+            if kind == "speculative":
+                rec.update(acceptance=st.acceptance_rate,
+                           ticks_rolled_back=ticks[0])
+        out[kind] = {**rec, "launches": n, "variants": var,
+                     "peak_mem_gb": peak / 1e9}
+        log(f"[bf16] qwen2.5-3b {kind}: " + json.dumps(
+            {k: x for k, x in out[kind].items() if k != "variants"}))
+    out["continuous_vs_wave"] = hold_modes(
+        sess.model, params, reqs, runs, "wave", "continuous", kw,
+        "continuous vs wave")
+    out["speculative_vs_continuous"] = hold_modes(
+        sess.model, params, reqs, runs, "continuous", "speculative", kw,
+        "speculative vs continuous")
+    # the one-call entry point: the same seed, the same weights, the tokens
+    # of the session's direct run
+    dispatch.reset_launches()
+    one = api.serve("qwen2.5-3b", full=True, compute_dtype=bf, seed=0,
+                    batch_size=4, prompt_len=32, max_new_tokens=16)
+    var = dispatch.variant_counts()
+    check(bool((one.tokens == runs["direct"][0].tokens).all())
+          and var["flash_attention"] == {"f32": 0, "bf16": L},
+          f"api.serve bf16: tokens differ from Session.serve's or launches "
+          f"{var['flash_attention']}")
+    out["api_serve"] = {"tokens_equal_session": True,
+                        "launches": var["flash_attention"]}
+    log("[bf16] api.serve(full=True, compute_dtype=bf16) direct == "
+        "Session.serve direct token for token")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        dispatch.reset_launches()
+        row, soak_s = timed(lambda: run_soak(
+            sess, 8, max_batch=4, page_size=16, prefill_chunk=16, window=4,
+            out=Path(tmp) / "soak.json"))
+        var = dispatch.variant_counts()
+        check(row["requests"] == 8 and row["rolling_p99_worst"] is not None
+              and json.loads((Path(tmp) / "soak.json").read_text())[
+                  "serve/soak"] == row
+              and var["paged_attention"]["f32"] == 0
+              and var["paged_attention"]["bf16"] > 0,
+              f"bf16 soak row {row}, launches {var}")
+        out["soak"] = {**row, "s": soak_s}
+        log(f"[bf16] run_soak, 8 Zipf requests, 4 slots, window 4: "
+            f"{json.dumps(row)} in {soak_s:.1f} s")
+        cli = [sys.executable, "-m", "repro_torch.launch.serve", "--full",
+               "--soak", "4", "--max-batch", "4", "--window", "2", "--out",
+               str(Path(tmp) / "cli.json")]
+        t0 = time.perf_counter()
+        r = subprocess.run(cli, cwd=ROOT, capture_output=True, text=True,
+                           timeout=600, env={**os.environ,
+                                             "PYTHONPATH": str(ROOT / "src")})
+        check(r.returncode == 0 and "rolling p99" in r.stdout
+              and "device=cuda" in r.stdout
+              and "serve/soak" in (Path(tmp) / "cli.json").read_text(),
+              f"soak CLI failed ({r.returncode}):\n{r.stdout}\n{r.stderr}")
+        last = next(x for x in r.stdout.splitlines() if "rolling p99" in x)
+        out["cli_soak"] = {"cmd": " ".join(cli[1:-1]) + " <tmp>",
+                           "s": time.perf_counter() - t0, "last": last}
+        log(f"[cli] {out['cli_soak']['cmd']} (fp32: the CLI has no dtype "
+            f"flag, as JAX's): exit 0 in {out['cli_soak']['s']:.1f} s | "
+            f"{last}")
+    del params, sess, runs
+    torch.cuda.empty_cache()
+    # bf16 weights, as JAX's build_model(param_dtype=jnp.bfloat16)
+    model = build_model(cfg, dev, param_dtype=bf, compute_dtype=bf)
+    s16 = api.Session(cfg=cfg, run_cfg=RunConfig(model=cfg), model=model,
+                      device=dev, seed=0)
+    p16, init_s = timed(s16.init_params)
+    check(all(p.dtype == bf for p in p16.parameters()), "bf16 weights")
+    n_params = sum(p.numel() for p in p16.parameters())
+    rec = {"n_params": n_params, "weights_gb": n_params * 2 / 1e9,
+           "init_s": init_s}
+    for kind in ("direct", "continuous"):
+        torch.cuda.reset_peak_memory_stats()
+        dispatch.reset_launches()
+        if kind == "direct":
+            res = s16.serve(batch_size=4, prompt_len=32, max_new_tokens=16,
+                            params=p16)
+            check(bool(torch.isfinite(res.logits).all()),
+                  "bf16 weights: direct logits")
+            r = {"prefill_ms": res.prefill_s * 1e3,
+                 "decode_ms_per_token": res.decode_s_per_token * 1e3}
+        else:
+            res = s16.serve(scheduler="continuous",
+                            requests=copy.deepcopy(reqs), params=p16, **kw)
+            check(res.stats.drained, "bf16 weights: continuous did not drain")
+            r = {"tok_per_s": 1 / res.decode_s_per_token,
+                 "decode_steps": res.stats.decode_steps}
+        var = dispatch.variant_counts()
+        check(all(v.get("f32", 0) == 0 for v in var.values()),
+              f"bf16 weights {kind}: an fp32 instantiation ran: {var}")
+        rec[kind] = {**r, "peak_mem_gb": torch.cuda.max_memory_allocated()
+                     / 1e9, "launches": {k: v for k, v in
+                                         dispatch.launch_counts().items()
+                                         if v}}
+    out["bf16_weights"] = rec
+    log(f"[bf16] qwen2.5-3b bf16 weights ({rec['weights_gb']:.2f} GB) "
+        f"through build_model(param_dtype=bf16): {json.dumps(rec)}")
+    del p16, s16, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_family_bf16(arch: str, modes: tuple) -> dict:
+    """Phase 23(c): one family in bf16 at published width and depth, fp32
+    weights, through ``Session.serve`` in ``modes`` (8 Zipf requests through
+    4 slots for the scheduler modes), the launches of each; for the ssm
+    family a whole-prompt prefill too, the WKV scan (rows 11-12 take fp32:
+    both packages widen the scan inputs)."""
+    from repro_torch.api import Session
+    from repro_torch.kernels import dispatch
+    from repro_torch.runtime.serving import zipf_requests
+
+    bf = torch.bfloat16
+    sess = Session.from_config(arch, full=True, compute_dtype=bf, seed=0)
+    cfg, L, V = sess.cfg, sess.cfg.n_layers, sess.cfg.vocab_size
+    params, init_s = timed(sess.init_params)
+    sess.serve(batch_size=4, prompt_len=8, max_new_tokens=2, params=params)
+    reqs = zipf_requests(8, V, min_len=8, max_len=48, max_new_low=8,
+                         max_new_high=24, seed=0)
+    out = {"config": f"{arch} published width and depth ({L} layers), bf16 "
+                     f"compute, fp32 weights", "init_s": init_s}
+    for kind in modes:
+        torch.cuda.reset_peak_memory_stats()
+        dispatch.reset_launches()
+        if kind == "direct":
+            res = sess.serve(batch_size=4, prompt_len=32, max_new_tokens=16,
+                             params=params)
+            check(bool(torch.isfinite(res.logits).all())
+                  and res.tokens.shape == (4, 16), f"{arch} bf16 direct")
+            rec = {"prefill_ms": res.prefill_s * 1e3,
+                   "decode_ms_per_token": res.decode_s_per_token * 1e3,
+                   "decode_tok_per_s": 4 / res.decode_s_per_token}
+        else:
+            res = sess.serve(scheduler=kind, requests=copy.deepcopy(reqs),
+                             params=params, max_batch=4, max_len=512,
+                             page_size=16, prefill_chunk=16)
+            st = res.stats
+            check(st.drained, f"{arch} bf16 {kind} did not drain")
+            rec = {"tok_per_s": 1 / res.decode_s_per_token,
+                   "decode_ms_per_step": res.decode_s_per_token * 1e3
+                   * st.useful_tokens / max(st.decode_steps, 1),
+                   "decode_steps": st.decode_steps,
+                   "utilization": st.utilization}
+        var = dispatch.variant_counts()
+        n = {k: v for k, v in dispatch.launch_counts().items() if v}
+        check(all(v.get("f32", 0) == 0 for v in var.values()),
+              f"{arch} bf16 {kind}: an fp32 instantiation ran: {var}")
+        if cfg.family == "hybrid":
+            per = {"ssd": L, "flash_attention": L // cfg.attn_every}
+            waves = res.stats.waves if kind == "wave" else 1
+            check(n == {k: v * waves for k, v in per.items()},
+                  f"{arch} bf16 {kind} launches {n}")
+        elif cfg.family == "dense":
+            check(set(n) == {"paged_attention", "paged_reset"}
+                  and n["paged_attention"] % L == 0
+                  and var["paged_reset"]["bf16"] == len(reqs)
+                  + res.stats.preemptions,
+                  f"{arch} bf16 {kind} launches {n}")
+        else:
+            check(not n, f"{arch} bf16 direct launched {n}")
+        out[kind] = {**rec, "launches": n,
+                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        log(f"[bf16] {arch} {kind}: {json.dumps(out[kind])}")
+    if cfg.family == "ssm":
+        prompt = torch.randint(0, V, (4, 32), generator=torch.Generator(
+            ).manual_seed(5)).to(sess.device)
+        cache = sess.model.init_cache(4, 48)
+        dispatch.reset_launches()
+        with torch.inference_mode():
+            logits, scan_s = timed(lambda: sess.model.prefill(params, prompt,
+                                                              cache))
+        n = {k: v for k, v in dispatch.launch_counts().items() if v}
+        check(n == {"wkv": L} and logits.dtype == bf
+              and bool(torch.isfinite(logits).all()),
+              f"{arch} bf16 whole-prompt prefill launches {n}")
+        out["scan_prefill"] = {"ms": scan_s * 1e3, "launches": n}
+        log(f"[bf16] {arch} whole-prompt prefill, batch 4 x 32: "
+            f"{scan_s * 1e3:.2f} ms | launches {n} (the scan in fp32)")
+    del params, sess
+    torch.cuda.empty_cache()
+    return out
+
+
+def bf16_cross_device(seed: int = 23) -> dict:
+    """Phase 23(d): a narrow qwen2.5-3b (2 layers, d_model 512, d_head 128,
+    Hkv 2) in bf16 on the card and on the host CPU from the same weights:
+    the logits of a dense prefill, 3 decode steps, a paged prefill chunk
+    and 3 paged decode steps (``slice_logits``: flash, paged attention and
+    the reset) within BF16_ATOL."""
+    from repro_torch.api import Session
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import reduce_for_smoke
+    from repro_torch.kernels import dispatch
+    from repro_torch.runtime.serving import PagePool
+
+    bf = torch.bfloat16
+    ncfg = reduce_for_smoke(get_config("qwen2.5-3b"), n_layers=2,
+                            d_model=512, n_heads=4, n_kv_heads=2, d_head=128,
+                            d_ff=1024, vocab_size=4096)
+    on = {d: Session.from_config(ncfg, device=d, compute_dtype=bf, seed=seed)
+          for d in ("cuda", "cpu")}
+    p_cpu = on["cpu"].init_params()
+    p_gpu = copy.deepcopy(p_cpu).to(on["cuda"].device)
+    g = torch.Generator().manual_seed(seed)
+    prompt = torch.randint(0, ncfg.vocab_size, (2, 24), generator=g)
+    steps = [torch.randint(0, ncfg.vocab_size, (2,), generator=g)
+             for _ in range(3)]
+    dispatch.reset_launches()
+    got = slice_logits(on["cuda"].model, p_gpu, PagePool, prompt, steps)
+    var = dispatch.variant_counts()
+    want = slice_logits(on["cpu"].model, p_cpu, PagePool, prompt, steps)
+    check(dispatch.variant_counts() == var, "the CPU run launched a kernel")
+    check(all(var[k]["bf16"] > 0 and var[k]["f32"] == 0
+              for k in ("flash_attention", "paged_attention", "paged_reset")),
+          f"the card's bf16 slice: {var}")
+    err = max((a - b).abs().max().item() for a, b in zip(got, want))
+    top = max(b.abs().max().item() for b in want)
+    check(err <= BF16_ATOL, f"bf16 card vs CPU logits differ by {err} "
+                            f"(|logit| up to {top})")
+    log(f"[bf16-slice] narrow qwen2.5-3b (2 layers, d_model 512, d_head 128)"
+        f" in bf16, card vs CPU: max |logit diff| {err:.4g} (|logit| up to "
+        f"{top:.3g}; bound {BF16_ATOL}) | card launches "
+        f"{ {k: v['bf16'] for k, v in var.items() if k in SERVING_KERNELS} }")
+    return {"max_abs_err": err, "max_abs_logit": top, "atol": BF16_ATOL}
+
+
+def bf16_phase(dev) -> tuple:
+    """Phase 23: bf16 serving on the card. (a) the kernels' bf16
+    instantiations against their plain versions, timed; (b) qwen2.5-3b at
+    36 layers in every mode, through ``Session`` and ``api.serve``, the
+    soak, bf16 weights; (c) zamba2-7b, stablelm-3b, phi3-mini-3.8b and
+    rwkv6-7b at published size; (d) card vs CPU at narrow width. No plain
+    version of an attention or page-pool kernel runs on the card
+    (``plain_attention_spy``). Returns ``(record, {kernel: {sub-row:
+    row}})``; the main path's bf16 launches are in the record's ``qwen``
+    runs."""
+    t0 = time.perf_counter()
+    rows = bf16_kernel_rows(dev)
+    rec: dict = {}
+    spy: dict = {}
+    with plain_attention_spy(spy):
+        rec["qwen"] = serve_qwen_bf16(dev)
+        rec["families"] = {arch: serve_family_bf16(arch, modes)
+                           for arch, modes in BF16_FAMILIES.items()}
+        rec["cross_device"] = bf16_cross_device()
+    check(spy["plain_calls_on_card"] == 0,
+          f"{spy['plain_calls_on_card']} plain attention calls on the card")
+    rec["plain_calls_on_card"] = 0
+    q = rec["qwen"]
+    rows["flash_attention"]["bf16"]["launches"] = \
+        q["direct"]["variants"]["flash_attention"]["bf16"]
+    rows["paged_attention"]["bf16"]["launches"] = \
+        q["continuous"]["variants"]["paged_attention"]["bf16"]
+    rows["paged_reset"]["bf16"]["launches"] = \
+        q["speculative"]["variants"]["paged_reset"]["bf16"]
+    rows["paged_rollback"]["bf16"]["launches"] = \
+        q["speculative"]["variants"]["paged_rollback"]["bf16"]
+    fam = rec["families"]
+    rows["flash_attention"]["bf16_d112"]["launches"] = \
+        fam["zamba2-7b"]["direct"]["launches"]["flash_attention"]
+    for arch in DENSE_ARCHS:
+        d = f"bf16_d{'80' if arch == 'stablelm-3b' else '96'}"
+        rows["paged_attention"][d]["launches"] = \
+            fam[arch]["continuous"]["launches"]["paged_attention"]
+    rec["phase_s"] = time.perf_counter() - t0
+    log(f"[bf16] phase 23 in {rec['phase_s']:.1f} s; no plain attention "
+        f"or page-pool call on the card")
+    return rec, rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -5123,7 +5824,12 @@ def main() -> int:
     for sub in ("verify4", "chunk16"):
         log_attention(f"paged_attention {sub}", kern["paged_attention"][sub])
 
-    # 4. full-width qwen2.5-3b through the user's entry points
+    # 4. full-width qwen2.5-3b through the user's entry points; from here
+    # to the end of phase 5 no plain attention or page-pool call may get a
+    # CUDA tensor (phase 3 called them on purpose, to compare)
+    spy45: dict = {}
+    spying = contextlib.ExitStack()
+    spying.enter_context(plain_attention_spy(spy45))
     L, V = cfg.n_layers, cfg.vocab_size
     sess = Session.from_config("qwen2.5-3b", full=True, seed=0)
     t0 = time.perf_counter()
@@ -5136,10 +5842,12 @@ def main() -> int:
 
     sess.serve(batch_size=4, prompt_len=32, max_new_tokens=2, params=params)
 
+    torch.cuda.reset_peak_memory_stats()
     dispatch.reset_launches()
     direct = sess.serve(batch_size=4, prompt_len=32, max_new_tokens=16,
                         params=params)
     n_direct = dispatch.launch_counts()
+    direct_peak = torch.cuda.max_memory_allocated()
     check(direct.tokens.shape == (4, 16), "direct tokens shape")
     check(bool(((direct.tokens >= 0) & (direct.tokens < V)).all()),
           "direct tokens out of vocab")
@@ -5153,7 +5861,7 @@ def main() -> int:
         "prefill_ms": direct.prefill_s * 1e3,
         "decode_ms_per_token": direct.decode_s_per_token * 1e3,
         "decode_tok_per_s": 4 / direct.decode_s_per_token,
-        "launches": n_direct}
+        "launches": n_direct, "peak_mem_gb": direct_peak / 1e9}
     log(f"[serve] direct batch 4, prompt 32, 16 new: prefill "
         f"{direct.prefill_s * 1e3:.2f} ms | decode "
         f"{direct.decode_s_per_token * 1e3:.2f} ms/token step | "
@@ -5161,13 +5869,15 @@ def main() -> int:
 
     reqs = zipf_requests(8, V, min_len=8, max_len=48, max_new_low=8,
                          max_new_high=24, seed=0)
-    runs = {}
+    runs, peaks = {}, {}
     for kind in ("wave", "continuous"):
+        torch.cuda.reset_peak_memory_stats()
         dispatch.reset_launches()
         res = sess.serve(scheduler=kind, requests=copy.deepcopy(reqs),
                          params=params, max_batch=B_SLOTS, max_len=MAX_LEN,
                          page_size=PAGE, prefill_chunk=CHUNK)
         runs[kind] = (res, dispatch.launch_counts())
+        peaks[kind] = torch.cuda.max_memory_allocated()
     (wave, n_wave), (cont, n_cont) = runs["wave"], runs["continuous"]
     check(wave.stats.drained and cont.stats.drained, "a server did not drain")
     check(bool((cont.tokens == wave.tokens).all()),
@@ -5192,6 +5902,7 @@ def main() -> int:
     for kind, draft, share in (("speculative self-draft", None, False),
                                ("speculative 4-layer draft", 4, True)):
         with rollback_ticks(PagePool) as ticks:
+            torch.cuda.reset_peak_memory_stats()
             dispatch.reset_launches()
             res = sess.serve(scheduler="continuous",
                              requests=copy.deepcopy(reqs), params=params,
@@ -5201,6 +5912,7 @@ def main() -> int:
                              prefix_sharing=share)
             n = dispatch.launch_counts()
         runs[kind] = (res, n)
+        peaks[kind] = torch.cuda.max_memory_allocated()
         rolled[kind] = ticks[0]
         check(res.stats.drained, f"{kind}: the server did not drain")
         check(bool((res.tokens == cont.tokens).all()),
@@ -5227,7 +5939,7 @@ def main() -> int:
                         "p99_latency_steps": st.p99_latency_steps,
                         "utilization": st.utilization,
                         "decode_steps": st.decode_steps,
-                        "launches": n}
+                        "launches": n, "peak_mem_gb": peaks[kind] / 1e9}
         spec = ""
         if kind.startswith("speculative"):
             report[kind].update(spec_proposed=st.spec_proposed,
@@ -5314,6 +6026,10 @@ def main() -> int:
 
     del p_gpu, p_cpu, on, sess
     torch.cuda.empty_cache()
+    spying.close()
+    check(spy45["plain_calls_on_card"] == 0,
+          f"{spy45['plain_calls_on_card']} plain attention calls on the card "
+          f"in phases 4-5")
 
     # 6. the DP kernels at the training path's shapes
     cut12 = dataclasses.replace(cfg, n_layers=12)
@@ -6130,6 +6846,24 @@ def main() -> int:
         report["cifar"]["per_example"]["perleaf"]["launches"][
             "per_example_sumsq_tree"]
 
+    # 23. bf16 serving: the kernels' bf16 instantiations, qwen2.5-3b in
+    # every mode, the other families, card vs CPU
+    report["bf16"], rows23 = bf16_phase(dev)
+    for name, subs in rows23.items():
+        kern[name].update(subs)
+    q23 = report["bf16"]["qwen"]
+    by_variant = {
+        "flash_attention": (n_direct, q23["direct"]),
+        "paged_attention": (n_cont, q23["continuous"]),
+        "paged_reset": (n_cont, q23["continuous"]),
+        "paged_rollback": (n_spec, q23["speculative"])}
+    for name, (n32, run16) in by_variant.items():
+        kern[name]["launches_by_variant"] = {
+            "f32": n32[name], "bf16": run16["variants"][name]["bf16"]}
+        kern[name]["plain_calls_on_card"] = {
+            "phases 4-5": spy45["plain_calls_on_card"],
+            "phase 23": report["bf16"]["plain_calls_on_card"]}
+
     # the record
     launches = {"flash_attention": n_direct["flash_attention"],
                 "paged_attention": n_cont["paged_attention"],
@@ -6184,13 +6918,15 @@ def main() -> int:
                       "per_leaf_ms", "per_leaf_device_ms",
                       "library_per_leaf_ms", "route_ms", "route_device_ms",
                       "route_parts_ms", "launches_tree_vs_per_leaf",
-                      "launches_by_instantiation"):
+                      "launches_by_instantiation", "launches_by_variant",
+                      "plain_calls_on_card"):
             if extra in r:
                 entry[extra] = r[extra]
         for sub in ("verify4", "chunk16", "d112", "s512", "wire", "d80",
                     "d80_verify4", "d80_chunk16", "d96", "d96_verify4",
                     "d96_chunk16", "cnn6", "wrn28", "pe16", "w22",
-                    "leaf311m", "prev0", "cnn6_prev0", "wrn28_prev0"):
+                    "leaf311m", "prev0", "cnn6_prev0", "wrn28_prev0",
+                    *BF16_SUBROWS):
             if sub in r:
                 entry[sub] = {x: r[sub][x] for x in (
                     "max_abs_err", "ms", "device_ms", "plain_ms",
@@ -6198,7 +6934,9 @@ def main() -> int:
                     "bound_by", "launch_floor_ms", "launches", "at",
                     "per_leaf_ms", "per_leaf_device_ms",
                     "library_per_leaf_ms", "route_ms", "route_device_ms",
-                    "route_parts_ms", "launches_tree_vs_per_leaf")
+                    "route_parts_ms", "launches_tree_vs_per_leaf",
+                    "not_bit_equal_share", "max_ulps", "past_one_ulp",
+                    "bit_equal_to_fp32_kernel")
                     if x in r[sub]}
         if "wire" in r:
             entry["wire"]["launches"] = r["wire"]["launches"]
@@ -6219,7 +6957,7 @@ if __name__ == "__main__":
     src = Path(args[args.index("--src") + 1]).resolve() \
         if "--src" in args else ROOT / "src"
     for phase in ("scans", "pool", "wire", "bwd", "streams", "slice15",
-                  "persist", "cifar", "prng", "normal", "tree"):
+                  "persist", "cifar", "prng", "normal", "tree", "bf16"):
         if f"--{phase}" in args:
             sys.exit(one_phase(phase, src))
     sys.exit(main())

@@ -25,9 +25,18 @@ serial, pipelined, speculative and fault-tolerant
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a CUDA device and without ``device="cpu"`` they raise, never falling
 back to the CPU. On the CPU every kernel runs its plain PyTorch version.
+
+Serving in bf16: ``Session.from_config(arch, compute_dtype=torch.bfloat16)``
+(fp32 weights cast in the forward pass, the caches and page pools in bf16,
+the attention and page-pool kernels' bf16 instantiations on the card), or
+bf16 weights too through ``models.registry.build_model(cfg, device,
+param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)`` in a
+``Session``. The one-call :func:`train` and :func:`serve` split off
+``from_config``'s keywords, as JAX's do.
 """
 from __future__ import annotations
 
+import dataclasses
 import threading
 import time
 from dataclasses import dataclass
@@ -116,9 +125,13 @@ class Session:
         dev = resolve_device(device)
         if dev.type == "cuda":
             # the path is fp32 at full precision, as in the JAX package:
-            # no TF32 in the fp32 matrix products and convolutions
+            # no TF32 in the fp32 matrix products and convolutions; and
+            # cuBLAS's bf16 products reduce in fp32 and round once, as the
+            # CPU's do
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.\
+                allow_bf16_reduced_precision_reduction = False
         if isinstance(arch, ModelConfig):
             cfg = arch
         else:
@@ -130,6 +143,11 @@ class Session:
                        optimizer=optimizer or OptimizerConfig(),
                        mesh=mesh or MeshConfig(), seed=seed)
         return cls(cfg=cfg, run_cfg=rc, model=model, device=dev, seed=seed)
+
+    def with_run_config(self, **overrides) -> "Session":
+        """A copy of this session with RunConfig fields replaced."""
+        return dataclasses.replace(self,
+                                   run_cfg=self.run_cfg.replace(**overrides))
 
     # ----------------------------------------------------------------- train
     def init_state(self, params=None):
@@ -378,6 +396,22 @@ class Session:
         return ServeResult(tokens=tokens, prefill_s=0.0,
                            decode_s_per_token=wall / max(stats.useful_tokens, 1),
                            stats=stats, requests=requests)
+
+    # --------------------------------------------------------- introspection
+    def kernel_impls(self) -> dict:
+        """What dispatch can pick for each kernel: ``cuda`` (the
+        hand-written kernel, for CUDA tensors) and ``plain`` (its plain
+        PyTorch version, for CPU tensors) for every kernel of
+        ``kernels.dispatch.KERNELS``, the hardware kernel first as in the
+        JAX package's lists; and for the three tree-level policies the
+        names ``resolve_tree`` takes (``packed``, ``perleaf`` and the legacy
+        ``pallas`` and ``jnp``)."""
+        from repro_torch.kernels import dispatch
+
+        impls = {name: ["cuda", "plain"] for name in dispatch.KERNELS}
+        impls.update({name: list(dispatch.TREE_IMPLS)
+                      for name in dispatch.TREE_KERNELS})
+        return dict(sorted(impls.items()))
 
 
 
@@ -1129,3 +1163,37 @@ class CollaborativeSession:
     @property
     def expected_measurement(self) -> str:
         return self.service.expected_measurement()
+
+
+# Session.from_config's keywords, split off by the one-call helpers; JAX's
+# ``shape`` (a training ShapeConfig its Session stores and neither train nor
+# serve reads) has no counterpart in the port and is dropped
+_CTOR_KEYS = ("full", "privacy", "optimizer", "mesh", "compute_dtype",
+              "seed", "device")
+
+
+def _split_ctor(kw: dict) -> dict:
+    kw.pop("shape", None)
+    return {k: kw.pop(k) for k in _CTOR_KEYS if k in kw}
+
+
+def train(arch: str, **kw) -> TrainResult:
+    """One-call convenience: ``repro_torch.api.train("qwen2.5-3b",
+    steps=10)``.
+
+    :meth:`Session.from_config`'s keywords (full, privacy, optimizer,
+    mesh, compute_dtype, seed, device) are split off; the rest go to
+    :meth:`Session.train`. ``shape``, which JAX's ``from_config`` takes and
+    its train never reads, is accepted and dropped: batch size and sequence
+    length are ``train``'s ``batch_size`` and ``seq_len``."""
+    ctor = _split_ctor(kw)
+    return Session.from_config(arch, **ctor).train(**kw)
+
+
+def serve(arch: str, **kw) -> ServeResult:
+    """One-call convenience: ``repro_torch.api.serve("qwen2.5-3b",
+    max_new_tokens=8)``; bf16 serving with ``compute_dtype=torch.bfloat16``.
+    The keywords split as in :func:`train` (``shape`` dropped likewise: the
+    prompt's shape is ``serve``'s ``batch_size`` and ``prompt_len``)."""
+    ctor = _split_ctor(kw)
+    return Session.from_config(arch, **ctor).serve(**kw)

@@ -21,12 +21,71 @@
 //           of p four columns.
 // Shared strides are padded to 16 bytes past a multiple of 128, so the
 // float4 reads of different rows fall in different banks.
+//
+// Element types: q, k and v (and the pages) are fp32 or bf16 in device
+// memory; shared memory and the math are fp32 for both, as the Pallas
+// kernels upcast their tiles and compute in f32. An fp32 row is staged by
+// 16-byte cp.async; cp.async copies bytes and cannot convert, so a bf16 row
+// is loaded 16 bytes (8 values) at a time into registers, widened exactly
+// with __bfloat1622float2 and stored as two float4. Shared rows, their
+// strides (KS, SS) and so the bank argument above are the same for both
+// types; only the staging loop's grain (Elem<T>::VEC values a copy) differs,
+// and every instantiated D (16 .. 128) is a multiple of 8, so a 16-byte
+// global load never straddles a row (a bf16 row of d_head 80, 96 or 112 is
+// 160, 192 or 224 bytes, all multiples of 16).
 #pragma once
+
+#include <cuda_bf16.h>
 
 #include "common.cuh"
 
 constexpr int ATTN_THREADS = 256;
 constexpr int ATTN_COLS = 32;  // key/value tokens a tile
+
+// values of T one staging copy moves: 16 bytes
+template <class T>
+struct Elem;
+template <>
+struct Elem<float> {
+  static constexpr int VEC = 4;
+};
+template <>
+struct Elem<__nv_bfloat16> {
+  static constexpr int VEC = 8;
+};
+
+// Stage VEC values of row src into shared dst (16-byte aligned, fp32).
+__device__ __forceinline__ void stage_vec(float* dst, const float* src) { cp_async16(dst, src); }
+
+__device__ __forceinline__ void stage_vec(float* dst, const __nv_bfloat16* src) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(src);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+  const float2 c = __bfloat1622float2(h[2]), d = __bfloat1622float2(h[3]);
+  reinterpret_cast<float4*>(dst)[0] = make_float4(a.x, a.y, b.x, b.y);
+  reinterpret_cast<float4*>(dst)[1] = make_float4(c.x, c.y, d.x, d.y);
+}
+
+template <int VEC>
+__device__ __forceinline__ void zero_vec(float* dst) {
+#pragma unroll
+  for (int i = 0; i < VEC; i += 4)
+    reinterpret_cast<float4*>(dst)[i / 4] = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// Four outputs in the output's type: fp32 as they are, bf16 rounded once
+// to nearest even (as torch's .to(torch.bfloat16) and XLA's convert round).
+__device__ __forceinline__ void store4(float* o, float4 v) {
+  *reinterpret_cast<float4*>(o) = v;
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* o, float4 v) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 raw;
+  raw.x = *reinterpret_cast<unsigned*>(&lo);
+  raw.y = *reinterpret_cast<unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(o) = raw;
+}
 
 __device__ __forceinline__ void fma4(float4& a, float p, const float4& v) {
   a.x = fmaf(p, v.x, a.x);
@@ -78,35 +137,39 @@ struct AttnTile {
     for (int i = 0; i < RA; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
 
-  // Stage n <= nmax rows of D floats into dst (row stride ds) with cp.async:
+  // Stage n <= nmax rows of D values of T into dst (fp32, row stride ds):
   // src(t) is row t's offset into g, or -1 for a row that is not there
   // (zero-filled, never read). Rows n..nmax-1 are zero-filled too.
-  template <class Src>
-  __device__ static void stage(float* dst, int ds, const float* g, int n, int nmax, Src src) {
-    for (int idx = threadIdx.x; idx < nmax * LPR; idx += ATTN_THREADS) {
-      const int t = idx / LPR, d = 4 * (idx % LPR);
+  template <class T, class Src>
+  __device__ static void stage(float* dst, int ds, const T* g, int n, int nmax, Src src) {
+    constexpr int VEC = Elem<T>::VEC, LPV = D / VEC;
+    static_assert(D % VEC == 0, "a row is whole 16-byte copies");
+    for (int idx = threadIdx.x; idx < nmax * LPV; idx += ATTN_THREADS) {
+      const int t = idx / LPV, d = VEC * (idx % LPV);
       const long long off = t < n ? src(t) : -1;
       if (off >= 0)
-        cp_async16(dst + t * ds + d, g + off + d);
+        stage_vec(dst + t * ds + d, g + off + d);
       else
-        *reinterpret_cast<float4*>(dst + t * ds + d) = make_float4(0.f, 0.f, 0.f, 0.f);
+        zero_vec<VEC>(dst + t * ds + d);
     }
   }
 
   // K and V rows at the same offsets into buffer b.
-  template <class Src>
-  __device__ void stage_kv(int b, const float* k, const float* v, int n, Src src) {
-    for (int idx = threadIdx.x; idx < COLS * LPR; idx += ATTN_THREADS) {
-      const int t = idx / LPR, d = 4 * (idx % LPR);
+  template <class T, class Src>
+  __device__ void stage_kv(int b, const T* k, const T* v, int n, Src src) {
+    constexpr int VEC = Elem<T>::VEC, LPV = D / VEC;
+    static_assert(D % VEC == 0, "a row is whole 16-byte copies");
+    for (int idx = threadIdx.x; idx < COLS * LPV; idx += ATTN_THREADS) {
+      const int t = idx / LPV, d = VEC * (idx % LPV);
       const long long off = t < n ? src(t) : -1;
       float* kd = kv_s + b * BUF + t * KS + d;
       float* vd = kv_s + b * BUF + COLS * KS + t * D + d;
       if (off >= 0) {
-        cp_async16(kd, k + off + d);
-        cp_async16(vd, v + off + d);
+        stage_vec(kd, k + off + d);
+        stage_vec(vd, v + off + d);
       } else {
-        *reinterpret_cast<float4*>(kd) = make_float4(0.f, 0.f, 0.f, 0.f);
-        *reinterpret_cast<float4*>(vd) = make_float4(0.f, 0.f, 0.f, 0.f);
+        zero_vec<VEC>(kd);
+        zero_vec<VEC>(vd);
       }
     }
   }

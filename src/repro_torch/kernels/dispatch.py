@@ -63,10 +63,10 @@ class Kernel:
     # launches of each instantiation, where there is more than one
     variants: dict[str, int] = field(default_factory=dict)
 
-    def count(self, variant: str) -> None:
-        """One launch of instantiation ``variant``."""
-        self.launches += 1
-        self.variants[variant] += 1
+    def count(self, variant: str, n: int = 1) -> None:
+        """``n`` launches of instantiation ``variant``."""
+        self.launches += n
+        self.variants[variant] += n
 
 
 KERNELS: dict[str, Kernel] = {}
@@ -120,6 +120,21 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
 # (flash_attention/csrc/flash_attention.cu)
 HEAD_DIMS = (16, 32, 64, 80, 96, 128)
 FLASH_HEAD_DIMS = (16, 32, 64, 80, 96, 112, 128)
+
+
+# the element types of the attention and page-pool kernels
+# (csrc/attn_tile.cuh, paged_attention/csrc/pool_zero.cu), each an
+# instantiation that its kernel counts apart
+DTYPE_VARIANTS = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def dtype_variant(name: str, t: torch.Tensor) -> str:
+    """The instantiation that takes ``t``'s dtype; raises for another."""
+    v = DTYPE_VARIANTS.get(t.dtype)
+    if v is None:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected one of "
+                         f"{list(DTYPE_VARIANTS)}")
+    return v
 
 
 def require(cond: bool, what: str) -> None:

@@ -1,4 +1,4 @@
-// Causal GQA flash attention, forward, fp32, sm_90a.
+// Causal GQA flash attention, forward, fp32 or bf16, sm_90a.
 //
 // Replaces flash_attention_pallas (_flash_kernel :27, pallas_call :86) of
 // src/repro/kernels/flash_attention/flash_attention.py, the direct-mode
@@ -28,6 +28,13 @@
 //   (32 x 32, not 64 x 64, which would do 4x the products) and d_head 112
 //   maps onto 28 lanes. The products stay fp32 on CUDA cores (no wgmma /
 //   TF32: the path holds fp32 at full precision).
+// bf16 (flash_attention_fwd_bf16): q, k, v and out in bf16, as the Pallas
+// kernel takes any float type, upcasts its tiles and computes in f32
+// (flash_attention.py:39-41) and writes q's type (:61). The tiles widen
+// bf16 to fp32 as they stage (csrc/attn_tile.cuh); the math is the fp32
+// kernel's, and each output is rounded once from f32, to nearest even
+// (__floats2bfloat162_rn). Half the bytes of q, k, v and out: the bound at
+// S 32 halves (0.0004 ms at d_head 128).
 #include "attn_tile.cuh"
 
 namespace {
@@ -35,11 +42,11 @@ namespace {
 template <int D, int ROWS>
 using FlashTile = AttnTile<D, ROWS, 1>;
 
-template <int D, int ROWS>
+template <class T, int D, int ROWS>
 __global__ void __launch_bounds__(ATTN_THREADS)
-flash_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                           const float* __restrict__ v, float* __restrict__ out, int Sq, int Sk,
-                           int Hq, int Hkv, int causal, float sm_scale) {
+flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, T* __restrict__ out, int Sq, int Sk, int Hq,
+                           int Hkv, int causal, float sm_scale) {
   extern __shared__ float4 attn_smem[];
   FlashTile<D, ROWS> tile(reinterpret_cast<float*>(attn_smem));
   const int q0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
@@ -67,18 +74,17 @@ flash_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict_
 
   tile.each_acc([&](int r, int d, float4 a, float l) {
     if (r >= rows) return;
-    float* o = out + (((size_t)b * Sq + q0 + r) * Hq + h) * D + d;
+    T* o = out + (((size_t)b * Sq + q0 + r) * Hq + h) * D + d;
     const float inv = 1.f / fmaxf(l, 1e-30f);
-    *reinterpret_cast<float4*>(o) = make_float4(a.x * inv, a.y * inv, a.z * inv, a.w * inv);
+    store4(o, make_float4(a.x * inv, a.y * inv, a.z * inv, a.w * inv));
   });
 }
 
-template <int D, int ROWS>
-cudaError_t launch_flash(const float* q, const float* k, const float* v, float* out, int B,
-                         int Sq, int Sk, int Hq, int Hkv, int causal, float sm_scale,
-                         cudaStream_t stream) {
+template <class T, int D, int ROWS>
+cudaError_t launch_flash(const T* q, const T* k, const T* v, T* out, int B, int Sq, int Sk,
+                         int Hq, int Hkv, int causal, float sm_scale, cudaStream_t stream) {
   static unsigned long long smem_set = 0;
-  auto kern = flash_attention_fwd_kernel<D, ROWS>;
+  auto kern = flash_attention_fwd_kernel<T, D, ROWS>;
   const size_t smem = FlashTile<D, ROWS>::BYTES;
   cudaError_t e = set_smem_once(kern, smem, smem_set);
   if (e != cudaSuccess) return e;
@@ -87,13 +93,37 @@ cudaError_t launch_flash(const float* q, const float* k, const float* v, float* 
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_flash_rows(const float* q, const float* k, const float* v, float* out, int B,
-                              int Sq, int Sk, int Hq, int Hkv, int causal, float sm_scale,
-                              cudaStream_t stream) {
+template <class T, int D>
+cudaError_t launch_flash_rows(const T* q, const T* k, const T* v, T* out, int B, int Sq, int Sk,
+                              int Hq, int Hkv, int causal, float sm_scale, cudaStream_t stream) {
   if (Sq <= 32)
-    return launch_flash<D, 32>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, sm_scale, stream);
-  return launch_flash<D, 64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, sm_scale, stream);
+    return launch_flash<T, D, 32>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, sm_scale, stream);
+  return launch_flash<T, D, 64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, sm_scale, stream);
+}
+
+template <class T>
+int flash_fwd(const T* q, const T* k, const T* v, T* out, int B, int Sq, int Sk, int Hq, int Hkv,
+              int D, int causal, float sm_scale, cudaStream_t stream) {
+  switch (D) {
+    case 16:
+      return launch_flash_rows<T, 16>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, sm_scale, stream);
+    case 32:
+      return launch_flash_rows<T, 32>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, sm_scale, stream);
+    case 64:
+      return launch_flash_rows<T, 64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, sm_scale, stream);
+    case 80:  // stablelm-3b
+      return launch_flash_rows<T, 80>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, sm_scale, stream);
+    case 96:  // phi3-mini-3.8b
+      return launch_flash_rows<T, 96>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, sm_scale, stream);
+    case 112:  // zamba2-7b's shared block
+      return launch_flash_rows<T, 112>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, sm_scale,
+                                       stream);
+    case 128:
+      return launch_flash_rows<T, 128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, sm_scale,
+                                       stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -103,22 +133,14 @@ cudaError_t launch_flash_rows(const float* q, const float* k, const float* v, fl
 REPRO_API int flash_attention_fwd_f32(const float* q, const float* k, const float* v,
                                       float* out, int B, int Sq, int Sk, int Hq, int Hkv,
                                       int D, int causal, float sm_scale, cudaStream_t stream) {
-  switch (D) {
-    case 16:
-      return launch_flash_rows<16>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, sm_scale, stream);
-    case 32:
-      return launch_flash_rows<32>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, sm_scale, stream);
-    case 64:
-      return launch_flash_rows<64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, sm_scale, stream);
-    case 80:  // stablelm-3b
-      return launch_flash_rows<80>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, sm_scale, stream);
-    case 96:  // phi3-mini-3.8b
-      return launch_flash_rows<96>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, sm_scale, stream);
-    case 112:  // zamba2-7b's shared block
-      return launch_flash_rows<112>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, sm_scale, stream);
-    case 128:
-      return launch_flash_rows<128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, sm_scale, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return flash_fwd(q, k, v, out, B, Sq, Sk, Hq, Hkv, D, causal, sm_scale, stream);
+}
+
+// The same in bf16 (q, k, v and out); the math in fp32, the output rounded
+// once to nearest even.
+REPRO_API int flash_attention_fwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                                       const __nv_bfloat16* v, __nv_bfloat16* out, int B, int Sq,
+                                       int Sk, int Hq, int Hkv, int D, int causal,
+                                       float sm_scale, cudaStream_t stream) {
+  return flash_fwd(q, k, v, out, B, Sq, Sk, Hq, Hkv, D, causal, sm_scale, stream);
 }

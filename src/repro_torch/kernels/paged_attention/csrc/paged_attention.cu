@@ -1,4 +1,4 @@
-// Paged attention for confidential serving, fp32, sm_90a.
+// Paged attention for confidential serving, fp32 or bf16, sm_90a.
 //
 // Replaces the TPU kernel of src/repro/kernels/paged_attention/paged_attention.py:
 //   paged_attention_pallas (_paged_kernel, :98, pallas_call :142)
@@ -52,6 +52,11 @@
 //   floats) still put 8 consecutive rows' float4 reads in distinct banks.
 //   Both archs are MHA (G 1): a decode step's one folded row sits in a row
 //   tile of 8, so 7 of its rows are padding (correct, wasteful: PERF.md).
+//   bf16 (paged_attention_bf16): q and both pools in bf16, as the Pallas
+//   kernel reads its pools in the compute type; the tiles widen them to
+//   fp32 as they stage (csrc/attn_tile.cuh), the math, the partials and the
+//   output stay fp32 (the Pallas kernel returns fp32, paged_attention.py:
+//   152). Half the pool bytes: the bound halves.
 //
 #include "attn_tile.cuh"
 
@@ -61,10 +66,10 @@ template <int D, int ROWS>
 using PagedTile = AttnTile<D, ROWS, 2>;
 
 // part: acc (BH, splits, GC, D), then m and l (BH, splits, GC) each
-template <int D, int ROWS>
+template <class T, int D, int ROWS>
 __global__ void __launch_bounds__(ATTN_THREADS, 2)
-paged_attention_kernel(const float* __restrict__ q, const float* __restrict__ k_pages,
-                       const float* __restrict__ v_pages, const int* __restrict__ tables,
+paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
+                       const T* __restrict__ v_pages, const int* __restrict__ tables,
                        const int* __restrict__ q_start, float* __restrict__ out,
                        float* __restrict__ part, int C, int Hq, int Hkv, int N, int P, int nP,
                        int pps, float sm_scale) {
@@ -176,13 +181,13 @@ paged_combine_kernel(const float* __restrict__ part, float* __restrict__ out, in
   *reinterpret_cast<float4*>(o) = make_float4(acc.x * inv, acc.y * inv, acc.z * inv, acc.w * inv);
 }
 
-template <int D, int ROWS>
-cudaError_t launch_paged_attention(const float* q, const float* k_pages, const float* v_pages,
+template <class T, int D, int ROWS>
+cudaError_t launch_paged_attention(const T* q, const T* k_pages, const T* v_pages,
                                    const int* tables, const int* q_start, float* out,
                                    float* part, int B, int C, int Hq, int Hkv, int N, int P,
                                    int nP, int splits, float sm_scale, cudaStream_t stream) {
   static unsigned long long smem_set = 0;
-  auto kern = paged_attention_kernel<D, ROWS>;
+  auto kern = paged_attention_kernel<T, D, ROWS>;
   const size_t smem = PagedTile<D, ROWS>::BYTES + ROWS * sizeof(int);
   cudaError_t e = set_smem_once(kern, smem, smem_set);
   if (e != cudaSuccess) return e;
@@ -198,24 +203,54 @@ cudaError_t launch_paged_attention(const float* q, const float* k_pages, const f
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_paged_rows(int rows, const float* q, const float* k_pages,
-                              const float* v_pages, const int* tables, const int* q_start,
-                              float* out, float* part, int B, int C, int Hq, int Hkv, int N,
-                              int P, int nP, int splits, float sm_scale, cudaStream_t stream) {
+template <class T, int D>
+cudaError_t launch_paged_rows(int rows, const T* q, const T* k_pages, const T* v_pages,
+                              const int* tables, const int* q_start, float* out, float* part,
+                              int B, int C, int Hq, int Hkv, int N, int P, int nP, int splits,
+                              float sm_scale, cudaStream_t stream) {
   switch (rows) {
     case 8:
-      return launch_paged_attention<D, 8>(q, k_pages, v_pages, tables, q_start, out, part, B, C,
-                                          Hq, Hkv, N, P, nP, splits, sm_scale, stream);
+      return launch_paged_attention<T, D, 8>(q, k_pages, v_pages, tables, q_start, out, part, B,
+                                             C, Hq, Hkv, N, P, nP, splits, sm_scale, stream);
     case 16:
-      return launch_paged_attention<D, 16>(q, k_pages, v_pages, tables, q_start, out, part, B,
-                                           C, Hq, Hkv, N, P, nP, splits, sm_scale, stream);
+      return launch_paged_attention<T, D, 16>(q, k_pages, v_pages, tables, q_start, out, part,
+                                              B, C, Hq, Hkv, N, P, nP, splits, sm_scale, stream);
     case 32:
-      return launch_paged_attention<D, 32>(q, k_pages, v_pages, tables, q_start, out, part, B,
-                                           C, Hq, Hkv, N, P, nP, splits, sm_scale, stream);
+      return launch_paged_attention<T, D, 32>(q, k_pages, v_pages, tables, q_start, out, part,
+                                              B, C, Hq, Hkv, N, P, nP, splits, sm_scale, stream);
     case 64:
-      return launch_paged_attention<D, 64>(q, k_pages, v_pages, tables, q_start, out, part, B,
-                                           C, Hq, Hkv, N, P, nP, splits, sm_scale, stream);
+      return launch_paged_attention<T, D, 64>(q, k_pages, v_pages, tables, q_start, out, part,
+                                              B, C, Hq, Hkv, N, P, nP, splits, sm_scale, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <class T>
+int paged_attention(const T* q, const T* k_pages, const T* v_pages, const int* tables,
+                    const int* q_start, float* out, float* part, int B, int C, int Hq, int Hkv,
+                    int N, int P, int D, int nP, int rows, int splits, float sm_scale,
+                    cudaStream_t stream) {
+  if (splits < 1 || splits > nP) return cudaErrorInvalidValue;
+  switch (D) {
+    case 16:
+      return launch_paged_rows<T, 16>(rows, q, k_pages, v_pages, tables, q_start, out, part, B,
+                                      C, Hq, Hkv, N, P, nP, splits, sm_scale, stream);
+    case 32:
+      return launch_paged_rows<T, 32>(rows, q, k_pages, v_pages, tables, q_start, out, part, B,
+                                      C, Hq, Hkv, N, P, nP, splits, sm_scale, stream);
+    case 64:
+      return launch_paged_rows<T, 64>(rows, q, k_pages, v_pages, tables, q_start, out, part, B,
+                                      C, Hq, Hkv, N, P, nP, splits, sm_scale, stream);
+    case 80:  // stablelm-3b
+      return launch_paged_rows<T, 80>(rows, q, k_pages, v_pages, tables, q_start, out, part, B,
+                                      C, Hq, Hkv, N, P, nP, splits, sm_scale, stream);
+    case 96:  // phi3-mini-3.8b
+      return launch_paged_rows<T, 96>(rows, q, k_pages, v_pages, tables, q_start, out, part, B,
+                                      C, Hq, Hkv, N, P, nP, splits, sm_scale, stream);
+    case 128:
+      return launch_paged_rows<T, 128>(rows, q, k_pages, v_pages, tables, q_start, out, part, B,
+                                       C, Hq, Hkv, N, P, nP, splits, sm_scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -232,27 +267,16 @@ REPRO_API int paged_attention_f32(const float* q, const float* k_pages, const fl
                                   const int* tables, const int* q_start, float* out, float* part,
                                   int B, int C, int Hq, int Hkv, int N, int P, int D, int nP,
                                   int rows, int splits, float sm_scale, cudaStream_t stream) {
-  if (splits < 1 || splits > nP) return cudaErrorInvalidValue;
-  switch (D) {
-    case 16:
-      return launch_paged_rows<16>(rows, q, k_pages, v_pages, tables, q_start, out, part, B, C,
-                                   Hq, Hkv, N, P, nP, splits, sm_scale, stream);
-    case 32:
-      return launch_paged_rows<32>(rows, q, k_pages, v_pages, tables, q_start, out, part, B, C,
-                                   Hq, Hkv, N, P, nP, splits, sm_scale, stream);
-    case 64:
-      return launch_paged_rows<64>(rows, q, k_pages, v_pages, tables, q_start, out, part, B, C,
-                                   Hq, Hkv, N, P, nP, splits, sm_scale, stream);
-    case 80:  // stablelm-3b
-      return launch_paged_rows<80>(rows, q, k_pages, v_pages, tables, q_start, out, part, B, C,
-                                   Hq, Hkv, N, P, nP, splits, sm_scale, stream);
-    case 96:  // phi3-mini-3.8b
-      return launch_paged_rows<96>(rows, q, k_pages, v_pages, tables, q_start, out, part, B, C,
-                                   Hq, Hkv, N, P, nP, splits, sm_scale, stream);
-    case 128:
-      return launch_paged_rows<128>(rows, q, k_pages, v_pages, tables, q_start, out, part, B, C,
-                                    Hq, Hkv, N, P, nP, splits, sm_scale, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return paged_attention(q, k_pages, v_pages, tables, q_start, out, part, B, C, Hq, Hkv, N, P, D,
+                         nP, rows, splits, sm_scale, stream);
+}
+
+// The same with q, k_pages and v_pages in bf16; out and part stay fp32.
+REPRO_API int paged_attention_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k_pages,
+                                   const __nv_bfloat16* v_pages, const int* tables,
+                                   const int* q_start, float* out, float* part, int B, int C,
+                                   int Hq, int Hkv, int N, int P, int D, int nP, int rows,
+                                   int splits, float sm_scale, cudaStream_t stream) {
+  return paged_attention(q, k_pages, v_pages, tables, q_start, out, part, B, C, Hq, Hkv, N, P, D,
+                         nP, rows, splits, sm_scale, stream);
 }

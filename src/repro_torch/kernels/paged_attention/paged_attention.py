@@ -12,6 +12,11 @@ entry points are bound once, the device is switched only when it is not
 already current, and the stream is read once; every check that raises
 stays, and builds its message only when it fails.
 
+Element types: q and the pools are fp32 or bf16, one type for all of
+them; attention returns fp32 whichever it is (as the JAX kernel does), and
+the zeroing keeps the pools' type. Each type is its own instantiation,
+counted apart (``variants``); another type, or a mix, raises.
+
 Layouts (as in the JAX package):
   q                (B, C, Hq, D)   C new tokens per slot
   k_pages/v_pages  (N, P, Hkv, D)  one layer's pool: N pages of P tokens
@@ -28,28 +33,35 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.dispatch import (HEAD_DIMS, check_tensor, register,
-                                          require)
+from repro_torch.kernels.dispatch import (DTYPE_VARIANTS, HEAD_DIMS,
+                                          check_tensor, dtype_variant,
+                                          register, require)
 
+_VARIANTS = tuple(DTYPE_VARIANTS.values())
 PAGED_ATTENTION = register(
     "paged_attention",
     "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
-    "src/repro/kernels/paged_attention/paged_attention.py:128")
+    "src/repro/kernels/paged_attention/paged_attention.py:128",
+    variants=_VARIANTS)
 PAGED_RESET = register(
     "paged_reset",
     "src/repro_torch/kernels/paged_attention/csrc/pool_zero.cu",
-    "src/repro/kernels/paged_attention/paged_attention.py:213")
+    "src/repro/kernels/paged_attention/paged_attention.py:213",
+    variants=_VARIANTS)
 PAGED_ROLLBACK = register(
     "paged_rollback",
     "src/repro_torch/kernels/paged_attention/csrc/pool_zero.cu",
-    "src/repro/kernels/paged_attention/paged_attention.py:184")
+    "src/repro/kernels/paged_attention/paged_attention.py:184",
+    variants=_VARIANTS)
 
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_longlong
-_ATTENTION = _build.Entry("paged_attention_f32",
-                          [_P] * 7 + [_I] * 10 + [_F, _P])
-_ZERO = _build.Entry("pool_zero_f32",
-                     [_P, _P, _I, _P, _P, _I, _LL, _LL, _LL, _P, _I, _P])
+_ATTENTION = {v: _build.Entry(f"paged_attention_{v}",
+                              [_P] * 7 + [_I] * 10 + [_F, _P])
+              for v in _VARIANTS}
+_ZERO = {v: _build.Entry(f"pool_zero_{v}",
+                         [_P, _P, _I, _P, _P, _I, _LL, _LL, _LL, _P, _I, _P])
+         for v in _VARIANTS}
 
 # what a slab is: a page (reset; the TPU kernel paged_reset_pallas) or a
 # token (rollback; paged_rollback_pallas), and the counter of each
@@ -86,14 +98,16 @@ def plan(B: int, Hkv: int, GC: int, nP: int, P: int,
 
 def paged_attention_cuda(q, k_pages, v_pages, tables, q_start) -> torch.Tensor:
     """Launch the paged-attention kernels (the split kernel, then the
-    combine unless one split covers the call); returns fp32
-    (B, C, Hq, D). Counts one launch a call."""
+    combine unless one split covers the call); q and the pools fp32 or
+    bf16, one type; returns fp32 (B, C, Hq, D). Counts one launch a call,
+    on its dtype's variant."""
     dev = q.device
     require(dev.type == "cuda", "paged_attention_cuda takes CUDA tensors")
     f32, i32 = torch.float32, torch.int32
-    check_tensor("q", q, f32, 4, dev)
-    check_tensor("k_pages", k_pages, f32, 4, dev)
-    check_tensor("v_pages", v_pages, f32, 4, dev)
+    variant = dtype_variant("q", q)
+    check_tensor("q", q, q.dtype, 4, dev)
+    check_tensor("k_pages", k_pages, q.dtype, 4, dev)
+    check_tensor("v_pages", v_pages, q.dtype, 4, dev)
     check_tensor("tables", tables, i32, 2, dev)
     check_tensor("q_start", q_start, i32, 1, dev)
     B, C, Hq, D = q.shape
@@ -112,55 +126,61 @@ def paged_attention_cuda(q, k_pages, v_pages, tables, q_start) -> torch.Tensor:
     ptrs = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr())
     require(not (ptrs[0] | ptrs[1] | ptrs[2]) & 15,
             "q, k_pages, v_pages must be 16-byte aligned")
-    out = torch.empty_like(q)
+    # fp32 whatever q's type, as the JAX kernel returns
+    out = torch.empty(q.shape, dtype=f32, device=dev)
     if B == 0 or C == 0:
         return out
     GC = Hq // Hkv * C
     rows, splits = plan(B, Hkv, GC, nP, P, _build.sm_count(dev))
     part = (torch.empty(B * Hkv * splits * GC * (D + 2), dtype=f32, device=dev)
             if splits > 1 else out)
-    err = _ATTENTION.launch(dev, *ptrs, tables.data_ptr(), q_start.data_ptr(),
-                            out.data_ptr(), part.data_ptr(), B, C, Hq, Hkv, N,
-                            P, D, nP, rows, splits, 1.0 / D ** 0.5)
+    err = _ATTENTION[variant].launch(
+        dev, *ptrs, tables.data_ptr(), q_start.data_ptr(), out.data_ptr(),
+        part.data_ptr(), B, C, Hq, Hkv, N, P, D, nP, rows, splits,
+        1.0 / D ** 0.5)
     _build.check(err, "paged_attention")
-    PAGED_ATTENTION.launches += 1
+    PAGED_ATTENTION.count(variant)
     return out
 
 
-def _check_pools(k_pages, v_pages) -> torch.device:
-    """A stacked pool's checks (CUDA, fp32, 5-d, contiguous, K and V
-    alike); returns its device."""
+def _check_pools(k_pages, v_pages, dtype=None) -> tuple:
+    """A stacked pool's checks (CUDA, fp32 or bf16 (``dtype`` when given),
+    5-d, contiguous, K and V alike); returns its device and its dtype's
+    variant."""
     dev = k_pages.device
     if dev.type != "cuda":
         raise ValueError("pool_zero_cuda takes CUDA tensors")
-    check_tensor("k_pages", k_pages, torch.float32, 5, dev)
-    check_tensor("v_pages", v_pages, torch.float32, 5, dev)
+    variant = dtype_variant("k_pages", k_pages)
+    dtype = k_pages.dtype if dtype is None else dtype
+    check_tensor("k_pages", k_pages, dtype, 5, dev)
+    check_tensor("v_pages", v_pages, dtype, 5, dev)
     require(v_pages.shape == k_pages.shape, "k_pages/v_pages shapes differ")
-    return dev
+    return dev, variant
 
 
 def pool_zero_cuda(pools, idx, slab: str) -> None:
     """Launch the zeroing kernel: the distinct slabs among ``idx`` (host
     ints) in every layer of one or two stacked pools ``pools``, a sequence
-    of ``(k_pages, v_pages)`` pairs of (L, N, P, H, D) sharing N, P, H and
-    D, in place. ``slab`` is ``"page"`` (page ids, below N) or ``"token"``
-    (pool token indices ``page*P + t``, below N*P); an index outside that
-    range is skipped. The C entry launches once for each chunk of indices
-    its parameter block holds and returns how many launches it made, which
-    are counted on the slab's kernel (``SLABS``); the indices travel in the
-    launch's parameters, so nothing is copied to the card."""
+    of ``(k_pages, v_pages)`` pairs of (L, N, P, H, D) sharing N, P, H, D
+    and the dtype (fp32 or bf16), in place. ``slab`` is ``"page"`` (page
+    ids, below N) or ``"token"`` (pool token indices ``page*P + t``, below
+    N*P); an index outside that range is skipped. The C entry launches once
+    for each chunk of indices its parameter block holds and returns how
+    many launches it made, which are counted on the slab's kernel
+    (``SLABS``), on its dtype's variant; the indices travel in the launch's
+    parameters, so nothing is copied to the card."""
     if not 1 <= len(pools) <= 2:
         raise ValueError(f"pool_zero takes one or two pools, got {len(pools)}")
     counter = SLABS.get(slab)
     if counter is None:
         raise ValueError(f"slab {slab!r}: expected one of {sorted(SLABS)}")
     (k_a, v_a), *rest = pools
-    dev = _check_pools(k_a, v_a)
+    dev, variant = _check_pools(k_a, v_a)
     L_a, N, P, H, D = k_a.shape
     kb = vb = L_b = 0
     if rest:
         (k_b, v_b), = rest
-        _check_pools(k_b, v_b)
+        _check_pools(k_b, v_b, k_a.dtype)
         if k_b.device != dev:
             raise ValueError(f"pools on {dev} and {k_b.device}")
         if k_b.shape[1:] != k_a.shape[1:]:
@@ -178,9 +198,9 @@ def pool_zero_cuda(pools, idx, slab: str) -> None:
     if not ids:
         return
     ids = array.array("i", ids)  # the C entry reads them in place
-    made = _ZERO.launch(dev, k_a.data_ptr(), v_a.data_ptr(), L_a, kb, vb,
-                        L_b, N * P * H * D, limit, width,
-                        ids.buffer_info()[0], len(ids))
+    made = _ZERO[variant].launch(dev, k_a.data_ptr(), v_a.data_ptr(), L_a,
+                                 kb, vb, L_b, N * P * H * D, limit, width,
+                                 ids.buffer_info()[0], len(ids))
     if made < 0:
         _build.check(-made, "pool_zero")
-    counter.launches += made
+    counter.count(variant, made)

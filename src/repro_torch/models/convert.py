@@ -31,6 +31,10 @@ FAMILIES = {"dense": Transformer, "ssm": RWKVStack, "hybrid": Hybrid}
 
 def _copy(dst: torch.Tensor, src, name: str) -> None:
     src = np.asarray(src)
+    if src.dtype.kind not in "biuf":
+        raise ValueError(f"{name}: numpy dtype {src.dtype} (numpy has no "
+                         f"bf16); pass bf16 leaves as fp32 arrays, "
+                         f"np.asarray(leaf, np.float32), which is exact")
     if tuple(src.shape) != tuple(dst.shape):
         raise ValueError(f"{name}: JAX shape {src.shape}, port shape "
                          f"{tuple(dst.shape)}")
@@ -51,7 +55,11 @@ def _jax_leaf(np_tree: dict, name: str):
 
 def params_from_jax(np_tree: dict, cfg: ModelConfig, device,
                     dtype=torch.float32):
-    """The port's module of ``cfg.family`` holding the JAX tree's weights."""
+    """The port's module of ``cfg.family`` holding the JAX tree's weights,
+    in ``dtype`` (fp32, or bf16 as JAX's ``build_model(param_dtype=
+    jnp.bfloat16)`` holds them: its bf16 leaves cross as fp32 arrays, exact
+    both ways, and are rounded back here; the port imports no
+    ``ml_dtypes``)."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet; see ROADMAP.md queue "

@@ -2,7 +2,8 @@
 Port of ``repro/runtime/serving/paged_cache.py``.
 
 The device state is ONE shared pool per layer (``models.attention.
-init_paged_pool``); this class owns the free list, per-page refcounts, the
+init_paged_pool``, in the model's compute dtype: fp32 or bf16, the draft
+pool's too); this class owns the free list, per-page refcounts, the
 per-slot block tables and lengths, and the admission-time zeroing. The
 leak-freedom contract lives at the ``alloc`` boundary: a slot's *fresh*
 pages are zeroed in-kernel (``paged_reset``) before the slot's table row is
@@ -84,6 +85,11 @@ class PagePool:
         # the (k, v) pools every zeroing event covers: target, then draft
         self._kv = [(p["k_pages"], p["v_pages"]) for p in
                     (self.pages, self.draft_pages) if p is not None]
+
+    @property
+    def free_pages(self) -> int:
+        """Pages on the free list (idle prefix-index pages not counted)."""
+        return len(self.free)
 
     def alloc(self, slot: int, n: int, shared: Sequence[int] = ()) -> bool:
         """Claim ``n`` pages for ``slot``: map the ``shared`` prefix pages

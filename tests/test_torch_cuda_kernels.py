@@ -38,7 +38,12 @@ kernels; the smoke ssm and hybrid training, fused and barrier, on the card
 against the CPU), and the per-leaf normal draw (``normal`` and
 ``normal_combine`` bit-equal to their plain versions at ragged sizes and at
 counters past 2**32, ``corrected_noise`` one launch a leaf tensor and within NOISY_ATOL of the
-CPU, whose ``log1p`` is libm's).
+CPU, whose ``log1p`` is libm's), and bf16 serving (flash attention's bf16
+instantiation within one bf16 ulp of its plain version and bit-equal to
+the fp32 kernel on the widened inputs, paged attention on bf16 q and pools
+likewise, the page pools' zeroing on bf16 pools bit for bit, dtype mixes
+refused, the smoke config served in bf16 in every mode on the bf16
+instantiations only, card against CPU).
 """
 import copy
 import dataclasses
@@ -87,6 +92,7 @@ from repro_torch.kernels.rwkv6.rwkv6 import wkv_bwd_cuda, wkv_cuda
 from repro_torch.kernels.zsmask import ops as zs_ops
 from repro_torch.kernels.zsmask import ref as zs_ref
 from repro_torch.kernels.zsmask.zsmask import zsmask_cuda
+from repro_torch.runtime.server import WaveServer
 from repro_torch.runtime.serving import PagePool, zipf_requests
 from repro_torch.runtime.serving.scheduler import _draft_of
 
@@ -100,6 +106,12 @@ SLICE_ATOL = SLICE_RTOL = 1e-4
 # the scans against their plain chunked versions: the JAX package's bounds
 # for its kernels against the recurrence (tests/test_kernels.py)
 WKV_ATOL, WKV_STRONG_ATOL, SSD_ATOL = 2e-5, 1e-4, 5e-5
+# the smoke-size slice in bf16, card vs CPU and one serving mode against
+# another: each package's bf16 logits lie about 0.05 from its fp32 logits at
+# |logit| up to 4, and the port's lie within 0.042 of JAX's
+# (tests/test_torch_bf16_serving.py); two bf16 runs whose products and
+# attention round at other places are held to the same bound as that file
+BF16_SLICE_ATOL = 0.1
 
 
 @pytest.fixture
@@ -1573,3 +1585,262 @@ def test_normal_wrappers_refuse_what_the_kernel_does_not_take(cuda):
                                 torch.tensor(1.0))
     with pytest.raises(ValueError, match="contiguous fp32"):
         prng_ops.normal(key, 0, torch.empty(4, 6, device=cuda).t())
+
+
+# ---------------------------------------------------------------------------
+# bf16: the attention kernels and the page pools' zeroing in the compute
+# type of bf16 serving
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 unit in the last place at |x| (8 significant bits)."""
+    _, e = torch.frexp(x.float().abs().clamp_min(2.0 ** -126))
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,causal", [
+    (4, 32, 16, 2, 128, True),     # qwen2.5-3b's direct-mode prefill
+    (4, 32, 32, 32, 112, True),    # zamba2-7b's shared block
+    (4, 32, 32, 32, 80, True),     # stablelm-3b
+    (4, 32, 32, 32, 96, True),     # phi3-mini-3.8b
+    (2, 100, 8, 4, 112, False),    # ragged tiles, 64-row tile
+    (2, 33, 16, 2, 128, True),
+    (2, 13, 4, 2, 16, True),       # smoke head dims
+    (1, 77, 4, 2, 32, True),
+    (1, 70, 8, 8, 64, False),
+])
+def test_flash_bf16_kernel_within_one_ulp_of_plain(cuda, B, S, Hq, Hkv, D,
+                                                   causal):
+    """bf16 in and out, fp32 inside: bit-equal to the fp32 kernel on the
+    widened inputs rounded once (the same fp32 math), and within one bf16
+    ulp of the plain version past the fp32 gate (the two fp32 results agree
+    within ATOL / RTOL, and each rounds once)."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v = (torch.randn(B, S, H, D, device=cuda, generator=g)
+               .to(torch.bfloat16) for H in (Hq, Hkv, Hkv))
+    kern = dispatch.KERNELS["flash_attention"]
+    dispatch.reset_launches()
+    got = flash_ops.flash_attention(q, k, v, causal=causal)
+    assert kern.variants == {"f32": 0, "bf16": 1}
+    wide = flash_ops.flash_attention(q.float(), k.float(), v.float(),
+                                     causal=causal)
+    want = flash_ref.attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert kern.variants == {"f32": 1, "bf16": 1}
+    split = got.view(torch.int16) != wide.to(torch.bfloat16).view(torch.int16)
+    assert not split.any(), f"{int(split.sum())} elements differ from the " \
+                            f"fp32 kernel's, rounded"
+    err = (got.float() - want.float()).abs()
+    gate = ATOL + RTOL * want.float().abs() + bf16_ulp(
+        torch.maximum(got.float().abs(), want.float().abs()))
+    assert bool((err <= gate).all()), float((err - gate).max())
+    dispatch.reset_launches()
+
+
+@pytest.mark.parametrize("B,C,Hq,Hkv,D,N,P,nP,q_start", [
+    (4, 1, 16, 2, 128, 160, 16, 32, [0, 170, 511, -1]),   # qwen2.5-3b
+    (4, 4, 16, 2, 128, 160, 16, 32, [0, 170, 508, -1]),
+    (4, 16, 16, 2, 128, 160, 16, 32, [0, 170, 496, -1]),
+    (4, 1, 32, 32, 80, 160, 16, 32, [0, 170, 511, -1]),   # Hkv 32
+    (4, 16, 32, 32, 96, 160, 16, 32, [0, 170, 496, -1]),
+    (3, 4, 4, 2, 16, 12, 8, 3, [-1, 3, 8]),               # smoke head dim
+    (3, 4, 8, 4, 64, 40, 4, 13, [0, 17, 48]),
+])
+def test_paged_attention_bf16_kernel_matches_plain(cuda, B, C, Hq, Hkv, D, N,
+                                                   P, nP, q_start):
+    """bf16 q and pools, fp32 out: within the fp32 tolerance of the plain
+    version, and bit-equal to the fp32 kernel on the widened inputs."""
+    args = _paged(cuda, B, C, Hq, Hkv, D, N, P, nP, q_start)
+    args = [a.to(torch.bfloat16) for a in args[:3]] + list(args[3:])
+    kern = dispatch.KERNELS["paged_attention"]
+    dispatch.reset_launches()
+    got = paged_ops.paged_attention(*args)
+    assert kern.variants == {"f32": 0, "bf16": 1}
+    wide = paged_ops.paged_attention(*[a.float() for a in args[:3]],
+                                     *args[3:])
+    want = paged_ref.paged_attention_ref(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == torch.float32
+    assert torch.equal(got, wide)
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+    dispatch.reset_launches()
+
+
+@pytest.mark.parametrize("slab", ["page", "token"])
+@pytest.mark.parametrize("layers,H,D", [
+    ((36, 4), 2, 128),    # qwen2.5-3b's target and a 4-layer draft
+    ((2,), 32, 80),       # stablelm-3b's slab
+    ((3, 1), 3, 4),       # H*D = 12: 16-byte stores in fp32, not in bf16
+    ((3, 1), 3, 5),       # H*D = 15: scalar stores
+])
+def test_pool_zero_bf16_kernel_bit_equal_and_isolated(cuda, slab, layers, H,
+                                                      D):
+    """bf16 pools: bit-equal to the plain version (+0.0 over NaN and
+    negative lanes), every slab outside the list untouched, one launch on
+    the bf16 variant."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    N, P = 40, 16
+    pools = [tuple(t.to(torch.bfloat16) for t in
+                   _pool_pair(cuda, g, L, N, P, H, D)) for L in layers]
+    limit = N if slab == "page" else N * P
+    idx = [1, 7, 3, 7, 19, 1, -1, limit, limit + 5]
+    want = [(k.clone(), v.clone()) for k, v in pools]
+    orig = [(k.clone(), v.clone()) for k, v in pools]
+    name = "paged_" + ("reset" if slab == "page" else "rollback")
+    dispatch.reset_launches()
+    paged_ops.pool_zero(pools, idx, slab)
+    paged_ref.pool_zero_ref(want, idx, slab)
+    torch.cuda.synchronize()
+    assert dispatch.KERNELS[name].variants == {"f32": 0, "bf16": 1}
+    named = torch.zeros(limit, dtype=torch.bool, device=cuda)
+    named[[i for i in idx if 0 <= i < limit]] = True
+    for (k, v), (kw, vw), (k0, v0) in zip(pools, want, orig):
+        for got, w, o in ((k, kw, k0), (v, vw, v0)):
+            bits = got.view(torch.int16)
+            assert torch.equal(bits, w.view(torch.int16))
+            flat = bits.view(got.shape[0], limit, -1)
+            assert (flat[:, named] == 0).all()
+            assert torch.equal(flat[:, ~named],
+                               o.view(torch.int16).view(o.shape[0], limit,
+                                                        -1)[:, ~named])
+    dispatch.reset_launches()
+
+
+def test_bf16_wrappers_refuse_other_types_and_mixes(cuda):
+    """A bf16 CUDA tensor reaches its bf16 kernel or raises: fp16, and q
+    against pools (or K against V, or a target pool against its draft's) of
+    another type, raise; nothing runs the plain version."""
+    q, kp, vp, tables, qs = _paged(cuda, 2, 1, 4, 2, 128, 8, 16, 2, [0, 1])
+    bq, bk, bv = q.bfloat16(), kp.bfloat16(), vp.bfloat16()
+    dispatch.reset_launches()
+    for args in ((bq, kp, vp), (q, bk, bv), (bq, bk, vp), (q.half(),
+                                                          kp.half(),
+                                                          vp.half())):
+        with pytest.raises(ValueError, match="dtype"):
+            paged_ops.paged_attention(*args, tables, qs)
+    fq = torch.zeros(1, 4, 2, 128, device=cuda)
+    for args in ((fq.bfloat16(), fq, fq), (fq, fq.bfloat16(), fq),
+                 (fq.half(),) * 3):
+        with pytest.raises(ValueError, match="dtype"):
+            flash_ops.flash_attention(*args)
+    pools = torch.zeros(2, 8, 16, 2, 128, device=cuda)
+    bp = pools.bfloat16()
+    for pair in ([(bp, pools)], [(bp, bp.clone()), (pools, pools.clone())],
+                 [(pools.half(), pools.half())]):
+        with pytest.raises(ValueError, match="dtype"):
+            pool_zero_cuda(pair, [1], "page")
+    assert sum(dispatch.launch_counts().values()) == 0
+
+
+class _WaveTrace:
+    """A wave server's logits row by row, keyed by the row's prompt, from
+    its model's prefill and decode calls."""
+
+    def __init__(self):
+        self.rows: dict = {}
+        self._wave: list = []
+
+    def model(self, model):
+        def prefill(p, tokens, cache):
+            logits = model.prefill(p, tokens, cache)
+            self._wave = [self.rows.setdefault(t.tobytes(), []) for t in
+                          tokens.cpu().numpy().astype(np.int32)]
+            self._add(logits)
+            return logits
+
+        def decode(p, tokens, cache):
+            logits = model.decode_step(p, tokens, cache)
+            self._add(logits)
+            return logits
+
+        return dataclasses.replace(model, prefill=prefill, decode_step=decode)
+
+    def _add(self, logits) -> None:
+        for row, x in zip(self._wave, logits.float().cpu().numpy()):
+            row.append(x)
+
+    def of(self, req) -> list:
+        return self.rows[np.asarray(req.prompt, np.int32).tobytes()]
+
+
+def _margin(logits) -> float:
+    top = np.sort(np.asarray(logits, np.float32))[-2:]
+    return float(top[1] - top[0])
+
+
+def _held_up_to_near_ties(ref_reqs, reqs, ref_trace, trace, atol) -> int:
+    """Logits within ``atol`` token by token; a request's tokens may part
+    only where the reference's top-2 margin is within 2 * atol, and are not
+    compared past it. Returns the tokens compared."""
+    compared = 0
+    for ra, rb in zip(ref_reqs, reqs):
+        ta, tb = ref_trace(ra), trace(rb)
+        for j, (a, b) in enumerate(zip(ta[:len(ra.generated)], tb)):
+            np.testing.assert_allclose(b, a, atol=atol, rtol=0,
+                                       err_msg=f"rid {rb.rid} token {j}")
+            compared += 1
+            if rb.generated[j] != ra.generated[j]:
+                assert _margin(a) <= 2 * atol, (rb.rid, j, _margin(a))
+                break
+        else:
+            assert rb.generated == ra.generated
+    return compared
+
+
+def test_smoke_bf16_serving_on_card_launches_the_bf16_kernels(cuda):
+    """The smoke config in bf16 on the card, every mode: flash, paged
+    attention, reset and rollback on their bf16 variants only; continuous
+    held to wave and speculative to continuous (logits within
+    BF16_SLICE_ATOL, tokens equal but at near-ties); direct logits within
+    BF16_SLICE_ATOL of the CPU's (the plain versions, the same weights)."""
+    from repro_torch.runtime.serving import ContinuousServer
+
+    gpu = Session.from_config("qwen2.5-3b", compute_dtype=torch.bfloat16)
+    cpu = Session.from_config("qwen2.5-3b", compute_dtype=torch.bfloat16,
+                              device="cpu")
+    p_gpu = gpu.init_params()
+    p_cpu = copy.deepcopy(p_gpu).to("cpu")
+    prompt = np.random.default_rng(0).integers(0, gpu.cfg.vocab_size, (3, 12))
+    dispatch.reset_launches()
+    a = gpu.serve(prompt=prompt, params=p_gpu, max_new_tokens=5)
+    var = dispatch.variant_counts()
+    assert var["flash_attention"] == {"f32": 0, "bf16": gpu.cfg.n_layers}
+    b = cpu.serve(prompt=prompt, params=p_cpu, max_new_tokens=5)
+    assert a.logits.dtype == torch.bfloat16
+    torch.testing.assert_close(a.logits.float().cpu(), b.logits.float(),
+                               atol=BF16_SLICE_ATOL, rtol=0)
+    reqs = zipf_requests(5, gpu.cfg.vocab_size, min_len=3, max_len=16,
+                         max_new_low=2, max_new_high=6, seed=0)
+    kw = dict(max_batch=2, max_len=32, page_size=4, prefill_chunk=4)
+    runs = {}
+    for kind, extra in (("wave", None), ("continuous", {}),
+                        ("speculative", dict(speculative=True, spec_k=4,
+                                             draft_layers=1))):
+        rs = copy.deepcopy(reqs)
+        dispatch.reset_launches()
+        if extra is None:
+            wt = _WaveTrace()
+            srv = WaveServer(wt.model(gpu.model), p_gpu, max_batch=2,
+                             max_len=32)
+            trace = wt.of
+        else:
+            srv = ContinuousServer(gpu.model, p_gpu, trace_logits=True,
+                                   **kw, **extra)
+            trace = (lambda s: lambda r: s.logit_trace[r.rid])(srv)
+        for r in rs:
+            srv.submit(r)
+        assert srv.run_until_drained().drained
+        var = dispatch.variant_counts()
+        assert all(v.get("f32", 0) == 0 for v in var.values()), var
+        if extra is not None:
+            assert var["paged_attention"]["bf16"] > 0
+            assert var["paged_reset"]["bf16"] == len(reqs)
+        if kind == "speculative":
+            assert var["paged_rollback"]["bf16"] > 0
+        runs[kind] = (rs, trace)
+    (rw, tw), (rc, tc), (rsp, tsp) = (runs[k] for k in (
+        "wave", "continuous", "speculative"))
+    assert _held_up_to_near_ties(rw, rc, tw, tc, BF16_SLICE_ATOL) > 10
+    assert _held_up_to_near_ties(rc, rsp, tc, tsp, BF16_SLICE_ATOL) > 10
+    dispatch.reset_launches()

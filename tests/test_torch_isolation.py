@@ -1,7 +1,11 @@
 """The port stands alone: importing every ``repro_torch`` module,
 ``chip_smoke.py`` and ``examples/collaborative_mnist_torch.py`` leaves
 ``jax`` and every ``repro`` module out of ``sys.modules``. Checked in a
-fresh interpreter, since this test process imports both packages."""
+fresh interpreter, since this test process imports both packages. And no
+import statement in those files, at module level or inside a function (the
+phases of ``chip_smoke.py``, ``--bf16`` among them, import inside
+``main``), names ``jax`` or ``repro``."""
+import ast
 import os
 import pathlib
 import subprocess
@@ -59,7 +63,14 @@ for name in ("core.prng", "core.flatbuf", "core.clipping", "core.barrier",
              "configs.mistral_large_123b",
              # ledger wiring and persistence
              "core.accountant", "data.pipeline", "checkpoint",
-             "checkpoint.checkpointer"):
+             "checkpoint.checkpointer",
+             # bf16 serving and the rest of serving
+             "api", "launch.serve", "runtime.server",
+             "runtime.serving.paged_cache", "runtime.serving.scheduler",
+             "runtime.serving.load", "kernels.flash_attention.flash_attention",
+             "kernels.paged_attention.paged_attention",
+             "kernels.paged_attention.ops", "models.attention",
+             "models.transformer", "models.hybrid"):
     assert "repro_torch." + name in names, name
 """
 
@@ -71,3 +82,25 @@ def test_port_imports_neither_jax_nor_repro():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     assert res.stdout.strip().endswith("[]")
+
+
+def _imported(path: pathlib.Path) -> set:
+    """The top-level package of every import statement in ``path``."""
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module.split(".")[0])
+    return names
+
+
+def test_no_import_statement_names_jax_or_repro():
+    files = [ROOT / "chip_smoke.py",
+             ROOT / "examples" / "collaborative_mnist_torch.py",
+             *sorted((ROOT / "src" / "repro_torch").rglob("*.py"))]
+    assert len(files) > 100
+    for path in files:
+        bad = _imported(path) & {"jax", "jaxlib", "repro"}
+        assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+    assert "repro_torch" in _imported(ROOT / "chip_smoke.py")

@@ -168,8 +168,11 @@ def test_variant_counts_count_each_instantiation_apart():
     k.count("prev")
     k.count("plain")
     assert dispatch.launch_counts()["zsmask_buffer"] == 3
-    assert dispatch.variant_counts() == {
-        "zsmask_buffer": {"plain": 1, "prev": 2}}
+    counts = dispatch.variant_counts()
+    assert counts.pop("zsmask_buffer") == {"plain": 1, "prev": 2}
+    # the other kernels built in more than one instantiation (the attention
+    # and page-pool kernels, one a dtype) launched nothing
+    assert all(n == 0 for v in counts.values() for n in v.values())
     dispatch.reset_launches()
     assert dispatch.launch_counts()["zsmask_buffer"] == 0
     assert dispatch.variant_counts()["zsmask_buffer"] == {"plain": 0,
