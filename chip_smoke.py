@@ -28,6 +28,7 @@ against the host CPU.
     python3 chip_smoke.py --normal              # phase 21 alone
     python3 chip_smoke.py --tree                # phase 22 alone
     python3 chip_smoke.py --bf16                # phase 23 alone
+    python3 chip_smoke.py --families            # phase 24 (not in the full run)
 
 ``--scans`` runs only the card line, the build and phase 11's scans (their
 checks and times, no launch configuration), from the ``repro_torch`` under
@@ -48,7 +49,8 @@ against the pinned bound), on trees that have ``ops.noise_stream``.
 and prints the hash of what it drew (no kernel is built for a tree
 without the normal kernels): a parent and a change in one call, trees
 that have the scan tier. ``--normal`` runs that noise stage with its
-launches, then phase 21; ``--tree`` runs phase 22; ``--bf16`` phase 23.
+launches, then phase 21; ``--tree`` runs phase 22; ``--bf16`` phase 23;
+``--families`` phase 24.
 
 Phases (any failed check raises, and the script exits non-zero):
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
@@ -326,7 +328,30 @@ Phases (any failed check raises, and the script exits non-zero):
      and rwkv6-7b (direct, and a whole-prompt prefill: the scans run fp32)
      in bf16 at published width and depth; (d) a narrow qwen2.5-3b in bf16,
      card vs CPU within BF16_ATOL; no plain attention or page-pool call on
-     the card through (b)-(d).
+     the card through (b)-(d);
+ 24. (``--families`` only: the full run with it took 1029.6 s of its 1200
+     on an H100 80GB HBM3 at 700 W) the MoE, VLM and encoder families at
+     published width: (a) flash
+     attention (B 4, S 32) and paged attention (C 1, 4 and 16) at
+     phi3.5-moe's heads (32/8, G 4) and qwen3-moe's (64/4, G 16, where a
+     chunk folds 256 rows into four row tiles), flash at qwen2-vl's
+     (64/8) and flash without the causal mask at hubert-xlarge's shape (B
+     4, S 64, 16 heads, MHA, d_head 80; on no main path yet), each
+     against its plain version and timed as phase 3's rows; (b)
+     phi3.5-moe at 8 of 32 layers (42.7 GB) through ``Session.serve``:
+     direct, wave and continuous at the defaults (4 slots, page 16, chunk
+     16, max_len 512), launches counted, and at 1 layer card vs CPU
+     (logits after a prefill and 3 decode steps within CROSS_ATOL /
+     CROSS_RTOL, wave and continuous tokens equal); (c) qwen3-moe at 4 of
+     94 layers, direct and continuous; (d) qwen2-vl at 8 of 80 layers,
+     direct over tokens, and a prefill on embeds with distinct (3, B, S)
+     M-RoPE ids through flash, its last logits held to ``forward``
+     without a cache; (e) hubert-xlarge at its published size (1.26 B), 3
+     fused steps and 1 barrier step on frame embeds (B 16, S 64) over 4
+     silos; (f) phi3.5-moe at 1 layer (P 1.56 B), 2 fused steps with the
+     aux loss, and every silo's packed gradient computed twice,
+     bit-equal; peak memory and ms a step of each; no plain attention or
+     page-pool call on the card through (b)-(f).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -887,33 +912,36 @@ def check_pool_zero(cfg, dev, gen, ops, ref, dtype=torch.float32) -> None:
               f"{DTYPE_NAMES[dtype]}) differs from its plain version")
 
 
-def check_flash(cfg, dev, gen, B, S, ops, ref, F):
+def check_flash(cfg, dev, gen, B, S, ops, ref, F, causal: bool = True):
     Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     q = torch.randn(B, S, Hq, D, device=dev, generator=gen)
     k = torch.randn(B, S, Hkv, D, device=dev, generator=gen)
     v = torch.randn(B, S, Hkv, D, device=dev, generator=gen)
-    got = ops.flash_attention(q, k, v, causal=True)
-    want = ref.attention_ref(q, k, v, causal=True)
+    got = ops.flash_attention(q, k, v, causal=causal)
+    want = ref.attention_ref(q, k, v, causal=causal)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     check(torch.allclose(got, want, atol=KERNEL_ATOL, rtol=KERNEL_RTOL),
-          f"flash_attention disagrees with its plain version ({err})")
+          f"flash_attention (causal={causal}) disagrees with its plain "
+          f"version ({err})")
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    pairs = S * (S + 1) // 2
+    pairs = S * (S + 1) // 2 if causal else S * S
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * 4
     bms, by = bound(nbytes, 4 * D * Hq * B * pairs)
-    call = lambda: ops.flash_attention(q, k, v, causal=True)  # noqa: E731
+    call = lambda: ops.flash_attention(q, k, v, causal=causal)  # noqa: E731
     sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qt, kt, vt, is_causal=True, enable_gqa=True)
+        qt, kt, vt, is_causal=causal, enable_gqa=True)
     return {
         "max_abs_err": err,
         "ms": cuda_ms(call),
         "device_ms": graph_ms(call),
-        "plain_ms": cuda_ms(lambda: ref.attention_ref(q, k, v, causal=True)),
+        "plain_ms": cuda_ms(lambda: ref.attention_ref(q, k, v,
+                                                      causal=causal)),
         "library_ms": cuda_ms(sdpa),
         "library_device_ms": graph_ms(sdpa),
         "bound_ms": bms, "bound_by": by,
-        "at": f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} causal fp32",
+        "at": f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} "
+              f"{'causal' if causal else 'non-causal'} fp32",
     }
 
 
@@ -3611,7 +3639,9 @@ def one_phase(phase: str, src: Path) -> int:
     (:func:`cifar_phase`), the scan tier's noise stage on WRN28
     (:func:`prng_phase`; no build for a tree without the normal kernels),
     phase 21 (:func:`normal_phase`, after WRN28's noise stage with its
-    launches), phase 22 (:func:`tree_phase`) or phase 23 (:func:`bf16_phase`) alone, from the ``repro_torch`` under ``src`` (another
+    launches), phase 22 (:func:`tree_phase`), phase 23 (:func:`bf16_phase`)
+    or phase 24 (:func:`families_phase`) alone, from the ``repro_torch``
+    under ``src`` (another
     tree's, to time two trees in one call); the last line is their JSON
     record."""
     if not torch.cuda.is_available():
@@ -3659,6 +3689,9 @@ def one_phase(phase: str, src: Path) -> int:
         record["rows"] = rows
     elif phase == "bf16":
         record, rows = bf16_phase(dev)
+        record["rows"] = rows
+    elif phase == "families":
+        record, rows = families_phase(dev)
         record["rows"] = rows
     else:
         log(f"[kernel] clip_mask SASS, live (a report; the bound uses "
@@ -4008,9 +4041,10 @@ def check_scan_backward(dev, seed: int) -> dict:
 
 
 def train_cell(Session, cfg, priv, opt, mesh, steps: int, want: dict,
-               log_name: str) -> dict:
+               log_name: str, next_batch=None) -> dict:
     """One training cell through ``Session.train``: ``steps`` steps at
-    batch 16 x 64 from random weights (seed 0), the launch counts zeroed
+    batch 16 x 64 (synthetic tokens, or ``next_batch``'s batches) from
+    random weights (seed 0), the launch counts zeroed
     just before and read just after and equal to ``want`` a step (a count
     given as a function takes the cell's layout), nothing else, and no
     plain per-leaf draw on the card. Losses finite, epsilon rising, the
@@ -4029,7 +4063,7 @@ def train_cell(Session, cfg, priv, opt, mesh, steps: int, want: dict,
     dispatch.reset_launches()
     with plain_draw_spy(spy):
         res = sess.train(steps=steps, batch_size=16, seq_len=64,
-                         state=state, log_every=1)
+                         state=state, log_every=1, next_batch=next_batch)
     n = {k: v for k, v in dispatch.launch_counts().items() if v}
     peak = torch.cuda.max_memory_allocated()
     moved = (master[probe] - before).abs().max().item()
@@ -4710,73 +4744,83 @@ def check_new_widths(dev, seed: int) -> dict:
     return rows
 
 
-def serve_dense(Session, arch: str, log_name: str) -> dict:
-    """Phase 18(b): one dense arch at published width and depth through
-    ``Session.serve``: direct (batch 4, prompt 32, 16 new) and 8 Zipf
-    requests through 4 wave and 4 continuous slots (pages 16, chunk 16),
-    the launch counts zeroed just before each and read just after (flash
-    once a layer a prefill; the continuous run's paged attention a
-    positive multiple of the depth, ``paged_reset`` once an admission, no
-    flash); continuous equals wave token for token."""
+def serve_modes(Session, cfg, modes: tuple, log_name: str) -> tuple:
+    """One arch's config (published width, its depth or a cut) through
+    ``Session.serve`` in each of ``modes`` (direct: batch 4, prompt 32, 16
+    new; wave and continuous: 8 Zipf requests through 4 slots, pages 16,
+    chunk 16, max_len 512, the defaults), random weights from a seed, the
+    launch counts zeroed just before each mode and read just after: flash
+    once a layer a prefill, paged attention a positive multiple of the
+    depth and ``paged_reset`` once an admission, nothing else. Returns
+    ``(record, session, params, {mode: tokens})``; the caller frees the
+    weights."""
     from repro_torch.kernels import dispatch
     from repro_torch.runtime.serving import zipf_requests
 
-    sess = Session.from_config(arch, full=True, seed=0)
-    cfg = sess.cfg
+    arch = cfg.name
+    sess = Session.from_config(cfg, seed=0)
     L, V = cfg.n_layers, cfg.vocab_size
     params, init_s = timed(sess.init_params)
     n_params = sum(p.numel() for p in params.parameters())
-    log(f"[{log_name}] {arch} full width ({L} layers, d_head {cfg.d_head}, "
-        f"{cfg.n_heads}/{cfg.n_kv_heads} heads): {n_params / 1e9:.3f} B fp32 "
-        f"params ({n_params * 4 / 1e9:.2f} GB) on the card in {init_s:.1f} s")
+    moe = (f", {cfg.n_experts} experts top-{cfg.top_k}, capacity factor "
+           f"{cfg.moe_capacity_factor}" if cfg.is_moe() else "")
+    log(f"[{log_name}] {arch} full width, {L} layers ({cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads, d_head {cfg.d_head}{moe}): "
+        f"{n_params / 1e9:.3f} B fp32 params ({n_params * 4 / 1e9:.2f} GB) "
+        f"on the card in {init_s:.1f} s")
     sess.serve(batch_size=4, prompt_len=32, max_new_tokens=2, params=params)
     torch.cuda.reset_peak_memory_stats()
-    dispatch.reset_launches()
-    direct = sess.serve(batch_size=4, prompt_len=32, max_new_tokens=16,
-                        params=params)
-    n_direct = {k: v for k, v in dispatch.launch_counts().items() if v}
-    check(direct.tokens.shape == (4, 16)
-          and bool(((direct.tokens >= 0) & (direct.tokens < V)).all())
-          and tuple(direct.logits.shape) == (4, V)
-          and bool(torch.isfinite(direct.logits).all()),
-          f"{arch} direct tokens or logits")
-    check(n_direct == {"flash_attention": L},
-          f"{arch} direct launches {n_direct}, expected flash {L}x")
     reqs = zipf_requests(8, V, min_len=8, max_len=48, max_new_low=8,
                          max_new_high=24, seed=0)
-    runs = {}
-    for kind in ("wave", "continuous"):
+    out = {"config": f"{arch} published width, {L} layers (d_head "
+                     f"{cfg.d_head}, Hkv {cfg.n_kv_heads}), fp32",
+           "n_params": n_params, "init_s": init_s}
+    tokens = {}
+    for mode in modes:
         dispatch.reset_launches()
-        res = sess.serve(scheduler=kind, requests=copy.deepcopy(reqs),
-                         params=params, max_batch=4, max_len=512,
-                         page_size=16, prefill_chunk=16)
-        runs[kind] = (res, {k: v for k, v in dispatch.launch_counts().items()
-                            if v})
-    (wave, n_wave), (cont, n_cont) = runs["wave"], runs["continuous"]
-    peak = torch.cuda.max_memory_allocated()
-    check(wave.stats.drained and cont.stats.drained,
-          f"{arch}: a server did not drain")
-    check(bool((cont.tokens == wave.tokens).all()),
-          f"{arch}: continuous tokens differ from wave tokens")
-    check(n_wave == {"flash_attention": L * wave.stats.waves},
-          f"{arch} wave launches {n_wave} for {wave.stats.waves} waves")
-    admissions = len(reqs) + cont.stats.preemptions
-    check(set(n_cont) == {"paged_attention", "paged_reset"}
-          and n_cont["paged_reset"] == admissions
-          and n_cont["paged_attention"] % L == 0,
-          f"{arch} continuous launches {n_cont}: paged_reset {admissions}, "
-          f"paged_attention a multiple of {L}, nothing else")
-    out = {"config": f"{arch} published width and depth ({L} layers, "
-                     f"d_head {cfg.d_head}, Hkv {cfg.n_kv_heads}), fp32",
-           "n_params": n_params, "init_s": init_s,
-           "direct": {"prefill_ms": direct.prefill_s * 1e3,
-                      "decode_ms_per_token": direct.decode_s_per_token * 1e3,
-                      "decode_tok_per_s": 4 / direct.decode_s_per_token,
-                      "launches": n_direct},
-           "peak_mem_gb": peak / 1e9}
-    for kind, (res, n) in runs.items():
+        if mode == "direct":
+            res, wall = timed(lambda: sess.serve(
+                batch_size=4, prompt_len=32, max_new_tokens=16,
+                params=params))
+        else:
+            res, wall = timed(lambda: sess.serve(
+                scheduler=mode, requests=copy.deepcopy(reqs), params=params,
+                max_batch=4, max_len=512, page_size=16, prefill_chunk=16))
+        n = {k: v for k, v in dispatch.launch_counts().items() if v}
+        toks = tokens[mode] = res.tokens
+        check(bool((toks < V).all()) and bool((toks >= 0).any()),
+              f"{arch} {mode} tokens")
+        if mode == "direct":
+            check(toks.shape == (4, 16) and bool((toks >= 0).all())
+                  and tuple(res.logits.shape) == (4, V)
+                  and bool(torch.isfinite(res.logits).all()),
+                  f"{arch} direct tokens or logits")
+            check(n == {"flash_attention": L},
+                  f"{arch} direct launches {n}, expected flash {L}x")
+            out[mode] = {"prefill_ms": res.prefill_s * 1e3,
+                         "decode_ms_per_token":
+                             res.decode_s_per_token * 1e3,
+                         "decode_tok_per_s": 4 / res.decode_s_per_token,
+                         "launches": n}
+            log(f"[{log_name}] direct batch 4, prompt 32, 16 new: prefill "
+                f"{res.prefill_s * 1e3:.2f} ms | decode "
+                f"{res.decode_s_per_token * 1e3:.2f} ms/token step | "
+                f"launches {n}")
+            continue
         st = res.stats
-        out[kind] = {"useful_tokens": st.useful_tokens,
+        check(st.drained and len(st.latencies) == len(reqs),
+              f"{arch} {mode} did not drain")
+        if mode == "wave":
+            check(n == {"flash_attention": L * st.waves},
+                  f"{arch} wave launches {n} for {st.waves} waves")
+        else:
+            admissions = len(reqs) + st.preemptions
+            check(set(n) == {"paged_attention", "paged_reset"}
+                  and n["paged_reset"] == admissions
+                  and n["paged_attention"] % L == 0,
+                  f"{arch} continuous launches {n}: paged_reset "
+                  f"{admissions}, paged_attention a multiple of {L}")
+        out[mode] = {"wall_s": wall, "useful_tokens": st.useful_tokens,
                      "tok_per_s": 1 / res.decode_s_per_token,
                      "decode_ms_per_step": res.decode_s_per_token * 1e3
                      * st.useful_tokens / max(st.decode_steps, 1),
@@ -4785,19 +4829,29 @@ def serve_dense(Session, arch: str, log_name: str) -> dict:
                      "p50_latency_steps": st.p50_latency_steps,
                      "p99_latency_steps": st.p99_latency_steps,
                      "launches": n}
-    log(f"[{log_name}] direct batch 4, prompt 32, 16 new: prefill "
-        f"{direct.prefill_s * 1e3:.2f} ms | decode "
-        f"{direct.decode_s_per_token * 1e3:.2f} ms/token step | "
-        f"{4 / direct.decode_s_per_token:.1f} tok/s | launches {n_direct}")
-    for kind in ("wave", "continuous"):
-        r = out[kind]
-        log(f"[{log_name}] {kind}: 8 requests, 4 slots: {r['useful_tokens']} "
-            f"tokens at {r['tok_per_s']:.1f} tok/s | decode "
-            f"{r['decode_ms_per_step']:.2f} ms a step | utilization "
-            f"{r['utilization']:.3f} | p50 {r['p50_latency_steps']} p99 "
-            f"{r['p99_latency_steps']} steps | launches {r['launches']}")
-    log(f"[{log_name}] continuous == wave token for token | peak "
-        f"{peak / 1e9:.2f} GB")
+        r = out[mode]
+        log(f"[{log_name}] {mode}: 8 requests, 4 slots: "
+            f"{r['useful_tokens']} tokens in {wall:.2f} s, "
+            f"{r['tok_per_s']:.1f} tok/s | decode "
+            f"{r['decode_ms_per_step']:.2f} ms a step | p50 "
+            f"{r['p50_latency_steps']} p99 {r['p99_latency_steps']} steps | "
+            f"launches {n}")
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[{log_name}] {arch}: peak {out['peak_mem_gb']:.2f} GB")
+    return out, sess, params, tokens
+
+
+def serve_dense(Session, arch: str, log_name: str) -> dict:
+    """Phase 18(b): one dense arch at published width and depth through
+    :func:`serve_modes` in every mode; continuous equals wave token for
+    token."""
+    from repro_torch.configs import get_config
+
+    out, sess, params, toks = serve_modes(
+        Session, get_config(arch), ("direct", "wave", "continuous"), log_name)
+    check(bool((toks["continuous"] == toks["wave"]).all()),
+          f"{arch}: continuous tokens differ from wave tokens")
+    log(f"[{log_name}] continuous == wave token for token")
     del params, sess
     torch.cuda.empty_cache()
     return out
@@ -5729,6 +5783,255 @@ def bf16_phase(dev) -> tuple:
     rec["phase_s"] = time.perf_counter() - t0
     log(f"[bf16] phase 23 in {rec['phase_s']:.1f} s; no plain attention "
         f"or page-pool call on the card")
+    return rec, rows
+
+
+# --------------------------------------------------------------- phase 24
+# the MoE, VLM and encoder families at published width, their depth cut to
+# fit one 80 GB card in fp32 (4 bytes a weight): phi3.5-moe 8 of 32 layers
+# (10.7 B weights, 42.7 GB), qwen3-moe 4 of 94 (11.2 B, 44.8 GB), qwen2-vl
+# 8 of 80 (9.5 B, 38.0 GB); hubert-xlarge whole (1.26 B); the MoE training
+# cell phi3.5-moe at 1 layer (P about 1.56 B, 7 copies on the fused tier)
+PHI, QWEN3, VL, HUBERT = ("phi3.5-moe-42b-a6.6b", "qwen3-moe-235b-a22b",
+                          "qwen2-vl-72b", "hubert-xlarge")
+FAMILY_LAYERS = {PHI: 8, QWEN3: 4, VL: 8}
+FAMILY_MODES = {PHI: ("direct", "wave", "continuous"),
+                QWEN3: ("direct", "continuous"), VL: ("direct",)}
+MOE_TRAIN_LAYERS = 1
+
+
+def family_kernel_rows(dev, seed: int) -> dict:
+    """Phase 24(a): flash attention at B 4, S 32 and paged attention at
+    C 1, 4 and 16 (4 slots of 32 pages of 16) at phi3.5-moe's and
+    qwen3-moe's heads, flash at qwen2-vl's, and flash without the causal
+    mask at hubert-xlarge's shape (B 4, S 64, 16 heads, MHA, d_head 80;
+    on no main path yet), each against its plain version and timed as
+    phase 3 times its rows. Returns ``{kernel: {sub-row: row}}``."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+    from repro_torch.kernels.paged_attention import ops as paged_ops
+    from repro_torch.kernels.paged_attention import ref as paged_ref
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rows: dict = {"flash_attention": {}, "paged_attention": {}}
+    for arch, g in ((PHI, "g4"), (QWEN3, "g16")):
+        cfg = get_config(arch)
+        r = check_flash(cfg, dev, gen, 4, 32, flash_ops, flash_ref, F)
+        rows["flash_attention"][g] = r
+        log_attention(f"flash_attention {g} ({arch})", r)
+        for C, sub in ((1, g), (4, f"{g}_verify4"), (16, f"{g}_chunk16")):
+            r = check_paged_attention(cfg, dev, gen, 4, 32, 16, C, paged_ops,
+                                      paged_ref, F)
+            rows["paged_attention"][sub] = r
+            log_attention(f"paged_attention {sub} ({arch})", r)
+    r = check_flash(get_config(VL), dev, gen, 4, 32, flash_ops, flash_ref, F)
+    rows["flash_attention"]["vl64x8"] = r
+    log_attention(f"flash_attention vl64x8 ({VL})", r)
+    r = check_flash(get_config(HUBERT), dev, gen, 4, 64, flash_ops, flash_ref,
+                    F, causal=False)
+    r["launches"] = 0  # hubert-xlarge trains; no main path prefills it yet
+    rows["flash_attention"]["noncausal_d80"] = r
+    log_attention(f"flash_attention noncausal_d80 ({HUBERT})", r)
+    return rows
+
+
+def mrope_ids(B: int, S: int, dev, gen) -> torch.Tensor:
+    """Distinct (3, B, S) M-RoPE ids: t the token index, h and w a patch
+    grid's rows and columns."""
+    t = torch.arange(S, device=dev).expand(B, S)
+    h = torch.randint(0, 5, (B, S), device=dev, generator=gen) \
+        + torch.arange(S, device=dev) // 4
+    w = torch.randint(0, 7, (B, S), device=dev, generator=gen) \
+        + 2 * (torch.arange(S, device=dev) % 4)
+    return torch.stack([t, h, w])
+
+
+def vlm_embeds_prefill(sess, params, log_name: str) -> dict:
+    """Phase 24(d): qwen2-vl's prefill on frontend ``embeds`` (B 4, S 32,
+    d 8192) with distinct (3, B, S) M-RoPE ids through flash (once a
+    layer): its last logits equal those of ``forward`` without a cache
+    (the training path's plain attention) within CROSS_ATOL / CROSS_RTOL,
+    and differ from plain positions' (the ids reach the rotation)."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import transformer
+
+    cfg, dev = sess.cfg, sess.device
+    gen = torch.Generator(device=dev).manual_seed(24)
+    B, S = 4, 32
+    embeds = torch.randn(B, S, cfg.d_model, device=dev, generator=gen)
+    pos = mrope_ids(B, S, dev, gen)
+    cache = sess.model.init_cache(B, S)
+    dispatch.reset_launches()
+    with torch.inference_mode():
+        last, s = timed(lambda: sess.model.prefill(
+            params, None, cache, embeds=embeds, positions=pos))
+        n = {k: v for k, v in dispatch.launch_counts().items() if v}
+        full = transformer.forward(params, cfg, None, logits_mode="last",
+                                   embeds=embeds, positions=pos)[:, 0]
+        plain = transformer.forward(params, cfg, None, logits_mode="last",
+                                    embeds=embeds)[:, 0]
+    check(n == {"flash_attention": cfg.n_layers},
+          f"{cfg.name} embeds prefill launches {n}")
+    err = (last - full).abs().max().item()
+    moved = (plain - full).abs().max().item()
+    top = full.abs().max().item()
+    check(bool(torch.isfinite(last).all())
+          and torch.allclose(last, full, atol=CROSS_ATOL, rtol=CROSS_RTOL),
+          f"{cfg.name} embeds prefill vs forward: {err} (|logit| {top})")
+    check(moved > 10 * CROSS_ATOL, f"{cfg.name}: M-RoPE ids moved the "
+          f"logits by only {moved}")
+    log(f"[{log_name}] {cfg.name} prefill on embeds (4 x 32 x "
+        f"{cfg.d_model}) with distinct (3, B, S) M-RoPE ids: {s * 1e3:.2f} "
+        f"ms, launches {n} | last logits vs forward without a cache: max "
+        f"|diff| {err:.3g} (|logit| up to {top:.3g}) | plain positions "
+        f"move them by {moved:.3g}")
+    return {"ms": s * 1e3, "launches": n, "max_abs_err": err,
+            "max_abs_logit": top, "plain_positions_diff": moved}
+
+
+def frame_batches(cfg, dev, B: int = 16, S: int = 64, seed: int = 24):
+    """hubert-xlarge's frontend stub: frame ``embeds`` (B, S, d_model) and
+    labels over its 504-entry codebook, drawn on the card from a seed."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def next_batch():
+        return {"embeds": torch.randn(B, S, cfg.d_model, device=dev,
+                                      generator=gen),
+                "labels": torch.randint(0, cfg.vocab_size, (B, S),
+                                        device=dev, generator=gen)}
+
+    return next_batch
+
+
+def moe_grad_repeat(Session, cfg, priv, opt, log_name: str) -> dict:
+    """Phase 24(f): every silo's packed gradient of one batch (16 x 64
+    over 4 silos) of the MoE training cell, computed twice, bit-equal: the
+    dispatch's scatter (``index_add``) and the gather's backward add one
+    real row and exact zeros into each destination; and the loss holds
+    the aux load-balance term (``AUX_LOSS_WEIGHT`` times it above the LM
+    loss)."""
+    from repro_torch.core import flatbuf
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import chunked_lm_loss
+    from repro_torch.models.packing import param_tree
+
+    sess = Session.from_config(cfg, privacy=priv, optimizer=opt, seed=1)
+    state = sess.init_state()
+    batch = sess.synthetic_batches(16, 64)()
+    equal, t0 = [], time.perf_counter()
+    for i in range(4):
+        a, na = silo_grads_packed(sess.model, state.params, batch,
+                                  state.layout, i, 4, flatbuf, param_tree)
+        b, nb = silo_grads_packed(sess.model, state.params, batch,
+                                  state.layout, i, 4, flatbuf, param_tree)
+        torch.cuda.synchronize()
+        equal.append(bool(torch.equal(bits(a), bits(b)))
+                     and bits(na).item() == bits(nb).item())
+        del a, b
+    s = time.perf_counter() - t0
+    check(all(equal), f"{cfg.name}: repeated silo gradients differ "
+          f"({equal})")
+    with torch.no_grad():
+        b0 = {k: v[:4] for k, v in batch.items()}
+        loss = sess.model.loss(state.params, b0).item()
+        hidden = transformer.forward(state.params, cfg, b0["tokens"],
+                                     logits_mode="hidden")
+        lm = chunked_lm_loss(hidden, state.params.head(),
+                             b0["labels"]).item()
+    aux = (loss - lm) / transformer.AUX_LOSS_WEIGHT
+    check(math.isfinite(loss) and aux > 0.5,
+          f"{cfg.name}: loss {loss}, LM loss {lm}: no aux term")
+    P = state.layout.total
+    log(f"[{log_name}] {cfg.name} ({cfg.n_layers} layer, P {P}): 4 silos' "
+        f"packed gradients computed twice, bit-equal ({s:.1f} s) | silo 0 "
+        f"loss {loss:.6f} = LM {lm:.6f} + {transformer.AUX_LOSS_WEIGHT} x "
+        f"aux {aux:.4f}")
+    del state, sess, batch
+    torch.cuda.empty_cache()
+    return {"P": P, "silos_bit_equal": equal, "s": s, "loss": loss,
+            "lm_loss": lm, "aux": aux}
+
+
+def families_phase(dev) -> tuple:
+    """Phase 24: the MoE, VLM and encoder families. (a) the attention
+    kernels at their heads; (b) phi3.5-moe served in every mode, and card
+    vs CPU at 1 layer; (c) qwen3-moe direct and continuous (paged
+    attention at G 16); (d) qwen2-vl direct, and a prefill on embeds with
+    M-RoPE ids; (e) hubert-xlarge trained on frame embeds, 3 fused steps
+    and 1 barrier step; (f) phi3.5-moe at 1 layer, 2 fused steps and its
+    gradients bit-equal when repeated. No plain attention call on the card
+    through (b)-(f). Returns ``(record, {kernel: {sub-row: row}})``."""
+    from repro_torch.api import Session
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import (MeshConfig, OptimizerConfig,
+                                          PrivacyConfig)
+    from repro_torch.runtime.serving import zipf_requests
+
+    t0 = time.perf_counter()
+    rows = family_kernel_rows(dev, 24)
+    rec: dict = {"serve": {}}
+    spy: dict = {}
+    with plain_attention_spy(spy):
+        for arch in (PHI, QWEN3, VL):
+            cut = dataclasses.replace(get_config(arch),
+                                      n_layers=FAMILY_LAYERS[arch])
+            # at the published capacity factor an MoE layer drops tokens,
+            # as many as the batch's shape makes it drop, so the modes are
+            # not held to each other's tokens; the 1-layer slice below holds
+            # each mode on the card to the same mode on the CPU
+            rec["serve"][arch], sess, params, _ = serve_modes(
+                Session, cut, FAMILY_MODES[arch], "families-serve")
+            if arch == VL:
+                rec["serve"][arch]["embeds_prefill"] = vlm_embeds_prefill(
+                    sess, params, "families-serve")
+            del sess, params
+            torch.cuda.empty_cache()
+        cut1 = dataclasses.replace(get_config(PHI),
+                                   n_layers=MOE_TRAIN_LAYERS)
+        x_reqs = zipf_requests(4, cut1.vocab_size, min_len=8, max_len=24,
+                               max_new_low=4, max_new_high=8, seed=3)
+        t_x = time.perf_counter()
+        rec["cross_device"] = dense_cross_device(Session, cut1, x_reqs,
+                                                 "families-slice")
+        rec["cross_device"]["s"] = time.perf_counter() - t_x
+        torch.cuda.empty_cache()
+        priv = PrivacyConfig(enabled=True, sigma=0.3, clip_bound=1.0,
+                             dynamic_clip=True, noise_lambda=0.7, n_silos=4)
+        priv_b = dataclasses.replace(priv, sync_path="barrier")
+        opt = OptimizerConfig(name="adamw", lr=1e-3)
+        hub = get_config(HUBERT)
+        rec["train"] = {HUBERT: {
+            "fused": train_cell(Session, hub, priv, opt, None, 3,
+                                {"clip_accumulate": 1, "noise_batch": 1},
+                                "families-train", frame_batches(hub, dev)),
+            "barrier": train_cell(Session, hub, priv_b, opt,
+                                  MeshConfig((4,), ("data",)), 1,
+                                  {"clip_mask": 4}, "families-barrier",
+                                  frame_batches(hub, dev))}}
+        rec["train"][PHI] = {
+            "fused": train_cell(Session, cut1, priv, opt, None, 2,
+                                {"clip_accumulate": 1, "noise_batch": 1},
+                                "families-train"),
+            "repeat": moe_grad_repeat(Session, cut1, priv, opt,
+                                      "families-train")}
+    check(spy["plain_calls_on_card"] == 0,
+          f"{spy['plain_calls_on_card']} plain attention calls on the card")
+    rec["plain_calls_on_card"] = 0
+    srv = rec["serve"]
+    for g, arch in (("g4", PHI), ("g16", QWEN3)):
+        rows["flash_attention"][g]["launches"] = \
+            srv[arch]["direct"]["launches"]["flash_attention"]
+        rows["paged_attention"][g]["launches"] = \
+            srv[arch]["continuous"]["launches"]["paged_attention"]
+    rows["flash_attention"]["vl64x8"]["launches"] = \
+        srv[VL]["direct"]["launches"]["flash_attention"] \
+        + srv[VL]["embeds_prefill"]["launches"]["flash_attention"]
+    rec["phase_s"] = time.perf_counter() - t0
+    log(f"[families] phase 24 in {rec['phase_s']:.1f} s; no plain "
+        f"attention or page-pool call on the card")
     return rec, rows
 
 
@@ -6957,7 +7260,8 @@ if __name__ == "__main__":
     src = Path(args[args.index("--src") + 1]).resolve() \
         if "--src" in args else ROOT / "src"
     for phase in ("scans", "pool", "wire", "bwd", "streams", "slice15",
-                  "persist", "cifar", "prng", "normal", "tree", "bf16"):
+                  "persist", "cifar", "prng", "normal", "tree", "bf16",
+                  "families"):
         if f"--{phase}" in args:
             sys.exit(one_phase(phase, src))
     sys.exit(main())

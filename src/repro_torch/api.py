@@ -15,8 +15,9 @@
     gen = sess.serve(batch_size=4, prompt_len=32, max_new_tokens=16,
                      params=result.state.params)
 
-Port of ``repro/api.py``: serving and training the dense, ssm (rwkv6-7b)
-and hybrid (zamba2-7b) families, training on the fused and barrier DP tiers
+Port of ``repro/api.py``: serving and training every family of the JAX
+package (dense, moe, vlm, ssm, hybrid; the encoder, hubert-xlarge, trains
+and refuses to decode), training on the fused and barrier DP tiers
 (``PrivacyConfig(sync_path="barrier")`` with ``mesh=MeshConfig((n,),
 ("data",))`` runs the paper's per-silo masked contributions over n silos,
 one after another on the card), and the wire tier's protocol rounds,
@@ -218,7 +219,13 @@ class Session:
               state=None) -> TrainResult:
         """Run (or resume, from ``checkpoint_dir``) training on the fused or
         barrier DP tier (or without privacy). The root key of the step keys
-        is ``PRNGKey(seed + 1)``, as in JAX."""
+        is ``PRNGKey(seed + 1)``, as in JAX.
+
+        ``synthetic_batches`` feeds tokens, as the JAX package's does; a
+        ``next_batch`` of ``embeds`` (B, S, D) and ``labels``, with
+        ``positions`` (B, S) or M-RoPE's (3, B, S), trains the vlm and the
+        encoder on their frontends' embeddings: the batch passes through
+        unchanged, each silo taking its rows."""
         trainer = self.trainer(total_steps=steps, checkpoint_dir=checkpoint_dir,
                                checkpoint_every=checkpoint_every,
                                log_every=log_every,

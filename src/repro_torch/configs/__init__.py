@@ -1,8 +1,7 @@
 """Config registry: ``get_config(arch_id)`` / ``get_smoke_config(arch_id)``.
 
 Every arch id of the JAX package resolves here (both spellings:
-``qwen2.5-3b`` / ``qwen25_3b``), but only the ported ones load; the others
-raise ``NotImplementedError`` naming the ROADMAP queue that ports them.
+``qwen2.5-3b`` / ``qwen25_3b``), and every one of them is ported.
 """
 from __future__ import annotations
 
@@ -24,10 +23,12 @@ _ARCH_MODULES: dict[str, str] = {
     "zamba2-7b": "zamba2_7b",
 }
 
-# the arch ids whose config module exists in this package
+# the arch ids whose config module exists in this package: all of them
 PORTED: tuple[str, ...] = ("mistral-large-123b", "stablelm-3b",
                            "phi3-mini-3.8b", "qwen2.5-3b", "rwkv6-7b",
-                           "zamba2-7b")
+                           "zamba2-7b", "phi3.5-moe-42b-a6.6b",
+                           "qwen3-moe-235b-a22b", "qwen2-vl-72b",
+                           "hubert-xlarge")
 
 
 def resolve_arch(arch: str) -> str:
@@ -48,11 +49,6 @@ def resolve_arch(arch: str) -> str:
 
 def _module(arch: str):
     key = resolve_arch(arch)
-    if key not in PORTED:
-        raise NotImplementedError(
-            f"arch {key!r} is not ported to repro_torch yet (ported: "
-            f"{list(PORTED)}); its family is in ROADMAP.md queue 1, "
-            f"'Other model families'")
     return importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[key]}")
 
 

@@ -1,9 +1,9 @@
 """Config dataclasses, the port's own copy of ``repro.configs.base``.
 
 Only what the ported paths read: ``ModelConfig`` and ``reduce_for_smoke``
-(the dense, SSM and hybrid families), and the privacy, mesh, optimizer and
-run configs of the training path. The fields of the MoE family and the
-shape configs come with the slices that use them.
+(every family of the JAX package), and the privacy, mesh, optimizer and
+run configs of the training path. The shape configs come with the slice
+that uses them.
 """
 from __future__ import annotations
 
@@ -27,12 +27,13 @@ class ModelConfig:
     rope: bool = True
     rope_theta: float = 1_000_000.0
     rope_pct: float = 1.0  # fraction of d_head that rotates
-    mrope: bool = False  # qwen2-vl multi-axis RoPE (not ported yet)
-    causal: bool = True  # False => encoder-only
+    mrope: bool = False  # qwen2-vl multi-axis RoPE (position ids supplied)
+    causal: bool = True  # False => encoder-only (hubert)
     tie_embeddings: bool = False
-    # MoE (not ported yet; is_moe() reads it)
+    # MoE
     n_experts: int = 0
     top_k: int = 0
+    moe_capacity_factor: float = 1.25  # smoke configs use dropless (=E)
     # SSM / RWKV / Mamba2
     ssm_state: int = 0
     rwkv_head_size: int = 64
@@ -42,6 +43,8 @@ class ModelConfig:
     # hybrid (zamba2): one *shared* attention block applied every
     # `attn_every` mamba layers
     attn_every: int = 0
+    # modality frontend stub: inputs arrive as precomputed embeddings
+    frontend: str = "none"  # none | patches | frames
     citation: str = ""
 
     @property
@@ -68,6 +71,9 @@ def reduce_for_smoke(cfg: ModelConfig, **overrides) -> ModelConfig:
         d_ff=128,
         vocab_size=256,
     )
+    if cfg.is_moe():
+        kw.update(n_experts=4, top_k=min(cfg.top_k, 2),
+                  moe_capacity_factor=4.0)  # dropless: exact-match tests
     if cfg.family in ("ssm", "hybrid"):
         kw.update(ssm_state=16, rwkv_head_size=16, mamba_headdim=16)
     if cfg.family == "hybrid":

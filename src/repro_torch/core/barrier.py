@@ -56,7 +56,8 @@ def silo_grad(loss_fn, params, batch_local: dict, priv: PrivacyConfig,
     tensors = flatbuf.flat_tensors(layout, tree)
     with clipping.trainable(tensors):
         loss = loss_fn(params, batch_local)
-        grads = torch.autograd.grad(loss, tensors)
+        grads = torch.autograd.grad(loss, tensors,
+                                    materialize_grads=True)
     with torch.no_grad():
         g = flatbuf.unpack(layout, flatbuf.pack_tensors(layout, grads))
         if not priv.enabled:

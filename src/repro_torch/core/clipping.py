@@ -109,7 +109,8 @@ def per_example_grads(loss_fn: Callable, params, batch: dict):
     with trainable(tensors):
         for b in range(B):
             loss = loss_fn(params, {k: v[b:b + 1] for k, v in batch.items()})
-            grads = torch.autograd.grad(loss, tensors)
+            grads = torch.autograd.grad(loss, tensors,
+                                        materialize_grads=True)
             with torch.no_grad():
                 flatbuf.pack_tensors(layout, grads, out=buf[b])
             del grads
@@ -151,7 +152,8 @@ def per_microbatch_clipped_grad(loss_fn: Callable, params, batch: dict,
         for i in range(n_micro):
             loss = loss_fn(params, {k: v[i * m:(i + 1) * m]
                                     for k, v in batch.items()})
-            grads = torch.autograd.grad(loss, tensors)
+            grads = torch.autograd.grad(loss, tensors,
+                                        materialize_grads=True)
             with torch.no_grad():
                 norms.append(global_norm(grads))
                 flatbuf.pack_tensors(layout, grads, out=buf[i])

@@ -143,13 +143,20 @@ def init_train_state(model: Model, run_cfg: RunConfig, key: tuple,
 
 
 def _reshape_to_silos(batch: dict, n_silos: int) -> dict:
-    """Silo i takes rows ``[i * B / n, (i + 1) * B / n)``."""
+    """Silo i takes rows ``[i * B / n, (i + 1) * B / n)``. M-RoPE position
+    ids (3, B, S) split on their batch axis, B, into (n, 3, B / n, S)."""
     out = {}
     for k, v in batch.items():
-        if v.shape[0] % n_silos:
-            raise ValueError(f"batch {k} of {v.shape[0]} rows does not split "
+        mrope = k == "positions" and v.dim() == 3
+        rows = v.shape[1] if mrope else v.shape[0]
+        if rows % n_silos:
+            raise ValueError(f"batch {k} of {rows} rows does not split "
                              f"over {n_silos} silos")
-        out[k] = v.reshape((n_silos, v.shape[0] // n_silos) + tuple(v.shape[1:]))
+        if mrope:
+            out[k] = v.reshape((3, n_silos, rows // n_silos)
+                               + tuple(v.shape[2:])).transpose(0, 1)
+        else:
+            out[k] = v.reshape((n_silos, rows // n_silos) + tuple(v.shape[1:]))
     return out
 
 
@@ -188,7 +195,10 @@ def _fused_grads(model: Model, priv: PrivacyConfig, params, batch, n_silos,
         b = {k: v[i] for k, v in silo_batches.items()}
         with timer.stage("silo_grads"):
             loss = model.loss(params, b)
-            grads = torch.autograd.grad(loss, tensors)
+            # a weight the batch never reaches (the embedding, under
+            # frontend embeds) takes a zero gradient, as under jax.grad
+            grads = torch.autograd.grad(loss, tensors,
+                                        materialize_grads=True)
         with timer.stage("pack"):
             flatbuf.pack_tensors(layout, grads, out=stacked[i])
         del grads
@@ -240,7 +250,8 @@ def _fused_grads_scan(model: Model, priv: PrivacyConfig, params, batch,
         b = {k: v[i] for k, v in silo_batches.items()}
         with timer.stage("silo_grads"):
             loss = model.loss(params, b)
-            grads = torch.autograd.grad(loss, tensors)
+            grads = torch.autograd.grad(loss, tensors,
+                                        materialize_grads=True)
         with torch.no_grad():
             with timer.stage("norms"):
                 norm = pipe.norm_tree(grads)
@@ -297,7 +308,8 @@ def _barrier_grads(model: Model, priv: PrivacyConfig, mesh_cfg: MeshConfig,
         b = {k: v[i] for k, v in silo_batches.items()}
         with timer.stage("silo_grads"):
             loss = model.loss(params, b)
-            grads = torch.autograd.grad(loss, tensors)
+            grads = torch.autograd.grad(loss, tensors,
+                                        materialize_grads=True)
         with torch.no_grad():
             with timer.stage("norms"):
                 norms.append(pipe.norm_tree(grads))

@@ -140,6 +140,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     sess = Session.from_config(args.arch, full=args.full, device=args.device)
+    if not sess.cfg.causal:
+        raise SystemExit(f"{sess.cfg.name} is encoder-only: no decode step")
     if args.soak is not None:
         row = run_soak(sess, args.soak, max_batch=args.max_batch,
                        page_size=args.page_size,

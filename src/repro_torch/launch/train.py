@@ -8,10 +8,11 @@ on ``cuda`` unless ``--device cpu``; ``--full`` takes the published config.
 ``barrier`` (the paper's per-silo masked contributions); ``--silo-mode
 scan`` runs the fused tier silo after silo into one accumulator (the port's
 flag: JAX's CLI leaves ``silo_mode`` at vmap); ``--mask-mode admin`` the
-paper's admin-drawn masks on either tier. ``--arch`` takes every ported
-arch (``stablelm-3b`` and ``phi3-mini-3.8b`` too; ``--full`` is the
+paper's admin-drawn masks on either tier. ``--arch`` takes every arch of
+the JAX package (the MoE archs, ``qwen2-vl-72b`` and ``hubert-xlarge`` too,
+all fed synthetic tokens as JAX's CLI feeds them; ``--full`` is the
 published config, which at full depth needs more than one card's memory
-for the dense ones on the vmap tier).
+for all but hubert-xlarge on the vmap tier).
 
 One flag reads differently from JAX's: with ``--sync-path barrier`` the
 JAX CLI runs one silo per local device, while the port runs ``--silos``

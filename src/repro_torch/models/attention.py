@@ -1,6 +1,7 @@
-"""GQA attention with RoPE: without a cache (training), over a dense KV
-cache (direct serving) and over a paged KV pool (continuous serving). Port
-of ``repro/models/attention.py``.
+"""GQA attention with RoPE or M-RoPE: without a cache (training), over a
+dense KV cache (direct serving) and over a paged KV pool (continuous
+serving), causal or not (the encoder). Port of
+``repro/models/attention.py``.
 
 Prefill over the dense cache runs the flash-attention kernel; every paged
 step runs the paged-attention kernel. Training attention is ``_sdpa`` and
@@ -18,7 +19,8 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.paged_attention import ops as paged_ops
-from repro_torch.models.layers import _param, apply_rope, dense_init
+from repro_torch.models.layers import (_param, apply_rope, dense_init,
+                                       mrope_sections_for)
 
 NEG_INF = -1e30
 
@@ -59,10 +61,10 @@ def _project_qkv(p: Attention, x, cfg: ModelConfig, positions):
     k = k.reshape(B, S, cfg.n_kv_heads, cfg.d_head)
     v = v.reshape(B, S, cfg.n_kv_heads, cfg.d_head)
     if cfg.rope:
-        if cfg.mrope:
-            raise NotImplementedError("M-RoPE is not ported yet")
-        q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_pct)
-        k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_pct)
+        sections = (mrope_sections_for(int(cfg.d_head * cfg.rope_pct))
+                    if cfg.mrope else None)
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_pct, sections)
+        k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_pct, sections)
     return q, k, v
 
 

@@ -2,9 +2,10 @@
 
 ``params_from_jax`` takes a JAX parameter tree with its leaves as numpy
 arrays (``jax.tree.map(np.asarray, params)``) and fills the port's module
-of the config's family: ``Transformer`` (dense), ``RWKVStack`` (ssm) or
-``Hybrid`` (hybrid). Every port parameter is named by its JAX path
-(``layers.3.attn.wq`` is ``tree['layers']['attn']['wq'][3]``): the JAX tree
+of the config's family: ``Transformer`` (dense, moe, vlm, encoder),
+``RWKVStack`` (ssm) or ``Hybrid`` (hybrid). Every port parameter is named
+by its JAX path (``layers.3.attn.wq`` is ``tree['layers']['attn']['wq'][3]``,
+``layers.3.moe.we_gate`` slice 3 of the (L, E, d, f) leaf): the JAX tree
 stacks every layer on a leading axis (its inits vmap over layer keys), the
 port keeps one module per layer in a ``ModuleList`` (``layers``,
 ``mamba_layers``), so layer ``i`` takes slice ``[i]`` of every stacked
@@ -26,7 +27,8 @@ from repro_torch.models.rwkv_stack import RWKVStack
 from repro_torch.models.packing import param_tree
 from repro_torch.models.transformer import Transformer
 
-FAMILIES = {"dense": Transformer, "ssm": RWKVStack, "hybrid": Hybrid}
+FAMILIES = {"dense": Transformer, "moe": Transformer, "vlm": Transformer,
+            "encoder": Transformer, "ssm": RWKVStack, "hybrid": Hybrid}
 
 
 def _copy(dst: torch.Tensor, src, name: str) -> None:
@@ -61,9 +63,7 @@ def params_from_jax(np_tree: dict, cfg: ModelConfig, device,
     both ways, and are rounded back here; the port imports no
     ``ml_dtypes``)."""
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet; see ROADMAP.md queue "
-            f"1, 'Other model families'")
+        raise ValueError(f"unknown family {cfg.family!r}")
     model = FAMILIES[cfg.family](cfg, device, dtype)
     with torch.no_grad():
         for name, p in model.named_parameters():

@@ -1,5 +1,5 @@
-"""Core layer primitives: dense init, RMSNorm, LayerNorm, RoPE, SwiGLU and
-the LM losses.
+"""Core layer primitives: dense init, RMSNorm, LayerNorm, RoPE (plain,
+partial and M-RoPE), SwiGLU and the LM losses.
 
 Port of ``repro/models/layers.py``. Weights keep the JAX package's
 ``x @ W`` layout, ``(d_in, d_out)``, so weights carried across need no
@@ -73,11 +73,16 @@ def rope_freqs(d_rot: int, theta: float, device=None) -> torch.Tensor:
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
-               rope_pct: float = 1.0) -> torch.Tensor:
-    """x (B, S, H, Dh); positions (B, S) int. Rotates INTERLEAVED pairs
-    ``(x[..., 0::2], x[..., 1::2])`` like the JAX package
-    (``layers.py:80-83``), not the rotate-half convention. M-RoPE is not
-    ported yet."""
+               rope_pct: float = 1.0,
+               mrope_sections: tuple | None = None) -> torch.Tensor:
+    """x (B, S, H, Dh); positions (B, S) int, or (3, B, S) for M-RoPE.
+    Rotates INTERLEAVED pairs ``(x[..., 0::2], x[..., 1::2])`` like the JAX
+    package (``layers.py:80-83``), not the rotate-half convention.
+
+    M-RoPE (Qwen2-VL): with (3, B, S) positions and ``mrope_sections``, the
+    d_rot/2 frequency bands split across the (t, h, w) axes, section i
+    taking its angles from axis i. (3, B, S) positions without sections
+    rotate by the t axis; sections with (B, S) positions rotate plainly."""
     dh = x.shape[-1]
     d_rot = int(dh * rope_pct)
     d_rot -= d_rot % 2
@@ -85,7 +90,17 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
         return x
     x_rot, x_pass = x[..., :d_rot], x[..., d_rot:]
     inv = rope_freqs(d_rot, theta, x.device)                   # (d_rot/2,)
-    ang = positions[..., None].float() * inv                   # (B, S, d_rot/2)
+    if positions.dim() == 3 and mrope_sections is not None:
+        ang_all = positions[..., None].float() * inv           # (3, B, S, d/2)
+        parts, start = [], 0
+        for i, sec in enumerate(mrope_sections):
+            parts.append(ang_all[i, ..., start:start + sec])
+            start += sec
+        ang = torch.cat(parts, dim=-1)                         # (B, S, d_rot/2)
+    else:
+        if positions.dim() == 3:
+            positions = positions[0]
+        ang = positions[..., None].float() * inv               # (B, S, d_rot/2)
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = x_rot[..., 0::2], x_rot[..., 1::2]
@@ -93,6 +108,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     r2 = x1 * sin + x2 * cos
     rot = torch.stack([r1, r2], dim=-1).reshape(x_rot.shape)
     return torch.cat([rot.to(x.dtype), x_pass], dim=-1)
+
+
+def mrope_sections_for(d_rot: int) -> tuple[int, int, int]:
+    """Qwen2-VL's (t, h, w) split of the d_rot/2 frequency bands: (16, 24,
+    24) at d_rot 128."""
+    half = d_rot // 2
+    hw = half * 3 // 8
+    return (half - 2 * hw, hw, hw)
 
 
 def swiglu_apply(p: "SwiGLU", x: torch.Tensor) -> torch.Tensor:

@@ -60,7 +60,9 @@ def pack_params(params):
     weights = params.values() if isinstance(params, dict) \
         else params.parameters()
     if any(p.dtype != torch.float32 for p in weights):
-        raise NotImplementedError("pack_params takes fp32 weights only")
+        raise NotImplementedError("pack_params takes fp32 weights only "
+                                  "(training in bf16: ROADMAP.md queue 1 "
+                                  "item 15)")
     tree = param_tree(params)
     layout = flatbuf.layout_of(tree)
     with torch.no_grad():

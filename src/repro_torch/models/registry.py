@@ -1,9 +1,12 @@
 """``build_model(cfg)`` returns a ``Model`` whose functions close over the
 config, the device and the compute dtype. Port of ``repro/models/registry.py``
-for the dense, ssm (RWKV-6) and hybrid (zamba2) families; others raise.
+for every family: the transformer families (dense, moe, vlm, encoder), ssm
+(RWKV-6) and hybrid (zamba2).
 
   loss(params, {'tokens', 'labels'})       -> mean next-token loss (scalar)
+       (vlm / encoder: {'embeds' (B, S, D), 'labels', 'positions'?})
   prefill(params, tokens (B, S), cache)    -> logits (B, V); cache in place
+       (transformer families: embeds= / positions= keywords, as forward)
   decode_step(params, tokens (B, 1), cache) -> logits (B, V); cache in place
   paged_step(params, tokens (B, C), pool, tables, q_start, n_valid,
              logits_mode="last") -> (logits, pool); pool in place
@@ -60,10 +63,8 @@ def build_model(cfg: ModelConfig, device, param_dtype=torch.float32,
                      loss=lambda p, batch: mod.loss_fn(p, cfg, batch, cd),
                      init_cache=init_cache, prefill=step,
                      decode_step=step, compute_dtype=cd)
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense, ssm and "
-            f"hybrid only); see ROADMAP.md queue 1, 'Other model families'")
+    if cfg.family not in transformer.FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r}")
 
     def paged_step(p, tokens, pool, tables, q_start, n_valid,
                    logits_mode="last"):
@@ -77,7 +78,8 @@ def build_model(cfg: ModelConfig, device, param_dtype=torch.float32,
         loss=lambda p, batch: transformer.loss_fn(p, cfg, batch, cd),
         init_cache=lambda batch, max_len: transformer.init_cache(
             cfg, batch, max_len, device, cd),
-        prefill=lambda p, toks, c: transformer.prefill(p, cfg, toks, c, cd),
+        prefill=lambda p, toks, c, **kw: transformer.prefill(p, cfg, toks, c,
+                                                             cd, **kw),
         decode_step=lambda p, toks, c: transformer.decode_step(p, cfg, toks,
                                                                c, cd),
         init_paged_cache=lambda n_pages, page_size: transformer.init_paged_cache(

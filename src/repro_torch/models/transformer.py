@@ -1,6 +1,7 @@
-"""Decoder transformer stack, dense family: init, the training forward and
-loss, forward over a dense KV cache (prefill / decode) and the paged serving
-step. Port of ``repro/models/transformer.py``.
+"""Decoder / encoder transformer stack of the dense, MoE, VLM and audio
+encoder families: init, the training forward and loss, forward over a dense
+KV cache (prefill / decode) and the paged serving step. Port of
+``repro/models/transformer.py``.
 
 The JAX package stacks every layer's weights on a leading axis and scans
 over it, returning new caches and pools. The port keeps one ``Block`` per
@@ -11,6 +12,12 @@ scheduler donates its pools to the jitted step, ``scheduler.py:168``).
 ``models/packing.py`` names every weight by its JAX path
 (``layers.attn.wq`` is the list of the layers' ``wq``) and moves the weights
 into one packed fp32 buffer, for this family as for the others.
+
+A layer holds a SwiGLU ``ffn``, or an ``moe`` in the MoE family, whose
+load-balance term the loss adds at ``AUX_LOSS_WEIGHT``. The VLM and the
+encoder read the JAX package's batch keys: ``embeds`` (B, S, D), the
+precomputed output of the modality frontend it stubs, in place of
+``tokens``, and ``positions``, (B, S) or M-RoPE's (3, B, S).
 """
 from __future__ import annotations
 
@@ -22,9 +29,13 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (RMSNorm, SwiGLU, _param,
                                        chunked_lm_loss, dense_init,
                                        embed_init, rmsnorm, swiglu_apply)
+
+FAMILIES = ("dense", "moe", "vlm", "encoder")
+AUX_LOSS_WEIGHT = 0.01
 
 
 class Block(nn.Module):
@@ -34,20 +45,29 @@ class Block(nn.Module):
         self.ln1 = RMSNorm(cfg.d_model, device, dtype)
         self.attn = attn.Attention(cfg, device, dtype, gen)
         self.ln2 = RMSNorm(cfg.d_model, device, dtype)
-        self.ffn = SwiGLU(cfg.d_model, cfg.d_ff, device, dtype, gen)
+        if cfg.is_moe():
+            self.moe = moe_mod.MoE(cfg, device, dtype, gen)
+        else:
+            self.ffn = SwiGLU(cfg.d_model, cfg.d_ff, device, dtype, gen)
+
+
+def _ffn_apply(blk: Block, y, cfg: ModelConfig):
+    """The layer's FFN on y: (output, aux), aux the MoE load-balance term
+    (0 for a SwiGLU layer, with no launch: the dense serving step is
+    host-bound)."""
+    if cfg.is_moe():
+        return moe_mod.moe_apply(blk.moe, y, cfg, cfg.moe_capacity_factor)
+    return swiglu_apply(blk.ffn, y), 0.0
 
 
 class Transformer(nn.Module):
-    """The dense decoder's weights. ``gen=None`` allocates the shapes only
-    (for ``models.convert``); otherwise they are drawn from ``gen``."""
+    """The weights of a transformer family (dense, moe, vlm, encoder).
+    ``gen=None`` allocates the shapes only (for ``models.convert``);
+    otherwise they are drawn from ``gen``."""
 
     def __init__(self, cfg: ModelConfig, device, dtype=torch.float32,
                  gen: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.family != "dense":
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (dense only); see "
-                f"ROADMAP.md queue 1, 'Other model families'")
         self.cfg = cfg
         V, d = cfg.vocab_size, cfg.d_model
         empty = lambda *s: torch.empty(*s, device=device, dtype=dtype)
@@ -95,26 +115,45 @@ def init(gen: torch.Generator, cfg: ModelConfig, device,
 def _layer_apply(blk: Block, x, cfg: ModelConfig, positions, cache, layer):
     x = x + attn.attn_apply(blk.attn, rmsnorm(blk.ln1.scale, x), cfg,
                             positions, cache, layer)
-    return x + swiglu_apply(blk.ffn, rmsnorm(blk.ln2.scale, x))
+    f, aux = _ffn_apply(blk, rmsnorm(blk.ln2.scale, x), cfg)
+    return x + f, aux
+
+
+def _embed_inputs(params: Transformer, tokens, embeds, compute_dtype):
+    if embeds is not None:  # modality frontend stub (vlm / audio)
+        return embeds.to(compute_dtype)
+    return params.embed.to(compute_dtype)[tokens]
+
+
+def _forward(params: Transformer, cfg: ModelConfig, tokens, cache,
+             compute_dtype, embeds=None, positions=None):
+    """The final-norm hidden states (B, S, D) and the summed aux term."""
+    x = _embed_inputs(params, tokens, embeds, compute_dtype)
+    B, S, _ = x.shape
+    offset = 0 if cache is None else cache["len"]
+    if positions is None:
+        positions = (offset + torch.arange(S, device=x.device))[None] \
+            .expand(B, S)
+    aux = 0.0
+    for layer, blk in enumerate(params.layers):
+        x, a = _layer_apply(blk, x, cfg, positions, cache, layer)
+        aux = aux + a
+    if cache is not None:
+        cache["len"] = offset + S
+    return rmsnorm(params.ln_f.scale, x), aux
 
 
 def forward(params: Transformer, cfg: ModelConfig, tokens,
             cache: Optional[dict] = None, compute_dtype=torch.float32,
-            logits_mode: str = "all"):
-    """Tokens (B, S) through the stack: without a cache (training), or over
-    the dense cache, which is updated in place (``cache['len']`` advances by
-    S). Returns logits (B, S, V) for ``logits_mode="all"``, (B, 1, V) for
-    ``"last"``, and the final-norm hidden states (B, S, D) for
-    ``"hidden"``."""
-    x = params.embed.to(compute_dtype)[tokens]
-    B, S, _ = x.shape
-    offset = 0 if cache is None else cache["len"]
-    positions = (offset + torch.arange(S, device=x.device))[None].expand(B, S)
-    for layer, blk in enumerate(params.layers):
-        x = _layer_apply(blk, x, cfg, positions, cache, layer)
-    if cache is not None:
-        cache["len"] = offset + S
-    x = rmsnorm(params.ln_f.scale, x)
+            logits_mode: str = "all", *, embeds=None, positions=None):
+    """Tokens (B, S), or ``embeds`` (B, S, D) with ``tokens=None``, through
+    the stack: without a cache (training), or over the dense cache, which is
+    updated in place (``cache['len']`` advances by S). ``positions`` (B, S)
+    or (3, B, S) default to ``len + arange(S)``. Returns logits (B, S, V)
+    for ``logits_mode="all"``, (B, 1, V) for ``"last"``, and the final-norm
+    hidden states (B, S, D) for ``"hidden"``."""
+    x, _ = _forward(params, cfg, tokens, cache, compute_dtype, embeds,
+                    positions)
     if logits_mode == "hidden":
         return x
     if logits_mode == "last":
@@ -124,15 +163,25 @@ def forward(params: Transformer, cfg: ModelConfig, tokens,
 
 def loss_fn(params: Transformer, cfg: ModelConfig, batch: dict,
             compute_dtype=torch.float32) -> torch.Tensor:
-    """Mean next-token cross-entropy of ``{'tokens', 'labels': (B, S)}``."""
-    hidden = forward(params, cfg, batch["tokens"], None, compute_dtype,
-                     logits_mode="hidden")
-    return chunked_lm_loss(hidden, params.head(), batch["labels"])
+    """Mean next-token cross-entropy of ``{'tokens' or 'embeds', 'labels'
+    (B, S), 'positions'?}``, plus ``AUX_LOSS_WEIGHT`` times the summed
+    load-balance term in the MoE family."""
+    hidden, aux = _forward(params, cfg, batch.get("tokens"), None,
+                           compute_dtype, batch.get("embeds"),
+                           batch.get("positions"))
+    loss = chunked_lm_loss(hidden, params.head(), batch["labels"])
+    if cfg.is_moe():
+        loss = loss + AUX_LOSS_WEIGHT * aux
+    return loss
 
 
-def prefill(params, cfg: ModelConfig, tokens, cache, compute_dtype=torch.float32):
-    """Last-position logits (B, V) of a prompt (B, S) run on an empty cache."""
-    return forward(params, cfg, tokens, cache, compute_dtype, "last")[:, 0]
+def prefill(params, cfg: ModelConfig, tokens, cache, compute_dtype=torch.float32,
+            *, embeds=None, positions=None):
+    """Last-position logits (B, V) of a prompt run on an empty cache: tokens
+    (B, S), or ``embeds`` (B, S, D) and ``positions`` (B, S) or (3, B, S)
+    as in ``forward``."""
+    return forward(params, cfg, tokens, cache, compute_dtype, "last",
+                   embeds=embeds, positions=positions)[:, 0]
 
 
 def decode_step(params, cfg: ModelConfig, tokens, cache,
@@ -158,7 +207,7 @@ def layer_apply_paged(blk: Block, x, cfg: ModelConfig, positions, k_pages,
     x = x + attn.attn_apply_paged(blk.attn, rmsnorm(blk.ln1.scale, x), cfg,
                                   positions, k_pages, v_pages, tables,
                                   q_start, rows)
-    return x + swiglu_apply(blk.ffn, rmsnorm(blk.ln2.scale, x))
+    return x + _ffn_apply(blk, rmsnorm(blk.ln2.scale, x), cfg)[0]
 
 
 def forward_paged(params, cfg: ModelConfig, tokens, pages: dict,
@@ -174,7 +223,11 @@ def forward_paged(params, cfg: ModelConfig, tokens, pages: dict,
     writes nothing). The pools in ``pages`` are updated in place.
 
     ``"last"`` returns (B, V) logits of each slot's last valid token;
-    ``"all"`` returns (B, C, V) logits at every chunk position."""
+    ``"all"`` returns (B, C, V) logits at every chunk position.
+
+    An MoE layer routes all B * C rows, inactive slots and padding
+    included, as the JAX package does: they count against the experts'
+    capacity."""
     x = params.embed.to(compute_dtype)[tokens]
     B, C = tokens.shape
     positions = q_start.long()[:, None] + torch.arange(C, device=x.device)[None]

@@ -92,7 +92,9 @@ def test_configs_equal_jax_field_by_field(arch):
 def test_every_ported_arch_builds_its_smoke_model():
     assert set(PORTED) == {"mistral-large-123b", "stablelm-3b",
                            "phi3-mini-3.8b", "qwen2.5-3b", "rwkv6-7b",
-                           "zamba2-7b"}
+                           "zamba2-7b", "phi3.5-moe-42b-a6.6b",
+                           "qwen3-moe-235b-a22b", "qwen2-vl-72b",
+                           "hubert-xlarge"}
     for arch in PORTED:
         assert api.Session.from_config(arch, device="cpu").cfg == \
             get_smoke_config(arch)

@@ -70,7 +70,10 @@ for name in ("core.prng", "core.flatbuf", "core.clipping", "core.barrier",
              "runtime.serving.load", "kernels.flash_attention.flash_attention",
              "kernels.paged_attention.paged_attention",
              "kernels.paged_attention.ops", "models.attention",
-             "models.transformer", "models.hybrid"):
+             "models.transformer", "models.hybrid",
+             # the MoE, VLM and encoder families
+             "models.moe", "configs.phi35_moe_42b", "configs.qwen3_moe_235b",
+             "configs.qwen2_vl_72b", "configs.hubert_xlarge"):
     assert "repro_torch." + name in names, name
 """
 

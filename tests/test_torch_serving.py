@@ -20,8 +20,10 @@ from repro.runtime.serving import zipf_requests as jax_zipf_requests
 from repro_torch import api
 from repro_torch.configs import get_config, get_smoke_config, resolve_arch
 from repro_torch.kernels import dispatch
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.launch import serve as serve_cli
 from repro_torch.models.convert import params_from_jax
+from repro_torch.models.packing import pack_params
 from repro_torch.models.registry import build_model
 from repro_torch.runtime.serving import (ContinuousServer, PagePool, Request,
                                          zipf_requests)
@@ -75,9 +77,14 @@ def test_smoke_config_matches_jax():
 
 
 def test_unported_arch_raises_clearly():
+    """Every arch loads now; what is still unported raises, naming its
+    ROADMAP item: here packing bf16 weights for training."""
     assert resolve_arch("Qwen2.5_3B") == ARCH
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_smoke_config("phi3.5-moe-42b-a6.6b")
+    params = build_model(get_smoke_config(ARCH), "cpu",
+                         param_dtype=torch.bfloat16).init(
+        torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 15"):
+        pack_params(params)
     with pytest.raises(KeyError, match="unknown arch"):
         get_smoke_config("no-such-model")
 
@@ -234,9 +241,14 @@ def test_from_config_without_cuda_raises(monkeypatch):
 
 def test_unported_paths_raise(port, tmp_path):
     # training and checkpointing are ported (test_torch_training.py,
-    # test_torch_trainer.py); the MoE families are not yet
+    # test_torch_trainer.py), and every family (test_torch_families.py);
+    # training through flash attention is not: a call that needs its
+    # backward raises
+    q = torch.zeros(1, 4, 2, 16, requires_grad=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.Session.from_config("qwen3-moe-235b-a22b", device="cpu")
+        flash_ops.flash_attention(q, q.detach(), q.detach())
+    with torch.no_grad():
+        assert flash_ops.flash_attention(q, q, q).shape == q.shape
     res = port.train(steps=1, batch_size=4, seq_len=8, log_every=0,
                      checkpoint_dir=str(tmp_path / "ckpt"))
     assert res.step == 1 and (tmp_path / "ckpt" / "step_00000001").is_dir()
