@@ -29,6 +29,7 @@ against the host CPU.
     python3 chip_smoke.py --tree                # phase 22 alone
     python3 chip_smoke.py --bf16                # phase 23 alone
     python3 chip_smoke.py --families            # phase 24 (not in the full run)
+    python3 chip_smoke.py --bf16train           # phase 25 (not in the full run)
 
 ``--scans`` runs only the card line, the build and phase 11's scans (their
 checks and times, no launch configuration), from the ``repro_torch`` under
@@ -50,7 +51,7 @@ and prints the hash of what it drew (no kernel is built for a tree
 without the normal kernels): a parent and a change in one call, trees
 that have the scan tier. ``--normal`` runs that noise stage with its
 launches, then phase 21; ``--tree`` runs phase 22; ``--bf16`` phase 23;
-``--families`` phase 24.
+``--families`` phase 24; ``--bf16train`` phase 25.
 
 Phases (any failed check raises, and the script exits non-zero):
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
@@ -352,6 +353,20 @@ Phases (any failed check raises, and the script exits non-zero):
      aux loss, and every silo's packed gradient computed twice,
      bit-equal; peak memory and ms a step of each; no plain attention or
      page-pool call on the card through (b)-(f).
+ 25. (``--bf16train`` only, as phase 24: the full run already takes most
+     of its 1200 s) training in bf16 on the JAX package's two routes, (A)
+     bf16 compute over fp32 weights and (B) bf16 weights over an fp32
+     master, beside fp32 in the same call: qwen2.5-3b at full width and 12
+     layers, phase 7's privacy, 16 x 64 over 4 silos, (a) 3 fused steps
+     each way (``clip_accumulate`` and ``noise_batch`` once a step), (b) 3
+     barrier steps each way with silo 2 out at the second (4, 3, 4
+     ``clip_mask`` launches); (c) the scan tier under route (B) at the
+     largest of SCAN_DEPTHS that fits, 2 steps; (d) phase 8's narrow step
+     under route (B), card vs CPU within the BF16_* tolerances, the
+     carried key bit-equal; (e) silo 0's bf16 gradient at 12 layers
+     computed twice, bit-equal. Step and stage ms and peak GB of every
+     cell; under route (B) the bf16 weights the fp32 master rounded to
+     nearest even, bit for bit, after every cell.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -3639,11 +3654,11 @@ def one_phase(phase: str, src: Path) -> int:
     (:func:`cifar_phase`), the scan tier's noise stage on WRN28
     (:func:`prng_phase`; no build for a tree without the normal kernels),
     phase 21 (:func:`normal_phase`, after WRN28's noise stage with its
-    launches), phase 22 (:func:`tree_phase`), phase 23 (:func:`bf16_phase`)
-    or phase 24 (:func:`families_phase`) alone, from the ``repro_torch``
-    under ``src`` (another
-    tree's, to time two trees in one call); the last line is their JSON
-    record."""
+    launches), phase 22 (:func:`tree_phase`), phase 23 (:func:`bf16_phase`),
+    phase 24 (:func:`families_phase`) or phase 25 (``--bf16train``,
+    :func:`bf16train_phase`) alone, from the ``repro_torch`` under ``src``
+    (another tree's, to time two trees in one call); the last line is their
+    JSON record."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
               file=sys.stderr)
@@ -3693,6 +3708,8 @@ def one_phase(phase: str, src: Path) -> int:
     elif phase == "families":
         record, rows = families_phase(dev)
         record["rows"] = rows
+    elif phase == "bf16train":
+        record = bf16train_phase(dev)
     else:
         log(f"[kernel] clip_mask SASS, live (a report; the bound uses "
             f"{json.dumps(CLIP_MASK_OPS)}): "
@@ -4040,19 +4057,53 @@ def check_scan_backward(dev, seed: int) -> dict:
     return out
 
 
+ROUTE_LABELS = {"fp32": "fp32",
+                "A": "bf16 compute over fp32 weights (route A)",
+                "B": "bf16 weights over an fp32 master (route B)"}
+
+
+def route_session(Session, cfg, route: str, **kw):
+    """A session of ``cfg`` under ``route``: ``fp32``; ``A``, bf16 compute
+    over fp32 weights (``compute_dtype``); ``B``, bf16 weights over an fp32
+    master (``build_model(param_dtype=bf16, compute_dtype=bf16)`` in the
+    session, ``from_config`` having set the card's matmul flags)."""
+    from repro_torch.models.registry import build_model
+
+    sess = Session.from_config(cfg, compute_dtype=torch.float32
+                               if route == "fp32" else torch.bfloat16, **kw)
+    if route == "B":
+        sess = dataclasses.replace(sess, model=build_model(
+            sess.cfg, sess.device, param_dtype=torch.bfloat16,
+            compute_dtype=torch.bfloat16))
+    return sess
+
+
+def weights_are_rounded_master(state, chunk: int = 1 << 26) -> bool:
+    """Route (B)'s invariant: the bf16 weights are the fp32 master rounded
+    to nearest even, bit for bit (a chunk at a time)."""
+    w, m = state.weights, state.opt_state["master"]
+    return all(torch.equal(bits(w[i:i + chunk]),
+                           bits(m[i:i + chunk].to(torch.bfloat16)))
+               for i in range(0, w.shape[0], chunk))
+
+
 def train_cell(Session, cfg, priv, opt, mesh, steps: int, want: dict,
-               log_name: str, next_batch=None) -> dict:
+               log_name: str, next_batch=None, route: str = "fp32",
+               silo_schedule=None) -> dict:
     """One training cell through ``Session.train``: ``steps`` steps at
     batch 16 x 64 (synthetic tokens, or ``next_batch``'s batches) from
-    random weights (seed 0), the launch counts zeroed
-    just before and read just after and equal to ``want`` a step (a count
-    given as a function takes the cell's layout), nothing else, and no
-    plain per-leaf draw on the card. Losses finite, epsilon rising, the
-    weights moved; step and stage times and peak memory."""
+    random weights (seed 0) under ``route`` (:func:`route_session`), the
+    launch counts zeroed just before and read just after and equal to
+    ``want`` a step (a count given as a function takes the cell's layout;
+    as a list, one count a step), nothing else, and no plain per-leaf draw
+    on the card. ``silo_schedule`` pins each step's participation set.
+    Losses finite, epsilon rising, the weights moved (under route B, the
+    bf16 weights the rounded master); step and stage times and peak
+    memory."""
     from repro_torch.kernels import dispatch
 
-    sess = Session.from_config(cfg, privacy=priv, optimizer=opt, mesh=mesh,
-                               seed=0)
+    sess = route_session(Session, cfg, route, privacy=priv, optimizer=opt,
+                         mesh=mesh, seed=0)
     state, init_s = timed(sess.init_state)
     P = state.layout.total
     master = state.opt_state["master"]
@@ -4063,13 +4114,15 @@ def train_cell(Session, cfg, priv, opt, mesh, steps: int, want: dict,
     dispatch.reset_launches()
     with plain_draw_spy(spy):
         res = sess.train(steps=steps, batch_size=16, seq_len=64,
-                         state=state, log_every=1, next_batch=next_batch)
+                         state=state, log_every=1, next_batch=next_batch,
+                         silo_schedule=silo_schedule)
     n = {k: v for k, v in dispatch.launch_counts().items() if v}
     peak = torch.cuda.max_memory_allocated()
     moved = (master[probe] - before).abs().max().item()
     losses = [m["loss"] for m in res.metrics]
     eps = [m["epsilon"] for m in res.metrics]
-    want = {k: (v(state.layout) if callable(v) else v) * steps
+    want = {k: sum(v) if isinstance(v, list) else
+            (v(state.layout) if callable(v) else v) * steps
             for k, v in want.items()}
     check(spy["plain_draws_on_card"] == 0, f"{log_name} {cfg.name}: "
           f"{spy['plain_draws_on_card']} plain draws on the card")
@@ -4079,18 +4132,24 @@ def train_cell(Session, cfg, priv, opt, mesh, steps: int, want: dict,
           f"{log_name} {cfg.name}: epsilon does not rise: {eps}")
     check(moved > 0, f"{log_name} {cfg.name}: the weights did not move")
     check(n == want, f"{log_name} {cfg.name} launches {n}, expected {want}")
+    if route == "B":
+        check(weights_are_rounded_master(res.state),
+              f"{log_name} {cfg.name}: the bf16 weights are not the "
+              f"rounded master")
     step_ms = [m["step_time_s"] * 1e3 for m in res.metrics]
     stages = {k: [st.get(k, 0.0) for st in res.trainer.stage_log]
               for k in res.trainer.stage_log[0]}
     out = {"config": f"{cfg.name}, n_layers {cfg.n_layers} (d_model "
-                     f"{cfg.d_model}, vocab {cfg.vocab_size}), fp32",
+                     f"{cfg.d_model}, vocab {cfg.vocab_size}), "
+                     f"{ROUTE_LABELS[route]}",
            "P": P, "n_params": state.layout.n_params, "init_s": init_s,
            "steps": steps, "batch": 16, "seq_len": 64, "loss": losses,
            "clip_bound": [m["clip_bound"] for m in res.metrics],
            "epsilon": eps, "step_ms": step_ms, "stage_ms": stages,
            "peak_mem_gb": peak / 1e9, "launches": n,
            "weights_moved_max": moved}
-    log(f"[{log_name}] {cfg.name} at {cfg.n_layers} layers, P {P} "
+    log(f"[{log_name}] {cfg.name} at {cfg.n_layers} layers, "
+        f"{ROUTE_LABELS[route]}, P {P} "
         f"({state.layout.n_params} parameters, in {init_s:.1f} s), {steps} "
         f"steps of 16 x 64 over 4 silos: loss "
         f"{[round(x, 4) for x in losses]} | epsilon "
@@ -6035,6 +6094,191 @@ def families_phase(dev) -> tuple:
     return rec, rows
 
 
+# --------------------------------------------------------------- phase 25
+# training in bf16 (--bf16train only): the card against its CPU held as
+# tests/test_torch_bf16_training.py holds the port to JAX (bf16 products
+# summed in another order flip a rounding now and then): the loss at the
+# first step, the norms and the bound, the noisy gradient, the master after
+# AdamW (2 lr where a gradient's sign flipped, on at most 1% of weights
+# past lr / 10)
+BF16_LOSS_RTOL, BF16_NORM_RTOL, BF16_NOISY_ATOL = 2e-5, 1e-3, 2e-2
+BF16_PARAM_ATOL, BF16_FLIP_SHARE = 2.5e-3, 0.01
+
+
+def bf16_train_cross_device(Session, narrow, priv, opt) -> dict:
+    """Phase 25(d): phase 8's narrow step under route (B) on the card and
+    on the host CPU from the same bf16 weights: one fused pass and one
+    train step each; loss, norms, bound, noisy gradient and master within
+    the BF16_* tolerances, the carried key bit-equal, the bf16 weights the
+    rounded master on both."""
+    from repro_torch.core.barrier import step_keys
+    from repro_torch.core import prng
+    from repro_torch.distributed import steps as steps_mod
+    from repro_torch.kernels import dispatch
+
+    sess = {d: route_session(Session, narrow, "B", privacy=priv,
+                             optimizer=opt, seed=3, device=d)
+            for d in ("cuda", "cpu")}
+    p_cpu = sess["cpu"].init_params()
+    p_gpu = copy.deepcopy(p_cpu).to("cuda")
+    batch = sess["cpu"].synthetic_batches(16, 32)()
+    out = {}
+    for d, p in (("cuda", p_gpu), ("cpu", p_cpu)):
+        dispatch.reset_launches()
+        out[d] = narrow_step(sess[d], p, {k: v.to(d) for k, v in
+                                          batch.items()},
+                             steps_mod, step_keys, prng)
+        out[d] += (dispatch.launch_counts(),)
+    (n_g, m_g, x_g, s_g, c_g), (n_c, m_c, x_c, s_c, c_c) = \
+        out["cuda"], out["cpu"]
+    check(c_g["clip_accumulate"] == 2 and c_g["noise_batch"] == 2,
+          f"bf16 narrow card launches {c_g}")
+    check(all(v == 0 for v in c_c.values()), f"the CPU step launched {c_c}")
+    check(x_g["prev_key"] == x_c["prev_key"]
+          and s_g.noise_state.prev_key == s_c.noise_state.prev_key,
+          "bf16: carried noise key differs between card and CPU")
+    check(weights_are_rounded_master(s_g) and weights_are_rounded_master(s_c),
+          "bf16 narrow: the weights are not the rounded master")
+    check(math.isclose(x_g["loss"], x_c["loss"], rel_tol=BF16_LOSS_RTOL),
+          f"bf16 narrow loss: card {x_g['loss']} vs CPU {x_c['loss']}")
+    for k in ("clip_bound", "grad_norm_mean"):
+        check(math.isclose(m_g[k], m_c[k], rel_tol=BF16_NORM_RTOL),
+              f"bf16 narrow {k}: card {m_g[k]} vs CPU {m_c[k]}")
+    norm_err = ((x_g["norms"] - x_c["norms"]).abs()
+                / x_c["norms"].abs()).max().item()
+    check(norm_err <= BF16_NORM_RTOL, f"bf16 narrow norms {norm_err}")
+    noisy_err = (n_g - n_c).abs().max().item()
+    check(noisy_err <= BF16_NOISY_ATOL, f"bf16 noisy gradient {noisy_err}")
+    dp = (s_g.opt_state["master"].cpu() - s_c.opt_state["master"]).abs()
+    share = (dp > opt.lr / 10).float().mean().item()
+    check(dp.max().item() <= BF16_PARAM_ATOL and share <= BF16_FLIP_SHARE,
+          f"bf16 master differs: max {dp.max().item()}, {share} past lr/10")
+    rec = {"P": s_c.layout.total, "loss": [x_g["loss"], x_c["loss"]],
+           "loss_rel_err": abs(x_g["loss"] - x_c["loss"]) / abs(x_c["loss"]),
+           "clip_bound": [m_g["clip_bound"], m_c["clip_bound"]],
+           "norms_max_rel_err": norm_err, "noisy_max_abs_err": noisy_err,
+           "noisy_max_abs": n_c.abs().max().item(),
+           "master_max_abs_err": dp.max().item(),
+           "master_share_past_lr_10": share, "prev_key_equal": True}
+    log(f"[bf16train-slice] narrow config (P {s_c.layout.total}), route B, "
+        f"card vs CPU: loss {x_g['loss']:.6f} / {x_c['loss']:.6f} | norms "
+        f"rel {norm_err:.3g} | bound {m_g['clip_bound']:.6f} / "
+        f"{m_c['clip_bound']:.6f} | noisy max |diff| {noisy_err:.3g} | "
+        f"master max |diff| {dp.max().item():.3g}, {share:.3g} past lr/10 | "
+        f"prev_key equal; weights the rounded master on both")
+    return rec
+
+
+def bf16_grad_repeat(Session, cfg, priv, opt) -> dict:
+    """Phase 25(e): silo 0's bf16 gradient of the 12-layer cell under
+    route (B) (16 x 64 over 4 silos) computed twice on the card, packed:
+    bit-equal, and its norm too."""
+    from repro_torch.core import flatbuf
+    from repro_torch.models.packing import param_tree
+
+    sess = route_session(Session, cfg, "B", privacy=priv, optimizer=opt,
+                         seed=1)
+    state = sess.init_state()
+    batch = sess.synthetic_batches(16, 64)()
+    t0 = time.perf_counter()
+    a, na = silo_grads_packed(sess.model, state.params, batch, state.layout,
+                              0, 4, flatbuf, param_tree)
+    b, nb = silo_grads_packed(sess.model, state.params, batch, state.layout,
+                              0, 4, flatbuf, param_tree)
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    equal = bool(torch.equal(bits(a), bits(b))) \
+        and bits(na).item() == bits(nb).item()
+    check(equal, f"{cfg.name} route B: silo 0's repeated gradients differ")
+    log(f"[bf16train-repeat] {cfg.name} at {cfg.n_layers} layers, route B: "
+        f"silo 0's packed gradient (norm {na.item():.6f}) computed twice, "
+        f"bit-equal ({s:.1f} s)")
+    P = state.layout.total
+    del a, b, state, sess
+    torch.cuda.empty_cache()
+    return {"P": P, "bit_equal": equal, "norm": float(na), "s": s}
+
+
+def bf16train_phase(dev) -> dict:
+    """Phase 25 (``--bf16train`` only): training in bf16 on JAX's two
+    routes, beside fp32 in the same call. qwen2.5-3b at full width and 12
+    layers, phase 7's privacy, 16 x 64 over 4 silos: (a) 3 fused steps in
+    fp32, route (A) and route (B), each DP kernel once a step; (b) 3
+    barrier steps, silo 2 out at the second (4, 3 and 4 ``clip_mask``
+    launches), the same three ways; (c) the scan tier under route (B) at
+    the largest of SCAN_DEPTHS that fits, 2 steps (``normal_combine`` a
+    leaf tensor); (d) the narrow step under route (B), card vs CPU; (e)
+    one silo's bf16 gradient repeated, bit-equal. Step and stage ms, peak
+    GB of each cell; under route (B) the bf16 weights the rounded master
+    after every cell."""
+    import gc
+
+    from repro_torch.api import Session
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import (MeshConfig, OptimizerConfig,
+                                          PrivacyConfig, reduce_for_smoke)
+
+    t0 = time.perf_counter()
+    cfg = get_config("qwen2.5-3b")
+    cut12 = dataclasses.replace(cfg, n_layers=12)
+    priv = PrivacyConfig(enabled=True, sigma=0.3, clip_bound=1.0,
+                         dynamic_clip=True, noise_lambda=0.7, n_silos=4)
+    priv_b = dataclasses.replace(priv, sync_path="barrier")
+    priv_s = dataclasses.replace(priv, silo_mode="scan")
+    opt = OptimizerConfig(name="adamw", lr=1e-3)
+    mesh4 = MeshConfig((4,), ("data",))
+    rec: dict = {"fused": {}, "barrier": {}}
+    for route in ("fp32", "A", "B"):
+        rec["fused"][route] = train_cell(
+            Session, cut12, priv, opt, None, 3,
+            {"clip_accumulate": 1, "noise_batch": 1}, "bf16train-fused",
+            route=route)
+    for route in ("fp32", "A", "B"):
+        rec["barrier"][route] = train_cell(
+            Session, cut12, priv_b, opt, mesh4, 3, {"clip_mask": [4, 3, 4]},
+            "bf16train-barrier", route=route,
+            silo_schedule=lambda t: [True, True, t != 1, True])
+    scan: dict = {"tried": []}
+    for depth in SCAN_DEPTHS:
+        cut = dataclasses.replace(cfg, n_layers=depth)
+        try:
+            cell = train_cell(Session, cut, priv_s, opt, None, 2, {
+                "normal_combine": lambda lay: len(leaf_slices(lay))},
+                "bf16train-scan", route="B")
+        except torch.cuda.OutOfMemoryError as e:
+            scan["tried"].append({"n_layers": depth, "error": str(e)[:200]})
+            log(f"[bf16train-scan] {depth} layers do not fit the card under "
+                f"route B: {str(e)[:160]}")
+            gc.collect()
+            torch.cuda.empty_cache()
+            continue
+        scan.update(n_layers=depth, full_depth=depth == cfg.n_layers, **cell)
+        break
+    check("n_layers" in scan, f"the route B scan tier fits at none of "
+                              f"{SCAN_DEPTHS} layers")
+    rec["scan"] = scan
+    narrow = reduce_for_smoke(cfg, n_layers=2, d_model=256, n_heads=4,
+                              n_kv_heads=2, d_head=64, d_ff=512,
+                              vocab_size=4096)
+    rec["cross_device"] = bf16_train_cross_device(
+        Session, narrow, dataclasses.replace(priv,
+                                             clip_percentile_max=NARROW_CAP),
+        opt)
+    rec["repeat"] = bf16_grad_repeat(Session, cut12, priv, opt)
+    for tier in ("fused", "barrier"):
+        log(f"[bf16train] {tier} at 12 layers, ms a step after the first "
+            f"(fp32 / A / B): " + " / ".join(
+                f"{sum(rec[tier][r]['step_ms'][1:]) / 2:.1f}"
+                for r in ("fp32", "A", "B")) + " | peak GB " + " / ".join(
+                f"{rec[tier][r]['peak_mem_gb']:.2f}"
+                for r in ("fp32", "A", "B")))
+    rec["phase_s"] = time.perf_counter() - t0
+    log(f"[bf16train] phase 25 in {rec['phase_s']:.1f} s; scan tier under "
+        f"route B at {scan['n_layers']} layers, peak "
+        f"{scan['peak_mem_gb']:.2f} GB")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -7261,7 +7505,7 @@ if __name__ == "__main__":
         if "--src" in args else ROOT / "src"
     for phase in ("scans", "pool", "wire", "bwd", "streams", "slice15",
                   "persist", "cifar", "prng", "normal", "tree", "bf16",
-                  "families"):
+                  "families", "bf16train"):
         if f"--{phase}" in args:
             sys.exit(one_phase(phase, src))
     sys.exit(main())

@@ -28,6 +28,15 @@ the flags bool). Save moves one leaf at a time to the host; restore
 and the parameters viewing ``master`` keep their storage, and the packed
 padding stays zero. The ``.params`` leaves equal ``master``'s in fp32:
 restore checks their hash and shape and takes the values from ``master``.
+With bf16 weights (``TrainState.weights``) the ``.params`` leaves are the
+bf16 buffer's and restore loads them into it.
+
+A bf16 leaf is stored as JAX's ``np.save`` stores an ``ml_dtypes``
+bfloat16 array, which the port does not import: its raw 2-byte values
+under the ``.npy`` descr ``<V2``, ``"dtype": "bfloat16"`` in the
+manifest. On the host such a leaf is a ``V2`` array of the raw values
+(:func:`_host`, :func:`_tensor`). JAX's own ``restore`` cannot read one
+back (numpy has no cast from ``V2`` to ``bfloat16``).
 
 Each leaf is hashed on a worker thread beside its write or read (a
 chunk at a time, in order). ``timings`` (a dict, optional) accumulates
@@ -69,10 +78,26 @@ def _is_train_state(tree) -> bool:
         and hasattr(tree, "opt_state")
 
 
+BF16_RAW = np.dtype("V2")   # a bf16 leaf's raw values on the host
+
+
 def _host(x) -> np.ndarray:
+    """A leaf on the host; a bf16 tensor as its raw values (``V2``)."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        x = x.detach()
+        if x.dtype == torch.bfloat16:
+            return x.view(torch.int16).cpu().numpy().view(BF16_RAW)
+        return x.cpu().numpy()
     return np.asarray(x)
+
+
+def _tensor(a: np.ndarray) -> torch.Tensor:
+    """A host array as a tensor sharing its memory; ``V2`` raw values as
+    bf16."""
+    if a.dtype == BF16_RAW:
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)) \
+            .view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def _walk(tree, prefix: tuple = ()):
@@ -109,7 +134,7 @@ def _rebuild(tree, values: dict, prefix: tuple = ()):
                           for i, x in enumerate(tree))
     arr = values["/".join(prefix)]
     if isinstance(tree, torch.Tensor):
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(
+        return _tensor(np.ascontiguousarray(arr)).to(
             device=tree.device, dtype=tree.dtype)
     return arr.astype(tree.dtype) if isinstance(tree, np.ndarray) else arr
 
@@ -134,9 +159,9 @@ def _buffer_leaves(prefix: str, layout, buf: torch.Tensor,
         view = buf[off:off + size].view(shape)
 
         def put(a, view=view):
-            view.copy_(torch.from_numpy(a).view(view.shape))
+            view.copy_(_tensor(a).view(view.shape))
         out.append(_Leaf(prefix + path.replace(".", "/"), tuple(shape),
-                         lambda view=view: view.detach().cpu().numpy(),
+                         lambda view=view: _host(view),
                          put if load else None))
     return out
 
@@ -151,7 +176,8 @@ def _state_leaves(state, scalars: dict) -> list:
 
     layout = state.layout
     leaves = _buffer_leaves(".params/", layout, state.opt_state["master"],
-                            load=False)
+                            load=False) if state.weights is None \
+        else _buffer_leaves(".params/", layout, state.weights, load=True)
     for k in sorted(state.opt_state):
         v = state.opt_state[k]
         if isinstance(v, torch.Tensor):
@@ -222,8 +248,10 @@ def _write_npy(path: Path, arr: np.ndarray, pool) -> tuple:
     """``np.save``'s bytes for a C-contiguous ``arr``, written in chunks
     and hashed beside the write: ``(sha256, write s, hash s)``."""
     head = io.BytesIO()
-    np.lib.format.write_array_header_1_0(
-        head, np.lib.format.header_data_from_array_1_0(arr))
+    header = np.lib.format.header_data_from_array_1_0(arr)
+    if arr.dtype == BF16_RAW:
+        header["descr"] = "<V2"  # ml_dtypes' bfloat16, as np.save writes it
+    np.lib.format.write_array_header_1_0(head, header)
     data = memoryview(arr.reshape(-1).view(np.uint8))
     hasher = _Hasher(pool)
     t0 = time.perf_counter()
@@ -262,7 +290,8 @@ def save(ckpt_dir, step: int, tree, extra: Optional[dict] = None,
             _add(timings, "bytes", (tmp / fname).stat().st_size)
             entries.append({"path": leaf.path, "file": fname,
                             "shape": list(arr.shape),
-                            "dtype": str(arr.dtype), "sha256": digest})
+                            "dtype": "bfloat16" if arr.dtype == BF16_RAW
+                            else str(arr.dtype), "sha256": digest})
             del arr
     manifest = {"step": step, "entries": entries, "extra": extra or {}}
     (tmp / "manifest.json").write_text(json.dumps(manifest, indent=1))

@@ -13,6 +13,12 @@ example), writes it into its row of a ``(B, P)`` packed buffer
 factor (``dp_fused/ref.clip_sum_ref`` and ``dp_clip/ref.clip_scales``:
 ``min(1, C / sqrt(max(ss, 1e-30)))``), which is not :func:`clip_scale`'s
 ``max(norm, 1e-12)``; the per-leaf route's norms are ``sqrt(ss)``.
+
+Both granularities run over bf16 compute with fp32 weights (their
+gradients are fp32, as JAX's); with bf16 weights they raise
+``NotImplementedError`` (ROADMAP.md queue 1 item 15b): JAX rounds each
+clipped group's gradient back to bf16 before the fp32 sum, and its
+per-example route over bf16 leaves is not held here.
 """
 from __future__ import annotations
 
@@ -95,6 +101,13 @@ def trainable(tensors):
             t.requires_grad_(f)
 
 
+def _fp32_weights(tensors, mode: str) -> None:
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise NotImplementedError(
+            f"{mode} clipping with bf16 weights (ROADMAP.md queue 1 item "
+            f"15b); bf16 compute over fp32 weights runs")
+
+
 def per_example_grads(loss_fn: Callable, params, batch: dict):
     """Every example's gradient, each example run as a batch of one:
     ``(layout, (B, P) buffer, losses (B,))``, row b example b's gradient
@@ -102,6 +115,7 @@ def per_example_grads(loss_fn: Callable, params, batch: dict):
     tree = packing.param_tree(params)
     layout = flatbuf.layout_of(tree)
     tensors = flatbuf.flat_tensors(layout, tree)
+    _fp32_weights(tensors, "per-example")
     B = next(iter(batch.values())).shape[0]
     buf = torch.empty((B, layout.total), dtype=torch.float32,
                       device=tensors[0].device)
@@ -141,6 +155,7 @@ def per_microbatch_clipped_grad(loss_fn: Callable, params, batch: dict,
     tree = packing.param_tree(params)
     layout = flatbuf.layout_of(tree)
     tensors = flatbuf.flat_tensors(layout, tree)
+    _fp32_weights(tensors, "per-microbatch")
     B = next(iter(batch.values())).shape[0]
     if B % n_micro:
         raise ValueError(f"batch of {B} does not split into {n_micro} groups")
@@ -162,7 +177,8 @@ def per_microbatch_clipped_grad(loss_fn: Callable, params, batch: dict,
     with torch.no_grad():
         norms = torch.stack(norms)
         summed = clip_ops.clipped_sum(buf, clip_scale(norms, clip_bound))
-    return flatbuf.unpack(layout, summed), norms, torch.stack(losses).mean()
+    return flatbuf.unpack(layout, summed, dtype=torch.float32), norms, \
+        torch.stack(losses).mean()
 
 
 def _linear_quantile(xs: torch.Tensor, qs: torch.Tensor, count) -> torch.Tensor:

@@ -238,7 +238,8 @@ class DPPipeline:
             row = torch.empty(self.layout.total, dtype=torch.float32,
                               device=dev)
             masking.admin_mask_row(
-                keys.key_xi, flatbuf.unpack(self.layout, packed),
+                keys.key_xi, flatbuf.unpack(self.layout, packed,
+                                            dtype=torch.float32),
                 self.n_silos, silo, sigma_c, self.priv.mask_scale * sigma_c,
                 active=act, correction=corr, out=row)
         res = torch.mul(packed, scaled, out=out)
@@ -407,13 +408,13 @@ class DPPipeline:
                             self.n_silos, sigma_c, priv.mask_scale * sigma_c,
                             state.prev_key if priv.noise_lambda > 0.0
                             else None, lam_gate)
-        return flatbuf.unpack(self.layout, buf)
+        return flatbuf.unpack(self.layout, buf, dtype=torch.float32)
 
     def finalize(self, agg) -> dict:
         """The aggregated contribution -> the fp32 gradient tree: views into
         a packed ``agg``; a tree (the perleaf policy's) as it is."""
         if isinstance(agg, torch.Tensor):
-            return flatbuf.unpack(self.layout, agg)
+            return flatbuf.unpack(self.layout, agg, dtype=torch.float32)
         return agg
 
     def corrected_noise_tree(self, g_sum_tree: dict, keys: BarrierKeys,
@@ -429,7 +430,7 @@ class DPPipeline:
         if self.policy.mode == "packed":
             packed = flatbuf.pack(self.layout, g_sum_tree)
             return flatbuf.unpack(self.layout, self.corrected_noise_packed(
-                packed, keys, state, bound, active))
+                packed, keys, state, bound, active), dtype=torch.float32)
         first = flatbuf.flat_tensors(self.layout, g_sum_tree)[0]
         sigma_c = self.priv.sigma * torch.as_tensor(
             bound, dtype=torch.float32, device=first.device)
@@ -452,7 +453,8 @@ class DPPipeline:
             return g_sum, state, bound
         with timer.stage("noise"):
             if self.priv.mask_mode == "admin":
-                self.admin_noise_tree(flatbuf.unpack(self.layout, g_sum),
+                self.admin_noise_tree(flatbuf.unpack(self.layout, g_sum,
+                                                     dtype=torch.float32),
                                       keys, state, bound)
                 noisy = g_sum
             else:

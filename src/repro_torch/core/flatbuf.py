@@ -16,8 +16,14 @@ layer, so a list stands for the stacked leaf. Layer ``l`` of a stacked leaf
 lands at ``offset + l * numel``, and the whole stacked leaf is padded once,
 as in JAX.
 
-``pack`` can write into a given row (one silo's row of the stacked
-``(n, P)`` buffer); ``unpack`` returns views into the buffer, not copies.
+The layout records each leaf's dtype, as JAX's does. ``pack`` widens every
+leaf into the fp32 buffer (a bf16 leaf exactly) and can write into a given
+row (one silo's row of the stacked ``(n, P)`` buffer), or into a buffer of
+another dtype when asked (the packed bf16 weights of
+``models.packing.pack_params``). ``unpack`` gives each leaf in the layout's
+recorded dtype, or in ``dtype`` when given, as JAX's does: a leaf whose
+dtype is the buffer's is a view into the buffer, not a copy; any other is
+rounded to its dtype (a bf16 leaf of an fp32 buffer, to nearest even).
 
 Per-example gradients (JAX's ``layout_of(tree, batch_dims=1)``) are the
 ``(B, P)`` buffer whose row b is example b's gradient packed with the
@@ -55,6 +61,7 @@ class PackedLayout:
     paths: tuple    # leaf paths in JAX order
     shapes: tuple   # JAX leaf shapes (a stacked leaf leads with its count)
     stacks: tuple   # per leaf: tensors stacked into it (0 = one tensor)
+    dtypes: tuple   # per leaf: dtype name ("float32", "bfloat16"), as JAX's
     sizes: tuple
     padded: tuple
     offsets: tuple
@@ -69,28 +76,38 @@ class PackedLayout:
         return sum(self.sizes)
 
 
+def dtype_name(dtype: torch.dtype) -> str:
+    """``torch.bfloat16`` -> ``"bfloat16"``: JAX's ``jnp.dtype(x).name``."""
+    return str(dtype).removeprefix("torch.")
+
+
 def layout_of(tree: dict) -> PackedLayout:
     if not tree:
         raise ValueError("cannot build a PackedLayout for an empty tree")
-    paths, shapes, stacks = [], [], []
+    paths, shapes, stacks, dtypes = [], [], [], []
     for path in sorted(tree, key=_sort_key):  # jax.tree.flatten's order
         leaf = tree[path]
         if isinstance(leaf, (list, tuple)):
             shape = tuple(leaf[0].shape)
             if any(tuple(t.shape) != shape for t in leaf):
                 raise ValueError(f"{path}: stacked tensors differ in shape")
+            if any(t.dtype != leaf[0].dtype for t in leaf):
+                raise ValueError(f"{path}: stacked tensors differ in dtype")
             shapes.append((len(leaf),) + shape)
             stacks.append(len(leaf))
+            dtypes.append(dtype_name(leaf[0].dtype))
         else:
             shapes.append(tuple(leaf.shape))
             stacks.append(0)
+            dtypes.append(dtype_name(leaf.dtype))
         paths.append(path)
-    return build_layout(paths, shapes, stacks)
+    return build_layout(paths, shapes, stacks, dtypes)
 
 
-def build_layout(paths, shapes, stacks) -> PackedLayout:
-    """The layout of leaves ``paths`` (in JAX order) with ``shapes`` and
-    ``stacks`` (see :class:`PackedLayout`): offsets, padding and total."""
+def build_layout(paths, shapes, stacks, dtypes=None) -> PackedLayout:
+    """The layout of leaves ``paths`` (in JAX order) with ``shapes``,
+    ``stacks`` and ``dtypes`` (see :class:`PackedLayout`; fp32 leaves when
+    None): offsets, padding and total. The dtypes move no offset."""
     shapes = tuple(tuple(int(d) for d in s) for s in shapes)
     sizes = tuple(math.prod(s) if s else 1 for s in shapes)
     padded = tuple(_round_up(max(s, 1), LANE) for s in sizes)
@@ -98,8 +115,11 @@ def build_layout(paths, shapes, stacks) -> PackedLayout:
     for p in padded:
         offsets.append(off)
         off += p
+    dtypes = ("float32",) * len(shapes) if dtypes is None \
+        else tuple(str(d) for d in dtypes)
     return PackedLayout(tuple(paths), shapes, tuple(int(k) for k in stacks),
-                        sizes, padded, tuple(offsets), _round_up(off, ALIGN))
+                        dtypes, sizes, padded, tuple(offsets),
+                        _round_up(off, ALIGN))
 
 
 def flat_tensors(layout: PackedLayout, tree: dict) -> list:
@@ -112,17 +132,19 @@ def flat_tensors(layout: PackedLayout, tree: dict) -> list:
 
 
 def pack_tensors(layout: PackedLayout, tensors,
-                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 out: Optional[torch.Tensor] = None,
+                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Copy ``tensors`` (in :func:`flat_tensors` order) into one fp32
     ``(total,)`` buffer, ``out`` when given (contiguous, fp32), with every
-    padding position exactly zero."""
+    padding position exactly zero. A bf16 tensor widens exactly. ``dtype``
+    names another buffer dtype (``out``'s, when given)."""
     tensors = list(tensors)
     if out is None:
-        out = torch.empty(layout.total, dtype=torch.float32,
+        out = torch.empty(layout.total, dtype=dtype,
                           device=tensors[0].device)
-    if out.shape != (layout.total,) or out.dtype != torch.float32 \
+    if out.shape != (layout.total,) or out.dtype != dtype \
             or not out.is_contiguous():
-        raise ValueError(f"pack target must be contiguous fp32 "
+        raise ValueError(f"pack target must be contiguous {dtype} "
                          f"({layout.total},), got {out.dtype} {tuple(out.shape)}")
     it = iter(tensors)
     for shape, k, size, pad, off in zip(layout.shapes, layout.stacks,
@@ -163,8 +185,9 @@ def zero_padding(layout: PackedLayout, buf: torch.Tensor) -> torch.Tensor:
 
 
 def pack(layout: PackedLayout, tree: dict,
-         out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    return pack_tensors(layout, flat_tensors(layout, tree), out)
+         out: Optional[torch.Tensor] = None,
+         dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return pack_tensors(layout, flat_tensors(layout, tree), out, dtype)
 
 
 def pack_rows(layout: PackedLayout, tree: dict) -> torch.Tensor:
@@ -220,15 +243,23 @@ def map_leaf_slices(layout: PackedLayout, tree: dict, fn) -> dict:
     return out
 
 
-def unpack(layout: PackedLayout, buf: torch.Tensor) -> dict:
-    """The tree of ``buf``: views into it (lists of per-layer views for the
-    stacked leaves), shaped as the layout's leaves."""
+def unpack(layout: PackedLayout, buf: torch.Tensor,
+           dtype: Optional[torch.dtype] = None) -> dict:
+    """The tree of ``buf`` (lists of per-layer tensors for the stacked
+    leaves), shaped as the layout's leaves, each in the layout's recorded
+    dtype or in ``dtype`` when given (JAX's ``unpack``): views into ``buf``
+    where that is ``buf``'s dtype, rounded copies otherwise."""
     if buf.shape != (layout.total,):
         raise ValueError(f"buffer {tuple(buf.shape)}, layout ({layout.total},)")
+    want = dtype_name(dtype) if dtype is not None else None
+    have = dtype_name(buf.dtype)
     tree = {}
-    for path, shape, k, size, off in zip(layout.paths, layout.shapes,
-                                         layout.stacks, layout.sizes,
-                                         layout.offsets):
+    for path, shape, k, dt, size, off in zip(
+            layout.paths, layout.shapes, layout.stacks, layout.dtypes,
+            layout.sizes, layout.offsets):
         piece = buf[off:off + size].view(shape)
+        dt = want or dt
+        if dt != have:
+            piece = piece.to(getattr(torch, dt))
         tree[path] = list(piece.unbind(0)) if k else piece
     return tree

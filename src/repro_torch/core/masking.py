@@ -273,7 +273,8 @@ def admin_mask_row(key, template: dict, n_silos: int, silo: int, sigma_c,
     if out is None:
         out = torch.empty(layout.total, dtype=torch.float32,
                           device=first.device)
-    rows = flatbuf.unpack(layout, flatbuf.zero_padding(layout, out))
+    rows = flatbuf.unpack(layout, flatbuf.zero_padding(layout, out),
+                          dtype=torch.float32)
     st = _Streams(key, layout, n_silos, sigma_c, b_scale, first.device,
                   correction)
     dst = flatbuf.flat_tensors(layout, rows)

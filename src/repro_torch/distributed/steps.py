@@ -18,11 +18,24 @@ on one card, so its mesh is virtual: ``MeshConfig((n,), ("data",))`` gives
 the result of the JAX package on an n-device mesh.
 
 Either way the aggregate is divided by the silos that contributed and the
-optimizer updates the packed master buffer, of which the model's
+optimizer updates the packed master buffer, of which the model's fp32
 parameters are views. JAX vmaps (or shard_maps) the silos; the port loops
 over them, computing one silo's gradient with autograd, packing it into row
 i and freeing the gradient tree before silo i+1, so only one gradient tree
 lives at a time.
+
+Training in bf16 takes JAX's two routes. (A) bf16 compute over fp32
+weights: ``build_model(cfg, dev, compute_dtype=torch.bfloat16)``, the
+weights cast in the forward pass, their gradients fp32. (B) bf16 weights
+over an fp32 master: ``build_model(cfg, dev, param_dtype=torch.bfloat16,
+compute_dtype=torch.bfloat16)``; the weights are views of one packed bf16
+buffer (``TrainState.weights``), the optimizer's master is its widened
+copy, and every update rewrites the bf16 buffer from the master, rounding
+to nearest even (JAX's ``mst.astype(p.dtype)``). Either way each silo's
+gradient is computed in bf16 and widened into its fp32 row (the scan
+tier's accumulator is fp32, as JAX's ``gg.astype(jnp.float32)``), and the
+DP stages and their kernels run in fp32 as they do in fp32 training. Only
+the dense family trains in bf16 (:func:`check_bf16_training`).
 
 ``silo_mode='scan'`` (the JAX package's silo-serial tier for large models):
 no stacked buffer; each silo's gradient is clipped with the carried bound
@@ -65,11 +78,15 @@ from repro_torch.optim.schedules import constant
 
 class TrainState(NamedTuple):
     params: Any            # the model's weights: views of opt_state["master"]
+    #                        (fp32) or of ``weights`` (bf16)
     opt_state: dict
     noise_state: NoiseState
     step: int
     clip_bound: torch.Tensor  # current C_t, fp32 0-dim on the device
     layout: PackedLayout   # the packed layout of params, grads and moments
+    # the packed bf16 weights the params view, rounded from the master after
+    # every update; None when the params view the fp32 master
+    weights: Optional[torch.Tensor] = None
 
 
 class StageTimer:
@@ -120,16 +137,39 @@ def effective_n_silos(run_cfg: RunConfig) -> int:
     return run_cfg.mesh.n_silos
 
 
+BF16_ITEM = "ROADMAP.md queue 1 item 15b"
+
+
+def check_bf16_training(model: Model, param_dtype=torch.float32) -> None:
+    """Raise unless bf16 training (bf16 compute or bf16 weights) is ported
+    for ``model``: the dense transformer family only; the others stay
+    fp32-only until ``BF16_ITEM``."""
+    bf16 = model.compute_dtype == torch.bfloat16 \
+        or param_dtype == torch.bfloat16
+    family = getattr(model.cfg, "family", None)
+    if bf16 and family != "dense":
+        raise NotImplementedError(
+            f"training in bf16 is ported for the dense family only, not "
+            f"{family or 'a small model'!r} ({BF16_ITEM}: the MoE router's "
+            f"ties in bf16, the rwkv6 / zamba2 scans' autograd Functions "
+            f"in bf16, the vlm and encoder frontends)")
+
+
 def init_train_state(model: Model, run_cfg: RunConfig, key: tuple,
                      params=None, gen: Optional[torch.Generator] = None
                      ) -> TrainState:
     """``params`` (e.g. from ``models.convert.params_from_jax``) or random
-    weights from ``gen``; either way they are moved into the packed master
-    buffer. The noise state starts from ``fold_in(key, 0xD0)``, as in
-    JAX."""
+    weights from ``gen``; either way they are moved into one packed buffer
+    of their dtype. fp32 weights view that buffer, the optimizer's master;
+    bf16 weights view a packed bf16 buffer (``TrainState.weights``) and the
+    master is its widened copy, as JAX's optimizer state. The noise state
+    starts from ``fold_in(key, 0xD0)``, as in JAX."""
     if params is None:
         params = model.init(gen)
-    layout, master = packing.pack_params(params)
+    layout, buf = packing.pack_params(params)
+    check_bf16_training(model, buf.dtype)
+    weights = None if buf.dtype == torch.float32 else buf
+    master = buf if weights is None else buf.to(torch.float32)
     opt = make_optimizer(run_cfg.optimizer)
     return TrainState(
         params=params,
@@ -139,7 +179,7 @@ def init_train_state(model: Model, run_cfg: RunConfig, key: tuple,
         step=0,
         clip_bound=torch.tensor(run_cfg.privacy.clip_bound,
                                 dtype=torch.float32, device=master.device),
-        layout=layout)
+        layout=layout, weights=weights)
 
 
 def _reshape_to_silos(batch: dict, n_silos: int) -> dict:
@@ -214,8 +254,9 @@ def _fused_grads(model: Model, priv: PrivacyConfig, params, batch, n_silos,
                 noisy = pipe.masked_aggregate(
                     stacked, pipe.clip_scales(norms, bound, active))
             with timer.stage("noise"):
-                pipe.corrected_noise_tree(flatbuf.unpack(layout, noisy), keys,
-                                          noise_state, bound, active)
+                pipe.corrected_noise_tree(
+                    flatbuf.unpack(layout, noisy, dtype=torch.float32), keys,
+                    noise_state, bound, active)
             new_ns = pipe.advance_state(keys, noise_state, active)
         else:
             noisy, new_ns, bound = pipe.run_central(
@@ -243,7 +284,8 @@ def _fused_grads_scan(model: Model, priv: PrivacyConfig, params, batch,
     tensors = flatbuf.flat_tensors(layout, packing.param_tree(params))
     dev = tensors[0].device
     acc = torch.zeros(layout.total, dtype=torch.float32, device=dev)
-    acc_tensors = flatbuf.flat_tensors(layout, flatbuf.unpack(layout, acc))
+    acc_tensors = flatbuf.flat_tensors(
+        layout, flatbuf.unpack(layout, acc, dtype=torch.float32))
     loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
     norms = []
     for i in range(n_silos):
@@ -260,7 +302,9 @@ def _fused_grads_scan(model: Model, priv: PrivacyConfig, params, batch,
                     else torch.ones((), dtype=torch.float32, device=dev)
                 scale = scale * gates[i]
                 for a, g in zip(acc_tensors, grads):
-                    a.add_(g.mul_(scale))  # JAX's a + scale * g
+                    # JAX's a + scale * g.astype(float32): a bf16 gradient
+                    # widens first (fp32 is scaled in place)
+                    a.add_(g.float().mul_(scale))
             loss_sum = loss_sum + loss.detach() * gates[i]
         del grads, loss
         norms.append(norm)
@@ -275,8 +319,9 @@ def _fused_grads_scan(model: Model, priv: PrivacyConfig, params, batch,
                 acc = pipe.corrected_noise_packed(acc, keys, noise_state,
                                                   clip_bound, active)
             else:
-                pipe.corrected_noise_tree(flatbuf.unpack(layout, acc), keys,
-                                          noise_state, clip_bound, active)
+                pipe.corrected_noise_tree(
+                    flatbuf.unpack(layout, acc, dtype=torch.float32), keys,
+                    noise_state, clip_bound, active)
     return acc, loss_sum / pipe.active_count(active), norms, \
         pipe.advance_state(keys, noise_state, active), new_bound
 
@@ -296,6 +341,11 @@ def _barrier_grads(model: Model, priv: PrivacyConfig, mesh_cfg: MeshConfig,
     silo_batches = _reshape_to_silos(batch, n_silos)
     pipe = DPPipeline(priv, layout, n_silos)
     if pipe.policy.mode == "perleaf":
+        if "bfloat16" in layout.dtypes:
+            # JAX rounds each masked contribution back to bf16, where the
+            # +-B*r masks no longer cancel in the sum
+            raise NotImplementedError(
+                f"the per-leaf mask family with bf16 weights ({BF16_ITEM})")
         # the per-leaf mask family only builds the full static ring: the
         # step aggregates every silo whatever set it was given (as JAX's)
         active = pipe.full_active()
@@ -356,6 +406,7 @@ def build_train_step(model: Model, run_cfg: RunConfig, lr_schedule=None,
             "elastic membership on the barrier tier needs the packed mask "
             "engine (the per-leaf family only builds the full static ring); "
             "lift the dp_noise_tree=perleaf override")
+    check_bf16_training(model)
     opt = make_optimizer(run_cfg.optimizer)
     lr_schedule = lr_schedule or constant(run_cfg.optimizer.lr)
     n_silos = effective_n_silos(run_cfg)
@@ -395,13 +446,14 @@ def build_train_step(model: Model, run_cfg: RunConfig, lr_schedule=None,
             # the aggregate over its contributors; the padding, which the
             # noise reached, stays zero in the master buffer and moments
             grad = flatbuf.zero_padding(state.layout, noisy.div_(n_contrib))
-            opt_state = opt.update(state.opt_state, grad, lr)
+            opt_state = opt.update(state.opt_state, grad, lr,
+                                   weights=state.weights)
         del noisy, grad
         gates = _gates(tuple(bool(a) for a in active), dev)
         metrics = {"loss": loss, "grad_norm_mean":
                    torch.sum(norms * gates) / n_contrib,
                    "clip_bound": bound, "lr": lr, "n_contributions": n_contrib}
         return TrainState(state.params, opt_state, new_ns, state.step + 1,
-                          bound, state.layout), metrics
+                          bound, state.layout, state.weights), metrics
 
     return train_step

@@ -62,7 +62,8 @@ def _clip_and_sum_perleaf(buf, clip_bound, layout):
     summed = clip_accumulate(buf, scale, out=torch.empty(
         layout.total, dtype=torch.float32, device=buf.device))
     flatbuf.zero_padding(layout, summed)
-    return flatbuf.unpack(layout, summed), torch.sqrt(total)
+    return flatbuf.unpack(layout, summed, dtype=torch.float32), \
+        torch.sqrt(total)
 
 
 def clip_and_sum_tree(grads, clip_bound, impl: str = "auto", layout=None):

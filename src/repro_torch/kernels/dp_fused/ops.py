@@ -98,7 +98,7 @@ def packed_clip_and_sum(buf, clip_bound, layout):
     ``layout``) in one dispatch. Returns ``(clipped-sum tree fp32, views
     into one buffer; per-example norms)``."""
     summed, norms = clip_sum_packed(buf, clip_bound)
-    return flatbuf.unpack(layout, summed), norms
+    return flatbuf.unpack(layout, summed, dtype=torch.float32), norms
 
 
 def packed_mask_tree(grads, key_r, key_xi, silo: int, n_silos: int, sigma_c,

@@ -10,8 +10,8 @@ stacks every layer on a leading axis (its inits vmap over layer keys), the
 port keeps one module per layer in a ``ModuleList`` (``layers``,
 ``mamba_layers``), so layer ``i`` takes slice ``[i]`` of every stacked
 leaf. ``params_to_numpy`` gives any family's weights as the JAX tree
-(``models/packing.param_tree``). Matrices are ``(d_in, d_out)`` in both
-packages: no transpose.
+(``models/packing.param_tree``), bf16 weights as exact fp32 arrays.
+Matrices are ``(d_in, d_out)`` in both packages: no transpose.
 ``small_params_from_jax`` takes the paper's small models' nested tree
 (MNIST-MLP3's ``{'l0': {'w', 'b'}, ...}``) to the port's flat dict of
 tensors keyed by the dotted JAX paths (``models/small.py``).
@@ -84,18 +84,28 @@ def _numels(node):
         yield int(np.size(node))
 
 
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """A weight on the host: fp32 as it is, bf16 widened to fp32 (exact;
+    numpy has no bf16 and the port imports no ``ml_dtypes``)."""
+    t = t.detach()
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+
 def params_to_numpy(model) -> dict:
     """The JAX package's nested parameter tree of ``model``'s weights, as
-    numpy copies (every ``layers.*`` leaf stacked on a leading axis)."""
+    numpy copies (every ``layers.*`` leaf stacked on a leading axis). bf16
+    weights come back as fp32 arrays of the same values, which
+    ``jnp.asarray(leaf, jnp.bfloat16)`` rounds back bit for bit: the bf16
+    tree JAX's ``build_model(param_dtype=jnp.bfloat16)`` holds, and
+    ``params_from_jax(..., dtype=torch.bfloat16)`` takes them back."""
     tree: dict = {}
     for path, leaf in param_tree(model).items():
         *parents, name = path.split(".")
         node = tree
         for p in parents:
             node = node.setdefault(p, {})
-        node[name] = (np.stack([t.detach().cpu().numpy() for t in leaf])
-                      if isinstance(leaf, list)
-                      else leaf.detach().cpu().numpy().copy())
+        node[name] = (np.stack([_numpy(t) for t in leaf])
+                      if isinstance(leaf, list) else _numpy(leaf).copy())
     return tree
 
 

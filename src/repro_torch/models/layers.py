@@ -118,10 +118,35 @@ def mrope_sections_for(d_rot: int) -> tuple[int, int, int]:
     return (half - 2 * hw, hw, hw)
 
 
-def swiglu_apply(p: "SwiGLU", x: torch.Tensor) -> torch.Tensor:
+class XlaSilu(torch.autograd.Function):
+    """SiLU in bf16 as XLA evaluates ``jax.nn.silu`` (``x * logistic(x)``)
+    on the JAX package's training path: the logistic expanded to
+    ``1 / (1 + exp(-x))`` and every op rounded to bf16, then its
+    derivative ``c * s + (c * x) * (s * (1 - s))``, each op rounded too.
+    ``F.silu`` computes in fp32 and rounds once, forward and backward: one
+    ulp apart on a quarter of the elements."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = 1 / (1 + torch.exp(-x))
+        ctx.save_for_backward(x, s)
+        return x * s
+
+    @staticmethod
+    def backward(ctx, c):
+        x, s = ctx.saved_tensors
+        return c * s + (c * x) * (s * (1 - s))
+
+
+def swiglu_apply(p: "SwiGLU", x: torch.Tensor,
+                 train: bool = False) -> torch.Tensor:
+    """``train``: the training forward, whose bf16 SiLU follows XLA's order
+    (:class:`XlaSilu`); serving and fp32 keep ``F.silu``."""
     g = x @ p.w_gate.to(x.dtype)
     u = x @ p.w_up.to(x.dtype)
-    return (F.silu(g) * u) @ p.w_down.to(x.dtype)
+    act = XlaSilu.apply(g) if train and g.dtype == torch.bfloat16 \
+        else F.silu(g)
+    return (act * u) @ p.w_down.to(x.dtype)
 
 
 class SwiGLU(nn.Module):

@@ -12,8 +12,11 @@ The port's parameter names are those paths with the layer index inserted
 
 ``param_tree`` is the flat tree ``core/flatbuf.py`` packs in the JAX
 package's leaf order; ``pack_params`` moves the weights into one packed
-fp32 buffer, the parameters becoming views of it (the optimizer's master
-copy in fp32).
+buffer of their dtype, the parameters becoming views of it: fp32 weights
+view the buffer that is the optimizer's master copy itself, bf16 weights
+(``build_model(param_dtype=torch.bfloat16)``) one packed bf16 buffer of
+the same layout, which the optimizer rewrites from its fp32 master after
+every update (``optim/optimizers.py``).
 
 A small model (``models/small.py``) has no module: its weights are a flat
 dict keyed by JAX path already. Both functions take such a dict too; it is
@@ -55,18 +58,20 @@ def param_tree(params) -> dict:
 
 def pack_params(params):
     """Move every weight of a module or a small model's flat dict into one
-    packed fp32 buffer, in place: each parameter becomes a trainable view of
-    the buffer. Returns ``(layout, buffer)``."""
+    packed buffer of the weights' dtype (fp32 or bf16, one for all), in
+    place: each parameter becomes a trainable view of the buffer. Returns
+    ``(layout, buffer)``, the layout recording the weights' dtype."""
     weights = params.values() if isinstance(params, dict) \
         else params.parameters()
-    if any(p.dtype != torch.float32 for p in weights):
-        raise NotImplementedError("pack_params takes fp32 weights only "
-                                  "(training in bf16: ROADMAP.md queue 1 "
-                                  "item 15)")
+    dtypes = {p.dtype for p in weights}
+    if len(dtypes) != 1 or not dtypes <= {torch.float32, torch.bfloat16}:
+        raise NotImplementedError(
+            f"pack_params takes weights of one dtype, fp32 or bf16; got "
+            f"{sorted(str(d) for d in dtypes)}")
     tree = param_tree(params)
     layout = flatbuf.layout_of(tree)
     with torch.no_grad():
-        buf = flatbuf.pack(layout, tree)
+        buf = flatbuf.pack(layout, tree, dtype=dtypes.pop())
     del tree
     views = flatbuf.unpack(layout, buf)
     if isinstance(params, dict):

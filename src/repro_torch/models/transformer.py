@@ -14,7 +14,16 @@ scheduler donates its pools to the jitted step, ``scheduler.py:168``).
 into one packed fp32 buffer, for this family as for the others.
 
 A layer holds a SwiGLU ``ffn``, or an ``moe`` in the MoE family, whose
-load-balance term the loss adds at ``AUX_LOSS_WEIGHT``. The VLM and the
+load-balance term the loss adds at ``AUX_LOSS_WEIGHT``.
+
+The training forward (``loss_fn``) in bf16 rounds where XLA rounds on the
+JAX package's jitted training step, which is not everywhere torch does:
+the second norm of a layer reads the residual sum ``x + h`` in fp32,
+unrounded (XLA fuses the add into the norm's widening, while the residual
+stream itself is rounded to bf16), and the SiLU rounds after each of its
+ops (``layers.XlaSilu``). Embeddings are cast, then gathered, as in JAX,
+so the embedding gradient adds repeated tokens in bf16. Serving keeps the
+plain order (one add, ``F.silu``). The VLM and the
 encoder read the JAX package's batch keys: ``embeds`` (B, S, D), the
 precomputed output of the modality frontend it stubs, in place of
 ``tokens``, and ``positions``, (B, S) or M-RoPE's (3, B, S).
@@ -51,13 +60,13 @@ class Block(nn.Module):
             self.ffn = SwiGLU(cfg.d_model, cfg.d_ff, device, dtype, gen)
 
 
-def _ffn_apply(blk: Block, y, cfg: ModelConfig):
+def _ffn_apply(blk: Block, y, cfg: ModelConfig, train: bool = False):
     """The layer's FFN on y: (output, aux), aux the MoE load-balance term
     (0 for a SwiGLU layer, with no launch: the dense serving step is
-    host-bound)."""
+    host-bound). ``train``: the training forward's SiLU order."""
     if cfg.is_moe():
         return moe_mod.moe_apply(blk.moe, y, cfg, cfg.moe_capacity_factor)
-    return swiglu_apply(blk.ffn, y), 0.0
+    return swiglu_apply(blk.ffn, y, train), 0.0
 
 
 class Transformer(nn.Module):
@@ -112,10 +121,18 @@ def init(gen: torch.Generator, cfg: ModelConfig, device,
     return Transformer(cfg, device, dtype, gen)
 
 
-def _layer_apply(blk: Block, x, cfg: ModelConfig, positions, cache, layer):
-    x = x + attn.attn_apply(blk.attn, rmsnorm(blk.ln1.scale, x), cfg,
-                            positions, cache, layer)
-    f, aux = _ffn_apply(blk, rmsnorm(blk.ln2.scale, x), cfg)
+def _layer_apply(blk: Block, x, cfg: ModelConfig, positions, cache, layer,
+                 train: bool = False):
+    h = attn.attn_apply(blk.attn, rmsnorm(blk.ln1.scale, x), cfg, positions,
+                        cache, layer)
+    if train and x.dtype == torch.bfloat16:
+        # XLA's order: the norm widens the unrounded fp32 sum
+        y = rmsnorm(blk.ln2.scale, x.float() + h.float()).to(x.dtype)
+        x = x + h
+    else:
+        x = x + h
+        y = rmsnorm(blk.ln2.scale, x)
+    f, aux = _ffn_apply(blk, y, cfg, train)
     return x + f, aux
 
 
@@ -126,8 +143,9 @@ def _embed_inputs(params: Transformer, tokens, embeds, compute_dtype):
 
 
 def _forward(params: Transformer, cfg: ModelConfig, tokens, cache,
-             compute_dtype, embeds=None, positions=None):
-    """The final-norm hidden states (B, S, D) and the summed aux term."""
+             compute_dtype, embeds=None, positions=None, train=False):
+    """The final-norm hidden states (B, S, D) and the summed aux term.
+    ``train``: the training forward's bf16 order (the module docstring)."""
     x = _embed_inputs(params, tokens, embeds, compute_dtype)
     B, S, _ = x.shape
     offset = 0 if cache is None else cache["len"]
@@ -136,7 +154,7 @@ def _forward(params: Transformer, cfg: ModelConfig, tokens, cache,
             .expand(B, S)
     aux = 0.0
     for layer, blk in enumerate(params.layers):
-        x, a = _layer_apply(blk, x, cfg, positions, cache, layer)
+        x, a = _layer_apply(blk, x, cfg, positions, cache, layer, train)
         aux = aux + a
     if cache is not None:
         cache["len"] = offset + S
@@ -168,7 +186,7 @@ def loss_fn(params: Transformer, cfg: ModelConfig, batch: dict,
     load-balance term in the MoE family."""
     hidden, aux = _forward(params, cfg, batch.get("tokens"), None,
                            compute_dtype, batch.get("embeds"),
-                           batch.get("positions"))
+                           batch.get("positions"), train=True)
     loss = chunked_lm_loss(hidden, params.head(), batch["labels"])
     if cfg.is_moe():
         loss = loss + AUX_LOSS_WEIGHT * aux

@@ -1,11 +1,14 @@
 """SGD, momentum and AdamW over packed fp32 buffers. Port of
 ``repro/optim/optimizers.py``.
 
-The JAX package maps each update over the parameter tree and keeps an fp32
-master copy. Here the parameters are views of one packed fp32 buffer
-(``models.packing.pack_params``), which is the master copy itself (the
-JAX ``mst.astype(p.dtype)`` is the identity in fp32), and the moments are
-packed buffers of the same layout. An update runs in place over the buffers
+The JAX package maps each update over the parameter tree, keeps an fp32
+master copy and writes ``mst.astype(p.dtype)`` back into the parameters.
+Here the master is one packed fp32 buffer and the moments are packed
+buffers of the same layout. fp32 parameters are views of the master itself
+(``models.packing.pack_params``: the cast is the identity in fp32); bf16
+parameters are views of one packed bf16 buffer, ``weights``, which each
+update rewrites from the master, rounding to nearest even, chunk by chunk
+right after the chunk's update. An update runs in place over the buffers
 in chunks, so its temporaries stay a few hundred MB at any P, with the JAX
 package's arithmetic element for element: AdamW is
 ``(m / bc1) / (sqrt(v / bc2) + eps)`` with b2 = 0.95 by default, not
@@ -26,12 +29,22 @@ CHUNK = 1 << 26  # elements per in-place pass (256 MB of fp32)
 
 class Optimizer(NamedTuple):
     init: Callable    # master (P,) fp32 -> state dict ("master" is the buffer)
-    update: Callable  # (state, grad (P,), lr) -> state, master updated in place
+    # (state, grad (P,), lr, weights=None) -> state: the master updated in
+    # place, and ``weights`` (the packed bf16 parameters, None when they are
+    # the master) rewritten from it
+    update: Callable
 
 
 def _chunks(n: int):
     for a in range(0, n, CHUNK):
         yield slice(a, min(a + CHUNK, n))
+
+
+def _write_back(weights, mst, s) -> None:
+    """JAX's ``mst.astype(p.dtype)`` over one chunk: the bf16 parameters
+    rounded from the updated master (``copy_`` rounds to nearest even)."""
+    if weights is not None:
+        weights[s].copy_(mst[s])
 
 
 def _zeros_like(buf: torch.Tensor) -> torch.Tensor:
@@ -43,10 +56,11 @@ def sgd() -> Optimizer:
         return {"master": master}
 
     @torch.no_grad()
-    def update(state, grads, lr):
+    def update(state, grads, lr, weights=None):
         mst = state["master"]
         for c in _chunks(mst.numel()):
             mst[c] = mst[c] - lr * grads[c]
+            _write_back(weights, mst, c)
         return state
 
     return Optimizer(init, update)
@@ -57,11 +71,12 @@ def momentum(beta: float = 0.9) -> Optimizer:
         return {"master": master, "mu": _zeros_like(master)}
 
     @torch.no_grad()
-    def update(state, grads, lr):
+    def update(state, grads, lr, weights=None):
         mst, mu = state["master"], state["mu"]
         for c in _chunks(mst.numel()):
             mu[c] = beta * mu[c] + grads[c]
             mst[c] = mst[c] - lr * mu[c]
+            _write_back(weights, mst, c)
         return state
 
     return Optimizer(init, update)
@@ -74,7 +89,7 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                 "v": _zeros_like(master), "count": 0}
 
     @torch.no_grad()
-    def update(state, grads, lr):
+    def update(state, grads, lr, weights=None):
         mst, m, v = state["master"], state["m"], state["v"]
         c = state["count"] + 1
         f32 = dict(dtype=torch.float32)
@@ -89,6 +104,7 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
             if weight_decay:
                 upd = upd + weight_decay * mst[s]
             mst[s] = mst[s] - lr * upd
+            _write_back(weights, mst, s)
         state["count"] = c
         return state
 

@@ -77,14 +77,19 @@ def test_smoke_config_matches_jax():
 
 
 def test_unported_arch_raises_clearly():
-    """Every arch loads now; what is still unported raises, naming its
-    ROADMAP item: here packing bf16 weights for training."""
+    """Every arch loads now, and bf16 weights pack for training (once
+    ROADMAP item 15, which raised here): each weight a view of one packed
+    bf16 buffer. An unknown arch raises, naming itself."""
     assert resolve_arch("Qwen2.5_3B") == ARCH
     params = build_model(get_smoke_config(ARCH), "cpu",
                          param_dtype=torch.bfloat16).init(
         torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 15"):
-        pack_params(params)
+    layout, buf = pack_params(params)
+    assert buf.dtype == torch.bfloat16 and buf.shape == (layout.total,)
+    assert all(p.dtype == torch.bfloat16 and p.requires_grad
+               and p.untyped_storage().data_ptr()
+               == buf.untyped_storage().data_ptr()
+               for p in params.parameters())
     with pytest.raises(KeyError, match="unknown arch"):
         get_smoke_config("no-such-model")
 
