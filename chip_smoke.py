@@ -30,6 +30,7 @@ against the host CPU.
     python3 chip_smoke.py --bf16                # phase 23 alone
     python3 chip_smoke.py --families            # phase 24 (not in the full run)
     python3 chip_smoke.py --bf16train           # phase 25 (not in the full run)
+    python3 chip_smoke.py --flashtrain          # phase 26 (not in the full run)
 
 ``--scans`` runs only the card line, the build and phase 11's scans (their
 checks and times, no launch configuration), from the ``repro_torch`` under
@@ -51,7 +52,8 @@ and prints the hash of what it drew (no kernel is built for a tree
 without the normal kernels): a parent and a change in one call, trees
 that have the scan tier. ``--normal`` runs that noise stage with its
 launches, then phase 21; ``--tree`` runs phase 22; ``--bf16`` phase 23;
-``--families`` phase 24; ``--bf16train`` phase 25.
+``--families`` phase 24; ``--bf16train`` phase 25; ``--flashtrain``
+phase 3's flash training rows, then phase 26.
 
 Phases (any failed check raises, and the script exits non-zero):
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
@@ -73,6 +75,17 @@ Phases (any failed check raises, and the script exits non-zero):
      ranges, beside ``index_fill_`` and the launch floor (an empty kernel
      of the library in the same 50-launch graph); for the single ranges,
      where a call's host time goes (the wrapper's Python, its C entry);
+     the training pair of flash attention, the lse forward and the
+     backward (``flash_attention_bwd``), against their plain versions at
+     qwen2.5-3b's silo at S 4096 (B 1, causal; fp32 and bf16), at
+     hubert-xlarge's frames (B 4, S 512, MHA, d_head 80, non-causal) and
+     at S 1000 (fp32 within FLASH_TRAIN_REL of each output's largest
+     value, bf16 within one ulp past it, two launches bit-equal), timed
+     beside SDPA's forward and its backward; then the main path that
+     launches them: one fused step of qwen2.5-3b at full width and 2
+     layers, 4 x 4096 over 4 silos, through ``build_model(remat=True,
+     use_flash=True)`` (2 x layers lse forwards and 1 x layers backwards a
+     silo);
   4. qwen2.5-3b, all 36 layers, fp32, random weights from a seed: direct
      serve (batch 4, prompt 32, 16 new tokens), then 8 Zipf requests through
      4 slots in wave and continuous mode (page 16, chunk 16), and twice more
@@ -367,6 +380,26 @@ Phases (any failed check raises, and the script exits non-zero):
      computed twice, bit-equal. Step and stage ms and peak GB of every
      cell; under route (B) the bf16 weights the fp32 master rounded to
      nearest even, bit for bit, after every cell.
+ 26. (``--flashtrain`` only, with phase 3's flash training rows first: the
+     full run already takes most of its 1200 s) training through flash
+     attention with remat at JAX's train_4k length (S 4096), through
+     ``build_model(remat=True, use_flash=True)`` in a session: (a)
+     qwen2.5-3b at full width and 12 layers, fp32, fused tier, phase 7's
+     privacy over 4 silos, 4 x 4096: 2 steps with flash, 2 with the plain
+     attention; (b) the barrier tier once at that cell, silo 2 out; (c)
+     JAX's production cell, the scan tier under route (B) at 36 layers over
+     8 silos with JAX's dry-run privacy, 2 steps at a sequence a silo, then
+     the largest per-silo batch of 8, 4, 2 that fits, tried in that order
+     and the first that fits run once (its peak is AdamW's, not the silo
+     gradient's: it does not extrapolate); (d) hubert-xlarge at published width and
+     8 layers, frames of S 512, 16 x 512, fused, 2 steps; (e) phase 8's
+     narrow config, one silo's loss and gradient card vs CPU; (f) one
+     silo's gradient at 12 layers twice, bit-equal. Each cell: finite
+     losses, rising epsilon, each DP kernel's launches as in phases 7 and
+     25, 2 x layers lse forwards and 1 x layers backwards a silo a step, no
+     plain attention call on the card; step and stage ms, the time in
+     attention (reckoned from one layer's attention timed alone at a
+     silo's shape), peak GB.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -3655,8 +3688,9 @@ def one_phase(phase: str, src: Path) -> int:
     (:func:`prng_phase`; no build for a tree without the normal kernels),
     phase 21 (:func:`normal_phase`, after WRN28's noise stage with its
     launches), phase 22 (:func:`tree_phase`), phase 23 (:func:`bf16_phase`),
-    phase 24 (:func:`families_phase`) or phase 25 (``--bf16train``,
-    :func:`bf16train_phase`) alone, from the ``repro_torch`` under ``src``
+    phase 24 (:func:`families_phase`), phase 25 (``--bf16train``,
+    :func:`bf16train_phase`) or phase 3's flash training rows and phase 26
+    (``--flashtrain``, :func:`flashtrain_phase`) alone, from the ``repro_torch`` under ``src``
     (another tree's, to time two trees in one call); the last line is their
     JSON record."""
     if not torch.cuda.is_available():
@@ -3710,6 +3744,10 @@ def one_phase(phase: str, src: Path) -> int:
         record["rows"] = rows
     elif phase == "bf16train":
         record = bf16train_phase(dev)
+    elif phase == "flashtrain":
+        import torch.nn.functional as F
+        record = {"rows": flash_train_rows(dev, F)}
+        record.update(flashtrain_phase(dev))
     else:
         log(f"[kernel] clip_mask SASS, live (a report; the bound uses "
             f"{json.dumps(CLIP_MASK_OPS)}): "
@@ -4089,10 +4127,12 @@ def weights_are_rounded_master(state, chunk: int = 1 << 26) -> bool:
 
 def train_cell(Session, cfg, priv, opt, mesh, steps: int, want: dict,
                log_name: str, next_batch=None, route: str = "fp32",
-               silo_schedule=None) -> dict:
+               silo_schedule=None, batch: int = 16, seq_len: int = 64,
+               use_flash=None) -> dict:
     """One training cell through ``Session.train``: ``steps`` steps at
-    batch 16 x 64 (synthetic tokens, or ``next_batch``'s batches) from
-    random weights (seed 0) under ``route`` (:func:`route_session`), the
+    ``batch x seq_len`` (synthetic tokens, or ``next_batch``'s batches)
+    from random weights (seed 0) under ``route`` (:func:`route_session`;
+    with ``use_flash`` True or False, :func:`flash_session`), the
     launch counts zeroed just before and read just after and equal to
     ``want`` a step (a count given as a function takes the cell's layout;
     as a list, one count a step), nothing else, and no plain per-leaf draw
@@ -4102,8 +4142,9 @@ def train_cell(Session, cfg, priv, opt, mesh, steps: int, want: dict,
     memory."""
     from repro_torch.kernels import dispatch
 
-    sess = route_session(Session, cfg, route, privacy=priv, optimizer=opt,
-                         mesh=mesh, seed=0)
+    kw = dict(privacy=priv, optimizer=opt, mesh=mesh, seed=0)
+    sess = route_session(Session, cfg, route, **kw) if use_flash is None \
+        else flash_session(Session, cfg, route, use_flash, **kw)
     state, init_s = timed(sess.init_state)
     P = state.layout.total
     master = state.opt_state["master"]
@@ -4113,7 +4154,7 @@ def train_cell(Session, cfg, priv, opt, mesh, steps: int, want: dict,
     spy: dict = {}
     dispatch.reset_launches()
     with plain_draw_spy(spy):
-        res = sess.train(steps=steps, batch_size=16, seq_len=64,
+        res = sess.train(steps=steps, batch_size=batch, seq_len=seq_len,
                          state=state, log_every=1, next_batch=next_batch,
                          silo_schedule=silo_schedule)
     n = {k: v for k, v in dispatch.launch_counts().items() if v}
@@ -4143,7 +4184,8 @@ def train_cell(Session, cfg, priv, opt, mesh, steps: int, want: dict,
                      f"{cfg.d_model}, vocab {cfg.vocab_size}), "
                      f"{ROUTE_LABELS[route]}",
            "P": P, "n_params": state.layout.n_params, "init_s": init_s,
-           "steps": steps, "batch": 16, "seq_len": 64, "loss": losses,
+           "steps": steps, "batch": batch, "seq_len": seq_len,
+           "loss": losses,
            "clip_bound": [m["clip_bound"] for m in res.metrics],
            "epsilon": eps, "step_ms": step_ms, "stage_ms": stages,
            "peak_mem_gb": peak / 1e9, "launches": n,
@@ -4151,7 +4193,8 @@ def train_cell(Session, cfg, priv, opt, mesh, steps: int, want: dict,
     log(f"[{log_name}] {cfg.name} at {cfg.n_layers} layers, "
         f"{ROUTE_LABELS[route]}, P {P} "
         f"({state.layout.n_params} parameters, in {init_s:.1f} s), {steps} "
-        f"steps of 16 x 64 over 4 silos: loss "
+        f"steps of {batch} x {seq_len} over "
+        f"{sess.run_cfg.privacy.n_silos or 4} silos: loss "
         f"{[round(x, 4) for x in losses]} | epsilon "
         f"{[round(e, 3) for e in eps]} | step ms "
         f"{[round(t, 1) for t in step_ms]} | peak {peak / 1e9:.2f} GB | "
@@ -5314,7 +5357,8 @@ def plain_attention_spy(counts: dict):
         return False
 
     real = {}
-    for mod, names in ((flash_ref, ("attention_ref",)),
+    for mod, names in ((flash_ref, ("attention_ref", "flash_forward_ref",
+                                    "flash_backward_ref")),
                        (paged_ref, ("paged_attention_ref", "paged_reset_ref",
                                     "paged_rollback_ref", "pool_zero_ref"))):
         for name in names:
@@ -5595,7 +5639,8 @@ def serve_qwen_bf16(dev) -> dict:
                     batch_size=4, prompt_len=32, max_new_tokens=16)
     var = dispatch.variant_counts()
     check(bool((one.tokens == runs["direct"][0].tokens).all())
-          and var["flash_attention"] == {"f32": 0, "bf16": L},
+          and var["flash_attention"] == {"f32": 0, "bf16": L, "lse_f32": 0,
+                                         "lse_bf16": 0},
           f"api.serve bf16: tokens differ from Session.serve's or launches "
           f"{var['flash_attention']}")
     out["api_serve"] = {"tokens_equal_session": True,
@@ -6279,6 +6324,414 @@ def bf16train_phase(dev) -> dict:
     return rec
 
 
+# --------------------------------------- phases 3 (flash training) and 26
+
+# the training pair against its plain versions: fp32 within KERNEL_ATOL
+# plus FLASH_TRAIN_REL of each output's largest |value| (fp32 sums in other
+# orders: the kernel's tiles against one einsum; the absolute floor for a
+# gradient that is 0 up to rounding), lse within KERNEL_ATOL; bf16 within
+# one bf16 ulp past that (both sides compute in fp32 and round once)
+FLASH_TRAIN_REL = 1e-5
+# the shapes phase 3 holds the training pair to: qwen2.5-3b's silo at JAX's
+# train_4k length (B 1, S 4096, causal), hubert-xlarge's frames (B 4, S
+# 512, 16 heads, MHA, d_head 80, non-causal) and a ragged length
+FLASH_TRAIN_SHAPES = (
+    ("", 1, 4096, 16, 2, 128, True, torch.float32),
+    ("bf16", 1, 4096, 16, 2, 128, True, torch.bfloat16),
+    ("hubert", 4, 512, 16, 16, 80, False, torch.float32),
+    ("s1000", 1, 1000, 16, 2, 128, True, torch.float32))
+FLASH_TRAIN_SUBROWS = ("lse4096", "lse4096_bf16", "lse_hubert", "lse_s1000",
+                       "hubert", "s1000")
+# phase 26's card-vs-CPU gradient gate, tests/test_torch_flash_training.py's
+FLASH_GRAD_REL = 5e-5
+
+
+def flash_train_close(got, want, dtype, atol=KERNEL_ATOL) -> float:
+    """Checks ``got`` against ``want`` at the training pair's gate; returns
+    the max |difference|."""
+    got, want = got.float(), want.float()
+    gate = atol + FLASH_TRAIN_REL * want.abs().max()
+    if dtype == torch.bfloat16:
+        gate = gate + bf16_ulp(torch.maximum(got.abs(), want.abs()))
+    diff = (got - want).abs()
+    check(bool((diff <= gate).all()), f"flash training pair: "
+          f"{float((diff - gate).max())} past the gate")
+    return diff.max().item()
+
+
+def check_flash_train(dev, gen, B, S, Hq, Hkv, D, causal, dtype, F) -> tuple:
+    """The lse forward and the backward at one shape against their plain
+    versions (the backward from the kernel's own out and lse, as training
+    runs it), two launches of each bit-equal; each timed as a call and on
+    the card (a CUDA graph of 5 calls: a call is milliseconds here) beside
+    its plain version and SDPA's forward, or SDPA's backward (one autograd
+    call over a saved graph, as a call only), and its bound: bytes (each
+    input once, each output once) against 2 flops a product term, two
+    S x S x D products forward and five backward over the visible pairs,
+    at fp32's rate or bf16's tensor-core rate. Returns (lse row, bwd
+    row)."""
+    from repro_torch.kernels.flash_attention import ref
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_fwd_lse_cuda)
+
+    q, k, v, do = (torch.randn(B, S, H, D, device=dev, generator=gen)
+                   .to(dtype) for H in (Hq, Hkv, Hkv, Hq))
+    fwd = lambda: flash_attention_fwd_lse_cuda(q, k, v, causal)  # noqa: E731
+    out, lse = fwd()
+    bwd = lambda: flash_attention_bwd_cuda(q, k, v, out, lse, do,  # noqa
+                                           causal)
+    grads = bwd()
+    out2, lse2 = fwd()
+    again = bwd()
+    want_out, want_lse = ref.flash_forward_ref(q, k, v, causal)
+    want = ref.flash_backward_ref(q, k, v, out, lse, do, causal)
+    torch.cuda.synchronize()
+    check(torch.equal(bits(out), bits(out2)) and torch.equal(lse, lse2)
+          and all(torch.equal(bits(a), bits(b))
+                  for a, b in zip(grads, again)),
+          "flash training pair: two launches differ")
+    err_out = flash_train_close(out, want_out, dtype)
+    err_lse = (lse - want_lse).abs().max().item()
+    check(err_lse <= KERNEL_ATOL, f"flash lse off by {err_lse}")
+    errs = [flash_train_close(g, w, dtype) for g, w in zip(grads, want)]
+    del want, want_out, want_lse, out2, again
+    es = 2 if dtype == torch.bfloat16 else 4
+    rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    pairs = S * (S + 1) // 2 if causal else S * S
+    n_q, n_kv = q.numel(), k.numel()
+    qt, kt, vt = (t.detach().transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=causal, enable_gqa=True)
+    with torch.no_grad():
+        lib_fwd_ms, lib_fwd_dev = cuda_ms(sdpa, reps=5, warmup=1), \
+            graph_ms(sdpa, n=5, reps=3)
+    o = sdpa()
+    dot = do.transpose(1, 2).contiguous()
+    lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
+        o, (qt, kt, vt), dot, retain_graph=True)
+    at = (f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} "
+          f"{'causal' if causal else 'non-causal'} {DTYPE_NAMES[dtype]}")
+    b_f, by_f = bound((2 * n_q + 2 * n_kv) * es + B * Hq * S * 4,
+                      4 * D * Hq * B * pairs, rate)
+    lse_row = {
+        "max_abs_err": err_out, "lse_max_abs_err": err_lse,
+        "ms": cuda_ms(fwd, reps=5, warmup=1),
+        "device_ms": graph_ms(fwd, n=5, reps=3),
+        "plain_ms": cuda_ms(lambda: ref.flash_forward_ref(q, k, v, causal),
+                            reps=3, warmup=1),
+        "library_ms": lib_fwd_ms, "library_device_ms": lib_fwd_dev,
+        "library_call": "scaled_dot_product_attention (forward)",
+        "bound_ms": b_f, "bound_by": by_f, "at": at + " (training forward)"}
+    b_b, by_b = bound((4 * n_q + 4 * n_kv) * es + B * Hq * S * 4,
+                      10 * D * Hq * B * pairs, rate)
+    bwd_row = {
+        "max_abs_err": max(errs), "max_abs_err_dq_dk_dv": errs,
+        "two_launches_bit_equal": True,
+        "ms": cuda_ms(bwd, reps=5, warmup=1),
+        "device_ms": graph_ms(bwd, n=5, reps=3),
+        "plain_ms": cuda_ms(lambda: ref.flash_backward_ref(
+            q, k, v, out, lse, do, causal), reps=3, warmup=1),
+        "library_ms": cuda_ms(lib_bwd, reps=5, warmup=1),
+        "library_call": "the backward of scaled_dot_product_attention "
+                        "(one autograd.grad over its saved graph; a call)",
+        "bound_ms": b_b, "bound_by": by_b, "at": at}
+    del q, k, v, do, out, lse, grads, o, qt, kt, vt, dot
+    torch.cuda.empty_cache()
+    return lse_row, bwd_row
+
+
+def flash_train_rows(dev, F) -> dict:
+    """Phase 3's training rows: the lse forward (sub-rows of row 1) and
+    the backward (row 19) at FLASH_TRAIN_SHAPES. Returns ``{kernel:
+    {sub-row: row}}``, the backward's main row under ``""``."""
+    gen = torch.Generator(device=dev).manual_seed(26)
+    rows: dict = {"flash_attention": {}, "flash_attention_bwd": {}}
+    for name, B, S, Hq, Hkv, D, causal, dtype in FLASH_TRAIN_SHAPES:
+        lse_row, bwd_row = check_flash_train(dev, gen, B, S, Hq, Hkv, D,
+                                             causal, dtype, F)
+        lse_name = {"": "lse4096", "bf16": "lse4096_bf16"}.get(
+            name, f"lse_{name}")
+        rows["flash_attention"][lse_name] = lse_row
+        rows["flash_attention_bwd"][name] = bwd_row
+        for kernel, sub, r in (("flash_attention", lse_name, lse_row),
+                               ("flash_attention_bwd", name or "main",
+                                bwd_row)):
+            log(f"[kernel] {kernel} {sub}: max_abs_err "
+                f"{r['max_abs_err']:.3g} | kernel {r['ms']:.4f} ms (on the "
+                f"card {r['device_ms']:.4f}) | library {r['library_ms']:.4f}"
+                f" ms ({r['library_call']}) | plain {r['plain_ms']:.4f} ms | "
+                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) | {r['at']}")
+    return rows
+
+
+def flash_session(Session, cfg, route: str, use_flash: bool, **kw):
+    """:func:`route_session` over ``build_model(..., remat=True,
+    use_flash=use_flash)``: JAX's training model switches, reached as JAX
+    reaches them (no entry keyword takes them)."""
+    from repro_torch.models.registry import build_model
+
+    sess = route_session(Session, cfg, route, **kw)
+    dt = torch.bfloat16 if route == "B" else torch.float32
+    return dataclasses.replace(sess, model=build_model(
+        sess.cfg, sess.device, param_dtype=dt, compute_dtype=dt,
+        remat=True, use_flash=use_flash))
+
+
+def flash_counts(cfg, silos: int) -> dict:
+    """The flash launches of one step: each silo's pass runs every layer's
+    lse forward twice (the forward, then remat's recompute) and its
+    backward once."""
+    return {"flash_attention": 2 * cfg.n_layers * silos,
+            "flash_attention_bwd": cfg.n_layers * silos}
+
+
+def attention_ms(cfg, B, S, dtype, use_flash: bool) -> dict:
+    """One layer's attention at a silo's shape, timed alone on the card
+    (CUDA events): its forward (with grad mode on, as remat's first pass
+    runs it: flash's lse forward) and its forward and backward; a remat
+    step runs both once a layer (the forward pass, then the recompute and
+    the backward). The time in attention a silo's pass is ``layers x
+    (forward + forward_backward)``, reckoned from these."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models.attention import _sdpa
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v, do = (torch.randn(B, S, H, cfg.d_head, device="cuda",
+                               generator=gen).to(dtype)
+                   for H in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads,
+                             cfg.n_heads))
+    fn = (lambda a, b, c: flash_ops.flash_attention(a, b, c, cfg.causal)) \
+        if use_flash else (lambda a, b, c: _sdpa(a, b, c, cfg.causal))
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    f_ms = cuda_ms(lambda: fn(*leaves), reps=3, warmup=1)
+    fb_ms = cuda_ms(lambda: torch.autograd.grad(fn(*leaves), leaves, do),
+                    reps=3, warmup=1)
+    del q, k, v, do, leaves
+    torch.cuda.empty_cache()
+    return {"forward_ms": f_ms, "forward_backward_ms": fb_ms,
+            "per_silo_pass_ms": cfg.n_layers * (f_ms + fb_ms)}
+
+
+def flash_cell(Session, cfg, priv, opt, mesh, steps: int, want: dict,
+               log_name: str, route: str, use_flash: bool, batch: int,
+               seq_len: int, silos: int, next_batch=None,
+               silo_schedule=None) -> dict:
+    """A phase-26 cell: :func:`train_cell` over :func:`flash_session` at
+    ``batch x seq_len``, flash launches added to ``want`` (none without
+    flash; no plain attention call on the card either way), and the time
+    in attention a step reckoned from :func:`attention_ms` at a silo's
+    shape (its share of the step after the first)."""
+    spy: dict = {}
+    with plain_attention_spy(spy):
+        want = dict(want, **(flash_counts(cfg, silos) if use_flash else {}))
+        cell = train_cell(Session, cfg, priv, opt, mesh, steps, want,
+                          log_name, next_batch=next_batch, route=route,
+                          silo_schedule=silo_schedule, batch=batch,
+                          seq_len=seq_len, use_flash=use_flash)
+    check(spy["plain_calls_on_card"] == 0, f"{log_name}: "
+          f"{spy['plain_calls_on_card']} plain attention calls on the card")
+    dt = torch.bfloat16 if route == "B" else torch.float32
+    att = attention_ms(cfg, batch // silos, seq_len, dt, use_flash)
+    att["ms_a_step"] = silos * att["per_silo_pass_ms"]
+    later = cell["step_ms"][1:] or cell["step_ms"]
+    att["share_of_step"] = att["ms_a_step"] / (sum(later) / len(later))
+    cell.update(use_flash=use_flash, remat=True, attention=att)
+    log(f"[{log_name}] attention ({'flash' if use_flash else 'plain'}, "
+        f"remat): {att['forward_ms']:.2f} ms forward + "
+        f"{att['forward_backward_ms']:.2f} ms forward+backward a layer at "
+        f"B {batch // silos} S {seq_len} -> {att['ms_a_step']:.0f} ms a step"
+        f" (reckoned), {100 * att['share_of_step']:.1f}% of the step")
+    return cell
+
+
+def flash_cross_device(Session, narrow, priv, opt) -> dict:
+    """Phase 26(e): one silo's loss and gradient of phase 8's narrow config
+    (4 x 256, several 64-row tiles) through flash and remat, on the card
+    (the kernels) and on the host CPU (their plain versions) from the same
+    weights: the loss within TRAIN_RTOL, the packed gradient within
+    FLASH_GRAD_REL of its largest |value|."""
+    from repro_torch.core import flatbuf
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.packing import param_tree
+
+    sess = {d: flash_session(Session, narrow, "fp32", True, privacy=priv,
+                             optimizer=opt, seed=3, device=d)
+            for d in ("cuda", "cpu")}
+    p_cpu = sess["cpu"].init_params()
+    p_gpu = copy.deepcopy(p_cpu).to("cuda")
+    batch = sess["cpu"].synthetic_batches(16, 256)()
+    out = {}
+    for d, p in (("cuda", p_gpu), ("cpu", p_cpu)):
+        st = sess[d].init_state(params=p)
+        dispatch.reset_launches()
+        g, _ = silo_grads_packed(sess[d].model, st.params,
+                                 {k: v.to(d) for k, v in batch.items()},
+                                 st.layout, 0, 4, flatbuf, param_tree)
+        n = {k: v for k, v in dispatch.launch_counts().items() if v}
+        with torch.no_grad():
+            loss = sess[d].model.loss(st.params, {k: v[:4].to(d) for k, v
+                                                  in batch.items()})
+        out[d] = (g.cpu(), float(loss), n)
+    (g_g, l_g, n_g), (g_c, l_c, n_c) = out["cuda"], out["cpu"]
+    check(not n_c, f"the CPU pass launched {n_c}")
+    check(n_g == flash_counts(narrow, 1), f"narrow card launches {n_g}")
+    err = (g_g - g_c).abs().max().item()
+    top = g_c.abs().max().item()
+    check(math.isclose(l_g, l_c, rel_tol=TRAIN_RTOL),
+          f"flash narrow loss: card {l_g} vs CPU {l_c}")
+    check(err <= FLASH_GRAD_REL * top, f"flash narrow gradient {err} "
+          f"(largest {top})")
+    log(f"[flashtrain-slice] narrow config (P {g_c.numel()}), one silo "
+        f"through flash + remat, card vs CPU: loss {l_g:.6f} / {l_c:.6f} | "
+        f"gradient max |diff| {err:.3g} of {top:.3g} | card launches {n_g}")
+    return {"P": g_c.numel(), "loss": [l_g, l_c], "grad_max_abs_err": err,
+            "grad_max_abs": top, "card_launches": n_g}
+
+
+def flash_grad_repeat(Session, cfg, priv, opt) -> dict:
+    """Phase 26(f): silo 0's gradient of the 12-layer cell (one sequence
+    of 4096) through flash and remat, twice on the card: bit-equal."""
+    from repro_torch.core import flatbuf
+    from repro_torch.models.packing import param_tree
+
+    sess = flash_session(Session, cfg, "fp32", True, privacy=priv,
+                         optimizer=opt, seed=1)
+    state = sess.init_state()
+    batch = sess.synthetic_batches(4, 4096)()
+    t0 = time.perf_counter()
+    a, na = silo_grads_packed(sess.model, state.params, batch, state.layout,
+                              0, 4, flatbuf, param_tree)
+    b, nb = silo_grads_packed(sess.model, state.params, batch, state.layout,
+                              0, 4, flatbuf, param_tree)
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    equal = bool(torch.equal(bits(a), bits(b))) \
+        and bits(na).item() == bits(nb).item()
+    check(equal, f"{cfg.name} flash: silo 0's repeated gradients differ")
+    log(f"[flashtrain-repeat] {cfg.name} at {cfg.n_layers} layers, S 4096: "
+        f"silo 0's packed gradient (norm {na.item():.6f}) through flash "
+        f"and remat computed twice, bit-equal ({s:.1f} s)")
+    P = state.layout.total
+    del a, b, state, sess
+    torch.cuda.empty_cache()
+    return {"P": P, "bit_equal": equal, "norm": float(na), "s": s}
+
+
+def scan_batch_search(Session, cfg, priv, opt, silos: int, want: dict,
+                      first: dict) -> dict:
+    """Phase 26(c)'s per-silo batch: the largest of 8, 4 and 2 sequences a
+    silo that fits, tried in that order, the first that fits run once (1
+    step). The peak at one sequence a silo is AdamW's over the fp32 master
+    and its moments, not the silo gradient's, so it does not extrapolate
+    (on an H100 80GB HBM3 at 700 W: 69.30 GB at 1 and 70.14 at 2, where
+    8 ran out of memory); the share a sequence, reckoned from the peaks,
+    is logged beside the trials."""
+    import gc
+
+    total = torch.cuda.mem_get_info()[1]
+    out: dict = {"card_bytes": total, "peaks_gb": {1: first["peak_mem_gb"]},
+                 "out_of_memory": []}
+    for b in (8, 4, 2):
+        err = None
+        try:
+            run = flash_cell(Session, cfg, priv, opt, None, 1, want,
+                             "flashtrain-scan", "B", True, b * silos, 4096,
+                             silos)
+        except torch.cuda.OutOfMemoryError as e:
+            err = str(e)[:200]
+        if err is None:
+            out.update(per_silo_batch=b, run=run)
+            out["peaks_gb"][b] = run["peak_mem_gb"]
+            break
+        # the failed cell's tensors go with its traceback
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["out_of_memory"].append({"per_silo_batch": b, "error": err})
+        log(f"[flashtrain-scan] {b} a silo does not fit: {err[:160]}")
+    else:
+        out["per_silo_batch"] = 1
+    b = out["per_silo_batch"]
+    if b > 1:
+        out["per_sequence_gb"] = (out["peaks_gb"][b] - out["peaks_gb"][1]) \
+            / (b - 1)
+    log(f"[flashtrain-scan] per-silo batch {b} (peaks {out['peaks_gb']} GB "
+        f"of {total / 1e9:.1f})")
+    return out
+
+
+def flashtrain_phase(dev) -> dict:
+    """Phase 26 (``--flashtrain`` only): training through flash attention
+    and remat, ``build_model(..., remat=True, use_flash=True)``, at JAX's
+    train_4k length (S 4096). (a) qwen2.5-3b at full width and 12 layers,
+    fp32, fused tier, phase 7's privacy over 4 silos, batch 4 x 4096: 2
+    steps with flash, then 2 with the plain attention (remat both); (b)
+    the barrier tier once at that cell, silo 2 out; (c) JAX's production
+    cell: the scan tier under route (B), 36 layers, 8 silos, JAX's dry-run
+    privacy (sigma 1, per-silo clipping), 2 steps at one sequence a silo,
+    then the per-silo batch search; (d) hubert-xlarge at published width
+    and 8 of 48 layers, frames of S 512, 16 x 512 over 4 silos, fused, 2
+    steps; (e) phase 8's narrow config card vs CPU; (f) one silo's
+    gradient repeated, bit-equal. Every cell: finite losses, rising
+    epsilon, each DP kernel's launches, 2 x layers lse forwards and 1 x
+    layers backwards a silo a step, no plain attention call on the card;
+    step and stage ms, the time in attention, peak GB."""
+    from repro_torch.api import Session
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import (MeshConfig, OptimizerConfig,
+                                          PrivacyConfig, reduce_for_smoke)
+
+    t0 = time.perf_counter()
+    cfg = get_config("qwen2.5-3b")
+    cut12 = dataclasses.replace(cfg, n_layers=12)
+    priv = PrivacyConfig(enabled=True, sigma=0.3, clip_bound=1.0,
+                         dynamic_clip=True, noise_lambda=0.7, n_silos=4)
+    priv_b = dataclasses.replace(priv, sync_path="barrier")
+    opt = OptimizerConfig(name="adamw", lr=1e-3)
+    fused = {"clip_accumulate": 1, "noise_batch": 1}
+    rec: dict = {}
+    for flash in (True, False):
+        rec["fused_flash" if flash else "fused_plain"] = flash_cell(
+            Session, cut12, priv, opt, None, 2, fused, "flashtrain-fused",
+            "fp32", flash, 4, 4096, 4)
+    rec["barrier"] = flash_cell(
+        Session, cut12, priv_b, opt, MeshConfig((4,), ("data",)), 1,
+        {"clip_mask": 3}, "flashtrain-barrier", "fp32", True, 4, 4096, 4,
+        silo_schedule=lambda t: [True, True, False, True])
+    # JAX's production cell (repro/launch/dryrun.py:91-102)
+    priv_dry = PrivacyConfig(enabled=True, sigma=1.0, clip_mode="per_silo",
+                             silo_mode="scan", n_silos=8)
+    scan_want = {"normal_combine": lambda lay: len(leaf_slices(lay))}
+    scan = flash_cell(Session, cfg, priv_dry, opt, None, 2, scan_want,
+                      "flashtrain-scan", "B", True, 8, 4096, 8)
+    scan["search"] = scan_batch_search(Session, cfg, priv_dry, opt, 8,
+                                       scan_want, scan)
+    rec["scan"] = scan
+    hub = get_config("hubert-xlarge")
+    hub8 = dataclasses.replace(hub, n_layers=8)
+    rec["hubert"] = flash_cell(
+        Session, hub8, priv, opt, None, 2, fused, "flashtrain-hubert",
+        "fp32", True, 16, 512, 4,
+        next_batch=frame_batches(hub8, dev, B=16, S=512))
+    narrow = reduce_for_smoke(cfg, n_layers=2, d_model=256, n_heads=4,
+                              n_kv_heads=2, d_head=64, d_ff=512,
+                              vocab_size=4096)
+    rec["cross_device"] = flash_cross_device(Session, narrow, priv, opt)
+    rec["repeat"] = flash_grad_repeat(Session, cut12, priv, opt)
+    f, p = rec["fused_flash"], rec["fused_plain"]
+    log(f"[flashtrain] qwen2.5-3b at 12 layers, 4 x 4096 over 4 silos, "
+        f"fp32, remat: flash {f['step_ms'][-1]:.1f} ms a step (attention "
+        f"{f['attention']['ms_a_step']:.0f}, peak {f['peak_mem_gb']:.2f} GB)"
+        f" against plain {p['step_ms'][-1]:.1f} (attention "
+        f"{p['attention']['ms_a_step']:.0f}, peak {p['peak_mem_gb']:.2f} GB)")
+    rec["phase_s"] = time.perf_counter() - t0
+    log(f"[flashtrain] phase 26 in {rec['phase_s']:.1f} s; the scan tier "
+        f"under route B at 36 layers, S 4096: peak "
+        f"{scan['peak_mem_gb']:.2f} GB at one sequence a silo, per-silo "
+        f"batch {scan['search']['per_silo_batch']}")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -6370,6 +6823,23 @@ def main() -> int:
     log_pool_events(events)
     for sub in ("verify4", "chunk16"):
         log_attention(f"paged_attention {sub}", kern["paged_attention"][sub])
+    # the training pair (the lse forward, row 1's training sub-rows, and
+    # the backward, row 19) at the training shapes; then the main path that
+    # launches them: one fused step of qwen2.5-3b at full width and 2
+    # layers through build_model(remat=True, use_flash=True) at JAX's
+    # train_4k length, 4 x 4096 over 4 silos (phase 26, --flashtrain, runs
+    # the full cells)
+    rows3 = flash_train_rows(dev, F)
+    kern["flash_attention"].update(rows3["flash_attention"])
+    kern["flash_attention_bwd"] = {**rows3["flash_attention_bwd"].pop(""),
+                                   **rows3["flash_attention_bwd"]}
+    report["flash_main"] = flash_cell(
+        Session, dataclasses.replace(cfg, n_layers=2),
+        PrivacyConfig(enabled=True, sigma=0.3, clip_bound=1.0,
+                      dynamic_clip=True, noise_lambda=0.7, n_silos=4),
+        OptimizerConfig(name="adamw", lr=1e-3), None, 1,
+        {"clip_accumulate": 1, "noise_batch": 1}, "flash-main", "fp32",
+        True, 4, 4096, 4)
 
     # 4. full-width qwen2.5-3b through the user's entry points; from here
     # to the end of phase 5 no plain attention or page-pool call may get a
@@ -7432,7 +7902,9 @@ def main() -> int:
                     "launches"]["ssd_bwd"],
                 **{k: r["launches"] for k, r in stream_rows.items()},
                 "normal": admin["barrier"]["launches"]["normal"],
-                "normal_combine": scan["launches"]["normal_combine"]}
+                "normal_combine": scan["launches"]["normal_combine"],
+                "flash_attention_bwd": report["flash_main"]["launches"][
+                    "flash_attention_bwd"]}
     check(set(kern) == set(dispatch.KERNELS) == set(launches),
           f"the kernels line covers {sorted(kern)}, the registry "
           f"{sorted(dispatch.KERNELS)}")
@@ -7466,14 +7938,15 @@ def main() -> int:
                       "library_per_leaf_ms", "route_ms", "route_device_ms",
                       "route_parts_ms", "launches_tree_vs_per_leaf",
                       "launches_by_instantiation", "launches_by_variant",
-                      "plain_calls_on_card"):
+                      "plain_calls_on_card", "max_abs_err_dq_dk_dv",
+                      "two_launches_bit_equal"):
             if extra in r:
                 entry[extra] = r[extra]
         for sub in ("verify4", "chunk16", "d112", "s512", "wire", "d80",
                     "d80_verify4", "d80_chunk16", "d96", "d96_verify4",
                     "d96_chunk16", "cnn6", "wrn28", "pe16", "w22",
                     "leaf311m", "prev0", "cnn6_prev0", "wrn28_prev0",
-                    *BF16_SUBROWS):
+                    *BF16_SUBROWS, *FLASH_TRAIN_SUBROWS):
             if sub in r:
                 entry[sub] = {x: r[sub][x] for x in (
                     "max_abs_err", "ms", "device_ms", "plain_ms",
@@ -7483,7 +7956,8 @@ def main() -> int:
                     "library_per_leaf_ms", "route_ms", "route_device_ms",
                     "route_parts_ms", "launches_tree_vs_per_leaf",
                     "not_bit_equal_share", "max_ulps", "past_one_ulp",
-                    "bit_equal_to_fp32_kernel")
+                    "bit_equal_to_fp32_kernel", "lse_max_abs_err",
+                    "library_call")
                     if x in r[sub]}
         if "wire" in r:
             entry["wire"]["launches"] = r["wire"]["launches"]
@@ -7505,7 +7979,7 @@ if __name__ == "__main__":
         if "--src" in args else ROOT / "src"
     for phase in ("scans", "pool", "wire", "bwd", "streams", "slice15",
                   "persist", "cifar", "prng", "normal", "tree", "bf16",
-                  "families", "bf16train"):
+                  "families", "bf16train", "flashtrain"):
         if f"--{phase}" in args:
             sys.exit(one_phase(phase, src))
     sys.exit(main())

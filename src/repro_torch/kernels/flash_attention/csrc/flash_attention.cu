@@ -35,6 +35,14 @@
 // kernel's, and each output is rounded once from f32, to nearest even
 // (__floats2bfloat162_rn). Half the bytes of q, k, v and out: the bound at
 // S 32 halves (0.0004 ms at d_head 128).
+// The training forward (flash_attention_fwd_lse_{f32,bf16}, the template's
+// LSE flag): the same kernel also writes each row's log-sum-exp, lse (B, Hq,
+// Sq) fp32 = m + log(max(l, 1e-30)), as _fwd ends (src/repro/kernels/
+// flash_attention/blocked.py:89), for the backward kernel
+// (flash_attention_bwd.cu). At qwen2.5-3b's training shape (B 1, S 4096,
+// 16 heads, causal) it is 4 S^2 D / 2 flops a head, 6.9e10: 1.0 ms at the
+// fp32 rate, against 0.05 ms of bytes, so bound by operations. The serving
+// entries instantiate LSE false: their code is unchanged.
 #include "attn_tile.cuh"
 
 namespace {
@@ -42,11 +50,12 @@ namespace {
 template <int D, int ROWS>
 using FlashTile = AttnTile<D, ROWS, 1>;
 
-template <class T, int D, int ROWS>
+template <class T, int D, int ROWS, bool LSE>
 __global__ void __launch_bounds__(ATTN_THREADS)
 flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ out, int Sq, int Sk, int Hq,
-                           int Hkv, int causal, float sm_scale) {
+                           const T* __restrict__ v, T* __restrict__ out,
+                           float* __restrict__ lse, int Sq, int Sk, int Hq, int Hkv, int causal,
+                           float sm_scale) {
   extern __shared__ float4 attn_smem[];
   FlashTile<D, ROWS> tile(reinterpret_cast<float*>(attn_smem));
   const int q0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
@@ -72,6 +81,10 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         return !causal || q0 + r >= t * ATTN_COLS + c ? dot * sm_scale : REPRO_NEG_INF;
       });
 
+  if (LSE)
+    tile.each_ml([&](int r, float m, float l) {
+      if (r < rows) lse[((size_t)b * Hq + h) * Sq + q0 + r] = m + logf(fmaxf(l, 1e-30f));
+    });
   tile.each_acc([&](int r, int d, float4 a, float l) {
     if (r >= rows) return;
     T* o = out + (((size_t)b * Sq + q0 + r) * Hq + h) * D + d;
@@ -80,50 +93,51 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   });
 }
 
-template <class T, int D, int ROWS>
-cudaError_t launch_flash(const T* q, const T* k, const T* v, T* out, int B, int Sq, int Sk,
-                         int Hq, int Hkv, int causal, float sm_scale, cudaStream_t stream) {
+template <class T, int D, int ROWS, bool LSE>
+cudaError_t launch_flash(const T* q, const T* k, const T* v, T* out, float* lse, int B, int Sq,
+                         int Sk, int Hq, int Hkv, int causal, float sm_scale,
+                         cudaStream_t stream) {
   static unsigned long long smem_set = 0;
-  auto kern = flash_attention_fwd_kernel<T, D, ROWS>;
+  auto kern = flash_attention_fwd_kernel<T, D, ROWS, LSE>;
   const size_t smem = FlashTile<D, ROWS>::BYTES;
   cudaError_t e = set_smem_once(kern, smem, smem_set);
   if (e != cudaSuccess) return e;
   dim3 grid((Sq + ROWS - 1) / ROWS, Hq, B);
-  kern<<<grid, ATTN_THREADS, smem, stream>>>(q, k, v, out, Sq, Sk, Hq, Hkv, causal, sm_scale);
+  kern<<<grid, ATTN_THREADS, smem, stream>>>(q, k, v, out, lse, Sq, Sk, Hq, Hkv, causal,
+                                              sm_scale);
   return cudaGetLastError();
 }
 
-template <class T, int D>
-cudaError_t launch_flash_rows(const T* q, const T* k, const T* v, T* out, int B, int Sq, int Sk,
-                              int Hq, int Hkv, int causal, float sm_scale, cudaStream_t stream) {
+template <class T, int D, bool LSE>
+cudaError_t launch_flash_rows(const T* q, const T* k, const T* v, T* out, float* lse, int B,
+                              int Sq, int Sk, int Hq, int Hkv, int causal, float sm_scale,
+                              cudaStream_t stream) {
   if (Sq <= 32)
-    return launch_flash<T, D, 32>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, sm_scale, stream);
-  return launch_flash<T, D, 64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, sm_scale, stream);
+    return launch_flash<T, D, 32, LSE>(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv, causal, sm_scale,
+                                       stream);
+  return launch_flash<T, D, 64, LSE>(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv, causal, sm_scale,
+                                     stream);
 }
 
-template <class T>
-int flash_fwd(const T* q, const T* k, const T* v, T* out, int B, int Sq, int Sk, int Hq, int Hkv,
-              int D, int causal, float sm_scale, cudaStream_t stream) {
+template <class T, bool LSE>
+int flash_fwd(const T* q, const T* k, const T* v, T* out, float* lse, int B, int Sq, int Sk,
+              int Hq, int Hkv, int D, int causal, float sm_scale, cudaStream_t stream) {
+#define REPRO_FLASH_CASE(DD)                                                                    \
+  case DD:                                                                                      \
+    return launch_flash_rows<T, DD, LSE>(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv, causal, sm_scale, \
+                                         stream);
   switch (D) {
-    case 16:
-      return launch_flash_rows<T, 16>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, sm_scale, stream);
-    case 32:
-      return launch_flash_rows<T, 32>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, sm_scale, stream);
-    case 64:
-      return launch_flash_rows<T, 64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, sm_scale, stream);
-    case 80:  // stablelm-3b
-      return launch_flash_rows<T, 80>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, sm_scale, stream);
-    case 96:  // phi3-mini-3.8b
-      return launch_flash_rows<T, 96>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, sm_scale, stream);
-    case 112:  // zamba2-7b's shared block
-      return launch_flash_rows<T, 112>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, sm_scale,
-                                       stream);
-    case 128:
-      return launch_flash_rows<T, 128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, sm_scale,
-                                       stream);
+    REPRO_FLASH_CASE(16)
+    REPRO_FLASH_CASE(32)
+    REPRO_FLASH_CASE(64)
+    REPRO_FLASH_CASE(80)   // stablelm-3b, hubert-xlarge
+    REPRO_FLASH_CASE(96)   // phi3-mini-3.8b
+    REPRO_FLASH_CASE(112)  // zamba2-7b's shared block
+    REPRO_FLASH_CASE(128)
     default:
       return cudaErrorInvalidValue;
   }
+#undef REPRO_FLASH_CASE
 }
 
 }  // namespace
@@ -133,7 +147,8 @@ int flash_fwd(const T* q, const T* k, const T* v, T* out, int B, int Sq, int Sk,
 REPRO_API int flash_attention_fwd_f32(const float* q, const float* k, const float* v,
                                       float* out, int B, int Sq, int Sk, int Hq, int Hkv,
                                       int D, int causal, float sm_scale, cudaStream_t stream) {
-  return flash_fwd(q, k, v, out, B, Sq, Sk, Hq, Hkv, D, causal, sm_scale, stream);
+  return flash_fwd<float, false>(q, k, v, out, nullptr, B, Sq, Sk, Hq, Hkv, D, causal, sm_scale,
+                                 stream);
 }
 
 // The same in bf16 (q, k, v and out); the math in fp32, the output rounded
@@ -142,5 +157,23 @@ REPRO_API int flash_attention_fwd_bf16(const __nv_bfloat16* q, const __nv_bfloat
                                        const __nv_bfloat16* v, __nv_bfloat16* out, int B, int Sq,
                                        int Sk, int Hq, int Hkv, int D, int causal,
                                        float sm_scale, cudaStream_t stream) {
-  return flash_fwd(q, k, v, out, B, Sq, Sk, Hq, Hkv, D, causal, sm_scale, stream);
+  return flash_fwd<__nv_bfloat16, false>(q, k, v, out, nullptr, B, Sq, Sk, Hq, Hkv, D, causal,
+                                         sm_scale, stream);
+}
+
+// The training forward: the same, and lse (B, Hq, Sq) fp32.
+REPRO_API int flash_attention_fwd_lse_f32(const float* q, const float* k, const float* v,
+                                          float* out, float* lse, int B, int Sq, int Sk, int Hq,
+                                          int Hkv, int D, int causal, float sm_scale,
+                                          cudaStream_t stream) {
+  return flash_fwd<float, true>(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv, D, causal, sm_scale,
+                                stream);
+}
+
+REPRO_API int flash_attention_fwd_lse_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                                           const __nv_bfloat16* v, __nv_bfloat16* out, float* lse,
+                                           int B, int Sq, int Sk, int Hq, int Hkv, int D,
+                                           int causal, float sm_scale, cudaStream_t stream) {
+  return flash_fwd<__nv_bfloat16, true>(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv, D, causal,
+                                        sm_scale, stream);
 }

@@ -4,10 +4,12 @@ serving), causal or not (the encoder). Port of
 ``repro/models/attention.py``.
 
 Prefill over the dense cache runs the flash-attention kernel; every paged
-step runs the paged-attention kernel. Training attention is ``_sdpa`` and
-decode over the dense cache ``_sdpa_masked``: plain torch, as in the JAX
-package (einsum + softmax; the training path builds its model with
-``use_flash=False``, so no Pallas kernel lies on it).
+step runs the paged-attention kernel. Training attention is ``_sdpa``
+(plain torch, as in the JAX package: einsum + softmax), or with
+``use_flash`` (``registry.build_model(use_flash=True)``, as JAX's) the
+flash kernels through ``flash_ops.FlashAttention``: the training forward
+and the hand-written backward. Decode over the dense cache is
+``_sdpa_masked``, plain torch as in the JAX package.
 """
 from __future__ import annotations
 
@@ -108,10 +110,13 @@ def _sdpa_masked(q, k, v, causal: bool, q_offset: int, valid_k):
 
 
 def attn_apply(p: Attention, x, cfg: ModelConfig, positions,
-               cache: Optional[dict] = None, layer: int = 0):
+               cache: Optional[dict] = None, layer: int = 0,
+               use_flash: bool = False):
     """One layer's attention; returns the projected output.
 
-    Without a cache (training): ``_sdpa`` over the sequence. With the dense
+    Without a cache (training): ``_sdpa`` over the sequence, or flash
+    attention with ``use_flash`` (``repro/models/attention.py:102-106``).
+    With the dense
     cache ``{'k', 'v': (L, B, S_max, Hkv, Dh), 'len': int}``: writes this
     layer's new K/V in place at position ``cache['len']``. A multi-token
     call is the initial prefill (``len == 0`` by construction): flash
@@ -120,8 +125,12 @@ def attn_apply(p: Attention, x, cfg: ModelConfig, positions,
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg, positions)
     if cache is None:
-        out = _sdpa(q, k, v, cfg.causal).reshape(B, S, cfg.attn_inner)
-        return out @ p.wo.to(x.dtype)
+        if use_flash:
+            out = flash_ops.flash_attention(q.contiguous(), k.contiguous(),
+                                            v.contiguous(), causal=cfg.causal)
+        else:
+            out = _sdpa(q, k, v, cfg.causal)
+        return out.reshape(B, S, cfg.attn_inner) @ p.wo.to(x.dtype)
     idx = cache["len"]
     ck, cv = cache["k"][layer], cache["v"][layer]
     ck[:, idx:idx + S] = k.to(ck.dtype)

@@ -12,9 +12,12 @@ SSD scan in every Mamba-2 layer and flash attention in every shared block;
 it needs an empty cache, as the JAX package assumes.
 
 ``loss_fn`` trains the family: the forward without a state, then the
-chunked LM loss, as the JAX package's (``use_flash=False``: the shared
-block attends through the plain ``attention._sdpa``, as JAX trains it, with
-no Pallas kernel). Each Mamba-2 layer's SSD scan goes through
+chunked LM loss, as the JAX package's. The shared block attends through
+the plain ``attention._sdpa``, or through the flash kernels with
+``use_flash``; with ``remat`` each group (its ``attn_every`` Mamba-2
+layers and the shared block, not the tail) is recomputed in the backward,
+JAX's remat unit (``repro/models/hybrid.py:87-99``). Each Mamba-2 layer's
+SSD scan goes through
 ``kernels/mamba2/ops.SSD`` (the ``ssd`` kernel forward, the ``ssd_bwd``
 reverse scan backward on the card). The shared block's weights take
 gradient from every call. The JAX tree stacks every ``mamba_layers.*``
@@ -27,6 +30,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -102,34 +106,62 @@ def init_state(cfg: ModelConfig, batch: int, max_len: int, device,
 
 
 def _shared_apply(p: SharedBlock, x, cfg: ModelConfig, positions,
-                  cache=None, entry: int = 0):
+                  cache=None, entry: int = 0, use_flash: bool = False):
     x = x + attn.attn_apply(p.attn, rmsnorm(p.ln1.scale, x), cfg, positions,
-                            cache, entry)
+                            cache, entry, use_flash)
     return x + swiglu_apply(p.ffn, rmsnorm(p.ln2.scale, x))
+
+
+def _mamba_apply(lay: MambaLayer, x, cfg: ModelConfig, st=None):
+    return x + mamba2.mamba2_apply(lay.mamba, rmsnorm(lay.ln.scale, x), cfg,
+                                   st)
+
+
+def _group_apply(params: Hybrid, x, cfg: ModelConfig, positions, group: int,
+                 use_flash: bool):
+    """One group of the training forward: its ``attn_every`` Mamba-2
+    layers, then the shared block (JAX's remat unit)."""
+    ae = cfg.attn_every
+    for lay in params.mamba_layers[group * ae:(group + 1) * ae]:
+        x = _mamba_apply(lay, x, cfg)
+    return _shared_apply(params.shared, x, cfg, positions,
+                         use_flash=use_flash)
 
 
 def forward(params: Hybrid, cfg: ModelConfig, tokens,
             state: Optional[dict] = None, compute_dtype=torch.float32,
-            logits_mode: str = "all"):
+            logits_mode: str = "all", remat: bool = False,
+            use_flash: bool = False):
     """Tokens (B, S) through the stack: without a state (training) or over
     ``state``, updated in place (the KV cache's ``len`` advances by S; the
     positions start there, ``hybrid.py:84-85``). Returns logits as
-    ``transformer.forward`` does."""
+    ``transformer.forward`` does. Without a state, ``use_flash`` attends
+    through the flash kernels and ``remat`` recomputes each group in the
+    backward."""
     x = params.embed.to(compute_dtype)[tokens]
     B, S, _ = x.shape
     ae = cfg.attn_every
+    g, _ = n_groups(cfg)
     cache = None if state is None else state["attn_cache"]
     offset = 0 if cache is None else cache["len"]
     positions = (offset + torch.arange(S, device=x.device))[None].expand(B, S)
-    for i, lay in enumerate(params.mamba_layers):
-        st = None if state is None else {"h": state["h"][i],
-                                         "conv": state["conv"][i]}
-        x = x + mamba2.mamba2_apply(lay.mamba, rmsnorm(lay.ln.scale, x), cfg,
-                                    st)
-        if (i + 1) % ae == 0:  # the end of a group (never in the tail)
-            x = _shared_apply(params.shared, x, cfg, positions, cache,
-                              (i + 1) // ae - 1)
-    if cache is not None:
+    if state is None:
+        remat = remat and torch.is_grad_enabled()
+        for group in range(g):
+            args = (params, x, cfg, positions, group, use_flash)
+            # no layer draws random numbers: no RNG state to carry
+            x = (checkpoint(_group_apply, *args, use_reentrant=False,
+                            preserve_rng_state=False) if remat
+                 else _group_apply(*args))
+        for lay in params.mamba_layers[g * ae:]:  # the tail, as JAX: no remat
+            x = _mamba_apply(lay, x, cfg)
+    else:
+        for i, lay in enumerate(params.mamba_layers):
+            x = _mamba_apply(lay, x, cfg, {"h": state["h"][i],
+                                           "conv": state["conv"][i]})
+            if (i + 1) % ae == 0:  # the end of a group (never in the tail)
+                x = _shared_apply(params.shared, x, cfg, positions, cache,
+                                  (i + 1) // ae - 1)
         cache["len"] = offset + S
     x = rmsnorm(params.ln_f.scale, x)
     if logits_mode == "hidden":
@@ -140,11 +172,12 @@ def forward(params: Hybrid, cfg: ModelConfig, tokens,
 
 
 def loss_fn(params: Hybrid, cfg: ModelConfig, batch: dict,
-            compute_dtype=torch.float32) -> torch.Tensor:
+            compute_dtype=torch.float32, remat: bool = False,
+            use_flash: bool = False) -> torch.Tensor:
     """Mean next-token cross-entropy of ``{'tokens', 'labels': (B, S)}``
     (``repro/models/hybrid.py:149-152``)."""
     hidden = forward(params, cfg, batch["tokens"], None, compute_dtype,
-                     logits_mode="hidden")
+                     logits_mode="hidden", remat=remat, use_flash=use_flash)
     return chunked_lm_loss(hidden, params.lm_head, batch["labels"])
 
 

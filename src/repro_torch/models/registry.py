@@ -46,7 +46,13 @@ class Model:
 
 
 def build_model(cfg: ModelConfig, device, param_dtype=torch.float32,
-                compute_dtype=torch.float32) -> Model:
+                compute_dtype=torch.float32, remat: bool = False,
+                use_flash: bool = False) -> Model:
+    """JAX's ``build_model`` (``repro/models/registry.py:41-77``) on
+    ``device``. ``remat`` and ``use_flash`` reach ``loss`` family by family
+    as JAX's do: the ssm family takes ``remat`` only (it has no
+    attention); the hybrid's shared block and every transformer layer
+    attend through the flash kernels under ``use_flash``."""
     device = torch.device(device)
     cd = compute_dtype
     if cfg.family in ("ssm", "hybrid"):
@@ -57,10 +63,16 @@ def build_model(cfg: ModelConfig, device, param_dtype=torch.float32,
                 return rwkv_stack.init_state(cfg, batch, device, param_dtype)
             return hybrid.init_state(cfg, batch, max_len, device, cd)
 
+        if cfg.family == "ssm":
+            loss = lambda p, batch: rwkv_stack.loss_fn(  # noqa: E731
+                p, cfg, batch, cd, remat=remat)
+        else:
+            loss = lambda p, batch: hybrid.loss_fn(  # noqa: E731
+                p, cfg, batch, cd, remat=remat, use_flash=use_flash)
         step = lambda p, toks, c: mod.decode_step(p, cfg, toks, c, cd)
         return Model(cfg=cfg, device=device,
                      init=lambda gen: mod.init(gen, cfg, device, param_dtype),
-                     loss=lambda p, batch: mod.loss_fn(p, cfg, batch, cd),
+                     loss=loss,
                      init_cache=init_cache, prefill=step,
                      decode_step=step, compute_dtype=cd)
     if cfg.family not in transformer.FAMILIES:
@@ -75,7 +87,8 @@ def build_model(cfg: ModelConfig, device, param_dtype=torch.float32,
     return Model(
         cfg=cfg, device=device,
         init=lambda gen: transformer.init(gen, cfg, device, param_dtype),
-        loss=lambda p, batch: transformer.loss_fn(p, cfg, batch, cd),
+        loss=lambda p, batch: transformer.loss_fn(p, cfg, batch, cd,
+                                                  use_flash, remat),
         init_cache=lambda batch, max_len: transformer.init_cache(
             cfg, batch, max_len, device, cd),
         prefill=lambda p, toks, c, **kw: transformer.prefill(p, cfg, toks, c,

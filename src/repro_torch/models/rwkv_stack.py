@@ -10,7 +10,9 @@ Python. The serving state ``{'S': (L, B, H, N, N), 'x_prev', 'x_prev_cm':
 training) runs the WKV scan; a one-token step the plain recurrence.
 
 ``loss_fn`` trains the family: the forward without a state, then the
-chunked LM loss, as the JAX package's. Its WKV scan goes through
+chunked LM loss, as the JAX package's; with ``remat`` each block is
+recomputed in the backward (``repro/models/rwkv_stack.py:66-72``). Its WKV
+scan goes through
 ``kernels/rwkv6/ops.WKV`` (the ``wkv`` kernel forward, the ``wkv_bwd``
 reverse scan backward on the card). The JAX tree stacks every
 ``layers.*`` leaf; ``models/packing.py`` reads it off the modules.
@@ -21,6 +23,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import rwkv6
@@ -81,13 +84,19 @@ def block_apply(blk: RWKVBlock, x, cfg: ModelConfig,
 
 def forward(params: RWKVStack, cfg: ModelConfig, tokens,
             state: Optional[dict] = None, compute_dtype=torch.float32,
-            logits_mode: str = "all"):
+            logits_mode: str = "all", remat: bool = False):
     """Tokens (B, S) through the stack: from zeros (training) or from
     ``state``, updated in place (``state['len']`` advances by S). Returns
     logits (B, S, V), (B, 1, V) for ``"last"``, or the final-norm hidden
-    states for ``"hidden"``."""
+    states for ``"hidden"``. ``remat`` (without a state): each block
+    recomputed in the backward."""
     x = layernorm(params.ln_in, params.embed.to(compute_dtype)[tokens])
+    remat = remat and state is None and torch.is_grad_enabled()
     for layer, blk in enumerate(params.layers):
+        if remat:  # no block draws random numbers: no RNG state to carry
+            x = checkpoint(block_apply, blk, x, cfg, None,
+                           use_reentrant=False, preserve_rng_state=False)
+            continue
         st = None if state is None else {
             k: state[k][layer] for k in ("S", "x_prev", "x_prev_cm")}
         x = block_apply(blk, x, cfg, st)
@@ -102,11 +111,11 @@ def forward(params: RWKVStack, cfg: ModelConfig, tokens,
 
 
 def loss_fn(params: RWKVStack, cfg: ModelConfig, batch: dict,
-            compute_dtype=torch.float32) -> torch.Tensor:
+            compute_dtype=torch.float32, remat: bool = False) -> torch.Tensor:
     """Mean next-token cross-entropy of ``{'tokens', 'labels': (B, S)}``
     (``repro/models/rwkv_stack.py:96-99``)."""
     hidden = forward(params, cfg, batch["tokens"], None, compute_dtype,
-                     logits_mode="hidden")
+                     logits_mode="hidden", remat=remat)
     return chunked_lm_loss(hidden, params.lm_head, batch["labels"])
 
 

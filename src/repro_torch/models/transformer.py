@@ -23,7 +23,12 @@ unrounded (XLA fuses the add into the norm's widening, while the residual
 stream itself is rounded to bf16), and the SiLU rounds after each of its
 ops (``layers.XlaSilu``). Embeddings are cast, then gathered, as in JAX,
 so the embedding gradient adds repeated tokens in bf16. Serving keeps the
-plain order (one add, ``F.silu``). The VLM and the
+plain order (one add, ``F.silu``). ``loss_fn`` takes JAX's two training
+switches (``repro/models/transformer.py:87-131``): ``use_flash`` attends
+through the flash kernels (``attention.attn_apply``), and ``remat``
+recomputes each layer in the backward (``torch.utils.checkpoint``, as
+``jax.checkpoint`` wraps the scanned layer), keeping only the layers'
+inputs. The VLM and the
 encoder read the JAX package's batch keys: ``embeds`` (B, S, D), the
 precomputed output of the modality frontend it stubs, in place of
 ``tokens``, and ``positions``, (B, S) or M-RoPE's (3, B, S).
@@ -35,6 +40,7 @@ from typing import Callable, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -122,9 +128,9 @@ def init(gen: torch.Generator, cfg: ModelConfig, device,
 
 
 def _layer_apply(blk: Block, x, cfg: ModelConfig, positions, cache, layer,
-                 train: bool = False):
+                 train: bool = False, use_flash: bool = False):
     h = attn.attn_apply(blk.attn, rmsnorm(blk.ln1.scale, x), cfg, positions,
-                        cache, layer)
+                        cache, layer, use_flash)
     if train and x.dtype == torch.bfloat16:
         # XLA's order: the norm widens the unrounded fp32 sum
         y = rmsnorm(blk.ln2.scale, x.float() + h.float()).to(x.dtype)
@@ -143,9 +149,12 @@ def _embed_inputs(params: Transformer, tokens, embeds, compute_dtype):
 
 
 def _forward(params: Transformer, cfg: ModelConfig, tokens, cache,
-             compute_dtype, embeds=None, positions=None, train=False):
+             compute_dtype, embeds=None, positions=None, train=False,
+             use_flash=False, remat=False):
     """The final-norm hidden states (B, S, D) and the summed aux term.
-    ``train``: the training forward's bf16 order (the module docstring)."""
+    ``train``: the training forward's bf16 order (the module docstring);
+    ``use_flash`` and ``remat`` as ``loss_fn``'s (which passes no
+    cache)."""
     x = _embed_inputs(params, tokens, embeds, compute_dtype)
     B, S, _ = x.shape
     offset = 0 if cache is None else cache["len"]
@@ -153,8 +162,13 @@ def _forward(params: Transformer, cfg: ModelConfig, tokens, cache,
         positions = (offset + torch.arange(S, device=x.device))[None] \
             .expand(B, S)
     aux = 0.0
+    remat = remat and torch.is_grad_enabled()
     for layer, blk in enumerate(params.layers):
-        x, a = _layer_apply(blk, x, cfg, positions, cache, layer, train)
+        args = (blk, x, cfg, positions, cache, layer, train, use_flash)
+        # no layer draws random numbers: no RNG state to carry
+        x, a = (checkpoint(_layer_apply, *args, use_reentrant=False,
+                           preserve_rng_state=False) if remat
+                else _layer_apply(*args))
         aux = aux + a
     if cache is not None:
         cache["len"] = offset + S
@@ -180,13 +194,16 @@ def forward(params: Transformer, cfg: ModelConfig, tokens,
 
 
 def loss_fn(params: Transformer, cfg: ModelConfig, batch: dict,
-            compute_dtype=torch.float32) -> torch.Tensor:
+            compute_dtype=torch.float32, use_flash: bool = False,
+            remat: bool = False) -> torch.Tensor:
     """Mean next-token cross-entropy of ``{'tokens' or 'embeds', 'labels'
     (B, S), 'positions'?}``, plus ``AUX_LOSS_WEIGHT`` times the summed
-    load-balance term in the MoE family."""
+    load-balance term in the MoE family. ``use_flash``: attention through
+    the flash kernels; ``remat``: each layer recomputed in the backward."""
     hidden, aux = _forward(params, cfg, batch.get("tokens"), None,
                            compute_dtype, batch.get("embeds"),
-                           batch.get("positions"), train=True)
+                           batch.get("positions"), train=True,
+                           use_flash=use_flash, remat=remat)
     loss = chunked_lm_loss(hidden, params.head(), batch["labels"])
     if cfg.is_moe():
         loss = loss + AUX_LOSS_WEIGHT * aux

@@ -1621,13 +1621,15 @@ def test_flash_bf16_kernel_within_one_ulp_of_plain(cuda, B, S, Hq, Hkv, D,
     kern = dispatch.KERNELS["flash_attention"]
     dispatch.reset_launches()
     got = flash_ops.flash_attention(q, k, v, causal=causal)
-    assert kern.variants == {"f32": 0, "bf16": 1}
+    assert kern.variants == {"f32": 0, "bf16": 1, "lse_f32": 0,
+                             "lse_bf16": 0}
     wide = flash_ops.flash_attention(q.float(), k.float(), v.float(),
                                      causal=causal)
     want = flash_ref.attention_ref(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert got.dtype == want.dtype == torch.bfloat16
-    assert kern.variants == {"f32": 1, "bf16": 1}
+    assert kern.variants == {"f32": 1, "bf16": 1, "lse_f32": 0,
+                             "lse_bf16": 0}
     split = got.view(torch.int16) != wide.to(torch.bfloat16).view(torch.int16)
     assert not split.any(), f"{int(split.sum())} elements differ from the " \
                             f"fp32 kernel's, rounded"
@@ -1805,7 +1807,8 @@ def test_smoke_bf16_serving_on_card_launches_the_bf16_kernels(cuda):
     dispatch.reset_launches()
     a = gpu.serve(prompt=prompt, params=p_gpu, max_new_tokens=5)
     var = dispatch.variant_counts()
-    assert var["flash_attention"] == {"f32": 0, "bf16": gpu.cfg.n_layers}
+    assert var["flash_attention"] == {"f32": 0, "bf16": gpu.cfg.n_layers,
+                                      "lse_f32": 0, "lse_bf16": 0}
     b = cpu.serve(prompt=prompt, params=p_cpu, max_new_tokens=5)
     assert a.logits.dtype == torch.bfloat16
     torch.testing.assert_close(a.logits.float().cpu(), b.logits.float(),

@@ -246,12 +246,16 @@ def test_from_config_without_cuda_raises(monkeypatch):
 
 def test_unported_paths_raise(port, tmp_path):
     # training and checkpointing are ported (test_torch_training.py,
-    # test_torch_trainer.py), and every family (test_torch_families.py);
-    # training through flash attention is not: a call that needs its
-    # backward raises
-    q = torch.zeros(1, 4, 2, 16, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        flash_ops.flash_attention(q, q.detach(), q.detach())
+    # test_torch_trainer.py), every family (test_torch_families.py), and
+    # training through flash attention (test_torch_flash_training.py): a
+    # call that needs its backward reaches q, k and v
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(1, 4, 2, 16, generator=g).requires_grad_()
+               for _ in range(3))
+    grads = torch.autograd.grad(flash_ops.flash_attention(q, k, v).sum(),
+                                (q, k, v))
+    assert all(t.shape == x.shape and bool(t.abs().max() > 0)
+               for t, x in zip(grads, (q, k, v)))
     with torch.no_grad():
         assert flash_ops.flash_attention(q, q, q).shape == q.shape
     res = port.train(steps=1, batch_size=4, seq_len=8, log_every=0,
