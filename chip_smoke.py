@@ -79,9 +79,12 @@ Phases (any failed check raises, and the script exits non-zero):
      backward (``flash_attention_bwd``), against their plain versions at
      qwen2.5-3b's silo at S 4096 (B 1, causal; fp32 and bf16), at
      hubert-xlarge's frames (B 4, S 512, MHA, d_head 80, non-causal) and
-     at S 1000 (fp32 within FLASH_TRAIN_REL of each output's largest
-     value, bf16 within one ulp past it, two launches bit-equal), timed
-     beside SDPA's forward and its backward; then the main path that
+     at S 1000, each in fp32 and bf16 (fp32 within FLASH_TRAIN_REL of each
+     output's largest value, bf16 within one ulp past it, two launches
+     bit-equal; the bf16 pair on the tensor cores: HMMA in the SASS of
+     each of its kernels, none in the fp32 pair's), timed beside SDPA's
+     forward and its backward, the bf16 rows beside the split's floor
+     too; then the main path that
      launches them: one fused step of qwen2.5-3b at full width and 2
      layers, 4 x 4096 over 4 silos, through ``build_model(remat=True,
      use_flash=True)`` (2 x layers lse forwards and 1 x layers backwards a
@@ -6334,14 +6337,24 @@ def bf16train_phase(dev) -> dict:
 FLASH_TRAIN_REL = 1e-5
 # the shapes phase 3 holds the training pair to: qwen2.5-3b's silo at JAX's
 # train_4k length (B 1, S 4096, causal), hubert-xlarge's frames (B 4, S
-# 512, 16 heads, MHA, d_head 80, non-causal) and a ragged length
+# 512, 16 heads, MHA, d_head 80, non-causal) and a ragged length, each in
+# fp32 and bf16 (the bf16 pair on the tensor cores)
 FLASH_TRAIN_SHAPES = (
     ("", 1, 4096, 16, 2, 128, True, torch.float32),
     ("bf16", 1, 4096, 16, 2, 128, True, torch.bfloat16),
     ("hubert", 4, 512, 16, 16, 80, False, torch.float32),
-    ("s1000", 1, 1000, 16, 2, 128, True, torch.float32))
-FLASH_TRAIN_SUBROWS = ("lse4096", "lse4096_bf16", "lse_hubert", "lse_s1000",
-                       "hubert", "s1000")
+    ("hubert_bf16", 4, 512, 16, 16, 80, False, torch.bfloat16),
+    ("s1000", 1, 1000, 16, 2, 128, True, torch.float32),
+    ("s1000_bf16", 1, 1000, 16, 2, 128, True, torch.bfloat16))
+FLASH_TRAIN_SUBROWS = ("lse4096", "lse4096_bf16", "lse_hubert",
+                       "lse_hubert_bf16", "lse_s1000", "lse_s1000_bf16",
+                       "hubert", "hubert_bf16", "s1000", "s1000_bf16")
+# the training pair's kernels in the SASS (mangled names): the bf16 ones run
+# on the tensor cores (HMMA), the fp32 ones on the CUDA cores (no HMMA)
+FLASH_TC_SASS = (r"flash_fwd_lse_tc_kernel", r"flash_bwd_dkdv_tc_kernel",
+                 r"flash_bwd_dq_tc_kernel")
+FLASH_FP32_SASS = (r"flash_attention_fwd_kernelIfLi\d+ELi\d+ELb1E",
+                   r"flash_bwd_dkdv_kernelILi", r"flash_bwd_dq_kernelILi")
 # phase 26's card-vs-CPU gradient gate, tests/test_torch_flash_training.py's
 FLASH_GRAD_REL = 5e-5
 
@@ -6414,6 +6427,12 @@ def check_flash_train(dev, gen, B, S, Hq, Hkv, D, causal, dtype, F) -> tuple:
           f"{'causal' if causal else 'non-causal'} {DTYPE_NAMES[dtype]}")
     b_f, by_f = bound((2 * n_q + 2 * n_kv) * es + B * Hq * S * 4,
                       4 * D * Hq * B * pairs, rate)
+    # bf16 on the tensor cores: P and dS enter as two bf16 terms, so the
+    # work the design does is 3 S x S x D products forward (2 bound it)
+    # and 10 backward (5), at the same rate: the split's floor
+    split = dtype == torch.bfloat16
+    floor_f = 6 * D * Hq * B * pairs / rate * 1e3 if split else None
+    floor_b = 20 * D * Hq * B * pairs / rate * 1e3 if split else None
     lse_row = {
         "max_abs_err": err_out, "lse_max_abs_err": err_lse,
         "ms": cuda_ms(fwd, reps=5, warmup=1),
@@ -6422,7 +6441,8 @@ def check_flash_train(dev, gen, B, S, Hq, Hkv, D, causal, dtype, F) -> tuple:
                             reps=3, warmup=1),
         "library_ms": lib_fwd_ms, "library_device_ms": lib_fwd_dev,
         "library_call": "scaled_dot_product_attention (forward)",
-        "bound_ms": b_f, "bound_by": by_f, "at": at + " (training forward)"}
+        "bound_ms": b_f, "bound_by": by_f, "split_floor_ms": floor_f,
+        "at": at + " (training forward)"}
     b_b, by_b = bound((4 * n_q + 4 * n_kv) * es + B * Hq * S * 4,
                       10 * D * Hq * B * pairs, rate)
     bwd_row = {
@@ -6435,16 +6455,46 @@ def check_flash_train(dev, gen, B, S, Hq, Hkv, D, causal, dtype, F) -> tuple:
         "library_ms": cuda_ms(lib_bwd, reps=5, warmup=1),
         "library_call": "the backward of scaled_dot_product_attention "
                         "(one autograd.grad over its saved graph; a call)",
-        "bound_ms": b_b, "bound_by": by_b, "at": at}
+        "bound_ms": b_b, "bound_by": by_b, "split_floor_ms": floor_b,
+        "at": at}
     del q, k, v, do, out, lse, grads, o, qt, kt, vt, dot
     torch.cuda.empty_cache()
     return lse_row, bwd_row
 
 
+def flash_hmma(sass: str) -> dict:
+    """HMMA instructions in each of the training pair's kernels (every
+    instantiation, by mangled name): at least one in each bf16 kernel, none
+    in the fp32 ones. Returns ``{pattern: [count an instantiation]}``."""
+    counts: dict = {}
+    name = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            name = next((p for p in FLASH_TC_SASS + FLASH_FP32_SASS
+                         if re.search(p, fn)), None)
+            if name:
+                counts.setdefault(name, []).append(0)
+        elif name and re.search(r"\bHMMA\b", line):
+            counts[name][-1] += 1
+    for p in FLASH_TC_SASS:
+        check(bool(counts.get(p)) and min(counts[p]) > 0,
+              f"{p}: an instantiation without HMMA ({counts.get(p)})")
+    for p in FLASH_FP32_SASS:
+        check(bool(counts.get(p)) and max(counts[p]) == 0,
+              f"{p}: HMMA in an fp32 kernel ({counts.get(p)})")
+    return counts
+
+
 def flash_train_rows(dev, F) -> dict:
     """Phase 3's training rows: the lse forward (sub-rows of row 1) and
-    the backward (row 19) at FLASH_TRAIN_SHAPES. Returns ``{kernel:
-    {sub-row: row}}``, the backward's main row under ``""``."""
+    the backward (row 19) at FLASH_TRAIN_SHAPES, after the SASS check that
+    the bf16 pair runs on the tensor cores and the fp32 pair does not
+    (:func:`flash_hmma`). Returns ``{kernel: {sub-row: row}}``, the
+    backward's main row under ``""``."""
+    hmma = flash_hmma(library_sass())
+    log(f"[kernel] flash training pair, HMMA an instantiation: "
+        f"{json.dumps(hmma)}")
     gen = torch.Generator(device=dev).manual_seed(26)
     rows: dict = {"flash_attention": {}, "flash_attention_bwd": {}}
     for name, B, S, Hq, Hkv, D, causal, dtype in FLASH_TRAIN_SHAPES:
@@ -6461,7 +6511,10 @@ def flash_train_rows(dev, F) -> dict:
                 f"{r['max_abs_err']:.3g} | kernel {r['ms']:.4f} ms (on the "
                 f"card {r['device_ms']:.4f}) | library {r['library_ms']:.4f}"
                 f" ms ({r['library_call']}) | plain {r['plain_ms']:.4f} ms | "
-                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) | {r['at']}")
+                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+                + (f", the split's floor {r['split_floor_ms']:.4f} ms"
+                   if r["split_floor_ms"] else "") + f" | {r['at']}")
+    rows["hmma"] = hmma
     return rows
 
 
@@ -6830,6 +6883,7 @@ def main() -> int:
     # train_4k length, 4 x 4096 over 4 silos (phase 26, --flashtrain, runs
     # the full cells)
     rows3 = flash_train_rows(dev, F)
+    report["flash_hmma"] = rows3["hmma"]
     kern["flash_attention"].update(rows3["flash_attention"])
     kern["flash_attention_bwd"] = {**rows3["flash_attention_bwd"].pop(""),
                                    **rows3["flash_attention_bwd"]}
@@ -7957,7 +8011,7 @@ def main() -> int:
                     "route_parts_ms", "launches_tree_vs_per_leaf",
                     "not_bit_equal_share", "max_ulps", "past_one_ulp",
                     "bit_equal_to_fp32_kernel", "lse_max_abs_err",
-                    "library_call")
+                    "library_call", "split_floor_ms")
                     if x in r[sub]}
         if "wire" in r:
             entry["wire"]["launches"] = r["wire"]["launches"]

@@ -42,8 +42,39 @@
 // (flash_attention_bwd.cu). At qwen2.5-3b's training shape (B 1, S 4096,
 // 16 heads, causal) it is 4 S^2 D / 2 flops a head, 6.9e10: 1.0 ms at the
 // fp32 rate, against 0.05 ms of bytes, so bound by operations. The serving
-// entries instantiate LSE false: their code is unchanged.
+// entries instantiate LSE false: their code is unchanged. The fp32 training
+// forward is the template's LSE instantiation; the bf16 one is the
+// tensor-core kernel below.
+//
+// The bf16 training forward (flash_attention_fwd_lse_bf16) on the tensor
+// cores (flash_fwd_lse_tc_kernel, on csrc/mma_tile.cuh): the same function,
+// the same 6.9e10 flops at the silo shape, whose bound at bf16's 989
+// TFLOP/s is 0.07 ms. A block of 4 warps takes 64 query rows of one (head,
+// batch), 16 rows a warp, heaviest query tiles first; Q's fragments stay in
+// registers. K and V tiles of 64 keys stay bf16 in shared memory (row
+// stride D + 8: no ldmatrix bank conflicts), double-buffered by cp.async
+// (rows past Sk zero-filled). S = QK^T by mma.sync m16n8k16 (bf16 in, fp32
+// accumulate: exact products of the bf16 inputs); the online softmax runs
+// on the accumulator fragments (a row's max and sum over its quad by
+// shuffles; base-2 SFU exponentials with the scale folded into one FMA,
+// m kept in those units and lse = m ln 2 + log l; a masked or absent
+// column is -inf, so p = 0, tested only in tiles that cross the diagonal
+// or the end of the keys); P goes from the
+// accumulator straight into A fragments as the two-term split (hi =
+// bf16(p), lo = bf16(p - hi); 2^-16 of p) and O += P_hi V + P_lo V, V by
+// ldmatrix.trans. Tiles wholly above the diagonal are skipped. So the
+// split costs a third product: 3 S x S x D units of work against the
+// function's 2, a floor of 0.104 ms at the silo shape. Occupancy bounds
+// it (a warp's softmax leaves the tensor pipe to the SM's other warps):
+// Q stages in the second K/V buffer and moves to registers before tile 1
+// is copied there, so shared memory is 4 x 64 rows of D + 8 bf16 (70 KB at
+// D 128), and __launch_bounds__ asks for three blocks (12 warps) an SM:
+// 168 registers a thread (the O accumulator D/2, Q's fragments D/4, the
+// scores 32), with 24-56 bytes of stack at D 96-128 (1.09x faster at the
+// silo shape than two blocks at 189 registers, H100 80GB HBM3, 700 W:
+// tools/time_flash_pair.py).
 #include "attn_tile.cuh"
+#include "mma_tile.cuh"
 
 namespace {
 
@@ -140,6 +171,201 @@ int flash_fwd(const T* q, const T* k, const T* v, T* out, float* lse, int B, int
 #undef REPRO_FLASH_CASE
 }
 
+constexpr int TC_THREADS = 128;  // 4 warps, 16 query rows each
+constexpr int TC_ROWS = 64;      // query rows a block
+constexpr int TC_COLS = 64;      // keys a tile
+
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, 3)
+flash_fwd_lse_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+                        float* __restrict__ lse, int Sq, int Sk, int Hq, int Hkv, int causal,
+                        float scale) {
+  using R = TcRows<D>;
+  constexpr int ST = R::ST, NT = TC_COLS / 8, DT = D / 8, KD = D / 16;
+  extern __shared__ uint4 tc_smem[];
+  // buffer i: k, then v, at 2 i TC_COLS rows; q stages in buffer 1's k
+  // rows, free again once its fragments are in registers
+  __nv_bfloat16* kv_s = reinterpret_cast<__nv_bfloat16*>(tc_smem);
+  __nv_bfloat16* q_s = kv_s + 2 * TC_COLS * ST;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * TC_ROWS, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (Hq / Hkv), rows = min(Sq - q0, TC_ROWS);
+  int ntiles = (Sk + TC_COLS - 1) / TC_COLS;
+  if (causal) ntiles = min(ntiles, (q0 + rows - 1) / TC_COLS + 1);
+  const long long qs = (long long)Hq * D, ks = (long long)Hkv * D;
+  const __nv_bfloat16* kg = k + ((long long)b * Sk * Hkv + hk) * D;
+  const __nv_bfloat16* vg = v + ((long long)b * Sk * Hkv + hk) * D;
+  auto stage = [&](int t, int buf) {
+    const int k0 = t * TC_COLS, n = min(Sk - k0, TC_COLS);
+    __nv_bfloat16* kd = kv_s + buf * 2 * TC_COLS * ST;
+    R::template load<TC_COLS, TC_THREADS>(kd, kg + k0 * ks, ks, n);
+    R::template load<TC_COLS, TC_THREADS>(kd + TC_COLS * ST, vg + k0 * ks, ks, n);
+  };
+  R::template load<TC_ROWS, TC_THREADS>(q_s, q + (((long long)b * Sq + q0) * Hq + h) * D, qs,
+                                        rows);
+  stage(0, 0);
+  cp_async_commit();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31, tq = lane & 3;
+  const int r0 = 16 * warp, qr0 = q0 + r0 + (lane >> 2), qr1 = qr0 + 8;
+  unsigned qf[KD][4];
+  cp_async_wait<0>();
+  __syncthreads();
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk) R::a_frag(qf[kk], q_s, r0, kk);
+  __syncthreads();  // q's rows are free for tile 1
+  float acc[DT][4];
+#pragma unroll
+  for (int i = 0; i < DT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  float m0 = REPRO_NEG_INF, m1 = REPRO_NEG_INF, l0 = 0.f, l1 = 0.f;  // rows qr0, qr1
+  const float sl = scale * TC_LOG2E;
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < ntiles) stage(t + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const __nv_bfloat16* k_s = kv_s + buf * 2 * TC_COLS * ST;
+    const __nv_bfloat16* v_s = k_s + TC_COLS * ST;
+
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk)
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {
+        unsigned kb[4];
+        R::bt_frag(kb, k_s, 8 * j, kk);
+        mma_bf16(s[j], qf[kk], kb[0], kb[1]);
+        mma_bf16(s[j + 1], qf[kk], kb[2], kb[3]);
+      }
+
+    // mask (only where the tile crosses the diagonal or the end of the
+    // keys: the branch is the warp's); each row's max over its quad
+    const int k0 = t * TC_COLS;
+    if (k0 + TC_COLS > Sk || (causal && k0 + TC_COLS - 1 > q0 + r0))
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = k0 + 8 * j + 2 * tq + (e & 1), r = e < 2 ? qr0 : qr1;
+          if (c >= Sk || (causal && c > r)) s[j][e] = -INFINITY;
+        }
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+    }
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
+    }
+    // m in base-2 units of the scaled scores; finite: it starts at NEG_INF
+    const float mn0 = fmaxf(m0, mx0 * sl), mn1 = fmaxf(m1, mx1 * sl);
+    const float a0 = exp2_approx(m0 - mn0), a1 = exp2_approx(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      s[j][0] = exp2_approx(fmaf(s[j][0], sl, -mn0));  // 2^-inf = 0
+      s[j][1] = exp2_approx(fmaf(s[j][1], sl, -mn0));
+      s[j][2] = exp2_approx(fmaf(s[j][2], sl, -mn1));
+      s[j][3] = exp2_approx(fmaf(s[j][3], sl, -mn1));
+      ps0 += s[j][0] + s[j][1];
+      ps1 += s[j][2] + s[j][3];
+    }
+    l0 = a0 * l0 + ps0;  // this thread's columns; the quad's sum at the end
+    l1 = a1 * l1 + ps1;
+#pragma unroll
+    for (int i = 0; i < DT; ++i) {
+      acc[i][0] *= a0;
+      acc[i][1] *= a0;
+      acc[i][2] *= a1;
+      acc[i][3] *= a1;
+    }
+#pragma unroll
+    for (int j = 0; j < NT; j += 2) {
+      unsigned ph[4], pl[4];
+      a_from_c(s[j], s[j + 1], ph, pl);
+#pragma unroll
+      for (int i = 0; i < DT; i += 2) {
+        unsigned vb[4];
+        R::b_frag(vb, v_s, 8 * j, 8 * i);
+        mma_bf16(acc[i], ph, vb[0], vb[1]);
+        mma_bf16(acc[i], pl, vb[0], vb[1]);
+        mma_bf16(acc[i + 1], ph, vb[2], vb[3]);
+        mma_bf16(acc[i + 1], pl, vb[2], vb[3]);
+      }
+    }
+    __syncthreads();  // this tile's buffers are consumed
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, o);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, o);
+  }
+  const long long lrow = ((long long)b * Hq + h) * Sq;
+  if (tq == 0) {
+    if (qr0 < Sq) lse[lrow + qr0] = m0 * TC_LN2 + logf(fmaxf(l0, 1e-30f));
+    if (qr1 < Sq) lse[lrow + qr1] = m1 * TC_LN2 + logf(fmaxf(l1, 1e-30f));
+  }
+  const float i0 = 1.f / fmaxf(l0, 1e-30f), i1 = 1.f / fmaxf(l1, 1e-30f);
+  __nv_bfloat16* o0 = out + (((long long)b * Sq + qr0) * Hq + h) * D + 2 * tq;
+  __nv_bfloat16* o1 = o0 + 8 * qs;
+#pragma unroll
+  for (int i = 0; i < DT; ++i) {
+    if (qr0 < Sq)
+      *reinterpret_cast<__nv_bfloat162*>(o0 + 8 * i) =
+          __floats2bfloat162_rn(acc[i][0] * i0, acc[i][1] * i0);
+    if (qr1 < Sq)
+      *reinterpret_cast<__nv_bfloat162*>(o1 + 8 * i) =
+          __floats2bfloat162_rn(acc[i][2] * i1, acc[i][3] * i1);
+  }
+}
+
+template <int D>
+cudaError_t launch_fwd_lse_tc(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                              const __nv_bfloat16* v, __nv_bfloat16* out, float* lse, int B,
+                              int Sq, int Sk, int Hq, int Hkv, int causal, float scale,
+                              cudaStream_t stream) {
+  static unsigned long long smem_set = 0;
+  auto kern = flash_fwd_lse_tc_kernel<D>;
+  static_assert(TC_ROWS <= TC_COLS, "q stages in a k buffer");
+  const size_t smem = sizeof(__nv_bfloat16) * 4 * TC_COLS * TcRows<D>::ST;
+  cudaError_t e = set_smem_once(kern, smem, smem_set);
+  if (e != cudaSuccess) return e;
+  dim3 grid((Sq + TC_ROWS - 1) / TC_ROWS, Hq, B);
+  kern<<<grid, TC_THREADS, smem, stream>>>(q, k, v, out, lse, Sq, Sk, Hq, Hkv, causal, scale);
+  return cudaGetLastError();
+}
+
+int flash_fwd_lse_tc(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+                     __nv_bfloat16* out, float* lse, int B, int Sq, int Sk, int Hq, int Hkv,
+                     int D, int causal, float scale, cudaStream_t stream) {
+#define REPRO_FLASH_TC_CASE(DD) \
+  case DD:                      \
+    return launch_fwd_lse_tc<DD>(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv, causal, scale, stream);
+  switch (D) {
+    REPRO_FLASH_TC_CASE(16)
+    REPRO_FLASH_TC_CASE(32)
+    REPRO_FLASH_TC_CASE(64)
+    REPRO_FLASH_TC_CASE(80)
+    REPRO_FLASH_TC_CASE(96)
+    REPRO_FLASH_TC_CASE(112)
+    REPRO_FLASH_TC_CASE(128)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef REPRO_FLASH_TC_CASE
+}
+
 }  // namespace
 
 // q (B, Sq, Hq, D); k, v (B, Sk, Hkv, D); out (B, Sq, Hq, D). fp32, contiguous,
@@ -161,7 +387,8 @@ REPRO_API int flash_attention_fwd_bf16(const __nv_bfloat16* q, const __nv_bfloat
                                          sm_scale, stream);
 }
 
-// The training forward: the same, and lse (B, Hq, Sq) fp32.
+// The training forward: the same, and lse (B, Hq, Sq) fp32; in bf16 on the
+// tensor cores (flash_fwd_lse_tc_kernel).
 REPRO_API int flash_attention_fwd_lse_f32(const float* q, const float* k, const float* v,
                                           float* out, float* lse, int B, int Sq, int Sk, int Hq,
                                           int Hkv, int D, int causal, float sm_scale,
@@ -174,6 +401,5 @@ REPRO_API int flash_attention_fwd_lse_bf16(const __nv_bfloat16* q, const __nv_bf
                                            const __nv_bfloat16* v, __nv_bfloat16* out, float* lse,
                                            int B, int Sq, int Sk, int Hq, int Hkv, int D,
                                            int causal, float sm_scale, cudaStream_t stream) {
-  return flash_fwd<__nv_bfloat16, true>(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv, D, causal,
-                                        sm_scale, stream);
+  return flash_fwd_lse_tc(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv, D, causal, sm_scale, stream);
 }

@@ -16,8 +16,9 @@ q (B, Sq, Hq, D); k, v (B, Sk, Hkv, D) -> (B, Sq, Hq, D) in q's dtype:
 fp32 or bf16, q, k and v alike (another dtype, or a mix, raises). Each
 dtype is its own instantiation, counted apart (``variants``); the training
 forward counts as its own variants of ``flash_attention`` (``lse_f32``,
-``lse_bf16``), and the backward (``flash_attention_bwd``: three device
-launches, delta, dk/dv and dq, counted as one) by dtype.
+``lse_bf16``), and the backward (``flash_attention_bwd``: delta, dk/dv,
+the combine of the query heads' partials when Hq > Hkv, and dq, counted as
+one) by dtype. The bf16 training pair runs on the tensor cores.
 """
 from __future__ import annotations
 
@@ -50,7 +51,7 @@ _FLASH_LSE = {v: _build.Entry(f"flash_attention_fwd_lse_{v}",
                               [_P] * 5 + [_I] * 7 + [_F, _P])
               for v in DTYPE_VARIANTS.values()}
 _FLASH_BWD = {v: _build.Entry(f"flash_attention_bwd_{v}",
-                              [_P] * 10 + [_I] * 7 + [_F, _P])
+                              [_P] * 11 + [_I] * 7 + [_F, _P])
               for v in DTYPE_VARIANTS.values()}
 
 
@@ -115,10 +116,12 @@ def flash_attention_fwd_lse_cuda(q, k, v, causal: bool = True):
 
 
 def flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal: bool = True):
-    """Launch the backward kernel (delta, dk/dv, dq: three device launches,
-    one count) on the saved q, k, v, the training forward's ``out`` and
-    ``lse`` and the cotangent ``dout``. Returns (dq, dk, dv), each in its
-    input's dtype."""
+    """Launch the backward kernel (delta, dk/dv a key tile and query head,
+    their combine when Hq > Hkv, dq: one count) on the saved q, k, v, the
+    training forward's ``out`` and ``lse`` and the cotangent ``dout``.
+    Returns (dq, dk, dv), each in its input's dtype. With G = Hq / Hkv > 1
+    the dk/dv pass writes each query head's fp32 partial to a scratch (2,
+    G, B, Sk, Hkv, D) that the combine folds in ascending head order."""
     variant = _check_qkv("flash_attention_bwd_cuda", q, k, v)
     dev = q.device
     check_tensor("out", out, q.dtype, 4, dev)
@@ -137,11 +140,13 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal: bool = True):
     if B == 0 or Sq == 0:
         return dq, dk.zero_(), dv.zero_()
     delta = torch.empty(B, Hq, Sq, device=dev, dtype=torch.float32)
+    part = (torch.empty(2, Hq // Hkv, B, Sk, Hkv, D, device=dev,
+                        dtype=torch.float32) if Hq > Hkv else None)
     err = _FLASH_BWD[variant].launch(
         dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, Hq, Hkv, D, int(causal),
-        1.0 / D ** 0.5)
+        dk.data_ptr(), dv.data_ptr(), None if part is None else part.data_ptr(),
+        B, Sq, Sk, Hq, Hkv, D, int(causal), 1.0 / D ** 0.5)
     _build.check(err, "flash_attention_bwd")
     FLASH_ATTENTION_BWD.count(variant)
     return dq, dk, dv

@@ -4,7 +4,11 @@ bidirectional, GQA, fp32 softmax), which the serving forward's kernel
 answers to, and the training pair the lse forward and the backward kernel
 answer to: ``flash_forward_ref`` and ``flash_backward_ref``, the custom VJP
 of ``repro/kernels/flash_attention/blocked.py`` (``_fwd`` :57-92,
-``_bwd_vjp`` :100-140) with every key block at once."""
+``_bwd_vjp`` :100-140) with every key block at once.
+
+Beside them, for the tests only (nothing on the main path calls them), a
+plain model of the bf16 tensor-core kernels' arithmetic: ``split_bf16``
+and ``flash_forward_split_model`` / ``flash_backward_split_model``."""
 from __future__ import annotations
 
 import torch
@@ -80,3 +84,122 @@ def flash_backward_ref(q, k, v, out, lse, dout, causal: bool = True):
     dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float())
     return (dq.reshape(B, Sq, Hq, D).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
+
+
+# ---------------------------------------------------------------------------
+# a model of the bf16 tensor-core kernels' arithmetic (tests only)
+
+TC_FWD_COLS = 64   # the lse forward's key tile (flash_attention.cu TC_COLS)
+TC_DQ_KEYS = 64    # the dq pass's key tile (flash_attention_bwd.cu TB_K)
+TC_DKDV_ROWS = 32  # the dk/dv pass's query tile (TB_QT)
+
+
+def split_bf16(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The two-term split of an fp32 ``x``: ``hi = bf16_rn(x)``, ``lo =
+    bf16_rn(x - hi)`` (``x - hi`` is exact in fp32), both as fp32 values;
+    ``|x - hi - lo| <= 2^-16 |x|``."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def _split_mm(a: torch.Tensor, b: torch.Tensor, eq: str) -> torch.Tensor:
+    """``a`` (fp32) split in two, each term's product with ``b`` (bf16
+    values in fp32) summed in fp32, hi first: two mma into one
+    accumulator."""
+    hi, lo = split_bf16(a)
+    return torch.einsum(eq, hi, b) + torch.einsum(eq, lo, b)
+
+
+def _causal(s: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor):
+    """``s`` with -inf where a key lies past its query (p = 0 there)."""
+    return torch.where(rows[:, None] >= cols[None, :], s,
+                       torch.full_like(s, float("-inf")))
+
+
+def flash_forward_split_model(q, k, v, causal: bool = True):
+    """The bf16 lse forward's arithmetic (``flash_fwd_lse_tc_kernel``):
+    bf16 q, k, v enter as they are (their products exact, summed in fp32);
+    the online softmax walks key tiles of ``TC_FWD_COLS`` in fp32, and each
+    tile's p enters ``P V`` split, ``acc = alpha acc + p_hi V + p_lo V``;
+    ``lse = m + log(max(l, 1e-30))``, ``out = acc / max(l, 1e-30)`` rounded
+    once to q's dtype. Natural ``exp`` stands for the kernel's base-2 SFU
+    exponentials (within 2 ulp). Returns (out, lse) as
+    ``flash_forward_ref`` does."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = 1.0 / D ** 0.5
+    qg = q.float().reshape(B, Sq, Hkv, G, D)
+    rows = torch.arange(Sq)
+    m = torch.full((B, Hkv, G, Sq), NEG_INF)
+    l = torch.zeros(B, Hkv, G, Sq)
+    acc = torch.zeros(B, Hkv, G, Sq, D)
+    for k0 in range(0, Sk, TC_FWD_COLS):
+        kt = k[:, k0:k0 + TC_FWD_COLS].float()
+        vt = v[:, k0:k0 + TC_FWD_COLS].float()
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kt) * scale
+        if causal:
+            s = _causal(s, rows, torch.arange(k0, k0 + kt.shape[1]))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = alpha * l + p.sum(dim=-1)
+        acc = alpha[..., None] * acc + _split_mm(p, vt,
+                                                 "bhgqk,bkhd->bhgqd")
+        m = m_new
+    l = torch.clamp(l, min=1e-30)
+    out = (acc / l[..., None]).permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D)
+    return out.to(q.dtype), (m + torch.log(l)).reshape(B, Hq, Sq)
+
+
+def flash_backward_split_model(q, k, v, out, lse, dout, causal: bool = True):
+    """The bf16 backward's arithmetic (``flash_bwd_dq_tc_kernel``,
+    ``flash_bwd_dkdv_tc_kernel``, ``flash_bwd_combine_kernel``): delta from
+    the rounded out; s and dp from the bf16 inputs in fp32; p = exp(s scale
+    - lse) and ds = p (dp - delta) scale in fp32, 0 past the diagonal. dq
+    sums key tiles of ``TC_DQ_KEYS`` in order, ``dq += ds_hi K + ds_lo K``;
+    each query head's dk and dv sum query tiles of ``TC_DKDV_ROWS`` in
+    order (``dv += p_hi^T dO + p_lo^T dO``, ``dk += ds_hi^T Q + ds_lo^T
+    Q``), and the G heads' fp32 partials of a KV head fold in ascending
+    head order; each gradient is rounded once. Returns (dq, dk, dv) as
+    ``flash_backward_ref`` does."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = 1.0 / D ** 0.5
+    grouped = lambda t: t.float().reshape(B, Sq, Hkv, G, D)  # noqa: E731
+    qg, og, dog = grouped(q), grouped(out), grouped(dout)
+    kf, vf = k.float(), v.float()
+    delta = (dog * og).sum(dim=-1).permute(0, 2, 3, 1)       # (B, Hkv, G, Sq)
+    lse_g = lse.reshape(B, Hkv, G, Sq)
+
+    def p_ds(qs, ks, q0, k0):
+        """p and ds of query rows qs.. and keys ks.. (B, Hkv, G, q, k)."""
+        qt, dot = qg[:, q0:q0 + qs], dog[:, q0:q0 + qs]
+        kt, vt = kf[:, k0:k0 + ks], vf[:, k0:k0 + ks]
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qt, kt) * scale
+        if causal:
+            s = _causal(s, torch.arange(q0, q0 + qt.shape[1]),
+                        torch.arange(k0, k0 + kt.shape[1]))
+        p = torch.exp(s - lse_g[..., q0:q0 + qt.shape[1], None])
+        dp = torch.einsum("bqhgd,bkhd->bhgqk", dot, vt)
+        return p, p * (dp - delta[..., q0:q0 + qt.shape[1], None]) * scale
+
+    dq = torch.zeros(B, Sq, Hkv, G, D)
+    for k0 in range(0, Sk, TC_DQ_KEYS):
+        _, ds = p_ds(Sq, TC_DQ_KEYS, 0, k0)
+        dq += _split_mm(ds, kf[:, k0:k0 + TC_DQ_KEYS], "bhgqk,bkhd->bqhgd")
+    dk_h = torch.zeros(B, Hkv, G, Sk, D)
+    dv_h = torch.zeros(B, Hkv, G, Sk, D)
+    for q0 in range(0, Sq, TC_DKDV_ROWS):
+        p, ds = p_ds(TC_DKDV_ROWS, Sk, q0, 0)
+        dv_h += _split_mm(p, dog[:, q0:q0 + TC_DKDV_ROWS],
+                          "bhgqk,bqhgd->bhgkd")
+        dk_h += _split_mm(ds, qg[:, q0:q0 + TC_DKDV_ROWS],
+                          "bhgqk,bqhgd->bhgkd")
+    dk, dv = dk_h[:, :, 0], dv_h[:, :, 0]
+    for g in range(1, G):
+        dk, dv = dk + dk_h[:, :, g], dv + dv_h[:, :, g]
+    return (dq.reshape(B, Sq, Hq, D).to(q.dtype),
+            dk.permute(0, 2, 1, 3).to(k.dtype),
+            dv.permute(0, 2, 1, 3).to(v.dtype))

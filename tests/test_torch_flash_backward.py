@@ -30,6 +30,8 @@ ulp. Against ``_sdpa``'s autograd, fp32: ``GRAD_REL``.
 The card cases (``cuda`` fixture; without a CUDA device they skip) hold
 the kernels to these plain versions: the lse forward and the backward at
 every head dim the kernels are built for, ragged lengths, causal and not,
+in bf16 also at S 4096 and at 2 x 2048 with 4 query heads a KV head (the
+bf16 pair runs on the tensor cores: HMMA in its SASS, none in fp32's),
 fp32 within ``ATOL`` plus ``KERNEL_REL`` 1e-5 of each gradient's largest
 |value| (fp32 sums in other orders: the kernel's tiles against one einsum;
 the absolute floor for a gradient that is 0 up to rounding, as dq of a
@@ -199,8 +201,7 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["fp32", "bf16"])
-@pytest.mark.parametrize("B,S,Hq,Hkv,D,causal", [
+CARD_SHAPES = [
     (1, 256, 16, 2, 128, True),    # qwen2.5-3b's heads
     (2, 100, 16, 16, 80, False),   # hubert-xlarge's, ragged
     (1, 1, 4, 2, 16, True),        # one token
@@ -210,7 +211,22 @@ def cuda():
     (1, 65, 32, 32, 96, True),     # phi3-mini-3.8b's
     (1, 64, 4, 1, 112, True),      # zamba2-7b's shared block
     (1, 1000, 16, 2, 128, True),   # ragged past many tiles
-])
+]
+# the bf16 pair on the tensor cores, also at qwen2.5-3b's silo (JAX's
+# train_4k length) and at 4 query heads a KV head over 2 sequences (many
+# dk/dv partials to fold)
+CARD_BF16_SHAPES = [
+    (1, 4096, 16, 2, 128, True),
+    (2, 2048, 32, 8, 128, True),
+]
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,causal,dtype", [
+    pytest.param(*shape, dtype, id="-".join(map(str, shape)) + "-" + name)
+    for shape in CARD_SHAPES
+    for dtype, name in ((torch.float32, "fp32"), (BF16, "bf16"))] + [
+    pytest.param(*shape, BF16, id="-".join(map(str, shape)) + "-bf16")
+    for shape in CARD_BF16_SHAPES])
 def test_card_kernels_match_plain(cuda, B, S, Hq, Hkv, D, causal, dtype):
     g = torch.Generator(device=cuda).manual_seed(D + S)
     q, k, v, do = (torch.randn(B, S, H, D, device=cuda, generator=g)
@@ -261,3 +277,41 @@ def test_card_function_launches_both_kernels(cuda):
     for t, w in zip((q, k, v), want):
         _close(t.grad, w.grad, torch.float32, KERNEL_REL, "vs _sdpa")
     dispatch.reset_launches()
+
+
+def test_card_bf16_pair_on_tensor_cores(cuda):
+    """The bf16 training pair's kernels (every instantiation) hold HMMA
+    instructions in the built library's SASS (``cuobjdump -sass``), and the
+    fp32 pair's hold none."""
+    import re
+    import subprocess
+    from pathlib import Path
+
+    from repro_torch.kernels import _build
+    _build.library()
+    res = subprocess.run([str(Path(_build.nvcc()).with_name("cuobjdump")),
+                          "-sass", str(_build.library_path())],
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    kernels = {"flash_fwd_lse_tc_kernel": True,
+               "flash_bwd_dkdv_tc_kernel": True,
+               "flash_bwd_dq_tc_kernel": True,
+               r"flash_attention_fwd_kernelIfLi\d+ELi\d+ELb1E": False,
+               "flash_bwd_dkdv_kernelILi": False,
+               "flash_bwd_dq_kernelILi": False}
+    counts: dict = {}
+    name = None
+    for line in res.stdout.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            name = next((p for p in kernels if re.search(p, fn)), None)
+            if name:
+                counts.setdefault(name, []).append(0)
+        elif name and re.search(r"\bHMMA\b", line):
+            counts[name][-1] += 1
+    for p, tensor_cores in kernels.items():
+        assert counts.get(p), f"{p} not in the library"
+        if tensor_cores:
+            assert min(counts[p]) > 0, (p, counts[p])
+        else:
+            assert max(counts[p]) == 0, (p, counts[p])

@@ -1,0 +1,236 @@
+#!/usr/bin/env python3
+"""Check and time flash attention's training pair (the lse forward and the
+backward) of one tree on the GPU, so that two trees (an unpacked parent and
+this checkout) compare in one call on one card:
+
+    python3 tools/time_flash_pair.py [--src DIR] [--shapes a,b] [--out F]
+
+DIR is a tree's ``src`` (default: this checkout's). At each shape (below;
+``--shapes`` picks some by name) the pair runs on inputs from a seed, is
+held to its plain versions (``ref.flash_forward_ref`` and
+``ref.flash_backward_ref``, the backward from the kernel's own out and lse)
+at the gates of ``tests/test_torch_flash_backward.py`` (each output within
+1e-5 + 1e-5 of its largest |value|, bf16 one ulp past that; lse within
+1e-5), two launches bit-equal, and timed on the card (CUDA events over
+back-to-back calls, after a warm-up) beside SDPA's forward and backward in
+the same dtype. For the checkout's own tree it also reports each flash
+kernel's registers, spills and shared memory (``cuobjdump -res-usage``)
+and its tensor-core instructions (``HMMA`` in ``cuobjdump -sass``). The
+card's name and power limit come first; the last line is the JSON
+record.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+BF16 = torch.bfloat16
+# name: B, S, Hq, Hkv, D, causal, dtype
+SHAPES = {
+    "silo_bf16": (1, 4096, 16, 2, 128, True, BF16),
+    "silo_fp32": (1, 4096, 16, 2, 128, True, torch.float32),
+    "moe_bf16": (2, 2048, 32, 8, 128, True, BF16),
+    "hubert_bf16": (4, 512, 16, 16, 80, False, BF16),
+    "hubert_fp32": (4, 512, 16, 16, 80, False, torch.float32),
+    "s1000_bf16": (1, 1000, 16, 2, 128, True, BF16),
+    "s1000_fp32": (1, 1000, 16, 2, 128, True, torch.float32),
+    "ragged_bf16": (2, 77, 8, 1, 16, True, BF16),
+    "d112_bf16": (1, 200, 4, 1, 112, True, BF16),
+    "d96_bf16": (1, 65, 32, 32, 96, True, BF16),
+}
+FLASH_KERNELS = r"flash_(fwd|bwd|attention)\w*kernel"
+
+
+def card_line() -> str:
+    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return res.stdout.strip().splitlines()[0] if res.returncode == 0 else ""
+
+
+def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    _, e = torch.frexp(x.float().abs().clamp_min(2.0 ** -126))
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+def past_gate(got, want, dtype) -> float:
+    """How far ``got`` lies past the gate (<= 0: inside), in absolute
+    terms."""
+    got, want = got.float(), want.float()
+    gate = 1e-5 + 1e-5 * want.abs().max()
+    if dtype == BF16:
+        gate = gate + bf16_ulp(torch.maximum(got.abs(), want.abs()))
+    return float(((got - want).abs() - gate).max())
+
+
+def one_shape(name: str, reps: int) -> dict:
+    from repro_torch.kernels.flash_attention import ref
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_fwd_lse_cuda)
+    import torch.nn.functional as F
+
+    B, S, Hq, Hkv, D, causal, dtype = SHAPES[name]
+    gen = torch.Generator(device="cuda").manual_seed(D + S)
+    q, k, v, do = (torch.randn(B, S, H, D, device="cuda", generator=gen)
+                   .to(dtype) for H in (Hq, Hkv, Hkv, Hq))
+    fwd = lambda: flash_attention_fwd_lse_cuda(q, k, v, causal)  # noqa: E731
+    out, lse = fwd()
+    bwd = lambda: flash_attention_bwd_cuda(q, k, v, out, lse, do,  # noqa
+                                           causal)
+    grads = bwd()
+    out2, lse2 = fwd()
+    again = bwd()
+    want_out, want_lse = ref.flash_forward_ref(q, k, v, causal)
+    want = ref.flash_backward_ref(q, k, v, out, lse, do, causal)
+    torch.cuda.synchronize()
+    rec = {
+        "shape": dict(B=B, S=S, Hq=Hq, Hkv=Hkv, D=D, causal=causal,
+                      dtype=str(dtype).replace("torch.", "")),
+        "bit_equal": bool(torch.equal(out, out2) and torch.equal(lse, lse2)
+                          and all(torch.equal(a, b)
+                                  for a, b in zip(grads, again))),
+        "out_past_gate": past_gate(out, want_out, dtype),
+        "lse_max_abs_err": float((lse - want_lse).abs().max()),
+        "grads_past_gate": [past_gate(g, w, dtype)
+                            for g, w in zip(grads, want)],
+        "grads_max_abs_err": [float((g.float() - w.float()).abs().max())
+                              for g, w in zip(grads, want)],
+        "out_max_abs_err": float((out.float() - want_out.float()).abs()
+                                 .max()),
+    }
+    rec["ok"] = (rec["bit_equal"] and rec["out_past_gate"] <= 0
+                 and rec["lse_max_abs_err"] <= 1e-5
+                 and max(rec["grads_past_gate"]) <= 0)
+    del want, want_out, want_lse, out2, lse2, again
+    torch.cuda.empty_cache()
+    rec["fwd_ms"] = cuda_ms(fwd, reps)
+    rec["bwd_ms"] = cuda_ms(bwd, reps)
+    rec["bwd_kernels_ms"] = kernel_split(bwd)
+    qt, kt, vt = (t.detach().transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=causal, enable_gqa=True)
+    with torch.no_grad():
+        rec["sdpa_fwd_ms"] = cuda_ms(sdpa, reps)
+    o = sdpa()
+    dot = do.transpose(1, 2).contiguous()
+    rec["sdpa_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
+        o, (qt, kt, vt), dot, retain_graph=True), reps)
+    del q, k, v, do, out, lse, grads, o, qt, kt, vt, dot
+    torch.cuda.empty_cache()
+    return rec
+
+
+def kernel_split(fn, n: int = 3) -> dict:
+    """Device ms of each kernel one ``fn()`` launches (``torch.profiler``
+    over ``n`` calls, averaged), by a short form of its name."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None)
+        if t is None:
+            t = e.cuda_time_total
+        m = re.search(r"(flash_\w+?kernel\w*?)(<|I|$)", e.key)
+        key = m.group(1) if m else e.key[:40]
+        out[key] = out.get(key, 0.0) + t / 1e3 / n
+    return {k: v for k, v in out.items() if v > 0}
+
+
+def kernel_resources() -> dict:
+    """Registers, spills, shared memory and HMMA count of each flash kernel
+    in the built library, by mangled name."""
+    from repro_torch.kernels import _build
+    tool = str(Path(_build.nvcc()).with_name("cuobjdump"))
+    lib = str(_build.library_path())
+    res = subprocess.run([tool, "-res-usage", lib], capture_output=True,
+                         text=True, timeout=120).stdout
+    out: dict = {}
+    name = None
+    for line in res.splitlines():
+        m = re.search(r"Function (\S+):", line)
+        if m:
+            name = m.group(1) if re.search(FLASH_KERNELS, m.group(1)) \
+                else None
+        elif name and "REG:" in line:
+            out[name] = line.strip()
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, timeout=120).stdout
+    name = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            name = fn if fn in out else None
+            if name:
+                out[name] = {"res": out[name], "hmma": 0}
+        elif name and "HMMA" in line:
+            out[name]["hmma"] += 1
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--src", default=str(ROOT / "src"))
+    ap.add_argument("--shapes", default=",".join(SHAPES))
+    ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--out", default=None)
+    a = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("time_flash_pair: no CUDA device", file=sys.stderr)
+        return 2
+    src = Path(a.src).resolve()
+    sys.path.insert(0, str(src))
+    from repro_torch.kernels import _build
+    card = card_line()
+    print(card, flush=True)
+    rec: dict = {"src": str(src), "card": card, "build_s": _build.build()}
+    if src == (ROOT / "src").resolve():
+        rec["kernels"] = kernel_resources()
+        for k, v in rec["kernels"].items():
+            print(f"[res] {k}: {v}", flush=True)
+    ok = True
+    for name in a.shapes.split(","):
+        r = one_shape(name, a.reps)
+        ok &= r["ok"]
+        rec[name] = r
+        print(f"[{name}] ok {r['ok']} | fwd {r['fwd_ms']:.4f} ms (SDPA "
+              f"{r['sdpa_fwd_ms']:.4f}) | bwd {r['bwd_ms']:.4f} ms (SDPA "
+              f"{r['sdpa_bwd_ms']:.4f}) | out {r['out_max_abs_err']:.3g} "
+              f"lse {r['lse_max_abs_err']:.3g} grads "
+              f"{[f'{x:.3g}' for x in r['grads_max_abs_err']]} | past gate "
+              f"{r['out_past_gate']:.3g} {[f'{x:.3g}' for x in r['grads_past_gate']]}",
+              flush=True)
+    if a.out:
+        Path(a.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(a.out).write_text(json.dumps(rec, indent=1))
+    print(json.dumps(rec))
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
