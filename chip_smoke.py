@@ -34,8 +34,9 @@ against the host CPU.
 
 ``--scans`` runs only the card line, the build and phase 11's scans (their
 checks and times, no launch configuration), from the ``repro_torch`` under
-DIR (default: this checkout's ``src``), and prints their JSON record as its
-last line. It is the standing tool for a change to a scan kernel: two trees
+DIR (default: this checkout's ``src``), and prints their JSON record on the
+line before the last (the last is the full run's ``{"ok": true, ...}``, as
+in every phase mode). It is the standing tool for a change to a scan kernel: two trees
 (an unpacked parent and this one) are timed in one call by running it once
 for each, since it uses only the wrappers every tree has. ``--pool`` does
 the same for phase 3's page-pool events, on trees that have
@@ -326,9 +327,9 @@ Phases (any failed check raises, and the script exits non-zero):
      ulp of the plain version past the fp32 gate and bit-equal to the fp32
      kernel on the widened inputs, rounded (the share not bit-equal to the
      plain version and the largest gap in ulps reported); of paged attention
-     at C 1, 4 and 16 for qwen2.5-3b and at Hkv 32 (d_head 80, 96), within
-     KERNEL_ATOL of the plain version and bit-equal to the fp32 kernel on
-     the widened inputs; the zeroing kernel on bf16 pools bit-equal to its
+     at C 1, 4 and 16 for qwen2.5-3b and at Hkv 32 (d_head 80, 96), on the
+     tensor cores, within KERNEL_ATOL of the plain version and of its split
+     model, two launches bit-equal; the zeroing kernel on bf16 pools bit-equal to its
      plain version (36 + 4 layers), and an admission's reset and a tick's
      rollback as ``PagePool`` runs them; each timed as phase 3's rows,
      beside SDPA in bf16, the bound from bf16 bytes; (b) qwen2.5-3b at 36
@@ -616,9 +617,12 @@ def check_paged_attention(cfg, dev, gen, B, nP, P, C, ops, ref, F,
     fp32): held to the plain version, timed as calls (``ms``, host-clocked:
     the wrapper's enqueue when it is the longer) and on the card alone
     (``device_ms``), beside SDPA in ``dtype`` timed both ways. A bf16 call
-    is also held bit for bit to the fp32 kernel on the widened inputs."""
+    (the tensor-core kernel) is also held to
+    ``ref.paged_attention_split_model`` at the same tolerance, and a second
+    launch to the first bit for bit."""
     from repro_torch.kernels import _build
-    from repro_torch.kernels.paged_attention.paged_attention import plan
+    from repro_torch.kernels.paged_attention.paged_attention import (
+        TC_THREADS, plan, plan_tc)
     S = nP * P
     # one inactive slot (q_start -1) and one full slot (ends at S - 1)
     q_start = [0, S // 3, S - C, -1][:B]
@@ -635,13 +639,16 @@ def check_paged_attention(cfg, dev, gen, B, nP, P, C, ops, ref, F,
           f"plain version ({err})")
     extra = {}
     if dtype != torch.float32:
-        wide = ops.paged_attention(q.float(), kp.float(), vp.float(), tables,
-                                   qs)
+        again = ops.paged_attention(q, kp, vp, tables, qs)
+        model = ref.paged_attention_split_model(q, kp, vp, tables, qs)
         torch.cuda.synchronize()
-        check(torch.equal(got, wide), f"paged_attention C={C} "
-              f"{DTYPE_NAMES[dtype]} differs from the fp32 kernel on the "
-              f"widened inputs")
-        extra["bit_equal_to_fp32_kernel"] = True
+        check(torch.equal(got, again), f"paged_attention C={C} "
+              f"{DTYPE_NAMES[dtype]}: two launches differ")
+        merr = (got - model).abs().max().item()
+        check(torch.allclose(got, model, atol=KERNEL_ATOL, rtol=KERNEL_RTOL),
+              f"paged_attention C={C} {DTYPE_NAMES[dtype]} disagrees with "
+              f"its split model ({merr})")
+        extra.update(model_max_abs_err=merr, bit_equal_launches=True)
     # yardstick: SDPA over the gathered K/V with the same causal+length mask
     Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     kg = kp[tables.long()].reshape(B, S, Hkv, D).transpose(1, 2).contiguous()
@@ -653,8 +660,15 @@ def check_paged_attention(cfg, dev, gen, B, nP, P, C, ops, ref, F,
     bms, by = bound(nbytes, flops, FP32_FLOP_PER_S if dtype == torch.float32
                     else BF16_FLOP_PER_S)
     GC = Hq // Hkv * C
-    rows, splits = plan(B, Hkv, GC, nP, P, _build.sm_count(dev))
-    blocks = B * Hkv * -(-GC // rows) * splits
+    if dtype == torch.float32:
+        rows, splits = plan(B, Hkv, GC, nP, P, _build.sm_count(dev))
+        pl = {"splits": splits, "row_tile": rows,
+              "blocks": B * Hkv * -(-GC // rows) * splits}
+    else:  # token chunks of ref.TC_CHUNK_TOKENS, 4 warps a block
+        rows, chunks = plan_tc(GC, nP, P)
+        pl = {"chunks": chunks, "chunk_tokens": ref.TC_CHUNK_TOKENS,
+              "row_tile": rows, "threads": TC_THREADS,
+              "blocks": B * Hkv * -(-GC // rows) * chunks}
     call = lambda: ops.paged_attention(q, kp, vp, tables, qs)  # noqa: E731
     sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
         qt, kg, vg, attn_mask=mask, enable_gqa=True)
@@ -667,9 +681,10 @@ def check_paged_attention(cfg, dev, gen, B, nP, P, C, ops, ref, F,
         "library_ms": cuda_ms(sdpa),
         "library_device_ms": graph_ms(sdpa),
         "bound_ms": bms, "bound_by": by,
-        # the wrapper's own plan for this call, read from plan(), not
-        # measured: the log line carries it, the kernels line does not
-        "plan": {"splits": splits, "row_tile": rows, "blocks": blocks},
+        # the wrapper's own plan for this call, read from plan() or
+        # plan_tc(), not measured: the log line carries it, the kernels line
+        # does not
+        "plan": pl,
         "at": f"B={B} C={C} Hq={Hq} Hkv={Hkv} D={D} P={P} nP={nP} "
               f"q_start={q_start} {DTYPE_NAMES[dtype]}",
         **extra,
@@ -682,8 +697,14 @@ def log_attention(name, r) -> None:
     the host's enqueue and the card's work) and on the card alone (50
     calls in one CUDA graph); compare like with like."""
     pl = r.get("plan")
-    grid = (f" | the wrapper's plan: {pl['splits']} splits, {pl['blocks']} "
-            f"blocks of {pl['row_tile']} rows" if pl else "")
+    grid = ""
+    if pl and "chunks" in pl:
+        grid = (f" | the wrapper's plan: {pl['chunks']} chunks of "
+                f"{pl['chunk_tokens']} tokens, {pl['blocks']} blocks of "
+                f"{pl['threads']} threads, row tile {pl['row_tile']}")
+    elif pl:
+        grid = (f" | the wrapper's plan: {pl['splits']} splits, "
+                f"{pl['blocks']} blocks of {pl['row_tile']} rows")
     log(f"[kernel] {name}: max_abs_err {r['max_abs_err']:.3g} | kernel "
         f"{r['ms']:.4f} ms (on the card {r['device_ms']:.4f}) | SDPA "
         f"{r['library_ms']:.4f} ms (on the card "
@@ -3759,6 +3780,9 @@ def one_phase(phase: str, src: Path) -> int:
         record["clip_mask_wire"] = row
         record["stream_kernels"] = rows
     log(json.dumps({"src": str(src), "card": card, phase: record}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
     return 0
 
 
@@ -8011,6 +8035,7 @@ def main() -> int:
                     "route_parts_ms", "launches_tree_vs_per_leaf",
                     "not_bit_equal_share", "max_ulps", "past_one_ulp",
                     "bit_equal_to_fp32_kernel", "lse_max_abs_err",
+                    "model_max_abs_err", "bit_equal_launches",
                     "library_call", "split_floor_ms")
                     if x in r[sub]}
         if "wire" in r:

@@ -22,9 +22,10 @@
 // Shared strides are padded to 16 bytes past a multiple of 128, so the
 // float4 reads of different rows fall in different banks.
 //
-// Element types: q, k and v (and the pages) are fp32 or bf16 in device
-// memory; shared memory and the math are fp32 for both, as the Pallas
-// kernels upcast their tiles and compute in f32. An fp32 row is staged by
+// Element types: q, k and v are fp32 or bf16 in device memory (the pages
+// fp32 only: bf16 paged attention runs on the tensor cores, csrc/
+// mma_tile.cuh); shared memory and the math are fp32 for both, as the
+// Pallas kernels upcast their tiles and compute in f32. An fp32 row is staged by
 // 16-byte cp.async; cp.async copies bytes and cannot convert, so a bf16 row
 // is loaded 16 bytes (8 values) at a time into registers, widened exactly
 // with __bfloat1622float2 and stored as two float4. Shared rows, their

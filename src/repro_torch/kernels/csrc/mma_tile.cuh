@@ -28,6 +28,11 @@
 // hi, then 8 of lo), where one bf16 operand alone keeps 2^-9. Its product
 // with a bf16 operand is two mma into one fp32 accumulator, hi first.
 // Operands that are bf16 already (q, k, v, dout) enter once, exactly.
+// The three-term split (split3) goes on: mid = bf16_rn(x - hi), lo =
+// bf16_rn(x - hi - mid). x - hi holds at most 16 significant bits of x's 24
+// and x - hi - mid at most 8, so lo is exact and hi + mid + lo == x (for
+// |x| >= 2^-110, where lo stays a normal bf16): the operand enters whole,
+// at three mma.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -102,6 +107,20 @@ __device__ __forceinline__ void split2(float x, float y, unsigned& hi, unsigned&
   lo = bf16x2_bits(__floats2bfloat162_rn(x - hf.x, y - hf.y));
 }
 
+// The three-term split of (x, y): hi, mid and lo as packed bf16, hi + mid +
+// lo == x exactly (and y).
+__device__ __forceinline__ void split3(float x, float y, unsigned& hi, unsigned& mid,
+                                       unsigned& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  const float rx = x - hf.x, ry = y - hf.y;  // exact
+  const __nv_bfloat162 m = __floats2bfloat162_rn(rx, ry);
+  const float2 mf = __bfloat1622float2(m);
+  hi = bf16x2_bits(h);
+  mid = bf16x2_bits(m);
+  lo = bf16x2_bits(__floats2bfloat162_rn(rx - mf.x, ry - mf.y));  // exact
+}
+
 // The hi and lo A fragments of k-step j of a 16-row fp32 tile held as C
 // fragments c[n-tile][4]: n-tiles 2j and 2j+1.
 __device__ __forceinline__ void a_from_c(const float (&c0)[4], const float (&c1)[4],
@@ -110,6 +129,16 @@ __device__ __forceinline__ void a_from_c(const float (&c0)[4], const float (&c1)
   split2(c0[2], c0[3], hi[1], lo[1]);
   split2(c1[0], c1[1], hi[2], lo[2]);
   split2(c1[2], c1[3], hi[3], lo[3]);
+}
+
+// The same in three terms (split3).
+__device__ __forceinline__ void a_from_c3(const float (&c0)[4], const float (&c1)[4],
+                                          unsigned (&hi)[4], unsigned (&mid)[4],
+                                          unsigned (&lo)[4]) {
+  split3(c0[0], c0[1], hi[0], mid[0], lo[0]);
+  split3(c0[2], c0[3], hi[1], mid[1], lo[1]);
+  split3(c1[0], c1[1], hi[2], mid[2], lo[2]);
+  split3(c1[2], c1[3], hi[3], mid[3], lo[3]);
 }
 
 // Shared bf16 tile of rows at stride D + TC_PAD.

@@ -36,6 +36,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.dispatch import (DTYPE_VARIANTS, HEAD_DIMS,
                                           check_tensor, dtype_variant,
                                           register, require)
+from repro_torch.kernels.paged_attention.ref import TC_CHUNK_TOKENS
 
 _VARIANTS = tuple(DTYPE_VARIANTS.values())
 PAGED_ATTENTION = register(
@@ -96,11 +97,29 @@ def plan(B: int, Hkv: int, GC: int, nP: int, P: int,
     return rows, -(-nP // -(-nP // splits))  # no empty trailing split
 
 
+# the bf16 kernel's plan (csrc/paged_attention.cu, paged_attention_tc_kernel):
+# blocks of 4 warps, each block a chunk of TC_CHUNK_TOKENS (a warp's two
+# tiles of 16 keys: ref.TC_*); the folded rows transposed onto the tensor
+# cores' 8 columns up to 8 of them, else in tiles of 16
+TC_THREADS = 128
+TC_ROW_TILES = (8, 16)
+
+
+def plan_tc(GC: int, nP: int, P: int) -> tuple[int, int]:
+    """(row tile, token chunks) of one bf16 call, from shapes alone (the
+    slots' lengths stay on the card): 8 (the scores transposed) when the
+    G*C folded rows fit in 8, else 16; and ``ceil(nP * P / 128)`` chunks,
+    chunk c taking tokens ``[128 c, 128 (c + 1))`` of every slot."""
+    rows = TC_ROW_TILES[0] if GC <= TC_ROW_TILES[0] else TC_ROW_TILES[1]
+    return rows, -(-nP * P // TC_CHUNK_TOKENS)
+
+
 def paged_attention_cuda(q, k_pages, v_pages, tables, q_start) -> torch.Tensor:
     """Launch the paged-attention kernels (the split kernel, then the
-    combine unless one split covers the call); q and the pools fp32 or
-    bf16, one type; returns fp32 (B, C, Hq, D). Counts one launch a call,
-    on its dtype's variant."""
+    combine unless one split or chunk covers the call); q and the pools
+    fp32 (``plan``) or bf16 (the tensor-core kernel, ``plan_tc``), one type;
+    returns fp32 (B, C, Hq, D). Counts one launch a call, on its dtype's
+    variant."""
     dev = q.device
     require(dev.type == "cuda", "paged_attention_cuda takes CUDA tensors")
     f32, i32 = torch.float32, torch.int32
@@ -131,7 +150,8 @@ def paged_attention_cuda(q, k_pages, v_pages, tables, q_start) -> torch.Tensor:
     if B == 0 or C == 0:
         return out
     GC = Hq // Hkv * C
-    rows, splits = plan(B, Hkv, GC, nP, P, _build.sm_count(dev))
+    rows, splits = (plan_tc(GC, nP, P) if variant == "bf16" else
+                    plan(B, Hkv, GC, nP, P, _build.sm_count(dev)))
     part = (torch.empty(B * Hkv * splits * GC * (D + 2), dtype=f32, device=dev)
             if splits > 1 else out)
     err = _ATTENTION[variant].launch(

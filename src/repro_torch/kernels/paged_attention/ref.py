@@ -108,6 +108,124 @@ def paged_attention_split_ref(q, k_pages, v_pages, tables, q_start,
         B, C, Hq, D)
 
 
+# ---------------------------------------------------------------------------
+# a model of the bf16 tensor-core kernel's arithmetic (tests only)
+
+TC_TILE_KEYS = 16      # keys a tile (paged_attention.cu PTC_KEYS)
+TC_WARP_TOKENS = 32    # tokens a warp walks: 2 tiles (PTC_TILES)
+TC_CHUNK_TOKENS = 128  # tokens a block: 4 warps (PTC_CHUNK)
+
+
+def paged_walk_end(qs: int, page0: int, C: int, N: int, S: int) -> int:
+    """The end of a slot's walk (tokens ``[0, end)`` of its ``S``): when
+    ``q_start >= 0`` and page 0 is named, every row sees position 0, so the
+    keys past the last row's limit ``q_start + C - 1`` add exactly 0 and
+    are not walked; otherwise every position is."""
+    return min(S, qs + C) if qs >= 0 and 0 <= page0 < N else S
+
+
+def split3_bf16(x: torch.Tensor) -> tuple:
+    """The three-term split of an fp32 ``x`` (``csrc/mma_tile.cuh``
+    ``split3``): ``hi = bf16_rn(x)``, ``mid = bf16_rn(x - hi)``, ``lo =
+    bf16_rn(x - hi - mid)``, as fp32 values; each residual is exact and
+    ``hi + mid + lo == x``."""
+    hi = x.to(torch.bfloat16).float()
+    r = x - hi
+    mid = r.to(torch.bfloat16).float()
+    return hi, mid, (r - mid).to(torch.bfloat16).float()
+
+
+def _merge(parts, D, f32):
+    """(m, l, acc) partials merged in the order given: the largest m, then
+    each weighed by ``exp(m - max)`` and summed."""
+    mx = torch.stack([m for m, _, _ in parts]).amax(0)
+    lt = torch.zeros_like(mx)
+    at = torch.zeros(*mx.shape, D, **f32)
+    for m, l, acc in parts:
+        w = torch.exp(m - mx)
+        lt = lt + l * w
+        at = at + acc * w[..., None]
+    return mx, lt, at
+
+
+def paged_attention_split_model(q, k_pages, v_pages, tables, q_start
+                                ) -> torch.Tensor:
+    """The bf16 kernel's arithmetic (``paged_attention_tc_kernel``) in plain
+    torch, for the tests. Each slot walks its tokens ``[0, end)``
+    (:func:`paged_walk_end`) in chunks of ``TC_CHUNK_TOKENS``: a chunk
+    wholly past ``end`` is an empty partial (NEG_INF, 0, 0); otherwise each
+    of its warps walks ``TC_WARP_TOKENS`` in tiles of ``TC_TILE_KEYS``, an
+    online softmax from (NEG_INF, 0, 0) in which q, k and v enter as their
+    bf16 values (exact products, fp32 sums) and each tile's p enters
+    ``P V`` in three bf16 terms (:func:`split3_bf16`), ``acc = alpha acc +
+    p_hi V + p_mid V + p_lo V``. A key past ``end``
+    or on an unnamed page (an id outside ``[0, N)``, never read) scores
+    -inf, a masked one NEG_INF. The block merges its warps in order, the
+    combine the chunks in ascending order; ``acc / max(l, 1e-30)`` (one
+    chunk: the block's own). Natural ``exp`` stands for the kernel's
+    base-2 SFU exponentials. Same arguments and result as
+    :func:`paged_attention_ref`."""
+    B, C, Hq, D = q.shape
+    N, P, Hkv, _ = k_pages.shape
+    nP = tables.shape[1]
+    G, S = Hq // Hkv, nP * P
+    GC = G * C
+    scale = 1.0 / D ** 0.5
+    chunks = -(-S // TC_CHUNK_TOKENS)
+    T = chunks * TC_CHUNK_TOKENS
+    f32 = dict(dtype=torch.float32, device=q.device)
+    qf = q.float().reshape(B, C, Hkv, G, D).permute(0, 2, 3, 1, 4).reshape(
+        B, Hkv, GC, D)
+    crow = torch.arange(GC, device=q.device) % C
+    pos = torch.arange(T, device=q.device)
+    ids = tables.tolist()
+    empty = (torch.full((Hkv, GC), NEG_INF, **f32), torch.zeros(Hkv, GC, **f32),
+             torch.zeros(Hkv, GC, D, **f32))
+    out = torch.empty(B, Hkv, GC, D, **f32)
+    for b in range(B):
+        qs = int(q_start[b])
+        end = paged_walk_end(qs, ids[b][0], C, N, S)
+        # the slot's keys in walk order, zero where not there
+        page = torch.tensor(ids[b] + [-1], device=q.device)[
+            torch.clamp(pos // P, max=nP)]
+        there = (pos < end) & (page >= 0) & (page < N)
+        k = torch.zeros(T, Hkv, D, **f32)
+        v = torch.zeros(T, Hkv, D, **f32)
+        k[there] = k_pages[page[there], pos[there] % P].float()
+        v[there] = v_pages[page[there], pos[there] % P].float()
+        lim = qs + crow
+        parts = []
+        for c0 in range(0, T, TC_CHUNK_TOKENS):
+            if c0 >= end:
+                parts.append(empty)
+                continue
+            warps = []
+            for w0 in range(c0, c0 + TC_CHUNK_TOKENS, TC_WARP_TOKENS):
+                m, l, acc = (t.clone() for t in empty)
+                for k0 in range(w0, min(w0 + TC_WARP_TOKENS, end),
+                                TC_TILE_KEYS):
+                    ks = slice(k0, k0 + TC_TILE_KEYS)
+                    sc = torch.einsum("hrd,khd->hrk", qf[b], k[ks]) * scale
+                    sc = torch.where(pos[None, ks] <= lim[:, None], sc,
+                                     torch.full_like(sc, NEG_INF))
+                    sc = torch.where(there[ks], sc,
+                                     torch.full_like(sc, float("-inf")))
+                    m_new = torch.maximum(m, sc.amax(-1))
+                    alpha = torch.exp(m - m_new)
+                    p = torch.exp(sc - m_new[..., None])
+                    l = alpha * l + p.sum(-1)
+                    acc = alpha[..., None] * acc
+                    for t in split3_bf16(p):  # hi first
+                        acc = acc + torch.einsum("hrk,khd->hrd", t, v[ks])
+                    m = m_new
+                warps.append((m, l, acc))
+            parts.append(_merge(warps, D, f32))
+        _, lt, at = _merge(parts, D, f32) if chunks > 1 else parts[0]
+        out[b] = at / lt.clamp_min(1e-30)[..., None]
+    return out.reshape(B, Hkv, G, C, D).permute(0, 3, 1, 2, 4).reshape(
+        B, C, Hq, D)
+
+
 def paged_reset_ref(k_pages, v_pages, row) -> None:
     """Zero the pages named in ``row`` across every layer of the stacked
     (L, N, P, H, D) pools, in place. Repeated ids are fine."""

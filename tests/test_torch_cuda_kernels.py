@@ -41,9 +41,10 @@ counters past 2**32, ``corrected_noise`` one launch a leaf tensor and within NOI
 CPU, whose ``log1p`` is libm's), and bf16 serving (flash attention's bf16
 instantiation within one bf16 ulp of its plain version and bit-equal to
 the fp32 kernel on the widened inputs, paged attention on bf16 q and pools
-likewise, the page pools' zeroing on bf16 pools bit for bit, dtype mixes
-refused, the smoke config served in bf16 in every mode on the bf16
-instantiations only, card against CPU).
+on the tensor cores within the fp32 tolerance of its plain version and of
+its split model, bit-equal across launches, the page pools' zeroing on
+bf16 pools bit for bit, dtype mixes refused, the smoke config served in
+bf16 in every mode on the bf16 instantiations only, card against CPU).
 """
 import copy
 import dataclasses
@@ -1645,28 +1646,65 @@ def test_flash_bf16_kernel_within_one_ulp_of_plain(cuda, B, S, Hq, Hkv, D,
     (4, 4, 16, 2, 128, 160, 16, 32, [0, 170, 508, -1]),
     (4, 16, 16, 2, 128, 160, 16, 32, [0, 170, 496, -1]),
     (4, 1, 32, 32, 80, 160, 16, 32, [0, 170, 511, -1]),   # Hkv 32
+    (4, 4, 32, 32, 80, 160, 16, 32, [0, 170, 508, -1]),
     (4, 16, 32, 32, 96, 160, 16, 32, [0, 170, 496, -1]),
+    (4, 1, 64, 4, 128, 160, 16, 32, [0, 170, 511, -1]),   # G 16 (qwen3-moe)
+    (4, 16, 64, 4, 128, 160, 16, 32, [0, 170, 496, -1]),  # 256 rows
     (3, 4, 4, 2, 16, 12, 8, 3, [-1, 3, 8]),               # smoke head dim
     (3, 4, 8, 4, 64, 40, 4, 13, [0, 17, 48]),
 ])
 def test_paged_attention_bf16_kernel_matches_plain(cuda, B, C, Hq, Hkv, D, N,
                                                    P, nP, q_start):
-    """bf16 q and pools, fp32 out: within the fp32 tolerance of the plain
-    version, and bit-equal to the fp32 kernel on the widened inputs."""
+    """bf16 q and pools, fp32 out, on the tensor cores: within the fp32
+    tolerance of the plain version and of ``paged_attention_split_model``
+    (the kernel's chunks, warp merges and three-term P), two launches bit for
+    bit, one launch a call on the bf16 variant. (The design on the CUDA
+    cores this replaces was bit-equal to the fp32 kernel on the widened
+    inputs; the tensor cores sum in another order.)"""
     args = _paged(cuda, B, C, Hq, Hkv, D, N, P, nP, q_start)
     args = [a.to(torch.bfloat16) for a in args[:3]] + list(args[3:])
     kern = dispatch.KERNELS["paged_attention"]
     dispatch.reset_launches()
     got = paged_ops.paged_attention(*args)
     assert kern.variants == {"f32": 0, "bf16": 1}
-    wide = paged_ops.paged_attention(*[a.float() for a in args[:3]],
-                                     *args[3:])
+    again = paged_ops.paged_attention(*args)
+    assert kern.variants == {"f32": 0, "bf16": 2}
     want = paged_ref.paged_attention_ref(*args)
+    model = paged_ref.paged_attention_split_model(*args)
     torch.cuda.synchronize()
     assert got.dtype == want.dtype == torch.float32
-    assert torch.equal(got, wide)
+    assert torch.equal(got, again)
     torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+    torch.testing.assert_close(got, model, atol=ATOL, rtol=RTOL)
     dispatch.reset_launches()
+
+
+def test_paged_attention_bf16_entry_refuses_another_plan(cuda):
+    """The bf16 entry takes only the plan ``plan_tc`` makes (the row tile
+    its G*C calls for, ceil(nP * P / 128) chunks) and a head dim it was
+    built for; anything else returns an error and launches nothing."""
+    from repro_torch.kernels.paged_attention.paged_attention import (
+        _ATTENTION, plan_tc)
+    q, kp, vp, tables, qs = (a.to(torch.bfloat16) if a.is_floating_point()
+                             else a for a in _paged(cuda, 2, 1, 32, 32, 80,
+                                                    64, 16, 32, [0, 300]))
+    dev = q.device  # with its index, as the wrapper passes it
+    out = torch.full(q.shape, float("nan"), device=dev)
+    rows, chunks = plan_tc(1, 32, 16)
+    part = torch.empty(2 * 32 * chunks * (80 + 2), device=dev)
+    base = (q.data_ptr(), kp.data_ptr(), vp.data_ptr(), tables.data_ptr(),
+            qs.data_ptr(), out.data_ptr(), part.data_ptr(), 2, 1, 32, 32, 64,
+            16)
+    for D, r, c in ((80, 16, chunks), (80, rows, chunks + 1),
+                    (80, rows, chunks - 1), (112, rows, chunks)):
+        assert _ATTENTION["bf16"].launch(dev, *base, D, 32, r, c,
+                                         80 ** -0.5) != 0
+    torch.cuda.synchronize()
+    assert torch.isnan(out).all()
+    assert _ATTENTION["bf16"].launch(dev, *base, 80, 32, rows, chunks,
+                                     80 ** -0.5) == 0
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
 
 
 @pytest.mark.parametrize("slab", ["page", "token"])
