@@ -6373,14 +6373,26 @@ FLASH_TRAIN_SHAPES = (
 FLASH_TRAIN_SUBROWS = ("lse4096", "lse4096_bf16", "lse_hubert",
                        "lse_hubert_bf16", "lse_s1000", "lse_s1000_bf16",
                        "hubert", "hubert_bf16", "s1000", "s1000_bf16")
-# the training pair's kernels in the SASS (mangled names): the bf16 ones run
-# on the tensor cores (HMMA), the fp32 ones on the CUDA cores (no HMMA)
+# the training pair's kernels in the SASS (mangled names): bf16's and
+# fp32's run on the tensor cores (HMMA); the fp32 serving forward on the
+# CUDA cores (no HMMA)
 FLASH_TC_SASS = (r"flash_fwd_lse_tc_kernel", r"flash_bwd_dkdv_tc_kernel",
-                 r"flash_bwd_dq_tc_kernel")
-FLASH_FP32_SASS = (r"flash_attention_fwd_kernelIfLi\d+ELi\d+ELb1E",
-                   r"flash_bwd_dkdv_kernelILi", r"flash_bwd_dq_kernelILi")
+                 r"flash_bwd_dq_tc_kernel", r"flash_fwd_lse_x3_kernel",
+                 r"flash_bwd_dkdv_x3_kernel", r"flash_bwd_dq_x3_kernel")
+FLASH_CUDA_CORE_SASS = (r"flash_attention_fwd_kernelIfLi\d+ELi\d+EE",)
 # phase 26's card-vs-CPU gradient gate, tests/test_torch_flash_training.py's
 FLASH_GRAD_REL = 5e-5
+
+
+def busy_ms(fn, n: int = 3) -> float:
+    """Device time of one ``fn()`` without the host's share, for what a
+    CUDA graph cannot capture (an ``autograd.grad`` over a saved graph):
+    the card's busy time under ``torch.profiler`` over ``n`` calls after a
+    warm-up (``launch/profile_serve._window``)."""
+    from repro_torch.launch.profile_serve import _window
+
+    fn()
+    return _window(lambda: [fn() for _ in range(n)], 0)["device_busy_ms"] / n
 
 
 def flash_train_close(got, want, dtype, atol=KERNEL_ATOL) -> float:
@@ -6402,10 +6414,12 @@ def check_flash_train(dev, gen, B, S, Hq, Hkv, D, causal, dtype, F) -> tuple:
     runs it), two launches of each bit-equal; each timed as a call and on
     the card (a CUDA graph of 5 calls: a call is milliseconds here) beside
     its plain version and SDPA's forward, or SDPA's backward (one autograd
-    call over a saved graph, as a call only), and its bound: bytes (each
-    input once, each output once) against 2 flops a product term, two
-    S x S x D products forward and five backward over the visible pairs,
-    at fp32's rate or bf16's tensor-core rate. Returns (lse row, bwd
+    call over a saved graph, as a call and on the card:
+    :func:`busy_ms`), and its bound: bytes (each input once, each
+    output once) against 2 flops a product term, two S x S x D products
+    forward and five backward over the visible pairs, at fp32's rate or
+    bf16's tensor-core rate. Beside it the split's floor: the products the
+    tensor-core design does, at bf16's rate. Returns (lse row, bwd
     row)."""
     from repro_torch.kernels.flash_attention import ref
     from repro_torch.kernels.flash_attention.flash_attention import (
@@ -6451,12 +6465,13 @@ def check_flash_train(dev, gen, B, S, Hq, Hkv, D, causal, dtype, F) -> tuple:
           f"{'causal' if causal else 'non-causal'} {DTYPE_NAMES[dtype]}")
     b_f, by_f = bound((2 * n_q + 2 * n_kv) * es + B * Hq * S * 4,
                       4 * D * Hq * B * pairs, rate)
-    # bf16 on the tensor cores: P and dS enter as two bf16 terms, so the
-    # work the design does is 3 S x S x D products forward (2 bound it)
-    # and 10 backward (5), at the same rate: the split's floor
-    split = dtype == torch.bfloat16
-    floor_f = 6 * D * Hq * B * pairs / rate * 1e3 if split else None
-    floor_b = 20 * D * Hq * B * pairs / rate * 1e3 if split else None
+    # the split's floor, in units of an S x S x D product at bf16's rate:
+    # bf16 enters P and dS as two bf16 terms, so 3 units forward (2 bound
+    # it) and 10 backward (5); fp32 enters every operand as three terms, a
+    # product as six mma, so 12 forward and 42 backward (7 products)
+    unit = 2 * D * Hq * B * pairs / BF16_FLOP_PER_S * 1e3
+    floor_f, floor_b = ((3, 10) if dtype == torch.bfloat16 else (12, 42))
+    floor_f, floor_b = floor_f * unit, floor_b * unit
     lse_row = {
         "max_abs_err": err_out, "lse_max_abs_err": err_lse,
         "ms": cuda_ms(fwd, reps=5, warmup=1),
@@ -6477,8 +6492,10 @@ def check_flash_train(dev, gen, B, S, Hq, Hkv, D, causal, dtype, F) -> tuple:
         "plain_ms": cuda_ms(lambda: ref.flash_backward_ref(
             q, k, v, out, lse, do, causal), reps=3, warmup=1),
         "library_ms": cuda_ms(lib_bwd, reps=5, warmup=1),
+        "library_device_ms": busy_ms(lib_bwd),
         "library_call": "the backward of scaled_dot_product_attention "
-                        "(one autograd.grad over its saved graph; a call)",
+                        "(one autograd.grad over its saved graph; on the "
+                        "card: its kernels under torch.profiler)",
         "bound_ms": b_b, "bound_by": by_b, "split_floor_ms": floor_b,
         "at": at}
     del q, k, v, do, out, lse, grads, o, qt, kt, vt, dot
@@ -6488,14 +6505,15 @@ def check_flash_train(dev, gen, B, S, Hq, Hkv, D, causal, dtype, F) -> tuple:
 
 def flash_hmma(sass: str) -> dict:
     """HMMA instructions in each of the training pair's kernels (every
-    instantiation, by mangled name): at least one in each bf16 kernel, none
-    in the fp32 ones. Returns ``{pattern: [count an instantiation]}``."""
+    instantiation, by mangled name): at least one in each, bf16 and fp32;
+    none in the fp32 serving forward. Returns ``{pattern: [count an
+    instantiation]}``."""
     counts: dict = {}
     name = None
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            name = next((p for p in FLASH_TC_SASS + FLASH_FP32_SASS
+            name = next((p for p in FLASH_TC_SASS + FLASH_CUDA_CORE_SASS
                          if re.search(p, fn)), None)
             if name:
                 counts.setdefault(name, []).append(0)
@@ -6504,17 +6522,17 @@ def flash_hmma(sass: str) -> dict:
     for p in FLASH_TC_SASS:
         check(bool(counts.get(p)) and min(counts[p]) > 0,
               f"{p}: an instantiation without HMMA ({counts.get(p)})")
-    for p in FLASH_FP32_SASS:
+    for p in FLASH_CUDA_CORE_SASS:
         check(bool(counts.get(p)) and max(counts[p]) == 0,
-              f"{p}: HMMA in an fp32 kernel ({counts.get(p)})")
+              f"{p}: HMMA in the fp32 serving forward ({counts.get(p)})")
     return counts
 
 
 def flash_train_rows(dev, F) -> dict:
     """Phase 3's training rows: the lse forward (sub-rows of row 1) and
     the backward (row 19) at FLASH_TRAIN_SHAPES, after the SASS check that
-    the bf16 pair runs on the tensor cores and the fp32 pair does not
-    (:func:`flash_hmma`). Returns ``{kernel: {sub-row: row}}``, the
+    both pairs run on the tensor cores and the fp32 serving forward does
+    not (:func:`flash_hmma`). Returns ``{kernel: {sub-row: row}}``, the
     backward's main row under ``""``."""
     hmma = flash_hmma(library_sass())
     log(f"[kernel] flash training pair, HMMA an instantiation: "
@@ -6534,10 +6552,10 @@ def flash_train_rows(dev, F) -> dict:
             log(f"[kernel] {kernel} {sub}: max_abs_err "
                 f"{r['max_abs_err']:.3g} | kernel {r['ms']:.4f} ms (on the "
                 f"card {r['device_ms']:.4f}) | library {r['library_ms']:.4f}"
-                f" ms ({r['library_call']}) | plain {r['plain_ms']:.4f} ms | "
-                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
-                + (f", the split's floor {r['split_floor_ms']:.4f} ms"
-                   if r["split_floor_ms"] else "") + f" | {r['at']}")
+                f" ms (on the card {r['library_device_ms']:.4f}; "
+                f"{r['library_call']}) | plain {r['plain_ms']:.4f} ms | "
+                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), the "
+                f"split's floor {r['split_floor_ms']:.4f} ms | {r['at']}")
     rows["hmma"] = hmma
     return rows
 
@@ -8017,7 +8035,7 @@ def main() -> int:
                       "route_parts_ms", "launches_tree_vs_per_leaf",
                       "launches_by_instantiation", "launches_by_variant",
                       "plain_calls_on_card", "max_abs_err_dq_dk_dv",
-                      "two_launches_bit_equal"):
+                      "two_launches_bit_equal", "split_floor_ms"):
             if extra in r:
                 entry[extra] = r[extra]
         for sub in ("verify4", "chunk16", "d112", "s512", "wire", "d80",

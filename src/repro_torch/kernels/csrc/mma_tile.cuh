@@ -33,6 +33,15 @@
 // and x - hi - mid at most 8, so lo is exact and hi + mid + lo == x (for
 // |x| >= 2^-110, where lo stays a normal bf16): the operand enters whole,
 // at three mma.
+//
+// fp32 operands on both sides (the fp32 training pair): each enters as its
+// three terms, and a product keeps the six term products above 2^-24 of
+// it (mid mid, lo hi, hi lo, mid hi, hi mid, hi hi, smallest first: mma_x5
+// and mma_x6_add; mid lo, lo mid and lo lo are dropped). An fp32 tile that every
+// warp reads is staged by cp.async and split once a block into three bf16
+// planes (X3Rows), which ldmatrix reads as it reads a bf16 tile; an
+// operand that one warp keeps is split once, from device memory, into its
+// fragments (a_frag_x3).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -177,5 +186,105 @@ struct TcRows {
   __device__ static void b_frag(unsigned (&b)[4], const __nv_bfloat16* s, int k0, int d0) {
     const int l = threadIdx.x & 31;
     ldsm_x4_t(b, s + (k0 + (l & 15)) * ST + d0 + 8 * (l >> 4));
+  }
+};
+
+// The five smaller of the six products of split3 operands (all but hi hi),
+// smallest first, into the accumulators of two n-tiles: a[t] is term t of
+// the A fragment (0 hi, 1 mid, 2 lo), b[t] term t's B fragments of the two
+// n-tiles (b[t][0..1] and b[t][2..3], as bt_frag and b_frag give them). The
+// two n-tiles alternate, so neighbouring mma are independent.
+__device__ __forceinline__ void mma_x5(float (&c0)[4], float (&c1)[4], const unsigned (&a)[3][4],
+                                       const unsigned (&b)[3][4]) {
+#define REPRO_MMA_X(i, j)                  \
+  mma_bf16(c0, a[i], b[j][0], b[j][1]); \
+  mma_bf16(c1, a[i], b[j][2], b[j][3]);
+  REPRO_MMA_X(1, 1)
+  REPRO_MMA_X(2, 0)
+  REPRO_MMA_X(0, 2)
+  REPRO_MMA_X(1, 0)
+  REPRO_MMA_X(0, 1)
+#undef REPRO_MMA_X
+}
+
+// c += a b for operands given whole as split3 terms, in a sum that runs
+// over many k-steps (P V, dV, dK, dQ): the six products from zero in the
+// tensor cores, hi hi last, then one fp32 add each into c. The tensor
+// cores' fp32 accumulation does not round to nearest: a sum of 1536 mma
+// steps kept in them (a dv of S 4096) drifted by 1.1-1.7e-4 on an H100,
+// all one way, where the add rounds each step to nearest.
+__device__ __forceinline__ void mma_x6_add(float (&c0)[4], float (&c1)[4],
+                                           const unsigned (&a)[3][4],
+                                           const unsigned (&b)[3][4]) {
+  float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_x5(t0, t1, a, b);
+  mma_bf16(t0, a[0], b[0][0], b[0][1]);
+  mma_bf16(t1, a[0], b[0][2], b[0][3]);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    c0[e] += t0[e];
+    c1[e] += t1[e];
+  }
+}
+
+__device__ __forceinline__ void unpack4(unsigned (&a)[4], uint4 x) {
+  a[0] = x.x, a[1] = x.y, a[2] = x.z, a[3] = x.w;
+}
+
+__device__ __forceinline__ uint4 pack4(const unsigned (&a)[4]) {
+  return make_uint4(a[0], a[1], a[2], a[3]);
+}
+
+// The A fragments of rows 0..15 of an fp32 tile in device memory (row r at
+// g + r * gs; rows r >= n read as 0), k-step kk, as split3's three terms:
+// a[0] hi, a[1] mid, a[2] lo.
+__device__ __forceinline__ void a_frag_x3(unsigned (&a)[3][4], const float* g, long long gs,
+                                          int n, int kk) {
+  const int l = threadIdx.x & 31, r = l >> 2, c = 16 * kk + 2 * (l & 3);
+  float2 x[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int rr = r + 8 * (i & 1), cc = c + 8 * (i >> 1);
+    x[i] = rr < n ? __ldg(reinterpret_cast<const float2*>(g + rr * gs + cc)) : make_float2(0.f, 0.f);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split3(x[i].x, x[i].y, a[0][i], a[1][i], a[2][i]);
+}
+
+// NMAX rows of D fp32 values (the fp32 training pair's walked tiles): staged
+// by cp.async at a stride of D floats, then split once a block into three
+// bf16 planes, hi, mid and lo, NMAX rows each at TcRows' stride, one after
+// the other, for ldmatrix.
+template <int D>
+struct X3Rows {
+  static constexpr int ST = TcRows<D>::ST;
+  static constexpr int CH = D / 4;  // 16-byte chunks an fp32 row
+
+  // Start the copies of n <= NMAX rows into dst: row r from g + r * gs; rows
+  // n..NMAX-1 are zero-filled.
+  template <int NMAX, int THREADS>
+  __device__ static void load(float* dst, const float* g, long long gs, int n) {
+    for (int i = threadIdx.x; i < NMAX * CH; i += THREADS) {
+      const int r = i / CH, c = 4 * (i % CH);
+      const bool ok = r < n;
+      cp_async16_zfill(dst + r * D + c, ok ? g + r * gs + c : g, ok);
+    }
+  }
+
+  // The staged rows src into the planes at dst, dst + NMAX ST, dst + 2 NMAX
+  // ST. Call with the copies landed and visible to every thread.
+  template <int NMAX, int THREADS>
+  __device__ static void split(__nv_bfloat16* dst, const float* src) {
+    for (int i = threadIdx.x; i < NMAX * CH; i += THREADS) {
+      const int r = i / CH, c = 4 * (i % CH);
+      const float4 x = *reinterpret_cast<const float4*>(src + r * D + c);
+      uint2 h, m, l;
+      split3(x.x, x.y, h.x, m.x, l.x);
+      split3(x.z, x.w, h.y, m.y, l.y);
+      __nv_bfloat16* d = dst + r * ST + c;
+      *reinterpret_cast<uint2*>(d) = h;
+      *reinterpret_cast<uint2*>(d + NMAX * ST) = m;
+      *reinterpret_cast<uint2*>(d + 2 * NMAX * ST) = l;
+    }
   }
 };

@@ -35,16 +35,14 @@
 // kernel's, and each output is rounded once from f32, to nearest even
 // (__floats2bfloat162_rn). Half the bytes of q, k, v and out: the bound at
 // S 32 halves (0.0004 ms at d_head 128).
-// The training forward (flash_attention_fwd_lse_{f32,bf16}, the template's
-// LSE flag): the same kernel also writes each row's log-sum-exp, lse (B, Hq,
-// Sq) fp32 = m + log(max(l, 1e-30)), as _fwd ends (src/repro/kernels/
-// flash_attention/blocked.py:89), for the backward kernel
-// (flash_attention_bwd.cu). At qwen2.5-3b's training shape (B 1, S 4096,
-// 16 heads, causal) it is 4 S^2 D / 2 flops a head, 6.9e10: 1.0 ms at the
-// fp32 rate, against 0.05 ms of bytes, so bound by operations. The serving
-// entries instantiate LSE false: their code is unchanged. The fp32 training
-// forward is the template's LSE instantiation; the bf16 one is the
-// tensor-core kernel below.
+// The training forward (flash_attention_fwd_lse_{f32,bf16}): the same
+// function, and each row's log-sum-exp, lse (B, Hq, Sq) fp32 = m + log(max(l,
+// 1e-30)), as _fwd ends (src/repro/kernels/flash_attention/blocked.py:89),
+// for the backward kernel (flash_attention_bwd.cu). At qwen2.5-3b's training
+// shape (B 1, S 4096, 16 heads, causal) it is 4 S^2 D / 2 flops a head,
+// 6.9e10: 1.0 ms at the fp32 rate, against 0.05 ms of bytes, so bound by
+// operations. Both dtypes run on the tensor cores (below); the serving
+// kernel above is not a training kernel.
 //
 // The bf16 training forward (flash_attention_fwd_lse_bf16) on the tensor
 // cores (flash_fwd_lse_tc_kernel, on csrc/mma_tile.cuh): the same function,
@@ -73,6 +71,27 @@
 // scores 32), with 24-56 bytes of stack at D 96-128 (1.09x faster at the
 // silo shape than two blocks at 189 registers, H100 80GB HBM3, 700 W:
 // tools/time_flash_pair.py).
+//
+// The fp32 training forward (flash_attention_fwd_lse_f32) on the tensor
+// cores too (flash_fwd_lse_x3_kernel): every fp32 operand enters as three
+// bf16 terms (csrc/mma_tile.cuh's split3, hi + mid + lo == x), and a
+// product as the six term products above 2^-24 of it, smallest first
+// (mma_x5, mma_x6_add): 6 mma where bf16 takes 1, so 12 S x S x D units of work at
+// bf16's rate, a floor of 0.42 ms at the silo shape (under the 1.03 ms fp32
+// bound). A block of 8 warps takes 128 query rows, heaviest first. q is
+// split once, as the warp's A fragments: hi stays in registers, mid and lo
+// in the warp's own shared slots (three terms in registers would be 96 a
+// thread at D 128). K and V come in tiles of 16 keys: staged in fp32 by
+// cp.async while the previous tile computes, then split once a block into
+// three bf16 planes each (row stride D + 8), which ldmatrix reads as in the
+// bf16 kernel. S keeps its five smaller terms and hi hi in separate
+// accumulators (hi hi added last); P leaves the accumulators as three terms
+// (a_from_c3), and each tile's P V is summed from zero and added to O
+// outside the tensor cores (mma_x6_add). 255 registers at D 128 allow one
+// block of 8 warps an SM; shared memory: 64 KB of q's terms, 26 KB of
+// planes, 16 KB of staging. (Two blocks of 4 warps and 64 rows, as the
+// bf16 kernel, were 3.5-7% slower: the split and its barriers are shared
+// by twice the rows here; tools/time_flash_pair.py, H100 80GB HBM3, 700 W.)
 #include "attn_tile.cuh"
 #include "mma_tile.cuh"
 
@@ -81,12 +100,11 @@ namespace {
 template <int D, int ROWS>
 using FlashTile = AttnTile<D, ROWS, 1>;
 
-template <class T, int D, int ROWS, bool LSE>
+template <class T, int D, int ROWS>
 __global__ void __launch_bounds__(ATTN_THREADS)
 flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ out,
-                           float* __restrict__ lse, int Sq, int Sk, int Hq, int Hkv, int causal,
-                           float sm_scale) {
+                           const T* __restrict__ v, T* __restrict__ out, int Sq, int Sk, int Hq,
+                           int Hkv, int causal, float sm_scale) {
   extern __shared__ float4 attn_smem[];
   FlashTile<D, ROWS> tile(reinterpret_cast<float*>(attn_smem));
   const int q0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
@@ -112,10 +130,6 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         return !causal || q0 + r >= t * ATTN_COLS + c ? dot * sm_scale : REPRO_NEG_INF;
       });
 
-  if (LSE)
-    tile.each_ml([&](int r, float m, float l) {
-      if (r < rows) lse[((size_t)b * Hq + h) * Sq + q0 + r] = m + logf(fmaxf(l, 1e-30f));
-    });
   tile.each_acc([&](int r, int d, float4 a, float l) {
     if (r >= rows) return;
     T* o = out + (((size_t)b * Sq + q0 + r) * Hq + h) * D + d;
@@ -124,39 +138,33 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   });
 }
 
-template <class T, int D, int ROWS, bool LSE>
-cudaError_t launch_flash(const T* q, const T* k, const T* v, T* out, float* lse, int B, int Sq,
-                         int Sk, int Hq, int Hkv, int causal, float sm_scale,
-                         cudaStream_t stream) {
+template <class T, int D, int ROWS>
+cudaError_t launch_flash(const T* q, const T* k, const T* v, T* out, int B, int Sq, int Sk,
+                         int Hq, int Hkv, int causal, float sm_scale, cudaStream_t stream) {
   static unsigned long long smem_set = 0;
-  auto kern = flash_attention_fwd_kernel<T, D, ROWS, LSE>;
+  auto kern = flash_attention_fwd_kernel<T, D, ROWS>;
   const size_t smem = FlashTile<D, ROWS>::BYTES;
   cudaError_t e = set_smem_once(kern, smem, smem_set);
   if (e != cudaSuccess) return e;
   dim3 grid((Sq + ROWS - 1) / ROWS, Hq, B);
-  kern<<<grid, ATTN_THREADS, smem, stream>>>(q, k, v, out, lse, Sq, Sk, Hq, Hkv, causal,
-                                              sm_scale);
+  kern<<<grid, ATTN_THREADS, smem, stream>>>(q, k, v, out, Sq, Sk, Hq, Hkv, causal, sm_scale);
   return cudaGetLastError();
 }
 
-template <class T, int D, bool LSE>
-cudaError_t launch_flash_rows(const T* q, const T* k, const T* v, T* out, float* lse, int B,
-                              int Sq, int Sk, int Hq, int Hkv, int causal, float sm_scale,
-                              cudaStream_t stream) {
+template <class T, int D>
+cudaError_t launch_flash_rows(const T* q, const T* k, const T* v, T* out, int B, int Sq, int Sk,
+                              int Hq, int Hkv, int causal, float sm_scale, cudaStream_t stream) {
   if (Sq <= 32)
-    return launch_flash<T, D, 32, LSE>(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv, causal, sm_scale,
-                                       stream);
-  return launch_flash<T, D, 64, LSE>(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv, causal, sm_scale,
-                                     stream);
+    return launch_flash<T, D, 32>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, sm_scale, stream);
+  return launch_flash<T, D, 64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, sm_scale, stream);
 }
 
-template <class T, bool LSE>
-int flash_fwd(const T* q, const T* k, const T* v, T* out, float* lse, int B, int Sq, int Sk,
-              int Hq, int Hkv, int D, int causal, float sm_scale, cudaStream_t stream) {
-#define REPRO_FLASH_CASE(DD)                                                                    \
-  case DD:                                                                                      \
-    return launch_flash_rows<T, DD, LSE>(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv, causal, sm_scale, \
-                                         stream);
+template <class T>
+int flash_fwd(const T* q, const T* k, const T* v, T* out, int B, int Sq, int Sk, int Hq, int Hkv,
+              int D, int causal, float sm_scale, cudaStream_t stream) {
+#define REPRO_FLASH_CASE(DD) \
+  case DD:                   \
+    return launch_flash_rows<T, DD>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, sm_scale, stream);
   switch (D) {
     REPRO_FLASH_CASE(16)
     REPRO_FLASH_CASE(32)
@@ -366,6 +374,221 @@ int flash_fwd_lse_tc(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_
 #undef REPRO_FLASH_TC_CASE
 }
 
+// ---------------------------------------------------------- fp32 training
+
+constexpr int X3_KEYS = 16;         // the fp32 lse forward's key tile
+constexpr int X3_WARPS = 8;         // 16 query rows each
+constexpr int X3_THREADS = 32 * X3_WARPS;
+constexpr int X3_ROWS = 16 * X3_WARPS;
+constexpr int X3_BLOCKS = 1;        // an SM, for the launch bounds
+
+template <int D>
+constexpr size_t x3_fwd_smem() {
+  // q's mid and lo fragments, k's and v's planes, their fp32 staging
+  return sizeof(uint4) * X3_WARPS * 2 * (D / 16) * 32 +
+         sizeof(__nv_bfloat16) * 6 * X3_KEYS * TcRows<D>::ST + sizeof(float) * 2 * X3_KEYS * D;
+}
+
+template <int D>
+__global__ void __launch_bounds__(X3_THREADS, X3_BLOCKS)
+flash_fwd_lse_x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, float* __restrict__ out,
+                        float* __restrict__ lse, int Sq, int Sk, int Hq, int Hkv, int causal,
+                        float scale) {
+  using R = TcRows<D>;
+  using X = X3Rows<D>;
+  constexpr int ST = R::ST, DT = D / 8, KD = D / 16, PL = X3_KEYS * ST;
+  extern __shared__ uint4 tc_smem[];
+  // a warp's own q fragments, mid then lo: [warp][term][kk][lane]
+  uint4* qf_s = tc_smem;
+  // k's planes hi, mid, lo, then v's (X3_KEYS rows each), then k and v in
+  // fp32 as they are staged
+  __nv_bfloat16* kv_s = reinterpret_cast<__nv_bfloat16*>(tc_smem + X3_WARPS * 2 * KD * 32);
+  float* stg = reinterpret_cast<float*>(kv_s + 6 * PL);
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * X3_ROWS, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (Hq / Hkv), rows = min(Sq - q0, X3_ROWS);
+  int ntiles = (Sk + X3_KEYS - 1) / X3_KEYS;
+  if (causal) ntiles = min(ntiles, (q0 + rows - 1) / X3_KEYS + 1);
+  const long long qs = (long long)Hq * D, ks = (long long)Hkv * D;
+  const float* kg = k + ((long long)b * Sk * Hkv + hk) * D;
+  const float* vg = v + ((long long)b * Sk * Hkv + hk) * D;
+  auto stage = [&](int t) {
+    const int k0 = t * X3_KEYS, n = min(Sk - k0, X3_KEYS);
+    X::template load<X3_KEYS, X3_THREADS>(stg, kg + k0 * ks, ks, n);
+    X::template load<X3_KEYS, X3_THREADS>(stg + X3_KEYS * D, vg + k0 * ks, ks, n);
+  };
+  stage(0);
+  cp_async_commit();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31, tq = lane & 3;
+  const int r0 = 16 * warp, qr0 = q0 + r0 + (lane >> 2), qr1 = qr0 + 8;
+  // q split once: hi in registers, mid and lo in the warp's shared slots
+  uint4* qf = qf_s + warp * 2 * KD * 32 + lane;
+  unsigned qh[KD][4];
+  {
+    const float* qg = q + (((long long)b * Sq + q0 + r0) * Hq + h) * D;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      unsigned a[3][4];
+      a_frag_x3(a, qg, qs, rows - r0, kk);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qh[kk][i] = a[0][i];
+      qf[kk * 32] = pack4(a[1]);
+      qf[(KD + kk) * 32] = pack4(a[2]);
+    }
+  }
+  float acc[DT][4];
+#pragma unroll
+  for (int i = 0; i < DT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  float m0 = REPRO_NEG_INF, m1 = REPRO_NEG_INF, l0 = 0.f, l1 = 0.f;  // rows qr0, qr1
+  const float sl = scale * TC_LOG2E;
+  const __nv_bfloat16* k_p = kv_s;
+  const __nv_bfloat16* v_p = kv_s + 3 * PL;
+
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile t staged; tile t - 1's planes consumed
+    X::template split<X3_KEYS, X3_THREADS>(kv_s, stg);
+    X::template split<X3_KEYS, X3_THREADS>(kv_s + 3 * PL, stg + X3_KEYS * D);
+    __syncthreads();  // the planes are whole; the staging is free
+    if (t + 1 < ntiles) stage(t + 1);
+    cp_async_commit();
+
+    // S = Q K^T over the tile's 16 keys (two n-tiles): the five smaller
+    // terms in sm, hi hi apart in s, added last
+    float sm[2][4], s[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sm[j][e] = s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      unsigned a[3][4], kb[3][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[0][i] = qh[kk][i];
+      unpack4(a[1], qf[kk * 32]);
+      unpack4(a[2], qf[(KD + kk) * 32]);
+#pragma unroll
+      for (int p = 0; p < 3; ++p) R::bt_frag(kb[p], k_p + p * PL, 0, kk);
+      mma_x5(sm[0], sm[1], a, kb);
+      mma_bf16(s[0], a[0], kb[0][0], kb[0][1]);
+      mma_bf16(s[1], a[0], kb[0][2], kb[0][3]);
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = sm[j][e] + s[j][e];
+
+    // mask (only where the tile crosses the diagonal or the end of the
+    // keys); each row's max over its quad
+    const int k0 = t * X3_KEYS;
+    if (k0 + X3_KEYS > Sk || (causal && k0 + X3_KEYS - 1 > q0 + r0))
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = k0 + 8 * j + 2 * tq + (e & 1), r = e < 2 ? qr0 : qr1;
+          if (c >= Sk || (causal && c > r)) s[j][e] = -INFINITY;
+        }
+    float mx0 = fmaxf(fmaxf(s[0][0], s[0][1]), fmaxf(s[1][0], s[1][1]));
+    float mx1 = fmaxf(fmaxf(s[0][2], s[0][3]), fmaxf(s[1][2], s[1][3]));
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
+    }
+    const float mn0 = fmaxf(m0, mx0 * sl), mn1 = fmaxf(m1, mx1 * sl);
+    const float a0 = exp2_approx(m0 - mn0), a1 = exp2_approx(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      s[j][0] = exp2_approx(fmaf(s[j][0], sl, -mn0));
+      s[j][1] = exp2_approx(fmaf(s[j][1], sl, -mn0));
+      s[j][2] = exp2_approx(fmaf(s[j][2], sl, -mn1));
+      s[j][3] = exp2_approx(fmaf(s[j][3], sl, -mn1));
+      ps0 += s[j][0] + s[j][1];
+      ps1 += s[j][2] + s[j][3];
+    }
+    l0 = a0 * l0 + ps0;
+    l1 = a1 * l1 + ps1;
+#pragma unroll
+    for (int i = 0; i < DT; ++i) {
+      acc[i][0] *= a0;
+      acc[i][1] *= a0;
+      acc[i][2] *= a1;
+      acc[i][3] *= a1;
+    }
+    // O += P V, P and V as three terms each
+    unsigned pa[3][4];
+    a_from_c3(s[0], s[1], pa[0], pa[1], pa[2]);
+#pragma unroll
+    for (int i = 0; i < DT; i += 2) {
+      unsigned vb[3][4];
+#pragma unroll
+      for (int p = 0; p < 3; ++p) R::b_frag(vb[p], v_p + p * PL, 0, 8 * i);
+      mma_x6_add(acc[i], acc[i + 1], pa, vb);
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, o);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, o);
+  }
+  const long long lrow = ((long long)b * Hq + h) * Sq;
+  if (tq == 0) {
+    if (qr0 < Sq) lse[lrow + qr0] = m0 * TC_LN2 + logf(fmaxf(l0, 1e-30f));
+    if (qr1 < Sq) lse[lrow + qr1] = m1 * TC_LN2 + logf(fmaxf(l1, 1e-30f));
+  }
+  const float i0 = 1.f / fmaxf(l0, 1e-30f), i1 = 1.f / fmaxf(l1, 1e-30f);
+  float* o0 = out + (((long long)b * Sq + qr0) * Hq + h) * D + 2 * tq;
+  float* o1 = o0 + 8 * qs;
+#pragma unroll
+  for (int i = 0; i < DT; ++i) {
+    if (qr0 < Sq)
+      *reinterpret_cast<float2*>(o0 + 8 * i) = make_float2(acc[i][0] * i0, acc[i][1] * i0);
+    if (qr1 < Sq)
+      *reinterpret_cast<float2*>(o1 + 8 * i) = make_float2(acc[i][2] * i1, acc[i][3] * i1);
+  }
+}
+
+template <int D>
+cudaError_t launch_fwd_lse_x3(const float* q, const float* k, const float* v, float* out,
+                              float* lse, int B, int Sq, int Sk, int Hq, int Hkv, int causal,
+                              float scale, cudaStream_t stream) {
+  static unsigned long long smem_set = 0;
+  auto kern = flash_fwd_lse_x3_kernel<D>;
+  const size_t smem = x3_fwd_smem<D>();
+  cudaError_t e = set_smem_once(kern, smem, smem_set);
+  if (e != cudaSuccess) return e;
+  dim3 grid((Sq + X3_ROWS - 1) / X3_ROWS, Hq, B);
+  kern<<<grid, X3_THREADS, smem, stream>>>(q, k, v, out, lse, Sq, Sk, Hq, Hkv, causal, scale);
+  return cudaGetLastError();
+}
+
+int flash_fwd_lse_x3(const float* q, const float* k, const float* v, float* out, float* lse,
+                     int B, int Sq, int Sk, int Hq, int Hkv, int D, int causal, float scale,
+                     cudaStream_t stream) {
+#define REPRO_FLASH_X3_CASE(DD) \
+  case DD:                      \
+    return launch_fwd_lse_x3<DD>(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv, causal, scale, stream);
+  switch (D) {
+    REPRO_FLASH_X3_CASE(16)
+    REPRO_FLASH_X3_CASE(32)
+    REPRO_FLASH_X3_CASE(64)
+    REPRO_FLASH_X3_CASE(80)
+    REPRO_FLASH_X3_CASE(96)
+    REPRO_FLASH_X3_CASE(112)
+    REPRO_FLASH_X3_CASE(128)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef REPRO_FLASH_X3_CASE
+}
+
 }  // namespace
 
 // q (B, Sq, Hq, D); k, v (B, Sk, Hkv, D); out (B, Sq, Hq, D). fp32, contiguous,
@@ -373,8 +596,7 @@ int flash_fwd_lse_tc(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_
 REPRO_API int flash_attention_fwd_f32(const float* q, const float* k, const float* v,
                                       float* out, int B, int Sq, int Sk, int Hq, int Hkv,
                                       int D, int causal, float sm_scale, cudaStream_t stream) {
-  return flash_fwd<float, false>(q, k, v, out, nullptr, B, Sq, Sk, Hq, Hkv, D, causal, sm_scale,
-                                 stream);
+  return flash_fwd<float>(q, k, v, out, B, Sq, Sk, Hq, Hkv, D, causal, sm_scale, stream);
 }
 
 // The same in bf16 (q, k, v and out); the math in fp32, the output rounded
@@ -383,18 +605,16 @@ REPRO_API int flash_attention_fwd_bf16(const __nv_bfloat16* q, const __nv_bfloat
                                        const __nv_bfloat16* v, __nv_bfloat16* out, int B, int Sq,
                                        int Sk, int Hq, int Hkv, int D, int causal,
                                        float sm_scale, cudaStream_t stream) {
-  return flash_fwd<__nv_bfloat16, false>(q, k, v, out, nullptr, B, Sq, Sk, Hq, Hkv, D, causal,
-                                         sm_scale, stream);
+  return flash_fwd<__nv_bfloat16>(q, k, v, out, B, Sq, Sk, Hq, Hkv, D, causal, sm_scale, stream);
 }
 
-// The training forward: the same, and lse (B, Hq, Sq) fp32; in bf16 on the
-// tensor cores (flash_fwd_lse_tc_kernel).
+// The training forward: the same, and lse (B, Hq, Sq) fp32; both on the
+// tensor cores (fp32: flash_fwd_lse_x3_kernel; bf16: flash_fwd_lse_tc_kernel).
 REPRO_API int flash_attention_fwd_lse_f32(const float* q, const float* k, const float* v,
                                           float* out, float* lse, int B, int Sq, int Sk, int Hq,
                                           int Hkv, int D, int causal, float sm_scale,
                                           cudaStream_t stream) {
-  return flash_fwd<float, true>(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv, D, causal, sm_scale,
-                                stream);
+  return flash_fwd_lse_x3(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv, D, causal, sm_scale, stream);
 }
 
 REPRO_API int flash_attention_fwd_lse_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,

@@ -5,8 +5,8 @@
 // blocked.py:100-140), which JAX's auto dispatch runs off the TPU at S >=
 // 2048 (ops.py:23-27) under build_model(use_flash=True) (repro/models/
 // attention.py:102-104). The Pallas forward (flash_attention.py:66) has no
-// backward of its own; its row-1 kernel's LSE instantiation
-// (flash_attention.cu) is this kernel's forward.
+// backward of its own; the training forward of its row-1 kernel
+// (flash_attention.cu's lse entries) is this kernel's forward.
 //
 // What it computes, from the saved q (B, Sq, Hq, D), k, v (B, Sk, Hkv, D),
 // the rounded out, the fp32 lse (B, Hq, Sq) and dout: in fp32,
@@ -42,19 +42,13 @@
 // tile's end; the staged rows there are zero. Device launches a call:
 // delta, dk/dv, combine (G > 1), dq, counted as one.
 //
-// fp32 (flash_attention_bwd_f32) on the CUDA cores (BwdTile): each step
-// stages its tiles (16-byte cp.async), computes the BQ x BK scores and
-// dout v^T together (16 x 16 threads, 4 x 2 cells each, 16-byte shared
-// loads), writes p and ds to shared memory, then the products over the
-// tile (the P.V layout of attn_tile.cuh: a row's D outputs are D/4 lanes x
-// 4 dims).
-//   Bound on this card: five S x S x D products (the minimum: dp, and the
-//   products for dq, dk, dv; s recomputed is p's), 2 flops a product term,
-//   over the visible pairs: 5 * 2 * D * pairs * Hq * B. At qwen2.5-3b's
-//   training shape (B 1, S 4096, Hq 16, Hkv 2, D 128, causal) 1.72e11:
-//   2.6 ms at the 67 TFLOP/s fp32 rate, against 0.3 GB of bytes (under
-//   0.1 ms): bound by operations. This design does seven such products (s
-//   and dp again in the dq pass).
+// The bound on this card: five S x S x D products (the minimum: dp, and the
+// products for dq, dk, dv; s recomputed is p's), 2 flops a product term,
+// over the visible pairs: 5 * 2 * D * pairs * Hq * B. At qwen2.5-3b's
+// training shape (B 1, S 4096, Hq 16, Hkv 2, D 128, causal) 1.72e11: 2.6 ms
+// at the 67 TFLOP/s fp32 rate, against 0.3 GB of bytes (under 0.1 ms):
+// bound by operations. Both dtypes do seven such products (s and dp again
+// in the dq pass), on the tensor cores.
 //
 // bf16 (flash_attention_bwd_bf16) on the tensor cores (csrc/mma_tile.cuh:
 // mma.sync m16n8k16, bf16 in and fp32 accumulate; the same 1.72e11 flops
@@ -86,207 +80,42 @@
 // the mask is tested only in tiles that cross the diagonal or an end.
 // At the silo shape on an H100 80GB HBM3 (700 W; tools/time_flash_pair.py)
 // dk/dv takes 0.87 ms and dq 0.59, about 230 TFLOP/s of products each.
+//
+// fp32 (flash_attention_bwd_f32) on the tensor cores too: each fp32 operand
+// as three bf16 terms (csrc/mma_tile.cuh's split3, hi + mid + lo == x) and
+// each product as the six term products above 2^-24 of it (mma_x5 and
+// mma_x6_add, smallest first); p and ds leave the accumulators as three terms (a_from_c3). One
+// body for every D, 8 warps a block in pairs: a pass keeps 64 rows (16 a
+// pair), split once into their A fragments' three terms in shared memory
+// (96 KB at D 128: the accumulators, dk and dv or dq, leave no registers for
+// them), and walks tiles of 32 rows of the other side, staged in fp32 by
+// cp.async and split once a block into three bf16 planes that ldmatrix
+// reads (51 KB at D 128, with 32 KB of staging). Each warp of a pair takes
+// 16 of a tile's 32 rows, so its s and dp tiles are 16 x 16 (the five
+// smaller terms and hi hi in separate accumulators, hi hi added last); at
+// the end the second warp's partials go through shared memory and the
+// first adds them to its own, in that order.
+//   dk/dv   a block keeps 64 keys (k and v) and walks the query tiles of 32
+//           (q and dout) from the first that reaches its keys; the combine
+//           of the heads' partials is the bf16 pass's kernel.
+//   dq      a block keeps 64 query rows (q and dout), heavy tiles first, and
+//           walks the key tiles of 32 (k and v) up to the diagonal.
+// Six mma a product and seven products: 42 S x S x D units of work at
+// bf16's rate, a floor of 1.46 ms at the silo shape, under the 2.56 ms fp32
+// bound. Shared memory, 180 KB at D 128, holds one block (8 warps) an SM;
+// 255 registers at D 128, with 0 (dq) and 8 (dk/dv) bytes of stack (the
+// k-step loops unrolled by 2: fully unrolled, the hoisted loads spilled
+// 32-112 bytes at D 80-128 and were 1-2% slower; tools/time_flash_pair.py,
+// H100 80GB HBM3, 700 W).
 #include "attn_tile.cuh"
 #include "mma_tile.cuh"
 
 namespace {
 
 constexpr int BWD_THREADS = 256;
-constexpr int BQ = 64;  // query rows a tile
-constexpr int BK = 32;  // keys a tile
 
 __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-// Stage n <= nmax rows of D fp32 values into dst (row stride ds); row t
-// starts at g + off(t). Rows n..nmax-1 are zero-filled.
-template <int D, class Off>
-__device__ void stage_rows(float* dst, int ds, const float* g, int n, int nmax, Off off) {
-  constexpr int VEC = Elem<float>::VEC, LPV = D / VEC;
-  static_assert(D % VEC == 0, "a row is whole 16-byte copies");
-  for (int idx = threadIdx.x; idx < nmax * LPV; idx += BWD_THREADS) {
-    const int t = idx / LPV, d = VEC * (idx % LPV);
-    if (t < n)
-      stage_vec(dst + t * ds + d, g + off(t) + d);
-    else
-      zero_vec<VEC>(dst + t * ds + d);
-  }
-}
-
-template <int D>
-struct BwdTile {
-  static_assert(D % 4 == 0 && D <= 128, "D/4 lanes a row");
-  static constexpr int KS = D + 4;   // q, dout, k, v row stride (floats)
-  static constexpr int PS = BK + 4;  // p and ds row stride
-  // the score layout: 16 x 16 threads, RM x CM cells each
-  static constexpr int TR = 16, TC = BWD_THREADS / TR;
-  static constexpr int RM = BQ / TR, CM = BK / TC;
-  // the product layout: a row's D outputs are D/4 lanes x 4 dims
-  static constexpr int LPR = D / 4;
-  static constexpr int RPW = 32 / LPR;                 // rows (slots) a warp
-  static constexpr int NS = (BWD_THREADS / 32) * RPW;  // slots
-  static constexpr int RA = (BQ + NS - 1) / NS;        // dq rows a lane
-  static constexpr int KA = (BK + NS - 1) / NS;        // dk/dv keys a lane
-  // shared: q, dout (BQ x KS), k, v (BK x KS), p, ds (BQ x PS), lse, delta
-  static constexpr int FLOATS = 2 * BQ * KS + 2 * BK * KS + 2 * BQ * PS + 2 * BQ;
-  static constexpr size_t BYTES = sizeof(float) * FLOATS;
-
-  float *q_s, *do_s, *k_s, *v_s, *p_s, *ds_s, *lse_s, *dl_s;
-
-  __device__ explicit BwdTile(float* smem) {
-    q_s = smem;
-    do_s = q_s + BQ * KS;
-    k_s = do_s + BQ * KS;
-    v_s = k_s + BK * KS;
-    p_s = v_s + BK * KS;
-    ds_s = p_s + BQ * PS;
-    lse_s = ds_s + BQ * PS;
-    dl_s = lse_s + BQ;
-  }
-
-  // q and dout rows q0 .. q0 + rows - 1 of head h, with their lse and delta
-  // (0 past rows, never read: visible() masks those rows).
-  __device__ void stage_q(const float* q, const float* dout, const float* lse,
-                          const float* delta, int b, int h, int q0, int rows, int Sq, int Hq) {
-    auto off = [&](int r) { return (((long long)b * Sq + q0 + r) * Hq + h) * D; };
-    stage_rows<D>(q_s, KS, q, rows, BQ, off);
-    stage_rows<D>(do_s, KS, dout, rows, BQ, off);
-    const long long base = ((long long)b * Hq + h) * Sq + q0;
-    for (int r = threadIdx.x; r < BQ; r += BWD_THREADS) {
-      lse_s[r] = r < rows ? lse[base + r] : 0.f;
-      dl_s[r] = r < rows ? delta[base + r] : 0.f;
-    }
-  }
-
-  // k and v rows k0 .. k0 + cols - 1 of KV head hk.
-  __device__ void stage_k(const float* k, const float* v, int b, int hk, int k0, int cols,
-                          int Sk, int Hkv) {
-    auto off = [&](int c) { return (((long long)b * Sk + k0 + c) * Hkv + hk) * D; };
-    stage_rows<D>(k_s, KS, k, cols, BK, off);
-    stage_rows<D>(v_s, KS, v, cols, BK, off);
-  }
-
-  // p (when P) and ds of the staged tiles into shared memory; visible(r, c)
-  // says whether cell (r, c) is a real, unmasked pair. Call with the tiles
-  // staged and visible to every thread; read p_s / ds_s after a barrier.
-  template <bool P, class Visible>
-  __device__ void scores(float scale, Visible visible) {
-    const int t = threadIdx.x, tr = t / TC, tc = t % TC;
-    float s[RM][CM], dp[RM][CM];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < CM; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 2
-    for (int d = 0; d < D; d += 4) {
-      float4 qv[RM], ov[RM], kv[CM], vv[CM];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        qv[i] = *reinterpret_cast<const float4*>(q_s + (tr + TR * i) * KS + d);
-        ov[i] = *reinterpret_cast<const float4*>(do_s + (tr + TR * i) * KS + d);
-      }
-#pragma unroll
-      for (int j = 0; j < CM; ++j) {
-        kv[j] = *reinterpret_cast<const float4*>(k_s + (tc + TC * j) * KS + d);
-        vv[j] = *reinterpret_cast<const float4*>(v_s + (tc + TC * j) * KS + d);
-      }
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < CM; ++j) {
-          float a = s[i][j], e = dp[i][j];
-          a = fmaf(qv[i].x, kv[j].x, a);
-          a = fmaf(qv[i].y, kv[j].y, a);
-          a = fmaf(qv[i].z, kv[j].z, a);
-          s[i][j] = fmaf(qv[i].w, kv[j].w, a);
-          e = fmaf(ov[i].x, vv[j].x, e);
-          e = fmaf(ov[i].y, vv[j].y, e);
-          e = fmaf(ov[i].z, vv[j].z, e);
-          dp[i][j] = fmaf(ov[i].w, vv[j].w, e);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int r = tr + TR * i;
-#pragma unroll
-      for (int j = 0; j < CM; ++j) {
-        const int c = tc + TC * j;
-        const float p = visible(r, c) ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
-        if (P) p_s[r * PS + c] = p;
-        ds_s[r * PS + c] = p * (dp[i][j] - dl_s[r]) * scale;
-      }
-    }
-  }
-
-  // KA consecutive floats of row r of a (BQ x PS) tile from column c0.
-  __device__ static void load_ka(const float* src, float (&x)[KA]) {
-    if constexpr (KA == 4) {
-      const float4 f = *reinterpret_cast<const float4*>(src);
-      x[0] = f.x, x[1] = f.y, x[2] = f.z, x[3] = f.w;
-    } else if constexpr (KA == 2) {
-      const float2 f = *reinterpret_cast<const float2*>(src);
-      x[0] = f.x, x[1] = f.y;
-    } else {
-#pragma unroll
-      for (int a = 0; a < KA; ++a) x[a] = src[a];
-    }
-  }
-
-  // dv[a] += sum_r p[r][key a] dout[r], dk[a] += sum_r ds[r][key a] q[r],
-  // over r = 0 .. BQ - 1 in order, for this lane's KA keys and 4 dims.
-  __device__ void accumulate_dkdv(float4 (&dk)[KA], float4 (&dv)[KA]) const {
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    if (lane >= RPW * LPR) return;
-    const int slot = warp * RPW + lane / LPR, d = 4 * (lane % LPR), c0 = slot * KA;
-    if (c0 >= BK) return;
-#pragma unroll 4
-    for (int r = 0; r < BQ; ++r) {
-      const float4 o = *reinterpret_cast<const float4*>(do_s + r * KS + d);
-      const float4 x = *reinterpret_cast<const float4*>(q_s + r * KS + d);
-      float p[KA], g[KA];
-      load_ka(p_s + r * PS + c0, p);
-      load_ka(ds_s + r * PS + c0, g);
-#pragma unroll
-      for (int a = 0; a < KA; ++a) {
-        fma4(dv[a], p[a], o);
-        fma4(dk[a], g[a], x);
-      }
-    }
-  }
-
-  // dq[i] += sum_c ds[row i][c] k[c], over c = 0 .. BK - 1 in order, for
-  // this lane's RA rows and 4 dims.
-  __device__ void accumulate_dq(float4 (&dq)[RA]) const {
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    if (lane >= RPW * LPR) return;
-    const int slot = warp * RPW + lane / LPR, d = 4 * (lane % LPR);
-    const float* ks = k_s + d;
-#pragma unroll 2
-    for (int c = 0; c < BK; c += 4) {
-      const float4 k0 = *reinterpret_cast<const float4*>(ks + (c + 0) * KS);
-      const float4 k1 = *reinterpret_cast<const float4*>(ks + (c + 1) * KS);
-      const float4 k2 = *reinterpret_cast<const float4*>(ks + (c + 2) * KS);
-      const float4 k3 = *reinterpret_cast<const float4*>(ks + (c + 3) * KS);
-#pragma unroll
-      for (int i = 0; i < RA; ++i) {
-        const int r = slot + NS * i;
-        if (r < BQ) {
-          const float4 g = *reinterpret_cast<const float4*>(ds_s + r * PS + c);
-          fma4(dq[i], g.x, k0);
-          fma4(dq[i], g.y, k1);
-          fma4(dq[i], g.z, k2);
-          fma4(dq[i], g.w, k3);
-        }
-      }
-    }
-  }
-};
-
-__device__ __forceinline__ void staged() {
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-}
 
 // delta (B, Hq, Sq) = sum_d dout * out, one warp a row of (B, Sq, Hq).
 template <class T>
@@ -323,58 +152,6 @@ __device__ __forceinline__ void store_dkdv2(__nv_bfloat16* dk, __nv_bfloat16* dv
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(BWD_THREADS)
-flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, const float* __restrict__ dout,
-                      const float* __restrict__ lse, const float* __restrict__ delta,
-                      float* __restrict__ dk, float* __restrict__ dv, float* __restrict__ part,
-                      int Sq, int Sk, int Hq, int Hkv, int causal, float scale) {
-  using Tile = BwdTile<D>;
-  extern __shared__ float4 bwd_smem[];
-  Tile tile(reinterpret_cast<float*>(bwd_smem));
-  const int k0 = blockIdx.x * BK, h = blockIdx.y, b = blockIdx.z;
-  const int G = Hq / Hkv, hk = h / G, cols = min(Sk - k0, BK);
-  const int nqt = (Sq + BQ - 1) / BQ, qt0 = causal ? k0 / BQ : 0;
-
-  tile.stage_k(k, v, b, hk, k0, cols, Sk, Hkv);
-  staged();  // before any exit: a block with no query tile in reach stores 0
-  float4 dka[Tile::KA], dva[Tile::KA];
-#pragma unroll
-  for (int a = 0; a < Tile::KA; ++a)
-    dka[a] = dva[a] = make_float4(0.f, 0.f, 0.f, 0.f);
-
-  for (int qt = qt0; qt < nqt; ++qt) {
-    const int q0 = qt * BQ, rows = min(Sq - q0, BQ);
-    __syncthreads();  // the previous step's tiles are consumed
-    tile.stage_q(q, dout, lse, delta, b, h, q0, rows, Sq, Hq);
-    staged();
-    tile.template scores<true>(scale, [&](int r, int c) {
-      return r < rows && c < cols && (!causal || q0 + r >= k0 + c);
-    });
-    __syncthreads();
-    tile.accumulate_dkdv(dka, dva);
-  }
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (lane >= Tile::RPW * Tile::LPR) return;
-  const int slot = warp * Tile::RPW + lane / Tile::LPR, d = 4 * (lane % Tile::LPR);
-  const size_t n = (size_t)gridDim.z * Sk * Hkv * D;
-#pragma unroll
-  for (int a = 0; a < Tile::KA; ++a) {
-    const int c = slot * Tile::KA + a;
-    if (c >= cols) continue;
-    const size_t off = (((size_t)b * Sk + k0 + c) * Hkv + hk) * D + d;
-    if (part) {
-      *reinterpret_cast<float4*>(part + (h % G) * n + off) = dka[a];
-      *reinterpret_cast<float4*>(part + (G + h % G) * n + off) = dva[a];
-    } else {
-      store4(dk + off, dka[a]);
-      store4(dv + off, dva[a]);
-    }
-  }
-}
-
 // dk, dv = the sum of the G heads' partials (2, G, B, Sk, Hkv, D) in
 // ascending head order, rounded once; four elements a thread, n4 = n / 4.
 template <class T>
@@ -396,48 +173,6 @@ flash_bwd_combine_kernel(const float* __restrict__ part, T* __restrict__ dk, T* 
       a.w += x.w;
     }
     store4((w ? dv : dk) + 4 * j, a);
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(BWD_THREADS)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    float* __restrict__ dq, int Sq, int Sk, int Hq, int Hkv, int causal,
-                    float scale) {
-  using Tile = BwdTile<D>;
-  extern __shared__ float4 bwd_smem[];
-  Tile tile(reinterpret_cast<float*>(bwd_smem));
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (Hq / Hkv), rows = min(Sq - q0, BQ);
-  int nkt = (Sk + BK - 1) / BK;
-  if (causal) nkt = min(nkt, (q0 + rows - 1) / BK + 1);
-
-  tile.stage_q(q, dout, lse, delta, b, h, q0, rows, Sq, Hq);
-  float4 acc[Tile::RA];
-#pragma unroll
-  for (int i = 0; i < Tile::RA; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-
-  for (int kt = 0; kt < nkt; ++kt) {
-    const int k0 = kt * BK, cols = min(Sk - k0, BK);
-    __syncthreads();  // the previous step's tiles are consumed
-    tile.stage_k(k, v, b, hk, k0, cols, Sk, Hkv);
-    staged();
-    tile.template scores<false>(scale, [&](int r, int c) {
-      return r < rows && c < cols && (!causal || q0 + r >= k0 + c);
-    });
-    __syncthreads();
-    tile.accumulate_dq(acc);
-  }
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (lane >= Tile::RPW * Tile::LPR) return;
-  const int slot = warp * Tile::RPW + lane / Tile::LPR, d = 4 * (lane % Tile::LPR);
-#pragma unroll
-  for (int i = 0; i < Tile::RA; ++i) {
-    const int r = slot + Tile::NS * i;
-    if (r < rows) store4(dq + (((size_t)b * Sq + q0 + r) * Hq + h) * D + d, acc[i]);
   }
 }
 
@@ -714,6 +449,339 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------- fp32
+
+constexpr int XB_THREADS = 256;  // 8 warps: 4 pairs
+constexpr int XB_FIX = 64;       // rows a block keeps (keys, or queries): 16 a pair
+constexpr int XB_WALK = 32;      // rows a walked tile: 16 for each warp of a pair
+
+template <int D>
+constexpr size_t x3_bwd_smem() {
+  // the kept operands' fragments (4 pairs, 2 tensors, 3 terms), the walked
+  // tiles' planes (2 tensors, 3 terms) and their fp32 staging, lse and
+  // delta twice
+  return sizeof(uint4) * 4 * 6 * (D / 16) * 32 + sizeof(bf16) * 6 * XB_WALK * TcRows<D>::ST +
+         sizeof(float) * (2 * XB_WALK * D + 4 * XB_WALK);
+}
+
+// The A fragments of 16 rows (from g, row stride gs; rows >= n read 0) as
+// three terms into a pair's shared slots dst[(term KD + kk) 32], every k-step.
+template <int D>
+__device__ __forceinline__ void keep_x3(uint4* dst, const float* g, long long gs, int n) {
+  constexpr int KD = D / 16;
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk) {
+    unsigned a[3][4];
+    a_frag_x3(a, g, gs, n, kk);
+#pragma unroll
+    for (int t = 0; t < 3; ++t) dst[(t * KD + kk) * 32] = pack4(a[t]);
+  }
+}
+
+__device__ __forceinline__ void take_x3(unsigned (&a)[3][4], const uint4* src, int KD, int kk) {
+#pragma unroll
+  for (int t = 0; t < 3; ++t) unpack4(a[t], src[(t * KD + kk) * 32]);
+}
+
+// Warp pair p's halves: the second (warps 4..7) leaves its accumulators in
+// shared memory, the first adds them to its own (own + other, in that
+// order). acc are the warp's N accumulator tiles; red the block's scratch
+// (4 N 32 float4). Returns whether this warp holds the sums.
+template <int N>
+__device__ __forceinline__ bool fold_pair(float (&acc)[N][4], float4* red) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  float4* r = red + (warp & 3) * N * 32 + lane;
+  __syncthreads();  // every warp is done with what the scratch held
+  if (warp >= 4)
+#pragma unroll
+    for (int i = 0; i < N; ++i) r[i * 32] = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  __syncthreads();
+  if (warp >= 4) return false;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const float4 x = r[i * 32];
+    acc[i][0] += x.x;
+    acc[i][1] += x.y;
+    acc[i][2] += x.z;
+    acc[i][3] += x.w;
+  }
+  return true;
+}
+
+// dk/dv: a block keeps 64 keys (16 a pair: k and v split once into their A
+// fragments' three terms, in shared memory) and walks the query tiles of 32
+// (q and dout staged, then split once into planes); warp 4 + p takes the
+// second 16 queries of each tile for pair p's keys, and the pair's partials
+// are added at the end.
+template <int D>
+__global__ void __launch_bounds__(XB_THREADS, 1)
+flash_bwd_dkdv_x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const float* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         float* __restrict__ dk, float* __restrict__ dv, float* __restrict__ part,
+                         int Sq, int Sk, int Hq, int Hkv, int causal, float scale) {
+  using R = TcRows<D>;
+  using X = X3Rows<D>;
+  constexpr int ST = R::ST, DT = D / 8, KD = D / 16, PL = XB_WALK * ST;
+  extern __shared__ uint4 tc_smem[];
+  uint4* kv_f = tc_smem;  // [pair][k, v][term][kk][lane]
+  bf16* qd_p = reinterpret_cast<bf16*>(tc_smem + 4 * 6 * KD * 32);  // q's planes, dout's
+  float* stg = reinterpret_cast<float*>(qd_p + 6 * PL);               // q, dout in fp32
+  float* ld_s = stg + 2 * XB_WALK * D;  // buffer i: lse, delta at 2 i XB_WALK
+  const int k0 = blockIdx.x * XB_FIX, h = blockIdx.y, b = blockIdx.z;
+  const int G = Hq / Hkv, hk = h / G;
+  const int nqt = (Sq + XB_WALK - 1) / XB_WALK, qt0 = causal ? k0 / XB_WALK : 0;
+  const long long qs = (long long)Hq * D, ks = (long long)Hkv * D;
+  const float* qg = q + ((long long)b * Sq * Hq + h) * D;
+  const float* og = dout + ((long long)b * Sq * Hq + h) * D;
+  const float* lg = lse + ((long long)b * Hq + h) * Sq;
+  const float* dg = delta + ((long long)b * Hq + h) * Sq;
+  auto stage = [&](int qt) {
+    const int q0 = qt * XB_WALK, n = min(Sq - q0, XB_WALK);
+    X::template load<XB_WALK, XB_THREADS>(stg, qg + q0 * qs, qs, n);
+    X::template load<XB_WALK, XB_THREADS>(stg + XB_WALK * D, og + q0 * qs, qs, n);
+    const int i = threadIdx.x;
+    if (i < 2 * XB_WALK) {
+      const int r = i % XB_WALK;
+      const float* src = (i < XB_WALK ? lg : dg) + q0;
+      cp_async4_zfill(ld_s + ((qt - qt0) & 1) * 2 * XB_WALK + i, r < n ? src + r : src, r < n);
+    }
+  };
+  if (qt0 < nqt) stage(qt0);
+  cp_async_commit();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31, tq = lane & 3;
+  const int pair = warp & 3, half = warp >> 2, qr = 16 * half;
+  const int kr0 = 16 * pair, kc0 = k0 + kr0 + (lane >> 2), kc1 = kc0 + 8;
+  const uint4* kf = kv_f + pair * 6 * KD * 32 + lane;  // k's terms, then v's
+  // k split by warp p, v by warp 4 + p
+  keep_x3<D>(kv_f + (pair * 2 + half) * 3 * KD * 32 + lane,
+             (half ? v : k) + (((long long)b * Sk + k0 + kr0) * Hkv + hk) * D, ks,
+             Sk - k0 - kr0);
+  const float sl = scale * TC_LOG2E;
+  const bf16* q_p = qd_p;
+  const bf16* o_p = qd_p + 3 * PL;
+  float dka[DT][4], dva[DT][4];
+#pragma unroll
+  for (int i = 0; i < DT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[i][e] = dva[i][e] = 0.f;
+
+  for (int qt = qt0; qt < nqt; ++qt) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile qt staged; qt - 1's planes consumed (k, v kept)
+    X::template split<XB_WALK, XB_THREADS>(qd_p, stg);
+    X::template split<XB_WALK, XB_THREADS>(qd_p + 3 * PL, stg + XB_WALK * D);
+    __syncthreads();  // the planes are whole; the staging is free
+    if (qt + 1 < nqt) stage(qt + 1);
+    cp_async_commit();
+    const float* ls = ld_s + ((qt - qt0) & 1) * 2 * XB_WALK + qr;
+    const float* dl = ls + XB_WALK;
+
+    // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x 16 queries, the
+    // five smaller terms apart from hi hi, added last
+    float sm[2][4], st[2][4], pm[2][4], dpt[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sm[j][e] = st[j][e] = pm[j][e] = dpt[j][e] = 0.f;
+#pragma unroll 2  // full unrolling spilled at D 96-128
+    for (int kk = 0; kk < KD; ++kk) {
+      unsigned a[3][4], bq[3][4];
+      take_x3(a, kf, KD, kk);
+#pragma unroll
+      for (int t = 0; t < 3; ++t) R::bt_frag(bq[t], q_p + t * PL, qr, kk);
+      mma_x5(sm[0], sm[1], a, bq);
+      mma_bf16(st[0], a[0], bq[0][0], bq[0][1]);
+      mma_bf16(st[1], a[0], bq[0][2], bq[0][3]);
+      take_x3(a, kf + 3 * KD * 32, KD, kk);
+#pragma unroll
+      for (int t = 0; t < 3; ++t) R::bt_frag(bq[t], o_p + t * PL, qr, kk);
+      mma_x5(pm[0], pm[1], a, bq);
+      mma_bf16(dpt[0], a[0], bq[0][0], bq[0][1]);
+      mma_bf16(dpt[1], a[0], bq[0][2], bq[0][3]);
+    }
+    // p^T and ds^T in fp32; 0 for a masked, padded or absent pair (tested
+    // only where the warp's tile crosses the diagonal or an end)
+    const int q0 = qt * XB_WALK + qr;
+    const bool edge = q0 + 16 > Sq || k0 + kr0 + 16 > Sk || (causal && q0 < k0 + kr0 + 15);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * j + 2 * tq + (e & 1), qi = q0 + c, kj = e < 2 ? kc0 : kc1;
+        float p = exp2_approx(fmaf(sm[j][e] + st[j][e], sl, -ls[c] * TC_LOG2E));
+        if (edge && !(qi < Sq && kj < Sk && (!causal || kj <= qi))) p = 0.f;
+        st[j][e] = p;
+        dpt[j][e] = p * ((pm[j][e] + dpt[j][e]) - dl[c]) * scale;
+      }
+    // dV += P^T dO, then dK += dS^T Q: all three terms of each
+    unsigned pa[3][4];
+    a_from_c3(st[0], st[1], pa[0], pa[1], pa[2]);
+#pragma unroll
+    for (int i = 0; i < DT; i += 2) {
+      unsigned bo[3][4];
+#pragma unroll
+      for (int t = 0; t < 3; ++t) R::b_frag(bo[t], o_p + t * PL, qr, 8 * i);
+      mma_x6_add(dva[i], dva[i + 1], pa, bo);
+    }
+    a_from_c3(dpt[0], dpt[1], pa[0], pa[1], pa[2]);
+#pragma unroll
+    for (int i = 0; i < DT; i += 2) {
+      unsigned bq[3][4];
+#pragma unroll
+      for (int t = 0; t < 3; ++t) R::b_frag(bq[t], q_p + t * PL, qr, 8 * i);
+      mma_x6_add(dka[i], dka[i + 1], pa, bq);
+    }
+  }
+  cp_async_wait<0>();
+
+  float4* red = reinterpret_cast<float4*>(tc_smem);
+  const bool dk_here = fold_pair(dka, red);
+  const bool dv_here = fold_pair(dva, red);
+  if (!(dk_here && dv_here)) return;
+  // G = 1: the gradients; else this head's fp32 partial for the combine
+  const size_t n = (size_t)gridDim.z * Sk * Hkv * D;
+  const int g = h % G;
+  float* kd = G > 1 ? part + g * n : dk;
+  float* vd = G > 1 ? part + (G + g) * n : dv;
+#pragma unroll
+  for (int i = 0; i < DT; ++i) {
+    const int d = 8 * i + 2 * tq;
+    if (kc0 < Sk) {
+      const size_t off = (((size_t)b * Sk + kc0) * Hkv + hk) * D + d;
+      *reinterpret_cast<float2*>(kd + off) = make_float2(dka[i][0], dka[i][1]);
+      *reinterpret_cast<float2*>(vd + off) = make_float2(dva[i][0], dva[i][1]);
+    }
+    if (kc1 < Sk) {
+      const size_t off = (((size_t)b * Sk + kc1) * Hkv + hk) * D + d;
+      *reinterpret_cast<float2*>(kd + off) = make_float2(dka[i][2], dka[i][3]);
+      *reinterpret_cast<float2*>(vd + off) = make_float2(dva[i][2], dva[i][3]);
+    }
+  }
+}
+
+// dq: a block keeps 64 query rows (16 a pair: q and dout split once into
+// their A fragments' three terms) and walks the key tiles of 32 (k and v
+// staged, then split once into planes), heavy tiles first; warp 4 + p takes
+// the second 16 keys of each tile for pair p's rows, and the pair's
+// partials are added at the end.
+template <int D>
+__global__ void __launch_bounds__(XB_THREADS, 1)
+flash_bwd_dq_x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, const float* __restrict__ dout,
+                       const float* __restrict__ lse, const float* __restrict__ delta,
+                       float* __restrict__ dq, int Sq, int Sk, int Hq, int Hkv, int causal,
+                       float scale) {
+  using R = TcRows<D>;
+  using X = X3Rows<D>;
+  constexpr int ST = R::ST, DT = D / 8, KD = D / 16, PL = XB_WALK * ST;
+  extern __shared__ uint4 tc_smem[];
+  uint4* qo_f = tc_smem;  // [pair][q, dout][term][kk][lane]
+  bf16* kv_p = reinterpret_cast<bf16*>(tc_smem + 4 * 6 * KD * 32);  // k's planes, v's
+  float* stg = reinterpret_cast<float*>(kv_p + 6 * PL);               // k, v in fp32
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * XB_FIX, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (Hq / Hkv), rows = min(Sq - q0, XB_FIX);
+  int nkt = (Sk + XB_WALK - 1) / XB_WALK;
+  if (causal) nkt = min(nkt, (q0 + rows - 1) / XB_WALK + 1);
+  const long long qs = (long long)Hq * D, ks = (long long)Hkv * D;
+  const float* kg = k + ((long long)b * Sk * Hkv + hk) * D;
+  const float* vg = v + ((long long)b * Sk * Hkv + hk) * D;
+  auto stage = [&](int t) {
+    const int kt0 = t * XB_WALK, n = min(Sk - kt0, XB_WALK);
+    X::template load<XB_WALK, XB_THREADS>(stg, kg + kt0 * ks, ks, n);
+    X::template load<XB_WALK, XB_THREADS>(stg + XB_WALK * D, vg + kt0 * ks, ks, n);
+  };
+  stage(0);
+  cp_async_commit();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31, tq = lane & 3;
+  const int pair = warp & 3, half = warp >> 2, kr = 16 * half;
+  const int r0 = 16 * pair, qr0 = q0 + r0 + (lane >> 2), qr1 = qr0 + 8;
+  const uint4* qf = qo_f + pair * 6 * KD * 32 + lane;  // q's terms, then dout's
+  // q split by warp p, dout by warp 4 + p
+  keep_x3<D>(qo_f + (pair * 2 + half) * 3 * KD * 32 + lane,
+             (half ? dout : q) + (((long long)b * Sq + q0 + r0) * Hq + h) * D, qs, rows - r0);
+  const long long lrow = ((long long)b * Hq + h) * Sq;
+  const float sl = scale * TC_LOG2E;
+  const float ls0 = qr0 < Sq ? lse[lrow + qr0] * TC_LOG2E : 0.f;
+  const float ls1 = qr1 < Sq ? lse[lrow + qr1] * TC_LOG2E : 0.f;
+  const float dl0 = qr0 < Sq ? delta[lrow + qr0] : 0.f;
+  const float dl1 = qr1 < Sq ? delta[lrow + qr1] : 0.f;
+  const bf16* k_p = kv_p;
+  const bf16* v_p = kv_p + 3 * PL;
+  float acc[DT][4];
+#pragma unroll
+  for (int i = 0; i < DT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+
+  for (int t = 0; t < nkt; ++t) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile t staged; t - 1's planes consumed (q, dout kept)
+    X::template split<XB_WALK, XB_THREADS>(kv_p, stg);
+    X::template split<XB_WALK, XB_THREADS>(kv_p + 3 * PL, stg + XB_WALK * D);
+    __syncthreads();  // the planes are whole; the staging is free
+    if (t + 1 < nkt) stage(t + 1);
+    cp_async_commit();
+
+    // S = Q K^T and dP = dO V^T: this warp's 16 rows x 16 keys, the five
+    // smaller terms apart from hi hi, added last
+    float sm[2][4], s[2][4], pm[2][4], dp[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sm[j][e] = s[j][e] = pm[j][e] = dp[j][e] = 0.f;
+#pragma unroll 2  // full unrolling spilled at D 96-128
+    for (int kk = 0; kk < KD; ++kk) {
+      unsigned a[3][4], bk[3][4];
+      take_x3(a, qf, KD, kk);
+#pragma unroll
+      for (int p = 0; p < 3; ++p) R::bt_frag(bk[p], k_p + p * PL, kr, kk);
+      mma_x5(sm[0], sm[1], a, bk);
+      mma_bf16(s[0], a[0], bk[0][0], bk[0][1]);
+      mma_bf16(s[1], a[0], bk[0][2], bk[0][3]);
+      take_x3(a, qf + 3 * KD * 32, KD, kk);
+#pragma unroll
+      for (int p = 0; p < 3; ++p) R::bt_frag(bk[p], v_p + p * PL, kr, kk);
+      mma_x5(pm[0], pm[1], a, bk);
+      mma_bf16(dp[0], a[0], bk[0][0], bk[0][1]);
+      mma_bf16(dp[1], a[0], bk[0][2], bk[0][3]);
+    }
+    // ds in fp32 (into s); 0 for a masked, padded or absent pair (tested
+    // only where the warp's tile crosses the diagonal or an end)
+    const int kt0 = t * XB_WALK + kr;
+    const bool edge = kt0 + 16 > Sk || q0 + r0 + 16 > Sq || (causal && kt0 + 15 > q0 + r0);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = kt0 + 8 * j + 2 * tq + (e & 1), r = e < 2 ? qr0 : qr1;
+        float p = exp2_approx(fmaf(sm[j][e] + s[j][e], sl, -(e < 2 ? ls0 : ls1)));
+        if (edge && !(r < Sq && c < Sk && (!causal || c <= r))) p = 0.f;
+        s[j][e] = p * ((pm[j][e] + dp[j][e]) - (e < 2 ? dl0 : dl1)) * scale;
+      }
+    // dQ += dS K: all three terms of each
+    unsigned ga[3][4];
+    a_from_c3(s[0], s[1], ga[0], ga[1], ga[2]);
+#pragma unroll
+    for (int i = 0; i < DT; i += 2) {
+      unsigned bk[3][4];
+#pragma unroll
+      for (int p = 0; p < 3; ++p) R::b_frag(bk[p], k_p + p * PL, kr, 8 * i);
+      mma_x6_add(acc[i], acc[i + 1], ga, bk);
+    }
+  }
+  cp_async_wait<0>();
+
+  if (!fold_pair(acc, reinterpret_cast<float4*>(tc_smem))) return;
+  float* d0 = dq + (((long long)b * Sq + qr0) * Hq + h) * D + 2 * tq;
+  float* d1 = d0 + 8 * qs;
+#pragma unroll
+  for (int i = 0; i < DT; ++i) {
+    if (qr0 < Sq) *reinterpret_cast<float2*>(d0 + 8 * i) = make_float2(acc[i][0], acc[i][1]);
+    if (qr1 < Sq) *reinterpret_cast<float2*>(d1 + 8 * i) = make_float2(acc[i][2], acc[i][3]);
+  }
+}
+
 // --------------------------------------------------------------- launch
 
 template <class T>
@@ -743,21 +811,20 @@ cudaError_t launch_bwd_f32(const float* q, const float* k, const float* v, const
                            float* dk, float* dv, float* part, int B, int Sq, int Sk, int Hq,
                            int Hkv, int causal, float scale, cudaStream_t stream) {
   static unsigned long long set_dkdv = 0, set_dq = 0;
-  auto dkdv = flash_bwd_dkdv_kernel<D>;
-  auto dqk = flash_bwd_dq_kernel<D>;
-  const size_t smem = BwdTile<D>::BYTES;
+  auto dkdv = flash_bwd_dkdv_x3_kernel<D>;
+  auto dqk = flash_bwd_dq_x3_kernel<D>;
+  const size_t smem = x3_bwd_smem<D>();
   cudaError_t e = set_smem_once(dkdv, smem, set_dkdv);
   if (e == cudaSuccess) e = set_smem_once(dqk, smem, set_dq);
   if (e == cudaSuccess) e = launch_delta(out, dout, delta, B, Sq, Hq, D, stream);
   if (e != cudaSuccess) return e;
   const int G = Hq / Hkv;
-  dkdv<<<dim3((Sk + BK - 1) / BK, Hq, B), BWD_THREADS, smem, stream>>>(
-      q, k, v, dout, lse, delta, dk, dv, G > 1 ? part : nullptr, Sq, Sk, Hq, Hkv, causal,
-      scale);
+  dkdv<<<dim3((Sk + XB_FIX - 1) / XB_FIX, Hq, B), XB_THREADS, smem, stream>>>(
+      q, k, v, dout, lse, delta, dk, dv, part, Sq, Sk, Hq, Hkv, causal, scale);
   e = cudaGetLastError();
   if (e == cudaSuccess && G > 1) e = launch_combine(part, dk, dv, B, Sk, Hkv, D, G, stream);
   if (e != cudaSuccess) return e;
-  dqk<<<dim3((Sq + BQ - 1) / BQ, Hq, B), BWD_THREADS, smem, stream>>>(
+  dqk<<<dim3((Sq + XB_FIX - 1) / XB_FIX, Hq, B), XB_THREADS, smem, stream>>>(
       q, k, v, dout, lse, delta, dq, Sq, Sk, Hq, Hkv, causal, scale);
   return cudaGetLastError();
 }

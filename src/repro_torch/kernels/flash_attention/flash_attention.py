@@ -18,7 +18,8 @@ dtype is its own instantiation, counted apart (``variants``); the training
 forward counts as its own variants of ``flash_attention`` (``lse_f32``,
 ``lse_bf16``), and the backward (``flash_attention_bwd``: delta, dk/dv,
 the combine of the query heads' partials when Hq > Hkv, and dq, counted as
-one) by dtype. The bf16 training pair runs on the tensor cores.
+one) by dtype. Both training pairs run on the tensor cores (fp32 with every
+operand as three bf16 terms); the serving forward on the CUDA cores.
 """
 from __future__ import annotations
 

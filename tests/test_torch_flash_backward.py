@@ -30,8 +30,9 @@ ulp. Against ``_sdpa``'s autograd, fp32: ``GRAD_REL``.
 The card cases (``cuda`` fixture; without a CUDA device they skip) hold
 the kernels to these plain versions: the lse forward and the backward at
 every head dim the kernels are built for, ragged lengths, causal and not,
-in bf16 also at S 4096 and at 2 x 2048 with 4 query heads a KV head (the
-bf16 pair runs on the tensor cores: HMMA in its SASS, none in fp32's),
+in bf16 also at S 4096 and at 2 x 2048 with 4 query heads a KV head (both
+pairs run on the tensor cores: HMMA in their SASS, none in the fp32
+serving forward's),
 fp32 within ``ATOL`` plus ``KERNEL_REL`` 1e-5 of each gradient's largest
 |value| (fp32 sums in other orders: the kernel's tiles against one einsum;
 the absolute floor for a gradient that is 0 up to rounding, as dq of a
@@ -280,9 +281,9 @@ def test_card_function_launches_both_kernels(cuda):
 
 
 def test_card_bf16_pair_on_tensor_cores(cuda):
-    """The bf16 training pair's kernels (every instantiation) hold HMMA
-    instructions in the built library's SASS (``cuobjdump -sass``), and the
-    fp32 pair's hold none."""
+    """The training pair's kernels, bf16 and fp32 (every instantiation),
+    hold HMMA instructions in the built library's SASS (``cuobjdump
+    -sass``), and the fp32 serving forward holds none."""
     import re
     import subprocess
     from pathlib import Path
@@ -296,9 +297,10 @@ def test_card_bf16_pair_on_tensor_cores(cuda):
     kernels = {"flash_fwd_lse_tc_kernel": True,
                "flash_bwd_dkdv_tc_kernel": True,
                "flash_bwd_dq_tc_kernel": True,
-               r"flash_attention_fwd_kernelIfLi\d+ELi\d+ELb1E": False,
-               "flash_bwd_dkdv_kernelILi": False,
-               "flash_bwd_dq_kernelILi": False}
+               "flash_fwd_lse_x3_kernel": True,
+               "flash_bwd_dkdv_x3_kernel": True,
+               "flash_bwd_dq_x3_kernel": True,
+               r"flash_attention_fwd_kernelIfLi\d+ELi\d+EE": False}
     counts: dict = {}
     name = None
     for line in res.stdout.splitlines():

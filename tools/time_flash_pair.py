@@ -11,10 +11,14 @@ held to its plain versions (``ref.flash_forward_ref`` and
 ``ref.flash_backward_ref``, the backward from the kernel's own out and lse)
 at the gates of ``tests/test_torch_flash_backward.py`` (each output within
 1e-5 + 1e-5 of its largest |value|, bf16 one ulp past that; lse within
-1e-5), two launches bit-equal, and timed on the card (CUDA events over
-back-to-back calls, after a warm-up) beside SDPA's forward and backward in
-the same dtype. For the checkout's own tree it also reports each flash
-kernel's registers, spills and shared memory (``cuobjdump -res-usage``)
+1e-5), two launches bit-equal, and timed as calls (CUDA events over
+back-to-back calls, after a warm-up) and on the card (a CUDA graph of 5
+calls, replayed) beside SDPA's forward and backward in the same dtype (its
+backward on the card: its kernels' device time under ``torch.profiler``),
+with the split's floor (the
+tensor-core design's products at bf16's rate: 3 / 10 S x S x D units for
+bf16, 12 / 42 for fp32). It also reports each of the tree's flash
+kernels' registers, spills and shared memory (``cuobjdump -res-usage``)
 and its tensor-core instructions (``HMMA`` in ``cuobjdump -sass``). The
 card's name and power limit come first; the last line is the JSON
 record.
@@ -67,6 +71,24 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def graph_ms(fn, n: int = 5, reps: int = 3) -> float:
+    """Device time of one ``fn()``: ``n`` calls in one CUDA graph."""
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(n):
+            fn()
+    return cuda_ms(g.replay, reps, 1) / n
+
+
+def busy_ms(fn, n: int = 3) -> float:
+    """Device time of one ``fn()`` for an ``autograd.grad`` that a CUDA
+    graph cannot capture: the card's busy time under ``torch.profiler``
+    over ``n`` calls (the tree's ``launch/profile_serve._window``)."""
+    from repro_torch.launch.profile_serve import _window
+    fn()
+    return _window(lambda: [fn() for _ in range(n)], 0)["device_busy_ms"] / n
 
 
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
@@ -126,7 +148,13 @@ def one_shape(name: str, reps: int) -> dict:
     torch.cuda.empty_cache()
     rec["fwd_ms"] = cuda_ms(fwd, reps)
     rec["bwd_ms"] = cuda_ms(bwd, reps)
+    rec["fwd_device_ms"] = graph_ms(fwd)
+    rec["bwd_device_ms"] = graph_ms(bwd)
     rec["bwd_kernels_ms"] = kernel_split(bwd)
+    pairs = S * (S + 1) // 2 if causal else S * S
+    unit = 2 * D * Hq * B * pairs / 989e12 * 1e3  # ms at bf16's rate
+    rec["split_floor_ms"] = [u * unit for u in (
+        (3, 10) if dtype == BF16 else (12, 42))]
     qt, kt, vt = (t.detach().transpose(1, 2).contiguous().requires_grad_()
                   for t in (q, k, v))
     sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
@@ -137,6 +165,8 @@ def one_shape(name: str, reps: int) -> dict:
     dot = do.transpose(1, 2).contiguous()
     rec["sdpa_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
         o, (qt, kt, vt), dot, retain_graph=True), reps)
+    rec["sdpa_bwd_device_ms"] = busy_ms(lambda: torch.autograd.grad(
+        o, (qt, kt, vt), dot, retain_graph=True))
     del q, k, v, do, out, lse, grads, o, qt, kt, vt, dot
     torch.cuda.empty_cache()
     return rec
@@ -209,18 +239,20 @@ def main() -> int:
     card = card_line()
     print(card, flush=True)
     rec: dict = {"src": str(src), "card": card, "build_s": _build.build()}
-    if src == (ROOT / "src").resolve():
-        rec["kernels"] = kernel_resources()
-        for k, v in rec["kernels"].items():
-            print(f"[res] {k}: {v}", flush=True)
+    rec["kernels"] = kernel_resources()
+    for k, v in rec["kernels"].items():
+        print(f"[res] {k}: {v}", flush=True)
     ok = True
     for name in a.shapes.split(","):
         r = one_shape(name, a.reps)
         ok &= r["ok"]
         rec[name] = r
-        print(f"[{name}] ok {r['ok']} | fwd {r['fwd_ms']:.4f} ms (SDPA "
-              f"{r['sdpa_fwd_ms']:.4f}) | bwd {r['bwd_ms']:.4f} ms (SDPA "
-              f"{r['sdpa_bwd_ms']:.4f}) | out {r['out_max_abs_err']:.3g} "
+        print(f"[{name}] ok {r['ok']} | fwd {r['fwd_ms']:.4f} ms, card "
+              f"{r['fwd_device_ms']:.4f} (SDPA {r['sdpa_fwd_ms']:.4f}) | bwd "
+              f"{r['bwd_ms']:.4f} ms, card {r['bwd_device_ms']:.4f} (SDPA "
+              f"{r['sdpa_bwd_ms']:.4f}, card {r['sdpa_bwd_device_ms']:.4f}) "
+              f"| floors {[round(x, 4) for x in r['split_floor_ms']]} | "
+              f"out {r['out_max_abs_err']:.3g} "
               f"lse {r['lse_max_abs_err']:.3g} grads "
               f"{[f'{x:.3g}' for x in r['grads_max_abs_err']]} | past gate "
               f"{r['out_past_gate']:.3g} {[f'{x:.3g}' for x in r['grads_past_gate']]}",
