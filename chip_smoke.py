@@ -31,6 +31,7 @@ against the host CPU.
     python3 chip_smoke.py --families            # phase 24 (not in the full run)
     python3 chip_smoke.py --bf16train           # phase 25 (not in the full run)
     python3 chip_smoke.py --flashtrain          # phase 26 (not in the full run)
+    python3 chip_smoke.py --bf16families        # phase 27 (not in the full run)
 
 ``--scans`` runs only the card line, the build and phase 11's scans (their
 checks and times, no launch configuration), from the ``repro_torch`` under
@@ -54,7 +55,8 @@ without the normal kernels): a parent and a change in one call, trees
 that have the scan tier. ``--normal`` runs that noise stage with its
 launches, then phase 21; ``--tree`` runs phase 22; ``--bf16`` phase 23;
 ``--families`` phase 24; ``--bf16train`` phase 25; ``--flashtrain``
-phase 3's flash training rows, then phase 26.
+phase 3's flash training rows, then phase 26; ``--bf16families`` phase
+27.
 
 Phases (any failed check raises, and the script exits non-zero):
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
@@ -404,6 +406,25 @@ Phases (any failed check raises, and the script exits non-zero):
      plain attention call on the card; step and stage ms, the time in
      attention (reckoned from one layer's attention timed alone at a
      silo's shape), peak GB.
+ 27. (``--bf16families`` only) training in bf16 for every family on the
+     JAX package's two routes, at published width, phase 7's privacy, 16
+     x 64 over 4 silos: (a) rwkv6-7b at 4 of 32 layers and zamba2-7b at
+     12 of 81 (its shared block through the flash pair), and (b)
+     phi3.5-moe at 1 layer and hubert-xlarge at 48 under ``remat`` and
+     ``use_flash``: 3 fused steps under routes (A) and (B), a barrier
+     step under (B) with silo 2 out, 2 scan-tier steps under (B), each
+     with the model's and the DP kernels' launches and nothing else; (c)
+     qwen2-vl-72b's scan tier under (B) at the deepest of VL_SCAN_DEPTHS
+     that fits, its fused tier reckoned; (d) qwen2.5-3b at 12 layers under
+     (B): 3 perleaf barrier steps (4 bf16 ``zsmask_buffer`` launches a
+     step, the corrected instantiation), per-example clipping at 4 x 64
+     (one ``clip_sum``) and per-microbatch clipping (one
+     ``clip_accumulate``), and rows 5, 7 and 9 on the card at that shape;
+     (e) each family's narrow config under (B) card vs CPU within phase
+     25's gates (the loss within FAM_LOSS_RTOL). Step and stage ms and
+     peak GB of every cell; under (B) the bf16 weights the rounded master
+     over the bf16 leaves after every cell; no plain attention, scan or
+     tree-mask call on the card.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -2669,7 +2690,8 @@ def cifar_tiers(dev) -> dict:
                              f"expected {want}")
             if perleaf:  # lambda 0.7: the corrected instantiation only
                 check(variants["zsmask_buffer"] == {
-                    "plain": 0, "prev": want["zsmask_buffer"]},
+                    "plain": 0, "prev": want["zsmask_buffer"], "bf16": 0,
+                    "bf16_prev": 0},
                       f"cifar {cfg.name} perleaf: zsmask_buffer "
                       f"instantiations {variants['zsmask_buffer']}")
             step_ms = [m["step_time_s"] * 1e3 for m in tr.metrics_log]
@@ -3333,9 +3355,12 @@ def normal_phase(dev, sass: str) -> tuple:
 # (147), silo 1 of 4 at sigma 0.3 and C 4 with lambda 0.7 for the mask;
 # WRN28's (16, P) per-example buffer and qwen2.5-3b's (4, P) for the norms
 TREE_PAD = 3.25  # every padding position's value: no tree kernel touches it
-# zsmask_buffer_kernel<false> and <true> in the SASS
-TREE_SASS = {False: r"zsmask_buffer_kernelILb0E",
-             True: r"zsmask_buffer_kernelILb1E"}
+# zsmask_buffer_kernel<false, float> and <true, float> in the SASS (the
+# bf16 instantiations, <PREV, __nv_bfloat16>, are TREE_SASS_BF16)
+TREE_SASS = {False: r"zsmask_buffer_kernelILb0EfE",
+             True: r"zsmask_buffer_kernelILb1EfE"}
+TREE_SASS_BF16 = {False: r"zsmask_buffer_kernelILb0E\d+__nv_bfloat16E",
+                  True: r"zsmask_buffer_kernelILb1E\d+__nv_bfloat16E"}
 
 
 def tree_layouts() -> dict:
@@ -3428,7 +3453,8 @@ def check_zsmask_buffer(dev, name, layout, per_normal, keys, prev) -> dict:
         n_tree = {k: v for k, v in dispatch.launch_counts().items() if v}
         n_var = dispatch.variant_counts()["zsmask_buffer"]
         check(n_tree == {"zsmask_buffer": 1}
-              and n_var == {"plain": int(not use_prev), "prev": int(use_prev)}
+              and n_var == {"plain": int(not use_prev), "prev": int(use_prev),
+                            "bf16": 0, "bf16_prev": 0}
               and n_leaf == {"zsmask": len(table) * (2 if use_prev else 1)},
               f"zsmask_buffer {name}: launches {n_tree} ({n_var}), per-leaf "
               f"{n_leaf}")
@@ -3488,6 +3514,108 @@ def check_zsmask_buffer(dev, name, layout, per_normal, keys, prev) -> dict:
                      if use_prev else "no correction (3 normals)")}
         del work
     del g
+    torch.cuda.empty_cache()
+    return rows
+
+
+def bf16_layout(layout):
+    """``layout`` with every leaf bf16 (route (B)'s tree of the same
+    shapes: the same offsets and total)."""
+    from repro_torch.core import flatbuf
+    return flatbuf.build_layout(layout.paths, layout.shapes, layout.stacks,
+                                ("bfloat16",) * layout.n_leaves)
+
+
+def check_zsmask_buffer_bf16(dev, name, layout, per_normal, keys, prev,
+                             variants=(False, True)) -> dict:
+    """The bf16 instantiations of ``zsmask_buffer`` over every tensor of
+    ``layout`` made bf16 (:func:`bf16_layout`), with and without the
+    correction (``variants``: the ``use_prev`` values checked): the
+    clipped leaves' packed bf16 buffer in, the fp32 contribution row out;
+    bit-equal to the plain version
+    (``ref.zsmask_buffer_bf16_ref``) over every element, the padding of
+    the row untouched, two launches bit-identical; call and card ms beside
+    the bound (the pinned per-normal counts over 6 bytes an element: a bf16
+    read, an fp32 write); the launch configuration. Returns
+    ``{use_prev: row}``."""
+    from repro_torch.core import flatbuf
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.zsmask import ops as zs_ops
+    from repro_torch.kernels.zsmask import ref as zs_ref
+    from repro_torch.kernels.zsmask.zsmask import buffer_config
+    f32 = lambda x: torch.full((), x, dtype=torch.float32, device=dev)
+    sigma_c = f32(0.3) * f32(4.0)
+    b = f32(8.0) * sigma_c
+    lam = 0.7 * f32(1.0) * 1.0
+    lay = bf16_layout(layout)
+    P, n = lay.total, lay.n_params
+    table = flatbuf.leaf_table(lay, "bfloat16")
+    big = name == "qwen12"
+    src = torch.randn(P, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(27)).to(torch.bfloat16)
+    pad = padding_of(lay, dev)
+    rows = {}
+    for use_prev in variants:
+        pk = prev if use_prev else None
+        call = lambda out: zs_ops.zsmask_buffer_bf16(
+            src, out, lay, keys.key_r, keys.key_xi, 1, 4, sigma_c, b, pk, lam)
+        fresh = lambda: torch.full((P,), TREE_PAD, device=dev)
+        dispatch.reset_launches()
+        got = call(fresh())
+        torch.cuda.synchronize()
+        n_tree = {k: v for k, v in dispatch.launch_counts().items() if v}
+        n_var = dispatch.variant_counts()["zsmask_buffer"]
+        v = "bf16_prev" if use_prev else "bf16"
+        check(n_tree == {"zsmask_buffer": 1} and n_var[v] == 1
+              and sum(n_var.values()) == 1,
+              f"zsmask_buffer bf16 {name}: launches {n_tree} ({n_var})")
+        again = call(fresh())
+        check(torch.equal(bits(got), bits(again)),
+              f"zsmask_buffer bf16 {name}: two launches differ")
+        del again
+        check(bool((got[pad] == TREE_PAD).all()),
+              f"zsmask_buffer bf16 {name}: padding touched")
+        plain = zs_ref.zsmask_buffer_bf16_ref(
+            src, fresh(), table, keys.key_r, keys.key_xi, 1, 4, sigma_c, b,
+            pk, lam)
+        err = max_err_by_window(got, lambda a, z: plain[a:z], P)
+        check(err == 0.0 and torch.equal(bits(got), bits(plain)),
+              f"zsmask_buffer bf16 {name} differs from its plain version by "
+              f"{err}")
+        check(bool(torch.isfinite(got).all()),
+              f"zsmask_buffer bf16 {name}: non-finite")
+        del got, plain
+        work = fresh()
+        w = min(DP_WINDOW, P)
+        reps = (3, 1) if big else (20, 3)
+        parts = stream_bound(n, 4 if use_prev else 3, per_normal, words=1.5)
+        bms = max(parts.values())
+        rows[use_prev] = {
+            "max_abs_err": err, "bit_identical_relaunch": True,
+            "padding_untouched": True,
+            "checked_at": f"all {n} elements of {len(table)} bf16 tensors "
+                          f"and the padding",
+            "ms": cuda_ms(lambda: call(work), reps=reps[0], warmup=reps[1]),
+            "device_ms": graph_ms(lambda: call(work), n=2 if big else 20,
+                                  reps=5),
+            "plain_ms": cuda_ms(lambda: zs_ref.zsmask_buffer_bf16_ref(
+                src[:w], work[:w], ((0, w, 0, 0, 0),), keys.key_r,
+                keys.key_xi, 1, 4, sigma_c, b, pk, lam), reps=5),
+            "plain_at": f"window of {w} elements",
+            "library_ms": None,
+            "library_call": "none (no PyTorch call draws keyed threefry "
+                            "normals)",
+            "bound_ms": bms,
+            "bound_by": "bytes" if bms == parts["bytes"] else "operations",
+            "bound_detail": {"ms_by_limit": parts, "per_stream": per_normal,
+                             "bytes_an_element": 6},
+            "config": buffer_config(use_prev, bf16=True),
+            "at": f"{name} in bf16: one silo's pass over the {len(table)} "
+                  f"tensors ({n} elements), bf16 in, fp32 out, "
+                  + ("the correction fused in (4 normals an element)"
+                     if use_prev else "no correction (3 normals)")}
+        del work
+    del src
     torch.cuda.empty_cache()
     return rows
 
@@ -3616,9 +3744,13 @@ def tree_phase(dev, sass: str) -> tuple:
     keys = step_keys(prng.PRNGKey(1), 0)
     prev = step_keys(prng.PRNGKey(1), 1).key_xi
     live = {p: stream_ops(sass, r) for p, r in TREE_SASS.items()}
+    live.update({f"bf16_{int(p)}": stream_ops(sass, r)
+                 for p, r in TREE_SASS_BF16.items()})
     live["zsmask"] = live_stream_ops(sass, "zsmask_kernel")
     pinned = ZSMASK_OPS
     configs = {p: buffer_config(p) for p in (False, True)}
+    configs.update({f"bf16_{int(p)}": buffer_config(p, bf16=True)
+                    for p in (False, True)})
     log(f"[tree] SASS a normal, live (a report; the bound uses zsmask's, "
         f"pinned: {json.dumps(pinned)}): "
         f"{json.dumps({str(k): v for k, v in live.items()})} | zsmask_buffer "
@@ -3636,6 +3768,23 @@ def tree_phase(dev, sass: str) -> tuple:
                 f"{r['per_leaf_ms']:.4f}, card {r['per_leaf_device_ms']:.4f}"
                 f" ms | bound {r['bound_ms']:.4f} ms ({r['bound_by']}) | "
                 f"{r['at']}")
+    # the bf16 instantiations at the same layouts made bf16 (route B's):
+    # both at CNN6's and WRN28's, at qwen2.5-3b's the corrected one, which
+    # every main path runs (lambda 0.7; the uncorrected one is its subset)
+    t_bf16 = time.perf_counter()
+    zs16 = {}
+    for name, layout in layouts.items():
+        zs16[name] = check_zsmask_buffer_bf16(
+            dev, name, layout, pinned, keys, prev,
+            (True,) if name == "qwen12" else (False, True))
+        for use_prev, r in zs16[name].items():
+            log(f"[tree] zsmask_buffer bf16 {name} prev {int(use_prev)}: "
+                f"bit-equal to the plain version, two launches bit-equal | "
+                f"call {r['ms']:.4f} ms, card {r['device_ms']:.4f} ms | "
+                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) | "
+                f"registers {r['config']['registers']} | {r['at']}")
+    bf16_s = time.perf_counter() - t_bf16
+    log(f"[tree] the bf16 instantiations took {bf16_s:.1f} s of phase 22")
     for name, B in (("wrn28", CIFAR_PE), ("qwen12", 4)):
         sq[name] = r = check_sumsq_tree(dev, name, layouts[name], B)
         log(f"[tree] per_example_sumsq_tree {name}: bit-equal to "
@@ -3689,11 +3838,19 @@ def tree_phase(dev, sass: str) -> tuple:
     for name in ("cnn6", "wrn28"):
         main_zs[name] = zs[name][True]
         main_zs[f"{name}_prev0"] = zs[name][False]
+    # the bf16 instantiations' sub-rows: launches on a main path are phase
+    # 27's (--bf16families), none in this run
+    main_zs["bf16"] = dict(zs16["qwen12"][True], launches=0)
+    main_zs["bf16_prev0"] = dict(zs16["wrn28"][False], launches=0)
     main_sq = dict(sq["qwen12"])
     main_sq["pe16"] = sq["wrn28"]
     rec = {"sass_live": {str(k): v for k, v in live.items()},
            "sass_pinned": pinned,
            "configs": {str(k): v for k, v in configs.items()},
+           "zsmask_buffer_bf16": {name: {str(int(p)): r for p, r in
+                                         rows.items()}
+                                  for name, rows in zs16.items()},
+           "bf16_s": bf16_s,
            "per_leaf_launches_on_their_apis": per_leaf,
            "phase_s": time.perf_counter() - t0}
     log(f"[tree] phase 22 in {rec['phase_s']:.1f} s")
@@ -3713,8 +3870,10 @@ def one_phase(phase: str, src: Path) -> int:
     phase 21 (:func:`normal_phase`, after WRN28's noise stage with its
     launches), phase 22 (:func:`tree_phase`), phase 23 (:func:`bf16_phase`),
     phase 24 (:func:`families_phase`), phase 25 (``--bf16train``,
-    :func:`bf16train_phase`) or phase 3's flash training rows and phase 26
-    (``--flashtrain``, :func:`flashtrain_phase`) alone, from the ``repro_torch`` under ``src``
+    :func:`bf16train_phase`), phase 3's flash training rows and phase 26
+    (``--flashtrain``, :func:`flashtrain_phase`) or phase 27
+    (``--bf16families``, :func:`bf16families_phase`) alone, from the
+    ``repro_torch`` under ``src``
     (another tree's, to time two trees in one call); the last line is their
     JSON record."""
     if not torch.cuda.is_available():
@@ -3768,6 +3927,8 @@ def one_phase(phase: str, src: Path) -> int:
         record["rows"] = rows
     elif phase == "bf16train":
         record = bf16train_phase(dev)
+    elif phase == "bf16families":
+        record = bf16families_phase(dev)
     elif phase == "flashtrain":
         import torch.nn.functional as F
         record = {"rows": flash_train_rows(dev, F)}
@@ -4145,17 +4306,20 @@ def route_session(Session, cfg, route: str, **kw):
 
 def weights_are_rounded_master(state, chunk: int = 1 << 26) -> bool:
     """Route (B)'s invariant: the bf16 weights are the fp32 master rounded
-    to nearest even, bit for bit (a chunk at a time)."""
+    to nearest even, bit for bit, over the bf16 leaves' ranges (a mixed
+    tree's fp32 leaves are the master's own views; a chunk at a time)."""
+    from repro_torch.core import flatbuf
     w, m = state.weights, state.opt_state["master"]
-    return all(torch.equal(bits(w[i:i + chunk]),
-                           bits(m[i:i + chunk].to(torch.bfloat16)))
-               for i in range(0, w.shape[0], chunk))
+    return all(torch.equal(bits(w[i:min(i + chunk, z)]),
+                           bits(m[i:min(i + chunk, z)].to(torch.bfloat16)))
+               for a, z in flatbuf.dtype_runs(state.layout, "bfloat16")
+               for i in range(a, z, chunk))
 
 
 def train_cell(Session, cfg, priv, opt, mesh, steps: int, want: dict,
                log_name: str, next_batch=None, route: str = "fp32",
                silo_schedule=None, batch: int = 16, seq_len: int = 64,
-               use_flash=None) -> dict:
+               use_flash=None, make_session=None) -> dict:
     """One training cell through ``Session.train``: ``steps`` steps at
     ``batch x seq_len`` (synthetic tokens, or ``next_batch``'s batches)
     from random weights (seed 0) under ``route`` (:func:`route_session`;
@@ -4163,15 +4327,20 @@ def train_cell(Session, cfg, priv, opt, mesh, steps: int, want: dict,
     launch counts zeroed just before and read just after and equal to
     ``want`` a step (a count given as a function takes the cell's layout;
     as a list, one count a step), nothing else, and no plain per-leaf draw
-    on the card. ``silo_schedule`` pins each step's participation set.
+    on the card; ``make_session(**kw)`` builds the session instead, when
+    given. ``silo_schedule`` pins each step's participation set.
     Losses finite, epsilon rising, the weights moved (under route B, the
     bf16 weights the rounded master); step and stage times and peak
     memory."""
     from repro_torch.kernels import dispatch
 
     kw = dict(privacy=priv, optimizer=opt, mesh=mesh, seed=0)
-    sess = route_session(Session, cfg, route, **kw) if use_flash is None \
-        else flash_session(Session, cfg, route, use_flash, **kw)
+    if make_session is not None:
+        sess = make_session(**kw)
+    elif use_flash is None:
+        sess = route_session(Session, cfg, route, **kw)
+    else:
+        sess = flash_session(Session, cfg, route, use_flash, **kw)
     state, init_s = timed(sess.init_state)
     P = state.layout.total
     master = state.opt_state["master"]
@@ -6827,6 +6996,437 @@ def flashtrain_phase(dev) -> dict:
     return rec
 
 
+# --------------------------------------------------------------- phase 27
+# bf16 training for every family and clip mode (--bf16families only): the
+# MoE, VLM, encoder, ssm and hybrid families on JAX's two routes at
+# published width, mixed fp32/bf16 trees under route (B), the perleaf
+# barrier tier on the bf16 instantiation of zsmask_buffer, per-example and
+# per-microbatch clipping over bf16 weights, and each family's narrow
+# config card vs CPU at phase 25's gates but the loss's, which is
+# tests/test_torch_bf16_families.py's 1e-4 (the card's cuBLAS products sum
+# in another order, as JAX's XLA does, and the families' routing and
+# scans' projections round more often than the dense family)
+RWKV, ZAMBA = "rwkv6-7b", "zamba2-7b"
+# the depths of phases 17 and 24 (PERF.md section 4), and the published one
+# for hubert-xlarge; qwen2-vl-72b's scan tier from 2 layers down
+FAM27_LAYERS = {RWKV: 4, ZAMBA: 12, PHI: 1, HUBERT: 48}
+VL_SCAN_DEPTHS = (2, 1)
+FAM_LOSS_RTOL = 1e-4
+
+
+@contextlib.contextmanager
+def plain_scan_spy(counts: dict):
+    """Counts, under ``counts["plain_calls_on_card"]``, the calls of the
+    scans' plain versions (forward and backward) and of the tree mask's
+    plain versions that got a CUDA tensor: on the card each goes to its
+    kernel or raises."""
+    from repro_torch.kernels.mamba2 import ref as ssd_ref
+    from repro_torch.kernels.rwkv6 import ref as wkv_ref
+    from repro_torch.kernels.zsmask import ref as zs_ref
+
+    counts["plain_calls_on_card"] = 0
+    real = {}
+    for mod, names in ((wkv_ref, ("wkv_chunked_ref", "wkv_backward_ref")),
+                       (ssd_ref, ("ssd_chunked_ref", "ssd_backward_ref")),
+                       (zs_ref, ("zsmask_buffer_ref",
+                                 "zsmask_buffer_bf16_ref"))):
+        for name in names:
+            fn = getattr(mod, name)
+            real[mod, name] = fn
+
+            def spy(*a, _fn=fn, **k):
+                counts["plain_calls_on_card"] += any(
+                    isinstance(x, torch.Tensor) and x.is_cuda for x in a)
+                return _fn(*a, **k)
+
+            setattr(mod, name, spy)
+    try:
+        yield counts
+    finally:
+        for (mod, name), fn in real.items():
+            setattr(mod, name, fn)
+
+
+def family_session(Session, cfg, route: str, use_flash=False, remat=False,
+                   **kw):
+    """A session of ``cfg`` training in bf16 under ``route`` (A: bf16
+    compute over fp32 weights; B: bf16 weights over an fp32 master), over
+    ``build_model(..., remat=, use_flash=)`` as JAX's dry run builds it."""
+    from repro_torch.models.registry import build_model
+
+    sess = Session.from_config(cfg, compute_dtype=torch.bfloat16, **kw)
+    pd = torch.bfloat16 if route == "B" else torch.float32
+    return dataclasses.replace(sess, model=build_model(
+        sess.cfg, sess.device, param_dtype=pd, compute_dtype=torch.bfloat16,
+        remat=remat, use_flash=use_flash))
+
+
+def model_launches(cfg, use_flash: bool, remat: bool, silos: int = 4) -> dict:
+    """The model's kernel launches of one step (every silo's pass): the
+    scans' forward and backward a layer (rwkv6, zamba2's Mamba-2 layers),
+    flash's lse forward (twice under remat) and backward an attention
+    (a transformer layer, or each call of zamba2's shared block)."""
+    L = cfg.n_layers
+    if cfg.family == "ssm":
+        return {"wkv": silos * L, "wkv_bwd": silos * L}
+    out = {}
+    if cfg.family == "hybrid":
+        out = {"ssd": silos * L, "ssd_bwd": silos * L}
+        check(not remat, "zamba2's cells run without remat")
+        L = L // cfg.attn_every
+    if use_flash:
+        out.update(flash_attention=(2 if remat else 1) * L * silos,
+                   flash_attention_bwd=L * silos)
+    return out
+
+
+def vl_batches(cfg, dev, B: int = 16, S: int = 64, seed: int = 27):
+    """qwen2-vl's frontend stub: ``embeds`` (B, S, d_model), distinct
+    (3, B, S) M-RoPE ids and labels, drawn on the card from a seed."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def next_batch():
+        return {"embeds": torch.randn(B, S, cfg.d_model, device=dev,
+                                      generator=gen),
+                "positions": mrope_ids(B, S, dev, gen),
+                "labels": torch.randint(0, cfg.vocab_size, (B, S),
+                                        device=dev, generator=gen)}
+
+    return next_batch
+
+
+def family_cells(Session, cfg, dev, privs, opt, mesh4, use_flash: bool,
+                 remat: bool, log_name: str) -> dict:
+    """Phase 27(a)/(b) for one family at ``cfg``'s cut depth: 3 fused steps
+    under route (A) and under route (B), a barrier step under (B) with silo
+    2 out, 2 scan-tier steps under (B); each cell's launches (the model's,
+    the DP kernels', nothing else), step and stage ms and peak GB, the
+    bf16 weights the rounded master after every (B) cell."""
+    priv, priv_b, priv_s = privs
+    kind = {"vlm": "vl", "encoder": "frames"}.get(cfg.family)
+    model = model_launches(cfg, use_flash, remat)
+
+    def batches():
+        if kind == "frames":
+            return frame_batches(cfg, dev)
+        return vl_batches(cfg, dev) if kind == "vl" else None
+
+    def cell(tier, route, p, mesh, steps, dp, sched=None):
+        return train_cell(
+            Session, cfg, p, opt, mesh, steps, {**model, **dp},
+            f"{log_name}-{tier}", next_batch=batches(), route=route,
+            silo_schedule=sched,
+            make_session=lambda **kw: family_session(
+                Session, cfg, route, use_flash, remat, **kw))
+
+    rec = {}
+    for route in ("A", "B"):
+        rec[f"fused_{route}"] = cell("fused", route, priv, None, 3, {
+            "clip_accumulate": 1, "noise_batch": 1})
+    rec["barrier_B"] = cell("barrier", "B", priv_b, mesh4, 1,
+                            {"clip_mask": 3},
+                            lambda t: [True, True, False, True])
+    rec["scan_B"] = cell("scan", "B", priv_s, None, 2, {
+        "normal_combine": lambda lay: len(leaf_slices(lay))})
+    rec.update(use_flash=use_flash, remat=remat, model_launches=model)
+    return rec
+
+
+def vl_scan_search(Session, cfg, dev, priv_s, opt) -> dict:
+    """Phase 27(c): qwen2-vl-72b's scan tier under route (B) at the
+    deepest of VL_SCAN_DEPTHS that fits the card, 2 steps; the fused tier
+    reckoned, not run (its fp32 copies alone exceed the card)."""
+    import gc
+
+    from repro_torch.core import flatbuf
+    from repro_torch.models.packing import param_tree
+    from repro_torch.models.transformer import Transformer
+
+    rec: dict = {"tried": []}
+    for depth in VL_SCAN_DEPTHS:
+        cut = dataclasses.replace(cfg, n_layers=depth)
+        P = flatbuf.layout_of(param_tree(Transformer(cut, "meta"))).total
+        # master, two moments and the stacked (4, P) rows in fp32, the
+        # bf16 weights: what the fused tier holds before any activation
+        fused_gb = (7 * 4 + 2) * P / 1e9
+        rec["tried"].append({"n_layers": depth, "P": P,
+                             "fused_tier_reckoned_gb": fused_gb})
+        try:
+            cell = train_cell(
+                Session, cut, priv_s, opt, None, 2,
+                {"normal_combine": lambda lay: len(leaf_slices(lay))},
+                "bf16fam-vl-scan", next_batch=vl_batches(cut, dev),
+                route="B", make_session=lambda **kw: family_session(
+                    Session, cut, "B", **kw))
+        except torch.cuda.OutOfMemoryError as e:
+            rec["tried"][-1]["error"] = str(e)[:200]
+            log(f"[bf16fam-vl-scan] {depth} layers do not fit the card "
+                f"under route B: {str(e)[:160]}")
+            gc.collect()
+            torch.cuda.empty_cache()
+            continue
+        rec.update(n_layers=depth, **cell)
+        break
+    check("n_layers" in rec, f"qwen2-vl's route B scan tier fits at none of "
+                             f"{VL_SCAN_DEPTHS} layers")
+    log(f"[bf16fam-vl-scan] qwen2-vl-72b: the scan tier under route B at "
+        f"{rec['n_layers']} layers (peak {rec['peak_mem_gb']:.2f} GB); the "
+        f"fused tier reckoned at " + ", ".join(
+            f"{t['n_layers']} layers {t['fused_tier_reckoned_gb']:.1f} GB"
+            for t in rec["tried"]) + " before activations: not run")
+    return rec
+
+
+def dp_card_ms(dev, P: int) -> dict:
+    """PERF.md rows 5, 7 and 9 on the card at the 12-layer training shape
+    (qwen2.5-3b, P packed): ``clip_accumulate`` over the (4, P) silo rows,
+    ``clip_sum`` over 4 examples' (4, P) rows, ``noise_batch`` over the
+    (P,) aggregate; each as a call (CUDA events around back-to-back calls)
+    and on the card (calls captured into one CUDA graph)."""
+    from repro_torch.core import prng
+    from repro_torch.core.barrier import step_keys
+    from repro_torch.kernels.dp_clip import ops as clip_ops
+    from repro_torch.kernels.dp_fused import ops as noise_ops
+
+    gen = torch.Generator(device=dev).manual_seed(27)
+    g = torch.randn(4, P, device=dev, generator=gen)
+    scale = torch.tensor([0.731, 1.0, 0.0, 0.418], device=dev)
+    c = torch.ones((), device=dev)
+    keys = step_keys(prng.PRNGKey(1), 0)
+    prev = step_keys(prng.PRNGKey(1), 1).key_xi
+    scales = torch.tensor([0.075, 0.075, 0.0, 0.075], device=dev)
+    lams = torch.tensor([0.7, 0.0, 0.0, 0.7], device=dev)
+    g_sum = clip_ops.clip_accumulate(g, scale)
+    calls = {
+        "clip_accumulate": lambda: clip_ops.clip_accumulate(g, scale),
+        "clip_sum": lambda: noise_ops.clip_sum_packed(g, c),
+        "noise_batch": lambda: noise_ops.noise_batch(
+            g_sum, keys.key_xi, prev, scales, lams, 0.075)}
+    out = {}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        out[name] = {"ms": cuda_ms(fn, reps=5, warmup=1),
+                     "device_ms": graph_ms(fn, n=2, reps=5),
+                     "at": f"qwen2.5-3b at 12 layers: "
+                           + ("(P,) aggregate" if name == "noise_batch"
+                              else "(4, P) rows") + f", P {P}"}
+        log(f"[bf16fam-dp] {name}: call {out[name]['ms']:.3f} ms, card "
+            f"{out[name]['device_ms']:.3f} ms | {out[name]['at']}")
+    del g, g_sum
+    torch.cuda.empty_cache()
+    return out
+
+
+def qwen_bf16_clip_modes(Session, cfg, dev, priv_b, opt, mesh4) -> dict:
+    """Phase 27(d): qwen2.5-3b at full width and 12 layers under route
+    (B): 3 perleaf barrier steps (one bf16 ``zsmask_buffer`` launch a silo
+    a step, the corrected instantiation: the tree is all bf16, so no fp32
+    launch), then per-example clipping at 4 x 64 (one ``clip_sum``) and
+    per-microbatch clipping of the same batch in 4 groups (one
+    ``clip_accumulate``), each timed with its peak memory; rows 5, 7 and 9
+    on the card at this shape (:func:`dp_card_ms`)."""
+    from repro_torch.core import clipping
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.dispatch import force_impl
+
+    rec: dict = {}
+    with force_impl("perleaf", kernel="dp_noise_tree"):
+        rec["perleaf_barrier"] = train_cell(
+            Session, cfg, priv_b, opt, mesh4, 3, {"zsmask_buffer": 4},
+            "bf16fam-perleaf", route="B")
+    var = dispatch.variant_counts()["zsmask_buffer"]
+    check(var == {"plain": 0, "prev": 0, "bf16": 0, "bf16_prev": 12},
+          f"perleaf barrier under route B: zsmask_buffer instantiations "
+          f"{var}, expected 12 bf16_prev")
+    rec["perleaf_barrier"]["launches_by_instantiation"] = var
+    sess = family_session(Session, cfg, "B", seed=0)
+    params = sess.init_params()
+    batch = sess.synthetic_batches(4, 64)()
+    for mode, fn, want in (
+            ("per_example", lambda: clipping.per_example_clipped_grad(
+                sess.model.loss, params, batch, 1.0, impl="packed"),
+             {"clip_sum": 1}),
+            ("per_microbatch", lambda: clipping.per_microbatch_clipped_grad(
+                sess.model.loss, params, batch, 1.0, n_micro=4),
+             {"clip_accumulate": 1})):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dispatch.reset_launches()
+        t0 = time.perf_counter()
+        summed, norms, loss = fn()
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        n = {k: v for k, v in dispatch.launch_counts().items() if v}
+        check(n == want, f"{mode} over bf16 weights: launches {n}, "
+                         f"expected {want}")
+        top = max(t.abs().max().item() for t in summed.values()
+                  if isinstance(t, torch.Tensor)) if isinstance(
+            summed, dict) else summed.abs().max().item()
+        check(norms.shape == (4,) and bool(torch.isfinite(norms).all())
+              and math.isfinite(float(loss)) and math.isfinite(top),
+              f"{mode} over bf16 weights: norms {norms}, loss {loss}")
+        rec[mode] = {"s": s, "peak_mem_gb":
+                     torch.cuda.max_memory_allocated() / 1e9,
+                     "launches": n, "norms": norms.tolist(),
+                     "loss": float(loss)}
+        log(f"[bf16fam-clip] qwen2.5-3b at 12 layers, route B, {mode} "
+            f"at 4 x 64: {s:.2f} s, peak {rec[mode]['peak_mem_gb']:.2f} GB,"
+            f" launches {n}, norms {[round(x, 4) for x in norms.tolist()]}")
+        del summed, norms
+    P = sess.init_state(params=params).layout.total
+    del params, sess, batch
+    torch.cuda.empty_cache()
+    rec["dp_rows"] = dp_card_ms(dev, P)
+    return rec
+
+
+def bf16_family_cross_device(Session, arch: str, priv, opt) -> dict:
+    """Phase 27(e): ``arch``'s narrow (smoke) config under route (B) on the
+    card and on the host CPU from the same weights and batch: one fused
+    pass and one train step each; the loss within FAM_LOSS_RTOL, norms,
+    bound, noisy gradient and master within phase 25's BF16_* gates, the
+    carried key bit-equal, the bf16 weights the rounded master on
+    both, no kernel launched by the CPU run."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import prng
+    from repro_torch.core.barrier import step_keys
+    from repro_torch.distributed import steps as steps_mod
+    from repro_torch.kernels import dispatch
+
+    cfg = get_smoke_config(arch)
+    sess = {d: family_session(Session, cfg, "B", privacy=priv,
+                              optimizer=opt, seed=3, device=d)
+            for d in ("cuda", "cpu")}
+    p_cpu = sess["cpu"].init_params()
+    p_gpu = copy.deepcopy(p_cpu).to("cuda")
+    cpu = torch.device("cpu")
+    if cfg.family in ("vlm", "encoder"):
+        nb = vl_batches(cfg, cpu, 16, 32) if cfg.mrope \
+            else frame_batches(cfg, cpu, 16, 32)
+        batch = nb()
+    else:
+        batch = sess["cpu"].synthetic_batches(16, 32)()
+    out = {}
+    for d, p in (("cuda", p_gpu), ("cpu", p_cpu)):
+        dispatch.reset_launches()
+        out[d] = narrow_step(sess[d], p, {k: v.to(d) for k, v in
+                                          batch.items()},
+                             steps_mod, step_keys, prng)
+        out[d] += (dispatch.launch_counts(),)
+    (n_g, m_g, x_g, s_g, c_g), (n_c, m_c, x_c, s_c, c_c) = \
+        out["cuda"], out["cpu"]
+    check(c_g["clip_accumulate"] == 2 and c_g["noise_batch"] == 2,
+          f"{arch} narrow card launches {c_g}")
+    check(all(v == 0 for v in c_c.values()), f"the CPU step launched {c_c}")
+    check(x_g["prev_key"] == x_c["prev_key"]
+          and s_g.noise_state.prev_key == s_c.noise_state.prev_key,
+          f"{arch}: carried noise key differs between card and CPU")
+    check(weights_are_rounded_master(s_g) and weights_are_rounded_master(s_c),
+          f"{arch} narrow: the weights are not the rounded master")
+    loss_err = abs(x_g["loss"] - x_c["loss"]) / abs(x_c["loss"])
+    check(loss_err <= FAM_LOSS_RTOL, f"{arch} narrow loss: card "
+                                     f"{x_g['loss']} vs CPU {x_c['loss']}")
+    for k in ("clip_bound", "grad_norm_mean"):
+        check(math.isclose(m_g[k], m_c[k], rel_tol=BF16_NORM_RTOL),
+              f"{arch} narrow {k}: card {m_g[k]} vs CPU {m_c[k]}")
+    norm_err = ((x_g["norms"] - x_c["norms"]).abs()
+                / x_c["norms"].abs()).max().item()
+    check(norm_err <= BF16_NORM_RTOL, f"{arch} narrow norms {norm_err}")
+    noisy_err = (n_g - n_c).abs().max().item()
+    check(noisy_err <= BF16_NOISY_ATOL, f"{arch} noisy gradient "
+                                        f"{noisy_err}")
+    dp = (s_g.opt_state["master"].cpu() - s_c.opt_state["master"]).abs()
+    share = (dp > opt.lr / 10).float().mean().item()
+    check(dp.max().item() <= BF16_PARAM_ATOL and share <= BF16_FLIP_SHARE,
+          f"{arch} master differs: max {dp.max().item()}, {share} past "
+          f"lr/10")
+    rec = {"P": s_c.layout.total, "dtypes": sorted(set(s_c.layout.dtypes)),
+           "loss": [x_g["loss"], x_c["loss"]], "loss_rel_err": loss_err,
+           "norms_max_rel_err": norm_err, "noisy_max_abs_err": noisy_err,
+           "master_max_abs_err": dp.max().item(),
+           "master_share_past_lr_10": share, "card_launches": {
+               k: v for k, v in c_g.items() if v}}
+    log(f"[bf16fam-slice] {arch} narrow (P {rec['P']}, "
+        f"{'/'.join(rec['dtypes'])}), route B, card vs CPU: loss rel "
+        f"{loss_err:.3g} | norms rel {norm_err:.3g} | noisy max |diff| "
+        f"{noisy_err:.3g} | master max |diff| {dp.max().item():.3g}, "
+        f"{share:.3g} past lr/10 | card launches {rec['card_launches']}")
+    return rec
+
+
+def bf16families_phase(dev) -> dict:
+    """Phase 27 (``--bf16families`` only): training in bf16 for every
+    family of JAX's ``build_model`` at published width, phase 7's privacy
+    (4 silos, sigma 0.3, dynamic clipping, lambda 0.7), AdamW lr 1e-3,
+    16 x 64 a step. (a) rwkv6-7b at 4 of 32 layers and zamba2-7b at 12 of
+    81 (its shared block through the flash pair): :func:`family_cells`;
+    (b) phi3.5-moe at 1 layer and hubert-xlarge at 48 under ``remat``
+    and ``use_flash``: the same; (c) qwen2-vl-72b's scan tier
+    (:func:`vl_scan_search`); (d) qwen2.5-3b at 12 layers under route
+    (B): the perleaf barrier tier, per-example and per-microbatch
+    clipping, and PERF.md rows 5, 7 and 9 on the card
+    (:func:`qwen_bf16_clip_modes`); (e) each family's narrow config card
+    vs CPU (:func:`bf16_family_cross_device`). No plain attention, scan or
+    tree-mask call on the card throughout."""
+    from repro_torch.api import Session
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import (MeshConfig, OptimizerConfig,
+                                          PrivacyConfig)
+
+    t0 = time.perf_counter()
+    priv = PrivacyConfig(enabled=True, sigma=0.3, clip_bound=1.0,
+                         dynamic_clip=True, noise_lambda=0.7, n_silos=4)
+    privs = (priv, dataclasses.replace(priv, sync_path="barrier"),
+             dataclasses.replace(priv, silo_mode="scan"))
+    opt = OptimizerConfig(name="adamw", lr=1e-3)
+    mesh4 = MeshConfig((4,), ("data",))
+    rec: dict = {"cells": {}, "phase_s": {}}
+    attn: dict = {}
+    scans: dict = {}
+    with plain_attention_spy(attn), plain_scan_spy(scans):
+        for arch, flash, remat in ((RWKV, False, False), (ZAMBA, True, False),
+                                   (PHI, True, True), (HUBERT, True, True)):
+            t1 = time.perf_counter()
+            cut = dataclasses.replace(get_config(arch),
+                                      n_layers=FAM27_LAYERS[arch])
+            rec["cells"][arch] = family_cells(Session, cut, dev, privs, opt,
+                                              mesh4, flash, remat, "bf16fam")
+            rec["phase_s"][arch] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        rec["vl_scan"] = vl_scan_search(Session, get_config(VL), dev,
+                                        privs[2], opt)
+        rec["phase_s"]["vl_scan"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        cut12 = dataclasses.replace(get_config("qwen2.5-3b"), n_layers=12)
+        rec["qwen12"] = qwen_bf16_clip_modes(Session, cut12, dev, privs[1],
+                                             opt, mesh4)
+        rec["phase_s"]["qwen12"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        narrow_priv = dataclasses.replace(priv, clip_percentile_max=NARROW_CAP)
+        rec["cross_device"] = {
+            arch: bf16_family_cross_device(Session, arch, narrow_priv, opt)
+            for arch in (PHI, VL, HUBERT, RWKV, ZAMBA)}
+        rec["phase_s"]["cross_device"] = time.perf_counter() - t1
+    check(attn["plain_calls_on_card"] == 0 and scans["plain_calls_on_card"]
+          == 0, f"plain calls on the card: attention "
+                f"{attn['plain_calls_on_card']}, scans and tree masks "
+                f"{scans['plain_calls_on_card']}")
+    rec["plain_calls_on_card"] = 0
+    for arch, cells in rec["cells"].items():
+        log(f"[bf16fam] {arch} at {FAM27_LAYERS[arch]} layers: ms a step "
+            f"after the first, fused A / fused B: " + " / ".join(
+                f"{sum(cells[c]['step_ms'][1:]) / 2:.1f}"
+                for c in ("fused_A", "fused_B")) + " | peak GB fused A / B "
+            "/ barrier B / scan B: " + " / ".join(
+                f"{cells[c]['peak_mem_gb']:.2f}" for c in (
+                    "fused_A", "fused_B", "barrier_B", "scan_B")))
+    rec["total_s"] = time.perf_counter() - t0
+    log(f"[bf16fam] phase 27 in {rec['total_s']:.1f} s; no plain attention, "
+        f"scan or tree-mask call on the card")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -7510,7 +8110,8 @@ def main() -> int:
         agg = flatbuf.zero_padding(layout9, agg.clone())  # frees the rows
         check(n_one["zsmask_buffer"] == N_SILOS
               and sum(n_one.values()) == n_one["zsmask_buffer"]
-              and v_one == {"plain": 0, "prev": N_SILOS},
+              and v_one == {"plain": 0, "prev": N_SILOS, "bf16": 0,
+                            "bf16_prev": 0},
               f"perleaf barrier step launches {n_one} ({v_one}): "
               f"zsmask_buffer {N_SILOS} (one a silo, lambda-corrected), no "
               f"other kernel")
@@ -7550,7 +8151,8 @@ def main() -> int:
           f"epsilon does not rise: {eps}")
     check(n_perleaf["zsmask_buffer"] == STEPS * N_SILOS
           and sum(n_perleaf.values()) == n_perleaf["zsmask_buffer"]
-          and v_perleaf == {"plain": 0, "prev": STEPS * N_SILOS},
+          and v_perleaf == {"plain": 0, "prev": STEPS * N_SILOS,
+                            "bf16": 0, "bf16_prev": 0},
           f"perleaf barrier launches {n_perleaf} ({v_perleaf}): "
           f"zsmask_buffer {STEPS} x {N_SILOS}, lambda-corrected, no other "
           f"kernel")
@@ -7718,7 +8320,8 @@ def main() -> int:
     # each, lambda-corrected
     check(xg["launches"]["zsmask_buffer"] == 2 * N_SILOS
           and sum(xg["launches"].values()) == xg["launches"]["zsmask_buffer"]
-          and xg["variants"] == {"plain": 0, "prev": 2 * N_SILOS}
+          and xg["variants"] == {"plain": 0, "prev": 2 * N_SILOS,
+                                 "bf16": 0, "bf16_prev": 0}
           and not any(xc["launches"].values()),
           f"narrow perleaf barrier launches: card {xg['launches']}, CPU "
           f"{xc['launches']}")
@@ -8042,7 +8645,7 @@ def main() -> int:
                     "d80_verify4", "d80_chunk16", "d96", "d96_verify4",
                     "d96_chunk16", "cnn6", "wrn28", "pe16", "w22",
                     "leaf311m", "prev0", "cnn6_prev0", "wrn28_prev0",
-                    *BF16_SUBROWS, *FLASH_TRAIN_SUBROWS):
+                    "bf16_prev0", *BF16_SUBROWS, *FLASH_TRAIN_SUBROWS):
             if sub in r:
                 entry[sub] = {x: r[sub][x] for x in (
                     "max_abs_err", "ms", "device_ms", "plain_ms",
@@ -8054,7 +8657,7 @@ def main() -> int:
                     "not_bit_equal_share", "max_ulps", "past_one_ulp",
                     "bit_equal_to_fp32_kernel", "lse_max_abs_err",
                     "model_max_abs_err", "bit_equal_launches",
-                    "library_call", "split_floor_ms")
+                    "library_call", "split_floor_ms", "config")
                     if x in r[sub]}
         if "wire" in r:
             entry["wire"]["launches"] = r["wire"]["launches"]
@@ -8076,7 +8679,7 @@ if __name__ == "__main__":
         if "--src" in args else ROOT / "src"
     for phase in ("scans", "pool", "wire", "bwd", "streams", "slice15",
                   "persist", "cifar", "prng", "normal", "tree", "bf16",
-                  "families", "bf16train", "flashtrain"):
+                  "families", "bf16train", "flashtrain", "bf16families"):
         if f"--{phase}" in args:
             sys.exit(one_phase(phase, src))
     sys.exit(main())

@@ -28,8 +28,9 @@ the flags bool). Save moves one leaf at a time to the host; restore
 and the parameters viewing ``master`` keep their storage, and the packed
 padding stays zero. The ``.params`` leaves equal ``master``'s in fp32:
 restore checks their hash and shape and takes the values from ``master``.
-With bf16 weights (``TrainState.weights``) the ``.params`` leaves are the
-bf16 buffer's and restore loads them into it.
+With bf16 weights (``TrainState.weights``) the ``.params`` leaves of bf16
+dtype are the bf16 buffer's and restore loads them into it; in a mixed
+tree the fp32 leaves stay the master's, as in an fp32 state.
 
 A bf16 leaf is stored as JAX's ``np.save`` stores an ``ml_dtypes``
 bfloat16 array, which the port does not import: its raw 2-byte values
@@ -151,18 +152,24 @@ def _generic_leaves(tree, values: dict) -> list:
     return out
 
 
-def _buffer_leaves(prefix: str, layout, buf: torch.Tensor,
-                   load: bool) -> list:
+def _buffer_leaves(prefix: str, layout, buf: torch.Tensor, load: bool,
+                   bf16: Optional[torch.Tensor] = None) -> list:
+    """An entry for each leaf of the layout, its slice of ``buf``; with
+    ``bf16`` (the packed bf16 weights) a bf16 leaf's slice of that buffer
+    instead, which always loads (the fp32 leaves are ``buf``'s and load as
+    ``load`` says)."""
     out = []
-    for path, shape, size, off in zip(layout.paths, layout.shapes,
-                                      layout.sizes, layout.offsets):
-        view = buf[off:off + size].view(shape)
+    for path, shape, size, off, dt in zip(layout.paths, layout.shapes,
+                                          layout.sizes, layout.offsets,
+                                          layout.dtypes):
+        half = bf16 is not None and dt == "bfloat16"
+        view = (bf16 if half else buf)[off:off + size].view(shape)
 
         def put(a, view=view):
             view.copy_(_tensor(a).view(view.shape))
         out.append(_Leaf(prefix + path.replace(".", "/"), tuple(shape),
                          lambda view=view: _host(view),
-                         put if load else None))
+                         put if load or half else None))
     return out
 
 
@@ -176,8 +183,7 @@ def _state_leaves(state, scalars: dict) -> list:
 
     layout = state.layout
     leaves = _buffer_leaves(".params/", layout, state.opt_state["master"],
-                            load=False) if state.weights is None \
-        else _buffer_leaves(".params/", layout, state.weights, load=True)
+                            load=False, bf16=state.weights)
     for k in sorted(state.opt_state):
         v = state.opt_state[k]
         if isinstance(v, torch.Tensor):

@@ -15,10 +15,15 @@ factor (``dp_fused/ref.clip_sum_ref`` and ``dp_clip/ref.clip_scales``:
 ``max(norm, 1e-12)``; the per-leaf route's norms are ``sqrt(ss)``.
 
 Both granularities run over bf16 compute with fp32 weights (their
-gradients are fp32, as JAX's); with bf16 weights they raise
-``NotImplementedError`` (ROADMAP.md queue 1 item 15b): JAX rounds each
-clipped group's gradient back to bf16 before the fp32 sum, and its
-per-example route over bf16 leaves is not held here.
+gradients are fp32, as JAX's) and over bf16 weights, a tree fp32, bf16 or
+mixed. Per example, each example's bf16 gradient widens exactly into its
+fp32 row, as JAX's kernels read ``g`` and widen it
+(``repro/kernels/dp_clip/dp_clip.py:33,67``, ``dp_fused.py:63,76``), so
+the clip-and-sum is the fp32 one. Per microbatch, JAX's ``clip_tree``
+rounds each clipped group's gradient back to its leaf's dtype before the
+fp32 sum (``repro/core/clipping.py:35,66``): the port scales each group's
+row in fp32, rounds the row's bf16 ranges (``core/flatbuf.dtype_runs``)
+to bf16 and back, then sums the rows.
 """
 from __future__ import annotations
 
@@ -101,13 +106,6 @@ def trainable(tensors):
             t.requires_grad_(f)
 
 
-def _fp32_weights(tensors, mode: str) -> None:
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise NotImplementedError(
-            f"{mode} clipping with bf16 weights (ROADMAP.md queue 1 item "
-            f"15b); bf16 compute over fp32 weights runs")
-
-
 def per_example_grads(loss_fn: Callable, params, batch: dict):
     """Every example's gradient, each example run as a batch of one:
     ``(layout, (B, P) buffer, losses (B,))``, row b example b's gradient
@@ -115,7 +113,6 @@ def per_example_grads(loss_fn: Callable, params, batch: dict):
     tree = packing.param_tree(params)
     layout = flatbuf.layout_of(tree)
     tensors = flatbuf.flat_tensors(layout, tree)
-    _fp32_weights(tensors, "per-example")
     B = next(iter(batch.values())).shape[0]
     buf = torch.empty((B, layout.total), dtype=torch.float32,
                       device=tensors[0].device)
@@ -150,12 +147,12 @@ def per_microbatch_clipped_grad(loss_fn: Callable, params, batch: dict,
                                 clip_bound, n_micro: int):
     """Group-level clipping: the batch split into ``n_micro`` groups, each
     group's mean gradient clipped as a whole (:func:`clip_tree`), the
-    clipped groups summed in order. Returns ``(summed tree fp32, norms
-    (n_micro,), mean loss)``."""
+    clipped groups summed in order, a bf16 leaf's clipped gradient rounded
+    to bf16 first (JAX's ``clip_tree``). Returns ``(summed tree fp32,
+    norms (n_micro,), mean loss)``."""
     tree = packing.param_tree(params)
     layout = flatbuf.layout_of(tree)
     tensors = flatbuf.flat_tensors(layout, tree)
-    _fp32_weights(tensors, "per-microbatch")
     B = next(iter(batch.values())).shape[0]
     if B % n_micro:
         raise ValueError(f"batch of {B} does not split into {n_micro} groups")
@@ -176,7 +173,14 @@ def per_microbatch_clipped_grad(loss_fn: Callable, params, batch: dict,
             losses.append(loss.detach())
     with torch.no_grad():
         norms = torch.stack(norms)
-        summed = clip_ops.clipped_sum(buf, clip_scale(norms, clip_bound))
+        scales = clip_scale(norms, clip_bound)
+        runs = flatbuf.dtype_runs(layout, "bfloat16")
+        if runs:
+            buf.mul_(scales[:, None])
+            for a, z in runs:
+                buf[:, a:z] = buf[:, a:z].to(torch.bfloat16)
+            scales = torch.ones_like(scales)
+        summed = clip_ops.clipped_sum(buf, scales)
     return flatbuf.unpack(layout, summed, dtype=torch.float32), norms, \
         torch.stack(losses).mean()
 

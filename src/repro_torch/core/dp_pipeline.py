@@ -354,8 +354,10 @@ class DPPipeline:
         gate = float(self._active_or_full(active)[silo])
         scaled = scale * gate
         if priv.mask_mode == "none":
-            # confidentiality-only sync: clipped gradient, no DP terms
-            return torch.mul(packed, scaled, out=out)
+            # confidentiality-only sync: clipped gradient, no DP terms; a
+            # bf16 leaf's clipped gradient rounded to bf16, as JAX's
+            # ``(x * scaled).astype(x.dtype)``
+            return self._round_bf16(torch.mul(packed, scaled, out=out))
         if priv.mask_mode == "admin":
             return self._contribution_admin(packed, silo, scaled, active,
                                             keys, state, bound, admin_row,
@@ -399,6 +401,14 @@ class DPPipeline:
         priv = self.priv
         buf = torch.mul(packed, scale, out=out)
         dev = buf.device
+        half = None
+        if self.bf16_runs:
+            # JAX's (x * scale).astype(x.dtype): the clipped bf16 leaves,
+            # which the bf16 instantiation reads
+            half = torch.empty(self.layout.total, dtype=torch.bfloat16,
+                               device=dev)
+            for a, z in self.bf16_runs:
+                half[a:z].copy_(buf[a:z])
         bound = torch.as_tensor(bound, dtype=torch.float32, device=dev)
         sigma_c = priv.sigma * bound
         hp = torch.full((), 1.0 if state.has_prev else 0.0,
@@ -407,8 +417,42 @@ class DPPipeline:
         masking.mask_buffer(buf, self.layout, keys.key_r, keys.key_xi, silo,
                             self.n_silos, sigma_c, priv.mask_scale * sigma_c,
                             state.prev_key if priv.noise_lambda > 0.0
-                            else None, lam_gate)
+                            else None, lam_gate, half=half)
         return flatbuf.unpack(self.layout, buf, dtype=torch.float32)
+
+    @property
+    def bf16_runs(self) -> tuple:
+        """The bf16 leaves' ranges of the packed buffer
+        (``flatbuf.dtype_runs``): empty for an fp32 tree."""
+        return flatbuf.dtype_runs(self.layout, "bfloat16")
+
+    def _round_bf16(self, buf: torch.Tensor) -> torch.Tensor:
+        """``buf`` (P,) fp32 with its bf16 leaves' ranges rounded to bf16
+        (and widened back), in place."""
+        for a, z in self.bf16_runs:
+            buf[a:z] = buf[a:z].to(torch.bfloat16)
+        return buf
+
+    def bf16_contributions(self) -> bool:
+        """Whether the barrier tier's contributions hold bf16 leaves: mask
+        mode ``none``, or the perleaf policy without the lambda correction
+        (with it, ``m - lam * p`` promotes a bf16 leaf to fp32: the strong
+        fp32 ``lam`` of JAX's step). The packed policy and the admin
+        masks contribute fp32."""
+        if not self.bf16_runs:
+            return False
+        return self.priv.mask_mode == "none" or (
+            self.priv.mask_mode == "pairwise"
+            and self.policy.mode == "perleaf"
+            and not self.priv.noise_lambda > 0.0)
+
+    def round_aggregate(self, agg: torch.Tensor) -> torch.Tensor:
+        """JAX's ``psum`` over the silo mesh of contributions with bf16
+        leaves (:meth:`bf16_contributions`), on XLA's CPU backend: the
+        leaves added in fp32 in silo order (:func:`reduce_contributions`)
+        and the sum rounded to bf16 once, which ``finalize`` widens; in
+        place. The identity otherwise."""
+        return self._round_bf16(agg) if self.bf16_contributions() else agg
 
     def finalize(self, agg) -> dict:
         """The aggregated contribution -> the fp32 gradient tree: views into

@@ -122,6 +122,26 @@ def build_layout(paths, shapes, stacks, dtypes=None) -> PackedLayout:
                         _round_up(off, ALIGN))
 
 
+@functools.lru_cache(maxsize=64)
+def dtype_runs(layout: PackedLayout, dtype: str) -> tuple:
+    """The ``(start, end)`` ranges of the (P,) buffer that the leaves of
+    ``dtype`` (a name, ``"bfloat16"``) and their padding span, adjacent
+    leaves merged into one range, in buffer order; a range that ends at
+    the last leaf takes the buffer's tail padding too, so a tree of one
+    dtype is the one range ``(0, total)``."""
+    runs: list = []
+    for dt, off, pad in zip(layout.dtypes, layout.offsets, layout.padded):
+        if dt != dtype:
+            continue
+        if runs and runs[-1][1] == off:
+            runs[-1][1] = off + pad
+        else:
+            runs.append([off, off + pad])
+    if runs and runs[-1][1] == layout.offsets[-1] + layout.padded[-1]:
+        runs[-1][1] = layout.total
+    return tuple((a, z) for a, z in runs)
+
+
 def flat_tensors(layout: PackedLayout, tree: dict) -> list:
     """Every tensor of ``tree`` in buffer order (stacked leaves expanded)."""
     out = []
@@ -216,15 +236,19 @@ def leaf_slices(layout: PackedLayout, tree: dict):
             yield i, j * (size // k if k else size), t
 
 
-def leaf_table(layout: PackedLayout) -> tuple:
+def leaf_table(layout: PackedLayout, dtype: Optional[str] = None) -> tuple:
     """One row per tensor of the layout's tree, in :func:`leaf_slices`
     order: ``(buffer offset, numel, leaf index i, counter offset inside the
     leaf mod 2**32, start in the prefix of all tensors' elements)``. What
     the one-launch perleaf mask (``kernels/zsmask``'s ``zsmask_buffer``)
-    walks, its device copy cached there; padding is in no row."""
+    walks, its device copy cached there; padding is in no row. ``dtype``
+    (a name, ``"bfloat16"``) keeps the tensors of that dtype's leaves
+    only, the prefix over them alone."""
     rows, start = [], 0
     for i, (k, size, off) in enumerate(zip(layout.stacks, layout.sizes,
                                            layout.offsets)):
+        if dtype is not None and layout.dtypes[i] != dtype:
+            continue
         m = size // k if k else size
         for j in range(k or 1):
             rows.append((off + j * m, m, i, (j * m) & 0xFFFFFFFF, start))

@@ -16,7 +16,8 @@ families, so every silo of a session must resolve to the same one:
   ``k + 0x85EBCA6B * (i + 1)`` for ``key_xi``, uint32, in JAX's leaf order.
   Over a packed buffer (the barrier tier's contribution) the same family
   is one ``zsmask_buffer`` launch for every tensor (:func:`mask_buffer`),
-  the lambda-correction's pass fused in.
+  the lambda-correction's pass fused in; a tree with bf16 leaves takes one
+  launch a dtype, the bf16 leaves in the JAX package's rounding order.
 
 The admin construction (the paper-faithful wire protocol): the admin draws
 ``u_1 .. u_{n-1}`` of spread ``b`` and closes the set with
@@ -80,16 +81,29 @@ def mask_leaf(g, key_r, key_xi, i: int, offset: int, silo: int, n_silos: int,
 
 
 def mask_buffer(buf, layout, key_r, key_xi, silo: int, n_silos: int, sigma_c,
-                b_scale, prev_key=None, lam=None):
+                b_scale, prev_key=None, lam=None, half=None):
     """The per-leaf family over every tensor of ``buf``, the packed (P,)
     fp32 buffer of ``layout``, in place: :func:`mask_leaf` of each tensor,
     and with ``prev_key`` the correction's pass (:func:`mask_leaf` over
     zeros on ``prev_key`` with ``b = 0``) times ``lam`` subtracted, in one
-    ``zsmask_buffer`` dispatch. Returns ``buf``."""
-    return zs_ops.zsmask_buffer(buf, layout, _raw(key_r), _raw(key_xi), silo,
-                                n_silos, sigma_c, b_scale,
-                                None if prev_key is None else _raw(prev_key),
-                                lam)
+    ``zsmask_buffer`` dispatch. A layout with bf16 leaves takes ``half``,
+    the packed bf16 buffer of its clipped leaves: its fp32 leaves are
+    masked so in place (one dispatch, none when there is none), and its
+    bf16 leaves' contributions are written into ``buf`` from ``half`` in
+    the JAX package's order over a bf16 leaf (one
+    ``zs_ops.zsmask_buffer_bf16`` dispatch). Returns ``buf``."""
+    kr, kx = _raw(key_r), _raw(key_xi)
+    kp = None if prev_key is None else _raw(prev_key)
+    if "bfloat16" not in layout.dtypes:
+        return zs_ops.zsmask_buffer(buf, layout, kr, kx, silo, n_silos,
+                                    sigma_c, b_scale, kp, lam)
+    if half is None:
+        raise ValueError("a layout with bf16 leaves masks from their packed "
+                         "bf16 buffer: pass half")
+    zs_ops.zsmask_buffer(buf, layout, kr, kx, silo, n_silos, sigma_c,
+                         b_scale, kp, lam, dtype="float32")
+    return zs_ops.zsmask_buffer_bf16(half, buf, layout, kr, kx, silo,
+                                     n_silos, sigma_c, b_scale, kp, lam)
 
 
 def _mask_tree_perleaf(grads, key_r, key_xi, silo, n_silos, sigma_c, b_scale):

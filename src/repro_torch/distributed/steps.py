@@ -34,8 +34,12 @@ copy, and every update rewrites the bf16 buffer from the master, rounding
 to nearest even (JAX's ``mst.astype(p.dtype)``). Either way each silo's
 gradient is computed in bf16 and widened into its fp32 row (the scan
 tier's accumulator is fp32, as JAX's ``gg.astype(jnp.float32)``), and the
-DP stages and their kernels run in fp32 as they do in fp32 training. Only
-the dense family trains in bf16 (:func:`check_bf16_training`).
+DP stages and their kernels run in fp32 as they do in fp32 training. Every
+family of JAX's ``build_model`` trains so, its tree fp32, bf16 or mixed
+(route B keeps JAX's fp32 leaves fp32: the MoE router, rwkv6's decay and
+bonus, mamba2's ``A_log``, ``D`` and ``dt_bias``; they view the master).
+The paper's small models take no compute type in JAX and train in fp32
+only (:func:`check_small_fp32`).
 
 ``silo_mode='scan'`` (the JAX package's silo-serial tier for large models):
 no stacked buffer; each silo's gradient is clipped with the carried bound
@@ -137,39 +141,37 @@ def effective_n_silos(run_cfg: RunConfig) -> int:
     return run_cfg.mesh.n_silos
 
 
-BF16_ITEM = "ROADMAP.md queue 1 item 15b"
-
-
-def check_bf16_training(model: Model, param_dtype=torch.float32) -> None:
-    """Raise unless bf16 training (bf16 compute or bf16 weights) is ported
-    for ``model``: the dense transformer family only; the others stay
-    fp32-only until ``BF16_ITEM``."""
-    bf16 = model.compute_dtype == torch.bfloat16 \
-        or param_dtype == torch.bfloat16
-    family = getattr(model.cfg, "family", None)
-    if bf16 and family != "dense":
+def check_small_fp32(model, params) -> None:
+    """Raise for a small model (MLP3, CNN6, WRN28; no ``cfg``) with bf16
+    weights or bf16 compute: the JAX package's small models take no
+    compute type (``repro/models/small.py``; its ``build_model`` builds
+    only the transformer, ssm and hybrid families), so they train in fp32
+    only, in both packages."""
+    if getattr(model, "cfg", None) is not None:
+        return
+    weights = params.values() if isinstance(params, dict) \
+        else params.parameters()
+    if any(p.dtype == torch.bfloat16 for p in weights) or \
+            getattr(model, "compute_dtype", torch.float32) == torch.bfloat16:
         raise NotImplementedError(
-            f"training in bf16 is ported for the dense family only, not "
-            f"{family or 'a small model'!r} ({BF16_ITEM}: the MoE router's "
-            f"ties in bf16, the rwkv6 / zamba2 scans' autograd Functions "
-            f"in bf16, the vlm and encoder frontends)")
+            "the paper's small models train in fp32 only: the JAX "
+            "package's small models take no compute type")
 
 
 def init_train_state(model: Model, run_cfg: RunConfig, key: tuple,
                      params=None, gen: Optional[torch.Generator] = None
                      ) -> TrainState:
     """``params`` (e.g. from ``models.convert.params_from_jax``) or random
-    weights from ``gen``; either way they are moved into one packed buffer
-    of their dtype. fp32 weights view that buffer, the optimizer's master;
-    bf16 weights view a packed bf16 buffer (``TrainState.weights``) and the
-    master is its widened copy, as JAX's optimizer state. The noise state
-    starts from ``fold_in(key, 0xD0)``, as in JAX."""
+    weights from ``gen``; either way they are moved into packed buffers
+    (``packing.pack_train_params``). fp32 weights view the optimizer's
+    fp32 master; bf16 weights view a packed bf16 buffer
+    (``TrainState.weights``), of which the master holds the widened copy,
+    as JAX's optimizer state. The noise state starts from ``fold_in(key,
+    0xD0)``, as in JAX."""
     if params is None:
         params = model.init(gen)
-    layout, buf = packing.pack_params(params)
-    check_bf16_training(model, buf.dtype)
-    weights = None if buf.dtype == torch.float32 else buf
-    master = buf if weights is None else buf.to(torch.float32)
+    check_small_fp32(model, params)
+    layout, master, weights = packing.pack_train_params(params)
     opt = make_optimizer(run_cfg.optimizer)
     return TrainState(
         params=params,
@@ -341,11 +343,6 @@ def _barrier_grads(model: Model, priv: PrivacyConfig, mesh_cfg: MeshConfig,
     silo_batches = _reshape_to_silos(batch, n_silos)
     pipe = DPPipeline(priv, layout, n_silos)
     if pipe.policy.mode == "perleaf":
-        if "bfloat16" in layout.dtypes:
-            # JAX rounds each masked contribution back to bf16, where the
-            # +-B*r masks no longer cancel in the sum
-            raise NotImplementedError(
-                f"the per-leaf mask family with bf16 weights ({BF16_ITEM})")
         # the per-leaf mask family only builds the full static ring: the
         # step aggregates every silo whatever set it was given (as JAX's)
         active = pipe.full_active()
@@ -380,7 +377,9 @@ def _barrier_grads(model: Model, priv: PrivacyConfig, mesh_cfg: MeshConfig,
                 pipe.silo_contribution(row, i, scales[i], active, keys,
                                        noise_state, bound, out=row)
         with timer.stage("reduce"):
-            agg = reduce_contributions(rows)
+            # bf16 leaves round as JAX's (DPPipeline.round_aggregate): the
+            # +-B*r masks then cancel only up to those roundings
+            agg = pipe.round_aggregate(reduce_contributions(rows))
     return agg, _mean_loss(losses, pipe, active), norms, \
         pipe.advance_state(keys, noise_state, active), bound
 
@@ -406,7 +405,6 @@ def build_train_step(model: Model, run_cfg: RunConfig, lr_schedule=None,
             "elastic membership on the barrier tier needs the packed mask "
             "engine (the per-leaf family only builds the full static ring); "
             "lift the dp_noise_tree=perleaf override")
-    check_bf16_training(model)
     opt = make_optimizer(run_cfg.optimizer)
     lr_schedule = lr_schedule or constant(run_cfg.optimizer.lr)
     n_silos = effective_n_silos(run_cfg)
@@ -446,8 +444,9 @@ def build_train_step(model: Model, run_cfg: RunConfig, lr_schedule=None,
             # the aggregate over its contributors; the padding, which the
             # noise reached, stays zero in the master buffer and moments
             grad = flatbuf.zero_padding(state.layout, noisy.div_(n_contrib))
-            opt_state = opt.update(state.opt_state, grad, lr,
-                                   weights=state.weights)
+            opt_state = opt.update(
+                state.opt_state, grad, lr, weights=state.weights,
+                runs=flatbuf.dtype_runs(state.layout, "bfloat16"))
         del noisy, grad
         gates = _gates(tuple(bool(a) for a in active), dev)
         metrics = {"loss": loss, "grad_norm_mean":

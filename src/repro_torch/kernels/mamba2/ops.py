@@ -9,7 +9,12 @@ Training differentiates the scan through :class:`SSD`: its forward is the
 same kernel (or plain version), its backward the hand-written reverse scan
 ``ssd_bwd`` (or its plain version, ``ref.ssd_backward_ref``). The JAX
 package differentiates its jnp chunked form instead; on the card no
-gradient comes from autograd of the plain version."""
+gradient comes from autograd of the plain version.
+
+Training in bf16 runs the same fp32 scan: the model widens the bf16
+projections to fp32 before it (``repro/models/mamba2.py:86,96-97``, as the JAX
+package does), and autograd takes the scan's fp32 gradients back through
+each ``.float()`` to bf16, as JAX's ``astype`` does. No bf16 scan kernel."""
 from __future__ import annotations
 
 import torch

@@ -10,7 +10,12 @@ same kernel (or plain version), its backward the hand-written reverse scan
 ``wkv_bwd`` (or its plain version, ``ref.wkv_backward_ref``). The JAX
 package has no backward of its own here: it differentiates its jnp chunked
 forms. Autograd never sees inside the kernel, so on the card no gradient
-comes from autograd of the plain version."""
+comes from autograd of the plain version.
+
+Training in bf16 runs the same fp32 scan: the model widens the bf16
+projections to fp32 before it (``repro/models/rwkv6.py:100-104``, as the JAX
+package does), and autograd takes the scan's fp32 gradients back through
+each ``.float()`` to bf16, as JAX's ``astype`` does. No bf16 scan kernel."""
 from __future__ import annotations
 
 import torch

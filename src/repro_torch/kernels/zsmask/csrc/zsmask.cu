@@ -54,11 +54,31 @@
 // lam as the caller holds them, s = sigma_c / sqrt(n) divided here in
 // fp32 (correctly rounded, as the per-leaf route's torch ops on the card).
 //   Bound: issue, as zsmask_kernel: 3 normals an element (4 with PREV).
+//
+// zsmask_buffer_bf16 (the bf16 / bf16_prev instantiations, In =
+// __nv_bfloat16): the same walk, keys and normals over the bf16 leaves of
+// a bf16 or mixed tree (the table holds only those leaves' tensors; the
+// fp32 instantiation takes the fp32 leaves' table in a second launch).
+// It reads the clipped leaves from a packed bf16 buffer, x = bf16(g *
+// scale), and writes the fp32 contribution row, in the order the JAX
+// package's barrier step evaluates a bf16 leaf's perleaf contribution
+// (kernels/zsmask/ref.py, zsmask_buffer_bf16_ref): m = bf16_rn(x + mask);
+// with PREV, p = bf16_rn(0 + (0 * d + s * xp)) and out = fma(-lam, p, m),
+// one rounding, as XLA's CPU backend contracts m - lam * p (lam is a
+// strong fp32 inside the step, so the leaf's contribution is fp32);
+// without PREV out = m, a bf16 value widened. Every rounding to bf16 is
+// __float2bfloat16_rn, every fp32 op __fadd_rn / __fmul_rn / __fmaf_rn:
+// bit-equal to the plain version.
+//   Bound: issue, as the fp32 instantiation (3 normals an element, 4 with
+// PREV) over 6 bytes an element (a bf16 read, an fp32 write) against 8.
 #include "common.cuh"
 #include "stream_grid.cuh"
 #include "threefry.cuh"
 
+#include <cuda_bf16.h>
+
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -88,11 +108,13 @@ constexpr int ZT_THREADS = 128;
 constexpr int ZT_COLS = 5;
 constexpr uint32_t R_FOLD = 0x9E3779B9u, XI_FOLD = 0x85EBCA6Bu;
 
-ResidentCache zb_resident[2];
+ResidentCache zb_resident[4];  // [PREV + 2 * bf16]
 
-template <bool PREV>
+// In = float: src is buf, masked in place (the fp32 instantiations); In =
+// __nv_bfloat16: src the packed bf16 clipped leaves, buf the fp32 row.
+template <bool PREV, typename In>
 __global__ void __launch_bounds__(ZT_THREADS)
-zsmask_buffer_kernel(float* buf, const long long* __restrict__ table, int E,
+zsmask_buffer_kernel(const In* src, float* buf, const long long* __restrict__ table, int E,
                      long long total, long long share, int rem, uint32_t kr0, uint32_t kr1,
                      uint32_t kx0, uint32_t kx1, uint32_t kp0, uint32_t kp1, uint32_t silo,
                      uint32_t nxt, uint32_t n_silos, const float* __restrict__ sigma_c,
@@ -137,33 +159,43 @@ zsmask_buffer_kernel(float* buf, const long long* __restrict__ table, int E,
       normals_z0<N, 1>(k0, k1, k2, c0, c1, zv);
       const float d = __fsub_rn(zv[0], zv[1]);
       const float mask = __fadd_rn(__fmul_rn(b, d), __fmul_rn(s, zv[2]));
-      float o = __fadd_rn(buf[off + q], mask);
+      float o;
+      if constexpr (std::is_same_v<In, float>) {
+        o = __fadd_rn(src[off + q], mask);
+      } else {
+        o = __bfloat162float(__float2bfloat16_rn(__fadd_rn(__bfloat162float(src[off + q]), mask)));
+      }
       if constexpr (PREV) {
         const float prev = __fadd_rn(0.0f, __fadd_rn(__fmul_rn(0.0f, d), __fmul_rn(s, zv[N - 1])));
-        o = __fsub_rn(o, __fmul_rn(lam, prev));
+        if constexpr (std::is_same_v<In, float>) {
+          o = __fsub_rn(o, __fmul_rn(lam, prev));
+        } else {
+          o = __fmaf_rn(-lam, __bfloat162float(__float2bfloat16_rn(prev)), o);
+        }
       }
       buf[off + q] = o;
     }
   }
 }
 
-template <bool PREV>
-int launch_zsmask_buffer(float* buf, const long long* table, int E, long long total,
-                         uint32_t kr0, uint32_t kr1, uint32_t kx0, uint32_t kx1, uint32_t kp0,
-                         uint32_t kp1, uint32_t silo, uint32_t nxt, uint32_t n_silos,
-                         const float* sigma_c, const float* b_scale, const float* lam_gate,
-                         cudaStream_t stream) {
+template <bool PREV, typename In>
+int launch_zsmask_buffer(const In* src, float* buf, const long long* table, int E,
+                         long long total, uint32_t kr0, uint32_t kr1, uint32_t kx0, uint32_t kx1,
+                         uint32_t kp0, uint32_t kp1, uint32_t silo, uint32_t nxt,
+                         uint32_t n_silos, const float* sigma_c, const float* b_scale,
+                         const float* lam_gate, cudaStream_t stream) {
+  constexpr int slot = (PREV ? 1 : 0) + (std::is_same_v<In, float> ? 0 : 2);
   int resident = 0;
-  cudaError_t err = resident_blocks(zsmask_buffer_kernel<PREV>, ZT_THREADS, zb_resident[PREV],
+  cudaError_t err = resident_blocks(zsmask_buffer_kernel<PREV, In>, ZT_THREADS, zb_resident[slot],
                                     resident);
   if (err != cudaSuccess) return err;
   long long blocks = (total + ZT_THREADS - 1) / ZT_THREADS;
   if (blocks > resident) blocks = resident;
   if (blocks < 1) blocks = 1;
   const size_t smem = (size_t)(E + 1) * sizeof(long long);
-  zsmask_buffer_kernel<PREV><<<(unsigned)blocks, ZT_THREADS, smem, stream>>>(
-      buf, table, E, total, total / blocks, (int)(total % blocks), kr0, kr1, kx0, kx1, kp0,
-      kp1, silo, nxt, n_silos, sigma_c, b_scale, lam_gate);
+  zsmask_buffer_kernel<PREV, In><<<(unsigned)blocks, ZT_THREADS, smem, stream>>>(
+      src, buf, table, E, total, total / blocks, (int)(total % blocks), kr0, kr1, kx0, kx1,
+      kp0, kp1, silo, nxt, n_silos, sigma_c, b_scale, lam_gate);
   return cudaGetLastError();
 }
 
@@ -202,17 +234,42 @@ REPRO_API int zsmask_buffer_f32(float* buf, const long long* table, int E, long 
                                 const float* lam_gate, int use_prev, cudaStream_t stream) {
   if (total == 0) return cudaSuccess;
   return use_prev
-             ? launch_zsmask_buffer<true>(buf, table, E, total, kr0, kr1, kx0, kx1, kp0, kp1,
-                                          silo, nxt, n_silos, sigma_c, b_scale, lam_gate, stream)
-             : launch_zsmask_buffer<false>(buf, table, E, total, kr0, kr1, kx0, kx1, kp0, kp1,
-                                           silo, nxt, n_silos, sigma_c, b_scale, lam_gate,
-                                           stream);
+             ? launch_zsmask_buffer<true, float>(buf, buf, table, E, total, kr0, kr1, kx0, kx1,
+                                                 kp0, kp1, silo, nxt, n_silos, sigma_c, b_scale,
+                                                 lam_gate, stream)
+             : launch_zsmask_buffer<false, float>(buf, buf, table, E, total, kr0, kr1, kx0, kx1,
+                                                  kp0, kp1, silo, nxt, n_silos, sigma_c,
+                                                  b_scale, lam_gate, stream);
 }
 
-// The launch configuration of zsmask_buffer_kernel<use_prev != 0> on the
-// current device (threads, elements a thread at a time, blocks an SM,
-// registers, local bytes).
-REPRO_API int zsmask_buffer_config(int use_prev, int* cfg) {
-  return use_prev ? stream_config(zsmask_buffer_kernel<true>, ZT_THREADS, 1, cfg)
-                  : stream_config(zsmask_buffer_kernel<false>, ZT_THREADS, 1, cfg);
+// src the packed bf16 buffer of the clipped leaves, out the fp32
+// contribution row of the same layout, written over the table's tensors
+// only; table (E, 5) int64 on the device: the bf16 leaves' rows
+// (core/flatbuf.leaf_table(layout, "bfloat16")), total their elements;
+// the rest as zsmask_buffer_f32.
+REPRO_API int zsmask_buffer_bf16(const __nv_bfloat16* src, float* out, const long long* table,
+                                 int E, long long total, uint32_t kr0, uint32_t kr1,
+                                 uint32_t kx0, uint32_t kx1, uint32_t kp0, uint32_t kp1,
+                                 uint32_t silo, uint32_t nxt, uint32_t n_silos,
+                                 const float* sigma_c, const float* b_scale,
+                                 const float* lam_gate, int use_prev, cudaStream_t stream) {
+  if (total == 0) return cudaSuccess;
+  return use_prev ? launch_zsmask_buffer<true, __nv_bfloat16>(
+                        src, out, table, E, total, kr0, kr1, kx0, kx1, kp0, kp1, silo, nxt,
+                        n_silos, sigma_c, b_scale, lam_gate, stream)
+                  : launch_zsmask_buffer<false, __nv_bfloat16>(
+                        src, out, table, E, total, kr0, kr1, kx0, kx1, kp0, kp1, silo, nxt,
+                        n_silos, sigma_c, b_scale, lam_gate, stream);
+}
+
+// The launch configuration of one instantiation on the current device
+// (threads, elements a thread at a time, blocks an SM, registers, local
+// bytes): variant bit 0 PREV, bit 1 the bf16 source.
+REPRO_API int zsmask_buffer_config(int variant, int* cfg) {
+  switch (variant & 3) {
+    case 0: return stream_config(zsmask_buffer_kernel<false, float>, ZT_THREADS, 1, cfg);
+    case 1: return stream_config(zsmask_buffer_kernel<true, float>, ZT_THREADS, 1, cfg);
+    case 2: return stream_config(zsmask_buffer_kernel<false, __nv_bfloat16>, ZT_THREADS, 1, cfg);
+    default: return stream_config(zsmask_buffer_kernel<true, __nv_bfloat16>, ZT_THREADS, 1, cfg);
+  }
 }

@@ -22,6 +22,35 @@ keys folded in (``k + mult * (i + 1)`` on both uint32 words), and with a
 * (0 + (0 * (r_i - r_nxt) + s * xp))``, r_i and r_nxt drawn once. Bit-equal
 to the per-leaf route it replaces (a ``zsmask`` per tensor, a second over
 zeros on ``prev_key`` with ``b = 0``, ``lam * prev`` and a subtraction).
+
+:func:`zsmask_buffer_bf16_ref` is the plain version of the bf16
+instantiation (``zsmask_buffer``'s ``bf16`` / ``bf16_prev`` variants): the
+same streams over the bf16 leaves of a mixed or bf16 tree, in the order
+the JAX package's barrier step evaluates its perleaf contribution over a
+bf16 leaf (``repro/core/dp_pipeline.py:390-414``, ``masking.py:61``), as
+XLA's CPU backend runs it inside the step's ``shard_map``, settled element
+for element against JAX:
+
+1. ``x = bf16(g * scale)``, the clipped leaf rounded to bf16 (the caller's
+   bf16 source buffer);
+2. ``m = bf16(x + (b * (r_i - r_nxt) + s * xi))``: the zsmask adds the
+   fp32 mask to the widened leaf and rounds to the leaf's dtype;
+3. with the correction (lambda > 0): ``p = bf16(0 + (0 * (r_i - r_nxt) +
+   s * xp))``, the mask-only pass over fp32 zeros rounded to the leaf's
+   dtype, and ``out = m - lam * p`` in fp32 with one rounding, XLA's fused
+   multiply-add. Inside the step ``lam = lambda * hp * gate * pa_gate``
+   is a strong fp32 (the gates are traced), so ``lam * p`` promotes to
+   fp32 and the contribution leaf is fp32; (a direct call with a static
+   ring would make ``lam`` weakly typed and round 0.7 to bf16 first: no
+   step of either package does so). The fused multiply-add is computed in
+   fp64 and rounded once: the product is exact there, and the difference
+   too unless the two terms lie more than 21 binades apart;
+4. without the correction ``out = m``: the contribution leaf is bf16, and
+   JAX's ``psum`` of bf16 leaves adds them in fp32 in silo order and
+   rounds the sum once (``DPPipeline.round_aggregate``).
+
+``out`` is the fp32 contribution row; ``out`` and the source cover the
+same layout, and only the bf16 leaves' ranges of ``out`` are written.
 """
 from __future__ import annotations
 
@@ -102,3 +131,38 @@ def zsmask_buffer_ref(buf, table, key_r, key_xi, silo: int, n_silos: int,
                 out.sub_(lam * prev)
             seg.copy_(out)
     return buf
+
+
+def zsmask_buffer_bf16_ref(src, out, table, key_r, key_xi, silo: int,
+                           n_silos: int, sigma_c, b_scale, prev_key=None,
+                           lam=None) -> torch.Tensor:
+    """``src``: the packed bf16 buffer of the clipped leaves; ``out``: the
+    fp32 contribution row, written over ``table``'s tensors (the bf16
+    leaves' rows of ``core/flatbuf.leaf_table``) and returned; keys raw
+    ``(k0, k1)``, folded per leaf; scalars floats or 0-dim tensors. The
+    sequence is the module docstring's."""
+    s, b = scalars(sigma_c, b_scale, n_silos, out.device).unbind(0)
+    lam = _on(0.0 if lam is None else lam, out.device).double()
+    zero = torch.zeros((), dtype=torch.float32, device=out.device)
+    silo = int(silo)
+    nxt = (silo + 1) % n_silos
+    for off, numel, i, ctr, _ in table:
+        kr = fold_key(key_r, R_FOLD, i)
+        kx = fold_key(key_xi, XI_FOLD, i)
+        for a in range(0, numel, WINDOW):
+            z = min(a + WINDOW, numel)
+            idx = (torch.arange(a, z, dtype=torch.int64, device=out.device)
+                   + ctr) & M32
+            d = (normal_stream(kr[0], kr[1], idx, silo)
+                 - normal_stream(kr[0], kr[1], idx, nxt))
+            x = src[off + a:off + z].float()
+            m = (x + (b * d + s * normal_stream(kx[0], kx[1], idx, silo))) \
+                .to(torch.bfloat16).float()
+            if prev_key is not None:
+                kp = fold_key(prev_key, XI_FOLD, i)
+                xp = normal_stream(kp[0], kp[1], idx, silo)
+                p = (torch.zeros_like(d) + (zero * d + s * xp)) \
+                    .to(torch.bfloat16)
+                m = (m.double() - lam * p.double()).float()
+            out[off + a:off + z] = m
+    return out

@@ -61,7 +61,10 @@ def params_from_jax(np_tree: dict, cfg: ModelConfig, device,
     in ``dtype`` (fp32, or bf16 as JAX's ``build_model(param_dtype=
     jnp.bfloat16)`` holds them: its bf16 leaves cross as fp32 arrays, exact
     both ways, and are rounded back here; the port imports no
-    ``ml_dtypes``)."""
+    ``ml_dtypes``). The leaves JAX keeps fp32 under bf16 weights (the MoE
+    router, rwkv6's ``w_base`` and ``u_bonus``, mamba2's ``A_log``, ``D``
+    and ``dt_bias``) are fp32 in the port's module too, and take the fp32
+    arrays as they are: the same mixed tree."""
     if cfg.family not in FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r}")
     model = FAMILIES[cfg.family](cfg, device, dtype)

@@ -106,38 +106,50 @@ def init_state(cfg: ModelConfig, batch: int, max_len: int, device,
 
 
 def _shared_apply(p: SharedBlock, x, cfg: ModelConfig, positions,
-                  cache=None, entry: int = 0, use_flash: bool = False):
-    x = x + attn.attn_apply(p.attn, rmsnorm(p.ln1.scale, x), cfg, positions,
-                            cache, entry, use_flash)
-    return x + swiglu_apply(p.ffn, rmsnorm(p.ln2.scale, x))
+                  cache=None, entry: int = 0, use_flash: bool = False,
+                  train: bool = False):
+    """``train`` in bf16: the dense family's XLA order
+    (``transformer._layer_apply``): the second norm widens the unrounded
+    fp32 residual sum, the FFN's SiLU is ``layers.XlaSilu``."""
+    h = attn.attn_apply(p.attn, rmsnorm(p.ln1.scale, x), cfg, positions,
+                        cache, entry, use_flash)
+    if train and x.dtype == torch.bfloat16:
+        y = rmsnorm(p.ln2.scale, x.float() + h.float()).to(x.dtype)
+        x = x + h
+    else:
+        x = x + h
+        y = rmsnorm(p.ln2.scale, x)
+    return x + swiglu_apply(p.ffn, y, train)
 
 
-def _mamba_apply(lay: MambaLayer, x, cfg: ModelConfig, st=None):
+def _mamba_apply(lay: MambaLayer, x, cfg: ModelConfig, st=None,
+                 train: bool = False):
     return x + mamba2.mamba2_apply(lay.mamba, rmsnorm(lay.ln.scale, x), cfg,
-                                   st)
+                                   st, train)
 
 
 def _group_apply(params: Hybrid, x, cfg: ModelConfig, positions, group: int,
-                 use_flash: bool):
+                 use_flash: bool, train: bool = False):
     """One group of the training forward: its ``attn_every`` Mamba-2
     layers, then the shared block (JAX's remat unit)."""
     ae = cfg.attn_every
     for lay in params.mamba_layers[group * ae:(group + 1) * ae]:
-        x = _mamba_apply(lay, x, cfg)
+        x = _mamba_apply(lay, x, cfg, train=train)
     return _shared_apply(params.shared, x, cfg, positions,
-                         use_flash=use_flash)
+                         use_flash=use_flash, train=train)
 
 
 def forward(params: Hybrid, cfg: ModelConfig, tokens,
             state: Optional[dict] = None, compute_dtype=torch.float32,
             logits_mode: str = "all", remat: bool = False,
-            use_flash: bool = False):
+            use_flash: bool = False, train: bool = False):
     """Tokens (B, S) through the stack: without a state (training) or over
     ``state``, updated in place (the KV cache's ``len`` advances by S; the
     positions start there, ``hybrid.py:84-85``). Returns logits as
     ``transformer.forward`` does. Without a state, ``use_flash`` attends
     through the flash kernels and ``remat`` recomputes each group in the
-    backward."""
+    backward; ``train``: the training forward's bf16 order
+    (:func:`_shared_apply`, ``mamba2.mamba2_apply``)."""
     x = params.embed.to(compute_dtype)[tokens]
     B, S, _ = x.shape
     ae = cfg.attn_every
@@ -148,13 +160,13 @@ def forward(params: Hybrid, cfg: ModelConfig, tokens,
     if state is None:
         remat = remat and torch.is_grad_enabled()
         for group in range(g):
-            args = (params, x, cfg, positions, group, use_flash)
+            args = (params, x, cfg, positions, group, use_flash, train)
             # no layer draws random numbers: no RNG state to carry
             x = (checkpoint(_group_apply, *args, use_reentrant=False,
                             preserve_rng_state=False) if remat
                  else _group_apply(*args))
         for lay in params.mamba_layers[g * ae:]:  # the tail, as JAX: no remat
-            x = _mamba_apply(lay, x, cfg)
+            x = _mamba_apply(lay, x, cfg, train=train)
     else:
         for i, lay in enumerate(params.mamba_layers):
             x = _mamba_apply(lay, x, cfg, {"h": state["h"][i],
@@ -177,7 +189,8 @@ def loss_fn(params: Hybrid, cfg: ModelConfig, batch: dict,
     """Mean next-token cross-entropy of ``{'tokens', 'labels': (B, S)}``
     (``repro/models/hybrid.py:149-152``)."""
     hidden = forward(params, cfg, batch["tokens"], None, compute_dtype,
-                     logits_mode="hidden", remat=remat, use_flash=use_flash)
+                     logits_mode="hidden", remat=remat, use_flash=use_flash,
+                     train=True)
     return chunked_lm_loss(hidden, params.lm_head, batch["labels"])
 
 

@@ -138,15 +138,46 @@ class XlaSilu(torch.autograd.Function):
         return c * s + (c * x) * (s * (1 - s))
 
 
+class XlaSigmoid(torch.autograd.Function):
+    """The logistic in bf16 as XLA evaluates ``jax.nn.sigmoid`` on the JAX
+    package's training path: ``1 / (1 + exp(-x))``, every op rounded to
+    bf16, and its derivative ``c * (s * (1 - s))``, each op rounded too
+    (:class:`XlaSilu`'s logistic). ``torch.sigmoid`` computes in fp32 and
+    rounds once: one ulp apart on about a third of the elements."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = 1 / (1 + torch.exp(-x))
+        ctx.save_for_backward(s)
+        return s
+
+    @staticmethod
+    def backward(ctx, c):
+        (s,) = ctx.saved_tensors
+        return c * (s * (1 - s))
+
+
+def xla_silu(x: torch.Tensor, train: bool) -> torch.Tensor:
+    """SiLU: :class:`XlaSilu` on the bf16 training path, ``F.silu``
+    otherwise."""
+    return XlaSilu.apply(x) if train and x.dtype == torch.bfloat16 \
+        else F.silu(x)
+
+
+def xla_sigmoid(x: torch.Tensor, train: bool) -> torch.Tensor:
+    """The logistic: :class:`XlaSigmoid` on the bf16 training path,
+    ``torch.sigmoid`` otherwise."""
+    return XlaSigmoid.apply(x) if train and x.dtype == torch.bfloat16 \
+        else torch.sigmoid(x)
+
+
 def swiglu_apply(p: "SwiGLU", x: torch.Tensor,
                  train: bool = False) -> torch.Tensor:
     """``train``: the training forward, whose bf16 SiLU follows XLA's order
     (:class:`XlaSilu`); serving and fp32 keep ``F.silu``."""
     g = x @ p.w_gate.to(x.dtype)
     u = x @ p.w_up.to(x.dtype)
-    act = XlaSilu.apply(g) if train and g.dtype == torch.bfloat16 \
-        else F.silu(g)
-    return (act * u) @ p.w_down.to(x.dtype)
+    return (xla_silu(g, train) * u) @ p.w_down.to(x.dtype)
 
 
 class SwiGLU(nn.Module):

@@ -22,7 +22,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.mamba2 import ops as ssd_ops
-from repro_torch.models.layers import _param, dense_init
+from repro_torch.models.layers import _param, dense_init, xla_silu
 
 CHUNK = 64
 
@@ -63,27 +63,30 @@ class Mamba2(nn.Module):
         self.out_proj = _param(dense(d_in, d))
 
 
-def _causal_conv(x, w, b, conv_state=None):
+def _causal_conv(x, w, b, conv_state=None, train: bool = False):
     """Depthwise causal conv. x (B, S, C); w (K, C); conv_state (B, K-1, C)
-    or None (zeros). Returns (silu(conv + b), the new conv state)."""
+    or None (zeros). Returns (silu(conv + b), the new conv state);
+    ``train``: the bf16 SiLU in XLA's order (``layers.XlaSilu``)."""
     K = w.shape[0]
     pad = torch.zeros_like(x[:, :1]).expand(-1, K - 1, -1) \
         if conv_state is None else conv_state.to(x.dtype)
     xp = torch.cat([pad, x], dim=1)
     S = x.shape[1]
     out = sum(xp[:, i:i + S] * w[i].to(x.dtype) for i in range(K))
-    return F.silu(out + b.to(x.dtype)), xp[:, -(K - 1):]
+    return xla_silu(out + b.to(x.dtype), train), xp[:, -(K - 1):]
 
 
 def mamba2_apply(p: Mamba2, x, cfg: ModelConfig,
-                 state: Optional[dict] = None):
-    """x (B, S, D) -> (B, S, D); ``state`` updated in place when given."""
+                 state: Optional[dict] = None, train: bool = False):
+    """x (B, S, D) -> (B, S, D); ``state`` updated in place when given.
+    ``train``: the training forward's bf16 SiLUs in XLA's order."""
     B, S, D = x.shape
     d_in, nh, P, N, _ = dims(cfg)
     zxbcdt = x @ p.in_proj.to(x.dtype)
     z, xbc, dt_raw = torch.split(zxbcdt, [d_in, d_in + 2 * N, nh], dim=-1)
     xbc, new_conv = _causal_conv(xbc, p.conv_w, p.conv_b,
-                                 None if state is None else state["conv"])
+                                 None if state is None else state["conv"],
+                                 train)
     xs, Bc, Cc = torch.split(xbc, [d_in, N, N], dim=-1)
     dt = F.softplus(dt_raw.float() + p.dt_bias)                   # (B, S, nh)
     A = -torch.exp(p.A_log)                                       # (nh,) < 0
@@ -106,8 +109,10 @@ def mamba2_apply(p: Mamba2, x, cfg: ModelConfig,
     y = y + p.D[None, None, :, None] * xh
     y = y.reshape(B, S, d_in).to(x.dtype)
     # gated RMS norm (Mamba-2 normalizes before out_proj)
-    y = y * F.silu(z)
-    y32 = y.float()
+    if train and x.dtype == torch.bfloat16:
+        y32 = y.float() * xla_silu(z, train).float()
+    else:
+        y32 = (y * F.silu(z)).float()
     y = (y32 * torch.rsqrt((y32 * y32).mean(-1, keepdim=True) + 1e-6)
          * p.gn_scale.float()).to(x.dtype)
     if state is not None:

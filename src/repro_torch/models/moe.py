@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import _param, dense_init
+from repro_torch.models.layers import _param, dense_init, xla_silu
 
 
 class MoE(nn.Module):
@@ -101,16 +101,18 @@ def route(xt: torch.Tensor, router: torch.Tensor, cfg: ModelConfig,
 
 
 def moe_apply(p: MoE, x: torch.Tensor, cfg: ModelConfig,
-              capacity_factor: float = 1.25):
+              capacity_factor: float = 1.25, train: bool = False):
     """Top-k MoE. x (B, S, D) -> (B, S, D), plus the aux load-balance
-    loss."""
+    loss. ``train``: the training forward, whose bf16 SiLU follows XLA's
+    order (``layers.XlaSilu``), as the dense FFN's."""
     B, S, D = x.shape
-    out, aux = _moe_tokens(p, x.reshape(B * S, D), cfg, capacity_factor)
+    out, aux = _moe_tokens(p, x.reshape(B * S, D), cfg, capacity_factor,
+                           train)
     return out.reshape(B, S, D), aux
 
 
 def _moe_tokens(p: MoE, xt: torch.Tensor, cfg: ModelConfig,
-                capacity_factor: float = 1.25):
+                capacity_factor: float = 1.25, train: bool = False):
     """xt (T, D) flat tokens -> (T, D), plus the aux load-balance loss."""
     T, D = xt.shape
     E, K = cfg.n_experts, cfg.top_k
@@ -133,7 +135,7 @@ def _moe_tokens(p: MoE, xt: torch.Tensor, cfg: ModelConfig,
     # grouped expert FFN (SwiGLU)
     g = torch.bmm(buf, p.we_gate.to(xt.dtype))
     u = torch.bmm(buf, p.we_up.to(xt.dtype))
-    out_e = torch.bmm(F.silu(g) * u, p.we_down.to(xt.dtype))
+    out_e = torch.bmm(xla_silu(g, train) * u, p.we_down.to(xt.dtype))
 
     # combine: gather the expert outputs back to tokens, weight by gates
     gathered = out_e.reshape(E * capacity, D)[flat_idx]     # (T*K, D)

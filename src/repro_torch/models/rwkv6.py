@@ -18,12 +18,12 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.rwkv6 import ops as rwkv_ops
-from repro_torch.models.layers import _param, dense_init
+from repro_torch.models.layers import (_param, dense_init, xla_sigmoid,
+                                       xla_silu)
 
 LORA_RANK = 64
 CHUNK = 32
@@ -105,10 +105,12 @@ def _group_norm(x, scale, H: int, N: int, eps: float = 1e-5):
     return (y.reshape(B, S, H * N) * scale.float()).to(x.dtype)
 
 
-def time_mix(p: RWKV6Mix, x, cfg: ModelConfig, state: Optional[dict] = None):
+def time_mix(p: RWKV6Mix, x, cfg: ModelConfig, state: Optional[dict] = None,
+             train: bool = False):
     """x (B, S, D) -> (B, S, D). ``state``: ``{'S': (B, H, N, N),
     'x_prev': (B, D)}``, updated in place; None (training) starts from
-    zeros."""
+    zeros. ``train``: the training forward, whose bf16 SiLU follows XLA's
+    order (``layers.XlaSilu``)."""
     B, S, D = x.shape
     H, N = cfg.n_heads, cfg.rwkv_head_size
     x_prev = _token_shift(x, None if state is None else state["x_prev"])
@@ -130,22 +132,24 @@ def time_mix(p: RWKV6Mix, x, cfg: ModelConfig, state: Optional[dict] = None):
     else:
         o, S1 = rwkv_ops.wkv_chunked(r, k, v, w, p.u_bonus, S0, chunk=CHUNK)
     out = _group_norm(o.reshape(B, S, H * N).to(x.dtype), p.gn_scale, H, N)
-    out = out * F.silu(g)
+    out = out * xla_silu(g, train)
     if state is not None:
         state["S"].copy_(S1)
         state["x_prev"].copy_(x[:, -1])
     return out @ p.wo.to(x.dtype)
 
 
-def channel_mix(p: RWKV6Mix, x, state: Optional[dict] = None):
+def channel_mix(p: RWKV6Mix, x, state: Optional[dict] = None,
+                train: bool = False):
     """x (B, S, D) -> (B, S, D); ``state['x_prev_cm']`` (B, D) updated in
-    place when given."""
+    place when given. ``train``: the bf16 logistic in XLA's order
+    (``layers.XlaSigmoid``)."""
     x_prev = _token_shift(x, None if state is None else state["x_prev_cm"])
     dx = x_prev - x
     xk = x + dx * p.mu_cm_k.to(x.dtype)
     xr = x + dx * p.mu_cm_r.to(x.dtype)
     kk = torch.square(torch.relu(xk @ p.w_in.to(x.dtype)))
-    rr = torch.sigmoid(xr @ p.w_recept.to(x.dtype))
+    rr = xla_sigmoid(xr @ p.w_recept.to(x.dtype), train)
     if state is not None:
         state["x_prev_cm"].copy_(x[:, -1])
     return rr * (kk @ p.w_out.to(x.dtype))

@@ -77,29 +77,40 @@ def init_state(cfg: ModelConfig, batch: int, device,
 
 
 def block_apply(blk: RWKVBlock, x, cfg: ModelConfig,
-                state: Optional[dict] = None):
-    x = x + rwkv6.time_mix(blk.mix, layernorm(blk.ln1, x), cfg, state)
-    return x + rwkv6.channel_mix(blk.mix, layernorm(blk.ln2, x), state)
+                state: Optional[dict] = None, train: bool = False):
+    """``train`` in bf16: XLA's order, as the dense family's
+    (``transformer._layer_apply``): the second norm widens the unrounded
+    fp32 residual sum."""
+    h = rwkv6.time_mix(blk.mix, layernorm(blk.ln1, x), cfg, state, train)
+    if train and x.dtype == torch.bfloat16:
+        y = layernorm(blk.ln2, x.float() + h.float()).to(x.dtype)
+        x = x + h
+    else:
+        x = x + h
+        y = layernorm(blk.ln2, x)
+    return x + rwkv6.channel_mix(blk.mix, y, state, train)
 
 
 def forward(params: RWKVStack, cfg: ModelConfig, tokens,
             state: Optional[dict] = None, compute_dtype=torch.float32,
-            logits_mode: str = "all", remat: bool = False):
+            logits_mode: str = "all", remat: bool = False,
+            train: bool = False):
     """Tokens (B, S) through the stack: from zeros (training) or from
     ``state``, updated in place (``state['len']`` advances by S). Returns
     logits (B, S, V), (B, 1, V) for ``"last"``, or the final-norm hidden
     states for ``"hidden"``. ``remat`` (without a state): each block
-    recomputed in the backward."""
+    recomputed in the backward. ``train``: the training forward's bf16
+    order (``rwkv6.time_mix``)."""
     x = layernorm(params.ln_in, params.embed.to(compute_dtype)[tokens])
     remat = remat and state is None and torch.is_grad_enabled()
     for layer, blk in enumerate(params.layers):
         if remat:  # no block draws random numbers: no RNG state to carry
-            x = checkpoint(block_apply, blk, x, cfg, None,
+            x = checkpoint(block_apply, blk, x, cfg, None, train,
                            use_reentrant=False, preserve_rng_state=False)
             continue
         st = None if state is None else {
             k: state[k][layer] for k in ("S", "x_prev", "x_prev_cm")}
-        x = block_apply(blk, x, cfg, st)
+        x = block_apply(blk, x, cfg, st, train)
     if state is not None:
         state["len"] += tokens.shape[1]
     x = layernorm(params.ln_f, x)
@@ -115,7 +126,7 @@ def loss_fn(params: RWKVStack, cfg: ModelConfig, batch: dict,
     """Mean next-token cross-entropy of ``{'tokens', 'labels': (B, S)}``
     (``repro/models/rwkv_stack.py:96-99``)."""
     hidden = forward(params, cfg, batch["tokens"], None, compute_dtype,
-                     logits_mode="hidden", remat=remat)
+                     logits_mode="hidden", remat=remat, train=True)
     return chunked_lm_loss(hidden, params.lm_head, batch["labels"])
 
 

@@ -71,7 +71,8 @@ def _ffn_apply(blk: Block, y, cfg: ModelConfig, train: bool = False):
     (0 for a SwiGLU layer, with no launch: the dense serving step is
     host-bound). ``train``: the training forward's SiLU order."""
     if cfg.is_moe():
-        return moe_mod.moe_apply(blk.moe, y, cfg, cfg.moe_capacity_factor)
+        return moe_mod.moe_apply(blk.moe, y, cfg, cfg.moe_capacity_factor,
+                                 train)
     return swiglu_apply(blk.ffn, y, train), 0.0
 
 

@@ -5,12 +5,14 @@ The JAX package maps each update over the parameter tree, keeps an fp32
 master copy and writes ``mst.astype(p.dtype)`` back into the parameters.
 Here the master is one packed fp32 buffer and the moments are packed
 buffers of the same layout. fp32 parameters are views of the master itself
-(``models.packing.pack_params``: the cast is the identity in fp32); bf16
-parameters are views of one packed bf16 buffer, ``weights``, which each
-update rewrites from the master, rounding to nearest even, chunk by chunk
-right after the chunk's update. An update runs in place over the buffers
-in chunks, so its temporaries stay a few hundred MB at any P, with the JAX
-package's arithmetic element for element: AdamW is
+(``models.packing.pack_train_params``: the cast is the identity in fp32);
+bf16 parameters are views of one packed bf16 buffer, ``weights``, which
+each update rewrites from the master, rounding to nearest even, chunk by
+chunk right after the chunk's update. In a mixed tree only ``runs``, the
+bf16 leaves' ranges (``core/flatbuf.dtype_runs``), are rewritten: the
+fp32 leaves are the master's own views. An update runs in place over the
+buffers in chunks, so its temporaries stay a few hundred MB at any P,
+with the JAX package's arithmetic element for element: AdamW is
 ``(m / bc1) / (sqrt(v / bc2) + eps)`` with b2 = 0.95 by default, not
 ``torch.optim.AdamW``'s denominator. Divisors are tensors on the buffers'
 device, so CUDA divides (torch turns a division by a host scalar into a
@@ -29,9 +31,10 @@ CHUNK = 1 << 26  # elements per in-place pass (256 MB of fp32)
 
 class Optimizer(NamedTuple):
     init: Callable    # master (P,) fp32 -> state dict ("master" is the buffer)
-    # (state, grad (P,), lr, weights=None) -> state: the master updated in
-    # place, and ``weights`` (the packed bf16 parameters, None when they are
-    # the master) rewritten from it
+    # (state, grad (P,), lr, weights=None, runs=None) -> state: the master
+    # updated in place, and ``weights`` (the packed bf16 parameters, None
+    # when they are the master) rewritten from it over ``runs``, its
+    # (start, end) bf16 ranges (None: all of it)
     update: Callable
 
 
@@ -40,11 +43,16 @@ def _chunks(n: int):
         yield slice(a, min(a + CHUNK, n))
 
 
-def _write_back(weights, mst, s) -> None:
+def _write_back(weights, mst, s, runs) -> None:
     """JAX's ``mst.astype(p.dtype)`` over one chunk: the bf16 parameters
-    rounded from the updated master (``copy_`` rounds to nearest even)."""
-    if weights is not None:
-        weights[s].copy_(mst[s])
+    rounded from the updated master (``copy_`` rounds to nearest even),
+    over the chunk's part of each bf16 range."""
+    if weights is None:
+        return
+    for a, z in runs or ((0, mst.numel()),):
+        lo, hi = max(a, s.start), min(z, s.stop)
+        if lo < hi:
+            weights[lo:hi].copy_(mst[lo:hi])
 
 
 def _zeros_like(buf: torch.Tensor) -> torch.Tensor:
@@ -56,11 +64,11 @@ def sgd() -> Optimizer:
         return {"master": master}
 
     @torch.no_grad()
-    def update(state, grads, lr, weights=None):
+    def update(state, grads, lr, weights=None, runs=None):
         mst = state["master"]
         for c in _chunks(mst.numel()):
             mst[c] = mst[c] - lr * grads[c]
-            _write_back(weights, mst, c)
+            _write_back(weights, mst, c, runs)
         return state
 
     return Optimizer(init, update)
@@ -71,12 +79,12 @@ def momentum(beta: float = 0.9) -> Optimizer:
         return {"master": master, "mu": _zeros_like(master)}
 
     @torch.no_grad()
-    def update(state, grads, lr, weights=None):
+    def update(state, grads, lr, weights=None, runs=None):
         mst, mu = state["master"], state["mu"]
         for c in _chunks(mst.numel()):
             mu[c] = beta * mu[c] + grads[c]
             mst[c] = mst[c] - lr * mu[c]
-            _write_back(weights, mst, c)
+            _write_back(weights, mst, c, runs)
         return state
 
     return Optimizer(init, update)
@@ -89,7 +97,7 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                 "v": _zeros_like(master), "count": 0}
 
     @torch.no_grad()
-    def update(state, grads, lr, weights=None):
+    def update(state, grads, lr, weights=None, runs=None):
         mst, m, v = state["master"], state["m"], state["v"]
         c = state["count"] + 1
         f32 = dict(dtype=torch.float32)
@@ -104,7 +112,7 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
             if weight_decay:
                 upd = upd + weight_decay * mst[s]
             mst[s] = mst[s] - lr * upd
-            _write_back(weights, mst, s)
+            _write_back(weights, mst, s, runs)
         state["count"] = c
         return state
 

@@ -77,7 +77,7 @@ from repro_torch.checkpoint import checkpointer
 from repro_torch.configs import get_smoke_config
 from repro_torch.configs.base import (MeshConfig, OptimizerConfig,
                                       PrivacyConfig)
-from repro_torch.core import clipping, flatbuf, prng
+from repro_torch.core import flatbuf, prng
 from repro_torch.core.barrier import step_keys
 from repro_torch.core.noise_correction import NoiseState
 from repro_torch.core.tee import wire
@@ -301,11 +301,19 @@ def test_pack_params_bf16_weights_view_one_bf16_buffer(weights):
     with torch.no_grad():
         buf[off] = 3.0
     assert wq.reshape(-1)[0].item() == 3.0
+    # a mixed tree: the bf16 leaf views the bf16 buffer, the fp32 leaves
+    # the fp32 master (tests/test_torch_bf16_families.py holds the rest)
     mixed = transformer.init(torch.Generator().manual_seed(0),
                              get_smoke_config(ARCH), "cpu")
     mixed.ln_f.scale = torch.nn.Parameter(mixed.ln_f.scale.to(BF16))
-    with pytest.raises(NotImplementedError, match="one dtype"):
-        packing.pack_params(mixed)
+    layout, buf = packing.pack_params(mixed)
+    assert buf.dtype == BF16 and layout.dtypes[layout.paths.index(
+        "ln_f.scale")] == "bfloat16"
+    assert mixed.ln_f.scale.untyped_storage().data_ptr() == \
+        buf.untyped_storage().data_ptr()
+    assert mixed.embed.dtype == torch.float32 and \
+        mixed.embed.untyped_storage().data_ptr() != \
+        buf.untyped_storage().data_ptr()
 
 
 # ---------------------------------------------------------------------------
@@ -799,29 +807,7 @@ def params_to_numpy_tree(tree: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# what stays fp32-only, and the clip modes
-
-
-@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "rwkv6-7b",
-                                  "zamba2-7b", "hubert-xlarge"])
-def test_other_families_refuse_bf16_training(arch):
-    sess = Session.from_config(arch, device="cpu", compute_dtype=BF16,
-                               privacy=PrivacyConfig(**QUICKSTART))
-    with pytest.raises(NotImplementedError, match="queue 1 item 15b"):
-        sess.init_state()
-    with pytest.raises(NotImplementedError, match="queue 1 item 15b"):
-        tsteps.build_train_step(sess.model, sess.run_cfg)
-
-
-def test_clip_modes_refuse_bf16_weights(weights):
-    ts = _port_session("B")
-    params = params_from_jax(weights["B"], ts.cfg, "cpu", dtype=BF16)
-    batch = {k: v[:4] for k, v in ts.synthetic_batches(16, 16)().items()}
-    with pytest.raises(NotImplementedError, match="queue 1 item 15b"):
-        clipping.per_example_clipped_grad(ts.model.loss, params, batch, 1.0)
-    with pytest.raises(NotImplementedError, match="queue 1 item 15b"):
-        clipping.per_microbatch_clipped_grad(ts.model.loss, params, batch,
-                                             1.0, n_micro=4)
+# the clip modes
 
 
 @pytest.mark.parametrize("mode,route", [("per_example", "A"),

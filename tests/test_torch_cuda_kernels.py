@@ -896,7 +896,8 @@ def test_smoke_perleaf_barrier_training_on_card_matches_cpu(cuda):
                       state=cpu.init_state(params=p_cpu))
     assert counts["zsmask_buffer"] == 4 * 2
     assert sum(counts.values()) == counts["zsmask_buffer"]
-    assert variants == {"plain": 0, "prev": 4 * 2}
+    assert variants == {"plain": 0, "prev": 4 * 2, "bf16": 0,
+                        "bf16_prev": 0}
     for ma, mb in zip(a.metrics, b.metrics):
         assert ma["epsilon"] == mb["epsilon"]
         np.testing.assert_allclose(ma["loss"], mb["loss"], rtol=1e-5)

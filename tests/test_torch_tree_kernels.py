@@ -160,8 +160,9 @@ def test_zero_padding_is_one_fill_of_every_padding_position():
 
 
 def test_variant_counts_count_each_instantiation_apart():
-    """``zsmask_buffer`` counts its two instantiations apart, beside its
-    total; ``reset_launches`` zeroes both."""
+    """``zsmask_buffer`` counts its instantiations apart (the fp32 ones
+    here; the bf16 ones, ``bf16`` and ``bf16_prev``, launched nothing),
+    beside its total; ``reset_launches`` zeroes both."""
     k = dispatch.KERNELS["zsmask_buffer"]
     dispatch.reset_launches()
     k.count("prev")
@@ -169,14 +170,15 @@ def test_variant_counts_count_each_instantiation_apart():
     k.count("plain")
     assert dispatch.launch_counts()["zsmask_buffer"] == 3
     counts = dispatch.variant_counts()
-    assert counts.pop("zsmask_buffer") == {"plain": 1, "prev": 2}
+    assert counts.pop("zsmask_buffer") == {"plain": 1, "prev": 2,
+                                           "bf16": 0, "bf16_prev": 0}
     # the other kernels built in more than one instantiation (the attention
     # and page-pool kernels, one a dtype) launched nothing
     assert all(n == 0 for v in counts.values() for n in v.values())
     dispatch.reset_launches()
     assert dispatch.launch_counts()["zsmask_buffer"] == 0
-    assert dispatch.variant_counts()["zsmask_buffer"] == {"plain": 0,
-                                                          "prev": 0}
+    assert dispatch.variant_counts()["zsmask_buffer"] == {
+        "plain": 0, "prev": 0, "bf16": 0, "bf16_prev": 0}
     with pytest.raises(KeyError):
         k.count("other")
     dispatch.reset_launches()
@@ -438,7 +440,8 @@ def test_tree_kernels_equal_the_per_leaf_launches_on_the_card(cuda,
     torch.cuda.synchronize()
     assert dispatch.KERNELS["zsmask_buffer"].launches == 2
     assert dispatch.variant_counts()["zsmask_buffer"] == {
-        "plain": 0 if use_prev else 2, "prev": 2 if use_prev else 0}
+        "plain": 0 if use_prev else 2, "prev": 2 if use_prev else 0,
+        "bf16": 0, "bf16_prev": 0}
     assert torch.equal(got, want) and torch.equal(got, again)
     assert torch.equal(got, plain)
     assert bool((got[pad] == PAD).all())
