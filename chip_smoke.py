@@ -32,6 +32,7 @@ against the host CPU.
     python3 chip_smoke.py --bf16train           # phase 25 (not in the full run)
     python3 chip_smoke.py --flashtrain          # phase 26 (not in the full run)
     python3 chip_smoke.py --bf16families        # phase 27 (not in the full run)
+    python3 chip_smoke.py --longctx             # phase 28 (not in the full run)
 
 ``--scans`` runs only the card line, the build and phase 11's scans (their
 checks and times, no launch configuration), from the ``repro_torch`` under
@@ -56,7 +57,7 @@ that have the scan tier. ``--normal`` runs that noise stage with its
 launches, then phase 21; ``--tree`` runs phase 22; ``--bf16`` phase 23;
 ``--families`` phase 24; ``--bf16train`` phase 25; ``--flashtrain``
 phase 3's flash training rows, then phase 26; ``--bf16families`` phase
-27.
+27; ``--longctx`` phase 28.
 
 Phases (any failed check raises, and the script exits non-zero):
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
@@ -425,6 +426,36 @@ Phases (any failed check raises, and the script exits non-zero):
      peak GB of every cell; under (B) the bf16 weights the rounded master
      over the bf16 leaves after every cell; no plain attention, scan or
      tree-mask call on the card.
+ 28. (``--longctx`` only) JAX's long-context cells on one card, at
+     published width in bf16 and JAX's seq_len: qwen2.5-3b and zamba2-7b
+     at prefill_32k and decode_32k, rwkv6-7b at long_500k, each through
+     ``python -m repro_torch.launch.dryrun --run`` at the plan's batch in
+     a process of its own (prefill on an empty dense cache; one decode
+     step against a cache filled at depth seq_len - 1 with seeded values;
+     rwkv6's state by prefilling 524,288 seeded tokens in calls of
+     32,768), its batch, ms, planned and measured peak and launches
+     printed; zamba2-7b at long_500k is the plan's "does not fit". Gates:
+     (a) the flash serving forward in bf16 at S 32768 (qwen2.5-3b's and
+     zamba2-7b's heads) against its plain version at 256 sampled query
+     rows, one bf16 ulp past the fp32 gate; (b) a 2-layer slice of
+     qwen2.5-3b's prefill and one group of zamba2-7b's (6 Mamba-2 layers
+     and the shared block) at S 32768 through the kernels against the
+     same slice through the plain versions on the card (flash by query
+     blocks of 2048, the scans' chunked forms): last logits within
+     BF16_ATOL, a token split only within BF16_TIE; (c) the ``wkv`` scan
+     over S 32768 in 4 calls with the state carried against one call and
+     the plain version (WKV_ATOL), and rwkv6-7b's prefill at S 32768 in 4
+     calls against one (the serving gate); (d) rwkv6-7b cut to 2 layers at
+     depth 524,288, kernels against plain versions (the serving gate);
+     (e) each cell's measured peak (``max_memory_allocated`` over the
+     step) at or under the plan and the plan within 10% of it. Then rows
+     1, 2, 11 and 12 at the cells' shapes (flash bf16 at S 32768 at the
+     prefill's batch beside SDPA bf16; ``wkv`` at the long prefill's
+     call, ``ssd`` at zamba2's prefill; bf16 paged attention over a
+     32,768-deep table at the decode's batch), and where the card's time
+     goes (``torch.profiler``) in a cut of each prefill (qwen2.5-3b at 2
+     layers, zamba2-7b's first group) and of qwen2.5-3b's decode at the
+     cells' batches: the shares of the flash kernel and the SSD scan.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -3872,7 +3903,8 @@ def one_phase(phase: str, src: Path) -> int:
     phase 24 (:func:`families_phase`), phase 25 (``--bf16train``,
     :func:`bf16train_phase`), phase 3's flash training rows and phase 26
     (``--flashtrain``, :func:`flashtrain_phase`) or phase 27
-    (``--bf16families``, :func:`bf16families_phase`) alone, from the
+    (``--bf16families``, :func:`bf16families_phase`) or phase 28
+    (``--longctx``, :func:`longctx_phase`) alone, from the
     ``repro_torch`` under ``src``
     (another tree's, to time two trees in one call); the last line is their
     JSON record."""
@@ -3929,6 +3961,8 @@ def one_phase(phase: str, src: Path) -> int:
         record = bf16train_phase(dev)
     elif phase == "bf16families":
         record = bf16families_phase(dev)
+    elif phase == "longctx":
+        record = longctx_phase(dev, src)
     elif phase == "flashtrain":
         import torch.nn.functional as F
         record = {"rows": flash_train_rows(dev, F)}
@@ -7427,6 +7461,610 @@ def bf16families_phase(dev) -> dict:
     return rec
 
 
+# --------------------------------------------------------------- phase 28
+# JAX's long-context cells on one card (--longctx only): the dry run's plan
+# and --run at full width in bf16, and gates (a)-(e) at the cells' depths
+LONGCTX_CELLS = (("qwen2.5-3b", "prefill_32k"), ("qwen2.5-3b", "decode_32k"),
+                 ("zamba2-7b", "prefill_32k"), ("zamba2-7b", "decode_32k"),
+                 ("rwkv6-7b", "long_500k"), ("zamba2-7b", "long_500k"))
+# gate (e): the measured peak at or under the plan, the plan within 10% of it
+PLAN_SLACK = 1.10
+# gate (a): query rows of the flash serving forward held to the plain
+# version (a row's plain output needs every key up to it: sampled rows keep
+# the plain version's scores at (B, Hq, rows, S) instead of S x S)
+FLASH_ROWS = 256
+# the blocked plain version's query rows a block (scores (B, Hq, 2048, S))
+PLAIN_BLOCK = 2048
+# gate (c): the chunked prefill's calls at S 32768
+CHUNKS_32K = 4
+
+
+def attention_rows_plain(q, k, v, rows, causal: bool = True):
+    """``ref.attention_ref``'s function at query rows ``rows`` only: fp32
+    scores of each row against every key (masked past the row when causal),
+    the softmax, the fp32 product with V, rounded once to q's dtype."""
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    end = int(rows.max()) + 1 if causal else S
+    qg = q[:, rows].reshape(B, rows.numel(), Hkv, Hq // Hkv, D).float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k[:, :end].float()) \
+        / (D ** 0.5)
+    if causal:
+        mask = rows[:, None] >= torch.arange(end, device=q.device)[None]
+        s = torch.where(mask, s, torch.full_like(s, -1e30))
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", w, v[:, :end].float())
+    return out.reshape(B, rows.numel(), Hq, D).to(q.dtype)
+
+
+def attention_blocked_plain(q, k, v, causal: bool = True):
+    """The plain version of the serving forward over a whole sequence, a
+    batch row and PLAIN_BLOCK query rows at a time
+    (:func:`attention_rows_plain`)."""
+    B, S = q.shape[:2]
+    out = torch.empty_like(q)
+    for b in range(B):  # a row's scores at a time: (1, Hq, block, S)
+        for i in range(0, S, PLAIN_BLOCK):
+            rows = torch.arange(i, min(i + PLAIN_BLOCK, S), device=q.device)
+            out[b:b + 1, i:i + rows.numel()] = attention_rows_plain(
+                q[b:b + 1], k[b:b + 1], v[b:b + 1], rows, causal)
+    return out
+
+
+@contextlib.contextmanager
+def plain_on_card():
+    """The serving forward's kernels replaced by their plain versions on
+    CUDA tensors, for gates (b) and (d): flash attention by
+    :func:`attention_blocked_plain`, the scans by ``ref.wkv_chunked_ref``
+    and ``ref.ssd_chunked_ref`` (the chunked forms the kernels are held to
+    in phase 11)."""
+    from repro_torch.kernels.mamba2 import ref as ssd_ref
+    from repro_torch.kernels.rwkv6 import ref as wkv_ref
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import mamba2 as m2_mod
+    from repro_torch.models import rwkv6 as rwkv_mod
+
+    saved = (attn_mod.flash_ops, rwkv_mod.rwkv_ops, m2_mod.ssd_ops)
+    attn_mod.flash_ops = types.SimpleNamespace(
+        flash_attention=attention_blocked_plain)
+    rwkv_mod.rwkv_ops = types.SimpleNamespace(
+        wkv_chunked=lambda *a, chunk=32: wkv_ref.wkv_chunked_ref(
+            *a, chunk=chunk))
+    m2_mod.ssd_ops = types.SimpleNamespace(
+        ssd_chunked=lambda *a, chunk=64: ssd_ref.ssd_chunked_ref(
+            *a, chunk=chunk))
+    try:
+        yield
+    finally:
+        attn_mod.flash_ops, rwkv_mod.rwkv_ops, m2_mod.ssd_ops = saved
+
+
+def logits_gate(got, want, what: str) -> dict:
+    """Phase 23's serving gate in bf16: last logits within BF16_ATOL, and
+    a greedy token split only where the reference's margin between the two
+    tokens is within BF16_TIE."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs().max().item()
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite logits")
+    check(err <= BF16_ATOL, f"{what}: logits differ by {err} (gate "
+                            f"{BF16_ATOL})")
+    a, b = got.argmax(-1), want.argmax(-1)
+    rows = torch.nonzero(a != b).flatten().tolist()
+    margins = [(want[r, b[r]] - want[r, a[r]]).item() for r in rows]
+    check(all(m <= BF16_TIE for m in margins), f"{what}: a token split at a "
+          f"margin past {BF16_TIE}: {margins}")
+    return {"max_abs_err": err, "token_splits": len(rows),
+            "split_margins": margins}
+
+
+def longctx_cell(arch: str, shape: str, out_dir: Path, src: Path) -> dict:
+    """One cell through the dry run's CLI with ``--run``, in a process of
+    its own (the card emptied between cells), then gate (e) on its
+    record; a cell the plan refuses is its plan alone."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+
+    plan = dryrun.plan_record(arch, shape)
+    if plan["status"] != "ok":
+        log(f"[longctx] {arch} {shape}: {plan['status']}: "
+            f"{plan.get('reason')} (arguments "
+            f"{json.dumps(plan['memory']['argument_parts'])})")
+        return plan
+    env = dict(os.environ, PYTHONPATH=str(src))
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+           "--shape", shape, "--run", "--out", str(out_dir)]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                         timeout=600)
+    wall = time.perf_counter() - t0
+    for line in res.stdout.splitlines():
+        log(f"[longctx]   {line}")
+    check(res.returncode == 0, f"dryrun --run {arch} {shape}: rc "
+          f"{res.returncode}: {res.stderr[-1500:]}")
+    rec = json.loads((out_dir / f"{arch}__{shape}.json").read_text())
+    run = rec["run"]
+    plan_b = rec["memory"]["total_bytes_per_dev"]
+    peak = run["peak_bytes"]
+    check(run["logits_finite"] and run["logits_shape"] == [
+        rec["batch"], get_config(arch).vocab_size], f"{arch} {shape}: logits "
+          f"{run['logits_shape']}, finite {run['logits_finite']}")
+    check(peak <= plan_b, f"(e) {arch} {shape}: measured peak {peak} over "
+                          f"the plan {plan_b}")
+    check(plan_b <= PLAN_SLACK * peak, f"(e) {arch} {shape}: the plan "
+          f"{plan_b} is {plan_b / peak:.3f} of the measured peak {peak}")
+    rec["wall_s"] = wall
+    pre = run.get("prefill", {})
+    launches = pre.get("launches") or run["launches"]
+    log(f"[longctx] {arch} {shape}: batch {rec['batch']} of "
+        f"{rec['global_batch']} at S {rec['seq_len']}: step "
+        f"{run['step_ms']:.1f} ms | peak planned "
+        f"{plan_b / 1e9:.2f} GB, measured {peak / 1e9:.2f} GB (plan / "
+        f"peak {plan_b / peak:.4f}) | launches {json.dumps(launches)}"
+        + (f" | the state by {pre['calls']} prefill calls of {pre['chunk']}"
+           f" tokens: {pre['ms']:.0f} ms, peak {pre['peak_bytes'] / 1e9:.2f}"
+           f" GB" if pre else ""))
+    return rec
+
+
+def flash_rows_gate(cfg, dev, gen, S: int, B: int = 1) -> dict:
+    """Gate (a): the bf16 flash serving forward at ``cfg``'s heads and the
+    cell's depth against its plain version at FLASH_ROWS query rows (the
+    first, the last and the rest drawn), at the bf16 instantiation's gate:
+    within one bf16 ulp past the fp32 gate (KERNEL_ATOL / RTOL)."""
+    from repro_torch.kernels.flash_attention import ops
+
+    bf = torch.bfloat16
+    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    q = torch.randn(B, S, Hq, D, device=dev, generator=gen).to(bf)
+    k = torch.randn(B, S, Hkv, D, device=dev, generator=gen).to(bf)
+    v = torch.randn(B, S, Hkv, D, device=dev, generator=gen).to(bf)
+    got = ops.flash_attention(q, k, v, causal=True)
+    rows = torch.cat([torch.tensor([0, S - 1], device=dev),
+                      torch.randint(1, S - 1, (FLASH_ROWS - 2,), device=dev,
+                                    generator=gen)]).unique()
+    want = attention_rows_plain(q, k, v, rows)
+    g = got[:, rows].float()
+    diff = (g - want.float()).abs()
+    ulp = bf16_ulp(torch.maximum(g.abs(), want.float().abs()))
+    gate = KERNEL_ATOL + KERNEL_RTOL * want.float().abs() + ulp
+    err = diff.max().item()
+    check(bool((diff <= gate).all()), f"(a) flash bf16 at S {S}, heads "
+          f"{Hq}/{Hkv} d_head {D}: past one ulp of its plain version ({err})")
+    return {"S": S, "B": B, "rows": rows.numel(), "max_abs_err": err,
+            "max_ulps": (diff / ulp).max().item(),
+            "at": f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} causal bf16"}
+
+
+def prefill_slice(cfg, dev, S: int, seed: int, plain: bool):
+    """A cut of the cell's model (``cfg``) prefilled over S seeded tokens
+    at batch 1 through the kernels, or through their plain versions on
+    the card: its last logits and the kernels it launched."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import dryrun
+
+    model = dryrun.cell_model(cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with torch.inference_mode():
+        params = model.init(gen)
+        toks = torch.randint(0, cfg.vocab_size, (1, S), generator=gen,
+                             device=dev, dtype=torch.int32)
+        cache = model.init_cache(1, S)
+        dispatch.reset_launches()
+        with plain_on_card() if plain else contextlib.nullcontext():
+            logits = model.prefill(params, toks, cache)
+        torch.cuda.synchronize()
+    launches = {k: v for k, v in dispatch.launch_counts().items() if v}
+    del params, cache
+    torch.cuda.empty_cache()
+    return logits, launches
+
+
+def slice_gate(cfg, dev, S: int, seed: int, what: str, want: dict) -> dict:
+    """Gate (b): the slice through the kernels against the same slice
+    through the plain versions on the card (:func:`logits_gate`); the
+    kernels' launches ``want``, none under the plain versions."""
+    t0 = time.perf_counter()
+    got, n = prefill_slice(cfg, dev, S, seed, False)
+    ref_, n_plain = prefill_slice(cfg, dev, S, seed, True)
+    check(n == want, f"(b) {what}: launches {n}, want {want}")
+    check(not n_plain, f"(b) {what}: the plain run launched {n_plain}")
+    out = logits_gate(got, ref_, f"(b) {what}")
+    out.update(launches=n, S=S, layers=cfg.n_layers,
+               s=time.perf_counter() - t0)
+    log(f"[longctx] (b) {what}: kernels vs plain versions on the card, last "
+        f"logits {out['max_abs_err']:.4g} apart (gate {BF16_ATOL}), "
+        f"{out['token_splits']} token splits; launches {json.dumps(n)}")
+    return out
+
+
+def rwkv_chunk_gate(dev, gen, ops, ref) -> dict:
+    """Gate (c): ``wkv`` over S 32768 at rwkv6-7b's heads in one call
+    against CHUNKS_32K calls with the state carried, and against the plain
+    chunked version, within the scans' gate (WKV_ATOL). Then a report, not
+    a gate: rwkv6-7b (32 layers, bf16) prefilled at S 32768 in one call and
+    in CHUNKS_32K, its last logits and WKV states apart (the bf16 products
+    at 8192 rows a call round otherwise than at 32768, and 32 layers of
+    random weights carry the difference on)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+
+    cfg = get_config("rwkv6-7b")
+    H, N, S = cfg.n_heads, cfg.rwkv_head_size, 32_768
+    r, k, v, w, u, s0 = wkv_inputs(dev, gen, 1, S, H, N)
+    o1, st1 = ops.wkv_chunked(r, k, v, w, u, s0)
+    c = S // CHUNKS_32K
+    st, parts = s0, []
+    for i in range(CHUNKS_32K):
+        sl = slice(i * c, (i + 1) * c)
+        o_, st = ops.wkv_chunked(r[:, sl].contiguous(), k[:, sl].contiguous(),
+                                 v[:, sl].contiguous(), w[:, sl].contiguous(),
+                                 u, st)
+        parts.append(o_)
+    po, pst = ref.wkv_chunked_ref(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    oc = torch.cat(parts, 1)
+    scan = {"chunked_vs_one": max((oc - o1).abs().max().item(),
+                                  (st - st1).abs().max().item()),
+            "one_vs_plain": max((o1 - po).abs().max().item(),
+                                (st1 - pst).abs().max().item())}
+    check(max(scan.values()) <= WKV_ATOL, f"(c) wkv at S {S}: {scan} "
+          f"(tolerance {WKV_ATOL})")
+    del r, k, v, w, o1, oc, po, parts
+    model = dryrun.cell_model(cfg, dev)
+    g2 = torch.Generator(device=dev).manual_seed(28)
+    with torch.inference_mode():
+        params = model.init(g2)
+        toks = torch.randint(0, cfg.vocab_size, (1, S), generator=g2,
+                             device=dev, dtype=torch.int32)
+        one = model.init_cache(1, S)
+        l1 = model.prefill(params, toks, one)
+        chunked = model.init_cache(1, S)
+        for i in range(CHUNKS_32K):
+            lc = model.prefill(params, toks[:, i * c:(i + 1) * c], chunked)
+        torch.cuda.synchronize()
+        state_err = (one["S"] - chunked["S"]).abs().max().item()
+        logit_err = (lc.float() - l1.float()).abs().max().item()
+        layer0_err = (one["S"][0] - chunked["S"][0]).abs().max().item()
+    out = {"scan": scan, "S": S, "chunks": CHUNKS_32K,
+           "model_report": {"logits_max_abs_err": logit_err,
+                            "same_token": bool(torch.equal(
+                                lc.argmax(-1), l1.argmax(-1))),
+                            "state_max_abs_err": state_err,
+                            "layer0_state_max_abs_err": layer0_err}}
+    log(f"[longctx] (c) rwkv6-7b at S {S}: wkv in {CHUNKS_32K} calls vs one "
+        f"{scan['chunked_vs_one']:.3g}, one vs plain "
+        f"{scan['one_vs_plain']:.3g} (gate {WKV_ATOL}); report: the model "
+        f"in {CHUNKS_32K} calls vs one, last logits {logit_err:.4g} apart "
+        f"(same token: {out['model_report']['same_token']}), WKV states "
+        f"{state_err:.3g} (layer 0: {layer0_err:.3g})")
+    del params, one, chunked
+    torch.cuda.empty_cache()
+    return out
+
+
+def rwkv_deep_gate(dev, seed: int = 29) -> dict:
+    """Gate (d): rwkv6-7b cut to 2 layers, its state brought to long_500k's
+    depth (524,288 seeded tokens, LONG_CHUNK a call) through the kernels
+    and through the plain versions on the card, then one decode step:
+    last logits at the serving gate."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import dryrun
+
+    cfg = dataclasses.replace(get_config("rwkv6-7b"), n_layers=2)
+    shape = SHAPES["long_500k"]
+    outs, t0 = {}, time.perf_counter()
+    for plain in (False, True):
+        cell = dryrun.build_cell("rwkv6-7b", "long_500k", 1, dev, cfg=cfg)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        with torch.inference_mode():
+            params = cell.model.init(gen)
+            cache = cell.model.init_cache(1, shape.seq_len)
+            dispatch.reset_launches()
+            with plain_on_card() if plain else contextlib.nullcontext():
+                pre = dryrun.long_prefill(cell, params, cache, gen)
+                del pre["logits"]
+                tok = torch.randint(0, cfg.vocab_size, (1, 1), generator=gen,
+                                    device=dev, dtype=torch.int32)
+                outs[plain] = (cell.model.decode_step(params, tok, cache),
+                               pre["launches"])
+        del params, cache
+    check(outs[False][1] == {"wkv": 2 * pre["calls"]} and not outs[True][1],
+          f"(d) launches: kernels {outs[False][1]}, plain {outs[True][1]}")
+    out = logits_gate(outs[False][0], outs[True][0], "(d) rwkv6-7b")
+    out.update(layers=2, tokens=shape.seq_len, launches=outs[False][1],
+               s=time.perf_counter() - t0)
+    log(f"[longctx] (d) rwkv6-7b, 2 layers at depth {shape.seq_len}: kernels"
+        f" vs plain versions on the card, last logits "
+        f"{out['max_abs_err']:.4g} apart (gate {BF16_ATOL}); launches "
+        f"{json.dumps(out['launches'])}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def long_flash_row(cfg, dev, gen, B: int, S: int, F) -> dict:
+    """Row 1's bf16 serving forward at S ``S``, ``cfg``'s heads and the
+    prefill's batch: held to its plain version at sampled rows
+    (:func:`flash_rows_gate`'s gate), timed as calls (3 after one) beside
+    the blocked plain version (once) and SDPA in bf16; the bound from bf16
+    bytes and the causal products at the tensor cores' bf16 rate."""
+    from repro_torch.kernels.flash_attention import ops
+
+    bf = torch.bfloat16
+    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    q = torch.randn(B, S, Hq, D, device=dev, generator=gen).to(bf)
+    k = torch.randn(B, S, Hkv, D, device=dev, generator=gen).to(bf)
+    v = torch.randn(B, S, Hkv, D, device=dev, generator=gen).to(bf)
+    call = lambda: ops.flash_attention(q, k, v, causal=True)  # noqa: E731
+    got = call()
+    rows = torch.cat([torch.tensor([S - 1], device=dev),
+                      torch.randint(0, S - 1, (63,), device=dev,
+                                    generator=gen)])
+    want = attention_rows_plain(q, k, v, rows)
+    g = got[:, rows].float()
+    diff = (g - want.float()).abs()
+    ulp = bf16_ulp(torch.maximum(g.abs(), want.float().abs()))
+    err = diff.max().item()
+    check(bool((diff <= KERNEL_ATOL + KERNEL_RTOL * want.float().abs()
+                + ulp).all()), f"row 1 bf16 at S {S}, B {B}: past one ulp "
+          f"of its plain version ({err})")
+    del got
+    # SDPA's flash backend, forced, on K and V repeated to the query heads
+    # (GQA by hand): at S 32768 the math backend's S x S scores would not
+    # fit the card
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (t.transpose(1, 2).repeat_interleave(Hq // Hkv, dim=1)
+              .contiguous() for t in (k, v))
+
+    def sdpa():
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    pairs = S * (S + 1) // 2
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
+    bms, by = bound(nbytes, 4 * D * Hq * B * pairs, BF16_FLOP_PER_S)
+    return {"max_abs_err": err, "max_ulps": (diff / ulp).max().item(),
+            "ms": cuda_ms(call, reps=3, warmup=0),
+            "plain_ms": cuda_ms(lambda: attention_blocked_plain(q, k, v),
+                                reps=1, warmup=0),
+            "library_ms": cuda_ms(sdpa, reps=3, warmup=1),
+            "bound_ms": bms, "bound_by": by,
+            "library_call": "SDPA's flash backend on K, V repeated to Hq",
+            "at": f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} causal bf16 "
+                  f"(plain version: {PLAIN_BLOCK}-row blocks)"}
+
+
+def long_scan_rows(dev, gen, ops_w, ref_w, ops_s, ref_s, zb: int) -> dict:
+    """Rows 11 and 12 at the long cells' call shapes: ``wkv`` at rwkv6-7b's
+    long_500k prefill call (1, LONG_CHUNK, 64, 64), held to its plain
+    chunked version at phase 11's gate (WKV_ATOL), and ``ssd`` at
+    zamba2-7b's prefill_32k call (its planned batch ``zb``, 32768, 112,
+    64, N 64), held with its plain version to the plain version in fp64:
+    the kernel within SSD_ATOL of the fp32 plain version's own distance;
+    each timed beside its plain version (call times; the card's alone for
+    the kernel)."""
+    from repro_torch.configs import get_config
+
+    rc, zc = get_config("rwkv6-7b"), get_config("zamba2-7b")
+    H, N = rc.n_heads, rc.rwkv_head_size
+    S = 32_768
+    xs = wkv_inputs(dev, gen, 1, S, H, N)
+    o, st = ops_w.wkv_chunked(*xs)
+    po, pst = ref_w.wkv_chunked_ref(*xs)
+    werr = max((o - po).abs().max().item(), (st - pst).abs().max().item())
+    check(werr <= WKV_ATOL, f"wkv at (1, {S}, {H}, {N}): {werr}")
+    r, u, s0 = xs[0], xs[4], xs[5]
+    wkv = scan_timing(lambda: ops_w.wkv_chunked(*xs),
+                      lambda: ref_w.wkv_chunked_ref(*xs),
+                      (5 * r.numel() + u.numel() + 2 * s0.numel()) * 4,
+                      4 * S * H * N * N, f"B=1 S={S} H={H} N={N} fp32 "
+                      f"(rwkv6-7b's long_500k prefill call)", graph_n=3,
+                      plain_reps=1)
+    wkv["max_abs_err"] = werr
+    del xs, o, po
+    d_in = zc.mamba_expand * zc.d_model
+    nh, P, Ns = d_in // zc.mamba_headdim, zc.mamba_headdim, zc.ssm_state
+    xs = ssd_inputs(dev, gen, zb, S, nh, P, Ns)
+    y, h = ops_s.ssd_chunked(*xs)
+    py, ph = ref_s.ssd_chunked_ref(*xs)
+    serr = max((y - py).abs().max().item(), (h - ph).abs().max().item())
+    # at this depth the two fp32 orders part by more than phase 11's
+    # SSD_ATOL: each is held to the plain version in fp64 instead, and the
+    # kernel may be no further from it than the fp32 plain version is
+    dy, dh = ref_s.ssd_chunked_ref(*(t.double() for t in xs))
+    k64 = max((y - dy).abs().max().item(), (h - dh).abs().max().item())
+    p64 = max((py - dy).abs().max().item(), (ph - dh).abs().max().item())
+    ymax = dy.abs().max().item()
+    del dy, dh, py, ph
+    check(k64 <= p64 + SSD_ATOL, f"ssd at ({zb}, {S}, {nh}, {P}): "
+          f"{k64} from the fp64 plain version, the fp32 one {p64}")
+    x, dt, _, Bc, _, h0 = xs
+    ssd = scan_timing(lambda: ops_s.ssd_chunked(*xs),
+                      lambda: ref_s.ssd_chunked_ref(*xs),
+                      (2 * x.numel() + 2 * dt.numel() + 2 * Bc.numel()
+                       + 2 * h0.numel()) * 4, 5 * zb * S * nh * P * Ns,
+                      f"B={zb} S={S} nh={nh} P={P} N={Ns} fp32 (zamba2-7b's "
+                      f"prefill_32k)", graph_n=3, plain_reps=1)
+    ssd.update(max_abs_err=serr, fp64_max_abs_err=k64,
+               plain_fp64_max_abs_err=p64, y_max_abs=ymax)
+    torch.cuda.empty_cache()
+    return {"wkv_long": wkv, "ssd_32k": ssd}
+
+
+def long_paged_row(cfg, dev, gen, B: int, F) -> dict:
+    """Row 2's bf16 tensor-core kernel over a 32,768-deep table (2048 pages
+    of 16 a slot), C 1 at the last position of every slot, at ``cfg``'s
+    heads and the decode cell's batch: the pool filled with seeded K/V,
+    held to its plain version at the row's gate (KERNEL_ATOL / RTOL), timed
+    as calls and on the card beside SDPA in bf16 over the gathered K/V."""
+    from repro_torch.kernels.paged_attention import ops, ref
+    from repro_torch.kernels.paged_attention.paged_attention import plan_tc
+
+    nP, P, C = 2048, 16, 1
+    S = nP * P
+    q, kp, vp, tables, qs = paged_case(cfg, dev, gen, B, C, nP, P,
+                                       [S - 1] * B)
+    q, kp, vp = (t.to(torch.bfloat16) for t in (q, kp, vp))
+    got = ops.paged_attention(q, kp, vp, tables, qs)
+    want = ref.paged_attention_ref(q, kp, vp, tables, qs)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    check(torch.allclose(got, want, atol=KERNEL_ATOL, rtol=KERNEL_RTOL),
+          f"paged bf16 over {nP} pages a slot, B {B}: {err}")
+    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    kg = kp[tables.long()].reshape(B, S, Hkv, D).transpose(1, 2).contiguous()
+    vg = vp[tables.long()].reshape(B, S, Hkv, D).transpose(1, 2).contiguous()
+    qt = q.transpose(1, 2).contiguous()
+    nbytes, flops = paged_work(q, tables.cpu(), qs.cpu(), P, Hkv)
+    bms, by = bound(nbytes, flops, BF16_FLOP_PER_S)
+    call = lambda: ops.paged_attention(q, kp, vp, tables, qs)  # noqa: E731
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kg, vg, enable_gqa=True)
+    rows, chunks = plan_tc(Hq // Hkv * C, nP, P)
+    return {"max_abs_err": err, "ms": cuda_ms(call),
+            "device_ms": graph_ms(call, n=10, reps=5),
+            "plain_ms": cuda_ms(lambda: ref.paged_attention_ref(
+                q, kp, vp, tables, qs), reps=2, warmup=1),
+            "library_ms": cuda_ms(sdpa), "library_device_ms": graph_ms(
+                sdpa, n=10, reps=5),
+            "bound_ms": bms, "bound_by": by,
+            "plan": {"chunks": chunks, "row_tile": rows},
+            "at": f"B={B} C={C} Hq={Hq} Hkv={Hkv} D={D} P={P} nP={nP} "
+                  f"q_start={S - 1} bf16 (pools bf16, output fp32)"}
+
+
+def step_profile(cfg, dev, B: int, S: int, kind: str, what: str) -> dict:
+    """Where a step's card time goes, from ``torch.profiler`` over one
+    prefill (on an empty cache) or one decode step (against a cache filled
+    at depth S - 1) of ``cfg`` (a cut of the cell's model) at the cell's
+    batch and depth: the card's busy ms, the flash kernel's and the SSD
+    scan's ms and shares, and the kernels that take the most time."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.profile_serve import _window
+
+    model = dryrun.cell_model(cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(30)
+    with torch.inference_mode():
+        params = model.init(gen)
+        cache = model.init_cache(B, S)
+        if kind == "decode":
+            dryrun.fill_cache(cache, S - 1, gen)
+        toks = torch.randint(0, cfg.vocab_size, (B, S if kind == "prefill"
+                                                 else 1), generator=gen,
+                             device=dev, dtype=torch.int32)
+        w = _window(lambda: model.prefill(params, toks, cache), 10_000)
+    kernels = [r for r in w["top"] if r["cpu_ms"] == 0.0]
+    flash = sum(r["device_ms"] for r in kernels if "flash" in r["name"])
+    ssd = sum(r["device_ms"] for r in kernels if "ssd" in r["name"])
+    out = {"kind": kind, "layers": cfg.n_layers, "B": B, "S": S,
+           "wall_ms": w["wall_ms"], "device_busy_ms": w["device_busy_ms"],
+           "flash_ms": flash, "ssd_ms": ssd,
+           "attention_share": flash / w["device_busy_ms"],
+           "ssd_share": ssd / w["device_busy_ms"],
+           "top": [{"name": r["name"][:120], "count": r["count"],
+                    "device_ms": r["device_ms"]} for r in kernels[:6]]}
+    log(f"[longctx] {what} {kind} at {cfg.n_layers} layers, B {B} S {S} "
+        f"under torch.profiler: card busy {out['device_busy_ms']:.1f} of "
+        f"{out['wall_ms']:.1f} ms; flash {flash:.1f} ms "
+        f"({out['attention_share']:.1%}), ssd {ssd:.1f} ms "
+        f"({out['ssd_share']:.1%}); top: " + "; ".join(
+            f"{r['device_ms']:.1f} ms x{r['count']} {r['name'][:60]}"
+            for r in out["top"][:4]))
+    del params, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def longctx_phase(dev, src: Path) -> dict:
+    """Phase 28 (``--longctx`` only): JAX's long-context cells on one card.
+    Each cell of LONGCTX_CELLS through ``python -m
+    repro_torch.launch.dryrun --run`` (full width, bf16, JAX's seq_len, the
+    plan's batch), in a process of its own, with gate (e); zamba2-7b's
+    long_500k is the plan's "does not fit". Then (a) the flash serving
+    forward against its plain version at sampled rows at S 32768, at
+    qwen2.5-3b's and zamba2-7b's heads; (b) a 2-layer slice of
+    qwen2.5-3b's prefill and one group of zamba2-7b's (6 Mamba-2 layers and
+    the shared block) through the kernels against the plain versions on
+    the card; (c) rwkv6-7b's chunked prefill against one call at S 32768;
+    (d) rwkv6-7b at 2 layers at depth 524,288, kernels against plain
+    versions; rows 1, 2, 11 and 12 at the cells' shapes; and where the
+    card's time goes in a cut of each prefill and of qwen2.5-3b's decode
+    (``torch.profiler``)."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.mamba2 import ops as ssd_ops
+    from repro_torch.kernels.mamba2 import ref as ssd_ref
+    from repro_torch.kernels.rwkv6 import ops as wkv_ops
+    from repro_torch.kernels.rwkv6 import ref as wkv_ref
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    out_dir = ROOT / "build" / "dryrun"   # the dry run's own default
+    out_dir.mkdir(parents=True, exist_ok=True)
+    rec: dict = {"cells": {}, "phase_s": {}}
+    for arch, shape in LONGCTX_CELLS:
+        rec["cells"][f"{arch} {shape}"] = longctx_cell(arch, shape, out_dir,
+                                                       src)
+    rec["phase_s"]["cells"] = time.perf_counter() - t0
+    z_long = rec["cells"]["zamba2-7b long_500k"]
+    check(z_long["status"] == "does_not_fit", "zamba2-7b long_500k: the plan "
+          "should not fit one card")
+    qwen, zamba = get_config("qwen2.5-3b"), get_config("zamba2-7b")
+    gen = torch.Generator(device=dev).manual_seed(28)
+    t1 = time.perf_counter()
+    rec["a"] = {name: flash_rows_gate(cfg, dev, gen, 32_768)
+                for name, cfg in (("qwen2.5-3b", qwen), ("zamba2-7b", zamba))}
+    for name, r in rec["a"].items():
+        log(f"[longctx] (a) flash bf16 at {name}'s heads, S 32768: "
+            f"{r['rows']} rows, max_abs_err {r['max_abs_err']:.3g} "
+            f"({r['max_ulps']:.2f} ulps)")
+    rec["b"] = {
+        "qwen2.5-3b": slice_gate(dataclasses.replace(qwen, n_layers=2), dev,
+                                 32_768, 31, "qwen2.5-3b, 2 layers",
+                                 {"flash_attention": 2}),
+        "zamba2-7b": slice_gate(
+            dataclasses.replace(zamba, n_layers=zamba.attn_every), dev,
+            32_768, 32, "zamba2-7b, a group",
+            {"flash_attention": 1, "ssd": zamba.attn_every})}
+    rec["c"] = rwkv_chunk_gate(dev, gen, wkv_ops, wkv_ref)
+    rec["d"] = rwkv_deep_gate(dev)
+    rec["phase_s"]["gates"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    qb = rec["cells"]["qwen2.5-3b prefill_32k"]["batch"]
+    zb = rec["cells"]["zamba2-7b prefill_32k"]["batch"]
+    db = rec["cells"]["qwen2.5-3b decode_32k"]["batch"]
+    rows = {"flash_32k": long_flash_row(qwen, dev, gen, qb, 32_768, F)}
+    rows.update(long_scan_rows(dev, gen, wkv_ops, wkv_ref, ssd_ops, ssd_ref,
+                               zb))
+    rows["paged_32k"] = long_paged_row(qwen, dev, gen, db, F)
+    rec["rows"] = rows
+    for name, r in rows.items():
+        log(f"[longctx] row {name}: max_abs_err {r['max_abs_err']:.3g} | "
+            f"kernel {r['ms']:.4f} ms"
+            + (f" (on the card {r['device_ms']:.4f})" if "device_ms" in r
+               else "") + f" | plain {r['plain_ms']:.4f} ms | library "
+            + (f"{r['library_ms']:.4f} ms" if r.get("library_ms") else
+               "none") + f" | bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+            f" | {r['at']}")
+    rec["phase_s"]["rows"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    q2 = dataclasses.replace(qwen, n_layers=2)
+    z1 = dataclasses.replace(zamba, n_layers=zamba.attn_every)
+    rec["profile"] = {
+        "qwen2.5-3b prefill": step_profile(q2, dev, qb, 32_768, "prefill",
+                                           "qwen2.5-3b"),
+        "zamba2-7b prefill": step_profile(z1, dev, zb, 32_768, "prefill",
+                                          "zamba2-7b"),
+        "qwen2.5-3b decode": step_profile(q2, dev, db, 32_768, "decode",
+                                          "qwen2.5-3b")}
+    rec["phase_s"]["profile"] = time.perf_counter() - t1
+    rec["total_s"] = time.perf_counter() - t0
+    log(f"[longctx] phase 28 in {rec['total_s']:.1f} s "
+        f"({json.dumps({k: round(v, 1) for k, v in rec['phase_s'].items()})})")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -8679,7 +9317,8 @@ if __name__ == "__main__":
         if "--src" in args else ROOT / "src"
     for phase in ("scans", "pool", "wire", "bwd", "streams", "slice15",
                   "persist", "cifar", "prng", "normal", "tree", "bf16",
-                  "families", "bf16train", "flashtrain", "bf16families"):
+                  "families", "bf16train", "flashtrain", "bf16families",
+                  "longctx"):
         if f"--{phase}" in args:
             sys.exit(one_phase(phase, src))
     sys.exit(main())

@@ -47,9 +47,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_smoke_config, resolve_arch
-from repro_torch.configs.base import (MeshConfig, ModelConfig,
+from repro_torch.configs.base import (SHAPES, MeshConfig, ModelConfig,
                                       OptimizerConfig, PrivacyConfig,
-                                      RunConfig)
+                                      RunConfig, ShapeConfig)
 from repro_torch.core import prng
 from repro_torch.data.synthetic import synthetic_tokens
 from repro_torch.distributed import steps as steps_mod
@@ -116,13 +116,16 @@ class Session:
                     privacy: Optional[PrivacyConfig] = None,
                     optimizer: Optional[OptimizerConfig] = None,
                     mesh: Optional[MeshConfig] = None,
+                    shape: Union[str, ShapeConfig] = "train_4k",
                     compute_dtype=torch.float32, seed: int = 0,
                     device=None) -> "Session":
         """Build a session from an arch id (or a ready ModelConfig).
         ``full=False`` loads the reduced smoke config. Privacy is off unless
         a PrivacyConfig is passed; the optimizer defaults to AdamW; the mesh
         to one data slot, the card (JAX defaults to its local devices). The
-        barrier tier runs one silo per data slot of ``mesh``."""
+        barrier tier runs one silo per data slot of ``mesh``. ``shape`` (a
+        name in ``SHAPES`` or a ``ShapeConfig``) is stored in
+        ``run_cfg.shape``, as JAX's is; neither train nor serve reads it."""
         dev = resolve_device(device)
         if dev.type == "cuda":
             # the path is fp32 at full precision, as in the JAX package:
@@ -139,7 +142,10 @@ class Session:
             arch = resolve_arch(arch)
             cfg = get_config(arch) if full else get_smoke_config(arch)
         model = build_model(cfg, dev, compute_dtype=compute_dtype)
-        rc = RunConfig(model=cfg, privacy=privacy if privacy is not None
+        rc = RunConfig(model=cfg,
+                       shape=SHAPES[shape] if isinstance(shape, str)
+                       else shape,
+                       privacy=privacy if privacy is not None
                        else PrivacyConfig(enabled=False),
                        optimizer=optimizer or OptimizerConfig(),
                        mesh=mesh or MeshConfig(), seed=seed)
@@ -1172,15 +1178,12 @@ class CollaborativeSession:
         return self.service.expected_measurement()
 
 
-# Session.from_config's keywords, split off by the one-call helpers; JAX's
-# ``shape`` (a training ShapeConfig its Session stores and neither train nor
-# serve reads) has no counterpart in the port and is dropped
-_CTOR_KEYS = ("full", "privacy", "optimizer", "mesh", "compute_dtype",
-              "seed", "device")
+# Session.from_config's keywords, split off by the one-call helpers
+_CTOR_KEYS = ("full", "privacy", "optimizer", "mesh", "shape",
+              "compute_dtype", "seed", "device")
 
 
 def _split_ctor(kw: dict) -> dict:
-    kw.pop("shape", None)
     return {k: kw.pop(k) for k in _CTOR_KEYS if k in kw}
 
 
@@ -1189,10 +1192,11 @@ def train(arch: str, **kw) -> TrainResult:
     steps=10)``.
 
     :meth:`Session.from_config`'s keywords (full, privacy, optimizer,
-    mesh, compute_dtype, seed, device) are split off; the rest go to
-    :meth:`Session.train`. ``shape``, which JAX's ``from_config`` takes and
-    its train never reads, is accepted and dropped: batch size and sequence
-    length are ``train``'s ``batch_size`` and ``seq_len``."""
+    mesh, shape, compute_dtype, seed, device) are split off; the rest go
+    to :meth:`Session.train`. ``shape`` is stored in the session's
+    ``run_cfg``, as JAX's is, and read by neither package's train: batch
+    size and sequence length are ``train``'s ``batch_size`` and
+    ``seq_len``."""
     ctor = _split_ctor(kw)
     return Session.from_config(arch, **ctor).train(**kw)
 
@@ -1200,7 +1204,7 @@ def train(arch: str, **kw) -> TrainResult:
 def serve(arch: str, **kw) -> ServeResult:
     """One-call convenience: ``repro_torch.api.serve("qwen2.5-3b",
     max_new_tokens=8)``; bf16 serving with ``compute_dtype=torch.bfloat16``.
-    The keywords split as in :func:`train` (``shape`` dropped likewise: the
+    The keywords split as in :func:`train` (``shape`` stored likewise: the
     prompt's shape is ``serve``'s ``batch_size`` and ``prompt_len``)."""
     ctor = _split_ctor(kw)
     return Session.from_config(arch, **ctor).serve(**kw)

@@ -7,7 +7,10 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig, reduce_for_smoke
+from repro_torch.configs.base import (SHAPES, ModelConfig, ShapeConfig,
+                                      active_param_count,
+                                      applicable_shapes, param_count,
+                                      reduce_for_smoke, shape_applicability)
 
 # every arch id the JAX package knows -> its config module name
 _ARCH_MODULES: dict[str, str] = {
@@ -22,6 +25,8 @@ _ARCH_MODULES: dict[str, str] = {
     "hubert-xlarge": "hubert_xlarge",
     "zamba2-7b": "zamba2_7b",
 }
+
+ARCH_IDS: tuple[str, ...] = tuple(_ARCH_MODULES)
 
 # the arch ids whose config module exists in this package: all of them
 PORTED: tuple[str, ...] = ("mistral-large-123b", "stablelm-3b",
@@ -60,5 +65,15 @@ def get_smoke_config(arch: str) -> ModelConfig:
     return _module(arch).SMOKE
 
 
-__all__ = ["PORTED", "ModelConfig", "get_config",
-           "get_smoke_config", "reduce_for_smoke", "resolve_arch"]
+def runnable_cells() -> list[tuple[str, str]]:
+    """The (arch, shape) pairs ``shape_applicability`` takes, in JAX's
+    order (``repro/configs/__init__.py:74-81``)."""
+    return [(a, s) for a in ARCH_IDS for s, shape in SHAPES.items()
+            if shape_applicability(get_config(a), shape)[0]]
+
+
+__all__ = ["ARCH_IDS", "PORTED", "SHAPES", "ModelConfig", "ShapeConfig",
+           "active_param_count", "applicable_shapes", "get_config",
+           "get_smoke_config", "param_count",
+           "reduce_for_smoke", "resolve_arch", "runnable_cells",
+           "shape_applicability"]

@@ -1,9 +1,11 @@
 """Config dataclasses, the port's own copy of ``repro.configs.base``.
 
-Only what the ported paths read: ``ModelConfig`` and ``reduce_for_smoke``
-(every family of the JAX package), and the privacy, mesh, optimizer and
-run configs of the training path. The shape configs come with the slice
-that uses them.
+``ModelConfig`` and ``reduce_for_smoke`` (every family of the JAX
+package), JAX's parameter counts (``param_count``, ``active_param_count``:
+its formulas, which the dry run's records report as ``params_B``), the
+input-shape cells (``ShapeConfig``, ``SHAPES``, ``shape_applicability``,
+``applicable_shapes``), and the privacy, mesh, optimizer and run configs of
+the training path.
 """
 from __future__ import annotations
 
@@ -57,6 +59,102 @@ class ModelConfig:
 
     def is_moe(self) -> bool:
         return self.n_experts > 0
+
+    def has_attention(self) -> bool:
+        return self.family in ("dense", "moe", "vlm", "encoder", "hybrid")
+
+    def subquadratic(self) -> bool:
+        """True if the arch supports O(S) decode state growth *and* the
+        long-context shape (SSM / linear-attn / hybrid)."""
+        return self.family in ("ssm", "hybrid")
+
+
+def _per_layer_params(cfg: ModelConfig) -> tuple[int, int]:
+    """(total, active) parameter count of one block (no embeddings): JAX's
+    formula (``repro/configs/base.py:82-119``), an estimate for the ssm and
+    hybrid families (their modules hold other counts: the dry run's bytes
+    come from the weights' shapes, never from this)."""
+    d = cfg.d_model
+    if cfg.family == "ssm":  # RWKV6
+        tm = 5 * d * d + 4 * d  # r,k,v,g,output + per-channel decay/first
+        lora = 6 * (d * 64 + 64 * d)  # data-dependent w/x lora (rank 64)
+        cm = d * cfg.d_ff + cfg.d_ff * d
+        p = tm + lora + cm + 4 * d  # + norms
+        return p, p
+    attn = d * cfg.attn_inner + 2 * d * cfg.kv_inner + cfg.attn_inner * d
+    if cfg.qkv_bias:
+        attn += cfg.attn_inner + 2 * cfg.kv_inner
+    norms = 2 * d
+    if cfg.family == "hybrid":
+        d_in = cfg.mamba_expand * d
+        nh = d_in // cfg.mamba_headdim
+        mamba = (
+            d * (2 * d_in + 2 * cfg.ssm_state + nh)  # in_proj -> x,z,B,C,dt
+            + cfg.mamba_conv * (d_in + 2 * cfg.ssm_state)  # conv1d
+            + nh * 2  # A_log, D
+            + d_in * d  # out_proj
+            + 2 * d
+        )
+        # the shared attention block amortized over attn_every layers
+        shared = attn + 3 * d * cfg.d_ff + norms
+        p = mamba + shared // max(cfg.attn_every, 1) if cfg.attn_every \
+            else mamba
+        return p, p
+    if cfg.is_moe():
+        ffn_tot = cfg.n_experts * 3 * d * cfg.d_ff + d * cfg.n_experts
+        ffn_act = cfg.top_k * 3 * d * cfg.d_ff + d * cfg.n_experts
+    else:
+        ffn_tot = ffn_act = 3 * d * cfg.d_ff  # SwiGLU: gate, up, down
+    return attn + ffn_tot + norms, attn + ffn_act + norms
+
+
+def param_count(cfg: ModelConfig) -> int:
+    per, _ = _per_layer_params(cfg)
+    emb = cfg.vocab_size * cfg.d_model
+    head = 0 if cfg.tie_embeddings else cfg.vocab_size * cfg.d_model
+    return cfg.n_layers * per + emb + head + cfg.d_model  # + final norm
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    _, act = _per_layer_params(cfg)
+    emb = cfg.vocab_size * cfg.d_model
+    head = 0 if cfg.tie_embeddings else cfg.vocab_size * cfg.d_model
+    return cfg.n_layers * act + emb + head + cfg.d_model
+
+
+# ---------------------------------------------------------------------------
+# Shapes (JAX's input-shape cells: seq_len x global_batch)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str  # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524_288, 1),
+}
+
+
+def shape_applicability(cfg: ModelConfig,
+                        shape: ShapeConfig) -> tuple[bool, str]:
+    """(runnable, reason if not), with JAX's reasons."""
+    if not cfg.causal and shape.kind == "decode":
+        return False, "encoder-only arch has no decode step"
+    if shape.name == "long_500k" and not cfg.subquadratic():
+        return False, ("long_500k needs sub-quadratic attention "
+                       "(pure full-attention arch)")
+    return True, ""
+
+
+def applicable_shapes(cfg: ModelConfig) -> list[ShapeConfig]:
+    return [s for s in SHAPES.values() if shape_applicability(cfg, s)[0]]
 
 
 def reduce_for_smoke(cfg: ModelConfig, **overrides) -> ModelConfig:
@@ -141,9 +239,12 @@ class OptimizerConfig:
 
 @dataclass(frozen=True)
 class RunConfig:
-    """What the training path reads of the JAX package's ``RunConfig``."""
+    """What the training path reads of the JAX package's ``RunConfig``;
+    ``shape`` is stored as JAX's ``Session`` stores it, and read by
+    neither train nor serve (nor JAX's)."""
 
     model: ModelConfig
+    shape: ShapeConfig = SHAPES["train_4k"]
     mesh: MeshConfig = MeshConfig()
     privacy: PrivacyConfig = PrivacyConfig()
     optimizer: OptimizerConfig = OptimizerConfig()

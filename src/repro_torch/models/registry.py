@@ -43,6 +43,7 @@ class Model:
     init_paged_cache: Optional[Callable[..., Any]] = None
     paged_step: Optional[Callable[..., Any]] = None
     compute_dtype: torch.dtype = torch.float32
+    param_dtype: torch.dtype = torch.float32
 
 
 def build_model(cfg: ModelConfig, device, param_dtype=torch.float32,
@@ -74,7 +75,8 @@ def build_model(cfg: ModelConfig, device, param_dtype=torch.float32,
                      init=lambda gen: mod.init(gen, cfg, device, param_dtype),
                      loss=loss,
                      init_cache=init_cache, prefill=step,
-                     decode_step=step, compute_dtype=cd)
+                     decode_step=step, compute_dtype=cd,
+                     param_dtype=param_dtype)
     if cfg.family not in transformer.FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r}")
 
@@ -99,4 +101,5 @@ def build_model(cfg: ModelConfig, device, param_dtype=torch.float32,
             cfg, n_pages, page_size, device, cd),
         paged_step=paged_step,
         compute_dtype=cd,
+        param_dtype=param_dtype,
     )

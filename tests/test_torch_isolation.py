@@ -71,6 +71,8 @@ for name in ("core.prng", "core.flatbuf", "core.clipping", "core.barrier",
              "kernels.paged_attention.paged_attention",
              "kernels.paged_attention.ops", "models.attention",
              "models.transformer", "models.hybrid",
+             # the long-context cells: the one-card dry run
+             "launch.mesh", "launch.specs", "launch.dryrun",
              # the MoE, VLM and encoder families
              "models.moe", "configs.phi35_moe_42b", "configs.qwen3_moe_235b",
              "configs.qwen2_vl_72b", "configs.hubert_xlarge"):
