@@ -67,7 +67,9 @@ Phases (any failed check raises, and the script exits non-zero):
      same function (a yardstick only: the port never calls it); paged
      attention at C 1 (decode), 4 (a speculative verify) and 16 (a prefill
      chunk) from q_starts {0, S/3, S - C, -1}, with the wrapper's split
-     plan logged (read from its plan(), not measured); every attention row
+     plan logged (read from its plan(), not measured); flash attention
+     (on the tensor cores) also within the gate of its split model, two
+     launches bit-equal; every attention row
      and its SDPA yardstick timed both as calls (``ms``, host-clocked:
      back-to-back calls between CUDA events, so the longer of the host's
      enqueue and the card's work) and on the card alone (``device_ms``: 50
@@ -85,8 +87,8 @@ Phases (any failed check raises, and the script exits non-zero):
      hubert-xlarge's frames (B 4, S 512, MHA, d_head 80, non-causal) and
      at S 1000, each in fp32 and bf16 (fp32 within FLASH_TRAIN_REL of each
      output's largest value, bf16 within one ulp past it, two launches
-     bit-equal; the bf16 pair on the tensor cores: HMMA in the SASS of
-     each of its kernels, none in the fp32 pair's), timed beside SDPA's
+     bit-equal; both pairs on the tensor cores: HMMA in the SASS of each
+     flash kernel, the serving forwards' included), timed beside SDPA's
      forward and its backward, the bf16 rows beside the split's floor
      too; then the main path that
      launches them: one fused step of qwen2.5-3b at full width and 2
@@ -326,10 +328,11 @@ Phases (any failed check raises, and the script exits non-zero):
      that keep them (``pairwise_mask_tree(impl="perleaf")``, bit-equal to
      the tree kernel, and ``sumsq`` a leaf);
  23. bf16 serving: (a) the bf16 instantiations of flash attention at
-     d_head 128, 112, 80 and 96 (B 4, S 32), each element within one bf16
-     ulp of the plain version past the fp32 gate and bit-equal to the fp32
-     kernel on the widened inputs, rounded (the share not bit-equal to the
-     plain version and the largest gap in ulps reported); of paged attention
+     d_head 128, 112, 80 and 96 (B 4, S 32), on the tensor cores, each
+     element within one bf16 ulp of the plain version past the fp32 gate
+     and within the gate of its split model, two launches bit-equal (the
+     share not bit-equal to the plain version and the largest gap in ulps
+     reported); of paged attention
      at C 1, 4 and 16 for qwen2.5-3b and at Hkv 32 (d_head 80, 96), on the
      tensor cores, within KERNEL_ATOL of the plain version and of its split
      model, two launches bit-equal; the zeroing kernel on bf16 pools bit-equal to its
@@ -449,8 +452,9 @@ Phases (any failed check raises, and the script exits non-zero):
      depth 524,288, kernels against plain versions (the serving gate);
      (e) each cell's measured peak (``max_memory_allocated`` over the
      step) at or under the plan and the plan within 10% of it. Then rows
-     1, 2, 11 and 12 at the cells' shapes (flash bf16 at S 32768 at the
-     prefill's batch beside SDPA bf16; ``wkv`` at the long prefill's
+     1, 2, 11 and 12 at the cells' shapes (flash bf16 at S 32768 at each
+     prefill's batch, qwen2.5-3b's and zamba2-7b's heads, beside SDPA
+     bf16; ``wkv`` at the long prefill's
      call, ``ssd`` at zamba2's prefill; bf16 paged attention over a
      32,768-deep table at the decode's batch), and where the card's time
      goes (``torch.profiler``) in a cut of each prefill (qwen2.5-3b at 2
@@ -487,8 +491,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 # the dense bf16 rate of the tensor cores: a bf16 row's least time for its
-# products (the kernels compute them in fp32 on the CUDA cores; a faster
-# design could use these)
+# products
 BF16_FLOP_PER_S = 989e12
 
 # per-SM issue rates of Hopper in thread-operations per clock (H100
@@ -1036,18 +1039,47 @@ def check_pool_zero(cfg, dev, gen, ops, ref, dtype=torch.float32) -> None:
               f"{DTYPE_NAMES[dtype]}) differs from its plain version")
 
 
+def flash_model_gate(got, q, k, v, causal: bool, what: str) -> float:
+    """The serving forward against ``ref.flash_forward_split_model`` (the
+    tensor-core kernels' arithmetic: ``terms=2`` in bf16, 3 in fp32) on the
+    CPU from the same inputs: within KERNEL_ATOL plus KERNEL_RTOL of the
+    model's largest |value|, and one bf16 ulp more in bf16 (the flash
+    pair's gate). Returns the largest gap."""
+    from repro_torch.kernels.flash_attention import ref
+    bf = got.dtype == torch.bfloat16
+    model, _ = ref.flash_forward_split_model(
+        q.cpu(), k.cpu(), v.cpu(), causal, terms=2 if bf else 3)
+    g, m = got.cpu().float(), model.float()
+    diff = (g - m).abs()
+    gate = KERNEL_ATOL + KERNEL_RTOL * m.abs().max()
+    if bf:
+        gate = gate + bf16_ulp(torch.maximum(g.abs(), m.abs()))
+    err = diff.max().item()
+    check(bool((diff <= gate).all()), f"{what}: off its split model ({err})")
+    return err
+
+
 def check_flash(cfg, dev, gen, B, S, ops, ref, F, causal: bool = True):
+    """fp32 flash attention (the serving forward, on the tensor cores) at
+    ``cfg``'s heads: within KERNEL_ATOL / KERNEL_RTOL of the plain version,
+    within the gate of its split model (:func:`flash_model_gate`), two
+    launches bit-equal; timed beside SDPA."""
     Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     q = torch.randn(B, S, Hq, D, device=dev, generator=gen)
     k = torch.randn(B, S, Hkv, D, device=dev, generator=gen)
     v = torch.randn(B, S, Hkv, D, device=dev, generator=gen)
     got = ops.flash_attention(q, k, v, causal=causal)
+    again = ops.flash_attention(q, k, v, causal=causal)
     want = ref.attention_ref(q, k, v, causal=causal)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     check(torch.allclose(got, want, atol=KERNEL_ATOL, rtol=KERNEL_RTOL),
           f"flash_attention (causal={causal}) disagrees with its plain "
           f"version ({err})")
+    check(torch.equal(got, again), f"flash_attention d_head {D}: two "
+                                   f"launches differ")
+    merr = flash_model_gate(got, q, k, v, causal, f"flash_attention d_head "
+                                                  f"{D}")
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     pairs = S * (S + 1) // 2 if causal else S * S
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * 4
@@ -1057,6 +1089,8 @@ def check_flash(cfg, dev, gen, B, S, ops, ref, F, causal: bool = True):
         qt, kt, vt, is_causal=causal, enable_gqa=True)
     return {
         "max_abs_err": err,
+        "model_max_abs_err": merr,
+        "bit_equal_launches": True,
         "ms": cuda_ms(call),
         "device_ms": graph_ms(call),
         "plain_ms": cuda_ms(lambda: ref.attention_ref(q, k, v,
@@ -1076,22 +1110,23 @@ def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
 
 
 def check_flash_bf16(cfg, dev, gen, B, S, ops, ref, F):
-    """bf16 flash attention (q, k, v and out bf16, fp32 inside) at ``cfg``'s
-    heads: every element within one bf16 ulp of the plain version past the
-    fp32 gate (the two fp32 results agree within KERNEL_ATOL / RTOL and each
-    rounds once; the ulp at the larger magnitude), and bit-equal to the fp32
-    kernel on the widened inputs, rounded once (the same fp32 math). Reports
-    the share of elements not bit-equal to the plain version and the
-    largest gap in ulps; timed as :func:`check_flash`, beside SDPA in bf16,
-    the bound from bf16 bytes."""
+    """bf16 flash attention (q, k, v and out bf16, fp32 sums, on the tensor
+    cores) at ``cfg``'s heads: every element within one bf16 ulp of the
+    plain version past the fp32 gate (the two fp32 results agree within
+    KERNEL_ATOL / RTOL and each rounds once; the ulp at the larger
+    magnitude), within the gate of its split model (:func:`flash_model_gate`,
+    P as three bf16 terms), two launches bit-equal. Reports the share of
+    elements not bit-equal to the plain version and the largest gap in
+    ulps; timed as :func:`check_flash`, beside SDPA in bf16, the bound from
+    bf16 bytes."""
     Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     bf = torch.bfloat16
     q = torch.randn(B, S, Hq, D, device=dev, generator=gen).to(bf)
     k = torch.randn(B, S, Hkv, D, device=dev, generator=gen).to(bf)
     v = torch.randn(B, S, Hkv, D, device=dev, generator=gen).to(bf)
     got = ops.flash_attention(q, k, v, causal=True)
+    again = ops.flash_attention(q, k, v, causal=True)
     want = ref.attention_ref(q, k, v, causal=True)
-    wide = ops.flash_attention(q.float(), k.float(), v.float(), causal=True)
     torch.cuda.synchronize()
     check(got.dtype == want.dtype == bf, "flash bf16: output not bf16")
     diff = (got.float() - want.float()).abs()
@@ -1101,9 +1136,10 @@ def check_flash_bf16(cfg, dev, gen, B, S, ops, ref, F):
     check(bool((diff <= gate).all()),
           f"flash_attention bf16 d_head {D}: past one ulp of its plain "
           f"version ({err})")
-    check(torch.equal(bits(got), bits(wide.to(bf))),
-          f"flash_attention bf16 d_head {D} differs from the fp32 kernel on "
-          f"the widened inputs, rounded")
+    check(torch.equal(bits(got), bits(again)),
+          f"flash_attention bf16 d_head {D}: two launches differ")
+    merr = flash_model_gate(got, q, k, v, True, f"flash_attention bf16 "
+                                                f"d_head {D}")
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     pairs = S * (S + 1) // 2
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
@@ -1117,7 +1153,8 @@ def check_flash_bf16(cfg, dev, gen, B, S, ops, ref, F):
         .item(),
         "max_ulps": (diff / ulp).max().item(),
         "past_one_ulp": int((diff > ulp).sum()),
-        "bit_equal_to_fp32_kernel": True,
+        "model_max_abs_err": merr,
+        "bit_equal_launches": True,
         "ms": cuda_ms(call),
         "device_ms": graph_ms(call),
         "plain_ms": cuda_ms(lambda: ref.attention_ref(q, k, v, causal=True)),
@@ -5635,7 +5672,8 @@ def bf16_kernel_rows(dev) -> dict:
         log(f"[kernel] flash_attention {sub}: {r['not_bit_equal_share']:.3g}"
             f" of the elements not bit-equal to the plain version, at most "
             f"{r['max_ulps']:.3g} ulps apart ({r['past_one_ulp']} past one "
-            f"ulp); bit-equal to the fp32 kernel on the widened inputs")
+            f"ulp); {r['model_max_abs_err']:.3g} from its split model; "
+            f"two launches bit-equal")
     for arch in ("qwen2.5-3b", *DENSE_ARCHS):
         cfg = get_config(arch)
         d = "bf16" if arch == "qwen2.5-3b" else f"bf16_d{cfg.d_head}"
@@ -6576,13 +6614,14 @@ FLASH_TRAIN_SHAPES = (
 FLASH_TRAIN_SUBROWS = ("lse4096", "lse4096_bf16", "lse_hubert",
                        "lse_hubert_bf16", "lse_s1000", "lse_s1000_bf16",
                        "hubert", "hubert_bf16", "s1000", "s1000_bf16")
-# the training pair's kernels in the SASS (mangled names): bf16's and
-# fp32's run on the tensor cores (HMMA); the fp32 serving forward on the
-# CUDA cores (no HMMA)
+# flash's kernels in the SASS (mangled names), every one on the tensor
+# cores (HMMA): the training pair's, bf16 and fp32, whose forwards the
+# serving entries launch too (no lse); FLASH_FWD_SASS, those forwards, at
+# each of the head dims the wrappers take
 FLASH_TC_SASS = (r"flash_fwd_lse_tc_kernel", r"flash_bwd_dkdv_tc_kernel",
                  r"flash_bwd_dq_tc_kernel", r"flash_fwd_lse_x3_kernel",
                  r"flash_bwd_dkdv_x3_kernel", r"flash_bwd_dq_x3_kernel")
-FLASH_CUDA_CORE_SASS = (r"flash_attention_fwd_kernelIfLi\d+ELi\d+EE",)
+FLASH_FWD_SASS = (r"flash_fwd_lse_tc_kernel", r"flash_fwd_lse_x3_kernel")
 # phase 26's card-vs-CPU gradient gate, tests/test_torch_flash_training.py's
 FLASH_GRAD_REL = 5e-5
 
@@ -6669,11 +6708,12 @@ def check_flash_train(dev, gen, B, S, Hq, Hkv, D, causal, dtype, F) -> tuple:
     b_f, by_f = bound((2 * n_q + 2 * n_kv) * es + B * Hq * S * 4,
                       4 * D * Hq * B * pairs, rate)
     # the split's floor, in units of an S x S x D product at bf16's rate:
-    # bf16 enters P and dS as two bf16 terms, so 3 units forward (2 bound
-    # it) and 10 backward (5); fp32 enters every operand as three terms, a
-    # product as six mma, so 12 forward and 42 backward (7 products)
+    # bf16 enters the forward's P as three bf16 terms, so 4 units forward
+    # (2 bound it), and the backward's P and dS as two, 10 backward (5);
+    # fp32 enters every operand as three terms, a product as six mma, so 12
+    # forward and 42 backward (7 products)
     unit = 2 * D * Hq * B * pairs / BF16_FLOP_PER_S * 1e3
-    floor_f, floor_b = ((3, 10) if dtype == torch.bfloat16 else (12, 42))
+    floor_f, floor_b = ((4, 10) if dtype == torch.bfloat16 else (12, 42))
     floor_f, floor_b = floor_f * unit, floor_b * unit
     lse_row = {
         "max_abs_err": err_out, "lse_max_abs_err": err_lse,
@@ -6707,17 +6747,20 @@ def check_flash_train(dev, gen, B, S, Hq, Hkv, D, causal, dtype, F) -> tuple:
 
 
 def flash_hmma(sass: str) -> dict:
-    """HMMA instructions in each of the training pair's kernels (every
-    instantiation, by mangled name): at least one in each, bf16 and fp32;
-    none in the fp32 serving forward. Returns ``{pattern: [count an
-    instantiation]}``."""
+    """HMMA instructions in each of flash's kernels (every instantiation,
+    by mangled name): at least one in each, bf16 and fp32, serving and
+    training; the forwards at every head dim of FLASH_HEAD_DIMS; no
+    CUDA-core ``flash_attention_fwd_kernel`` left. Returns ``{pattern:
+    [count an instantiation]}``."""
+    from repro_torch.kernels.dispatch import FLASH_HEAD_DIMS
     counts: dict = {}
     name = None
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            name = next((p for p in FLASH_TC_SASS + FLASH_CUDA_CORE_SASS
-                         if re.search(p, fn)), None)
+            check("flash_attention_fwd_kernel" not in fn,
+                  f"the CUDA-core flash forward is in the library: {fn}")
+            name = next((p for p in FLASH_TC_SASS if re.search(p, fn)), None)
             if name:
                 counts.setdefault(name, []).append(0)
         elif name and re.search(r"\bHMMA\b", line):
@@ -6725,17 +6768,18 @@ def flash_hmma(sass: str) -> dict:
     for p in FLASH_TC_SASS:
         check(bool(counts.get(p)) and min(counts[p]) > 0,
               f"{p}: an instantiation without HMMA ({counts.get(p)})")
-    for p in FLASH_CUDA_CORE_SASS:
-        check(bool(counts.get(p)) and max(counts[p]) == 0,
-              f"{p}: HMMA in the fp32 serving forward ({counts.get(p)})")
+    for p in FLASH_FWD_SASS:
+        check(len(counts[p]) == len(FLASH_HEAD_DIMS),
+              f"{p}: {len(counts[p])} instantiations, expected one at each "
+              f"of {FLASH_HEAD_DIMS}")
     return counts
 
 
 def flash_train_rows(dev, F) -> dict:
     """Phase 3's training rows: the lse forward (sub-rows of row 1) and
     the backward (row 19) at FLASH_TRAIN_SHAPES, after the SASS check that
-    both pairs run on the tensor cores and the fp32 serving forward does
-    not (:func:`flash_hmma`). Returns ``{kernel: {sub-row: row}}``, the
+    every flash kernel, the serving forwards' included, runs on the tensor
+    cores (:func:`flash_hmma`). Returns ``{kernel: {sub-row: row}}``, the
     backward's main row under ``""``."""
     hmma = flash_hmma(library_sass())
     log(f"[kernel] flash training pair, HMMA an instantiation: "
@@ -8034,7 +8078,8 @@ def longctx_phase(dev, src: Path) -> dict:
     qb = rec["cells"]["qwen2.5-3b prefill_32k"]["batch"]
     zb = rec["cells"]["zamba2-7b prefill_32k"]["batch"]
     db = rec["cells"]["qwen2.5-3b decode_32k"]["batch"]
-    rows = {"flash_32k": long_flash_row(qwen, dev, gen, qb, 32_768, F)}
+    rows = {"flash_32k": long_flash_row(qwen, dev, gen, qb, 32_768, F),
+            "flash_32k_d112": long_flash_row(zamba, dev, gen, zb, 32_768, F)}
     rows.update(long_scan_rows(dev, gen, wkv_ops, wkv_ref, ssd_ops, ssd_ref,
                                zb))
     rows["paged_32k"] = long_paged_row(qwen, dev, gen, db, F)
@@ -9293,7 +9338,7 @@ def main() -> int:
                     "library_per_leaf_ms", "route_ms", "route_device_ms",
                     "route_parts_ms", "launches_tree_vs_per_leaf",
                     "not_bit_equal_share", "max_ulps", "past_one_ulp",
-                    "bit_equal_to_fp32_kernel", "lse_max_abs_err",
+                    "lse_max_abs_err",
                     "model_max_abs_err", "bit_equal_launches",
                     "library_call", "split_floor_ms", "config")
                     if x in r[sub]}

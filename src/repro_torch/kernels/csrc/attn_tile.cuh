@@ -1,7 +1,8 @@
-// One online-softmax step over a (rows x cols) tile, shared by the flash and
-// the paged attention kernels (sm_90a, fp32 on the CUDA cores), as the TPU
-// kernel and its oracle share _page_step (src/repro/kernels/paged_attention/
-// paged_attention.py:43).
+// One online-softmax step over a (rows x cols) tile, fp32 on the CUDA cores
+// (sm_90a): fp32 paged attention's (paged_attention.cu's
+// paged_attention_kernel, its one user since the flash forward moved to the
+// tensor cores), as the TPU kernel and its oracle share _page_step
+// (src/repro/kernels/paged_attention/paged_attention.py:43).
 //
 // A block of ATTN_THREADS threads holds ROWS query rows in shared memory and
 // walks key/value tiles of ATTN_COLS tokens. Each step:
@@ -22,70 +23,18 @@
 // Shared strides are padded to 16 bytes past a multiple of 128, so the
 // float4 reads of different rows fall in different banks.
 //
-// Element types: q, k and v are fp32 or bf16 in device memory (the pages
-// fp32 only: bf16 paged attention runs on the tensor cores, csrc/
-// mma_tile.cuh); shared memory and the math are fp32 for both, as the
-// Pallas kernels upcast their tiles and compute in f32. An fp32 row is staged by
-// 16-byte cp.async; cp.async copies bytes and cannot convert, so a bf16 row
-// is loaded 16 bytes (8 values) at a time into registers, widened exactly
-// with __bfloat1622float2 and stored as two float4. Shared rows, their
-// strides (KS, SS) and so the bank argument above are the same for both
-// types; only the staging loop's grain (Elem<T>::VEC values a copy) differs,
-// and every instantiated D (16 .. 128) is a multiple of 8, so a 16-byte
-// global load never straddles a row (a bf16 row of d_head 80, 96 or 112 is
-// 160, 192 or 224 bytes, all multiples of 16).
+// q and the pages are fp32 (bf16 paged attention runs on the tensor cores,
+// csrc/mma_tile.cuh), staged by 16-byte cp.async, double-buffered: the next
+// tile's copies run under this tile's math.
 #pragma once
-
-#include <cuda_bf16.h>
 
 #include "common.cuh"
 
 constexpr int ATTN_THREADS = 256;
 constexpr int ATTN_COLS = 32;  // key/value tokens a tile
 
-// values of T one staging copy moves: 16 bytes
-template <class T>
-struct Elem;
-template <>
-struct Elem<float> {
-  static constexpr int VEC = 4;
-};
-template <>
-struct Elem<__nv_bfloat16> {
-  static constexpr int VEC = 8;
-};
-
-// Stage VEC values of row src into shared dst (16-byte aligned, fp32).
-__device__ __forceinline__ void stage_vec(float* dst, const float* src) { cp_async16(dst, src); }
-
-__device__ __forceinline__ void stage_vec(float* dst, const __nv_bfloat16* src) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(src);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
-  const float2 c = __bfloat1622float2(h[2]), d = __bfloat1622float2(h[3]);
-  reinterpret_cast<float4*>(dst)[0] = make_float4(a.x, a.y, b.x, b.y);
-  reinterpret_cast<float4*>(dst)[1] = make_float4(c.x, c.y, d.x, d.y);
-}
-
-template <int VEC>
-__device__ __forceinline__ void zero_vec(float* dst) {
-#pragma unroll
-  for (int i = 0; i < VEC; i += 4)
-    reinterpret_cast<float4*>(dst)[i / 4] = make_float4(0.f, 0.f, 0.f, 0.f);
-}
-
-// Four outputs in the output's type: fp32 as they are, bf16 rounded once
-// to nearest even (as torch's .to(torch.bfloat16) and XLA's convert round).
-__device__ __forceinline__ void store4(float* o, float4 v) {
-  *reinterpret_cast<float4*>(o) = v;
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* o, float4 v) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
-  uint2 raw;
-  raw.x = *reinterpret_cast<unsigned*>(&lo);
-  raw.y = *reinterpret_cast<unsigned*>(&hi);
-  *reinterpret_cast<uint2*>(o) = raw;
+__device__ __forceinline__ void zero4(float* dst) {
+  *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
 __device__ __forceinline__ void fma4(float4& a, float p, const float4& v) {
@@ -95,7 +44,7 @@ __device__ __forceinline__ void fma4(float4& a, float p, const float4& v) {
   a.w = fmaf(p, v.w, a.w);
 }
 
-template <int D, int ROWS, int NBUF>
+template <int D, int ROWS>
 struct AttnTile {
   static_assert(D % 4 == 0 && D <= 128, "D/4 lanes a row");
   static_assert(ROWS == 8 || ROWS == 16 || ROWS == 32 || ROWS == 64, "row tile");
@@ -111,13 +60,13 @@ struct AttnTile {
   static constexpr int NS = (ATTN_THREADS / 32) * RPW;  // P.V row slots
   static constexpr int RA = (ROWS + NS - 1) / NS;       // P.V rows a lane
 
-  // shared memory: q (ROWS x KS), NBUF x [k (COLS x KS), v (COLS x D)],
+  // shared memory: q (ROWS x KS), 2 x [k (COLS x KS), v (COLS x D)],
   // scores (ROWS x SS), one float a row (alpha, then l)
-  static constexpr int FLOATS = ROWS * KS + NBUF * COLS * (KS + D) + ROWS * SS + ROWS;
+  static constexpr int FLOATS = ROWS * KS + 2 * COLS * (KS + D) + ROWS * SS + ROWS;
   static constexpr size_t BYTES = sizeof(float) * FLOATS;
   static constexpr int BUF = COLS * (KS + D);  // one K/V buffer
   float* q_s;
-  float* kv_s;  // NBUF x [k, v]: indexed by arithmetic, never a pointer array
+  float* kv_s;  // 2 x [k, v]: indexed by arithmetic, never a pointer array
   float* s_s;
   float* a_s;
 
@@ -127,7 +76,7 @@ struct AttnTile {
   __device__ explicit AttnTile(float* smem) {
     q_s = smem;
     kv_s = q_s + ROWS * KS;
-    s_s = kv_s + NBUF * BUF;
+    s_s = kv_s + 2 * BUF;
     a_s = s_s + ROWS * SS;
 #pragma unroll
     for (int i = 0; i < RM; ++i) {
@@ -138,39 +87,37 @@ struct AttnTile {
     for (int i = 0; i < RA; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
 
-  // Stage n <= nmax rows of D values of T into dst (fp32, row stride ds):
-  // src(t) is row t's offset into g, or -1 for a row that is not there
-  // (zero-filled, never read). Rows n..nmax-1 are zero-filled too.
-  template <class T, class Src>
-  __device__ static void stage(float* dst, int ds, const T* g, int n, int nmax, Src src) {
-    constexpr int VEC = Elem<T>::VEC, LPV = D / VEC;
-    static_assert(D % VEC == 0, "a row is whole 16-byte copies");
+  // Stage n <= nmax rows of D values into dst (row stride ds): src(t) is
+  // row t's offset into g, or -1 for a row that is not there (zero-filled,
+  // never read). Rows n..nmax-1 are zero-filled too.
+  template <class Src>
+  __device__ static void stage(float* dst, int ds, const float* g, int n, int nmax, Src src) {
+    constexpr int LPV = D / 4;
     for (int idx = threadIdx.x; idx < nmax * LPV; idx += ATTN_THREADS) {
-      const int t = idx / LPV, d = VEC * (idx % LPV);
+      const int t = idx / LPV, d = 4 * (idx % LPV);
       const long long off = t < n ? src(t) : -1;
       if (off >= 0)
-        stage_vec(dst + t * ds + d, g + off + d);
+        cp_async16(dst + t * ds + d, g + off + d);
       else
-        zero_vec<VEC>(dst + t * ds + d);
+        zero4(dst + t * ds + d);
     }
   }
 
   // K and V rows at the same offsets into buffer b.
-  template <class T, class Src>
-  __device__ void stage_kv(int b, const T* k, const T* v, int n, Src src) {
-    constexpr int VEC = Elem<T>::VEC, LPV = D / VEC;
-    static_assert(D % VEC == 0, "a row is whole 16-byte copies");
+  template <class Src>
+  __device__ void stage_kv(int b, const float* k, const float* v, int n, Src src) {
+    constexpr int LPV = D / 4;
     for (int idx = threadIdx.x; idx < COLS * LPV; idx += ATTN_THREADS) {
-      const int t = idx / LPV, d = VEC * (idx % LPV);
+      const int t = idx / LPV, d = 4 * (idx % LPV);
       const long long off = t < n ? src(t) : -1;
       float* kd = kv_s + b * BUF + t * KS + d;
       float* vd = kv_s + b * BUF + COLS * KS + t * D + d;
       if (off >= 0) {
-        stage_vec(kd, k + off + d);
-        stage_vec(vd, v + off + d);
+        cp_async16(kd, k + off + d);
+        cp_async16(vd, v + off + d);
       } else {
-        zero_vec<VEC>(kd);
-        zero_vec<VEC>(vd);
+        zero4(kd);
+        zero4(vd);
       }
     }
   }
@@ -300,29 +247,21 @@ struct AttnTile {
   }
 
   // The tile loop: stage_tile(t, buf) issues tile t's copies into buffer
-  // buf, cols(t) is its column count, score(t, r, c, dot) its mask. With
-  // NBUF 2 the next tile's copies run under this tile's math. The caller
-  // has issued (not committed) the q copies.
+  // buf, cols(t) is its column count, score(t, r, c, dot) its mask; the
+  // next tile's copies run under this tile's math. The caller has issued
+  // (not committed) the q copies.
   template <class Stage, class Cols, class Score>
   __device__ void run(int ntiles, Stage stage_tile, Cols cols, Score score) {
     if (ntiles > 0) stage_tile(0, 0);
     cp_async_commit();
     for (int t = 0; t < ntiles; ++t) {
-      const int b = NBUF == 2 ? (t & 1) : 0;
-      if (NBUF == 2) {
-        if (t + 1 < ntiles) stage_tile(t + 1, b ^ 1);
-        cp_async_commit();
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
+      const int b = t & 1;
+      if (t + 1 < ntiles) stage_tile(t + 1, b ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
       __syncthreads();
       step(b, cols(t), [&](int r, int c, float dot) { return score(t, r, c, dot); });
       __syncthreads();  // this tile's buffers and scores are consumed
-      if (NBUF == 1 && t + 1 < ntiles) {
-        stage_tile(t + 1, 0);
-        cp_async_commit();
-      }
     }
     cp_async_wait<0>();
     __syncthreads();

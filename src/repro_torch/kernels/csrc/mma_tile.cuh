@@ -22,17 +22,19 @@
 // banks (mod 32: rows 0..7 of an ldmatrix phase land on 8 disjoint bank
 // quads at every instantiated D), so ldmatrix has no bank conflicts.
 //
-// The two-term split: an fp32 operand x (a softmax probability or a score
-// gradient) enters the tensor cores as hi = bf16_rn(x) and lo = bf16_rn(x -
-// hi); x - hi is exact in fp32, and |x - hi - lo| <= 2^-16 |x| (8 bits of
-// hi, then 8 of lo), where one bf16 operand alone keeps 2^-9. Its product
+// The two-term split: an fp32 operand x (the bf16 backward's softmax
+// probability or score gradient) enters the tensor cores as hi =
+// bf16_rn(x) and lo = bf16_rn(x - hi); x - hi is exact in fp32, and |x -
+// hi - lo| <= 2^-16 |x| (8 bits of hi, then 8 of lo), where one bf16
+// operand alone keeps 2^-9. Its product
 // with a bf16 operand is two mma into one fp32 accumulator, hi first.
 // Operands that are bf16 already (q, k, v, dout) enter once, exactly.
 // The three-term split (split3) goes on: mid = bf16_rn(x - hi), lo =
 // bf16_rn(x - hi - mid). x - hi holds at most 16 significant bits of x's 24
 // and x - hi - mid at most 8, so lo is exact and hi + mid + lo == x (for
 // |x| >= 2^-110, where lo stays a normal bf16): the operand enters whole,
-// at three mma.
+// at three mma (the forwards' P, bf16 paged attention's P, every fp32
+// operand).
 //
 // fp32 operands on both sides (the fp32 training pair): each enters as its
 // three terms, and a product keeps the six term products above 2^-24 of

@@ -123,7 +123,7 @@ FLASH_HEAD_DIMS = (16, 32, 64, 80, 96, 112, 128)
 
 
 # the element types of the attention and page-pool kernels
-# (csrc/attn_tile.cuh, paged_attention/csrc/pool_zero.cu), each an
+# (flash_attention/csrc/*.cu, paged_attention/csrc/*.cu), each an
 # instantiation that its kernel counts apart
 DTYPE_VARIANTS = {torch.float32: "f32", torch.bfloat16: "bf16"}
 

@@ -1,183 +1,93 @@
-// Causal GQA flash attention, forward, fp32 or bf16, sm_90a.
+// Causal or bidirectional GQA flash attention, forward, fp32 or bf16,
+// sm_90a, on the tensor cores.
 //
 // Replaces flash_attention_pallas (_flash_kernel :27, pallas_call :86) of
 // src/repro/kernels/flash_attention/flash_attention.py, the direct-mode
-// prefill of the serving path (src/repro/models/attention.py:89-93).
+// prefill of the serving path (src/repro/models/attention.py:89-93), and
+// JAX's training forward _fwd (src/repro/kernels/flash_attention/
+// blocked.py:57), which also keeps each row's log-sum-exp, lse (B, Hq, Sq)
+// fp32 = m + log(max(l, 1e-30)) (:89), for the backward kernel
+// (flash_attention_bwd.cu).
 //
-// One block per (query tile, query head h, batch b); the KV head is
-// h / (Hq / Hkv). The query tile follows Sq: 32 rows up to Sq 32 (the
-// serving prefills: qwen2.5-3b and zamba2-7b at prompt 32), 64 beyond. The
-// block stages its Q tile once and walks 32-column K/V tiles up to the
-// causal limit (tiles wholly above the diagonal add exactly nothing, since
-// every row already holds column 0), each through the online-softmax step
-// shared with paged attention (csrc/attn_tile.cuh): register-blocked score
-// micro-tiles read with 16-byte shared loads, the row max and sum by
-// shuffles, and a P.V update in which a row's D outputs are D/4 lanes x 4
-// contiguous dims (20 lanes at d_head 80, 24 at 96, 28 at 112: the rest of
-// each warp idles in that step). The loops stop at the tile's
-// real column count; the ragged last tiles are masked, not assumed to
-// divide the sequence. NEG_INF is the same finite -1e30; the last step
-// divides by max(l, 1e-30). Tiles are staged with 16-byte cp.async, single
-// buffered: 49 KB of shared memory at d_head 112 with a 32-row tile (68 KB
-// with 64 rows), so 4 (3) blocks fit an SM.
-//   Bound on this card: at the serving prefills (S 32) the work is 2*2*D
-//   flops per visible (query, key) pair against 4 bytes per element of q,
-//   k, v and out: bound by bytes (0.0007 ms for qwen2.5-3b, 0.0022 for
-//   zamba2-7b), and one wave of 64 or 128 blocks. At S 32 the cost is
-//   work spent on padding and idle lanes, so the tiles follow the sequence
-//   (32 x 32, not 64 x 64, which would do 4x the products) and d_head 112
-//   maps onto 28 lanes. The products stay fp32 on CUDA cores (no wgmma /
-//   TF32: the path holds fp32 at full precision).
-// bf16 (flash_attention_fwd_bf16): q, k, v and out in bf16, as the Pallas
-// kernel takes any float type, upcasts its tiles and computes in f32
-// (flash_attention.py:39-41) and writes q's type (:61). The tiles widen
-// bf16 to fp32 as they stage (csrc/attn_tile.cuh); the math is the fp32
-// kernel's, and each output is rounded once from f32, to nearest even
-// (__floats2bfloat162_rn). Half the bytes of q, k, v and out: the bound at
-// S 32 halves (0.0004 ms at d_head 128).
-// The training forward (flash_attention_fwd_lse_{f32,bf16}): the same
-// function, and each row's log-sum-exp, lse (B, Hq, Sq) fp32 = m + log(max(l,
-// 1e-30)), as _fwd ends (src/repro/kernels/flash_attention/blocked.py:89),
-// for the backward kernel (flash_attention_bwd.cu). At qwen2.5-3b's training
-// shape (B 1, S 4096, 16 heads, causal) it is 4 S^2 D / 2 flops a head,
-// 6.9e10: 1.0 ms at the fp32 rate, against 0.05 ms of bytes, so bound by
-// operations. Both dtypes run on the tensor cores (below); the serving
-// kernel above is not a training kernel.
+// One kernel a dtype, serving and training alike: flash_fwd_lse_tc_kernel
+// (bf16) and flash_fwd_lse_x3_kernel (fp32). The serving entries
+// (flash_attention_fwd_{f32,bf16}) pass no lse, and the kernel skips its
+// store (a branch on a kernel argument: the same way for every thread);
+// the training entries (flash_attention_fwd_lse_{f32,bf16}) pass one. The
+// Pallas kernel takes any float type, upcasts its tiles, computes in f32
+// and writes q's type (flash_attention.py:39-41, :61): here the sums are
+// fp32 and each output is rounded once (bf16 to nearest even).
 //
-// The bf16 training forward (flash_attention_fwd_lse_bf16) on the tensor
-// cores (flash_fwd_lse_tc_kernel, on csrc/mma_tile.cuh): the same function,
-// the same 6.9e10 flops at the silo shape, whose bound at bf16's 989
-// TFLOP/s is 0.07 ms. A block of 4 warps takes 64 query rows of one (head,
-// batch), 16 rows a warp, heaviest query tiles first; Q's fragments stay in
-// registers. K and V tiles of 64 keys stay bf16 in shared memory (row
-// stride D + 8: no ldmatrix bank conflicts), double-buffered by cp.async
-// (rows past Sk zero-filled). S = QK^T by mma.sync m16n8k16 (bf16 in, fp32
-// accumulate: exact products of the bf16 inputs); the online softmax runs
-// on the accumulator fragments (a row's max and sum over its quad by
-// shuffles; base-2 SFU exponentials with the scale folded into one FMA,
-// m kept in those units and lse = m ln 2 + log l; a masked or absent
-// column is -inf, so p = 0, tested only in tiles that cross the diagonal
-// or the end of the keys); P goes from the
-// accumulator straight into A fragments as the two-term split (hi =
-// bf16(p), lo = bf16(p - hi); 2^-16 of p) and O += P_hi V + P_lo V, V by
-// ldmatrix.trans. Tiles wholly above the diagonal are skipped. So the
-// split costs a third product: 3 S x S x D units of work against the
-// function's 2, a floor of 0.104 ms at the silo shape. Occupancy bounds
-// it (a warp's softmax leaves the tensor pipe to the SM's other warps):
-// Q stages in the second K/V buffer and moves to registers before tile 1
-// is copied there, so shared memory is 4 x 64 rows of D + 8 bf16 (70 KB at
-// D 128), and __launch_bounds__ asks for three blocks (12 warps) an SM:
-// 168 registers a thread (the O accumulator D/2, Q's fragments D/4, the
-// scores 32), with 24-56 bytes of stack at D 96-128 (1.09x faster at the
-// silo shape than two blocks at 189 registers, H100 80GB HBM3, 700 W:
-// tools/time_flash_pair.py).
+// Bound on this card (operations: 4 D flops a visible (query, key) pair; bytes:
+// q, k, v and out once):
+//   the serving prefills (B 4, S 32): bytes, 0.0007 ms fp32 and 0.0004 bf16
+//   at qwen2.5-3b's heads, 0.0022 / 0.0011 at zamba2-7b's; one wave of Hq B
+//   blocks, whose cost is the launch. A block has 64 query rows (bf16) or
+//   128 (fp32), so at Sq 32 two of its four warps (six of eight) compute on
+//   q rows zero-filled past Sq and store nothing.
+//   qwen2.5-3b's prefill_32k (B 15, S 32768, 16/2 heads, d_head 128, causal,
+//   bf16): 6.6e13 flops, 66.7 ms at the tensor cores' 989 TFLOP/s; the
+//   split below doubles the products, a floor of 133 ms. zamba2-7b's (B 5,
+//   32/32 heads, d_head 112): 38.9 ms, the floor 77.8.
+//   qwen2.5-3b's training silo (B 1, S 4096, causal): 6.9e10 flops, 0.07 ms
+//   in bf16 (the floor 0.139), 1.03 ms at the fp32 rate.
+// Why the split stays at serving shapes: the serving gates are the training
+// gates (fp32 within 1e-5 of the plain version, bf16 one ulp past that),
+// and P as one bf16 term keeps only 2^-9 of it.
 //
-// The fp32 training forward (flash_attention_fwd_lse_f32) on the tensor
-// cores too (flash_fwd_lse_x3_kernel): every fp32 operand enters as three
-// bf16 terms (csrc/mma_tile.cuh's split3, hi + mid + lo == x), and a
-// product as the six term products above 2^-24 of it, smallest first
-// (mma_x5, mma_x6_add): 6 mma where bf16 takes 1, so 12 S x S x D units of work at
+// bf16 (flash_fwd_lse_tc_kernel, on csrc/mma_tile.cuh): a block of 4 warps
+// takes 64 query rows of one (head, batch), 16 rows a warp, heaviest query
+// tiles first; Q's fragments stay in registers. K and V tiles of 64 keys stay
+// bf16 in shared memory (row stride D + 8: no ldmatrix bank conflicts),
+// double-buffered by cp.async (rows past Sk zero-filled). S = QK^T by
+// mma.sync m16n8k16 (bf16 in, fp32 accumulate: exact products of the bf16
+// inputs); the online softmax runs on the accumulator fragments (a row's max
+// and sum over its quad by shuffles; base-2 SFU exponentials with the scale
+// folded into one FMA, m kept in those units and lse = m ln 2 + log l; a
+// masked or absent column is -inf, so p = 0, tested only in tiles that cross
+// the diagonal or the end of the keys); P goes from the accumulator straight
+// into A fragments as three bf16 terms (split3: hi + mid + lo == p) and O +=
+// P_hi V + P_mid V + P_lo V, V by ldmatrix.trans. Tiles wholly above the
+// diagonal are skipped. So the split costs two more products: 4 S x S x D
+// units of work against the function's 2, a floor of 0.139 ms at the silo
+// shape. P as two terms (hi and lo, 2^-16 of p: 3 units) was 1.15-1.2x faster
+// and within the kernel gates, but 1.48-1.51e-3 of its outputs rounded to
+// another bf16 than the plain version's, against 1.35-1.57e-4 with three
+// terms, and 36 layers of random weights carried that to 0.1016 between the
+// logits of serving's wave mode, which prefills through this kernel, and its
+// continuous mode, which prefills through paged attention's three-term
+// kernel: past the modes' 0.1 gate (chip_smoke.py phase 23, H100 80GB HBM3,
+// 700 W). Occupancy bounds it (a warp's softmax leaves the tensor pipe to the
+// SM's other warps): Q stages in the second K/V buffer and moves to registers
+// before tile 1 is copied there, so shared memory is 4 x 64 rows of D + 8
+// bf16 (70 KB at D 128), and __launch_bounds__ asks for three blocks (12
+// warps) an SM: 168 registers a thread (the O accumulator D/2, Q's fragments
+// D/4, the scores 32), with 16-56 bytes of stack at D 96-128 (with two terms,
+// 1.09x faster at the silo shape than two blocks at 189 registers, H100 80GB
+// HBM3, 700 W: tools/time_flash_pair.py).
+//
+// fp32 (flash_fwd_lse_x3_kernel): every fp32 operand enters as three bf16
+// terms (csrc/mma_tile.cuh's split3, hi + mid + lo == x), and a product as
+// the six term products above 2^-24 of it, smallest first (mma_x5,
+// mma_x6_add): 6 mma where bf16 takes 1, so 12 S x S x D units of work at
 // bf16's rate, a floor of 0.42 ms at the silo shape (under the 1.03 ms fp32
-// bound). A block of 8 warps takes 128 query rows, heaviest first. q is
-// split once, as the warp's A fragments: hi stays in registers, mid and lo
-// in the warp's own shared slots (three terms in registers would be 96 a
-// thread at D 128). K and V come in tiles of 16 keys: staged in fp32 by
-// cp.async while the previous tile computes, then split once a block into
-// three bf16 planes each (row stride D + 8), which ldmatrix reads as in the
-// bf16 kernel. S keeps its five smaller terms and hi hi in separate
-// accumulators (hi hi added last); P leaves the accumulators as three terms
-// (a_from_c3), and each tile's P V is summed from zero and added to O
-// outside the tensor cores (mma_x6_add). 255 registers at D 128 allow one
-// block of 8 warps an SM; shared memory: 64 KB of q's terms, 26 KB of
-// planes, 16 KB of staging. (Two blocks of 4 warps and 64 rows, as the
-// bf16 kernel, were 3.5-7% slower: the split and its barriers are shared
-// by twice the rows here; tools/time_flash_pair.py, H100 80GB HBM3, 700 W.)
-#include "attn_tile.cuh"
+// bound). A block of 8 warps takes 128 query rows, heaviest first. q is split
+// once, as the warp's A fragments: hi stays in registers, mid and lo in the
+// warp's own shared slots (three terms in registers would be 96 a thread at D
+// 128). K and V come in tiles of 16 keys: staged in fp32 by cp.async while
+// the previous tile computes, then split once a block into three bf16 planes
+// each (row stride D + 8), which ldmatrix reads as in the bf16 kernel. S
+// keeps its five smaller terms and hi hi in separate accumulators (hi hi
+// added last); P leaves the accumulators as three terms (a_from_c3), and each
+// tile's P V is summed from zero and added to O outside the tensor cores
+// (mma_x6_add). 255 registers at D 128 allow one block of 8 warps an SM;
+// shared memory: 64 KB of q's terms, 26 KB of planes, 16 KB of staging. (Two
+// blocks of 4 warps and 64 rows, as the bf16 kernel, were 3.5-7% slower: the
+// split and its barriers are shared by twice the rows here;
+// tools/time_flash_pair.py, H100 80GB HBM3, 700 W.)
 #include "mma_tile.cuh"
 
 namespace {
-
-template <int D, int ROWS>
-using FlashTile = AttnTile<D, ROWS, 1>;
-
-template <class T, int D, int ROWS>
-__global__ void __launch_bounds__(ATTN_THREADS)
-flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ out, int Sq, int Sk, int Hq,
-                           int Hkv, int causal, float sm_scale) {
-  extern __shared__ float4 attn_smem[];
-  FlashTile<D, ROWS> tile(reinterpret_cast<float*>(attn_smem));
-  const int q0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-  const int rows = min(Sq - q0, ROWS);
-
-  int ntiles = (Sk + ATTN_COLS - 1) / ATTN_COLS;
-  if (causal) ntiles = min(ntiles, (q0 + rows - 1) / ATTN_COLS + 1);
-
-  FlashTile<D, ROWS>::stage(tile.q_s, FlashTile<D, ROWS>::KS, q, rows, ROWS, [&](int r) {
-    return (((long long)b * Sq + q0 + r) * Hq + h) * D;
-  });
-  tile.run(
-      ntiles,
-      [&](int t, int buf) {
-        const int k0 = t * ATTN_COLS;
-        tile.stage_kv(buf, k, v, min(Sk - k0, ATTN_COLS), [&](int c) {
-          return (((long long)b * Sk + k0 + c) * Hkv + hk) * D;
-        });
-      },
-      [&](int t) { return min(Sk - t * ATTN_COLS, ATTN_COLS); },
-      [&](int t, int r, int c, float dot) {
-        return !causal || q0 + r >= t * ATTN_COLS + c ? dot * sm_scale : REPRO_NEG_INF;
-      });
-
-  tile.each_acc([&](int r, int d, float4 a, float l) {
-    if (r >= rows) return;
-    T* o = out + (((size_t)b * Sq + q0 + r) * Hq + h) * D + d;
-    const float inv = 1.f / fmaxf(l, 1e-30f);
-    store4(o, make_float4(a.x * inv, a.y * inv, a.z * inv, a.w * inv));
-  });
-}
-
-template <class T, int D, int ROWS>
-cudaError_t launch_flash(const T* q, const T* k, const T* v, T* out, int B, int Sq, int Sk,
-                         int Hq, int Hkv, int causal, float sm_scale, cudaStream_t stream) {
-  static unsigned long long smem_set = 0;
-  auto kern = flash_attention_fwd_kernel<T, D, ROWS>;
-  const size_t smem = FlashTile<D, ROWS>::BYTES;
-  cudaError_t e = set_smem_once(kern, smem, smem_set);
-  if (e != cudaSuccess) return e;
-  dim3 grid((Sq + ROWS - 1) / ROWS, Hq, B);
-  kern<<<grid, ATTN_THREADS, smem, stream>>>(q, k, v, out, Sq, Sk, Hq, Hkv, causal, sm_scale);
-  return cudaGetLastError();
-}
-
-template <class T, int D>
-cudaError_t launch_flash_rows(const T* q, const T* k, const T* v, T* out, int B, int Sq, int Sk,
-                              int Hq, int Hkv, int causal, float sm_scale, cudaStream_t stream) {
-  if (Sq <= 32)
-    return launch_flash<T, D, 32>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, sm_scale, stream);
-  return launch_flash<T, D, 64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, sm_scale, stream);
-}
-
-template <class T>
-int flash_fwd(const T* q, const T* k, const T* v, T* out, int B, int Sq, int Sk, int Hq, int Hkv,
-              int D, int causal, float sm_scale, cudaStream_t stream) {
-#define REPRO_FLASH_CASE(DD) \
-  case DD:                   \
-    return launch_flash_rows<T, DD>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, sm_scale, stream);
-  switch (D) {
-    REPRO_FLASH_CASE(16)
-    REPRO_FLASH_CASE(32)
-    REPRO_FLASH_CASE(64)
-    REPRO_FLASH_CASE(80)   // stablelm-3b, hubert-xlarge
-    REPRO_FLASH_CASE(96)   // phi3-mini-3.8b
-    REPRO_FLASH_CASE(112)  // zamba2-7b's shared block
-    REPRO_FLASH_CASE(128)
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef REPRO_FLASH_CASE
-}
 
 constexpr int TC_THREADS = 128;  // 4 warps, 16 query rows each
 constexpr int TC_ROWS = 64;      // query rows a block
@@ -298,16 +208,17 @@ flash_fwd_lse_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
     }
 #pragma unroll
     for (int j = 0; j < NT; j += 2) {
-      unsigned ph[4], pl[4];
-      a_from_c(s[j], s[j + 1], ph, pl);
+      unsigned pa[3][4];
+      a_from_c3(s[j], s[j + 1], pa[0], pa[1], pa[2]);
 #pragma unroll
       for (int i = 0; i < DT; i += 2) {
         unsigned vb[4];
         R::b_frag(vb, v_s, 8 * j, 8 * i);
-        mma_bf16(acc[i], ph, vb[0], vb[1]);
-        mma_bf16(acc[i], pl, vb[0], vb[1]);
-        mma_bf16(acc[i + 1], ph, vb[2], vb[3]);
-        mma_bf16(acc[i + 1], pl, vb[2], vb[3]);
+#pragma unroll
+        for (int u = 0; u < 3; ++u) {  // hi first
+          mma_bf16(acc[i], pa[u], vb[0], vb[1]);
+          mma_bf16(acc[i + 1], pa[u], vb[2], vb[3]);
+        }
       }
     }
     __syncthreads();  // this tile's buffers are consumed
@@ -320,7 +231,7 @@ flash_fwd_lse_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
     l1 += __shfl_xor_sync(0xffffffffu, l1, o);
   }
   const long long lrow = ((long long)b * Hq + h) * Sq;
-  if (tq == 0) {
+  if (lse && tq == 0) {  // the training forward's; serving passes none
     if (qr0 < Sq) lse[lrow + qr0] = m0 * TC_LN2 + logf(fmaxf(l0, 1e-30f));
     if (qr1 < Sq) lse[lrow + qr1] = m1 * TC_LN2 + logf(fmaxf(l1, 1e-30f));
   }
@@ -539,7 +450,7 @@ flash_fwd_lse_x3_kernel(const float* __restrict__ q, const float* __restrict__ k
     l1 += __shfl_xor_sync(0xffffffffu, l1, o);
   }
   const long long lrow = ((long long)b * Hq + h) * Sq;
-  if (tq == 0) {
+  if (lse && tq == 0) {  // the training forward's; serving passes none
     if (qr0 < Sq) lse[lrow + qr0] = m0 * TC_LN2 + logf(fmaxf(l0, 1e-30f));
     if (qr1 < Sq) lse[lrow + qr1] = m1 * TC_LN2 + logf(fmaxf(l1, 1e-30f));
   }
@@ -591,25 +502,27 @@ int flash_fwd_lse_x3(const float* q, const float* k, const float* v, float* out,
 
 }  // namespace
 
-// q (B, Sq, Hq, D); k, v (B, Sk, Hkv, D); out (B, Sq, Hq, D). fp32, contiguous,
-// 16-byte aligned.
+// The serving forward: q (B, Sq, Hq, D); k, v (B, Sk, Hkv, D); out (B, Sq,
+// Hq, D). fp32, contiguous, 16-byte aligned. The training forward's kernel
+// with no lse.
 REPRO_API int flash_attention_fwd_f32(const float* q, const float* k, const float* v,
                                       float* out, int B, int Sq, int Sk, int Hq, int Hkv,
                                       int D, int causal, float sm_scale, cudaStream_t stream) {
-  return flash_fwd<float>(q, k, v, out, B, Sq, Sk, Hq, Hkv, D, causal, sm_scale, stream);
+  return flash_fwd_lse_x3(q, k, v, out, nullptr, B, Sq, Sk, Hq, Hkv, D, causal, sm_scale,
+                          stream);
 }
 
-// The same in bf16 (q, k, v and out); the math in fp32, the output rounded
-// once to nearest even.
+// The same in bf16 (q, k, v and out); fp32 sums, the output rounded once to
+// nearest even.
 REPRO_API int flash_attention_fwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                                        const __nv_bfloat16* v, __nv_bfloat16* out, int B, int Sq,
                                        int Sk, int Hq, int Hkv, int D, int causal,
                                        float sm_scale, cudaStream_t stream) {
-  return flash_fwd<__nv_bfloat16>(q, k, v, out, B, Sq, Sk, Hq, Hkv, D, causal, sm_scale, stream);
+  return flash_fwd_lse_tc(q, k, v, out, nullptr, B, Sq, Sk, Hq, Hkv, D, causal, sm_scale,
+                          stream);
 }
 
-// The training forward: the same, and lse (B, Hq, Sq) fp32; both on the
-// tensor cores (fp32: flash_fwd_lse_x3_kernel; bf16: flash_fwd_lse_tc_kernel).
+// The training forward: the same, and lse (B, Hq, Sq) fp32.
 REPRO_API int flash_attention_fwd_lse_f32(const float* q, const float* k, const float* v,
                                           float* out, float* lse, int B, int Sq, int Sk, int Hq,
                                           int Hkv, int D, int causal, float sm_scale,

@@ -107,7 +107,6 @@
 // k-step loops unrolled by 2: fully unrolled, the hoisted loads spilled
 // 32-112 bytes at D 80-128 and were 1-2% slower; tools/time_flash_pair.py,
 // H100 80GB HBM3, 700 W).
-#include "attn_tile.cuh"
 #include "mma_tile.cuh"
 
 namespace {
@@ -116,6 +115,20 @@ constexpr int BWD_THREADS = 256;
 
 __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// Four outputs in the output's type: fp32 as they are, bf16 rounded once
+// to nearest even (as torch's .to(torch.bfloat16) and XLA's convert round).
+__device__ __forceinline__ void store4(float* o, float4 v) {
+  *reinterpret_cast<float4*>(o) = v;
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* o, float4 v) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 raw;
+  raw.x = *reinterpret_cast<unsigned*>(&lo);
+  raw.y = *reinterpret_cast<unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(o) = raw;
+}
 
 // delta (B, Hq, Sq) = sum_d dout * out, one warp a row of (B, Sq, Hq).
 template <class T>

@@ -18,8 +18,9 @@ dtype is its own instantiation, counted apart (``variants``); the training
 forward counts as its own variants of ``flash_attention`` (``lse_f32``,
 ``lse_bf16``), and the backward (``flash_attention_bwd``: delta, dk/dv,
 the combine of the query heads' partials when Hq > Hkv, and dq, counted as
-one) by dtype. Both training pairs run on the tensor cores (fp32 with every
-operand as three bf16 terms); the serving forward on the CUDA cores.
+one) by dtype. Everything runs on the tensor cores (fp32 with every
+operand as three bf16 terms): the serving forward is the training
+forward's kernel of its dtype with no lse, counted as ``f32`` / ``bf16``.
 """
 from __future__ import annotations
 
@@ -81,7 +82,8 @@ def _check_qkv(what: str, q, k, v) -> str:
 
 
 def flash_attention_cuda(q, k, v, causal: bool = True) -> torch.Tensor:
-    """Launch the flash-attention forward kernel; returns (B, Sq, Hq, D)."""
+    """Launch the serving forward (the lse forward's kernel, no lse);
+    returns (B, Sq, Hq, D)."""
     variant = _check_qkv("flash_attention_cuda", q, k, v)
     dev = q.device
     B, Sq, Hq, D = q.shape

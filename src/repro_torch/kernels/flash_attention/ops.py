@@ -1,11 +1,12 @@
 """Public flash-attention API: the CUDA kernels for CUDA tensors, the plain
 versions for CPU tensors (``kernels.dispatch.on_cuda``).
 
-Serving calls the forward kernel as it is. Training differentiates it
+Serving calls the forward kernel without its log-sum-exp store (one
+tensor-core kernel a dtype serves and trains). Training differentiates it
 through :class:`FlashAttention`, the port of JAX's custom VJP
 ``flash_attention_xla`` (``repro/kernels/flash_attention/blocked.py:46-143``):
-its forward is the kernel's training instantiation, which also writes the
-log-sum-exp, and its backward the hand-written ``flash_attention_bwd`` (or,
+its forward is the same kernel writing the log-sum-exp too, and its
+backward the hand-written ``flash_attention_bwd`` (or,
 on CPU tensors, their plain versions ``ref.flash_forward_ref`` and
 ``ref.flash_backward_ref``). Autograd never sees inside the kernels, so on
 the card no gradient comes from autograd of a plain version."""

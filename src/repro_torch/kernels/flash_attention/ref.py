@@ -9,8 +9,11 @@ of ``repro/kernels/flash_attention/blocked.py`` (``_fwd`` :57-92,
 Beside them, for the tests only (nothing on the main path calls them), a
 plain model of the tensor-core kernels' arithmetic: ``split_bf16`` and
 ``flash_forward_split_model`` / ``flash_backward_split_model``, with
-``terms=2`` for the bf16 pair (p and ds as two bf16 terms) and ``terms=3``
-for the fp32 pair (every operand as three, ``split3_bf16``)."""
+``terms=2`` for the bf16 pair (the forward's p as three bf16 terms, the
+backward's p and ds as two) and ``terms=3`` for the fp32 pair (every
+operand as three, ``split3_bf16``). The serving
+forward is the lse forward's kernel without its lse, so its ``out`` is the
+forward model's too."""
 from __future__ import annotations
 
 import torch
@@ -159,11 +162,13 @@ def _causal(s: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor):
 
 
 def flash_forward_split_model(q, k, v, causal: bool = True, terms: int = 2):
-    """The lse forward's arithmetic on the tensor cores. ``terms=2``, the
-    bf16 kernel (``flash_fwd_lse_tc_kernel``): bf16 q, k, v enter as they
-    are (their products exact, summed in fp32); the online softmax walks
-    key tiles of ``TC_FWD_COLS`` in fp32, and each tile's p enters ``P V``
-    split, ``acc = alpha acc + p_hi V + p_lo V``. ``terms=3``, the fp32
+    """The forward's arithmetic on the tensor cores (serving's and
+    training's: one kernel a dtype). ``terms=2``, the bf16 kernel
+    (``flash_fwd_lse_tc_kernel``): bf16 q, k, v enter as they are (their
+    products exact, summed in fp32); the online softmax walks key tiles of
+    ``TC_FWD_COLS`` in fp32, and each tile's p enters ``P V`` as three bf16
+    terms (:func:`split3_bf16`), ``acc = alpha acc + p_hi V + p_mid V +
+    p_lo V`` (the backward's p and ds stay two terms). ``terms=3``, the fp32
     kernel (``flash_fwd_lse_x3_kernel``): tiles of ``X3_FWD_KEYS``; q, k,
     p and v enter as three terms each, the scores as :func:`_x3_dot` and
     ``acc = alpha acc`` plus the tile's six products of p and v
@@ -195,8 +200,9 @@ def flash_forward_split_model(q, k, v, causal: bool = True, terms: int = 2):
         p = torch.exp(s - m_new[..., None])
         l = alpha * l + p.sum(dim=-1)
         if terms == 2:
-            acc = alpha[..., None] * acc + _split_mm(p, vt,
-                                                     "bhgqk,bkhd->bhgqd")
+            acc = alpha[..., None] * acc
+            for t in split3_bf16(p):  # hi first
+                acc = acc + torch.einsum("bhgqk,bkhd->bhgqd", t, vt)
         else:
             acc = _x3_acc(alpha[..., None] * acc, p, vt, "bhgqk,bkhd->bhgqd")
         m = m_new

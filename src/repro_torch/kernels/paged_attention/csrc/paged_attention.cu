@@ -34,7 +34,7 @@
 // contiguous runs chosen by the wrapper (paged_attention.py: plan) from B,
 // Hkv, nP, the row tiles and the SM count, so that one call covers the card
 // with runs of at least one tile. Grid (slot x kv head, row tile, split);
-// each block runs the shared online-softmax step (csrc/attn_tile.cuh) over
+// each block runs the online-softmax step of csrc/attn_tile.cuh over
 // its run, 32 tokens a tile, the next tile's K/V copied with 16-byte
 // cp.async under this tile's math (double-buffered). One token's Hkv*D slab
 // is contiguous, so a tile of head h is 32 rows of D floats at stride
@@ -124,7 +124,7 @@
 namespace {
 
 template <int D, int ROWS>
-using PagedTile = AttnTile<D, ROWS, 2>;
+using PagedTile = AttnTile<D, ROWS>;
 
 // part: acc (BH, splits, GC, D), then m and l (BH, splits, GC) each
 template <class T, int D, int ROWS>

@@ -281,9 +281,11 @@ def test_card_function_launches_both_kernels(cuda):
 
 
 def test_card_bf16_pair_on_tensor_cores(cuda):
-    """The training pair's kernels, bf16 and fp32 (every instantiation),
-    hold HMMA instructions in the built library's SASS (``cuobjdump
-    -sass``), and the fp32 serving forward holds none."""
+    """Every flash kernel that multiplies, bf16 and fp32 (every
+    instantiation), holds HMMA instructions in the built library's SASS
+    (``cuobjdump -sass``): the training pair's, and the forwards that the
+    serving entries launch too (the lse forwards, with no lse). The CUDA-core
+    serving forward (``flash_attention_fwd_kernel``) is gone."""
     import re
     import subprocess
     from pathlib import Path
@@ -294,26 +296,23 @@ def test_card_bf16_pair_on_tensor_cores(cuda):
                           "-sass", str(_build.library_path())],
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    kernels = {"flash_fwd_lse_tc_kernel": True,
-               "flash_bwd_dkdv_tc_kernel": True,
-               "flash_bwd_dq_tc_kernel": True,
-               "flash_fwd_lse_x3_kernel": True,
-               "flash_bwd_dkdv_x3_kernel": True,
-               "flash_bwd_dq_x3_kernel": True,
-               r"flash_attention_fwd_kernelIfLi\d+ELi\d+EE": False}
+    kernels = ("flash_fwd_lse_tc_kernel", "flash_bwd_dkdv_tc_kernel",
+               "flash_bwd_dq_tc_kernel", "flash_fwd_lse_x3_kernel",
+               "flash_bwd_dkdv_x3_kernel", "flash_bwd_dq_x3_kernel")
     counts: dict = {}
     name = None
     for line in res.stdout.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
+            assert "flash_attention_fwd_kernel" not in fn, fn
             name = next((p for p in kernels if re.search(p, fn)), None)
             if name:
                 counts.setdefault(name, []).append(0)
         elif name and re.search(r"\bHMMA\b", line):
             counts[name][-1] += 1
-    for p, tensor_cores in kernels.items():
+    for p in kernels:
         assert counts.get(p), f"{p} not in the library"
-        if tensor_cores:
-            assert min(counts[p]) > 0, (p, counts[p])
-        else:
-            assert max(counts[p]) == 0, (p, counts[p])
+        assert min(counts[p]) > 0, (p, counts[p])
+    # the forwards, both entries' kernels, at every head dim they take
+    for p in ("flash_fwd_lse_tc_kernel", "flash_fwd_lse_x3_kernel"):
+        assert len(counts[p]) == len(dispatch.FLASH_HEAD_DIMS), (p, counts[p])

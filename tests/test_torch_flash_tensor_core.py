@@ -1,8 +1,9 @@
 """The bf16 flash training pair's tensor-core design, on the CPU: the plain
 model of its arithmetic (``ref.flash_forward_split_model`` and
-``ref.flash_backward_split_model``: bf16 operands as they are, P and dS
-split into two bf16 terms, fp32 sums by key or query tile, the query
-heads' dk/dv partials folded in ascending order) held to the JAX package's
+``ref.flash_backward_split_model``: bf16 operands as they are, the
+forward's P split into three bf16 terms and the backward's P and dS into
+two, fp32 sums by key or query tile, the query heads' dk/dv partials
+folded in ascending order) held to the JAX package's
 custom VJP (``repro/kernels/flash_attention/blocked.py``: ``_fwd`` and
 ``jax.vjp`` of ``flash_attention_xla``, run with a small ``block_k`` so that
 JAX walks several key blocks) and to the port's plain versions
@@ -18,9 +19,10 @@ magnitude); ``lse`` within ``ATOL`` absolute. The gradients against
 model's. Largest values measured on this CPU over these cases: ``lse``
 9.5e-7 from JAX and 4.8e-7 from the plain version; ``out`` and the
 gradients at most 0.998 of their gate (a one-ulp flip of the rounding);
-on the same bf16 values held in fp32, so unrounded, the model's outputs
-lie within 7.3e-6 of the plain version's largest |value| (the split
-leaves 2^-16 of each p and ds).
+on the same bf16 values held in fp32, so unrounded, the model's ``out``
+lies within 6.7e-7 of the plain version's largest |value| (P in three
+terms) and its gradients within 7.3e-6 (the backward's split leaves
+2^-16 of each p and ds).
 
 ``split_bf16`` itself: ``|x - hi - lo| <= 2^-16 |x|`` for every fp32 ``x``
 in the normal range, a property test (hypothesis; skipped where it is not
