@@ -33,6 +33,7 @@ against the host CPU.
     python3 chip_smoke.py --flashtrain          # phase 26 (not in the full run)
     python3 chip_smoke.py --bf16families        # phase 27 (not in the full run)
     python3 chip_smoke.py --longctx             # phase 28 (not in the full run)
+    python3 chip_smoke.py --moespec             # phase 29 (not in the full run)
 
 ``--scans`` runs only the card line, the build and phase 11's scans (their
 checks and times, no launch configuration), from the ``repro_torch`` under
@@ -57,7 +58,7 @@ that have the scan tier. ``--normal`` runs that noise stage with its
 launches, then phase 21; ``--tree`` runs phase 22; ``--bf16`` phase 23;
 ``--families`` phase 24; ``--bf16train`` phase 25; ``--flashtrain``
 phase 3's flash training rows, then phase 26; ``--bf16families`` phase
-27; ``--longctx`` phase 28.
+27; ``--longctx`` phase 28; ``--moespec`` phase 29.
 
 Phases (any failed check raises, and the script exits non-zero):
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
@@ -460,6 +461,30 @@ Phases (any failed check raises, and the script exits non-zero):
      goes (``torch.profiler``) in a cut of each prefill (qwen2.5-3b at 2
      layers, zamba2-7b's first group) and of qwen2.5-3b's decode at the
      cells' batches: the shares of the flash kernel and the SSD scan.
+     Each cell's counted FLOPs and bytes a step (the dry run's
+     ``hlo_cost``, ``analysis/op_cost.py``) beside its measured step: the
+     share of the card's bf16 peak the step reached.
+ 29. (``--moespec`` only) speculative serving of the MoE family: the page
+     pools' zeroing kernel at phi3.5-moe's Hkv 8 and qwen3-moe's Hkv 4
+     (d_head 128) in fp32 and bf16, bit-equal to its plain version over
+     both whole pools, then an admission's reset and a speculative tick's
+     rollback as ``PagePool`` runs them, timed as phase 3 times row 4;
+     phi3.5-moe at 8 of 32 layers and qwen3-moe at 4 of 94, published
+     width and capacity factor 1.25, 8 Zipf requests through 4 slots at
+     spec_k 4 with a 1-layer draft and with the self-draft, in fp32 and
+     bf16 compute: each drains, paged attention launches once a layer of
+     every paged forward (draft steps, verifies, prefill chunks),
+     ``paged_reset`` once an admission, ``paged_rollback`` once a tick
+     with a tail, all on the compute type's instantiation; ms a tick,
+     tok/s, acceptance and peak GB beside the card's name and power limit;
+     phi3.5-moe at 1 layer card vs CPU (self-draft, fp32 and bf16): the
+     same tokens, proposals and acceptances, logits within phase 24's gate
+     (fp32) or phase 23's (bf16), a request parting only at a near-tie; no
+     plain attention or page-pool call on the card.
+
+Every kernel's bound in these phases comes from its work formula in
+``src/repro_torch/analysis/op_cost.py`` (:func:`work`), the formula the dry
+run counts the kernel by.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -628,6 +653,27 @@ def bound(nbytes: float, flops: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+_WORK: list = []
+
+
+def work():
+    """The kernels' work formulas, ``(bytes, operations)`` of a call: the
+    module ``src/repro_torch/analysis/op_cost.py`` of this checkout, read
+    by its path (it imports nothing of the port), so a tree timed with
+    ``--src`` is bounded by the same formulas, and the dry run's counted
+    step cost by the same numbers as these rows."""
+    if not _WORK:
+        import importlib.util
+
+        spec = importlib.util.spec_from_file_location(
+            "op_cost_formulas", ROOT / "src/repro_torch/analysis/op_cost.py")
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[spec.name] = mod  # its dataclasses look it up
+        spec.loader.exec_module(mod)
+        _WORK.append(mod)
+    return _WORK[0]
+
+
 # ---------------------------------------------------------------- phase 3
 
 def paged_case(cfg, dev, gen, B, C, nP, P, q_start):
@@ -645,23 +691,11 @@ def paged_case(cfg, dev, gen, B, C, nP, P, q_start):
 
 
 def paged_work(q, tables, q_start, P, Hkv):
-    """(bytes, flops) the call needs for these inputs: q read and the
-    output written once (fp32), the K/V of every page holding a visible
-    position read once (in q's type), and 2 products of D per visible
-    (query head, key) pair."""
-    B, C, Hq, D = q.shape
-    S = tables.shape[1] * P
-    pages, flops = set(), 0
-    for b in range(B):
-        qs = int(q_start[b])
-        last = min(max(qs + C, 0), S)  # visible positions of the last row
-        pages.update(tables[b, :-(-last // P)].tolist())
-        for c in range(C):
-            flops += 4 * D * Hq * min(max(qs + c + 1, 0), S)
-    e = q.element_size()
-    nbytes = (q.numel() * (e + 4) + len(pages) * P * Hkv * D * e * 2
-              + tables.numel() * 4 + B * 4)
-    return nbytes, flops
+    """(bytes, flops) the call needs for these inputs (``op_cost.paged_work``:
+    q read and the output written once, the K/V of every page holding a
+    visible position read once, 2 products of D per visible (query head,
+    key) pair)."""
+    return work().paged_work(q, tables, q_start, P, Hkv)
 
 
 def check_paged_attention(cfg, dev, gen, B, nP, P, C, ops, ref, F,
@@ -1081,9 +1115,7 @@ def check_flash(cfg, dev, gen, B, S, ops, ref, F, causal: bool = True):
     merr = flash_model_gate(got, q, k, v, causal, f"flash_attention d_head "
                                                   f"{D}")
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    pairs = S * (S + 1) // 2 if causal else S * S
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 4
-    bms, by = bound(nbytes, 4 * D * Hq * B * pairs)
+    bms, by = bound(*work().flash_work(q, k, v, causal))
     call = lambda: ops.flash_attention(q, k, v, causal=causal)  # noqa: E731
     sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
         qt, kt, vt, is_causal=causal, enable_gqa=True)
@@ -1141,9 +1173,7 @@ def check_flash_bf16(cfg, dev, gen, B, S, ops, ref, F):
     merr = flash_model_gate(got, q, k, v, True, f"flash_attention bf16 "
                                                 f"d_head {D}")
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    pairs = S * (S + 1) // 2
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
-    bms, by = bound(nbytes, 4 * D * Hq * B * pairs, BF16_FLOP_PER_S)
+    bms, by = bound(*work().flash_work(q, k, v, True), BF16_FLOP_PER_S)
     call = lambda: ops.flash_attention(q, k, v, causal=True)  # noqa: E731
     sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
         qt, kt, vt, is_causal=True, enable_gqa=True)
@@ -1828,11 +1858,9 @@ def check_wkv(dev, gen, B, S, H, N, ops, ref):
     for name, xs in timed_at.items():
         r, u, s0 = xs[0], xs[4], xs[5]
         S_ = r.shape[1]
-        # r, k, v, w in and o out; u; the state in and out
-        nbytes = (5 * r.numel() + u.numel() + 2 * s0.numel()) * 4
         out[name] = scan_timing(
             lambda: ops.wkv_chunked(*xs), lambda: ref.wkv_chunked_ref(*xs),
-            nbytes, 4 * B * S_ * H * N * N,
+            *work().wkv_work(r, u, s0),
             f"B={B} S={S_} H={H} N={N} fp32, with an incoming state")
         out[name]["max_abs_err"] = cases[name]["max_abs_err"]
     return {
@@ -1874,12 +1902,9 @@ def check_ssd(dev, gen, B, S, nh, P, N, ops, ref):
     for name, xs in timed_at.items():
         x, dt, _, Bc, _, h0 = xs
         S_ = x.shape[1]
-        # x, dt, la, B, C, h0 in; y and h out
-        nbytes = (2 * x.numel() + 2 * dt.numel() + 2 * Bc.numel()
-                  + 2 * h0.numel()) * 4
         out[name] = scan_timing(
             lambda: ops.ssd_chunked(*xs), lambda: ref.ssd_chunked_ref(*xs),
-            nbytes, 5 * B * S_ * nh * P * N,
+            *work().ssd_work(x, dt, Bc, h0),
             f"B={B} S={S_} nh={nh} P={P} N={N} fp32, with an incoming state")
         out[name]["max_abs_err"] = cases[name]["max_abs_err"]
     return {
@@ -3941,7 +3966,8 @@ def one_phase(phase: str, src: Path) -> int:
     :func:`bf16train_phase`), phase 3's flash training rows and phase 26
     (``--flashtrain``, :func:`flashtrain_phase`) or phase 27
     (``--bf16families``, :func:`bf16families_phase`) or phase 28
-    (``--longctx``, :func:`longctx_phase`) alone, from the
+    (``--longctx``, :func:`longctx_phase`) or phase 29 (``--moespec``,
+    :func:`moespec_phase`) alone, from the
     ``repro_torch`` under ``src``
     (another tree's, to time two trees in one call); the last line is their
     JSON record."""
@@ -4000,6 +4026,9 @@ def one_phase(phase: str, src: Path) -> int:
         record = bf16families_phase(dev)
     elif phase == "longctx":
         record = longctx_phase(dev, src)
+    elif phase == "moespec":
+        record, rows = moespec_phase(dev, card)
+        record["rows"] = rows
     elif phase == "flashtrain":
         import torch.nn.functional as F
         record = {"rows": flash_train_rows(dev, F)}
@@ -4236,13 +4265,10 @@ def check_wkv_bwd(dev, gen, fn, ref) -> dict:
                                             WKV_GRADS, rel)}
         if name in ("main", "s512"):
             r, u, s0 = xs[0], xs[4], xs[5]
-            # r, k, v, w, do in, dr, dk, dv, dw out; u in, du out; the
-            # state and dstate in, dstate0 out
-            nbytes = (9 * r.numel() + 2 * u.numel() + 3 * s0.numel()) * 4
             out[name] = scan_timing(
                 lambda: fn(*xs, *cot),
-                lambda: ref.wkv_backward_ref(*xs, *cot), nbytes,
-                12 * B * S_ * H * N * N,
+                lambda: ref.wkv_backward_ref(*xs, *cot),
+                *work().wkv_bwd_work(r, u, s0),
                 f"B={B} S={S_} H={H} N={N} fp32, with a state and dstate",
                 graph_n=20, plain_reps=3)
             out[name]["max_abs_err"] = cases[name]["max_abs_err"]
@@ -4275,14 +4301,10 @@ def check_ssd_bwd(dev, gen, fn, ref) -> dict:
                                             SSD_GRADS, rel)}
         if name in ("main", "s512"):
             x, dt, Bc, h0 = xs[0], xs[1], xs[3], xs[5]
-            # x, dy in, dx out; dt, la in, ddt, dla out; B, C in, dB, dC
-            # out; h0, dh in, dh0 out
-            nbytes = (3 * x.numel() + 4 * dt.numel() + 4 * Bc.numel()
-                      + 3 * h0.numel()) * 4
             out[name] = scan_timing(
                 lambda: fn(*xs, *cot),
-                lambda: ref.ssd_backward_ref(*xs, *cot), nbytes,
-                13 * B * S_ * nh * P * N,
+                lambda: ref.ssd_backward_ref(*xs, *cot),
+                *work().ssd_bwd_work(x, dt, Bc, h0),
                 f"B={B} S={S_} nh={nh} P={P} N={N} fp32, with a state and dh",
                 graph_n=20, plain_reps=3)
             out[name]["max_abs_err"] = cases[name]["max_abs_err"]
@@ -6407,6 +6429,273 @@ def families_phase(dev) -> tuple:
     return rec, rows
 
 
+# --------------------------------------------------------------- phase 29
+# speculative serving of the MoE family (--moespec only): phase 24's depths
+# at published width and capacity factor, spec_k 4, a 1-layer early-exit
+# draft and the self-draft, in fp32 and in bf16 compute
+MOESPEC_LAYERS = {PHI: 8, QWEN3: 4}
+MOESPEC_DRAFTS = (1, None)
+MOESPEC_DTYPES = (torch.float32, torch.bfloat16)
+# card vs CPU at 1 layer: logits within phase 24's gate (fp32) or phase
+# 23's (bf16) up to a request's first split, which only a near-tie of the
+# CPU's top-2 margin may cause
+MOESPEC_GATES = {torch.float32: (CROSS_ATOL, 2 * CROSS_ATOL),
+                 torch.bfloat16: (BF16_ATOL, BF16_TIE)}
+
+
+@contextlib.contextmanager
+def paged_forward_calls():
+    """Counts, in the dict it yields, the paged forward's calls and the
+    layers they ran (``transformer.forward_paged``, the target's and the
+    draft's): each layer of each call is one ``paged_attention`` launch."""
+    from repro_torch.models import transformer
+
+    real = transformer.forward_paged
+    calls = {"calls": 0, "layers": 0}
+
+    def spy(params, cfg, *a, **k):
+        calls["calls"] += 1
+        calls["layers"] += cfg.n_layers
+        return real(params, cfg, *a, **k)
+
+    transformer.forward_paged = spy
+    try:
+        yield calls
+    finally:
+        transformer.forward_paged = real
+
+
+def moespec_serve(Session, cfg, params, dtype, draft, reqs, card: str,
+                  tag: str) -> dict:
+    """Phase 29(b): one speculative continuous serve of ``reqs`` (4 slots,
+    page 16, chunk 16, spec_k 4, ``draft`` layers or the self-draft) in
+    ``dtype`` compute over the fp32 ``params``. It drains; paged attention
+    launches once a layer of each paged forward (draft steps, verifies,
+    prefill chunks), ``paged_reset`` once an admission, ``paged_rollback``
+    once a tick with a tail, all on ``dtype``'s instantiation, and nothing
+    else."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.runtime.serving import PagePool
+
+    sess = Session.from_config(cfg, seed=0, compute_dtype=dtype)
+    var = dispatch.DTYPE_VARIANTS[dtype]
+    with rollback_ticks(PagePool) as ticks, paged_forward_calls() as calls:
+        torch.cuda.reset_peak_memory_stats()
+        dispatch.reset_launches()
+        res, wall = timed(lambda: sess.serve(
+            scheduler="continuous", requests=copy.deepcopy(reqs),
+            params=params, max_batch=4, max_len=512, page_size=16,
+            prefill_chunk=16, speculative=True, spec_k=4,
+            draft_layers=draft))
+        n = {k: v for k, v in dispatch.launch_counts().items() if v}
+        variants = dispatch.variant_counts()
+    st = res.stats
+    V = cfg.vocab_size
+    check(st.drained and len(st.latencies) == len(reqs),
+          f"{tag}: did not drain")
+    check(bool((res.tokens < V).all()) and bool((res.tokens >= 0).any()),
+          f"{tag}: tokens")
+    check(st.spec_proposed > 0, f"{tag}: no proposals")
+    admissions = len(reqs) + st.preemptions
+    want = {"paged_attention": calls["layers"], "paged_reset": admissions,
+            "paged_rollback": ticks[0]}
+    check(n == {k: v for k, v in want.items() if v},
+          f"{tag}: launches {n}, expected {want}")
+    for name, count in n.items():
+        check(variants[name][var] == count,
+              f"{tag}: {name} launched {variants[name]}, all {var} expected")
+    steps = max(st.decode_steps, 1)
+    out = {"draft_layers": draft, "dtype": DTYPE_NAMES[dtype],
+           "wall_s": wall, "useful_tokens": st.useful_tokens,
+           "tok_per_s": 1 / res.decode_s_per_token,
+           "decode_ms_per_tick": res.decode_s_per_token * 1e3
+           * st.useful_tokens / steps,
+           "decode_steps": st.decode_steps,
+           "spec_proposed": st.spec_proposed,
+           "spec_accepted": st.spec_accepted,
+           "acceptance": st.acceptance_rate,
+           "ticks_rolled_back": ticks[0], "paged_forwards": calls["calls"],
+           "launches": n, "peak_mem_gb":
+               torch.cuda.max_memory_allocated() / 1e9, "card": card}
+    log(f"[moespec] {tag}: {len(reqs)} requests, 4 slots: "
+        f"{st.useful_tokens} tokens in {wall:.2f} s, {out['tok_per_s']:.1f} "
+        f"tok/s | decode {out['decode_ms_per_tick']:.2f} ms a tick | "
+        f"acceptance {st.acceptance_rate:.3f} ({st.spec_accepted}/"
+        f"{st.spec_proposed}) | {ticks[0]} ticks rolled back | launches {n} "
+        f"({calls['calls']} paged forwards) | peak {out['peak_mem_gb']:.2f} "
+        f"GB | {card}")
+    return out
+
+
+def moespec_cross_device(Session, cfg1, dtype, reqs, card: str) -> dict:
+    """Phase 29(c): ``cfg1`` (1 layer, published width and capacity) on the
+    card and on the host CPU from the same weights, the self-draft (at
+    capacity 1.25 the verify chunk drops other picks than the draft's
+    single rows, so it rejects too): the same tokens, proposals and
+    acceptances, the logit traces within ``MOESPEC_GATES``; a request may
+    part only where the CPU's top-2 margin is within the tie bound (then
+    its proposals and acceptances are not compared)."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.runtime.serving import ContinuousServer
+
+    atol, tie = MOESPEC_GATES[dtype]
+    on = {d: Session.from_config(cfg1, device=d, seed=7, compute_dtype=dtype)
+          for d in ("cuda", "cpu")}
+    p_cpu = on["cpu"].init_params()
+    p_gpu = copy.deepcopy(p_cpu).to(on["cuda"].device)
+    kw = dict(max_batch=2, max_len=64, page_size=16, prefill_chunk=16,
+              speculative=True, spec_k=4, trace_logits=True)
+    srv, rs, launches = {}, {}, {}
+    for d, p in (("cuda", p_gpu), ("cpu", p_cpu)):
+        dispatch.reset_launches()
+        rs[d] = copy.deepcopy(reqs)
+        srv[d] = ContinuousServer(on[d].model, p, **kw)
+        for r in rs[d]:
+            srv[d].submit(r)
+        srv[d].run_until_drained()
+        launches[d] = {k: v for k, v in dispatch.launch_counts().items()
+                       if v}
+    check(not launches["cpu"] and launches["cuda"].get("paged_attention"),
+          f"{cfg1.name} 1-layer launches: card {launches['cuda']}, CPU "
+          f"{launches['cpu']}")
+    worst, splits = 0.0, []
+    for a, b in zip(rs["cuda"], rs["cpu"]):
+        ta, tb = srv["cuda"].logit_trace[a.rid], srv["cpu"].logit_trace[b.rid]
+        for j, (x, y) in enumerate(zip(ta[:len(b.generated)], tb)):
+            worst = max(worst, float(np.abs(x - y).max()))
+            if a.generated[j] != b.generated[j]:
+                top = np.sort(y)[-2:]
+                margin = float(top[1] - top[0])
+                check(margin <= tie, f"{cfg1.name} {DTYPE_NAMES[dtype]}: "
+                      f"rid {a.rid} parts at token {j} where the CPU's "
+                      f"margin is {margin} > {tie}")
+                splits.append({"rid": a.rid, "token": j, "margin": margin})
+                break
+        else:
+            check(a.generated == b.generated, f"{cfg1.name}: rid {a.rid} "
+                                              f"lengths differ")
+    check(worst <= atol, f"{cfg1.name} {DTYPE_NAMES[dtype]}: card vs CPU "
+                         f"logits {worst} apart before a split")
+    stats = [(s.stats.spec_proposed, s.stats.spec_accepted)
+             for s in (srv["cuda"], srv["cpu"])]
+    if not splits:
+        check(stats[0] == stats[1], f"{cfg1.name}: proposed / accepted card "
+                                    f"vs CPU {stats}")
+    out = {"dtype": DTYPE_NAMES[dtype], "tokens": sum(
+        len(r.generated) for r in rs["cuda"]), "proposed_accepted": stats,
+        "max_abs_logit_diff": worst, "atol": atol, "tie": tie,
+        "splits": splits, "card_launches": launches["cuda"], "card": card}
+    log(f"[moespec] {cfg1.name} 1 layer, self-draft, {DTYPE_NAMES[dtype]}, "
+        f"card vs CPU: {out['tokens']} tokens, "
+        + ("equal" if not splits else f"parted at near-ties {splits}")
+        + f" | proposed / accepted {stats[0]} card, {stats[1]} CPU | max "
+        f"|logit diff| {worst:.3g} (gate {atol}) | card launches "
+        f"{launches['cuda']} | {card}")
+    return out
+
+
+def moespec_phase(dev, card: str) -> tuple:
+    """Phase 29 (``--moespec`` only): speculative serving of the MoE family.
+    (a) The page pools' zeroing kernel at phi3.5-moe's Hkv 8 and qwen3-moe's
+    Hkv 4 (d_head 128), fp32 and bf16: bit-equal to its plain version over
+    both whole pools, then an admission's reset and a speculative tick's
+    rollback as ``PagePool`` runs them, timed as phase 3 times row 4. (b)
+    phi3.5-moe at 8 layers and qwen3-moe at 4, published width and
+    capacity factor, 8 Zipf requests through :func:`moespec_serve` with a
+    1-layer draft and the self-draft, in fp32 and bf16. (c) phi3.5-moe at
+    1 layer, card vs CPU (:func:`moespec_cross_device`). No plain attention
+    or page-pool call on the card. Returns ``(record, {kernel: {sub-row:
+    row}})``."""
+    from repro_torch.api import Session
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention import ops as paged_ops
+    from repro_torch.kernels.paged_attention import ref as paged_ref
+    from repro_torch.runtime.serving import zipf_requests
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(29)
+    rows: dict = {"paged_rollback": {}, "paged_attention": {}}
+    rec: dict = {"pool": {}, "serve": {}, "cross_device": {}, "card": card}
+    for arch in (PHI, QWEN3):
+        cut = dataclasses.replace(get_config(arch),
+                                  n_layers=MOESPEC_LAYERS[arch])
+        for dtype in MOESPEC_DTYPES:
+            sub = f"moe_hkv{cut.n_kv_heads}_{DTYPE_NAMES[dtype]}"
+            check_pool_zero(cut, dev, gen, paged_ops, paged_ref, dtype)
+            ev = pool_events(cut, dev, 29, dtype, ranges=False)
+            rec["pool"][sub] = ev
+            tick = {k: x for k, x in ev["tick"].items() if k != "host"}
+            rows["paged_rollback"][sub] = {
+                **tick, "max_abs_err": 0.0, "bound_by": "bytes",
+                "launch_floor_ms": ev["floor"]["device_ms"],
+                "library_call": "index_fill_, one call a tensor",
+                "bit_equal_to_plain": True}
+            r = rows["paged_rollback"][sub]
+            log(f"[moespec] paged_rollback {sub} ({arch}): bit-equal to its "
+                f"plain version over both pools | call {r['ms']:.4f} ms | "
+                f"card {r['device_ms']:.4f} ms | launch floor "
+                f"{r['launch_floor_ms']:.4f} ms | index_fill_ "
+                f"{r['library_ms']:.4f} ms (card "
+                f"{r['library_device_ms']:.4f}) | plain {r['plain_ms']:.4f} "
+                f"ms | bound {r['bound_ms']:.6f} ms (bytes) | {r['at']} | "
+                f"{card}")
+    spy: dict = {}
+    with plain_attention_spy(spy):
+        for arch in (PHI, QWEN3):
+            cut = dataclasses.replace(get_config(arch),
+                                      n_layers=MOESPEC_LAYERS[arch])
+            sess = Session.from_config(cut, seed=0)
+            params, init_s = timed(sess.init_params)
+            n_params = sum(p.numel() for p in params.parameters())
+            log(f"[moespec] {arch} full width, {cut.n_layers} layers "
+                f"({cut.n_heads}/{cut.n_kv_heads} heads, {cut.n_experts} "
+                f"experts top-{cut.top_k}, capacity factor "
+                f"{cut.moe_capacity_factor}): {n_params / 1e9:.3f} B fp32 "
+                f"params on the card in {init_s:.1f} s | {card}")
+            reqs = zipf_requests(8, cut.vocab_size, min_len=8, max_len=48,
+                                 max_new_low=8, max_new_high=24, seed=0)
+            runs = {}
+            for dtype in MOESPEC_DTYPES:
+                for draft in MOESPEC_DRAFTS:
+                    name = f"{DTYPE_NAMES[dtype]}_draft{draft or 'self'}"
+                    runs[name] = moespec_serve(
+                        Session, cut, params, dtype, draft, reqs, card,
+                        f"{arch} {cut.n_layers} layers {name}")
+                check(runs[f"{DTYPE_NAMES[dtype]}_draft1"][
+                    "ticks_rolled_back"] > 0,
+                      f"{arch} {DTYPE_NAMES[dtype]}: the 1-layer draft never "
+                      f"rolled back")
+            rec["serve"][arch] = {"n_params": n_params, "init_s": init_s,
+                                  "runs": runs}
+            H = cut.n_kv_heads
+            for dtype in MOESPEC_DTYPES:
+                dn = DTYPE_NAMES[dtype]
+                rows["paged_rollback"][f"moe_hkv{H}_{dn}"]["launches"] = \
+                    runs[f"{dn}_draft1"]["launches"].get("paged_rollback", 0)
+                rows["paged_attention"][f"moe_hkv{H}_spec_{dn}"] = {
+                    "launches": runs[f"{dn}_draft1"]["launches"][
+                        "paged_attention"],
+                    "at": f"{arch}, {cut.n_layers} layers, spec_k 4, a "
+                          f"1-layer draft, {dn}"}
+            del sess, params
+            torch.cuda.empty_cache()
+        cut1 = dataclasses.replace(get_config(PHI), n_layers=1)
+        x_reqs = zipf_requests(3, cut1.vocab_size, min_len=8, max_len=24,
+                               max_new_low=6, max_new_high=10, seed=2)
+        for dtype in MOESPEC_DTYPES:
+            rec["cross_device"][DTYPE_NAMES[dtype]] = moespec_cross_device(
+                Session, cut1, dtype, x_reqs, card)
+            torch.cuda.empty_cache()
+    check(spy["plain_calls_on_card"] == 0,
+          f"{spy['plain_calls_on_card']} plain attention or page-pool calls "
+          f"on the card")
+    rec["plain_calls_on_card"] = 0
+    rec["phase_s"] = time.perf_counter() - t0
+    log(f"[moespec] phase 29 in {rec['phase_s']:.1f} s; no plain attention "
+        f"or page-pool call on the card | {card}")
+    return rec, rows
+
+
 # --------------------------------------------------------------- phase 25
 # training in bf16 (--bf16train only): the card against its CPU held as
 # tests/test_torch_bf16_training.py holds the port to JAX (bf16 products
@@ -6688,10 +6977,8 @@ def check_flash_train(dev, gen, B, S, Hq, Hkv, D, causal, dtype, F) -> tuple:
     check(err_lse <= KERNEL_ATOL, f"flash lse off by {err_lse}")
     errs = [flash_train_close(g, w, dtype) for g, w in zip(grads, want)]
     del want, want_out, want_lse, out2, again
-    es = 2 if dtype == torch.bfloat16 else 4
     rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
     pairs = S * (S + 1) // 2 if causal else S * S
-    n_q, n_kv = q.numel(), k.numel()
     qt, kt, vt = (t.detach().transpose(1, 2).contiguous().requires_grad_()
                   for t in (q, k, v))
     sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
@@ -6705,8 +6992,7 @@ def check_flash_train(dev, gen, B, S, Hq, Hkv, D, causal, dtype, F) -> tuple:
         o, (qt, kt, vt), dot, retain_graph=True)
     at = (f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} "
           f"{'causal' if causal else 'non-causal'} {DTYPE_NAMES[dtype]}")
-    b_f, by_f = bound((2 * n_q + 2 * n_kv) * es + B * Hq * S * 4,
-                      4 * D * Hq * B * pairs, rate)
+    b_f, by_f = bound(*work().flash_lse_work(q, k, v, causal), rate)
     # the split's floor, in units of an S x S x D product at bf16's rate:
     # bf16 enters the forward's P as three bf16 terms, so 4 units forward
     # (2 bound it), and the backward's P and dS as two, 10 backward (5);
@@ -6725,8 +7011,7 @@ def check_flash_train(dev, gen, B, S, Hq, Hkv, D, causal, dtype, F) -> tuple:
         "library_call": "scaled_dot_product_attention (forward)",
         "bound_ms": b_f, "bound_by": by_f, "split_floor_ms": floor_f,
         "at": at + " (training forward)"}
-    b_b, by_b = bound((4 * n_q + 4 * n_kv) * es + B * Hq * S * 4,
-                      10 * D * Hq * B * pairs, rate)
+    b_b, by_b = bound(*work().flash_bwd_work(q, k, v, causal), rate)
     bwd_row = {
         "max_abs_err": max(errs), "max_abs_err_dq_dk_dv": errs,
         "two_launches_bit_equal": True,
@@ -7637,6 +7922,21 @@ def longctx_cell(arch: str, shape: str, out_dir: Path, src: Path) -> dict:
     check(plan_b <= PLAN_SLACK * peak, f"(e) {arch} {shape}: the plan "
           f"{plan_b} is {plan_b / peak:.3f} of the measured peak {peak}")
     rec["wall_s"] = wall
+    hc = rec.get("hlo_cost")
+    if isinstance(hc, dict):  # the counted step (trees with op_cost.py)
+        flops = hc["flops_per_chip"]
+        share = flops / (run["step_ms"] / 1e3) / BF16_FLOP_PER_S
+        rec["counted"] = {"flops": flops, "hbm_bytes":
+                          hc["hbm_bytes_per_chip"],
+                          "t_compute_s": rec["roofline"]["t_compute_s"],
+                          "t_memory_s": rec["roofline"]["t_memory_s"],
+                          "step_share_of_bf16_peak": share}
+        log(f"[longctx] {arch} {shape}: counted {flops:.4e} FLOPs and "
+            f"{hc['hbm_bytes_per_chip']:.4e} bytes a step (op_cost; "
+            f"t_compute {rec['roofline']['t_compute_s']:.3f} s, t_memory "
+            f"{rec['roofline']['t_memory_s']:.3f} s): the measured step "
+            f"{run['step_ms']:.1f} ms reached {100 * share:.2f}% of "
+            f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s | {card_line()}")
     pre = run.get("prefill", {})
     launches = pre.get("launches") or run["launches"]
     log(f"[longctx] {arch} {shape}: batch {rec['batch']} of "
@@ -7864,9 +8164,7 @@ def long_flash_row(cfg, dev, gen, B: int, S: int, F) -> dict:
     def sdpa():
         with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
             return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-    pairs = S * (S + 1) // 2
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
-    bms, by = bound(nbytes, 4 * D * Hq * B * pairs, BF16_FLOP_PER_S)
+    bms, by = bound(*work().flash_work(q, k, v, True), BF16_FLOP_PER_S)
     return {"max_abs_err": err, "max_ulps": (diff / ulp).max().item(),
             "ms": cuda_ms(call, reps=3, warmup=0),
             "plain_ms": cuda_ms(lambda: attention_blocked_plain(q, k, v),
@@ -7900,8 +8198,7 @@ def long_scan_rows(dev, gen, ops_w, ref_w, ops_s, ref_s, zb: int) -> dict:
     r, u, s0 = xs[0], xs[4], xs[5]
     wkv = scan_timing(lambda: ops_w.wkv_chunked(*xs),
                       lambda: ref_w.wkv_chunked_ref(*xs),
-                      (5 * r.numel() + u.numel() + 2 * s0.numel()) * 4,
-                      4 * S * H * N * N, f"B=1 S={S} H={H} N={N} fp32 "
+                      *work().wkv_work(r, u, s0), f"B=1 S={S} H={H} N={N} fp32 "
                       f"(rwkv6-7b's long_500k prefill call)", graph_n=3,
                       plain_reps=1)
     wkv["max_abs_err"] = werr
@@ -7925,8 +8222,7 @@ def long_scan_rows(dev, gen, ops_w, ref_w, ops_s, ref_s, zb: int) -> dict:
     x, dt, _, Bc, _, h0 = xs
     ssd = scan_timing(lambda: ops_s.ssd_chunked(*xs),
                       lambda: ref_s.ssd_chunked_ref(*xs),
-                      (2 * x.numel() + 2 * dt.numel() + 2 * Bc.numel()
-                       + 2 * h0.numel()) * 4, 5 * zb * S * nh * P * Ns,
+                      *work().ssd_work(x, dt, Bc, h0),
                       f"B={zb} S={S} nh={nh} P={P} N={Ns} fp32 (zamba2-7b's "
                       f"prefill_32k)", graph_n=3, plain_reps=1)
     ssd.update(max_abs_err=serr, fp64_max_abs_err=k64,
@@ -9363,7 +9659,7 @@ if __name__ == "__main__":
     for phase in ("scans", "pool", "wire", "bwd", "streams", "slice15",
                   "persist", "cifar", "prng", "normal", "tree", "bf16",
                   "families", "bf16train", "flashtrain", "bf16families",
-                  "longctx"):
+                  "longctx", "moespec"):
         if f"--{phase}" in args:
             sys.exit(one_phase(phase, src))
     sys.exit(main())

@@ -72,6 +72,18 @@ from repro_torch.core.tee.kds import KeyDistributionService
 from repro_torch.core.tee.sandbox import Sandbox
 
 
+def _ser(tree) -> bytes:
+    """A tree serialized for the wire or for sealed storage (JAX's
+    ``components._ser``): the packed flat-buffer codec when lossless, the
+    pickle + npz fallback otherwise (``core/tee/wire.py``)."""
+    return wire.encode_tree(tree)
+
+
+def _deser(blob: bytes):
+    """Inverse of :func:`_ser`, numpy leaves on the host."""
+    return wire.decode_tree(blob)
+
+
 def _guarded_modules():
     """The service code whose measurement the KDS gates key release on: the
     DP engine, the privacy ledger, the packed layout and wire codec, and

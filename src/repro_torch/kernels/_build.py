@@ -146,7 +146,13 @@ class Entry:
         self.name, self.argtypes, self.fn = name, argtypes, None
 
     def launch(self, dev: torch.device, *args) -> int:
-        """``fn(*args, stream)``; returns what the entry point returns."""
+        """``fn(*args, stream)``; returns what the entry point returns.
+        Refuses any device but a CUDA one (meta tensors, which
+        ``dispatch.counting`` routes to the CUDA wrappers, are counted by
+        the countable ones and launch nothing)."""
+        if dev.type != "cuda":
+            raise ValueError(f"{self.name}: launches on a CUDA device, got "
+                             f"tensors on {dev}")
         fn = self.fn
         if fn is None:
             fn = getattr(library(), self.name)

@@ -43,6 +43,7 @@ route, and no kernel has its name.
 """
 from __future__ import annotations
 
+import functools
 import os
 import threading
 from contextlib import contextmanager
@@ -109,8 +110,60 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
     kinds = {t.device.type for t in tensors}
     if kinds == {"cpu"}:
         return False
+    if kinds == {"meta"} and counting_scope() is not None:
+        return True  # to the CUDA wrapper, whose stand-in counts the work
     raise ValueError(f"kernel inputs must all be on cuda or all on cpu, "
                      f"got {sorted(kinds)}")
+
+
+# ---------------------------------------------------------------------------
+# meta tensors: the counting scope of ``analysis/op_cost.py``
+#
+# The step cost counter runs a cell's step on the meta device. A kernel
+# there is counted by its own work formula, never through its plain
+# version's ops: inside ``counting(scope)``, ``on_cuda`` routes all-meta
+# inputs to the CUDA wrapper, and each wrapper (:func:`countable`) hands
+# meta inputs to ``scope.kernel(name, ...)``, which counts the kernel and
+# returns meta outputs of its shapes. Outside a scope meta inputs raise,
+# as any other device does; a wrapper that is not countable reaches
+# ``_build.Entry.launch``, which launches on CUDA devices only.
+
+_scope = None
+
+
+def counting_scope():
+    """The active counting scope, or None."""
+    return _scope
+
+
+@contextmanager
+def counting(scope):
+    """Route meta tensors to ``scope``'s kernel stand-ins inside the
+    block."""
+    global _scope
+    outer, _scope = _scope, scope
+    try:
+        yield scope
+    finally:
+        _scope = outer
+
+
+def countable(name: str):
+    """A CUDA wrapper whose meta inputs go to the counting scope's stand-in
+    for kernel ``name`` (its first argument is a tensor)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if args[0].is_meta:
+                scope = counting_scope()
+                if scope is None:
+                    raise ValueError(f"{name}: meta tensors reach a kernel "
+                                     f"only inside a counting scope "
+                                     f"(analysis.op_cost)")
+                return scope.kernel(name, *args, **kwargs)
+            return fn(*args, **kwargs)
+        return call
+    return wrap
 
 
 # head dims the paged attention kernels are instantiated for

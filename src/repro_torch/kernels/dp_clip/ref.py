@@ -26,10 +26,11 @@ def sumsq_ref(t: torch.Tensor) -> torch.Tensor:
     of an fp64 sum at any length; MKL's drifts with the chunk's length when
     it runs on few threads (single-threaded, 2.2e-5 at 2**26 and 3e-8 at
     2**18 over 12 M elements), so the CPU takes chunks of
-    ``CPU_NORM_CHUNK``. torch's CPU ``vector_norm`` accumulates in sequence
-    and loses 1e-4."""
+    ``CPU_NORM_CHUNK``; the card, and the meta device that stands for it
+    in ``analysis/op_cost.py``, take ``NORM_CHUNK``. torch's CPU
+    ``vector_norm`` accumulates in sequence and loses 1e-4."""
     flat = t.reshape(-1).float()
-    step = NORM_CHUNK if flat.is_cuda else CPU_NORM_CHUNK
+    step = CPU_NORM_CHUNK if flat.device.type == "cpu" else NORM_CHUNK
     acc = None
     for a in range(0, flat.numel(), step):
         c = flat[a:a + step]

@@ -30,8 +30,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.dispatch import (DTYPE_VARIANTS, FLASH_HEAD_DIMS,
-                                          check_tensor, dtype_variant,
-                                          register, require)
+                                          check_tensor, countable,
+                                          dtype_variant, register, require)
 
 FLASH_ATTENTION = register(
     "flash_attention",
@@ -81,6 +81,7 @@ def _check_qkv(what: str, q, k, v) -> str:
     return variant
 
 
+@countable("flash_attention")
 def flash_attention_cuda(q, k, v, causal: bool = True) -> torch.Tensor:
     """Launch the serving forward (the lse forward's kernel, no lse);
     returns (B, Sq, Hq, D)."""
@@ -99,6 +100,7 @@ def flash_attention_cuda(q, k, v, causal: bool = True) -> torch.Tensor:
     return out
 
 
+@countable("flash_attention_fwd_lse")
 def flash_attention_fwd_lse_cuda(q, k, v, causal: bool = True):
     """The training forward: the same kernel writing each row's log-sum-exp
     too. Returns (out (B, Sq, Hq, D) in q's dtype, lse (B, Hq, Sq) fp32)."""
@@ -118,6 +120,7 @@ def flash_attention_fwd_lse_cuda(q, k, v, causal: bool = True):
     return out, lse
 
 
+@countable("flash_attention_bwd")
 def flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal: bool = True):
     """Launch the backward kernel (delta, dk/dv a key tile and query head,
     their combine when Hq > Hkv, dq: one count) on the saved q, k, v, the

@@ -32,7 +32,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.dispatch import check_tensor, register, require
+from repro_torch.kernels.dispatch import (check_tensor, countable, register,
+                                          require)
 
 SSD = register("ssd", "src/repro_torch/kernels/mamba2/csrc/ssd.cu",
                "src/repro/kernels/mamba2/mamba2.py:67")
@@ -121,6 +122,7 @@ def _check_inputs(xh, dt, la, Bc, Cc, h0, dev, what: str):
     return B, S, nh, P, N
 
 
+@countable("ssd")
 def ssd_cuda(xh, dt, la, Bc, Cc, h0):
     """Launch the SSD scan; returns (y, final h)."""
     dev = xh.device
@@ -137,6 +139,7 @@ def ssd_cuda(xh, dt, la, Bc, Cc, h0):
     return y, h
 
 
+@countable("ssd_bwd")
 def ssd_bwd_cuda(xh, dt, la, Bc, Cc, h0, dy, dh=None):
     """Launch the SSD scan's backward; returns ``(dxh, ddt, dla, dBc, dCc,
     dh0)``, the gradients of ``ssd_cuda``'s ``(y, h)`` given ``dy``

@@ -17,8 +17,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.dispatch import (check_key, check_tensor, on_cuda,
-                                          register, require)
+from repro_torch.kernels.dispatch import (check_key, check_tensor, countable,
+                                          on_cuda, register, require)
 from repro_torch.kernels.prng import ref
 
 NORMAL = register(
@@ -72,6 +72,7 @@ def normal(key, offset: int, out: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@countable("normal_combine")
 def normal_combine(out: torch.Tensor, key_a, key_b, offset: int, sa,
                    sb=None, g=None, accumulate: bool = False) -> torch.Tensor:
     """``out`` <- ``out + r`` (``accumulate``) or ``r``, with ``r = z_a *

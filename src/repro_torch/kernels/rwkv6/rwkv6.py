@@ -32,7 +32,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.dispatch import check_tensor, register, require
+from repro_torch.kernels.dispatch import (check_tensor, countable, register,
+                                          require)
 
 WKV = register("wkv", "src/repro_torch/kernels/rwkv6/csrc/wkv.cu",
                "src/repro/kernels/rwkv6/rwkv6.py:70")
@@ -117,6 +118,7 @@ def _check_inputs(r, k, v, w, u, state0, dev, what: str):
     return B, S, H, N
 
 
+@countable("wkv")
 def wkv_cuda(r, k, v, w, u, state0):
     """Launch the WKV scan; returns (o, final state)."""
     dev = r.device
@@ -133,6 +135,7 @@ def wkv_cuda(r, k, v, w, u, state0):
     return o, state
 
 
+@countable("wkv_bwd")
 def wkv_bwd_cuda(r, k, v, w, u, state0, do, dstate=None):
     """Launch the WKV scan's backward; returns ``(dr, dk, dv, dw, du,
     dstate0)``, the gradients of ``wkv_cuda``'s ``(o, state)`` given ``do``

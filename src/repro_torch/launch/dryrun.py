@@ -20,10 +20,16 @@ the step's ms and ``torch.cuda.max_memory_allocated`` beside the plan.
 ``--run`` without a card raises; the plan alone runs anywhere (its specs
 allocate nothing).
 
-JAX's HLO cost analysis (``analysis/hlo_cost.py``, ``cost_analysis()``)
-has no twin: the record's roofline terms come from the model's FLOPs
-(JAX's ``model_flops_global``) and the argument bytes, at the card's
-constants, and the record says so (``"hlo_cost"``).
+JAX's record takes its FLOPs and bytes from the compiled step
+(``analysis/hlo_cost.py``). The port's takes them from the step counted on
+the meta device at the planned batch (``analysis/op_cost.py``: the
+products' FLOPs, every op's bytes, each kernel by its own work formula,
+one unit of depth times its count; a cell that does not fit is not
+counted, its ``hlo_cost`` and ``roofline`` None), under JAX's keys:
+``hlo_cost`` and the roofline's ``t_compute_s``, ``t_memory_s``,
+``hlo_flops_global``, ``useful_flops_ratio`` and ``roofline_fraction``,
+at the card's constants. ``model_flops_global`` stays JAX's ``2 or 6 x
+active params x tokens``.
 
 Importing this module does nothing: no device is touched until a cell is
 run.
@@ -43,6 +49,7 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.analysis import op_cost
 from repro_torch.configs import (SHAPES, active_param_count, get_config,
                                  param_count, runnable_cells,
                                  shape_applicability)
@@ -63,14 +70,12 @@ LONG_CHUNK = 32_768
 # JAX's dry-run training cell (``dryrun.py:99-105``): the silo-serial scan
 # tier over 8 data owners
 TRAIN_SILOS = 8
+TRAIN_OPTIMIZER = OptimizerConfig(name="adamw")
 # what the step's temporaries hold on the card beyond its tensors: cuBLAS's
 # workspace, allocated through the caching allocator, and the allocator's
 # rounding of each live block (to 2 MiB past 1 MiB); qwen2.5-3b's
 # prefill_32k measured 29.3 MB past its tensors on an H100 80GB HBM3
 WORKSPACE = 1 << 26
-NO_HLO = ("no twin: analysis/hlo_cost.py (XLA HLO) is out of the port's "
-          "scope; the roofline terms are model FLOPs over the card's bf16 "
-          "peak and argument bytes over its HBM rate")
 
 
 def train_privacy(sync_path: str = "fused") -> PrivacyConfig:
@@ -330,17 +335,34 @@ def plan_cell(arch: str, shape_name: str) -> dict:
             **cell_bytes(cfg, shape, lo * step)}
 
 
+def counted_cost(cfg: ModelConfig, shape: ShapeConfig,
+                 batch: int) -> op_cost.CostSummary:
+    """The cell's step counted at ``batch`` (``op_cost.step_cost``; a train
+    cell over JAX's ``TRAIN_SILOS`` silos)."""
+    return op_cost.step_cost(cfg, shape, batch)
+
+
 def _roofline(cfg: ModelConfig, shape: ShapeConfig, batch: int,
-              argument_bytes: int) -> dict:
+              cost: op_cost.CostSummary) -> dict:
+    """JAX's roofline terms (``repro/launch/dryrun.py:176-216``) from the
+    counted step at the card's bf16 peak and HBM rate, on one device: no
+    collective."""
     s_in = 1 if shape.kind == "decode" else shape.seq_len
     tokens = batch * s_in
     mult = 6.0 if shape.kind == "train" else 2.0
     model_flops = mult * active_param_count(cfg) * tokens
-    t_compute = model_flops / PEAK_FLOPS_BF16
-    t_memory = argument_bytes / HBM_BW
+    t_compute = cost.flops / PEAK_FLOPS_BF16
+    t_memory = cost.hbm_bytes / HBM_BW
+    t_coll = 0.0
+    dominant = max((("compute", t_compute), ("memory", t_memory),
+                    ("collective", t_coll)), key=lambda kv: kv[1])[0]
     return {"t_compute_s": t_compute, "t_memory_s": t_memory,
-            "dominant": "compute" if t_compute >= t_memory else "memory",
-            "model_flops_global": model_flops}
+            "t_collective_s": t_coll, "dominant": dominant,
+            "model_flops_global": model_flops,
+            "hlo_flops_global": cost.flops,
+            "useful_flops_ratio": model_flops / max(cost.flops, 1.0),
+            "roofline_fraction": (model_flops / PEAK_FLOPS_BF16)
+            / max(t_compute, t_memory, t_coll, 1e-30)}
 
 
 def plan_record(arch: str, shape_name: str, sync_path: str = "fused") -> dict:
@@ -372,15 +394,18 @@ def plan_record(arch: str, shape_name: str, sync_path: str = "fused") -> dict:
             "card_bytes": HBM_BYTES,
             "argument_parts": plan["argument"], "temp_parts": plan["temp"],
         },
-        "roofline": _roofline(cfg, shape, max(batch, 1),
-                              plan["argument_bytes"]),
-        "hlo_cost": NO_HLO,
     }
     if not plan["fits"]:
+        # no step of it runs on the card: nothing to count
+        rec["hlo_cost"] = rec["roofline"] = None
         rec["reason"] = (f"does not fit one card at batch "
                          f"{_step_of(shape)}: "
                          f"{rec['memory']['total_bytes_per_dev'] / 1e9:.2f}"
-                         f" GB against {HBM_BYTES / 1e9:.0f}")
+                         f" GB against {HBM_BYTES / 1e9:.0f}; not counted")
+        return rec
+    cost = counted_cost(cfg, shape, batch)
+    rec["hlo_cost"] = op_cost.hlo_cost_record(cost)
+    rec["roofline"] = _roofline(cfg, shape, batch, cost)
     return rec
 
 
@@ -438,7 +463,7 @@ def train_session(arch: str, sync_path: str = "fused", device="cuda",
     mesh = MeshConfig((TRAIN_SILOS,), ("data",)) \
         if sync_path == "barrier" else None
     sess = Session.from_config(cfg, privacy=train_privacy(sync_path),
-                               optimizer=OptimizerConfig(name="adamw"),
+                               optimizer=TRAIN_OPTIMIZER,
                                mesh=mesh, shape="train_4k", device=device)
     return dataclasses.replace(sess, model=cell_model(cfg, sess.device))
 

@@ -184,12 +184,25 @@ def test_cli_plans_every_cell_on_the_cpu(tmp_path):
     recs = {(r["arch"], r["shape"]): r for r in
             (json.loads(f.read_text()) for f in files)}
     assert recs[("zamba2-7b", "long_500k")]["status"] == "does_not_fit"
+    for r in recs.values():  # no step of a cell that does not fit runs
+        if r["status"] == "does_not_fit":
+            assert r["hlo_cost"] is None and r["roofline"] is None
     for key in (("qwen2.5-3b", "prefill_32k"), ("qwen2.5-3b", "decode_32k"),
-                ("zamba2-7b", "prefill_32k"), ("rwkv6-7b", "long_500k")):
+                ("zamba2-7b", "prefill_32k"), ("rwkv6-7b", "long_500k"),
+                ("qwen2.5-3b", "train_4k")):
         r = recs[key]
         assert r["status"] == "ok" and r["batch"] >= 1
-        assert r["hlo_cost"] == dryrun.NO_HLO
-        assert r["roofline"]["model_flops_global"] > 0
+        # the counted step (analysis/op_cost.py): FLOPs and bytes, and a
+        # useful share of the counted FLOPs
+        hc, ro = r["hlo_cost"], r["roofline"]
+        assert hc["flops_per_chip"] > 0 and hc["hbm_bytes_per_chip"] > 0
+        assert hc["while_trip_counts"]
+        assert ro["model_flops_global"] > 0
+        assert ro["useful_flops_ratio"] > 0
+        assert ro["t_compute_s"] == hc["flops_per_chip"] / mesh.PEAK_FLOPS_BF16
+    for key in (("qwen2.5-3b", "prefill_32k"), ("zamba2-7b", "prefill_32k")):
+        # attention's S x S work is counted: the model FLOPs are a share
+        assert recs[key]["roofline"]["useful_flops_ratio"] < 1
     assert dryrun.DRYRUN_OUT.parent.name == "build"
 
 

@@ -1,5 +1,5 @@
 """The port stands alone: importing every ``repro_torch`` module,
-``chip_smoke.py`` and ``examples/collaborative_mnist_torch.py`` leaves
+``chip_smoke.py`` and the port's examples (``examples/*_torch.py``) leaves
 ``jax`` and every ``repro`` module out of ``sys.modules``. Checked in a
 fresh interpreter, since this test process imports both packages. And no
 import statement in those files, at module level or inside a function (the
@@ -21,9 +21,10 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-spec = importlib.util.spec_from_file_location(
-    "collaborative_mnist_torch", "examples/collaborative_mnist_torch.py")
-spec.loader.exec_module(importlib.util.module_from_spec(spec))
+for ex in ("collaborative_mnist_torch", "quickstart_torch",
+           "serve_confidential_torch", "federated_healthcare_torch"):
+    spec = importlib.util.spec_from_file_location(ex, f"examples/{ex}.py")
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.")
                 or m == "repro" or m.startswith("repro."))
@@ -75,7 +76,11 @@ for name in ("core.prng", "core.flatbuf", "core.clipping", "core.barrier",
              "launch.mesh", "launch.specs", "launch.dryrun",
              # the MoE, VLM and encoder families
              "models.moe", "configs.phi35_moe_42b", "configs.qwen3_moe_235b",
-             "configs.qwen2_vl_72b", "configs.hubert_xlarge"):
+             "configs.qwen2_vl_72b", "configs.hubert_xlarge",
+             # the last of the JAX package: the counted step cost, the
+             # sharding rules, compression
+             "analysis.op_cost", "distributed.sharding_rules",
+             "distributed.compression"):
     assert "repro_torch." + name in names, name
 """
 
@@ -102,7 +107,7 @@ def _imported(path: pathlib.Path) -> set:
 
 def test_no_import_statement_names_jax_or_repro():
     files = [ROOT / "chip_smoke.py",
-             ROOT / "examples" / "collaborative_mnist_torch.py",
+             *sorted((ROOT / "examples").glob("*_torch.py")),
              *sorted((ROOT / "src" / "repro_torch").rglob("*.py"))]
     assert len(files) > 100
     for path in files:
